@@ -1,0 +1,89 @@
+"""Constraint-set API: violation kernels on tensors.
+
+Port of ``moeva2_ijcai22_replication_tpu/core/constraints.py``. One function
+``(..., D) -> (..., K)`` of unthresholded violations serves every consumer,
+with two thresholding flavours:
+
+- ``evaluate``: violations ``<= tol`` snap to exactly 0 (the oracle
+  semantics);
+- ``evaluate_smooth``: ``max(g - tol, 0)``, the differentiable flavour.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .schema import ConstraintBounds, FeatureSchema
+
+DEFAULT_TOL = 1e-3
+
+
+class ConstraintViolationError(ValueError):
+    pass
+
+
+class ConstraintSet:
+    """A use case's relational feature constraints. Subclasses implement
+    ``_raw`` returning unthresholded violations ``(..., K)``."""
+
+    n_constraints: int = 0
+    tol: float = DEFAULT_TOL
+
+    def __init__(self, schema: FeatureSchema, bounds: ConstraintBounds | None = None):
+        self.schema = schema
+        self.constraint_bounds = bounds
+        if bounds is not None and self.n_constraints and bounds.n_constraints != self.n_constraints:
+            raise ValueError(
+                f"{type(self).__name__} defines {self.n_constraints} constraints "
+                f"but the constraint-bounds file has {bounds.n_constraints} rows"
+            )
+
+    def _raw(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def repair(self, x: torch.Tensor) -> torch.Tensor:
+        """Project candidates toward constraint satisfaction; identity by
+        default."""
+        return x
+
+    def evaluate(self, x: torch.Tensor) -> torch.Tensor:
+        """Hard-thresholded violations: value if > tol else exactly 0."""
+        g = self._raw(x)
+        return torch.where(g > self.tol, g, 0.0)
+
+    def evaluate_smooth(self, x: torch.Tensor) -> torch.Tensor:
+        """Differentiable violations: clip(g - tol, 0, inf)."""
+        return torch.clamp(self._raw(x) - self.tol, min=0.0)
+
+    def normalise(self, g: torch.Tensor) -> torch.Tensor:
+        if self.constraint_bounds is None:
+            return g
+        cmin = np.asarray(self.constraint_bounds.cmin, np.float64)
+        rng = np.asarray(self.constraint_bounds.cmax, np.float64) - cmin
+        inv = 1.0 / np.where(rng == 0, 1.0, rng)
+        as_t = lambda a: torch.as_tensor(a, dtype=g.dtype, device=g.device)  # noqa: E731
+        return (g - as_t(cmin)) * as_t(inv)
+
+    def check_constraints_error(self, x: np.ndarray) -> None:
+        """Raise if any sample violates any constraint (evaluated in float64
+        on the CPU)."""
+        g = self.evaluate(torch.as_tensor(np.asarray(x, np.float64))).numpy()
+        n_bad = int((g > 0).sum())
+        if n_bad > 0:
+            raise ConstraintViolationError(
+                f"{n_bad} constraint violations across {int((g.sum(-1) > 0).sum())} "
+                f"samples (max violation {float(np.nanmax(g)):.6g})."
+            )
+
+    def get_mutable_mask(self) -> np.ndarray:
+        return np.asarray(self.schema.mutable)
+
+    def get_feature_type(self) -> np.ndarray:
+        return np.asarray(self.schema.types)
+
+    def get_feature_min_max(self, dynamic_input=None):
+        return self.schema.bounds(dynamic_input)
+
+    def get_nb_constraints(self) -> int:
+        return self.n_constraints

@@ -1,0 +1,117 @@
+"""Build the port's CUDA kernels on first use and load them with ctypes.
+
+Every source is compiled by its own ``nvcc`` process, all started together,
+for ``sm_90a`` at ``-O3``; the objects are linked into one shared library
+with a plain C interface (``bindings.cpp``). Nothing includes PyTorch's
+headers, so a cold build takes seconds. The library lands in
+``.torch_ext_build/`` at the root of the checkout, named by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one loads
+the existing library. A failed build raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from functools import lru_cache
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent
+BUILD_DIR = PACKAGE_DIR.parent.parent / ".torch_ext_build"
+SOURCES = ("csrc/nd_peel.cu", "csrc/associate.cu", "bindings.cpp")
+HEADERS = ("csrc/kernels.h",)
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-O3",
+    "-std=c++17",
+    "-Xcompiler=-fPIC",
+    "-Xptxas=-v",
+)
+
+
+@dataclass(frozen=True)
+class BuildInfo:
+    path: Path
+    seconds: float  # 0.0 when an existing library was reused
+    log: str  # nvcc/ptxas output (registers, shared memory, spills)
+
+
+def nvcc_path() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _fingerprint(nvcc: str) -> str:
+    h = hashlib.sha256()
+    for rel in SOURCES + HEADERS:
+        h.update(rel.encode())
+        h.update((PACKAGE_DIR / rel).read_bytes())
+    h.update(repr((nvcc, NVCC_FLAGS)).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> BuildInfo:
+    """Compile and link the kernels unless the library for these sources
+    exists already."""
+    nvcc = nvcc_path()
+    lib = BUILD_DIR / f"libmoeva_kernels_{_fingerprint(nvcc)}.so"
+    if lib.exists():
+        return BuildInfo(lib, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (Path(src).name + ".o") for src in SOURCES]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(PACKAGE_DIR / src), "-o", str(obj)],
+                stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT,
+                text=True,
+            )
+            for src, obj in zip(SOURCES, objs)
+        ]
+        logs = []
+        for src, proc in zip(SOURCES, procs):
+            out, _ = proc.communicate()
+            logs.append(f"== {src}\n{out}")
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{out}")
+        staged = Path(tmp) / lib.name
+        link = subprocess.run(
+            [nvcc, "-shared", NVCC_FLAGS[0], *map(str, objs), "-o", str(staged)],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT,
+            text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+        os.replace(staged, lib)  # atomic: a concurrent build loses nothing
+    return BuildInfo(lib, time.perf_counter() - t0, "\n".join(logs))
+
+
+@lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The built kernel library, loaded once per process, with every C
+    function's argument and return types declared."""
+    lib = ctypes.CDLL(str(build().path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.moeva_nd_peel_f32.argtypes = [ptr, ptr, i32, i32, i32, ptr]
+    lib.moeva_nd_peel_f32.restype = i32
+    lib.moeva_associate_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.moeva_associate_f32.restype = i32
+    lib.moeva_nd_peel_max_candidates.argtypes = []
+    lib.moeva_nd_peel_max_candidates.restype = i32
+    lib.moeva_error_string.argtypes = [i32]
+    lib.moeva_error_string.restype = ctypes.c_char_p
+    return lib
