@@ -8,17 +8,27 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero:
 
 1. versions: torch, CUDA, and the card's name and power limit (nvidia-smi);
-2. build the port's CUDA kernels from the sources in the checkout;
+2. build the port's six CUDA kernels from the sources in the checkout;
 3. hold each kernel against its plain PyTorch version on the card over a
-   sweep of state counts (nd_peel exactly; associate with niche equal
-   wherever the top two squared projections differ by more than 1e-6
-   relative, dist within 1e-5 absolute), including NaN, +inf and duplicate
-   rows, and time both with CUDA events at the main path's shape;
+   sweep of state counts and two shapes: K5 ``offspring``, K1
+   ``objective_lcld``, K4a ``survive_norm`` and K4b ``survive_fill`` (fill,
+   extraction, archive) bit for bit, K2 ``nd_peel`` exactly, K3
+   ``associate`` with niche equal wherever the top two squared projections
+   differ by more than 1e-6 relative and dist within 1e-5. The inputs
+   include NaN, +inf and duplicate objective rows, tied gumbels, zero-range
+   genes, NaN archive scores and candidates whose constraint denominators
+   are 0. K1 is held on the offspring (100 rows) and on the population
+   (P rows, as at init), the main path's two shapes. Each kernel is timed
+   at the main path's shape with CUDA events, around the replay of a CUDA
+   graph of 20 launches (``ms``, the kernel's device time) and around 20
+   calls of its Python wrapper (``wrapper_ms``), beside its plain version
+   and its bound (bytes and operations this run's data needs);
 4. drive the main path, ``Moeva2.generate`` on 1000 synthetic LCLD states
    at population 103 with 100 offspring, with every launch count set to 0
-   just before and read just after; check the result's shape, finiteness
-   and that only mutable features moved; hold the engine's stages on the
-   card against the CPU path, stage by stage on the same inputs;
+   just before and read just after (each must equal what the code implies);
+   check the result's shape, finiteness and that only mutable features
+   moved; hold the engine's stages on the card against the CPU path, stage
+   by stage on the same inputs;
 5. judge the result with ``ObjectiveCalculator.success_rate_3d`` (o1..o7);
 6. profile a few generation steps: ms per generation, device-busy share,
    launches, kernels and stages by device time.
@@ -76,7 +86,9 @@ def nvidia_smi_line() -> str:
 
 def cuda_ms(fn, launches: int = 20, repeats: int = 5) -> float:
     """Median over ``repeats`` of the mean time of ``launches`` calls,
-    measured with CUDA events after one warm-up call."""
+    measured with CUDA events after one warm-up call. For a kernel this
+    includes its Python wrapper: where the wrapper takes longer than the
+    kernel, it times the host's launch rate."""
     import torch
 
     fn()
@@ -88,6 +100,38 @@ def cuda_ms(fn, launches: int = 20, repeats: int = 5) -> float:
         start.record()
         for _ in range(launches):
             fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def graph_ms(fn, launches: int = 20, repeats: int = 5) -> float:
+    """Median over ``repeats`` of the mean device time per call of ``fn``'s
+    kernel launches: CUDA events around the replay of a CUDA graph that
+    captured ``launches`` calls. The wrapper's Python runs at capture only,
+    so the replay times the kernels and not the host."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / launches)
@@ -154,22 +198,153 @@ def bound_ms(n_bytes: float, n_ops: float):
 # -- phases ---------------------------------------------------------------------
 
 
-def check_kernels(device):
-    """Phase 3: parity sweep and timing of K2 and K3 against their plain
-    versions on the card. Returns the per-kernel records (launches filled
-    in later)."""
+def same_entries(got, want):
+    """Entry-wise equality, NaN where NaN (-0.0 == 0.0)."""
+    if not got.is_floating_point():
+        return got == want
+    return (got == want) | (got.isnan() & want.isnan())
+
+
+def hold_equal(got, want, what: str) -> float:
+    """Fail unless ``got`` equals ``want`` entry for entry; return the
+    largest absolute difference (0.0)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} != plain {want.dtype} {tuple(want.shape)}")
+    bad = ~same_entries(got, want)
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: {int(bad.sum())} of {bad.numel()} entries differ from the plain version")
+    return 0.0
+
+
+def hard_candidates(codec, x):
+    """Candidates ``x`` (S, N, L) with the rows the main path makes rarely:
+    categorical genes at .5 (``rint`` ties) and 0 denominators of the LCLD
+    ratio constraints (``annual_inc``, ``total_acc``, ``pub_rec``, a derived
+    month count), which give inf and NaN terms."""
+    import torch
+
+    x = x.clone()
+    x[:, ::7] = torch.where(codec.int_mask_gen, x[:, ::7] + 0.5, x[:, ::7])
+    gene = {int(d): i for i, d in enumerate(codec.non_ohe_ml_idx)}
+    for k, feat in enumerate(f for f in (6, 14, 11, 22, 0) if f in gene):
+        x[:, 3 + k :: 11, gene[feat]] = 0.0
+    return x
+
+
+def sweep_population(gen, run, codec, s: int, p: int):
+    """(S, P, L) genes uniform within the states' bounds (integer genes
+    rounded), with every fifth gene's range collapsed to its lower bound
+    (zero-range genes, which mutation leaves alone). Returns the population
+    and the bounds it was drawn in."""
+    import torch
+
+    xl, xu = run.xl_gen.clone(), run.xu_gen.clone()
+    xu[:, ::5] = xl[:, ::5]
+    u = torch.rand((s, p, xl.shape[1]), generator=gen, device=xl.device)
+    pop = xl[:, None] + u * (xu - xl)[:, None]
+    pop = torch.where(codec.int_mask_gen, torch.round(pop), pop)
+    return torch.minimum(torch.maximum(pop, xl[:, None]), xu[:, None]), xl, xu
+
+
+def fill_work(ranks, niche, n_dirs: int, n_survive: int):
+    """(available rows, niches that start empty with members): the data-
+    dependent counts of K4b's quadratic scans on these inputs."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import UNRANKED
+
+    full = (ranks[:, None, :] <= ranks[:, :, None]).sum(-1) <= n_survive
+    split = torch.where(full, UNRANKED, ranks).amin(-1)
+    avail = ranks == split[:, None]
+    onehot = torch.nn.functional.one_hot(niche, n_dirs)
+    c0 = (onehot * full[..., None]).sum(1)
+    cap = (onehot * avail[..., None]).sum(1)
+    return int(avail.sum()), int(((c0 == 0) & (cap > 0)).sum())
+
+
+def parent_rows(draws, p: int) -> int:
+    """Distinct (state, parent) rows that the matings of ``draws`` read."""
+    import torch
+
+    pairs = draws.pairs.reshape(draws.pairs.shape[0], -1)
+    return int(torch.zeros(pairs.shape[0], p, dtype=torch.bool, device=pairs.device).scatter_(1, pairs, True).sum())
+
+
+def fill_rows_read(mask, arch_f, off_f, size: int):
+    """(population, offspring, archive) rows whose genes K4b must read on
+    these inputs: the survivors of ``mask`` and the archive's ``size`` picks
+    among [archive, offspring], an offspring row counted once."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import archive_score
+
+    a, n = arch_f.shape[1], off_f.shape[1]
+    elite = torch.argsort(archive_score(torch.cat([arch_f, off_f], 1)), dim=1, stable=True)[:, :size]
+    picked = torch.zeros(mask.shape[0], a + n, dtype=torch.bool, device=mask.device).scatter_(1, elite, True)
+    p = mask.shape[1] - n
+    return int(mask[:, :p].sum()), int((mask[:, p:] | picked[:, a:]).sum()), int(picked[:, :a].sum())
+
+
+#: float32 operations per output gene of K5, counted from its source (a
+#: float64 pow counted as one: the bound stays a lower bound)
+OFFSPRING_OPS_PER_GENE = 30
+#: float32 operations per candidate of K1 besides the MLP's 2 per weight:
+#: 7 per feature (decode, min-max, distance, scaler), 60 for the softmax and
+#: the 10 LCLD terms
+OBJECTIVE_OPS_PER_FEATURE = 7
+OBJECTIVE_OPS_PER_ROW = 60
+
+
+def check_kernels(device, moeva, x):
+    """Phase 3: parity sweep of the six kernels against their plain versions
+    on the card, and their times at the main path's shape. ``moeva`` is the
+    main path's engine (its gene tables and objective tables) and ``x`` its
+    states. Returns the per-kernel records (launches filled in later)."""
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import (
+        archive_score, archive_select_plain, evaluate_plain, extract_archive_plain,
+    )
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks_plain
-    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import associate_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import (
+        draw_offspring, make_offspring_plain,
+    )
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import (
+        NormState, associate_plain, survive_fill_plain, survive_norm_plain,
+    )
 
     rng = np.random.default_rng(0)
+    gen = torch.Generator(device=device).manual_seed(0)
+    codec, tables, obj, cons = moeva.codec, moeva.tables, moeva._objective, moeva.constraints
+    n_gene = codec.gen_length
     assoc_err = 0.0
     tie_mismatch = 0
     inf_rows = 0
+    counts = {"nonfinite objectives": 0, "NaN archive scores": 0, "zero-range genes": 0}
+    timing = {}
     for m, r, n_stop in SWEEP_SHAPES:
+        p, n_off, a = n_stop, m - n_stop, r - 3
+        asp = torch.as_tensor(rng.dirichlet(np.ones(3), a).astype(np.float32), device=device)
         for s in SWEEP_STATES:
+            run = moeva.prepare(x[:s], np.arange(s) % 2)
+            # K5 offspring
+            pop, xl, xu = sweep_population(gen, run, codec, s, p)
+            counts["zero-range genes"] += int((xl == xu).sum())
+            draws = draw_offspring(gen, s, p, n_off, n_gene)
+            off = kernels.offspring(tables, pop, xl, xu, n_off, draws)
+            hold_equal(off, make_offspring_plain(tables, pop, xl, xu, n_off, draws), f"offspring S={s} P={p}")
+            # K1 at the main path's two shapes: the offspring (N_off rows, each
+            # step) and the population (P rows, as at init)
+            hard = {"off": hard_candidates(codec, off), "pop": hard_candidates(codec, pop)}
+            f_obj = {}
+            for rows, cand in hard.items():
+                f_obj[rows] = kernels.objective_lcld(cand, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm,
+                                                     run.minimize_class, obj)
+                hold_equal(f_obj[rows], evaluate_plain(obj, codec, run, cand, cons),
+                           f"objective_lcld S={s} N={cand.shape[1]}")
+                counts["nonfinite objectives"] += int((~torch.isfinite(f_obj[rows])).any(-1).sum())
+            # K2 front peel
             f = torch.as_tensor(sweep_objectives(rng, s, m), device=device)
             inf_rows += int((torch.isinf(f).any(-1) & ~torch.isnan(f).any(-1)).sum())
             for stop in (n_stop, m):
@@ -178,81 +353,158 @@ def check_kernels(device):
                 if not torch.equal(got, want):
                     bad = int((got != want).sum())
                     raise AssertionError(f"nd_peel != plain at S={s} M={m} n_stop={stop}: {bad} ranks differ")
-            dirs = torch.as_tensor(sweep_directions(rng, s, r), device=device)
-            ideal, nadir = finite_ideal_nadir(f)
-            niche, dist = kernels.associate(f, dirs, ideal, nadir)
-            niche_p, dist_p = associate_plain(f, dirs, ideal, nadir)
+            ranks = kernels.nd_peel(f, n_stop)
+            # K4a normalisation, from the initial state and from a warm one
+            state = NormState.init(s, 3, device=device)
+            for step in range(2):
+                got = kernels.survive_norm(f, ranks, asp, state)
+                new_state, nadir, dirs = survive_norm_plain(f, ranks, asp, state)
+                for name, g, w in zip(("ideal", "worst", "extreme", "nadir", "dirs"), got, (*new_state, nadir, dirs)):
+                    hold_equal(g, w, f"survive_norm {name} S={s} M={m} step {step}")
+                state = new_state
+            # K3 association
+            dirs_sw = torch.as_tensor(sweep_directions(rng, s, r), device=device)
+            ideal_sw, nadir_sw = finite_ideal_nadir(f)
+            niche_k, dist_k = kernels.associate(f, dirs_sw, ideal_sw, nadir_sw)
+            niche_p, dist_p = associate_plain(f, dirs_sw, ideal_sw, nadir_sw)
             # rows where the top two squared projections are within the tie
             # band may legitimately pick either direction
-            n = ((f - ideal[:, None]) / torch.where(nadir == ideal, 1e-12, nadir - ideal)[:, None]).double()
-            d = dirs.double() / torch.linalg.vector_norm(dirs.double(), dim=-1, keepdim=True)
+            n = ((f - ideal_sw[:, None]) / torch.where(nadir_sw == ideal_sw, 1e-12, nadir_sw - ideal_sw)[:, None]).double()
+            d = dirs_sw.double() / torch.linalg.vector_norm(dirs_sw.double(), dim=-1, keepdim=True)
             top2 = torch.topk(torch.einsum("smk,srk->smr", n, d) ** 2, 2, dim=-1).values
             gap = (top2[..., 0] - top2[..., 1]) / top2[..., 0].abs().clamp_min(1e-30)
-            differ = niche != niche_p
+            differ = niche_k != niche_p
             if bool((differ & ~(gap <= ASSOC_TIE_REL)).any()):
                 raise AssertionError(f"associate niche != plain outside the tie band at S={s} M={m}")
             tie_mismatch += int(differ.sum())
-            both_nan = torch.isnan(dist) & torch.isnan(dist_p)
-            if bool((torch.isnan(dist) != torch.isnan(dist_p)).any()):
+            both_nan = torch.isnan(dist_k) & torch.isnan(dist_p)
+            if bool((torch.isnan(dist_k) != torch.isnan(dist_p)).any()):
                 raise AssertionError(f"associate dist NaN pattern != plain at S={s} M={m}")
-            same = niche == niche_p
-            err = (dist - dist_p).abs()[same & ~both_nan]
+            err = (dist_k - dist_p).abs()[(niche_k == niche_p) & ~both_nan]
             assoc_err = max(assoc_err, float(err.max()) if err.numel() else 0.0)
             if assoc_err > ASSOC_DIST_ATOL:
                 raise AssertionError(f"associate dist off by {assoc_err} at S={s} M={m}")
+            # K4b fill, extraction and archive, on K4a's directions; tied
+            # gumbels; an inf violation gives a NaN archive score
+            niche, dist = kernels.associate(f, dirs, state.ideal, nadir)
+            gum_cut = -torch.log(-torch.log(torch.rand((s, r), generator=gen, device=device).clamp_min(1e-30)))
+            gum_mem = -torch.log(-torch.log(torch.rand((s, m), generator=gen, device=device).clamp_min(1e-30)))
+            gum_cut[:, ::3] = 0.25
+            gum_mem[:, ::4] = -0.5
+            pop_f, off_f = f[:, :p], f[:, p:]
+            arch_x, arch_f = pop[:, :24], f_obj["pop"][:, :24].clone()
+            arch_f[:, 3, 2] = torch.inf
+            counts["NaN archive scores"] += int(torch.isnan(archive_score(torch.cat([arch_f, off_f], 1))).sum())
+            mask = survive_fill_plain(gum_cut, gum_mem, ranks, niche, dist, n_stop)
+            hold_equal(kernels.survive_fill(gum_cut, gum_mem, ranks, niche, dist, n_stop).mask, mask,
+                       f"survive_fill mask S={s} M={m}")
+            out = kernels.survive_fill(gum_cut, gum_mem, ranks, niche, dist, n_stop,
+                                       extract=(pop, off, pop_f, off_f), archive=(arch_x, arch_f, off, off_f, 24))
+            want = extract_archive_plain(mask, pop, off, pop_f, off_f, arch_x, arch_f)
+            for name, g, w in zip(("mask", "pop_x", "pop_f", "arch_x", "arch_f"), out, (mask, *want)):
+                hold_equal(g, w, f"survive_fill {name} S={s} M={m}")
+            for g, w in zip(kernels.archive_select(pop, f_obj["pop"], pop[:, :0], f_obj["pop"][:, :0], 24),
+                            archive_select_plain(pop, f_obj["pop"], 24)):
+                hold_equal(g, w, f"archive_select S={s} P={p}")
+            if s == N_STATES and m == SWEEP_SHAPES[0][0]:
+                timing = dict(run=run, pop=pop, xl=xl, xu=xu, draws=draws, off=off, cand=hard["off"], f=f,
+                              ranks=ranks, asp=asp, state0=NormState.init(s, 3, device=device), niche=niche,
+                              dist=dist, gum_cut=gum_cut, gum_mem=gum_mem, arch_x=arch_x, arch_f=arch_f,
+                              dirs=dirs_sw, ideal=ideal_sw, nadir=nadir_sw)
         log(f"[kernels] parity ok at M={m} R={r}: S in {SWEEP_STATES}")
+    log(f"[kernels] offspring, objective_lcld, survive_norm and survive_fill equal their plain versions on every "
+        f"entry; swept {counts}")
     log(f"[kernels] associate: max |dist - plain| = {assoc_err:.3e}, "
         f"niche picks differing inside the {ASSOC_TIE_REL:g} tie band: {tie_mismatch}; "
         f"{inf_rows} swept rows with an inf and no NaN objective (NaN and inf projections)")
+    return time_kernels(device, moeva, timing, assoc_err)
 
-    # timing at the main path's shape
+
+def time_kernels(device, moeva, t, assoc_err):
+    """Each kernel's device time, wrapper time, plain time and bound at the
+    main path's shape (S = 1000, M = 203, R = 103), on the sweep's inputs."""
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import (
+        evaluate_plain, extract_archive_plain,
+    )
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import make_offspring_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import (
+        associate_plain, survive_fill_plain, survive_norm_plain,
+    )
+
     m, r, n_stop = SWEEP_SHAPES[0]
-    f = torch.as_tensor(sweep_objectives(rng, N_STATES, m), device=device)
-    dirs = torch.as_tensor(sweep_directions(rng, N_STATES, r), device=device)
-    ideal, nadir = finite_ideal_nadir(f)
-    ranks = kernels.nd_peel(f, n_stop).cpu().numpy()
-    peel_bytes = 4 * N_STATES * m * 3 + 4 * N_STATES * m
-    assoc_bytes = 4 * (N_STATES * m * 3 + N_STATES * r * 3 + 2 * N_STATES * 3) + 12 * N_STATES * m
-    assoc_ops = 6 * N_STATES * m * r + 9 * N_STATES * r + 12 * N_STATES * m
+    s, n, l = t["off"].shape
+    p, a, d = n_stop, r - 3, moeva.codec.n_features
+    n_mat = (n + 1) // 2
+    run, obj, tables = t["run"], moeva._objective, moeva.tables
+    widths = [obj.layers[0][0].shape[1], *(w.shape[0] for w, _ in obj.layers)]
+    macs = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
+    n_params = sum(w.numel() + b.numel() for w, b in obj.layers)
+    ranks_np = t["ranks"].cpu().numpy()
+    n_avail, n_first = fill_work(t["ranks"], t["niche"], r, n_stop)
+    n_cand, n_arch = 24 + n, 24
+    fill_args = (t["gum_cut"], t["gum_mem"], t["ranks"], t["niche"], t["dist"], n_stop)
+    # rows of genes the two gathers must read on these inputs
+    n_parents = parent_rows(t["draws"], p)
+    pop_rows, off_rows, arch_rows = fill_rows_read(survive_fill_plain(*fill_args), t["arch_f"], t["f"][:, p:], n_arch)
+    extract = (t["pop"], t["off"], t["f"][:, :p], t["f"][:, p:])
+    archive = (t["arch_x"], t["arch_f"], t["off"], t["f"][:, p:], n_arch)
+
+    def fill_plain():
+        mask = survive_fill_plain(*fill_args)
+        return extract_archive_plain(mask, *extract, t["arch_x"], t["arch_f"])
+
+    specs = (
+        ("offspring", "csrc/offspring.cu", "attacks/moeva/operators.py:233",
+         lambda: kernels.offspring(tables, t["pop"], t["xl"], t["xu"], n, t["draws"]),
+         lambda: make_offspring_plain(tables, t["pop"], t["xl"], t["xu"], n, t["draws"]),
+         4 * n_parents * l + 8 * s * l + 16 * s * n_mat + 48 * s * n_mat + 12 * s * n_mat + 8 * s * n * l
+         + 25 * l + 4 * s * n * l,
+         OFFSPRING_OPS_PER_GENE * s * n * l, 0.0),
+        ("objective_lcld", "csrc/objective_lcld.cu", "attacks/moeva/engine.py:452",
+         lambda: kernels.objective_lcld(t["cand"], run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm,
+                                        run.minimize_class, obj),
+         lambda: evaluate_plain(obj, moeva.codec, run, t["cand"], moeva.constraints),
+         4 * s * n * l + 16 * s * d + 8 * s + 4 * n_params + 16 * d + 12 * s * n,
+         s * n * (2 * macs + OBJECTIVE_OPS_PER_FEATURE * d + OBJECTIVE_OPS_PER_ROW), 0.0),
+        ("nd_peel", "csrc/nd_peel.cu", "attacks/moeva/nds.py:39",
+         lambda: kernels.nd_peel(t["f"], n_stop), lambda: nd_ranks_plain(t["f"], n_stop),
+         4 * s * m * 3 + 4 * s * m, nd_peel_ops(ranks_np, m), 0.0),
+        ("survive_norm", "csrc/survive_norm.cu", "attacks/moeva/survival.py:325",
+         lambda: kernels.survive_norm(t["f"], t["ranks"], t["asp"], t["state0"]),
+         lambda: survive_norm_plain(t["f"], t["ranks"], t["asp"], t["state0"]),
+         16 * s * m + 12 * a + 60 * s + 72 * s + 12 * s * r,
+         s * (24 * (3 + m + a) + 9 * m + 26 * a + 60), 0.0),
+        ("associate", "csrc/associate.cu", "attacks/moeva/survival.py:225",
+         lambda: kernels.associate(t["f"], t["dirs"], t["ideal"], t["nadir"]),
+         lambda: associate_plain(t["f"], t["dirs"], t["ideal"], t["nadir"]),
+         4 * (s * m * 3 + s * r * 3 + 2 * s * 3) + 12 * s * m, 6 * s * m * r + 9 * s * r + 12 * s * m, assoc_err),
+        ("survive_fill", "csrc/survive_fill.cu", "attacks/moeva/survival.py:351",
+         lambda: kernels.survive_fill(*fill_args, extract=extract, archive=archive), fill_plain,
+         21 * s * m + 4 * s * r + 4 * l * (pop_rows + off_rows + arch_rows)
+         + 12 * (pop_rows + s * n + s * t["arch_f"].shape[1]) + 4 * s * (p + n_arch) * (l + 3),
+         s * (4 * m + 40 * r) + 3 * m * n_avail + 2 * m * n_first + 6 * s * n_cand * n_cand, 0.0),
+    )
     records = []
-    for name, source, replaces, kfn, pfn, n_bytes, n_ops, err in (
-        (
-            "nd_peel",
-            "moeva2_ijcai22_replication_tpu_torch/kernels/csrc/nd_peel.cu",
-            "moeva2_ijcai22_replication_tpu/attacks/moeva/nds.py:39",
-            lambda: kernels.nd_peel(f, n_stop),
-            lambda: nd_ranks_plain(f, n_stop),
-            peel_bytes,
-            nd_peel_ops(ranks, m),
-            0.0,
-        ),
-        (
-            "associate",
-            "moeva2_ijcai22_replication_tpu_torch/kernels/csrc/associate.cu",
-            "moeva2_ijcai22_replication_tpu/attacks/moeva/survival.py:225",
-            lambda: kernels.associate(f, dirs, ideal, nadir),
-            lambda: associate_plain(f, dirs, ideal, nadir),
-            assoc_bytes,
-            assoc_ops,
-            assoc_err,
-        ),
-    ):
+    for name, source, replaces, kfn, pfn, n_bytes, n_ops, err in specs:
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         rec = {
             "name": name,
             "route": "cuda",
-            "source": source,
-            "replaces": replaces,
+            "source": "moeva2_ijcai22_replication_tpu_torch/kernels/" + source,
+            "replaces": "moeva2_ijcai22_replication_tpu/" + replaces,
             "launches": 0,
             "max_abs_err": err,
-            "ms": cuda_ms(kfn),
+            "ms": graph_ms(kfn),
+            "wrapper_ms": cuda_ms(kfn),
             "plain_ms": cuda_ms(pfn, launches=5, repeats=3),
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None,
         }
-        log(f"[kernels] {name} at S={N_STATES} M={m} R={r}: kernel {rec['ms']:.4f} ms, "
-            f"plain {rec['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        log(f"[kernels] {name} at S={s} M={m} R={r}: device {rec['ms']:.4f} ms, through the wrapper "
+            f"{rec['wrapper_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
         records.append(rec)
     return records
 
@@ -279,21 +531,24 @@ def check_step_against_cpu(moeva_gpu, moeva_cpu, moeva_ref, x, device):
     (both float32), fed the same draws, made on the CPU. Each step starts both
     from the CPU's carry and compares the stages in order, on the same inputs:
 
-    - offspring (K5) and the objectives (K1) of the CPU's offspring: each
-      device's error against the float64 CPU path (``moeva_ref``) on the same
-      inputs, offspring over each gene's range, objectives per component;
-      the card's must be at most ``STEP_ERR_RATIO`` times the CPU's;
-    - survival of the CPU's merged objectives: ranks (K2), directions,
-      nadir, niche and dist (K3), the survivor mask and the normalisation
-      state must be bit for bit equal.
+    - offspring (K5) and the objectives (K1) of the CPU's offspring: the
+      entries that differ between the devices are counted (0 expected: both
+      run the same rounded operations); each device's error against the
+      float64 CPU path (``moeva_ref``) is held as a floor, the card's at
+      most ``STEP_ERR_RATIO`` times the CPU's;
+    - survival of the CPU's merged objectives: ranks (K2), normalisation
+      state, nadir and directions (K4a), niche and dist (K3), and the fill,
+      the next population and the archive (K4b) must be equal.
 
-    The same three steps run free on each device are reported, not held:
-    there the objectives' float32 rounding, which differs between the
-    devices, can flip a survival decision."""
+    The same three steps run free on each device are reported: with every
+    stage equal, their populations agree on every row."""
     import torch
 
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import extract_archive_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import (
-        _survive_post, _survive_pre, associate_batch, draw_gumbels,
+        associate_batch, draw_gumbels, survive_fill_plain, survive_norm,
     )
 
     def to(t, dev, dtype=None):
@@ -302,16 +557,21 @@ def check_step_against_cpu(moeva_gpu, moeva_cpu, moeva_ref, x, device):
             return type(t)(*items) if hasattr(t, "_fields") else tuple(items)
         return t.to(dev, dtype if dtype is not None and t.is_floating_point() else t.dtype)
 
-    def survive_stages(moeva, f, state, gum_cut, gum_mem):
-        ranks, dirs, nadir, new_state = _survive_pre(f, moeva.asp_points, state, moeva.pop_size)
+    def survive_stages(moeva, f, state, gum_cut, gum_mem, pop_x, off, pop_f, off_f, arch_x, arch_f):
+        ranks = nd_ranks(f, n_stop=moeva.pop_size)
+        new_state, nadir, dirs = survive_norm(f, ranks, moeva.asp_points, state)
         niche, dist = associate_batch(f, dirs, new_state.ideal, nadir)
-        mask = _survive_post(gum_cut, gum_mem, ranks, niche, dist, dirs.shape[1], moeva.pop_size)
+        if f.is_cuda:
+            mask, *tail = kernels.survive_fill(
+                gum_cut, gum_mem, ranks, niche, dist, moeva.pop_size,
+                extract=(pop_x, off, pop_f, off_f), archive=(arch_x, arch_f, off, off_f, arch_x.shape[1]),
+            )
+        else:
+            mask = survive_fill_plain(gum_cut, gum_mem, ranks, niche, dist, moeva.pop_size)
+            tail = extract_archive_plain(mask, pop_x, off, pop_f, off_f, arch_x, arch_f)
         return dict(ranks=ranks, directions=dirs, nadir=nadir, niche=niche, dist=dist, mask=mask,
+                    **dict(zip(("pop_x", "pop_f", "arch_x", "arch_f"), tail)),
                     **{f"state.{k}": v for k, v in new_state._asdict().items()})
-
-    def same_entries(a, b):
-        a = a.cpu()
-        return (a == b) | (a.isnan() & b.isnan())
 
     xs = x[:8]
     mc = np.ones(len(xs), dtype=np.int64)
@@ -337,25 +597,27 @@ def check_step_against_cpu(moeva_gpu, moeva_cpu, moeva_ref, x, device):
             f_c = moeva_cpu._evaluate(run_c, off_c)
             f_g = moeva_gpu._evaluate(run_g, off_c.to(device))
             f_r = moeva_ref._evaluate(run_r, off_c.double())
-            differ["offspring"] += int((off_g.cpu() != off_c).sum())
-            differ["objectives"] += int((~same_entries(f_g, f_c)).sum())
+            differ["offspring"] += int((~same_entries(off_g.cpu(), off_c)).sum())
+            differ["objectives"] += int((~same_entries(f_g.cpu(), f_c)).sum())
             for k in range(3):
                 for i, f in enumerate((f_g, f_c)):
                     err[f"f{k + 1}"][i] = max(err[f"f{k + 1}"][i], max_err(f[..., k], f_r[..., k]))
             merged = torch.cat([carry_c.pop_f, f_c], dim=1)
-            want = survive_stages(moeva_cpu, merged, carry_c.norm_state, dr.gum_cut, dr.gum_mem)
-            got = survive_stages(moeva_gpu, merged.to(device), to(carry_c.norm_state, device), dr_g.gum_cut, dr_g.gum_mem)
+            args = (carry_c.norm_state, dr.gum_cut, dr.gum_mem, pop_x, off_c, carry_c.pop_f, f_c,
+                    carry_c.arch_x, carry_c.arch_f)
+            want = survive_stages(moeva_cpu, merged, *args)
+            got = survive_stages(moeva_gpu, merged.to(device), *to(args, device))
             for name in want:
-                if not bool(same_entries(got[name], want[name]).all()):
+                if not bool(same_entries(got[name].cpu(), want[name]).all()):
                     raise AssertionError(f"step {step}: survival {name} on the card != CPU on the same objectives "
                                          f"(max |difference| {max_err(got[name], want[name]):.3e})")
             carry_c = moeva_cpu.gen_step(run_c, carry_c, dr)
             free_g = moeva_gpu.gen_step(run_g, free_g, dr_g)
-    log("[main] engine stages on the same inputs over 3 steps, float32 error against the float64 CPU path "
-        "(card, CPU): " + ", ".join(f"{k} {g:.3e} {c:.3e}" for k, (g, c) in err.items())
-        + f" (offspring over each gene's range); entries that differ between the devices: offspring "
-        f"{differ['offspring']} of {3 * off_c.numel()}, objectives {differ['objectives']} of {3 * f_c.numel()}")
-    log("[main] survival of the same objectives, card vs CPU: " + ", ".join(want) + " equal")
+    log("[main] engine stages on the same inputs over 3 steps, entries that differ between the card and the CPU: "
+        f"offspring {differ['offspring']} of {3 * off_c.numel()}, objectives {differ['objectives']} of "
+        f"{3 * f_c.numel()}; float32 error against the float64 CPU path (card, CPU): "
+        + ", ".join(f"{k} {g:.3e} {c:.3e}" for k, (g, c) in err.items()) + " (offspring over each gene's range)")
+    log("[main] survival, extraction and archive of the same objectives, card vs CPU: " + ", ".join(want) + " equal")
     for k, (g, c) in err.items():
         if g > STEP_ERR_RATIO * c:
             raise AssertionError(f"{k} on the card is off the float64 path by {g:.3e}, on the CPU by {c:.3e}")
@@ -408,19 +670,44 @@ def profile_generation(moeva, x):
         log(f"[profile] stage {e.key}: device span {per_gen(dev(e)):.4f} ms/gen (idle gaps included)")
 
 
-def run_main_path(device, smi: str):
+def main_path_engine(device):
+    """The main path's problem (1000 synthetic LCLD states, a seeded
+    surrogate and scaler) and its engine on ``device``."""
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
+    from moeva2_ijcai22_replication_tpu_torch.problems import synthetic_lcld_problem
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cons, sur, scaler, x = synthetic_lcld_problem(tmp, N_STATES)
+    knobs = dict(norm=2, n_gen=N_GEN, n_pop=100, n_offsprings=100, archive_size=24, seed=42)
+    return Moeva2(sur, cons, ml_scaler=scaler, device=device, **knobs), x, knobs
+
+
+def expected_launches(moeva, n_states: int) -> dict:
+    """Launches of one ``generate`` call that the engine's code implies: per
+    chunk of states, the initial round (objectives, survival, the archive
+    seeding on K4b) and ``n_gen - 1`` generation steps."""
+    chunk = moeva.max_states_per_call or n_states
+    chunks = -(-n_states // chunk)
+    steps = moeva.n_gen - 1
+    return {
+        "offspring": chunks * steps,
+        "objective_lcld": chunks * (1 + steps),
+        "nd_peel": chunks * (1 + steps),
+        "survive_norm": chunks * (1 + steps),
+        "associate": chunks * (1 + steps),
+        "survive_fill": chunks * (1 + steps + (1 if moeva.archive_size else 0)),
+    }
+
+
+def run_main_path(device, smi: str, moeva, x, knobs):
     """Phases 4 to 6."""
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
     from moeva2_ijcai22_replication_tpu_torch.attacks.objective import ObjectiveCalculator
-    from moeva2_ijcai22_replication_tpu_torch.problems import synthetic_lcld_problem
 
-    with tempfile.TemporaryDirectory() as tmp:
-        cons, sur, scaler, x = synthetic_lcld_problem(tmp, N_STATES)
-    knobs = dict(norm=2, n_gen=N_GEN, n_pop=100, n_offsprings=100, archive_size=24, seed=42)
-    moeva = Moeva2(sur, cons, ml_scaler=scaler, device=device, **knobs)
+    sur, cons, scaler = moeva.classifier, moeva.constraints, moeva.ml_scaler
     log(f"[main] Moeva2 on {N_STATES} LCLD states: pop {moeva.pop_size}, "
         f"{moeva.n_offsprings} offspring (M={moeva.pop_size + moeva.n_offsprings}, "
         f"R={moeva.n_dirs}), archive 24, {N_GEN} generations")
@@ -442,6 +729,8 @@ def run_main_path(device, smi: str):
     for name, n in launches.items():
         if n < 1:
             raise AssertionError(f"kernel {name} was not launched on the main path")
+    if launches != expected_launches(moeva, N_STATES):
+        raise AssertionError(f"launches {launches} != {expected_launches(moeva, N_STATES)} implied by the code")
 
     p = moeva.pop_size + 24
     if res.x_ml.shape != (N_STATES, p, cons.schema.n_features):
@@ -503,8 +792,9 @@ def main() -> int:
         if "registers" in line or "==" in line or "spill" in line:
             log(f"[build] {line.strip()}")
 
-    records = check_kernels(device)
-    launches = run_main_path(device, smi)
+    moeva, x, knobs = main_path_engine(device)
+    records = check_kernels(device, moeva, x)
+    launches = run_main_path(device, smi, moeva, x, knobs)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if not all(math.isfinite(rec[k]) for k in ("ms", "plain_ms", "bound_ms")):
@@ -515,8 +805,8 @@ def main() -> int:
         "ok": True,
         "device": {
             "platform": "gpu",
-            "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
+            "kind": torch.cuda.get_device_name(device),
+            "count": 1,  # the run uses cuda:0 alone
         },
     }))
     return 0

@@ -11,6 +11,15 @@ Every random number a generation consumes comes from one
 ``torch.Generator`` on the engine's device through :meth:`draw_generation`;
 :meth:`gen_step` takes those draws as an argument, so a test can feed it
 the JAX package's draws instead.
+
+On the card a generation is the draws, then six hand-written kernels: K5
+offspring, K1 objectives, K2 front peel, K4a normalisation, K3 niche
+association and K4b fill, extraction and archive. The one other device op
+of a step is the ``torch.cat`` of the population's and the offspring's
+objectives that K2, K4a and K3 read. On the CPU every stage runs its plain
+PyTorch version (:func:`evaluate_plain`, :func:`extract_archive_plain` and
+those of ``operators`` and ``survival``), which spells out its kernel's
+arithmetic one rounded operation at a time.
 """
 
 from __future__ import annotations
@@ -27,13 +36,17 @@ from torch.profiler import record_function
 from ... import resolve_device
 from ...core import codec as codec_lib
 from ...core.constraints import ConstraintSet
-from ...core.norms import is_l2, lp_distance, validate_norm
+from ...core.norms import is_inf, is_l2, validate_norm
 from ...models.io import Surrogate
+from ...models.mlp import MLP
 from ...models.scalers import MinMaxParams
 from .initialisation import tile_init
 from .operators import OffspringDraws, draw_offspring, make_offspring, make_operator_tables
 from .refdirs import energy_ref_dirs, rnsga3_geometry
-from .survival import NormState, draw_gumbels, survive_batch
+from .survival import (
+    NormState, _sqrt_rn, _sum_last, draw_gumbels, survive_batch, survive_fill_plain,
+    survive_stages,
+)
 
 
 @dataclass
@@ -79,6 +92,134 @@ class RunInputs(NamedTuple):
     minimize_class: torch.Tensor  # (S,) int64
 
 
+class ObjectiveTables(NamedTuple):
+    """What the objectives (K1) need besides a run's inputs, on the engine's
+    device and in its dtype."""
+
+    feat_gene: torch.Tensor  # (D,) int32 — gene that feeds feature d; -1 = immutable
+    feat_onehot: torch.Tensor  # (D,) int32 — d's slot in its one-hot group; -1 = the gene itself
+    layers: tuple  # ((weight (out, in), bias (out,)), ...) of the relu stack
+    params: torch.Tensor  # the same weights flat, each layer's weight then its bias
+    scaler: tuple | None  # (scale (D,), min_ (D,)): x * scale + min_
+    f2_scale: float  # √D under L2, 1 under L∞
+    norm_inf: bool
+    tol: float  # violations up to tol count as 0
+
+
+def make_objective_tables(codec, model: MLP, scaler, norm, tol: float) -> ObjectiveTables:
+    """K1's tables for ``codec`` and ``model``, on the model's device and in
+    its dtype; ``scaler`` is ``(scale, min_)`` tensors or None."""
+    w0 = model.layers[0].weight
+    feat_gene = np.full(codec.n_features, -1, dtype=np.int32)
+    feat_onehot = np.full(codec.n_features, -1, dtype=np.int32)
+    feat_gene[codec.non_ohe_ml_idx.cpu().numpy()] = np.arange(codec.n_non_ohe)
+    group_idx = codec.group_ml_idx.cpu().numpy()
+    for g, (idx, real) in enumerate(zip(group_idx, codec.group_pad_mask.cpu().numpy())):
+        feat_gene[idx[real]] = codec.n_non_ohe + g
+        feat_onehot[idx[real]] = np.arange(real.sum())
+    layers = tuple((layer.weight, layer.bias) for layer in model.layers)
+    as_t = lambda a: torch.as_tensor(a, device=w0.device)  # noqa: E731
+    return ObjectiveTables(
+        feat_gene=as_t(feat_gene),
+        feat_onehot=as_t(feat_onehot),
+        layers=layers,
+        params=torch.cat([t.reshape(-1) for pair in layers for t in pair]),
+        scaler=scaler,
+        f2_scale=float(np.sqrt(codec.n_features)) if is_l2(norm) else 1.0,
+        norm_inf=is_inf(norm),
+        tol=float(tol),
+    )
+
+
+def _scalar(like: torch.Tensor, v: float) -> torch.Tensor:
+    """``v`` as a 0-d tensor on ``like``'s device. Dividing by it is a true
+    division on every device, while PyTorch on CUDA turns a division by a
+    Python number into a product with its rounded reciprocal."""
+    return torch.full((), v, dtype=like.dtype, device=like.device)
+
+
+def _exp_rn(t: torch.Tensor) -> torch.Tensor:
+    """``exp`` in float64, rounded once to ``t``'s dtype: the same bits on
+    the card, on the CPU and in kernel K1."""
+    return torch.exp(t.double()).to(t.dtype)
+
+
+def mlp_proba_plain(layers, x: torch.Tensor) -> torch.Tensor:
+    """Class probabilities of the relu stack ``layers`` in K1's order: in
+    float32 each unit starts from its bias and adds ``weight[k] * x[k]`` for
+    k = 0, 1, … one rounded operation at a time (float64, which no kernel
+    computes, takes one matmul per layer); softmax as ``exp(l - max)`` over
+    the left-to-right sum, a 1-column (sigmoid) head as ``[1 - p, p]``."""
+    a = x
+    for i, (w, b) in enumerate(layers):
+        if a.dtype == torch.float64:
+            acc = torch.nn.functional.linear(a, w, b)
+        else:
+            acc = b.expand(*a.shape[:-1], b.shape[0])
+            for k in range(w.shape[1]):
+                acc = acc + a[..., k, None] * w[:, k]
+        a = torch.relu(acc) if i < len(layers) - 1 else acc
+    if a.shape[-1] == 1:
+        p = 1.0 / (1.0 + _exp_rn(-a))
+        return torch.cat([1.0 - p, p], dim=-1)
+    e = _exp_rn(a - a.amax(-1, keepdim=True))
+    return e / _sum_last(e, keepdim=True)
+
+
+def evaluate_plain(obj: ObjectiveTables, codec, run: "RunInputs", x_gen, constraints) -> torch.Tensor:
+    """(S, N, L) genetic candidates -> (S, N, 3) objectives
+    ``[P(minimize_class), Lp distance / f2_scale, Σ violations]``, the
+    semantics of kernel K1. The violations are ``constraints.evaluate``,
+    which for LCLD runs K1's order of operations."""
+    x_f = codec_lib.genetic_to_ml(codec, x_gen, run.x_init_ml[:, None, :])
+    x_mm = codec_lib.minmax_normalize(x_f, run.xl_ml[:, None, :], run.xu_ml[:, None, :])
+    x_in = x_f if obj.scaler is None else x_f * obj.scaler[0] + obj.scaler[1]
+    probs = mlp_proba_plain(obj.layers, x_in)
+    f1 = torch.gather(probs, -1, run.minimize_class[:, None, None].expand(*probs.shape[:-1], 1))[..., 0]
+    diff = x_mm - run.x_init_mm[:, None, :]
+    dist = torch.abs(diff).amax(-1) if obj.norm_inf else _sqrt_rn(_sum_last(diff * diff))
+    f2 = dist / _scalar(dist, obj.f2_scale)
+    return torch.stack([f1, f2, _sum_last(constraints.evaluate(x_f))], dim=-1)
+
+
+def archive_score(f: torch.Tensor) -> torch.Tensor:
+    """Feasible-first elite ranking: feasible candidates score in [0, ~1]
+    by misclassification prob + distance tiebreak, infeasible ones in
+    (2, 3) by squashed violation mass (NaN for an infinite one)."""
+    g = f[..., 2]
+    return torch.where(g > 0, 2.0 + g / (1.0 + g), f[..., 0] + 1e-3 * f[..., 1])
+
+
+def archive_select_plain(cand_x, cand_f, size: int):
+    """The ``size`` best candidates by :func:`archive_score`; a stable sort
+    keeps the earlier candidate on ties and puts NaN scores last."""
+    elite = torch.argsort(archive_score(cand_f), dim=1, stable=True)[:, :size]
+    return (
+        torch.gather(cand_x, 1, elite[..., None].expand(-1, -1, cand_x.shape[-1])),
+        torch.gather(cand_f, 1, elite[..., None].expand(-1, -1, cand_f.shape[-1])),
+    )
+
+
+def extract_archive_plain(mask, pop_x, off, pop_f, off_f, arch_x, arch_f):
+    """The tail of a generation, the semantics of kernel K4b after the fill:
+    the survivors of ``mask`` (S, P + N) over [population, offspring], first
+    and in their original order, as the next (S, P) population; and the
+    archive's A best of [archive, offspring]."""
+    n_true = mask.sum(1, keepdim=True)
+    dest = torch.where(mask, torch.cumsum(mask, 1) - 1, n_true + torch.cumsum(~mask, 1) - 1)
+    src = torch.arange(mask.shape[1], device=mask.device).expand_as(dest)
+    order = torch.zeros_like(dest).scatter_(1, dest, src)[:, : pop_x.shape[1]]
+    merged_x = torch.cat([pop_x, off], dim=1)
+    merged_f = torch.cat([pop_f, off_f], dim=1)
+    new_x = torch.gather(merged_x, 1, order[..., None].expand(-1, -1, merged_x.shape[-1]))
+    new_f = torch.gather(merged_f, 1, order[..., None].expand(-1, -1, 3))
+    if arch_x.shape[1]:
+        arch_x, arch_f = archive_select_plain(
+            torch.cat([arch_x, off], dim=1), torch.cat([arch_f, off_f], dim=1), arch_x.shape[1]
+        )
+    return new_x, new_f, arch_x, arch_f
+
+
 @dataclass
 class Moeva2:
     """MoEvA2 with R-NSGA-III survival; the knobs mirror the JAX engine's
@@ -118,7 +259,13 @@ class Moeva2:
             energy_ref_dirs(3, self.n_pop, seed=1), dtype=self.dtype, device=self.device
         )
         validate_norm(self.norm)
-        self._f2_scale = float(np.sqrt(self.codec.n_features)) if is_l2(self.norm) else 1.0
+        if self.device.type == "cuda" and self.constraints.objective_kernel is None:
+            raise NotImplementedError(
+                f"{type(self.constraints).__name__} has no objective kernel (K1): "
+                "only LCLD runs on the card"
+            )
+        if self.device.type == "cuda" and self.dtype != torch.float32:
+            raise NotImplementedError(f"the card's kernels take float32, not {self.dtype}")
         if not 0 <= self.archive_size <= self.pop_size:
             raise ValueError(
                 f"archive_size={self.archive_size} must be in [0, pop_size={self.pop_size}]"
@@ -127,49 +274,41 @@ class Moeva2:
         self._model = copy.deepcopy(self.classifier.model).to(
             device=self.device, dtype=self.dtype
         ).eval().requires_grad_(False)
-        self._scaler = None
+        scaler = None
         if self.ml_scaler is not None:
-            like = torch.empty((), dtype=self.dtype, device=self.device)
-            self._scaler = self.ml_scaler.tensors(like)
+            scaler = self.ml_scaler.tensors(torch.empty((), dtype=self.dtype, device=self.device))
+        self._objective = make_objective_tables(
+            self.codec, self._model, scaler, self.norm, self.constraints.tol
+        )
 
     @property
     def n_dirs(self) -> int:
         """Survival directions: the aspiration points plus the 3 axes."""
         return self.asp_points.shape[0] + 3
 
-    # -- objective (K1, plain PyTorch in this slice) -------------------------
+    # -- objective (K1) and archive (K4b) ------------------------------------
     def _evaluate(self, run: RunInputs, x_gen: torch.Tensor) -> torch.Tensor:
-        """(S, N, L) genetic candidates -> (S, N, 3) objectives
-        ``[P(minimize_class), Lp distance / scale, Σ violations]``."""
-        x_f = codec_lib.genetic_to_ml(self.codec, x_gen, run.x_init_ml[:, None, :])
-        x_mm = codec_lib.minmax_normalize(x_f, run.xl_ml[:, None, :], run.xu_ml[:, None, :])
-        x_in = x_f if self._scaler is None else x_f * self._scaler[0] + self._scaler[1]
-        probs = Surrogate(self._model).predict_proba(x_in)
-        cls = run.minimize_class[:, None, None].expand(*probs.shape[:-1], 1)
-        f1 = torch.gather(probs, -1, cls)[..., 0]
-        f2 = lp_distance(x_mm - run.x_init_mm[:, None, :], self.norm) / self._f2_scale
-        g = self.constraints.evaluate(x_f)
-        return torch.stack([f1, f2, g.sum(-1)], dim=-1)
+        """(S, N, L) genetic candidates -> (S, N, 3) objectives; kernel K1
+        on the card, :func:`evaluate_plain` on the CPU."""
+        if x_gen.is_cuda:
+            from ...kernels import objective_lcld
 
-    # -- archive -------------------------------------------------------------
-    @staticmethod
-    def _archive_score(f: torch.Tensor) -> torch.Tensor:
-        """Feasible-first elite ranking: feasible candidates score in [0, ~1]
-        by misclassification prob + distance tiebreak, infeasible ones in
-        (2, 3) by squashed violation mass."""
-        g = f[..., 2]
-        return torch.where(g > 0, 2.0 + g / (1.0 + g), f[..., 0] + 1e-3 * f[..., 1])
+            return objective_lcld(
+                x_gen, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm,
+                run.minimize_class, self._objective,
+            )
+        return evaluate_plain(self._objective, self.codec, run, x_gen, self.constraints)
 
     def _archive_select(self, cand_x, cand_f):
-        """Top-``archive_size`` candidates by score; a stable sort keeps the
-        earlier candidate on ties."""
-        elite = torch.argsort(self._archive_score(cand_f), dim=1, stable=True)[
-            :, : self.archive_size
-        ]
-        return (
-            torch.gather(cand_x, 1, elite[..., None].expand(-1, -1, cand_x.shape[-1])),
-            torch.gather(cand_f, 1, elite[..., None].expand(-1, -1, cand_f.shape[-1])),
-        )
+        """The archive's top-``archive_size`` candidates of one row set;
+        kernel K4b on the card."""
+        if not self.archive_size:
+            return cand_x[:, :0], cand_f[:, :0]
+        if cand_x.is_cuda:
+            from ...kernels import archive_select
+
+            return archive_select(cand_x, cand_f, cand_x[:, :0], cand_f[:, :0], self.archive_size)
+        return archive_select_plain(cand_x, cand_f, self.archive_size)
 
     # -- the attack ----------------------------------------------------------
     def prepare(self, x: np.ndarray, minimize_class: np.ndarray) -> RunInputs:
@@ -231,35 +370,39 @@ class Moeva2:
         )
 
     def gen_step(self, run: RunInputs, carry: Carry, draws: GenerationDraws) -> Carry:
-        """One generation: offspring, objectives, merge, survival, survivors
-        first in stable order, archive update. Each stage is a
-        ``record_function`` range, which a profile of the step labels its
-        kernels by."""
+        """One generation: offspring (K5), objectives (K1), merge, front
+        peel (K2), normalisation (K4a), association (K3), then the fill,
+        survivors first in stable order and the archive update (K4b). Each
+        stage is a ``record_function`` range, which a profile of the step
+        labels its kernels by."""
         pop_x, pop_f, arch_x, arch_f, norm_state = carry
         with record_function("moeva.offspring"):
             off = self.offspring(run, pop_x, draws.offspring)
         with record_function("moeva.objectives"):
             off_f = self._evaluate(run, off)
         with record_function("moeva.survival"):
-            merged_x = torch.cat([pop_x, off], dim=1)
             merged_f = torch.cat([pop_f, off_f], dim=1)
-            mask, norm_state, _ = survive_batch(
-                merged_f, self.asp_points, norm_state, self.pop_size,
-                draws.gum_cut, draws.gum_mem,
+            ranks, norm_state, niche, dist = survive_stages(
+                merged_f, self.asp_points, norm_state, self.pop_size
             )
-        with record_function("moeva.extract_archive"):
-            # survivors first, each group in its original order
-            n_true = mask.sum(1, keepdim=True)
-            dest = torch.where(
-                mask, torch.cumsum(mask, 1) - 1, n_true + torch.cumsum(~mask, 1) - 1
-            )
-            src = torch.arange(mask.shape[1], device=mask.device).expand_as(dest)
-            order = torch.zeros_like(dest).scatter_(1, dest, src)[:, : self.pop_size]
-            pop_x = torch.gather(merged_x, 1, order[..., None].expand(-1, -1, merged_x.shape[-1]))
-            pop_f = torch.gather(merged_f, 1, order[..., None].expand(-1, -1, 3))
-            if self.archive_size:
-                arch_x, arch_f = self._archive_select(
-                    torch.cat([arch_x, off], dim=1), torch.cat([arch_f, off_f], dim=1)
+        with record_function("moeva.fill_extract_archive"):
+            if merged_f.is_cuda:
+                from ...kernels import survive_fill
+
+                out = survive_fill(
+                    draws.gum_cut, draws.gum_mem, ranks, niche, dist, self.pop_size,
+                    extract=(pop_x, off, pop_f, off_f),
+                    archive=(arch_x, arch_f, off, off_f, self.archive_size) if self.archive_size else None,
+                )
+                pop_x, pop_f = out.pop_x, out.pop_f
+                if self.archive_size:
+                    arch_x, arch_f = out.arch_x, out.arch_f
+            else:
+                mask = survive_fill_plain(
+                    draws.gum_cut, draws.gum_mem, ranks, niche, dist, self.pop_size
+                )
+                pop_x, pop_f, arch_x, arch_f = extract_archive_plain(
+                    mask, pop_x, off, pop_f, off_f, arch_x, arch_f
                 )
         return Carry(pop_x, pop_f, arch_x, arch_f, norm_state)
 

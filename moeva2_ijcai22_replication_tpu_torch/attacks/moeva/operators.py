@@ -10,6 +10,10 @@ every operator takes the numbers it consumes as tensors
 (:class:`OffspringDraws`) and :func:`draw_offspring` makes them from a
 ``torch.Generator``; the tests feed the JAX package's own draws instead.
 Everything carries a leading states axis ``S``.
+
+:func:`make_offspring` launches kernel K5 (``kernels/csrc/offspring.cu``) on
+CUDA tensors; on CPU tensors it runs the plain version below, which defines
+the kernel's arithmetic one rounded operation at a time.
 """
 
 from __future__ import annotations
@@ -124,6 +128,14 @@ def two_point_crossover(tables: OperatorTables, p1, p2, cut_a, cut_b, coins, pro
     return torch.where(swap, p2, p1), torch.where(swap, p1, p2)
 
 
+def _pow_rn(t: torch.Tensor, exponent: float) -> torch.Tensor:
+    """``t ** exponent`` in float64, rounded once to ``t``'s dtype. A float32
+    ``pow`` rounds differently on the card, on the CPU and in kernel K5; a
+    float64 one rounded once gives the same bits on all three. In float64
+    this is ``t ** exponent``."""
+    return (t.double() ** exponent).to(t.dtype)
+
+
 def polynomial_mutation(tables: OperatorTables, x, xl, xu, mut_select, mut_u, eta: float = 20.0):
     """Polynomial mutation (Deb & Goyal) of ``x`` (S, N, L) within per-state
     bounds ``xl``/``xu`` broadcastable to it; zero-range genes stay put and
@@ -144,11 +156,11 @@ def polynomial_mutation(tables: OperatorTables, x, xl, xu, mut_select, mut_u, et
     xy = torch.clamp(torch.where(lower, 1.0 - d1, 1.0 - d2), 0.0, 1.0)
     val = torch.where(
         lower,
-        2.0 * u + (1.0 - 2.0 * u) * xy ** (eta + 1.0),
-        2.0 * (1.0 - u) + 2.0 * (u - 0.5) * xy ** (eta + 1.0),
+        2.0 * u + (1.0 - 2.0 * u) * _pow_rn(xy, eta + 1.0),
+        2.0 * (1.0 - u) + 2.0 * (u - 0.5) * _pow_rn(xy, eta + 1.0),
     )
     val = torch.clamp(val, min=0.0)
-    deltaq = torch.where(lower, val**mut_pow - 1.0, 1.0 - val**mut_pow)
+    deltaq = torch.where(lower, _pow_rn(val, mut_pow) - 1.0, 1.0 - _pow_rn(val, mut_pow))
 
     do = (mut_select < tables.mut_prob.to(x.dtype)) & ok
     y = torch.where(do, x + deltaq * safe_rng, x)
@@ -167,7 +179,19 @@ def make_offspring(
     eta_mutation: float = 20.0,
 ):
     """One mating round for every state: selection, crossover, mutation.
-    Returns (S, n_offsprings, L)."""
+    Returns (S, n_offsprings, L). Kernel K5 on CUDA tensors,
+    :func:`make_offspring_plain` on CPU tensors."""
+    fn = make_offspring_plain
+    if pop_x.is_cuda:
+        from ...kernels import offspring as fn
+    return fn(tables, pop_x, xl, xu, n_offsprings, draws, crossover_prob, eta_mutation)
+
+
+def make_offspring_plain(
+    tables: OperatorTables, pop_x, xl, xu, n_offsprings: int, draws: OffspringDraws,
+    crossover_prob: float = 0.9, eta_mutation: float = 20.0,
+):
+    """:func:`make_offspring` in plain PyTorch, the semantics of kernel K5."""
     rows = torch.arange(pop_x.shape[0], device=pop_x.device)[:, None]
     p1 = pop_x[rows, draws.pairs[..., 0]]
     p2 = pop_x[rows, draws.pairs[..., 1]]

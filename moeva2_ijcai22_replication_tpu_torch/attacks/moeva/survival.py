@@ -6,10 +6,12 @@ re-normalised aspiration directions plus the n_obj axes, perpendicular-
 distance niche association, and a closed-form (water-filling) niching fill
 of the splitting front. Every function carries a leading states axis S.
 
-Two stages run as hand-written CUDA kernels on CUDA tensors: the front peel
-(K2, via :func:`.nds.nd_ranks`) and niche association (K3,
-:func:`associate_batch`). The rest is plain PyTorch. The niching fill's two
-random fields are inputs (:func:`draw_gumbels` makes them).
+A survival round is four stages, each a hand-written CUDA kernel on CUDA
+tensors and a plain PyTorch version here that defines its arithmetic: the
+front peel (K2, :func:`.nds.nd_ranks`), the normalisation (K4a,
+:func:`survive_norm_plain`), niche association (K3, :func:`associate_plain`)
+and the niching fill (K4b, :func:`survive_fill_plain`). The niching fill's
+two random fields are inputs (:func:`draw_gumbels` makes them).
 """
 
 from __future__ import annotations
@@ -246,29 +248,42 @@ def _niching_fill(gum_cut, gum_mem, ranks, split_rank, niche, dist, niche_count,
     return avail & (rank_in_niche < torch.gather(quota, 1, niche))
 
 
-def _survive_pre(f, asp_points, state: NormState, n_survive: int):
-    """Phase 1: ranks, normalisation update, survival directions."""
+def survive_norm_plain(f, ranks, asp_points, state: NormState):
+    """Normalisation update and survival directions, the semantics of kernel
+    K4a: the running ideal and worst points, the ASF extreme points, the
+    hyperplane nadir and the directions, from the merged objectives ``f``
+    (S, M, n_obj) and their front ranks. Returns ``(new_state, nadir,
+    dirs)``."""
     ideal = torch.minimum(state.ideal, torch.minimum(f.amin(1), asp_points.amin(0)))
     worst = torch.maximum(state.worst, torch.maximum(f.amax(1), asp_points.amax(0)))
-    # fronts beyond the splitting front never survive: peel only that far
-    ranks = nd_ranks(f, n_stop=n_survive)
     nd_mask = ranks == 0
     extreme = _update_extreme_points(f, nd_mask, ideal, state.extreme, asp_points)
     worst_of_pop = f.amax(1)
     worst_of_front = torch.where(nd_mask[..., None], f, -torch.inf).amax(1)
     nadir = _nadir_point(extreme, ideal, worst, worst_of_front, worst_of_pop)
     dirs = _unit_ref_dirs(asp_points, ideal, nadir)
-    return ranks, dirs, nadir, NormState(ideal=ideal, worst=worst, extreme=extreme)
+    return NormState(ideal=ideal, worst=worst, extreme=extreme), nadir, dirs
 
 
-def _survive_post(gum_cut, gum_mem, ranks, niche, dist, n_dirs: int, n_survive: int):
-    """Phase 2: fronts whose cumulative count fits survive whole; the first
-    front that overflows is niched."""
+def survive_norm(f, ranks, asp_points, state: NormState):
+    """:func:`survive_norm_plain` semantics; kernel K4a on CUDA tensors."""
+    if f.is_cuda:
+        from ...kernels import survive_norm as kernel
+
+        ideal, worst, extreme, nadir, dirs = kernel(f, ranks, asp_points, state)
+        return NormState(ideal=ideal, worst=worst, extreme=extreme), nadir, dirs
+    return survive_norm_plain(f, ranks, asp_points, state)
+
+
+def survive_fill_plain(gum_cut, gum_mem, ranks, niche, dist, n_survive: int):
+    """The survivor mask (S, M), the semantics of kernel K4b: fronts whose
+    cumulative count fits survive whole; the first front that overflows is
+    niched by :func:`_niching_fill`."""
     cum_le = (ranks[:, None, :] <= ranks[:, :, None]).sum(-1)
     full_survivor = cum_le <= n_survive
     split_rank = torch.where(full_survivor, UNRANKED, ranks).amin(-1)
     n_remaining = torch.clamp(n_survive - full_survivor.sum(-1), min=0)
-    member = niche[:, :, None] == torch.arange(n_dirs, device=niche.device)
+    member = niche[:, :, None] == torch.arange(gum_cut.shape[1], device=niche.device)
     niche_count = (member & full_survivor[:, :, None]).sum(1)
     taken = _niching_fill(
         gum_cut, gum_mem, ranks, split_rank, niche, dist, niche_count,
@@ -289,6 +304,16 @@ def draw_gumbels(gen: torch.Generator, n_states: int, n_dirs: int, m: int, dtype
     return gumbel((n_states, n_dirs)), gumbel((n_states, m))
 
 
+def survive_stages(f, asp_points, state: NormState, n_survive: int):
+    """The stages of a survival round before the fill: K2, K4a, K3. Returns
+    ``(ranks, new_state, niche, dist)``."""
+    # fronts beyond the splitting front never survive: peel only that far
+    ranks = nd_ranks(f, n_stop=n_survive)
+    new_state, nadir, dirs = survive_norm(f, ranks, asp_points, state)
+    niche, dist = associate_batch(f, dirs, new_state.ideal, nadir)
+    return ranks, new_state, niche, dist
+
+
 def survive_batch(f, asp_points, state: NormState, n_survive: int, gum_cut, gum_mem):
     """One survival round for every state.
 
@@ -296,7 +321,11 @@ def survive_batch(f, asp_points, state: NormState, n_survive: int, gum_cut, gum_
     ``gum_cut`` (S, A + n_obj) and ``gum_mem`` (S, M) the niching draws.
     Returns ``(mask (S, M) bool — exactly n_survive True per state,
     new_state, ranks)``."""
-    ranks, dirs, nadir, new_state = _survive_pre(f, asp_points, state, n_survive)
-    niche, dist = associate_batch(f, dirs, new_state.ideal, nadir)
-    mask = _survive_post(gum_cut, gum_mem, ranks, niche, dist, dirs.shape[1], n_survive)
+    ranks, new_state, niche, dist = survive_stages(f, asp_points, state, n_survive)
+    if f.is_cuda:
+        from ...kernels import survive_fill
+
+        mask = survive_fill(gum_cut, gum_mem, ranks, niche, dist, n_survive).mask
+    else:
+        mask = survive_fill_plain(gum_cut, gum_mem, ranks, niche, dist, n_survive)
     return mask, new_state, ranks

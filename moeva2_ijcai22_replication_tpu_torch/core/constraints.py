@@ -29,6 +29,9 @@ class ConstraintSet:
 
     n_constraints: int = 0
     tol: float = DEFAULT_TOL
+    #: name of the hand-written objective kernel (K1) that serves this set on
+    #: the card; None = no kernel, so the engine runs it on the CPU only
+    objective_kernel: str | None = None
 
     def __init__(self, schema: FeatureSchema, bounds: ConstraintBounds | None = None):
         self.schema = schema

@@ -21,14 +21,20 @@ N_BASE_FEATURES = 47
 
 
 def _installment(loan_amnt, term, int_rate):
-    """Amortised monthly payment: L*r*(1+r)^t / ((1+r)^t - 1), r = rate/1200."""
-    r = int_rate / 1200.0
-    growth = torch.pow(1.0 + r, term)
+    """Amortised monthly payment: L*r*(1+r)^t / ((1+r)^t - 1), r = rate/1200.
+    The power is taken in float64 and rounded once, and 1200 is a 0-d
+    tensor, so that the division is a true one on the card too (PyTorch on
+    CUDA multiplies by the rounded reciprocal of a Python number): the
+    operations of kernel K1, which float64 leaves unchanged."""
+    r = int_rate / torch.full((), 1200.0, dtype=int_rate.dtype, device=int_rate.device)
+    growth = torch.pow((1.0 + r).double(), term.double()).to(r.dtype)
     return loan_amnt * r * growth / (growth - 1.0)
 
 
 def lcld_constraint_terms(x: torch.Tensor) -> torch.Tensor:
-    """Unthresholded violation magnitudes, shape (..., 10)."""
+    """Unthresholded violation magnitudes, shape (..., 10), one rounded
+    operation at a time in the order kernel K1
+    (``kernels/csrc/objective_lcld.cu``) computes them."""
     g1 = torch.abs(x[..., 3] - _installment(x[..., 0], x[..., 1], x[..., 2])) - 0.099999
     # open_acc <= total_acc ; pub_rec_bankruptcies <= pub_rec
     g2 = x[..., 10] - x[..., 14]
@@ -52,6 +58,9 @@ def lcld_constraint_terms(x: torch.Tensor) -> torch.Tensor:
 
 class LcldConstraints(ConstraintSet):
     n_constraints = 10
+    #: kernel K1 (``kernels/csrc/objective_lcld.cu``) computes these terms
+    #: inside the objectives on the card
+    objective_kernel = "lcld"
 
     def __init__(self, features_path: str, constraints_path: str):
         schema = FeatureSchema.from_csv(features_path)

@@ -23,9 +23,9 @@ def months(date_feature):
         return np.floor(date_feature / 100.0) * 12.0 + np.mod(date_feature, 100.0)
     import torch
 
-    return torch.floor(date_feature / 100.0) * 12.0 + torch.remainder(
-        date_feature, 100.0
-    )
+    # a 0-d divisor: a true division on the card too, as in kernel K1
+    hundred = torch.full((), 100.0, dtype=date_feature.dtype, device=date_feature.device)
+    return torch.floor(date_feature / hundred) * 12.0 + torch.remainder(date_feature, hundred)
 
 
 def _random_date(rng, lo_yyyymm: int, hi_yyyymm: int, size) -> np.ndarray:

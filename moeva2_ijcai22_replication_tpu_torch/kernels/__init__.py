@@ -1,9 +1,22 @@
 """Hand-written Hopper kernels of the port and their launch counts.
 
+In the order a generation launches them:
+
+- ``offspring`` (K5, ``csrc/offspring.cu``): selection, crossover and
+  mutation; plain version ``attacks.moeva.operators.make_offspring_plain``.
+- ``objective_lcld`` (K1, ``csrc/objective_lcld.cu``): the objectives on the
+  LCLD domain; plain version ``attacks.moeva.engine.evaluate_plain``.
 - ``nd_peel`` (K2, ``csrc/nd_peel.cu``): non-dominated front peeling; its
   plain version is ``attacks.moeva.nds.nd_ranks_plain``.
+- ``survive_norm`` (K4a, ``csrc/survive_norm.cu``): ideal, worst, extreme
+  points, nadir and directions; plain version
+  ``attacks.moeva.survival.survive_norm_plain``.
 - ``associate`` (K3, ``csrc/associate.cu``): niche association; its plain
   version is ``attacks.moeva.survival.associate_plain``.
+- ``survive_fill`` (K4b, ``csrc/survive_fill.cu``): the niching fill, and
+  in a generation step the survivor extraction and the archive update;
+  plain versions ``survival.survive_fill_plain``,
+  ``engine.extract_archive_plain`` and ``engine.archive_select_plain``.
 
 The wrappers take CUDA tensors only and raise on anything the kernel does
 not take, or when a build or launch fails; callers route CPU tensors to the
@@ -17,9 +30,17 @@ through the kernels.
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
-_LAUNCHES = {"nd_peel": 0, "associate": 0}
+_LAUNCHES = {
+    name: 0
+    for name in (
+        "offspring", "objective_lcld", "nd_peel", "survive_norm", "associate", "survive_fill",
+    )
+}
 
 
 def launch_counts() -> dict:
@@ -32,13 +53,28 @@ def reset_launch_counts() -> None:
         _LAUNCHES[name] = 0
 
 
-def _check(t: torch.Tensor, name: str, shape: tuple) -> None:
+def _check(t: torch.Tensor, name: str, shape: tuple, dtype=torch.float32) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+
+
+def _one_device(*tensors) -> torch.device:
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"a kernel's inputs must lie on one device, got {devices}")
+    return devices.pop()
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def _raise_on_error(lib, err: int, what: str) -> None:
@@ -63,11 +99,247 @@ def nd_peel(f: torch.Tensor, n_stop: int) -> torch.Tensor:
     f = f.contiguous()
     ranks = torch.empty((s, m), dtype=torch.int32, device=f.device)
     with torch.cuda.device(f.device):
-        stream = torch.cuda.current_stream(f.device).cuda_stream
-        err = lib.moeva_nd_peel_f32(f.data_ptr(), ranks.data_ptr(), s, m, int(n_stop), stream)
+        err = lib.moeva_nd_peel_f32(f.data_ptr(), ranks.data_ptr(), s, m, int(n_stop), _stream(f.device))
     _raise_on_error(lib, err, "nd_peel")
     _LAUNCHES["nd_peel"] += 1
     return ranks
+
+
+def offspring(tables, pop_x, xl, xu, n_offsprings: int, draws, crossover_prob=0.9, eta_mutation=20.0):
+    """Kernel K5: (S, n_offsprings, L) float32 offspring of ``pop_x``
+    (S, P, L) within ``xl``/``xu`` (S, L), from ``draws`` (an
+    ``OffspringDraws``) and the gene tables ``tables`` (an
+    ``OperatorTables``), all on one card. Parent indices must lie in
+    [0, P): the kernel does not check them."""
+    from .build import library
+
+    if pop_x.dim() != 3:
+        raise ValueError(f"pop_x must be (S, P, L), got {tuple(pop_x.shape)}")
+    s, p, l = pop_x.shape
+    n_mat = (n_offsprings + 1) // 2
+    _check(pop_x, "pop_x", (s, p, l))
+    _check(xl, "xl", (s, l))
+    _check(xu, "xu", (s, l))
+    _check(draws.pairs, "pairs", (s, n_mat, 2), torch.int64)
+    _check(draws.cut_a, "cut_a", (3, s, n_mat), torch.int64)
+    _check(draws.cut_b, "cut_b", (3, s, n_mat), torch.int64)
+    _check(draws.coins, "coins", (3, s, n_mat))
+    _check(draws.mut_select, "mut_select", (s, n_offsprings, l))
+    _check(draws.mut_u, "mut_u", (s, n_offsprings, l))
+    _check(tables.type_id, "type_id", (l,), torch.int64)
+    _check(tables.rank_in_type, "rank_in_type", (l,), torch.int64)
+    _check(tables.mut_prob, "mut_prob", (l,), torch.float64)
+    _check(tables.int_mask, "int_mask", (l,), torch.bool)
+    dev = _one_device(pop_x, xl, xu, *draws, tables.type_id, tables.rank_in_type,
+                      tables.mut_prob, tables.int_mask)
+    ins = [t.contiguous() for t in (pop_x, xl, xu, *draws, tables.type_id,
+                                    tables.rank_in_type, tables.mut_prob, tables.int_mask)]
+    lib = library()
+    out = torch.empty((s, n_offsprings, l), dtype=torch.float32, device=dev)
+    eta_p1 = float(eta_mutation) + 1.0
+    with torch.cuda.device(dev):
+        err = lib.moeva_offspring_f32(
+            *(t.data_ptr() for t in ins), *tables.type_sizes, out.data_ptr(),
+            s, p, l, n_offsprings, n_mat, float(crossover_prob), eta_p1, 1.0 / eta_p1,
+            _stream(dev),
+        )
+    _raise_on_error(lib, err, "offspring")
+    _LAUNCHES["offspring"] += 1
+    return out
+
+
+def objective_lcld(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj):
+    """Kernel K1: (S, N, 3) float32 objectives ``[f1, f2, Σ violations]``
+    of the LCLD candidates ``x_gen`` (S, N, L), given the run's (S, D) rows
+    and ``minimize_class`` (S,) int64 (0 or 1: not checked), and ``obj`` (an
+    ``engine.ObjectiveTables``) in float32 on the same card."""
+    from .build import library
+
+    if x_gen.dim() != 3 or x_init_ml.dim() != 2:
+        raise ValueError("x_gen and x_init_ml must be (S, N, L) and (S, D)")
+    s, n, l = x_gen.shape
+    d = x_init_ml.shape[1]
+    widths = [obj.layers[0][0].shape[1], *(w.shape[0] for w, _ in obj.layers)]
+    n_params = sum(w.numel() + b.numel() for w, b in obj.layers)
+    _check(x_gen, "x_gen", (s, n, l))
+    for name, t in (("x_init_ml", x_init_ml), ("xl_ml", xl_ml), ("xu_ml", xu_ml), ("x_init_mm", x_init_mm)):
+        _check(t, name, (s, d))
+    _check(minimize_class, "minimize_class", (s,), torch.int64)
+    _check(obj.feat_gene, "feat_gene", (d,), torch.int32)
+    _check(obj.feat_onehot, "feat_onehot", (d,), torch.int32)
+    _check(obj.params, "params", (n_params,))
+    scale, offset = obj.scaler if obj.scaler is not None else (None, None)
+    if scale is not None:
+        _check(scale, "scale", (d,))
+        _check(offset, "offset", (d,))
+    if d != 47:
+        raise ValueError(f"objective_lcld takes LCLD's 47 features, got {d}")
+    if widths[0] != d or not 1 <= widths[-1] <= 2:
+        raise ValueError(f"objective_lcld takes a {d}-input stack with 1 or 2 classes, got widths {widths}")
+    lib = library()
+    if len(widths) - 1 > lib.moeva_objective_max_layers() or max(widths) > lib.moeva_objective_max_width():
+        raise ValueError(
+            f"objective_lcld takes at most {lib.moeva_objective_max_layers()} layers of width "
+            f"{lib.moeva_objective_max_width()}, got widths {widths}"
+        )
+    if n_params > lib.moeva_objective_max_params():
+        raise ValueError(f"objective_lcld's weights must fit shared memory: {n_params} parameters")
+    dev = _one_device(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class,
+                      obj.feat_gene, obj.feat_onehot, obj.params, scale, offset)
+    ins = [None if t is None else t.contiguous() for t in (
+        x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj.feat_gene,
+        obj.feat_onehot, obj.params, scale, offset)]
+    out = torch.empty((s, n, 3), dtype=torch.float32, device=dev)
+    c_widths = (ctypes.c_int * len(widths))(*widths)
+    with torch.cuda.device(dev):
+        err = lib.moeva_objective_lcld_f32(
+            *map(_ptr, ins[:9]), c_widths, len(widths) - 1, _ptr(ins[9]), _ptr(ins[10]),
+            obj.f2_scale, int(obj.norm_inf), obj.tol, out.data_ptr(), s, n, l, d, _stream(dev),
+        )
+    _raise_on_error(lib, err, "objective_lcld")
+    _LAUNCHES["objective_lcld"] += 1
+    return out
+
+
+def survive_norm(f, ranks, asp_points, state):
+    """Kernel K4a: ``(ideal, worst, extreme, nadir, dirs)`` from ``f``
+    (S, M, 3), its front ranks (S, M) int32, ``asp_points`` (A, 3) and the
+    normalisation state ``(ideal, worst, extreme)``, all float32 on one card;
+    ``dirs`` is (S, A + 3, 3)."""
+    from .build import library
+
+    if f.dim() != 3 or asp_points.dim() != 2:
+        raise ValueError("f and asp_points must be (S, M, 3) and (A, 3)")
+    s, m, _ = f.shape
+    a = asp_points.shape[0]
+    if m < 1:
+        raise ValueError("survive_norm needs at least one candidate per state")
+    ideal, worst, extreme = state
+    _check(f, "f", (s, m, 3))
+    _check(ranks, "ranks", (s, m), torch.int32)
+    _check(asp_points, "asp_points", (a, 3))
+    _check(ideal, "ideal", (s, 3))
+    _check(worst, "worst", (s, 3))
+    _check(extreme, "extreme", (s, 3, 3))
+    dev = _one_device(f, ranks, asp_points, ideal, worst, extreme)
+    ins = [t.contiguous() for t in (f, ranks, asp_points, ideal, worst, extreme)]
+    lib = library()
+    outs = [torch.empty(shape, dtype=torch.float32, device=dev)
+            for shape in ((s, 3), (s, 3), (s, 3, 3), (s, 3), (s, a + 3, 3))]
+    with torch.cuda.device(dev):
+        err = lib.moeva_survive_norm_f32(
+            *(t.data_ptr() for t in ins + outs), s, m, a, _stream(dev)
+        )
+    _raise_on_error(lib, err, "survive_norm")
+    _LAUNCHES["survive_norm"] += 1
+    return tuple(outs)
+
+
+class FillResult(NamedTuple):
+    """What one launch of K4b returns; None where it was not asked for."""
+
+    mask: torch.Tensor | None  # (S, M) bool
+    pop_x: torch.Tensor | None  # (S, P, L) survivors first
+    pop_f: torch.Tensor | None  # (S, P, 3)
+    arch_x: torch.Tensor | None  # (S, A, L)
+    arch_f: torch.Tensor | None  # (S, A, 3)
+
+
+def _fill_launch(s, fill=None, extract=None, archive=None) -> FillResult:
+    """One launch of K4b. ``fill`` = (gum_cut, gum_mem, ranks, niche, dist,
+    n_survive); ``extract`` = (pop_x, off_x, pop_f, off_f); ``archive`` =
+    (a_x, a_f, b_x, b_f, size)."""
+    from .build import library
+
+    tensors = []
+    m = r = p = l = n_a = n_b = size = n_survive = 0
+    mask = new_x = new_f = arch_x = arch_f = None
+    if fill is not None:
+        gum_cut, gum_mem, ranks, niche, dist, n_survive = fill
+        if ranks.dim() != 2 or gum_cut.dim() != 2:
+            raise ValueError("ranks and gum_cut must be (S, M) and (S, R)")
+        m, r = ranks.shape[1], gum_cut.shape[1]
+        _check(ranks, "ranks", (s, m), torch.int32)
+        _check(niche, "niche", (s, m), torch.int64)
+        _check(dist, "dist", (s, m))
+        _check(gum_cut, "gum_cut", (s, r))
+        _check(gum_mem, "gum_mem", (s, m))
+        tensors += [ranks, niche, dist, gum_cut, gum_mem]
+        mask = torch.empty((s, m), dtype=torch.bool, device=ranks.device)
+    if extract is not None:
+        pop_x, off_x, pop_f, off_f = extract
+        p, l = pop_x.shape[1], pop_x.shape[2]
+        if m <= p:
+            raise ValueError(f"extraction needs offspring: M={m}, P={p}")
+        _check(pop_x, "pop_x", (s, p, l))
+        _check(off_x, "off_x", (s, m - p, l))
+        _check(pop_f, "pop_f", (s, p, 3))
+        _check(off_f, "off_f", (s, m - p, 3))
+        tensors += [pop_x, off_x, pop_f, off_f]
+        new_x = torch.empty((s, p, l), dtype=torch.float32, device=pop_x.device)
+        new_f = torch.empty((s, p, 3), dtype=torch.float32, device=pop_x.device)
+    if archive is not None:
+        a_x, a_f, b_x, b_f, size = archive
+        n_a, n_b, l = a_x.shape[1], b_x.shape[1], a_x.shape[2]
+        _check(a_x, "a_x", (s, n_a, l))
+        _check(a_f, "a_f", (s, n_a, 3))
+        _check(b_x, "b_x", (s, n_b, l))
+        _check(b_f, "b_f", (s, n_b, 3))
+        tensors += [a_x, a_f, b_x, b_f]
+        arch_x = torch.empty((s, size, l), dtype=torch.float32, device=a_x.device)
+        arch_f = torch.empty((s, size, 3), dtype=torch.float32, device=a_x.device)
+    dev = _one_device(*tensors)
+    lib = library()
+    limit = lib.moeva_survive_max_candidates()
+    if max(m, r) > limit:
+        raise ValueError(f"survive_fill takes at most {limit} candidates and directions per state, got M={m}, R={r}")
+    if archive is not None and (not 0 < size <= n_a + n_b or n_a + n_b > 2 * limit):
+        raise ValueError(f"archive of {size} from {n_a} + {n_b} candidates (at most {2 * limit})")
+    if fill is not None:
+        ranks, niche, dist, gum_cut, gum_mem = (t.contiguous() for t in tensors[:5])
+    if extract is not None:
+        pop_x, off_x, pop_f, off_f = (t.contiguous() for t in extract)
+    if archive is not None:
+        a_x, a_f, b_x, b_f = (t.contiguous() for t in archive[:4])
+    flags = (fill is not None) | (extract is not None) << 1 | (archive is not None) << 2
+    with torch.cuda.device(dev):
+        err = lib.moeva_survive_fill_f32(
+            *map(_ptr, (ranks, niche, dist, gum_cut, gum_mem, mask) if fill is not None else (None,) * 6),
+            int(n_survive),
+            *map(_ptr, (pop_x, off_x, pop_f, off_f, new_x, new_f) if extract is not None else (None,) * 6),
+            p,
+            *map(_ptr, (a_x, a_f, b_x, b_f, arch_x, arch_f) if archive is not None else (None,) * 6),
+            n_a, n_b, size, s, m, r, l, flags, _stream(dev),
+        )
+    _raise_on_error(lib, err, "survive_fill")
+    _LAUNCHES["survive_fill"] += 1
+    return FillResult(mask, new_x, new_f, arch_x, arch_f)
+
+
+def survive_fill(gum_cut, gum_mem, ranks, niche, dist, n_survive: int, extract=None, archive=None) -> FillResult:
+    """Kernel K4b: the survivor mask (S, M) from the niching draws
+    ``gum_cut`` (S, R) and ``gum_mem`` (S, M), the front ranks (int32),
+    niches (int64) and distances, the arguments of ``survive_fill_plain``.
+    With ``extract=(pop_x, off_x, pop_f, off_f)`` the
+    same launch writes the next population, survivors of
+    [population, offspring] first; with ``archive=(a_x, a_f, b_x, b_f,
+    size)`` the ``size`` best of [a rows, b rows]. float32 on one card;
+    ranks must be in [0, M) or ``UNRANKED``, as ``nd_peel`` gives them."""
+    if ranks.dim() != 2:
+        raise ValueError(f"ranks must be (S, M), got {tuple(ranks.shape)}")
+    return _fill_launch(
+        ranks.shape[0], fill=(gum_cut, gum_mem, ranks, niche, dist, n_survive),
+        extract=extract, archive=archive,
+    )
+
+
+def archive_select(a_x, a_f, b_x, b_f, size: int):
+    """Kernel K4b without the fill: the ``size`` best candidates of
+    [a rows, b rows] by archive score, as ``(arch_x, arch_f)``."""
+    if a_x.dim() != 3:
+        raise ValueError(f"a_x must be (S, n_a, L), got {tuple(a_x.shape)}")
+    out = _fill_launch(a_x.shape[0], archive=(a_x, a_f, b_x, b_f, size))
+    return out.arch_x, out.arch_f
 
 
 def associate(f, dirs, ideal, nadir):
@@ -91,10 +363,9 @@ def associate(f, dirs, ideal, nadir):
     niche = torch.empty((s, m), dtype=torch.int64, device=f.device)
     dist = torch.empty((s, m), dtype=torch.float32, device=f.device)
     with torch.cuda.device(f.device):
-        stream = torch.cuda.current_stream(f.device).cuda_stream
         err = lib.moeva_associate_f32(
             f.data_ptr(), dirs.data_ptr(), ideal.data_ptr(), nadir.data_ptr(),
-            niche.data_ptr(), dist.data_ptr(), s, m, r, stream,
+            niche.data_ptr(), dist.data_ptr(), s, m, r, _stream(f.device),
         )
     _raise_on_error(lib, err, "associate")
     _LAUNCHES["associate"] += 1

@@ -29,7 +29,117 @@ int moeva_associate_f32(const void* f, const void* dirs, const void* ideal,
       static_cast<cudaStream_t>(stream)));
 }
 
+int moeva_offspring_f32(const void* pop, const void* xl, const void* xu,
+                        const void* pairs, const void* cut_a, const void* cut_b,
+                        const void* coins, const void* mut_select,
+                        const void* mut_u, const void* type_id,
+                        const void* rank_in_type, const void* mut_prob,
+                        const void* int_mask, long long n_real, long long n_int,
+                        long long n_softmax, void* out, int n_states, int p,
+                        int l, int n_off, int n_mat, float prob, double eta_p1,
+                        double mut_pow, void* stream) {
+  const int64_t sizes[3] = {n_real, n_int, n_softmax};
+  return static_cast<int>(launch_offspring(
+      static_cast<const float*>(pop), static_cast<const float*>(xl),
+      static_cast<const float*>(xu), static_cast<const int64_t*>(pairs),
+      static_cast<const int64_t*>(cut_a), static_cast<const int64_t*>(cut_b),
+      static_cast<const float*>(coins), static_cast<const float*>(mut_select),
+      static_cast<const float*>(mut_u), static_cast<const int64_t*>(type_id),
+      static_cast<const int64_t*>(rank_in_type),
+      static_cast<const double*>(mut_prob), static_cast<const bool*>(int_mask),
+      sizes, static_cast<float*>(out), n_states, p, l, n_off, n_mat, prob,
+      eta_p1, mut_pow, static_cast<cudaStream_t>(stream)));
+}
+
+int moeva_objective_lcld_f32(const void* x_gen, const void* x_init,
+                             const void* xl, const void* xu,
+                             const void* x_init_mm, const void* min_class,
+                             const void* feat_gene, const void* feat_onehot,
+                             const void* params, const int* widths,
+                             int n_layers, const void* scale,
+                             const void* offset, float f2_scale, int norm_inf,
+                             float tol, void* out, int n_states, int n, int l,
+                             int d, void* stream) {
+  return static_cast<int>(launch_objective_lcld(
+      static_cast<const float*>(x_gen), static_cast<const float*>(x_init),
+      static_cast<const float*>(xl), static_cast<const float*>(xu),
+      static_cast<const float*>(x_init_mm),
+      static_cast<const int64_t*>(min_class),
+      static_cast<const int32_t*>(feat_gene),
+      static_cast<const int32_t*>(feat_onehot),
+      static_cast<const float*>(params), widths, n_layers,
+      static_cast<const float*>(scale), static_cast<const float*>(offset),
+      f2_scale, norm_inf, tol, static_cast<float*>(out), n_states, n, l, d,
+      static_cast<cudaStream_t>(stream)));
+}
+
+int moeva_survive_norm_f32(const void* f, const void* ranks, const void* asp,
+                           const void* ideal_in, const void* worst_in,
+                           const void* extreme_in, void* ideal, void* worst,
+                           void* extreme, void* nadir, void* dirs,
+                           int n_states, int m, int a, void* stream) {
+  return static_cast<int>(launch_survive_norm(
+      static_cast<const float*>(f), static_cast<const int32_t*>(ranks),
+      static_cast<const float*>(asp), static_cast<const float*>(ideal_in),
+      static_cast<const float*>(worst_in),
+      static_cast<const float*>(extreme_in), static_cast<float*>(ideal),
+      static_cast<float*>(worst), static_cast<float*>(extreme),
+      static_cast<float*>(nadir), static_cast<float*>(dirs), n_states, m, a,
+      static_cast<cudaStream_t>(stream)));
+}
+
+int moeva_survive_fill_f32(const void* ranks, const void* niche,
+                           const void* dist, const void* gum_cut,
+                           const void* gum_mem, void* mask, int n_survive,
+                           const void* pop_x, const void* off_x,
+                           const void* pop_f, const void* off_f, void* new_x,
+                           void* new_f, int p, const void* a_x,
+                           const void* a_f, const void* b_x, const void* b_f,
+                           void* arch_x, void* arch_f, int n_a, int n_b,
+                           int n_arch, int n_states, int m, int r, int l,
+                           int flags, void* stream) {
+  SurviveFillArgs args;
+  args.ranks = static_cast<const int32_t*>(ranks);
+  args.niche = static_cast<const int64_t*>(niche);
+  args.dist = static_cast<const float*>(dist);
+  args.gum_cut = static_cast<const float*>(gum_cut);
+  args.gum_mem = static_cast<const float*>(gum_mem);
+  args.mask = static_cast<bool*>(mask);
+  args.n_survive = n_survive;
+  args.pop_x = static_cast<const float*>(pop_x);
+  args.off_x = static_cast<const float*>(off_x);
+  args.pop_f = static_cast<const float*>(pop_f);
+  args.off_f = static_cast<const float*>(off_f);
+  args.new_x = static_cast<float*>(new_x);
+  args.new_f = static_cast<float*>(new_f);
+  args.p = p;
+  args.a_x = static_cast<const float*>(a_x);
+  args.a_f = static_cast<const float*>(a_f);
+  args.b_x = static_cast<const float*>(b_x);
+  args.b_f = static_cast<const float*>(b_f);
+  args.arch_x = static_cast<float*>(arch_x);
+  args.arch_f = static_cast<float*>(arch_f);
+  args.n_a = n_a;
+  args.n_b = n_b;
+  args.n_arch = n_arch;
+  args.n_states = n_states;
+  args.m = m;
+  args.r = r;
+  args.l = l;
+  args.flags = flags;
+  return static_cast<int>(
+      launch_survive_fill(args, static_cast<cudaStream_t>(stream)));
+}
+
 int moeva_nd_peel_max_candidates() { return kNdPeelMaxCandidates; }
+
+int moeva_survive_max_candidates() { return kSurviveMaxCandidates; }
+
+int moeva_objective_max_params() { return kObjectiveMaxParams; }
+
+int moeva_objective_max_width() { return kObjectiveMaxWidth; }
+
+int moeva_objective_max_layers() { return kObjectiveMaxLayers; }
 
 const char* moeva_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -24,7 +24,15 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR.parent.parent / ".torch_ext_build"
-SOURCES = ("csrc/nd_peel.cu", "csrc/associate.cu", "bindings.cpp")
+SOURCES = (
+    "csrc/offspring.cu",
+    "csrc/objective_lcld.cu",
+    "csrc/nd_peel.cu",
+    "csrc/survive_norm.cu",
+    "csrc/associate.cu",
+    "csrc/survive_fill.cu",
+    "bindings.cpp",
+)
 HEADERS = ("csrc/kernels.h",)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -110,8 +118,28 @@ def library() -> ctypes.CDLL:
     lib.moeva_nd_peel_f32.restype = i32
     lib.moeva_associate_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.moeva_associate_f32.restype = i32
-    lib.moeva_nd_peel_max_candidates.argtypes = []
-    lib.moeva_nd_peel_max_candidates.restype = i32
+    i64, f32, f64 = ctypes.c_longlong, ctypes.c_float, ctypes.c_double
+    lib.moeva_offspring_f32.argtypes = (
+        [ptr] * 13 + [i64] * 3 + [ptr] + [i32] * 5 + [f32, f64, f64, ptr]
+    )
+    lib.moeva_offspring_f32.restype = i32
+    lib.moeva_objective_lcld_f32.argtypes = (
+        [ptr] * 9 + [ctypes.POINTER(i32), i32, ptr, ptr, f32, i32, f32, ptr] + [i32] * 4 + [ptr]
+    )
+    lib.moeva_objective_lcld_f32.restype = i32
+    lib.moeva_survive_norm_f32.argtypes = [ptr] * 11 + [i32] * 3 + [ptr]
+    lib.moeva_survive_norm_f32.restype = i32
+    lib.moeva_survive_fill_f32.argtypes = (
+        [ptr] * 6 + [i32] + [ptr] * 6 + [i32] + [ptr] * 6 + [i32] * 8 + [ptr]
+    )
+    lib.moeva_survive_fill_f32.restype = i32
+    for name in (
+        "moeva_nd_peel_max_candidates", "moeva_survive_max_candidates",
+        "moeva_objective_max_params", "moeva_objective_max_width",
+        "moeva_objective_max_layers",
+    ):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i32
     lib.moeva_error_string.argtypes = [i32]
     lib.moeva_error_string.restype = ctypes.c_char_p
     return lib

@@ -10,6 +10,44 @@
 // M rows of ceil(M/32) words must fit one block's shared memory.
 constexpr int kNdPeelMaxCandidates = 1024;
 
+// objective_lcld: LCLD's feature count, and the relu stacks it takes (the
+// whole stack sits in one block's shared memory beside 8 rows of D floats).
+constexpr int kLcldFeatures = 47;
+constexpr int kObjectiveMaxWidth = 128;
+constexpr int kObjectiveMaxLayers = 8;
+constexpr int kObjectiveMaxParams = (232448 / 4) - 8 * kLcldFeatures;
+
+// survive_fill: largest candidate and direction counts per state (M, R);
+// the archive ranks at most twice that many candidates.
+constexpr int kSurviveMaxCandidates = 1024;
+
+// survive_fill's arguments; flags: 1 = fill (ranks ... mask), 2 = extract
+// (pop/off -> new_x/new_f, needs the fill), 4 = archive (a/b -> arch).
+struct SurviveFillArgs {
+  const int32_t* ranks;   // (S, M)
+  const int64_t* niche;   // (S, M)
+  const float* dist;      // (S, M)
+  const float* gum_cut;   // (S, R)
+  const float* gum_mem;   // (S, M)
+  bool* mask;             // (S, M) out
+  int n_survive;
+  const float* pop_x;     // (S, P, L)
+  const float* off_x;     // (S, M - P, L)
+  const float* pop_f;     // (S, P, 3)
+  const float* off_f;     // (S, M - P, 3)
+  float* new_x;           // (S, P, L) out
+  float* new_f;           // (S, P, 3) out
+  int p;
+  const float* a_x;       // (S, n_a, L)
+  const float* a_f;       // (S, n_a, 3)
+  const float* b_x;       // (S, n_b, L)
+  const float* b_f;       // (S, n_b, 3)
+  float* arch_x;          // (S, n_arch, L) out
+  float* arch_f;          // (S, n_arch, 3) out
+  int n_a, n_b, n_arch;
+  int n_states, m, r, l, flags;
+};
+
 cudaError_t launch_nd_peel(const float* f, int32_t* ranks, int n_states,
                            int m, int n_stop, cudaStream_t stream);
 
@@ -17,3 +55,33 @@ cudaError_t launch_associate(const float* f, const float* dirs,
                              const float* ideal, const float* nadir,
                              int64_t* niche, float* dist, int n_states, int m,
                              int r, cudaStream_t stream);
+
+cudaError_t launch_offspring(const float* pop, const float* xl,
+                             const float* xu, const int64_t* pairs,
+                             const int64_t* cut_a, const int64_t* cut_b,
+                             const float* coins, const float* mut_select,
+                             const float* mut_u, const int64_t* type_id,
+                             const int64_t* rank_in_type,
+                             const double* mut_prob, const bool* int_mask,
+                             const int64_t* type_sizes, float* out,
+                             int n_states, int p, int l, int n_off, int n_mat,
+                             float prob, double eta_p1, double mut_pow,
+                             cudaStream_t stream);
+
+cudaError_t launch_objective_lcld(
+    const float* x_gen, const float* x_init, const float* xl, const float* xu,
+    const float* x_init_mm, const int64_t* min_class, const int32_t* feat_gene,
+    const int32_t* feat_onehot, const float* params, const int* widths,
+    int n_layers, const float* scale, const float* offset, float f2_scale,
+    int norm_inf, float tol, float* out, int n_states, int n, int l, int d,
+    cudaStream_t stream);
+
+cudaError_t launch_survive_norm(const float* f, const int32_t* ranks,
+                                const float* asp, const float* ideal_in,
+                                const float* worst_in, const float* extreme_in,
+                                float* ideal, float* worst, float* extreme,
+                                float* nadir, float* dirs, int n_states, int m,
+                                int a, cudaStream_t stream);
+
+cudaError_t launch_survive_fill(const SurviveFillArgs& args,
+                                cudaStream_t stream);

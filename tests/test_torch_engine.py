@@ -21,8 +21,12 @@ from moeva2_ijcai22_replication_tpu.models import io as jio
 from moeva2_ijcai22_replication_tpu.models import mlp as jmlp
 from moeva2_ijcai22_replication_tpu.models.scalers import MinMaxParams as JMinMax
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
-from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import GenerationDraws
+from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import (
+    GenerationDraws, archive_select_plain, evaluate_plain, extract_archive_plain,
+)
 from moeva2_ijcai22_replication_tpu_torch.attacks.objective import ObjectiveCalculator
+from moeva2_ijcai22_replication_tpu_torch.core import codec as codec_lib
+from moeva2_ijcai22_replication_tpu_torch.core.norms import lp_distance
 from moeva2_ijcai22_replication_tpu_torch.domains.lcld import LcldConstraints
 from moeva2_ijcai22_replication_tpu_torch.domains.synth import synth_lcld, synth_lcld_schema
 from moeva2_ijcai22_replication_tpu_torch.models.io import Surrogate, params_from_numpy
@@ -170,3 +174,150 @@ def test_slice_rates_within_oracle_tolerance(lcld):
     mean = np.mean(rates, axis=0)
     want = np.asarray(dom["oracle_ga"]["mean"])
     assert np.all(np.abs(mean - want) <= tol), f"port {mean} vs oracle_ga {want}"
+
+
+# -- objectives (K1): evaluate_plain against the JAX engine's _evaluate ------
+
+
+def _hard_candidates(codec, x, xl, xu, seed):
+    """(S, 12, L) genetic candidates around the states, with rows the main
+    path makes rarely: 0 denominators of the ratio constraints (annual_inc,
+    total_acc, pub_rec, the derived month count), a term outside {36, 60} and
+    categorical genes at .5."""
+    rng = np.random.default_rng(seed)
+    xlg, xug = (np.asarray(a) for a in codec_lib.genetic_bounds(codec, _t(xl), _t(xu)))
+    g0 = codec_lib.ml_to_genetic(codec, _t(x)).numpy()[:, None, :]
+    cand = g0 + rng.normal(size=(x.shape[0], 12, codec.gen_length)) * (xug - xlg)[:, None, :] * 0.1
+    cand = np.clip(cand, xlg[:, None], xug[:, None])
+    cand = np.where(codec.int_mask_gen.numpy(), np.round(cand), cand)
+    gene = {int(d): i for i, d in enumerate(codec.non_ohe_ml_idx)}
+    for k, feat in enumerate((6, 14, 11, 22)):
+        cand[:, 1 + k, gene[feat]] = 0.0
+    cand[:, 5, gene[0]] = 0.0  # 0 / 0 with a 0 annual_inc
+    cand[:, 5, gene[6]] = 0.0
+    cand[:, 6, gene[1]] = 48.0  # term not in {36, 60}
+    cand[:, 7, codec.n_non_ohe:] += 0.5
+    return cand
+
+
+def _objective_pair(lcld, x, dtype, norm=2, scaled=True, head=2):
+    """The JAX engine and the port's on one surrogate; ``head=1`` is a
+    sigmoid (1-column) head."""
+    if head == 2:
+        jsur, tree = lcld["jsur"], lcld["tree"]
+    else:
+        model = jmlp.MLP(hidden=(16, 8), n_classes=1)
+        params = jmlp.init_params(model, 47, seed=3)
+        jsur, tree = jio.Surrogate(model, params), jax.tree.map(np.asarray, params)
+    scaler = _scaler(lcld["cons"], x) if scaled else None
+    knobs = dict(norm=norm, n_gen=2, n_pop=12, n_offsprings=10)
+    jeng = JMoeva2(classifier=jsur, constraints=lcld["jcons"], ml_scaler=JMinMax(*scaler) if scaled else None,
+                   dtype=jnp.float64, **knobs)
+    teng = Moeva2(Surrogate(params_from_numpy(tree, dtype=dtype)), lcld["cons"], ml_scaler=scaler,
+                  dtype=dtype, device="cpu", **knobs)
+    return jeng, teng, jsur
+
+
+def _jax_objectives(jeng, jsur, x, xl, xu, mc, cand):
+    x_mm = (x - xl) / np.where(xu - xl == 0, 1.0, xu - xl)
+    f, _ = jeng._evaluate(jsur.params, *(jnp.asarray(a) for a in (cand, x, x_mm, xl, xu)), jnp.asarray(mc))
+    return np.asarray(f)
+
+
+@pytest.mark.parametrize("norm,scaled,head", [(2, True, 2), ("inf", True, 2), (2, False, 2), (2, True, 1)])
+def test_evaluate_plain_matches_jax(lcld, norm, scaled, head):
+    s = 6
+    x = synth_lcld(s, lcld["cons"].schema, seed=40)
+    xl, xu = (np.broadcast_to(np.asarray(a, float), x.shape) for a in lcld["cons"].get_feature_min_max(x))
+    mc = np.arange(s) % 2
+    jeng, teng, jsur = _objective_pair(lcld, x, torch.float64, norm, scaled, head)
+    cand = _hard_candidates(teng.codec, x, xl, xu, seed=len(str(norm)) + head)
+    want = _jax_objectives(jeng, jsur, x, xl, xu, mc, cand)
+    got = evaluate_plain(teng._objective, teng.codec, teng.prepare(x, mc), _t(cand), teng.constraints).numpy()
+    assert not np.isfinite(want).all()  # the 0 denominators show
+    # float64: XLA's pow differs from PyTorch's in the last ulp and g1 cancels
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
+    # the engine's CPU entry point is the plain version
+    assert torch.equal(teng._evaluate(teng.prepare(x, mc), _t(cand)).isnan(), torch.isnan(_t(got)))
+
+
+def test_evaluate_plain_float32_within_tolerance(lcld):
+    s = 6
+    x = synth_lcld(s, lcld["cons"].schema, seed=41)
+    xl, xu = (np.broadcast_to(np.asarray(a, float), x.shape) for a in lcld["cons"].get_feature_min_max(x))
+    mc = np.arange(s) % 2
+    jeng, teng, jsur = _objective_pair(lcld, x, torch.float32)
+    cand = _hard_candidates(teng.codec, x, xl, xu, seed=9)
+    want = _jax_objectives(jeng, jsur, x, xl, xu, mc, cand)
+    run = teng.prepare(x, mc)
+    got = evaluate_plain(teng._objective, teng.codec, run, torch.as_tensor(cand, dtype=torch.float32), teng.constraints)
+    # today's composition of the port's library functions, in float32
+    x_gen = torch.as_tensor(cand, dtype=torch.float32)
+    x_f = codec_lib.genetic_to_ml(teng.codec, x_gen, run.x_init_ml[:, None, :])
+    x_mm = codec_lib.minmax_normalize(x_f, run.xl_ml[:, None, :], run.xu_ml[:, None, :])
+    probs = Surrogate(teng._model).predict_proba(teng.ml_scaler.transform(x_f))
+    old = torch.stack([
+        torch.gather(probs, -1, run.minimize_class[:, None, None].expand(-1, probs.shape[1], 1))[..., 0],
+        lp_distance(x_mm - run.x_init_mm[:, None, :], 2) / float(np.sqrt(47)),
+        teng.constraints.evaluate(x_f).sum(-1),
+    ], dim=-1)
+    # float32 against float64: f1 within 1e-6 (measured 6e-7), f2 within
+    # 1e-5 relative, the violation sum within 1e-4 relative plus 2e-3 (g1
+    # subtracts two installments of a few hundred, and a term within float32
+    # rounding of the 1e-3 threshold may count on one side and not the other)
+    for ref in (want, old.double().numpy()):
+        np.testing.assert_allclose(got[..., 0].numpy(), ref[..., 0], rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got[..., 1].numpy(), ref[..., 1], rtol=1e-5, atol=0)
+        np.testing.assert_allclose(got[..., 2].numpy(), ref[..., 2], rtol=1e-4, atol=2e-3)
+
+
+# -- extraction and archive (K4b's tail) against the JAX engine --------------
+
+
+def _jax_extract(mask, merged_x, merged_f, pop_size):
+    """The survivor extraction of the JAX ``gen_step``
+    (``attacks/moeva/engine.py:608-625``), over given arrays."""
+    n_true = mask.sum(1, keepdims=True)
+    dest = jnp.where(mask, jnp.cumsum(mask, axis=1) - 1, n_true + jnp.cumsum(~mask, axis=1) - 1)
+    order = (
+        jnp.zeros_like(dest).at[jnp.arange(dest.shape[0])[:, None], dest]
+        .set(jnp.broadcast_to(jnp.arange(mask.shape[1]), dest.shape))
+    )[:, :pop_size]
+    return (jnp.take_along_axis(merged_x, order[..., None], axis=1),
+            jnp.take_along_axis(merged_f, order[..., None], axis=1))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_extract_archive_plain_matches_jax(lcld, seed):
+    """Survivors first in stable order, and the archive's top A by
+    feasible-first score in a stable sort with NaN last, equal to the JAX
+    engine's; the scores have ties (duplicate rows, equal feasible scores)
+    and NaNs (an inf violation scores 2 + inf/inf)."""
+    rng = np.random.default_rng(seed)
+    s, p, n, size, length = 5, 12, 10, 6, 7
+    jeng = JMoeva2(classifier=lcld["jsur"], constraints=lcld["jcons"], n_gen=2, n_pop=12, n_offsprings=10,
+                   archive_size=size, dtype=jnp.float64)
+    mask = np.zeros((s, p + n), dtype=bool)
+    for row in mask:
+        row[rng.choice(p + n, p, replace=False)] = True
+    pop_x, off = rng.normal(size=(s, p, length)), rng.normal(size=(s, n, length))
+    arch_x = rng.normal(size=(s, size, length))
+
+    def objectives(k):
+        f = np.stack([rng.uniform(size=(s, k)), rng.uniform(size=(s, k)),
+                      np.where(rng.random((s, k)) < 0.5, 0.0, rng.exponential(size=(s, k)))], -1)
+        f[:, 1::4] = f[:, ::4][:, : f[:, 1::4].shape[1]]  # duplicate rows: tied scores
+        f[rng.random((s, k)) < 0.15, 2] = np.inf  # NaN scores
+        return f
+
+    pop_f, off_f, arch_f = objectives(p), objectives(n), objectives(size)
+    got = extract_archive_plain(*(_t(a) for a in (mask, pop_x, off, pop_f, off_f, arch_x, arch_f)))
+    want_x, want_f = _jax_extract(jnp.asarray(mask), jnp.concatenate([pop_x, off], 1),
+                                  jnp.concatenate([pop_f, off_f], 1), p)
+    want_ax, want_af = jeng._archive_select(jnp.concatenate([arch_x, off], 1), jnp.concatenate([arch_f, off_f], 1))
+    assert np.isnan(np.asarray(jeng._archive_score(jnp.concatenate([arch_f, off_f], 1)))).any()
+    for g, w in zip(got, (want_x, want_f, want_ax, want_af)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # the archive seeding of init_carry: one row set
+    for g, w in zip(archive_select_plain(_t(pop_x), _t(pop_f), size), jeng._archive_select(pop_x, pop_f)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -17,9 +17,17 @@ import pytest
 import torch
 
 from moeva2_ijcai22_replication_tpu_torch import kernels
+from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
+from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import (
+    archive_select_plain, evaluate_plain, extract_archive_plain,
+)
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks_plain
-from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import associate_plain
+from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import make_offspring_plain
+from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import (
+    NormState, associate_plain, draw_gumbels, survive_fill_plain, survive_norm_plain,
+)
 from moeva2_ijcai22_replication_tpu_torch.kernels import build
+from moeva2_ijcai22_replication_tpu_torch.problems import synthetic_lcld_problem
 
 # tier-1 runs several test processes side by side: one intra-op thread
 # each keeps these small-tensor tests from oversubscribing the cores
@@ -85,19 +93,155 @@ def test_associate_equals_plain(card, s, m, r):
     assert float((dist[ok] - dist_p[ok]).abs().max()) <= 1e-5
 
 
-def test_wrappers_refuse_cpu_tensors():
+def _same(got, want) -> bool:
+    """Equal entry for entry, NaN where NaN."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    if not got.is_floating_point():
+        return torch.equal(got, want)
+    return bool(((got == want) | (got.isnan() & want.isnan())).all())
+
+
+@pytest.fixture(scope="module")
+def lcld(tmp_path_factory):
+    """The main path's problem: 1000 synthetic LCLD states, a seeded
+    surrogate and its scaler."""
+    return synthetic_lcld_problem(str(tmp_path_factory.mktemp("kernels")), 1000)
+
+
+def _engine_state(card, lcld, s, seed, **knobs):
+    """An engine on the card, its run inputs for ``s`` states, the carry
+    after one generation and the next generation's draws."""
+    cons, sur, scaler, x = lcld
+    eng = Moeva2(sur, cons, ml_scaler=scaler, device=card, n_pop=100, n_offsprings=100,
+                 archive_size=24, seed=seed, **knobs)
+    run = eng.prepare(x[:s], np.arange(s) % 2)
+    gen = torch.Generator(device=card).manual_seed(seed)
+    carry = eng.init_carry(run, *draw_gumbels(gen, s, eng.n_dirs, eng.pop_size))
+    carry = eng.gen_step(run, carry, eng.draw_generation(gen, s))
+    return eng, run, carry, eng.draw_generation(gen, s)
+
+
+def _hard_offspring(eng, off):
+    """Offspring with the rows the main path makes rarely: categorical genes
+    at .5 and zero denominators of the LCLD ratio constraints."""
+    off = off.clone()
+    off[:, ::7] = torch.where(eng.codec.int_mask_gen, off[:, ::7] + 0.5, off[:, ::7])
+    gene = {int(d): i for i, d in enumerate(eng.codec.non_ohe_ml_idx)}
+    for k, feat in enumerate(f for f in (6, 14, 11, 22, 0) if f in gene):
+        off[:, 3 + k :: 11, gene[feat]] = 0.0
+    return off
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [64, 537])
+def test_offspring_equals_plain(card, lcld, s):
+    eng, run, carry, draws = _engine_state(card, lcld, s, seed=s)
+    args = (eng.tables, carry.pop_x, run.xl_gen, run.xu_gen, 100, draws.offspring)
+    before = kernels.launch_counts()["offspring"]
+    got = kernels.offspring(*args)
+    assert kernels.launch_counts()["offspring"] == before + 1
+    assert _same(got, make_offspring_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,norm", [(64, 2), (540, 2), (64, "inf")])
+def test_objective_lcld_equals_plain(card, lcld, s, norm):
+    eng, run, carry, draws = _engine_state(card, lcld, s, seed=s, norm=norm)
+    off = _hard_offspring(eng, kernels.offspring(eng.tables, carry.pop_x, run.xl_gen, run.xu_gen, 100, draws.offspring))
+    got = kernels.objective_lcld(off, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class, eng._objective)
+    want = evaluate_plain(eng._objective, eng.codec, run, off, eng.constraints)
+    assert not bool(torch.isfinite(want).all())  # the zero denominators show
+    assert _same(got, want)
+
+
+def _merged_objectives(carry, off_f):
+    """Merged objectives with duplicate, NaN and +inf rows."""
+    f = torch.cat([carry.pop_f, off_f], dim=1)
+    f[:, 150:170] = f[:, 10:30]
+    f[::3, 40, 1] = torch.nan
+    f[::2, 41, 2] = torch.inf
+    return f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [64, 544])
+def test_survive_norm_equals_plain(card, lcld, s):
+    eng, run, carry, draws = _engine_state(card, lcld, s, seed=s)
+    off = kernels.offspring(eng.tables, carry.pop_x, run.xl_gen, run.xu_gen, 100, draws.offspring)
+    f = _merged_objectives(carry, eng._evaluate(run, off))
+    ranks = kernels.nd_peel(f, eng.pop_size)
+    for state in (carry.norm_state, NormState.init(s, 3, device=card)):
+        got = kernels.survive_norm(f, ranks, eng.asp_points, state)
+        new_state, nadir, dirs = survive_norm_plain(f, ranks, eng.asp_points, state)
+        for g, w in zip(got, (*new_state, nadir, dirs)):
+            assert _same(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [64, 538])
+def test_survive_fill_equals_plain(card, lcld, s):
+    eng, run, carry, draws = _engine_state(card, lcld, s, seed=s)
+    off = kernels.offspring(eng.tables, carry.pop_x, run.xl_gen, run.xu_gen, 100, draws.offspring)
+    off_f = eng._evaluate(run, off)
+    off_f[:, 5, 2] = torch.inf  # NaN archive score
+    f = _merged_objectives(carry, off_f)
+    ranks = kernels.nd_peel(f, eng.pop_size)
+    state, nadir, dirs = survive_norm_plain(f, ranks, eng.asp_points, carry.norm_state)
+    niche, dist = associate_plain(f, dirs, state.ideal, nadir)
+    gum_cut, gum_mem = draws.gum_cut.clone(), draws.gum_mem.clone()
+    gum_cut[:, ::3] = 0.25  # tied priorities
+    gum_mem[:, ::4] = -0.5
+    arch_f = carry.arch_f.clone()
+    arch_f[:, 3, 2] = torch.inf
+    mask = survive_fill_plain(gum_cut, gum_mem, ranks, niche, dist, eng.pop_size)
+    assert _same(kernels.survive_fill(gum_cut, gum_mem, ranks, niche, dist, eng.pop_size).mask, mask)
+    got = kernels.survive_fill(
+        gum_cut, gum_mem, ranks, niche, dist, eng.pop_size,
+        extract=(carry.pop_x, off, carry.pop_f, off_f), archive=(carry.arch_x, arch_f, off, off_f, 24),
+    )
+    want = extract_archive_plain(mask, carry.pop_x, off, carry.pop_f, off_f, carry.arch_x, arch_f)
+    assert _same(got.mask, mask)
+    for g, w in zip(got[1:], want):
+        assert _same(g, w)
+    arch = kernels.archive_select(carry.pop_x, carry.pop_f, carry.pop_x[:, :0], carry.pop_f[:, :0], 24)
+    for g, w in zip(arch, archive_select_plain(carry.pop_x, carry.pop_f, 24)):
+        assert _same(g, w)
+
+
+def test_wrappers_refuse_cpu_tensors(tmp_path):
     f = torch.zeros((2, 5, 3))
     before = kernels.launch_counts()
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.nd_peel(f, 3)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.associate(f, torch.ones((2, 4, 3)), torch.zeros((2, 3)), torch.ones((2, 3)))
+    cons, sur, scaler, x = synthetic_lcld_problem(str(tmp_path), 2)
+    eng = Moeva2(sur, cons, ml_scaler=scaler, device="cpu", n_pop=10, n_offsprings=6, archive_size=3)
+    run = eng.prepare(x, np.ones(2, dtype=np.int64))
+    pop = eng.init_carry(run, *draw_gumbels(torch.Generator(), 2, eng.n_dirs, eng.pop_size)).pop_x
+    draws = eng.draw_generation(torch.Generator(), 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.offspring(eng.tables, pop, run.xl_gen, run.xu_gen, 6, draws.offspring)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.objective_lcld(pop, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class, eng._objective)
+    state = NormState.init(2, 3)
+    ranks = torch.zeros((2, 5), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.survive_norm(f, ranks, eng.asp_points, state)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.survive_fill(torch.zeros((2, 4)), f[..., 0], ranks, ranks.long(), f[..., 0], 3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.archive_select(pop, pop[..., :3], pop[:, :0], pop[:, :0, :3], 3)
     assert kernels.launch_counts() == before
 
 
 def test_launch_counts_reset():
     kernels.reset_launch_counts()
-    assert kernels.launch_counts() == {"nd_peel": 0, "associate": 0}
+    assert kernels.launch_counts() == {
+        "offspring": 0, "objective_lcld": 0, "nd_peel": 0,
+        "survive_norm": 0, "associate": 0, "survive_fill": 0,
+    }
 
 
 def test_build_fingerprint_follows_sources(tmp_path, monkeypatch):

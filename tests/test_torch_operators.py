@@ -155,3 +155,36 @@ def test_softmax_genes_are_rejected(tmp_path):
     )
     with pytest.raises(NotImplementedError):
         top.make_operator_tables(tcodec.make_codec(FeatureSchema.from_csv(str(path))))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_make_offspring_float32_with_jax_draws(problem, seed):
+    """float32, with zero-range genes and integer genes at half-integers:
+    equal to JAX except a mutated real gene, whose pow() the port takes in
+    float64 rounded once while XLA takes it in float32: within 1e-6 of the
+    gene's range (measured equal here)."""
+    _, cj, ct = problem
+    s, p, n_off = 5, 43, 40
+    pop, xlg, xug = _population(problem, s, p, seed)
+    xug = xug.copy()
+    xug[:, ::5] = xlg[:, ::5]  # zero-range genes
+    pop = np.clip(pop, xlg[:, None], xug[:, None])
+    int_mask = np.asarray(cj.int_mask_gen)
+    pop[:, 1::3] = np.where(int_mask, np.floor(pop[:, 1::3]) + 0.5, pop[:, 1::3])  # half-integers
+    pop, xlg, xug = (a.astype(np.float32) for a in (pop, xlg, xug))
+    keys = jax.random.split(jax.random.PRNGKey(200 + seed), s)
+    jt = jop.make_operator_tables(cj)
+    want = np.stack([
+        np.asarray(jop.make_offspring(k, jt, jnp.asarray(pop[i]), jnp.asarray(xlg[i]), jnp.asarray(xug[i]), n_off))
+        for i, k in enumerate(keys)
+    ])
+    draws = jax_offspring_draws(keys, n_off, cj.gen_length, p, dtype=jnp.float32)
+    tt = top.make_operator_tables(ct)
+    got = top.make_offspring(tt, *map(torch.as_tensor, (pop, xlg, xug)), n_off, draws).numpy()
+    assert got.dtype == np.float32 and want.dtype == np.float32
+    mutated = (draws.mut_select.numpy() < tt.mut_prob.numpy().astype(np.float32)) & (xug > xlg)[:, None, :]
+    exact = ~mutated | int_mask
+    span = np.broadcast_to((xug - xlg)[:, None, :], got.shape)
+    err = np.abs(got - want)[~exact] / span[~exact]
+    np.testing.assert_array_equal(got[exact], want[exact])
+    np.testing.assert_array_less(err, 1e-6)

@@ -179,3 +179,69 @@ def test_draw_gumbels_shapes():
     gen = torch.Generator().manual_seed(0)
     gc, gm = tsv.draw_gumbels(gen, 3, 7, 11, torch.float64)
     assert gc.shape == (3, 7) and gm.shape == (3, 11) and torch.isfinite(gm).all()
+
+
+def _nonfinite(rng, f):
+    """NaN, +inf and -inf objective rows, as ratio constraints with 0
+    denominators and hand-made sweeps produce them."""
+    f = f.copy()
+    s, m, _ = f.shape
+    f[rng.random((s, m)) < 0.05, 1] = np.nan
+    f[rng.random((s, m)) < 0.05, 2] = np.inf
+    f[rng.random((s, m)) < 0.02, 0] = -np.inf
+    return f
+
+
+@pytest.mark.parametrize("kind", ["uniform", "dup", "discrete", "nonfinite"])
+def test_survive_norm_plain_matches_jax(kind):
+    """The normalisation (K4a's semantics) against the JAX ``_survive_pre``
+    over 3 rounds, float64, the state carried."""
+    rng = np.random.default_rng(200 + len(kind))
+    s, n_survive, a = 6, 23, 20
+    m = n_survive + 20
+    asp = rng.dirichlet(np.ones(3), a)
+    st_t = tsv.NormState.init(s, N_OBJ, torch.float64)
+    st_j = jax.vmap(lambda _: jsv.NormState.init(N_OBJ, jnp.float64))(jnp.arange(s))
+    for _ in range(3):
+        f = _objectives(rng, s, m, "uniform" if kind == "nonfinite" else kind)
+        if kind == "nonfinite":
+            f = _nonfinite(rng, f)
+        ranks_j, dirs_j, nadir_j, new_j = jax.vmap(
+            lambda f1, st: jsv._survive_pre(f1, jnp.asarray(asp), st, n_survive)
+        )(jnp.asarray(f), st_j)
+        ranks = tsv.nd_ranks(_t(f), n_survive)
+        np.testing.assert_array_equal(np.asarray(ranks_j), ranks.numpy())
+        new_t, nadir_t, dirs_t = tsv.survive_norm_plain(_t(f), ranks, _t(asp), st_t)
+        for name, want, got in (*zip(new_t._fields, new_j, new_t), ("nadir", nadir_j, nadir_t), ("dirs", dirs_j, dirs_t)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-12, err_msg=name)
+        st_t, st_j = new_t, _jax_state(new_t)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("kind", ["uniform", "dup", "discrete", "nonfinite"])
+def test_survive_fill_plain_matches_jax(kind, ties):
+    """The fill (K4b's semantics) against the JAX ``_survive_post`` given the
+    same ranks, niches, distances and gumbels: equal masks. ``ties`` makes
+    every third cutoff priority and every fourth member priority equal."""
+    rng = np.random.default_rng(400 + len(kind) + 10 * ties)
+    s, n_survive, a = 8, 23, 20
+    m = n_survive + 20
+    asp = rng.dirichlet(np.ones(3), a)
+    f = _objectives(rng, s, m, "uniform" if kind == "nonfinite" else kind)
+    if kind == "nonfinite":
+        f = _nonfinite(rng, f)
+    ranks = tsv.nd_ranks(_t(f), n_survive)
+    state, nadir, dirs = tsv.survive_norm_plain(_t(f), ranks, _t(asp), tsv.NormState.init(s, N_OBJ, torch.float64))
+    niche, dist = tsv.associate_plain(_t(f), dirs, state.ideal, nadir)
+    gum_cut, gum_mem = rng.gumbel(size=(s, a + N_OBJ)), rng.gumbel(size=(s, m))
+    if ties:
+        gum_cut[:, ::3] = 0.25
+        gum_mem[:, ::4] = -0.5
+    want = jax.vmap(
+        lambda gc, gm, f1, r1, ni, di: jsv._survive_post(gc, gm, f1, r1, ni, di, a + N_OBJ, n_survive)
+    )(*(jnp.asarray(np.asarray(v)) for v in (gum_cut, gum_mem, f, ranks, niche, dist)))
+    got = tsv.survive_fill_plain(_t(gum_cut), _t(gum_mem), ranks, niche, dist, n_survive)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    # equal priorities get equal places, so with ties the fill may take more
+    # than n_survive, in the JAX engine as here; continuous gumbels never tie
+    assert (got.sum(1) == n_survive).all() if not ties else (got.sum(1) >= n_survive).all()
