@@ -8,7 +8,9 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero:
 
 1. versions: torch, CUDA, and the card's name and power limit (nvidia-smi);
-2. build the port's six CUDA kernels from the sources in the checkout;
+2. build the port's six CUDA kernels from the sources in the checkout and
+   print each kernel's ptxas registers, shared memory, stack frame and
+   spill (K1 and K4b must not spill);
 3. hold each kernel against its plain PyTorch version on the card over a
    sweep of state counts and two shapes: K5 ``offspring``, K1
    ``objective_lcld``, K4a ``survive_norm`` and K4b ``survive_fill`` (fill,
@@ -22,7 +24,11 @@ Phases, in order; any failure exits non-zero:
    at the main path's shape with CUDA events, around the replay of a CUDA
    graph of 20 launches (``ms``, the kernel's device time) and around 20
    calls of its Python wrapper (``wrapper_ms``), beside its plain version
-   and its bound (bytes and operations this run's data needs);
+   and its bound (bytes and operations this run's data needs). K1 and K4b
+   are also held on their launch shapes' edges: partial tiles and blocks,
+   tiles spanning states, a stack too large for shared memory (K1 reads it
+   from global memory) and M = R = 1024 (K4b runs one state per block);
+   K1's record adds its no-FMA ceiling;
 4. drive the main path, ``Moeva2.generate`` on 1000 synthetic LCLD states
    at population 103 with 100 offspring, with every launch count set to 0
    just before and read just after (each must equal what the code implies);
@@ -31,7 +37,8 @@ Phases, in order; any failure exits non-zero:
    by stage on the same inputs;
 5. judge the result with ``ObjectiveCalculator.success_rate_3d`` (o1..o7);
 6. profile a few generation steps: ms per generation, device-busy share,
-   launches, kernels and stages by device time.
+   launches, kernels and stages by device time; fails unless the trace
+   holds as many kernel launches as an untraced generation made.
 
 The last three lines are the per-kernel JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Nothing is printed as a
@@ -82,6 +89,48 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+#: kernels whose ptxas report must show no spill
+REDESIGNED = ("objective_lcld_kernel", "survive_fill_kernel")
+
+
+def ptxas_resources(build_log: str) -> list:
+    """Per kernel entry of ``nvcc -Xptxas=-v``'s report in ``build_log``:
+    source, kernel (with its template arguments), registers, static shared
+    bytes, stack frame and spill bytes."""
+    import re
+
+    out, source, entry, props = [], "", None, None
+    for line in build_log.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+        elif m := re.search(r"Compiling entry function '(\w+)'", line):
+            mangled = m.group(1)
+            # the mangled name's length-prefixed identifiers; the kernel's
+            # ends in _kernel, its template arguments follow as L<type><n>E
+            name, i = mangled, 0
+            while d := re.compile(r"\d+").search(mangled, i):
+                ident = mangled[d.end():d.end() + int(d.group())]
+                if ident.endswith("_kernel"):
+                    name = ident
+                    break
+                i = d.end() + int(d.group())
+            args = re.findall(r"L[ib](\d+)E", mangled)
+            entry = {"source": source, "kernel": name + (f"<{','.join(args)}>" if args else ""),
+                     "mangled": mangled, "registers": 0,
+                     "smem": 0, "stack": 0, "spill_stores": 0, "spill_loads": 0}
+            out.append(entry)
+        elif m := re.search(r"Function properties for (\w+)", line):
+            props = m.group(1)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            if entry is not None and props == entry["mangled"]:
+                entry["stack"], entry["spill_stores"], entry["spill_loads"] = map(int, m.groups())
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry is not None:
+            entry["registers"] = int(m.group(1))
+            if sm := re.search(r"(\d+) bytes smem", line):
+                entry["smem"] = int(sm.group(1))
+    return out
 
 
 def cuda_ms(fn, launches: int = 20, repeats: int = 5) -> float:
@@ -417,7 +466,69 @@ def check_kernels(device, moeva, x):
     log(f"[kernels] associate: max |dist - plain| = {assoc_err:.3e}, "
         f"niche picks differing inside the {ASSOC_TIE_REL:g} tie band: {tie_mismatch}; "
         f"{inf_rows} swept rows with an inf and no NaN objective (NaN and inf projections)")
+    check_launch_shapes(device, moeva, x, rng, gen)
     return time_kernels(device, moeva, timing, assoc_err)
+
+
+#: (S, N) of K1's tile edges: 300 rows end in a partial tile and tiles span
+#: states of both classes; 7 rows fill no tile; 5 x 27 rows put several
+#: states in one tile
+OBJECTIVE_EDGES = ((3, 100), (1, 7), (5, 27))
+#: hidden widths of a relu stack too large for shared memory beside K1's
+#: buffers: its weights are read from global memory, at 64-row tiles
+GLOBAL_STACK = (128, 128, 128)
+#: (S, M, R, n_survive) of K4b's block edges: a last block with fewer states
+#: than the four it holds, and the kernel's limits, where four states'
+#: arrays do not fit one block
+FILL_EDGES = ((3, 203, 103, 103), (5, 203, 103, 103), (3, 1024, 1024, 512))
+
+
+def check_launch_shapes(device, moeva, x, rng, gen):
+    """K1 and K4b on their launch shapes' edges, bit for bit against their
+    plain versions."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import (
+        evaluate_plain, extract_archive_plain, make_objective_tables,
+    )
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import associate_plain, survive_fill_plain
+    from moeva2_ijcai22_replication_tpu_torch.models.mlp import MLP
+
+    codec, obj = moeva.codec, moeva._objective
+    with torch.random.fork_rng(devices=[]):  # the main path's draws stay as they were
+        torch.manual_seed(0)
+        wide = MLP(codec.n_features, GLOBAL_STACK, 2).to(device).eval().requires_grad_(False)
+    obj_global = make_objective_tables(codec, wide, obj.scaler, moeva.norm, moeva.constraints.tol)
+    for s, n in OBJECTIVE_EDGES:
+        run = moeva.prepare(x[:s], np.arange(s) % 2)
+        cand = hard_candidates(codec, sweep_population(gen, run, codec, s, n)[0])
+        for stack, tables in (("main", obj), ("global", obj_global)):
+            got = kernels.objective_lcld(cand, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm,
+                                         run.minimize_class, tables)
+            hold_equal(got, evaluate_plain(tables, codec, run, cand, moeva.constraints),
+                       f"objective_lcld S={s} N={n} {stack} stack")
+    for s, m, r, p in FILL_EDGES:
+        f = torch.as_tensor(sweep_objectives(rng, s, m), device=device)
+        ranks = nd_ranks_plain(f, p)
+        ideal, nadir = finite_ideal_nadir(f)
+        niche, dist = associate_plain(f, torch.as_tensor(sweep_directions(rng, s, r), device=device), ideal, nadir)
+        gum_cut = torch.rand((s, r), generator=gen, device=device)
+        gum_mem = torch.rand((s, m), generator=gen, device=device)
+        gum_cut[:, ::3] = 0.25
+        pop = torch.rand((s, p, codec.gen_length), generator=gen, device=device)
+        off = torch.rand((s, m - p, codec.gen_length), generator=gen, device=device)
+        extract = (pop, off, f[:, :p], f[:, p:])
+        mask = survive_fill_plain(gum_cut, gum_mem, ranks, niche, dist, p)
+        want = (mask, *extract_archive_plain(mask, *extract, pop[:, :24], f[:, :24]))
+        got = kernels.survive_fill(gum_cut, gum_mem, ranks, niche, dist, p, extract=extract,
+                                   archive=(pop[:, :24], f[:, :24], off, f[:, p:], 24))
+        for name, g, w in zip(("mask", "pop_x", "pop_f", "arch_x", "arch_f"), got, want):
+            hold_equal(g, w, f"survive_fill {name} S={s} M={m} R={r}")
+    log(f"[kernels] launch-shape edges equal their plain versions: objective_lcld (S, N) in {OBJECTIVE_EDGES} "
+        f"with the main path's stack and a 47-{'-'.join(map(str, GLOBAL_STACK))}-2 stack read from global memory; "
+        f"survive_fill (S, M, R, n_survive) in {FILL_EDGES}")
 
 
 def time_kernels(device, moeva, t, assoc_err):
@@ -505,6 +616,11 @@ def time_kernels(device, moeva, t, assoc_err):
         }
         log(f"[kernels] {name} at S={s} M={m} R={r}: device {rec['ms']:.4f} ms, through the wrapper "
             f"{rec['wrapper_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        if name == "objective_lcld":
+            # without FMA contraction a multiply-add takes two instructions: the
+            # fixed-order design cannot beat half the fp32 peak
+            rec["ceiling_ms"] = n_ops / (PEAK_F32_OPS_S / 2) * 1e3
+            log(f"[kernels] {name} no-FMA ceiling {rec['ceiling_ms']:.5f} ms")
         records.append(rec)
     return records
 
@@ -625,13 +741,43 @@ def check_step_against_cpu(moeva_gpu, moeva_cpu, moeva_ref, x, device):
     log(f"[main] the same 3 steps run free on each device: {rows_equal:.4f} of population rows equal")
 
 
+def launches_per_generation(moeva, run, carry, gen, n_states: int):
+    """One untraced generation (draws and ``gen_step``) with its launches
+    counted as the code makes them: each port kernel's wrapper count, and
+    each PyTorch op that launches a kernel (the draws' fields, the
+    ``merged_f`` cat): every ATen op but views, bare allocations and the
+    profiler's range markers. Returns ``(carry, port kernels {name: n},
+    torch ops {op: n})``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+
+    ops = {}
+
+    class CountLaunches(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if not (func.is_view or name.startswith(("empty", "_record_function"))):
+                ops[name] = ops.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    before = kernels.launch_counts()
+    with CountLaunches():
+        carry = moeva.gen_step(run, carry, moeva.draw_generation(gen, n_states))
+    after = kernels.launch_counts()
+    return carry, {k: after[k] - before[k] for k in after}, ops
+
+
 def profile_generation(moeva, x):
     """Phase 6: where a generation's time goes at the main path's shape.
     Traces ``PROFILE_GENS`` generation steps with ``torch.profiler`` after 3
     untraced ones and prints the traced ms per generation, the device-busy
     share (summed kernel time over the traced wall time), the kernels ranked
     by device time with their launches per generation, and the device span
-    of each ``moeva.*`` stage range of ``gen_step``."""
+    of each ``moeva.*`` stage range of ``gen_step``. Fails unless the trace
+    holds, per generation, one event of each port kernel and as many kernel
+    events in all as the first untraced generation launched (a trace that
+    lost events would read a low busy share)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -641,7 +787,8 @@ def profile_generation(moeva, x):
     with torch.inference_mode():
         run = moeva.prepare(x, np.ones(len(x), dtype=np.int64))
         carry = moeva.init_carry(run, *draw_gumbels(gen, len(x), moeva.n_dirs, moeva.pop_size))
-        for _ in range(3):
+        carry, port, ops = launches_per_generation(moeva, run, carry, gen, len(x))
+        for _ in range(2):
             carry = moeva.gen_step(run, carry, moeva.draw_generation(gen, len(x)))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -661,9 +808,18 @@ def profile_generation(moeva, x):
     kernels = [e for e in on_card if not e.key.startswith("moeva.")]
     busy_us = sum(dev(e) for e in kernels)
     per_gen = lambda us: us / 1e3 / PROFILE_GENS  # noqa: E731
+    expected = sum(port.values()) + sum(ops.values())
+    traced = sum(e.count for e in kernels)
     log(f"[profile] {len(x)} states: {wall / PROFILE_GENS * 1e3:.3f} ms per generation traced, device busy "
         f"{busy_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms = share {busy_us / 1e6 / wall:.3f}, "
-        f"{sum(e.count for e in kernels) / PROFILE_GENS:.1f} launches per generation")
+        f"{traced / PROFILE_GENS:.1f} launches per generation traced, {expected} launched by the code "
+        f"(port kernels {port}, torch ops {ops})")
+    for name, n in port.items():
+        got = sum(e.count for e in kernels if f"{name}_kernel" in e.key)
+        if got != n * PROFILE_GENS:
+            raise AssertionError(f"the trace holds {got} events of {name}, the code launched {n * PROFILE_GENS}")
+    if traced != expected * PROFILE_GENS:
+        raise AssertionError(f"the trace holds {traced} kernel events, the code launched {expected * PROFILE_GENS}")
     for e in sorted(kernels, key=dev, reverse=True)[:12]:
         log(f"[profile] {per_gen(dev(e)):9.4f} ms/gen {e.count / PROFILE_GENS:6.1f} launches/gen  {e.key[:100]}")
     for e in sorted((e for e in on_card if e.key.startswith("moeva.")), key=dev, reverse=True):
@@ -788,9 +944,16 @@ def main() -> int:
     info = build.build()
     build.library()
     log(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s ({info.path.name})")
-    for line in info.log.splitlines():
-        if "registers" in line or "==" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    resources = ptxas_resources(info.log)
+    for k in resources:
+        log(f"[build] {k['source']}: {k['kernel']}: {k['registers']} registers, {k['smem']} bytes static shared "
+            f"memory, {k['stack']} bytes stack frame, {k['spill_stores']} + {k['spill_loads']} bytes spill "
+            "stores + loads")
+        if k["kernel"].startswith(REDESIGNED) and k["spill_stores"] + k["spill_loads"]:
+            raise AssertionError(f"{k['kernel']} spills registers: {k}")
+    missing = [name for name in REDESIGNED if not any(k["kernel"].startswith(name) for k in resources)]
+    if missing:
+        raise AssertionError(f"the build's ptxas report has no entry for {missing}: the spill check cannot run")
 
     moeva, x, knobs = main_path_engine(device)
     records = check_kernels(device, moeva, x)

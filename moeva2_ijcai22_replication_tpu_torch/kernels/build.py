@@ -6,7 +6,8 @@ with a plain C interface (``bindings.cpp``). Nothing includes PyTorch's
 headers, so a cold build takes seconds. The library lands in
 ``.torch_ext_build/`` at the root of the checkout, named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads
-the existing library. A failed build raises; there is no fallback.
+the existing library; the compilers' report (``ptxas -v``) is kept beside it
+and read back with it. A failed build raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ NVCC_FLAGS = (
 class BuildInfo:
     path: Path
     seconds: float  # 0.0 when an existing library was reused
-    log: str  # nvcc/ptxas output (registers, shared memory, spills)
+    log: str  # nvcc/ptxas output (registers, shared memory, spills), also when reused
 
 
 def nvcc_path() -> str:
@@ -74,8 +75,9 @@ def build() -> BuildInfo:
     exists already."""
     nvcc = nvcc_path()
     lib = BUILD_DIR / f"libmoeva_kernels_{_fingerprint(nvcc)}.so"
+    report = lib.with_suffix(".log")
     if lib.exists():
-        return BuildInfo(lib, 0.0, "")
+        return BuildInfo(lib, 0.0, report.read_text() if report.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -104,8 +106,14 @@ def build() -> BuildInfo:
         )
         if link.returncode != 0:
             raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
-        os.replace(staged, lib)  # atomic: a concurrent build loses nothing
-    return BuildInfo(lib, time.perf_counter() - t0, "\n".join(logs))
+        log = "\n".join(logs)
+        staged_report = Path(tmp) / report.name
+        staged_report.write_text(log)
+        # atomic, the report first: a concurrent build loses nothing, and
+        # whoever finds the library finds its report
+        os.replace(staged_report, report)
+        os.replace(staged, lib)
+    return BuildInfo(lib, time.perf_counter() - t0, log)
 
 
 @lru_cache(maxsize=1)

@@ -4,14 +4,20 @@
 #pragma once
 
 #include <cstdint>
+#include <mutex>
+
 #include <cuda_runtime.h>
+
+// Shared memory one block can use on Hopper (227 KB).
+constexpr size_t kMaxSharedBytes = 232448;
 
 // Largest candidate count per state nd_peel takes: the domination bitset of
 // M rows of ceil(M/32) words must fit one block's shared memory.
 constexpr int kNdPeelMaxCandidates = 1024;
 
-// objective_lcld: LCLD's feature count, and the relu stacks it takes (the
-// whole stack sits in one block's shared memory beside 8 rows of D floats).
+// objective_lcld: LCLD's feature count, and the relu stacks it takes (at
+// most as many weights as fit one block's shared memory beside 8 rows of D
+// floats; the kernel stages them where they fit beside its row tiles).
 constexpr int kLcldFeatures = 47;
 constexpr int kObjectiveMaxWidth = 128;
 constexpr int kObjectiveMaxLayers = 8;
@@ -46,6 +52,52 @@ struct SurviveFillArgs {
   float* arch_f;          // (S, n_arch, 3) out
   int n_a, n_b, n_arch;
   int n_states, m, r, l, flags;
+};
+
+// One kernel's launch attributes per device, set and asked once per size of
+// dynamic shared memory rather than at every launch: a launch is on the
+// host's critical path. A launcher keeps one as a function-local static.
+class LaunchCache {
+ public:
+  // Allows `kernel` `smem` bytes of dynamic shared memory on the current
+  // device and, where `resident` is not null, sets it to the blocks of
+  // `threads` threads that the whole device holds at once.
+  cudaError_t prepare(const void* kernel, int threads, size_t smem, int* resident) {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    if (device < 0 || device >= kDevices) return cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> lock(mu_);
+    Entry& e = entries_[device];
+    if (smem > e.allowed) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      e.allowed = smem;
+    }
+    if (resident == nullptr) return cudaSuccess;
+    if (e.resident == 0 || e.resident_smem != smem) {
+      int sms = 0, per_sm = 0;
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+      if (err != cudaSuccess) return err;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+      if (err != cudaSuccess) return err;
+      e.resident = (per_sm > 0 ? per_sm : 1) * sms;
+      e.resident_smem = smem;
+    }
+    *resident = e.resident;
+    return cudaSuccess;
+  }
+
+ private:
+  static constexpr int kDevices = 64;
+  struct Entry {
+    size_t allowed = 0;        // dynamic shared memory allowed so far
+    size_t resident_smem = 0;  // the size `resident` was asked for
+    int resident = 0;
+  };
+  std::mutex mu_;
+  Entry entries_[kDevices];
 };
 
 cudaError_t launch_nd_peel(const float* f, int32_t* ranks, int n_states,
@@ -83,5 +135,4 @@ cudaError_t launch_survive_norm(const float* f, const int32_t* ranks,
                                 float* nadir, float* dirs, int n_states, int m,
                                 int a, cudaStream_t stream);
 
-cudaError_t launch_survive_fill(const SurviveFillArgs& args,
-                                cudaStream_t stream);
+cudaError_t launch_survive_fill(const SurviveFillArgs& args, cudaStream_t stream);

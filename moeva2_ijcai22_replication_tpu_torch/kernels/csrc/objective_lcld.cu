@@ -1,5 +1,5 @@
-// K1: MoEvA2's objectives on the LCLD domain, one thread block per state,
-// one thread per candidate row.
+// K1: MoEvA2's objectives on the LCLD domain, a persistent grid of blocks
+// that each stage the relu stack once and walk over tiles of rows.
 //
 // Replaces the jnp device stage moeva2_ijcai22_replication_tpu/attacks/moeva/
 // engine.py::Moeva2._evaluate, with what it calls: core/codec.py::
@@ -27,26 +27,88 @@
 // Constants that the plain version writes as Python floats are the float32
 // roundings of the same doubles.
 //
-// Design: the whole relu stack (5,600 floats for 47-64-32-16-2) and the
-// state's per-feature rows sit in shared memory; each thread runs its row
-// through decode, MLP, distance and constraints with its activations in
-// local memory. Weight reads are warp-wide broadcasts. The MLP dominates the
-// work (~5,600 multiply-adds per row) on ~110 bytes of genes and 12 of
-// objectives per row: bound by operations (fp32, no tensor cores: the fixed
-// summation order is what makes the result equal the plain version).
+// Bound: the relu stack is ~5,600 multiply-adds per row (47-64-32-16-2) on
+// ~110 bytes of genes and 12 of objectives: bound by fp32 operations. Tensor
+// cores are not used: mma/wgmma sum inside the instruction in an order that
+// no CPU code reproduces, and the fixed order is what makes the card equal
+// the plain version. Without FMA a multiply-add is two instructions, so the
+// kernel's ceiling is half the fp32 peak.
+//
+// Design: the (state, candidate) rows are flattened into S * N rows and cut
+// into tiles of TR = 128 rows. A persistent grid (occupancy x SMs, asked
+// once per device and shared memory size) of 2 * TR threads per block
+// stages the stack once per block, transposed to [k][o]
+// with each layer's outputs padded to a multiple of 8 by zero weights, and
+// walks over the tiles; it reads the params in order and writes them
+// transposed. Per tile:
+// 0. the tile's genes (one contiguous run) and the rows of the states it
+//    spans (up to 4) are copied to shared memory, each copy on consecutive
+//    addresses (read in place by the threads that use them, they are
+//    scattered loads, the largest cost of a tile outside the MLP on the
+//    H100);
+// 1. decode: every thread handles one row and every other feature, without
+//    branches, and writes the unscaled features and the scaled ones (the
+//    MLP's input), [k][row], to shared memory;
+// 2. the first TR threads sum their row's min-max distance, the other TR
+//    its constraint terms, each in the plain version's order;
+// 3. each layer is a SIMT tile product: a thread owns 4 rows x OM outputs in
+//    registers (OM = 8, 4, 2 or 1 by the layer's width) and runs k in order,
+//    one float4 load of its rows' a[k] and OM/4 float4 loads of its
+//    outputs' w[k][o] (a warp broadcast) per step; relu on the write-back to
+//    the other activation buffer;
+// 4. the first TR threads take the softmax of their row.
+// No per-thread array is indexed at run time. A stack too large for shared
+// memory beside the buffers reads its weights from global memory instead,
+// at TR = 64.
 
+#include <climits>
 #include <cmath>
 
 #include "kernels.h"
 
 namespace {
 
-constexpr int kThreads = 128;
+// states whose rows a tile stages in shared memory (a tile of 128 rows of
+// N >= 64 candidates spans at most 3); a tile that spans more reads them
+// from global memory
+constexpr int kTileStates = 4;
 
 struct MlpShape {
   int n_layers;
   int widths[kObjectiveMaxLayers + 1];
 };
+
+struct ObjectiveArgs {
+  const float* x_gen;      // (S * N, L)
+  const float* x_init;     // (S, D)
+  const float* xl;         // (S, D)
+  const float* xu;         // (S, D)
+  const float* x_init_mm;  // (S, D)
+  const int64_t* min_class;
+  const int32_t* feat_gene;
+  const int32_t* feat_onehot;
+  const float* params;  // each layer's weight (out, in), then its bias
+  const float* scale;   // (D,) or null
+  const float* offset;  // (D,) or null
+  float f2_scale;
+  int norm_inf;
+  float tol;
+  float* out;  // (S * N, 3)
+  int n_rows;
+  int n;
+  int l;
+  int buf_rows;   // rows of each activation buffer: the widest padded layer
+  int w_floats;   // floats of the staged stack (0: read from params)
+};
+
+__host__ __device__ constexpr int pad8(int w) { return (w + 7) & ~7; }
+
+// outputs per thread for a layer of out_w units: at most 8 output groups
+// of a tile's row groups, so that 2 * TR threads cover widths up to 64 in
+// one pass
+__host__ __device__ constexpr int outputs_per_thread(int out_w) {
+  return out_w > 32 ? 8 : out_w > 16 ? 4 : out_w > 8 ? 2 : 1;
+}
 
 __device__ __forceinline__ float nan_max(float a, float b) {
   return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
@@ -59,147 +121,319 @@ __device__ __forceinline__ float months(float a) {
   return __fadd_rn(__fmul_rn(floorf(__fdiv_rn(a, 100.0f)), 12.0f), rem);
 }
 
-__global__ void __launch_bounds__(kThreads)
-objective_lcld_kernel(const float* __restrict__ x_gen,
-                      const float* __restrict__ x_init,
-                      const float* __restrict__ xl,
-                      const float* __restrict__ xu,
-                      const float* __restrict__ x_init_mm,
-                      const int64_t* __restrict__ min_class,
-                      const int32_t* __restrict__ feat_gene,
-                      const int32_t* __restrict__ feat_onehot,
-                      const float* __restrict__ params, int n_params,
-                      MlpShape shape, const float* __restrict__ scale,
-                      const float* __restrict__ offset, float f2_scale,
-                      int norm_inf, float tol, float* __restrict__ out, int n,
-                      int l, int d) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* w = reinterpret_cast<float*>(smem);  // (n_params,)
-  float* x0 = w + n_params;                    // (d,) initial state
-  float* lo = x0 + d;                          // (d,) lower bounds
-  float* den = lo + d;                         // (d,) min-max denominators
-  float* mm0 = den + d;                        // (d,) normalised initial state
-  float* sc = mm0 + d;                         // (d,) scaler scale
-  float* of = sc + d;                          // (d,) scaler offset
-  int* fg = reinterpret_cast<int*>(of + d);    // (d,) feat_gene
-  int* fk = fg + d;                            // (d,) feat_onehot
+__device__ __forceinline__ float relu_if(bool hidden, float x) {
+  return hidden && !(x > 0.0f) && !isnan(x) ? 0.0f : x;
+}
 
-  const size_t s = blockIdx.x;
-  for (int k = threadIdx.x; k < n_params; k += blockDim.x) w[k] = params[k];
-  for (int k = threadIdx.x; k < d; k += blockDim.x) {
-    x0[k] = x_init[s * d + k];
-    lo[k] = xl[s * d + k];
-    const float rng = __fsub_rn(xu[s * d + k], lo[k]);
-    den[k] = rng == 0.0f ? 1.0f : rng;
-    mm0[k] = x_init_mm[s * d + k];
-    sc[k] = scale != nullptr ? scale[k] : 1.0f;
-    of[k] = offset != nullptr ? offset[k] : 0.0f;
-    fg[k] = feat_gene[k];
-    fk[k] = feat_onehot[k];
+// OM consecutive weights w[k][o0 .. o0 + OM) of a staged layer, aligned to
+// OM floats
+template <int OM>
+__device__ __forceinline__ void load_weights(const float* p, float (&w)[OM]) {
+  if constexpr (OM == 8) {
+    const float4 u = reinterpret_cast<const float4*>(p)[0];
+    const float4 v = reinterpret_cast<const float4*>(p)[1];
+    w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
+    w[4] = v.x; w[5] = v.y; w[6] = v.z; w[7] = v.w;
+  } else if constexpr (OM == 4) {
+    const float4 u = reinterpret_cast<const float4*>(p)[0];
+    w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
+  } else if constexpr (OM == 2) {
+    const float2 u = reinterpret_cast<const float2*>(p)[0];
+    w[0] = u.x; w[1] = u.y;
+  } else {
+    w[0] = p[0];
+  }
+}
+
+// One layer on a tile: h[o][row] = relu(bias[o] + sum_k a[k][row] * w[o][k])
+// for o < out_w, the sum in k order. Staged weights are w[k][o] with rows of
+// pad8(out_w) floats and the bias padded likewise; global ones are the
+// params' w[o][k] and bias.
+template <int TR, int OM, bool kStaged>
+__device__ __forceinline__ void dense_layer(const float* __restrict__ a,
+                                            float* __restrict__ h,
+                                            const float* __restrict__ w,
+                                            const float* __restrict__ bias,
+                                            int in_w, int out_w, bool hidden) {
+  constexpr int kThreads = 2 * TR;
+  constexpr int kRowGroups = TR / 4;
+  const int op = pad8(out_w);
+  const int n_items = kRowGroups * ((out_w + OM - 1) / OM);
+  for (int item = threadIdx.x; item < n_items; item += kThreads) {
+    const int r = (item % kRowGroups) * 4;
+    const int o0 = (item / kRowGroups) * OM;
+    float acc[4][OM];
+#pragma unroll
+    for (int j = 0; j < OM; ++j) {
+      float b;
+      if constexpr (kStaged) {
+        b = bias[o0 + j];
+      } else {
+        b = o0 + j < out_w ? __ldg(bias + o0 + j) : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][j] = b;
+    }
+#pragma unroll 2
+    for (int k = 0; k < in_w; ++k) {
+      const float4 av = *reinterpret_cast<const float4*>(a + k * TR + r);
+      float wv[OM];
+      if constexpr (kStaged) {
+        load_weights<OM>(w + k * op + o0, wv);
+      } else {
+#pragma unroll
+        for (int j = 0; j < OM; ++j)
+          wv[j] = o0 + j < out_w ? __ldg(w + (o0 + j) * in_w + k) : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < OM; ++j) {
+        acc[0][j] = __fadd_rn(acc[0][j], __fmul_rn(av.x, wv[j]));
+        acc[1][j] = __fadd_rn(acc[1][j], __fmul_rn(av.y, wv[j]));
+        acc[2][j] = __fadd_rn(acc[2][j], __fmul_rn(av.z, wv[j]));
+        acc[3][j] = __fadd_rn(acc[3][j], __fmul_rn(av.w, wv[j]));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < OM; ++j) {
+      float4 v;
+      v.x = relu_if(hidden, acc[0][j]);
+      v.y = relu_if(hidden, acc[1][j]);
+      v.z = relu_if(hidden, acc[2][j]);
+      v.w = relu_if(hidden, acc[3][j]);
+      *reinterpret_cast<float4*>(h + (o0 + j) * TR + r) = v;
+    }
+  }
+}
+
+// The summed LCLD violations of one row; x(k) is feature k of the row,
+// unscaled, read from column xf of a [k][TR] buffer.
+template <int TR>
+__device__ __forceinline__ float lcld_violation(const float* xf, float thr) {
+  auto x = [&](int k) { return xf[k * TR]; };
+  auto keep = [&](float t) { return t > thr ? t : 0.0f; };
+  const float r = __fdiv_rn(x(2), 1200.0f);
+  const float growth = __double2float_rn(
+      pow(static_cast<double>(__fadd_rn(1.0f, r)), static_cast<double>(x(1))));
+  const float inst = __fdiv_rn(__fmul_rn(__fmul_rn(x(0), r), growth),
+                               __fsub_rn(growth, 1.0f));
+  const float x11 = x(11);
+  const float x16 = x(16);
+  const float x22 = x(22);
+  float ratio = x11 != 0.0f ? __fdiv_rn(x16, x11) : -1.0f;
+  if (!isfinite(ratio)) ratio = -1.0f;
+  float g = keep(__fsub_rn(fabsf(__fsub_rn(x(3), inst)), static_cast<float>(0.099999)));
+  g = __fadd_rn(g, keep(__fsub_rn(x(10), x(14))));
+  g = __fadd_rn(g, keep(__fsub_rn(x16, x11)));
+  g = __fadd_rn(g, keep(fabsf(__fmul_rn(__fsub_rn(36.0f, x(1)), __fsub_rn(60.0f, x(1))))));
+  g = __fadd_rn(g, keep(fabsf(__fsub_rn(x(20), __fdiv_rn(x(0), x(6))))));
+  g = __fadd_rn(g, keep(fabsf(__fsub_rn(x(21), __fdiv_rn(x(10), x(14))))));
+  g = __fadd_rn(g, keep(fabsf(__fsub_rn(x22, __fsub_rn(months(x(7)), months(x(9)))))));
+  g = __fadd_rn(g, keep(fabsf(__fsub_rn(x(23), __fdiv_rn(x11, x22)))));
+  g = __fadd_rn(g, keep(fabsf(__fsub_rn(x(24), __fdiv_rn(x16, x22)))));
+  return __fadd_rn(g, keep(fabsf(__fsub_rn(x(25), ratio))));
+}
+
+template <int TR, bool kStaged>
+__global__ void __launch_bounds__(2 * TR)
+objective_lcld_kernel(ObjectiveArgs args, MlpShape shape) {
+  constexpr int kThreads = 2 * TR;
+  constexpr int d = kLcldFeatures;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* act0 = reinterpret_cast<float*>(smem);       // (buf_rows, TR)
+  float* act1 = act0 + args.buf_rows * TR;            // (buf_rows, TR)
+  float* genes = act1 + args.buf_rows * TR;           // (TR, l) the tile's
+  float* st = genes + TR * args.l;                    // (4, kTileStates, d)
+  float* wt = st + 4 * kTileStates * d;               // the staged stack
+  float* sc = wt + args.w_floats;                     // (d,) scaler scale
+  float* of = sc + d;                                 // (d,) scaler offset
+  int* fg = reinterpret_cast<int*>(of + d);           // (d,) feat_gene
+  int* fk = fg + d;                                   // (d,) feat_onehot
+  const int tid = threadIdx.x;
+  const bool scaled = args.scale != nullptr;
+
+  for (int k = tid; k < d; k += kThreads) {
+    sc[k] = scaled ? args.scale[k] : 1.0f;
+    of[k] = scaled ? args.offset[k] : 0.0f;
+    fg[k] = args.feat_gene[k];
+    fk[k] = args.feat_onehot[k];
+  }
+  if constexpr (kStaged) {
+    // each layer: w[k][o] (in_w rows of pad8(out_w)), then the bias
+    int at = 0;
+    const float* p = args.params;
+    for (int layer = 0; layer < shape.n_layers; ++layer) {
+      const int in_w = shape.widths[layer];
+      const int out_w = shape.widths[layer + 1];
+      const int op = pad8(out_w);
+      // read the params in order, write them transposed; zero the padding
+      for (int e = tid; e < out_w * in_w; e += kThreads)
+        wt[at + (e % in_w) * op + e / in_w] = p[e];
+      for (int e = tid; e < in_w * (op - out_w); e += kThreads)
+        wt[at + (e / (op - out_w)) * op + out_w + e % (op - out_w)] = 0.0f;
+      at += in_w * op;
+      p += out_w * in_w;
+      for (int o = tid; o < op; o += kThreads) wt[at + o] = o < out_w ? p[o] : 0.0f;
+      at += op;
+      p += out_w;
+    }
   }
   __syncthreads();
-  const bool scaled = scale != nullptr;
-  const int cls = static_cast<int>(min_class[s]);
-  const float thr = tol;
 
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const float* gj = x_gen + (s * n + j) * l;
-    float xf[kObjectiveMaxWidth];
-    float buf0[kObjectiveMaxWidth], buf1[kObjectiveMaxWidth];
-    float* a = buf0;
-    float* h = buf1;
+  const int rr = tid % TR;  // this thread's row of the tile
+  const int half = tid / TR;
+  const int n_tiles = (args.n_rows + TR - 1) / TR;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * TR;
+    const int rows = args.n_rows - row0 < TR ? args.n_rows - row0 : TR;
+    const int row = row0 + rr;
+    const bool valid = rr < rows;
+    const int s = valid ? row / args.n : 0;
 
-    // decode, distance, scaler
-    float dist = 0.0f;
-    for (int k = 0; k < d; ++k) {
-      float v;
-      if (fg[k] < 0) {
-        v = x0[k];
-      } else {
-        const float gv = gj[fg[k]];
-        v = fk[k] < 0 ? gv
-                      : (rintf(gv) == static_cast<float>(fk[k]) ? 1.0f : 0.0f);
+    // 0. stage the tile's genes and, where they fit, its states' rows:
+    // initial state, lower bound, min-max denominator, normalised initial
+    // state (each copy reads consecutive addresses)
+    const int s0 = row0 / args.n;
+    const int n_st = (row0 + rows - 1) / args.n - s0 + 1;
+    const bool staged_st = n_st <= kTileStates;
+    const float* src = args.x_gen + static_cast<size_t>(row0) * args.l;
+    for (int e = tid; e < rows * args.l; e += kThreads) genes[e] = src[e];
+    if (staged_st) {
+      for (int e = tid; e < n_st * d; e += kThreads) {
+        const size_t at = static_cast<size_t>(s0) * d + e;
+        const float lo = args.xl[at];
+        const float rng = __fsub_rn(args.xu[at], lo);
+        st[e] = args.x_init[at];
+        st[kTileStates * d + e] = lo;
+        st[2 * kTileStates * d + e] = rng == 0.0f ? 1.0f : rng;
+        st[3 * kTileStates * d + e] = args.x_init_mm[at];
       }
-      xf[k] = v;
-      const float diff = __fsub_rn(__fdiv_rn(__fsub_rn(v, lo[k]), den[k]), mm0[k]);
-      if (norm_inf) {
-        dist = k == 0 ? fabsf(diff) : nan_max(dist, fabsf(diff));
-      } else {
-        const float sq = __fmul_rn(diff, diff);
-        dist = k == 0 ? sq : __fadd_rn(dist, sq);
-      }
-      a[k] = scaled ? __fadd_rn(__fmul_rn(v, sc[k]), of[k]) : v;
     }
-    if (!norm_inf) dist = __fsqrt_rn(dist);
-    const float f2 = __fdiv_rn(dist, f2_scale);
+    __syncthreads();
+    // this row's state rows: staged (with the min-max denominator) or in
+    // global memory (with the upper bound; the denominator per use)
+    const size_t so = static_cast<size_t>(s) * d;
+    const float* x0 = staged_st ? st + (s - s0) * d : args.x_init + so;
+    const float* lo = staged_st ? x0 + kTileStates * d : args.xl + so;
+    const float* den_or_hi = staged_st ? lo + kTileStates * d : args.xu + so;
+    const float* mm0 = staged_st ? den_or_hi + kTileStates * d : args.x_init_mm + so;
+    auto denominator = [&](int k) {
+      if (staged_st) return den_or_hi[k];
+      const float rng = __fsub_rn(den_or_hi[k], lo[k]);
+      return rng == 0.0f ? 1.0f : rng;
+    };
 
-    // relu stack
-    const float* wp = w;
-    int in_w = shape.widths[0];
-    for (int layer = 0; layer < shape.n_layers; ++layer) {
-      const int out_w = shape.widths[layer + 1];
-      const float* bias = wp + out_w * in_w;
-      const bool hidden = layer + 1 < shape.n_layers;
-      for (int o = 0; o < out_w; ++o) {
-        const float* row = wp + o * in_w;
-        float acc = bias[o];
-        for (int k = 0; k < in_w; ++k)
-          acc = __fadd_rn(acc, __fmul_rn(a[k], row[k]));
-        h[o] = hidden && !(acc > 0.0f) && !isnan(acc) ? 0.0f : acc;
+    // 1. decode into act1 (unscaled) and the scaler into act0; each half of
+    // the threads takes every other feature of its row
+    if (valid) {
+      const float* gj = genes + rr * args.l;
+#pragma unroll 4
+      for (int i = 0; i < (d + 1) / 2; ++i) {
+        const int k = 2 * i + half;
+        if (k >= d) break;
+        const int gene = fg[k];
+        const int slot = fk[k];
+        const float gv = gj[gene < 0 ? 0 : gene];
+        const float v = gene < 0 ? x0[k]
+                        : slot < 0 ? gv
+                                   : (rintf(gv) == static_cast<float>(slot) ? 1.0f : 0.0f);
+        act1[k * TR + rr] = v;
+        act0[k * TR + rr] = scaled ? __fadd_rn(__fmul_rn(v, sc[k]), of[k]) : v;
       }
+    } else {
+      for (int k = half; k < d; k += 2) act0[k * TR + rr] = 0.0f;
+    }
+    __syncthreads();
+
+    // 2. the distance over the min-max differences (first TR threads) and
+    // the constraint terms (the others), each in the plain version's order
+    if (valid) {
+      if (half == 0) {
+        float dist = 0.0f;
+        for (int k = 0; k < d; ++k) {
+          const float diff = __fsub_rn(
+              __fdiv_rn(__fsub_rn(act1[k * TR + rr], lo[k]), denominator(k)), mm0[k]);
+          if (args.norm_inf) {
+            dist = k == 0 ? fabsf(diff) : nan_max(dist, fabsf(diff));
+          } else {
+            const float sq = __fmul_rn(diff, diff);
+            dist = k == 0 ? sq : __fadd_rn(dist, sq);
+          }
+        }
+        if (!args.norm_inf) dist = __fsqrt_rn(dist);
+        args.out[3 * static_cast<size_t>(row) + 1] = __fdiv_rn(dist, args.f2_scale);
+      } else {
+        args.out[3 * static_cast<size_t>(row) + 2] = lcld_violation<TR>(act1 + rr, args.tol);
+      }
+    }
+    __syncthreads();
+
+    // 3. the relu stack, act0 -> act1 -> act0 ...
+    float* a = act0;
+    float* h = act1;
+    const float* wp = kStaged ? wt : args.params;
+    for (int layer = 0; layer < shape.n_layers; ++layer) {
+      const int in_w = shape.widths[layer];
+      const int out_w = shape.widths[layer + 1];
+      const float* bias = wp + (kStaged ? in_w * pad8(out_w) : in_w * out_w);
+      const bool hidden = layer + 1 < shape.n_layers;
+      switch (outputs_per_thread(out_w)) {
+        case 8: dense_layer<TR, 8, kStaged>(a, h, wp, bias, in_w, out_w, hidden); break;
+        case 4: dense_layer<TR, 4, kStaged>(a, h, wp, bias, in_w, out_w, hidden); break;
+        case 2: dense_layer<TR, 2, kStaged>(a, h, wp, bias, in_w, out_w, hidden); break;
+        default: dense_layer<TR, 1, kStaged>(a, h, wp, bias, in_w, out_w, hidden); break;
+      }
+      __syncthreads();
+      wp = bias + (kStaged ? pad8(out_w) : out_w);
       float* t = a;
       a = h;
       h = t;
-      wp = bias + out_w;
-      in_w = out_w;
     }
 
-    // class probabilities
-    float p0, p1;
-    if (in_w == 1) {
-      const float e = __double2float_rn(exp(-static_cast<double>(a[0])));
-      p1 = __fdiv_rn(1.0f, __fadd_rn(1.0f, e));
-      p0 = __fsub_rn(1.0f, p1);
-    } else {
-      const float mx = nan_max(a[0], a[1]);
-      const float e0 = __double2float_rn(exp(static_cast<double>(__fsub_rn(a[0], mx))));
-      const float e1 = __double2float_rn(exp(static_cast<double>(__fsub_rn(a[1], mx))));
-      const float sum = __fadd_rn(e0, e1);
-      p0 = __fdiv_rn(e0, sum);
-      p1 = __fdiv_rn(e1, sum);
+    // 4. class probabilities; the logits are in a
+    if (valid && tid < TR) {
+      float p0, p1;
+      if (shape.widths[shape.n_layers] == 1) {
+        const float e = __double2float_rn(exp(-static_cast<double>(a[rr])));
+        p1 = __fdiv_rn(1.0f, __fadd_rn(1.0f, e));
+        p0 = __fsub_rn(1.0f, p1);
+      } else {
+        const float l0 = a[rr];
+        const float l1 = a[TR + rr];
+        const float mx = nan_max(l0, l1);
+        const float e0 = __double2float_rn(exp(static_cast<double>(__fsub_rn(l0, mx))));
+        const float e1 = __double2float_rn(exp(static_cast<double>(__fsub_rn(l1, mx))));
+        const float sum = __fadd_rn(e0, e1);
+        p0 = __fdiv_rn(e0, sum);
+        p1 = __fdiv_rn(e1, sum);
+      }
+      args.out[3 * static_cast<size_t>(row)] = args.min_class[s] == 0 ? p0 : p1;
     }
-    const float f1 = cls == 0 ? p0 : p1;
-
-    // LCLD constraint terms (domains/lcld.py), thresholded and summed
-    const float r = __fdiv_rn(xf[2], 1200.0f);
-    const float growth = __double2float_rn(
-        pow(static_cast<double>(__fadd_rn(1.0f, r)), static_cast<double>(xf[1])));
-    const float inst = __fdiv_rn(__fmul_rn(__fmul_rn(xf[0], r), growth),
-                                 __fsub_rn(growth, 1.0f));
-    const bool denom_ok = xf[11] != 0.0f;
-    float ratio = denom_ok ? __fdiv_rn(xf[16], xf[11]) : -1.0f;
-    if (!isfinite(ratio)) ratio = -1.0f;
-    const float terms[10] = {
-        __fsub_rn(fabsf(__fsub_rn(xf[3], inst)), static_cast<float>(0.099999)),
-        __fsub_rn(xf[10], xf[14]),
-        __fsub_rn(xf[16], xf[11]),
-        fabsf(__fmul_rn(__fsub_rn(36.0f, xf[1]), __fsub_rn(60.0f, xf[1]))),
-        fabsf(__fsub_rn(xf[20], __fdiv_rn(xf[0], xf[6]))),
-        fabsf(__fsub_rn(xf[21], __fdiv_rn(xf[10], xf[14]))),
-        fabsf(__fsub_rn(xf[22], __fsub_rn(months(xf[7]), months(xf[9])))),
-        fabsf(__fsub_rn(xf[23], __fdiv_rn(xf[11], xf[22]))),
-        fabsf(__fsub_rn(xf[24], __fdiv_rn(xf[16], xf[22]))),
-        fabsf(__fsub_rn(xf[25], ratio)),
-    };
-    float g = terms[0] > thr ? terms[0] : 0.0f;
-    for (int k = 1; k < 10; ++k)
-      g = __fadd_rn(g, terms[k] > thr ? terms[k] : 0.0f);
-
-    float* oj = out + (s * n + j) * 3;
-    oj[0] = f1;
-    oj[1] = f2;
-    oj[2] = g;
+    __syncthreads();
   }
+}
+
+template <int TR, bool kStaged>
+cudaError_t launch_tiles(const ObjectiveArgs& args, const MlpShape& shape,
+                         size_t smem, cudaStream_t stream) {
+  auto kernel = objective_lcld_kernel<TR, kStaged>;
+  constexpr int kThreads = 2 * TR;
+  static LaunchCache cache;
+  int resident = 0;
+  const cudaError_t err =
+      cache.prepare(reinterpret_cast<const void*>(kernel), kThreads, smem, &resident);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (args.n_rows + TR - 1) / TR;
+  const int grid = n_tiles < resident ? n_tiles : resident;
+  kernel<<<grid, kThreads, smem, stream>>>(args, shape);
+  return cudaGetLastError();
+}
+
+// shared bytes of one block: two activation buffers, the tile's genes and
+// state rows, the staged stack (w_floats) and the per-feature tables
+size_t objective_smem(int tile_rows, int buf_rows, int l, int w_floats) {
+  return sizeof(float) * (static_cast<size_t>(2 * buf_rows + l) * tile_rows +
+                          4 * kTileStates * kLcldFeatures + w_floats + 2 * kLcldFeatures) +
+         sizeof(int) * 2 * kLcldFeatures;
 }
 
 }  // namespace
@@ -218,23 +452,32 @@ cudaError_t launch_objective_lcld(
   MlpShape shape;
   shape.n_layers = n_layers;
   int n_params = 0;
+  int buf_rows = 0;
+  int stack_floats = 0;
   for (int k = 0; k <= n_layers; ++k) {
     if (widths[k] < 1 || widths[k] > kObjectiveMaxWidth) return cudaErrorInvalidValue;
     shape.widths[k] = widths[k];
-    if (k > 0) n_params += widths[k] * (widths[k - 1] + 1);
+    buf_rows = buf_rows > pad8(widths[k]) ? buf_rows : pad8(widths[k]);
+    if (k > 0) {
+      n_params += widths[k] * (widths[k - 1] + 1);
+      stack_floats += pad8(widths[k]) * (widths[k - 1] + 1);
+    }
   }
   if (widths[n_layers] > 2 || n_params > kObjectiveMaxParams)
     return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (n_params + 8 * d);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        objective_lcld_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+  if (static_cast<long long>(n_states) * n > INT_MAX) return cudaErrorInvalidValue;
+  ObjectiveArgs args{x_gen, x_init, xl, xu, x_init_mm, min_class, feat_gene,
+                     feat_onehot, params, scale, offset, f2_scale, norm_inf, tol,
+                     out, n_states * n, n, l, buf_rows, 0};
+  // stage the stack where it fits beside the buffers of 128-row tiles; a
+  // stack read from global memory takes 64-row tiles (at 128 rows ptxas
+  // spills registers around the out-of-line float64 pow)
+  const size_t smem = objective_smem(128, buf_rows, l, stack_floats);
+  if (smem <= kMaxSharedBytes) {
+    args.w_floats = stack_floats;
+    return launch_tiles<128, true>(args, shape, smem, stream);
   }
-  objective_lcld_kernel<<<n_states, kThreads, smem, stream>>>(
-      x_gen, x_init, xl, xu, x_init_mm, min_class, feat_gene, feat_onehot,
-      params, n_params, shape, scale, offset, f2_scale, norm_inf, tol, out, n,
-      l, d);
-  return cudaGetLastError();
+  const size_t smem_global = objective_smem(64, buf_rows, l, 0);
+  if (smem_global > kMaxSharedBytes) return cudaErrorInvalidValue;
+  return launch_tiles<64, false>(args, shape, smem_global, stream);
 }

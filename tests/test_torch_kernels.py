@@ -19,7 +19,7 @@ import torch
 from moeva2_ijcai22_replication_tpu_torch import kernels
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import (
-    archive_select_plain, evaluate_plain, extract_archive_plain,
+    archive_select_plain, evaluate_plain, extract_archive_plain, make_objective_tables,
 )
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks_plain
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import make_offspring_plain
@@ -27,6 +27,7 @@ from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import (
     NormState, associate_plain, draw_gumbels, survive_fill_plain, survive_norm_plain,
 )
 from moeva2_ijcai22_replication_tpu_torch.kernels import build
+from moeva2_ijcai22_replication_tpu_torch.models.mlp import MLP
 from moeva2_ijcai22_replication_tpu_torch.problems import synthetic_lcld_problem
 
 # tier-1 runs several test processes side by side: one intra-op thread
@@ -153,6 +154,75 @@ def test_objective_lcld_equals_plain(card, lcld, s, norm):
     want = evaluate_plain(eng._objective, eng.codec, run, off, eng.constraints)
     assert not bool(torch.isfinite(want).all())  # the zero denominators show
     assert _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stack", ["main", "global"])
+@pytest.mark.parametrize("s,n", [(3, 100), (1, 7), (5, 27)])
+def test_objective_lcld_tile_edges(card, lcld, stack, s, n):
+    # S * N not a multiple of the tile; tiles that span states whose
+    # minimize_class differ (the states alternate 0, 1); the main path's
+    # stack, staged at 128-row tiles, and one too large for shared memory,
+    # read from global memory at 64-row tiles
+    eng, run, carry, draws = _engine_state(card, lcld, s, seed=s)
+    obj = eng._objective
+    if stack == "global":
+        torch.manual_seed(s)
+        model = MLP(47, (128, 128, 128), 2).to(card).eval().requires_grad_(False)
+        obj = make_objective_tables(eng.codec, model, obj.scaler, 2, eng.constraints.tol)
+    cand = _hard_offspring(eng, carry.pop_x[:, :n])
+    got = kernels.objective_lcld(cand, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class, obj)
+    assert _same(got, evaluate_plain(obj, eng.codec, run, cand, eng.constraints))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head,norm,scaled", [(1, 2, True), (2, "inf", False), (1, "inf", False)])
+def test_objective_lcld_heads_norms_scaler(card, lcld, head, norm, scaled):
+    eng, run, carry, draws = _engine_state(card, lcld, 40, seed=head)
+    torch.manual_seed(head)
+    model = MLP(47, (64, 32, 16), head).to(card).eval().requires_grad_(False)
+    obj = make_objective_tables(eng.codec, model, eng._objective.scaler if scaled else None, norm, eng.constraints.tol)
+    cand = _hard_offspring(eng, carry.pop_x)
+    got = kernels.objective_lcld(cand, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class, obj)
+    assert _same(got, evaluate_plain(obj, eng.codec, run, cand, eng.constraints))
+
+
+def _fill_inputs(card, s, m, r, seed):
+    rng = np.random.default_rng(seed)
+    f = torch.as_tensor(_objectives(rng, s, m), device=card)
+    ranks = nd_ranks_plain(f, m // 2)
+    niche = torch.as_tensor(rng.integers(0, r, (s, m)), device=card)
+    dist = torch.as_tensor(rng.uniform(size=(s, m)).astype(np.float32), device=card)
+    dist[:, ::9] = torch.nan
+    gum_cut = torch.as_tensor(rng.gumbel(size=(s, r)).astype(np.float32), device=card)
+    gum_mem = torch.as_tensor(rng.gumbel(size=(s, m)).astype(np.float32), device=card)
+    return f, ranks, niche, dist, gum_cut, gum_mem
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one niche", "inf niche", "tied gumbels", "limits"])
+@pytest.mark.parametrize("s", [3, 5])
+def test_survive_fill_edges_equal_plain(card, case, s):
+    # four states per block, the last block partial; at the limits
+    # (M = R = 1024) four states' arrays do not fit a block: one per block
+    m, r = (1024, 1024) if case == "limits" else (203, 103)
+    f, ranks, niche, dist, gum_cut, gum_mem = _fill_inputs(card, s, m, r, seed=m + s)
+    if case == "one niche":  # a niche holding every available row
+        niche = torch.zeros_like(niche)
+    if case == "inf niche":  # every distance in a niche is inf
+        dist = torch.where(niche % 3 == 0, torch.inf, dist)
+    if case == "tied gumbels":
+        gum_cut = torch.zeros_like(gum_cut)
+        gum_mem[:, ::2] = 0.5
+    p = m // 2
+    rows = torch.rand((s, m, 27), device=card)
+    extract = (rows[:, :p], rows[:, p:], f[:, :p], f[:, p:])
+    mask = survive_fill_plain(gum_cut, gum_mem, ranks, niche, dist, p)
+    want = (mask, *extract_archive_plain(mask, *extract, rows[:, :24], f[:, :24]))
+    got = kernels.survive_fill(gum_cut, gum_mem, ranks, niche, dist, p, extract=extract,
+                               archive=(rows[:, :24], f[:, :24], rows[:, p:], f[:, p:], 24))
+    for g, w in zip(got, want):
+        assert _same(g, w)
 
 
 def _merged_objectives(carry, off_f):
