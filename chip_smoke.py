@@ -10,7 +10,7 @@ Phases, in order; any failure exits non-zero:
 1. versions: torch, CUDA, and the card's name and power limit (nvidia-smi);
 2. build the port's six CUDA kernels from the sources in the checkout and
    print each kernel's ptxas registers, shared memory, stack frame and
-   spill (K1 and K4b must not spill);
+   spill (the redesigned K1, K4b, K4a and K5 must not spill);
 3. hold each kernel against its plain PyTorch version on the card over a
    sweep of state counts and two shapes: K5 ``offspring``, K1
    ``objective_lcld``, K4a ``survive_norm`` and K4b ``survive_fill`` (fill,
@@ -24,11 +24,14 @@ Phases, in order; any failure exits non-zero:
    at the main path's shape with CUDA events, around the replay of a CUDA
    graph of 20 launches (``ms``, the kernel's device time) and around 20
    calls of its Python wrapper (``wrapper_ms``), beside its plain version
-   and its bound (bytes and operations this run's data needs). K1 and K4b
-   are also held on their launch shapes' edges: partial tiles and blocks,
-   tiles spanning states, a stack too large for shared memory (K1 reads it
-   from global memory) and M = R = 1024 (K4b runs one state per block);
-   K1's record adds its no-FMA ceiling;
+   and its bound (bytes and operations this run's data needs). K1, K4b,
+   K4a and K5 are also held on their launch shapes' edges: partial tiles
+   and blocks, tiles spanning states, a stack too large for shared memory
+   (K1 reads it from global memory), M = R = 1024 (K4b runs one state per
+   block), M = 1024 and degenerate states for K4a (an all-NaN column,
+   equal rows, previous extremes that win), and for K5 a full and an empty
+   mutation queue, zero-range genes, odd N and more genes than one chunk of
+   its queue; K1's record adds its no-FMA ceiling;
 4. drive the main path, ``Moeva2.generate`` on 1000 synthetic LCLD states
    at population 103 with 100 offspring, with every launch count set to 0
    just before and read just after (each must equal what the code implies);
@@ -66,10 +69,11 @@ SWEEP_STATES = (64, 387, 512, 520, 537, 538, 540, 544, 1000)
 #: (M candidates, R directions, n_stop): the main path's shape and the
 #: shape the TPU fault was bisected at
 SWEEP_SHAPES = ((203, 103, 103), (303, 203, 203))
-#: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 ops/s
-#: outside the tensor cores
+#: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 and fp64
+#: ops/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+PEAK_F64_OPS_S = 34e12
 ASSOC_TIE_REL = 1e-6
 ASSOC_DIST_ATOL = 1e-5
 #: engine stages on the same inputs: the card's float32 error against the
@@ -92,7 +96,7 @@ def nvidia_smi_line() -> str:
 
 
 #: kernels whose ptxas report must show no spill
-REDESIGNED = ("objective_lcld_kernel", "survive_fill_kernel")
+REDESIGNED = ("objective_lcld_kernel", "survive_fill_kernel", "survive_norm_kernel", "offspring_kernel")
 
 
 def ptxas_resources(build_log: str) -> list:
@@ -238,9 +242,12 @@ def nd_peel_ops(ranks: np.ndarray, m: int) -> int:
     return ops
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, n_ops_f64: float):
+    """The larger of the bytes' time and the operations' time: ``n_ops``
+    float32 (and integer) operations at the fp32 peak plus ``n_ops_f64``
+    float64 operations at the fp64 peak."""
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = n_ops / PEAK_F32_OPS_S * 1e3
+    t_ops = (n_ops / PEAK_F32_OPS_S + n_ops_f64 / PEAK_F64_OPS_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -311,6 +318,18 @@ def fill_work(ranks, niche, n_dirs: int, n_survive: int):
     return int(avail.sum()), int(((c0 == 0) & (cap > 0)).sum())
 
 
+def mutated_genes(tables, xl, xu, mut_select) -> int:
+    """Output genes that mutate on these draws: ``mut_select`` under the
+    gene's probability (rounded to float32) and a range above 0 on the
+    bounds mutation works on."""
+    import torch
+
+    half = torch.tensor(0.5 - 1e-16, dtype=torch.float32, device=xl.device)
+    ext = torch.where(tables.int_mask, half, torch.zeros_like(half))
+    ok = (xu + ext) - (xl - ext) > 0
+    return int(((mut_select < tables.mut_prob.float()) & ok[:, None]).sum())
+
+
 def parent_rows(draws, p: int) -> int:
     """Distinct (state, parent) rows that the matings of ``draws`` read."""
     import torch
@@ -334,9 +353,25 @@ def fill_rows_read(mask, arch_f, off_f, size: int):
     return int(mask[:, :p].sum()), int((mask[:, p:] | picked[:, a:]).sum()), int(picked[:, :a].sum())
 
 
-#: float32 operations per output gene of K5, counted from its source (a
-#: float64 pow counted as one: the bound stays a lower bound)
-OFFSPRING_OPS_PER_GENE = 30
+#: operations of K5 counted from its source: float32 (and integer) ones per
+#: gene of a state's bounds (the widened bounds and range), per output gene
+#: (crossover, rounding, clip) and per mutated gene (the polynomial mutation
+#: besides its pows); the two float64 pows of a mutated gene count as one
+#: operation each at the fp64 peak (so the bound stays a lower bound), and a
+#: gene that does not mutate takes no pow
+OFFSPRING_OPS_PER_BOUND = 4
+OFFSPRING_OPS_PER_GENE = 8
+OFFSPRING_OPS_PER_MUTATION = 18
+OFFSPRING_POWS_PER_MUTATION = 2
+#: operations of K4a per state, counted from its source: 12 per candidate
+#: row (column min/max, front max, the masked row), 24 per ASF candidate
+#: (shift, snap, 9 products, max, argmin step), 20 per direction, 135 for
+#: the reductions and the 3x3 solve; the aspiration points' min/max (6 per
+#: point) is the same for every state and counts once
+NORM_OPS_PER_ROW = 12
+NORM_OPS_PER_CANDIDATE = 24
+NORM_OPS_PER_DIRECTION = 20
+NORM_OPS_PER_STATE = 135
 #: float32 operations per candidate of K1 besides the MLP's 2 per weight:
 #: 7 per feature (decode, min-max, distance, scaler), 60 for the softmax and
 #: the 10 LCLD terms
@@ -481,11 +516,104 @@ GLOBAL_STACK = (128, 128, 128)
 #: than the four it holds, and the kernel's limits, where four states'
 #: arrays do not fit one block
 FILL_EDGES = ((3, 203, 103, 103), (5, 203, 103, 103), (3, 1024, 1024, 512))
+#: (case, M) of K4a's edges, each at S = 3 and 5 (four states per block, the
+#: last block partial): M = 1024, the peel's limit (32 staged rows per
+#: lane); an all-NaN f column; equal rows (det = 0, the nadir fallbacks);
+#: a warm state whose previous extreme points win every argmin
+NORM_EDGES = (("mixed", 203), ("limits", 1024), ("NaN column", 203), ("equal rows", 203), ("warm extremes", 203))
+#: K5's edges: the mutation queue full and empty, zero-range genes, a last
+#: mating with one child, and a synthetic schema of more genes than one
+#: chunk of the queue
+OFFSPRING_EDGES = ("all mutate", "none mutate", "zero range", "odd N", "wide")
+WIDE_GENES = 3000
+
+
+def check_norm_edges(device, rng):
+    """K4a on ``NORM_EDGES``, two steps each, bit for bit against
+    ``survive_norm_plain``."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import NormState, survive_norm_plain
+
+    asp = torch.as_tensor(rng.dirichlet(np.ones(3), 100).astype(np.float32), device=device)
+    for case, m in NORM_EDGES:
+        for s in (3, 5):
+            f = torch.as_tensor(sweep_objectives(rng, s, m), device=device)
+            state = NormState.init(s, 3, device=device)
+            if case == "NaN column":
+                f[1, :, 1] = torch.nan
+            if case == "equal rows":
+                f = f[:, :1].expand(s, m, 3).nan_to_num(nan=0.5, posinf=2.0).contiguous()
+            if case == "warm extremes":
+                f = f.nan_to_num(nan=0.5, posinf=9.0) + 1.0
+                state = state._replace(ideal=torch.zeros((s, 3), device=device),
+                                       extreme=0.5 * torch.eye(3, device=device).expand(s, 3, 3).contiguous())
+            ranks = nd_ranks_plain(f, m // 2)
+            for step in range(2):
+                got = kernels.survive_norm(f, ranks, asp, state)
+                new_state, nadir, dirs = survive_norm_plain(f, ranks, asp, state)
+                for name, g, w in zip(("ideal", "worst", "extreme", "nadir", "dirs"), got, (*new_state, nadir, dirs)):
+                    hold_equal(g, w, f"survive_norm {name} {case} S={s} M={m} step {step}")
+                if case == "warm extremes" and not torch.equal(new_state.extreme, state.extreme):
+                    raise AssertionError("survive_norm warm extremes: the previous extreme points did not win")
+                state = new_state
+
+
+def wide_tables(rng, l: int, device):
+    """Operator tables of a synthetic schema of ``l`` genes, 40% integer."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import OperatorTables
+
+    type_id = (rng.random(l) < 0.4).astype(np.int64)
+    rank = np.zeros(l, dtype=np.int64)
+    sizes = [0, 0, 0]
+    for i, t in enumerate(type_id):
+        rank[i] = sizes[t]
+        sizes[t] += 1
+    return OperatorTables(
+        type_id=torch.as_tensor(type_id), rank_in_type=torch.as_tensor(rank), type_sizes=tuple(sizes),
+        mut_prob=torch.as_tensor(1.0 / np.maximum(np.array(sizes)[type_id], 1)), int_mask=torch.as_tensor(type_id == 1),
+    ).to(device)
+
+
+def check_offspring_edges(device, moeva, x, rng, gen):
+    """K5 on ``OFFSPRING_EDGES`` at 7 states, bit for bit against
+    ``make_offspring_plain``."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import draw_offspring, make_offspring_plain
+
+    s, p = 7, moeva.pop_size
+    run = moeva.prepare(x[:s], np.arange(s) % 2)
+    for case in OFFSPRING_EDGES:
+        n, tables, xl, xu = moeva.n_offsprings, moeva.tables, run.xl_gen.clone(), run.xu_gen.clone()
+        if case == "odd N":
+            n -= 1
+        if case == "wide":
+            n, tables = 5, wide_tables(rng, WIDE_GENES, device)
+            xl = torch.as_tensor(rng.uniform(-5, 0, (s, WIDE_GENES)).astype(np.float32), device=device)
+            xu = xl + torch.as_tensor(rng.uniform(0, 5, (s, WIDE_GENES)).astype(np.float32), device=device)
+        if case in ("zero range", "wide"):
+            xu[:, ::5] = xl[:, ::5]
+        l = xl.shape[1]
+        pop = xl[:, None] + torch.rand((s, p, l), generator=gen, device=device) * (xu - xl)[:, None]
+        pop = torch.where(tables.int_mask, torch.round(pop), pop).clamp(xl[:, None], xu[:, None])
+        draws = draw_offspring(gen, s, p, n, l)
+        if case in ("all mutate", "none mutate"):
+            draws = draws._replace(mut_select=torch.full_like(draws.mut_select, 0.0 if case == "all mutate" else 1.0))
+        if case == "wide":  # ~7% of the genes mutate, in every chunk of elements
+            draws = draws._replace(mut_select=draws.mut_select * 0.01)
+        args = (tables, pop, xl, xu, n, draws)
+        hold_equal(kernels.offspring(*args), make_offspring_plain(*args), f"offspring {case} S={s} N={n} L={l}")
 
 
 def check_launch_shapes(device, moeva, x, rng, gen):
-    """K1 and K4b on their launch shapes' edges, bit for bit against their
-    plain versions."""
+    """K1, K4b, K4a and K5 on their launch shapes' edges, bit for bit
+    against their plain versions."""
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
@@ -526,9 +654,12 @@ def check_launch_shapes(device, moeva, x, rng, gen):
                                    archive=(pop[:, :24], f[:, :24], off, f[:, p:], 24))
         for name, g, w in zip(("mask", "pop_x", "pop_f", "arch_x", "arch_f"), got, want):
             hold_equal(g, w, f"survive_fill {name} S={s} M={m} R={r}")
+    check_norm_edges(device, rng)
+    check_offspring_edges(device, moeva, x, rng, gen)
     log(f"[kernels] launch-shape edges equal their plain versions: objective_lcld (S, N) in {OBJECTIVE_EDGES} "
         f"with the main path's stack and a 47-{'-'.join(map(str, GLOBAL_STACK))}-2 stack read from global memory; "
-        f"survive_fill (S, M, R, n_survive) in {FILL_EDGES}")
+        f"survive_fill (S, M, R, n_survive) in {FILL_EDGES}; survive_norm (case, M) in {NORM_EDGES} at S = 3 "
+        f"and 5, two steps; offspring {OFFSPRING_EDGES} at S = 7 (wide: L = {WIDE_GENES})")
 
 
 def time_kernels(device, moeva, t, assoc_err):
@@ -558,6 +689,7 @@ def time_kernels(device, moeva, t, assoc_err):
     fill_args = (t["gum_cut"], t["gum_mem"], t["ranks"], t["niche"], t["dist"], n_stop)
     # rows of genes the two gathers must read on these inputs
     n_parents = parent_rows(t["draws"], p)
+    n_mutated = mutated_genes(tables, t["xl"], t["xu"], t["draws"].mut_select)
     pop_rows, off_rows, arch_rows = fill_rows_read(survive_fill_plain(*fill_args), t["arch_f"], t["f"][:, p:], n_arch)
     extract = (t["pop"], t["off"], t["f"][:, :p], t["f"][:, p:])
     archive = (t["arch_x"], t["arch_f"], t["off"], t["f"][:, p:], n_arch)
@@ -566,40 +698,44 @@ def time_kernels(device, moeva, t, assoc_err):
         mask = survive_fill_plain(*fill_args)
         return extract_archive_plain(mask, *extract, t["arch_x"], t["arch_f"])
 
+    # K5 reads mut_u only where a gene mutates (n_mutated)
     specs = (
         ("offspring", "csrc/offspring.cu", "attacks/moeva/operators.py:233",
          lambda: kernels.offspring(tables, t["pop"], t["xl"], t["xu"], n, t["draws"]),
          lambda: make_offspring_plain(tables, t["pop"], t["xl"], t["xu"], n, t["draws"]),
-         4 * n_parents * l + 8 * s * l + 16 * s * n_mat + 48 * s * n_mat + 12 * s * n_mat + 8 * s * n * l
-         + 25 * l + 4 * s * n * l,
-         OFFSPRING_OPS_PER_GENE * s * n * l, 0.0),
+         4 * n_parents * l + 8 * s * l + 16 * s * n_mat + 48 * s * n_mat + 12 * s * n_mat + 4 * s * n * l
+         + 4 * n_mutated + 25 * l + 4 * s * n * l,
+         OFFSPRING_OPS_PER_BOUND * s * l + OFFSPRING_OPS_PER_GENE * s * n * l
+         + OFFSPRING_OPS_PER_MUTATION * n_mutated, OFFSPRING_POWS_PER_MUTATION * n_mutated, 0.0),
         ("objective_lcld", "csrc/objective_lcld.cu", "attacks/moeva/engine.py:452",
          lambda: kernels.objective_lcld(t["cand"], run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm,
                                         run.minimize_class, obj),
          lambda: evaluate_plain(obj, moeva.codec, run, t["cand"], moeva.constraints),
          4 * s * n * l + 16 * s * d + 8 * s + 4 * n_params + 16 * d + 12 * s * n,
-         s * n * (2 * macs + OBJECTIVE_OPS_PER_FEATURE * d + OBJECTIVE_OPS_PER_ROW), 0.0),
+         s * n * (2 * macs + OBJECTIVE_OPS_PER_FEATURE * d + OBJECTIVE_OPS_PER_ROW), 0, 0.0),
         ("nd_peel", "csrc/nd_peel.cu", "attacks/moeva/nds.py:39",
          lambda: kernels.nd_peel(t["f"], n_stop), lambda: nd_ranks_plain(t["f"], n_stop),
-         4 * s * m * 3 + 4 * s * m, nd_peel_ops(ranks_np, m), 0.0),
+         4 * s * m * 3 + 4 * s * m, nd_peel_ops(ranks_np, m), 0, 0.0),
         ("survive_norm", "csrc/survive_norm.cu", "attacks/moeva/survival.py:325",
          lambda: kernels.survive_norm(t["f"], t["ranks"], t["asp"], t["state0"]),
          lambda: survive_norm_plain(t["f"], t["ranks"], t["asp"], t["state0"]),
          16 * s * m + 12 * a + 60 * s + 72 * s + 12 * s * r,
-         s * (24 * (3 + m + a) + 9 * m + 26 * a + 60), 0.0),
+         s * (NORM_OPS_PER_CANDIDATE * (3 + m + a) + NORM_OPS_PER_ROW * m + NORM_OPS_PER_DIRECTION * a
+              + NORM_OPS_PER_STATE) + 6 * a, 0, 0.0),
         ("associate", "csrc/associate.cu", "attacks/moeva/survival.py:225",
          lambda: kernels.associate(t["f"], t["dirs"], t["ideal"], t["nadir"]),
          lambda: associate_plain(t["f"], t["dirs"], t["ideal"], t["nadir"]),
-         4 * (s * m * 3 + s * r * 3 + 2 * s * 3) + 12 * s * m, 6 * s * m * r + 9 * s * r + 12 * s * m, assoc_err),
+         4 * (s * m * 3 + s * r * 3 + 2 * s * 3) + 12 * s * m, 6 * s * m * r + 9 * s * r + 12 * s * m, 0,
+         assoc_err),
         ("survive_fill", "csrc/survive_fill.cu", "attacks/moeva/survival.py:351",
          lambda: kernels.survive_fill(*fill_args, extract=extract, archive=archive), fill_plain,
          21 * s * m + 4 * s * r + 4 * l * (pop_rows + off_rows + arch_rows)
          + 12 * (pop_rows + s * n + s * t["arch_f"].shape[1]) + 4 * s * (p + n_arch) * (l + 3),
-         s * (4 * m + 40 * r) + 3 * m * n_avail + 2 * m * n_first + 6 * s * n_cand * n_cand, 0.0),
+         s * (4 * m + 40 * r) + 3 * m * n_avail + 2 * m * n_first + 6 * s * n_cand * n_cand, 0, 0.0),
     )
     records = []
-    for name, source, replaces, kfn, pfn, n_bytes, n_ops, err in specs:
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
+    for name, source, replaces, kfn, pfn, n_bytes, n_ops, n_ops_f64, err in specs:
+        b_ms, b_by = bound_ms(n_bytes, n_ops, n_ops_f64)
         rec = {
             "name": name,
             "route": "cuda",
@@ -616,6 +752,9 @@ def time_kernels(device, moeva, t, assoc_err):
         }
         log(f"[kernels] {name} at S={s} M={m} R={r}: device {rec['ms']:.4f} ms, through the wrapper "
             f"{rec['wrapper_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        if name == "offspring":
+            log(f"[kernels] {name}: {n_mutated} of {s * n * l} output genes mutate on these draws (pows and "
+                "mut_u bytes counted for those only)")
         if name == "objective_lcld":
             # without FMA contraction a multiply-add takes two instructions: the
             # fixed-order design cannot beat half the fp32 peak

@@ -205,7 +205,8 @@ def survive_norm(f, ranks, asp_points, state):
     """Kernel K4a: ``(ideal, worst, extreme, nadir, dirs)`` from ``f``
     (S, M, 3), its front ranks (S, M) int32, ``asp_points`` (A, 3) and the
     normalisation state ``(ideal, worst, extreme)``, all float32 on one card;
-    ``dirs`` is (S, A + 3, 3)."""
+    ``dirs`` is (S, A + 3, 3). M and A + 3 are at most the survival kernels'
+    limit, as ``survive_fill`` takes them."""
     from .build import library
 
     if f.dim() != 3 or asp_points.dim() != 2:
@@ -224,6 +225,9 @@ def survive_norm(f, ranks, asp_points, state):
     dev = _one_device(f, ranks, asp_points, ideal, worst, extreme)
     ins = [t.contiguous() for t in (f, ranks, asp_points, ideal, worst, extreme)]
     lib = library()
+    limit = lib.moeva_survive_max_candidates()
+    if max(m, a + 3) > limit:
+        raise ValueError(f"survive_norm takes at most {limit} candidates and directions per state, got M={m}, R={a + 3}")
     outs = [torch.empty(shape, dtype=torch.float32, device=dev)
             for shape in ((s, 3), (s, 3), (s, 3, 3), (s, 3), (s, a + 3, 3))]
     with torch.cuda.device(dev):

@@ -22,7 +22,9 @@ from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import (
     archive_select_plain, evaluate_plain, extract_archive_plain, make_objective_tables,
 )
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks_plain
-from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import make_offspring_plain
+from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import (
+    OperatorTables, draw_offspring, make_offspring_plain,
+)
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import (
     NormState, associate_plain, draw_gumbels, survive_fill_plain, survive_norm_plain,
 )
@@ -67,6 +69,16 @@ def test_nd_peel_equals_plain(card, s, m, n_stop):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["nd_peel"] == before + 1
     assert torch.equal(got, nd_ranks_plain(f, n_stop))
+
+
+@pytest.mark.cuda
+def test_survive_norm_rejects_too_many_candidates(card):
+    state = NormState.init(1, 3, device=card)
+    ranks = torch.zeros((1, 1025), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="at most 1024"):
+        kernels.survive_norm(torch.zeros((1, 1025, 3), device=card), ranks, torch.ones((4, 3), device=card), state)
+    with pytest.raises(ValueError, match="at most 1024"):
+        kernels.survive_norm(torch.zeros((1, 5, 3), device=card), ranks[:, :5], torch.ones((1022, 3), device=card), state)
 
 
 @pytest.mark.cuda
@@ -185,6 +197,83 @@ def test_objective_lcld_heads_norms_scaler(card, lcld, head, norm, scaled):
     cand = _hard_offspring(eng, carry.pop_x)
     got = kernels.objective_lcld(cand, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class, obj)
     assert _same(got, evaluate_plain(obj, eng.codec, run, cand, eng.constraints))
+
+
+def _wide_tables(rng, l):
+    """Operator tables of a synthetic schema of ``l`` genes, 40% integer."""
+    type_id = (rng.random(l) < 0.4).astype(np.int64)
+    rank = np.zeros(l, dtype=np.int64)
+    sizes = [0, 0, 0]
+    for i, t in enumerate(type_id):
+        rank[i] = sizes[t]
+        sizes[t] += 1
+    return OperatorTables(
+        type_id=torch.as_tensor(type_id), rank_in_type=torch.as_tensor(rank), type_sizes=tuple(sizes),
+        mut_prob=torch.as_tensor(1.0 / np.maximum(np.array(sizes)[type_id], 1)), int_mask=torch.as_tensor(type_id == 1),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all mutate", "none mutate", "zero range", "odd N", "wide"])
+def test_offspring_edges_equal_plain(card, lcld, case):
+    # the mutation queue full and empty, genes that cannot mutate, a last
+    # mating with one child, and more genes than one chunk of the queue
+    cons, sur, scaler, x = lcld
+    rng = np.random.default_rng(len(case))
+    gen = torch.Generator(device=card).manual_seed(len(case))
+    s, p, n = 7, 103, 99 if case == "odd N" else 100
+    if case == "wide":
+        tables, l, n = _wide_tables(rng, 3000).to(card), 3000, 5
+        xl = torch.as_tensor(rng.uniform(-5, 0, (s, l)).astype(np.float32), device=card)
+        xu = xl + torch.as_tensor(rng.uniform(0, 5, (s, l)).astype(np.float32), device=card)
+    else:
+        eng = Moeva2(sur, cons, ml_scaler=scaler, device=card, n_pop=100, n_offsprings=n, archive_size=24)
+        run = eng.prepare(x[:s], np.arange(s) % 2)
+        tables, xl, xu = eng.tables, run.xl_gen.clone(), run.xu_gen.clone()
+        l = xl.shape[1]
+    if case in ("zero range", "wide"):
+        xu[:, ::5] = xl[:, ::5]
+    pop = xl[:, None] + torch.rand((s, p, l), generator=gen, device=card) * (xu - xl)[:, None]
+    pop = torch.where(tables.int_mask, torch.round(pop), pop).clamp(xl[:, None], xu[:, None])
+    draws = draw_offspring(gen, s, p, n, l)
+    if case in ("all mutate", "none mutate"):
+        draws = draws._replace(mut_select=torch.full_like(draws.mut_select, 0.0 if case == "all mutate" else 1.0))
+    if case == "wide":  # ~7% of the genes mutate, in every chunk of elements
+        draws = draws._replace(mut_select=draws.mut_select * 0.01)
+    args = (tables, pop, xl, xu, n, draws)
+    assert _same(kernels.offspring(*args), make_offspring_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed", "limits", "NaN column", "equal rows", "warm extremes"])
+@pytest.mark.parametrize("s", [3, 5])
+def test_survive_norm_edges_equal_plain(card, case, s):
+    # four states per block, the last block partial; M = 1024, the peel's
+    # limit (32 staged rows per lane); a state whose f column is all NaN;
+    # equal rows (det = 0: the nadir fallbacks); a warm state whose previous
+    # extreme points win every argmin
+    m = 1024 if case == "limits" else 203
+    rng = np.random.default_rng(m + s)
+    f = torch.as_tensor(_objectives(rng, s, m), device=card)
+    asp = torch.as_tensor(rng.dirichlet(np.ones(3), 100).astype(np.float32), device=card)
+    state = NormState.init(s, 3, device=card)
+    if case == "NaN column":
+        f[1, :, 1] = torch.nan
+    if case == "equal rows":
+        f = f[:, :1].expand(s, m, 3).nan_to_num(nan=0.5, posinf=2.0).contiguous()
+    if case == "warm extremes":
+        f = f.nan_to_num(nan=0.5, posinf=9.0) + 1.0
+        state = state._replace(ideal=torch.zeros((s, 3), device=card),
+                               extreme=0.5 * torch.eye(3, device=card).expand(s, 3, 3).contiguous())
+    ranks = nd_ranks_plain(f, m // 2)
+    for step in range(2):
+        got = kernels.survive_norm(f, ranks, asp, state)
+        new_state, nadir, dirs = survive_norm_plain(f, ranks, asp, state)
+        for g, w in zip(got, (*new_state, nadir, dirs)):
+            assert _same(g, w)
+        if case == "warm extremes":
+            assert torch.equal(new_state.extreme, state.extreme)
+        state = new_state
 
 
 def _fill_inputs(card, s, m, r, seed):
