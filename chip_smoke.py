@@ -10,7 +10,7 @@ Phases, in order; any failure exits non-zero:
 1. versions: torch, CUDA, and the card's name and power limit (nvidia-smi);
 2. build the port's six CUDA kernels from the sources in the checkout and
    print each kernel's ptxas registers, shared memory, stack frame and
-   spill (the redesigned K1, K4b, K4a and K5 must not spill);
+   spill (the redesigned K1, K4b, K4a, K5 and K2 must not spill);
 3. hold each kernel against its plain PyTorch version on the card over a
    sweep of state counts and two shapes: K5 ``offspring``, K1
    ``objective_lcld``, K4a ``survive_norm`` and K4b ``survive_fill`` (fill,
@@ -31,7 +31,11 @@ Phases, in order; any failure exits non-zero:
    block), M = 1024 and degenerate states for K4a (an all-NaN column,
    equal rows, previous extremes that win), and for K5 a full and an empty
    mutation queue, zero-range genes, odd N and more genes than one chunk of
-   its queue; K1's record adds its no-FMA ceiling;
+   its queue; K2 on ``K2_EDGES`` (word edges, even word counts, M = 303
+   and 1024, all-NaN states, equal rows, chains, ties of signed zeros,
+   infinities and denormals; n_stop 0 to M + 5). The
+   fronts K2 peels per state are logged; K1's record adds its no-FMA
+   ceiling, K2's its time at ``config/moeva.yaml``'s (M, n_stop);
 4. drive the main path, ``Moeva2.generate`` on 1000 synthetic LCLD states
    at population 103 with 100 offspring, with every launch count set to 0
    just before and read just after (each must equal what the code implies);
@@ -41,7 +45,8 @@ Phases, in order; any failure exits non-zero:
 5. judge the result with ``ObjectiveCalculator.success_rate_3d`` (o1..o7);
 6. profile a few generation steps: ms per generation, device-busy share,
    launches, kernels and stages by device time; fails unless the trace
-   holds as many kernel launches as an untraced generation made.
+   holds as many kernel launches as an untraced generation made; then the
+   fronts K2 peels per state on one more generation.
 
 The last three lines are the per-kernel JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Nothing is printed as a
@@ -96,7 +101,8 @@ def nvidia_smi_line() -> str:
 
 
 #: kernels whose ptxas report must show no spill
-REDESIGNED = ("objective_lcld_kernel", "survive_fill_kernel", "survive_norm_kernel", "offspring_kernel")
+REDESIGNED = ("objective_lcld_kernel", "survive_fill_kernel", "survive_norm_kernel", "offspring_kernel",
+              "nd_peel_kernel")
 
 
 def ptxas_resources(build_log: str) -> list:
@@ -230,16 +236,27 @@ def sweep_directions(rng, s: int, r: int) -> np.ndarray:
 
 
 def nd_peel_ops(ranks: np.ndarray, m: int) -> int:
-    """Operations the peel needs on these inputs: 6 comparisons per ordered
-    pair for the relation, then per front one AND of ceil(M/32) words for
-    every candidate still remaining."""
+    """Operations the peel needs on these inputs: 6 comparisons per pair of
+    candidates for the relation (one comparison of a pair gives both
+    directions), then per front one AND of ceil(M/32) words for every
+    candidate still remaining."""
     words = -(-m // 32)
-    ops = 6 * ranks.shape[0] * m * m
+    ops = 6 * ranks.shape[0] * (m * (m - 1) // 2)
     for row in ranks:
         ranked = np.sort(row[row != 2**31 - 1])
         for r in range(int(ranked.max()) + 1 if ranked.size else 0):
             ops += (m - int(np.searchsorted(ranked, r))) * words
     return ops
+
+
+def peeled_fronts(ranks) -> tuple:
+    """(mean, max) over the states of ``ranks`` (S, M) of the fronts peeled."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import UNRANKED
+
+    n = torch.where(ranks == UNRANKED, -1, ranks).amax(1) + 1
+    return float(n.double().mean()), int(n.max())
 
 
 def bound_ms(n_bytes: float, n_ops: float, n_ops_f64: float):
@@ -407,6 +424,7 @@ def check_kernels(device, moeva, x):
     inf_rows = 0
     counts = {"nonfinite objectives": 0, "NaN archive scores": 0, "zero-range genes": 0}
     timing = {}
+    fronts = {}  # M: [sum of fronts, states, max]
     for m, r, n_stop in SWEEP_SHAPES:
         p, n_off, a = n_stop, m - n_stop, r - 3
         asp = torch.as_tensor(rng.dirichlet(np.ones(3), a).astype(np.float32), device=device)
@@ -438,6 +456,9 @@ def check_kernels(device, moeva, x):
                     bad = int((got != want).sum())
                     raise AssertionError(f"nd_peel != plain at S={s} M={m} n_stop={stop}: {bad} ranks differ")
             ranks = kernels.nd_peel(f, n_stop)
+            mean, most = peeled_fronts(ranks)
+            acc = fronts.setdefault(m, [0.0, 0, 0])
+            acc[0], acc[1], acc[2] = acc[0] + mean * s, acc[1] + s, max(acc[2], most)
             # K4a normalisation, from the initial state and from a warm one
             state = NormState.init(s, 3, device=device)
             for step in range(2):
@@ -495,7 +516,12 @@ def check_kernels(device, moeva, x):
                               ranks=ranks, asp=asp, state0=NormState.init(s, 3, device=device), niche=niche,
                               dist=dist, gum_cut=gum_cut, gum_mem=gum_mem, arch_x=arch_x, arch_f=arch_f,
                               dirs=dirs_sw, ideal=ideal_sw, nadir=nadir_sw)
+            if s == N_STATES and m == SWEEP_SHAPES[1][0]:
+                timing["f_config"] = f
         log(f"[kernels] parity ok at M={m} R={r}: S in {SWEEP_STATES}")
+        acc = fronts[m]
+        log(f"[kernels] nd_peel at M={m} n_stop={n_stop}: fronts per state mean {acc[0] / acc[1]:.3f}, "
+            f"max {acc[2]} over the sweep's {acc[1]} states")
     log(f"[kernels] offspring, objective_lcld, survive_norm and survive_fill equal their plain versions on every "
         f"entry; swept {counts}")
     log(f"[kernels] associate: max |dist - plain| = {assoc_err:.3e}, "
@@ -521,6 +547,18 @@ FILL_EDGES = ((3, 203, 103, 103), (5, 203, 103, 103), (3, 1024, 1024, 512))
 #: lane); an all-NaN f column; equal rows (det = 0, the nadir fallbacks);
 #: a warm state whose previous extreme points win every argmin
 NORM_EDGES = (("mixed", 203), ("limits", 1024), ("NaN column", 203), ("equal rows", 203), ("warm extremes", 203))
+#: K2's edges, (objectives, M) at S = 3, each for n_stop = 0, M / 2, M and
+#: M + 5: M of one partial word, one full word, a word and one more, two
+#: words, even word counts (rows padded to an odd stride), the config's 303
+#: and the limit; mixed objectives (NaN, inf, ties, duplicates), all-NaN
+#: states, equal rows (one front), chains (M fronts, the deepest peel) and
+#: ties of signed zeros, infinities, float32 extremes and denormals (K2
+#: compares by the sign of a difference)
+K2_EDGES = tuple((kind, m) for kind in ("mixed", "all NaN", "equal rows", "chain", "extremes")
+                 for m in (1, 31, 32, 33, 64, 256, 303, 1024))
+#: the values of the "extremes" edge, a few rows of them NaN
+K2_EXTREMES = (-np.inf, -np.finfo(np.float32).max, -1.0, -1e-45, -0.0, 0.0, 1e-45, 3e-45, 1.0,
+               np.finfo(np.float32).max, np.inf)
 #: K5's edges: the mutation queue full and empty, zero-range genes, a last
 #: mating with one child, and a synthetic schema of more genes than one
 #: chunk of the queue
@@ -559,6 +597,35 @@ def check_norm_edges(device, rng):
                 if case == "warm extremes" and not torch.equal(new_state.extreme, state.extreme):
                     raise AssertionError("survive_norm warm extremes: the previous extreme points did not win")
                 state = new_state
+
+
+def check_peel_edges(device, rng):
+    """K2 on ``K2_EDGES``, exactly against ``nd_ranks_plain``."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks_plain
+
+    deepest = 0
+    for kind, m in K2_EDGES:
+        f = sweep_objectives(rng, 3, m)
+        if kind == "all NaN":
+            f[:] = np.nan
+        if kind == "equal rows":
+            f[:] = np.nan_to_num(f[:, :1], nan=0.5, posinf=2.0)
+        if kind == "chain":
+            f = (rng.uniform(0.1, 1.0, (3, m, 1)) * rng.uniform(0.2, 2.0, (3, 1, 3))).astype(np.float32)
+        if kind == "extremes":
+            f = rng.choice(np.array(K2_EXTREMES, dtype=np.float32), size=(3, m, 3))
+            f[rng.random((3, m)) < 0.05, 1] = np.nan
+        f = torch.as_tensor(f, device=device)
+        for stop in (0, m // 2, m, m + 5):
+            got = kernels.nd_peel(f, stop)
+            if not torch.equal(got, nd_ranks_plain(f, stop)):
+                raise AssertionError(f"nd_peel != plain on K2_EDGES {kind} M={m} n_stop={stop}")
+            deepest = max(deepest, peeled_fronts(got)[1])
+    log(f"[kernels] K2_EDGES: nd_peel equals nd_ranks_plain on {len(K2_EDGES)} (objectives, M) cases at S = 3, "
+        f"n_stop in (0, M/2, M, M+5); deepest peel {deepest} fronts")
 
 
 def wide_tables(rng, l: int, device):
@@ -612,7 +679,7 @@ def check_offspring_edges(device, moeva, x, rng, gen):
 
 
 def check_launch_shapes(device, moeva, x, rng, gen):
-    """K1, K4b, K4a and K5 on their launch shapes' edges, bit for bit
+    """K1, K4b, K4a, K5 and K2 on their launch shapes' edges, bit for bit
     against their plain versions."""
     import torch
 
@@ -656,6 +723,7 @@ def check_launch_shapes(device, moeva, x, rng, gen):
             hold_equal(g, w, f"survive_fill {name} S={s} M={m} R={r}")
     check_norm_edges(device, rng)
     check_offspring_edges(device, moeva, x, rng, gen)
+    check_peel_edges(device, rng)
     log(f"[kernels] launch-shape edges equal their plain versions: objective_lcld (S, N) in {OBJECTIVE_EDGES} "
         f"with the main path's stack and a 47-{'-'.join(map(str, GLOBAL_STACK))}-2 stack read from global memory; "
         f"survive_fill (S, M, R, n_survive) in {FILL_EDGES}; survive_norm (case, M) in {NORM_EDGES} at S = 3 "
@@ -755,6 +823,11 @@ def time_kernels(device, moeva, t, assoc_err):
         if name == "offspring":
             log(f"[kernels] {name}: {n_mutated} of {s * n * l} output genes mutate on these draws (pows and "
                 "mut_u bytes counted for those only)")
+        if name == "nd_peel":
+            m_c, _, stop_c = SWEEP_SHAPES[1]
+            rec["ms_config_shape"] = graph_ms(lambda: kernels.nd_peel(t["f_config"], stop_c))
+            log(f"[kernels] {name} at S={s} M={m_c} n_stop={stop_c} (config/moeva.yaml's shape): device "
+                f"{rec['ms_config_shape']:.4f} ms")
         if name == "objective_lcld":
             # without FMA contraction a multiply-add takes two instructions: the
             # fixed-order design cannot beat half the fp32 peak
@@ -920,6 +993,7 @@ def profile_generation(moeva, x):
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import draw_gumbels
 
     gen = torch.Generator(device=moeva.device).manual_seed(0)
@@ -963,6 +1037,12 @@ def profile_generation(moeva, x):
         log(f"[profile] {per_gen(dev(e)):9.4f} ms/gen {e.count / PROFILE_GENS:6.1f} launches/gen  {e.key[:100]}")
     for e in sorted((e for e in on_card if e.key.startswith("moeva.")), key=dev, reverse=True):
         log(f"[profile] stage {e.key}: device span {per_gen(dev(e)):.4f} ms/gen (idle gaps included)")
+    with torch.inference_mode():
+        draws = moeva.draw_generation(gen, len(x))
+        off = moeva.offspring(run, carry.pop_x, draws.offspring)
+        merged = torch.cat([carry.pop_f, moeva._evaluate(run, off)], dim=1)
+        mean, most = peeled_fronts(nd_ranks(merged, moeva.pop_size))
+    log(f"[profile] nd_peel on the next generation's objectives: fronts per state mean {mean:.3f}, max {most}")
 
 
 def main_path_engine(device):

@@ -422,6 +422,14 @@ class Moeva2:
         minimize_class = np.asarray(minimize_class)
         if minimize_class.shape != (s,):
             raise ValueError("minimize_class must be scalar or length n_states")
+        # a 1-column (sigmoid) head reads as [1 - p, p]: classes 0 and 1
+        n_classes = max(2, self._model.n_classes)
+        bad = minimize_class[~np.isin(minimize_class, np.arange(n_classes))]
+        if bad.size:
+            raise ValueError(
+                f"minimize_class must be a class of the {n_classes}-class head, "
+                f"in [0, {n_classes}), got {sorted(set(bad.tolist()))}"
+            )
 
         t0 = time.perf_counter()
         gen = torch.Generator(device=self.device).manual_seed(int(self.seed))

@@ -151,8 +151,11 @@ def offspring(tables, pop_x, xl, xu, n_offsprings: int, draws, crossover_prob=0.
 def objective_lcld(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj):
     """Kernel K1: (S, N, 3) float32 objectives ``[f1, f2, Σ violations]``
     of the LCLD candidates ``x_gen`` (S, N, L), given the run's (S, D) rows
-    and ``minimize_class`` (S,) int64 (0 or 1: not checked), and ``obj`` (an
-    ``engine.ObjectiveTables``) in float32 on the same card."""
+    and ``minimize_class`` (S,) int64, and ``obj`` (an
+    ``engine.ObjectiveTables``) in float32 on the same card. The kernel
+    reads any class but 0 as class 1 and does not check it:
+    ``Moeva2.generate`` refuses a class outside the head's [0, 2) before
+    anything reaches the card."""
     from .build import library
 
     if x_gen.dim() != 3 or x_init_ml.dim() != 2:

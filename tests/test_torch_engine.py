@@ -128,6 +128,42 @@ def test_generate_shapes_and_mutable_only(lcld):
     np.testing.assert_array_equal(res.x_ml, again.x_ml)  # seeded: reproducible
 
 
+def _head_engine(lcld, head):
+    """A small CPU engine on a surrogate with a 2-column or a 1-column
+    (sigmoid) head, and 4 states for it."""
+    tree = lcld["tree"]
+    if head == 1:
+        tree = jax.tree.map(np.asarray, jmlp.init_params(jmlp.MLP(hidden=(16, 8), n_classes=1), 47, seed=3))
+    cons = lcld["cons"]
+    x = synth_lcld(4, cons.schema, seed=5)
+    eng = Moeva2(Surrogate(params_from_numpy(tree)), cons, ml_scaler=_scaler(cons, x),
+                 n_gen=2, n_pop=10, n_offsprings=6, seed=1, device="cpu")
+    return eng, x
+
+
+@pytest.mark.parametrize("head", [2, 1])
+@pytest.mark.parametrize("cls", [2, -1])
+def test_generate_refuses_a_class_outside_the_head(lcld, head, cls):
+    eng, x = _head_engine(lcld, head)
+    with pytest.raises(ValueError, match=r"minimize_class must be a class of the 2-class head"):
+        eng.generate(x, minimize_class=cls)
+    with pytest.raises(ValueError, match=rf"got \[{cls}\]"):
+        eng.generate(x, minimize_class=np.array([0, cls, 1, 0]))
+
+
+@pytest.mark.parametrize("head", [2, 1])
+@pytest.mark.parametrize("cls", [0, 1])
+def test_generate_takes_either_class_of_the_head(lcld, head, cls):
+    eng, x = _head_engine(lcld, head)
+    res = eng.generate(x, minimize_class=cls)
+    assert res.f.shape == (4, eng.pop_size, 3)
+    # f1 is the probability of the class to minimise, as the head gives it
+    x_in = torch.as_tensor(eng.ml_scaler.transform(res.x_ml.astype(np.float64)), dtype=torch.float32)
+    with torch.no_grad():
+        p = eng.classifier.predict_proba(x_in)[..., cls].numpy()
+    np.testing.assert_allclose(res.f[..., 0], p, rtol=1e-5, atol=1e-6)
+
+
 def test_entry_points_refuse_missing_cuda(lcld):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the refusal path is not reachable")

@@ -61,7 +61,8 @@ def _finite_ideal_nadir(f):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,m,n_stop", [(64, 203, 103), (537, 203, 103), (16, 303, 203), (8, 1024, 1024), (3, 1, 1)])
+@pytest.mark.parametrize("s,m,n_stop", [(64, 203, 103), (537, 203, 103), (16, 303, 203), (8, 1024, 1024), (3, 1, 1),
+                                      (9, 256, 128), (9, 1024, 512)])
 def test_nd_peel_equals_plain(card, s, m, n_stop):
     f = torch.as_tensor(_objectives(np.random.default_rng(s + m), s, m), device=card)
     before = kernels.launch_counts()["nd_peel"]
@@ -69,6 +70,45 @@ def test_nd_peel_equals_plain(card, s, m, n_stop):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["nd_peel"] == before + 1
     assert torch.equal(got, nd_ranks_plain(f, n_stop))
+
+
+#: K2's edges: one partial word, one full word, a word and one more, two
+#: words, even word counts (8 and 32: rows padded to an odd stride), the
+#: config's M = 303, and the kernel's limit
+ND_PEEL_EDGE_M = (1, 31, 32, 33, 64, 256, 303, 1024)
+
+
+def _edge_objectives(kind, s, m, seed):
+    """(S, M, 3) objectives of K2's edge cases, as tests/test_torch_nds.py
+    holds the plain version against JAX on them: mixed with NaN rows and an
+    all-NaN first state, all NaN, equal rows (one front), a chain (M
+    fronts: the deepest peel), or ties of signed zeros, infinities, float32
+    extremes and denormals."""
+    rng = np.random.default_rng(seed)
+    f = _objectives(rng, s, m)
+    f[0] = np.nan
+    if kind == "allnan":
+        f[:] = np.nan
+    elif kind == "equal":
+        f[:] = np.nan_to_num(f[:, m - 1 : m], nan=0.5, posinf=2.0)
+    elif kind == "chain":
+        f = (rng.uniform(0.1, 1.0, (s, m, 1)) * rng.uniform(0.2, 2.0, (s, 1, 3))).astype(np.float32)
+    elif kind == "extremes":  # K2 compares by the sign of a difference
+        big = np.finfo(np.float32).max
+        vals = np.array([-np.inf, -big, -1, -1e-45, -0.0, 0.0, 1e-45, 3e-45, 1, big, np.inf], np.float32)
+        f = rng.choice(vals, size=(s, m, 3))
+        f[rng.random((s, m)) < 0.05, 1] = np.nan
+    return f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", ND_PEEL_EDGE_M)
+@pytest.mark.parametrize("kind", ["nan", "allnan", "equal", "chain", "extremes"])
+def test_nd_peel_equals_plain_at_edges(card, m, kind):
+    # n_stop = 0 ranks nothing, M and M + 5 rank everything
+    f = torch.as_tensor(_edge_objectives(kind, 3, m, seed=m), device=card)
+    for n_stop in (0, m // 2, m, m + 5):
+        assert torch.equal(kernels.nd_peel(f, n_stop), nd_ranks_plain(f, n_stop)), (kind, m, n_stop)
 
 
 @pytest.mark.cuda
@@ -133,6 +173,18 @@ def _engine_state(card, lcld, s, seed, **knobs):
     carry = eng.init_carry(run, *draw_gumbels(gen, s, eng.n_dirs, eng.pop_size))
     carry = eng.gen_step(run, carry, eng.draw_generation(gen, s))
     return eng, run, carry, eng.draw_generation(gen, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", [2, -1])
+def test_generate_on_the_card_refuses_a_class_outside_the_head(card, lcld, cls):
+    # the same ValueError as on the CPU (tests/test_torch_engine.py), raised
+    # before K1 could read the class as class 1
+    cons, sur, scaler, x = lcld
+    eng = Moeva2(sur, cons, ml_scaler=scaler, device=card, n_gen=2, n_pop=10, n_offsprings=6)
+    with pytest.raises(ValueError, match="minimize_class must be a class of the 2-class head"):
+        eng.generate(x[:4], minimize_class=cls)
+    assert eng.generate(x[:4], minimize_class=0).f.shape == (4, eng.pop_size, 3)
 
 
 def _hard_offspring(eng, off):

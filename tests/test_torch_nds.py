@@ -29,6 +29,15 @@ def _fronts(kind: str, s: int, m: int, seed: int) -> np.ndarray:
         f[0, :] = np.nan  # a state with nothing comparable
     elif kind == "chain":  # totally ordered: one candidate per front
         f = rng.uniform(0.1, 1.0, (s, m, 1)) * rng.uniform(0.2, 2.0, (s, 1, 3))
+    elif kind == "allnan":
+        f[:] = np.nan
+    elif kind == "equal":  # one front
+        f[:] = f[:, :1]
+    elif kind == "extremes":  # ties of signed zeros, infinities, extremes, denormals
+        big = np.finfo(np.float32).max
+        vals = np.array([-np.inf, -big, -1, -1e-45, -0.0, 0.0, 1e-45, 3e-45, 1, big, np.inf], np.float32)
+        f = rng.choice(vals, size=(s, m, 3)).astype(float)
+        f[rng.random((s, m)) < 0.05, 1] = np.nan
     return f
 
 
@@ -40,6 +49,25 @@ def test_nd_ranks_plain_matches_jax(kind, n_stop):
     got = tnds.nd_ranks_plain(torch.as_tensor(f), n_stop)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# the kernel's edges: one partial word, one full word, a word and one more,
+# two words; n_stop = 0 (nothing ranked), M and M + 5 (everything)
+@pytest.mark.parametrize("m", [1, 31, 32, 33, 64])
+@pytest.mark.parametrize("kind", ["nan", "allnan", "equal", "chain", "extremes"])
+@pytest.mark.parametrize("extra", [None, 0, 5])
+def test_nd_ranks_plain_matches_jax_at_the_kernels_edges(m, kind, extra):
+    n_stop = 0 if extra is None else m + extra
+    f = _fronts(kind, 3, m, seed=m)
+    want = np.asarray(jnds.nd_ranks(jnp.asarray(f), n_stop=n_stop))
+    got = tnds.nd_ranks_plain(torch.as_tensor(f), n_stop)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if n_stop == 0:
+        assert (want == tnds.UNRANKED).all()
+    elif kind in ("allnan", "equal"):
+        assert (want == 0).all()
+    elif kind == "chain":
+        np.testing.assert_array_equal(np.sort(want, axis=1), np.broadcast_to(np.arange(m), (3, m)))
 
 
 def test_nd_ranks_cpu_dispatches_to_plain():
