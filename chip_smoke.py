@@ -10,13 +10,11 @@ Phases, in order; any failure exits non-zero:
 1. versions: torch, CUDA, and the card's name and power limit (nvidia-smi);
 2. build the port's six CUDA kernels from the sources in the checkout and
    print each kernel's ptxas registers, shared memory, stack frame and
-   spill (the redesigned K1, K4b, K4a, K5 and K2 must not spill);
+   spill (none of the six may spill);
 3. hold each kernel against its plain PyTorch version on the card over a
-   sweep of state counts and two shapes: K5 ``offspring``, K1
-   ``objective_lcld``, K4a ``survive_norm`` and K4b ``survive_fill`` (fill,
-   extraction, archive) bit for bit, K2 ``nd_peel`` exactly, K3
-   ``associate`` with niche equal wherever the top two squared projections
-   differ by more than 1e-6 relative and dist within 1e-5. The inputs
+   sweep of state counts and two shapes, bit for bit: K5 ``offspring``, K1
+   ``objective_lcld``, K4a ``survive_norm``, K4b ``survive_fill`` (fill,
+   extraction, archive), K2 ``nd_peel`` and K3 ``associate``. The inputs
    include NaN, +inf and duplicate objective rows, tied gumbels, zero-range
    genes, NaN archive scores and candidates whose constraint denominators
    are 0. K1 is held on the offspring (100 rows) and on the population
@@ -33,9 +31,12 @@ Phases, in order; any failure exits non-zero:
    mutation queue, zero-range genes, odd N and more genes than one chunk of
    its queue; K2 on ``K2_EDGES`` (word edges, even word counts, M = 303
    and 1024, all-NaN states, equal rows, chains, ties of signed zeros,
-   infinities and denormals; n_stop 0 to M + 5). The
-   fronts K2 peels per state are logged; K1's record adds its no-FMA
-   ceiling, K2's its time at ``config/moeva.yaml``'s (M, n_stop);
+   infinities and denormals; n_stop 0 to M + 5) and K3 on ``K3_EDGES``
+   (R from 1 to 4096, M from 1 to 1024; exact ties of duplicated
+   directions, inf objectives, all-NaN states, 1e-12 denominators, signed
+   zeros and denormals, a zero direction). The fronts K2 peels per state
+   are logged; K1's record adds its no-FMA ceiling, K2's and K3's their
+   time at ``config/moeva.yaml``'s shape;
 4. drive the main path, ``Moeva2.generate`` on 1000 synthetic LCLD states
    at population 103 with 100 offspring, with every launch count set to 0
    just before and read just after (each must equal what the code implies);
@@ -79,8 +80,6 @@ SWEEP_SHAPES = ((203, 103, 103), (303, 203, 203))
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
 PEAK_F64_OPS_S = 34e12
-ASSOC_TIE_REL = 1e-6
-ASSOC_DIST_ATOL = 1e-5
 #: engine stages on the same inputs: the card's float32 error against the
 #: float64 CPU path may be at most this many times the CPU's float32 error
 STEP_ERR_RATIO = 4.0
@@ -102,7 +101,7 @@ def nvidia_smi_line() -> str:
 
 #: kernels whose ptxas report must show no spill
 REDESIGNED = ("objective_lcld_kernel", "survive_fill_kernel", "survive_norm_kernel", "offspring_kernel",
-              "nd_peel_kernel")
+              "nd_peel_kernel", "associate_kernel")
 
 
 def ptxas_resources(build_log: str) -> list:
@@ -419,8 +418,6 @@ def check_kernels(device, moeva, x):
     gen = torch.Generator(device=device).manual_seed(0)
     codec, tables, obj, cons = moeva.codec, moeva.tables, moeva._objective, moeva.constraints
     n_gene = codec.gen_length
-    assoc_err = 0.0
-    tie_mismatch = 0
     inf_rows = 0
     counts = {"nonfinite objectives": 0, "NaN archive scores": 0, "zero-range genes": 0}
     timing = {}
@@ -470,25 +467,9 @@ def check_kernels(device, moeva, x):
             # K3 association
             dirs_sw = torch.as_tensor(sweep_directions(rng, s, r), device=device)
             ideal_sw, nadir_sw = finite_ideal_nadir(f)
-            niche_k, dist_k = kernels.associate(f, dirs_sw, ideal_sw, nadir_sw)
-            niche_p, dist_p = associate_plain(f, dirs_sw, ideal_sw, nadir_sw)
-            # rows where the top two squared projections are within the tie
-            # band may legitimately pick either direction
-            n = ((f - ideal_sw[:, None]) / torch.where(nadir_sw == ideal_sw, 1e-12, nadir_sw - ideal_sw)[:, None]).double()
-            d = dirs_sw.double() / torch.linalg.vector_norm(dirs_sw.double(), dim=-1, keepdim=True)
-            top2 = torch.topk(torch.einsum("smk,srk->smr", n, d) ** 2, 2, dim=-1).values
-            gap = (top2[..., 0] - top2[..., 1]) / top2[..., 0].abs().clamp_min(1e-30)
-            differ = niche_k != niche_p
-            if bool((differ & ~(gap <= ASSOC_TIE_REL)).any()):
-                raise AssertionError(f"associate niche != plain outside the tie band at S={s} M={m}")
-            tie_mismatch += int(differ.sum())
-            both_nan = torch.isnan(dist_k) & torch.isnan(dist_p)
-            if bool((torch.isnan(dist_k) != torch.isnan(dist_p)).any()):
-                raise AssertionError(f"associate dist NaN pattern != plain at S={s} M={m}")
-            err = (dist_k - dist_p).abs()[(niche_k == niche_p) & ~both_nan]
-            assoc_err = max(assoc_err, float(err.max()) if err.numel() else 0.0)
-            if assoc_err > ASSOC_DIST_ATOL:
-                raise AssertionError(f"associate dist off by {assoc_err} at S={s} M={m}")
+            got = kernels.associate(f, dirs_sw, ideal_sw, nadir_sw)
+            for name, g, w in zip(("niche", "dist"), got, associate_plain(f, dirs_sw, ideal_sw, nadir_sw)):
+                hold_equal(g, w, f"associate {name} S={s} M={m}")
             # K4b fill, extraction and archive, on K4a's directions; tied
             # gumbels; an inf violation gives a NaN archive score
             niche, dist = kernels.associate(f, dirs, state.ideal, nadir)
@@ -518,17 +499,15 @@ def check_kernels(device, moeva, x):
                               dirs=dirs_sw, ideal=ideal_sw, nadir=nadir_sw)
             if s == N_STATES and m == SWEEP_SHAPES[1][0]:
                 timing["f_config"] = f
+                timing["assoc_config"] = (f, dirs_sw, ideal_sw, nadir_sw)
         log(f"[kernels] parity ok at M={m} R={r}: S in {SWEEP_STATES}")
         acc = fronts[m]
         log(f"[kernels] nd_peel at M={m} n_stop={n_stop}: fronts per state mean {acc[0] / acc[1]:.3f}, "
             f"max {acc[2]} over the sweep's {acc[1]} states")
-    log(f"[kernels] offspring, objective_lcld, survive_norm and survive_fill equal their plain versions on every "
-        f"entry; swept {counts}")
-    log(f"[kernels] associate: max |dist - plain| = {assoc_err:.3e}, "
-        f"niche picks differing inside the {ASSOC_TIE_REL:g} tie band: {tie_mismatch}; "
-        f"{inf_rows} swept rows with an inf and no NaN objective (NaN and inf projections)")
+    log(f"[kernels] offspring, objective_lcld, survive_norm, associate and survive_fill equal their plain versions "
+        f"on every entry; swept {counts}, {inf_rows} rows with an inf and no NaN objective (NaN and inf projections)")
     check_launch_shapes(device, moeva, x, rng, gen)
-    return time_kernels(device, moeva, timing, assoc_err)
+    return time_kernels(device, moeva, timing)
 
 
 #: (S, N) of K1's tile edges: 300 rows end in a partial tile and tiles span
@@ -559,6 +538,22 @@ K2_EDGES = tuple((kind, m) for kind in ("mixed", "all NaN", "equal rows", "chain
 #: the values of the "extremes" edge, a few rows of them NaN
 K2_EXTREMES = (-np.inf, -np.finfo(np.float32).max, -1.0, -1e-45, -0.0, 0.0, 1e-45, 3e-45, 1.0,
                np.finfo(np.float32).max, np.inf)
+#: K3's edges, (inputs, M, R), each at S = 3 and 5: every kind has
+#: duplicated directions (exact ties: the first wins) and rows with an inf
+#: objective (NaN and inf projections); "all NaN": one state's objectives
+#: all NaN; "nadir == ideal": 1e-12 denominators under a column scaled by
+#: 1e8, so squared projections overflow to tied infinities; "zeros and
+#: denormals": signed zeros and denormals in the objectives and the
+#: directions; "zero direction": one direction is 0, a NaN projection on
+#: every row. M of one candidate, a partial warp, the two shapes' and 1024;
+#: R of one direction, fewer than the unroll, one step of it, around a
+#: warp, the two shapes', 1024 and 4096 (more than 48 KB of staged
+#: directions)
+K3_EDGES = tuple((kind, m, r)
+                 for kind in ("mixed", "all NaN", "nadir == ideal", "zeros and denormals", "zero direction")
+                 for m in (1, 31, 203, 303, 1024) for r in (1, 3, 4, 31, 32, 33, 103, 203, 1024, 4096))
+#: the values of the "zeros and denormals" edge
+K3_TINY = (-0.0, 0.0, 1e-45, -1e-45, 3e-42, 1e-39, 0.5, 1.0)
 #: K5's edges: the mutation queue full and empty, zero-range genes, a last
 #: mating with one child, and a synthetic schema of more genes than one
 #: chunk of the queue
@@ -628,6 +623,56 @@ def check_peel_edges(device, rng):
         f"n_stop in (0, M/2, M, M+5); deepest peel {deepest} fronts")
 
 
+def associate_edge_inputs(rng, kind: str, s: int, m: int, r: int):
+    """``(f, dirs, ideal, nadir)``, float32 numpy arrays of one case of
+    ``K3_EDGES``."""
+    f = sweep_objectives(rng, s, m)
+    f[rng.random((s, m)) < 0.05, rng.integers(0, 3)] = np.inf
+    dirs = rng.dirichlet(np.ones(3), (s, r)).astype(np.float32)
+    if kind == "all NaN":
+        f[0] = np.nan
+    if kind == "nadir == ideal":
+        f[..., 1] *= np.float32(1e8)
+    if kind == "zeros and denormals":
+        tiny = np.array(K3_TINY, dtype=np.float32)
+        f = rng.choice(tiny, size=(s, m, 3))
+        dirs = np.where(rng.random((s, r, 3)) < 0.3, rng.choice(tiny, size=(s, r, 3)), dirs)
+    a = min(r, 3)
+    dirs[:, r - a:] = np.eye(3, dtype=np.float32)[:a]  # the axes, last as in survival
+    k = r // 3
+    dirs[:, k : 2 * k] = dirs[:, :k] * np.float32(2.0)  # the same unit directions
+    if kind == "zero direction":
+        dirs[:, r // 2] = 0.0
+    finite = np.where(np.isfinite(f), f, np.float32(0.0))
+    ideal, nadir = finite.min(1), finite.max(1)
+    if kind == "nadir == ideal":
+        nadir[:, 1] = ideal[:, 1]
+        nadir[-1] = ideal[-1]
+    if kind == "zeros and denormals":
+        ideal[:], nadir[:] = 0.0, 1.0
+    return f, dirs, ideal, nadir
+
+
+def check_associate_edges(device, rng):
+    """K3 on ``K3_EDGES`` at S = 3 and 5, bit for bit against
+    ``associate_plain``."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import associate_plain
+
+    nan_rows = 0
+    for kind, m, r in K3_EDGES:
+        for s in (3, 5):
+            args = [torch.as_tensor(a, device=device) for a in associate_edge_inputs(rng, kind, s, m, r)]
+            got, want = kernels.associate(*args), associate_plain(*args)
+            for name, g, w in zip(("niche", "dist"), got, want):
+                hold_equal(g, w, f"associate {name} on K3_EDGES {kind} S={s} M={m} R={r}")
+            nan_rows += int(want[1].isnan().sum())
+    log(f"[kernels] K3_EDGES: associate equals associate_plain on {len(K3_EDGES)} (inputs, M, R) cases at S = 3 "
+        f"and 5; {nan_rows} rows with a NaN dist")
+
+
 def wide_tables(rng, l: int, device):
     """Operator tables of a synthetic schema of ``l`` genes, 40% integer."""
     import torch
@@ -679,8 +724,8 @@ def check_offspring_edges(device, moeva, x, rng, gen):
 
 
 def check_launch_shapes(device, moeva, x, rng, gen):
-    """K1, K4b, K4a, K5 and K2 on their launch shapes' edges, bit for bit
-    against their plain versions."""
+    """K1, K4b, K4a, K5, K2 and K3 on their launch shapes' edges, bit for
+    bit against their plain versions."""
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
@@ -724,13 +769,14 @@ def check_launch_shapes(device, moeva, x, rng, gen):
     check_norm_edges(device, rng)
     check_offspring_edges(device, moeva, x, rng, gen)
     check_peel_edges(device, rng)
+    check_associate_edges(device, rng)
     log(f"[kernels] launch-shape edges equal their plain versions: objective_lcld (S, N) in {OBJECTIVE_EDGES} "
         f"with the main path's stack and a 47-{'-'.join(map(str, GLOBAL_STACK))}-2 stack read from global memory; "
         f"survive_fill (S, M, R, n_survive) in {FILL_EDGES}; survive_norm (case, M) in {NORM_EDGES} at S = 3 "
         f"and 5, two steps; offspring {OFFSPRING_EDGES} at S = 7 (wide: L = {WIDE_GENES})")
 
 
-def time_kernels(device, moeva, t, assoc_err):
+def time_kernels(device, moeva, t):
     """Each kernel's device time, wrapper time, plain time and bound at the
     main path's shape (S = 1000, M = 203, R = 103), on the sweep's inputs."""
     from moeva2_ijcai22_replication_tpu_torch import kernels
@@ -793,8 +839,7 @@ def time_kernels(device, moeva, t, assoc_err):
         ("associate", "csrc/associate.cu", "attacks/moeva/survival.py:225",
          lambda: kernels.associate(t["f"], t["dirs"], t["ideal"], t["nadir"]),
          lambda: associate_plain(t["f"], t["dirs"], t["ideal"], t["nadir"]),
-         4 * (s * m * 3 + s * r * 3 + 2 * s * 3) + 12 * s * m, 6 * s * m * r + 9 * s * r + 12 * s * m, 0,
-         assoc_err),
+         4 * (s * m * 3 + s * r * 3 + 2 * s * 3) + 12 * s * m, 6 * s * m * r + 9 * s * r + 12 * s * m, 0, 0.0),
         ("survive_fill", "csrc/survive_fill.cu", "attacks/moeva/survival.py:351",
          lambda: kernels.survive_fill(*fill_args, extract=extract, archive=archive), fill_plain,
          21 * s * m + 4 * s * r + 4 * l * (pop_rows + off_rows + arch_rows)
@@ -827,6 +872,11 @@ def time_kernels(device, moeva, t, assoc_err):
             m_c, _, stop_c = SWEEP_SHAPES[1]
             rec["ms_config_shape"] = graph_ms(lambda: kernels.nd_peel(t["f_config"], stop_c))
             log(f"[kernels] {name} at S={s} M={m_c} n_stop={stop_c} (config/moeva.yaml's shape): device "
+                f"{rec['ms_config_shape']:.4f} ms")
+        if name == "associate":
+            m_c, r_c, _ = SWEEP_SHAPES[1]
+            rec["ms_config_shape"] = graph_ms(lambda: kernels.associate(*t["assoc_config"]))
+            log(f"[kernels] {name} at S={s} M={m_c} R={r_c} (config/moeva.yaml's shape): device "
                 f"{rec['ms_config_shape']:.4f} ms")
         if name == "objective_lcld":
             # without FMA contraction a multiply-add takes two instructions: the
@@ -905,7 +955,7 @@ def check_step_against_cpu(moeva_gpu, moeva_cpu, moeva_ref, x, device):
     mc = np.ones(len(xs), dtype=np.int64)
     gen = torch.Generator().manual_seed(3)
     err = {k: [0.0, 0.0] for k in ("offspring", "f1", "f2", "f3")}  # [card, CPU]
-    differ = {"offspring": 0, "objectives": 0}  # entries, card != CPU
+    differ = {"offspring": 0, "objectives": 0, "niche": 0, "dist": 0}  # entries, card != CPU
     with torch.inference_mode():
         run_c, run_g, run_r = (m.prepare(xs, mc) for m in (moeva_cpu, moeva_gpu, moeva_ref))
         span = run_r.xu_gen - run_r.xl_gen
@@ -935,6 +985,8 @@ def check_step_against_cpu(moeva_gpu, moeva_cpu, moeva_ref, x, device):
                     carry_c.arch_x, carry_c.arch_f)
             want = survive_stages(moeva_cpu, merged, *args)
             got = survive_stages(moeva_gpu, merged.to(device), *to(args, device))
+            for name in ("niche", "dist"):
+                differ[name] += int((~same_entries(got[name].cpu(), want[name])).sum())
             for name in want:
                 if not bool(same_entries(got[name].cpu(), want[name]).all()):
                     raise AssertionError(f"step {step}: survival {name} on the card != CPU on the same objectives "
@@ -945,6 +997,8 @@ def check_step_against_cpu(moeva_gpu, moeva_cpu, moeva_ref, x, device):
         f"offspring {differ['offspring']} of {3 * off_c.numel()}, objectives {differ['objectives']} of "
         f"{3 * f_c.numel()}; float32 error against the float64 CPU path (card, CPU): "
         + ", ".join(f"{k} {g:.3e} {c:.3e}" for k, (g, c) in err.items()) + " (offspring over each gene's range)")
+    log(f"[main] association of the same objectives, entries that differ between the card and the CPU: niche "
+        f"{differ['niche']} of {3 * want['niche'].numel()}, dist {differ['dist']} of {3 * want['dist'].numel()}")
     log("[main] survival, extraction and archive of the same objectives, card vs CPU: " + ", ".join(want) + " equal")
     for k, (g, c) in err.items():
         if g > STEP_ERR_RATIO * c:

@@ -352,7 +352,8 @@ def archive_select(a_x, a_f, b_x, b_f, size: int):
 def associate(f, dirs, ideal, nadir):
     """Kernel K3: ``(niche (S, M) int64, dist (S, M) float32)`` from
     ``f`` (S, M, 3), ``dirs`` (S, R, 3), ``ideal``/``nadir`` (S, 3), all
-    float32 on one card."""
+    float32 on one card; R is at most the directions one block's shared
+    memory holds (14528)."""
     from .build import library
 
     if f.dim() != 3 or dirs.dim() != 3:
@@ -367,6 +368,8 @@ def associate(f, dirs, ideal, nadir):
         raise ValueError("associate's inputs must lie on one device")
     f, dirs, ideal, nadir = (t.contiguous() for t in (f, dirs, ideal, nadir))
     lib = library()
+    if not 1 <= r <= lib.moeva_associate_max_directions():
+        raise ValueError(f"associate takes 1 to {lib.moeva_associate_max_directions()} directions per state, got {r}")
     niche = torch.empty((s, m), dtype=torch.int64, device=f.device)
     dist = torch.empty((s, m), dtype=torch.float32, device=f.device)
     with torch.cuda.device(f.device):

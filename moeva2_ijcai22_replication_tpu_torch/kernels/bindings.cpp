@@ -133,6 +133,8 @@ int moeva_survive_fill_f32(const void* ranks, const void* niche,
 
 int moeva_nd_peel_max_candidates() { return kNdPeelMaxCandidates; }
 
+int moeva_associate_max_directions() { return kAssociateMaxDirections; }
+
 int moeva_survive_max_candidates() { return kSurviveMaxCandidates; }
 
 int moeva_objective_max_params() { return kObjectiveMaxParams; }

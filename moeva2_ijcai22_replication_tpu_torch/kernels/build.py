@@ -142,7 +142,7 @@ def library() -> ctypes.CDLL:
     )
     lib.moeva_survive_fill_f32.restype = i32
     for name in (
-        "moeva_nd_peel_max_candidates", "moeva_survive_max_candidates",
+        "moeva_nd_peel_max_candidates", "moeva_associate_max_directions", "moeva_survive_max_candidates",
         "moeva_objective_max_params", "moeva_objective_max_width",
         "moeva_objective_max_layers",
     ):

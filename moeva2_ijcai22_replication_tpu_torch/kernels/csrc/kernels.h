@@ -8,6 +8,24 @@
 
 #include <cuda_runtime.h>
 
+#if defined(__CUDACC__)
+// min and max that give NaN when an input is NaN, as torch.minimum, amin,
+// argmax and clamp do (fminf / fmaxf would drop it): one instruction each,
+// no branch. A NaN result is the canonical NaN, whatever the input's
+// payload.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+#endif
+
 // Shared memory one block can use on Hopper (227 KB).
 constexpr size_t kMaxSharedBytes = 232448;
 
@@ -22,6 +40,10 @@ constexpr int kLcldFeatures = 47;
 constexpr int kObjectiveMaxWidth = 128;
 constexpr int kObjectiveMaxLayers = 8;
 constexpr int kObjectiveMaxParams = (232448 / 4) - 8 * kLcldFeatures;
+
+// associate: most directions per state (R), one state's unit directions
+// padded to 16 bytes in one block's shared memory.
+constexpr int kAssociateMaxDirections = kMaxSharedBytes / 16;
 
 // survive_fill: largest candidate and direction counts per state (M, R);
 // the archive ranks at most twice that many candidates.
@@ -89,12 +111,29 @@ class LaunchCache {
     return cudaSuccess;
   }
 
+  // The current device's number of SMs.
+  cudaError_t sm_count(int* sms) {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    if (device < 0 || device >= kDevices) return cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> lock(mu_);
+    Entry& e = entries_[device];
+    if (e.sms == 0) {
+      err = cudaDeviceGetAttribute(&e.sms, cudaDevAttrMultiProcessorCount, device);
+      if (err != cudaSuccess) return err;
+    }
+    *sms = e.sms;
+    return cudaSuccess;
+  }
+
  private:
   static constexpr int kDevices = 64;
   struct Entry {
     size_t allowed = 0;        // dynamic shared memory allowed so far
     size_t resident_smem = 0;  // the size `resident` was asked for
     int resident = 0;
+    int sms = 0;
   };
   std::mutex mu_;
   Entry entries_[kDevices];

@@ -64,21 +64,6 @@ constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kIsInt = 4;
 constexpr int kHasRange = 8;
 
-// min and max that give NaN when an input is NaN, as torch.minimum, amin
-// and clamp do (fminf / fmaxf would drop it): one instruction each, no
-// branch
-__device__ __forceinline__ float nan_min(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
 // operators.two_cuts: the sorted swap segment [lo, hi) of a sub-vector of
 // n genes from two non-negative raw draws.
 __device__ __forceinline__ void two_cuts(int64_t a_raw, int64_t b_raw,

@@ -59,21 +59,6 @@ constexpr int kStates = 4;  // states (warps) per block
 constexpr int kThreads = kWarp * kStates;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// min and max that give NaN when an input is NaN, as torch.minimum, amin
-// and clamp do (fminf / fmaxf would drop it): one instruction each, no
-// branch
-__device__ __forceinline__ float nan_min(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
 __device__ __forceinline__ float warp_min(float v) {
 #pragma unroll
   for (int d = kWarp / 2; d > 0; d >>= 1) v = nan_min(v, __shfl_xor_sync(kFullMask, v, d));

@@ -140,10 +140,35 @@ def test_associate_equals_plain(card, s, m, r):
     niche, dist = kernels.associate(f, dirs, ideal, nadir)
     niche_p, dist_p = associate_plain(f, dirs, ideal, nadir)
     torch.cuda.synchronize()
-    assert torch.equal(niche, niche_p)
-    assert torch.equal(torch.isnan(dist), torch.isnan(dist_p))
-    ok = ~torch.isnan(dist)
-    assert float((dist[ok] - dist_p[ok]).abs().max()) <= 1e-5
+    assert _same(niche, niche_p)
+    assert _same(dist, dist_p)
+
+
+#: a few of chip_smoke.py's K3_EDGES, (inputs, M, R): R of one direction,
+#: below and at the unroll, around a warp, and 4096 (more than 48 KB of
+#: staged directions)
+ASSOCIATE_EDGES = (("mixed", 1, 1), ("zero direction", 31, 3), ("all NaN", 203, 4), ("nadir == ideal", 303, 33),
+                   ("zeros and denormals", 203, 103), ("mixed", 1024, 4096))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,m,r", ASSOCIATE_EDGES)
+def test_associate_equals_plain_at_edges(card, kind, m, r):
+    import chip_smoke
+
+    for s in (3, 5):
+        args = [torch.as_tensor(a, device=card)
+                for a in chip_smoke.associate_edge_inputs(np.random.default_rng(m + r), kind, s, m, r)]
+        got, want = kernels.associate(*args), associate_plain(*args)
+        torch.cuda.synchronize()
+        assert _same(got[0], want[0]) and _same(got[1], want[1]), (kind, s, m, r)
+
+
+@pytest.mark.cuda
+def test_associate_rejects_too_many_directions(card):
+    f, ideal = torch.zeros((1, 4, 3), device=card), torch.zeros((1, 3), device=card)
+    with pytest.raises(ValueError, match="directions per state"):
+        kernels.associate(f, torch.ones((1, 14529, 3), device=card), ideal, ideal + 1)
 
 
 def _same(got, want) -> bool:

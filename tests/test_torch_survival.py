@@ -88,6 +88,75 @@ def test_associate_plain_matches_jax_on_inf_objectives():
     assert np.isnan(dt.numpy()[inf_rows]).all() and np.isfinite(dt.numpy()[~inf_rows]).all()
 
 
+#: K3's edge inputs, the kinds chip_smoke.py's K3_EDGES holds the kernel on
+#: (float64 here): mixed, one all-NaN state, zero ranges (1e-12
+#: denominators) under a column scaled by 1e8, signed zeros and tiny
+#: values, a zero direction. M and R around the blocked form's 64 and the
+#: kernel's unroll of 4
+ASSOC_EDGE_KINDS = ("mixed", "allnan", "degenerate", "tiny", "zerodir")
+ASSOC_EDGE_SHAPES = ((1, 1), (31, 3), (40, 4), (63, 33), (64, 103), (7, 203))
+
+
+def _assoc_edge(kind, s, m, r, seed):
+    """(f, dirs, ideal, nadir) float64. Every kind has duplicated rows and
+    duplicated directions (d and 2d: exact ties in any summation order) and
+    rows with an inf objective."""
+    rng = np.random.default_rng(seed)
+    f = rng.uniform(size=(s, m, N_OBJ))
+    f[:, m - m // 5 :] = f[:, : m // 5]
+    f[rng.random((s, m)) < 0.1, rng.integers(0, N_OBJ)] = np.inf
+    dirs = rng.dirichlet(np.ones(N_OBJ), (s, r))
+    if kind == "allnan":
+        f[0] = np.nan
+    if kind == "degenerate":
+        f[..., 1] *= 1e8
+    if kind == "tiny":
+        tiny = np.array([-0.0, 0.0, 1e-45, -1e-45, 3e-42, 1e-39, 0.5, 1.0])
+        f = rng.choice(tiny, size=(s, m, N_OBJ))
+        dirs = np.where(rng.random((s, r, N_OBJ)) < 0.3, rng.choice(tiny, size=(s, r, N_OBJ)), dirs)
+    a = min(r, N_OBJ)
+    dirs[:, r - a :] = np.eye(N_OBJ)[:a]  # the axes, last as in survival
+    k = r // 3
+    dirs[:, k : 2 * k] = dirs[:, :k] * 2.0
+    if kind == "zerodir":
+        dirs[:, r // 2] = 0.0
+    finite = np.where(np.isfinite(f), f, 0.0)
+    ideal, nadir = finite.min(1), finite.max(1)
+    if kind == "degenerate":
+        nadir[:, 1] = ideal[:, 1]
+        nadir[-1] = ideal[-1]
+    if kind == "tiny":
+        ideal[:], nadir[:] = 0.0, 1.0
+    return f, dirs, ideal, nadir
+
+
+@pytest.mark.parametrize("block", [None, 64])
+@pytest.mark.parametrize("m,r", ASSOC_EDGE_SHAPES)
+@pytest.mark.parametrize("kind", ASSOC_EDGE_KINDS)
+def test_associate_plain_matches_jax_at_the_kernels_edges(kind, m, r, block):
+    """Niche exactly and dist within 1e-12 in units of max(1, |n|) (the
+    degenerate states' n reach 1e19; where |n| <= 1 this is the 1e-12 of
+    the tests above). The blocked JAX form never takes a NaN projection
+    (``p2_blk > best_p2`` is false for NaN), where ``argmax`` and the
+    one-shot form take the first: a caveat of the reference, so the blocked
+    form is held on the rows without a NaN projection (dist not NaN)."""
+    f, dirs, ideal, nadir = _assoc_edge(kind, 3, m, r, seed=1000 * m + r)
+    with np.errstate(all="ignore"):
+        nj, dj = (np.asarray(a) for a in jsv.associate_batch(*(jnp.asarray(a) for a in (f, dirs, ideal, nadir)),
+                                                              block=block))
+    nt, dt = (a.numpy() for a in tsv.associate_plain(*(_t(a) for a in (f, dirs, ideal, nadir))))
+    denom = np.where(nadir == ideal, 1e-12, nadir - ideal)
+    scale = np.maximum(1.0, np.sqrt((((f - ideal[:, None]) / denom[:, None]) ** 2).sum(-1)))
+    rows = ~np.isnan(dt) if block else np.ones_like(dt, dtype=bool)
+    np.testing.assert_array_equal(nj[rows], nt[rows])
+    np.testing.assert_array_equal(np.isnan(dj[rows]), np.isnan(dt[rows]))
+    np.testing.assert_array_equal(np.isinf(dj[rows]), np.isinf(dt[rows]))
+    fin = rows & np.isfinite(dt)
+    assert (np.abs(dj - dt)[fin] <= 1e-12 * scale[fin]).all()
+    if kind in ("mixed", "zerodir") and r > 1:
+        assert np.isnan(dt).any()  # the NaN projections are there to be held
+
+
 def test_plain_association_sqrt_is_correctly_rounded():
     # the kernel's sqrtf is correctly rounded, and so is numpy's float32
     # sqrt; the plain version must round the same on every device
