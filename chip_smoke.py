@@ -47,7 +47,21 @@ Phases, in order; any failure exits non-zero:
 6. profile a few generation steps: ms per generation, device-busy share,
    launches, kernels and stages by device time; fails unless the trace
    holds as many kernel launches as an untraced generation made; then the
-   fronts K2 peels per state on one more generation.
+   fronts K2 peels per state on one more generation;
+7. constrained PGD on LCLD (the ``[pgd]`` lines): hold K7 ``pgd_lcld``
+   against ``pgd_run_plain`` on the card, bit for bit (x_adv, the class at
+   x_adv, the history), over ``PGD_ROWS`` x ``PGD_ITERS`` and
+   ``PGD_CONFIGS`` (every loss strategy, the three ``constraints_optim``,
+   targeted, norms 2 and inf, every history layout), with edge rows at the
+   start (0 denominators, so NaN gradients; terms exactly at the tolerance;
+   ±0 inside an abs; features at the clip bounds); time K7 at 4000 states x
+   1000 iterations (and the other rq1 losses at 100) beside the plain
+   version at 100 iterations and its bound; drive ``ConstrainedPGD.
+   generate`` as ``experiments/pgd.py`` does (labels from the surrogate,
+   ε - 1e-6, inverse scaling, directional rounding, o1..o7) with its launch
+   count set to 0 just before and read just after; check the ε-ball,
+   immutables and finiteness, that two runs are equal, and the card against
+   the CPU at 256 states x 100 iterations.
 
 The last three lines are the per-kernel JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Nothing is printed as a
@@ -101,7 +115,7 @@ def nvidia_smi_line() -> str:
 
 #: kernels whose ptxas report must show no spill
 REDESIGNED = ("objective_lcld_kernel", "survive_fill_kernel", "survive_norm_kernel", "offspring_kernel",
-              "nd_peel_kernel", "associate_kernel")
+              "nd_peel_kernel", "associate_kernel", "pgd_lcld_kernel")
 
 
 def ptxas_resources(build_log: str) -> list:
@@ -1125,6 +1139,7 @@ def expected_launches(moeva, n_states: int) -> dict:
         "survive_norm": chunks * (1 + steps),
         "associate": chunks * (1 + steps),
         "survive_fill": chunks * (1 + steps + (1 if moeva.archive_size else 0)),
+        "pgd_lcld": 0,
     }
 
 
@@ -1156,7 +1171,7 @@ def run_main_path(device, smi: str, moeva, x, knobs):
     log(f"[main] generate: cold {cold_s:.3f} s, steady {steady_s:.3f} s for {N_STATES} states "
         f"x {N_GEN} generations on {smi}")
     for name, n in launches.items():
-        if n < 1:
+        if n < 1 and name != "pgd_lcld":
             raise AssertionError(f"kernel {name} was not launched on the main path")
     if launches != expected_launches(moeva, N_STATES):
         raise AssertionError(f"launches {launches} != {expected_launches(moeva, N_STATES)} implied by the code")
@@ -1196,6 +1211,318 @@ def run_main_path(device, smi: str, moeva, x, knobs):
     return launches
 
 
+# -- phase 7: constrained PGD ----------------------------------------------------
+
+#: K7's sweep: row counts (one warp per row and 8 rows per block: a lone row,
+#: partial blocks, 1000 and the main shape's 4000) and iteration budgets
+PGD_ROWS = (1, 31, 33, 1000, 4000)
+PGD_ITERS = (1, 7, 100)
+#: what the sweep covers: every loss strategy, the three constraints_optim,
+#: targeted, both norms and every history layout. Each runs at every row
+#: count for 1 and 7 iterations, and for 100 at PGD_ROWS[i % 5]
+PGD_CONFIGS = (
+    dict(loss_evaluation="flip", norm=2),
+    dict(loss_evaluation="constraints", norm=np.inf, record_loss="reduced"),
+    dict(loss_evaluation="constraints+flip", norm=2, record_loss="full", record_grad_norm=True),
+    dict(loss_evaluation="constraints+flip+alternate", constraints_optim="alt_constraints", norm=np.inf,
+         record_loss="full"),
+    dict(loss_evaluation="constraints+flip+constraints", constraints_optim="single_constraints", ctr_id=3, norm=2,
+         targeted=True),
+    dict(loss_evaluation="constraints+flip+manual", norm=np.inf, record_loss="reduced", record_grad_norm=True),
+    dict(loss_evaluation="constraints+flip+adaptive_eps_step", norm=2, targeted=True, record_loss="reduced"),
+    dict(loss_evaluation="constraints+flip+adaptive_eps_step+repair", norm=2, record_loss="full"),
+    dict(loss_evaluation="flip+repair", norm=np.inf, constraints_optim="alt_constraints"),
+    dict(loss_evaluation="constraints+flip+adaptive_eps_step+repair", norm=np.inf,
+         constraints_optim="single_constraints", ctr_id=0, record_loss="full", record_grad_norm=True),
+)
+#: the main shape: config/rq1.lcld.yaml's PGD on LCLD (4000 states, L2,
+#: ε 0.2, budget 1000, its last loss), run as experiments/pgd.py runs it
+PGD_STATES = 4000
+PGD_BUDGET = 1000
+PGD_EPS = 0.2
+PGD_LOSS = "constraints+flip+adaptive_eps_step+repair"
+#: rq1's other PGD losses (flip+sat runs as flip on the card), timed at 100
+PGD_OTHER_LOSSES = ("flip", "constraints+flip", "constraints+flip+adaptive_eps_step")
+#: card against CPU: rows and iterations
+PGD_CPU_ROWS = 256
+PGD_CPU_ITERS = 100
+#: operations of K7 per row and iteration counted from its source, besides
+#: 4 per weight of the stack (a multiply and an add, forward and backward):
+#: 25 float32 ones per feature (unscaling, the cotangents' sum, masking,
+#: conditioning, the step, the clips, the projection, repair's round trip),
+#: 250 per row (the cross-entropy, the ten terms and their backward, the
+#: sums' roots, repair's installment and one-hot groups) and 7 float64 pow,
+#: log and exp, counted as one operation each at the fp64 peak
+PGD_OPS_PER_FEATURE = 25
+PGD_OPS_PER_ROW = 250
+PGD_F64_PER_ROW = 7
+
+
+def scaled_preimage(target: float, k: int, scale32, min32) -> np.float32:
+    """A float32 scaled value of feature ``k`` whose float32 unscaling
+    ``(x - min_) / scale`` is exactly ``float32(target)``."""
+    want = np.float32(target)
+    x0 = np.float32(want * scale32[k] + min32[k])
+    up = down = x0
+    for c in [x0] + [None] * 512:
+        if c is None:
+            up = np.nextafter(up, np.float32(np.inf), dtype=np.float32)
+            down = np.nextafter(down, np.float32(-np.inf), dtype=np.float32)
+            cands = (up, down)
+        else:
+            cands = (c,)
+        for v in cands:
+            if np.float32(np.float32(v - min32[k]) / scale32[k]) == want:
+                return v
+    raise AssertionError(f"no float32 scaled value of feature {k} unscales to {target}")
+
+
+def pgd_edge_starts(rng, xs: np.ndarray, scaler) -> np.ndarray:
+    """Starts (N, 47) float32: the rows ``xs`` perturbed and clipped, the
+    first 14 at the backward's edges (unscaled values exact in float32): 0
+    denominators (x6 alone and with x0, x14 alone and with x10, x22, x11 with
+    x16 and x22, x11 alone), a term exactly at the tolerance (x10 - x14 and
+    x16 - x11 equal to 1e-3), ±0 inside an abs (term 60 and 36), and
+    features at the clip bounds (a row rounded to {0, 1}, a row of 0s, a
+    row of 1s)."""
+    sc, mn = scaler.scale.astype(np.float32), scaler.min_.astype(np.float32)
+    st = np.clip(xs + rng.normal(scale=0.03, size=xs.shape), 0.0, 1.0).astype(np.float32)
+    for row, feats in enumerate(([6], [0, 6], [14], [10, 14], [22], [11, 16, 22], [11], [14], [11])):
+        st[row, feats] = mn[feats]  # unscales to exactly 0
+    st[7, 10] = scaled_preimage(1e-3, 10, sc, mn)
+    st[8, 16] = scaled_preimage(1e-3, 16, sc, mn)
+    st[9, 1] = scaled_preimage(60.0, 1, sc, mn)
+    st[10, 1] = scaled_preimage(36.0, 1, sc, mn)
+    st[11] = np.round(st[11])
+    st[12], st[13] = 0.0, 1.0
+    u = (st[:14] - mn) / sc
+    assert u[7, 10] - u[7, 14] == np.float32(1e-3) and u[9, 1] == 60 and u[10, 1] == 36
+    return st
+
+
+def pgd_problem():
+    """PGD's problem: ``PGD_STATES`` synthetic LCLD states, the seeded
+    surrogate and its scaler (``tests/test_torch_engine.py::_scaler``)."""
+    from moeva2_ijcai22_replication_tpu_torch.problems import synthetic_lcld_problem
+
+    with tempfile.TemporaryDirectory() as tmp:
+        return synthetic_lcld_problem(tmp, PGD_STATES)
+
+
+def surrogate_labels(sur, xs: np.ndarray) -> np.ndarray:
+    """The surrogate's own classes of the scaled rows (ART's labels when
+    none are given), on the CPU in the surrogate's float32."""
+    import torch
+
+    with torch.inference_mode():
+        return sur.predict_proba(torch.as_tensor(xs, dtype=torch.float32)).argmax(-1).numpy()
+
+
+def check_pgd_kernel(device, problem):
+    """K7 against ``pgd_run_plain`` on the card over the sweep, bit for bit."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import grad_and_terms_plain, pgd_run_plain
+    from moeva2_ijcai22_replication_tpu_torch.core.norms import is_inf
+
+    cons, sur, scaler, x = problem
+    rng = np.random.default_rng(5)
+    xs = scaler.transform(x).astype(np.float32)
+    xi = torch.as_tensor(xs, device=device)
+    st = torch.as_tensor(pgd_edge_starts(rng, xs, scaler), device=device)
+    y = torch.as_tensor(np.arange(len(xs)) % 2, device=device)
+    runs, nan_rows, nan_hist = 0, 0, 0
+    for ci, knobs in enumerate(PGD_CONFIGS):
+        eps = 0.2 if knobs["norm"] == 2 else 0.1
+        atk = ConstrainedPGD(sur, cons, scaler, eps=eps, eps_step=0.1, device=device, **knobs)
+        repair, linf = "repair" in atk.loss_evaluation, is_inf(atk.norm)
+        for n in PGD_ROWS:
+            for t in PGD_ITERS:
+                if t == PGD_ITERS[-1] and n != PGD_ROWS[ci % len(PGD_ROWS)]:
+                    continue
+                sched = atk.schedule(eps, 0.1, t)
+                args = (xi[:n], y[:n], st[:n])
+                got = kernels.pgd_lcld(atk.tables, sched, *args, eps, atk.clip, linf, repair, atk.targeted,
+                                       atk.history_layout())
+                want = pgd_run_plain(atk.tables, cons, sched, *args, eps, atk.clip, atk.norm, repair,
+                                     atk.targeted, atk.history_layout())
+                what = f"pgd_lcld {atk.loss_evaluation} {atk.constraints_optim} norm={atk.norm} N={n} T={t}"
+                for name, g, w in zip(("x_adv", "pred", "hist"), got, want):
+                    if (g is None) != (w is None):
+                        raise AssertionError(f"{what}: {name} is {g} on the card, {w} in the plain version")
+                    if g is not None:
+                        hold_equal(g, w, f"{what} {name}")
+                runs += 1
+                nan_rows += int(torch.isnan(got[0]).any(1).sum())
+                nan_hist += 0 if got[2] is None else int(torch.isnan(got[2]).sum())
+    # the edge starts reach the gradient: NaN entries the first iteration zeroes
+    atk = ConstrainedPGD(sur, cons, scaler, loss_evaluation="constraints+flip", device=device)
+    sched = atk.schedule(0.2, 0.1, 1)
+    grad = grad_and_terms_plain(atk.tables, cons, st[:14], y[:14], sched.w_class[0], sched.w_cons[0], -1, False)[0]
+    nan_grad = int(torch.isnan(grad).sum())
+    if not nan_grad:
+        raise AssertionError("the edge starts give no NaN gradient entry")
+    log(f"[pgd] pgd_lcld equals pgd_run_plain (x_adv, class, history) on all {runs} runs: {len(PGD_CONFIGS)} "
+        f"configurations x N in {PGD_ROWS} x T in {PGD_ITERS[:-1]}, and T = {PGD_ITERS[-1]} at one N each; "
+        f"{nan_grad} NaN gradient entries at the 14 edge starts, {nan_rows} NaN rows of x_adv, {nan_hist} NaN "
+        "history entries")
+
+
+def pgd_bound(tables, n: int, t: int, hist_cols: int = 0):
+    """K7's least time for ``n`` rows and ``t`` iterations: the bytes it
+    must move and the operations counted from its source."""
+    widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
+    macs = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
+    d = widths[0]
+    n_bytes = 4 * 3 * n * d + 16 * n + 4 * tables.params.numel() + 12 * d + 16 * t + 4 * t * n * hist_cols
+    n_ops = n * t * (4 * macs + PGD_OPS_PER_FEATURE * d + PGD_OPS_PER_ROW)
+    return bound_ms(n_bytes, n_ops, n * t * PGD_F64_PER_ROW)
+
+
+def time_pgd(device, problem):
+    """K7's record at the main shape: device ms (CUDA events around a CUDA
+    graph of launches), wrapper ms, the plain version at 100 iterations, the
+    bound; and the kernel at 100 iterations for each rq1 loss."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import pgd_run_plain
+
+    cons, sur, scaler, x = problem
+    xs = scaler.transform(x)
+    xi = torch.as_tensor(xs, dtype=torch.float32, device=device)
+    y = torch.as_tensor(surrogate_labels(sur, xs), device=device)
+    eps = PGD_EPS - 1e-6
+
+    def engine(loss):
+        return ConstrainedPGD(sur, cons, scaler, eps=eps, eps_step=0.1, norm=2, loss_evaluation=loss, device=device)
+
+    atk = engine(PGD_LOSS)
+
+    def kernel_fn(a, t):
+        sched = a.schedule(eps, 0.1, t)
+        return lambda: kernels.pgd_lcld(a.tables, sched, xi, y, xi, eps, a.clip, False,
+                                        "repair" in a.loss_evaluation, False)
+
+    main = kernel_fn(atk, PGD_BUDGET)
+    sched100 = atk.schedule(eps, 0.1, PGD_ITERS[-1])
+    b_ms, b_by = pgd_bound(atk.tables, len(xs), PGD_BUDGET)
+    rec = {
+        "name": "pgd_lcld",
+        "route": "cuda",
+        "source": "moeva2_ijcai22_replication_tpu_torch/kernels/csrc/pgd_lcld.cu",
+        "replaces": "moeva2_ijcai22_replication_tpu/attacks/pgd/engine.py:241",
+        "launches": 0,
+        "max_abs_err": 0.0,
+        "ms": graph_ms(main, launches=2, repeats=3),
+        "wrapper_ms": cuda_ms(main, launches=2, repeats=3),
+        "plain_ms": cuda_ms(lambda: pgd_run_plain(atk.tables, cons, sched100, xi, y, xi, eps, atk.clip, 2, True,
+                                                  False), launches=1, repeats=2),
+        "plain_iters": PGD_ITERS[-1],
+        "ms_100_iters": {PGD_LOSS: graph_ms(kernel_fn(atk, PGD_ITERS[-1]), launches=5, repeats=3)},
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
+    for loss in PGD_OTHER_LOSSES:
+        rec["ms_100_iters"][loss] = graph_ms(kernel_fn(engine(loss), PGD_ITERS[-1]), launches=5, repeats=3)
+    log(f"[pgd] pgd_lcld at {len(xs)} states x {PGD_BUDGET} iterations ({PGD_LOSS}, L2): device {rec['ms']:.3f} ms, "
+        f"through the wrapper {rec['wrapper_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}); plain version at "
+        f"{PGD_ITERS[-1]} iterations {rec['plain_ms']:.1f} ms")
+    log(f"[pgd] pgd_lcld at {len(xs)} states x {PGD_ITERS[-1]} iterations, device ms by loss: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in rec["ms_100_iters"].items()))
+    return rec
+
+
+def same_entries_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return (a == b) | (np.isnan(a) & np.isnan(b))
+
+
+def run_pgd_path(device, problem, smi: str) -> dict:
+    """Drive ``ConstrainedPGD.generate`` as ``experiments/pgd.py:149-186``
+    does and check its result; returns the launch counts of the drive."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.objective import ObjectiveCalculator
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD, round_ints_toward_initial
+
+    cons, sur, scaler, x = problem
+    xs = scaler.transform(x)
+    y = surrogate_labels(sur, xs)
+    eps = PGD_EPS - 1e-6
+    knobs = dict(eps=PGD_EPS, eps_step=0.1, max_iter=PGD_BUDGET, norm=2, loss_evaluation=PGD_LOSS)
+    atk = ConstrainedPGD(sur, cons, scaler, device=device, **knobs)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_adv = atk.generate(xs, y, eps=eps, eps_step=0.1, max_iter=PGD_BUDGET)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    t0 = time.perf_counter()
+    again = atk.generate(xs, y, eps=eps, eps_step=0.1, max_iter=PGD_BUDGET)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    log(f"[pgd] launches on the PGD path: {launches}")
+    log(f"[pgd] generate: cold {cold_s:.3f} s, steady {steady_s:.3f} s for {len(xs)} states x {PGD_BUDGET} "
+        f"iterations on {smi}")
+    if launches != {**{k: 0 for k in launches}, "pgd_lcld": 1}:
+        raise AssertionError(f"launches {launches}: one generate without restarts is one launch of pgd_lcld")
+    if not same_entries_np(x_adv, again).all():
+        raise AssertionError("two runs of generate differ")
+    x0 = xs.astype(np.float32)
+    if x_adv.shape != xs.shape or x_adv.dtype != np.float32 or not np.isfinite(x_adv).all():
+        raise AssertionError(f"x_adv {x_adv.dtype} {x_adv.shape}, {int((~np.isfinite(x_adv)).sum())} non-finite")
+    mutable = np.asarray(cons.get_mutable_mask(), bool)
+    if not np.array_equal(x_adv[:, ~mutable], x0[:, ~mutable]):
+        raise AssertionError("immutable features moved")
+    # repair rewrites term, installment and the one-hot groups after the
+    # projection; the ball holds on every other feature
+    rewritten = np.zeros(x.shape[1], bool)
+    rewritten[[1, 3]] = True
+    for group in cons.schema.ohe_groups():
+        rewritten[list(group)] = True
+    delta = x_adv.astype(np.float64) - x0
+    kept = np.sqrt((delta[:, ~rewritten] ** 2).sum(1))
+    full = np.sqrt((delta**2).sum(1))
+    if kept.max() > PGD_EPS + 1e-5:
+        raise AssertionError(f"L2 distance {kept.max()} > ε on the features repair leaves alone")
+    log(f"[pgd] x_adv {x_adv.shape} float32, finite, immutables unchanged, two runs equal; L2 distance over the "
+        f"features repair leaves alone at most {kept.max():.6f} (ε {PGD_EPS}), over all features at most "
+        f"{full.max():.6f} with {float((full <= PGD_EPS + 1e-5).mean()):.4f} of the rows within ε")
+    x_attacks = round_ints_toward_initial(scaler.inverse(x_adv.astype(np.float64)), x, cons.get_feature_type())
+    calc = ObjectiveCalculator(classifier=sur, constraints=cons, thresholds={"f1": 0.25, "f2": PGD_EPS},
+                               min_max_scaler=scaler, ml_scaler=scaler, minimize_class=1, norm=2)
+    rates = calc.success_rate_3d(x, x_attacks[:, None, :])
+    if rates.shape != (7,) or not np.isfinite(rates).all():
+        raise AssertionError(f"bad success rates {rates}")
+    log("[pgd] success rates o1..o7 (f1 0.25, f2 ε; plumbing check with an untrained surrogate): "
+        + " ".join(f"{v:.4f}" for v in rates))
+    # the card against the CPU on the same rows
+    n, t = PGD_CPU_ROWS, PGD_CPU_ITERS
+    small = {**knobs, "max_iter": t}
+    on_cpu = ConstrainedPGD(sur, cons, scaler, device="cpu", **small).generate(xs[:n], y[:n], eps=eps)
+    on_card = ConstrainedPGD(sur, cons, scaler, device=device, **small).generate(xs[:n], y[:n], eps=eps)
+    differ = int((~same_entries_np(on_card, on_cpu)).sum())
+    log(f"[pgd] card vs CPU at {n} states x {t} iterations: {differ} of {on_cpu.size} x_adv entries differ")
+    if differ:
+        raise AssertionError(f"{differ} x_adv entries differ between the card and the CPU")
+    # restarts: one launch per run
+    kernels.reset_launch_counts()
+    restarts = ConstrainedPGD(sur, cons, scaler, device=device, num_random_init=2, **small)
+    restarts.generate(xs[:n], y[:n], eps=eps)
+    got = kernels.launch_counts()["pgd_lcld"]
+    log(f"[pgd] 2 random restarts at {n} states: {got} launches of pgd_lcld, success after each restart "
+        f"{restarts.quality_history['restart_flip_frac']}")
+    if got != 2:
+        raise AssertionError(f"{got} launches of pgd_lcld for 2 restarts")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1231,6 +1558,10 @@ def main() -> int:
     moeva, x, knobs = main_path_engine(device)
     records = check_kernels(device, moeva, x)
     launches = run_main_path(device, smi, moeva, x, knobs)
+    problem = pgd_problem()
+    check_pgd_kernel(device, problem)
+    records.append(time_pgd(device, problem))
+    launches["pgd_lcld"] = run_pgd_path(device, problem, smi)["pgd_lcld"]
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if not all(math.isfinite(rec[k]) for k in ("ms", "plain_ms", "bound_ms")):
@@ -1242,7 +1573,7 @@ def main() -> int:
         "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(device),
-            "count": 1,  # the run uses cuda:0 alone
+            "count": torch.cuda.device_count(),
         },
     }))
     return 0

@@ -38,7 +38,7 @@ from ...core import codec as codec_lib
 from ...core.constraints import ConstraintSet
 from ...core.norms import is_inf, is_l2, validate_norm
 from ...models.io import Surrogate
-from ...models.mlp import MLP
+from ...models.mlp import MLP, mlp_forward_plain
 from ...models.scalers import MinMaxParams
 from .initialisation import tile_init
 from .operators import OffspringDraws, draw_offspring, make_offspring, make_operator_tables
@@ -150,15 +150,7 @@ def mlp_proba_plain(layers, x: torch.Tensor) -> torch.Tensor:
     k = 0, 1, … one rounded operation at a time (float64, which no kernel
     computes, takes one matmul per layer); softmax as ``exp(l - max)`` over
     the left-to-right sum, a 1-column (sigmoid) head as ``[1 - p, p]``."""
-    a = x
-    for i, (w, b) in enumerate(layers):
-        if a.dtype == torch.float64:
-            acc = torch.nn.functional.linear(a, w, b)
-        else:
-            acc = b.expand(*a.shape[:-1], b.shape[0])
-            for k in range(w.shape[1]):
-                acc = acc + a[..., k, None] * w[:, k]
-        a = torch.relu(acc) if i < len(layers) - 1 else acc
+    a = mlp_forward_plain(layers, x)[-1]
     if a.shape[-1] == 1:
         p = 1.0 / (1.0 + _exp_rn(-a))
         return torch.cat([1.0 - p, p], dim=-1)

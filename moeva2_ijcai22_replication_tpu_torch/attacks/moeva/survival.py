@@ -20,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 
+from ...core.norms import sqrt_rn as _sqrt_rn
+from ...core.norms import sum_last as _sum_last
 from .nds import UNRANKED, nd_ranks
 
 _BIG = 1e16
@@ -63,17 +65,6 @@ def _update_extreme_points(f, nd_mask, ideal, extreme, asp_points):
     asf = (shifted[:, None, :, :] * w[None, :, None, :]).amax(-1)  # (S, n_obj, C)
     idx = torch.argmin(asf, dim=2)
     return torch.gather(cand, 1, idx[..., None].expand(s, n_obj, n_obj))
-
-
-def _sum_last(t, keepdim=False):
-    """Sum over the last axis, left to right, one rounded add at a time. A
-    reduction kernel adds in another order on the card than on the CPU, and
-    one ulp in a survival direction moves dist by ~1e-5 (dist cancels near a
-    direction); this order gives the same bits on both."""
-    out = t[..., 0]
-    for k in range(1, t.shape[-1]):
-        out = out + t[..., k]
-    return out[..., None] if keepdim else out
 
 
 def _solve3(m):
@@ -173,13 +164,6 @@ def associate_plain(f, dirs, ideal, nadir):
     best = torch.gather(p2, 2, niche[..., None])[..., 0]
     dist2 = n[..., 0] * n[..., 0] + n[..., 1] * n[..., 1] + n[..., 2] * n[..., 2] - best
     return niche, _sqrt_rn(torch.clamp(dist2, min=0.0))
-
-
-def _sqrt_rn(t):
-    """Correctly rounded sqrt, the kernel's ``sqrtf``: PyTorch's float32
-    sqrt on an AVX-512 CPU is off by one ulp on some arguments, while a
-    float64 sqrt rounded once to float32 is correctly rounded."""
-    return torch.sqrt(t.double()).to(t.dtype)
 
 
 def associate_batch(f, dirs, ideal, nadir):

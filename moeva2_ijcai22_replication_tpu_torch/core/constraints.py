@@ -32,6 +32,9 @@ class ConstraintSet:
     #: name of the hand-written objective kernel (K1) that serves this set on
     #: the card; None = no kernel, so the engine runs it on the CPU only
     objective_kernel: str | None = None
+    #: name of the hand-written PGD kernel (K7) that serves this set on the
+    #: card; None = no kernel
+    pgd_kernel: str | None = None
 
     def __init__(self, schema: FeatureSchema, bounds: ConstraintBounds | None = None):
         self.schema = schema
@@ -49,6 +52,12 @@ class ConstraintSet:
         """Project candidates toward constraint satisfaction; identity by
         default."""
         return x
+
+    def smooth_vjp(self, x: torch.Tensor, ct_g: torch.Tensor):
+        """``(evaluate_smooth(x), cotangent of x from ct_g)``: the hand-written
+        backward that constrained PGD takes, with ``jax.grad``'s conventions.
+        None by default: a set without one cannot be attacked by PGD."""
+        raise NotImplementedError(f"{type(self).__name__} has no hand-written constraint backward")
 
     def evaluate(self, x: torch.Tensor) -> torch.Tensor:
         """Hard-thresholded violations: value if > tol else exactly 0."""

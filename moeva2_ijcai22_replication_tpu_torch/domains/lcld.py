@@ -56,11 +56,152 @@ def lcld_constraint_terms(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([g1, g2, g3, g4, g5, g6, g7, g8, g9, g10], dim=-1)
 
 
+def _abs_vjp(v, ct):
+    """``jax.grad``'s abs: the cotangent where ``v >= 0`` (so at ±0 and
+    +inf), its negation elsewhere (-inf and NaN)."""
+    return torch.where(v >= 0, ct, -ct)
+
+
+def _clip_vjp(v, ct):
+    """``jnp.clip(v, 0, inf)``'s cotangent as ``jax.grad`` takes it: the
+    product of ``ct`` with minimum's balanced factor (0.5 at +inf, 0 at NaN,
+    else 1) and then with maximum's (1 above 0, 0.5 at ±0, else 0). A NaN
+    or infinite ``ct`` stays NaN where a factor is 0."""
+    lo = torch.where(v == torch.inf, 0.5, torch.where(torch.isnan(v), 0.0, 1.0)).to(ct.dtype)
+    hi = torch.where(v > 0, 1.0, torch.where(v == 0, 0.5, 0.0)).to(ct.dtype)
+    return ct * lo * hi
+
+
+def _div_vjp(ct, num, den):
+    """(numerator's, denominator's) cotangents of ``num / den`` as JAX's
+    rules give them: ``ct / den`` and ``-((ct * (1 / (den * den))) * num)``."""
+    one = torch.ones((), dtype=den.dtype, device=den.device)
+    return ct / den, -((ct * (one / (den * den))) * num)
+
+
+def _pow_jacobians(base, t):
+    """``(growth, d growth / d base, d growth / d t)`` of ``base ** t``: the
+    growth as :func:`_installment` takes it, its derivatives ``t * base **
+    (t - 1)`` and ``log(base) * base ** t`` (``jax.lax.pow``'s, a 0 base's
+    log taken at 1), each in float64 and rounded once."""
+    b64, t64 = base.double(), t.double()
+    g64 = torch.pow(b64, t64)
+    d_base = t64 * torch.pow(b64, t64 - 1.0)
+    d_t = torch.log(torch.where(b64 == 0, 1.0, b64)) * g64
+    return g64.to(base.dtype), d_base.to(base.dtype), d_t.to(base.dtype)
+
+
+def lcld_smooth_vjp(u: torch.Tensor, ct_g: torch.Tensor, tol: float):
+    """``(g, ct_u)``: the smooth violations ``g = clip(terms(u) - tol, 0,
+    inf)`` (..., 10) of the unscaled rows ``u`` (..., 47), as
+    :meth:`LcldConstraints.evaluate_smooth` computes them, and the cotangent
+    of ``u`` from ``ct_g`` (..., 10), the backward ``jax.grad`` takes through
+    ``lcld_constraint_terms``.
+
+    The conventions are ``jax.grad``'s (abs: :func:`_abs_vjp`; clip:
+    :func:`_clip_vjp`; division: :func:`_div_vjp`; a ``where`` passes the
+    cotangent to the branch it took and exact zeros to the other; months
+    has derivative 1). Every product of the chain rule is taken, also where
+    a cotangent is 0, so NaN and inf land where ``jax.grad`` puts them: a
+    term whose clip is inactive still sends NaN into the features of a 0
+    denominator. The contributions to a feature are summed term by term,
+    g1 first, one rounded operation at a time from 0: the order kernel K7
+    (``kernels/csrc/pgd_lcld.cu``) keeps.
+    """
+    x = lambda k: u[..., k]  # noqa: E731
+    ct = torch.zeros_like(u)
+
+    def add(k, c):
+        ct[..., k] = ct[..., k] + c
+
+    # forward, in lcld_constraint_terms' operations
+    r = x(2) / torch.full((), 1200.0, dtype=u.dtype, device=u.device)
+    base = 1.0 + r
+    growth, d_base, d_t = _pow_jacobians(base, x(1))
+    p1 = x(0) * r
+    p2 = p1 * growth
+    dn = growth - 1.0
+    inst = p2 / dn
+    v1 = x(3) - inst
+    a4, b4 = 36.0 - x(1), 60.0 - x(1)
+    v4 = a4 * b4
+    q5, q6 = x(0) / x(6), x(10) / x(14)
+    v5, v6 = x(20) - q5, x(21) - q6
+    m7 = months(x(7)) - months(x(9))
+    v7 = x(22) - m7
+    q8, q9 = x(11) / x(22), x(16) / x(22)
+    v8, v9 = x(23) - q8, x(24) - q9
+    ok = x(11) != 0
+    den10 = torch.where(ok, x(11), 1.0)
+    q10 = torch.where(ok, x(16) / den10, -1.0)
+    fin10 = torch.isfinite(q10)
+    v10 = x(25) - torch.where(fin10, q10, -1.0)
+    raw = torch.stack(
+        [torch.abs(v1) - 0.099999, x(10) - x(14), x(16) - x(11), torch.abs(v4), torch.abs(v5),
+         torch.abs(v6), torch.abs(v7), torch.abs(v8), torch.abs(v9), torch.abs(v10)], dim=-1,
+    )
+    pre = raw - tol
+    g = torch.clamp(pre, min=0.0)
+
+    # backward, term by term
+    c_all = _clip_vjp(pre, ct_g)
+    c = lambda k: c_all[..., k]  # noqa: E731
+    # g1: |x3 - installment(x0, x1, x2)|
+    c_v = _abs_vjp(v1, c(0))
+    add(3, c_v)
+    c_p2, c_dn = _div_vjp(-c_v, p2, dn)
+    c_growth = c_p2 * p1 + c_dn
+    c_p1 = c_p2 * growth
+    add(0, c_p1 * r)
+    add(2, (c_p1 * x(0) + c_growth * d_base) / torch.full((), 1200.0, dtype=u.dtype, device=u.device))
+    add(1, c_growth * d_t)
+    # g2, g3: differences
+    add(10, c(1))
+    add(14, -c(1))
+    add(16, c(2))
+    add(11, -c(2))
+    # g4: |(36 - x1)(60 - x1)|
+    c_v = _abs_vjp(v4, c(3))
+    add(1, -(c_v * b4))
+    add(1, -(c_v * a4))
+    # g5, g6: ratio equalities
+    for k, v, num, d, out in ((4, v5, 0, 6, 20), (5, v6, 10, 14, 21)):
+        c_v = _abs_vjp(v, c(k))
+        add(out, c_v)
+        c_num, c_den = _div_vjp(-c_v, x(num), x(d))
+        add(num, c_num)
+        add(d, c_den)
+    # g7: month count; months' derivative is 1
+    c_v = _abs_vjp(v7, c(6))
+    add(22, c_v)
+    add(7, -c_v)
+    add(9, -(-c_v))
+    # g8, g9: ratios over x22
+    for k, v, num, out in ((7, v8, 11, 23), (8, v9, 16, 24)):
+        c_v = _abs_vjp(v, c(k))
+        add(out, c_v)
+        c_num, c_den = _div_vjp(-c_v, x(num), x(22))
+        add(num, c_num)
+        add(22, c_den)
+    # g10: x16 / x11 with the -1 sentinel; a where passes 0 to the branch
+    # it did not take
+    c_v = _abs_vjp(v10, c(9))
+    add(25, c_v)
+    c_div = torch.where(ok, torch.where(fin10, -c_v, 0.0), 0.0)
+    c_num, c_den = _div_vjp(c_div, x(16), den10)
+    add(16, c_num)
+    add(11, torch.where(ok, c_den, 0.0))
+    return g, ct
+
+
 class LcldConstraints(ConstraintSet):
     n_constraints = 10
     #: kernel K1 (``kernels/csrc/objective_lcld.cu``) computes these terms
     #: inside the objectives on the card
     objective_kernel = "lcld"
+    #: kernel K7 (``kernels/csrc/pgd_lcld.cu``) runs constrained PGD on the
+    #: card with these terms and their backward
+    pgd_kernel = "lcld"
 
     def __init__(self, features_path: str, constraints_path: str):
         schema = FeatureSchema.from_csv(features_path)
@@ -69,6 +210,12 @@ class LcldConstraints(ConstraintSet):
 
     def _raw(self, x: torch.Tensor) -> torch.Tensor:
         return lcld_constraint_terms(x)
+
+    def smooth_vjp(self, u: torch.Tensor, ct_g: torch.Tensor):
+        """:func:`lcld_smooth_vjp` at this set's tolerance."""
+        if u.shape[-1] > N_BASE_FEATURES:
+            raise NotImplementedError("augmented LCLD inputs are not ported yet")
+        return lcld_smooth_vjp(u, ct_g, self.tol)
 
     def repair(self, x: torch.Tensor) -> torch.Tensor:
         """Constructive repair: snap term to {36, 60}, recompute the

@@ -18,6 +18,10 @@ In the order a generation launches them:
   plain versions ``survival.survive_fill_plain``,
   ``engine.extract_archive_plain`` and ``engine.archive_select_plain``.
 
+And, for constrained PGD, ``pgd_lcld`` (K7, ``csrc/pgd_lcld.cu``): every
+iteration of one run on the LCLD domain; plain version
+``attacks.pgd.engine.pgd_run_plain``.
+
 The wrappers take CUDA tensors only and raise on anything the kernel does
 not take, or when a build or launch fails; callers route CPU tensors to the
 plain versions. Importing this module builds nothing: the library is built
@@ -39,6 +43,7 @@ _LAUNCHES = {
     name: 0
     for name in (
         "offspring", "objective_lcld", "nd_peel", "survive_norm", "associate", "survive_fill",
+        "pgd_lcld",
     )
 }
 
@@ -380,3 +385,72 @@ def associate(f, dirs, ideal, nadir):
     _raise_on_error(lib, err, "associate")
     _LAUNCHES["associate"] += 1
     return niche, dist
+
+
+def pgd_lcld(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_inf: bool, repair: bool,
+             targeted: bool, record=None):
+    """Kernel K7: one constrained PGD run on LCLD rows, ``(x_adv (N, 47)
+    float32, pred (N,) int64, hist)``, the semantics of
+    ``attacks.pgd.engine.pgd_run_plain``: ``tables`` a ``PgdTables`` (a
+    relu stack of 47 inputs, 1 or 2 classes and at most K1's layers and
+    width, whose weights fit shared memory), ``sched`` a ``PgdSchedule`` of
+    T rows, ``x_init``/``x_start`` (N, 47) scaled rows, ``y`` (N,) int64
+    labels, all float32 (int32 tables) on one card; ``hist`` is (T, N, C)
+    with ``record = (grad_norm, full)``, else None. The kernel reads any
+    label but 0 and 1 as neither class: ``ConstrainedPGD.generate`` refuses
+    them before anything reaches the card."""
+    from .build import library
+
+    if x_init.dim() != 2:
+        raise ValueError(f"x_init must be (N, D), got {tuple(x_init.shape)}")
+    n, d = x_init.shape
+    t = sched.step.numel()
+    widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
+    n_params = sum(w.numel() + b.numel() for w, b in tables.layers)
+    _check(x_init, "x_init", (n, d))
+    _check(x_start, "x_start", (n, d))
+    _check(y, "y", (n,), torch.int64)
+    _check(tables.params, "params", (n_params,))
+    _check(tables.scale, "scale", (d,))
+    _check(tables.min_, "min_", (d,))
+    _check(tables.mutable, "mutable", (d,), torch.bool)
+    if tables.ohe.dim() != 2:
+        raise ValueError(f"ohe must be (G, K), got {tuple(tables.ohe.shape)}")
+    _check(tables.ohe, "ohe", tuple(tables.ohe.shape), torch.int32)
+    for name in ("w_class", "w_cons", "step"):
+        _check(getattr(sched, name), name, (t,))
+    _check(sched.ctr, "ctr", (t,), torch.int32)
+    if d != 47:
+        raise ValueError(f"pgd_lcld takes LCLD's 47 features, got {d}")
+    if widths[0] != d or not 1 <= widths[-1] <= 2:
+        raise ValueError(f"pgd_lcld takes a {d}-input stack with 1 or 2 classes, got widths {widths}")
+    lib = library()
+    if len(widths) - 1 > lib.moeva_objective_max_layers() or max(widths) > lib.moeva_objective_max_width():
+        raise ValueError(
+            f"pgd_lcld takes at most {lib.moeva_objective_max_layers()} layers of width "
+            f"{lib.moeva_objective_max_width()}, got widths {widths}"
+        )
+    if tables.ohe.numel() > lib.moeva_pgd_max_ohe_slots():
+        raise ValueError(f"pgd_lcld takes at most {lib.moeva_pgd_max_ohe_slots()} one-hot slots")
+    dev = _one_device(x_init, x_start, y, tables.params, tables.scale, tables.min_, tables.mutable, tables.ohe,
+                      *sched)
+    ins = [t_.contiguous() for t_ in (x_init, x_start, y, tables.mutable, tables.params, tables.scale, tables.min_,
+                                      tables.ohe, *sched)]
+    x_adv = torch.empty((n, d), dtype=torch.float32, device=dev)
+    pred = torch.empty((n,), dtype=torch.int64, device=dev)
+    cols = 0 if record is None else 3 + bool(record[0]) + (10 if record[1] else 0)
+    hist = None if record is None else torch.empty((t, n, cols), dtype=torch.float32, device=dev)
+    flags = (int(norm_inf) | int(repair) << 1 | int(targeted) << 2
+             | (0 if record is None else int(bool(record[0])) << 3 | int(bool(record[1])) << 4))
+    c_widths = (ctypes.c_int * len(widths))(*widths)
+    lo, hi = clip
+    with torch.cuda.device(dev):
+        err = lib.moeva_pgd_lcld_f32(
+            *(u.data_ptr() for u in ins[:5]), c_widths, len(widths) - 1,
+            *(u.data_ptr() for u in ins[5:8]), tables.ohe.shape[0], tables.ohe.shape[1],
+            *(u.data_ptr() for u in ins[8:]), x_adv.data_ptr(), pred.data_ptr(), _ptr(hist), cols, n, t,
+            float(eps), float(lo), float(hi), float(tables.tol), flags, _stream(dev),
+        )
+    _raise_on_error(lib, err, "pgd_lcld")
+    _LAUNCHES["pgd_lcld"] += 1
+    return x_adv, pred, hist

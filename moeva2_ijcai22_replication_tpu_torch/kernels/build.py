@@ -32,6 +32,7 @@ SOURCES = (
     "csrc/survive_norm.cu",
     "csrc/associate.cu",
     "csrc/survive_fill.cu",
+    "csrc/pgd_lcld.cu",
     "bindings.cpp",
 )
 HEADERS = ("csrc/kernels.h",)
@@ -141,10 +142,15 @@ def library() -> ctypes.CDLL:
         [ptr] * 6 + [i32] + [ptr] * 6 + [i32] + [ptr] * 6 + [i32] * 8 + [ptr]
     )
     lib.moeva_survive_fill_f32.restype = i32
+    lib.moeva_pgd_lcld_f32.argtypes = (
+        [ptr] * 5 + [ctypes.POINTER(i32), i32] + [ptr] * 3 + [i32] * 2 + [ptr] * 7 + [i32] * 3
+        + [f32] * 4 + [i32, ptr]
+    )
+    lib.moeva_pgd_lcld_f32.restype = i32
     for name in (
         "moeva_nd_peel_max_candidates", "moeva_associate_max_directions", "moeva_survive_max_candidates",
         "moeva_objective_max_params", "moeva_objective_max_width",
-        "moeva_objective_max_layers",
+        "moeva_objective_max_layers", "moeva_pgd_max_ohe_slots",
     ):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32

@@ -24,6 +24,14 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
   return r;
 }
+
+// LCLD's month count of a YYYYMM date: torch.floor(a / 100) * 12 +
+// torch.remainder(a, 100), the remainder fmod-based as PyTorch's
+__device__ __forceinline__ float lcld_months(float a) {
+  float rem = fmodf(a, 100.0f);
+  if (rem != 0.0f && rem < 0.0f) rem = __fadd_rn(rem, 100.0f);
+  return __fadd_rn(__fmul_rn(floorf(__fdiv_rn(a, 100.0f)), 12.0f), rem);
+}
 #endif
 
 // Shared memory one block can use on Hopper (227 KB).
@@ -175,3 +183,34 @@ cudaError_t launch_survive_norm(const float* f, const int32_t* ranks,
                                 int a, cudaStream_t stream);
 
 cudaError_t launch_survive_fill(const SurviveFillArgs& args, cudaStream_t stream);
+
+// pgd_lcld: rows per block (one warp each), and the one-hot slots (groups x
+// slots per group) it stages.
+constexpr int kPgdRowsPerBlock = 8;
+constexpr int kPgdMaxOheSlots = 1024;
+
+// pgd_lcld's arguments. flags: 1 = L-inf (else L2), 2 = repair, 4 =
+// targeted, 8 = the grad-norm history column, 16 = the violations' columns.
+struct PgdArgs {
+  const float* x_init;    // (N, 47)
+  const float* x_start;   // (N, 47)
+  const int64_t* y;       // (N,) labels
+  const bool* mutable_;   // (47,)
+  const float* params;    // each layer's weight (out, in), then its bias
+  const float* scale;     // (47,) x_scaled = x * scale + min_
+  const float* min_;      // (47,)
+  const int32_t* ohe;     // (n_groups, group_slots) feature per slot, -1 = padding
+  const float* w_class;   // (T,) schedule
+  const float* w_cons;    // (T,)
+  const float* step;      // (T,)
+  const int32_t* ctr;     // (T,) constraint optimised, -1 = their sum
+  float* x_adv;           // (N, 47) out
+  int64_t* pred;          // (N,) out: class at x_adv
+  float* hist;            // (T, N, hist_cols) out, or null
+  int n, t, n_groups, group_slots, hist_cols, flags;
+  float eps, lo, hi, tol;
+  int n_layers;
+  int widths[kObjectiveMaxLayers + 1];
+};
+
+cudaError_t launch_pgd_lcld(const PgdArgs& args, cudaStream_t stream);

@@ -114,13 +114,6 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
 }
 
-// torch.floor(a / 100) * 12 + torch.remainder(a, 100)
-__device__ __forceinline__ float months(float a) {
-  float rem = fmodf(a, 100.0f);
-  if (rem != 0.0f && rem < 0.0f) rem = __fadd_rn(rem, 100.0f);
-  return __fadd_rn(__fmul_rn(floorf(__fdiv_rn(a, 100.0f)), 12.0f), rem);
-}
-
 __device__ __forceinline__ float relu_if(bool hidden, float x) {
   return hidden && !(x > 0.0f) && !isnan(x) ? 0.0f : x;
 }
@@ -227,7 +220,7 @@ __device__ __forceinline__ float lcld_violation(const float* xf, float thr) {
   g = __fadd_rn(g, keep(fabsf(__fmul_rn(__fsub_rn(36.0f, x(1)), __fsub_rn(60.0f, x(1))))));
   g = __fadd_rn(g, keep(fabsf(__fsub_rn(x(20), __fdiv_rn(x(0), x(6))))));
   g = __fadd_rn(g, keep(fabsf(__fsub_rn(x(21), __fdiv_rn(x(10), x(14))))));
-  g = __fadd_rn(g, keep(fabsf(__fsub_rn(x22, __fsub_rn(months(x(7)), months(x(9)))))));
+  g = __fadd_rn(g, keep(fabsf(__fsub_rn(x22, __fsub_rn(lcld_months(x(7)), lcld_months(x(9)))))));
   g = __fadd_rn(g, keep(fabsf(__fsub_rn(x(23), __fdiv_rn(x11, x22)))));
   g = __fadd_rn(g, keep(fabsf(__fsub_rn(x(24), __fdiv_rn(x16, x22)))));
   return __fadd_rn(g, keep(fabsf(__fsub_rn(x(25), ratio))));

@@ -50,6 +50,47 @@ def lcld_mlp(n_features: int = 47, seed: int | None = None) -> MLP:
     return model if seed is None else model.reset_parameters_seeded(seed)
 
 
+def mlp_forward_plain(layers, x: torch.Tensor) -> list:
+    """Activations ``[x, h1, ..., logits]`` of the relu stack ``layers``
+    (``((weight (out, in), bias (out,)), ...)``) in kernel K1's order: in
+    float32 each unit starts from its bias and adds ``weight[k] * x[k]`` for
+    k = 0, 1, ... one rounded operation at a time (float64, which no kernel
+    computes, takes one matmul per layer); relu keeps a NaN."""
+    acts = [x]
+    a = x
+    for i, (w, b) in enumerate(layers):
+        if a.dtype == torch.float64:
+            acc = torch.nn.functional.linear(a, w, b)
+        else:
+            acc = b.expand(*a.shape[:-1], b.shape[0])
+            for k in range(w.shape[1]):
+                acc = acc + a[..., k, None] * w[:, k]
+        a = torch.relu(acc) if i < len(layers) - 1 else acc
+        acts.append(a)
+    return acts
+
+
+def mlp_input_grad_plain(layers, acts: list, ct: torch.Tensor) -> torch.Tensor:
+    """The cotangent of the stack's input from ``ct``, that of its logits,
+    and the activations :func:`mlp_forward_plain` gave: a hidden unit passes
+    its cotangent where its output is above 0 and 0 elsewhere (``jax.nn.
+    relu``'s select: 0 at 0, and a NaN cotangent stops there); in float32
+    each input unit k sums ``weight[o, k] * ct[o]`` for o = 0, 1, ... one
+    rounded operation at a time (float64 takes one matmul per layer)."""
+    for i in range(len(layers) - 1, -1, -1):
+        w = layers[i][0]
+        if i < len(layers) - 1:
+            ct = torch.where(acts[i + 1] > 0, ct, 0.0)
+        if ct.dtype == torch.float64:
+            ct = ct @ w
+        else:
+            out = ct[..., 0, None] * w[0]
+            for o in range(1, w.shape[0]):
+                out = out + ct[..., o, None] * w[o]
+            ct = out
+    return ct
+
+
 def predict_proba(model: MLP, x: torch.Tensor) -> torch.Tensor:
     logits = model(x)
     if logits.shape[-1] == 1:  # sigmoid head

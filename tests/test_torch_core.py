@@ -148,6 +148,50 @@ def test_lp_distance_matches(norm):
     assert tnorms.validate_norm(norm) == norm
 
 
+def _norm_rows(dtype):
+    """Rows of every kind the norms see: mixed signs, a zero row, a row with
+    one non-zero entry, tiny and large entries."""
+    d = np.random.default_rng(4).normal(size=(6, 47))
+    d[1] = 0.0
+    d[2, 1:] = 0.0
+    d[3] *= 1e-20
+    d[4] *= 1e6
+    return d.astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("norm", [1, 2, np.inf, "inf", "2"])
+def test_condition_grad_matches(norm, dtype):
+    d = _norm_rows(dtype)
+    want = np.asarray(jnorms.condition_grad(jnp.asarray(d), norm))
+    got = tnorms.condition_grad(torch.as_tensor(d), norm).numpy()
+    assert got.dtype == dtype
+    # the port sums left to right, JAX's reduction in its own order
+    np.testing.assert_allclose(got, want, rtol=1e-15 if dtype == np.float64 else 1e-6, atol=0)
+    assert not got[1].any()
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("norm", [2, np.inf, "linf"])
+@pytest.mark.parametrize("eps", [0.2, 1e-3])
+def test_project_ball_matches(norm, dtype, eps):
+    d = _norm_rows(dtype) * dtype(0.1)
+    want = np.asarray(jnorms.project_ball(jnp.asarray(d), eps, norm))
+    got = tnorms.project_ball(torch.as_tensor(d), eps, norm).numpy()
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got, want, rtol=1e-15 if dtype == np.float64 else 1e-6, atol=0)
+    assert not got[1].any()
+    if tnorms.is_l2(norm):
+        assert (np.sqrt((got.astype(np.float64) ** 2).sum(-1)) <= eps * (1 + 1e-6)).all()
+
+
+def test_project_ball_refuses_l1():
+    with pytest.raises(NotImplementedError):
+        jnorms.project_ball(jnp.zeros((2, 3)), 0.1, 1)
+    with pytest.raises(NotImplementedError):
+        tnorms.project_ball(torch.zeros((2, 3)), 0.1, 1)
+
+
 def test_unsupported_norm_raises():
     with pytest.raises(NotImplementedError):
         tnorms.validate_norm(1)

@@ -34,7 +34,7 @@ def test_port_has_every_module_of_the_slice():
         "models.io", "attacks.objective", "attacks.moeva.refdirs",
         "attacks.moeva.initialisation", "attacks.moeva.operators",
         "attacks.moeva.nds", "attacks.moeva.survival", "attacks.moeva.engine",
-        "kernels", "kernels.build", "problems",
+        "attacks.pgd", "attacks.pgd.engine", "kernels", "kernels.build", "problems",
     ):
         assert f"{port.__name__}.{name}" in mods
 

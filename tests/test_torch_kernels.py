@@ -28,7 +28,10 @@ from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import (
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import (
     NormState, associate_plain, draw_gumbels, survive_fill_plain, survive_norm_plain,
 )
+from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD
+from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import PgdTables, pgd_run_plain
 from moeva2_ijcai22_replication_tpu_torch.kernels import build
+from moeva2_ijcai22_replication_tpu_torch.models.io import Surrogate
 from moeva2_ijcai22_replication_tpu_torch.models.mlp import MLP
 from moeva2_ijcai22_replication_tpu_torch.problems import synthetic_lcld_problem
 
@@ -476,7 +479,7 @@ def test_launch_counts_reset():
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {
         "offspring": 0, "objective_lcld": 0, "nd_peel": 0,
-        "survive_norm": 0, "associate": 0, "survive_fill": 0,
+        "survive_norm": 0, "associate": 0, "survive_fill": 0, "pgd_lcld": 0,
     }
 
 
@@ -489,3 +492,131 @@ def test_build_fingerprint_follows_sources(tmp_path, monkeypatch):
     assert build._fingerprint("/usr/local/cuda/bin/nvcc") != a
     assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert all((build.PACKAGE_DIR / src).exists() for src in build.SOURCES + build.HEADERS)
+
+
+# -- K7 pgd_lcld -------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def pgd_problem(tmp_path_factory):
+    """64 synthetic LCLD states, the seeded surrogate and its scaler; the
+    scaled rows, and starts whose first 7 rows put LCLD's denominators at 0
+    (NaN and inf gradients) or features at the clip bounds."""
+    cons, sur, scaler, x = synthetic_lcld_problem(str(tmp_path_factory.mktemp("pgd")), 64)
+    xs = scaler.transform(x).astype(np.float32)
+    rng = np.random.default_rng(2)
+    starts = np.clip(xs + rng.normal(scale=0.03, size=xs.shape), 0, 1).astype(np.float32)
+    mn = scaler.min_.astype(np.float32)
+    for row, feats in enumerate(([6], [0, 6], [14], [10, 14], [22], [11, 16, 22])):
+        starts[row, feats] = mn[feats]  # unscales to exactly 0
+    starts[6] = np.round(starts[6])
+    return cons, sur, scaler, xs, starts
+
+
+PGD_CASES = (
+    dict(loss_evaluation="constraints+flip+adaptive_eps_step+repair", norm=2, record_loss="full",
+         record_grad_norm=True),
+    dict(loss_evaluation="flip", norm=np.inf, constraints_optim="alt_constraints", record_loss="reduced"),
+    dict(loss_evaluation="constraints+flip+alternate", norm=2, targeted=True),
+    dict(loss_evaluation="constraints", constraints_optim="single_constraints", ctr_id=4, norm=np.inf,
+         record_loss="full"),
+    dict(loss_evaluation="flip+repair", norm=np.inf, record_loss="full", record_grad_norm=True),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t", [(1, 7), (33, 12), (64, 30)])
+@pytest.mark.parametrize("case", range(len(PGD_CASES)))
+def test_pgd_lcld_equals_plain(card, pgd_problem, case, n, t):
+    cons, sur, scaler, xs, starts = pgd_problem
+    knobs = PGD_CASES[case]
+    atk = ConstrainedPGD(sur, cons, scaler, eps=0.2, eps_step=0.1, device=card, **knobs)
+    sched = atk.schedule(0.2, 0.1, t)
+    args = (torch.as_tensor(xs[:n], device=card), torch.as_tensor(np.arange(n) % 2, device=card),
+            torch.as_tensor(starts[:n], device=card))
+    repair, linf = "repair" in atk.loss_evaluation, knobs["norm"] == np.inf
+    before = kernels.launch_counts()["pgd_lcld"]
+    got = kernels.pgd_lcld(atk.tables, sched, *args, 0.2, atk.clip, linf, repair, atk.targeted, atk.history_layout())
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["pgd_lcld"] == before + 1
+    want = pgd_run_plain(atk.tables, cons, sched, *args, 0.2, atk.clip, atk.norm, repair, atk.targeted,
+                         atk.history_layout())
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or _same(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,n_classes", [((64, 32, 16), 1), ((128, 128, 128), 2), ((16,), 2)])
+def test_pgd_lcld_other_stacks_equal_plain(card, pgd_problem, hidden, n_classes):
+    cons, _, scaler, xs, starts = pgd_problem
+    model = MLP(47, hidden, n_classes).reset_parameters_seeded(3)
+    atk = ConstrainedPGD(Surrogate(model), cons, scaler, eps=0.3, eps_step=0.1, norm=2, device=card,
+                         loss_evaluation="constraints+flip+repair", record_loss="full")
+    sched = atk.schedule(0.3, 0.1, 9)
+    args = (torch.as_tensor(xs, device=card), torch.as_tensor(np.arange(len(xs)) % 2, device=card),
+            torch.as_tensor(starts, device=card))
+    got = kernels.pgd_lcld(atk.tables, sched, *args, 0.3, atk.clip, False, True, False, atk.history_layout())
+    want = pgd_run_plain(atk.tables, cons, sched, *args, 0.3, atk.clip, 2, True, False, atk.history_layout())
+    for g, w in zip(got, want):
+        assert _same(g, w)
+
+
+@pytest.mark.cuda
+def test_pgd_lcld_refuses_what_it_does_not_take(card, pgd_problem):
+    cons, sur, scaler, xs, _ = pgd_problem
+    atk = ConstrainedPGD(sur, cons, scaler, device=card, max_iter=3)
+    sched = atk.schedule(0.3, 0.1, 3)
+    xi = torch.as_tensor(xs[:8], device=card)
+    y = torch.zeros(8, dtype=torch.int64, device=card)
+    run = lambda tables, x, yy, st, s=sched: kernels.pgd_lcld(  # noqa: E731
+        tables, s, x, yy, st, 0.3, (0.0, 1.0), True, False, False)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        run(atk.tables, xi.cpu(), y, xi)
+    with pytest.raises(TypeError, match="float32"):
+        run(atk.tables, xi.double(), y, xi)
+    with pytest.raises(ValueError, match="shape"):
+        run(atk.tables, xi, y[:4], xi)
+    with pytest.raises(ValueError, match="shape"):
+        run(atk.tables, xi, y, xi[:, :40])
+    with pytest.raises(ValueError, match="47 features"):
+        narrow = atk.tables._replace(scale=atk.tables.scale[:40], min_=atk.tables.min_[:40],
+                                     mutable=atk.tables.mutable[:40])
+        run(narrow, xi[:, :40], y, xi[:, :40])
+    three = MLP(47, (8,), 3).to(card)
+    layers = tuple((m.weight.detach(), m.bias.detach()) for m in three.layers)
+    tables = atk.tables._replace(layers=layers, params=torch.cat([t.reshape(-1) for p in layers for t in p]))
+    with pytest.raises(ValueError, match="1 or 2 classes"):
+        run(tables, xi, y, xi)
+    assert isinstance(atk.tables, PgdTables)
+
+
+@pytest.mark.cuda
+def test_pgd_generate_on_the_card(card, pgd_problem):
+    cons, sur, scaler, xs, _ = pgd_problem
+    y = np.arange(len(xs)) % 2
+    atk = ConstrainedPGD(sur, cons, scaler, eps=0.2, eps_step=0.1, max_iter=20, norm=2, device=card,
+                         loss_evaluation="constraints+flip+adaptive_eps_step+repair", num_random_init=2)
+    before = kernels.launch_counts()["pgd_lcld"]
+    a = atk.generate(xs, y)
+    assert kernels.launch_counts()["pgd_lcld"] == before + 2
+    np.testing.assert_array_equal(atk.generate(xs, y), a)
+    # the same ValueError as on the CPU (tests/test_torch_pgd.py)
+    with pytest.raises(ValueError, match="labels must be classes of the 2-class head"):
+        atk.generate(xs, np.full(len(xs), 2))
+    cpu = ConstrainedPGD(sur, cons, scaler, eps=0.2, eps_step=0.1, max_iter=20, norm=2, device="cpu",
+                         loss_evaluation="constraints+flip+adaptive_eps_step+repair")
+    card_run = ConstrainedPGD(sur, cons, scaler, eps=0.2, eps_step=0.1, max_iter=20, norm=2, device=card,
+                              loss_evaluation="constraints+flip+adaptive_eps_step+repair")
+    got, want = card_run.generate(xs, y), cpu.generate(xs, y)
+    assert ((got == want) | (np.isnan(got) & np.isnan(want))).all()
+
+
+def test_pgd_wrapper_refuses_cpu_tensors(tmp_path):
+    cons, sur, scaler, x = synthetic_lcld_problem(str(tmp_path), 4)
+    atk = ConstrainedPGD(sur, cons, scaler, device="cpu", max_iter=2)
+    xi = torch.as_tensor(scaler.transform(x), dtype=torch.float32)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.pgd_lcld(atk.tables, atk.schedule(0.3, 0.1, 2), xi, torch.zeros(4, dtype=torch.int64), xi, 0.3,
+                         (0.0, 1.0), True, False, False)
+    assert kernels.launch_counts() == before
