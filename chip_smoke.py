@@ -8,9 +8,9 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero:
 
 1. versions: torch, CUDA, and the card's name and power limit (nvidia-smi);
-2. build the port's six CUDA kernels from the sources in the checkout and
+2. build the port's eight CUDA kernels from the sources in the checkout and
    print each kernel's ptxas registers, shared memory, stack frame and
-   spill (none of the six may spill);
+   spill (none of the redesigned ones, ``REDESIGNED``, may spill);
 3. hold each kernel against its plain PyTorch version on the card over a
    sweep of state counts and two shapes, bit for bit: K5 ``offspring``, K1
    ``objective_lcld``, K4a ``survive_norm``, K4b ``survive_fill`` (fill,
@@ -61,7 +61,22 @@ Phases, in order; any failure exits non-zero:
    ε - 1e-6, inverse scaling, directional rounding, o1..o7) with its launch
    count set to 0 just before and read just after; check the ε-ball,
    immutables and finiteness, that two runs are equal, and the card against
-   the CPU at 256 states x 100 iterations.
+   the CPU at 256 states x 100 iterations;
+8. MoEvA2 on the botnet domain (the ``[botnet]`` lines): K8's ptxas line;
+   K8 ``objective_botnet`` against ``evaluate_plain`` on the card, bit for
+   bit, over ``BOTNET_SWEEP_STATES`` x ``BOTNET_SWEEP_ROWS``, the tile edges
+   under both norms and other stacks and heads, with the terms' edge cases in
+   the candidates (0, -0.0 and NaN packets, infinite and inf - inf flow
+   sums, a ratio of exactly 1500, an ordering at -inf); K5, K2, K4a, K3 and
+   K4b at L = 756 and (M, R) = (303, 203); K8 timed at 387 states x 100
+   offspring beside its plain version, its bound, its no-FMA ceiling and
+   ``torch.matmul`` of its first layer alone; ``Moeva2.generate`` as
+   ``config/rq1.botnet.yaml`` runs it (387 states, 1000 generations, pop
+   200, 100 offspring, archive 24, L2, seed 42, chunks of 256) cold and
+   steady, with its launch counts set to 0 just before and read just after;
+   shape, finiteness, immutables and two equal runs; the stages on the card
+   against the CPU at 4 states; o1..o7 at f1 0.5 and f2 4; and the profile of
+   phase 6 at 387 states.
 
 The last three lines are the per-kernel JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Nothing is printed as a
@@ -918,8 +933,8 @@ def max_err(got, want, scale=None) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
-def check_step_against_cpu(moeva_gpu, moeva_cpu, moeva_ref, x, device):
-    """Three generation steps on 8 states, on the card and on the CPU path
+def check_step_against_cpu(moeva_gpu, moeva_cpu, moeva_ref, x, device, tag="[main]", n_states=8):
+    """Three generation steps on ``n_states`` states, on the card and on the CPU path
     (both float32), fed the same draws, made on the CPU. Each step starts both
     from the CPU's carry and compares the stages in order, on the same inputs:
 
@@ -965,7 +980,7 @@ def check_step_against_cpu(moeva_gpu, moeva_cpu, moeva_ref, x, device):
                     **dict(zip(("pop_x", "pop_f", "arch_x", "arch_f"), tail)),
                     **{f"state.{k}": v for k, v in new_state._asdict().items()})
 
-    xs = x[:8]
+    xs = x[:n_states]
     mc = np.ones(len(xs), dtype=np.int64)
     gen = torch.Generator().manual_seed(3)
     err = {k: [0.0, 0.0] for k in ("offspring", "f1", "f2", "f3")}  # [card, CPU]
@@ -1007,18 +1022,18 @@ def check_step_against_cpu(moeva_gpu, moeva_cpu, moeva_ref, x, device):
                                          f"(max |difference| {max_err(got[name], want[name]):.3e})")
             carry_c = moeva_cpu.gen_step(run_c, carry_c, dr)
             free_g = moeva_gpu.gen_step(run_g, free_g, dr_g)
-    log("[main] engine stages on the same inputs over 3 steps, entries that differ between the card and the CPU: "
+    log(f"{tag} engine stages on the same inputs over 3 steps, entries that differ between the card and the CPU: "
         f"offspring {differ['offspring']} of {3 * off_c.numel()}, objectives {differ['objectives']} of "
         f"{3 * f_c.numel()}; float32 error against the float64 CPU path (card, CPU): "
         + ", ".join(f"{k} {g:.3e} {c:.3e}" for k, (g, c) in err.items()) + " (offspring over each gene's range)")
-    log(f"[main] association of the same objectives, entries that differ between the card and the CPU: niche "
+    log(f"{tag} association of the same objectives, entries that differ between the card and the CPU: niche "
         f"{differ['niche']} of {3 * want['niche'].numel()}, dist {differ['dist']} of {3 * want['dist'].numel()}")
-    log("[main] survival, extraction and archive of the same objectives, card vs CPU: " + ", ".join(want) + " equal")
+    log(f"{tag} survival, extraction and archive of the same objectives, card vs CPU: " + ", ".join(want) + " equal")
     for k, (g, c) in err.items():
         if g > STEP_ERR_RATIO * c:
             raise AssertionError(f"{k} on the card is off the float64 path by {g:.3e}, on the CPU by {c:.3e}")
     rows_equal = (free_g.pop_x.cpu() == carry_c.pop_x).all(-1).float().mean().item()
-    log(f"[main] the same 3 steps run free on each device: {rows_equal:.4f} of population rows equal")
+    log(f"{tag} the same 3 steps run free on each device: {rows_equal:.4f} of population rows equal")
 
 
 def launches_per_generation(moeva, run, carry, gen, n_states: int):
@@ -1048,10 +1063,11 @@ def launches_per_generation(moeva, run, carry, gen, n_states: int):
     return carry, {k: after[k] - before[k] for k in after}, ops
 
 
-def profile_generation(moeva, x):
+def profile_generation(moeva, x, tag="[profile]"):
     """Phase 6: where a generation's time goes at the main path's shape.
     Traces ``PROFILE_GENS`` generation steps with ``torch.profiler`` after 3
-    untraced ones and prints the traced ms per generation, the device-busy
+    untraced ones and one traced and discarded (the profiler's warm-up) and
+    prints the traced ms per generation, the device-busy
     share (summed kernel time over the traced wall time), the kernels ranked
     by device time with their launches per generation, and the device span
     of each ``moeva.*`` stage range of ``gen_step``. Fails unless the trace
@@ -1059,7 +1075,7 @@ def profile_generation(moeva, x):
     events in all as the first untraced generation launched (a trace that
     lost events would read a low busy share)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import draw_gumbels
@@ -1072,7 +1088,13 @@ def profile_generation(moeva, x):
         for _ in range(2):
             carry = moeva.gen_step(run, carry, moeva.draw_generation(gen, len(x)))
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # one generation traced and discarded first: the device trace misses
+        # kernels launched just after the profiler starts
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            carry = moeva.gen_step(run, carry, moeva.draw_generation(gen, len(x)))
+            torch.cuda.synchronize()
+            prof.step()
             t0 = time.perf_counter()
             for _ in range(PROFILE_GENS):
                 with record_function("moeva.draws"):
@@ -1080,6 +1102,7 @@ def profile_generation(moeva, x):
                 carry = moeva.gen_step(run, carry, draws)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            prof.step()
 
     events = prof.key_averages()
     dev = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)  # noqa: E731
@@ -1091,26 +1114,26 @@ def profile_generation(moeva, x):
     per_gen = lambda us: us / 1e3 / PROFILE_GENS  # noqa: E731
     expected = sum(port.values()) + sum(ops.values())
     traced = sum(e.count for e in kernels)
-    log(f"[profile] {len(x)} states: {wall / PROFILE_GENS * 1e3:.3f} ms per generation traced, device busy "
+    log(f"{tag} {len(x)} states: {wall / PROFILE_GENS * 1e3:.3f} ms per generation traced, device busy "
         f"{busy_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms = share {busy_us / 1e6 / wall:.3f}, "
         f"{traced / PROFILE_GENS:.1f} launches per generation traced, {expected} launched by the code "
         f"(port kernels {port}, torch ops {ops})")
+    for e in sorted(kernels, key=dev, reverse=True):
+        log(f"{tag} {per_gen(dev(e)):9.4f} ms/gen {e.count / PROFILE_GENS:6.1f} launches/gen  {e.key[:100]}")
     for name, n in port.items():
         got = sum(e.count for e in kernels if f"{name}_kernel" in e.key)
         if got != n * PROFILE_GENS:
             raise AssertionError(f"the trace holds {got} events of {name}, the code launched {n * PROFILE_GENS}")
     if traced != expected * PROFILE_GENS:
         raise AssertionError(f"the trace holds {traced} kernel events, the code launched {expected * PROFILE_GENS}")
-    for e in sorted(kernels, key=dev, reverse=True)[:12]:
-        log(f"[profile] {per_gen(dev(e)):9.4f} ms/gen {e.count / PROFILE_GENS:6.1f} launches/gen  {e.key[:100]}")
     for e in sorted((e for e in on_card if e.key.startswith("moeva.")), key=dev, reverse=True):
-        log(f"[profile] stage {e.key}: device span {per_gen(dev(e)):.4f} ms/gen (idle gaps included)")
+        log(f"{tag} stage {e.key}: device span {per_gen(dev(e)):.4f} ms/gen (idle gaps included)")
     with torch.inference_mode():
         draws = moeva.draw_generation(gen, len(x))
         off = moeva.offspring(run, carry.pop_x, draws.offspring)
         merged = torch.cat([carry.pop_f, moeva._evaluate(run, off)], dim=1)
         mean, most = peeled_fronts(nd_ranks(merged, moeva.pop_size))
-    log(f"[profile] nd_peel on the next generation's objectives: fronts per state mean {mean:.3f}, max {most}")
+    log(f"{tag} nd_peel on the next generation's objectives: fronts per state mean {mean:.3f}, max {most}")
 
 
 def main_path_engine(device):
@@ -1129,18 +1152,31 @@ def expected_launches(moeva, n_states: int) -> dict:
     """Launches of one ``generate`` call that the engine's code implies: per
     chunk of states, the initial round (objectives, survival, the archive
     seeding on K4b) and ``n_gen - 1`` generation steps."""
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import OBJECTIVE_KERNELS
+
     chunk = moeva.max_states_per_call or n_states
     chunks = -(-n_states // chunk)
     steps = moeva.n_gen - 1
     return {
+        **{name: 0 for name in kernels.launch_counts()},
         "offspring": chunks * steps,
-        "objective_lcld": chunks * (1 + steps),
+        OBJECTIVE_KERNELS[moeva.constraints.objective_kernel]: chunks * (1 + steps),
         "nd_peel": chunks * (1 + steps),
         "survive_norm": chunks * (1 + steps),
         "associate": chunks * (1 + steps),
         "survive_fill": chunks * (1 + steps + (1 if moeva.archive_size else 0)),
-        "pgd_lcld": 0,
     }
+
+
+def check_launches(launches: dict, expected: dict, path: str) -> None:
+    """Fail unless every kernel that ``expected`` launches ran, and each as
+    often as the code implies."""
+    for name, n in expected.items():
+        if n and launches.get(name, 0) < 1:
+            raise AssertionError(f"kernel {name} was not launched on {path}")
+    if launches != expected:
+        raise AssertionError(f"launches {launches} != {expected} implied by the code")
 
 
 def run_main_path(device, smi: str, moeva, x, knobs):
@@ -1170,11 +1206,7 @@ def run_main_path(device, smi: str, moeva, x, knobs):
     log(f"[main] launches on the main path: {launches}")
     log(f"[main] generate: cold {cold_s:.3f} s, steady {steady_s:.3f} s for {N_STATES} states "
         f"x {N_GEN} generations on {smi}")
-    for name, n in launches.items():
-        if n < 1 and name != "pgd_lcld":
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-    if launches != expected_launches(moeva, N_STATES):
-        raise AssertionError(f"launches {launches} != {expected_launches(moeva, N_STATES)} implied by the code")
+    check_launches(launches, expected_launches(moeva, N_STATES), "the main path")
 
     p = moeva.pop_size + 24
     if res.x_ml.shape != (N_STATES, p, cons.schema.n_features):
@@ -1523,6 +1555,285 @@ def run_pgd_path(device, problem, smi: str) -> dict:
     return launches
 
 
+# -- phase 8: MoEvA2 on botnet ----------------------------------------------------
+
+#: config/rq1.botnet.yaml's run with config/moeva.yaml's engine: 387 states,
+#: L2, seed 42, pop 200 (P = 203, M = 303, R = 203), 100 offspring, archive
+#: 24, in chunks of 256 and 131 states
+BOTNET_STATES = 387
+BOTNET_KNOBS = dict(norm=2, n_gen=1000, n_pop=200, n_offsprings=100, archive_size=24, seed=42,
+                    max_states_per_call=256)
+#: judged as rq1.botnet: f1 0.5, f2 (ε) 4
+BOTNET_THRESHOLDS = {"f1": 0.5, "f2": 4.0}
+#: K8's sweep: state counts (rq1.botnet's, its second chunk's, 1000) at the
+#: offspring's and the population's row counts
+BOTNET_SWEEP_STATES = (387, 131, 1000)
+BOTNET_SWEEP_ROWS = (100, 203)
+#: K8's tile edges (S, N): a partial last tile, fewer rows than a tile,
+#: tiles that span states of both classes; each under L2 and L-inf
+BOTNET_EDGES = ((3, 100), (1, 7), (5, 27))
+#: other stacks K8 is held on: (hidden widths, classes, norm, scaled)
+BOTNET_STACKS = (((64, 64, 32), 1, 2, True), ((64, 64, 32), 2, "inf", False), ((16, 64, 48, 5), 2, 2, True))
+#: state counts at which K5, K4b, K2, K4a and K3 are held at botnet's L = 756
+#: and (M, R) = (303, 203)
+BOTNET_STAGE_STATES = (387, 131)
+#: states of the card-vs-CPU stage check
+BOTNET_STEP_STATES = 4
+#: float32 operations of K8 per row besides the stack's 2 per weight: 8 per
+#: feature (decode, scaler, the min-max difference and its square and sum)
+#: and 20 for the softmax; per gathered flow or bytes feature 1 (its add),
+#: per ratio 3 (compare, divide, subtract), per ordering 1, per term 2 (the
+#: threshold and the sum)
+BOTNET_OPS_PER_FEATURE = 8
+BOTNET_OPS_PER_ROW = 20
+
+
+def botnet_problem():
+    """Phase 8's problem: ``synth_botnet(387, seed=42)`` with the seeded
+    64-64-32-2 surrogate and its scaler, and 1000 more states (seed 43) for
+    the kernel sweep."""
+    from moeva2_ijcai22_replication_tpu_torch.domains.synth import synth_botnet
+    from moeva2_ijcai22_replication_tpu_torch.problems import synthetic_botnet_problem
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cons, sur, scaler, x = synthetic_botnet_problem(tmp, BOTNET_STATES)
+    return cons, sur, scaler, x, synth_botnet(max(BOTNET_SWEEP_STATES), cons.schema, seed=43)
+
+
+def botnet_candidates(gen, moeva, run, n: int):
+    """(S, N, L) genes uniform in the states' bounds, with the terms' edge
+    cases (``problems.botnet_hard_candidates``)."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch.problems import botnet_hard_candidates
+
+    s, l = run.xl_gen.shape
+    u = torch.rand((s, n, l), generator=gen, device=run.xl_gen.device)
+    cand = run.xl_gen[:, None] + u * (run.xu_gen - run.xl_gen)[:, None]
+    return botnet_hard_candidates(moeva.codec, moeva.constraints.schema.names, cand)
+
+
+def check_botnet_kernel(device, moeva, x_sweep, gen):
+    """K8 against ``evaluate_plain`` on the card, bit for bit: the sweep, the
+    tile edges under both norms, and other stacks and heads."""
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import evaluate_plain, make_objective_tables
+    from moeva2_ijcai22_replication_tpu_torch.models.mlp import MLP
+
+    codec, cons, obj = moeva.codec, moeva.constraints, moeva._objective
+    linf = make_objective_tables(codec, moeva._model, obj.scaler, "inf", cons.tol, obj.cons)
+
+    def hold(run, cand, tables, what):
+        got = kernels.objective_botnet(cand, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm,
+                                       run.minimize_class, tables)
+        hold_equal(got, evaluate_plain(tables, codec, run, cand, cons), f"objective_botnet {what}")
+        return int((~got.isfinite()).any(-1).sum())
+
+    nonfinite = 0
+    for s in BOTNET_SWEEP_STATES:
+        run = moeva.prepare(x_sweep[:s], np.arange(s) % 2)
+        for n in BOTNET_SWEEP_ROWS:
+            nonfinite += hold(run, botnet_candidates(gen, moeva, run, n), obj, f"S={s} N={n}")
+    for s, n in BOTNET_EDGES:
+        run = moeva.prepare(x_sweep[:s], np.arange(s) % 2)
+        cand = botnet_candidates(gen, moeva, run, n)
+        for norm, tables in ((2, obj), ("inf", linf)):
+            nonfinite += hold(run, cand, tables, f"S={s} N={n} norm={norm}")
+    run = moeva.prepare(x_sweep[:40], np.arange(40) % 2)
+    cand = botnet_candidates(gen, moeva, run, 100)
+    for hidden, head, norm, scaled in BOTNET_STACKS:
+        model = MLP(codec.n_features, hidden, head).reset_parameters_seeded(7).to(device).eval().requires_grad_(False)
+        tables = make_objective_tables(codec, model, obj.scaler if scaled else None, norm, cons.tol, obj.cons)
+        nonfinite += hold(run, cand, tables, f"{hidden} head {head} norm={norm} scaled={scaled}")
+    log(f"[botnet] objective_botnet equals evaluate_plain on every entry: S in {BOTNET_SWEEP_STATES} x N in "
+        f"{BOTNET_SWEEP_ROWS}; (S, N) in {BOTNET_EDGES} under L2 and L-inf; stacks (hidden, classes, norm, "
+        f"scaled) {BOTNET_STACKS}; {nonfinite} rows with a non-finite objective (the terms' edge cases)")
+
+
+def check_botnet_stages(device, moeva, x_sweep, gen, rng):
+    """K5, K2, K4a, K3 and K4b at botnet's L = 756 and (M, R) = (303, 203),
+    bit for bit against their plain versions."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import extract_archive_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import draw_offspring, make_offspring_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import (
+        NormState, associate_plain, survive_fill_plain, survive_norm_plain,
+    )
+
+    p, n_off, a = moeva.pop_size, moeva.n_offsprings, moeva.archive_size
+    m, r, l = p + n_off, moeva.n_dirs, moeva.codec.gen_length
+    for s in BOTNET_STAGE_STATES:
+        run = moeva.prepare(x_sweep[:s], np.arange(s) % 2)
+        pop, xl, xu = sweep_population(gen, run, moeva.codec, s, p)
+        draws = draw_offspring(gen, s, p, n_off, l)
+        off = kernels.offspring(moeva.tables, pop, xl, xu, n_off, draws)
+        hold_equal(off, make_offspring_plain(moeva.tables, pop, xl, xu, n_off, draws), f"offspring S={s} L={l}")
+        f = torch.as_tensor(sweep_objectives(rng, s, m), device=device)
+        for stop in (p, m):
+            hold_equal(kernels.nd_peel(f, stop), nd_ranks_plain(f, stop), f"nd_peel S={s} M={m} n_stop={stop}")
+        ranks = nd_ranks_plain(f, p)
+        state = NormState.init(s, 3, device=device)
+        for step in range(2):
+            got = kernels.survive_norm(f, ranks, moeva.asp_points, state)
+            new_state, nadir, dirs = survive_norm_plain(f, ranks, moeva.asp_points, state)
+            for name, g, w in zip(("ideal", "worst", "extreme", "nadir", "dirs"), got, (*new_state, nadir, dirs)):
+                hold_equal(g, w, f"survive_norm {name} S={s} M={m} R={r} step {step}")
+            state = new_state
+        niche, dist = kernels.associate(f, dirs, state.ideal, nadir)
+        for name, g, w in zip(("niche", "dist"), (niche, dist), associate_plain(f, dirs, state.ideal, nadir)):
+            hold_equal(g, w, f"associate {name} S={s} M={m} R={r}")
+        gum_cut = torch.rand((s, r), generator=gen, device=device)
+        gum_mem = torch.rand((s, m), generator=gen, device=device)
+        gum_cut[:, ::3] = 0.25
+        extract = (pop, off, f[:, :p], f[:, p:])
+        mask = survive_fill_plain(gum_cut, gum_mem, ranks, niche, dist, p)
+        want = (mask, *extract_archive_plain(mask, *extract, pop[:, :a], f[:, :a]))
+        got = kernels.survive_fill(gum_cut, gum_mem, ranks, niche, dist, p, extract=extract,
+                                   archive=(pop[:, :a], f[:, :a], off, f[:, p:], a))
+        for name, g, w in zip(("mask", "pop_x", "pop_f", "arch_x", "arch_f"), got, want):
+            hold_equal(g, w, f"survive_fill {name} S={s} M={m} R={r} L={l}")
+    log(f"[botnet] offspring, nd_peel, survive_norm, associate and survive_fill equal their plain versions at "
+        f"L = {l}, (M, R) = ({m}, {r}), S in {BOTNET_STAGE_STATES}")
+
+
+def botnet_bound(moeva, s: int, n: int):
+    """K8's bytes and operations for S x N rows, counted from its source."""
+    obj, cons = moeva._objective, moeva._objective.cons
+    d, l = moeva.codec.n_features, moeva.codec.gen_length
+    widths = [obj.layers[0][0].shape[1], *(w.shape[0] for w, _ in obj.layers)]
+    macs = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
+    n_params = sum(w.numel() + b.numel() for w, b in obj.layers)
+    c = cons.counts
+    term_ops = sum(c[:4]) + 3 * c[4] + sum(c[6::2]) + 2 * moeva.constraints.n_constraints
+    # the first layer is read from its transposed copy, the rest from params
+    n_bytes = 4 * s * n * l + 16 * s * d + 8 * s + 4 * n_params + 16 * d + 4 * sum(c) + 12 * s * n
+    n_ops = s * n * (2 * macs + BOTNET_OPS_PER_FEATURE * d + term_ops + BOTNET_OPS_PER_ROW)
+    return n_bytes, n_ops
+
+
+def time_botnet_kernel(device, moeva, x, gen) -> dict:
+    """K8's record at the main path's shape (387 states x 100 offspring):
+    device, wrapper and plain ms, the bound and the no-FMA ceiling, and, as a
+    note for the next redesign, ``torch.matmul`` of the first layer alone in
+    fp32 with TF32 off."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import evaluate_plain
+
+    s, n = len(x), moeva.n_offsprings
+    run = moeva.prepare(x, np.ones(s, dtype=np.int64))
+    cand = botnet_candidates(gen, moeva, run, n)
+    obj = moeva._objective
+    kfn = lambda: kernels.objective_botnet(cand, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm,  # noqa: E731
+                                           run.minimize_class, obj)
+    n_bytes, n_ops = botnet_bound(moeva, s, n)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, 0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a = torch.rand((s * n, moeva.codec.n_features), generator=gen, device=device)
+    matmul_ms = graph_ms(lambda: torch.matmul(a, obj.first_t))
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    rec = {
+        "name": "objective_botnet",
+        "route": "cuda",
+        "source": "moeva2_ijcai22_replication_tpu_torch/kernels/csrc/objective_botnet.cu",
+        "replaces": "moeva2_ijcai22_replication_tpu/domains/botnet.py:111",
+        "launches": 0,
+        "max_abs_err": 0.0,
+        "ms": graph_ms(kfn),
+        "wrapper_ms": cuda_ms(kfn),
+        "plain_ms": cuda_ms(lambda: evaluate_plain(obj, moeva.codec, run, cand, moeva.constraints),
+                            launches=2, repeats=3),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        # without FMA contraction a multiply-add takes two instructions
+        "ceiling_ms": n_ops / (PEAK_F32_OPS_S / 2) * 1e3,
+        "library_ms": None,
+        "first_layer_matmul_ms": matmul_ms,
+    }
+    log(f"[botnet] objective_botnet at S={s} N={n}: device {rec['ms']:.4f} ms, through the wrapper "
+        f"{rec['wrapper_ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, bound {b_ms:.5f} ms ({b_by}), no-FMA "
+        f"ceiling {rec['ceiling_ms']:.5f} ms; torch.matmul of the first layer alone ({s * n} x "
+        f"{moeva.codec.n_features}) @ ({moeva.codec.n_features} x {obj.first_t.shape[1]}), fp32, TF32 off: "
+        f"{matmul_ms:.4f} ms (a note for the next redesign; the port does not call it)")
+    return rec
+
+
+def run_botnet(device, smi: str, resources: list):
+    """Phase 8: MoEvA2 on the botnet domain. Returns K8's record and the
+    launch counts of the botnet drive."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
+    from moeva2_ijcai22_replication_tpu_torch.attacks.objective import ObjectiveCalculator
+
+    entries = [k for k in resources if k["kernel"].startswith("objective_botnet_kernel")]
+    if not entries:
+        raise AssertionError("the build's ptxas report has no entry for objective_botnet_kernel")
+    for k in entries:
+        log(f"[botnet] K8 ptxas: {k['kernel']}: {k['registers']} registers, {k['stack']} bytes stack frame, "
+            f"{k['spill_stores']} + {k['spill_loads']} bytes spill stores + loads")
+    cons, sur, scaler, x, x_sweep = botnet_problem()
+    moeva = Moeva2(sur, cons, ml_scaler=scaler, device=device, **BOTNET_KNOBS)
+    log(f"[botnet] Moeva2 on {BOTNET_STATES} synthetic botnet states ({cons.schema.n_features} features, "
+        f"{cons.n_constraints} constraints): pop {moeva.pop_size}, {moeva.n_offsprings} offspring "
+        f"(M={moeva.pop_size + moeva.n_offsprings}, R={moeva.n_dirs}), archive {moeva.archive_size}, "
+        f"{moeva.n_gen} generations, chunks of {moeva.max_states_per_call}")
+    gen = torch.Generator(device=device).manual_seed(8)
+    check_botnet_kernel(device, moeva, x_sweep, gen)
+    check_botnet_stages(device, moeva, x_sweep, gen, np.random.default_rng(8))
+    rec = time_botnet_kernel(device, moeva, x, gen)
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = moeva.generate(x, minimize_class=1)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    t0 = time.perf_counter()
+    again = moeva.generate(x, minimize_class=1)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    log(f"[botnet] launches on the botnet path: {launches}")
+    log(f"[botnet] generate: cold {cold_s:.3f} s, steady {steady_s:.3f} s for {BOTNET_STATES} states x "
+        f"{moeva.n_gen} generations on {smi}")
+    check_launches(launches, expected_launches(moeva, BOTNET_STATES), "the botnet path")
+    p = moeva.pop_size + moeva.archive_size
+    if res.x_ml.shape != (BOTNET_STATES, p, cons.schema.n_features) or not np.isfinite(res.x_ml).all():
+        raise AssertionError(f"x_ml {res.x_ml.shape}, {int((~np.isfinite(res.x_ml)).sum())} non-finite")
+    if not np.array_equal(res.x_ml, again.x_ml):
+        raise AssertionError("two runs of generate differ")
+    frozen = ~cons.schema.mutable
+    if not np.array_equal(res.x_ml[:, :, frozen], np.broadcast_to(x[:, None, frozen].astype(np.float32),
+                                                                  res.x_ml[:, :, frozen].shape)):
+        raise AssertionError("immutable features moved")
+    moved = float((res.x_ml != x[:, None, :].astype(np.float32)).any(-1).mean())
+    log(f"[botnet] x_ml {res.x_ml.shape}, finite, immutables unchanged ({int(frozen.sum())} immutable), two runs "
+        f"equal, {moved:.3f} of candidates moved; {int((~np.isfinite(res.f)).any(-1).sum())} candidates with a "
+        "non-finite objective")
+
+    knobs = {**BOTNET_KNOBS, "n_gen": 3}
+    moeva_cpu = Moeva2(sur, cons, ml_scaler=scaler, device="cpu", **knobs)
+    moeva_ref = Moeva2(sur, cons, ml_scaler=scaler, device="cpu", dtype=torch.float64, **knobs)
+    check_step_against_cpu(moeva, moeva_cpu, moeva_ref, x, device, tag="[botnet]", n_states=BOTNET_STEP_STATES)
+
+    calc = ObjectiveCalculator(classifier=sur, constraints=cons, thresholds=dict(BOTNET_THRESHOLDS),
+                               min_max_scaler=scaler, ml_scaler=scaler, minimize_class=1, norm=2)
+    rates = calc.success_rate_3d(x, res.x_ml)
+    if rates.shape != (7,) or not np.isfinite(rates).all():
+        raise AssertionError(f"bad success rates {rates}")
+    log(f"[botnet] success rates o1..o7 (f1 {BOTNET_THRESHOLDS['f1']}, f2 {BOTNET_THRESHOLDS['f2']}; plumbing "
+        "check with an untrained surrogate): " + " ".join(f"{v:.4f}" for v in rates))
+    profile_generation(moeva, x, tag="[botnet profile]")
+    return rec, launches
+
+
 def main() -> int:
     import torch
 
@@ -1562,6 +1873,9 @@ def main() -> int:
     check_pgd_kernel(device, problem)
     records.append(time_pgd(device, problem))
     launches["pgd_lcld"] = run_pgd_path(device, problem, smi)["pgd_lcld"]
+    botnet_rec, botnet_launches = run_botnet(device, smi, resources)
+    records.append(botnet_rec)
+    launches["objective_botnet"] = botnet_launches["objective_botnet"]
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if not all(math.isfinite(rec[k]) for k in ("ms", "plain_ms", "bound_ms")):

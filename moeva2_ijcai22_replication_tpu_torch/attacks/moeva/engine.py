@@ -13,13 +13,13 @@ Every random number a generation consumes comes from one
 the JAX package's draws instead.
 
 On the card a generation is the draws, then six hand-written kernels: K5
-offspring, K1 objectives, K2 front peel, K4a normalisation, K3 niche
-association and K4b fill, extraction and archive. The one other device op
-of a step is the ``torch.cat`` of the population's and the offspring's
-objectives that K2, K4a and K3 read. On the CPU every stage runs its plain
-PyTorch version (:func:`evaluate_plain`, :func:`extract_archive_plain` and
-those of ``operators`` and ``survival``), which spells out its kernel's
-arithmetic one rounded operation at a time.
+offspring, the objectives (K1 on LCLD, K8 on botnet), K2 front peel, K4a
+normalisation, K3 niche association and K4b fill, extraction and archive.
+The one other device op of a step is the ``torch.cat`` of the population's
+and the offspring's objectives that K2, K4a and K3 read. On the CPU every
+stage runs its plain PyTorch version (:func:`evaluate_plain`,
+:func:`extract_archive_plain` and those of ``operators`` and ``survival``),
+which spells out its kernel's arithmetic one rounded operation at a time.
 """
 
 from __future__ import annotations
@@ -93,22 +93,28 @@ class RunInputs(NamedTuple):
 
 
 class ObjectiveTables(NamedTuple):
-    """What the objectives (K1) need besides a run's inputs, on the engine's
-    device and in its dtype."""
+    """What the objectives (K1, K8) need besides a run's inputs, on the
+    engine's device and in its dtype."""
 
     feat_gene: torch.Tensor  # (D,) int32 — gene that feeds feature d; -1 = immutable
     feat_onehot: torch.Tensor  # (D,) int32 — d's slot in its one-hot group; -1 = the gene itself
     layers: tuple  # ((weight (out, in), bias (out,)), ...) of the relu stack
     params: torch.Tensor  # the same weights flat, each layer's weight then its bias
+    first_t: torch.Tensor  # (in, out) the first layer's weight transposed, as K8 streams it
     scaler: tuple | None  # (scale (D,), min_ (D,)): x * scale + min_
     f2_scale: float  # √D under L2, 1 under L∞
     norm_inf: bool
     tol: float  # violations up to tol count as 0
+    #: the constraint set's tables for its objective kernel
+    #: (``ConstraintSet.kernel_tables``); None where the kernel hard-codes
+    #: its terms (LCLD's K1)
+    cons: Any = None
 
 
-def make_objective_tables(codec, model: MLP, scaler, norm, tol: float) -> ObjectiveTables:
-    """K1's tables for ``codec`` and ``model``, on the model's device and in
-    its dtype; ``scaler`` is ``(scale, min_)`` tensors or None."""
+def make_objective_tables(codec, model: MLP, scaler, norm, tol: float, cons=None) -> ObjectiveTables:
+    """The objective kernel's tables for ``codec`` and ``model``, on the
+    model's device and in its dtype; ``scaler`` is ``(scale, min_)``
+    tensors or None, ``cons`` the constraint set's kernel tables."""
     w0 = model.layers[0].weight
     feat_gene = np.full(codec.n_features, -1, dtype=np.int32)
     feat_onehot = np.full(codec.n_features, -1, dtype=np.int32)
@@ -124,11 +130,18 @@ def make_objective_tables(codec, model: MLP, scaler, norm, tol: float) -> Object
         feat_onehot=as_t(feat_onehot),
         layers=layers,
         params=torch.cat([t.reshape(-1) for pair in layers for t in pair]),
+        first_t=w0.t().contiguous(),
         scaler=scaler,
         f2_scale=float(np.sqrt(codec.n_features)) if is_l2(norm) else 1.0,
         norm_inf=is_inf(norm),
         tol=float(tol),
+        cons=cons,
     )
+
+
+#: a constraint set's ``objective_kernel`` -> the wrapper in ``kernels`` that
+#: computes the objectives with its terms on the card
+OBJECTIVE_KERNELS = {"lcld": "objective_lcld", "botnet": "objective_botnet"}
 
 
 def _scalar(like: torch.Tensor, v: float) -> torch.Tensor:
@@ -161,8 +174,9 @@ def mlp_proba_plain(layers, x: torch.Tensor) -> torch.Tensor:
 def evaluate_plain(obj: ObjectiveTables, codec, run: "RunInputs", x_gen, constraints) -> torch.Tensor:
     """(S, N, L) genetic candidates -> (S, N, 3) objectives
     ``[P(minimize_class), Lp distance / f2_scale, Σ violations]``, the
-    semantics of kernel K1. The violations are ``constraints.evaluate``,
-    which for LCLD runs K1's order of operations."""
+    semantics of kernels K1 and K8. The violations are
+    ``constraints.evaluate``, which runs K1's order of operations for LCLD
+    and K8's for botnet."""
     x_f = codec_lib.genetic_to_ml(codec, x_gen, run.x_init_ml[:, None, :])
     x_mm = codec_lib.minmax_normalize(x_f, run.xl_ml[:, None, :], run.xu_ml[:, None, :])
     x_in = x_f if obj.scaler is None else x_f * obj.scaler[0] + obj.scaler[1]
@@ -239,6 +253,13 @@ class Moeva2:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.device.type == "cuda" and self.constraints.objective_kernel not in OBJECTIVE_KERNELS:
+            raise NotImplementedError(
+                f"{type(self.constraints).__name__} has no objective kernel: "
+                f"only {' and '.join(OBJECTIVE_KERNELS)} run on the card"
+            )
+        if self.device.type == "cuda" and self.dtype != torch.float32:
+            raise NotImplementedError(f"the card's kernels take float32, not {self.dtype}")
         if self.init != "tile":
             raise NotImplementedError(f"init={self.init!r} is not ported (only 'tile')")
         codec = codec_lib.make_codec(self.constraints.schema)
@@ -251,13 +272,6 @@ class Moeva2:
             energy_ref_dirs(3, self.n_pop, seed=1), dtype=self.dtype, device=self.device
         )
         validate_norm(self.norm)
-        if self.device.type == "cuda" and self.constraints.objective_kernel is None:
-            raise NotImplementedError(
-                f"{type(self.constraints).__name__} has no objective kernel (K1): "
-                "only LCLD runs on the card"
-            )
-        if self.device.type == "cuda" and self.dtype != torch.float32:
-            raise NotImplementedError(f"the card's kernels take float32, not {self.dtype}")
         if not 0 <= self.archive_size <= self.pop_size:
             raise ValueError(
                 f"archive_size={self.archive_size} must be in [0, pop_size={self.pop_size}]"
@@ -270,7 +284,8 @@ class Moeva2:
         if self.ml_scaler is not None:
             scaler = self.ml_scaler.tensors(torch.empty((), dtype=self.dtype, device=self.device))
         self._objective = make_objective_tables(
-            self.codec, self._model, scaler, self.norm, self.constraints.tol
+            self.codec, self._model, scaler, self.norm, self.constraints.tol,
+            self.constraints.kernel_tables(self.device),
         )
 
     @property
@@ -278,14 +293,16 @@ class Moeva2:
         """Survival directions: the aspiration points plus the 3 axes."""
         return self.asp_points.shape[0] + 3
 
-    # -- objective (K1) and archive (K4b) ------------------------------------
+    # -- objectives (K1, K8) and archive (K4b) -------------------------------
     def _evaluate(self, run: RunInputs, x_gen: torch.Tensor) -> torch.Tensor:
-        """(S, N, L) genetic candidates -> (S, N, 3) objectives; kernel K1
-        on the card, :func:`evaluate_plain` on the CPU."""
+        """(S, N, L) genetic candidates -> (S, N, 3) objectives; the
+        constraint set's objective kernel on the card (K1 for LCLD, K8 for
+        botnet), :func:`evaluate_plain` on the CPU."""
         if x_gen.is_cuda:
-            from ...kernels import objective_lcld
+            from ... import kernels
 
-            return objective_lcld(
+            kernel = getattr(kernels, OBJECTIVE_KERNELS[self.constraints.objective_kernel])
+            return kernel(
                 x_gen, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm,
                 run.minimize_class, self._objective,
             )
@@ -362,7 +379,7 @@ class Moeva2:
         )
 
     def gen_step(self, run: RunInputs, carry: Carry, draws: GenerationDraws) -> Carry:
-        """One generation: offspring (K5), objectives (K1), merge, front
+        """One generation: offspring (K5), objectives (K1 or K8), merge, front
         peel (K2), normalisation (K4a), association (K3), then the fill,
         survivors first in stable order and the archive update (K4b). Each
         stage is a ``record_function`` range, which a profile of the step

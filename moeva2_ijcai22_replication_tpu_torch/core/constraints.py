@@ -29,8 +29,9 @@ class ConstraintSet:
 
     n_constraints: int = 0
     tol: float = DEFAULT_TOL
-    #: name of the hand-written objective kernel (K1) that serves this set on
-    #: the card; None = no kernel, so the engine runs it on the CPU only
+    #: name of the hand-written objective kernel (K1, K8) that serves this
+    #: set on the card; None = no kernel, so the engine runs it on the CPU
+    #: only
     objective_kernel: str | None = None
     #: name of the hand-written PGD kernel (K7) that serves this set on the
     #: card; None = no kernel
@@ -47,6 +48,12 @@ class ConstraintSet:
 
     def _raw(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def kernel_tables(self, device):
+        """What the objective kernel reads of this set besides the
+        objectives' own tables, on ``device``; None where the kernel
+        hard-codes the terms."""
+        return None
 
     def repair(self, x: torch.Tensor) -> torch.Tensor:
         """Project candidates toward constraint satisfaction; identity by

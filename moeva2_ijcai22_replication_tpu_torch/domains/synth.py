@@ -1,13 +1,15 @@
-"""Synthetic constraint-satisfying LCLD samples (numpy only).
+"""Synthetic constraint-satisfying LCLD and botnet samples (numpy only).
 
-A copy of the LCLD part of ``moeva2_ijcai22_replication_tpu/domains/synth.py``
-and of ``domains/ir/ops.py::months``: for the same seed it writes the same
-CSV bytes and draws the same rows, so the port builds its own problem.
+A copy of the LCLD and botnet parts of
+``moeva2_ijcai22_replication_tpu/domains/synth.py`` and of
+``domains/ir/ops.py::months``: for the same seed it writes the same files
+and draws the same rows, so the port builds its own problems.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 
 import numpy as np
 
@@ -141,4 +143,141 @@ def synth_lcld(
         x[np.arange(n)[:, None], np.asarray(group)[None, :]] = 0.0
         x[np.arange(n), np.asarray(group)[choice]] = 1.0
 
+    return x
+
+
+
+
+# -- botnet -------------------------------------------------------------------
+
+_BOTNET_PORTS = 18
+_BOTNET_KINDS = ("bytes_out", "pkts_out", "duration")
+_BOTNET_STATS = ("sum", "max", "min")
+
+
+def synth_botnet_schema(out_dir: str) -> dict:
+    """Write a self-contained botnet schema (``features.csv`` +
+    ``constraints.csv`` + ``feat_idx.pickle``) and return the paths.
+
+    The reference's CTU-13 schema is not redistributed; this one reproduces
+    its *structure* exactly — 756 features, the 18-port group tables
+    ``domains/botnet.py`` gathers through (9 stat keys + 3 protocol-sum keys
+    + 1 bytes_in key per direction), 360 constraint rows — from committed
+    code alone.
+    """
+    names: list = []
+    feat_idx: dict = {}
+
+    def alloc(key: str, count: int, prefix: str) -> None:
+        base = len(names)
+        names.extend(f"{prefix}_p{j}" for j in range(count))
+        feat_idx[key] = np.arange(base, base + count, dtype=np.int64)
+
+    for side in ("s", "d"):
+        for kind in _BOTNET_KINDS:
+            for stat in _BOTNET_STATS:
+                alloc(f"{kind}_{stat}_{side}_idx", _BOTNET_PORTS, f"{kind}_{stat}_{side}")
+        for proto in ("icmp", "udp", "tcp"):
+            alloc(f"{proto}_sum_{side}_idx", _BOTNET_PORTS, f"{proto}_sum_{side}")
+        alloc(f"bytes_in_sum_{side}_idx", _BOTNET_PORTS, f"bytes_in_sum_{side}")
+    while len(names) < 756:
+        names.append(f"ctx_{len(names)}")
+    assert len(names) == 756
+
+    os.makedirs(out_dir, exist_ok=True)
+    features = os.path.join(out_dir, "features.csv")
+    with open(features, "w") as f:
+        f.write("feature,type,mutable,min,max,augmentation\n")
+        for name in names:
+            hi = 1.0 if name.startswith("ctx_") else 1e7
+            f.write(f"{name},real,TRUE,0,{hi},FALSE\n")
+    constraints = os.path.join(out_dir, "constraints.csv")
+    with open(constraints, "w") as f:
+        f.write("constraint,min,max\n")
+        for i in range(360):
+            f.write(f"c{i},0,1\n")
+    idx_path = os.path.join(out_dir, "feat_idx.pickle")
+    with open(idx_path, "wb") as f:
+        pickle.dump(feat_idx, f)
+    return {"features": features, "constraints": constraints, "feat_idx": idx_path}
+
+
+def synth_botnet(n: int, schema: FeatureSchema, seed: int = 0) -> np.ndarray:
+    """Generate ``n`` botnet samples satisfying all 360 constraints exactly.
+
+    Construction: per (kind, side, port) three draws sorted into
+    min <= median <= max with sum = min+median+max (>= max, so every
+    ordering holds); bytes_out triples rescaled under 1500·pkts_out (MTU
+    ratio); protocol port sums constructed so Σflows == Σbytes_in +
+    Σbytes_out per direction EXACTLY.
+
+    Every constrained value is quantized to a multiple of 1/16 with
+    magnitude far below 2**18, so values, triple sums, and the 54-term
+    flow-identity sums are all exactly representable in float32 in any
+    summation order: the equalities hold bit-exactly under the engines'
+    f32 casts (the serving request path validates in f32), not just in
+    the f64 sampler.
+    """
+    rng = np.random.default_rng(seed)
+    d = schema.n_features
+    x = np.zeros((n, d))
+    x[:, :] = rng.uniform(0.0, 1.0, (n, d))  # filler/ctx features
+
+    cols = {name: i for i, name in enumerate(schema.names)}
+
+    def q16(v: np.ndarray) -> np.ndarray:
+        """Quantize to 1/16 steps (monotone, so orderings survive)."""
+        return np.floor(v * 16.0) / 16.0
+
+    def block(prefix: str) -> np.ndarray:
+        return np.array(
+            [cols[f"{prefix}_p{j}"] for j in range(_BOTNET_PORTS)], dtype=np.int64
+        )
+
+    for side in ("s", "d"):
+        triples = {}
+        for kind in _BOTNET_KINDS:
+            scale = {"bytes_out": 3000.0, "pkts_out": 40.0, "duration": 60.0}[kind]
+            draws = np.sort(
+                rng.uniform(0.0, scale, (n, _BOTNET_PORTS, 3)), axis=-1
+            )
+            # sparsify: some ports saw no traffic at all
+            draws *= (rng.random((n, _BOTNET_PORTS, 1)) < 0.7)
+            triples[kind] = q16(draws)
+        # MTU: bytes_out_sum <= 1500 * pkts_out_sum, preserved under the
+        # triple's internal ordering by scaling the whole triple; the
+        # re-quantize after scaling only shrinks bytes, keeping the bound
+        b_sum = triples["bytes_out"].sum(-1)
+        p_sum = triples["pkts_out"].sum(-1)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            factor = np.where(
+                (p_sum > 0) & (b_sum > 1500.0 * p_sum),
+                np.where(b_sum > 0, 1500.0 * p_sum / np.where(b_sum > 0, b_sum, 1.0), 1.0),
+                1.0,
+            )
+        triples["bytes_out"] = q16(triples["bytes_out"] * factor[..., None])
+        # pkts==0 ports pass via the sentinel, but only if bytes==0 too is
+        # not required — the guard passes any bytes; keep them anyway.
+        for kind in _BOTNET_KINDS:
+            mn, md, mx = (triples[kind][..., k] for k in range(3))
+            x[:, block(f"{kind}_min_{side}")] = mn
+            x[:, block(f"{kind}_max_{side}")] = mx
+            x[:, block(f"{kind}_sum_{side}")] = mn + md + mx
+        # flow-volume identity: Σ proto sums == Σ bytes_in + Σ bytes_out.
+        # target is a multiple of 1/16; quantizing the scaled flows only
+        # undershoots, and the residual (also a multiple of 1/16) lands on
+        # the first flow — the identity is exact, not approximately scaled
+        x[:, block(f"bytes_in_sum_{side}")] = q16(
+            rng.uniform(0.0, 2000.0, (n, _BOTNET_PORTS))
+        )
+        target = (
+            x[:, block(f"bytes_in_sum_{side}")].sum(-1)
+            + x[:, block(f"bytes_out_sum_{side}")].sum(-1)
+        )
+        flows = rng.uniform(0.1, 100.0, (n, 3 * _BOTNET_PORTS))
+        flows = q16(flows * (target / flows.sum(-1))[:, None])
+        flows[:, 0] += target - flows.sum(-1)
+        x[:, block(f"icmp_sum_{side}")] = flows[:, :_BOTNET_PORTS]
+        x[:, block(f"udp_sum_{side}")] = flows[:, _BOTNET_PORTS : 2 * _BOTNET_PORTS]
+        x[:, block(f"tcp_sum_{side}")] = flows[:, 2 * _BOTNET_PORTS :]
     return x

@@ -4,8 +4,9 @@ In the order a generation launches them:
 
 - ``offspring`` (K5, ``csrc/offspring.cu``): selection, crossover and
   mutation; plain version ``attacks.moeva.operators.make_offspring_plain``.
-- ``objective_lcld`` (K1, ``csrc/objective_lcld.cu``): the objectives on the
-  LCLD domain; plain version ``attacks.moeva.engine.evaluate_plain``.
+- ``objective_lcld`` (K1, ``csrc/objective_lcld.cu``) or ``objective_botnet``
+  (K8, ``csrc/objective_botnet.cu``): the objectives on the LCLD or the
+  botnet domain; plain version ``attacks.moeva.engine.evaluate_plain``.
 - ``nd_peel`` (K2, ``csrc/nd_peel.cu``): non-dominated front peeling; its
   plain version is ``attacks.moeva.nds.nd_ranks_plain``.
 - ``survive_norm`` (K4a, ``csrc/survive_norm.cu``): ideal, worst, extreme
@@ -43,7 +44,7 @@ _LAUNCHES = {
     name: 0
     for name in (
         "offspring", "objective_lcld", "nd_peel", "survive_norm", "associate", "survive_fill",
-        "pgd_lcld",
+        "pgd_lcld", "objective_botnet",
     )
 }
 
@@ -206,6 +207,76 @@ def objective_lcld(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, ob
         )
     _raise_on_error(lib, err, "objective_lcld")
     _LAUNCHES["objective_lcld"] += 1
+    return out
+
+
+#: the widest layer K8 takes (``kBotnetMaxWidth`` in ``csrc/kernels.h``)
+BOTNET_MAX_WIDTH = 64
+
+
+def objective_botnet(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj):
+    """Kernel K8: (S, N, 3) float32 objectives ``[f1, f2, Σ violations]``
+    of the botnet candidates ``x_gen`` (S, N, L), the arguments of
+    :func:`objective_lcld`; ``obj.cons`` holds the 360 terms' gather lists
+    (``domains.botnet.BotnetTables``). It takes a stack of 2 to K1's most
+    layers of at most ``BOTNET_MAX_WIDTH`` units, a first hidden width that
+    is a multiple of 4, and 1 or 2 classes. The kernel reads any class but 0
+    as class 1, as K1 does."""
+    from .build import library
+
+    if x_gen.dim() != 3 or x_init_ml.dim() != 2:
+        raise ValueError("x_gen and x_init_ml must be (S, N, L) and (S, D)")
+    s, n, l = x_gen.shape
+    d = x_init_ml.shape[1]
+    widths = [obj.layers[0][0].shape[1], *(w.shape[0] for w, _ in obj.layers)]
+    if (widths[0] != d or len(widths) < 3 or max(widths[1:]) > BOTNET_MAX_WIDTH or widths[1] % 4
+            or not 1 <= widths[-1] <= 2):
+        raise ValueError(
+            f"objective_botnet takes a {d}-input stack of at least 2 layers of at most {BOTNET_MAX_WIDTH} "
+            f"units, a first width that is a multiple of 4 and 1 or 2 classes, got widths {widths}"
+        )
+    cons = obj.cons
+    counts = [int(c) for c in getattr(cons, "counts", ())]
+    if (len(counts) != 12 or min(counts[:4]) < 1 or min(counts) < 0
+            or any(counts[k] != counts[k + 1] for k in range(4, 12, 2))):
+        raise ValueError(
+            "objective_botnet takes the botnet gather tables (BotnetTables) in obj.cons: non-empty flow and "
+            f"bytes lists and paired ratio and ordering lists, got counts {counts}"
+        )
+    n_params = sum(w.numel() + b.numel() for w, b in obj.layers)
+    _check(x_gen, "x_gen", (s, n, l))
+    for name, t in (("x_init_ml", x_init_ml), ("xl_ml", xl_ml), ("xu_ml", xu_ml), ("x_init_mm", x_init_mm)):
+        _check(t, name, (s, d))
+    _check(minimize_class, "minimize_class", (s,), torch.int64)
+    _check(obj.feat_gene, "feat_gene", (d,), torch.int32)
+    _check(obj.feat_onehot, "feat_onehot", (d,), torch.int32)
+    _check(obj.params, "params", (n_params,))
+    _check(obj.first_t, "first_t", (d, widths[1]))
+    _check(cons.index, "gather lists", (sum(counts),), torch.int32)
+    scale, offset = obj.scaler if obj.scaler is not None else (None, None)
+    if scale is not None:
+        _check(scale, "scale", (d,))
+        _check(offset, "offset", (d,))
+    lib = library()
+    if len(widths) - 1 > lib.moeva_objective_max_layers():
+        raise ValueError(f"objective_botnet takes at most {lib.moeva_objective_max_layers()} layers, got {widths}")
+    if d > lib.moeva_objective_botnet_max_features():
+        raise ValueError(f"objective_botnet takes at most {lib.moeva_objective_botnet_max_features()} features, got {d}")
+    dev = _one_device(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj.feat_gene,
+                      obj.feat_onehot, obj.params, obj.first_t, cons.index, scale, offset)
+    ins = [None if t is None else t.contiguous() for t in (
+        x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj.feat_gene,
+        obj.feat_onehot, obj.params, obj.first_t, scale, offset, cons.index)]
+    out = torch.empty((s, n, 3), dtype=torch.float32, device=dev)
+    c_counts = (ctypes.c_int * len(counts))(*counts)
+    c_widths = (ctypes.c_int * len(widths))(*widths)
+    with torch.cuda.device(dev):
+        err = lib.moeva_objective_botnet_f32(
+            *map(_ptr, ins), c_counts, c_widths, len(widths) - 1, obj.f2_scale, int(obj.norm_inf), obj.tol,
+            out.data_ptr(), s, n, l, d, _stream(dev),
+        )
+    _raise_on_error(lib, err, "objective_botnet")
+    _LAUNCHES["objective_botnet"] += 1
     return out
 
 

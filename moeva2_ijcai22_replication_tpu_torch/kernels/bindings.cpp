@@ -6,6 +6,8 @@
 // other value. The Python wrappers check device, dtype, shape and
 // contiguity before calling.
 
+#include <climits>
+
 #include <cuda_runtime.h>
 
 #include "csrc/kernels.h"
@@ -173,6 +175,50 @@ int moeva_pgd_lcld_f32(const void* x_init, const void* x_start, const void* y,
   return static_cast<int>(
       launch_pgd_lcld(args, static_cast<cudaStream_t>(stream)));
 }
+
+int moeva_objective_botnet_f32(const void* x_gen, const void* x_init,
+                               const void* xl, const void* xu,
+                               const void* x_init_mm, const void* min_class,
+                               const void* feat_gene, const void* feat_onehot,
+                               const void* params, const void* first_t,
+                               const void* scale, const void* offset,
+                               const void* cons, const int* counts,
+                               const int* widths, int n_layers, float f2_scale,
+                               int norm_inf, float tol, void* out, int n_states,
+                               int n, int l, int d, void* stream) {
+  if (n_layers < 1 || n_layers > kObjectiveMaxLayers ||
+      static_cast<long long>(n_states) * n > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BotnetObjectiveArgs args{};
+  args.x_gen = static_cast<const float*>(x_gen);
+  args.x_init = static_cast<const float*>(x_init);
+  args.xl = static_cast<const float*>(xl);
+  args.xu = static_cast<const float*>(xu);
+  args.x_init_mm = static_cast<const float*>(x_init_mm);
+  args.min_class = static_cast<const int64_t*>(min_class);
+  args.feat_gene = static_cast<const int32_t*>(feat_gene);
+  args.feat_onehot = static_cast<const int32_t*>(feat_onehot);
+  args.params = static_cast<const float*>(params);
+  args.first_t = static_cast<const float*>(first_t);
+  args.scale = static_cast<const float*>(scale);
+  args.offset = static_cast<const float*>(offset);
+  args.cons = static_cast<const int32_t*>(cons);
+  for (int k = 0; k < kBotnetSegments; ++k) args.counts[k] = counts[k];
+  args.f2_scale = f2_scale;
+  args.norm_inf = norm_inf;
+  args.tol = tol;
+  args.out = static_cast<float*>(out);
+  args.n_rows = n_states * n;
+  args.n = n;
+  args.l = l;
+  args.d = d;
+  args.n_layers = n_layers;
+  for (int k = 0; k <= n_layers; ++k) args.widths[k] = widths[k];
+  return static_cast<int>(
+      launch_objective_botnet(args, static_cast<cudaStream_t>(stream)));
+}
+
+int moeva_objective_botnet_max_features() { return objective_botnet_max_features(); }
 
 int moeva_nd_peel_max_candidates() { return kNdPeelMaxCandidates; }
 

@@ -28,6 +28,7 @@ BUILD_DIR = PACKAGE_DIR.parent.parent / ".torch_ext_build"
 SOURCES = (
     "csrc/offspring.cu",
     "csrc/objective_lcld.cu",
+    "csrc/objective_botnet.cu",
     "csrc/nd_peel.cu",
     "csrc/survive_norm.cu",
     "csrc/associate.cu",
@@ -147,10 +148,14 @@ def library() -> ctypes.CDLL:
         + [f32] * 4 + [i32, ptr]
     )
     lib.moeva_pgd_lcld_f32.restype = i32
+    lib.moeva_objective_botnet_f32.argtypes = (
+        [ptr] * 13 + [ctypes.POINTER(i32), ctypes.POINTER(i32), i32, f32, i32, f32, ptr] + [i32] * 4 + [ptr]
+    )
+    lib.moeva_objective_botnet_f32.restype = i32
     for name in (
         "moeva_nd_peel_max_candidates", "moeva_associate_max_directions", "moeva_survive_max_candidates",
         "moeva_objective_max_params", "moeva_objective_max_width",
-        "moeva_objective_max_layers", "moeva_pgd_max_ohe_slots",
+        "moeva_objective_max_layers", "moeva_pgd_max_ohe_slots", "moeva_objective_botnet_max_features",
     ):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32

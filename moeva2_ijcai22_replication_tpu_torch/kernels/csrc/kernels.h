@@ -214,3 +214,43 @@ struct PgdArgs {
 };
 
 cudaError_t launch_pgd_lcld(const PgdArgs& args, cudaStream_t stream);
+
+// objective_botnet: the widest layer it takes (a hidden layer's outputs fill
+// one activation buffer of the tile), and the segments of its gather lists.
+constexpr int kBotnetMaxWidth = 64;
+constexpr int kBotnetSegments = 12;
+
+// objective_botnet's arguments. The gather lists `cons` hold, in order, the
+// segments of `counts`: flows and bytes of direction s, of direction d (the
+// two flow equalities), the ratio's bytes and pkts, then the lower and the
+// upper features of each of the three orderings.
+struct BotnetObjectiveArgs {
+  const float* x_gen;       // (S * N, L)
+  const float* x_init;      // (S, D)
+  const float* xl;          // (S, D)
+  const float* xu;          // (S, D)
+  const float* x_init_mm;   // (S, D)
+  const int64_t* min_class; // (S,)
+  const int32_t* feat_gene;   // (D,)
+  const int32_t* feat_onehot; // (D,)
+  const float* params;      // each layer's weight (out, in), then its bias
+  const float* first_t;     // (D, widths[1]) the first layer's weight transposed
+  const float* scale;       // (D,) or null
+  const float* offset;      // (D,) or null
+  const int32_t* cons;      // the gather lists
+  int counts[kBotnetSegments];
+  float f2_scale;
+  int norm_inf;
+  float tol;
+  float* out;               // (S * N, 3)
+  int n_rows, n, l, d;
+  int n_layers;
+  int widths[kObjectiveMaxLayers + 1];
+  int xf_floats;            // set by the launcher
+};
+
+cudaError_t launch_objective_botnet(BotnetObjectiveArgs args, cudaStream_t stream);
+
+// The most features objective_botnet takes: a tile's features and the first
+// layer's double buffers fit one block's shared memory.
+int objective_botnet_max_features();

@@ -50,6 +50,12 @@ def lcld_mlp(n_features: int = 47, seed: int | None = None) -> MLP:
     return model if seed is None else model.reset_parameters_seeded(seed)
 
 
+def botnet_mlp(n_features: int = 756, seed: int | None = None) -> MLP:
+    """The botnet surrogate topology (64-64-32-2); seeded weights if ``seed``."""
+    model = MLP(n_features, hidden=(64, 64, 32))
+    return model if seed is None else model.reset_parameters_seeded(seed)
+
+
 def mlp_forward_plain(layers, x: torch.Tensor) -> list:
     """Activations ``[x, h1, ..., logits]`` of the relu stack ``layers``
     (``((weight (out, in), bias (out,)), ...)``) in kernel K1's order: in

@@ -33,7 +33,9 @@ from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import PgdTables, p
 from moeva2_ijcai22_replication_tpu_torch.kernels import build
 from moeva2_ijcai22_replication_tpu_torch.models.io import Surrogate
 from moeva2_ijcai22_replication_tpu_torch.models.mlp import MLP
-from moeva2_ijcai22_replication_tpu_torch.problems import synthetic_lcld_problem
+from moeva2_ijcai22_replication_tpu_torch.problems import (
+    botnet_hard_candidates, synthetic_botnet_problem, synthetic_lcld_problem,
+)
 
 # tier-1 runs several test processes side by side: one intra-op thread
 # each keeps these small-tensor tests from oversubscribing the cores
@@ -479,7 +481,7 @@ def test_launch_counts_reset():
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {
         "offspring": 0, "objective_lcld": 0, "nd_peel": 0,
-        "survive_norm": 0, "associate": 0, "survive_fill": 0, "pgd_lcld": 0,
+        "survive_norm": 0, "associate": 0, "survive_fill": 0, "pgd_lcld": 0, "objective_botnet": 0,
     }
 
 
@@ -619,4 +621,104 @@ def test_pgd_wrapper_refuses_cpu_tensors(tmp_path):
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.pgd_lcld(atk.tables, atk.schedule(0.3, 0.1, 2), xi, torch.zeros(4, dtype=torch.int64), xi, 0.3,
                          (0.0, 1.0), True, False, False)
+    assert kernels.launch_counts() == before
+
+
+# -- K8 objective_botnet ---------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def botnet(tmp_path_factory):
+    """387 synthetic botnet states (rq1.botnet's count), the seeded
+    64-64-32-2 surrogate and its scaler."""
+    return synthetic_botnet_problem(str(tmp_path_factory.mktemp("botnet")), 387)
+
+
+def _botnet_case(device, botnet, s, n, seed, **knobs):
+    """An engine on ``device`` at config/moeva.yaml's population, its run
+    inputs for ``s`` states and (S, N, L) candidates uniform in the genes'
+    bounds with the terms' edge cases."""
+    cons, sur, scaler, x = botnet
+    eng = Moeva2(sur, cons, ml_scaler=scaler, device=device, n_pop=200, n_offsprings=100, **knobs)
+    run = eng.prepare(x[:s], np.arange(s) % 2)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand((s, n, eng.codec.gen_length), generator=gen, device=device)
+    cand = run.xl_gen[:, None] + u * (run.xu_gen - run.xl_gen)[:, None]
+    return eng, run, botnet_hard_candidates(eng.codec, cons.schema.names, cand)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", [2, "inf"])
+@pytest.mark.parametrize("s,n", [(387, 100), (131, 203), (3, 100), (1, 7), (5, 27)])
+def test_objective_botnet_equals_plain(card, botnet, s, n, norm):
+    # the offspring's and the population's row counts; partial tiles, a
+    # tile of fewer rows than one, and tiles that span states of both classes
+    eng, run, cand = _botnet_case(card, botnet, s, n, seed=s + n, norm=norm)
+    before = kernels.launch_counts()
+    got = kernels.objective_botnet(cand, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class,
+                                   eng._objective)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["objective_botnet"] == before["objective_botnet"] + 1
+    assert after["objective_lcld"] == before["objective_lcld"]
+    want = evaluate_plain(eng._objective, eng.codec, run, cand, eng.constraints)
+    assert not bool(torch.isfinite(want).all())  # the edge cases show
+    assert _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,head,norm,scaled", [((64, 64, 32), 1, 2, True), ((64, 64, 32), 2, "inf", False),
+                                                     ((8,), 1, "inf", False), ((16, 64, 48, 5), 2, 2, True)])
+def test_objective_botnet_stacks_heads_norms_scaler(card, botnet, hidden, head, norm, scaled):
+    eng, run, cand = _botnet_case(card, botnet, 40, 100, seed=head)
+    model = MLP(756, hidden, head).reset_parameters_seeded(head).to(card).eval().requires_grad_(False)
+    obj = make_objective_tables(eng.codec, model, eng._objective.scaler if scaled else None, norm,
+                                eng.constraints.tol, eng._objective.cons)
+    got = kernels.objective_botnet(cand, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class, obj)
+    assert _same(got, evaluate_plain(obj, eng.codec, run, cand, eng.constraints))
+
+
+@pytest.mark.cuda
+def test_objective_botnet_refuses_what_it_does_not_take(card, botnet):
+    eng, run, cand = _botnet_case(card, botnet, 4, 10, seed=1)
+    args = (run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class)
+    for hidden, head in (((128, 32), 2), ((62, 32), 2), ((64, 32), 3)):
+        model = MLP(756, hidden, head).to(card)
+        obj = make_objective_tables(eng.codec, model, None, 2, 1e-3, eng._objective.cons)
+        with pytest.raises(ValueError, match="objective_botnet takes a 756-input stack"):
+            kernels.objective_botnet(cand, *args, obj)
+    with pytest.raises(ValueError, match="botnet gather tables"):
+        kernels.objective_botnet(cand, *args, eng._objective._replace(cons=None))
+    with pytest.raises(ValueError, match="xl_ml must have shape"):
+        kernels.objective_botnet(cand, args[0], args[1][:, :700], *args[2:], eng._objective)
+
+
+@pytest.mark.cuda
+def test_moeva_runs_botnet_on_k8(card, botnet):
+    cons, sur, scaler, x = botnet
+    eng = Moeva2(sur, cons, ml_scaler=scaler, device=card, n_gen=3, n_pop=12, n_offsprings=10, archive_size=4,
+                 max_states_per_call=5)
+    kernels.reset_launch_counts()
+    res = eng.generate(x[:8], minimize_class=1)
+    counts = kernels.launch_counts()
+    # two chunks of 5 and 3 states: the init round and 2 steps each
+    assert counts["objective_botnet"] == 6 and counts["objective_lcld"] == 0
+    assert res.x_ml.shape == (8, eng.pop_size + 4, 756) and np.isfinite(res.x_ml).all()
+
+
+def test_objective_botnet_refuses_cpu_tensors_and_wrong_widths(tmp_path):
+    cons, sur, scaler, x = synthetic_botnet_problem(str(tmp_path), 2)
+    eng = Moeva2(sur, cons, ml_scaler=scaler, device="cpu", n_pop=10, n_offsprings=6)
+    run = eng.prepare(x, np.ones(2, dtype=np.int64))
+    cand = run.xl_gen[:, None].expand(2, 6, -1).contiguous()
+    args = (run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.objective_botnet(cand, *args, eng._objective)
+    for hidden, head in (((128, 32), 2), ((62, 32), 2), ((64, 32), 3), ((), 2)):
+        obj = make_objective_tables(eng.codec, MLP(756, hidden, head), None, 2, 1e-3, eng._objective.cons)
+        with pytest.raises(ValueError, match="objective_botnet takes a 756-input stack"):
+            kernels.objective_botnet(cand, *args, obj)
+    with pytest.raises(ValueError, match="botnet gather tables"):
+        kernels.objective_botnet(cand, *args, eng._objective._replace(cons=None))
     assert kernels.launch_counts() == before
