@@ -8,7 +8,7 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero:
 
 1. versions: torch, CUDA, and the card's name and power limit (nvidia-smi);
-2. build the port's eight CUDA kernels from the sources in the checkout and
+2. build the port's nine CUDA kernels from the sources in the checkout and
    print each kernel's ptxas registers, shared memory, stack frame and
    spill (none of the redesigned ones, ``REDESIGNED``, may spill);
 3. hold each kernel against its plain PyTorch version on the card over a
@@ -76,7 +76,20 @@ Phases, in order; any failure exits non-zero:
    steady, with its launch counts set to 0 just before and read just after;
    shape, finiteness, immutables and two equal runs; the stages on the card
    against the CPU at 4 states; o1..o7 at f1 0.5 and f2 4; and the profile of
-   phase 6 at 387 states.
+   phase 6 at 387 states;
+9. constrained PGD on the botnet domain (the ``[pgd-botnet]`` lines): K7b's
+   ptxas line; K7b ``pgd_botnet`` against ``pgd_run_plain`` on the card, bit
+   for bit (x_adv, the class at x_adv, the history), over
+   ``PGD_BOTNET_ROWS`` (partial last blocks among them) x ``PGD_ITERS`` and
+   phase 7's ``PGD_CONFIGS``, with the terms' edge cases in the starts
+   (``problems.botnet_edge_starts``); K7b timed at 387 states x 1000
+   iterations (and the other rq1 losses at 100) beside the plain version at
+   10 iterations, its bound, its latency floor and ``torch.matmul`` of its
+   first layer alone; ``ConstrainedPGD.generate`` as ``experiments/pgd.py``
+   drives it at rq1.botnet's ε 4 and rq0.botnet's ε 1 (cold and steady,
+   launch counts set to 0 just before and read just after: one launch of
+   K7b each), the ε-ball, immutables, finiteness, two equal runs and
+   o1..o7; the card against the CPU at 32 states x 20 iterations.
 
 The last three lines are the per-kernel JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Nothing is printed as a
@@ -1290,25 +1303,6 @@ PGD_OPS_PER_ROW = 250
 PGD_F64_PER_ROW = 7
 
 
-def scaled_preimage(target: float, k: int, scale32, min32) -> np.float32:
-    """A float32 scaled value of feature ``k`` whose float32 unscaling
-    ``(x - min_) / scale`` is exactly ``float32(target)``."""
-    want = np.float32(target)
-    x0 = np.float32(want * scale32[k] + min32[k])
-    up = down = x0
-    for c in [x0] + [None] * 512:
-        if c is None:
-            up = np.nextafter(up, np.float32(np.inf), dtype=np.float32)
-            down = np.nextafter(down, np.float32(-np.inf), dtype=np.float32)
-            cands = (up, down)
-        else:
-            cands = (c,)
-        for v in cands:
-            if np.float32(np.float32(v - min32[k]) / scale32[k]) == want:
-                return v
-    raise AssertionError(f"no float32 scaled value of feature {k} unscales to {target}")
-
-
 def pgd_edge_starts(rng, xs: np.ndarray, scaler) -> np.ndarray:
     """Starts (N, 47) float32: the rows ``xs`` perturbed and clipped, the
     first 14 at the backward's edges (unscaled values exact in float32): 0
@@ -1317,6 +1311,8 @@ def pgd_edge_starts(rng, xs: np.ndarray, scaler) -> np.ndarray:
     x16 - x11 equal to 1e-3), ±0 inside an abs (term 60 and 36), and
     features at the clip bounds (a row rounded to {0, 1}, a row of 0s, a
     row of 1s)."""
+    from moeva2_ijcai22_replication_tpu_torch.problems import scaled_preimage
+
     sc, mn = scaler.scale.astype(np.float32), scaler.min_.astype(np.float32)
     st = np.clip(xs + rng.normal(scale=0.03, size=xs.shape), 0.0, 1.0).astype(np.float32)
     for row, feats in enumerate(([6], [0, 6], [14], [10, 14], [22], [11, 16, 22], [11], [14], [11])):
@@ -1350,37 +1346,39 @@ def surrogate_labels(sur, xs: np.ndarray) -> np.ndarray:
         return sur.predict_proba(torch.as_tensor(xs, dtype=torch.float32)).argmax(-1).numpy()
 
 
-def check_pgd_kernel(device, problem):
-    """K7 against ``pgd_run_plain`` on the card over the sweep, bit for bit."""
+def pgd_sweep(device, kernel: str, cons, sur, scaler, xs: np.ndarray, starts: np.ndarray, rows: tuple):
+    """The PGD kernel ``kernel`` (``pgd_lcld`` or ``pgd_botnet``) against
+    ``pgd_run_plain`` on the card, bit for bit (x_adv, the class at x_adv,
+    the history), over ``PGD_CONFIGS`` x ``rows`` x ``PGD_ITERS``, the last
+    budget at one row count per configuration; labels alternate 0 and 1.
+    Returns (runs, NaN rows of x_adv, NaN history entries) and the labels."""
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
     from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD
-    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import grad_and_terms_plain, pgd_run_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import pgd_run_plain
     from moeva2_ijcai22_replication_tpu_torch.core.norms import is_inf
 
-    cons, sur, scaler, x = problem
-    rng = np.random.default_rng(5)
-    xs = scaler.transform(x).astype(np.float32)
-    xi = torch.as_tensor(xs, device=device)
-    st = torch.as_tensor(pgd_edge_starts(rng, xs, scaler), device=device)
+    launch = getattr(kernels, kernel)
+    xi = torch.as_tensor(xs, dtype=torch.float32, device=device)
+    st = torch.as_tensor(starts, device=device)
     y = torch.as_tensor(np.arange(len(xs)) % 2, device=device)
     runs, nan_rows, nan_hist = 0, 0, 0
     for ci, knobs in enumerate(PGD_CONFIGS):
         eps = 0.2 if knobs["norm"] == 2 else 0.1
         atk = ConstrainedPGD(sur, cons, scaler, eps=eps, eps_step=0.1, device=device, **knobs)
         repair, linf = "repair" in atk.loss_evaluation, is_inf(atk.norm)
-        for n in PGD_ROWS:
+        for n in rows:
             for t in PGD_ITERS:
-                if t == PGD_ITERS[-1] and n != PGD_ROWS[ci % len(PGD_ROWS)]:
+                if t == PGD_ITERS[-1] and n != rows[ci % len(rows)]:
                     continue
                 sched = atk.schedule(eps, 0.1, t)
                 args = (xi[:n], y[:n], st[:n])
-                got = kernels.pgd_lcld(atk.tables, sched, *args, eps, atk.clip, linf, repair, atk.targeted,
-                                       atk.history_layout())
+                got = launch(atk.tables, sched, *args, eps, atk.clip, linf, repair, atk.targeted,
+                             atk.history_layout())
                 want = pgd_run_plain(atk.tables, cons, sched, *args, eps, atk.clip, atk.norm, repair,
                                      atk.targeted, atk.history_layout())
-                what = f"pgd_lcld {atk.loss_evaluation} {atk.constraints_optim} norm={atk.norm} N={n} T={t}"
+                what = f"{kernel} {atk.loss_evaluation} {atk.constraints_optim} norm={atk.norm} N={n} T={t}"
                 for name, g, w in zip(("x_adv", "pred", "hist"), got, want):
                     if (g is None) != (w is None):
                         raise AssertionError(f"{what}: {name} is {g} on the card, {w} in the plain version")
@@ -1389,13 +1387,35 @@ def check_pgd_kernel(device, problem):
                 runs += 1
                 nan_rows += int(torch.isnan(got[0]).any(1).sum())
                 nan_hist += 0 if got[2] is None else int(torch.isnan(got[2]).sum())
-    # the edge starts reach the gradient: NaN entries the first iteration zeroes
+    return (runs, nan_rows, nan_hist), y
+
+
+def edge_gradient(device, cons, sur, scaler, starts, y):
+    """(NaN, inf) entries of the first iteration's gradient at the edge
+    starts (``constraints+flip``): the edges must reach it."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import grad_and_terms_plain
+
     atk = ConstrainedPGD(sur, cons, scaler, loss_evaluation="constraints+flip", device=device)
     sched = atk.schedule(0.2, 0.1, 1)
-    grad = grad_and_terms_plain(atk.tables, cons, st[:14], y[:14], sched.w_class[0], sched.w_cons[0], -1, False)[0]
-    nan_grad = int(torch.isnan(grad).sum())
+    st = torch.as_tensor(starts, device=device)
+    grad = grad_and_terms_plain(atk.tables, cons, st, y[:len(st)], sched.w_class[0], sched.w_cons[0], -1, False)[0]
+    nan_grad, inf_grad = int(torch.isnan(grad).sum()), int(torch.isinf(grad).sum())
     if not nan_grad:
         raise AssertionError("the edge starts give no NaN gradient entry")
+    return nan_grad, inf_grad
+
+
+def check_pgd_kernel(device, problem):
+    """K7 against ``pgd_run_plain`` on the card over the sweep, bit for bit."""
+    cons, sur, scaler, x = problem
+    rng = np.random.default_rng(5)
+    xs = scaler.transform(x).astype(np.float32)
+    starts = pgd_edge_starts(rng, xs, scaler)
+    (runs, nan_rows, nan_hist), y = pgd_sweep(device, "pgd_lcld", cons, sur, scaler, xs, starts, PGD_ROWS)
+    nan_grad, _ = edge_gradient(device, cons, sur, scaler, starts[:14], y)
     log(f"[pgd] pgd_lcld equals pgd_run_plain (x_adv, class, history) on all {runs} runs: {len(PGD_CONFIGS)} "
         f"configurations x N in {PGD_ROWS} x T in {PGD_ITERS[:-1]}, and T = {PGD_ITERS[-1]} at one N each; "
         f"{nan_grad} NaN gradient entries at the 14 edge starts, {nan_rows} NaN rows of x_adv, {nan_hist} NaN "
@@ -1413,47 +1433,47 @@ def pgd_bound(tables, n: int, t: int, hist_cols: int = 0):
     return bound_ms(n_bytes, n_ops, n * t * PGD_F64_PER_ROW)
 
 
-def time_pgd(device, problem):
-    """K7's record at the main shape: device ms (CUDA events around a CUDA
-    graph of launches), wrapper ms, the plain version at 100 iterations, the
-    bound; and the kernel at 100 iterations for each rq1 loss."""
+def pgd_kernel_record(device, tag: str, kernel: str, replaces: str, problem, eps: float, plain_iters: int, bound):
+    """The PGD kernel ``kernel``'s record at ``problem``'s states x
+    ``PGD_BUDGET`` iterations (``PGD_LOSS``, L2, from x_init): device ms
+    (CUDA events around a CUDA graph of 2 launches), wrapper ms, the plain
+    version at ``plain_iters`` iterations, the bound ``bound(tables)``
+    gives as ``(ms, by)``; and the kernel at 100 iterations for each rq1
+    loss. Returns it and the attack."""
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
     from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD
     from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import pgd_run_plain
 
-    cons, sur, scaler, x = problem
-    xs = scaler.transform(x)
+    cons, sur, scaler, _, xs, y = problem
+    launch = getattr(kernels, kernel)
     xi = torch.as_tensor(xs, dtype=torch.float32, device=device)
-    y = torch.as_tensor(surrogate_labels(sur, xs), device=device)
-    eps = PGD_EPS - 1e-6
+    yt = torch.as_tensor(y, device=device)
 
     def engine(loss):
         return ConstrainedPGD(sur, cons, scaler, eps=eps, eps_step=0.1, norm=2, loss_evaluation=loss, device=device)
 
-    atk = engine(PGD_LOSS)
-
     def kernel_fn(a, t):
         sched = a.schedule(eps, 0.1, t)
-        return lambda: kernels.pgd_lcld(a.tables, sched, xi, y, xi, eps, a.clip, False,
-                                        "repair" in a.loss_evaluation, False)
+        return lambda: launch(a.tables, sched, xi, yt, xi, eps, a.clip, False, "repair" in a.loss_evaluation, False)
 
+    atk = engine(PGD_LOSS)
     main = kernel_fn(atk, PGD_BUDGET)
-    sched100 = atk.schedule(eps, 0.1, PGD_ITERS[-1])
-    b_ms, b_by = pgd_bound(atk.tables, len(xs), PGD_BUDGET)
+    sched_plain = atk.schedule(eps, 0.1, plain_iters)
+    b_ms, b_by = bound(atk.tables)
     rec = {
-        "name": "pgd_lcld",
+        "name": kernel,
         "route": "cuda",
-        "source": "moeva2_ijcai22_replication_tpu_torch/kernels/csrc/pgd_lcld.cu",
-        "replaces": "moeva2_ijcai22_replication_tpu/attacks/pgd/engine.py:241",
+        "source": f"moeva2_ijcai22_replication_tpu_torch/kernels/csrc/{kernel}.cu",
+        "replaces": replaces,
         "launches": 0,
         "max_abs_err": 0.0,
         "ms": graph_ms(main, launches=2, repeats=3),
         "wrapper_ms": cuda_ms(main, launches=2, repeats=3),
-        "plain_ms": cuda_ms(lambda: pgd_run_plain(atk.tables, cons, sched100, xi, y, xi, eps, atk.clip, 2, True,
+        "plain_ms": cuda_ms(lambda: pgd_run_plain(atk.tables, cons, sched_plain, xi, yt, xi, eps, atk.clip, 2, True,
                                                   False), launches=1, repeats=2),
-        "plain_iters": PGD_ITERS[-1],
+        "plain_iters": plain_iters,
         "ms_100_iters": {PGD_LOSS: graph_ms(kernel_fn(atk, PGD_ITERS[-1]), launches=5, repeats=3)},
         "bound_ms": b_ms,
         "bound_by": b_by,
@@ -1461,11 +1481,22 @@ def time_pgd(device, problem):
     }
     for loss in PGD_OTHER_LOSSES:
         rec["ms_100_iters"][loss] = graph_ms(kernel_fn(engine(loss), PGD_ITERS[-1]), launches=5, repeats=3)
-    log(f"[pgd] pgd_lcld at {len(xs)} states x {PGD_BUDGET} iterations ({PGD_LOSS}, L2): device {rec['ms']:.3f} ms, "
+    log(f"{tag} {kernel} at {len(xs)} states x {PGD_BUDGET} iterations ({PGD_LOSS}, L2): device {rec['ms']:.3f} ms, "
         f"through the wrapper {rec['wrapper_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}); plain version at "
-        f"{PGD_ITERS[-1]} iterations {rec['plain_ms']:.1f} ms")
-    log(f"[pgd] pgd_lcld at {len(xs)} states x {PGD_ITERS[-1]} iterations, device ms by loss: "
+        f"{plain_iters} iterations {rec['plain_ms']:.1f} ms")
+    log(f"{tag} {kernel} at {len(xs)} states x {PGD_ITERS[-1]} iterations, device ms by loss: "
         + ", ".join(f"{k} {v:.3f}" for k, v in rec["ms_100_iters"].items()))
+    return rec, atk
+
+
+def time_pgd(device, problem):
+    """K7's record at the main shape (4000 x 1000), the plain version at 100
+    iterations."""
+    cons, sur, scaler, x = problem
+    xs = scaler.transform(x)
+    rec, _ = pgd_kernel_record(device, "[pgd]", "pgd_lcld", "moeva2_ijcai22_replication_tpu/attacks/pgd/engine.py:241",
+                               (cons, sur, scaler, x, xs, surrogate_labels(sur, xs)), PGD_EPS - 1e-6, PGD_ITERS[-1],
+                               lambda tables: pgd_bound(tables, len(xs), PGD_BUDGET))
     return rec
 
 
@@ -1473,37 +1504,39 @@ def same_entries_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return (a == b) | (np.isnan(a) & np.isnan(b))
 
 
-def run_pgd_path(device, problem, smi: str) -> dict:
+def drive_pgd(device, smi: str, tag: str, kernel: str, problem, eps: float, f1: float, rewritten) -> dict:
     """Drive ``ConstrainedPGD.generate`` as ``experiments/pgd.py:149-186``
-    does and check its result; returns the launch counts of the drive."""
+    does at ``eps`` (``PGD_LOSS``, L2, ``PGD_BUDGET`` iterations) cold and
+    steady, with the launch counts set to 0 just before and read just
+    after: one launch of ``kernel``. Check the result (finite, immutables
+    unchanged, two runs equal, the L2 ball on the features that repair
+    leaves alone, those not in the mask ``rewritten``) and judge it (o1..o7
+    at ``f1`` and f2 ε). Returns the launch counts."""
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
     from moeva2_ijcai22_replication_tpu_torch.attacks.objective import ObjectiveCalculator
     from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD, round_ints_toward_initial
 
-    cons, sur, scaler, x = problem
-    xs = scaler.transform(x)
-    y = surrogate_labels(sur, xs)
-    eps = PGD_EPS - 1e-6
-    knobs = dict(eps=PGD_EPS, eps_step=0.1, max_iter=PGD_BUDGET, norm=2, loss_evaluation=PGD_LOSS)
+    cons, sur, scaler, x, xs, y = problem
+    knobs = dict(eps=eps, eps_step=0.1, max_iter=PGD_BUDGET, norm=2, loss_evaluation=PGD_LOSS)
     atk = ConstrainedPGD(sur, cons, scaler, device=device, **knobs)
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    x_adv = atk.generate(xs, y, eps=eps, eps_step=0.1, max_iter=PGD_BUDGET)
+    x_adv = atk.generate(xs, y, eps=eps - 1e-6, eps_step=0.1, max_iter=PGD_BUDGET)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
     t0 = time.perf_counter()
-    again = atk.generate(xs, y, eps=eps, eps_step=0.1, max_iter=PGD_BUDGET)
+    again = atk.generate(xs, y, eps=eps - 1e-6, eps_step=0.1, max_iter=PGD_BUDGET)
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t0
-    log(f"[pgd] launches on the PGD path: {launches}")
-    log(f"[pgd] generate: cold {cold_s:.3f} s, steady {steady_s:.3f} s for {len(xs)} states x {PGD_BUDGET} "
+    log(f"{tag} launches on the PGD path: {launches}")
+    log(f"{tag} generate: cold {cold_s:.3f} s, steady {steady_s:.3f} s for {len(xs)} states x {PGD_BUDGET} "
         f"iterations on {smi}")
-    if launches != {**{k: 0 for k in launches}, "pgd_lcld": 1}:
-        raise AssertionError(f"launches {launches}: one generate without restarts is one launch of pgd_lcld")
+    if launches != {**{k: 0 for k in launches}, kernel: 1}:
+        raise AssertionError(f"launches {launches}: one generate without restarts is one launch of {kernel}")
     if not same_entries_np(x_adv, again).all():
         raise AssertionError("two runs of generate differ")
     x0 = xs.astype(np.float32)
@@ -1512,46 +1545,64 @@ def run_pgd_path(device, problem, smi: str) -> dict:
     mutable = np.asarray(cons.get_mutable_mask(), bool)
     if not np.array_equal(x_adv[:, ~mutable], x0[:, ~mutable]):
         raise AssertionError("immutable features moved")
+    delta = x_adv.astype(np.float64) - x0
+    kept = np.sqrt((delta[:, ~rewritten] ** 2).sum(1))
+    full = np.sqrt((delta**2).sum(1))
+    if kept.max() > eps + 1e-5:
+        raise AssertionError(f"L2 distance {kept.max()} > ε on the features repair leaves alone")
+    log(f"{tag} x_adv {x_adv.shape} float32, finite, immutables unchanged, two runs equal; L2 distance over the "
+        f"features repair leaves alone at most {kept.max():.6f} (ε {eps}), over all features at most "
+        f"{full.max():.6f} with {float((full <= eps + 1e-5).mean()):.4f} of the rows within ε")
+    x_attacks = round_ints_toward_initial(scaler.inverse(x_adv.astype(np.float64)), x, cons.get_feature_type())
+    calc = ObjectiveCalculator(classifier=sur, constraints=cons, thresholds={"f1": f1, "f2": eps},
+                               min_max_scaler=scaler, ml_scaler=scaler, minimize_class=1, norm=2)
+    rates = calc.success_rate_3d(x, x_attacks[:, None, :])
+    if rates.shape != (7,) or not np.isfinite(rates).all():
+        raise AssertionError(f"bad success rates {rates}")
+    log(f"{tag} success rates o1..o7 (f1 {f1}, f2 ε; plumbing check with an untrained surrogate): "
+        + " ".join(f"{v:.4f}" for v in rates))
+    return launches
+
+
+def check_pgd_card_vs_cpu(device, tag: str, kernel: str, problem, eps: float, n: int, t: int) -> None:
+    """``generate`` on the card against the CPU on ``n`` states x ``t``
+    iterations (every x_adv entry equal), and 2 random restarts on the card:
+    2 launches of ``kernel``."""
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD
+
+    cons, sur, scaler, _, xs, y = problem
+    small = dict(eps=eps, eps_step=0.1, max_iter=t, norm=2, loss_evaluation=PGD_LOSS)
+    on_cpu = ConstrainedPGD(sur, cons, scaler, device="cpu", **small).generate(xs[:n], y[:n], eps=eps - 1e-6)
+    on_card = ConstrainedPGD(sur, cons, scaler, device=device, **small).generate(xs[:n], y[:n], eps=eps - 1e-6)
+    differ = int((~same_entries_np(on_card, on_cpu)).sum())
+    log(f"{tag} card vs CPU at {n} states x {t} iterations: {differ} of {on_cpu.size} x_adv entries differ")
+    if differ:
+        raise AssertionError(f"{differ} x_adv entries differ between the card and the CPU")
+    kernels.reset_launch_counts()
+    restarts = ConstrainedPGD(sur, cons, scaler, device=device, num_random_init=2, **small)
+    restarts.generate(xs[:n], y[:n], eps=eps - 1e-6)
+    got = kernels.launch_counts()[kernel]
+    log(f"{tag} 2 random restarts at {n} states: {got} launches of {kernel}, success after each restart "
+        f"{restarts.quality_history['restart_flip_frac']}")
+    if got != 2:
+        raise AssertionError(f"{got} launches of {kernel} for 2 restarts")
+
+
+def run_pgd_path(device, problem, smi: str) -> dict:
+    """Phase 7's drive: ``generate`` at the main shape, card against CPU,
+    restarts; returns the launch counts of the drive."""
+    cons, sur, scaler, x = problem
+    xs = scaler.transform(x)
+    atk_problem = (cons, sur, scaler, x, xs, surrogate_labels(sur, xs))
     # repair rewrites term, installment and the one-hot groups after the
     # projection; the ball holds on every other feature
     rewritten = np.zeros(x.shape[1], bool)
     rewritten[[1, 3]] = True
     for group in cons.schema.ohe_groups():
         rewritten[list(group)] = True
-    delta = x_adv.astype(np.float64) - x0
-    kept = np.sqrt((delta[:, ~rewritten] ** 2).sum(1))
-    full = np.sqrt((delta**2).sum(1))
-    if kept.max() > PGD_EPS + 1e-5:
-        raise AssertionError(f"L2 distance {kept.max()} > ε on the features repair leaves alone")
-    log(f"[pgd] x_adv {x_adv.shape} float32, finite, immutables unchanged, two runs equal; L2 distance over the "
-        f"features repair leaves alone at most {kept.max():.6f} (ε {PGD_EPS}), over all features at most "
-        f"{full.max():.6f} with {float((full <= PGD_EPS + 1e-5).mean()):.4f} of the rows within ε")
-    x_attacks = round_ints_toward_initial(scaler.inverse(x_adv.astype(np.float64)), x, cons.get_feature_type())
-    calc = ObjectiveCalculator(classifier=sur, constraints=cons, thresholds={"f1": 0.25, "f2": PGD_EPS},
-                               min_max_scaler=scaler, ml_scaler=scaler, minimize_class=1, norm=2)
-    rates = calc.success_rate_3d(x, x_attacks[:, None, :])
-    if rates.shape != (7,) or not np.isfinite(rates).all():
-        raise AssertionError(f"bad success rates {rates}")
-    log("[pgd] success rates o1..o7 (f1 0.25, f2 ε; plumbing check with an untrained surrogate): "
-        + " ".join(f"{v:.4f}" for v in rates))
-    # the card against the CPU on the same rows
-    n, t = PGD_CPU_ROWS, PGD_CPU_ITERS
-    small = {**knobs, "max_iter": t}
-    on_cpu = ConstrainedPGD(sur, cons, scaler, device="cpu", **small).generate(xs[:n], y[:n], eps=eps)
-    on_card = ConstrainedPGD(sur, cons, scaler, device=device, **small).generate(xs[:n], y[:n], eps=eps)
-    differ = int((~same_entries_np(on_card, on_cpu)).sum())
-    log(f"[pgd] card vs CPU at {n} states x {t} iterations: {differ} of {on_cpu.size} x_adv entries differ")
-    if differ:
-        raise AssertionError(f"{differ} x_adv entries differ between the card and the CPU")
-    # restarts: one launch per run
-    kernels.reset_launch_counts()
-    restarts = ConstrainedPGD(sur, cons, scaler, device=device, num_random_init=2, **small)
-    restarts.generate(xs[:n], y[:n], eps=eps)
-    got = kernels.launch_counts()["pgd_lcld"]
-    log(f"[pgd] 2 random restarts at {n} states: {got} launches of pgd_lcld, success after each restart "
-        f"{restarts.quality_history['restart_flip_frac']}")
-    if got != 2:
-        raise AssertionError(f"{got} launches of pgd_lcld for 2 restarts")
+    launches = drive_pgd(device, smi, "[pgd]", "pgd_lcld", atk_problem, PGD_EPS, 0.25, rewritten)
+    check_pgd_card_vs_cpu(device, "[pgd]", "pgd_lcld", atk_problem, PGD_EPS, PGD_CPU_ROWS, PGD_CPU_ITERS)
     return launches
 
 
@@ -1834,6 +1885,151 @@ def run_botnet(device, smi: str, resources: list):
     return rec, launches
 
 
+# -- phase 9: constrained PGD on botnet --------------------------------------------
+
+#: config/rq1.botnet.yaml's PGD (387 states, L2, ε 4, budget 1000, its last
+#: loss), run as experiments/pgd.py runs it (ε - 1e-6, eps_step 0.1); and
+#: config/rq0.botnet.yaml's ε 1.0
+PGD_BOTNET_STATES = 387
+PGD_BOTNET_EPS = 4.0
+PGD_BOTNET_RQ0_EPS = 1.0
+#: K7b's sweep: a lone row, one row per block (31, 33), partial last blocks
+#: of 2 and 3 rows per block (133, 265) and rq1.botnet's 387 (3 per block);
+#: phase 7's configurations and iteration budgets, 100 at one N each
+PGD_BOTNET_ROWS = (1, 31, 33, 133, 265, 387)
+#: the plain version's iterations when it is timed
+PGD_BOTNET_PLAIN_ITERS = 10
+#: card against CPU: rows and iterations
+PGD_BOTNET_CPU_ROWS = 32
+PGD_BOTNET_CPU_ITERS = 20
+#: float32 operations of K7b per row and iteration counted from its source,
+#: besides 4 per weight of the stack and PGD_OPS_PER_FEATURE per feature: 1
+#: per entry of the gather lists (its feature's sum in the backward) and 1
+#: more per flow entry (the forward sums), 7 per term (its threshold, clip,
+#: cotangent and, for a ratio, the division's backward) and 50 per row (the
+#: cross-entropy, the sums' roots); 3 float64 exp and log per row
+PGD_BOTNET_OPS_PER_TERM = 7
+PGD_BOTNET_OPS_PER_ROW = 50
+PGD_BOTNET_F64_PER_ROW = 3
+#: K7b's dependent operations per iteration besides the stack's sums and the
+#: two L2 sums, counted from its source: the cross-entropy (20), a feature's
+#: cotangent sum and gradient (6), the step, clips, projection and repair's
+#: round trip (20); each dependent float32 operation takes at least this
+#: many cycles (Hopper's FADD and FMUL latency)
+PGD_BOTNET_CHAIN_PER_ITER = 46
+CYCLES_PER_DEPENDENT_OP = 4
+
+
+def pgd_botnet_problem():
+    """Phase 9's problem: ``synthetic_botnet_pgd_problem(387)`` (phase 8's
+    states, surrogate and scaler, labels from the surrogate)."""
+    from moeva2_ijcai22_replication_tpu_torch.problems import synthetic_botnet_pgd_problem
+
+    with tempfile.TemporaryDirectory() as tmp:
+        return synthetic_botnet_pgd_problem(tmp, PGD_BOTNET_STATES)
+
+
+def check_pgd_botnet_kernel(device, problem):
+    """K7b against ``pgd_run_plain`` on the card over the sweep, bit for bit,
+    with the terms' edge cases in the first rows of the starts."""
+    from moeva2_ijcai22_replication_tpu_torch.problems import BOTNET_EDGE_ROWS, botnet_edge_starts
+
+    cons, sur, scaler, _, xs, _ = problem
+    starts = botnet_edge_starts(cons.schema.names, scaler, xs)
+    (runs, nan_rows, nan_hist), y = pgd_sweep(device, "pgd_botnet", cons, sur, scaler, xs, starts, PGD_BOTNET_ROWS)
+    nan_grad, inf_grad = edge_gradient(device, cons, sur, scaler, starts[:BOTNET_EDGE_ROWS], y)
+    log(f"[pgd-botnet] pgd_botnet equals pgd_run_plain (x_adv, class, history) on all {runs} runs: "
+        f"{len(PGD_CONFIGS)} configurations x N in {PGD_BOTNET_ROWS} x T in {PGD_ITERS[:-1]}, and T = "
+        f"{PGD_ITERS[-1]} at one N each; {nan_grad} NaN and {inf_grad} inf gradient entries at the "
+        f"{BOTNET_EDGE_ROWS} edge starts, {nan_rows} NaN rows of x_adv, {nan_hist} NaN history entries")
+
+
+def pgd_botnet_bound(tables, n: int, t: int, hist_cols: int = 0):
+    """K7b's least time for ``n`` rows and ``t`` iterations: the bytes it
+    must move and the operations counted from its source."""
+    widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
+    macs = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
+    d = widths[0]
+    c = tables.cons.counts
+    n_terms = 2 + sum(c[4::2])
+    n_bytes = (4 * 3 * n * d + 16 * n + 4 * (tables.params.numel() + tables.first_t.numel()) + 9 * d
+               + 4 * (sum(c) + tables.cons.inverse.numel()) + 16 * t + 4 * t * n * hist_cols)
+    per_row = (4 * macs + PGD_OPS_PER_FEATURE * d + sum(c) + sum(c[:4]) + PGD_BOTNET_OPS_PER_TERM * n_terms
+               + PGD_BOTNET_OPS_PER_ROW)
+    return bound_ms(n_bytes, n * t * per_row, n * t * PGD_BOTNET_F64_PER_ROW)
+
+
+def pgd_botnet_floor_ms(tables, t: int, mhz: float, l2: bool = True) -> float:
+    """K7b's latency floor for ``t`` iterations counted from its source: the
+    dependent operations of an iteration's longest path (each first-layer
+    unit's 756 adds, the deeper layers' and the backward's sums, the two L2
+    sums over the features and ``PGD_BOTNET_CHAIN_PER_ITER`` more), each at
+    ``CYCLES_PER_DEPENDENT_OP`` cycles of the card's maximum SM clock."""
+    widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
+    d = widths[0]
+    chain = d + sum(widths[1:-1]) + sum(widths[1:]) + (2 * d if l2 else 0) + PGD_BOTNET_CHAIN_PER_ITER
+    return t * chain * CYCLES_PER_DEPENDENT_OP / (mhz * 1e6) * 1e3
+
+
+def max_sm_clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def time_pgd_botnet(device, problem):
+    """K7b's record at rq1.botnet's shape (387 x 1000, L2, its last loss):
+    ``pgd_kernel_record``'s with the plain version at
+    ``PGD_BOTNET_PLAIN_ITERS`` iterations, and beside them the latency floor
+    and, as a note for the library column, the first layer's forward alone
+    by ``torch.matmul`` 1000 times (fp32, TF32 off)."""
+    import torch
+
+    xs = problem[4]
+    rec, atk = pgd_kernel_record(device, "[pgd-botnet]", "pgd_botnet",
+                                 "moeva2_ijcai22_replication_tpu/attacks/pgd/engine.py:241", problem,
+                                 PGD_BOTNET_EPS - 1e-6, PGD_BOTNET_PLAIN_ITERS,
+                                 lambda tables: pgd_botnet_bound(tables, len(xs), PGD_BUDGET))
+    mhz = max_sm_clock_mhz()
+    xi = torch.as_tensor(xs, dtype=torch.float32, device=device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec["first_layer_matmul_ms"] = PGD_BUDGET * graph_ms(lambda: torch.matmul(xi, atk.tables.first_t))
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    rec["ceiling_ms"] = pgd_botnet_floor_ms(atk.tables, PGD_BUDGET, mhz)
+    log(f"[pgd-botnet] pgd_botnet's latency floor {rec['ceiling_ms']:.3f} ms (at {mhz:.0f} MHz); torch.matmul of the "
+        f"first layer alone ({len(xs)} x {xs.shape[1]}) @ ({xs.shape[1]} x {atk.tables.first_t.shape[1]}), fp32, "
+        f"TF32 off, x {PGD_BUDGET}: {rec['first_layer_matmul_ms']:.3f} ms (a note for the library column; the port "
+        "does not call it)")
+    return rec
+
+
+def run_pgd_botnet(device, smi: str, resources: list):
+    """Phase 9: constrained PGD on the botnet domain. Returns K7b's record
+    and the launch counts of the rq1.botnet drive."""
+    entries = [k for k in resources if k["kernel"].startswith("pgd_botnet_kernel")]
+    if not entries:
+        raise AssertionError("the build's ptxas report has no entry for pgd_botnet_kernel")
+    for k in entries:
+        log(f"[pgd-botnet] K7b ptxas: {k['kernel']}: {k['registers']} registers, {k['stack']} bytes stack frame, "
+            f"{k['spill_stores']} + {k['spill_loads']} bytes spill stores + loads")
+    problem = pgd_botnet_problem()
+    cons, _, _, x, xs, y = problem
+    log(f"[pgd-botnet] ConstrainedPGD on {len(xs)} synthetic botnet states ({cons.schema.n_features} features, "
+        f"{cons.n_constraints} constraints), labels from the surrogate ({int(y.sum())} of class 1)")
+    check_pgd_botnet_kernel(device, problem)
+    rec = time_pgd_botnet(device, problem)
+    # botnet's repair is the identity: the ball holds on every feature
+    rewritten = np.zeros(x.shape[1], bool)
+    launches = drive_pgd(device, smi, f"[pgd-botnet ε {PGD_BOTNET_EPS}]", "pgd_botnet", problem, PGD_BOTNET_EPS,
+                         0.5, rewritten)
+    drive_pgd(device, smi, f"[pgd-botnet ε {PGD_BOTNET_RQ0_EPS}]", "pgd_botnet", problem, PGD_BOTNET_RQ0_EPS, 0.5,
+              rewritten)
+    check_pgd_card_vs_cpu(device, "[pgd-botnet]", "pgd_botnet", problem, PGD_BOTNET_EPS, PGD_BOTNET_CPU_ROWS,
+                          PGD_BOTNET_CPU_ITERS)
+    return rec, launches
+
+
 def main() -> int:
     import torch
 
@@ -1876,6 +2072,9 @@ def main() -> int:
     botnet_rec, botnet_launches = run_botnet(device, smi, resources)
     records.append(botnet_rec)
     launches["objective_botnet"] = botnet_launches["objective_botnet"]
+    pgd_botnet_rec, pgd_botnet_launches = run_pgd_botnet(device, smi, resources)
+    records.append(pgd_botnet_rec)
+    launches["pgd_botnet"] = pgd_botnet_launches["pgd_botnet"]
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if not all(math.isfinite(rec[k]) for k in ("ms", "plain_ms", "bound_ms")):

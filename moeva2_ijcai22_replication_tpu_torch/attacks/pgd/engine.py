@@ -36,9 +36,11 @@ The gradient is hand-written with ``jax.grad``'s conventions (abs, clip and
 relu at their edges; NaN kept through every product, then zeroed): the
 MLP's backward is :func:`..models.mlp.mlp_input_grad_plain`, the
 constraints' the set's ``smooth_vjp``. On CUDA tensors a run is one launch
-of kernel K7 (``kernels/csrc/pgd_lcld.cu``), which repeats this plain
-version's operations in its order; on CPU tensors :func:`pgd_run_plain`
-runs. Nothing on the card's path calls the plain version.
+of the set's PGD kernel (``pgd_kernel``): K7 (``kernels/csrc/pgd_lcld.cu``)
+on LCLD, K7b (``kernels/csrc/pgd_botnet.cu``) on botnet, each repeating
+this plain version's operations in its order; on CPU tensors
+:func:`pgd_run_plain` runs. Nothing on the card's path calls the plain
+version.
 """
 
 from __future__ import annotations
@@ -75,11 +77,13 @@ class PgdTables(NamedTuple):
 
     layers: tuple  # ((weight (out, in), bias (out,)), ...) of the relu stack
     params: torch.Tensor  # the same weights flat, each layer's weight then its bias
+    first_t: torch.Tensor  # (D, widths[1]) the first layer's weight transposed
     scale: torch.Tensor  # (D,) the classifier's scaler: x_scaled = x * scale + min_
     min_: torch.Tensor  # (D,)
     mutable: torch.Tensor  # (D,) bool
     ohe: torch.Tensor  # (G, K) int32 feature of each one-hot slot, -1 = padding
     tol: float  # constraint tolerance
+    cons: Any  # the set's kernel tables (``kernel_tables``), None where the kernel hard-codes the terms
 
 
 def make_schedule(
@@ -134,8 +138,8 @@ def grad_and_terms_plain(tables: PgdTables, constraints, x, y, w_class, w_cons, 
     violations of the unscaled rows and ``cons`` their sum (``ctr`` < 0) or
     the one of index ``ctr``. ``w_class``/``w_cons`` are 0-d tensors.
 
-    In float32 every operation is rounded once, in the order kernel K7
-    keeps: the MLP as :func:`mlp_forward_plain` and
+    In float32 every operation is rounded once, in the order kernels K7
+    and K7b keep: the MLP as :func:`mlp_forward_plain` and
     :func:`mlp_input_grad_plain`; ``exp`` and ``log`` in float64 rounded
     once; log_softmax's backward as JAX transposes it (``ct_ls + (Σ -ct_ls /
     Σ e) * e``); the constraint branch through ``constraints.smooth_vjp``
@@ -182,9 +186,9 @@ def pgd_run_plain(
     pred, hist)``, with ``pred`` the class :func:`predict_plain` gives at
     ``x_adv`` and ``hist`` (T, N, C) the recorded columns [per,
     loss_class, cons] (+ the L2 norm of the finite entries of the raw
-    gradient when ``record[0]``, + the 10 violations when ``record[1]``),
-    or None when ``record`` is None. The semantics of kernel K7, one
-    rounded operation at a time in its order."""
+    gradient when ``record[0]``, + the set's K violations when
+    ``record[1]``), or None when ``record`` is None. The semantics of
+    kernels K7 and K7b, one rounded operation at a time in their order."""
     lo, hi = clip
     x = x_start
     hist = []
@@ -252,9 +256,10 @@ class ConstrainedPGD:
         validate_norm(self.norm)
         name = type(self.constraints).__name__
         if type(self.constraints).smooth_vjp is ConstraintSet.smooth_vjp:
-            raise NotImplementedError(f"{name} has no hand-written constraint backward: PGD runs on LCLD only")
+            raise NotImplementedError(
+                f"{name} has no hand-written constraint backward (smooth_vjp): PGD cannot differentiate its terms")
         if self.device.type == "cuda" and self.constraints.pgd_kernel is None:
-            raise NotImplementedError(f"{name} has no PGD kernel (K7): only LCLD runs on the card")
+            raise NotImplementedError(f"{name} has no PGD kernel (pgd_kernel): its runs cannot go on the card")
         if self.device.type == "cuda" and self.dtype != torch.float32:
             raise NotImplementedError(f"the card's kernels take float32, not {self.dtype}")
         if "single_constraints" in self.constraints_optim and not 0 <= self.ctr_id < self.constraints.n_constraints:
@@ -269,11 +274,13 @@ class ConstrainedPGD:
         self.tables = PgdTables(
             layers=layers,
             params=torch.cat([t.reshape(-1) for pair in layers for t in pair]),
+            first_t=layers[0][0].t().contiguous(),
             scale=scale,
             min_=min_,
             mutable=torch.as_tensor(np.asarray(self.constraints.get_mutable_mask(), bool), device=self.device),
             ohe=ohe_idx.masked_fill(~ohe_mask, -1).to(device=self.device, dtype=torch.int32),
             tol=float(self.constraints.tol),
+            cons=self.constraints.kernel_tables(self.device),
         )
         self.loss_history: np.ndarray | None = None
         #: without restarts None; else ``restart_success`` (R, N), the
@@ -295,7 +302,7 @@ class ConstrainedPGD:
 
     def history_layout(self):
         """``(grad_norm, full)`` of the recorded history, None without one:
-        the ``record`` argument of :func:`pgd_run_plain` and K7."""
+        the ``record`` argument of :func:`pgd_run_plain`, K7 and K7b."""
         if not self.record_loss:
             return None
         return (bool(self.record_grad_norm), "full" in self.record_loss)
@@ -323,13 +330,14 @@ class ConstrainedPGD:
         return torch.clamp(x_init + torch.where(self.tables.mutable, pert, 0.0), *self.clip)
 
     def one_run(self, x_init, y, x_start, sched: PgdSchedule, eps: float):
-        """``(x_adv, pred, hist)`` of one run: kernel K7 on the card,
-        :func:`pgd_run_plain` on the CPU."""
+        """``(x_adv, pred, hist)`` of one run: the set's kernel (K7 or K7b)
+        on the card, :func:`pgd_run_plain` on the CPU."""
         repair = "repair" in self.loss_evaluation
         if x_init.is_cuda:
-            from ...kernels import pgd_lcld
+            from ... import kernels
 
-            return pgd_lcld(
+            launch = {"lcld": kernels.pgd_lcld, "botnet": kernels.pgd_botnet}[self.constraints.pgd_kernel]
+            return launch(
                 self.tables, sched, x_init, y, x_start, eps, self.clip, is_inf(self.norm), repair,
                 self.targeted, self.history_layout(),
             )

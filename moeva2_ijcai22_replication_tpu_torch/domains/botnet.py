@@ -10,6 +10,10 @@ sums), 34 bytes/pkts ratios <= 1500, then 108 max <= sum, 108 min <= sum and
 The reference sizes the ratio loop by ``len("bytes_out_sum_s_idx") - 2 ==
 17``, so only the first 17 of the 18 ports per direction are checked; the
 port keeps that count (2 + 34 + 324 = 360).
+
+Constrained PGD differentiates the terms by hand (``smooth_vjp``, with
+``jax.grad``'s conventions) so that kernel K7b (``kernels/csrc/
+pgd_botnet.cu``) can repeat the backward in its order.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from ..core.constraints import ConstraintSet
 from ..core.norms import sum_last
 from ..core.schema import ConstraintBounds, FeatureSchema
+from ..core.vjp import abs_vjp, clip_vjp, div_vjp
 
 _SUM_KEYS = ["bytes_out_sum_{0}_idx", "pkts_out_sum_{0}_idx", "duration_sum_{0}_idx"]
 _MAX_KEYS = ["bytes_out_max_{0}_idx", "pkts_out_max_{0}_idx", "duration_max_{0}_idx"]
@@ -34,13 +39,44 @@ MTU = 1500.0
 
 
 class BotnetTables(NamedTuple):
-    """The gather lists of the 360 terms as kernel K8 reads them: one int32
-    tensor of feature indices, its segments in the order of ``counts``."""
+    """The gather lists of the 360 terms as kernels K8 and K7b read them:
+    one int32 tensor of feature indices, its segments in the order of
+    ``counts``; and, for K7b's backward, the inverse of that gather."""
 
     index: torch.Tensor  # (sum(counts),) int32, each in [0, D)
     #: (flows s, bytes s, flows d, bytes d, ratio bytes, ratio pkts, then
     #: lower and upper of each of the three orderings)
     counts: tuple
+    #: (D, degree) int32: for each feature, the positions in ``index`` of
+    #: its entries in the order of their terms (g1 first), -1 after them
+    inverse: torch.Tensor
+
+
+def entry_terms(counts) -> np.ndarray:
+    """The term of each entry of the gather lists laid out by ``counts``:
+    the two flow equalities, the ratios, then the orderings."""
+    c = list(counts)
+    ratios = np.arange(2, 2 + c[4])
+    terms = [np.zeros(c[0] + c[1], np.int64), np.ones(c[2] + c[3], np.int64), ratios, ratios]
+    start = 2 + c[4]
+    for lo, up in zip(c[6::2], c[7::2]):
+        order = np.arange(start, start + lo)
+        terms += [order, order]
+        start += lo
+    return np.concatenate(terms)
+
+
+def inverse_table(index: np.ndarray, counts, n_features: int) -> np.ndarray:
+    """(D, degree) int32: for each feature the positions of its entries in
+    ``index``, ordered by term and then by position, padded with -1 to the
+    largest degree."""
+    order = np.lexsort((np.arange(len(index)), entry_terms(counts), index))
+    feats = index[order]
+    degree = np.bincount(index, minlength=n_features)
+    table = np.full((n_features, max(int(degree.max()), 1)), -1, np.int32)
+    slot = np.arange(len(order)) - np.repeat(np.cumsum(degree) - degree, degree)
+    table[feats, slot] = order
+    return table
 
 
 class BotnetConstraints(ConstraintSet):
@@ -48,6 +84,9 @@ class BotnetConstraints(ConstraintSet):
     #: kernel K8 (``kernels/csrc/objective_botnet.cu``) computes these terms
     #: inside the objectives on the card
     objective_kernel = "botnet"
+    #: kernel K7b (``kernels/csrc/pgd_botnet.cu``) runs constrained PGD on
+    #: the card with these terms and their backward
+    pgd_kernel = "botnet"
 
     def __init__(self, features_path: str, constraints_path: str):
         super().__init__(FeatureSchema.from_csv(features_path), ConstraintBounds.from_csv(constraints_path))
@@ -84,28 +123,87 @@ class BotnetConstraints(ConstraintSet):
         d = self.schema.n_features
         if self._index.min() < 0 or self._index.max() >= d:
             raise ValueError(f"feat_idx.pickle indexes outside the schema's {d} features")
+        self._inverse = inverse_table(self._index, self._counts, d)
         self._on_device = {}
 
     def _tables(self, device) -> list:
-        """The index lists as int64 tensors on ``device``, made once."""
+        """The index lists as int64 tensors on ``device``, then the inverse
+        table for the plain backward (:meth:`smooth_vjp`), made once."""
         key = torch.device(device)
         if key not in self._on_device:
+            # column 0 and the padding read a zero slot, so each feature's
+            # sum starts from 0 and ends with +0s, which change no value
+            summed = np.concatenate([np.zeros((len(self._inverse), 1), np.int64), self._inverse + 1], axis=1)
             self._on_device[key] = [torch.as_tensor(a, device=key) for a in np.split(
-                self._index, np.cumsum(self._counts)[:-1])]
+                self._index, np.cumsum(self._counts)[:-1])] + [torch.as_tensor(summed, device=key)]
         return self._on_device[key]
 
     def kernel_tables(self, device) -> BotnetTables:
-        """K8's gather lists on ``device``."""
-        return BotnetTables(torch.as_tensor(self._index, dtype=torch.int32, device=device), self._counts)
+        """K8's and K7b's gather lists and K7b's inverse table on ``device``."""
+        return BotnetTables(torch.as_tensor(self._index, dtype=torch.int32, device=device), self._counts,
+                            torch.as_tensor(self._inverse, device=device))
 
-    def _raw(self, x: torch.Tensor) -> torch.Tensor:
-        """The 360 unthresholded terms, one rounded operation at a time in
-        the order kernel K8 computes them: each sum left to right, the ratio
-        a true division by a tensor."""
-        fs, bs, fd, bd, rb, rp, *orders = self._tables(x.device)
-        terms = [torch.abs(sum_last(x[..., f]) - sum_last(x[..., b]))[..., None] for f, b in ((fs, bs), (fd, bd))]
+    def _forward(self, x: torch.Tensor):
+        """``(v, b, nz, den, raw)``: the flow equalities' differences ``v``
+        (two (...) tensors), the ratios' bytes ``b``, packets test ``nz``
+        and denominators ``den``, and the 360 unthresholded terms ``raw``,
+        one rounded operation at a time in the order kernels K8 and K7b
+        compute them: each sum left to right, the ratio a true division by a
+        tensor."""
+        fs, bs, fd, bd, rb, rp, *orders = self._tables(x.device)[:-1]
+        v = [sum_last(x[..., f]) - sum_last(x[..., b]) for f, b in ((fs, bs), (fd, bd))]
         b, p = x[..., rb], x[..., rp]
         nz = p != 0
-        terms.append(torch.where(nz, b / torch.where(nz, p, 1.0), 0.0) - MTU)
+        den = torch.where(nz, p, 1.0)
+        terms = [torch.abs(v[0])[..., None], torch.abs(v[1])[..., None], torch.where(nz, b / den, 0.0) - MTU]
         terms += [x[..., lo] - x[..., up] for lo, up in zip(orders[::2], orders[1::2])]
-        return torch.cat(terms, dim=-1)
+        return v, b, nz, den, torch.cat(terms, dim=-1)
+
+    def _raw(self, x: torch.Tensor) -> torch.Tensor:
+        """The 360 unthresholded terms (:meth:`_forward`)."""
+        return self._forward(x)[-1]
+
+    def smooth_vjp(self, u: torch.Tensor, ct_g: torch.Tensor):
+        """``(g, ct_u)``: the smooth violations ``g = clip(_raw(u) - tol, 0,
+        inf)`` (..., 360) of the unscaled rows ``u`` (..., D), as
+        :meth:`evaluate_smooth` computes them, and the cotangent of ``u``
+        from ``ct_g`` (..., 360), the backward ``jax.grad`` takes through
+        :meth:`_raw`.
+
+        The conventions are ``jax.grad``'s (abs, clip and division as
+        ``core/vjp.py`` gives them): a flow equality sends its abs's
+        cotangent to each flow feature and its negation to each bytes
+        feature; a ratio's outer ``where`` passes its cotangent to the
+        division where the packets are not 0 and an exact 0 elsewhere, its
+        inner one the denominator's cotangent to the packets where they are
+        not 0; an ordering sends its cotangent to its lower feature and the
+        negation to its upper one. Every product is taken, also where a
+        cotangent is 0, so NaN lands where ``jax.grad`` puts it.
+
+        The backward runs in two steps, as kernel K7b does: the cotangent
+        of each of the gather lists' entries, then each feature's sum of its
+        entries from 0, term by term (g1 first), through the inverse table
+        (``BotnetTables.inverse``)."""
+        fs, bs, fd, bd, rb, _, *orders, summed = self._tables(u.device)
+        v, b, nz, den, raw = self._forward(u)
+        pre = raw - self.tol
+        g = torch.clamp(pre, min=0.0)
+
+        # the cotangent of each gathered entry, in the order of the lists
+        c = clip_vjp(pre, ct_g)
+        n_ratio = rb.shape[0]
+        entries = []
+        for k, (f, bb) in enumerate(((fs, bs), (fd, bd))):
+            c_v = abs_vjp(v[k], c[..., k])[..., None]
+            entries += [c_v.expand(*c_v.shape[:-1], f.shape[0]), (-c_v).expand(*c_v.shape[:-1], bb.shape[0])]
+        c_b, c_den = div_vjp(torch.where(nz, c[..., 2:2 + n_ratio], 0.0), b, den)
+        entries += [c_b, torch.where(nz, c_den, 0.0)]
+        start = 2 + n_ratio
+        for lo in orders[::2]:
+            c_o = c[..., start:start + lo.shape[0]]
+            entries += [c_o, -c_o]
+            start += lo.shape[0]
+        zero = torch.zeros((*u.shape[:-1], 1), dtype=u.dtype, device=u.device)
+        ect = torch.cat([zero, *entries], dim=-1)
+        # each feature: 0, then its entries term by term
+        return g, sum_last(ect[..., summed])

@@ -15,6 +15,7 @@ import torch
 from ..core.codec import full_ohe_tables, harden_onehot
 from ..core.constraints import ConstraintSet
 from ..core.schema import ConstraintBounds, FeatureSchema
+from ..core.vjp import abs_vjp, clip_vjp, div_vjp
 from .synth import months
 
 N_BASE_FEATURES = 47
@@ -56,29 +57,6 @@ def lcld_constraint_terms(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([g1, g2, g3, g4, g5, g6, g7, g8, g9, g10], dim=-1)
 
 
-def _abs_vjp(v, ct):
-    """``jax.grad``'s abs: the cotangent where ``v >= 0`` (so at ±0 and
-    +inf), its negation elsewhere (-inf and NaN)."""
-    return torch.where(v >= 0, ct, -ct)
-
-
-def _clip_vjp(v, ct):
-    """``jnp.clip(v, 0, inf)``'s cotangent as ``jax.grad`` takes it: the
-    product of ``ct`` with minimum's balanced factor (0.5 at +inf, 0 at NaN,
-    else 1) and then with maximum's (1 above 0, 0.5 at ±0, else 0). A NaN
-    or infinite ``ct`` stays NaN where a factor is 0."""
-    lo = torch.where(v == torch.inf, 0.5, torch.where(torch.isnan(v), 0.0, 1.0)).to(ct.dtype)
-    hi = torch.where(v > 0, 1.0, torch.where(v == 0, 0.5, 0.0)).to(ct.dtype)
-    return ct * lo * hi
-
-
-def _div_vjp(ct, num, den):
-    """(numerator's, denominator's) cotangents of ``num / den`` as JAX's
-    rules give them: ``ct / den`` and ``-((ct * (1 / (den * den))) * num)``."""
-    one = torch.ones((), dtype=den.dtype, device=den.device)
-    return ct / den, -((ct * (one / (den * den))) * num)
-
-
 def _pow_jacobians(base, t):
     """``(growth, d growth / d base, d growth / d t)`` of ``base ** t``: the
     growth as :func:`_installment` takes it, its derivatives ``t * base **
@@ -98,10 +76,10 @@ def lcld_smooth_vjp(u: torch.Tensor, ct_g: torch.Tensor, tol: float):
     of ``u`` from ``ct_g`` (..., 10), the backward ``jax.grad`` takes through
     ``lcld_constraint_terms``.
 
-    The conventions are ``jax.grad``'s (abs: :func:`_abs_vjp`; clip:
-    :func:`_clip_vjp`; division: :func:`_div_vjp`; a ``where`` passes the
-    cotangent to the branch it took and exact zeros to the other; months
-    has derivative 1). Every product of the chain rule is taken, also where
+    The conventions are ``jax.grad``'s (abs, clip and division as
+    ``core/vjp.py`` gives them; a ``where`` passes the cotangent to the
+    branch it took and exact zeros to the other; months has derivative
+    1). Every product of the chain rule is taken, also where
     a cotangent is 0, so NaN and inf land where ``jax.grad`` puts them: a
     term whose clip is inactive still sends NaN into the features of a 0
     denominator. The contributions to a feature are summed term by term,
@@ -144,12 +122,12 @@ def lcld_smooth_vjp(u: torch.Tensor, ct_g: torch.Tensor, tol: float):
     g = torch.clamp(pre, min=0.0)
 
     # backward, term by term
-    c_all = _clip_vjp(pre, ct_g)
+    c_all = clip_vjp(pre, ct_g)
     c = lambda k: c_all[..., k]  # noqa: E731
     # g1: |x3 - installment(x0, x1, x2)|
-    c_v = _abs_vjp(v1, c(0))
+    c_v = abs_vjp(v1, c(0))
     add(3, c_v)
-    c_p2, c_dn = _div_vjp(-c_v, p2, dn)
+    c_p2, c_dn = div_vjp(-c_v, p2, dn)
     c_growth = c_p2 * p1 + c_dn
     c_p1 = c_p2 * growth
     add(0, c_p1 * r)
@@ -161,34 +139,34 @@ def lcld_smooth_vjp(u: torch.Tensor, ct_g: torch.Tensor, tol: float):
     add(16, c(2))
     add(11, -c(2))
     # g4: |(36 - x1)(60 - x1)|
-    c_v = _abs_vjp(v4, c(3))
+    c_v = abs_vjp(v4, c(3))
     add(1, -(c_v * b4))
     add(1, -(c_v * a4))
     # g5, g6: ratio equalities
     for k, v, num, d, out in ((4, v5, 0, 6, 20), (5, v6, 10, 14, 21)):
-        c_v = _abs_vjp(v, c(k))
+        c_v = abs_vjp(v, c(k))
         add(out, c_v)
-        c_num, c_den = _div_vjp(-c_v, x(num), x(d))
+        c_num, c_den = div_vjp(-c_v, x(num), x(d))
         add(num, c_num)
         add(d, c_den)
     # g7: month count; months' derivative is 1
-    c_v = _abs_vjp(v7, c(6))
+    c_v = abs_vjp(v7, c(6))
     add(22, c_v)
     add(7, -c_v)
     add(9, -(-c_v))
     # g8, g9: ratios over x22
     for k, v, num, out in ((7, v8, 11, 23), (8, v9, 16, 24)):
-        c_v = _abs_vjp(v, c(k))
+        c_v = abs_vjp(v, c(k))
         add(out, c_v)
-        c_num, c_den = _div_vjp(-c_v, x(num), x(22))
+        c_num, c_den = div_vjp(-c_v, x(num), x(22))
         add(num, c_num)
         add(22, c_den)
     # g10: x16 / x11 with the -1 sentinel; a where passes 0 to the branch
     # it did not take
-    c_v = _abs_vjp(v10, c(9))
+    c_v = abs_vjp(v10, c(9))
     add(25, c_v)
     c_div = torch.where(ok, torch.where(fin10, -c_v, 0.0), 0.0)
-    c_num, c_den = _div_vjp(c_div, x(16), den10)
+    c_num, c_den = div_vjp(c_div, x(16), den10)
     add(16, c_num)
     add(11, torch.where(ok, c_den, 0.0))
     return g, ct

@@ -19,8 +19,9 @@ In the order a generation launches them:
   plain versions ``survival.survive_fill_plain``,
   ``engine.extract_archive_plain`` and ``engine.archive_select_plain``.
 
-And, for constrained PGD, ``pgd_lcld`` (K7, ``csrc/pgd_lcld.cu``): every
-iteration of one run on the LCLD domain; plain version
+And, for constrained PGD, ``pgd_lcld`` (K7, ``csrc/pgd_lcld.cu``) and
+``pgd_botnet`` (K7b, ``csrc/pgd_botnet.cu``): every iteration of one run on
+the LCLD or the botnet domain; plain version
 ``attacks.pgd.engine.pgd_run_plain``.
 
 The wrappers take CUDA tensors only and raise on anything the kernel does
@@ -44,7 +45,7 @@ _LAUNCHES = {
     name: 0
     for name in (
         "offspring", "objective_lcld", "nd_peel", "survive_norm", "associate", "survive_fill",
-        "pgd_lcld", "objective_botnet",
+        "pgd_lcld", "objective_botnet", "pgd_botnet",
     )
 }
 
@@ -214,6 +215,20 @@ def objective_lcld(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, ob
 BOTNET_MAX_WIDTH = 64
 
 
+def _botnet_counts(cons, kernel: str, where: str) -> list:
+    """The segment counts of the botnet gather tables ``cons`` (a
+    ``domains.botnet.BotnetTables``) that ``kernel`` reads from ``where``;
+    raises unless they have its layout."""
+    counts = [int(c) for c in getattr(cons, "counts", ())]
+    if (len(counts) != 12 or min(counts[:4]) < 1 or min(counts) < 0
+            or any(counts[k] != counts[k + 1] for k in range(4, 12, 2))):
+        raise ValueError(
+            f"{kernel} takes the botnet gather tables (BotnetTables) in {where}: non-empty flow and bytes lists and "
+            f"paired ratio and ordering lists, got counts {counts}"
+        )
+    return counts
+
+
 def objective_botnet(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj):
     """Kernel K8: (S, N, 3) float32 objectives ``[f1, f2, Σ violations]``
     of the botnet candidates ``x_gen`` (S, N, L), the arguments of
@@ -236,13 +251,7 @@ def objective_botnet(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, 
             f"units, a first width that is a multiple of 4 and 1 or 2 classes, got widths {widths}"
         )
     cons = obj.cons
-    counts = [int(c) for c in getattr(cons, "counts", ())]
-    if (len(counts) != 12 or min(counts[:4]) < 1 or min(counts) < 0
-            or any(counts[k] != counts[k + 1] for k in range(4, 12, 2))):
-        raise ValueError(
-            "objective_botnet takes the botnet gather tables (BotnetTables) in obj.cons: non-empty flow and "
-            f"bytes lists and paired ratio and ordering lists, got counts {counts}"
-        )
+    counts = _botnet_counts(cons, "objective_botnet", "obj.cons")
     n_params = sum(w.numel() + b.numel() for w, b in obj.layers)
     _check(x_gen, "x_gen", (s, n, l))
     for name, t in (("x_init_ml", x_init_ml), ("xl_ml", xl_ml), ("xu_ml", xu_ml), ("x_init_mm", x_init_mm)):
@@ -458,6 +467,38 @@ def associate(f, dirs, ideal, nadir):
     return niche, dist
 
 
+def _check_pgd_run(tables, sched, x_init, y, x_start) -> None:
+    """The checks of the arguments K7 and K7b take alike: (N, D) float32
+    rows, (N,) int64 labels, the stack's flat weights, the (D,) scaler and
+    mask and a ``PgdSchedule`` of T rows."""
+    n, d = x_init.shape
+    t = sched.step.numel()
+    _check(x_init, "x_init", (n, d))
+    _check(x_start, "x_start", (n, d))
+    _check(y, "y", (n,), torch.int64)
+    _check(tables.params, "params", (sum(w.numel() + b.numel() for w, b in tables.layers),))
+    _check(tables.scale, "scale", (d,))
+    _check(tables.min_, "min_", (d,))
+    _check(tables.mutable, "mutable", (d,), torch.bool)
+    for name in ("w_class", "w_cons", "step"):
+        _check(getattr(sched, name), name, (t,))
+    _check(sched.ctr, "ctr", (t,), torch.int32)
+
+
+def _pgd_outputs(n: int, d: int, t: int, n_terms: int, norm_inf: bool, repair: bool, targeted: bool, record, dev):
+    """``(x_adv, pred, hist, history columns, flags)`` of a PGD kernel's
+    launch: the outputs on ``dev`` and the flags both kernels read (1 =
+    L-inf, 2 = repair, 4 = targeted, 8 = the grad-norm column, 16 = the
+    set's ``n_terms`` violations)."""
+    x_adv = torch.empty((n, d), dtype=torch.float32, device=dev)
+    pred = torch.empty((n,), dtype=torch.int64, device=dev)
+    cols = 0 if record is None else 3 + bool(record[0]) + (n_terms if record[1] else 0)
+    hist = None if record is None else torch.empty((t, n, cols), dtype=torch.float32, device=dev)
+    flags = (int(norm_inf) | int(repair) << 1 | int(targeted) << 2
+             | (0 if record is None else int(bool(record[0])) << 3 | int(bool(record[1])) << 4))
+    return x_adv, pred, hist, cols, flags
+
+
 def pgd_lcld(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_inf: bool, repair: bool,
              targeted: bool, record=None):
     """Kernel K7: one constrained PGD run on LCLD rows, ``(x_adv (N, 47)
@@ -477,20 +518,10 @@ def pgd_lcld(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_in
     n, d = x_init.shape
     t = sched.step.numel()
     widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
-    n_params = sum(w.numel() + b.numel() for w, b in tables.layers)
-    _check(x_init, "x_init", (n, d))
-    _check(x_start, "x_start", (n, d))
-    _check(y, "y", (n,), torch.int64)
-    _check(tables.params, "params", (n_params,))
-    _check(tables.scale, "scale", (d,))
-    _check(tables.min_, "min_", (d,))
-    _check(tables.mutable, "mutable", (d,), torch.bool)
+    _check_pgd_run(tables, sched, x_init, y, x_start)
     if tables.ohe.dim() != 2:
         raise ValueError(f"ohe must be (G, K), got {tuple(tables.ohe.shape)}")
     _check(tables.ohe, "ohe", tuple(tables.ohe.shape), torch.int32)
-    for name in ("w_class", "w_cons", "step"):
-        _check(getattr(sched, name), name, (t,))
-    _check(sched.ctr, "ctr", (t,), torch.int32)
     if d != 47:
         raise ValueError(f"pgd_lcld takes LCLD's 47 features, got {d}")
     if widths[0] != d or not 1 <= widths[-1] <= 2:
@@ -507,12 +538,7 @@ def pgd_lcld(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_in
                       *sched)
     ins = [t_.contiguous() for t_ in (x_init, x_start, y, tables.mutable, tables.params, tables.scale, tables.min_,
                                       tables.ohe, *sched)]
-    x_adv = torch.empty((n, d), dtype=torch.float32, device=dev)
-    pred = torch.empty((n,), dtype=torch.int64, device=dev)
-    cols = 0 if record is None else 3 + bool(record[0]) + (10 if record[1] else 0)
-    hist = None if record is None else torch.empty((t, n, cols), dtype=torch.float32, device=dev)
-    flags = (int(norm_inf) | int(repair) << 1 | int(targeted) << 2
-             | (0 if record is None else int(bool(record[0])) << 3 | int(bool(record[1])) << 4))
+    x_adv, pred, hist, cols, flags = _pgd_outputs(n, d, t, 10, norm_inf, repair, targeted, record, dev)
     c_widths = (ctypes.c_int * len(widths))(*widths)
     lo, hi = clip
     with torch.cuda.device(dev):
@@ -524,4 +550,65 @@ def pgd_lcld(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_in
         )
     _raise_on_error(lib, err, "pgd_lcld")
     _LAUNCHES["pgd_lcld"] += 1
+    return x_adv, pred, hist
+
+
+def pgd_botnet(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_inf: bool, repair: bool,
+               targeted: bool, record=None):
+    """Kernel K7b: one constrained PGD run on botnet rows, ``(x_adv (N, 756)
+    float32, pred (N,) int64, hist)``, the semantics of
+    ``attacks.pgd.engine.pgd_run_plain`` with ``BotnetConstraints``: the
+    arguments of :func:`pgd_lcld`, with ``tables.cons`` the set's gather
+    and inverse tables (``domains.botnet.BotnetTables``) and
+    ``tables.first_t`` the first layer transposed. It takes a relu stack of
+    756 inputs, 2 to K1's most layers of at most ``BOTNET_MAX_WIDTH`` units
+    and 1 or 2 classes; ``hist`` holds the set's terms with ``record[1]``.
+    The kernel reads any label but 0 and 1 as neither class, as K7 does."""
+    from .build import library
+
+    if x_init.dim() != 2:
+        raise ValueError(f"x_init must be (N, D), got {tuple(x_init.shape)}")
+    n, d = x_init.shape
+    t = sched.step.numel()
+    widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
+    if d != 756:
+        raise ValueError(f"pgd_botnet takes botnet's 756 features, got {d}")
+    if widths[0] != d or len(widths) < 3 or max(widths[1:-1]) > BOTNET_MAX_WIDTH or not 1 <= widths[-1] <= 2:
+        raise ValueError(
+            f"pgd_botnet takes a {d}-input stack of at least 2 layers of at most {BOTNET_MAX_WIDTH} units and 1 "
+            f"or 2 classes, got widths {widths}"
+        )
+    cons = tables.cons
+    counts = _botnet_counts(cons, "pgd_botnet", "tables.cons")
+    _check_pgd_run(tables, sched, x_init, y, x_start)
+    _check(tables.first_t, "first_t", (d, widths[1]))
+    _check(cons.index, "gather lists", (sum(counts),), torch.int32)
+    if cons.inverse.dim() != 2:
+        raise ValueError(f"the inverse table must be (D, degree), got {tuple(cons.inverse.shape)}")
+    degree = cons.inverse.shape[1]
+    _check(cons.inverse, "inverse table", (d, degree), torch.int32)
+    lib = library()
+    if len(widths) - 1 > lib.moeva_objective_max_layers():
+        raise ValueError(f"pgd_botnet takes at most {lib.moeva_objective_max_layers()} layers, got widths {widths}")
+    if not 1 <= degree <= lib.moeva_pgd_botnet_max_degree():
+        raise ValueError(f"pgd_botnet takes 1 to {lib.moeva_pgd_botnet_max_degree()} entries per feature, "
+                         f"got {degree}")
+    dev = _one_device(x_init, x_start, y, tables.params, tables.first_t, tables.scale, tables.min_,
+                      tables.mutable, cons.index, cons.inverse, *sched)
+    ins = [t_.contiguous() for t_ in (x_init, x_start, y, tables.mutable, tables.params, tables.first_t,
+                                      tables.scale, tables.min_, cons.index, cons.inverse, *sched)]
+    x_adv, pred, hist, cols, flags = _pgd_outputs(n, d, t, 2 + sum(counts[4::2]), norm_inf, repair, targeted,
+                                                  record, dev)
+    c_widths = (ctypes.c_int * len(widths))(*widths)
+    c_counts = (ctypes.c_int * len(counts))(*counts)
+    lo, hi = clip
+    with torch.cuda.device(dev):
+        err = lib.moeva_pgd_botnet_f32(
+            *(u.data_ptr() for u in ins[:6]), c_widths, len(widths) - 1,
+            *(u.data_ptr() for u in ins[6:9]), c_counts, ins[9].data_ptr(), degree,
+            *(u.data_ptr() for u in ins[10:]), x_adv.data_ptr(), pred.data_ptr(), _ptr(hist), cols, n, t,
+            float(eps), float(lo), float(hi), float(tables.tol), flags, _stream(dev),
+        )
+    _raise_on_error(lib, err, "pgd_botnet")
+    _LAUNCHES["pgd_botnet"] += 1
     return x_adv, pred, hist

@@ -220,6 +220,53 @@ int moeva_objective_botnet_f32(const void* x_gen, const void* x_init,
 
 int moeva_objective_botnet_max_features() { return objective_botnet_max_features(); }
 
+int moeva_pgd_botnet_f32(const void* x_init, const void* x_start, const void* y,
+                         const void* mutable_, const void* params,
+                         const void* first_t, const int* widths, int n_layers,
+                         const void* scale, const void* min_, const void* cons,
+                         const int* counts, const void* inverse, int degree,
+                         const void* w_class, const void* w_cons,
+                         const void* step, const void* ctr, void* x_adv,
+                         void* pred, void* hist, int hist_cols, int n, int t,
+                         float eps, float lo, float hi, float tol, int flags,
+                         void* stream) {
+  if (n_layers < 1 || n_layers > kObjectiveMaxLayers)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PgdBotnetArgs args{};
+  args.x_init = static_cast<const float*>(x_init);
+  args.x_start = static_cast<const float*>(x_start);
+  args.y = static_cast<const int64_t*>(y);
+  args.mutable_ = static_cast<const bool*>(mutable_);
+  args.params = static_cast<const float*>(params);
+  args.first_t = static_cast<const float*>(first_t);
+  args.scale = static_cast<const float*>(scale);
+  args.min_ = static_cast<const float*>(min_);
+  args.cons = static_cast<const int32_t*>(cons);
+  for (int k = 0; k < kBotnetSegments; ++k) args.counts[k] = counts[k];
+  args.inverse = static_cast<const int32_t*>(inverse);
+  args.degree = degree;
+  args.w_class = static_cast<const float*>(w_class);
+  args.w_cons = static_cast<const float*>(w_cons);
+  args.step = static_cast<const float*>(step);
+  args.ctr = static_cast<const int32_t*>(ctr);
+  args.x_adv = static_cast<float*>(x_adv);
+  args.pred = static_cast<int64_t*>(pred);
+  args.hist = static_cast<float*>(hist);
+  args.hist_cols = hist_cols;
+  args.n = n;
+  args.t = t;
+  args.flags = flags;
+  args.eps = eps;
+  args.lo = lo;
+  args.hi = hi;
+  args.tol = tol;
+  args.n_layers = n_layers;
+  for (int k = 0; k <= n_layers; ++k) args.widths[k] = widths[k];
+  return static_cast<int>(
+      launch_pgd_botnet(args, static_cast<cudaStream_t>(stream)));
+}
+
+
 int moeva_nd_peel_max_candidates() { return kNdPeelMaxCandidates; }
 
 int moeva_associate_max_directions() { return kAssociateMaxDirections; }
@@ -233,6 +280,8 @@ int moeva_objective_max_width() { return kObjectiveMaxWidth; }
 int moeva_objective_max_layers() { return kObjectiveMaxLayers; }
 
 int moeva_pgd_max_ohe_slots() { return kPgdMaxOheSlots; }
+
+int moeva_pgd_botnet_max_degree() { return kPgdBotnetMaxDegree; }
 
 const char* moeva_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -34,9 +34,10 @@ SOURCES = (
     "csrc/associate.cu",
     "csrc/survive_fill.cu",
     "csrc/pgd_lcld.cu",
+    "csrc/pgd_botnet.cu",
     "bindings.cpp",
 )
-HEADERS = ("csrc/kernels.h",)
+HEADERS = ("csrc/kernels.h", "csrc/pgd_common.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-O3",
@@ -152,10 +153,16 @@ def library() -> ctypes.CDLL:
         [ptr] * 13 + [ctypes.POINTER(i32), ctypes.POINTER(i32), i32, f32, i32, f32, ptr] + [i32] * 4 + [ptr]
     )
     lib.moeva_objective_botnet_f32.restype = i32
+    lib.moeva_pgd_botnet_f32.argtypes = (
+        [ptr] * 6 + [ctypes.POINTER(i32), i32] + [ptr] * 3 + [ctypes.POINTER(i32), ptr, i32] + [ptr] * 7
+        + [i32] * 3 + [f32] * 4 + [i32, ptr]
+    )
+    lib.moeva_pgd_botnet_f32.restype = i32
     for name in (
         "moeva_nd_peel_max_candidates", "moeva_associate_max_directions", "moeva_survive_max_candidates",
         "moeva_objective_max_params", "moeva_objective_max_width",
         "moeva_objective_max_layers", "moeva_pgd_max_ohe_slots", "moeva_objective_botnet_max_features",
+        "moeva_pgd_botnet_max_degree",
     ):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32

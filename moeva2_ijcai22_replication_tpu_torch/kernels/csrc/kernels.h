@@ -254,3 +254,43 @@ cudaError_t launch_objective_botnet(BotnetObjectiveArgs args, cudaStream_t strea
 // The most features objective_botnet takes: a tile's features and the first
 // layer's double buffers fit one block's shared memory.
 int objective_botnet_max_features();
+
+// pgd_botnet: botnet's feature count, the threads of a block, the most rows
+// a block takes (rows * the first layer's width, at most kBotnetMaxWidth,
+// fit its threads), and the most entries per feature of the inverse table.
+constexpr int kBotnetFeatures = 756;
+constexpr int kPgdBotnetThreads = 256;
+constexpr int kPgdBotnetMaxRows = 4;
+constexpr int kPgdBotnetMaxDegree = 16;
+
+// pgd_botnet's arguments: pgd_lcld's (the same flags) for (N, 756) rows,
+// with the first layer's transposed copy and the 360 terms' gather lists
+// (objective_botnet's layout) and their inverse.
+struct PgdBotnetArgs {
+  const float* x_init;    // (N, D)
+  const float* x_start;   // (N, D)
+  const int64_t* y;       // (N,) labels
+  const bool* mutable_;   // (D,)
+  const float* params;    // each layer's weight (out, in), then its bias
+  const float* first_t;   // (D, widths[1]) the first layer's weight transposed
+  const float* scale;     // (D,) x_scaled = x * scale + min_
+  const float* min_;      // (D,)
+  const int32_t* cons;    // the gather lists, segments of `counts`
+  int counts[kBotnetSegments];
+  const int32_t* inverse; // (D, degree) entries of each feature in term order, -1 after them
+  int degree;
+  const float* w_class;   // (T,) schedule
+  const float* w_cons;    // (T,)
+  const float* step;      // (T,)
+  const int32_t* ctr;     // (T,) term optimised, -1 = their sum
+  float* x_adv;           // (N, D) out
+  int64_t* pred;          // (N,) out: class at x_adv
+  float* hist;            // (T, N, hist_cols) out, or null
+  int n, t, hist_cols, flags;
+  float eps, lo, hi, tol;
+  int n_layers;
+  int widths[kObjectiveMaxLayers + 1];
+  int rows;               // rows per block, set by the launcher
+};
+
+cudaError_t launch_pgd_botnet(PgdBotnetArgs args, cudaStream_t stream);

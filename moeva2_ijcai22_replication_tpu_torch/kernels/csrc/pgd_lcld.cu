@@ -55,9 +55,7 @@
 // the scalar chains that have one order: the cross-entropy, the ten terms
 // and their backward, the left-to-right sums and the repair.
 
-#include <cmath>
-
-#include "kernels.h"
+#include "pgd_common.cuh"
 
 namespace {
 
@@ -74,34 +72,6 @@ struct PgdLayout {
   int max_width;                   // the widest layer (and the input)
   int warp_floats;                 // a warp's slice
 };
-
-__device__ __forceinline__ int padded_stride(int in_w) { return in_w | 1; }
-
-__device__ __forceinline__ float relu_keep_nan(float x) {
-  return !(x > 0.0f) && !isnan(x) ? 0.0f : x;
-}
-
-__device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
-  return nan_min(nan_max(x, lo), hi);
-}
-
-__device__ __forceinline__ float exp_rn(float x) { return __double2float_rn(exp(static_cast<double>(x))); }
-
-// jax.grad's abs: the cotangent where v >= 0, its negation elsewhere
-__device__ __forceinline__ float abs_vjp(float v, float ct) { return v >= 0.0f ? ct : -ct; }
-
-// jnp.clip(v, 0, inf)'s cotangent: (ct * minimum's factor) * maximum's
-__device__ __forceinline__ float clip_vjp(float v, float ct) {
-  const float lo = v == INFINITY ? 0.5f : (isnan(v) ? 0.0f : 1.0f);
-  const float hi = v > 0.0f ? 1.0f : (v == 0.0f ? 0.5f : 0.0f);
-  return __fmul_rn(__fmul_rn(ct, lo), hi);
-}
-
-// cotangents of num / den: ct / den and -((ct * (1 / (den * den))) * num)
-__device__ __forceinline__ void div_vjp(float ct, float num, float den, float& c_num, float& c_den) {
-  c_num = __fdiv_rn(ct, den);
-  c_den = -__fmul_rn(__fmul_rn(ct, __fdiv_rn(1.0f, __fmul_rn(den, den))), num);
-}
 
 // the relu stack on the warp's row `in` (47 floats); activations of layers
 // 1..L, logits last, into `act`
@@ -173,34 +143,6 @@ __device__ __forceinline__ void mlp_backward(const PgdArgs& a, const PgdLayout& 
   }
 }
 
-// Lane 0: the cross-entropy at the logits `lg` and its cotangent into
-// `ct_l`; returns loss_class
-__device__ __forceinline__ float cross_entropy(const PgdArgs& a, const float* lg, int yv, float wc, float* ct_l) {
-  const int c = a.widths[a.n_layers];
-  const bool targeted = a.flags & 4;
-  const float l0 = lg[0];
-  const float l1 = c == 2 ? lg[1] : 0.0f;
-  const float mx = c == 2 ? nan_max(l0, l1) : l0;
-  const float s0 = __fsub_rn(l0, mx);
-  const float s1 = __fsub_rn(l1, mx);
-  const float e0 = exp_rn(s0);
-  const float e1 = exp_rn(s1);
-  const float tot = c == 2 ? __fadd_rn(e0, e1) : e0;
-  const float lse = __double2float_rn(log(static_cast<double>(tot)));
-  const float y0 = yv == 0 ? 1.0f : 0.0f;
-  const float y1 = yv == 1 ? 1.0f : 0.0f;
-  const float p0 = __fmul_rn(y0, __fsub_rn(s0, lse));
-  const float sum = c == 2 ? __fadd_rn(p0, __fmul_rn(y1, __fsub_rn(s1, lse))) : p0;
-  const float ce = -sum;
-  const float cs = targeted ? wc : -wc;
-  const float cl0 = __fmul_rn(cs, y0);
-  const float cl1 = __fmul_rn(cs, y1);
-  const float c_total = __fdiv_rn(c == 2 ? __fadd_rn(-cl0, -cl1) : -cl0, tot);
-  ct_l[0] = __fadd_rn(cl0, __fmul_rn(c_total, e0));
-  if (c == 2) ct_l[1] = __fadd_rn(cl1, __fmul_rn(c_total, e1));
-  return targeted ? -ce : ce;
-}
-
 // Lane 0: the smooth violations g of the unscaled row u and the cotangent
 // of u into ct (zeroed by the caller), lcld_smooth_vjp's operations in its
 // order; ct_g[k] is -w_cons for the optimised terms and 0 for the others
@@ -248,7 +190,7 @@ __device__ __forceinline__ void lcld_terms_vjp(const float* u, float* ct, float 
   float c[kTerms];
 #pragma unroll
   for (int k = 0; k < kTerms; ++k) {
-    g[k] = isnan(pre[k]) ? pre[k] : fmaxf(pre[k], 0.0f);
+    g[k] = clip_smooth(pre[k]);
     c[k] = clip_vjp(pre[k], ctr < 0 || ctr == k ? ct_cons : 0.0f);
   }
   float c_num, c_den;
@@ -399,7 +341,7 @@ pgd_lcld_kernel(const PgdArgs a, const PgdLayout lay) {
     mlp_forward(a, lay, ws, X, ACT, lane);
     if (lane == 0) {
       float g[kTerms];
-      const float lc = cross_entropy(a, logits, yv, wc, CTA);
+      const float lc = cross_entropy(a.widths[a.n_layers], a.flags & 4, logits, yv, wc, CTA);
       lcld_terms_vjp(U, CU, a.tol, ctr, -wk, g);
       float cons = g[0];
 #pragma unroll
@@ -483,21 +425,7 @@ pgd_lcld_kernel(const PgdArgs a, const PgdLayout lay) {
 
   // the class at x_adv: mlp_proba_plain's probabilities, the first largest
   mlp_forward(a, lay, ws, X, ACT, lane);
-  if (lane == 0) {
-    float p0, p1;
-    if (a.widths[a.n_layers] == 1) {
-      p1 = __fdiv_rn(1.0f, __fadd_rn(1.0f, exp_rn(-logits[0])));
-      p0 = __fsub_rn(1.0f, p1);
-    } else {
-      const float mx = nan_max(logits[0], logits[1]);
-      const float e0 = exp_rn(__fsub_rn(logits[0], mx));
-      const float e1 = exp_rn(__fsub_rn(logits[1], mx));
-      const float sum = __fadd_rn(e0, e1);
-      p0 = __fdiv_rn(e0, sum);
-      p1 = __fdiv_rn(e1, sum);
-    }
-    a.pred[row] = p1 > p0 || (isnan(p1) && !isnan(p0)) ? 1 : 0;
-  }
+  if (lane == 0) a.pred[row] = predicted_class(a.widths[a.n_layers], logits);
   for (int k = lane; k < kD; k += 32) a.x_adv[r0 + k] = X[k];
 }
 

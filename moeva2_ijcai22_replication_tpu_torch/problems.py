@@ -5,8 +5,11 @@ problems ``chip_smoke.py`` drives and profiles: a code-derived schema,
 feasible synthetic states, a seeded surrogate (64-32-16-2 for LCLD,
 64-64-32-2 for botnet) and a MinMax scaler over the data and the feature
 bounds (so attacked candidates at their bounds stay in [0, 1] for the
-judgement). ``botnet_hard_candidates`` puts the botnet terms' edge cases
-into candidates, for the checks of kernel K8 against its plain version.
+judgement). ``synthetic_botnet_pgd_problem`` adds the scaled rows and the
+labels constrained PGD takes on botnet. ``botnet_hard_candidates`` puts the
+botnet terms' edge cases into candidates, for the checks of kernel K8
+against its plain version, and ``botnet_edge_starts`` into PGD starts, for
+kernel K7b's.
 """
 
 from __future__ import annotations
@@ -74,3 +77,77 @@ def botnet_hard_candidates(codec, names, x_gen: torch.Tensor) -> torch.Tensor:
     x[:, 8::9, col["bytes_out_sum_d_p4"]] = 0.0
     x[:, 8::9, col["pkts_out_sum_d_p4"]] = 0.0
     return x
+
+
+def synthetic_botnet_pgd_problem(out_dir: str, n_states: int, seed: int = 42, model_seed: int = 7):
+    """(constraints, surrogate, scaler, x, x_scaled, y): the rows of
+    :func:`synthetic_botnet_problem`, scaled, and labels from the surrogate,
+    its own classes of the scaled rows in float32, as ``experiments/pgd.py``
+    takes them (ART infers labels when none are given)."""
+    cons, sur, scaler, x = synthetic_botnet_problem(out_dir, n_states, seed, model_seed)
+    xs = scaler.transform(x)
+    with torch.inference_mode():
+        y = sur.predict_proba(torch.as_tensor(xs, dtype=torch.float32)).argmax(-1).numpy()
+    return cons, sur, scaler, x, xs, y
+
+
+def scaled_preimage(target: float, k: int, scale, min_, dtype=np.float32):
+    """A scaled value of feature ``k`` in ``dtype`` whose unscaling ``(x -
+    min_) / scale`` in ``dtype`` is exactly ``dtype(target)``."""
+    want, sc, mn = dtype(target), dtype(scale[k]), dtype(min_[k])
+    x0 = dtype(want * sc + mn)
+    up = down = x0
+    for c in [x0] + [None] * 512:
+        if c is None:
+            up = np.nextafter(up, dtype(np.inf), dtype=dtype)
+            down = np.nextafter(down, dtype(-np.inf), dtype=dtype)
+            cands = (up, down)
+        else:
+            cands = (c,)
+        for v in cands:
+            if dtype(dtype(v - mn) / sc) == want:
+                return v
+    raise AssertionError(f"no {np.dtype(dtype).name} scaled value of feature {k} unscales to {target}")
+
+
+#: rows of :func:`botnet_edge_starts` at the terms' edges
+BOTNET_EDGE_ROWS = 12
+
+
+def botnet_edge_starts(names, scaler, xs: np.ndarray, dtype=np.float32) -> np.ndarray:
+    """Copies in ``dtype`` of the scaled botnet rows ``xs`` whose first
+    ``BOTNET_EDGE_ROWS`` rows hold the terms' edge cases, each unscaled
+    value exact in ``dtype``: packets of 0 with bytes (the ratio's 0
+    sentinel), NaN packets, an infinite protocol sum, inf - inf in a flow
+    equality, an ordering exactly at the tolerance, a flow equality at
+    exactly +0 inside its abs and one exactly at the tolerance, bytes of
+    exactly 1500 per packet, 0 bytes with 0 packets, and features at the clip
+    bounds (a row rounded to {0, 1}, a row of 0s, a row of 1s). The features
+    are named as ``synth_botnet_schema`` names them."""
+    col = {name: k for k, name in enumerate(names)}
+    st = np.array(xs, dtype)
+
+    def put(row, name, value):
+        k = col[name]
+        st[row, k] = value if not np.isfinite(value) else scaled_preimage(value, k, scaler.scale, scaler.min_, dtype)
+
+    put(0, "pkts_out_sum_s_p0", 0.0)
+    put(1, "pkts_out_sum_d_p1", np.nan)
+    put(2, "icmp_sum_s_p0", np.inf)
+    put(3, "udp_sum_d_p0", np.inf)
+    put(3, "bytes_in_sum_d_p0", np.inf)
+    put(4, "duration_sum_s_p2", 0.0)  # min <= sum, min at exactly the tolerance
+    put(4, "duration_min_s_p2", 1e-3)
+    flows_s = [n for n in names if n.split("_p")[0] in ("icmp_sum_s", "udp_sum_s", "tcp_sum_s", "bytes_in_sum_s",
+                                                           "bytes_out_sum_s")]
+    for row in (5, 6):
+        for name in flows_s:
+            put(row, name, 0.0)
+    put(6, "tcp_sum_s_p7", 1e-3)  # |Σ flows - Σ bytes| exactly at the tolerance
+    put(7, "pkts_out_sum_s_p3", 2.0)
+    put(7, "bytes_out_sum_s_p3", 3000.0)
+    put(8, "pkts_out_sum_d_p4", 0.0)
+    put(8, "bytes_out_sum_d_p4", 0.0)
+    st[9] = np.round(st[9])
+    st[10], st[11] = 0.0, 1.0
+    return st

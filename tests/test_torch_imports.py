@@ -29,7 +29,7 @@ def _port_modules():
 def test_port_has_every_module_of_the_slice():
     mods = set(_port_modules())
     for name in (
-        "core.schema", "core.codec", "core.norms", "core.constraints",
+        "core.schema", "core.codec", "core.norms", "core.constraints", "core.vjp",
         "domains.synth", "domains.lcld", "domains.botnet", "models.scalers", "models.mlp",
         "models.io", "attacks.objective", "attacks.moeva.refdirs",
         "attacks.moeva.initialisation", "attacks.moeva.operators",

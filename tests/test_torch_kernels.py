@@ -34,7 +34,8 @@ from moeva2_ijcai22_replication_tpu_torch.kernels import build
 from moeva2_ijcai22_replication_tpu_torch.models.io import Surrogate
 from moeva2_ijcai22_replication_tpu_torch.models.mlp import MLP
 from moeva2_ijcai22_replication_tpu_torch.problems import (
-    botnet_hard_candidates, synthetic_botnet_problem, synthetic_lcld_problem,
+    botnet_edge_starts, botnet_hard_candidates, synthetic_botnet_pgd_problem, synthetic_botnet_problem,
+    synthetic_lcld_problem,
 )
 
 # tier-1 runs several test processes side by side: one intra-op thread
@@ -482,6 +483,7 @@ def test_launch_counts_reset():
     assert kernels.launch_counts() == {
         "offspring": 0, "objective_lcld": 0, "nd_peel": 0,
         "survive_norm": 0, "associate": 0, "survive_fill": 0, "pgd_lcld": 0, "objective_botnet": 0,
+        "pgd_botnet": 0,
     }
 
 
@@ -721,4 +723,137 @@ def test_objective_botnet_refuses_cpu_tensors_and_wrong_widths(tmp_path):
             kernels.objective_botnet(cand, *args, obj)
     with pytest.raises(ValueError, match="botnet gather tables"):
         kernels.objective_botnet(cand, *args, eng._objective._replace(cons=None))
+    assert kernels.launch_counts() == before
+
+
+# -- K7b pgd_botnet ----------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def pgd_botnet_problem(tmp_path_factory):
+    """387 synthetic botnet states (rq1.botnet's count), the seeded
+    64-64-32-2 surrogate and its scaler; the scaled rows, and starts whose
+    first rows hold the terms' edge cases (``problems.botnet_edge_starts``)."""
+    cons, sur, scaler, _, xs, _ = synthetic_botnet_pgd_problem(str(tmp_path_factory.mktemp("pgd_botnet")), 387)
+    return cons, sur, scaler, xs.astype(np.float32), botnet_edge_starts(cons.schema.names, scaler, xs)
+
+
+PGD_BOTNET_CASES = (
+    dict(loss_evaluation="constraints+flip+adaptive_eps_step+repair", norm=2, record_loss="full",
+         record_grad_norm=True),
+    dict(loss_evaluation="flip", norm=np.inf, constraints_optim="alt_constraints", record_loss="reduced"),
+    dict(loss_evaluation="constraints+flip+alternate", norm=2, targeted=True),
+    dict(loss_evaluation="constraints", constraints_optim="single_constraints", ctr_id=200, norm=np.inf,
+         record_loss="full"),
+    dict(loss_evaluation="flip+repair", norm=2, record_loss="full", record_grad_norm=True),
+)
+
+
+def _pgd_botnet_args(card, xs, starts, n):
+    return (torch.as_tensor(xs[:n], device=card), torch.as_tensor(np.arange(n) % 2, device=card),
+            torch.as_tensor(starts[:n], device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t", [(1, 7), (33, 12), (387, 5)])
+@pytest.mark.parametrize("case", range(len(PGD_BOTNET_CASES)))
+def test_pgd_botnet_equals_plain(card, pgd_botnet_problem, case, n, t):
+    # a lone row, a block of one row and partial blocks of 3 rows at 387
+    cons, sur, scaler, xs, starts = pgd_botnet_problem
+    knobs = PGD_BOTNET_CASES[case]
+    eps = 0.3 if knobs["norm"] == 2 else 0.05
+    atk = ConstrainedPGD(sur, cons, scaler, eps=eps, eps_step=0.1, device=card, **knobs)
+    sched = atk.schedule(eps, 0.1, t)
+    args = _pgd_botnet_args(card, xs, starts, n)
+    repair, linf = "repair" in atk.loss_evaluation, knobs["norm"] == np.inf
+    before = kernels.launch_counts()
+    got = kernels.pgd_botnet(atk.tables, sched, *args, eps, atk.clip, linf, repair, atk.targeted,
+                             atk.history_layout())
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["pgd_botnet"] == before["pgd_botnet"] + 1 and after["pgd_lcld"] == before["pgd_lcld"]
+    want = pgd_run_plain(atk.tables, cons, sched, *args, eps, atk.clip, atk.norm, repair, atk.targeted,
+                         atk.history_layout())
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or _same(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,n_classes", [((64, 64, 32), 1), ((16, 64, 48, 5), 2), ((8,), 2)])
+def test_pgd_botnet_other_stacks_equal_plain(card, pgd_botnet_problem, hidden, n_classes):
+    cons, _, scaler, xs, starts = pgd_botnet_problem
+    model = MLP(756, hidden, n_classes).reset_parameters_seeded(3)
+    atk = ConstrainedPGD(Surrogate(model), cons, scaler, eps=0.3, eps_step=0.1, norm=2, device=card,
+                         loss_evaluation="constraints+flip+repair", record_loss="full")
+    sched = atk.schedule(0.3, 0.1, 6)
+    args = _pgd_botnet_args(card, xs, starts, 40)
+    got = kernels.pgd_botnet(atk.tables, sched, *args, 0.3, atk.clip, False, True, False, atk.history_layout())
+    want = pgd_run_plain(atk.tables, cons, sched, *args, 0.3, atk.clip, 2, True, False, atk.history_layout())
+    for g, w in zip(got, want):
+        assert _same(g, w)
+
+
+@pytest.mark.cuda
+def test_pgd_botnet_refuses_what_it_does_not_take(card, pgd_botnet_problem):
+    cons, sur, scaler, xs, _ = pgd_botnet_problem
+    atk = ConstrainedPGD(sur, cons, scaler, device=card, max_iter=3)
+    sched = atk.schedule(0.3, 0.1, 3)
+    xi = torch.as_tensor(xs[:8], device=card)
+    y = torch.zeros(8, dtype=torch.int64, device=card)
+    run = lambda tables, x, yy, st: kernels.pgd_botnet(  # noqa: E731
+        tables, sched, x, yy, st, 0.3, (0.0, 1.0), False, False, False)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        run(atk.tables, xi.cpu(), y, xi)
+    with pytest.raises(TypeError, match="float32"):
+        run(atk.tables, xi.double(), y, xi)
+    with pytest.raises(ValueError, match="shape"):
+        run(atk.tables, xi, y[:4], xi)
+    with pytest.raises(ValueError, match="756 features"):
+        run(atk.tables, xi[:, :700], y, xi[:, :700])
+    for hidden, head in (((128, 32), 2), ((64, 32), 3), ((), 2)):
+        wide = MLP(756, hidden, head).to(card)
+        layers = tuple((m.weight.detach(), m.bias.detach()) for m in wide.layers)
+        tables = atk.tables._replace(layers=layers, params=torch.cat([t.reshape(-1) for p in layers for t in p]),
+                                     first_t=layers[0][0].t().contiguous())
+        with pytest.raises(ValueError, match="pgd_botnet takes a 756-input stack"):
+            run(tables, xi, y, xi)
+    with pytest.raises(ValueError, match="botnet gather tables"):
+        run(atk.tables._replace(cons=None), xi, y, xi)
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_pgd_generate_on_botnet_is_one_k7b_launch_per_run(card, pgd_botnet_problem):
+    cons, sur, scaler, xs, _ = pgd_botnet_problem
+    y = np.arange(len(xs)) % 2
+    knobs = dict(eps=4.0 - 1e-6, eps_step=0.1, max_iter=20, norm=2,
+                 loss_evaluation="constraints+flip+adaptive_eps_step+repair")
+    kernels.reset_launch_counts()
+    a = ConstrainedPGD(sur, cons, scaler, device=card, **knobs).generate(xs, y)
+    assert kernels.launch_counts() == {**{k: 0 for k in kernels.launch_counts()}, "pgd_botnet": 1}
+    restarts = ConstrainedPGD(sur, cons, scaler, device=card, num_random_init=2, **knobs)
+    restarts.generate(xs, y)
+    assert kernels.launch_counts()["pgd_botnet"] == 3
+    cpu = ConstrainedPGD(sur, cons, scaler, device="cpu", **knobs).generate(xs, y)
+    assert ((a == cpu) | (np.isnan(a) & np.isnan(cpu))).all()
+
+
+def test_pgd_botnet_wrapper_refuses_cpu_tensors_and_other_stacks(tmp_path):
+    cons, sur, scaler, x, xs, y = synthetic_botnet_pgd_problem(str(tmp_path), 4)
+    atk = ConstrainedPGD(sur, cons, scaler, device="cpu", max_iter=2)
+    xi = torch.as_tensor(xs, dtype=torch.float32)
+    yt = torch.as_tensor(y)
+    run = lambda tables, x: kernels.pgd_botnet(  # noqa: E731
+        tables, atk.schedule(0.3, 0.1, 2), x, yt, x, 0.3, (0.0, 1.0), True, False, False)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        run(atk.tables, xi)
+    with pytest.raises(ValueError, match="756 features"):
+        run(atk.tables, xi[:, :47])
+    layers = tuple((m.weight.detach(), m.bias.detach()) for m in MLP(756, (128, 32), 2).layers)
+    with pytest.raises(ValueError, match="pgd_botnet takes a 756-input stack"):
+        run(atk.tables._replace(layers=layers), xi)
+    with pytest.raises(ValueError, match="botnet gather tables"):
+        run(atk.tables._replace(cons=None), xi)
     assert kernels.launch_counts() == before
