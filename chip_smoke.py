@@ -70,7 +70,12 @@ Phases, in order; any failure exits non-zero:
    sums, a ratio of exactly 1500, an ordering at -inf); K5, K2, K4a, K3 and
    K4b at L = 756 and (M, R) = (303, 203); K8 timed at 387 states x 100
    offspring beside its plain version, its bound, its no-FMA ceiling and
-   ``torch.matmul`` of its first layer alone; ``Moeva2.generate`` as
+   ``torch.matmul`` of its first layer alone, and at the shapes the path
+   launches it at (256 and 131 states x 100); K5 and K4b timed at those two
+   state counts, L = 756 and (M, R) = (303, 203), beside their bounds; each
+   timed at the path's shapes also held bit for bit on the inputs it is
+   timed on;
+   ``Moeva2.generate`` as
    ``config/rq1.botnet.yaml`` runs it (387 states, 1000 generations, pop
    200, 100 offspring, archive 24, L2, seed 42, chunks of 256) cold and
    steady, with its launch counts set to 0 just before and read just after;
@@ -435,6 +440,41 @@ NORM_OPS_PER_STATE = 135
 #: the 10 LCLD terms
 OBJECTIVE_OPS_PER_FEATURE = 7
 OBJECTIVE_OPS_PER_ROW = 60
+
+
+def offspring_work(tables, pop, xl, xu, n: int, draws):
+    """K5's (bytes, float32 operations, float64 operations, mutated genes)
+    on these inputs, counted from its source: it reads the parents' genes
+    the matings use, the bounds, the draws and mut_u where a gene mutates,
+    and writes the offspring."""
+    s, p, l = pop.shape
+    n_mat = (n + 1) // 2
+    n_parents = parent_rows(draws, p)
+    n_mutated = mutated_genes(tables, xl, xu, draws.mut_select)
+    n_bytes = (4 * n_parents * l + 8 * s * l + 16 * s * n_mat + 48 * s * n_mat + 12 * s * n_mat + 4 * s * n * l
+               + 4 * n_mutated + 25 * l + 4 * s * n * l)
+    n_ops = (OFFSPRING_OPS_PER_BOUND * s * l + OFFSPRING_OPS_PER_GENE * s * n * l
+             + OFFSPRING_OPS_PER_MUTATION * n_mutated)
+    return n_bytes, n_ops, OFFSPRING_POWS_PER_MUTATION * n_mutated, n_mutated
+
+
+def fill_work_bound(fill_args, extract, archive):
+    """K4b's (bytes, operations) for the fill, extraction and archive on
+    these inputs, counted from its source (``fill_work``, ``fill_rows_read``)."""
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import survive_fill_plain
+
+    gum_cut, _, ranks, niche, _, n_stop = fill_args
+    pop_x, _, _, off_f = extract
+    _, arch_f, _, _, n_arch = archive
+    s, m = ranks.shape
+    r, p, l, n = gum_cut.shape[1], pop_x.shape[1], pop_x.shape[2], off_f.shape[1]
+    n_avail, n_first = fill_work(ranks, niche, r, n_stop)
+    n_cand = arch_f.shape[1] + n
+    pop_rows, off_rows, arch_rows = fill_rows_read(survive_fill_plain(*fill_args), arch_f, off_f, n_arch)
+    n_bytes = (21 * s * m + 4 * s * r + 4 * l * (pop_rows + off_rows + arch_rows)
+               + 12 * (pop_rows + s * n + s * arch_f.shape[1]) + 4 * s * (p + n_arch) * (l + 3))
+    n_ops = s * (4 * m + 40 * r) + 3 * m * n_avail + 2 * m * n_first + 6 * s * n_cand * n_cand
+    return n_bytes, n_ops
 
 
 def check_kernels(device, moeva, x):
@@ -834,21 +874,17 @@ def time_kernels(device, moeva, t):
     m, r, n_stop = SWEEP_SHAPES[0]
     s, n, l = t["off"].shape
     p, a, d = n_stop, r - 3, moeva.codec.n_features
-    n_mat = (n + 1) // 2
     run, obj, tables = t["run"], moeva._objective, moeva.tables
     widths = [obj.layers[0][0].shape[1], *(w.shape[0] for w, _ in obj.layers)]
     macs = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
     n_params = sum(w.numel() + b.numel() for w, b in obj.layers)
     ranks_np = t["ranks"].cpu().numpy()
-    n_avail, n_first = fill_work(t["ranks"], t["niche"], r, n_stop)
-    n_cand, n_arch = 24 + n, 24
+    n_arch = 24
     fill_args = (t["gum_cut"], t["gum_mem"], t["ranks"], t["niche"], t["dist"], n_stop)
-    # rows of genes the two gathers must read on these inputs
-    n_parents = parent_rows(t["draws"], p)
-    n_mutated = mutated_genes(tables, t["xl"], t["xu"], t["draws"].mut_select)
-    pop_rows, off_rows, arch_rows = fill_rows_read(survive_fill_plain(*fill_args), t["arch_f"], t["f"][:, p:], n_arch)
     extract = (t["pop"], t["off"], t["f"][:, :p], t["f"][:, p:])
     archive = (t["arch_x"], t["arch_f"], t["off"], t["f"][:, p:], n_arch)
+    off_bytes, off_ops, off_ops_f64, n_mutated = offspring_work(tables, t["pop"], t["xl"], t["xu"], n, t["draws"])
+    fill_bytes, fill_ops = fill_work_bound(fill_args, extract, archive)
 
     def fill_plain():
         mask = survive_fill_plain(*fill_args)
@@ -859,10 +895,7 @@ def time_kernels(device, moeva, t):
         ("offspring", "csrc/offspring.cu", "attacks/moeva/operators.py:233",
          lambda: kernels.offspring(tables, t["pop"], t["xl"], t["xu"], n, t["draws"]),
          lambda: make_offspring_plain(tables, t["pop"], t["xl"], t["xu"], n, t["draws"]),
-         4 * n_parents * l + 8 * s * l + 16 * s * n_mat + 48 * s * n_mat + 12 * s * n_mat + 4 * s * n * l
-         + 4 * n_mutated + 25 * l + 4 * s * n * l,
-         OFFSPRING_OPS_PER_BOUND * s * l + OFFSPRING_OPS_PER_GENE * s * n * l
-         + OFFSPRING_OPS_PER_MUTATION * n_mutated, OFFSPRING_POWS_PER_MUTATION * n_mutated, 0.0),
+         off_bytes, off_ops, off_ops_f64, 0.0),
         ("objective_lcld", "csrc/objective_lcld.cu", "attacks/moeva/engine.py:452",
          lambda: kernels.objective_lcld(t["cand"], run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm,
                                         run.minimize_class, obj),
@@ -884,9 +917,7 @@ def time_kernels(device, moeva, t):
          4 * (s * m * 3 + s * r * 3 + 2 * s * 3) + 12 * s * m, 6 * s * m * r + 9 * s * r + 12 * s * m, 0, 0.0),
         ("survive_fill", "csrc/survive_fill.cu", "attacks/moeva/survival.py:351",
          lambda: kernels.survive_fill(*fill_args, extract=extract, archive=archive), fill_plain,
-         21 * s * m + 4 * s * r + 4 * l * (pop_rows + off_rows + arch_rows)
-         + 12 * (pop_rows + s * n + s * t["arch_f"].shape[1]) + 4 * s * (p + n_arch) * (l + 3),
-         s * (4 * m + 40 * r) + 3 * m * n_avail + 2 * m * n_first + 6 * s * n_cand * n_cand, 0, 0.0),
+         fill_bytes, fill_ops, 0, 0.0),
     )
     records = []
     for name, source, replaces, kfn, pfn, n_bytes, n_ops, n_ops_f64, err in specs:
@@ -1628,6 +1659,9 @@ BOTNET_STACKS = (((64, 64, 32), 1, 2, True), ((64, 64, 32), 2, "inf", False), ((
 #: state counts at which K5, K4b, K2, K4a and K3 are held at botnet's L = 756
 #: and (M, R) = (303, 203)
 BOTNET_STAGE_STATES = (387, 131)
+#: the state counts the botnet generate path launches its kernels at: the
+#: chunks max_states_per_call: 256 makes of 387 states
+BOTNET_PATH_STATES = (256, 131)
 #: states of the card-vs-CPU stage check
 BOTNET_STEP_STATES = 4
 #: float32 operations of K8 per row besides the stack's 2 per weight: 8 per
@@ -1701,53 +1735,111 @@ def check_botnet_kernel(device, moeva, x_sweep, gen):
         f"scaled) {BOTNET_STACKS}; {nonfinite} rows with a non-finite objective (the terms' edge cases)")
 
 
-def check_botnet_stages(device, moeva, x_sweep, gen, rng):
-    """K5, K2, K4a, K3 and K4b at botnet's L = 756 and (M, R) = (303, 203),
-    bit for bit against their plain versions."""
+def botnet_stage_inputs(device, moeva, x_sweep, gen, rng, s: int) -> dict:
+    """K5's, K2's, K4a's, K3's and K4b's inputs at botnet's L = 756 and
+    (M, R) = (303, 203) for ``s`` states: a population in the states'
+    bounds, offspring draws and K5's offspring, sweep objectives and their
+    ranks, two steps of the plain normalisation, K3's association, tied
+    gumbels and the archive."""
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
-    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import extract_archive_plain
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks_plain
-    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import draw_offspring, make_offspring_plain
-    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import (
-        NormState, associate_plain, survive_fill_plain, survive_norm_plain,
-    )
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import draw_offspring
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import NormState, survive_norm_plain
 
     p, n_off, a = moeva.pop_size, moeva.n_offsprings, moeva.archive_size
     m, r, l = p + n_off, moeva.n_dirs, moeva.codec.gen_length
+    run = moeva.prepare(x_sweep[:s], np.arange(s) % 2)
+    pop, xl, xu = sweep_population(gen, run, moeva.codec, s, p)
+    draws = draw_offspring(gen, s, p, n_off, l)
+    off = kernels.offspring(moeva.tables, pop, xl, xu, n_off, draws)
+    f = torch.as_tensor(sweep_objectives(rng, s, m), device=device)
+    ranks = nd_ranks_plain(f, p)
+    states = [NormState.init(s, 3, device=device)]
+    for _ in range(2):
+        new_state, nadir, dirs = survive_norm_plain(f, ranks, moeva.asp_points, states[-1])
+        states.append(new_state)
+    niche, dist = kernels.associate(f, dirs, states[-1].ideal, nadir)
+    gum_cut = torch.rand((s, r), generator=gen, device=device)
+    gum_mem = torch.rand((s, m), generator=gen, device=device)
+    gum_cut[:, ::3] = 0.25
+    return dict(pop=pop, xl=xl, xu=xu, draws=draws, off=off, f=f, ranks=ranks, states=states, nadir=nadir,
+                dirs=dirs, niche=niche, dist=dist, fill_args=(gum_cut, gum_mem, ranks, niche, dist, p),
+                extract=(pop, off, f[:, :p], f[:, p:]), archive=(pop[:, :a], f[:, :a], off, f[:, p:], a))
+
+
+def check_botnet_stages(device, moeva, x_sweep, gen, rng):
+    """K5, K2, K4a, K3 and K4b at botnet's L = 756 and (M, R) = (303, 203),
+    bit for bit against their plain versions."""
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import extract_archive_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import make_offspring_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import (
+        associate_plain, survive_fill_plain, survive_norm_plain,
+    )
+
+    p, m, r, l = moeva.pop_size, moeva.pop_size + moeva.n_offsprings, moeva.n_dirs, moeva.codec.gen_length
     for s in BOTNET_STAGE_STATES:
-        run = moeva.prepare(x_sweep[:s], np.arange(s) % 2)
-        pop, xl, xu = sweep_population(gen, run, moeva.codec, s, p)
-        draws = draw_offspring(gen, s, p, n_off, l)
-        off = kernels.offspring(moeva.tables, pop, xl, xu, n_off, draws)
-        hold_equal(off, make_offspring_plain(moeva.tables, pop, xl, xu, n_off, draws), f"offspring S={s} L={l}")
-        f = torch.as_tensor(sweep_objectives(rng, s, m), device=device)
+        t = botnet_stage_inputs(device, moeva, x_sweep, gen, rng, s)
+        hold_equal(t["off"], make_offspring_plain(moeva.tables, t["pop"], t["xl"], t["xu"], moeva.n_offsprings,
+                                                  t["draws"]), f"offspring S={s} L={l}")
         for stop in (p, m):
-            hold_equal(kernels.nd_peel(f, stop), nd_ranks_plain(f, stop), f"nd_peel S={s} M={m} n_stop={stop}")
-        ranks = nd_ranks_plain(f, p)
-        state = NormState.init(s, 3, device=device)
-        for step in range(2):
-            got = kernels.survive_norm(f, ranks, moeva.asp_points, state)
-            new_state, nadir, dirs = survive_norm_plain(f, ranks, moeva.asp_points, state)
+            hold_equal(kernels.nd_peel(t["f"], stop), nd_ranks_plain(t["f"], stop), f"nd_peel S={s} M={m} n_stop={stop}")
+        for step, (state, new_state) in enumerate(zip(t["states"][:-1], t["states"][1:])):
+            got = kernels.survive_norm(t["f"], t["ranks"], moeva.asp_points, state)
+            _, nadir, dirs = survive_norm_plain(t["f"], t["ranks"], moeva.asp_points, state)
             for name, g, w in zip(("ideal", "worst", "extreme", "nadir", "dirs"), got, (*new_state, nadir, dirs)):
                 hold_equal(g, w, f"survive_norm {name} S={s} M={m} R={r} step {step}")
-            state = new_state
-        niche, dist = kernels.associate(f, dirs, state.ideal, nadir)
-        for name, g, w in zip(("niche", "dist"), (niche, dist), associate_plain(f, dirs, state.ideal, nadir)):
+        for name, g, w in zip(("niche", "dist"), (t["niche"], t["dist"]),
+                              associate_plain(t["f"], t["dirs"], t["states"][-1].ideal, t["nadir"])):
             hold_equal(g, w, f"associate {name} S={s} M={m} R={r}")
-        gum_cut = torch.rand((s, r), generator=gen, device=device)
-        gum_mem = torch.rand((s, m), generator=gen, device=device)
-        gum_cut[:, ::3] = 0.25
-        extract = (pop, off, f[:, :p], f[:, p:])
-        mask = survive_fill_plain(gum_cut, gum_mem, ranks, niche, dist, p)
-        want = (mask, *extract_archive_plain(mask, *extract, pop[:, :a], f[:, :a]))
-        got = kernels.survive_fill(gum_cut, gum_mem, ranks, niche, dist, p, extract=extract,
-                                   archive=(pop[:, :a], f[:, :a], off, f[:, p:], a))
+        mask = survive_fill_plain(*t["fill_args"])
+        want = (mask, *extract_archive_plain(mask, *t["extract"], *t["archive"][:2]))
+        got = kernels.survive_fill(*t["fill_args"], extract=t["extract"], archive=t["archive"])
         for name, g, w in zip(("mask", "pop_x", "pop_f", "arch_x", "arch_f"), got, want):
             hold_equal(g, w, f"survive_fill {name} S={s} M={m} R={r} L={l}")
     log(f"[botnet] offspring, nd_peel, survive_norm, associate and survive_fill equal their plain versions at "
         f"L = {l}, (M, R) = ({m}, {r}), S in {BOTNET_STAGE_STATES}")
+
+
+def time_botnet_stages(device, moeva, x_sweep, gen, rng, smi: str) -> dict:
+    """K5's and K4b's device ms at the botnet path's shapes (L = 756, (M,
+    R) = (303, 203), the two chunks of 256 and 131 states) beside their
+    bounds on these inputs, counted from their sources as phase 3 counts
+    them at LCLD's shape. Each is held bit for bit against its plain
+    version on the inputs it is timed on."""
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import extract_archive_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import make_offspring_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import survive_fill_plain
+
+    out = {"offspring": {}, "survive_fill": {}}
+    m, r, l = moeva.pop_size + moeva.n_offsprings, moeva.n_dirs, moeva.codec.gen_length
+    for s in BOTNET_PATH_STATES:
+        t = botnet_stage_inputs(device, moeva, x_sweep, gen, rng, s)
+        hold_equal(t["off"], make_offspring_plain(moeva.tables, t["pop"], t["xl"], t["xu"], moeva.n_offsprings,
+                                                  t["draws"]), f"offspring S={s} L={l}")
+        mask = survive_fill_plain(*t["fill_args"])
+        want = (mask, *extract_archive_plain(mask, *t["extract"], *t["archive"][:2]))
+        got = kernels.survive_fill(*t["fill_args"], extract=t["extract"], archive=t["archive"])
+        for name, g, w in zip(("mask", "pop_x", "pop_f", "arch_x", "arch_f"), got, want):
+            hold_equal(g, w, f"survive_fill {name} S={s} M={m} R={r} L={l}")
+        off_bytes, off_ops, off_f64, _ = offspring_work(moeva.tables, t["pop"], t["xl"], t["xu"], moeva.n_offsprings,
+                                                        t["draws"])
+        fill_bytes, fill_ops = fill_work_bound(t["fill_args"], t["extract"], t["archive"])
+        for name, fn, bound in (
+            ("offspring", lambda: kernels.offspring(moeva.tables, t["pop"], t["xl"], t["xu"], moeva.n_offsprings,
+                                                    t["draws"]), bound_ms(off_bytes, off_ops, off_f64)),
+            ("survive_fill", lambda: kernels.survive_fill(*t["fill_args"], extract=t["extract"], archive=t["archive"]),
+             bound_ms(fill_bytes, fill_ops, 0)),
+        ):
+            ms = graph_ms(fn)
+            out[name][f"{s}x{l}"] = {"ms": ms, "bound_ms": bound[0], "bound_by": bound[1]}
+            log(f"[botnet] {name} at S={s} L={l} M={m} R={r}: equals its plain version; device {ms:.4f} ms, "
+                f"bound {bound[0]:.5f} ms ({bound[1]}) on {smi}")
+    return out
 
 
 def botnet_bound(moeva, s: int, n: int):
@@ -1788,6 +1880,15 @@ def time_botnet_kernel(device, moeva, x, gen) -> dict:
     a = torch.rand((s * n, moeva.codec.n_features), generator=gen, device=device)
     matmul_ms = graph_ms(lambda: torch.matmul(a, obj.first_t))
     torch.backends.cuda.matmul.allow_tf32 = tf32
+    path_ms = {}
+    for s_path in BOTNET_PATH_STATES:
+        run_p = moeva.prepare(x[:s_path], np.ones(s_path, dtype=np.int64))
+        cand_p = botnet_candidates(gen, moeva, run_p, n)
+        kfn_p = lambda: kernels.objective_botnet(cand_p, run_p.x_init_ml, run_p.xl_ml, run_p.xu_ml,  # noqa: B023, E731
+                                                 run_p.x_init_mm, run_p.minimize_class, obj)
+        hold_equal(kfn_p(), evaluate_plain(obj, moeva.codec, run_p, cand_p, moeva.constraints),
+                   f"objective_botnet S={s_path} N={n}")
+        path_ms[f"{s_path}x{n}"] = graph_ms(kfn_p)
     rec = {
         "name": "objective_botnet",
         "route": "cuda",
@@ -1805,18 +1906,22 @@ def time_botnet_kernel(device, moeva, x, gen) -> dict:
         "ceiling_ms": n_ops / (PEAK_F32_OPS_S / 2) * 1e3,
         "library_ms": None,
         "first_layer_matmul_ms": matmul_ms,
+        "ms_path_shapes": path_ms,
     }
     log(f"[botnet] objective_botnet at S={s} N={n}: device {rec['ms']:.4f} ms, through the wrapper "
         f"{rec['wrapper_ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, bound {b_ms:.5f} ms ({b_by}), no-FMA "
         f"ceiling {rec['ceiling_ms']:.5f} ms; torch.matmul of the first layer alone ({s * n} x "
         f"{moeva.codec.n_features}) @ ({moeva.codec.n_features} x {obj.first_t.shape[1]}), fp32, TF32 off: "
         f"{matmul_ms:.4f} ms (a note for the next redesign; the port does not call it)")
+    log(f"[botnet] objective_botnet at the generate path's launch shapes, equal to evaluate_plain on the inputs "
+        f"timed: "
+        + ", ".join(f"S x N = {k}: {v:.4f} ms" for k, v in path_ms.items()))
     return rec
 
 
 def run_botnet(device, smi: str, resources: list):
-    """Phase 8: MoEvA2 on the botnet domain. Returns K8's record and the
-    launch counts of the botnet drive."""
+    """Phase 8: MoEvA2 on the botnet domain. Returns K8's record, the launch
+    counts of the botnet drive and K5's and K4b's times at its shapes."""
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
@@ -1839,6 +1944,7 @@ def run_botnet(device, smi: str, resources: list):
     check_botnet_kernel(device, moeva, x_sweep, gen)
     check_botnet_stages(device, moeva, x_sweep, gen, np.random.default_rng(8))
     rec = time_botnet_kernel(device, moeva, x, gen)
+    stage_times = time_botnet_stages(device, moeva, x_sweep, gen, np.random.default_rng(9), smi)
 
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
@@ -1882,7 +1988,7 @@ def run_botnet(device, smi: str, resources: list):
     log(f"[botnet] success rates o1..o7 (f1 {BOTNET_THRESHOLDS['f1']}, f2 {BOTNET_THRESHOLDS['f2']}; plumbing "
         "check with an untrained surrogate): " + " ".join(f"{v:.4f}" for v in rates))
     profile_generation(moeva, x, tag="[botnet profile]")
-    return rec, launches
+    return rec, launches, stage_times
 
 
 # -- phase 9: constrained PGD on botnet --------------------------------------------
@@ -2069,8 +2175,11 @@ def main() -> int:
     check_pgd_kernel(device, problem)
     records.append(time_pgd(device, problem))
     launches["pgd_lcld"] = run_pgd_path(device, problem, smi)["pgd_lcld"]
-    botnet_rec, botnet_launches = run_botnet(device, smi, resources)
+    botnet_rec, botnet_launches, botnet_stage_times = run_botnet(device, smi, resources)
     records.append(botnet_rec)
+    for rec in records:
+        if rec["name"] in botnet_stage_times:
+            rec["botnet_shapes"] = botnet_stage_times[rec["name"]]
     launches["objective_botnet"] = botnet_launches["objective_botnet"]
     pgd_botnet_rec, pgd_botnet_launches = run_pgd_botnet(device, smi, resources)
     records.append(pgd_botnet_rec)

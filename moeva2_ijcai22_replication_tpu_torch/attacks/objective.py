@@ -81,8 +81,10 @@ class ObjectiveCalculator:
         xs = self.min_max_scaler.transform(x_f)
         f2 = lp_distance(xi - xs, self.norm)
         tol = 1e-4
-        lo = min(float(xi.min()), float(xs.min()))
-        hi = max(float(xi.max()), float(xs.max()))
+        # NaN-propagating, as the reference's jnp.minimum / jnp.maximum: a
+        # NaN anywhere fails the check (Python's min and max would drop it)
+        lo = float(torch.minimum(xi.min(), xs.min()))
+        hi = float(torch.maximum(xi.max(), xs.max()))
         if not (lo >= -tol and hi <= 1 + tol):
             raise AssertionError("min-max scaled values outside [0,1]: wrong scaler for this data?")
         return torch.stack([cv, f1, f2], dim=-1).numpy()

@@ -269,8 +269,10 @@ def objective_botnet(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, 
     lib = library()
     if len(widths) - 1 > lib.moeva_objective_max_layers():
         raise ValueError(f"objective_botnet takes at most {lib.moeva_objective_max_layers()} layers, got {widths}")
-    if d > lib.moeva_objective_botnet_max_features():
-        raise ValueError(f"objective_botnet takes at most {lib.moeva_objective_botnet_max_features()} features, got {d}")
+    max_d = lib.moeva_objective_botnet_max_features(widths[1], sum(counts))
+    if d > max_d:
+        raise ValueError(f"objective_botnet takes at most {max_d} features with a first layer of {widths[1]} units "
+                         f"and {sum(counts)} gather entries, got {d}")
     dev = _one_device(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj.feat_gene,
                       obj.feat_onehot, obj.params, obj.first_t, cons.index, scale, offset)
     ins = [None if t is None else t.contiguous() for t in (

@@ -218,7 +218,9 @@ int moeva_objective_botnet_f32(const void* x_gen, const void* x_init,
       launch_objective_botnet(args, static_cast<cudaStream_t>(stream)));
 }
 
-int moeva_objective_botnet_max_features() { return objective_botnet_max_features(); }
+int moeva_objective_botnet_max_features(int h1, int n_entries) {
+  return objective_botnet_max_features(h1, n_entries);
+}
 
 int moeva_pgd_botnet_f32(const void* x_init, const void* x_start, const void* y,
                          const void* mutable_, const void* params,

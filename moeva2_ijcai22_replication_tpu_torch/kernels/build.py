@@ -161,11 +161,12 @@ def library() -> ctypes.CDLL:
     for name in (
         "moeva_nd_peel_max_candidates", "moeva_associate_max_directions", "moeva_survive_max_candidates",
         "moeva_objective_max_params", "moeva_objective_max_width",
-        "moeva_objective_max_layers", "moeva_pgd_max_ohe_slots", "moeva_objective_botnet_max_features",
-        "moeva_pgd_botnet_max_degree",
+        "moeva_objective_max_layers", "moeva_pgd_max_ohe_slots", "moeva_pgd_botnet_max_degree",
     ):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32
+    lib.moeva_objective_botnet_max_features.argtypes = [i32, i32]
+    lib.moeva_objective_botnet_max_features.restype = i32
     lib.moeva_error_string.argtypes = [i32]
     lib.moeva_error_string.restype = ctypes.c_char_p
     return lib

@@ -246,14 +246,14 @@ struct BotnetObjectiveArgs {
   int n_rows, n, l, d;
   int n_layers;
   int widths[kObjectiveMaxLayers + 1];
-  int xf_floats;            // set by the launcher
 };
 
 cudaError_t launch_objective_botnet(BotnetObjectiveArgs args, cudaStream_t stream);
 
-// The most features objective_botnet takes: a tile's features and the first
-// layer's double buffers fit one block's shared memory.
-int objective_botnet_max_features();
+// The most features objective_botnet takes with a first layer of h1 units
+// and n_entries entries in the gather lists: a tile's features, the first
+// layer's double buffers and the gather lists fit one block's shared memory.
+int objective_botnet_max_features(int h1, int n_entries);
 
 // pgd_botnet: botnet's feature count, the threads of a block, the most rows
 // a block takes (rows * the first layer's width, at most kBotnetMaxWidth,

@@ -559,6 +559,14 @@ cudaError_t launch_pgd_botnet(PgdBotnetArgs args, cudaStream_t stream) {
 }
 
 #ifdef K7B_STAMPS
+extern "C" const char* k7b_phase_names() {
+  return "terms and first layer;hidden forward;cross-entropy;hidden backward;input backward and gradient;"
+         "gradient norm;step;projection factor;projection and repair";
+}
+
+// the warps whose stamps k7b_take_cycles returns: thread 0's alone
+extern "C" int k7b_stamped_warps() { return 1; }
+
 // copies K7b's per-phase cycles to `out` (kPhases values) and zeroes them
 extern "C" int k7b_take_cycles(unsigned long long* out) {
   cudaError_t err = cudaMemcpyFromSymbol(out, k7b_cycles, sizeof(k7b_cycles));

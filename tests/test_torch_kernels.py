@@ -651,10 +651,13 @@ def _botnet_case(device, botnet, s, n, seed, **knobs):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("norm", [2, "inf"])
-@pytest.mark.parametrize("s,n", [(387, 100), (131, 203), (3, 100), (1, 7), (5, 27)])
+@pytest.mark.parametrize("s,n", [(387, 100), (131, 203), (3, 100), (1, 7), (5, 27), (7, 37), (41, 99), (88, 96)])
 def test_objective_botnet_equals_plain(card, botnet, s, n, norm):
     # the offspring's and the population's row counts; partial tiles, a
-    # tile of fewer rows than one, and tiles that span states of both classes
+    # tile of fewer rows than one, and tiles that span states of both
+    # classes; 259 rows end in a tile of 3 of its 32 rows, 4059 rows make
+    # 127 tiles (fewer than the H100's 132 SMs, the last one partial), and
+    # 8448 rows exactly one wave of 264 tiles (2 blocks on each SM)
     eng, run, cand = _botnet_case(card, botnet, s, n, seed=s + n, norm=norm)
     before = kernels.launch_counts()
     got = kernels.objective_botnet(cand, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class,
@@ -706,6 +709,19 @@ def test_moeva_runs_botnet_on_k8(card, botnet):
     # two chunks of 5 and 3 states: the init round and 2 steps each
     assert counts["objective_botnet"] == 6 and counts["objective_lcld"] == 0
     assert res.x_ml.shape == (8, eng.pop_size + 4, 756) and np.isfinite(res.x_ml).all()
+
+
+@pytest.mark.cuda
+def test_objective_botnet_max_features_counts_width_and_entries(card, botnet):
+    # the wrapper's feature limit is the launcher's shared-memory rule: a
+    # wider first layer or longer gather lists leave room for fewer features
+    from moeva2_ijcai22_replication_tpu_torch.kernels.build import library
+
+    eng, _, _ = _botnet_case(card, botnet, 1, 1, seed=0)
+    lib, n_entries = library(), eng._objective.cons.index.numel()
+    top = lib.moeva_objective_botnet_max_features(64, n_entries)
+    assert eng.codec.n_features <= top < lib.moeva_objective_botnet_max_features(16, n_entries)
+    assert lib.moeva_objective_botnet_max_features(64, n_entries + 2048) < top
 
 
 def test_objective_botnet_refuses_cpu_tensors_and_wrong_widths(tmp_path):
