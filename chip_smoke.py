@@ -54,9 +54,11 @@ Phases, in order; any failure exits non-zero:
    ``PGD_CONFIGS`` (every loss strategy, the three ``constraints_optim``,
    targeted, norms 2 and inf, every history layout), with edge rows at the
    start (0 denominators, so NaN gradients; terms exactly at the tolerance;
-   ±0 inside an abs; features at the clip bounds); time K7 at 4000 states x
-   1000 iterations (and the other rq1 losses at 100) beside the plain
-   version at 100 iterations and its bound; drive ``ConstrainedPGD.
+   ±0 inside an abs; features at the clip bounds), at row counts on the
+   edges of K7's layout (rows per block, its register tiles, the SMs); time
+   K7 at 4000 states x 1000 iterations (and the other rq1 losses at 100)
+   beside the plain version at 100 iterations, its bound, its no-FMA
+   ceiling and its latency floor; drive ``ConstrainedPGD.
    generate`` as ``experiments/pgd.py`` does (labels from the surrogate,
    ε - 1e-6, inverse scaling, directional rounding, o1..o7) with its launch
    count set to 0 just before and read just after; check the ε-ball,
@@ -1110,7 +1112,8 @@ def launches_per_generation(moeva, run, carry, gen, n_states: int):
 def profile_generation(moeva, x, tag="[profile]"):
     """Phase 6: where a generation's time goes at the main path's shape.
     Traces ``PROFILE_GENS`` generation steps with ``torch.profiler`` after 3
-    untraced ones and one traced and discarded (the profiler's warm-up) and
+    untraced ones and ``PROFILE_GENS`` traced and discarded (the profiler's
+    warm-up) and
     prints the traced ms per generation, the device-busy
     share (summed kernel time over the traced wall time), the kernels ranked
     by device time with their launches per generation, and the device span
@@ -1132,11 +1135,14 @@ def profile_generation(moeva, x, tag="[profile]"):
         for _ in range(2):
             carry = moeva.gen_step(run, carry, moeva.draw_generation(gen, len(x)))
         torch.cuda.synchronize()
-        # one generation traced and discarded first: the device trace misses
-        # kernels launched just after the profiler starts
+        # generations traced and discarded first: the device trace misses
+        # kernels launched just after the profiler starts (at botnet's 2 ms
+        # per generation, once the first three generations' worth after a
+        # warm-up of one)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            carry = moeva.gen_step(run, carry, moeva.draw_generation(gen, len(x)))
+            for _ in range(PROFILE_GENS):
+                carry = moeva.gen_step(run, carry, moeva.draw_generation(gen, len(x)))
             torch.cuda.synchronize()
             prof.step()
             t0 = time.perf_counter()
@@ -1289,13 +1295,20 @@ def run_main_path(device, smi: str, moeva, x, knobs):
 
 # -- phase 7: constrained PGD ----------------------------------------------------
 
-#: K7's sweep: row counts (one warp per row and 8 rows per block: a lone row,
-#: partial blocks, 1000 and the main shape's 4000) and iteration budgets
-PGD_ROWS = (1, 31, 33, 1000, 4000)
+#: K7's sweep: row counts and iteration budgets. K7 runs ceil(N / 132) rows
+#: per block, at most 32 (one lane each in the per-row chains), in register
+#: tiles of up to 4 rows on 132 SMs: a lone row; 31 and 33 rows, a block of
+#: one row each; 131 and 133, one row per block and one row past it (two
+#: per block, the last block holding one); 1000 (8 per block); the main
+#: shape's 4000 (31 per block, a padded tile row, the last block holding
+#: one); 4223, one row short of 132 full blocks of 32; and 4225, one row
+#: past them (133 blocks, the last holding one). Counts above the problem's
+#: states repeat its rows.
+PGD_ROWS = (1, 31, 33, 131, 133, 1000, 4000, 4223, 4225)
 PGD_ITERS = (1, 7, 100)
 #: what the sweep covers: every loss strategy, the three constraints_optim,
 #: targeted, both norms and every history layout. Each runs at every row
-#: count for 1 and 7 iterations, and for 100 at PGD_ROWS[i % 5]
+#: count for 1 and 7 iterations, and for 100 at PGD_ROWS[i % 9]
 PGD_CONFIGS = (
     dict(loss_evaluation="flip", norm=2),
     dict(loss_evaluation="constraints", norm=np.inf, record_loss="reduced"),
@@ -1332,6 +1345,16 @@ PGD_CPU_ITERS = 100
 PGD_OPS_PER_FEATURE = 25
 PGD_OPS_PER_ROW = 250
 PGD_F64_PER_ROW = 7
+#: K7's dependent operations per iteration besides the stack's sums (the
+#: forward's over each layer's inputs, the backward's over its outputs) and
+#: the two L2 sums over the features, counted from its source, with a
+#: float64 pow, exp or log as one: the cross-entropy (12), the gradient's
+#: last add, mask and square (3), the two roots with their add (2), the
+#: step with its clip and square (7), the projection factor's add, division
+#: and min (4, its root counted above), the projection with its clip and
+#: unscaling (6), repair (the longest of its parallel parts: a one-hot
+#: group's 14 compares and 2 more, 16) and its round trip (4)
+PGD_LCLD_CHAIN_PER_ITER = 54
 
 
 def pgd_edge_starts(rng, xs: np.ndarray, scaler) -> np.ndarray:
@@ -1445,6 +1468,8 @@ def check_pgd_kernel(device, problem):
     rng = np.random.default_rng(5)
     xs = scaler.transform(x).astype(np.float32)
     starts = pgd_edge_starts(rng, xs, scaler)
+    n = max(PGD_ROWS)
+    xs, starts = np.resize(xs, (n, xs.shape[1])), np.resize(starts, (n, xs.shape[1]))
     (runs, nan_rows, nan_hist), y = pgd_sweep(device, "pgd_lcld", cons, sur, scaler, xs, starts, PGD_ROWS)
     nan_grad, _ = edge_gradient(device, cons, sur, scaler, starts[:14], y)
     log(f"[pgd] pgd_lcld equals pgd_run_plain (x_adv, class, history) on all {runs} runs: {len(PGD_CONFIGS)} "
@@ -1453,15 +1478,41 @@ def check_pgd_kernel(device, problem):
         "history entries")
 
 
-def pgd_bound(tables, n: int, t: int, hist_cols: int = 0):
-    """K7's least time for ``n`` rows and ``t`` iterations: the bytes it
-    must move and the operations counted from its source."""
+def pgd_work(tables, n: int, t: int, hist_cols: int = 0):
+    """K7's work for ``n`` rows and ``t`` iterations: (bytes it must move,
+    float32 operations, float64 operations), counted from its source."""
     widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
     macs = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
     d = widths[0]
     n_bytes = 4 * 3 * n * d + 16 * n + 4 * tables.params.numel() + 12 * d + 16 * t + 4 * t * n * hist_cols
     n_ops = n * t * (4 * macs + PGD_OPS_PER_FEATURE * d + PGD_OPS_PER_ROW)
-    return bound_ms(n_bytes, n_ops, n * t * PGD_F64_PER_ROW)
+    return n_bytes, n_ops, n * t * PGD_F64_PER_ROW
+
+
+def pgd_bound(tables, n: int, t: int, hist_cols: int = 0):
+    """K7's least time for ``n`` rows and ``t`` iterations: the bytes it
+    must move and the operations counted from its source."""
+    return bound_ms(*pgd_work(tables, n, t, hist_cols))
+
+
+def pgd_no_fma_ms(tables, n: int, t: int) -> float:
+    """K7's operations with every float32 one at half the fp32 peak (a
+    multiply-add is two instructions without FMA), the float64 ones at the
+    fp64 peak."""
+    _, n_ops, n_f64 = pgd_work(tables, n, t)
+    return (n_ops / (PEAK_F32_OPS_S / 2) + n_f64 / PEAK_F64_OPS_S) * 1e3
+
+
+def pgd_lcld_floor_ms(tables, t: int, mhz: float, l2: bool = True) -> float:
+    """K7's latency floor for ``t`` iterations counted from its source: the
+    dependent operations of an iteration's longest path (each unit's sum
+    over its layer's inputs, each input's backward sum over the layer's
+    outputs, the two L2 sums over the features and
+    ``PGD_LCLD_CHAIN_PER_ITER`` more), each at ``CYCLES_PER_DEPENDENT_OP``
+    cycles of the card's maximum SM clock."""
+    widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
+    chain = sum(widths[:-1]) + sum(widths[1:]) + (2 * widths[0] if l2 else 0) + PGD_LCLD_CHAIN_PER_ITER
+    return t * chain * CYCLES_PER_DEPENDENT_OP / (mhz * 1e6) * 1e3
 
 
 def pgd_kernel_record(device, tag: str, kernel: str, replaces: str, problem, eps: float, plain_iters: int, bound):
@@ -1522,12 +1573,22 @@ def pgd_kernel_record(device, tag: str, kernel: str, replaces: str, problem, eps
 
 def time_pgd(device, problem):
     """K7's record at the main shape (4000 x 1000), the plain version at 100
-    iterations."""
+    iterations, and beside the bound its two ceilings: the no-FMA one
+    (``pgd_no_fma_ms``) and the latency floor (``pgd_lcld_floor_ms``);
+    ``ceiling_ms`` is the larger."""
     cons, sur, scaler, x = problem
     xs = scaler.transform(x)
-    rec, _ = pgd_kernel_record(device, "[pgd]", "pgd_lcld", "moeva2_ijcai22_replication_tpu/attacks/pgd/engine.py:241",
-                               (cons, sur, scaler, x, xs, surrogate_labels(sur, xs)), PGD_EPS - 1e-6, PGD_ITERS[-1],
-                               lambda tables: pgd_bound(tables, len(xs), PGD_BUDGET))
+    rec, atk = pgd_kernel_record(device, "[pgd]", "pgd_lcld",
+                                 "moeva2_ijcai22_replication_tpu/attacks/pgd/engine.py:241",
+                                 (cons, sur, scaler, x, xs, surrogate_labels(sur, xs)), PGD_EPS - 1e-6,
+                                 PGD_ITERS[-1], lambda tables: pgd_bound(tables, len(xs), PGD_BUDGET))
+    mhz = max_sm_clock_mhz()
+    rec["no_fma_ms"] = pgd_no_fma_ms(atk.tables, len(xs), PGD_BUDGET)
+    rec["latency_floor_ms"] = pgd_lcld_floor_ms(atk.tables, PGD_BUDGET, mhz)
+    rec["ceiling_ms"] = max(rec["no_fma_ms"], rec["latency_floor_ms"])
+    log(f"[pgd] pgd_lcld's no-FMA ceiling {rec['no_fma_ms']:.4f} ms, latency floor {rec['latency_floor_ms']:.4f} ms "
+        f"(at {mhz:.0f} MHz); device time {rec['ms'] / rec['ceiling_ms']:.2f}x the larger, "
+        f"{rec['ms'] / rec['bound_ms']:.2f}x the bound")
     return rec
 
 

@@ -184,9 +184,9 @@ cudaError_t launch_survive_norm(const float* f, const int32_t* ranks,
 
 cudaError_t launch_survive_fill(const SurviveFillArgs& args, cudaStream_t stream);
 
-// pgd_lcld: rows per block (one warp each), and the one-hot slots (groups x
-// slots per group) it stages.
-constexpr int kPgdRowsPerBlock = 8;
+// pgd_lcld: the most rows a block runs (one lane each in its per-row
+// chains), and the one-hot slots (groups x slots per group) it stages.
+constexpr int kPgdMaxRows = 32;
 constexpr int kPgdMaxOheSlots = 1024;
 
 // pgd_lcld's arguments. flags: 1 = L-inf (else L2), 2 = repair, 4 =

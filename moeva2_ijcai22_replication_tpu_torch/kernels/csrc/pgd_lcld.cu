@@ -41,111 +41,285 @@
 // the terms, their backward and the step: about 23k fp32 operations on 190
 // bytes of the row read once and written once. Bound by operations. Tensor
 // cores are not used (their sums have an order no CPU code reproduces), and
-// without FMA a multiply-add is two instructions.
+// without FMA a multiply-add is two instructions, so the ceiling is half
+// the fp32 peak. An iteration's longest dependent chain (the stack's sums,
+// the cross-entropy, the two L2 sums, the repair) is shorter than the issue
+// time of its operations at ~30 rows per SM: K7 is bound by the
+// instructions it issues, by the serial chains it cannot hide, and (as
+// measured) by fetching an iteration's code.
 //
-// Design (a simple one first): one warp per row, kPgdRowsPerBlock rows per
-// block; rows are independent, so each warp runs its row's whole T-iteration
-// loop with no block barrier after staging. The block stages the stack once
-// in shared memory, each layer's weight (out, in) with rows padded to an odd
-// stride, so that lanes owning outputs (forward) and lanes owning inputs
-// (backward) both read distinct banks; the scaler, the mutable mask and the
-// one-hot table beside it. Each warp keeps its row, activations, cotangents
-// and gradient in its own shared-memory slice. Lanes own output units in the
-// forward and input units in the backward (up to 4 per lane); lane 0 runs
-// the scalar chains that have one order: the cross-entropy, the ten terms
-// and their backward, the left-to-right sums and the repair.
+// Design: a block runs ceil(N / SMs) rows, at most kPgdMaxRows, so that one
+// block runs on each SM; kMlpWarps warps run the stack and one more the
+// terms. Per iteration:
+// - the stack, forward and backward, layer by layer: each thread sums a
+//   register tile of kTile rows x kTile units (inputs in the backward),
+//   reading the activations 4 at a time along the summed axis in the
+//   forward and the cotangents 4 at a time in the backward, every sum still
+//   in its one order; the stack's warps meet at a named barrier between
+//   layers;
+// - meanwhile the terms warp runs the ten terms and their backward from
+//   the unscaled rows (they need nothing of the stack), one row per lane;
+// - the head's logits and the cross-entropy, one row per thread;
+// - the gradient, the step, the projection and repair's round trip are
+//   elementwise over the block's rows; the L2 sums are squared by all
+//   threads and added left to right by one thread per row; repair runs
+//   each row's installment and each of its one-hot groups as tasks side by
+//   side;
+// - after the last iteration the same forward gives the class at x_adv.
+// What the stamps and ablations of tools/probe_pgd_lcld.py showed shaped
+// the rest: an iteration runs every phase's code once, and code the
+// instruction caches do not hold costs more than the arithmetic, so the
+// kernel keeps one tile shape (larger tiles were slower too), leaves its
+// loops rolled past their float4 step and calls float64 pow and log rather
+// than inlining them; a zero numerator skips the division's slow path,
+// which many elementwise divisions would take. Shared memory holds the
+// stack (each weight row at a stride of an odd number of float4s, so lanes
+// reading consecutive rows 16 bytes at a time hit distinct banks), the
+// scaler, the mask, the one-hot table and each row's buffers (also at an
+// odd float4 stride, so one row per lane is conflict-free).
 
 #include "pgd_common.cuh"
 
 namespace {
 
 constexpr int kD = kLcldFeatures;
-constexpr int kDP = 48;  // a row's features, padded
 constexpr int kTerms = 10;
-constexpr int kUnitsPerLane = (kObjectiveMaxWidth + 31) / 32;
+constexpr int kMlpWarps = 16;
+constexpr int kMlpThreads = kMlpWarps * 32;
+constexpr int kThreads = kMlpThreads + 32;  // the stack's warps, then the terms warp
+constexpr int kTermsTid = kMlpThreads;      // the terms warp's lane 0
+// a thread's register tile: kTile rows x kTile units (forward) or inputs
+// (backward), one shape for every layer, so that each sum has one copy in
+// an iteration's code (which the instruction caches must hold); 2 x 2
+// measured fastest, larger and smaller tiles slower
+constexpr int kTile = 2;
+
+// floats of a buffer of `w` entries padded to an odd number of float4s
+__host__ __device__ constexpr int odd_stride(int w) {
+  const int q = (w + 3) / 4;
+  return 4 * (q % 2 ? q : q + 1);
+}
+constexpr int kRS = odd_stride(kD);  // a row of features: 52
 
 struct PgdLayout {
-  int w_off[kObjectiveMaxLayers];  // each layer's staged weight; its bias follows
-  int w_floats;                    // the staged stack
-  int ohe_ints;                    // the one-hot table, padded to 4
-  int act_floats;                  // a warp's activations: the widths of layers 1..L
-  int max_width;                   // the widest layer (and the input)
-  int warp_floats;                 // a warp's slice
+  int w_off[kObjectiveMaxLayers];    // each layer's weight (out_w rows of w_st floats)
+  int b_off[kObjectiveMaxLayers];    // and its bias
+  int w_st[kObjectiveMaxLayers];
+  int act_off[kObjectiveMaxLayers];  // each hidden layer's outputs, rows of act_st floats
+  int act_st[kObjectiveMaxLayers];
+  int w_floats;                       // the staged stack
+  int ohe_ints;                       // the one-hot table, padded to 4
+  int ct_off;                         // the cotangents, after the activations
+  int ct_st;                          // a row of cotangents (the widest layer output)
+  int rows;                           // rows per block
+  int rows_pad;                       // padded to whole tiles
+  int row_floats;                     // the block's row buffers
 };
 
-// the relu stack on the warp's row `in` (47 floats); activations of layers
-// 1..L, logits last, into `act`
-__device__ __forceinline__ void mlp_forward(const PgdArgs& a, const PgdLayout& lay, const float* ws, const float* in,
-                            float* act, int lane) {
-  float* out = act;
-  for (int l = 0; l < a.n_layers; ++l) {
-    const int in_w = a.widths[l];
-    const int out_w = a.widths[l + 1];
-    const int st = padded_stride(in_w);
-    const float* w = ws + lay.w_off[l];
-    const float* bias = w + out_w * st;
-    float acc[kUnitsPerLane];
+// float64 pow and log, one copy of each in the kernel's code (an
+// iteration's code must stay small enough for the instruction caches)
+__device__ __noinline__ double pow_f64(double b, double e) { return pow(b, e); }
+__device__ __noinline__ double log_f64(double x) { return log(x); }
+
+__device__ __forceinline__ float comp(const float4& v, int q) {
+  return q == 0 ? v.x : (q == 1 ? v.y : (q == 2 ? v.z : v.w));
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+// the stack's warps meet
+__device__ __forceinline__ void mlp_sync() {
+  asm volatile("bar.sync 1, %0;" ::"r"(kMlpThreads) : "memory");
+}
+
+// One layer's forward over the block's rows_pad rows in tiles of RT rows x
+// UT units (units ug, ug + n_ug, ...): out = bias + sum_k w[o][k] * in[k],
+// k = 0, 1, ... in order; store(row, unit, sum) for each unit that exists
+template <int RT, int UT, class Store>
+__device__ __forceinline__ void forward_tiles(const float* w, int st, const float* bias, int in_w, int out_w,
+                                              const float* in, int in_st, int rows_pad, int t0, int nt,
+                                              Store store) {
+  const int n_ug = (out_w + UT - 1) / UT;
+  const int n_tiles = (rows_pad / RT) * n_ug;
+  for (int tile = t0; tile < n_tiles; tile += nt) {
+    const int rg = tile / n_ug;
+    const int ug = tile - rg * n_ug;
+    const float* wr[UT];
+    float acc[RT][UT];
 #pragma unroll
-    for (int j = 0; j < kUnitsPerLane; ++j) {
-      const int o = lane + 32 * j;
-      acc[j] = o < out_w ? bias[o] : 0.0f;
+    for (int j = 0; j < UT; ++j) {
+      const int o = min(ug + j * n_ug, out_w - 1);
+      wr[j] = w + o * st;
+      const float b = bias[o];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) acc[i][j] = b;
     }
-    for (int k = 0; k < in_w; ++k) {
-      const float ak = in[k];
+    const float* ar = in + rg * RT * in_st;
+    int k = 0;
+#pragma unroll 1
+    for (; k + 4 <= in_w; k += 4) {
+      float4 av[RT], wv[UT];
 #pragma unroll
-      for (int j = 0; j < kUnitsPerLane; ++j) {
-        const int o = lane + 32 * j;
-        if (o < out_w) acc[j] = __fadd_rn(acc[j], __fmul_rn(ak, w[o * st + k]));
+      for (int i = 0; i < RT; ++i) av[i] = ld4(ar + i * in_st + k);
+#pragma unroll
+      for (int j = 0; j < UT; ++j) wv[j] = ld4(wr[j] + k);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int j = 0; j < UT; ++j)
+            acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(comp(av[i], q), comp(wv[j], q)));
+    }
+#pragma unroll 1
+    for (; k < in_w; ++k) {
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < UT; ++j) acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(ar[i * in_st + k], wr[j][k]));
+    }
+#pragma unroll
+    for (int j = 0; j < UT; ++j) {
+      const int o = ug + j * n_ug;
+      if (o < out_w) {
+#pragma unroll
+        for (int i = 0; i < RT; ++i) store(rg * RT + i, o, acc[i][j]);
       }
     }
-    const bool hidden = l + 1 < a.n_layers;
-#pragma unroll
-    for (int j = 0; j < kUnitsPerLane; ++j) {
-      const int o = lane + 32 * j;
-      if (o < out_w) out[o] = hidden ? relu_keep_nan(acc[j]) : acc[j];
-    }
-    __syncwarp();
-    in = out;
-    out += out_w;
   }
 }
 
-// the cotangent of the input row (47 floats, into `ct_x`) from that of the
-// logits (in `ct_a`); `ct_b` is scratch of the widest layer
-__device__ __forceinline__ void mlp_backward(const PgdArgs& a, const PgdLayout& lay, const float* ws, const float* act,
-                             float* ct_a, float* ct_b, float* ct_x, int lane) {
-  // the output of layer l (the input of layer l + 1) starts at h
-  const float* h = act + lay.act_floats - a.widths[a.n_layers];
-  float* cur = ct_a;
-  float* nxt = ct_b;
-  for (int l = a.n_layers - 1; l >= 0; --l) {
-    const int in_w = a.widths[l];
-    const int out_w = a.widths[l + 1];
-    const int st = padded_stride(in_w);
-    const float* w = ws + lay.w_off[l];
-    float* dst = l == 0 ? ct_x : nxt;
-    // the input of layer l is the output of layer l - 1 (hidden): its
-    // cotangent passes where that output is > 0
-    h = l > 0 ? h - in_w : nullptr;
+// One layer's input backward over rows_pad rows in tiles of RT rows x KT
+// inputs (kg, kg + n_kg, ...): the sum over o = 0, 1, ... of
+// w[o][k] * cur[o], from its first product; store(row, input, sum) for each
+// input that exists
+template <int RT, int KT, class Store>
+__device__ __forceinline__ void backward_tiles(const float* w, int st, int in_w, int out_w, const float* cur,
+                                               int cur_st, int rows_pad, int t0, int nt, Store store) {
+  const int n_kg = (in_w + KT - 1) / KT;
+  const int n_tiles = (rows_pad / RT) * n_kg;
+  for (int tile = t0; tile < n_tiles; tile += nt) {
+    const int rg = tile / n_kg;
+    const int kg = tile - rg * n_kg;
+    int kc[KT];
 #pragma unroll
-    for (int j = 0; j < kUnitsPerLane; ++j) {
-      const int k = lane + 32 * j;
+    for (int j = 0; j < KT; ++j) kc[j] = min(kg + j * n_kg, in_w - 1);
+    const float* cr = cur + rg * RT * cur_st;
+    float acc[RT][KT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int j = 0; j < KT; ++j) acc[i][j] = __fmul_rn(cr[i * cur_st], w[kc[j]]);
+    int o = 1;
+#pragma unroll 1
+    for (; o < out_w && (o & 3); ++o) {
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < KT; ++j)
+          acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(cr[i * cur_st + o], w[o * st + kc[j]]));
+    }
+#pragma unroll 1
+    for (; o + 4 <= out_w; o += 4) {
+      float4 cv[RT];
+      float wv[4][KT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) cv[i] = ld4(cr + i * cur_st + o);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int j = 0; j < KT; ++j) wv[q][j] = w[(o + q) * st + kc[j]];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int j = 0; j < KT; ++j) acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(comp(cv[i], q), wv[q][j]));
+    }
+#pragma unroll 1
+    for (; o < out_w; ++o) {
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < KT; ++j)
+          acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(cr[i * cur_st + o], w[o * st + kc[j]]));
+    }
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      const int k = kg + j * n_kg;
       if (k < in_w) {
-        float acc = __fmul_rn(cur[0], w[k]);
-        for (int o = 1; o < out_w; ++o) acc = __fadd_rn(acc, __fmul_rn(cur[o], w[o * st + k]));
-        dst[k] = h == nullptr || h[k] > 0.0f ? acc : 0.0f;
+#pragma unroll
+        for (int i = 0; i < RT; ++i) store(rg * RT + i, k, acc[i][j]);
       }
     }
-    __syncwarp();
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
   }
 }
 
-// Lane 0: the smooth violations g of the unscaled row u and the cotangent
-// of u into ct (zeroed by the caller), lcld_smooth_vjp's operations in its
-// order; ct_g[k] is -w_cons for the optimised terms and 0 for the others
+// The stack's hidden layers on the block's rows, from the rows X; each
+// layer's outputs (relu) into its activation buffer, the stack's warps
+// meeting after each. Returns the head's input and its stride.
+__device__ __forceinline__ const float* hidden_forward(const PgdArgs& a, const PgdLayout& lay, const float* ws,
+                                                       const float* X, float* act, int tid, int& in_st) {
+  const float* in = X;
+  in_st = kRS;
+  for (int l = 0; l + 1 < a.n_layers; ++l) {
+    float* out = act + lay.act_off[l];
+    const int out_st = lay.act_st[l];
+    forward_tiles<kTile, kTile>(ws + lay.w_off[l], lay.w_st[l], ws + lay.b_off[l], a.widths[l], a.widths[l + 1], in,
+                                in_st, lay.rows_pad, tid, kMlpThreads,
+                                [&](int r, int o, float v) { out[r * out_st + o] = relu_keep_nan(v); });
+    mlp_sync();
+    in = out;
+    in_st = out_st;
+  }
+  return in;
+}
+
+// The head's logits (1 or 2) of one row `in` of in_w activations
+__device__ __forceinline__ void head_logits(const PgdArgs& a, const PgdLayout& lay, const float* ws, const float* in,
+                                            float* lg) {
+  const int l = a.n_layers - 1;
+  const int in_w = a.widths[l];
+  const int st = lay.w_st[l];
+  const float* w0 = ws + lay.w_off[l];
+  const float* w1 = a.widths[l + 1] == 2 ? w0 + st : w0;
+  const float* bias = ws + lay.b_off[l];
+  float s0 = bias[0];
+  float s1 = bias[a.widths[l + 1] == 2 ? 1 : 0];
+  int k = 0;
+  for (; k + 4 <= in_w; k += 4) {
+    const float4 av = ld4(in + k), v0 = ld4(w0 + k), v1 = ld4(w1 + k);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      s0 = __fadd_rn(s0, __fmul_rn(comp(av, q), comp(v0, q)));
+      s1 = __fadd_rn(s1, __fmul_rn(comp(av, q), comp(v1, q)));
+    }
+  }
+  for (; k < in_w; ++k) {
+    s0 = __fadd_rn(s0, __fmul_rn(in[k], w0[k]));
+    s1 = __fadd_rn(s1, __fmul_rn(in[k], w1[k]));
+  }
+  lg[0] = s0;
+  lg[1] = s1;
+}
+
+// sum_last of a row's kD squares, left to right, read 4 at a time
+__device__ __forceinline__ float row_sum(const float* sq) {
+  float4 v = ld4(sq);
+  float s = __fadd_rn(__fadd_rn(__fadd_rn(v.x, v.y), v.z), v.w);
+#pragma unroll
+  for (int q = 1; q < kD / 4; ++q) {
+    v = ld4(sq + 4 * q);
+    s = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(s, v.x), v.y), v.z), v.w);
+  }
+  v = ld4(sq + 4 * (kD / 4));
+  static_assert(kD % 4 == 3, "the row's last float4 holds three features");
+  return __fadd_rn(__fadd_rn(__fadd_rn(s, v.x), v.y), v.z);
+}
+
+// The smooth violations g of the unscaled row u and the cotangent of u into
+// ct (zeroed by the caller), lcld_smooth_vjp's operations in its order;
+// ct_cons is -w_cons for the optimised terms
 __device__ __forceinline__ void lcld_terms_vjp(const float* u, float* ct, float tol, int ctr, float ct_cons, float* g) {
   auto x = [&](int k) { return u[k]; };
   auto add = [&](int k, float c) { ct[k] = __fadd_rn(ct[k], c); };
@@ -154,10 +328,10 @@ __device__ __forceinline__ void lcld_terms_vjp(const float* u, float* ct, float 
   const float base = __fadd_rn(1.0f, r);
   const double b64 = base;
   const double t64 = x(1);
-  const double g64 = pow(b64, t64);
+  const double g64 = pow_f64(b64, t64);
   const float growth = __double2float_rn(g64);
-  const float d_base = __double2float_rn(t64 * pow(b64, t64 - 1.0));
-  const float d_t = __double2float_rn(log(b64 == 0.0 ? 1.0 : b64) * g64);
+  const float d_base = __double2float_rn(t64 * pow_f64(b64, t64 - 1.0));
+  const float d_t = __double2float_rn(log_f64(b64 == 0.0 ? 1.0 : b64) * g64);
   const float p1 = __fmul_rn(x(0), r);
   const float p2 = __fmul_rn(p1, growth);
   const float dn = __fsub_rn(growth, 1.0f);
@@ -249,184 +423,367 @@ __device__ __forceinline__ void lcld_terms_vjp(const float* u, float* ct, float 
   add(11, ok ? c_den : 0.0f);
 }
 
-// Lane 0: LcldConstraints.repair of the unscaled row u, in place
-__device__ __forceinline__ void lcld_repair(const PgdArgs& a, const int* ohe, float* u) {
+// LcldConstraints.repair's first part on the unscaled row u: term snapped
+// to {36, 60}, the installment recomputed
+__device__ __forceinline__ void repair_installment(float* u) {
   const float term = u[1] < 48.0f ? 36.0f : 60.0f;
   u[1] = term;
   const float r = __fdiv_rn(u[2], 1200.0f);
   const float growth = __double2float_rn(
-      pow(static_cast<double>(__fadd_rn(1.0f, r)), static_cast<double>(term)));
+      pow_f64(static_cast<double>(__fadd_rn(1.0f, r)), static_cast<double>(term)));
   u[3] = __fdiv_rn(__fmul_rn(__fmul_rn(u[0], r), growth), __fsub_rn(growth, 1.0f));
-  for (int gi = 0; gi < a.n_groups; ++gi) {
-    const int* slot = ohe + gi * a.group_slots;
-    int best = 0;
-    float bv = u[slot[0]];
-    for (int j = 1; j < a.group_slots; ++j) {
-      if (slot[j] < 0) continue;
-      const float v = u[slot[j]];
-      if (v > bv || (isnan(v) && !isnan(bv))) {
-        best = j;
-        bv = v;
+}
+
+// its second: one one-hot group (`slots` features, -1 after them) set to
+// its first largest slot, a NaN counting as the largest; the slots are read
+// kChunk at a time, so that their loads are in flight together
+__device__ __forceinline__ void repair_group(const int* slot, int slots, float* u) {
+  constexpr int kChunk = 8;
+  int best = 0;
+  float bv = u[slot[0]];
+  for (int j0 = 1; j0 < slots; j0 += kChunk) {
+    int f[kChunk];
+    float v[kChunk];
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) f[q] = j0 + q < slots ? slot[j0 + q] : -1;
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) v[q] = f[q] >= 0 ? u[f[q]] : 0.0f;
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      if (f[q] >= 0 && (v[q] > bv || (isnan(v[q]) && !isnan(bv)))) {
+        best = j0 + q;
+        bv = v[q];
       }
     }
-    for (int j = 0; j < a.group_slots; ++j)
-      if (slot[j] >= 0) u[slot[j]] = j == best ? 1.0f : 0.0f;
+  }
+  for (int j0 = 0; j0 < slots; j0 += kChunk) {
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      const int f = j0 + q < slots ? slot[j0 + q] : -1;
+      if (f >= 0) u[f] = j0 + q == best ? 1.0f : 0.0f;
+    }
   }
 }
 
-__global__ void __launch_bounds__(kPgdRowsPerBlock * 32)
-pgd_lcld_kernel(const PgdArgs a, const PgdLayout lay) {
+// __fdiv_rn(n, d), with n = ±0 over a d that is neither 0 nor NaN answered
+// as the signed zero it is: the division's range check (FCHK) sends a zero
+// numerator down its slow path, and the elementwise phases divide many
+__device__ __forceinline__ float div_rn(float n, float d) {
+  const bool zero = n == 0.0f && d == d && d != 0.0f;
+  const float q = __fdiv_rn(zero ? 1.0f : n, d);
+  return zero ? __int_as_float((__float_as_int(n) ^ __float_as_int(d)) & 0x80000000) : q;
+}
+
+__device__ __forceinline__ float unscale(float x, float mn, float sc) { return div_rn(__fsub_rn(x, mn), sc); }
+
+#ifdef K7_STAMPS
+// tools/probe_pgd_lcld.py's breakdown: per phase, the clock64() cycles of
+// block 0's thread 0 (a stack warp) and of the terms warp's lane 0, summed
+// over the iterations. A warp that waits at a barrier may read the
+// clock before it blocks (BAR.SYNC.DEFER_BLOCKING): its wait then lands in
+// its next phase
+constexpr int kPhases = 11;
+constexpr int kStampedWarps = 2;
+__device__ unsigned long long k7_cycles[kStampedWarps][kPhases];
+#endif
+
+struct Stamps {
+#ifdef K7_STAMPS
+  long long last = 0;
+  unsigned long long cycles[kPhases] = {};
+  __device__ __forceinline__ void begin() { last = clock64(); }
+  __device__ __forceinline__ void operator()(int i) {
+    const long long now = clock64();
+    cycles[i] += now - last;
+    last = now;
+  }
+  __device__ __forceinline__ void flush(int tid) {
+    const int slot = tid == 0 ? 0 : (tid == kTermsTid ? 1 : -1);
+    if (blockIdx.x == 0 && slot >= 0)
+      for (int i = 0; i < kPhases; ++i) k7_cycles[slot][i] = cycles[i];
+  }
+#else
+  __device__ __forceinline__ void begin() {}
+  __device__ __forceinline__ void operator()(int) {}
+  __device__ __forceinline__ void flush(int) {}
+#endif
+};
+
+__global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, const PgdLayout lay) {
   extern __shared__ __align__(16) float smem[];
-  float* ws = smem;                                    // the staged stack
-  float* sc = ws + lay.w_floats;                       // (48) scale
-  float* mn = sc + kDP;                                // (48) min_
-  int* mut = reinterpret_cast<int*>(mn + kDP);         // (48) mutable
-  int* ohe = mut + kDP;                                // (groups, slots)
+  float* ws = smem;                             // the staged stack
+  float* sc = ws + lay.w_floats;                // (kRS) scale
+  float* mn = sc + kRS;                         // (kRS) min_
+  int* mut = reinterpret_cast<int*>(mn + kRS);  // (kRS) mutable
+  int* ohe = mut + kRS;                         // (groups, slots)
   float* rows = reinterpret_cast<float*>(ohe + lay.ohe_ints);
+  const int rp = lay.rows_pad;
+  float* X = rows;              // (rp, kRS) the iterates
+  float* XI = X + rp * kRS;     // x_init
+  float* U = XI + rp * kRS;     // unscaled rows; the perturbation; repair's buffer
+  float* CU = U + rp * kRS;     // the terms' cotangent of U; then the squares of the L2 sums
+  float* G = CU + rp * kRS;     // the masked gradient
+  float* SQR = G + rp * kRS;    // squares of the raw gradient's finite entries
+  float* ACT = SQR + rp * kRS;  // hidden activations (act_off)
+  float* CTA = ACT + lay.ct_off;      // cotangents, ping (rp, ct_st)
+  float* CTB = CTA + rp * lay.ct_st;  // and pong
+  float* LC = CTB + rp * lay.ct_st;  // (rp) each row's class loss
+  float* CONS = LC + rp;             // (rp) its constraint loss
+  float* NRM = CONS + rp;            // (rp) its gradient's L2 norm + 1e-7
+  float* FAC = NRM + rp;             // (rp) its projection factor
+  float* GV = FAC + rp;              // (rp, kTerms + 1) its violations
   const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * lay.rows;
+  const int nr = min(lay.rows, a.n - row0);  // rows of this block; the others repeat its last
 
   {
     const float* p = a.params;
     for (int l = 0; l < a.n_layers; ++l) {
       const int in_w = a.widths[l];
       const int out_w = a.widths[l + 1];
-      const int st = padded_stride(in_w);
       float* w = ws + lay.w_off[l];
-      for (int e = tid; e < out_w * in_w; e += blockDim.x) w[(e / in_w) * st + e % in_w] = p[e];
+      const int st = lay.w_st[l];
+      for (int e = tid; e < out_w * in_w; e += kThreads) w[(e / in_w) * st + e % in_w] = p[e];
       p += out_w * in_w;
-      for (int o = tid; o < out_w; o += blockDim.x) w[out_w * st + o] = p[o];
+      for (int o = tid; o < out_w; o += kThreads) ws[lay.b_off[l] + o] = p[o];
       p += out_w;
     }
-    for (int k = tid; k < kDP; k += blockDim.x) {
+    for (int k = tid; k < kRS; k += kThreads) {
       sc[k] = k < kD ? a.scale[k] : 1.0f;
       mn[k] = k < kD ? a.min_[k] : 0.0f;
       mut[k] = k < kD ? static_cast<int>(a.mutable_[k]) : 0;
     }
-    for (int e = tid; e < a.n_groups * a.group_slots; e += blockDim.x) ohe[e] = a.ohe[e];
+    for (int e = tid; e < a.n_groups * a.group_slots; e += kThreads) ohe[e] = a.ohe[e];
   }
+  // repair runs its installment and its one-hot groups side by side where
+  // they touch distinct features (LCLD's schema: the groups hold features
+  // 26-46); else one row at a time, in LcldConstraints.repair's order
+  int* seen = reinterpret_cast<int*>(G);
+  for (int k = tid; k < kD; k += kThreads) seen[k] = 0;
   __syncthreads();
-
-  const int lane = tid & 31;
-  const int row = blockIdx.x * kPgdRowsPerBlock + (tid >> 5);
-  if (row >= a.n) return;  // no block barrier below
-  float* X = rows + (tid >> 5) * lay.warp_floats;  // the iterate
-  float* XI = X + kDP;                             // x_init
-  float* U = XI + kDP;                             // unscaled row; repair's buffer
-  float* CU = U + kDP;                             // constraints' cotangent of U
-  float* GR = CU + kDP;                            // the gradient
-  float* ACT = GR + kDP;                           // activations of layers 1..L
-  float* CTA = ACT + lay.act_floats;               // cotangents, ping
-  float* CTB = CTA + lay.max_width;                // and pong
-  float* AUX = CTB + lay.max_width;                // lane 0's broadcast scalars
-  const float* logits = ACT + lay.act_floats - a.widths[a.n_layers];
-  const size_t r0 = static_cast<size_t>(row) * kD;
-  for (int k = lane; k < kD; k += 32) {
-    X[k] = a.x_start[r0 + k];
-    XI[k] = a.x_init[r0 + k];
+  bool disjoint = true;
+  for (int e = tid; e < a.n_groups * a.group_slots; e += kThreads) {
+    const int f = a.ohe[e];
+    if (f >= 0) disjoint = disjoint && f >= 4 && f < kD && atomicAdd(seen + f, 1) == 0;
   }
-  const int yv = static_cast<int>(a.y[row]);
+  const bool parallel_repair = __syncthreads_and(disjoint);
+  for (int e = tid; e < rp * kD; e += kThreads) {
+    const int r = e / kD;
+    const int k = e - r * kD;
+    const size_t at = static_cast<size_t>(row0 + min(r, nr - 1)) * kD + k;
+    const float x = a.x_start[at];
+    X[r * kRS + k] = x;
+    XI[r * kRS + k] = a.x_init[at];
+    U[r * kRS + k] = unscale(x, mn[k], sc[k]);
+  }
+  // the head's thread of row tid holds its label
+  const int yv = tid < rp ? static_cast<int>(a.y[row0 + min(tid, nr - 1)]) : 0;
+  const int classes = a.widths[a.n_layers];
   const bool linf = a.flags & 1;
   const bool repair = a.flags & 2;
-  __syncwarp();
+  const bool targeted = a.flags & 4;
+  const bool hist_norm = a.hist != nullptr && (a.flags & 8);
+  const bool hist_full = a.hist != nullptr && (a.flags & 16);
+  const int g_col = (a.flags & 8) ? 4 : 3;
+  __syncthreads();
 
-  for (int it = 0; it < a.t; ++it) {
-    const float wc = a.w_class[it];
-    const float wk = a.w_cons[it];
-    const float stp = a.step[it];
-    const int ctr = a.ctr[it];
-    for (int k = lane; k < kD; k += 32) {
-      U[k] = __fdiv_rn(__fsub_rn(X[k], mn[k]), sc[k]);
-      CU[k] = 0.0f;
-    }
-    mlp_forward(a, lay, ws, X, ACT, lane);
-    if (lane == 0) {
-      float g[kTerms];
-      const float lc = cross_entropy(a.widths[a.n_layers], a.flags & 4, logits, yv, wc, CTA);
-      lcld_terms_vjp(U, CU, a.tol, ctr, -wk, g);
-      float cons = g[0];
+  Stamps stamp;
+  stamp.begin();
+  // the iterations, then (it == t) the class at x_adv
+  for (int it = 0;; ++it) {
+    const bool last = it == a.t;
+    const float wc = last ? 0.0f : a.w_class[it];
+    const float wk = last ? 0.0f : a.w_cons[it];
+    const float stp = last ? 0.0f : a.step[it];
+    const int ctr = last ? 0 : a.ctr[it];
+    float* cur = CTA;
+    if (tid >= kTermsTid && last) {
+      break;
+    } else if (tid >= kTermsTid) {
+      // the terms warp: row r's ten terms and their backward
+      const int r = tid - kTermsTid;
+      if (r < rp) {
+        float ct[kD + 1] = {};
+        float g[kTerms];
+        lcld_terms_vjp(U + r * kRS, ct, a.tol, ctr, -wk, g);
 #pragma unroll
-      for (int k = 1; k < kTerms; ++k) cons = __fadd_rn(cons, g[k]);
-      // the optimised term, picked without indexing g at run time (which
-      // would put g in local memory)
+        for (int q = 0; q < (kD + 1) / 4; ++q)
+          *reinterpret_cast<float4*>(CU + r * kRS + 4 * q) = make_float4(ct[4 * q], ct[4 * q + 1], ct[4 * q + 2],
+                                                                        ct[4 * q + 3]);
+        float cons = g[0];
 #pragma unroll
-      for (int k = 0; k < kTerms; ++k)
-        if (k == ctr) cons = g[k];
-      if (a.hist != nullptr) {
-        float* h = a.hist + (static_cast<size_t>(it) * a.n + row) * a.hist_cols;
-        h[0] = __fadd_rn(__fmul_rn(wc, lc), __fmul_rn(wk, -cons));
-        h[1] = lc;
-        h[2] = cons;
-        if (a.flags & 16) {
-          const int at = (a.flags & 8) ? 4 : 3;
+        for (int k = 1; k < kTerms; ++k) cons = __fadd_rn(cons, g[k]);
+        // the optimised term, picked without indexing g at run time (which
+        // would put g in local memory)
 #pragma unroll
-          for (int k = 0; k < kTerms; ++k) h[at + k] = g[k];
+        for (int k = 0; k < kTerms; ++k)
+          if (k == ctr) cons = g[k];
+        CONS[r] = cons;
+#pragma unroll
+        for (int k = 0; k < kTerms; ++k) GV[r * (kTerms + 1) + k] = g[k];
+      }
+      stamp(0);
+    } else {
+      int in_st;
+      const float* in = hidden_forward(a, lay, ws, X, ACT, tid, in_st);
+      stamp(0);
+      // the head and the cross-entropy, one row per thread; after the last
+      // iteration, the class at x_adv: mlp_proba_plain's probabilities, the
+      // first largest
+      if (tid < rp) {
+        float lg[2], ct[2];
+        head_logits(a, lay, ws, in + tid * in_st, lg);
+        if (last) {
+          if (tid < nr) a.pred[row0 + tid] = predicted_class(classes, lg);
+        } else {
+          LC[tid] = cross_entropy(classes, targeted, lg, yv, wc, ct);
+          CTA[tid * lay.ct_st] = ct[0];
+          if (classes == 2) CTA[tid * lay.ct_st + 1] = ct[1];
         }
       }
-    }
-    __syncwarp();
-    mlp_backward(a, lay, ws, ACT, CTA, CTB, GR, lane);
-    for (int k = lane; k < kD; k += 32) GR[k] = __fadd_rn(GR[k], __fdiv_rn(CU[k], sc[k]));
-    __syncwarp();
-    if (lane == 0 && a.hist != nullptr && (a.flags & 8)) {
-      float s = 0.0f;
-      for (int k = 0; k < kD; ++k) {
-        const float f = isfinite(GR[k]) ? GR[k] : 0.0f;
-        s = k == 0 ? __fmul_rn(f, f) : __fadd_rn(s, __fmul_rn(f, f));
+      if (last) break;
+      mlp_sync();
+      stamp(1);
+      // the hidden layers' backward, from the head's down to layer 1's
+      for (int l = a.n_layers - 1; l >= 1; --l) {
+        float* nxt = cur == CTA ? CTB : CTA;
+        const float* h = ACT + lay.act_off[l - 1];
+        const int h_st = lay.act_st[l - 1];
+        const int ct_st = lay.ct_st;
+        backward_tiles<kTile, kTile>(ws + lay.w_off[l], lay.w_st[l], a.widths[l], a.widths[l + 1], cur, ct_st, rp, tid,
+                                     kMlpThreads, [&](int r, int k, float v) {
+                                       nxt[r * ct_st + k] = h[r * h_st + k] > 0.0f ? v : 0.0f;
+                                     });
+        mlp_sync();
+        cur = nxt;
       }
-      a.hist[(static_cast<size_t>(it) * a.n + row) * a.hist_cols + 3] = __fsqrt_rn(s);
+      stamp(2);
     }
-    __syncwarp();  // lane 0 has read the raw gradient
-    for (int k = lane; k < kD; k += 32) {
-      const float gv = GR[k];
-      GR[k] = isnan(gv) || !mut[k] ? 0.0f : gv;
+    __syncthreads();  // the terms' cotangents are in CU
+    stamp(3);
+    // the input backward, into G
+    if (tid < kMlpThreads)
+      backward_tiles<kTile, kTile>(ws + lay.w_off[0], lay.w_st[0], kD, a.widths[1], cur, lay.ct_st, rp, tid,
+                                   kMlpThreads, [&](int r, int k, float v) { G[r * kRS + k] = v; });
+    __syncthreads();
+    // the gradient with the terms' cotangent: NaN zeroed, masked; under
+    // L-inf the step, the projection and the clip too
+    for (int e = tid; e < rp * kD; e += kThreads) {
+      const int r = e / kD;
+      const int k = e - r * kD;
+      const int at = r * kRS + k;
+      const float gv = __fadd_rn(G[at], div_rn(CU[at], sc[k]));
+      if (hist_norm) {
+        const float f = isfinite(gv) ? gv : 0.0f;
+        SQR[at] = __fmul_rn(f, f);
+      }
+      const float gm = isnan(gv) || !mut[k] ? 0.0f : gv;
+      if (linf) {
+        const float d = gm > 0.0f ? 1.0f : (gm < 0.0f ? -1.0f : (gm == 0.0f ? 0.0f : gm));
+        const float x = clamp_nan(__fadd_rn(X[at], __fmul_rn(stp, d)), a.lo, a.hi);
+        const float du = __fsub_rn(x, XI[at]);
+        const float xn = clamp_nan(__fadd_rn(XI[at], clamp_nan(du, -a.eps, a.eps)), a.lo, a.hi);
+        X[at] = xn;
+        U[at] = unscale(xn, mn[k], sc[k]);
+      } else {
+        G[at] = gm;
+        CU[at] = __fmul_rn(gm, gm);
+      }
     }
-    __syncwarp();
+    __syncthreads();
+    stamp(4);
+    // the history and the gradient's L2 norm, one row per thread
+    if (a.hist != nullptr || !linf) {
+      if (tid < rp) {
+        const int r = tid;
+        if (a.hist != nullptr && r < nr) {
+          float* h = a.hist + (static_cast<size_t>(it) * a.n + row0 + r) * a.hist_cols;
+          const float lc = LC[r];
+          const float cons = CONS[r];
+          h[0] = __fadd_rn(__fmul_rn(wc, lc), __fmul_rn(wk, -cons));
+          h[1] = lc;
+          h[2] = cons;
+          if (hist_full)
+            for (int k = 0; k < kTerms; ++k) h[g_col + k] = GV[r * (kTerms + 1) + k];
+        }
+        if (!linf) NRM[r] = __fadd_rn(__fsqrt_rn(row_sum(CU + r * kRS)), 1e-7f);
+      } else if (hist_norm && tid >= 32 && tid < 32 + nr) {
+        const int r = tid - 32;
+        a.hist[(static_cast<size_t>(it) * a.n + row0 + r) * a.hist_cols + 3] = __fsqrt_rn(row_sum(SQR + r * kRS));
+      }
+      __syncthreads();
+    }
+    stamp(5);
     if (!linf) {
-      if (lane == 0) {
-        float s = __fmul_rn(GR[0], GR[0]);
-        for (int k = 1; k < kD; ++k) s = __fadd_rn(s, __fmul_rn(GR[k], GR[k]));
-        AUX[0] = __fadd_rn(__fsqrt_rn(s), 1e-7f);
+      // the step and the clip; the perturbation into U, its squares into CU
+      for (int e = tid; e < rp * kD; e += kThreads) {
+        const int r = e / kD;
+        const int at = e + r * (kRS - kD);
+        const float x = clamp_nan(__fadd_rn(X[at], __fmul_rn(stp, div_rn(G[at], NRM[r]))), a.lo, a.hi);
+        const float du = __fsub_rn(x, XI[at]);
+        U[at] = du;
+        CU[at] = __fmul_rn(du, du);
       }
-      __syncwarp();
-    }
-    // the step and the clip; the perturbation into U
-    for (int k = lane; k < kD; k += 32) {
-      const float gv = GR[k];
-      const float d = linf ? (gv > 0.0f ? 1.0f : (gv < 0.0f ? -1.0f : (gv == 0.0f ? 0.0f : gv)))
-                           : __fdiv_rn(gv, AUX[0]);
-      const float x = clamp_nan(__fadd_rn(X[k], __fmul_rn(stp, d)), a.lo, a.hi);
-      U[k] = __fsub_rn(x, XI[k]);
-    }
-    __syncwarp();
-    // the projection and the clip
-    if (!linf) {
-      if (lane == 0) {
-        float s = __fmul_rn(U[0], U[0]);
-        for (int k = 1; k < kD; ++k) s = __fadd_rn(s, __fmul_rn(U[k], U[k]));
-        AUX[1] = nan_min(1.0f, __fdiv_rn(a.eps, __fadd_rn(__fsqrt_rn(s), 1e-12f)));
+      __syncthreads();
+      stamp(6);
+      if (tid < rp)
+        FAC[tid] = nan_min(1.0f, __fdiv_rn(a.eps, __fadd_rn(__fsqrt_rn(row_sum(CU + tid * kRS)), 1e-12f)));
+      __syncthreads();
+      stamp(7);
+      // the projection and the clip
+      for (int e = tid; e < rp * kD; e += kThreads) {
+        const int r = e / kD;
+        const int k = e - r * kD;
+        const int at = r * kRS + k;
+        const float x = clamp_nan(__fadd_rn(XI[at], __fmul_rn(U[at], FAC[r])), a.lo, a.hi);
+        X[at] = x;
+        U[at] = unscale(x, mn[k], sc[k]);
       }
-      __syncwarp();
+      __syncthreads();
+      stamp(8);
     }
-    for (int k = lane; k < kD; k += 32) {
-      const float d = linf ? clamp_nan(U[k], -a.eps, a.eps) : __fmul_rn(U[k], AUX[1]);
-      X[k] = clamp_nan(__fadd_rn(XI[k], d), a.lo, a.hi);
-    }
-    __syncwarp();
     if (repair) {
-      for (int k = lane; k < kD; k += 32) U[k] = __fdiv_rn(__fsub_rn(X[k], mn[k]), sc[k]);
-      __syncwarp();
-      if (lane == 0) lcld_repair(a, ohe, U);
-      __syncwarp();
-      for (int k = lane; k < kD; k += 32)
-        if (mut[k]) X[k] = __fadd_rn(__fmul_rn(U[k], sc[k]), mn[k]);
-      __syncwarp();
+      if (parallel_repair) {
+        // each row's installment, then each of its groups, side by side
+        for (int task = tid; task < rp * (1 + a.n_groups); task += kThreads) {
+          const int part = task / rp;
+          float* u = U + (task - part * rp) * kRS;
+          if (part == 0)
+            repair_installment(u);
+          else
+            repair_group(ohe + (part - 1) * a.group_slots, a.group_slots, u);
+        }
+      } else if (tid < rp) {
+        float* u = U + tid * kRS;
+        repair_installment(u);
+        for (int gi = 0; gi < a.n_groups; ++gi) repair_group(ohe + gi * a.group_slots, a.group_slots, u);
+      }
+      __syncthreads();
+      stamp(9);
+      for (int e = tid; e < rp * kD; e += kThreads) {
+        const int r = e / kD;
+        const int k = e - r * kD;
+        const int at = r * kRS + k;
+        if (mut[k]) {
+          const float x = __fadd_rn(__fmul_rn(U[at], sc[k]), mn[k]);
+          X[at] = x;
+          U[at] = unscale(x, mn[k], sc[k]);
+        }
+      }
+      __syncthreads();
+      stamp(10);
     }
   }
+  stamp.flush(tid);
 
-  // the class at x_adv: mlp_proba_plain's probabilities, the first largest
-  mlp_forward(a, lay, ws, X, ACT, lane);
-  if (lane == 0) a.pred[row] = predicted_class(a.widths[a.n_layers], logits);
-  for (int k = lane; k < kD; k += 32) a.x_adv[r0 + k] = X[k];
+  for (int e = tid; e < nr * kD; e += kThreads) {
+    const int r = e / kD;
+    a.x_adv[static_cast<size_t>(row0) * kD + e] = X[r * kRS + (e - r * kD)];
+  }
+}
+
+size_t pgd_smem_bytes(const PgdLayout& lay) {
+  return sizeof(float) * (static_cast<size_t>(lay.w_floats) + 3 * kRS + lay.ohe_ints + lay.row_floats);
 }
 
 }  // namespace
@@ -438,26 +795,71 @@ cudaError_t launch_pgd_lcld(const PgdArgs& args, cudaStream_t stream) {
       args.n_groups < 0 || args.group_slots < 1 || args.n_groups * args.group_slots > kPgdMaxOheSlots)
     return cudaErrorInvalidValue;
   PgdLayout lay{};
-  lay.max_width = kDP;
+  int act_floats = 0, widest = 1;
   for (int l = 0; l < args.n_layers; ++l) {
     const int in_w = args.widths[l];
     const int out_w = args.widths[l + 1];
     if (out_w < 1 || out_w > kObjectiveMaxWidth) return cudaErrorInvalidValue;
+    lay.w_st[l] = odd_stride(in_w);
     lay.w_off[l] = lay.w_floats;
-    lay.w_floats += out_w * ((in_w | 1) + 1);
-    lay.act_floats += out_w;
-    lay.max_width = lay.max_width > out_w ? lay.max_width : out_w;
+    lay.w_floats += out_w * lay.w_st[l];
+    lay.b_off[l] = lay.w_floats;
+    lay.w_floats += (out_w + 3) & ~3;
+    if (l + 1 < args.n_layers) {
+      lay.act_st[l] = odd_stride(out_w);
+      act_floats += lay.act_st[l];
+    }
+    widest = widest > out_w ? widest : out_w;
   }
+  lay.ct_st = odd_stride(widest);
   lay.ohe_ints = (args.n_groups * args.group_slots + 3) & ~3;
-  lay.warp_floats = (5 * kDP + lay.act_floats + 2 * lay.max_width + 4 + 3) & ~3;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(lay.w_floats) + 3 * kDP + lay.ohe_ints +
-                                       static_cast<size_t>(kPgdRowsPerBlock) * lay.warp_floats);
-  if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
   static LaunchCache cache;
-  const cudaError_t err =
-      cache.prepare(reinterpret_cast<const void*>(pgd_lcld_kernel), kPgdRowsPerBlock * 32, smem, nullptr);
+  int sms = 0;
+  cudaError_t err = cache.sm_count(&sms);
   if (err != cudaSuccess) return err;
-  const int grid = (args.n + kPgdRowsPerBlock - 1) / kPgdRowsPerBlock;
-  pgd_lcld_kernel<<<grid, kPgdRowsPerBlock * 32, smem, stream>>>(args, lay);
+  // one block on each SM
+  int rows = (args.n + sms - 1) / sms;
+  rows = rows < 1 ? 1 : (rows > kPgdMaxRows ? kPgdMaxRows : rows);
+  for (;; --rows) {
+    lay.rows = rows;
+    lay.rows_pad = (rows + kTile - 1) / kTile * kTile;
+    // six feature buffers, the activations, two of cotangents, 4 + 11
+    // scalars per row
+    lay.row_floats = lay.rows_pad * (6 * kRS + act_floats + 2 * lay.ct_st + 4 + kTerms + 1);
+    if (pgd_smem_bytes(lay) <= kMaxSharedBytes) break;
+    if (rows == 1) return cudaErrorInvalidValue;
+  }
+  int off = 0;
+  for (int l = 0; l + 1 < args.n_layers; ++l) {
+    lay.act_off[l] = off;
+    off += lay.rows_pad * lay.act_st[l];
+  }
+  lay.ct_off = off;
+  const size_t smem = pgd_smem_bytes(lay);
+  err = cache.prepare(reinterpret_cast<const void*>(pgd_lcld_kernel), kThreads, smem, nullptr);
+  if (err != cudaSuccess) return err;
+  const int grid = (args.n + rows - 1) / rows;
+  pgd_lcld_kernel<<<grid, kThreads, smem, stream>>>(args, lay);
   return cudaGetLastError();
 }
+
+#ifdef K7_STAMPS
+extern "C" const char* k7_phase_names() {
+  return "terms, or the hidden layers' forward;head and cross-entropy;hidden layers' backward;wait for the terms;"
+         "input backward and gradient;history and gradient norm;step;projection factor;projection;repair;"
+         "repair's round trip";
+}
+
+// the warps whose stamps k7_take_cycles returns: thread 0's, then the terms
+// warp's lane 0
+extern "C" int k7_stamped_warps() { return kStampedWarps; }
+
+// copies K7's per-phase cycles to `out` (kStampedWarps x kPhases values)
+// and zeroes them
+extern "C" int k7_take_cycles(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, k7_cycles, sizeof(k7_cycles));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static const unsigned long long zero[kStampedWarps][kPhases] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(k7_cycles, zero, sizeof(zero)));
+}
+#endif

@@ -12,6 +12,8 @@ CPU tensors rather than fall back, and importing them builds nothing.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -528,16 +530,21 @@ PGD_CASES = (
 )
 
 
+# K7 runs ceil(N / 132) rows per block, at most 32, on an H100's 132 SMs:
+# the edges of that layout (chip_smoke.PGD_ROWS's), and the fixture's 64
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,t", [(1, 7), (33, 12), (64, 30)])
+@pytest.mark.parametrize("n,t", [(1, 7), (31, 7), (33, 12), (64, 30), (131, 7), (133, 12), (1000, 7), (4000, 7),
+                                 (4223, 7), (4225, 12)])
 @pytest.mark.parametrize("case", range(len(PGD_CASES)))
 def test_pgd_lcld_equals_plain(card, pgd_problem, case, n, t):
     cons, sur, scaler, xs, starts = pgd_problem
     knobs = PGD_CASES[case]
     atk = ConstrainedPGD(sur, cons, scaler, eps=0.2, eps_step=0.1, device=card, **knobs)
     sched = atk.schedule(0.2, 0.1, t)
-    args = (torch.as_tensor(xs[:n], device=card), torch.as_tensor(np.arange(n) % 2, device=card),
-            torch.as_tensor(starts[:n], device=card))
+    # row counts above the fixture's states repeat its rows
+    xs, starts = (np.resize(v, (n, v.shape[1])) for v in (xs, starts))
+    args = (torch.as_tensor(xs, device=card), torch.as_tensor(np.arange(n) % 2, device=card),
+            torch.as_tensor(starts, device=card))
     repair, linf = "repair" in atk.loss_evaluation, knobs["norm"] == np.inf
     before = kernels.launch_counts()["pgd_lcld"]
     got = kernels.pgd_lcld(atk.tables, sched, *args, 0.2, atk.clip, linf, repair, atk.targeted, atk.history_layout())
@@ -561,6 +568,30 @@ def test_pgd_lcld_other_stacks_equal_plain(card, pgd_problem, hidden, n_classes)
             torch.as_tensor(starts, device=card))
     got = kernels.pgd_lcld(atk.tables, sched, *args, 0.3, atk.clip, False, True, False, atk.history_layout())
     want = pgd_run_plain(atk.tables, cons, sched, *args, 0.3, atk.clip, 2, True, False, atk.history_layout())
+    for g, w in zip(got, want):
+        assert _same(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feature", [0, 3])
+def test_pgd_lcld_repair_with_a_group_on_the_installments_features(card, pgd_problem, feature):
+    """A one-hot group that also holds one of features 0-3, which repair's
+    installment reads or writes: K7 then repairs one row at a time, in
+    LcldConstraints.repair's order, instead of its parts side by side."""
+    cons, sur, scaler, xs, starts = pgd_problem
+    changed = copy.copy(cons)
+    idx, mask = cons._ohe_idx.clone(), cons._ohe_mask.clone()
+    assert not mask[0, 4]
+    idx[0, 4], mask[0, 4] = feature, True
+    changed._ohe_idx, changed._ohe_mask = idx, mask
+    atk = ConstrainedPGD(sur, changed, scaler, eps=0.2, eps_step=0.1, norm=2, device=card,
+                         loss_evaluation="constraints+flip+repair", record_loss="full")
+    tables = atk.tables._replace(ohe=idx.masked_fill(~mask, -1).to(device=card, dtype=torch.int32))
+    sched = atk.schedule(0.2, 0.1, 9)
+    args = (torch.as_tensor(xs, device=card), torch.as_tensor(np.arange(len(xs)) % 2, device=card),
+            torch.as_tensor(starts, device=card))
+    got = kernels.pgd_lcld(tables, sched, *args, 0.2, atk.clip, False, True, False, atk.history_layout())
+    want = pgd_run_plain(tables, changed, sched, *args, 0.2, atk.clip, 2, True, False, atk.history_layout())
     for g, w in zip(got, want):
         assert _same(g, w)
 
