@@ -87,12 +87,12 @@ Phases, in order; any failure exits non-zero:
 9. constrained PGD on the botnet domain (the ``[pgd-botnet]`` lines): K7b's
    ptxas line; K7b ``pgd_botnet`` against ``pgd_run_plain`` on the card, bit
    for bit (x_adv, the class at x_adv, the history), over
-   ``PGD_BOTNET_ROWS`` (partial last blocks among them) x ``PGD_ITERS`` and
+   ``PGD_BOTNET_ROWS`` (partial last clusters among them) x ``PGD_ITERS`` and
    phase 7's ``PGD_CONFIGS``, with the terms' edge cases in the starts
    (``problems.botnet_edge_starts``); K7b timed at 387 states x 1000
    iterations (and the other rq1 losses at 100) beside the plain version at
    10 iterations, its bound, its latency floor and ``torch.matmul`` of its
-   first layer alone; ``ConstrainedPGD.generate`` as ``experiments/pgd.py``
+   first layer alone, with its launch's shape as the launcher plans it; ``ConstrainedPGD.generate`` as ``experiments/pgd.py``
    drives it at rq1.botnet's ε 4 and rq0.botnet's ε 1 (cold and steady,
    launch counts set to 0 just before and read just after: one launch of
    K7b each), the ε-ball, immutables, finiteness, two equal runs and
@@ -150,7 +150,7 @@ def nvidia_smi_line() -> str:
 
 #: kernels whose ptxas report must show no spill
 REDESIGNED = ("objective_lcld_kernel", "survive_fill_kernel", "survive_norm_kernel", "offspring_kernel",
-              "nd_peel_kernel", "associate_kernel", "pgd_lcld_kernel")
+              "nd_peel_kernel", "associate_kernel", "pgd_lcld_kernel", "pgd_botnet_kernel")
 
 
 def ptxas_resources(build_log: str) -> list:
@@ -2060,10 +2060,16 @@ def run_botnet(device, smi: str, resources: list):
 PGD_BOTNET_STATES = 387
 PGD_BOTNET_EPS = 4.0
 PGD_BOTNET_RQ0_EPS = 1.0
-#: K7b's sweep: a lone row, one row per block (31, 33), partial last blocks
-#: of 2 and 3 rows per block (133, 265) and rq1.botnet's 387 (3 per block);
-#: phase 7's configurations and iteration budgets, 100 at one N each
-PGD_BOTNET_ROWS = (1, 31, 33, 133, 265, 387)
+#: K7b's sweep: clusters of two CTAs, ceil(N / 66) rows each (66 clusters
+#: resident on the H100), at most 6: a lone row; one row per cluster (31,
+#: 33) up to 66, the largest N that gives it, and 67, one row past it (2 per
+#: cluster, the last holding one); partial last clusters of 3, 5 and 6 rows
+#: per cluster (133, 265, 331); rq1.botnet's 387 (6 per cluster, the last
+#: holding 3); 396, 6 rows on each of the 66 clusters, the most the layout
+#: allows, and 397, one past it (a 67th cluster of one row). Counts above
+#: the problem's states repeat its rows. Phase 7's configurations and
+#: iteration budgets, 100 at one N each
+PGD_BOTNET_ROWS = (1, 31, 33, 66, 67, 133, 265, 331, 387, 396, 397)
 #: the plain version's iterations when it is timed
 PGD_BOTNET_PLAIN_ITERS = 10
 #: card against CPU: rows and iterations
@@ -2103,6 +2109,8 @@ def check_pgd_botnet_kernel(device, problem):
 
     cons, sur, scaler, _, xs, _ = problem
     starts = botnet_edge_starts(cons.schema.names, scaler, xs)
+    n = max(PGD_BOTNET_ROWS)
+    xs, starts = np.resize(xs, (n, xs.shape[1])), np.resize(starts, (n, xs.shape[1]))
     (runs, nan_rows, nan_hist), y = pgd_sweep(device, "pgd_botnet", cons, sur, scaler, xs, starts, PGD_BOTNET_ROWS)
     nan_grad, inf_grad = edge_gradient(device, cons, sur, scaler, starts[:BOTNET_EDGE_ROWS], y)
     log(f"[pgd-botnet] pgd_botnet equals pgd_run_plain (x_adv, class, history) on all {runs} runs: "
@@ -2138,6 +2146,27 @@ def pgd_botnet_floor_ms(tables, t: int, mhz: float, l2: bool = True) -> float:
     return t * chain * CYCLES_PER_DEPENDENT_OP / (mhz * 1e6) * 1e3
 
 
+def pgd_botnet_shape(tables, n: int) -> dict:
+    """K7b's launch at ``n`` rows of ``tables``' stack and gather lists, as
+    its launcher plans it on the current card (``moeva_pgd_botnet_shape``)."""
+    import ctypes
+
+    from moeva2_ijcai22_replication_tpu_torch.kernels import build
+
+    fn = build.library().moeva_pgd_botnet_shape
+    c_int = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(c_int), c_int, ctypes.POINTER(c_int), c_int, ctypes.POINTER(c_int)]
+    fn.restype = c_int
+    widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
+    counts = list(tables.cons.counts)
+    out = (c_int * 6)()
+    err = fn((c_int * len(widths))(*widths), len(widths) - 1, (c_int * len(counts))(*counts), n, out)
+    if err:
+        raise RuntimeError(f"moeva_pgd_botnet_shape failed: {build.library().moeva_error_string(err).decode()}")
+    return dict(zip(("rows_per_cluster", "ctas_per_cluster", "ctas", "threads", "smem_bytes", "resident_clusters"),
+                    out))
+
+
 def max_sm_clock_mhz() -> float:
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                          capture_output=True, text=True, check=True)
@@ -2164,6 +2193,11 @@ def time_pgd_botnet(device, problem):
     rec["first_layer_matmul_ms"] = PGD_BUDGET * graph_ms(lambda: torch.matmul(xi, atk.tables.first_t))
     torch.backends.cuda.matmul.allow_tf32 = tf32
     rec["ceiling_ms"] = pgd_botnet_floor_ms(atk.tables, PGD_BUDGET, mhz)
+    rec["launch"] = pgd_botnet_shape(atk.tables, len(xs))
+    sh = rec["launch"]
+    log(f"[pgd-botnet] K7b's launch at {len(xs)} rows: clusters of {sh['ctas_per_cluster']} CTAs of {sh['threads']} "
+        f"threads, {sh['rows_per_cluster']} rows per cluster, {sh['ctas'] // sh['ctas_per_cluster']} clusters "
+        f"({sh['resident_clusters']} resident at once), {sh['smem_bytes']} bytes of shared memory per CTA")
     log(f"[pgd-botnet] pgd_botnet's latency floor {rec['ceiling_ms']:.3f} ms (at {mhz:.0f} MHz); torch.matmul of the "
         f"first layer alone ({len(xs)} x {xs.shape[1]}) @ ({xs.shape[1]} x {atk.tables.first_t.shape[1]}), fp32, "
         f"TF32 off, x {PGD_BUDGET}: {rec['first_layer_matmul_ms']:.3f} ms (a note for the library column; the port "

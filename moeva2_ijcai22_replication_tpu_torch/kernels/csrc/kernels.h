@@ -255,12 +255,13 @@ cudaError_t launch_objective_botnet(BotnetObjectiveArgs args, cudaStream_t strea
 // layer's double buffers and the gather lists fit one block's shared memory.
 int objective_botnet_max_features(int h1, int n_entries);
 
-// pgd_botnet: botnet's feature count, the threads of a block, the most rows
-// a block takes (rows * the first layer's width, at most kBotnetMaxWidth,
-// fit its threads), and the most entries per feature of the inverse table.
+// pgd_botnet: botnet's feature count, the threads of each CTA of its
+// cluster of two (one per feature of the CTA's half), the most rows a
+// cluster takes (as many as fit beside the staged layer), and the most
+// entries per feature of the inverse table.
 constexpr int kBotnetFeatures = 756;
-constexpr int kPgdBotnetThreads = 256;
-constexpr int kPgdBotnetMaxRows = 4;
+constexpr int kPgdBotnetThreads = 384;
+constexpr int kPgdBotnetMaxRows = 6;
 constexpr int kPgdBotnetMaxDegree = 16;
 
 // pgd_botnet's arguments: pgd_lcld's (the same flags) for (N, 756) rows,
@@ -290,7 +291,7 @@ struct PgdBotnetArgs {
   float eps, lo, hi, tol;
   int n_layers;
   int widths[kObjectiveMaxLayers + 1];
-  int rows;               // rows per block, set by the launcher
+  int rows;               // rows per cluster, set by the launcher
 };
 
 cudaError_t launch_pgd_botnet(PgdBotnetArgs args, cudaStream_t stream);

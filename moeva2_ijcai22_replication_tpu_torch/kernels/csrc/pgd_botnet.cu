@@ -40,161 +40,314 @@
 // operations, 9.3e10 for rq1.botnet's 387 rows x 1000 iterations, 1.4 ms at
 // 67 TFLOP/s; the rows' bytes are negligible. Bound by operations. The
 // fixed left-to-right orders make serial chains in every iteration,
-// whatever the parallelism: each first-layer unit (756 multiply-adds), the
-// two L2 sums over 756 features, the deeper layers and the cross-entropy,
-// some 2,700 dependent operations (chip_smoke.py's pgd_botnet_floor_ms
-// counts them): a latency floor four times the bound. Tensor cores are not
-// used: their sums have an order no CPU code reproduces.
+// whatever the parallelism: each first-layer unit (756 adds), the two L2
+// sums over 756 features, the deeper layers and the cross-entropy, some
+// 2,700 dependent operations (chip_smoke.py's pgd_botnet_floor_ms counts
+// them): a latency floor four times the bound. Tensor cores are not used:
+// their sums have an order no CPU code reproduces.
 //
-// Design (a simple one first): a block of 256 threads takes `rows` rows, 1
-// to 4, as few as spread N over the SMs in one wave (3 at 387 rows), so
-// that each weight read serves every row of the block. The first layer
-// (189 KB) stays in global memory, resident in L2: the forward reads its
-// transposed copy (threads owning output units read consecutive words), the
-// input backward params' (out, in) layout (threads owning input features
-// read consecutive words). The small layers (padded to an odd stride), the
-// scaler, the mutable mask and the gather and inverse tables are staged in
-// shared memory; each row keeps its iterate, x_init, unscaled row,
-// gradient, entry cotangents, terms, activations and squares there (~24
-// KB). The independent chains are spread over the threads, with block
-// barriers between the phases: the first layer's units of every row
-// together with the rows' 360 terms (the flow sums, the longest terms, on
-// threads the first layer leaves free); the deeper layers' units; one
-// thread per row for the cross-entropy; the 756 features' input backward,
-// cotangent sums, gradient and the squares the L2 sums add; one thread per
-// row for each L2 sum, reading 4 squares at a time (the history's grad norm
-// on another warp); the 756 features' step and projection. Weight loads
-// are issued well ahead of the sums that use them: the first layer's reads
-// from L2, twice per iteration for every block, take most of its time
-// (PERF.md), and keeping that layer on chip is the redesign's work.
+// Design: the first layer (756 x 64 floats, 189 KB) is read twice an
+// iteration, forward and backward, and does not fit one SM beside the rows
+// (the first version read it from L2, 61% of its time), so a cluster of two
+// CTAs on neighbouring SMs holds it, split by features: CTA r stages, once,
+// columns [378 r, 378 r + 378) of every unit, unit by unit at a stride of
+// 380 floats (a multiple of 4 whose quarter is odd): the forward's threads,
+// a unit each, read 4 consecutive features of their unit with one
+// conflict-free 16-byte load, and the backward's threads, a feature each,
+// read consecutive words. The cluster runs `rows` rows (at most kMaxRows,
+// as few as spread N over the resident clusters in one wave: 6 at 387 rows
+// on 66 clusters); each CTA keeps a row's iterate and squares for its own
+// features, and rank 0 the unscaled row u of all 756 (the terms gather any
+// feature). A feature's owner thread keeps its scale, min, mask,
+// inverse-table row, x_init and gradient in registers. Each chain keeps its
+// order across the pair: a unit's sum runs over rank 0's features and is
+// carried on by rank 1 from rank 0's partial sum, and an L2 sum likewise; a
+// feature's backward sum is local. An iteration, rank 0 | rank 1, "->" a
+// hand-off to the peer:
+//   the first layer's half from the biases -> | ;
+//   the 360 terms of every row, the cotangents of rank 1's entries -> |
+//     the first layer's second half, the deeper layers, the cross-entropy
+//     and the backward to the first layer's output ->;
+//   both: the input backward, the cotangent sums, the gradient and the
+//     squares of the own features;
+//   the first half of each row's two L2 sums (gradient, history) -> | the
+//     second half, the norm ->;
+//   both: the step and the squares of the perturbation;
+//   the projection factor's sum, its halves as above;
+//   both: the projection, the clip and repair's round trip | u ->.
+// A hand-off writes into the peer's shared memory with st.async, each word
+// counted on the peer's mbarrier (Pair, below): a cluster barrier or a
+// cluster-scope fence would cost ~1000 cycles each (PERF.md). Each
+// forward thread runs a unit for a tile of 3 rows, so a weight load serves
+// 3 rows, and the deeper layers likewise; the rows' L2 sums run one lane
+// each on warp 0 (the history's on lanes 8 and up); the history's sum of
+// the terms, on rank 0's spare threads beside the input backward; a zero
+// numerator skips the division's slow path (div_rn). Loops stay rolled
+// past their chunk of loads: code the instruction caches do not hold costs
+// more than its arithmetic (PERF.md).
+
+#include <algorithm>
+
+#include <cooperative_groups.h>
 
 #include "pgd_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kD = kBotnetFeatures;
+constexpr int kH = kD / 2;  // the features of each CTA of the pair
+constexpr int kHP = 380;    // their stride in the staged layer and the rows
 constexpr int kThreads = kPgdBotnetThreads;
 constexpr int kMaxRows = kPgdBotnetMaxRows;
+constexpr int kTile = 3;  // rows per thread in the first layer's forward
+constexpr int kMaxDegree = kPgdBotnetMaxDegree;
 constexpr float kMtu = 1500.0f;
-static_assert(kThreads / 32 >= 2 * kMaxRows, "a warp per row for each of the two L2 sums");
+static_assert(kD % 2 == 0 && kH % 4 == 2, "the halves' sums end with a float2");
+static_assert(kH <= kHP && kHP % 4 == 0 && (kHP / 4) % 2 == 1, "conflict-free 16-byte loads of a unit's features");
+static_assert(kThreads >= kH, "a thread per feature of the CTA's half");
 static_assert(kMaxRows * kBotnetMaxWidth <= kThreads, "a thread per unit of every row");
-static_assert(kD % 4 == 0, "rows stay 16-byte aligned");
+static_assert(kMaxRows <= 8, "warp 0's lanes 0-7 and 8-15 run the rows' two L2 sums");
 
 __host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
 
 struct Layout {
-  int w_off[kObjectiveMaxLayers];    // staged layers 1..L-1: weight (out, padded in), then bias
-  int act_off[kObjectiveMaxLayers];  // each layer's output in a row's activations
-  int seg[kBotnetSegments + 1];      // each segment's first entry in the gather lists
-  int ord_start[3];                  // each ordering's first term
+  int w_off[kObjectiveMaxLayers];     // staged layers 1..L-1: weight (out, odd stride), then bias
+  int act_off[kObjectiveMaxLayers];   // each layer's output in a row's activations
+  int seg[kBotnetSegments + 1];       // each segment's first entry in the gather lists
+  int ord_start[3];                   // each ordering's first term
   int n_entries, n_terms;
-  int staged_floats;                 // the first layer's bias, then the staged layers
-  int act_floats;                    // a row's activations: the widths of layers 1..L
-  int row_floats;                    // a row's slice
+  int ws_floats;                      // the first layer's bias, then layers 1..L-1
+  int act_floats;                     // a row's activations: the widths of layers 1..L
+  int row_floats;                     // a row's slice
 };
 
-// a row's slice of shared memory
+// a row's slice of shared memory, the same on both CTAs
 struct Row {
-  float* x;    // the iterate (scaled)
-  float* xi;   // x_init
-  float* u;    // the unscaled iterate; the perturbation between step and projection
-  float* gr;   // the raw gradient
+  float* x;    // (kHP) the iterate (scaled) at the CTA's features
+  float* sq;   // (kHP) the squares an L2 sum adds: of the masked gradient, then of the perturbation
+  float* sqh;  // (kHP) the squares of the raw gradient's finite entries (the history's grad norm)
+  float* u;    // (kD) rank 0: the unscaled iterate at every feature
   float* ent;  // the cotangent of each entry of the gather lists
   float* g;    // the smooth violations
-  float* act;  // the activations of layers 1..L, logits last
+  float* act;  // the activations of layers 1..L, logits last; rank 1: rank 0's partial sums first
   float* cta;  // cotangents, ping
   float* ctb;  // and pong
-  float* sq;   // the squares an L2 sum adds: of the masked gradient, then of the perturbation
-  float* sqh;  // the squares of the raw gradient's finite entries (the history's grad norm)
-  float* aux;  // [gradient norm + 1e-7, projection factor]
+  float* aux;  // [gradient norm + 1e-7, projection factor, the partial L2 sums (gradient, history), class
+               //  loss, the partial projection sum, -, the word an L-inf hand-off carries]
 };
 
 __device__ __forceinline__ Row row_at(float* rows, const Layout& lay, int r) {
   Row s;
   s.x = rows + r * lay.row_floats;
-  s.xi = s.x + kD;
-  s.u = s.xi + kD;
-  s.gr = s.u + kD;
-  s.ent = s.gr + kD;
+  s.sq = s.x + kHP;
+  s.sqh = s.sq + kHP;
+  s.u = s.sqh + kHP;
+  s.ent = s.u + kD;
   s.g = s.ent + pad4(lay.n_entries);
   s.act = s.g + pad4(lay.n_terms);
   s.cta = s.act + pad4(lay.act_floats);
   s.ctb = s.cta + kBotnetMaxWidth;
-  s.sq = s.ctb + kBotnetMaxWidth;
-  s.sqh = s.sq + kD;
-  s.aux = s.sqh + kD;
+  s.aux = s.ctb + kBotnetMaxWidth;
   return s;
 }
 
-__device__ __forceinline__ float unscale(float x, float mn, float sc) { return __fdiv_rn(__fsub_rn(x, mn), sc); }
+constexpr int kRowTail = 3 * kHP + kD + 2 * kBotnetMaxWidth + 8;  // a row's floats besides its variable parts
 
-// unit o of the first layer on the row x: its bias, then x[k] * w[o][k] for
-// k = 0, 1, ... from the transposed copy wt (D, w1). The weights come from
-// L2: 32 loads are issued ahead of their adds, so that the chain waits for
-// one load's latency per 32 features rather than per feature; the row is
-// read 4 features at a time.
-__device__ __forceinline__ float first_unit(const float* __restrict__ wt, int w1, float bias, const float* x, int o) {
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  float acc = bias;
-#pragma unroll 8
-  for (int k4 = 0; k4 < kD / 4; ++k4) {
-    const float4 v = x4[k4];
-    const float* w = wt + 4 * k4 * w1 + o;
-    acc = __fadd_rn(acc, __fmul_rn(v.x, __ldg(w)));
-    acc = __fadd_rn(acc, __fmul_rn(v.y, __ldg(w + w1)));
-    acc = __fadd_rn(acc, __fmul_rn(v.z, __ldg(w + 2 * w1)));
-    acc = __fadd_rn(acc, __fmul_rn(v.w, __ldg(w + 3 * w1)));
-  }
-  return acc;
+// acc + (x0 * w0 + ...) of 4 features, left to right
+__device__ __forceinline__ float add4(float acc, float4 x, float4 w) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(acc, __fmul_rn(x.x, w.x)), __fmul_rn(x.y, w.y)), __fmul_rn(x.z, w.z)),
+                   __fmul_rn(x.w, w.w));
 }
 
-// sum_last of the row's D squares in sq, left to right, read 4 at a time
-__device__ __forceinline__ float row_sum(const float* sq) {
-  const float4* q4 = reinterpret_cast<const float4*>(sq);
-  float4 v = q4[0];
-  float sum = __fadd_rn(__fadd_rn(__fadd_rn(v.x, v.y), v.z), v.w);
-#pragma unroll 8
-  for (int k4 = 1; k4 < kD / 4; ++k4) {
-    v = q4[k4];
-    sum = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(sum, v.x), v.y), v.z), v.w);
+// The CTA's half of the first layer's sums of unit o for the kTile rows
+// of tile t: each from acc, adding x[k] * w[o][k] over the CTA's features
+// in order (rows past nr repeat the last row), 16 features at a time, each
+// chunk's loads issued together before its adds.
+__device__ __forceinline__ void first_half(const float* wf, float* rows, const Layout& lay, int nr, int t, int o,
+                                           float (&acc)[kTile]) {
+  const float4* x4[kTile];
+#pragma unroll
+  for (int j = 0; j < kTile; ++j) x4[j] = reinterpret_cast<const float4*>(row_at(rows, lay, min(t * kTile + j, nr - 1)).x);
+  const float4* w4 = reinterpret_cast<const float4*>(wf + o * kHP);
+  constexpr int kFull = kH / 16 * 4;  // the float4s of the full chunks
+#pragma unroll 1
+  for (int k4 = 0; k4 < kFull; k4 += 4) {
+    float4 w[4], v[kTile][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w[i] = w4[k4 + i];
+#pragma unroll
+      for (int j = 0; j < kTile; ++j) v[j][i] = x4[j][k4 + i];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kTile; ++j) acc[j] = add4(acc[j], v[j][i], w[i]);
   }
-  return sum;
+  // the rest: kH % 16 = 10 features, 2 float4s and the first 2 of a third
+  static_assert(kH - kFull * 4 == 10 && kFull * 4 + 12 <= kHP, "the half ends with 2 float4s and 2 features");
+  float4 w[3], v[kTile][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    w[i] = w4[kFull + i];
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) v[j][i] = x4[j][kFull + i];
+  }
+#pragma unroll
+  for (int j = 0; j < kTile; ++j)
+    acc[j] = __fadd_rn(__fadd_rn(add4(add4(acc[j], v[j][0], w[0]), v[j][1], w[1]), __fmul_rn(v[j][2].x, w[2].x)),
+                       __fmul_rn(v[j][2].y, w[2].y));
+}
+
+// sum_last's chain over the CTA's kH squares in q, from `sum` (-0 on rank
+// 0: it adds the first square exactly), 32 squares at a time, each chunk's
+// loads issued before the previous chunk's adds
+__device__ __forceinline__ float half_sum(const float* q, float sum) {
+  const float4* q4 = reinterpret_cast<const float4*>(q);
+  constexpr int kFull = kH / 32 * 8;  // the float4s of the full chunks
+  static_assert(kH - kFull * 4 == 26 && kFull * 4 + 32 <= kHP + 4, "the half ends with 6 float4s and 2 squares");
+  float4 v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = q4[i];
+#pragma unroll 1
+  for (int k4 = 8; k4 <= kFull; k4 += 8) {  // the last loads hold the rest (and 6 floats past it, unused)
+    float4 n[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) n[i] = q4[k4 + i];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sum = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(sum, v[i].x), v[i].y), v[i].z), v[i].w);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = n[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) sum = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(sum, v[i].x), v[i].y), v[i].z), v[i].w);
+  return __fadd_rn(__fadd_rn(sum, v[6].x), v[6].y);
+}
+
+// acc + a[0] * b[0] + a[sa] * b[sb] + ... (n products, left to right): a
+// unit's sum in the deeper layers, 8 products at a time, each chunk's loads
+// issued together before its adds
+__device__ __forceinline__ float dot_chain(float acc, const float* a, int sa, const float* b, int sb, int n) {
+  int k = 0;
+#pragma unroll 1
+  for (; k + 8 <= n; k += 8) {
+    float pa[8], pb[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      pa[j] = a[(k + j) * sa];
+      pb[j] = b[(k + j) * sb];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc = __fadd_rn(acc, __fmul_rn(pa[j], pb[j]));
+  }
+  for (; k < n; ++k) acc = __fadd_rn(acc, __fmul_rn(a[k * sa], b[k * sb]));
+  return acc;
 }
 
 #ifdef K7B_STAMPS
 // tools/probe_pgd_botnet.py's breakdown: per phase, the clock64() cycles
-// from the previous barrier to the barrier that ends it, seen by block 0's
-// thread 0 and summed over the iterations
-constexpr int kPhases = 9;
-__device__ unsigned long long k7b_cycles[kPhases];
+// from the previous stamp, seen by thread 0 of each CTA of cluster 0 (rank
+// 0's row, then rank 1's) and summed over the iterations; a wait for the
+// peer's hand-off is a phase of its own.
+// Summed in shared memory (a stamp in global memory would hold thread 0
+// back by its latency at every phase) and added to k7b_cycles at the end.
+constexpr int kPhases = 19;
+__device__ unsigned long long k7b_cycles[2 * kPhases];
+__shared__ unsigned long long k7b_block_cycles[kPhases];
 #endif
 
-// the barrier that ends phase i
-__device__ __forceinline__ void phase_end(int i, long long& last) {
-  __syncthreads();
+__device__ __forceinline__ void stamp(int i, long long& last) {
 #ifdef K7B_STAMPS
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
+  if (threadIdx.x == 0) {
     const long long now = clock64();
-    k7b_cycles[i] += now - last;
+    k7b_block_cycles[i] += now - last;
     last = now;
   }
 #endif
 }
 
-// Term t of the unscaled row u: its smooth violation, returned, and the
-// cotangents of its entries of the gather lists into ent, from the term's
-// cotangent ct (smooth_vjp's operations)
-__device__ __forceinline__ float term_vjp(const Layout& lay, const int* idx, const float* u, int t, float ct, float tol,
-                                          float* ent) {
+// the block barrier that ends phase i
+__device__ __forceinline__ void block_end(int i, long long& last) {
+  __syncthreads();
+  stamp(i, last);
+}
+
+// The hand-offs between the CTAs of the pair. The sender writes each word
+// into the receiver's copy of a buffer with st.async, which counts its
+// bytes on the receiver's mbarrier of that kind of hand-off; the receiver
+// expects the bytes and its threads wait for the barrier's phase. A phase
+// completes once its bytes have landed, so no fence is needed: a cluster
+// barrier costs ~1250 cycles on the H100, and a cluster-scope fence, which
+// waits for all of the SM's outstanding writes, about as much (PERF.md).
+// One barrier per kind, each used once per iteration, so that a phase
+// never holds the bytes of the next.
+enum Kind { kPartials, kCotangent, kEnt, kHalves, kNorm, kFactorHalf, kFactor, kU, kKinds };
+constexpr int kBarFloats = 16;  // the barriers' room at the start of shared memory, keeping what follows aligned
+static_assert(2 * kKinds <= kBarFloats && kBarFloats % 4 == 0, "8 bytes a barrier");
+
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ unsigned peer_addr(unsigned addr, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void bar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void bar_init_fence() { asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory"); }
+__device__ __forceinline__ void bar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ bool bar_done(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; selp.u32 %0, 1, 0, p; }"
+               : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done;
+}
+__device__ __forceinline__ void put_async(unsigned addr, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];" ::"r"(addr),
+               "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+
+struct Pair {
+  unsigned base;       // this CTA's shared memory: the barriers, one per kind, first
+  unsigned peer_base;  // the peer's, in the cluster's shared window
+
+  // v into the peer's copy of *p, counted on the peer's barrier of kind k
+  __device__ __forceinline__ void put(const float* p, float v, int k) const {
+    put_async(peer_base + (shared_addr(p) - base), v, peer_base + 8 * k);
+  }
+
+  // phase `phase` of this CTA's barrier of kind k, which brings `bytes`:
+  // thread 0 expects them, every thread waits (a sender that never sends
+  // traps the launch after some seconds rather than hang the card)
+  __device__ __forceinline__ void take(int k, unsigned bytes, int phase) const {
+    if (threadIdx.x == 0) bar_expect(base + 8 * k, bytes);
+    for (long long spin = 0; !bar_done(base + 8 * k, phase & 1); ++spin)
+      if (spin > (1ll << 26)) __trap();
+  }
+};
+
+// Term t of a row whose gathered values are in ent (ent[e] = u[idx[e]]): its
+// smooth violation, returned, and the cotangents of its entries of the
+// gather lists into ent over their values, from the term's cotangent ct
+// (smooth_vjp's operations). Each entry is one term's.
+__device__ __forceinline__ float term_vjp(const Layout& lay, float* ent, int t, float ct, float tol) {
   float pre;
   if (t < 2) {  // |sum(flows) - sum(bytes)| of direction t
     const int f0 = t == 0 ? lay.seg[0] : lay.seg[2];
     const int b0 = t == 0 ? lay.seg[1] : lay.seg[3];
     const int b1 = t == 0 ? lay.seg[2] : lay.seg[4];
-    float sf = u[idx[f0]];
-    for (int e = f0 + 1; e < b0; ++e) sf = __fadd_rn(sf, u[idx[e]]);
-    float sb = u[idx[b0]];
-    for (int e = b0 + 1; e < b1; ++e) sb = __fadd_rn(sb, u[idx[e]]);
+    float sf = ent[f0];
+#pragma unroll 8
+    for (int e = f0 + 1; e < b0; ++e) sf = __fadd_rn(sf, ent[e]);
+    float sb = ent[b0];
+#pragma unroll 8
+    for (int e = b0 + 1; e < b1; ++e) sb = __fadd_rn(sb, ent[e]);
     const float v = __fsub_rn(sf, sb);
     pre = __fsub_rn(fabsf(v), tol);
     const float cv = abs_vjp(v, clip_vjp(pre, ct));
@@ -203,11 +356,11 @@ __device__ __forceinline__ float term_vjp(const Layout& lay, const int* idx, con
   } else if (t < lay.ord_start[0]) {  // where(p != 0, b / where(p != 0, p, 1), 0) - 1500
     const int eb = lay.seg[4] + t - 2;
     const int ep = lay.seg[5] + t - 2;
-    const float b = u[idx[eb]];
-    const float p = u[idx[ep]];
+    const float b = ent[eb];
+    const float p = ent[ep];
     const bool nz = p != 0.0f;
     const float den = nz ? p : 1.0f;
-    pre = __fsub_rn(__fsub_rn(nz ? __fdiv_rn(b, den) : 0.0f, kMtu), tol);
+    pre = __fsub_rn(__fsub_rn(nz ? div_rn(b, den) : 0.0f, kMtu), tol);
     float c_b, c_den;
     div_vjp(nz ? clip_vjp(pre, ct) : 0.0f, b, den, c_b, c_den);
     ent[eb] = c_b;
@@ -222,7 +375,7 @@ __device__ __forceinline__ float term_vjp(const Layout& lay, const int* idx, con
         up = lay.seg[7 + 2 * m] + t - lay.ord_start[m];
       }
     }
-    pre = __fsub_rn(__fsub_rn(u[idx[lo]], u[idx[up]]), tol);
+    pre = __fsub_rn(__fsub_rn(ent[lo], ent[up]), tol);
     const float c = clip_vjp(pre, ct);
     ent[lo] = c;
     ent[up] = -c;
@@ -230,10 +383,75 @@ __device__ __forceinline__ float term_vjp(const Layout& lay, const int* idx, con
   return clip_smooth(pre);
 }
 
-// Layers 1..L-1 of every row from the first layer's activations, a thread
-// per (row, unit), a barrier after each layer
-__device__ __forceinline__ void hidden_forward(const PgdBotnetArgs& a, const Layout& lay, const float* ws,
-                                               float* rows, int nr, int tid, long long& last) {
+// Rank 0: the terms of every row and the cotangents of their entries: first
+// every entry's gathered value, then the terms, row by row, term t of row r
+// on thread t + 64 r (mod the threads), so that each row's flow sums, the
+// longest terms, fall on threads of their own and a warp's terms are alike
+// (with `hist` their history columns from col); last the cotangents of the
+// entries whose feature is rank 1's, handed to rank 1
+__device__ __forceinline__ void all_terms(const PgdBotnetArgs& a, const Layout& lay, const int* idx, float* rows,
+                                          const Pair& pair, int nr, int row0, int it, float ctr_w, int ctr,
+                                          float* hist, int col) {
+  for (int r = 0; r < nr; ++r) {
+    const Row s = row_at(rows, lay, r);
+    for (int e = threadIdx.x; e < lay.n_entries; e += kThreads) s.ent[e] = s.u[idx[e]];
+  }
+  __syncthreads();
+  static_assert(kMaxRows * 64 <= kThreads, "each row's flow sums on threads of their own");
+  for (int r = 0; r < nr; ++r) {
+    const Row s = row_at(rows, lay, r);
+    int t = static_cast<int>(threadIdx.x) - 64 * r;
+    for (t += t < 0 ? kThreads : 0; t < lay.n_terms; t += kThreads) {
+      const float g = term_vjp(lay, s.ent, t, ctr < 0 || ctr == t ? ctr_w : 0.0f, a.tol);
+      s.g[t] = g;
+      if (hist != nullptr) hist[(static_cast<size_t>(it) * a.n + row0 + r) * a.hist_cols + col + t] = g;
+    }
+  }
+  __syncthreads();
+  for (int r = 0; r < nr; ++r) {
+    const Row s = row_at(rows, lay, r);
+    for (int e = threadIdx.x; e < lay.n_entries; e += kThreads)
+      if (idx[e] >= kH) pair.put(&s.ent[e], s.ent[e], kEnt);
+  }
+}
+
+// Rank 0: the first half of the first layer's sums of every row, from the
+// biases, into rank 1's activations; a thread per (tile of kTile rows, unit)
+__device__ __forceinline__ void first_half_to_peer(const float* wf, const float* ws, float* rows, const Pair& pair,
+                                                   const Layout& lay, int nr, int w1) {
+  const int tid = threadIdx.x;
+  if (tid < w1 * ((nr + kTile - 1) / kTile)) {
+    const int t = tid / w1;
+    const int o = tid - t * w1;
+    float acc[kTile];
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) acc[j] = ws[o];
+    first_half(wf, rows, lay, nr, t, o, acc);
+#pragma unroll
+    for (int j = 0; j < kTile; ++j)
+      if (t * kTile + j < nr) pair.put(&row_at(rows, lay, t * kTile + j).act[o], acc[j], kPartials);
+  }
+}
+
+// Rank 1: the first layer's second half from rank 0's partial sums and its
+// relu, then layers 1..L-1 of every row, a thread per (row, unit), a block
+// barrier after each layer
+__device__ __forceinline__ void forward_rest(const PgdBotnetArgs& a, const Layout& lay, const float* wf,
+                                             const float* ws, float* rows, int nr, long long& last) {
+  const int tid = threadIdx.x;
+  const int w1 = a.widths[1];
+  if (tid < w1 * ((nr + kTile - 1) / kTile)) {
+    const int t = tid / w1;
+    const int o = tid - t * w1;
+    float acc[kTile];
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) acc[j] = row_at(rows, lay, min(t * kTile + j, nr - 1)).act[o];
+    first_half(wf, rows, lay, nr, t, o, acc);
+#pragma unroll
+    for (int j = 0; j < kTile; ++j)
+      if (t * kTile + j < nr) row_at(rows, lay, t * kTile + j).act[o] = relu_keep_nan(acc[j]);
+  }
+  block_end(2, last);
   for (int l = 1; l < a.n_layers; ++l) {
     const int in_w = a.widths[l];
     const int out_w = a.widths[l + 1];
@@ -245,60 +463,67 @@ __device__ __forceinline__ void hidden_forward(const PgdBotnetArgs& a, const Lay
       const int r = task / out_w;
       const int o = task - r * out_w;
       const Row s = row_at(rows, lay, r);
-      const float* in = s.act + lay.act_off[l - 1];
-      float acc = bias[o];
-      for (int k = 0; k < in_w; ++k) acc = __fadd_rn(acc, __fmul_rn(in[k], w[o * st + k]));
+      const float acc = dot_chain(bias[o], s.act + lay.act_off[l - 1], 1, w + o * st, 1, in_w);
       s.act[lay.act_off[l] + o] = hidden ? relu_keep_nan(acc) : acc;
     }
-    phase_end(1, last);
+    block_end(3, last);
   }
 }
 
-// The cotangent of the first layer's output of every row, from that of the
-// logits in cta, through layers L-1..1 (a thread per (row, unit), a barrier
-// after each layer); returns whether it ends in ctb
-__device__ __forceinline__ bool hidden_backward(const PgdBotnetArgs& a, const Layout& lay, const float* ws,
-                                                float* rows, int nr, int tid, long long& last) {
+// Rank 1: the cotangent of the first layer's output of every row, from that
+// of the logits in cta, through layers L-1..1 (a thread per (row, unit), a
+// block barrier after each layer); the last layer's is handed to the peer
+// too
+__device__ __forceinline__ void hidden_backward(const PgdBotnetArgs& a, const Layout& lay, const float* ws,
+                                                float* rows, const Pair& pair, int nr, long long& last) {
   bool in_b = false;
   for (int l = a.n_layers - 1; l >= 1; --l) {
     const int in_w = a.widths[l];
     const int out_w = a.widths[l + 1];
     const int st = padded_stride(in_w);
     const float* w = ws + lay.w_off[l];
-    for (int task = tid; task < nr * in_w; task += kThreads) {
+    for (int task = threadIdx.x; task < nr * in_w; task += kThreads) {
       const int r = task / in_w;
       const int k = task - r * in_w;
       const Row s = row_at(rows, lay, r);
       const float* cur = in_b ? s.ctb : s.cta;
-      float* dst = in_b ? s.cta : s.ctb;
       // the input of layer l is the output of layer l - 1 (hidden): its
       // cotangent passes where that output is > 0
       const float* h = s.act + lay.act_off[l - 1];
-      float acc = __fmul_rn(cur[0], w[k]);
-      for (int o = 1; o < out_w; ++o) acc = __fadd_rn(acc, __fmul_rn(cur[o], w[o * st + k]));
-      dst[k] = h[k] > 0.0f ? acc : 0.0f;
+      // from -0, which adds the first product exactly
+      const float acc = dot_chain(-0.0f, cur, 1, w + k, st, out_w);
+      const float v = h[k] > 0.0f ? acc : 0.0f;
+      float* dst = (in_b ? s.cta : s.ctb) + k;
+      *dst = v;
+      if (l == 1) pair.put(dst, v, kCotangent);
     }
-    phase_end(3, last);
+    block_end(5, last);
     in_b = !in_b;
   }
-  return in_b;
 }
 
-__global__ void __launch_bounds__(kThreads) pgd_botnet_kernel(const PgdBotnetArgs a, const Layout lay) {
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+    pgd_botnet_kernel(const PgdBotnetArgs a, const Layout lay) {
   extern __shared__ __align__(16) float smem[];
-  float* ws = smem;                            // the first layer's bias, then the staged layers
-  float* sc = ws + lay.staged_floats;          // (D) scale
-  float* mn = sc + kD;                         // (D) min_
-  int* mut = reinterpret_cast<int*>(mn + kD);  // (D) mutable
-  int* idx = mut + kD;                         // the gather lists
-  int* inv = idx + pad4(lay.n_entries);        // (D, degree) the inverse table
-  float* rows = reinterpret_cast<float*>(inv + kD * a.degree);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = static_cast<int>(cl.block_rank());
   const int w1 = a.widths[1];
+  float* wf = smem + kBarFloats;                                // after the barriers: (w1, kHP) the first layer at
+                                                                // the CTA's features
+  float* ws = wf + w1 * kHP;                                    // its bias, then layers 1..L-1
+  int* idx = reinterpret_cast<int*>(ws + lay.ws_floats);        // the gather lists
+  float* rows = reinterpret_cast<float*>(idx + pad4(lay.n_entries));
+  const int tid = threadIdx.x;
+  const int k0 = rank * kH;  // the CTA's first feature
   const int classes = a.widths[a.n_layers];
+  const int row0 = (blockIdx.x >> 1) * a.rows;
+  const int nr = min(a.rows, a.n - row0);
 
+  for (int e = tid; e < w1 * kH; e += kThreads) {
+    const int k = e / w1;
+    const int o = e - k * w1;
+    wf[o * kHP + k] = a.first_t[(k0 + k) * w1 + o];
+  }
   for (int o = tid; o < w1; o += kThreads) ws[o] = a.params[w1 * kD + o];
   {
     const float* p = a.params + w1 * kD + w1;
@@ -314,24 +539,27 @@ __global__ void __launch_bounds__(kThreads) pgd_botnet_kernel(const PgdBotnetArg
     }
   }
   for (int e = tid; e < lay.n_entries; e += kThreads) idx[e] = a.cons[e];
-  for (int e = tid; e < kD * a.degree; e += kThreads) inv[e] = a.inverse[e];
-  const int row0 = blockIdx.x * a.rows;
-  const int nr = min(a.rows, a.n - row0);
-  for (int k = tid; k < kD; k += kThreads) {
-    const float s = a.scale[k];
-    const float m = a.min_[k];
-    sc[k] = s;
-    mn[k] = m;
-    mut[k] = static_cast<int>(a.mutable_[k]);
-    for (int r = 0; r < nr; ++r) {
-      const Row w = row_at(rows, lay, r);
-      const size_t at = static_cast<size_t>(row0 + r) * kD + k;
-      w.x[k] = a.x_start[at];
-      w.xi[k] = a.x_init[at];
-      w.u[k] = unscale(w.x[k], m, s);
-    }
+  for (int e = tid; e < nr * kD; e += kThreads) {
+    const int r = e / kD;
+    const int k = e - r * kD;
+    const Row s = row_at(rows, lay, r);
+    const float x = a.x_start[static_cast<size_t>(row0 + r) * kD + k];
+    s.u[k] = unscale(x, a.min_[k], a.scale[k]);
+    if (k >= k0 && k < k0 + kH) s.x[k - k0] = x;
   }
-  __syncthreads();
+  // the feature a thread owns in the per-feature phases, its constants in
+  // registers
+  const bool owner = tid < kH;
+  const int gk = k0 + (owner ? tid : 0);
+  const float sc = a.scale[gk];
+  const float mn = a.min_[gk];
+  const bool mut = a.mutable_[gk];
+  int inv[kMaxDegree];
+#pragma unroll
+  for (int j = 0; j < kMaxDegree; ++j) inv[j] = j < a.degree ? a.inverse[gk * a.degree + j] : -1;
+  float xi[kMaxRows], gr[kMaxRows];
+#pragma unroll
+  for (int r = 0; r < kMaxRows; ++r) xi[r] = a.x_init[static_cast<size_t>(row0 + min(r, nr - 1)) * kD + gk];
 
   const bool linf = a.flags & 1;
   const bool repair = a.flags & 2;
@@ -339,10 +567,28 @@ __global__ void __launch_bounds__(kThreads) pgd_botnet_kernel(const PgdBotnetArg
   const bool hist_norm = a.hist != nullptr && (a.flags & 8);
   const bool hist_full = a.hist != nullptr && (a.flags & 16);
   const int g_col = (a.flags & 8) ? 4 : 3;
-  const int n_first = nr * w1;
-  const int n_other = lay.n_terms - 2;  // ratios and orderings
-  const int n_tasks = n_first + nr * lay.n_terms;
+  const bool ct1_in_b = (a.n_layers - 1) & 1;  // where hidden_backward leaves the first layer's cotangent
+  const Pair pair{shared_addr(smem), peer_addr(shared_addr(smem), rank ^ 1)};
+  if (tid == 0) {
+    for (int k = 0; k < kKinds; ++k) bar_init(pair.base + 8 * k);
+    bar_init_fence();
+  }
   long long last = 0;
+#ifdef K7B_STAMPS
+  if (tid < kPhases) k7b_block_cycles[tid] = 0;
+#endif
+  cl.sync();  // staged, the barriers set, and the peer is running
+  // what each hand-off brings: the first layer's partial sums; its
+  // cotangent (with the class losses for the history); rank 1's entries of
+  // the gather lists; the halves of the L2 sums (and a word, under L-inf
+  // too); rank 1's half of u
+  int peer_entries = 0;
+  for (int e = 0; e < lay.n_entries; ++e) peer_entries += idx[e] >= kH;
+  const unsigned partial_bytes = 4u * nr * w1;
+  const unsigned cotangent_bytes = 4u * nr * (w1 + (a.hist != nullptr ? 1 : 0));
+  const unsigned ent_bytes = 4u * nr * peer_entries;
+  const unsigned halves_bytes = 4u * (1 + (linf ? 0 : nr) + (hist_norm ? nr : 0));
+  const unsigned u_bytes = 4u * nr * kH;
 #ifdef K7B_STAMPS
   last = clock64();
 #endif
@@ -351,166 +597,277 @@ __global__ void __launch_bounds__(kThreads) pgd_botnet_kernel(const PgdBotnetArg
     const float wk = a.w_cons[it];
     const float stp = a.step[it];
     const int ctr = a.ctr[it];
-    // the first layer's units of every row; the terms of every row and the
-    // cotangents of their entries, the flow sums first
-    for (int task = tid; task < n_tasks; task += kThreads) {
-      if (task < n_first) {
-        const int r = task / w1;
-        const int o = task - r * w1;
-        const Row s = row_at(rows, lay, r);
-        s.act[o] = relu_keep_nan(first_unit(a.first_t, w1, ws[o], s.x, o));
-      } else {
-        int q = task - n_first;
-        int r, t;
-        if (q < 2 * nr) {
-          r = q >> 1;
-          t = q & 1;
-        } else {
-          q -= 2 * nr;
-          r = q / n_other;
-          t = 2 + (q - r * n_other);
+    if (rank == 0) {
+      first_half_to_peer(wf, ws, rows, pair, lay, nr, w1);
+      stamp(0, last);
+      if (it > 0) pair.take(kU, u_bytes, it - 1);  // rank 1's u
+      stamp(1, last);
+      all_terms(a, lay, idx, rows, pair, nr, row0, it, -wk, ctr, hist_full ? a.hist : nullptr, g_col);
+      block_end(2, last);
+      pair.take(kCotangent, cotangent_bytes, it);
+      stamp(6, last);
+    } else {
+      pair.take(kPartials, partial_bytes, it);
+      stamp(1, last);
+      forward_rest(a, lay, wf, ws, rows, nr, last);
+      // a thread per row: the cross-entropy and the cotangent of the logits
+      if (tid < nr) {
+        const Row s = row_at(rows, lay, tid);
+        const float lc = cross_entropy(classes, targeted, s.act + lay.act_off[a.n_layers - 1],
+                                       static_cast<int>(a.y[row0 + tid]), wc, s.cta);
+        if (a.hist != nullptr) {
+          a.hist[(static_cast<size_t>(it) * a.n + row0 + tid) * a.hist_cols + 1] = lc;
+          pair.put(&s.aux[4], lc, kCotangent);
         }
-        const Row s = row_at(rows, lay, r);
-        const float g = term_vjp(lay, idx, s.u, t, ctr < 0 || ctr == t ? -wk : 0.0f, a.tol, s.ent);
-        s.g[t] = g;
-        if (hist_full) a.hist[(static_cast<size_t>(it) * a.n + row0 + r) * a.hist_cols + g_col + t] = g;
       }
+      block_end(4, last);
+      hidden_backward(a, lay, ws, rows, pair, nr, last);
+      pair.take(kEnt, ent_bytes, it);  // its features' entries, from rank 0's terms
+      stamp(18, last);
     }
-    phase_end(0, last);
-    hidden_forward(a, lay, ws, rows, nr, tid, last);
-    // a thread per row: the cross-entropy and the cotangent of the logits;
-    // the history's loss columns
-    if (lane == 0 && warp < nr) {
-      const Row s = row_at(rows, lay, warp);
-      const float lc = cross_entropy(classes, targeted, s.act + lay.act_off[a.n_layers - 1],
-                                     static_cast<int>(a.y[row0 + warp]), wc, s.cta);
-      if (a.hist != nullptr) {
+    // a thread per feature: the input backward of every row (each weight
+    // read once for all of them), its sum of the constraints' cotangents,
+    // the gradient and the squares its L2 sums add
+    if (owner) {
+      const float* ct[kMaxRows];
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) {
+        const Row s = row_at(rows, lay, min(r, nr - 1));
+        ct[r] = ct1_in_b ? s.ctb : s.cta;
+      }
+      const float* w = wf + tid;  // w[o * kHP] = the weight of unit o at this feature
+      float acc[kMaxRows];
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) acc[r] = -0.0f;  // adds the first product exactly
+      // units 4 at a time, each group's loads issued before the previous
+      // group's adds (the last loads, past w1, are unused)
+      const int n4 = w1 >> 2;
+      if (n4 > 0) {
+        float wv[4];
+        float4 c[kMaxRows];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wv[i] = w[i * kHP];
+#pragma unroll
+        for (int r = 0; r < kMaxRows; ++r) c[r] = *reinterpret_cast<const float4*>(ct[r]);
+        for (int g = 1; g <= n4; ++g) {
+          float wn[4];
+          float4 cn[kMaxRows];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) wn[i] = w[(4 * g + i) * kHP];
+#pragma unroll
+          for (int r = 0; r < kMaxRows; ++r) cn[r] = *reinterpret_cast<const float4*>(ct[r] + 4 * g);
+#pragma unroll
+          for (int r = 0; r < kMaxRows; ++r)
+            acc[r] = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(acc[r], __fmul_rn(c[r].x, wv[0])), __fmul_rn(c[r].y, wv[1])),
+                                         __fmul_rn(c[r].z, wv[2])),
+                               __fmul_rn(c[r].w, wv[3]));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) wv[i] = wn[i];
+#pragma unroll
+          for (int r = 0; r < kMaxRows; ++r) c[r] = cn[r];
+        }
+      }
+      for (int o = 4 * n4; o < w1; ++o) {
+        const float wv = w[o * kHP];
+#pragma unroll
+        for (int r = 0; r < kMaxRows; ++r) acc[r] = __fadd_rn(acc[r], __fmul_rn(ct[r][o], wv));
+      }
+      float cu[kMaxRows];
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) cu[r] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kMaxDegree; ++j) {
+        if (inv[j] < 0) break;
+#pragma unroll
+        for (int r = 0; r < kMaxRows; ++r) cu[r] = __fadd_rn(cu[r], row_at(rows, lay, min(r, nr - 1)).ent[inv[j]]);
+      }
+#pragma unroll
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) {
+        if (r < nr) {
+          const Row s = row_at(rows, lay, r);
+          const float gv = __fadd_rn(acc[r], div_rn(cu[r], sc));
+          const float gm = isnan(gv) || !mut ? 0.0f : gv;
+          const float f = isfinite(gv) ? gv : 0.0f;
+          gr[r] = gv;
+          s.sq[tid] = __fmul_rn(gm, gm);
+          s.sqh[tid] = __fmul_rn(f, f);
+        }
+      }
+    } else if (rank == 0 && a.hist != nullptr) {
+      // the spare threads: the history's loss columns, whose sum of the
+      // terms is a chain of its own
+      for (int r = tid - kH; r < nr; r += kThreads - kH) {
+        const Row s = row_at(rows, lay, r);
         float cons = s.g[0];
         if (ctr < 0) {
           for (int t = 1; t < lay.n_terms; ++t) cons = __fadd_rn(cons, s.g[t]);
         } else {
           cons = s.g[ctr];
         }
-        float* h = a.hist + (static_cast<size_t>(it) * a.n + row0 + warp) * a.hist_cols;
-        h[0] = __fadd_rn(__fmul_rn(wc, lc), __fmul_rn(wk, -cons));
-        h[1] = lc;
+        float* h = a.hist + (static_cast<size_t>(it) * a.n + row0 + r) * a.hist_cols;
+        h[0] = __fadd_rn(__fmul_rn(wc, s.aux[4]), __fmul_rn(wk, -cons));
         h[2] = cons;
       }
     }
-    phase_end(2, last);
-    const bool ct1_in_b = hidden_backward(a, lay, ws, rows, nr, tid, last);
-    // a thread per feature: the input backward of every row (each weight
-    // read once for all of them), its sum of the constraints' cotangents,
-    // the gradient and the squares its L2 sums add
+    block_end(7, last);
+    // the L2 norm of the masked gradient (lane r of warp 0) and the
+    // history's of the raw gradient's finite entries (lane 8 + r): rank 0's
+    // half, then rank 1's, which hands the norm back. The hand-off is made
+    // under L-inf too, with one word more: rank 1 writes rank 0's u only
+    // once rank 0's terms are done.
     {
-      const float* ct1[kMaxRows];
-      Row rs[kMaxRows];
+      const int r = tid & 7;
+      const bool h = tid >= 8;
+      const bool run = tid < 16 && r < nr && (h ? hist_norm : !linf);
+      if (rank == 0) {
+        if (run) {
+          const Row s = row_at(rows, lay, r);
+          pair.put(&s.aux[h ? 3 : 2], half_sum(h ? s.sqh : s.sq, -0.0f), kHalves);
+        }
+        if (tid == 0) pair.put(&row_at(rows, lay, 0).aux[7], 0.0f, kHalves);
+        stamp(8, last);
+        if (!linf) pair.take(kNorm, 4u * nr, it);
+        stamp(11, last);
+      } else {
+        pair.take(kHalves, halves_bytes, it);
+        stamp(9, last);
+        if (run) {
+          const Row s = row_at(rows, lay, r);
+          const float sum = half_sum(h ? s.sqh : s.sq, s.aux[h ? 3 : 2]);
+          if (h) {
+            a.hist[(static_cast<size_t>(it) * a.n + row0 + r) * a.hist_cols + 3] = __fsqrt_rn(sum);
+          } else {
+            const float nrm = __fadd_rn(__fsqrt_rn(sum), 1e-7f);
+            s.aux[0] = nrm;
+            pair.put(&s.aux[0], nrm, kNorm);
+          }
+        }
+        block_end(10, last);
+      }
+    }
+    // the masked, conditioned step and the clip; the perturbation into gr
+    if (owner) {
 #pragma unroll
       for (int r = 0; r < kMaxRows; ++r) {
-        rs[r] = row_at(rows, lay, r < nr ? r : 0);
-        ct1[r] = ct1_in_b ? rs[r].ctb : rs[r].cta;
-      }
-      for (int k = tid; k < kD; k += kThreads) {
-        // the feature's w1 weights, all loads issued before the sums
-        float w[kBotnetMaxWidth];
-#pragma unroll
-        for (int o = 0; o < kBotnetMaxWidth; ++o) w[o] = o < w1 ? __ldg(a.params + o * kD + k) : 0.0f;
-        float acc[kMaxRows];
-#pragma unroll
-        for (int r = 0; r < kMaxRows; ++r)
-          if (r < nr) acc[r] = __fmul_rn(ct1[r][0], w[0]);
-#pragma unroll
-        for (int o = 1; o < kBotnetMaxWidth; ++o) {
-          if (o < w1) {
-#pragma unroll
-            for (int r = 0; r < kMaxRows; ++r)
-              if (r < nr) acc[r] = __fadd_rn(acc[r], __fmul_rn(ct1[r][o], w[o]));
-          }
-        }
-        const int* in = inv + k * a.degree;
-#pragma unroll
-        for (int r = 0; r < kMaxRows; ++r) {
-          if (r < nr) {
-            float cu = 0.0f;
-            for (int j = 0; j < a.degree && in[j] >= 0; ++j) cu = __fadd_rn(cu, rs[r].ent[in[j]]);
-            const float gv = __fadd_rn(acc[r], __fdiv_rn(cu, sc[k]));
-            const float gm = isnan(gv) || !mut[k] ? 0.0f : gv;
-            const float f = isfinite(gv) ? gv : 0.0f;
-            rs[r].gr[k] = gv;
-            rs[r].sq[k] = __fmul_rn(gm, gm);
-            rs[r].sqh[k] = __fmul_rn(f, f);
-          }
+        if (r < nr) {
+          const Row s = row_at(rows, lay, r);
+          const float gv = gr[r];
+          const float gm = isnan(gv) || !mut ? 0.0f : gv;
+          const float d = linf ? (gm > 0.0f ? 1.0f : (gm < 0.0f ? -1.0f : 0.0f)) : div_rn(gm, s.aux[0]);
+          const float x = clamp_nan(__fadd_rn(s.x[tid], __fmul_rn(stp, d)), a.lo, a.hi);
+          const float p = __fsub_rn(x, xi[r]);
+          gr[r] = p;
+          if (!linf) s.sq[tid] = __fmul_rn(p, p);
         }
       }
     }
-    phase_end(4, last);
-    // a thread per row: the L2 norm of the masked gradient; on another warp
-    // the history's L2 norm of the raw gradient's finite entries
-    if (lane == 0 && warp < nr && !linf) {
-      const Row s = row_at(rows, lay, warp);
-      s.aux[0] = __fadd_rn(__fsqrt_rn(row_sum(s.sq)), 1e-7f);
-    }
-    if (lane == 0 && warp >= kMaxRows && warp - kMaxRows < nr && hist_norm) {
-      const int r = warp - kMaxRows;
-      a.hist[(static_cast<size_t>(it) * a.n + row0 + r) * a.hist_cols + 3] = __fsqrt_rn(row_sum(row_at(rows, lay, r).sqh));
-    }
-    phase_end(5, last);
-    // the masked, conditioned step and the clip; the perturbation into u
-    for (int k = tid; k < kD; k += kThreads) {
-      for (int r = 0; r < nr; ++r) {
-        const Row s = row_at(rows, lay, r);
-        const float gv = s.gr[k];
-        const float gm = isnan(gv) || !mut[k] ? 0.0f : gv;
-        const float d = linf ? (gm > 0.0f ? 1.0f : (gm < 0.0f ? -1.0f : 0.0f)) : __fdiv_rn(gm, s.aux[0]);
-        const float x = clamp_nan(__fadd_rn(s.x[k], __fmul_rn(stp, d)), a.lo, a.hi);
-        const float u = __fsub_rn(x, s.xi[k]);
-        s.u[k] = u;
-        s.sq[k] = __fmul_rn(u, u);
-      }
-    }
-    phase_end(6, last);
-    // the projection factor, a thread per row
+    block_end(12, last);
+    // the projection factor, lane r of warp 0: rank 0's half, then rank 1's
     if (!linf) {
-      if (lane == 0 && warp < nr) {
-        const Row s = row_at(rows, lay, warp);
-        s.aux[1] = nan_min(1.0f, __fdiv_rn(a.eps, __fadd_rn(__fsqrt_rn(row_sum(s.sq)), 1e-12f)));
+      const bool run = tid < nr;
+      if (rank == 0) {
+        if (run) {
+          const Row s = row_at(rows, lay, tid);
+          pair.put(&s.aux[5], half_sum(s.sq, -0.0f), kFactorHalf);
+        }
+        stamp(13, last);
+        pair.take(kFactor, 4u * nr, it);
+        stamp(16, last);
+      } else {
+        pair.take(kFactorHalf, 4u * nr, it);
+        stamp(14, last);
+        if (run) {
+          const Row s = row_at(rows, lay, tid);
+          const float f =
+              nan_min(1.0f, __fdiv_rn(a.eps, __fadd_rn(__fsqrt_rn(half_sum(s.sq, s.aux[5])), 1e-12f)));
+          s.aux[1] = f;
+          pair.put(&s.aux[1], f, kFactor);
+        }
+        block_end(15, last);
       }
-      phase_end(7, last);
     }
     // the projection, the clip, repair's round trip through the scaler; the
-    // next unscaled row
-    for (int k = tid; k < kD; k += kThreads) {
-      for (int r = 0; r < nr; ++r) {
-        const Row s = row_at(rows, lay, r);
-        const float d = linf ? clamp_nan(s.u[k], -a.eps, a.eps) : __fmul_rn(s.u[k], s.aux[1]);
-        float x = clamp_nan(__fadd_rn(s.xi[k], d), a.lo, a.hi);
-        if (repair && mut[k]) x = __fadd_rn(__fmul_rn(unscale(x, mn[k], sc[k]), sc[k]), mn[k]);
-        s.x[k] = x;
-        s.u[k] = unscale(x, mn[k], sc[k]);
+    // next unscaled row, on both CTAs
+    if (owner) {
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) {
+        if (r < nr) {
+          const Row s = row_at(rows, lay, r);
+          const float d = linf ? clamp_nan(gr[r], -a.eps, a.eps) : __fmul_rn(gr[r], s.aux[1]);
+          float x = clamp_nan(__fadd_rn(xi[r], d), a.lo, a.hi);
+          if (repair && mut) x = __fadd_rn(__fmul_rn(unscale(x, mn, sc), sc), mn);
+          s.x[tid] = x;
+          const float u = unscale(x, mn, sc);
+          if (rank == 0) {
+            s.u[gk] = u;
+          } else {
+            pair.put(&s.u[gk], u, kU);
+          }
+        }
       }
     }
-    phase_end(8, last);
+    block_end(17, last);
   }
 
   // the class at x_adv
-  for (int task = tid; task < n_first; task += kThreads) {
-    const int r = task / w1;
-    const int o = task - r * w1;
-    const Row s = row_at(rows, lay, r);
-    s.act[o] = relu_keep_nan(first_unit(a.first_t, w1, ws[o], s.x, o));
+  if (rank == 0) {
+    first_half_to_peer(wf, ws, rows, pair, lay, nr, w1);
+  } else {
+    pair.take(kPartials, partial_bytes, a.t);
+    forward_rest(a, lay, wf, ws, rows, nr, last);
+    if (tid < nr)
+      a.pred[row0 + tid] = predicted_class(classes, row_at(rows, lay, tid).act + lay.act_off[a.n_layers - 1]);
   }
-  __syncthreads();
-  hidden_forward(a, lay, ws, rows, nr, tid, last);
-  if (lane == 0 && warp < nr)
-    a.pred[row0 + warp] = predicted_class(classes, row_at(rows, lay, warp).act + lay.act_off[a.n_layers - 1]);
-  for (int k = tid; k < kD; k += kThreads)
-    for (int r = 0; r < nr; ++r) a.x_adv[static_cast<size_t>(row0 + r) * kD + k] = row_at(rows, lay, r).x[k];
+  if (owner)
+    for (int r = 0; r < nr; ++r) a.x_adv[static_cast<size_t>(row0 + r) * kD + gk] = row_at(rows, lay, r).x[tid];
+  if (rank == 0 && a.t > 0) pair.take(kU, u_bytes, a.t - 1);  // rank 1's last writes have landed
+  cl.sync();  // and neither CTA exits while the other may still write its shared memory
+#ifdef K7B_STAMPS
+  if (blockIdx.x < 2 && tid < kPhases) k7b_cycles[blockIdx.x * kPhases + tid] += k7b_block_cycles[tid];
+#endif
 }
 
-}  // namespace
+// The clusters of the kernel resident at once on the current device with
+// one CTA per SM (more than half an SM's shared memory), asked once per
+// device
+cudaError_t resident_clusters(LaunchCache& cache, int* clusters) {
+  constexpr size_t kOnePerSm = kMaxSharedBytes / 2 + 16;
+  static std::mutex mu;
+  static int known[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (known[device] == 0) {
+    err = cache.prepare(reinterpret_cast<const void*>(pgd_botnet_kernel), kThreads, kOnePerSm, nullptr);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(2);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = kOnePerSm;
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(pgd_botnet_kernel), &cfg);
+    if (err != cudaSuccess) return err;
+    if (n < 1) return cudaErrorLaunchOutOfResources;
+    known[device] = n;
+  }
+  *clusters = known[device];
+  return cudaSuccess;
+}
 
-cudaError_t launch_pgd_botnet(PgdBotnetArgs args, cudaStream_t stream) {
-  if (args.n == 0) return cudaSuccess;
+// A launch of K7b: its layout, dynamic shared memory per CTA, grid (CTAs)
+// and the clusters resident at once
+struct Plan {
+  Layout lay;
+  size_t smem;
+  int grid, clusters;
+};
+
+// Checks `args` (n > 0), sets its rows per cluster and plans the launch
+cudaError_t plan_launch(PgdBotnetArgs& args, Plan& p) {
+  static LaunchCache cache;
   const int n_layers = args.n_layers;
   if (args.n < 0 || args.t < 0 || n_layers < 2 || n_layers > kObjectiveMaxLayers || args.widths[0] != kD ||
       args.widths[n_layers] < 1 || args.widths[n_layers] > 2 || args.degree < 1 ||
@@ -519,7 +876,8 @@ cudaError_t launch_pgd_botnet(PgdBotnetArgs args, cudaStream_t stream) {
   const int* c = args.counts;
   for (int s = 0; s < kBotnetSegments; ++s)
     if (c[s] < 0 || (s < 4 && c[s] < 1) || (s >= 4 && s % 2 == 0 && c[s] != c[s + 1])) return cudaErrorInvalidValue;
-  Layout lay{};
+  Layout& lay = p.lay;
+  lay = Layout{};
   for (int s = 0; s < kBotnetSegments; ++s) lay.seg[s + 1] = lay.seg[s] + c[s];
   lay.n_entries = lay.seg[kBotnetSegments];
   lay.ord_start[0] = 2 + c[4];
@@ -528,7 +886,9 @@ cudaError_t launch_pgd_botnet(PgdBotnetArgs args, cudaStream_t stream) {
   lay.n_terms = lay.ord_start[2] + c[10];
   const int cols = 3 + ((args.flags & 8) ? 1 : 0) + ((args.flags & 16) ? lay.n_terms : 0);
   if (args.hist != nullptr && args.hist_cols != cols) return cudaErrorInvalidValue;
-  lay.staged_floats = pad4(args.widths[1]);
+  const int w1 = args.widths[1];
+  // layers 1..L-1 staged at odd strides after the first layer's bias
+  int ws_floats = pad4(w1);
   for (int l = 0; l < n_layers; ++l) {
     const int in_w = args.widths[l];
     const int out_w = args.widths[l + 1];
@@ -536,42 +896,78 @@ cudaError_t launch_pgd_botnet(PgdBotnetArgs args, cudaStream_t stream) {
     lay.act_off[l] = lay.act_floats;
     lay.act_floats += out_w;
     if (l == 0) continue;
-    lay.w_off[l] = lay.staged_floats;
-    lay.staged_floats += out_w * ((in_w | 1) + 1);
+    lay.w_off[l] = ws_floats;
+    ws_floats += out_w * ((in_w | 1) + 1);
   }
-  lay.staged_floats = pad4(lay.staged_floats);
-  lay.row_floats = 6 * kD + pad4(lay.n_entries) + pad4(lay.n_terms) + pad4(lay.act_floats) + 2 * kBotnetMaxWidth + 4;
-  static LaunchCache cache;
-  int sms = 0;
-  cudaError_t err = cache.sm_count(&sms);
+  lay.ws_floats = pad4(ws_floats);
+  lay.row_floats = kRowTail + pad4(lay.n_entries) + pad4(lay.n_terms) + pad4(lay.act_floats);
+  int clusters = 0;
+  cudaError_t err = resident_clusters(cache, &clusters);
   if (err != cudaSuccess) return err;
-  const int rows = (args.n + sms - 1) / sms;
-  args.rows = rows < 1 ? 1 : (rows > kMaxRows ? kMaxRows : rows);
-  const size_t smem = sizeof(float) * (static_cast<size_t>(lay.staged_floats) + 3 * kD + pad4(lay.n_entries) +
-                                       static_cast<size_t>(kD) * args.degree +
-                                       static_cast<size_t>(args.rows) * lay.row_floats);
-  if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
-  err = cache.prepare(reinterpret_cast<const void*>(pgd_botnet_kernel), kThreads, smem, nullptr);
+  // rows per cluster: as few as spread N over the resident clusters, at
+  // most kMaxRows and as many as fit (at least one for every stack K7b
+  // takes beside botnet's gather lists)
+  const long fixed = kBarFloats + static_cast<long>(w1) * kHP + lay.ws_floats + pad4(lay.n_entries);
+  const long fit = (static_cast<long>(kMaxSharedBytes / sizeof(float)) - fixed) / lay.row_floats;
+  args.rows = static_cast<int>(std::min<long>(std::min(kMaxRows, (args.n + clusters - 1) / clusters), fit));
+  if (args.rows < 1) return cudaErrorInvalidValue;
+  p.smem = sizeof(float) * (kBarFloats + static_cast<size_t>(w1) * kHP + lay.ws_floats + pad4(lay.n_entries) +
+                            static_cast<size_t>(args.rows) * lay.row_floats);
+  p.clusters = clusters;
+  p.grid = 2 * ((args.n + args.rows - 1) / args.rows);
+  return cache.prepare(reinterpret_cast<const void*>(pgd_botnet_kernel), kThreads, p.smem, nullptr);
+}
+
+}  // namespace
+
+cudaError_t launch_pgd_botnet(PgdBotnetArgs args, cudaStream_t stream) {
+  if (args.n == 0) return cudaSuccess;
+  Plan p;
+  const cudaError_t err = plan_launch(args, p);
   if (err != cudaSuccess) return err;
-  const int grid = (args.n + args.rows - 1) / args.rows;
-  pgd_botnet_kernel<<<grid, kThreads, smem, stream>>>(args, lay);
+  pgd_botnet_kernel<<<p.grid, kThreads, p.smem, stream>>>(args, p.lay);
   return cudaGetLastError();
+}
+
+// K7b's launch at n rows of the stack `widths` (n_layers + 1 widths) and the
+// gather lists `counts`, as the launcher plans it on the current device:
+// out = [rows per cluster, CTAs per cluster, CTAs, threads per CTA, dynamic
+// shared memory bytes per CTA, clusters resident at once]
+extern "C" int moeva_pgd_botnet_shape(const int* widths, int n_layers, const int* counts, int n, int* out) {
+  PgdBotnetArgs args{};
+  args.n = n;
+  args.degree = 1;
+  args.n_layers = n_layers;
+  for (int l = 0; l <= n_layers && l <= kObjectiveMaxLayers; ++l) args.widths[l] = widths[l];
+  for (int s = 0; s < kBotnetSegments; ++s) args.counts[s] = counts[s];
+  Plan p;
+  const cudaError_t err = n > 0 ? plan_launch(args, p) : cudaErrorInvalidValue;
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int shape[6] = {args.rows, 2, p.grid, kThreads, static_cast<int>(p.smem), p.clusters};
+  for (int i = 0; i < 6; ++i) out[i] = shape[i];
+  return 0;
 }
 
 #ifdef K7B_STAMPS
 extern "C" const char* k7b_phase_names() {
-  return "terms and first layer;hidden forward;cross-entropy;hidden backward;input backward and gradient;"
-         "gradient norm;step;projection factor;projection and repair";
+  return "first-layer half (rank 0);wait: u (rank 0) | partial sums (rank 1);"
+         "terms (rank 0) | first-layer half (rank 1);hidden forward (rank 1);cross-entropy (rank 1);"
+         "hidden backward (rank 1);wait: first layer's cotangent (rank 0);input backward and gradient;"
+         "L2 sums' first half (rank 0);wait: partials (rank 1);L2 sums' second half (rank 1);"
+         "wait: norm (rank 0);step;projection factor's first half (rank 0);wait: partial (rank 1);"
+         "projection factor's second half (rank 1);wait: factor (rank 0);projection and repair;"
+         "wait: the entries' cotangents (rank 1)";
 }
 
-// the warps whose stamps k7b_take_cycles returns: thread 0's alone
-extern "C" int k7b_stamped_warps() { return 1; }
+// the threads whose stamps k7b_take_cycles returns: thread 0 of rank 0 and
+// of rank 1 of cluster 0, in that order
+extern "C" int k7b_stamped_warps() { return 2; }
 
-// copies K7b's per-phase cycles to `out` (kPhases values) and zeroes them
+// copies K7b's per-phase cycles to `out` (2 x kPhases values) and zeroes them
 extern "C" int k7b_take_cycles(unsigned long long* out) {
   cudaError_t err = cudaMemcpyFromSymbol(out, k7b_cycles, sizeof(k7b_cycles));
   if (err != cudaSuccess) return static_cast<int>(err);
-  static const unsigned long long zero[kPhases] = {};
+  static const unsigned long long zero[2 * kPhases] = {};
   return static_cast<int>(cudaMemcpyToSymbol(k7b_cycles, zero, sizeof(zero)));
 }
 #endif

@@ -22,6 +22,18 @@ __device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
 
 __device__ __forceinline__ float exp_rn(float x) { return __double2float_rn(exp(static_cast<double>(x))); }
 
+// __fdiv_rn(n, d), with n = ±0 over a d that is neither 0 nor NaN answered
+// as the signed zero it is: the division's range check (FCHK) sends a zero
+// numerator down its slow path, and the elementwise phases divide many
+__device__ __forceinline__ float div_rn(float n, float d) {
+  const bool zero = n == 0.0f && d == d && d != 0.0f;
+  const float q = __fdiv_rn(zero ? 1.0f : n, d);
+  return zero ? __int_as_float((__float_as_int(n) ^ __float_as_int(d)) & 0x80000000) : q;
+}
+
+// the scaler's inverse: (x - min_) / scale
+__device__ __forceinline__ float unscale(float x, float mn, float sc) { return div_rn(__fsub_rn(x, mn), sc); }
+
 // jax.grad's abs: the cotangent where v >= 0, its negation elsewhere
 __device__ __forceinline__ float abs_vjp(float v, float ct) { return v >= 0.0f ? ct : -ct; }
 
@@ -34,7 +46,7 @@ __device__ __forceinline__ float clip_vjp(float v, float ct) {
 
 // cotangents of num / den: ct / den and -((ct * (1 / (den * den))) * num)
 __device__ __forceinline__ void div_vjp(float ct, float num, float den, float& c_num, float& c_den) {
-  c_num = __fdiv_rn(ct, den);
+  c_num = div_rn(ct, den);
   c_den = -__fmul_rn(__fmul_rn(ct, __fdiv_rn(1.0f, __fmul_rn(den, den))), num);
 }
 

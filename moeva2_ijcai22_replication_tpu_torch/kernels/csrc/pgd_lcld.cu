@@ -465,17 +465,6 @@ __device__ __forceinline__ void repair_group(const int* slot, int slots, float* 
   }
 }
 
-// __fdiv_rn(n, d), with n = ±0 over a d that is neither 0 nor NaN answered
-// as the signed zero it is: the division's range check (FCHK) sends a zero
-// numerator down its slow path, and the elementwise phases divide many
-__device__ __forceinline__ float div_rn(float n, float d) {
-  const bool zero = n == 0.0f && d == d && d != 0.0f;
-  const float q = __fdiv_rn(zero ? 1.0f : n, d);
-  return zero ? __int_as_float((__float_as_int(n) ^ __float_as_int(d)) & 0x80000000) : q;
-}
-
-__device__ __forceinline__ float unscale(float x, float mn, float sc) { return div_rn(__fsub_rn(x, mn), sc); }
-
 #ifdef K7_STAMPS
 // tools/probe_pgd_lcld.py's breakdown: per phase, the clock64() cycles of
 // block 0's thread 0 (a stack warp) and of the terms warp's lane 0, summed

@@ -797,15 +797,21 @@ PGD_BOTNET_CASES = (
 
 
 def _pgd_botnet_args(card, xs, starts, n):
-    return (torch.as_tensor(xs[:n], device=card), torch.as_tensor(np.arange(n) % 2, device=card),
-            torch.as_tensor(starts[:n], device=card))
+    # rows past the problem's repeat them
+    xs, starts = np.resize(xs, (n, xs.shape[1])), np.resize(starts, (n, starts.shape[1]))
+    return (torch.as_tensor(xs, device=card), torch.as_tensor(np.arange(n) % 2, device=card),
+            torch.as_tensor(starts, device=card))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,t", [(1, 7), (33, 12), (387, 5)])
+@pytest.mark.parametrize("n,t", [(1, 7), (33, 12), (387, 5), (66, 4), (67, 4), (133, 3), (331, 3), (396, 3),
+                                 (397, 3)])
 @pytest.mark.parametrize("case", range(len(PGD_BOTNET_CASES)))
 def test_pgd_botnet_equals_plain(card, pgd_botnet_problem, case, n, t):
-    # a lone row, a block of one row and partial blocks of 3 rows at 387
+    # K7b runs ceil(N / 66) rows, at most 6, on each cluster of two CTAs: a
+    # lone row; one row per cluster (33, and 66, the most N that gives it);
+    # 67, one past it; partial last clusters (133, 331, 387); 396, 6 rows
+    # on every resident cluster, and 397, a cluster past them
     cons, sur, scaler, xs, starts = pgd_botnet_problem
     knobs = PGD_BOTNET_CASES[case]
     eps = 0.3 if knobs["norm"] == 2 else 0.05

@@ -16,8 +16,9 @@ spec's stamps hook (``<TAG>_STAMPS``) is built once more with it, and one
 launch at each of the spec's stamp cases gives its breakdown: per phase
 (the names the hook gives), the ``clock64()`` cycles block 0 sees per
 stamped warp (warp 0's, their mean and their max), divided by the case's
-units (the iterations of a run). Prints one JSON line per variant with its
-ptxas registers, stack and spill, and writes the records to
+units (the iterations of a run), and each stamped warp's. Prints one JSON
+line per variant with its ptxas registers, stack and spill, and writes the
+records to
 ``<out>/probe_<tag>.json`` (``--out DIR``, by default
 ``.torch_ext_build/probe``).
 """
@@ -154,7 +155,8 @@ def stamp_breakdown(spec: ProbeSpec, lib) -> dict:
             raise RuntimeError(f"reading {spec.tag}'s stamps failed")
         per_warp = np.asarray(cycles, dtype=np.float64).reshape(warps, len(phases)) / units
         out[case] = {p: {"w0": float(per_warp[0, i]), "mean": float(per_warp[:, i].mean()),
-                         "max": float(per_warp[:, i].max())} for i, p in enumerate(phases)}
+                         "max": float(per_warp[:, i].max()), "each": per_warp[:, i].tolist()}
+                     for i, p in enumerate(phases)}
     return out
 
 

@@ -11,7 +11,12 @@ of 2 launches at 387 x 1000 under L2 (``constraints+flip+adaptive_eps_step
 +repair``, rq1.botnet's run), at 387 x 1000 under L-inf (no L2 sums: their
 serial chains' share), and at 0 iterations (staging and the final forward
 alone). The ``K7B_STAMPS`` breakdown is one run at 387 x 1000 under each
-norm, in cycles per iteration. Writes ``<out>/probe_k7b.json``.
+norm, in cycles per iteration: per phase, thread 0 of each CTA of cluster
+0, rank 0's then rank 1's (``each``; ``w0`` is rank 0's). A phase named
+for one rank is that rank's work; the other rank stamps nothing there, or
+waits. A ``wait:`` phase is the time a CTA waits for its peer's hand-off
+(a source from before the cluster design stamps block 0's thread 0 alone).
+Writes ``<out>/probe_k7b.json``.
 
 Run from the root of a checkout:
 
