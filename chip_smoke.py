@@ -96,7 +96,28 @@ Phases, in order; any failure exits non-zero:
    drives it at rq1.botnet's ε 4 and rq0.botnet's ε 1 (cold and steady,
    launch counts set to 0 just before and read just after: one launch of
    K7b each), the ε-ball, immutables, finiteness, two equal runs and
-   o1..o7; the card against the CPU at 32 states x 20 iterations.
+   o1..o7; the card against the CPU at 32 states x 20 iterations;
+10. the runners (the ``[runner]`` lines): rq1's grid points through
+   ``experiments.moeva.run`` and ``experiments.pgd.run`` on the card, from
+   configs composed as ``experiments/rq.py`` composes ``config/moeva.yaml``
+   or ``config/pgd.yaml`` with ``config/rq1.{lcld,botnet}.static.yaml``
+   (``runner_config``; dict literals, held equal to the files by
+   ``tests/test_torch_runner_configs.py``), over artifacts written to a
+   temporary directory (synthetic schemas, ``synth_lcld(4000, seed=42)`` and
+   ``synth_botnet(387, seed=42)``, the seeded surrogates by ``save_params``,
+   the scalers by ``save_npz``): MoEvA on LCLD (4000 states, pop 200,
+   budget 100, chunks of 256) and on botnet (387 x 1000), and the five rq1
+   PGD losses on each (4000 and 387 states x 1000; LCLD's ``flip+sat`` on
+   256 states, ``RUNNER_CUTS``). Each run has its launch counts set to 0
+   just before and read just after (MoEvA's as its chunks imply, one K7 or
+   K7b launch per PGD run), its files under the JAX names, its metrics
+   equal to the objectives recomputed from the saved ``x_attacks``,
+   ``includes_compile`` false and a second run that skips and writes
+   nothing; ``flip+sat``'s repaired rows are each feasible or their initial
+   state (``check_repairs``), with the SAT seconds per state. One refusal is
+   accepted, LCLD's ``constraints+flip`` (``NAN_REFUSALS``): the judgement
+   refuses its result, as the JAX runner's does, only if exactly the listed
+   rows are NaN, each after x22 reached its pole at 0.
 
 The last three lines are the per-kernel JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Nothing is printed as a
@@ -2231,6 +2252,315 @@ def run_pgd_botnet(device, smi: str, resources: list):
     return rec, launches
 
 
+# -- phase 10: the runners ----------------------------------------------------------
+
+#: ``config/moeva.yaml`` and ``config/pgd.yaml``, as dict literals (the card's
+#: machine may have no PyYAML); ``tests/test_torch_runner_configs.py`` holds
+#: them equal to the files
+MOEVA_YAML = {
+    "attack_name": "moeva", "n_pop": 200, "n_offsprings": 100, "max_states_per_call": 256, "archive_size": 24,
+    "early_stop_check_every": 0, "record_quality": True, "quality_every": 0,
+}
+PGD_YAML = {"attack_name": "pgd", "constraints_optim": "sum"}
+#: ``config/rq1.lcld.static.yaml`` and ``config/rq1.botnet.static.yaml``,
+#: their artifact paths and results directory replaced by phase 10's
+RQ1_STATIC = {
+    "lcld": {
+        "project_name": "lcld", "misclassification_threshold": 0.25, "norm": 2, "n_initial_state": 4000,
+        "initial_state_offset": 0, "system": {"n_jobs": -1, "verbose": 1, "mesh_devices": 0},
+        "save_history": False, "reconstruction": False,
+    },
+    "botnet": {
+        "project_name": "botnet", "misclassification_threshold": 0.5, "norm": 2, "n_initial_state": -1,
+        "initial_state_offset": 0, "system": {"n_jobs": 10, "verbose": 1, "mesh_devices": 0},
+        "save_history": False, "reconstruction": False,
+    },
+}
+#: rq1's grid (``config/rq1.lcld.yaml``, ``config/rq1.botnet.yaml``): seed,
+#: ε, MoEvA's budget (rq1.lcld's first), PGD's budget and losses
+RQ1_GRID = {
+    "lcld": {"seed": 42, "eps": 0.2, "moeva_budget": 100, "pgd_budget": 1000},
+    "botnet": {"seed": 42, "eps": 4, "moeva_budget": 1000, "pgd_budget": 1000},
+}
+RQ1_LOSSES = (
+    "flip", "flip+sat", "constraints+flip", "constraints+flip+adaptive_eps_step",
+    "constraints+flip+adaptive_eps_step+repair",
+)
+#: the one cut of phase 10: LCLD's ``flip+sat`` runs on the first 256 of the
+#: 4000 states. Its MILP repair is host work, measured at 0.036 s per state
+#: on the card's machine: all 4000 states would add about 144 s to a smoke of
+#: about 250 s, which must stay within half its time limit as phases grow
+RUNNER_CUTS = {("lcld", "flip+sat"): {"n_initial_state": 256}}
+#: the one refusal phase 10 accepts, and the rows of x_adv that must be NaN
+#: for it: on the card, rq1's LCLD ``constraints+flip`` point brings feature
+#: 22 (the month count) of these rows to its lower bound 0 while x11 or x16 is
+#: positive, where g8 = |x23 - x11/x22| or g9 = |x24 - x16/x22| is infinite;
+#: the L2 step then turns the row NaN, and the judgement refuses the result
+#: with its ``AssertionError``, as the JAX runner's does. Which rows reach the
+#: pole depends on the rounding (float64 gives other rows, the same in both
+#: packages: ``tests/test_torch_pgd_month_pole.py``; ROADMAP C5)
+NAN_REFUSALS = {("lcld", "constraints+flip"): (1056, 1782, 2929, 2989, 3536, 3621)}
+#: LCLD's terms over x22, g8 and g9, among the constraint violations
+MONTH_POLE_TERMS = (7, 8)
+
+
+def runner_config(domain: str, attack: str, artifacts: str, loss: str | None = None) -> dict:
+    """Phase 10's config of one rq1 grid point, composed as the grid runner
+    composes it (``experiments/rq.py::_compose``: the attack's yaml, the
+    project's static yaml, then seed, budget and ε, and for PGD the loss),
+    over the artifacts in ``artifacts``, with ``RUNNER_CUTS`` applied."""
+    import copy
+
+    grid = RQ1_GRID[domain]
+    cfg = copy.deepcopy(MOEVA_YAML if attack == "moeva" else PGD_YAML)
+    cfg.update(copy.deepcopy(RQ1_STATIC[domain]))
+    cfg["paths"] = {
+        "model": f"{artifacts}/nn.msgpack",
+        "features": f"{artifacts}/features.csv",
+        "constraints": f"{artifacts}/constraints.csv",
+        "x_candidates": f"{artifacts}/x_candidates_common.npy",
+        "min_max_scaler": f"{artifacts}/scaler.npz",
+        "ml_scaler": f"{artifacts}/scaler.npz",
+    }
+    cfg["dirs"] = {"results": f"{artifacts}/out/{domain}/rq1"}
+    if attack == "moeva":
+        cfg.update(seed=grid["seed"], budget=grid["moeva_budget"], eps_list=[grid["eps"]])
+    else:
+        cfg.update(seed=grid["seed"], budget=grid["pgd_budget"], eps=grid["eps"], loss_evaluation=loss)
+        cfg.update(RUNNER_CUTS.get((domain, loss), {}))
+    return cfg
+
+
+def write_runner_artifacts(domain: str, out: str):
+    """Phase 10's artifacts in ``out``: the synthetic schema, the problem's
+    states (``synth_lcld(4000, seed=42)`` or ``synth_botnet(387, seed=42)``),
+    its seeded surrogate by the port's ``save_params`` and its scaler by
+    ``save_npz``. Returns the problem's constraints."""
+    from moeva2_ijcai22_replication_tpu_torch.models.io import save_params
+    from moeva2_ijcai22_replication_tpu_torch.models.scalers import save_npz
+    from moeva2_ijcai22_replication_tpu_torch.problems import synthetic_botnet_problem, synthetic_lcld_problem
+
+    make, n = (synthetic_lcld_problem, 4000) if domain == "lcld" else (synthetic_botnet_problem, 387)
+    cons, sur, scaler, x = make(out, n)
+    np.save(f"{out}/x_candidates_common.npy", x)
+    save_params(sur, f"{out}/nn.msgpack")
+    save_npz(scaler, f"{out}/scaler.npz")
+    return cons
+
+
+def dir_state(path: str) -> dict:
+    import os
+
+    return {f: os.stat(os.path.join(path, f)).st_mtime_ns for f in sorted(os.listdir(path))}
+
+
+def check_repairs(cons, x_init: np.ndarray, x_rep: np.ndarray) -> str:
+    """Each MILP-repaired row of ``x_rep`` satisfies the constraints as
+    ``check_constraints_error`` judges them (float64, every term within its
+    tolerance) or is its initial state (the fallback). One exception is
+    counted apart, a caveat of the JAX package's LCLD builder (ROADMAP C3):
+    it takes the amortisation factor of g1 at the initial state's int_rate,
+    which the synthetic schema lets move, so a repaired row may break g1
+    alone by its moved int_rate; such a row must satisfy every term once
+    int_rate is put back to its initial value."""
+    import torch
+
+    def feasible(rows):
+        return ~(cons.evaluate(torch.as_tensor(rows, dtype=torch.float64)).numpy() > 0).any(-1)
+
+    ok = feasible(x_rep)
+    fell_back = (x_rep == x_init).all(-1)
+    caveat = np.zeros_like(ok)
+    if cons.objective_kernel == "lcld":
+        back = x_rep.copy()
+        back[:, 2] = x_init[:, 2]
+        caveat = ~ok & ~fell_back & feasible(back)
+    bad = ~(ok | fell_back | caveat)
+    if bad.any():
+        raise AssertionError(f"{int(bad.sum())} repaired rows violate the constraints: rows {np.flatnonzero(bad)[:10]}")
+    return (f"{int((ok & ~fell_back).sum())} feasible, {int(fell_back.sum())} fell back to the initial state, "
+            f"{int(caveat.sum())} feasible once int_rate is put back (C3) of {len(x_rep)}")
+
+
+def pole_rows_of_pgd(cfg: dict) -> tuple:
+    """``(rows, first, plain_rows)``: the rows of ``ConstrainedPGD.generate``'s
+    result that hold a NaN, for the inputs and knobs ``experiments.pgd.run``
+    gives it under ``cfg``; for each the first iteration at which g8 or g9
+    was infinite (None if never), from the run's recorded violations; and
+    the NaN rows of the plain version run on the card on the same inputs."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import pgd_run_plain
+    from moeva2_ijcai22_replication_tpu_torch.experiments import common, pgd
+
+    x_init = common.load_candidates(cfg)
+    scaler, sur = common.load_scaler(cfg), common.load_surrogate(cfg)
+    eps = cfg["eps"] / 2 if "sat" in cfg["loss_evaluation"] else cfg["eps"]
+    xs = scaler.transform(np.asarray(x_init))
+    y = pgd.surrogate_labels(sur, xs, "cuda", torch.float32)
+    cons = common.load_constraints(cfg)
+    atk = ConstrainedPGD(sur, cons, scaler, max_iter=cfg["budget"], norm=cfg["norm"],
+                         loss_evaluation=cfg["loss_evaluation"], constraints_optim=cfg["constraints_optim"],
+                         seed=cfg["seed"], record_loss="full")
+    x_adv = atk.generate(xs, y, eps=eps - 0.000001, eps_step=0.1, max_iter=cfg["budget"])
+    rows = tuple(np.flatnonzero(~np.isfinite(x_adv).all(-1)).tolist())
+    x_t = torch.as_tensor(xs, dtype=torch.float32, device="cuda")
+    sched = atk.schedule(eps - 0.000001, 0.1, cfg["budget"])
+    plain, _, _ = pgd_run_plain(atk.tables, cons, sched, x_t, torch.as_tensor(y, device="cuda"), x_t,
+                                eps - 0.000001, atk.clip, atk.norm, "repair" in cfg["loss_evaluation"],
+                                atk.targeted, None)
+    plain_rows = tuple(np.flatnonzero(~torch.isfinite(plain).all(-1).cpu().numpy()).tolist())
+    terms = atk.loss_history[:, :, [3 + k for k in MONTH_POLE_TERMS]]  # (N, T, 2) after [per, loss_class, cons]
+    first = []
+    for r in rows:
+        hit = np.isinf(terms[r]).any(-1)
+        first.append(int(np.argmax(hit)) if hit.any() else None)
+    return rows, first, plain_rows
+
+
+def drive_runner(cons, cfg: dict, smi: str, expected: dict, tag: str) -> dict | None:
+    """One phase-10 run: ``run(cfg)`` with the launch counts set to 0 just
+    before and read just after (they must equal ``expected``); the files
+    under the JAX names; the metrics against a recomputation from the saved
+    ``x_attacks``; ``includes_compile`` false; skip-if-done. Returns the
+    metrics.
+
+    One outcome other than metrics is checked and accepted, for the grid
+    point of ``NAN_REFUSALS`` alone, as the JAX runner has it too (ROADMAP
+    C5): the judgement's range check refuses the result with its
+    ``AssertionError``, before any file is written. Then the run must have
+    written nothing, the attack run again alone, and its plain version on
+    the card, must leave exactly the listed rows NaN, each after an infinite
+    g8 or g9 (x22 at 0), and None is returned. Any other refusal raises."""
+    import os
+
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.objective import ObjectiveCalculator
+    from moeva2_ijcai22_replication_tpu_torch.experiments import common, moeva, pgd
+    from moeva2_ijcai22_replication_tpu_torch.utils.config import get_dict_hash
+
+    runner = moeva if cfg["attack_name"] == "moeva" else pgd
+    mid_fix = cfg["attack_name"] if runner is moeva else f"{cfg['attack_name']}_{cfg['loss_evaluation']}"
+    out = cfg["dirs"]["results"]
+    refusal = (cfg["project_name"], cfg["loss_evaluation"]) if runner is pgd else None
+    before = dir_state(out) if os.path.isdir(out) else {}
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        metrics = runner.run(cfg)
+    except AssertionError as exc:
+        if refusal not in NAN_REFUSALS or "min-max scaled values outside" not in str(exc):
+            raise
+        metrics = None
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check_launches(launches, expected, f"the {tag} runner")
+    if metrics is None:
+        if (dir_state(out) if os.path.isdir(out) else {}) != before:
+            raise AssertionError(f"{tag}: the refused run wrote files")
+        rows, first, plain_rows = pole_rows_of_pgd(cfg)
+        if rows != NAN_REFUSALS[refusal] or plain_rows != rows:
+            raise AssertionError(f"{tag}: the judgement refused the result; x_adv's NaN rows are {rows} "
+                                 f"(the plain version's {plain_rows}), not the known {NAN_REFUSALS[refusal]}")
+        if None in first:
+            raise AssertionError(f"{tag}: NaN rows {rows} met an infinite g8 or g9 at iterations {first}")
+        log(f"[runner] {tag}: {len(common.load_candidates(cfg))} states x {cfg['budget']}: refused by the "
+            f"judgement's AssertionError, as the JAX runner's (ROADMAP C5): x_adv rows {list(rows)} are NaN, as "
+            f"listed and as the plain version's on the card, each after x22 reached 0 (g8 or g9 infinite first "
+            f"at iterations {first}); nothing written; "
+            f"launches {({k: v for k, v in launches.items() if v})} as expected; wall {wall_s:.3f} s on {smi}")
+        return None
+
+    h = get_dict_hash(cfg)
+    names = {f"metrics_{mid_fix}_{h}.json", f"config_{mid_fix}_{h}.yaml", f"x_attacks_{mid_fix}_{h}.npy"}
+    if runner is pgd:
+        names.add(f"success_rate_{mid_fix}_{h}.csv")
+    written = set(dir_state(out)) - set(before)
+    if written != names:
+        raise AssertionError(f"{tag}: the run wrote {sorted(written)}, not {sorted(names)}")
+    with open(f"{out}/metrics_{mid_fix}_{h}.json") as f:
+        on_disk = json.load(f)
+    if on_disk["config_hash"] != h or set(on_disk) != {
+        "objectives_list" if runner is moeva else "objectives", "time", "includes_compile", "execution",
+        "timings", "counters", "config", "config_hash",
+    }:
+        raise AssertionError(f"{tag}: metrics keys {sorted(on_disk)}")
+    if metrics["includes_compile"]:
+        raise AssertionError(f"{tag}: includes_compile is true, but the kernel library was loaded in phase 2")
+
+    x_init = common.load_candidates(cfg)
+    x_attacks = np.load(f"{out}/x_attacks_{mid_fix}_{h}.npy")
+    scaler = common.load_scaler(cfg)
+    calc = ObjectiveCalculator(
+        classifier=common.load_surrogate(cfg), constraints=cons, thresholds={}, min_max_scaler=scaler,
+        ml_scaler=scaler, minimize_class=1, norm=cfg["norm"],
+    )
+    vals = calc.objectives(x_init, x_attacks)
+    eps_list = cfg["eps_list"] if runner is moeva else [cfg["eps"]]
+    rates = []
+    for eps in eps_list:
+        calc.thresholds = {"f1": cfg["misclassification_threshold"], "f2": eps}
+        rates.append(calc.success_rate_3d_record(x_init, x_attacks, vals))
+    if rates != (metrics["objectives_list"] if runner is moeva else [metrics["objectives"]]):
+        raise AssertionError(f"{tag}: metrics {metrics} != objectives recomputed from x_attacks {rates}")
+
+    state = dir_state(out)
+    if runner.run(cfg) is not None or dir_state(out) != state:
+        raise AssertionError(f"{tag}: a second run of the same config did not skip")
+    timings = " ".join(f"{k} {v:.3f}" for k, v in metrics["timings"].items())
+    log(f"[runner] {tag}: {len(x_init)} states x {cfg['budget']}, time {metrics['time']:.3f} s (wall "
+        f"{wall_s:.3f}), timings: {timings}; launches {({k: v for k, v in launches.items() if v})} as expected; "
+        f"metrics equal the recomputation; second run skipped; o1..o7 "
+        + " | ".join(" ".join(f"{r[k]:.4f}" for k in r) for r in rates) + f" on {smi}")
+    return metrics
+
+
+def run_runners(smi: str) -> None:
+    """Phase 10: rq1's grid points through the port's runners, MoEvA and the
+    five PGD losses on LCLD and on botnet, from configs composed as the
+    grid runner composes ``config/``'s files, over synthetic artifacts."""
+    import os
+    import types
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.experiments import common
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for domain in ("lcld", "botnet"):
+            art = f"{tmp}/{domain}"
+            cons = write_runner_artifacts(domain, art)
+            cfg = runner_config(domain, "moeva", art)
+            n = len(np.load(cfg["paths"]["x_candidates"]))
+            n = n if cfg["n_initial_state"] == -1 else cfg["n_initial_state"]
+            engine = types.SimpleNamespace(max_states_per_call=cfg["max_states_per_call"], n_gen=cfg["budget"],
+                                           archive_size=cfg["archive_size"], constraints=cons)
+            drive_runner(cons, cfg, smi, expected_launches(engine, n), f"moeva {domain}")
+            kernel = f"pgd_{cons.pgd_kernel}"
+            pgd_s = None
+            for loss in RQ1_LOSSES:
+                cfg = runner_config(domain, "pgd", art, loss)
+                expected = {**{k: 0 for k in kernels.launch_counts()}, kernel: 1}
+                metrics = drive_runner(cons, cfg, smi, expected, f"pgd {domain} {loss}")
+                if loss == "flip":
+                    pgd_s = metrics["timings"]["attack"]
+                if "sat" in loss:
+                    # the attack span holds PGD and the MILP repair; PGD alone
+                    # is the span of the flip run before it
+                    h = metrics["config_hash"]
+                    x_rep = np.load(f"{cfg['dirs']['results']}/x_attacks_pgd_{loss}_{h}.npy")[:, 0]
+                    x_init = common.load_candidates(cfg)
+                    sat_s = metrics["timings"]["attack"] - pgd_s
+                    log(f"[runner] pgd {domain} {loss}: MILP repair {check_repairs(cons, x_init, x_rep)}; "
+                        f"SAT {sat_s:.3f} s (attack span {metrics['timings']['attack']:.3f} s less flip's "
+                        f"{pgd_s:.3f} s), {sat_s / len(x_init):.4f} s per state (n_jobs {cfg['system']['n_jobs']}, "
+                        f"{os.cpu_count()} host cores) on {smi}")
+
+
 def main() -> int:
     import torch
 
@@ -2247,6 +2577,11 @@ def main() -> int:
     smi = nvidia_smi_line()
     log(f"[versions] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, card: {smi}")
+    import importlib.util
+
+    log("[versions] host libraries: " + ", ".join(
+        f"{name} {'yes' if importlib.util.find_spec(name) else 'no'}"
+        for name in ("yaml", "msgpack", "joblib", "sklearn", "pandas", "scipy")))
 
     t0 = time.perf_counter()
     info = build.build()
@@ -2279,6 +2614,7 @@ def main() -> int:
     pgd_botnet_rec, pgd_botnet_launches = run_pgd_botnet(device, smi, resources)
     records.append(pgd_botnet_rec)
     launches["pgd_botnet"] = pgd_botnet_launches["pgd_botnet"]
+    run_runners(smi)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if not all(math.isfinite(rec[k]) for k in ("ms", "plain_ms", "bound_ms")):

@@ -60,6 +60,9 @@ class MoevaResult:
     x_initial: np.ndarray  # (S, D)
     n_gen: int
     time: float
+    #: generation steps run, summed over the state chunks ((n_gen - 1) per
+    #: chunk: the port has no early exit), as the JAX engine counts them
+    gens_executed: int = 0
 
 
 class GenerationDraws(NamedTuple):
@@ -464,4 +467,5 @@ class Moeva2:
             x_initial=x,
             n_gen=self.n_gen,
             time=time.perf_counter() - t0,
+            gens_executed=(self.n_gen - 1) * len(parts),
         )

@@ -49,6 +49,15 @@ def engine_quality_stats(f, threshold: float, eps: float):
     return out.numpy() if as_numpy else out
 
 
+def write_success_rate_csv(record: dict, path: str) -> None:
+    """Write a success-rate record as the JAX runner's CSV: the text of
+    pandas' ``DataFrame([record]).to_csv(path, index=False)``, a header line
+    of the columns and one line of their values by ``repr``."""
+    with open(path, "w") as f:
+        f.write(",".join(record) + "\n")
+        f.write(",".join(repr(float(v)) for v in record.values()) + "\n")
+
+
 @dataclass
 class ObjectiveCalculator:
     classifier: Surrogate
@@ -108,6 +117,13 @@ class ObjectiveCalculator:
         if objective_values is None:
             objective_values = self.objectives(x_initial, x)
         return self.respected(objective_values).any(axis=1).mean(axis=0)
+
+    def success_rate_3d_record(self, x_initial: np.ndarray, x: np.ndarray, objective_values=None) -> dict:
+        """:meth:`success_rate_3d` as ``{"o1": float, ..., "o7": float}``: the
+        JAX package's ``success_rate_3d_df(...).to_dict(orient="records")[0]``,
+        without pandas."""
+        rates = self.success_rate_3d(x_initial, x, objective_values)
+        return {k: float(v) for k, v in zip(O_COLUMNS, rates)}
 
     def get_successful_attacks(
         self,

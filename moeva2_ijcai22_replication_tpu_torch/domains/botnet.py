@@ -126,6 +126,12 @@ class BotnetConstraints(ConstraintSet):
         self._inverse = inverse_table(self._index, self._counts, d)
         self._on_device = {}
 
+    def segments(self) -> list:
+        """The gather lists as int64 numpy arrays, in the order of
+        ``BotnetTables.counts``: flows and bytes of each direction, the
+        ratios' bytes and packets, then lower and upper of each ordering."""
+        return np.split(self._index, np.cumsum(self._counts)[:-1])
+
     def _tables(self, device) -> list:
         """The index lists as int64 tensors on ``device``, then the inverse
         table for the plain backward (:meth:`smooth_vjp`), made once."""
@@ -134,8 +140,8 @@ class BotnetConstraints(ConstraintSet):
             # column 0 and the padding read a zero slot, so each feature's
             # sum starts from 0 and ends with +0s, which change no value
             summed = np.concatenate([np.zeros((len(self._inverse), 1), np.int64), self._inverse + 1], axis=1)
-            self._on_device[key] = [torch.as_tensor(a, device=key) for a in np.split(
-                self._index, np.cumsum(self._counts)[:-1])] + [torch.as_tensor(summed, device=key)]
+            self._on_device[key] = [torch.as_tensor(a, device=key) for a in self.segments()] + [
+                torch.as_tensor(summed, device=key)]
         return self._on_device[key]
 
     def kernel_tables(self, device) -> BotnetTables:

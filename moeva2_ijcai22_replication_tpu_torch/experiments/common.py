@@ -1,0 +1,187 @@
+"""Shared runner plumbing: artifact loading, skip-if-done, SAT builders.
+
+Port of the parts of ``experiments/common.py`` that the MoEvA and PGD
+runners call: the memoizing :class:`ArtifactCache`, :func:`metrics_path_for`
+and :func:`should_skip`, the loaders of constraints, candidates, scaler and
+surrogate, :func:`get_sat_builder` and :func:`evaluation_constraints`.
+
+The scaler's suffix picks its format: ``.joblib`` (an sklearn
+``MinMaxScaler``, read through joblib on the CPU, as the JAX package reads
+it) or ``.npz`` (``models.scalers.save_npz``, numpy alone: the format a
+machine without sklearn reads).
+
+Not ported yet: the engine cache, the bucket menu and ``pad_states`` (ROADMAP
+A7, A12, A13) and the cold-start hook of the artifact cache (A14). A device
+mesh and the JAX compilation cache have no counterpart on one card:
+``system.mesh_devices`` other than 0 is refused (:func:`refuse_knobs`).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+
+import numpy as np
+
+from ..domains import get_constraints_class
+from ..domains.botnet_sat import make_botnet_sat_builder
+from ..domains.lcld_sat import make_lcld_sat_builder
+from ..models.scalers import MinMaxParams, load_joblib_scaler, load_npz
+from ..utils.config import get_dict_hash
+from ..utils.in_out import load_model
+
+
+class ArtifactCache:
+    """Path-keyed memoizer for on-disk experiment artifacts.
+
+    An entry is valid while every file it was built from keeps its
+    (mtime_ns, size) stamp; a touched or rewritten file invalidates exactly
+    that entry on the next lookup. Lookups are serialized, so that a racing
+    miss never builds twice."""
+
+    def __init__(self):
+        self._entries: dict = {}
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def _stamp(paths: tuple) -> tuple:
+        return tuple((p, st.st_mtime_ns, st.st_size) for p, st in ((p, os.stat(p)) for p in paths))
+
+    def get(self, kind: str, paths, extra, builder):
+        """``builder()``'s result memoized under ``(kind, paths, extra)``,
+        rebuilt when any of ``paths`` changed on disk."""
+        paths = tuple(os.path.abspath(p) for p in paths)
+        key = (kind, paths, extra)
+        stamp = self._stamp(paths)
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is not None and entry[0] == stamp:
+                return entry[1]
+            value = builder()
+            self._entries[key] = (stamp, value)
+            return value
+
+    def clear(self):
+        self._entries.clear()
+
+
+#: process-wide artifact cache: one disk read per artifact per process
+ARTIFACTS = ArtifactCache()
+
+
+def refuse_knobs(config: dict, refused: dict) -> None:
+    """Raise ``NotImplementedError`` for the first knob of ``refused``
+    (``name -> (is set in config, what ports it)``) that the config sets,
+    and for the knobs no runner of the port takes: ``system.mesh_devices``
+    other than 0, ``system.trace_log`` and ``system.profile_dir``."""
+    system = config.get("system", {}) or {}
+    common = {
+        "system.mesh_devices": (int(system.get("mesh_devices", 0) or 0) != 0,
+                                "a device mesh, which one card does not have"),
+        "system.trace_log": (bool(system.get("trace_log")), "the tracing layer (ROADMAP A14)"),
+        "system.profile_dir": (bool(system.get("profile_dir")), "the profiler hook maybe_profile (ROADMAP A14)"),
+    }
+    for name, (is_set, item) in {**refused, **common}.items():
+        if is_set:
+            raise NotImplementedError(f"config sets {name}, which the port does not run yet: it needs {item}")
+
+
+def metrics_path_for(config: dict, mid_fix: str) -> str:
+    out_dir = config["dirs"]["results"]
+    return f"{out_dir}/metrics_{mid_fix}_{get_dict_hash(config)}.json"
+
+
+def should_skip(config: dict, mid_fix: str) -> bool:
+    """Config-hash idempotency: a metrics file for this exact config means
+    the experiment already ran."""
+    if os.path.exists(metrics_path_for(config, mid_fix)):
+        print(f"Configuration with hash {get_dict_hash(config)} already executed. Skipping")
+        return True
+    return False
+
+
+def load_constraints(config: dict):
+    """The project's constraint class from the registry, over the config's
+    schema files; memoized, so runs naming the same files share one
+    object. A ``spec:`` key (a domain compiled from the constraint IR) and
+    ``paths.important_features`` (which serves the augmented domains) are
+    refused."""
+    project = config["project_name"]
+    if config.get("spec"):
+        raise NotImplementedError(
+            f"config sets spec: {config['spec']!r}: domains compiled from a spec come with the "
+            "constraint IR (ROADMAP A11)"
+        )
+    if config["paths"].get("important_features"):
+        raise NotImplementedError(
+            "config sets paths.important_features, which serves the augmented domains (ROADMAP A9b)"
+        )
+    paths = [config["paths"]["features"], config["paths"]["constraints"]]
+    return ARTIFACTS.get(
+        "constraints", paths, (project, False), lambda: get_constraints_class(project)(paths[0], paths[1])
+    )
+
+
+def load_candidates(config: dict) -> np.ndarray:
+    """The candidate set, sliced to the configured window;
+    ``n_initial_state=-1`` keeps everything. The full ``np.load`` is
+    memoized per file, the slice is a view of it (read-only to runners)."""
+    path = config["paths"]["x_candidates"]
+    x = ARTIFACTS.get("candidates", [path], None, lambda: np.load(path))
+    offset, count = config["initial_state_offset"], config["n_initial_state"]
+    return x if count == -1 else x[offset : offset + count]
+
+
+def load_scaler_file(path: str) -> MinMaxParams:
+    """A scaler by its suffix: ``.npz`` (numpy alone) or ``.joblib``
+    (joblib and sklearn, on the CPU)."""
+    if path.endswith(".npz"):
+        return load_npz(path)
+    if path.endswith(".joblib"):
+        return load_joblib_scaler(path)
+    raise ValueError(f"Unknown scaler artifact {path!r}: expected .npz or .joblib")
+
+
+def load_scaler(config: dict) -> MinMaxParams:
+    path = config["paths"]["ml_scaler"]
+    return ARTIFACTS.get("scaler", [path], None, lambda: load_scaler_file(path))
+
+
+def load_surrogate(config: dict):
+    path = config["paths"]["model"]
+
+    def build():
+        model = load_model(path)
+        from ..models.io import Surrogate
+
+        if not isinstance(model, Surrogate):
+            raise TypeError(
+                f"{path} is not a device-runnable surrogate; attack runners need a Keras/Flax artifact"
+            )
+        return model
+
+    return ARTIFACTS.get("surrogate", [path], None, build)
+
+
+def get_sat_builder(project_name: str, constraints):
+    """Project name -> MILP row builder (lcld and botnet prefixes)."""
+    if project_name.startswith("lcld"):
+        return make_lcld_sat_builder(constraints.schema)
+    if project_name.startswith("botnet"):
+        return make_botnet_sat_builder(constraints)
+    raise ValueError(f"No SAT constraint builder for project {project_name!r}")
+
+
+def evaluation_constraints(config: dict, attack_constraints):
+    """RQ2's evaluation override: success judged under another constraint
+    set than the attack used."""
+    ev = config.get("evaluation")
+    if not ev:
+        return attack_constraints
+    paths = [config["paths"]["features"], ev["constraints"]]
+    return ARTIFACTS.get(
+        "constraints",
+        paths,
+        (ev["project_name"], False),
+        lambda: get_constraints_class(ev["project_name"])(paths[0], paths[1]),
+    )

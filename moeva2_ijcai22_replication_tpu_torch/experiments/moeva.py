@@ -1,0 +1,161 @@
+"""MoEvA2 experiment runner: a config in, ``metrics_moeva_{hash}.json`` out.
+
+Port of ``experiments/moeva.py::run``, in its order: skip when the config's
+hash already has metrics, set up (constraints, candidates, scaler,
+surrogate), ``check_constraints_error`` on the candidates, the timed
+``Moeva2.generate``, the populations written to ``x_attacks_*.npy`` before
+the evaluation, the success rates per ε (the objectives evaluated once and
+re-thresholded per ε), the event stream, the config snapshot and the
+metrics JSON last, so that "metrics exists" implies its siblings exist. On
+the card the attack runs the MoEvA kernels (K5, K1 or K8, K2, K4a, K3,
+K4b).
+
+``device`` and ``dtype`` are arguments, never config keys: the config hash
+stays the JAX package's. The metrics carry the JAX runner's top-level keys
+except ``telemetry`` (the tracing layer, ROADMAP A14). Knobs that the port
+does not run yet raise ``NotImplementedError`` before any device work:
+``save_history``, ``early_stop_check_every`` > 0, ``quality_every`` > 0,
+``checkpoint_every`` > 0 and ``init`` other than ``tile`` (A7),
+``reconstruction`` (A9b), ``system.trace_log`` and ``system.profile_dir``
+(A14), and a device mesh. ``record_quality`` is accepted (its telemetry
+comes with A14) and so is ``assoc_block``: the JAX package's blocked
+association is bit-identical to the one-shot form, which kernel K3 runs.
+The JAX package's compilation-cache and telemetry switches
+(``system.jax_cache_dir``, ``aot_cache``, ``cost_ledger``,
+``mesh_telemetry``, ``gap_telemetry``) have nothing to switch in the port.
+
+Run one config from the command line (``-c`` file, ``-j`` inline JSON,
+``-p`` dotted overrides)::
+
+    python3 -m moeva2_ijcai22_replication_tpu_torch.experiments.moeva -j '<json>'
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import torch
+
+from .. import resolve_device
+from ..attacks.moeva import Moeva2
+from ..attacks.objective import ObjectiveCalculator
+from ..utils.config import get_dict_hash, parse_config, save_config
+from ..utils.in_out import json_to_file, save_to_file
+from ..utils.observability import PhaseTimer
+from ..utils.streaming import stream_for
+from . import common
+
+
+def refuse_knobs(config: dict) -> None:
+    """Raise for every knob of ``config`` that the port's MoEvA runner does
+    not run yet (see the module docstring)."""
+    n = lambda key: int(config.get(key, 0) or 0)  # noqa: E731
+    common.refuse_knobs(config, {
+        "save_history": (bool(config.get("save_history")), "the engine extras (ROADMAP A7)"),
+        "early_stop_check_every": (n("early_stop_check_every") > 0, "early exit (ROADMAP A7)"),
+        "quality_every": (n("quality_every") > 0, "interior quality samples (ROADMAP A7)"),
+        "checkpoint_every": (n("checkpoint_every") > 0, "checkpointing (ROADMAP A7)"),
+        "init": (config.get("init", "tile") != "tile", "the lp_ratio init (ROADMAP A7)"),
+        "reconstruction": (bool(config.get("reconstruction")), "the augmented domains (ROADMAP A9b)"),
+    })
+
+
+def run(config: dict, device="cuda", dtype=torch.float32):
+    """Run one MoEvA2 experiment; the metrics dict, or None when the config
+    hash already has results."""
+    refuse_knobs(config)
+    device = resolve_device(device)
+    out_dir = config["dirs"]["results"]
+    config_hash = get_dict_hash(config)
+    mid_fix = f"{config['attack_name']}"
+    metrics_path = common.metrics_path_for(config, mid_fix)
+    if common.should_skip(config, mid_fix):
+        return None
+
+    os.makedirs(out_dir, exist_ok=True)
+    print(config)
+    timer = PhaseTimer()
+
+    with timer.phase("setup"):
+        constraints = common.load_constraints(config)
+        x_initial_states = common.load_candidates(config)
+        scaler = common.load_scaler(config)
+        surrogate = common.load_surrogate(config)
+        constraints.check_constraints_error(x_initial_states)
+        moeva = Moeva2(
+            classifier=surrogate,
+            constraints=constraints,
+            ml_scaler=scaler,
+            norm=config["norm"],
+            n_gen=config["budget"],
+            n_pop=config["n_pop"],
+            n_offsprings=config["n_offsprings"],
+            seed=config["seed"],
+            init=config.get("init", "tile"),
+            archive_size=config.get("archive_size", 0),
+            max_states_per_call=config.get("max_states_per_call") or None,
+            dtype=dtype,
+            device=device,
+        )
+
+    start_time = time.time()
+    with timer.attack():
+        result = moeva.generate(x_initial_states, 1)
+    consumed_time = time.time() - start_time
+    x_attacks = result.x_ml
+
+    with timer.phase("write"):
+        save_to_file(x_attacks, f"{out_dir}/x_attacks_{mid_fix}_{config_hash}.npy")
+
+    with timer.phase("evaluate"):
+        calc = ObjectiveCalculator(
+            classifier=surrogate,
+            constraints=common.evaluation_constraints(config, constraints),
+            thresholds={"f1": config["misclassification_threshold"], "f2": 0.0},
+            min_max_scaler=scaler,
+            ml_scaler=scaler,
+            minimize_class=1,
+            norm=config["norm"],
+        )
+        # [cv, f1, f2] does not depend on ε: evaluate once, threshold per ε
+        vals = calc.objectives(x_initial_states, x_attacks)
+        objective_lists = []
+        for eps in config["eps_list"]:
+            calc.thresholds = {"f1": config["misclassification_threshold"], "f2": eps}
+            objective_lists.append(calc.success_rate_3d_record(x_initial_states, x_attacks, vals))
+
+    with timer.phase("write"):
+        with stream_for(config, mid_fix, config_hash) as stream:
+            stream.log_parameters(config)
+            stream.log_metric("time", consumed_time)
+            for eps, objectives in zip(config["eps_list"], objective_lists):
+                for k, v in objectives.items():
+                    stream.log_metric(f"eps{eps}_{k}", v)
+
+    # assembled after the write phase, so that 'timings' holds its spans;
+    # the metrics JSON still lands last
+    metrics = {
+        "objectives_list": objective_lists,
+        "time": consumed_time,
+        # the attack's span includes building or loading the kernel library
+        # when this call was the process's first
+        "includes_compile": "attack_compile" in timer.spans,
+        "execution": {
+            "max_states_per_call": moeva.max_states_per_call,
+            "mesh": None,
+            "early_stop_check_every": 0,
+            "gens_executed": int(result.gens_executed),
+        },
+        "timings": timer.spans,
+        "counters": timer.counters,
+        "config": config,
+        "config_hash": config_hash,
+    }
+    save_config(config, f"{out_dir}/config_{mid_fix}_")
+    json_to_file(metrics, metrics_path)
+    return metrics
+
+
+if __name__ == "__main__":
+    run(parse_config())

@@ -1,0 +1,190 @@
+"""Constrained PGD and SAT experiment runner: a config in,
+``metrics_{attack}_{loss}_{hash}.json`` out.
+
+Port of ``experiments/pgd.py::run``, in its order: the ``mid_fix``
+``{attack_name}_{loss_evaluation}``, skip when the config's hash already has
+metrics, set up and ``check_constraints_error``, then, timed: half ε when a
+SAT pass follows (``flip+sat``), ε − 1e-6 and step 0.1, labels from the
+surrogate, ``ConstrainedPGD.generate`` in the scaler's space (one launch of
+K7 on LCLD or K7b on botnet per run on the card), the inverse scaling,
+:func:`round_ints_toward_initial` and, with SAT, the MILP repair
+(``attacks.sat.SatAttack``, hot-started from the PGD output, on the host);
+then the success rates, ``x_attacks_*.npy``, the loss history
+(``x_history_{hash}.npy``, with ``save_history``), the event stream, the
+success-rate CSV, the config snapshot and the metrics JSON last.
+
+``device`` and ``dtype`` are arguments, never config keys: the config hash
+stays the JAX package's. The metrics carry the JAX runner's top-level keys
+except ``telemetry`` (the tracing layer, ROADMAP A14). Refused before any
+device work, each with a ``NotImplementedError``: a loss containing
+``autopgd`` (AutoPGD, ROADMAP A8), ``reconstruction`` (A9b),
+``system.trace_log`` and ``system.profile_dir`` (A14) and a device mesh.
+
+Run one config from the command line (``-c`` file, ``-j`` inline JSON,
+``-p`` dotted overrides)::
+
+    python3 -m moeva2_ijcai22_replication_tpu_torch.experiments.pgd -j '<json>'
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+import time
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..attacks.objective import ObjectiveCalculator, write_success_rate_csv
+from ..attacks.pgd import ConstrainedPGD, round_ints_toward_initial
+from ..attacks.sat import SatAttack
+from ..models.io import Surrogate
+from ..utils.config import get_dict_hash, parse_config, save_config
+from ..utils.in_out import json_to_file
+from ..utils.observability import PhaseTimer
+from ..utils.streaming import stream_for
+from . import common
+
+
+def refuse_knobs(config: dict) -> None:
+    """Raise for every knob of ``config`` that the port's PGD runner does
+    not run yet (see the module docstring)."""
+    common.refuse_knobs(config, {
+        "loss_evaluation": ("autopgd" in config["loss_evaluation"], "AutoPGD (ROADMAP A8)"),
+        "reconstruction": (bool(config.get("reconstruction")), "the augmented domains (ROADMAP A9b)"),
+    })
+
+
+def surrogate_labels(surrogate: Surrogate, x_scaled: np.ndarray, device, dtype) -> np.ndarray:
+    """The surrogate's own classes of the scaled rows (the first largest
+    probability), on ``device`` in ``dtype``: ART's labels when none are
+    given, as the reference's label-free ``generate(x)`` takes them."""
+    model = copy.deepcopy(surrogate.model).to(device=device, dtype=dtype).eval()
+    with torch.inference_mode():
+        x = torch.as_tensor(x_scaled, dtype=dtype, device=device)
+        return Surrogate(model).predict_proba(x).argmax(-1).cpu().numpy()
+
+
+def run(config: dict, device="cuda", dtype=torch.float32):
+    """Run one gradient-attack experiment; the metrics dict, or None when
+    the config hash already has results."""
+    refuse_knobs(config)
+    device = resolve_device(device)
+    out_dir = config["dirs"]["results"]
+    config_hash = get_dict_hash(config)
+    mid_fix = f"{config['attack_name']}_{config['loss_evaluation']}"
+    metrics_path = common.metrics_path_for(config, mid_fix)
+    if common.should_skip(config, mid_fix):
+        return None
+
+    os.makedirs(out_dir, exist_ok=True)
+    print(config)
+    timer = PhaseTimer()
+    apply_sat = "sat" in config["loss_evaluation"]
+
+    with timer.phase("setup"):
+        constraints = common.load_constraints(config)
+        x_initial = common.load_candidates(config)
+        scaler = common.load_scaler(config)
+        surrogate = common.load_surrogate(config)
+        constraints.check_constraints_error(x_initial)
+        attack = ConstrainedPGD(
+            classifier=surrogate,
+            constraints=constraints,
+            scaler=scaler,
+            max_iter=int(config["budget"]),
+            norm=config["norm"],
+            loss_evaluation=config["loss_evaluation"],
+            constraints_optim=config.get("constraints_optim", "sum"),
+            num_random_init=config.get("nb_random", 0),
+            record_loss=config.get("save_history") or None,
+            record_grad_norm=bool(config.get("save_grad_norm")),
+            seed=config["seed"],
+            dtype=dtype,
+            device=device,
+        )
+
+    start_time = time.time()
+    # only half ε when SAT runs after (01_pgd_united.py:97)
+    per_attack_eps = config["eps"] / 2 if apply_sat else config["eps"]
+    eps_run = per_attack_eps - 0.000001
+
+    with timer.attack():
+        x_scaled = scaler.transform(np.asarray(x_initial))
+        y = surrogate_labels(surrogate, x_scaled, device, dtype)
+        x_adv_scaled = attack.generate(x_scaled, y, eps=eps_run, eps_step=0.1, max_iter=int(config["budget"]))
+        loss_history = attack.loss_history
+        hist_names = attack.hist_column_names()
+        x_attacks = np.asarray(scaler.inverse(x_adv_scaled))
+        # directional integer rounding (01_pgd_united.py:130-137)
+        x_attacks = round_ints_toward_initial(x_attacks, x_initial, constraints.get_feature_type())
+        if apply_sat:
+            sat = SatAttack(
+                constraints,
+                common.get_sat_builder(config["project_name"], constraints),
+                scaler,
+                per_attack_eps,
+                np.inf,
+                n_sample=1,
+                n_jobs=config.get("system", {}).get("n_jobs", 1),
+                refine_rounds=int(config.get("sat_refine_rounds", 2)),
+            )
+            x_attacks = sat.generate(x_initial, x_attacks)[:, 0, :]
+    consumed_time = time.time() - start_time
+
+    if x_attacks.ndim == 2:
+        x_attacks = x_attacks[:, np.newaxis, :]
+
+    with timer.phase("evaluate"):
+        calc = ObjectiveCalculator(
+            classifier=surrogate,
+            constraints=common.evaluation_constraints(config, constraints),
+            thresholds={"f1": config["misclassification_threshold"], "f2": config["eps"]},
+            min_max_scaler=scaler,
+            ml_scaler=scaler,
+            minimize_class=1,
+            norm=config["norm"],
+        )
+        objectives = calc.success_rate_3d_record(x_initial, x_attacks)
+    print(objectives)
+
+    with timer.phase("write"):
+        np.save(f"{out_dir}/x_attacks_{mid_fix}_{config_hash}.npy", x_attacks)
+        if config.get("save_history") and loss_history is not None:
+            # (N, max_iter, 1, C) loss-component curves (01_pgd_united.py:196-199)
+            np.save(f"{out_dir}/x_history_{config_hash}.npy", loss_history[:, :, np.newaxis, :])
+        with stream_for(config, mid_fix, config_hash) as stream:
+            stream.log_parameters(config)
+            stream.log_metric("time", consumed_time)
+            for k, v in objectives.items():
+                stream.log_metric(k, v)
+            if loss_history is not None:
+                mean_curves = loss_history.mean(axis=0)  # (max_iter, C)
+                scalar = {"loss", "loss_class", "cons_sum", "grad_norm"}
+                for j, name in enumerate(hist_names):
+                    if name in scalar:  # not the per-constraint g1..gK columns
+                        stream.log_series(f"mean_{name}", mean_curves[:, j])
+        write_success_rate_csv(objectives, f"{out_dir}/success_rate_{mid_fix}_{config_hash}.csv")
+
+    # assembled after the write phase, so that 'timings' holds its span; the
+    # metrics JSON still lands last
+    metrics = {
+        "objectives": objectives,
+        "time": consumed_time,
+        # the attack's span includes building or loading the kernel library
+        # when this call was the process's first
+        "includes_compile": "attack_compile" in timer.spans,
+        "execution": {"max_states_per_call": None, "mesh": None},  # PGD runs one batch
+        "timings": timer.spans,
+        "counters": timer.counters,
+        "config": config,
+        "config_hash": config_hash,
+    }
+    save_config(config, f"{out_dir}/config_{mid_fix}_")
+    json_to_file(metrics, metrics_path)
+    return metrics
+
+
+if __name__ == "__main__":
+    run(parse_config())

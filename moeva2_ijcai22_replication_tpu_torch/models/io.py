@@ -1,14 +1,16 @@
-"""Surrogate wrapper and the reader of the JAX package's ``.msgpack`` params.
+"""Surrogate wrapper and the JAX package's ``.msgpack`` params, both ways.
 
 Port of ``models/io.py``. The file format (``io.py::save_params``) is an
 ``np.save`` int64 topology header (hidden sizes, then n_classes) followed by
 Flax's msgpack bytes of ``{"params": {"Dense_i": {"kernel", "bias"}}}``,
 where each array is a msgpack ext of type 1 holding ``(shape, dtype name,
-C-order bytes)``. It is read here with ``msgpack`` alone, without Flax.
+C-order bytes)``. It is read and written here with ``msgpack`` alone,
+without Flax, imported inside the functions that use it.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -58,6 +60,17 @@ def params_from_numpy(tree: dict, dtype=torch.float32) -> MLP:
     return model
 
 
+def _ext_pack(x):
+    """Flax's ext types: an ndarray as type 1, a numpy scalar as type 3."""
+    import msgpack
+
+    for code, kind in ((_EXT_NDARRAY, np.ndarray), (_EXT_NPSCALAR, np.generic)):
+        if isinstance(x, kind):
+            arr = np.asarray(x)
+            return msgpack.ExtType(code, msgpack.packb((arr.shape, arr.dtype.name, arr.tobytes("C"))))
+    raise TypeError(f"cannot pack {type(x).__name__}")
+
+
 def _ext_hook(code: int, data: bytes):
     import msgpack
 
@@ -68,8 +81,34 @@ def _ext_hook(code: int, data: bytes):
     raise ValueError(f"unsupported msgpack ext type {code}")
 
 
+def params_to_numpy(model: MLP) -> dict:
+    """The JAX package's params tree of ``model``: ``{"params": {"Dense_i":
+    {"kernel" (in, out), "bias"}}}`` in the model's dtype, in the order the
+    JAX package's files hold them."""
+    return {"params": {
+        f"Dense_{i}": {
+            "kernel": layer.weight.detach().cpu().numpy().T.copy(),
+            "bias": layer.bias.detach().cpu().numpy().copy(),
+        }
+        for i, layer in enumerate(model.layers)
+    }}
+
+
+def save_params(surrogate: Surrogate, path: str) -> None:
+    """Write ``surrogate`` as the JAX package's ``save_params`` does: the
+    int64 topology header by ``np.save``, then the msgpack params tree as
+    Flax's ``to_bytes`` packs it."""
+    import msgpack
+
+    model = surrogate.model
+    meta = np.array(list(model.hidden) + [model.n_classes], dtype=np.int64)
+    with open(path, "wb") as f:
+        np.save(f, meta, allow_pickle=False)
+        f.write(msgpack.packb(params_to_numpy(model), default=_ext_pack, strict_types=True))
+
+
 def load_params(path: str, dtype=torch.float32) -> Surrogate:
-    """Read a ``.msgpack`` written by the JAX package's ``save_params``."""
+    """Read a ``.msgpack`` written by either package's ``save_params``."""
     import msgpack
 
     with open(path, "rb") as f:
@@ -84,3 +123,16 @@ def load_params(path: str, dtype=torch.float32) -> Surrogate:
             f"stored layers {model.hidden}+{model.n_classes}"
         )
     return Surrogate(model)
+
+
+def load_classifier(path: str, dtype=torch.float32) -> Surrogate:
+    """Dispatch on the artifact's suffix, as the JAX package's
+    ``load_classifier``: ``.msgpack`` and ``.flax`` are read; orbax
+    checkpoints and Keras SavedModels are not ported yet."""
+    if path.rstrip("/").endswith(".orbax"):
+        raise NotImplementedError(f"{path}: orbax checkpoints are not read by the port yet")
+    if path.endswith(".model") or os.path.isdir(path):
+        raise NotImplementedError(f"{path}: Keras SavedModels are not read by the port yet")
+    if path.endswith((".msgpack", ".flax")):
+        return load_params(path, dtype=dtype)
+    raise ValueError(f"Unknown model artifact: {path}")

@@ -1,4 +1,7 @@
-"""The PyTorch port imports neither JAX nor the JAX package."""
+"""The PyTorch port imports neither JAX nor the JAX package, and importing
+it loads none of the host libraries the card's machine may lack (PyYAML,
+msgpack, joblib, sklearn, pandas): those are imported only inside the
+functions that read their formats."""
 
 from __future__ import annotations
 
@@ -35,6 +38,9 @@ def test_port_has_every_module_of_the_slice():
         "attacks.moeva.initialisation", "attacks.moeva.operators",
         "attacks.moeva.nds", "attacks.moeva.survival", "attacks.moeva.engine",
         "attacks.pgd", "attacks.pgd.engine", "kernels", "kernels.build", "problems",
+        "utils.config", "utils.in_out", "utils.observability", "utils.streaming", "domains",
+        "experiments.common", "experiments.moeva", "experiments.pgd", "attacks.sat",
+        "attacks.sat.engine", "domains.lcld_sat", "domains.botnet_sat",
     ):
         assert f"{port.__name__}.{name}" in mods
 
@@ -48,6 +54,9 @@ def test_importing_the_port_loads_no_jax():
         "('jax', 'jaxlib', 'flax', 'optax', 'moeva2_ijcai22_replication_tpu'))\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
+        "host = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('yaml', 'msgpack', 'joblib', 'sklearn', 'pandas'))\n"
+        "assert not host, host\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(

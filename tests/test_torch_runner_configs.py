@@ -1,0 +1,71 @@
+"""``chip_smoke.py`` phase 10 drives the repo's rq1 configs, not look-alikes.
+
+Its configs are dict literals in the script.
+Composed by ``chip_smoke.runner_config``, each must equal what the grid
+runner composes from ``config/`` (``experiments/rq.py::_compose``: the
+attack's yaml, the project's static yaml, then seed and budget, then ε and
+the loss) at the rq1 grid point it stands for, apart from the artifact
+paths, the results directory and the one listed cut.
+"""
+
+from __future__ import annotations
+
+import copy
+import importlib.util
+import os
+
+import pytest
+
+from moeva2_ijcai22_replication_tpu_torch.utils.config import load_config_file, merge_config
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _compose(base: str, project: str, overrides: list) -> dict:
+    cfg: dict = {}
+    merge_config(cfg, load_config_file(os.path.join(REPO, "config", f"{base}.yaml")))
+    merge_config(cfg, load_config_file(os.path.join(REPO, "config", f"{project}.yaml")))
+    for o in overrides:
+        merge_config(cfg, copy.deepcopy(o))
+    return cfg
+
+
+def _points(domain: str):
+    """(attack, loss, the grid runner's config) of every rq1 point phase 10
+    runs: MoEvA at the grid's first budget, PGD's five losses at the last."""
+    grid = load_config_file(os.path.join(REPO, "config", f"rq1.{domain}.yaml"))
+    (project,), (seed,), (eps,) = grid["projects"], grid["seeds"], grid["eps_list"]
+    yield "moeva", None, _compose("moeva", project, [{"seed": seed, "budget": grid["budgets"][0]},
+                                                      {"eps_list": grid["eps_list"]}])
+    for loss in grid["loss_evaluations"]:
+        yield "pgd", loss, _compose("pgd", project, [{"seed": seed, "budget": grid["budgets"][-1]},
+                                                     {"eps": eps, "loss_evaluation": loss}])
+
+
+@pytest.mark.parametrize("domain", ["lcld", "botnet"])
+def test_phase_10_configs_are_the_repo_configs(domain):
+    smoke = _smoke()
+    points = list(_points(domain))
+    assert [loss for attack, loss, _ in points if attack == "pgd"] == list(smoke.RQ1_LOSSES)
+    for attack, loss, want in points:
+        got = smoke.runner_config(domain, attack, "/artifacts", loss)
+        cut = smoke.RUNNER_CUTS.get((domain, loss), {})
+        assert set(got["paths"]) == set(want["paths"])
+        assert got["paths"]["model"].endswith(".msgpack") and got["paths"]["ml_scaler"].endswith(".npz")
+        for key in ("paths", "dirs"):
+            got.pop(key), want.pop(key)
+        for key, value in cut.items():
+            assert got[key] == value and want[key] != value
+            got[key] = want[key]
+        assert got == want, (attack, loss)
+
+
+def test_the_one_cut_is_lcld_flip_sat():
+    assert _smoke().RUNNER_CUTS == {("lcld", "flip+sat"): {"n_initial_state": 256}}
