@@ -8,7 +8,8 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero:
 
 1. versions: torch, CUDA, and the card's name and power limit (nvidia-smi);
-2. build the port's nine CUDA kernels from the sources in the checkout and
+2. build the port's nine CUDA kernels (K1 and K7 with an instantiation each
+   for the augmented LCLD domain) from the sources in the checkout and
    print each kernel's ptxas registers, shared memory, stack frame and
    spill (none of the redesigned ones, ``REDESIGNED``, may spill);
 3. hold each kernel against its plain PyTorch version on the card over a
@@ -117,7 +118,25 @@ Phases, in order; any failure exits non-zero:
    state (``check_repairs``), with the SAT seconds per state. One refusal is
    accepted, LCLD's ``constraints+flip`` (``NAN_REFUSALS``): the judgement
    refuses its result, as the JAX runner's does, only if exactly the listed
-   rows are NaN, each after x22 reached its pole at 0.
+   rows are NaN, each after x22 reached its pole at 0;
+11. the augmented LCLD domain (the ``[augmented]`` lines; ``lcld_augmented``,
+   57 features, 10 + 10 terms, from ``problems.
+   synthetic_lcld_augmented_problem``): the ptxas lines of K1's and K7's
+   augmented instantiations; K1 at D = 57 against ``evaluate_plain`` on the
+   card, bit for bit, over phase 3's sweep and K1's launch edges under both
+   norms, with the pair terms' edge rows (``problems.
+   lcld_augmented_edge_rows``) among the candidates; K5, K1, K2, K4a, K3 and
+   K4b at the domain's gene length on the path's inputs (the initial round
+   and ``AUG_STAGE_GENS`` steps at 1000 and 256 states); K7 at D = 57
+   against ``pgd_run_plain`` over phase 7's sweep with the edge rows among
+   the starts; K1 timed at (1000, 100) and the runner's chunk (256, 100), K7
+   at 4000 x 1000 (rq2's loss) and 100 iterations for the other losses,
+   each beside its plain version and its bound; then rq2.lcld's four grid
+   points (MoEvA and PGD, budgets 100 and 1000, 4000 states) through the
+   runners from configs composed as ``experiments/rq.py`` composes
+   ``config/rq2.lcld.yaml`` (``rq2_config``; held equal to the files by
+   ``tests/test_torch_runner_configs.py``), with phase 10's checks, and
+   MoEvA at budget 100 again with ``reconstruction: true``.
 
 The last three lines are the per-kernel JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Nothing is printed as a
@@ -1224,7 +1243,6 @@ def expected_launches(moeva, n_states: int) -> dict:
     chunk of states, the initial round (objectives, survival, the archive
     seeding on K4b) and ``n_gen - 1`` generation steps."""
     from moeva2_ijcai22_replication_tpu_torch import kernels
-    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import OBJECTIVE_KERNELS
 
     chunk = moeva.max_states_per_call or n_states
     chunks = -(-n_states // chunk)
@@ -1232,7 +1250,7 @@ def expected_launches(moeva, n_states: int) -> dict:
     return {
         **{name: 0 for name in kernels.launch_counts()},
         "offspring": chunks * steps,
-        OBJECTIVE_KERNELS[moeva.constraints.objective_kernel]: chunks * (1 + steps),
+        counter_name(moeva.constraints, "objective"): chunks * (1 + steps),
         "nd_peel": chunks * (1 + steps),
         "survive_norm": chunks * (1 + steps),
         "associate": chunks * (1 + steps),
@@ -2560,6 +2578,429 @@ def run_runners(smi: str) -> None:
                         f"{pgd_s:.3f} s), {sat_s / len(x_init):.4f} s per state (n_jobs {cfg['system']['n_jobs']}, "
                         f"{os.cpu_count()} host cores) on {smi}")
 
+# -- phase 11: the augmented LCLD domain ---------------------------------------------
+
+#: states of the augmented problem for K1's sweep and the stages' checks
+#: (phase 3's largest sweep count), at which K1 is timed too
+AUG_STATES = 1000
+#: generation steps over which the stages are held on the card
+AUG_STAGE_GENS = 3
+#: operations of the pair stage per pair, counted from the sources: K1's two
+#: compares, xor, subtract, abs, compare-select and add (7); K7's forward
+#: with its clip (8), clip_vjp's 2 compares and 2 multiplies, abs_vjp and
+#: the add to 0 (6) and repair's re-derivation (4)
+OBJECTIVE_OPS_PER_PAIR = 7
+PGD_OPS_PER_PAIR = 18
+#: ``config/rq2.lcld.static.yaml``, its artifact paths and results directory
+#: replaced by phase 11's; ``tests/test_torch_runner_configs.py`` holds it
+#: equal to the file
+RQ2_STATIC = {
+    "misclassification_threshold": 0.25, "norm": 2, "n_initial_state": 4000, "initial_state_offset": 0,
+    "system": {"n_jobs": -1, "verbose": 1, "mesh_devices": 0}, "save_history": False,
+}
+#: ``config/rq2.lcld.yaml``'s grid: seed, ε, budgets, its one loss, and its
+#: one scenario (the schema and evaluation paths replaced by phase 11's)
+RQ2_GRID = {"seed": 42, "eps": 0.2, "budgets": (100, 1000), "loss": "constraints+flip+adaptive_eps_step+repair"}
+RQ2_SCENARIO = {"project_name": "lcld_augmented", "reconstruction": False,
+                "evaluation": {"project_name": "lcld_augmented"}}
+#: the MoEvA runner's chunk of states on rq2.lcld and its last chunk (4000
+#: states in chunks of 256), at which the stages are checked and K1 is timed
+AUG_CHUNK = MOEVA_YAML["max_states_per_call"]
+AUG_LAST_CHUNK = RQ2_STATIC["n_initial_state"] % AUG_CHUNK or AUG_CHUNK
+
+
+def counter_name(cons, kind: str) -> str:
+    """The launch count that ``cons``'s objective (``kind`` "objective") or
+    PGD (``kind`` "pgd") kernel adds to: K1's and K7's instantiations for
+    the augmented LCLD domain count apart."""
+    base = f"{kind}_{cons.objective_kernel if kind == 'objective' else cons.pgd_kernel}"
+    return f"{base}_aug" if base in ("objective_lcld", "pgd_lcld") and cons.kernel_tables("cpu") is not None else base
+
+
+def rq2_config(attack: str, budget: int, artifacts: str, reconstruction: bool = False) -> dict:
+    """Phase 11's config of one rq2.lcld grid point, composed as the grid
+    runner composes it (the attack's yaml, ``rq2.lcld.static``, seed and
+    budget, the scenario, then ε, and for PGD the loss), over the artifacts
+    in ``artifacts``; ``reconstruction`` set where asked."""
+    import copy
+
+    cfg = copy.deepcopy(MOEVA_YAML if attack == "moeva" else PGD_YAML)
+    cfg.update(copy.deepcopy(RQ2_STATIC))
+    cfg["paths"] = {
+        "model": f"{artifacts}/nn_augmented.msgpack",
+        "x_candidates": f"{artifacts}/x_candidates_common_augmented.npy",
+        "min_max_scaler": f"{artifacts}/scaler_augmented.npz",
+        "ml_scaler": f"{artifacts}/scaler_augmented.npz",
+        "features": f"{artifacts}/features_augmented.csv",
+        "constraints": f"{artifacts}/constraints_augmented.csv",
+    }
+    cfg["dirs"] = {"results": f"{artifacts}/out/lcld/rq2"}
+    cfg.update(seed=RQ2_GRID["seed"], budget=budget)
+    cfg.update(copy.deepcopy(RQ2_SCENARIO))
+    cfg["evaluation"]["constraints"] = cfg["paths"]["constraints"]
+    cfg["reconstruction"] = reconstruction
+    if attack == "moeva":
+        cfg["eps_list"] = [RQ2_GRID["eps"]]
+    else:
+        cfg.update(eps=RQ2_GRID["eps"], loss_evaluation=RQ2_GRID["loss"])
+    return cfg
+
+
+def rq2_engine(device, cons, sur, scaler, artifacts: str):
+    """The MoEvA engine that the runner builds for rq2.lcld's first grid
+    point (``rq2_config``'s population, offspring, archive, norm, seed and
+    chunk), over the augmented problem's constraints, surrogate and scaler."""
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
+
+    cfg = rq2_config("moeva", RQ2_GRID["budgets"][0], artifacts)
+    return Moeva2(sur, cons, ml_scaler=scaler, device=device, norm=cfg["norm"], n_gen=cfg["budget"],
+                  n_pop=cfg["n_pop"], n_offsprings=cfg["n_offsprings"], seed=cfg["seed"],
+                  archive_size=cfg["archive_size"], max_states_per_call=cfg["max_states_per_call"])
+
+
+def aug_candidates(codec, cons, x: np.ndarray, cand):
+    """``hard_candidates(codec, cand)`` with the pair terms' edge rows
+    (``problems.lcld_augmented_edge_rows`` of ``x``) as rows 1 to 6 of each
+    state, in genes."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch.core import codec as codec_lib
+    from moeva2_ijcai22_replication_tpu_torch.problems import LCLD_AUGMENTED_EDGE_ROWS, lcld_augmented_edge_rows
+
+    cand = hard_candidates(codec, cand)
+    rows = torch.as_tensor(lcld_augmented_edge_rows(x, cons.important_features)[:LCLD_AUGMENTED_EDGE_ROWS],
+                           device=cand.device)
+    n = min(LCLD_AUGMENTED_EDGE_ROWS, cand.shape[1] - 1)
+    cand[:, 1:1 + n] = codec_lib.ml_to_genetic(codec, rows[:n])
+    return cand
+
+
+def aug_objective_bound(eng, s: int, n: int):
+    """K1's least time on the augmented domain for ``s`` states x ``n``
+    candidates: phase 3's count at its widths plus the pair stage."""
+    obj, l, d = eng._objective, eng.codec.gen_length, eng.codec.n_features
+    widths = [obj.layers[0][0].shape[1], *(w.shape[0] for w, _ in obj.layers)]
+    macs = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
+    n_params = sum(w.numel() + b.numel() for w, b in obj.layers)
+    pairs = obj.cons.idx.shape[0]
+    n_bytes = 4 * s * n * l + 16 * s * d + 8 * s + 4 * n_params + 16 * d + 16 * pairs + 12 * s * n
+    n_ops = s * n * (2 * macs + OBJECTIVE_OPS_PER_FEATURE * d + OBJECTIVE_OPS_PER_ROW + OBJECTIVE_OPS_PER_PAIR * pairs)
+    return bound_ms(n_bytes, n_ops, 0)
+
+
+def aug_pgd_bound(tables, n: int, t: int):
+    """K7's least time on the augmented domain: ``pgd_work`` at its width
+    plus the pair stage."""
+    n_bytes, n_ops, n_f64 = pgd_work(tables, n, t)
+    pairs = tables.cons.idx.shape[0]
+    return bound_ms(n_bytes + 16 * pairs, n_ops + n * t * PGD_OPS_PER_PAIR * pairs, n_f64)
+
+
+def check_aug_objectives(device, cons, sur, scaler, x, gen, rng):
+    """K1 on the augmented domain against ``evaluate_plain``, bit for bit:
+    phase 3's sweep (S in ``SWEEP_STATES``, the offspring and the
+    population of both shapes) and K1's launch edges (``OBJECTIVE_EDGES``,
+    the main stack and one read from global memory), under both norms, with
+    the pair terms' edge rows among the candidates."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import evaluate_plain, make_objective_tables
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import draw_offspring
+    from moeva2_ijcai22_replication_tpu_torch.models.mlp import MLP
+
+    engines = {norm: Moeva2(sur, cons, ml_scaler=scaler, device=device, norm=norm, n_pop=100, n_offsprings=100,
+                            archive_size=24, seed=42) for norm in (2, "inf")}
+    codec = engines[2].codec
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        wide = MLP(codec.n_features, GLOBAL_STACK, 2).to(device).eval().requires_grad_(False)
+    runs = nonfinite = candidates = 0
+    for norm, eng in engines.items():
+        obj = eng._objective
+        obj_global = make_objective_tables(codec, wide, obj.scaler, norm, cons.tol, obj.cons)
+        for m, _, p in SWEEP_SHAPES:
+            for s in SWEEP_STATES:
+                run = eng.prepare(x[:s], np.arange(s) % 2)
+                pop, xl, xu = sweep_population(gen, run, codec, s, p)
+                draws = draw_offspring(gen, s, p, m - p, codec.gen_length)
+                off = kernels.offspring(eng.tables, pop, xl, xu, m - p, draws)
+                for cand in (off, pop):
+                    cand = aug_candidates(codec, cons, x, cand)
+                    got = kernels.objective_lcld(cand, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm,
+                                                 run.minimize_class, obj)
+                    hold_equal(got, evaluate_plain(obj, codec, run, cand, cons),
+                               f"objective_lcld_aug S={s} N={cand.shape[1]} norm={norm}")
+                    runs += 1
+                    candidates += got.shape[0] * got.shape[1]
+                    nonfinite += int((~torch.isfinite(got)).any(-1).sum())
+        for s, n in OBJECTIVE_EDGES:
+            run = eng.prepare(x[:s], np.arange(s) % 2)
+            cand = aug_candidates(codec, cons, x, sweep_population(gen, run, codec, s, n)[0])
+            for stack, tables in (("main", obj), ("global", obj_global)):
+                got = kernels.objective_lcld(cand, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm,
+                                             run.minimize_class, tables)
+                hold_equal(got, evaluate_plain(tables, codec, run, cand, cons),
+                           f"objective_lcld_aug S={s} N={n} {stack} stack norm={norm}")
+                runs += 1
+    log(f"[augmented] objective_lcld at D = {codec.n_features} ({cons.n_constraints} terms) equals evaluate_plain "
+        f"on every entry of {runs} launches: S in {SWEEP_STATES} x the offspring and populations of (M, P) in "
+        f"{[(m, p) for m, _, p in SWEEP_SHAPES]}, and (S, N) in {OBJECTIVE_EDGES} with the main stack and a "
+        f"{codec.n_features}-{'-'.join(map(str, GLOBAL_STACK))}-2 stack read from global memory, under L2 and "
+        f"L-inf, with the pair terms' edge rows among the candidates; {nonfinite} of {candidates} candidates with a "
+        "non-finite objective (the sweep's random genes put denominators at 0)")
+
+
+def check_aug_stages(device, eng, x):
+    """K5, K1, K2, K4a, K3 and K4b at the augmented domain's gene length,
+    each against its plain version on the inputs the path gives it: ``eng``
+    is ``rq2_engine``, and each is held over the initial round (as
+    ``init_carry`` runs it), then ``AUG_STAGE_GENS`` generation steps, at
+    the runner's chunk and last chunk (``AUG_CHUNK``, ``AUG_LAST_CHUNK``)
+    and at ``AUG_STATES`` states, the carry following the card."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import (
+        Carry, archive_select_plain, evaluate_plain, extract_archive_plain,
+    )
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.initialisation import tile_init
+    from moeva2_ijcai22_replication_tpu_torch.core import codec as codec_lib
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import make_offspring_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import (
+        NormState, associate_plain, draw_gumbels, survive_fill_plain, survive_norm_plain,
+    )
+
+    def survival(f, state, gum_cut, gum_mem, what, extract=None, archive=None):
+        """K2, K4a, K3 and K4b on ``f``, each held against its plain version;
+        returns K4b's output and the new normalisation state."""
+        ranks = kernels.nd_peel(f, eng.pop_size)
+        hold_equal(ranks, nd_ranks_plain(f, eng.pop_size), f"nd_peel {what}")
+        ideal, worst, extreme, nadir, dirs = kernels.survive_norm(f, ranks, eng.asp_points, state)
+        w_state, w_nadir, w_dirs = survive_norm_plain(f, ranks, eng.asp_points, state)
+        for name, got, want in zip(("ideal", "worst", "extreme", "nadir", "dirs"),
+                                   (ideal, worst, extreme, nadir, dirs), (*w_state, w_nadir, w_dirs)):
+            hold_equal(got, want, f"survive_norm {name} {what}")
+        niche, dist = kernels.associate(f, dirs, ideal, nadir)
+        for name, got, want in zip(("niche", "dist"), (niche, dist), associate_plain(f, dirs, ideal, nadir)):
+            hold_equal(got, want, f"associate {name} {what}")
+        out = kernels.survive_fill(gum_cut, gum_mem, ranks, niche, dist, eng.pop_size, extract=extract,
+                                   archive=archive)
+        mask = survive_fill_plain(gum_cut, gum_mem, ranks, niche, dist, eng.pop_size)
+        want = (mask, *extract_archive_plain(mask, *extract, *archive[:2])) if extract is not None else (mask,)
+        for name, got, w in zip(("mask", "pop_x", "pop_f", "arch_x", "arch_f"), out, want):
+            hold_equal(got, w, f"survive_fill {name} {what}")
+        shapes.add((f.shape[1], dirs.shape[1]))
+        return out, NormState(ideal, worst, extreme)
+
+    offspring = finite = pair_violated = 0
+    shapes = set()
+    for s in (AUG_CHUNK, AUG_LAST_CHUNK, AUG_STATES):
+        run = eng.prepare(x[:s], np.ones(s, dtype=np.int64))
+        ins = (run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class, eng._objective)
+        gen = torch.Generator(device=device).manual_seed(s)
+        what = f"S={s} initial round"
+        pop_x = tile_init(eng.codec, run.x_init_ml, eng.pop_size)
+        pop_f = kernels.objective_lcld(pop_x, *ins)
+        hold_equal(pop_f, evaluate_plain(eng._objective, eng.codec, run, pop_x, eng.constraints),
+                   f"objective_lcld_aug {what}")
+        _, state = survival(pop_f, NormState.init(s, 3, device=device),
+                            *draw_gumbels(gen, s, eng.n_dirs, eng.pop_size), what)
+        arch = kernels.archive_select(pop_x, pop_f, pop_x[:, :0], pop_f[:, :0], eng.archive_size)
+        for name, got, want in zip(("arch_x", "arch_f"), arch, archive_select_plain(pop_x, pop_f, eng.archive_size)):
+            hold_equal(got, want, f"survive_fill archive {name} {what}")
+        carry = Carry(pop_x, pop_f, *arch, state)
+        for g in range(AUG_STAGE_GENS):
+            d = eng.draw_generation(gen, s)
+            what = f"S={s} step {g}"
+            args = (eng.tables, carry.pop_x, run.xl_gen, run.xu_gen, eng.n_offsprings, d.offspring)
+            off = kernels.offspring(*args, crossover_prob=eng.crossover_prob, eta_mutation=eng.eta_mutation)
+            hold_equal(off, make_offspring_plain(*args, crossover_prob=eng.crossover_prob,
+                                                 eta_mutation=eng.eta_mutation), f"offspring {what}")
+            off_f = kernels.objective_lcld(off, *ins)
+            hold_equal(off_f, evaluate_plain(eng._objective, eng.codec, run, off, eng.constraints),
+                       f"objective_lcld_aug {what}")
+            terms = eng.constraints.evaluate(codec_lib.genetic_to_ml(eng.codec, off, run.x_init_ml[:, None, :]))
+            offspring += off.shape[0] * off.shape[1]
+            finite += int(torch.isfinite(off_f).all(-1).sum())
+            pair_violated += int((terms[..., 10:] > 0).any(-1).sum())
+            out, state = survival(torch.cat([carry.pop_f, off_f], dim=1), carry.norm_state, d.gum_cut, d.gum_mem,
+                                  what, extract=(carry.pop_x, off, carry.pop_f, off_f),
+                                  archive=(carry.arch_x, carry.arch_f, off, off_f, eng.archive_size))
+            carry = Carry(out.pop_x, out.pop_f, out.arch_x, out.arch_f, state)
+    log(f"[augmented] offspring, objective_lcld, nd_peel, survive_norm, associate and survive_fill at L = "
+        f"{eng.codec.gen_length} genes ({eng.codec.n_features} features) equal their plain versions on rq2.lcld's "
+        f"engine (population {eng.pop_size}, {eng.n_offsprings} offspring, archive {eng.archive_size}; (M, R) in "
+        f"{sorted(shapes)}): the initial round and {AUG_STAGE_GENS} generation steps at S = {AUG_CHUNK} and "
+        f"{AUG_LAST_CHUNK} (the runner's chunk and last chunk) and {AUG_STATES}; of {offspring} offspring {finite} "
+        f"have finite objectives and {pair_violated} violate a pair term")
+
+
+def time_aug_objective(device, eng, x, smi: str) -> dict:
+    """K1's record on the augmented domain at (``AUG_STATES``, 100), and its
+    device time at the runner's chunk (``AUG_CHUNK``, 100), each beside its
+    bound, on the path's offspring (held bit for bit)."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import evaluate_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import draw_gumbels
+
+    shapes = {}
+    for s in (AUG_STATES, AUG_CHUNK):
+        run = eng.prepare(x[:s], np.ones(s, dtype=np.int64))
+        gen = torch.Generator(device=device).manual_seed(7)
+        carry = eng.init_carry(run, *draw_gumbels(gen, s, eng.n_dirs, eng.pop_size))
+        off = eng.offspring(run, carry.pop_x, eng.draw_generation(gen, s).offspring)
+        args = (off, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class, eng._objective)
+        hold_equal(kernels.objective_lcld(*args), evaluate_plain(eng._objective, eng.codec, run, off, eng.constraints),
+                   f"objective_lcld_aug S={s} (timed inputs)")
+        shapes[s] = (args, run, off)
+    args, run, off = shapes[AUG_STATES]
+    s, n = off.shape[:2]
+    b_ms, b_by = aug_objective_bound(eng, s, n)
+    rec = {
+        "name": "objective_lcld_aug",
+        "route": "cuda",
+        "source": "moeva2_ijcai22_replication_tpu_torch/kernels/csrc/objective_lcld.cu",
+        "replaces": "moeva2_ijcai22_replication_tpu/attacks/moeva/engine.py:452",
+        "launches": 0,
+        "max_abs_err": 0.0,
+        "ms": graph_ms(lambda: kernels.objective_lcld(*args)),
+        "wrapper_ms": cuda_ms(lambda: kernels.objective_lcld(*args)),
+        "plain_ms": cuda_ms(lambda: evaluate_plain(eng._objective, eng.codec, run, off, eng.constraints),
+                            launches=5, repeats=3),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
+    chunk_args = shapes[AUG_CHUNK][0]
+    rec["ms_chunk"] = graph_ms(lambda: kernels.objective_lcld(*chunk_args))
+    rec["bound_ms_chunk"] = aug_objective_bound(eng, AUG_CHUNK, n)[0]
+    log(f"[augmented] objective_lcld at D = {eng.codec.n_features}, S={s} N={n}: device {rec['ms']:.4f} ms, through "
+        f"the wrapper {rec['wrapper_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}); at "
+        f"S={AUG_CHUNK} N={n} (the runner's chunk): device {rec['ms_chunk']:.4f} ms, bound "
+        f"{rec['bound_ms_chunk']:.5f} ms; on {smi}")
+    return rec
+
+
+def check_aug_pgd(device, cons, sur, scaler, x):
+    """K7 on the augmented domain against ``pgd_run_plain`` on the card, bit
+    for bit, over phase 7's sweep (``PGD_CONFIGS``, rq2's loss among them, x
+    ``PGD_ROWS`` x ``PGD_ITERS``), with phase 7's edge starts and the pair
+    terms' edge rows among the starts."""
+    from moeva2_ijcai22_replication_tpu_torch.problems import LCLD_AUGMENTED_EDGE_ROWS, lcld_augmented_edge_rows
+
+    rng = np.random.default_rng(5)
+    xs = scaler.transform(x).astype(np.float32)
+    starts = pgd_edge_starts(rng, xs, scaler)
+    aug = lcld_augmented_edge_rows(x[14:14 + LCLD_AUGMENTED_EDGE_ROWS], cons.important_features, scaler)
+    starts[14:14 + LCLD_AUGMENTED_EDGE_ROWS] = aug
+    n = max(PGD_ROWS)
+    xs, starts = np.resize(xs, (n, xs.shape[1])), np.resize(starts, (n, xs.shape[1]))
+    (runs, nan_rows, nan_hist), _ = pgd_sweep(device, "pgd_lcld", cons, sur, scaler, xs, starts, PGD_ROWS)
+    log(f"[augmented] pgd_lcld at D = {xs.shape[1]} ({cons.n_constraints} terms) equals pgd_run_plain (x_adv, class, "
+        f"history) on all {runs} runs: {len(PGD_CONFIGS)} configurations (rq2's loss among them) x N in {PGD_ROWS} x "
+        f"T in {PGD_ITERS[:-1]}, and T = {PGD_ITERS[-1]} at one N each, with phase 7's 14 edge starts and the pair "
+        f"terms' {LCLD_AUGMENTED_EDGE_ROWS}; {nan_rows} NaN rows of x_adv, {nan_hist} NaN history entries")
+
+
+def write_aug_artifacts(out: str):
+    """Phase 11's artifacts in ``out``: the augmented schema files and
+    ``important_features.npy`` (``synthetic_lcld_augmented_problem(4000)``),
+    its states, its seeded surrogate by ``save_params`` and its scaler by
+    ``save_npz``, under rq2.lcld.static's file names. Returns the problem."""
+    from moeva2_ijcai22_replication_tpu_torch.models.io import save_params
+    from moeva2_ijcai22_replication_tpu_torch.models.scalers import save_npz
+    from moeva2_ijcai22_replication_tpu_torch.problems import synthetic_lcld_augmented_problem
+
+    cons, sur, scaler, x = synthetic_lcld_augmented_problem(out, PGD_STATES)
+    np.save(f"{out}/x_candidates_common_augmented.npy", x)
+    save_params(sur, f"{out}/nn_augmented.msgpack")
+    save_npz(scaler, f"{out}/scaler_augmented.npz")
+    return cons, sur, scaler, x
+
+
+def drive_aug_runners(smi: str, art: str, cons) -> dict:
+    """rq2.lcld's four grid points through the runners, and MoEvA at its
+    first budget again with ``reconstruction: true``, each with phase 10's
+    checks (launch counts as implied, the JAX file names, metrics equal to
+    their recomputation, a rerun that skips). Returns the launches summed
+    over the four grid points."""
+    import types
+
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.domains import augmentation
+    from moeva2_ijcai22_replication_tpu_torch.utils.config import get_dict_hash
+
+    total = {k: 0 for k in kernels.launch_counts()}
+    n = RQ2_STATIC["n_initial_state"]
+
+    def moeva_expected(cfg):
+        engine = types.SimpleNamespace(max_states_per_call=cfg["max_states_per_call"], n_gen=cfg["budget"],
+                                       archive_size=cfg["archive_size"], constraints=cons)
+        return expected_launches(engine, n)
+
+    for budget in RQ2_GRID["budgets"]:
+        for attack in ("moeva", "pgd"):
+            cfg = rq2_config(attack, budget, art)
+            expected = (moeva_expected(cfg) if attack == "moeva"
+                        else {**{k: 0 for k in kernels.launch_counts()}, counter_name(cons, "pgd"): 1})
+            tag = f"{attack} lcld_augmented budget {budget}" + (f" {cfg['loss_evaluation']}" if attack == "pgd" else "")
+            metrics = drive_runner(cons, cfg, smi, expected, tag)
+            if metrics is not None:
+                for k, v in expected.items():
+                    total[k] += v
+    cfg = rq2_config("moeva", RQ2_GRID["budgets"][0], art, reconstruction=True)
+    drive_runner(cons, cfg, smi, moeva_expected(cfg), "moeva lcld_augmented reconstruction")
+    x_rec = np.load(f"{cfg['dirs']['results']}/x_attacks_moeva_{get_dict_hash(cfg)}.npy")
+    base = torch.as_tensor(x_rec[..., : -augmentation.n_pairs(cons.important_features)])
+    if not same_entries_np(x_rec, augmentation.augment(base, cons.important_features).numpy()).all():
+        raise AssertionError("reconstruction: the saved populations' pair columns are not the XOR of their base")
+    log(f"[augmented] reconstruction: true: the saved populations {x_rec.shape} hold the XOR of their base features "
+        "in their last columns")
+    return total
+
+
+def run_augmented(device, smi: str, resources: list):
+    """Phase 11: the augmented LCLD domain (``lcld_augmented``: 57 features,
+    10 + 10 terms). Returns the records of K1 and K7 at D = 57 and the
+    launches of the runner drives."""
+    import torch
+
+    aug_ptxas = [k for k in resources if k["kernel"] in ("objective_lcld_kernel<128,1,1>",
+                                                         "objective_lcld_kernel<64,0,1>", "pgd_lcld_kernel<1>")]
+    if len(aug_ptxas) != 3:
+        raise AssertionError(f"the build's ptxas report lacks the augmented instantiations: {aug_ptxas}")
+    for k in aug_ptxas:
+        log(f"[augmented] {k['kernel']}: {k['registers']} registers, {k['stack']} bytes stack frame, "
+            f"{k['spill_stores']} + {k['spill_loads']} bytes spill stores + loads")
+    rng = np.random.default_rng(11)
+    gen = torch.Generator(device=device).manual_seed(11)
+    with tempfile.TemporaryDirectory() as tmp:
+        cons, sur, scaler, x = write_aug_artifacts(tmp)
+        log(f"[augmented] problem: {len(x)} states of {x.shape[1]} features, {cons.n_constraints} terms, important "
+            f"features {cons.important_features[:, 0].astype(int).tolist()} (thresholds "
+            f"{[float(t) for t in cons.important_features[:, 1]]})")
+        check_aug_objectives(device, cons, sur, scaler, x[:AUG_STATES], gen, rng)
+        eng = rq2_engine(device, cons, sur, scaler, tmp)
+        check_aug_stages(device, eng, x)
+        check_aug_pgd(device, cons, sur, scaler, x)
+        k1 = time_aug_objective(device, eng, x, smi)
+        xs = scaler.transform(x)
+        k7, _ = pgd_kernel_record(device, "[augmented]", "pgd_lcld",
+                                  "moeva2_ijcai22_replication_tpu/attacks/pgd/engine.py:241",
+                                  (cons, sur, scaler, x, xs, surrogate_labels(sur, xs)), RQ2_GRID["eps"] - 1e-6,
+                                  PGD_ITERS[-1], lambda tables: aug_pgd_bound(tables, len(xs), PGD_BUDGET))
+        k7["name"] = "pgd_lcld_aug"
+        launches = drive_aug_runners(smi, tmp, cons)
+    log(f"[augmented] launches over rq2.lcld's four grid points: {({k: v for k, v in launches.items() if v})}")
+    return [k1, k7], launches
+
 
 def main() -> int:
     import torch
@@ -2615,6 +3056,9 @@ def main() -> int:
     records.append(pgd_botnet_rec)
     launches["pgd_botnet"] = pgd_botnet_launches["pgd_botnet"]
     run_runners(smi)
+    aug_records, aug_launches = run_augmented(device, smi, resources)
+    records += aug_records
+    launches.update({name: aug_launches[name] for name in ("objective_lcld_aug", "pgd_lcld_aug")})
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if not all(math.isfinite(rec[k]) for k in ("ms", "plain_ms", "bound_ms")):

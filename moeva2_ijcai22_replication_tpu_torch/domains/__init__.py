@@ -1,11 +1,11 @@
 """Tabular domains of the port and their registry.
 
 Port of ``domains/__init__.py``'s :func:`get_constraints_class`: a project
-name resolves to its constraint class. ``lcld`` and ``botnet`` are ported;
-their augmented variants and the domains compiled from the constraint IR
-(the ``lcld_spec`` and ``botnet_spec`` re-expressions, ``phishing`` and the
-seeded ``family<seed>`` domains) are refused with the roadmap item that
-ports them.
+name resolves to its constraint class. ``lcld``, ``lcld_augmented`` and
+``botnet`` are ported; ``botnet_augmented`` and the domains compiled from
+the constraint IR (the ``lcld_spec`` and ``botnet_spec`` re-expressions,
+``phishing`` and the seeded ``family<seed>`` domains) are refused with the
+roadmap item that ports them.
 """
 
 from __future__ import annotations
@@ -13,18 +13,18 @@ from __future__ import annotations
 import re
 
 from .botnet import BotnetConstraints
-from .lcld import LcldConstraints
+from .lcld import LcldAugmentedConstraints, LcldConstraints
 
 CONSTRAINTS_REGISTRY = {
     "lcld": LcldConstraints,
+    "lcld_augmented": LcldAugmentedConstraints,
     "botnet": BotnetConstraints,
 }
 
 #: the JAX package's other registry names, each with the roadmap item that
 #: ports it
 _NOT_PORTED = {
-    "lcld_augmented": "the augmented domains (ROADMAP A9b)",
-    "botnet_augmented": "the augmented domains (ROADMAP A9b)",
+    "botnet_augmented": "the botnet half of the augmented domains (ROADMAP A9b)",
     "lcld_spec": "the constraint IR (ROADMAP A11)",
     "botnet_spec": "the constraint IR (ROADMAP A11)",
     "phishing": "the constraint IR (ROADMAP A11)",
@@ -47,4 +47,7 @@ def get_constraints_class(project_name: str):
     ) from None
 
 
-__all__ = ["BotnetConstraints", "CONSTRAINTS_REGISTRY", "LcldConstraints", "get_constraints_class"]
+__all__ = [
+    "BotnetConstraints", "CONSTRAINTS_REGISTRY", "LcldAugmentedConstraints", "LcldConstraints",
+    "get_constraints_class",
+]

@@ -1,7 +1,8 @@
-"""LCLD (LendingClub loan data) domain: 47 features, 10 relational constraints.
+"""LCLD (LendingClub loan data) domain: 47 features, 10 relational constraints;
+its augmented variant adds C(k, 2) XOR pair features and their consistency
+terms (10 + 10 for k = 5).
 
-Port of ``moeva2_ijcai22_replication_tpu/domains/lcld.py`` (the augmented
-variant is not ported yet).
+Port of ``moeva2_ijcai22_replication_tpu/domains/lcld.py``.
 
 Feature indices used: 0 loan_amnt, 1 term, 2 int_rate, 3 installment,
 6 annual_inc, 7 issue_d, 9 earliest_cr_line, 10 open_acc, 11 pub_rec,
@@ -10,15 +11,21 @@ Feature indices used: 0 loan_amnt, 1 term, 2 int_rate, 3 installment,
 
 from __future__ import annotations
 
+import os
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from ..core.codec import full_ohe_tables, harden_onehot
 from ..core.constraints import ConstraintSet
 from ..core.schema import ConstraintBounds, FeatureSchema
 from ..core.vjp import abs_vjp, clip_vjp, div_vjp
+from . import augmentation
 from .synth import months
 
 N_BASE_FEATURES = 47
+N_BASE_TERMS = 10
 
 
 def _installment(loan_amnt, term, int_rate):
@@ -181,27 +188,92 @@ class LcldConstraints(ConstraintSet):
     #: card with these terms and their backward
     pgd_kernel = "lcld"
 
-    def __init__(self, features_path: str, constraints_path: str):
+    def __init__(self, features_path: str, constraints_path: str, important_features_path: str | None = None):
         schema = FeatureSchema.from_csv(features_path)
         super().__init__(schema, ConstraintBounds.from_csv(constraints_path))
+        if important_features_path is None:
+            important_features_path = os.path.join(os.path.dirname(features_path), "important_features.npy")
+        self.important_features = (
+            np.load(important_features_path) if os.path.exists(important_features_path) else None
+        )
         self._ohe_idx, self._ohe_mask = full_ohe_tables(schema)
 
     def _raw(self, x: torch.Tensor) -> torch.Tensor:
         return lcld_constraint_terms(x)
 
     def smooth_vjp(self, u: torch.Tensor, ct_g: torch.Tensor):
-        """:func:`lcld_smooth_vjp` at this set's tolerance."""
-        if u.shape[-1] > N_BASE_FEATURES:
-            raise NotImplementedError("augmented LCLD inputs are not ported yet")
+        """:func:`lcld_smooth_vjp` at this set's tolerance; the columns of an
+        augmented row past the 47 base features get a zero cotangent."""
         return lcld_smooth_vjp(u, ct_g, self.tol)
 
     def repair(self, x: torch.Tensor) -> torch.Tensor:
         """Constructive repair: snap term to {36, 60}, recompute the
-        installment by formula, harden every one-hot group to its argmax."""
-        if x.shape[-1] > N_BASE_FEATURES:
-            raise NotImplementedError("augmented LCLD inputs are not ported yet")
+        installment by formula, harden every one-hot group to its argmax,
+        and re-derive the XOR features of an augmented row from its repaired
+        base features."""
         x = x.clone()
         term = torch.where(x[..., 1] < (60.0 + 36.0) / 2.0, 36.0, 60.0).to(x.dtype)
         x[..., 1] = term
         x[..., 3] = _installment(x[..., 0], term, x[..., 2])
-        return harden_onehot(x, self._ohe_idx.to(x.device), self._ohe_mask.to(x.device))
+        x = harden_onehot(x, self._ohe_idx.to(x.device), self._ohe_mask.to(x.device))
+        if x.shape[-1] > N_BASE_FEATURES:
+            if self.important_features is None:
+                raise FileNotFoundError(
+                    "repair() on augmented inputs requires important_features.npy "
+                    "to re-derive the XOR features (otherwise they would be left "
+                    "stale and constraint-violating)"
+                )
+            base = x[..., : x.shape[-1] - augmentation.n_pairs(self.important_features)]
+            x = augmentation.augment(base, self.important_features)
+        return x
+
+
+class LcldPairTables(NamedTuple):
+    """What kernels K1 and K7 read of an augmented LCLD set: its pairs'
+    base features and their thresholds, rounded once to float32."""
+
+    idx: torch.Tensor  # (P, 2) int32
+    thr: torch.Tensor  # (P, 2) float32
+
+
+class LcldAugmentedConstraints(LcldConstraints):
+    """LCLD and the XOR-consistency terms of its augmented features: 10 + P
+    terms (P = C(k, 2) pairs of k important features; 10 + 10 at k = 5)."""
+
+    n_constraints = 20
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.important_features is None:
+            raise FileNotFoundError(
+                "LcldAugmentedConstraints requires important_features.npy "
+                "(pass important_features_path or place it next to features.csv)"
+            )
+        feats = self.important_features[:, 0]
+        if not np.isin(feats, np.arange(N_BASE_FEATURES)).all():
+            # the XOR features are derived from base features only (the
+            # repair re-derives them from the first 47 columns)
+            raise ValueError(f"important features must index base features in [0, {N_BASE_FEATURES}), got {feats}")
+        self._pairs = augmentation.PairTables.build(self.important_features)
+
+    def _raw(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([lcld_constraint_terms(x), self._pairs.consistency_terms(x)], dim=-1)
+
+    def kernel_tables(self, device) -> LcldPairTables:
+        return LcldPairTables(
+            idx=self._pairs.idx.to(device=device, dtype=torch.int32),
+            thr=torch.as_tensor(self._pairs.thr, dtype=torch.float32, device=device),
+        )
+
+    def smooth_vjp(self, u: torch.Tensor, ct_g: torch.Tensor):
+        """``(g, ct_u)`` over the 10 + P terms: :func:`lcld_smooth_vjp` of the
+        base terms, then each pair's ``abs_vjp(v, clip_vjp(pre, ct))`` added
+        to its augmented column from 0 (the base terms touch none of them).
+        No cotangent flows through the comparisons, as under ``jax.grad``."""
+        g_base, ct = lcld_smooth_vjp(u, ct_g[..., :N_BASE_TERMS], self.tol)
+        p = self._pairs.n_pairs
+        v = u[..., u.shape[-1] - p :] - self._pairs.xor_features(u)
+        pre = torch.abs(v) - self.tol
+        c_v = abs_vjp(v, clip_vjp(pre, ct_g[..., N_BASE_TERMS:]))
+        ct[..., u.shape[-1] - p :] = ct[..., u.shape[-1] - p :] + c_v
+        return torch.cat([g_base, torch.clamp(pre, min=0.0)], dim=-1), ct

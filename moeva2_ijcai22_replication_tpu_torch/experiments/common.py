@@ -3,7 +3,8 @@
 Port of the parts of ``experiments/common.py`` that the MoEvA and PGD
 runners call: the memoizing :class:`ArtifactCache`, :func:`metrics_path_for`
 and :func:`should_skip`, the loaders of constraints, candidates, scaler and
-surrogate, :func:`get_sat_builder` and :func:`evaluation_constraints`.
+surrogate, :func:`get_sat_builder`, :func:`evaluation_constraints` and the
+runners' ``reconstruction`` (:func:`reconstruct`).
 
 The scaler's suffix picks its format: ``.joblib`` (an sklearn
 ``MinMaxScaler``, read through joblib on the CPU, as the JAX package reads
@@ -22,8 +23,9 @@ import os
 import threading
 
 import numpy as np
+import torch
 
-from ..domains import get_constraints_class
+from ..domains import augmentation, get_constraints_class
 from ..domains.botnet_sat import make_botnet_sat_builder
 from ..domains.lcld_sat import make_lcld_sat_builder
 from ..models.scalers import MinMaxParams, load_joblib_scaler, load_npz
@@ -102,23 +104,25 @@ def should_skip(config: dict, mid_fix: str) -> bool:
 
 def load_constraints(config: dict):
     """The project's constraint class from the registry, over the config's
-    schema files; memoized, so runs naming the same files share one
-    object. A ``spec:`` key (a domain compiled from the constraint IR) and
-    ``paths.important_features`` (which serves the augmented domains) are
-    refused."""
+    schema files and, where the config names one,
+    ``paths.important_features`` (passed as ``important_features_path``;
+    it is part of the memo key); memoized, so runs naming the same files
+    share one object. A ``spec:`` key (a domain compiled from the
+    constraint IR) is refused."""
     project = config["project_name"]
     if config.get("spec"):
         raise NotImplementedError(
             f"config sets spec: {config['spec']!r}: domains compiled from a spec come with the "
             "constraint IR (ROADMAP A11)"
         )
-    if config["paths"].get("important_features"):
-        raise NotImplementedError(
-            "config sets paths.important_features, which serves the augmented domains (ROADMAP A9b)"
-        )
     paths = [config["paths"]["features"], config["paths"]["constraints"]]
+    important = config["paths"].get("important_features")
+    if important:
+        paths.append(important)
+    kwargs = {"important_features_path": important} if important else {}
     return ARTIFACTS.get(
-        "constraints", paths, (project, False), lambda: get_constraints_class(project)(paths[0], paths[1])
+        "constraints", paths, (project, bool(important)),
+        lambda: get_constraints_class(project)(paths[0], paths[1], **kwargs),
     )
 
 
@@ -172,9 +176,19 @@ def get_sat_builder(project_name: str, constraints):
     raise ValueError(f"No SAT constraint builder for project {project_name!r}")
 
 
+def reconstruct(x_attacks: np.ndarray, constraints) -> np.ndarray:
+    """The attacked rows with their last P (augmented) columns stripped and
+    re-derived from the base features (``augmentation.augment``), in the
+    rows' dtype."""
+    important = constraints.important_features
+    base = torch.as_tensor(np.asarray(x_attacks)[..., : -augmentation.n_pairs(important)])
+    return augmentation.augment(base, important).numpy()
+
+
 def evaluation_constraints(config: dict, attack_constraints):
     """RQ2's evaluation override: success judged under another constraint
-    set than the attack used."""
+    set than the attack used (``lcld_augmented`` reads the
+    ``important_features.npy`` beside the features file)."""
     ev = config.get("evaluation")
     if not ev:
         return attack_constraints

@@ -16,8 +16,10 @@ except ``telemetry`` (the tracing layer, ROADMAP A14). Knobs that the port
 does not run yet raise ``NotImplementedError`` before any device work:
 ``save_history``, ``early_stop_check_every`` > 0, ``quality_every`` > 0,
 ``checkpoint_every`` > 0 and ``init`` other than ``tile`` (A7),
-``reconstruction`` (A9b), ``system.trace_log`` and ``system.profile_dir``
-(A14), and a device mesh. ``record_quality`` is accepted (its telemetry
+``system.trace_log`` and ``system.profile_dir`` (A14), and a device mesh.
+``reconstruction: true`` strips the augmented columns of the populations
+and re-derives them from the attacked base features
+(:func:`common.reconstruct`). ``record_quality`` is accepted (its telemetry
 comes with A14) and so is ``assoc_block``: the JAX package's blocked
 association is bit-identical to the one-shot form, which kernel K3 runs.
 The JAX package's compilation-cache and telemetry switches
@@ -57,7 +59,6 @@ def refuse_knobs(config: dict) -> None:
         "quality_every": (n("quality_every") > 0, "interior quality samples (ROADMAP A7)"),
         "checkpoint_every": (n("checkpoint_every") > 0, "checkpointing (ROADMAP A7)"),
         "init": (config.get("init", "tile") != "tile", "the lp_ratio init (ROADMAP A7)"),
-        "reconstruction": (bool(config.get("reconstruction")), "the augmented domains (ROADMAP A9b)"),
     })
 
 
@@ -104,6 +105,8 @@ def run(config: dict, device="cuda", dtype=torch.float32):
         result = moeva.generate(x_initial_states, 1)
     consumed_time = time.time() - start_time
     x_attacks = result.x_ml
+    if config.get("reconstruction"):
+        x_attacks = common.reconstruct(x_attacks, constraints)
 
     with timer.phase("write"):
         save_to_file(x_attacks, f"{out_dir}/x_attacks_{mid_fix}_{config_hash}.npy")

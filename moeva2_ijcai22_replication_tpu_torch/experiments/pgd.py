@@ -17,8 +17,11 @@ success-rate CSV, the config snapshot and the metrics JSON last.
 stays the JAX package's. The metrics carry the JAX runner's top-level keys
 except ``telemetry`` (the tracing layer, ROADMAP A14). Refused before any
 device work, each with a ``NotImplementedError``: a loss containing
-``autopgd`` (AutoPGD, ROADMAP A8), ``reconstruction`` (A9b),
-``system.trace_log`` and ``system.profile_dir`` (A14) and a device mesh.
+``autopgd`` (AutoPGD, ROADMAP A8), ``system.trace_log`` and
+``system.profile_dir`` (A14) and a device mesh. ``reconstruction: true``
+re-derives the augmented columns of the attacked rows after the rounding
+and the MILP repair, before the attack's time is taken
+(:func:`common.reconstruct`).
 
 Run one config from the command line (``-c`` file, ``-j`` inline JSON,
 ``-p`` dotted overrides)::
@@ -52,7 +55,6 @@ def refuse_knobs(config: dict) -> None:
     not run yet (see the module docstring)."""
     common.refuse_knobs(config, {
         "loss_evaluation": ("autopgd" in config["loss_evaluation"], "AutoPGD (ROADMAP A8)"),
-        "reconstruction": (bool(config.get("reconstruction")), "the augmented domains (ROADMAP A9b)"),
     })
 
 
@@ -131,6 +133,8 @@ def run(config: dict, device="cuda", dtype=torch.float32):
                 refine_rounds=int(config.get("sat_refine_rounds", 2)),
             )
             x_attacks = sat.generate(x_initial, x_attacks)[:, 0, :]
+    if config.get("reconstruction"):
+        x_attacks = common.reconstruct(x_attacks, constraints)
     consumed_time = time.time() - start_time
 
     if x_attacks.ndim == 2:

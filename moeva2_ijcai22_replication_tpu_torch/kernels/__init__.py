@@ -6,7 +6,9 @@ In the order a generation launches them:
   mutation; plain version ``attacks.moeva.operators.make_offspring_plain``.
 - ``objective_lcld`` (K1, ``csrc/objective_lcld.cu``) or ``objective_botnet``
   (K8, ``csrc/objective_botnet.cu``): the objectives on the LCLD or the
-  botnet domain; plain version ``attacks.moeva.engine.evaluate_plain``.
+  botnet domain; plain version ``attacks.moeva.engine.evaluate_plain``. K1's
+  instantiation for the augmented LCLD domain counts its launches as
+  ``objective_lcld_aug``.
 - ``nd_peel`` (K2, ``csrc/nd_peel.cu``): non-dominated front peeling; its
   plain version is ``attacks.moeva.nds.nd_ranks_plain``.
 - ``survive_norm`` (K4a, ``csrc/survive_norm.cu``): ideal, worst, extreme
@@ -22,7 +24,8 @@ In the order a generation launches them:
 And, for constrained PGD, ``pgd_lcld`` (K7, ``csrc/pgd_lcld.cu``) and
 ``pgd_botnet`` (K7b, ``csrc/pgd_botnet.cu``): every iteration of one run on
 the LCLD or the botnet domain; plain version
-``attacks.pgd.engine.pgd_run_plain``.
+``attacks.pgd.engine.pgd_run_plain``. K7's instantiation for the augmented
+LCLD domain counts its launches as ``pgd_lcld_aug``.
 
 The wrappers take CUDA tensors only and raise on anything the kernel does
 not take, or when a build or launch fails; callers route CPU tensors to the
@@ -45,7 +48,7 @@ _LAUNCHES = {
     name: 0
     for name in (
         "offspring", "objective_lcld", "nd_peel", "survive_norm", "associate", "survive_fill",
-        "pgd_lcld", "objective_botnet", "pgd_botnet",
+        "pgd_lcld", "objective_botnet", "pgd_botnet", "objective_lcld_aug", "pgd_lcld_aug",
     )
 }
 
@@ -155,14 +158,35 @@ def offspring(tables, pop_x, xl, xu, n_offsprings: int, draws, crossover_prob=0.
     return out
 
 
+def _lcld_pairs(lib, cons, kernel: str, d: int, where: str) -> int:
+    """The pair count P of the augmented LCLD tables ``cons`` (a
+    ``domains.lcld.LcldPairTables``, None on the base domain) that
+    ``kernel`` reads from ``where``; raises unless the rows have 47 + P
+    features, P is at most the library's limit and the tables have their
+    layout."""
+    n_pairs = 0 if cons is None else cons.idx.shape[0]
+    if n_pairs > lib.moeva_lcld_max_pairs() or d != 47 + n_pairs:
+        raise ValueError(
+            f"{kernel} takes LCLD's 47 features, or 47 + P on the augmented domain with its P <= "
+            f"{lib.moeva_lcld_max_pairs()} pair tables in {where}, got {d} features and {n_pairs} pairs"
+        )
+    if cons is not None:
+        _check(cons.idx, "pair_idx", (n_pairs, 2), torch.int32)
+        _check(cons.thr, "pair_thr", (n_pairs, 2))
+    return n_pairs
+
+
 def objective_lcld(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj):
     """Kernel K1: (S, N, 3) float32 objectives ``[f1, f2, Σ violations]``
     of the LCLD candidates ``x_gen`` (S, N, L), given the run's (S, D) rows
     and ``minimize_class`` (S,) int64, and ``obj`` (an
-    ``engine.ObjectiveTables``) in float32 on the same card. The kernel
-    reads any class but 0 as class 1 and does not check it:
-    ``Moeva2.generate`` refuses a class outside the head's [0, 2) before
-    anything reaches the card."""
+    ``engine.ObjectiveTables``) in float32 on the same card. On the
+    augmented domain D = 47 + P and ``obj.cons`` holds the P pairs'
+    tables (``domains.lcld.LcldPairTables``), whose feature indices must
+    lie in [0, 47): the kernel does not check them. The kernel reads any
+    class but 0 as class 1 and does not check it: ``Moeva2.generate``
+    refuses a class outside the head's [0, 2) before anything reaches the
+    card. Launches on the augmented domain count as ``objective_lcld_aug``."""
     from .build import library
 
     if x_gen.dim() != 3 or x_init_ml.dim() != 2:
@@ -182,11 +206,11 @@ def objective_lcld(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, ob
     if scale is not None:
         _check(scale, "scale", (d,))
         _check(offset, "offset", (d,))
-    if d != 47:
-        raise ValueError(f"objective_lcld takes LCLD's 47 features, got {d}")
+    lib = library()
+    n_pairs = _lcld_pairs(lib, obj.cons, "objective_lcld", d, "obj.cons")
+    pairs = (None, None) if obj.cons is None else (obj.cons.idx, obj.cons.thr)
     if widths[0] != d or not 1 <= widths[-1] <= 2:
         raise ValueError(f"objective_lcld takes a {d}-input stack with 1 or 2 classes, got widths {widths}")
-    lib = library()
     if len(widths) - 1 > lib.moeva_objective_max_layers() or max(widths) > lib.moeva_objective_max_width():
         raise ValueError(
             f"objective_lcld takes at most {lib.moeva_objective_max_layers()} layers of width "
@@ -195,19 +219,20 @@ def objective_lcld(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, ob
     if n_params > lib.moeva_objective_max_params():
         raise ValueError(f"objective_lcld's weights must fit shared memory: {n_params} parameters")
     dev = _one_device(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class,
-                      obj.feat_gene, obj.feat_onehot, obj.params, scale, offset)
+                      obj.feat_gene, obj.feat_onehot, obj.params, scale, offset, *pairs)
     ins = [None if t is None else t.contiguous() for t in (
         x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj.feat_gene,
-        obj.feat_onehot, obj.params, scale, offset)]
+        obj.feat_onehot, obj.params, scale, offset, *pairs)]
     out = torch.empty((s, n, 3), dtype=torch.float32, device=dev)
     c_widths = (ctypes.c_int * len(widths))(*widths)
     with torch.cuda.device(dev):
         err = lib.moeva_objective_lcld_f32(
             *map(_ptr, ins[:9]), c_widths, len(widths) - 1, _ptr(ins[9]), _ptr(ins[10]),
-            obj.f2_scale, int(obj.norm_inf), obj.tol, out.data_ptr(), s, n, l, d, _stream(dev),
+            obj.f2_scale, int(obj.norm_inf), obj.tol, out.data_ptr(), s, n, l, d, _ptr(ins[11]), _ptr(ins[12]),
+            n_pairs, _stream(dev),
         )
     _raise_on_error(lib, err, "objective_lcld")
-    _LAUNCHES["objective_lcld"] += 1
+    _LAUNCHES["objective_lcld_aug" if n_pairs else "objective_lcld"] += 1
     return out
 
 
@@ -503,16 +528,20 @@ def _pgd_outputs(n: int, d: int, t: int, n_terms: int, norm_inf: bool, repair: b
 
 def pgd_lcld(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_inf: bool, repair: bool,
              targeted: bool, record=None):
-    """Kernel K7: one constrained PGD run on LCLD rows, ``(x_adv (N, 47)
+    """Kernel K7: one constrained PGD run on LCLD rows, ``(x_adv (N, D)
     float32, pred (N,) int64, hist)``, the semantics of
     ``attacks.pgd.engine.pgd_run_plain``: ``tables`` a ``PgdTables`` (a
-    relu stack of 47 inputs, 1 or 2 classes and at most K1's layers and
+    relu stack of D inputs, 1 or 2 classes and at most K1's layers and
     width, whose weights fit shared memory), ``sched`` a ``PgdSchedule`` of
-    T rows, ``x_init``/``x_start`` (N, 47) scaled rows, ``y`` (N,) int64
+    T rows, ``x_init``/``x_start`` (N, D) scaled rows, ``y`` (N,) int64
     labels, all float32 (int32 tables) on one card; ``hist`` is (T, N, C)
-    with ``record = (grad_norm, full)``, else None. The kernel reads any
-    label but 0 and 1 as neither class: ``ConstrainedPGD.generate`` refuses
-    them before anything reaches the card."""
+    with ``record = (grad_norm, full)``, else None. D is 47, or 47 + P on
+    the augmented domain, whose P pairs' tables are ``tables.cons``
+    (``domains.lcld.LcldPairTables``, feature indices in [0, 47), which the
+    kernel does not check); its launches count as ``pgd_lcld_aug``. The
+    kernel reads any label but 0 and 1 as neither class:
+    ``ConstrainedPGD.generate`` refuses them before anything reaches the
+    card."""
     from .build import library
 
     if x_init.dim() != 2:
@@ -524,11 +553,11 @@ def pgd_lcld(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_in
     if tables.ohe.dim() != 2:
         raise ValueError(f"ohe must be (G, K), got {tuple(tables.ohe.shape)}")
     _check(tables.ohe, "ohe", tuple(tables.ohe.shape), torch.int32)
-    if d != 47:
-        raise ValueError(f"pgd_lcld takes LCLD's 47 features, got {d}")
+    lib = library()
+    n_pairs = _lcld_pairs(lib, tables.cons, "pgd_lcld", d, "tables.cons")
+    pairs = (None, None) if tables.cons is None else (tables.cons.idx, tables.cons.thr)
     if widths[0] != d or not 1 <= widths[-1] <= 2:
         raise ValueError(f"pgd_lcld takes a {d}-input stack with 1 or 2 classes, got widths {widths}")
-    lib = library()
     if len(widths) - 1 > lib.moeva_objective_max_layers() or max(widths) > lib.moeva_objective_max_width():
         raise ValueError(
             f"pgd_lcld takes at most {lib.moeva_objective_max_layers()} layers of width "
@@ -537,10 +566,11 @@ def pgd_lcld(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_in
     if tables.ohe.numel() > lib.moeva_pgd_max_ohe_slots():
         raise ValueError(f"pgd_lcld takes at most {lib.moeva_pgd_max_ohe_slots()} one-hot slots")
     dev = _one_device(x_init, x_start, y, tables.params, tables.scale, tables.min_, tables.mutable, tables.ohe,
-                      *sched)
+                      *sched, *pairs)
     ins = [t_.contiguous() for t_ in (x_init, x_start, y, tables.mutable, tables.params, tables.scale, tables.min_,
                                       tables.ohe, *sched)]
-    x_adv, pred, hist, cols, flags = _pgd_outputs(n, d, t, 10, norm_inf, repair, targeted, record, dev)
+    pairs = [None if t_ is None else t_.contiguous() for t_ in pairs]
+    x_adv, pred, hist, cols, flags = _pgd_outputs(n, d, t, 10 + n_pairs, norm_inf, repair, targeted, record, dev)
     c_widths = (ctypes.c_int * len(widths))(*widths)
     lo, hi = clip
     with torch.cuda.device(dev):
@@ -548,10 +578,10 @@ def pgd_lcld(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_in
             *(u.data_ptr() for u in ins[:5]), c_widths, len(widths) - 1,
             *(u.data_ptr() for u in ins[5:8]), tables.ohe.shape[0], tables.ohe.shape[1],
             *(u.data_ptr() for u in ins[8:]), x_adv.data_ptr(), pred.data_ptr(), _ptr(hist), cols, n, t,
-            float(eps), float(lo), float(hi), float(tables.tol), flags, _stream(dev),
+            float(eps), float(lo), float(hi), float(tables.tol), flags, d, *map(_ptr, pairs), n_pairs, _stream(dev),
         )
     _raise_on_error(lib, err, "pgd_lcld")
-    _LAUNCHES["pgd_lcld"] += 1
+    _LAUNCHES["pgd_lcld_aug" if n_pairs else "pgd_lcld"] += 1
     return x_adv, pred, hist
 
 

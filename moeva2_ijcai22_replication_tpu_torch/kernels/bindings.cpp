@@ -61,7 +61,8 @@ int moeva_objective_lcld_f32(const void* x_gen, const void* x_init,
                              int n_layers, const void* scale,
                              const void* offset, float f2_scale, int norm_inf,
                              float tol, void* out, int n_states, int n, int l,
-                             int d, void* stream) {
+                             int d, const void* pair_idx, const void* pair_thr,
+                             int n_pairs, void* stream) {
   return static_cast<int>(launch_objective_lcld(
       static_cast<const float*>(x_gen), static_cast<const float*>(x_init),
       static_cast<const float*>(xl), static_cast<const float*>(xu),
@@ -72,6 +73,8 @@ int moeva_objective_lcld_f32(const void* x_gen, const void* x_init,
       static_cast<const float*>(params), widths, n_layers,
       static_cast<const float*>(scale), static_cast<const float*>(offset),
       f2_scale, norm_inf, tol, static_cast<float*>(out), n_states, n, l, d,
+      static_cast<const int32_t*>(pair_idx),
+      static_cast<const float*>(pair_thr), n_pairs,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -141,7 +144,8 @@ int moeva_pgd_lcld_f32(const void* x_init, const void* x_start, const void* y,
                        const void* step, const void* ctr, void* x_adv,
                        void* pred, void* hist, int hist_cols, int n, int t,
                        float eps, float lo, float hi, float tol, int flags,
-                       void* stream) {
+                       int d, const void* pair_idx, const void* pair_thr,
+                       int n_pairs, void* stream) {
   if (n_layers < 1 || n_layers > kObjectiveMaxLayers)
     return static_cast<int>(cudaErrorInvalidValue);
   PgdArgs args{};
@@ -172,6 +176,10 @@ int moeva_pgd_lcld_f32(const void* x_init, const void* x_start, const void* y,
   args.tol = tol;
   args.n_layers = n_layers;
   for (int l = 0; l <= n_layers; ++l) args.widths[l] = widths[l];
+  args.d = d;
+  args.pair_idx = static_cast<const int32_t*>(pair_idx);
+  args.pair_thr = static_cast<const float*>(pair_thr);
+  args.n_pairs = n_pairs;
   return static_cast<int>(
       launch_pgd_lcld(args, static_cast<cudaStream_t>(stream)));
 }
@@ -280,6 +288,8 @@ int moeva_objective_max_params() { return kObjectiveMaxParams; }
 int moeva_objective_max_width() { return kObjectiveMaxWidth; }
 
 int moeva_objective_max_layers() { return kObjectiveMaxLayers; }
+
+int moeva_lcld_max_pairs() { return kLcldMaxPairs; }
 
 int moeva_pgd_max_ohe_slots() { return kPgdMaxOheSlots; }
 

@@ -135,7 +135,7 @@ def library() -> ctypes.CDLL:
     )
     lib.moeva_offspring_f32.restype = i32
     lib.moeva_objective_lcld_f32.argtypes = (
-        [ptr] * 9 + [ctypes.POINTER(i32), i32, ptr, ptr, f32, i32, f32, ptr] + [i32] * 4 + [ptr]
+        [ptr] * 9 + [ctypes.POINTER(i32), i32, ptr, ptr, f32, i32, f32, ptr] + [i32] * 4 + [ptr, ptr, i32, ptr]
     )
     lib.moeva_objective_lcld_f32.restype = i32
     lib.moeva_survive_norm_f32.argtypes = [ptr] * 11 + [i32] * 3 + [ptr]
@@ -146,7 +146,7 @@ def library() -> ctypes.CDLL:
     lib.moeva_survive_fill_f32.restype = i32
     lib.moeva_pgd_lcld_f32.argtypes = (
         [ptr] * 5 + [ctypes.POINTER(i32), i32] + [ptr] * 3 + [i32] * 2 + [ptr] * 7 + [i32] * 3
-        + [f32] * 4 + [i32, ptr]
+        + [f32] * 4 + [i32, i32, ptr, ptr, i32, ptr]
     )
     lib.moeva_pgd_lcld_f32.restype = i32
     lib.moeva_objective_botnet_f32.argtypes = (
@@ -161,7 +161,8 @@ def library() -> ctypes.CDLL:
     for name in (
         "moeva_nd_peel_max_candidates", "moeva_associate_max_directions", "moeva_survive_max_candidates",
         "moeva_objective_max_params", "moeva_objective_max_width",
-        "moeva_objective_max_layers", "moeva_pgd_max_ohe_slots", "moeva_pgd_botnet_max_degree",
+        "moeva_objective_max_layers", "moeva_lcld_max_pairs", "moeva_pgd_max_ohe_slots",
+        "moeva_pgd_botnet_max_degree",
     ):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32

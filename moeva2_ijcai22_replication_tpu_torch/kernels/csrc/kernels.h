@@ -41,10 +41,13 @@ constexpr size_t kMaxSharedBytes = 232448;
 // M rows of ceil(M/32) words must fit one block's shared memory.
 constexpr int kNdPeelMaxCandidates = 1024;
 
-// objective_lcld: LCLD's feature count, and the relu stacks it takes (at
-// most as many weights as fit one block's shared memory beside 8 rows of D
+// objective_lcld: LCLD's feature count, the most XOR pairs of its
+// augmented domain (C(10, 2): k = 10 important features; a row then holds
+// 47 + P features, the pairs' last), and the relu stacks it takes (at most
+// as many weights as fit one block's shared memory beside 8 rows of D
 // floats; the kernel stages them where they fit beside its row tiles).
 constexpr int kLcldFeatures = 47;
+constexpr int kLcldMaxPairs = 45;
 constexpr int kObjectiveMaxWidth = 128;
 constexpr int kObjectiveMaxLayers = 8;
 constexpr int kObjectiveMaxParams = (232448 / 4) - 8 * kLcldFeatures;
@@ -173,6 +176,7 @@ cudaError_t launch_objective_lcld(
     const int32_t* feat_onehot, const float* params, const int* widths,
     int n_layers, const float* scale, const float* offset, float f2_scale,
     int norm_inf, float tol, float* out, int n_states, int n, int l, int d,
+    const int32_t* pair_idx, const float* pair_thr, int n_pairs,
     cudaStream_t stream);
 
 cudaError_t launch_survive_norm(const float* f, const int32_t* ranks,
@@ -189,28 +193,34 @@ cudaError_t launch_survive_fill(const SurviveFillArgs& args, cudaStream_t stream
 constexpr int kPgdMaxRows = 32;
 constexpr int kPgdMaxOheSlots = 1024;
 
-// pgd_lcld's arguments. flags: 1 = L-inf (else L2), 2 = repair, 4 =
-// targeted, 8 = the grad-norm history column, 16 = the violations' columns.
+// pgd_lcld's arguments, for D = 47 + n_pairs features (n_pairs = 0: the
+// base domain; else the augmented one, its pairs' features last). flags: 1 =
+// L-inf (else L2), 2 = repair, 4 = targeted, 8 = the grad-norm history
+// column, 16 = the violations' columns.
 struct PgdArgs {
-  const float* x_init;    // (N, 47)
-  const float* x_start;   // (N, 47)
+  const float* x_init;    // (N, D)
+  const float* x_start;   // (N, D)
   const int64_t* y;       // (N,) labels
-  const bool* mutable_;   // (47,)
+  const bool* mutable_;   // (D,)
   const float* params;    // each layer's weight (out, in), then its bias
-  const float* scale;     // (47,) x_scaled = x * scale + min_
-  const float* min_;      // (47,)
+  const float* scale;     // (D,) x_scaled = x * scale + min_
+  const float* min_;      // (D,)
   const int32_t* ohe;     // (n_groups, group_slots) feature per slot, -1 = padding
   const float* w_class;   // (T,) schedule
   const float* w_cons;    // (T,)
   const float* step;      // (T,)
   const int32_t* ctr;     // (T,) constraint optimised, -1 = their sum
-  float* x_adv;           // (N, 47) out
+  float* x_adv;           // (N, D) out
   int64_t* pred;          // (N,) out: class at x_adv
   float* hist;            // (T, N, hist_cols) out, or null
   int n, t, n_groups, group_slots, hist_cols, flags;
   float eps, lo, hi, tol;
   int n_layers;
   int widths[kObjectiveMaxLayers + 1];
+  int d;                     // features
+  const int32_t* pair_idx;   // (n_pairs, 2) base features of each pair
+  const float* pair_thr;     // (n_pairs, 2) their thresholds
+  int n_pairs;
 };
 
 cudaError_t launch_pgd_lcld(const PgdArgs& args, cudaStream_t stream);

@@ -22,13 +22,17 @@
 //   rounded sqrtf, over float32(sqrt(D)); L-inf: the NaN-propagating max of
 //   the absolute differences;
 // - g: the 10 LCLD terms (pow in float64 rounded once; remainder as
-//   PyTorch's fmod-based one), each kept where > tol and 0 elsewhere (a NaN
-//   term counts 0), summed left to right.
+//   PyTorch's fmod-based one), then on the augmented domain
+//   (domains/lcld.py::LcldAugmentedConstraints, D = 47 + P) the P pair
+//   terms |x[47 + p] - xor(x[i] >= t_i, x[j] >= t_j)| (a NaN compares
+//   false; the thresholds rounded once to float32), each kept where > tol
+//   and 0 elsewhere (a NaN term counts 0), summed left to right.
 // Constants that the plain version writes as Python floats are the float32
 // roundings of the same doubles.
 //
-// Bound: the relu stack is ~5,600 multiply-adds per row (47-64-32-16-2) on
-// ~110 bytes of genes and 12 of objectives: bound by fp32 operations. Tensor
+// Bound: the relu stack is ~5,600 multiply-adds per row (47-64-32-16-2;
+// ~6,240 at 57 inputs) on ~110 bytes of genes and 12 of objectives: bound by
+// fp32 operations. Tensor
 // cores are not used: mma/wgmma sum inside the instruction in an order that
 // no CPU code reproduces, and the fixed order is what makes the card equal
 // the plain version. Without FMA a multiply-add is two instructions, so the
@@ -59,7 +63,11 @@
 // 4. the first TR threads take the softmax of their row.
 // No per-thread array is indexed at run time. A stack too large for shared
 // memory beside the buffers reads its weights from global memory instead,
-// at TR = 64.
+// at TR = 64. The augmented domain is its own instantiation (kPairs): the
+// feature count is then a run-time value and the pair tables ((P, 2) feature
+// indices and float32 thresholds) are staged beside the per-feature tables;
+// at kPairs = false the feature count is the constant 47 and the pair stage
+// is compiled out, so the base domain's code is what it was.
 
 #include <climits>
 #include <cmath>
@@ -99,6 +107,10 @@ struct ObjectiveArgs {
   int l;
   int buf_rows;   // rows of each activation buffer: the widest padded layer
   int w_floats;   // floats of the staged stack (0: read from params)
+  int d;          // features: 47, or 47 + n_pairs on the augmented domain
+  const int32_t* pair_idx;  // (n_pairs, 2) base features of each pair
+  const float* pair_thr;    // (n_pairs, 2) their thresholds
+  int n_pairs;
 };
 
 __host__ __device__ constexpr int pad8(int w) { return (w + 7) & ~7; }
@@ -226,11 +238,27 @@ __device__ __forceinline__ float lcld_violation(const float* xf, float thr) {
   return __fadd_rn(g, keep(fabsf(__fsub_rn(x(25), ratio))));
 }
 
-template <int TR, bool kStaged>
+// g with the consistency terms of the augmented domain's P pairs added in
+// order, |x[d - P + p] - xor(x[i] >= t_i, x[j] >= t_j)| each (the
+// augmented features are a row's last P columns)
+template <int TR>
+__device__ __forceinline__ float add_pair_terms(float g, const float* xf, float thr, const int* idx,
+                                                const float* t, int n_pairs, int d) {
+  for (int p = 0; p < n_pairs; ++p) {
+    const bool a = xf[idx[2 * p] * TR] >= t[2 * p];
+    const bool b = xf[idx[2 * p + 1] * TR] >= t[2 * p + 1];
+    const float v = fabsf(__fsub_rn(xf[(d - n_pairs + p) * TR], a != b ? 1.0f : 0.0f));
+    g = __fadd_rn(g, v > thr ? v : 0.0f);
+  }
+  return g;
+}
+
+template <int TR, bool kStaged, bool kPairs>
 __global__ void __launch_bounds__(2 * TR)
 objective_lcld_kernel(ObjectiveArgs args, MlpShape shape) {
   constexpr int kThreads = 2 * TR;
-  constexpr int d = kLcldFeatures;
+  const int d = kPairs ? args.d : kLcldFeatures;
+  const int n_pairs = kPairs ? args.n_pairs : 0;
   extern __shared__ __align__(16) unsigned char smem[];
   float* act0 = reinterpret_cast<float*>(smem);       // (buf_rows, TR)
   float* act1 = act0 + args.buf_rows * TR;            // (buf_rows, TR)
@@ -241,6 +269,8 @@ objective_lcld_kernel(ObjectiveArgs args, MlpShape shape) {
   float* of = sc + d;                                 // (d,) scaler offset
   int* fg = reinterpret_cast<int*>(of + d);           // (d,) feat_gene
   int* fk = fg + d;                                   // (d,) feat_onehot
+  int* pidx = fk + d;                                 // (n_pairs, 2) pair features
+  float* pthr = reinterpret_cast<float*>(pidx + 2 * n_pairs);  // (n_pairs, 2) thresholds
   const int tid = threadIdx.x;
   const bool scaled = args.scale != nullptr;
 
@@ -249,6 +279,12 @@ objective_lcld_kernel(ObjectiveArgs args, MlpShape shape) {
     of[k] = scaled ? args.offset[k] : 0.0f;
     fg[k] = args.feat_gene[k];
     fk[k] = args.feat_onehot[k];
+  }
+  if constexpr (kPairs) {
+    for (int e = tid; e < 2 * n_pairs; e += kThreads) {
+      pidx[e] = args.pair_idx[e];
+      pthr[e] = args.pair_thr[e];
+    }
   }
   if constexpr (kStaged) {
     // each layer: w[k][o] (in_w rows of pad8(out_w)), then the bias
@@ -355,7 +391,9 @@ objective_lcld_kernel(ObjectiveArgs args, MlpShape shape) {
         if (!args.norm_inf) dist = __fsqrt_rn(dist);
         args.out[3 * static_cast<size_t>(row) + 1] = __fdiv_rn(dist, args.f2_scale);
       } else {
-        args.out[3 * static_cast<size_t>(row) + 2] = lcld_violation<TR>(act1 + rr, args.tol);
+        float g = lcld_violation<TR>(act1 + rr, args.tol);
+        if constexpr (kPairs) g = add_pair_terms<TR>(g, act1 + rr, args.tol, pidx, pthr, n_pairs, d);
+        args.out[3 * static_cast<size_t>(row) + 2] = g;
       }
     }
     __syncthreads();
@@ -405,10 +443,10 @@ objective_lcld_kernel(ObjectiveArgs args, MlpShape shape) {
   }
 }
 
-template <int TR, bool kStaged>
+template <int TR, bool kStaged, bool kPairs>
 cudaError_t launch_tiles(const ObjectiveArgs& args, const MlpShape& shape,
                          size_t smem, cudaStream_t stream) {
-  auto kernel = objective_lcld_kernel<TR, kStaged>;
+  auto kernel = objective_lcld_kernel<TR, kStaged, kPairs>;
   constexpr int kThreads = 2 * TR;
   static LaunchCache cache;
   int resident = 0;
@@ -422,11 +460,28 @@ cudaError_t launch_tiles(const ObjectiveArgs& args, const MlpShape& shape,
 }
 
 // shared bytes of one block: two activation buffers, the tile's genes and
-// state rows, the staged stack (w_floats) and the per-feature tables
-size_t objective_smem(int tile_rows, int buf_rows, int l, int w_floats) {
-  return sizeof(float) * (static_cast<size_t>(2 * buf_rows + l) * tile_rows +
-                          4 * kTileStates * kLcldFeatures + w_floats + 2 * kLcldFeatures) +
-         sizeof(int) * 2 * kLcldFeatures;
+// state rows, the staged stack (w_floats), the per-feature tables of d
+// features and the pair tables
+size_t objective_smem(int tile_rows, int buf_rows, int l, int w_floats, int d, int n_pairs) {
+  return sizeof(float) * (static_cast<size_t>(2 * buf_rows + l) * tile_rows + 4 * kTileStates * d + w_floats +
+                          2 * d + 2 * n_pairs) +
+         sizeof(int) * (2 * d + 2 * n_pairs);
+}
+
+template <bool kPairs>
+cudaError_t launch_objective(ObjectiveArgs& args, const MlpShape& shape, int stack_floats,
+                             cudaStream_t stream) {
+  // stage the stack where it fits beside the buffers of 128-row tiles; a
+  // stack read from global memory takes 64-row tiles (at 128 rows ptxas
+  // spills registers around the out-of-line float64 pow)
+  const size_t smem = objective_smem(128, args.buf_rows, args.l, stack_floats, args.d, args.n_pairs);
+  if (smem <= kMaxSharedBytes) {
+    args.w_floats = stack_floats;
+    return launch_tiles<128, true, kPairs>(args, shape, smem, stream);
+  }
+  const size_t smem_global = objective_smem(64, args.buf_rows, args.l, 0, args.d, args.n_pairs);
+  if (smem_global > kMaxSharedBytes) return cudaErrorInvalidValue;
+  return launch_tiles<64, false, kPairs>(args, shape, smem_global, stream);
 }
 
 }  // namespace
@@ -437,9 +492,11 @@ cudaError_t launch_objective_lcld(
     const int32_t* feat_onehot, const float* params, const int* widths,
     int n_layers, const float* scale, const float* offset, float f2_scale,
     int norm_inf, float tol, float* out, int n_states, int n, int l, int d,
+    const int32_t* pair_idx, const float* pair_thr, int n_pairs,
     cudaStream_t stream) {
   if (n_states == 0 || n == 0) return cudaSuccess;
-  if (n_states < 0 || n < 0 || l <= 0 || d != kLcldFeatures ||
+  if (n_states < 0 || n < 0 || l <= 0 || n_pairs < 0 || n_pairs > kLcldMaxPairs ||
+      d != kLcldFeatures + n_pairs || (n_pairs > 0 && (pair_idx == nullptr || pair_thr == nullptr)) ||
       n_layers < 1 || n_layers > kObjectiveMaxLayers || widths[0] != d)
     return cudaErrorInvalidValue;
   MlpShape shape;
@@ -461,16 +518,7 @@ cudaError_t launch_objective_lcld(
   if (static_cast<long long>(n_states) * n > INT_MAX) return cudaErrorInvalidValue;
   ObjectiveArgs args{x_gen, x_init, xl, xu, x_init_mm, min_class, feat_gene,
                      feat_onehot, params, scale, offset, f2_scale, norm_inf, tol,
-                     out, n_states * n, n, l, buf_rows, 0};
-  // stage the stack where it fits beside the buffers of 128-row tiles; a
-  // stack read from global memory takes 64-row tiles (at 128 rows ptxas
-  // spills registers around the out-of-line float64 pow)
-  const size_t smem = objective_smem(128, buf_rows, l, stack_floats);
-  if (smem <= kMaxSharedBytes) {
-    args.w_floats = stack_floats;
-    return launch_tiles<128, true>(args, shape, smem, stream);
-  }
-  const size_t smem_global = objective_smem(64, buf_rows, l, 0);
-  if (smem_global > kMaxSharedBytes) return cudaErrorInvalidValue;
-  return launch_tiles<64, false>(args, shape, smem_global, stream);
+                     out, n_states * n, n, l, buf_rows, 0, d, pair_idx, pair_thr, n_pairs};
+  return n_pairs > 0 ? launch_objective<true>(args, shape, stack_floats, stream)
+                     : launch_objective<false>(args, shape, stack_floats, stream);
 }

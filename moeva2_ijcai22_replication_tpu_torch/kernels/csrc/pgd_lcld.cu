@@ -31,13 +31,21 @@
 //   NaN-propagating (torch.clamp, torch.minimum); the L-inf sign 0 at 0;
 // - repair as LcldConstraints.repair: term snapped to {36, 60}, the
 //   installment recomputed, each one-hot group set to its first largest
-//   slot (a NaN counts as the largest), then back to scaled space for the
-//   mutable features;
+//   slot (a NaN counts as the largest), on the augmented domain each pair's
+//   feature re-derived from the repaired base, then back to scaled space
+//   for the mutable features;
+// - the augmented domain (domains/lcld.py::LcldAugmentedConstraints, D =
+//   47 + P, the pairs' features last): after the ten terms the P pair terms
+//   |x[47 + p] - xor(x[i] >= t_i, x[j] >= t_j)| (a NaN compares false; the
+//   thresholds rounded once to float32), clipped as the others; each
+//   pair's cotangent abs_vjp(v, clip_vjp(pre, ct)) goes to its augmented
+//   feature alone, added to 0 (none flows through the comparisons);
 // - the class at x_adv as engine.py::predict_plain (mlp_proba_plain's
 //   softmax, the first largest probability).
 //
 // Bound: per row and iteration the stack's forward and its input backward
-// are 2 x 5,600 multiply-adds for 47-64-32-16-2, plus ~300 operations for
+// are 2 x 5,600 multiply-adds for 47-64-32-16-2 (2 x 6,240 at 57 inputs),
+// plus ~300 operations (and ~10 per pair) for
 // the terms, their backward and the step: about 23k fp32 operations on 190
 // bytes of the row read once and written once. Bound by operations. Tensor
 // cores are not used (their sums have an order no CPU code reproduces), and
@@ -76,7 +84,13 @@
 // stack (each weight row at a stride of an odd number of float4s, so lanes
 // reading consecutive rows 16 bytes at a time hit distinct banks), the
 // scaler, the mask, the one-hot table and each row's buffers (also at an
-// odd float4 stride, so one row per lane is conflict-free).
+// odd float4 stride, so one row per lane is conflict-free). The augmented
+// domain is its own instantiation (kPairs), with the feature count and the
+// row stride as run-time values, the pair tables staged after the one-hot
+// table, its pair terms run by the terms warp after the ten and its
+// repair's re-derivation as one more pass of (row, pair) tasks; at kPairs =
+// false the pair stage is compiled out and the feature count is the
+// constant 47.
 
 #include "pgd_common.cuh"
 
@@ -114,6 +128,8 @@ struct PgdLayout {
   int rows;                           // rows per block
   int rows_pad;                       // padded to whole tiles
   int row_floats;                     // the block's row buffers
+  int rs;                             // a row of features (kRS on the base domain)
+  int pair_ints;                      // the pair tables, 4 words per pair
 };
 
 // float64 pow and log, one copy of each in the kernel's code (an
@@ -259,9 +275,9 @@ __device__ __forceinline__ void backward_tiles(const float* w, int st, int in_w,
 // layer's outputs (relu) into its activation buffer, the stack's warps
 // meeting after each. Returns the head's input and its stride.
 __device__ __forceinline__ const float* hidden_forward(const PgdArgs& a, const PgdLayout& lay, const float* ws,
-                                                       const float* X, float* act, int tid, int& in_st) {
+                                                       const float* X, int rs, float* act, int tid, int& in_st) {
   const float* in = X;
-  in_st = kRS;
+  in_st = rs;
   for (int l = 0; l + 1 < a.n_layers; ++l) {
     float* out = act + lay.act_off[l];
     const int out_st = lay.act_st[l];
@@ -303,9 +319,21 @@ __device__ __forceinline__ void head_logits(const PgdArgs& a, const PgdLayout& l
   lg[1] = s1;
 }
 
-// sum_last of a row's kD squares, left to right, read 4 at a time
-__device__ __forceinline__ float row_sum(const float* sq) {
+// sum_last of a row's d squares (kD on the base domain), left to right,
+// read 4 at a time
+template <bool kPairs>
+__device__ __forceinline__ float row_sum(const float* sq, int d) {
   float4 v = ld4(sq);
+  if constexpr (kPairs) {
+    float s = __fadd_rn(__fadd_rn(__fadd_rn(v.x, v.y), v.z), v.w);
+    int q = 4;
+    for (; q + 4 <= d; q += 4) {
+      v = ld4(sq + q);
+      s = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(s, v.x), v.y), v.z), v.w);
+    }
+    for (; q < d; ++q) s = __fadd_rn(s, sq[q]);
+    return s;
+  }
   float s = __fadd_rn(__fadd_rn(__fadd_rn(v.x, v.y), v.z), v.w);
 #pragma unroll
   for (int q = 1; q < kD / 4; ++q) {
@@ -315,6 +343,12 @@ __device__ __forceinline__ float row_sum(const float* sq) {
   v = ld4(sq + 4 * (kD / 4));
   static_assert(kD % 4 == 3, "the row's last float4 holds three features");
   return __fadd_rn(__fadd_rn(__fadd_rn(s, v.x), v.y), v.z);
+}
+
+// the augmented domain's pair p of the unscaled row u: the xor of its two
+// base features' comparisons with their thresholds (a NaN compares false)
+__device__ __forceinline__ float pair_xor(const float* u, const int* idx, const float* thr, int p) {
+  return (u[idx[2 * p]] >= thr[2 * p]) != (u[idx[2 * p + 1]] >= thr[2 * p + 1]) ? 1.0f : 0.0f;
 }
 
 // The smooth violations g of the unscaled row u and the cotangent of u into
@@ -498,29 +532,39 @@ struct Stamps {
 #endif
 };
 
+// kPairs: the augmented domain, D = 47 + P features (a run-time value, with
+// the row stride) and 10 + P terms; else D = kD and the pair stage is
+// compiled out
+template <bool kPairs>
 __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, const PgdLayout lay) {
   extern __shared__ __align__(16) float smem[];
+  const int D = kPairs ? a.d : kD;
+  const int RS = kPairs ? lay.rs : kRS;
+  const int P = kPairs ? a.n_pairs : 0;
+  const int NT = kTerms + P;
   float* ws = smem;                             // the staged stack
-  float* sc = ws + lay.w_floats;                // (kRS) scale
-  float* mn = sc + kRS;                         // (kRS) min_
-  int* mut = reinterpret_cast<int*>(mn + kRS);  // (kRS) mutable
-  int* ohe = mut + kRS;                         // (groups, slots)
-  float* rows = reinterpret_cast<float*>(ohe + lay.ohe_ints);
+  float* sc = ws + lay.w_floats;                // (RS) scale
+  float* mn = sc + RS;                          // (RS) min_
+  int* mut = reinterpret_cast<int*>(mn + RS);   // (RS) mutable
+  int* ohe = mut + RS;                          // (groups, slots)
+  int* pidx = ohe + lay.ohe_ints;               // (P, 2) the pairs' base features
+  float* pthr = reinterpret_cast<float*>(pidx + 2 * P);  // (P, 2) their thresholds
+  float* rows = reinterpret_cast<float*>(ohe + lay.ohe_ints + (kPairs ? lay.pair_ints : 0));
   const int rp = lay.rows_pad;
-  float* X = rows;              // (rp, kRS) the iterates
-  float* XI = X + rp * kRS;     // x_init
-  float* U = XI + rp * kRS;     // unscaled rows; the perturbation; repair's buffer
-  float* CU = U + rp * kRS;     // the terms' cotangent of U; then the squares of the L2 sums
-  float* G = CU + rp * kRS;     // the masked gradient
-  float* SQR = G + rp * kRS;    // squares of the raw gradient's finite entries
-  float* ACT = SQR + rp * kRS;  // hidden activations (act_off)
+  float* X = rows;             // (rp, RS) the iterates
+  float* XI = X + rp * RS;     // x_init
+  float* U = XI + rp * RS;     // unscaled rows; the perturbation; repair's buffer
+  float* CU = U + rp * RS;     // the terms' cotangent of U; then the squares of the L2 sums
+  float* G = CU + rp * RS;     // the masked gradient
+  float* SQR = G + rp * RS;    // squares of the raw gradient's finite entries
+  float* ACT = SQR + rp * RS;  // hidden activations (act_off)
   float* CTA = ACT + lay.ct_off;      // cotangents, ping (rp, ct_st)
   float* CTB = CTA + rp * lay.ct_st;  // and pong
   float* LC = CTB + rp * lay.ct_st;  // (rp) each row's class loss
   float* CONS = LC + rp;             // (rp) its constraint loss
   float* NRM = CONS + rp;            // (rp) its gradient's L2 norm + 1e-7
   float* FAC = NRM + rp;             // (rp) its projection factor
-  float* GV = FAC + rp;              // (rp, kTerms + 1) its violations
+  float* GV = FAC + rp;              // (rp, NT + 1) its violations
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * lay.rows;
   const int nr = min(lay.rows, a.n - row0);  // rows of this block; the others repeat its last
@@ -537,33 +581,39 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
       for (int o = tid; o < out_w; o += kThreads) ws[lay.b_off[l] + o] = p[o];
       p += out_w;
     }
-    for (int k = tid; k < kRS; k += kThreads) {
-      sc[k] = k < kD ? a.scale[k] : 1.0f;
-      mn[k] = k < kD ? a.min_[k] : 0.0f;
-      mut[k] = k < kD ? static_cast<int>(a.mutable_[k]) : 0;
+    for (int k = tid; k < RS; k += kThreads) {
+      sc[k] = k < D ? a.scale[k] : 1.0f;
+      mn[k] = k < D ? a.min_[k] : 0.0f;
+      mut[k] = k < D ? static_cast<int>(a.mutable_[k]) : 0;
     }
     for (int e = tid; e < a.n_groups * a.group_slots; e += kThreads) ohe[e] = a.ohe[e];
+    if constexpr (kPairs) {
+      for (int e = tid; e < 2 * P; e += kThreads) {
+        pidx[e] = a.pair_idx[e];
+        pthr[e] = a.pair_thr[e];
+      }
+    }
   }
   // repair runs its installment and its one-hot groups side by side where
   // they touch distinct features (LCLD's schema: the groups hold features
   // 26-46); else one row at a time, in LcldConstraints.repair's order
   int* seen = reinterpret_cast<int*>(G);
-  for (int k = tid; k < kD; k += kThreads) seen[k] = 0;
+  for (int k = tid; k < D; k += kThreads) seen[k] = 0;
   __syncthreads();
   bool disjoint = true;
   for (int e = tid; e < a.n_groups * a.group_slots; e += kThreads) {
     const int f = a.ohe[e];
-    if (f >= 0) disjoint = disjoint && f >= 4 && f < kD && atomicAdd(seen + f, 1) == 0;
+    if (f >= 0) disjoint = disjoint && f >= 4 && f < D && atomicAdd(seen + f, 1) == 0;
   }
   const bool parallel_repair = __syncthreads_and(disjoint);
-  for (int e = tid; e < rp * kD; e += kThreads) {
-    const int r = e / kD;
-    const int k = e - r * kD;
-    const size_t at = static_cast<size_t>(row0 + min(r, nr - 1)) * kD + k;
+  for (int e = tid; e < rp * D; e += kThreads) {
+    const int r = e / D;
+    const int k = e - r * D;
+    const size_t at = static_cast<size_t>(row0 + min(r, nr - 1)) * D + k;
     const float x = a.x_start[at];
-    X[r * kRS + k] = x;
-    XI[r * kRS + k] = a.x_init[at];
-    U[r * kRS + k] = unscale(x, mn[k], sc[k]);
+    X[r * RS + k] = x;
+    XI[r * RS + k] = a.x_init[at];
+    U[r * RS + k] = unscale(x, mn[k], sc[k]);
   }
   // the head's thread of row tid holds its label
   const int yv = tid < rp ? static_cast<int>(a.y[row0 + min(tid, nr - 1)]) : 0;
@@ -589,15 +639,17 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
     if (tid >= kTermsTid && last) {
       break;
     } else if (tid >= kTermsTid) {
-      // the terms warp: row r's ten terms and their backward
+      // the terms warp: row r's ten terms and their backward, then on the
+      // augmented domain its pairs' terms, each pair's cotangent to its
+      // augmented column from 0 (no base term reaches those columns)
       const int r = tid - kTermsTid;
       if (r < rp) {
         float ct[kD + 1] = {};
         float g[kTerms];
-        lcld_terms_vjp(U + r * kRS, ct, a.tol, ctr, -wk, g);
+        lcld_terms_vjp(U + r * RS, ct, a.tol, ctr, -wk, g);
 #pragma unroll
         for (int q = 0; q < (kD + 1) / 4; ++q)
-          *reinterpret_cast<float4*>(CU + r * kRS + 4 * q) = make_float4(ct[4 * q], ct[4 * q + 1], ct[4 * q + 2],
+          *reinterpret_cast<float4*>(CU + r * RS + 4 * q) = make_float4(ct[4 * q], ct[4 * q + 1], ct[4 * q + 2],
                                                                         ct[4 * q + 3]);
         float cons = g[0];
 #pragma unroll
@@ -607,14 +659,27 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
 #pragma unroll
         for (int k = 0; k < kTerms; ++k)
           if (k == ctr) cons = g[k];
-        CONS[r] = cons;
 #pragma unroll
-        for (int k = 0; k < kTerms; ++k) GV[r * (kTerms + 1) + k] = g[k];
+        for (int k = 0; k < kTerms; ++k) GV[r * (NT + 1) + k] = g[k];
+        if constexpr (kPairs) {
+          // cons goes on as the running sum, or picks the optimised pair
+          const float* u = U + r * RS;
+          for (int p = 0; p < P; ++p) {
+            const int col = D - P + p;
+            const float v = __fsub_rn(u[col], pair_xor(u, pidx, pthr, p));
+            const float pre = __fsub_rn(fabsf(v), a.tol);
+            const float gp = clip_smooth(pre);
+            CU[r * RS + col] = __fadd_rn(0.0f, abs_vjp(v, clip_vjp(pre, ctr < 0 || ctr == kTerms + p ? -wk : 0.0f)));
+            cons = ctr < 0 ? __fadd_rn(cons, gp) : (ctr == kTerms + p ? gp : cons);
+            GV[r * (NT + 1) + kTerms + p] = gp;
+          }
+        }
+        CONS[r] = cons;
       }
       stamp(0);
     } else {
       int in_st;
-      const float* in = hidden_forward(a, lay, ws, X, ACT, tid, in_st);
+      const float* in = hidden_forward(a, lay, ws, X, RS, ACT, tid, in_st);
       stamp(0);
       // the head and the cross-entropy, one row per thread; after the last
       // iteration, the class at x_adv: mlp_proba_plain's probabilities, the
@@ -652,15 +717,15 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
     stamp(3);
     // the input backward, into G
     if (tid < kMlpThreads)
-      backward_tiles<kTile, kTile>(ws + lay.w_off[0], lay.w_st[0], kD, a.widths[1], cur, lay.ct_st, rp, tid,
-                                   kMlpThreads, [&](int r, int k, float v) { G[r * kRS + k] = v; });
+      backward_tiles<kTile, kTile>(ws + lay.w_off[0], lay.w_st[0], D, a.widths[1], cur, lay.ct_st, rp, tid,
+                                   kMlpThreads, [&](int r, int k, float v) { G[r * RS + k] = v; });
     __syncthreads();
     // the gradient with the terms' cotangent: NaN zeroed, masked; under
     // L-inf the step, the projection and the clip too
-    for (int e = tid; e < rp * kD; e += kThreads) {
-      const int r = e / kD;
-      const int k = e - r * kD;
-      const int at = r * kRS + k;
+    for (int e = tid; e < rp * D; e += kThreads) {
+      const int r = e / D;
+      const int k = e - r * D;
+      const int at = r * RS + k;
       const float gv = __fadd_rn(G[at], div_rn(CU[at], sc[k]));
       if (hist_norm) {
         const float f = isfinite(gv) ? gv : 0.0f;
@@ -693,21 +758,21 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
           h[1] = lc;
           h[2] = cons;
           if (hist_full)
-            for (int k = 0; k < kTerms; ++k) h[g_col + k] = GV[r * (kTerms + 1) + k];
+            for (int k = 0; k < NT; ++k) h[g_col + k] = GV[r * (NT + 1) + k];
         }
-        if (!linf) NRM[r] = __fadd_rn(__fsqrt_rn(row_sum(CU + r * kRS)), 1e-7f);
+        if (!linf) NRM[r] = __fadd_rn(__fsqrt_rn(row_sum<kPairs>(CU + r * RS, D)), 1e-7f);
       } else if (hist_norm && tid >= 32 && tid < 32 + nr) {
         const int r = tid - 32;
-        a.hist[(static_cast<size_t>(it) * a.n + row0 + r) * a.hist_cols + 3] = __fsqrt_rn(row_sum(SQR + r * kRS));
+        a.hist[(static_cast<size_t>(it) * a.n + row0 + r) * a.hist_cols + 3] = __fsqrt_rn(row_sum<kPairs>(SQR + r * RS, D));
       }
       __syncthreads();
     }
     stamp(5);
     if (!linf) {
       // the step and the clip; the perturbation into U, its squares into CU
-      for (int e = tid; e < rp * kD; e += kThreads) {
-        const int r = e / kD;
-        const int at = e + r * (kRS - kD);
+      for (int e = tid; e < rp * D; e += kThreads) {
+        const int r = e / D;
+        const int at = e + r * (RS - D);
         const float x = clamp_nan(__fadd_rn(X[at], __fmul_rn(stp, div_rn(G[at], NRM[r]))), a.lo, a.hi);
         const float du = __fsub_rn(x, XI[at]);
         U[at] = du;
@@ -716,14 +781,14 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
       __syncthreads();
       stamp(6);
       if (tid < rp)
-        FAC[tid] = nan_min(1.0f, __fdiv_rn(a.eps, __fadd_rn(__fsqrt_rn(row_sum(CU + tid * kRS)), 1e-12f)));
+        FAC[tid] = nan_min(1.0f, __fdiv_rn(a.eps, __fadd_rn(__fsqrt_rn(row_sum<kPairs>(CU + tid * RS, D)), 1e-12f)));
       __syncthreads();
       stamp(7);
       // the projection and the clip
-      for (int e = tid; e < rp * kD; e += kThreads) {
-        const int r = e / kD;
-        const int k = e - r * kD;
-        const int at = r * kRS + k;
+      for (int e = tid; e < rp * D; e += kThreads) {
+        const int r = e / D;
+        const int k = e - r * D;
+        const int at = r * RS + k;
         const float x = clamp_nan(__fadd_rn(XI[at], __fmul_rn(U[at], FAC[r])), a.lo, a.hi);
         X[at] = x;
         U[at] = unscale(x, mn[k], sc[k]);
@@ -736,23 +801,33 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
         // each row's installment, then each of its groups, side by side
         for (int task = tid; task < rp * (1 + a.n_groups); task += kThreads) {
           const int part = task / rp;
-          float* u = U + (task - part * rp) * kRS;
+          float* u = U + (task - part * rp) * RS;
           if (part == 0)
             repair_installment(u);
           else
             repair_group(ohe + (part - 1) * a.group_slots, a.group_slots, u);
         }
       } else if (tid < rp) {
-        float* u = U + tid * kRS;
+        float* u = U + tid * RS;
         repair_installment(u);
         for (int gi = 0; gi < a.n_groups; ++gi) repair_group(ohe + gi * a.group_slots, a.group_slots, u);
       }
       __syncthreads();
+      if constexpr (kPairs) {
+        // each pair's augmented feature re-derived from the repaired base
+        for (int task = tid; task < rp * P; task += kThreads) {
+          const int r = task / P;
+          const int p = task - r * P;
+          float* u = U + r * RS;
+          u[D - P + p] = pair_xor(u, pidx, pthr, p);
+        }
+        __syncthreads();
+      }
       stamp(9);
-      for (int e = tid; e < rp * kD; e += kThreads) {
-        const int r = e / kD;
-        const int k = e - r * kD;
-        const int at = r * kRS + k;
+      for (int e = tid; e < rp * D; e += kThreads) {
+        const int r = e / D;
+        const int k = e - r * D;
+        const int at = r * RS + k;
         if (mut[k]) {
           const float x = __fadd_rn(__fmul_rn(U[at], sc[k]), mn[k]);
           X[at] = x;
@@ -765,14 +840,15 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
   }
   stamp.flush(tid);
 
-  for (int e = tid; e < nr * kD; e += kThreads) {
-    const int r = e / kD;
-    a.x_adv[static_cast<size_t>(row0) * kD + e] = X[r * kRS + (e - r * kD)];
+  for (int e = tid; e < nr * D; e += kThreads) {
+    const int r = e / D;
+    a.x_adv[static_cast<size_t>(row0) * D + e] = X[r * RS + (e - r * D)];
   }
 }
 
 size_t pgd_smem_bytes(const PgdLayout& lay) {
-  return sizeof(float) * (static_cast<size_t>(lay.w_floats) + 3 * kRS + lay.ohe_ints + lay.row_floats);
+  return sizeof(float) * (static_cast<size_t>(lay.w_floats) + 3 * lay.rs + lay.ohe_ints + lay.pair_ints +
+                          lay.row_floats);
 }
 
 }  // namespace
@@ -780,10 +856,14 @@ size_t pgd_smem_bytes(const PgdLayout& lay) {
 cudaError_t launch_pgd_lcld(const PgdArgs& args, cudaStream_t stream) {
   if (args.n == 0) return cudaSuccess;
   if (args.n < 0 || args.t < 0 || args.n_layers < 1 || args.n_layers > kObjectiveMaxLayers ||
-      args.widths[0] != kD || args.widths[args.n_layers] < 1 || args.widths[args.n_layers] > 2 ||
+      args.n_pairs < 0 || args.n_pairs > kLcldMaxPairs || args.d != kD + args.n_pairs ||
+      (args.n_pairs > 0 && (args.pair_idx == nullptr || args.pair_thr == nullptr)) ||
+      args.widths[0] != args.d || args.widths[args.n_layers] < 1 || args.widths[args.n_layers] > 2 ||
       args.n_groups < 0 || args.group_slots < 1 || args.n_groups * args.group_slots > kPgdMaxOheSlots)
     return cudaErrorInvalidValue;
   PgdLayout lay{};
+  lay.rs = odd_stride(args.d);
+  lay.pair_ints = 4 * args.n_pairs;
   int act_floats = 0, widest = 1;
   for (int l = 0; l < args.n_layers; ++l) {
     const int in_w = args.widths[l];
@@ -812,9 +892,9 @@ cudaError_t launch_pgd_lcld(const PgdArgs& args, cudaStream_t stream) {
   for (;; --rows) {
     lay.rows = rows;
     lay.rows_pad = (rows + kTile - 1) / kTile * kTile;
-    // six feature buffers, the activations, two of cotangents, 4 + 11
-    // scalars per row
-    lay.row_floats = lay.rows_pad * (6 * kRS + act_floats + 2 * lay.ct_st + 4 + kTerms + 1);
+    // six feature buffers, the activations, two of cotangents, 4 + the
+    // terms + 1 scalars per row
+    lay.row_floats = lay.rows_pad * (6 * lay.rs + act_floats + 2 * lay.ct_st + 4 + kTerms + args.n_pairs + 1);
     if (pgd_smem_bytes(lay) <= kMaxSharedBytes) break;
     if (rows == 1) return cudaErrorInvalidValue;
   }
@@ -825,10 +905,17 @@ cudaError_t launch_pgd_lcld(const PgdArgs& args, cudaStream_t stream) {
   }
   lay.ct_off = off;
   const size_t smem = pgd_smem_bytes(lay);
-  err = cache.prepare(reinterpret_cast<const void*>(pgd_lcld_kernel), kThreads, smem, nullptr);
-  if (err != cudaSuccess) return err;
   const int grid = (args.n + rows - 1) / rows;
-  pgd_lcld_kernel<<<grid, kThreads, smem, stream>>>(args, lay);
+  if (args.n_pairs > 0) {
+    static LaunchCache aug_cache;
+    err = aug_cache.prepare(reinterpret_cast<const void*>(pgd_lcld_kernel<true>), kThreads, smem, nullptr);
+    if (err != cudaSuccess) return err;
+    pgd_lcld_kernel<true><<<grid, kThreads, smem, stream>>>(args, lay);
+  } else {
+    err = cache.prepare(reinterpret_cast<const void*>(pgd_lcld_kernel<false>), kThreads, smem, nullptr);
+    if (err != cudaSuccess) return err;
+    pgd_lcld_kernel<false><<<grid, kThreads, smem, stream>>>(args, lay);
+  }
   return cudaGetLastError();
 }
 

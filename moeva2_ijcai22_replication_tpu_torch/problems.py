@@ -5,7 +5,9 @@ problems ``chip_smoke.py`` drives and profiles: a code-derived schema,
 feasible synthetic states, a seeded surrogate (64-32-16-2 for LCLD,
 64-64-32-2 for botnet) and a MinMax scaler over the data and the feature
 bounds (so attacked candidates at their bounds stay in [0, 1] for the
-judgement). ``synthetic_botnet_pgd_problem`` adds the scaled rows and the
+judgement). ``synthetic_lcld_augmented_problem`` is LCLD's augmented
+variant (57 features, 10 + 10 terms), and ``lcld_augmented_edge_rows`` puts
+its pair terms' edge cases into rows. ``synthetic_botnet_pgd_problem`` adds the scaled rows and the
 labels constrained PGD takes on botnet. ``botnet_hard_candidates`` puts the
 botnet terms' edge cases into candidates, for the checks of kernel K8
 against its plain version, and ``botnet_edge_starts`` into PGD starts, for
@@ -14,11 +16,15 @@ kernel K7b's.
 
 from __future__ import annotations
 
+import csv
+import os
+
 import numpy as np
 import torch
 
+from .domains import augmentation
 from .domains.botnet import BotnetConstraints
-from .domains.lcld import LcldConstraints
+from .domains.lcld import N_BASE_FEATURES, LcldAugmentedConstraints, LcldConstraints
 from .domains.synth import synth_botnet, synth_botnet_schema, synth_lcld, synth_lcld_schema
 from .models.io import Surrogate
 from .models.mlp import botnet_mlp, lcld_mlp
@@ -41,6 +47,118 @@ def synthetic_lcld_problem(
     cons = LcldConstraints(paths["features"], paths["constraints"])
     x = synth_lcld(n_states, cons.schema, seed=seed)
     return _problem(cons, x, lcld_mlp(cons.schema.n_features, seed=model_seed))
+
+
+#: the important features of :func:`synthetic_lcld_augmented_problem`: term
+#: and installment, which the repair changes, and three drawn from the seed
+LCLD_IMPORTANT_FIXED = (1, 3)
+LCLD_IMPORTANT_K = 5
+
+
+def write_augmented_schema(paths: dict, n_new: int, out_dir: str) -> dict:
+    """Copies of the schema files of ``paths`` in ``out_dir`` with ``n_new``
+    augmented features and constraints appended, as the JAX package's
+    ``experiments/defense.py::augmented_schema_rows`` appends them
+    (``augmented_i,int,TRUE,0,1,TRUE``; constraint rows ``0,1,TRUE``), and
+    the ``augmentation`` column FALSE on the base rows where it is missing."""
+    out = {}
+    for kind, new_row in (
+        ("features", lambda i: {"feature": f"augmented_{i}", "type": "int", "mutable": "TRUE", "min": "0",
+                                "max": "1", "augmentation": "TRUE"}),
+        ("constraints", lambda i: {"constraint": f"augmented_{i}", "min": "0", "max": "1",
+                                   "augmentation": "TRUE"}),
+    ):
+        with open(paths[kind], newline="") as f:
+            reader = csv.DictReader(f)
+            fields = list(reader.fieldnames)
+            rows = [dict(r) for r in reader]
+        if "augmentation" not in fields:
+            fields.append("augmentation")
+            for r in rows:
+                r["augmentation"] = "FALSE"
+        rows += [new_row(i) for i in range(n_new)]
+        out[kind] = os.path.join(out_dir, f"{kind}_augmented.csv")
+        with open(out[kind], "w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=fields, lineterminator="\n")
+            writer.writeheader()
+            writer.writerows(rows)
+    return out
+
+
+def synthetic_lcld_augmented_problem(
+    out_dir: str, n_states: int, seed: int = 42, model_seed: int = 7
+) -> tuple[LcldAugmentedConstraints, Surrogate, MinMaxParams, np.ndarray]:
+    """(constraints, surrogate, scaler, x) of LCLD's augmented variant:
+    k = 5 important features (term and installment, and three mutable base
+    features drawn by ``np.random.default_rng(seed)``), each with its mean
+    over the ``synth_lcld(n_states, seed)`` rows as threshold (the JAX
+    package's ``experiments/defense.py`` forms them so), written as
+    ``important_features.npy`` beside the augmented schema files in
+    ``out_dir``; the rows augmented, so feasible by construction; a seeded
+    ``lcld_mlp(57)``."""
+    base_paths = synth_lcld_schema(out_dir)
+    base = LcldConstraints(base_paths["features"], base_paths["constraints"])
+    x = synth_lcld(n_states, base.schema, seed=seed)
+    rng = np.random.default_rng(seed)
+    pool = [k for k in np.flatnonzero(base.schema.mutable) if k not in LCLD_IMPORTANT_FIXED]
+    drawn = rng.choice(pool, LCLD_IMPORTANT_K - len(LCLD_IMPORTANT_FIXED), replace=False)
+    top = np.array([*LCLD_IMPORTANT_FIXED, *drawn])
+    important = np.column_stack([top, x[:, top].mean(0)])
+    paths = write_augmented_schema(base_paths, augmentation.n_pairs(important), out_dir)
+    np.save(os.path.join(out_dir, "important_features.npy"), important)
+    cons = LcldAugmentedConstraints(paths["features"], paths["constraints"])
+    x = augmentation.augment(torch.as_tensor(x), important).numpy()
+    return _problem(cons, x, lcld_mlp(cons.schema.n_features, seed=model_seed))
+
+
+#: rows of :func:`lcld_augmented_edge_rows` at the pair terms' edges
+LCLD_AUGMENTED_EDGE_ROWS = 6
+
+
+def straddling_preimages(target: float, k: int, scale, min_, dtype=np.float32):
+    """``(below, at)``: consecutive scaled values of feature ``k`` in
+    ``dtype`` whose unscalings ``(x - min_) / scale`` in ``dtype`` are the
+    largest below ``dtype(target)`` and the smallest at or above it (equal
+    to it where the unscaling reaches it)."""
+    want, sc, mn = dtype(target), dtype(scale[k]), dtype(min_[k])
+    unscale = lambda v: dtype(dtype(v - mn) / sc)  # noqa: E731
+    at = dtype(want * sc + mn)
+    step = dtype(np.inf) if sc > 0 else dtype(-np.inf)
+    for _ in range(1024):
+        below = np.nextafter(at, -step, dtype=dtype)
+        if unscale(at) >= want and unscale(below) < want:
+            return below, at
+        at = np.nextafter(at, step if unscale(at) < want else -step, dtype=dtype)
+    raise AssertionError(f"no {np.dtype(dtype).name} scaled values of feature {k} straddle {target}")
+
+
+def lcld_augmented_edge_rows(x: np.ndarray, important_features, scaler=None, dtype=np.float32) -> np.ndarray:
+    """Copies in ``dtype`` of the augmented LCLD rows ``x`` (unscaled, or
+    scaled by ``scaler`` when given) whose first ``LCLD_AUGMENTED_EDGE_ROWS``
+    rows hold the pair terms' edge cases: every important feature exactly at
+    its threshold rounded to ``dtype`` and every one one ulp of ``dtype``
+    below it (scaled: the two values whose unscalings straddle the
+    threshold, the first equal to it where the unscaling reaches it), every
+    important feature at NaN, and every augmented column at 0, at 1 and at
+    0.5."""
+    important = np.asarray(important_features)
+    feats = important[:, 0].astype(int)
+    thr = important[:, 1].astype(dtype)
+    n_aug = x.shape[1] - N_BASE_FEATURES
+    if scaler is None:
+        out = np.array(x, dtype)
+        for k, t in zip(feats, thr):
+            out[0, k] = t
+            out[1, k] = np.nextafter(t, dtype(-np.inf), dtype=dtype)
+    else:
+        out = np.asarray(scaler.transform(np.asarray(x, np.float64)), dtype)
+        for k, t in zip(feats, thr):
+            out[1, k], out[0, k] = straddling_preimages(t, k, scaler.scale, scaler.min_, dtype)
+    out[2, feats] = np.nan
+    for row, value in ((3, 0.0), (4, 1.0), (5, 0.5)):
+        for j in range(N_BASE_FEATURES, N_BASE_FEATURES + n_aug):
+            out[row, j] = value if scaler is None else scaled_preimage(value, j, scaler.scale, scaler.min_, dtype)
+    return out
 
 
 def synthetic_botnet_problem(

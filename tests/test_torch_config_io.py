@@ -31,7 +31,9 @@ from moeva2_ijcai22_replication_tpu.models import mlp as jmlp
 from moeva2_ijcai22_replication_tpu.utils import config as jconfig
 from moeva2_ijcai22_replication_tpu.utils import streaming as jstreaming
 from moeva2_ijcai22_replication_tpu_torch.attacks.objective import O_COLUMNS, write_success_rate_csv
-from moeva2_ijcai22_replication_tpu_torch.domains import BotnetConstraints, LcldConstraints, get_constraints_class
+from moeva2_ijcai22_replication_tpu_torch.domains import (
+    BotnetConstraints, LcldAugmentedConstraints, LcldConstraints, get_constraints_class,
+)
 from moeva2_ijcai22_replication_tpu_torch.models import io as pio
 from moeva2_ijcai22_replication_tpu_torch.models.mlp import botnet_mlp
 from moeva2_ijcai22_replication_tpu_torch.models.scalers import from_sklearn_minmax, load_npz, save_npz
@@ -196,9 +198,10 @@ def test_success_rate_csv_is_pandas_bytes(tmp_path):
 
 def test_registry_resolves_and_refuses():
     assert get_constraints_class("lcld") is LcldConstraints
+    assert get_constraints_class("lcld_augmented") is LcldAugmentedConstraints
     assert get_constraints_class("botnet") is BotnetConstraints
-    for name, item in (("lcld_augmented", "A9b"), ("botnet_augmented", "A9b"), ("lcld_spec", "A11"),
-                       ("botnet_spec", "A11"), ("phishing", "A11"), ("family21", "A11")):
+    for name, item in (("botnet_augmented", "botnet half of the augmented domains \\(ROADMAP A9b\\)"),
+                       ("lcld_spec", "A11"), ("botnet_spec", "A11"), ("phishing", "A11"), ("family21", "A11")):
         with pytest.raises(NotImplementedError, match=item):
             get_constraints_class(name)
     with pytest.raises(ValueError) as got:

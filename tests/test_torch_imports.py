@@ -33,7 +33,7 @@ def test_port_has_every_module_of_the_slice():
     mods = set(_port_modules())
     for name in (
         "core.schema", "core.codec", "core.norms", "core.constraints", "core.vjp",
-        "domains.synth", "domains.lcld", "domains.botnet", "models.scalers", "models.mlp",
+        "domains.synth", "domains.lcld", "domains.botnet", "domains.augmentation", "models.scalers", "models.mlp",
         "models.io", "attacks.objective", "attacks.moeva.refdirs",
         "attacks.moeva.initialisation", "attacks.moeva.operators",
         "attacks.moeva.nds", "attacks.moeva.survival", "attacks.moeva.engine",

@@ -32,12 +32,13 @@ from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import (
 )
 from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD
 from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import PgdTables, pgd_run_plain
+from moeva2_ijcai22_replication_tpu_torch.core import codec as codec_lib
 from moeva2_ijcai22_replication_tpu_torch.kernels import build
 from moeva2_ijcai22_replication_tpu_torch.models.io import Surrogate
 from moeva2_ijcai22_replication_tpu_torch.models.mlp import MLP
 from moeva2_ijcai22_replication_tpu_torch.problems import (
-    botnet_edge_starts, botnet_hard_candidates, synthetic_botnet_pgd_problem, synthetic_botnet_problem,
-    synthetic_lcld_problem,
+    LCLD_AUGMENTED_EDGE_ROWS, botnet_edge_starts, botnet_hard_candidates, lcld_augmented_edge_rows,
+    synthetic_botnet_pgd_problem, synthetic_botnet_problem, synthetic_lcld_augmented_problem, synthetic_lcld_problem,
 )
 
 # tier-1 runs several test processes side by side: one intra-op thread
@@ -485,7 +486,7 @@ def test_launch_counts_reset():
     assert kernels.launch_counts() == {
         "offspring": 0, "objective_lcld": 0, "nd_peel": 0,
         "survive_norm": 0, "associate": 0, "survive_fill": 0, "pgd_lcld": 0, "objective_botnet": 0,
-        "pgd_botnet": 0,
+        "pgd_botnet": 0, "objective_lcld_aug": 0, "pgd_lcld_aug": 0,
     }
 
 
@@ -654,6 +655,152 @@ def test_pgd_wrapper_refuses_cpu_tensors(tmp_path):
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.pgd_lcld(atk.tables, atk.schedule(0.3, 0.1, 2), xi, torch.zeros(4, dtype=torch.int64), xi, 0.3,
                          (0.0, 1.0), True, False, False)
+    assert kernels.launch_counts() == before
+
+
+# -- K1 and K7 on the augmented LCLD domain (57 features, 10 + 10 terms) ----------
+
+
+@pytest.fixture(scope="module")
+def lcld_aug(tmp_path_factory):
+    """The augmented problem: 1000 synthetic states, their important
+    features, a seeded 57-input surrogate and its scaler."""
+    return synthetic_lcld_augmented_problem(str(tmp_path_factory.mktemp("aug")), 1000)
+
+
+def _aug_candidates(eng, lcld_aug, cand):
+    """``cand`` (S, N, L) with the pair terms' edge rows
+    (``lcld_augmented_edge_rows``) as each state's first genes."""
+    cons, _, _, x = lcld_aug
+    rows = torch.as_tensor(lcld_augmented_edge_rows(x, cons.important_features), device=cand.device)
+    genes = codec_lib.ml_to_genetic(eng.codec, rows[:LCLD_AUGMENTED_EDGE_ROWS])
+    cand = cand.clone()
+    cand[:, :LCLD_AUGMENTED_EDGE_ROWS] = genes
+    return cand
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stack", ["main", "global"])
+@pytest.mark.parametrize("s,n,norm", [(64, 100, 2), (540, 100, 2), (64, 100, "inf"), (3, 100, 2), (1, 7, 2),
+                                      (5, 27, "inf")])
+def test_objective_lcld_aug_equals_plain(card, lcld_aug, stack, s, n, norm):
+    cons, sur, scaler, x = lcld_aug
+    eng = Moeva2(sur, cons, ml_scaler=scaler, device=card, n_pop=100, n_offsprings=100, archive_size=24, seed=s,
+                 norm=norm)
+    run = eng.prepare(x[:s], np.arange(s) % 2)
+    gen = torch.Generator(device=card).manual_seed(s)
+    carry = eng.init_carry(run, *draw_gumbels(gen, s, eng.n_dirs, eng.pop_size))
+    draws = eng.draw_generation(gen, s)
+    off = kernels.offspring(eng.tables, carry.pop_x, run.xl_gen, run.xu_gen, 100, draws.offspring)
+    obj = eng._objective
+    if stack == "global":
+        torch.manual_seed(s)
+        model = MLP(57, (128, 128, 128), 2).to(card).eval().requires_grad_(False)
+        obj = make_objective_tables(eng.codec, model, obj.scaler, norm, cons.tol, cons.kernel_tables(card))
+    cand = _aug_candidates(eng, lcld_aug, off[:, :n])
+    before = kernels.launch_counts()
+    got = kernels.objective_lcld(cand, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class, obj)
+    after = kernels.launch_counts()
+    assert after["objective_lcld_aug"] == before["objective_lcld_aug"] + 1
+    assert after["objective_lcld"] == before["objective_lcld"]
+    assert _same(got, evaluate_plain(obj, eng.codec, run, cand, cons))
+
+
+PGD_AUG_CASES = PGD_CASES + (
+    dict(loss_evaluation="constraints", constraints_optim="single_constraints", ctr_id=14, norm=2,
+         record_loss="full"),
+    dict(loss_evaluation="constraints+flip", constraints_optim="alt_constraints", norm=2, record_loss="full"),
+)
+
+
+@pytest.fixture(scope="module")
+def pgd_aug(lcld_aug):
+    """64 of the augmented states, scaled, and starts whose first rows hold
+    the pair terms' edge cases, the others the scaled rows with noise."""
+    cons, sur, scaler, x = lcld_aug
+    xs = scaler.transform(x[:64]).astype(np.float32)
+    rng = np.random.default_rng(5)
+    starts = np.clip(xs + rng.normal(scale=0.03, size=xs.shape), 0, 1).astype(np.float32)
+    edges = lcld_augmented_edge_rows(x[:64], cons.important_features, scaler)
+    starts[:LCLD_AUGMENTED_EDGE_ROWS] = edges[:LCLD_AUGMENTED_EDGE_ROWS]
+    return cons, sur, scaler, xs, starts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t", [(1, 7), (33, 12), (64, 30), (133, 12), (4000, 7), (4225, 12)])
+@pytest.mark.parametrize("case", range(len(PGD_AUG_CASES)))
+def test_pgd_lcld_aug_equals_plain(card, pgd_aug, case, n, t):
+    cons, sur, scaler, xs, starts = pgd_aug
+    knobs = PGD_AUG_CASES[case]
+    atk = ConstrainedPGD(sur, cons, scaler, eps=0.2, eps_step=0.1, device=card, **knobs)
+    sched = atk.schedule(0.2, 0.1, t)
+    xs, starts = (np.resize(v, (n, v.shape[1])) for v in (xs, starts))
+    args = (torch.as_tensor(xs, device=card), torch.as_tensor(np.arange(n) % 2, device=card),
+            torch.as_tensor(starts, device=card))
+    repair, linf = "repair" in atk.loss_evaluation, knobs["norm"] == np.inf
+    before = kernels.launch_counts()
+    got = kernels.pgd_lcld(atk.tables, sched, *args, 0.2, atk.clip, linf, repair, atk.targeted, atk.history_layout())
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["pgd_lcld_aug"] == before["pgd_lcld_aug"] + 1 and after["pgd_lcld"] == before["pgd_lcld"]
+    want = pgd_run_plain(atk.tables, cons, sched, *args, 0.2, atk.clip, atk.norm, repair, atk.targeted,
+                         atk.history_layout())
+    if atk.history_layout() is not None and atk.history_layout()[1]:
+        assert got[2].shape[-1] == len(atk.hist_column_names()) == 3 + atk.history_layout()[0] + 20
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or _same(g, w)
+
+
+@pytest.mark.cuda
+def test_pgd_lcld_aug_serial_repair_equals_plain(card, pgd_aug):
+    """A one-hot group holding feature 3: K7 repairs one row at a time, then
+    re-derives the pairs."""
+    cons, sur, scaler, xs, starts = pgd_aug
+    changed = copy.copy(cons)
+    idx, mask = cons._ohe_idx.clone(), cons._ohe_mask.clone()
+    idx[0, 4], mask[0, 4] = 3, True
+    changed._ohe_idx, changed._ohe_mask = idx, mask
+    atk = ConstrainedPGD(sur, changed, scaler, eps=0.2, eps_step=0.1, norm=2, device=card,
+                         loss_evaluation="constraints+flip+repair", record_loss="full")
+    tables = atk.tables._replace(ohe=idx.masked_fill(~mask, -1).to(device=card, dtype=torch.int32))
+    sched = atk.schedule(0.2, 0.1, 9)
+    args = (torch.as_tensor(xs, device=card), torch.as_tensor(np.arange(len(xs)) % 2, device=card),
+            torch.as_tensor(starts, device=card))
+    got = kernels.pgd_lcld(tables, sched, *args, 0.2, atk.clip, False, True, False, atk.history_layout())
+    want = pgd_run_plain(tables, changed, sched, *args, 0.2, atk.clip, 2, True, False, atk.history_layout())
+    for g, w in zip(got, want):
+        assert _same(g, w)
+
+
+@pytest.mark.cuda
+def test_lcld_aug_kernels_refuse_mismatched_pairs(card, pgd_aug):
+    cons, sur, scaler, xs, _ = pgd_aug
+    atk = ConstrainedPGD(sur, cons, scaler, device=card, max_iter=3)
+    sched = atk.schedule(0.3, 0.1, 3)
+    xi = torch.as_tensor(xs[:8], device=card)
+    y = torch.zeros(8, dtype=torch.int64, device=card)
+    with pytest.raises(ValueError, match="47 \\+ P on the augmented domain"):
+        kernels.pgd_lcld(atk.tables._replace(cons=None), sched, xi, y, xi, 0.3, (0.0, 1.0), True, False, False)
+    short = atk.tables.cons._replace(idx=atk.tables.cons.idx[:9], thr=atk.tables.cons.thr[:9])
+    with pytest.raises(ValueError, match="got 57 features and 9 pairs"):
+        kernels.pgd_lcld(atk.tables._replace(cons=short), sched, xi, y, xi, 0.3, (0.0, 1.0), True, False, False)
+
+
+def test_lcld_aug_wrappers_refuse_cpu_tensors(tmp_path):
+    cons, sur, scaler, x = synthetic_lcld_augmented_problem(str(tmp_path), 4)
+    atk = ConstrainedPGD(sur, cons, scaler, device="cpu", max_iter=2)
+    assert atk.tables.cons.idx.dtype == torch.int32 and atk.tables.cons.thr.dtype == torch.float32
+    xi = torch.as_tensor(scaler.transform(x), dtype=torch.float32)
+    eng = Moeva2(sur, cons, ml_scaler=scaler, device="cpu", n_pop=10, n_offsprings=6)
+    run = eng.prepare(x, np.ones(4, dtype=np.int64))
+    pop = eng.init_carry(run, *draw_gumbels(torch.Generator(), 4, eng.n_dirs, eng.pop_size)).pop_x
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.pgd_lcld(atk.tables, atk.schedule(0.3, 0.1, 2), xi, torch.zeros(4, dtype=torch.int64), xi, 0.3,
+                         (0.0, 1.0), True, False, False)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.objective_lcld(pop, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class,
+                               eng._objective)
     assert kernels.launch_counts() == before
 
 

@@ -67,5 +67,33 @@ def test_phase_10_configs_are_the_repo_configs(domain):
         assert got == want, (attack, loss)
 
 
+@pytest.mark.parametrize("reconstruction", [False, True])
+def test_phase_11_configs_are_the_repo_configs(reconstruction):
+    """Phase 11's rq2.lcld points: the grid runner's composition of
+    ``config/rq2.lcld.yaml`` (its one scenario) with ``rq2.lcld.static`` and
+    ``moeva.yaml``/``pgd.yaml``, apart from the artifact paths, the results
+    directory and the evaluation's constraints path; ``reconstruction:
+    true`` is the one change of the point run again."""
+    smoke = _smoke()
+    grid = load_config_file(os.path.join(REPO, "config", "rq2.lcld.yaml"))
+    (project,), (seed,), (loss,), (scenario,) = (grid[k] for k in ("projects", "seeds", "loss_evaluations",
+                                                                   "scenari"))
+    assert (tuple(grid["budgets"]), loss, grid["eps_list"]) == (smoke.RQ2_GRID["budgets"], smoke.RQ2_GRID["loss"],
+                                                                [smoke.RQ2_GRID["eps"]])
+    for budget in grid["budgets"]:
+        for attack, last in (("moeva", {"eps_list": grid["eps_list"]}),
+                             ("pgd", {"eps": grid["eps_list"][0], "loss_evaluation": loss})):
+            want = _compose(attack, project, [{"seed": seed, "budget": budget}, scenario, last])
+            want["reconstruction"] = reconstruction
+            got = smoke.rq2_config(attack, budget, "/artifacts", reconstruction)
+            assert set(got["paths"]) == set(want["paths"])
+            assert got["paths"]["model"].endswith(".msgpack") and got["paths"]["ml_scaler"].endswith(".npz")
+            assert got["evaluation"].pop("constraints") == got["paths"]["constraints"]
+            want["evaluation"].pop("constraints")
+            for key in ("paths", "dirs"):
+                got.pop(key), want.pop(key)
+            assert got == want, (attack, budget)
+
+
 def test_the_one_cut_is_lcld_flip_sat():
     assert _smoke().RUNNER_CUTS == {("lcld", "flip+sat"): {"n_initial_state": 256}}

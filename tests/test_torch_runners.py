@@ -242,12 +242,10 @@ REFUSED = [
     ("moeva", {"quality_every": 10}, "quality_every"),
     ("moeva", {"checkpoint_every": 10}, "checkpoint_every"),
     ("moeva", {"init": "lp_ratio"}, "init"),
-    ("moeva", {"reconstruction": True}, "reconstruction"),
     ("moeva", {"system": {"trace_log": "trace.jsonl"}}, "system.trace_log"),
     ("moeva", {"system": {"profile_dir": "prof"}}, "system.profile_dir"),
     ("moeva", {"system": {"mesh_devices": 8}}, "system.mesh_devices"),
     ("pgd", {"loss_evaluation": "autopgd+flip"}, "loss_evaluation"),
-    ("pgd", {"reconstruction": True}, "reconstruction"),
     ("pgd", {"system": {"trace_log": "trace.jsonl"}}, "system.trace_log"),
     ("pgd", {"system": {"profile_dir": "prof"}}, "system.profile_dir"),
     ("pgd", {"system": {"mesh_devices": -1}}, "system.mesh_devices"),

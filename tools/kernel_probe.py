@@ -56,7 +56,7 @@ STUBS = {
     "objective_lcld.cu": "cudaError_t launch_objective_lcld(const float*, const float*, const float*, const float*, "
                          "const float*, const int64_t*, const int32_t*, const int32_t*, const float*, const int*, "
                          "int, const float*, const float*, float, int, float, float*, int, int, int, int, "
-                         "cudaStream_t) { return cudaErrorNotSupported; }",
+                         "const int32_t*, const float*, int, cudaStream_t) { return cudaErrorNotSupported; }",
     "survive_norm.cu": "cudaError_t launch_survive_norm(const float*, const int32_t*, const float*, const float*, "
                        "const float*, const float*, float*, float*, float*, float*, float*, int, int, int, "
                        "cudaStream_t) { return cudaErrorNotSupported; }",
