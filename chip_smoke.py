@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero:
 
 1. versions: torch, CUDA, and the card's name and power limit (nvidia-smi);
 2. build the port's nine CUDA kernels (K1 and K7 with an instantiation each
-   for the augmented LCLD domain) from the sources in the checkout and
+   for the augmented LCLD domain, K8 one for the augmented botnet domain)
+   from the sources in the checkout and
    print each kernel's ptxas registers, shared memory, stack frame and
    spill (none of the redesigned ones, ``REDESIGNED``, may spill);
 3. hold each kernel against its plain PyTorch version on the card over a
@@ -64,7 +65,9 @@ Phases, in order; any failure exits non-zero:
    ε - 1e-6, inverse scaling, directional rounding, o1..o7) with its launch
    count set to 0 just before and read just after; check the ε-ball,
    immutables and finiteness, that two runs are equal, and the card against
-   the CPU at 256 states x 100 iterations;
+   the CPU at 256 states x 100 iterations; and K7 against ``pgd_run_plain``
+   on a copy of the schema that marks term immutable, with rows whose
+   repair rewrites it (``check_immutable_repair``, ROADMAP C6);
 8. MoEvA2 on the botnet domain (the ``[botnet]`` lines): K8's ptxas line;
    K8 ``objective_botnet`` against ``evaluate_plain`` on the card, bit for
    bit, over ``BOTNET_SWEEP_STATES`` x ``BOTNET_SWEEP_ROWS``, the tile edges
@@ -136,7 +139,26 @@ Phases, in order; any failure exits non-zero:
    runners from configs composed as ``experiments/rq.py`` composes
    ``config/rq2.lcld.yaml`` (``rq2_config``; held equal to the files by
    ``tests/test_torch_runner_configs.py``), with phase 10's checks, and
-   MoEvA at budget 100 again with ``reconstruction: true``.
+   MoEvA at budget 100 again with ``reconstruction: true``; K7 at D = 57 on
+   phase 7's immutable-repair rows too;
+12. the augmented botnet domain (the ``[botnet-augmented]`` lines;
+   ``botnet_augmented``, 927 features, 360 + 171 terms, from ``problems.
+   synthetic_botnet_augmented_problem``): the ptxas lines of K8's base and
+   augmented instantiations; K8 at D = 927 against ``evaluate_plain`` on the
+   card, bit for bit, over phase 8's sweep, tile edges under both norms and
+   other stacks and heads, with the pair terms' edge rows (``problems.
+   botnet_augmented_edge_rows``) among the candidates beside the base
+   terms'; K5, K8, K2, K4a, K3 and K4b at L = 927 on rq2.botnet's engine
+   (the initial round and ``AUG_STAGE_GENS`` steps at the runner's chunks
+   of 256 and 131 states); K8 timed at 387 x 100 beside its plain version,
+   bound, no-FMA ceiling and ``torch.matmul`` of its first layer, and at the
+   chunks; K5 and K4b timed at L = 927 beside their bounds; rq2.botnet's
+   grid point (MoEvA, budget 1000, ε 4, 387 states) through the runner from
+   a config composed as ``experiments/rq.py`` composes
+   ``config/rq2.botnet.yaml`` (``rq2_botnet_config``; held equal to the
+   files by ``tests/test_torch_runner_configs.py``), with phase 10's
+   checks; and constrained PGD on the domain refused on the card by name
+   before any launch.
 
 The last three lines are the per-kernel JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Nothing is printed as a
@@ -1439,10 +1461,11 @@ def surrogate_labels(sur, xs: np.ndarray) -> np.ndarray:
         return sur.predict_proba(torch.as_tensor(xs, dtype=torch.float32)).argmax(-1).numpy()
 
 
-def pgd_sweep(device, kernel: str, cons, sur, scaler, xs: np.ndarray, starts: np.ndarray, rows: tuple):
+def pgd_sweep(device, kernel: str, cons, sur, scaler, xs: np.ndarray, starts: np.ndarray, rows: tuple,
+              configs: tuple = PGD_CONFIGS):
     """The PGD kernel ``kernel`` (``pgd_lcld`` or ``pgd_botnet``) against
     ``pgd_run_plain`` on the card, bit for bit (x_adv, the class at x_adv,
-    the history), over ``PGD_CONFIGS`` x ``rows`` x ``PGD_ITERS``, the last
+    the history), over ``configs`` x ``rows`` x ``PGD_ITERS``, the last
     budget at one row count per configuration; labels alternate 0 and 1.
     Returns (runs, NaN rows of x_adv, NaN history entries) and the labels."""
     import torch
@@ -1457,7 +1480,7 @@ def pgd_sweep(device, kernel: str, cons, sur, scaler, xs: np.ndarray, starts: np
     st = torch.as_tensor(starts, device=device)
     y = torch.as_tensor(np.arange(len(xs)) % 2, device=device)
     runs, nan_rows, nan_hist = 0, 0, 0
-    for ci, knobs in enumerate(PGD_CONFIGS):
+    for ci, knobs in enumerate(configs):
         eps = 0.2 if knobs["norm"] == 2 else 0.1
         atk = ConstrainedPGD(sur, cons, scaler, eps=eps, eps_step=0.1, device=device, **knobs)
         repair, linf = "repair" in atk.loss_evaluation, is_inf(atk.norm)
@@ -1515,6 +1538,64 @@ def check_pgd_kernel(device, problem):
         f"configurations x N in {PGD_ROWS} x T in {PGD_ITERS[:-1]}, and T = {PGD_ITERS[-1]} at one N each; "
         f"{nan_grad} NaN gradient entries at the 14 edge starts, {nan_rows} NaN rows of x_adv, {nan_hist} NaN "
         "history entries")
+    from moeva2_ijcai22_replication_tpu_torch.domains.synth import synth_lcld_schema
+
+    with tempfile.TemporaryDirectory() as tmp:
+        check_immutable_repair(device, "[pgd]", synth_lcld_schema(f"{tmp}/base"), sur, scaler, x, starts, first=14)
+
+
+#: K7's round trip after a repair that rewrites an immutable feature (ROADMAP
+#: C6): the configurations of ``PGD_CONFIGS`` that repair, at these row counts
+#: (a lone row, a block of one row each, two rows a block, the main shape)
+IMMUTABLE_REPAIR_CONFIGS = tuple(c for c in PGD_CONFIGS if "repair" in c["loss_evaluation"])
+IMMUTABLE_REPAIR_ROWS = (1, 33, 133, 4000)
+
+
+def check_immutable_repair(device, tag: str, paths: dict, sur, scaler, x: np.ndarray, starts: np.ndarray,
+                           first: int) -> None:
+    """K7 against ``pgd_run_plain`` on the card, bit for bit, on a copy of
+    the schema ``paths`` that marks term immutable
+    (``problems.lcld_immutable_term_schema``), with the four rows from
+    ``first`` on of the states and of ``starts`` holding a term off {36, 60}
+    (``problems.lcld_immutable_repair_rows``), over the configurations that
+    repair: each repair rewrites the immutable term, which x keeps and from
+    which the next iteration unscales u. Fails unless the final rows'
+    repair still rewrites it."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import pgd_run_plain
+    from moeva2_ijcai22_replication_tpu_torch.domains import get_constraints_class
+    from moeva2_ijcai22_replication_tpu_torch.problems import (
+        LCLD_IMMUTABLE_FEATURE, LCLD_IMMUTABLE_TERMS, lcld_immutable_repair_rows, lcld_immutable_term_schema,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        imm = lcld_immutable_term_schema(paths, tmp)
+        cons = get_constraints_class("lcld_augmented" if x.shape[1] > 47 else "lcld")(imm["features"],
+                                                                                      imm["constraints"])
+    k, n_edge = LCLD_IMMUTABLE_FEATURE, len(LCLD_IMMUTABLE_TERMS)
+    xs = scaler.transform(x).astype(np.float32)
+    xs[first:first + n_edge] = lcld_immutable_repair_rows(x[first:first + n_edge], scaler)
+    st = np.array(starts[:len(xs)], np.float32)
+    st[first:first + n_edge, k] = xs[first:first + n_edge, k]
+    n = max(IMMUTABLE_REPAIR_ROWS)
+    xs, st = np.resize(xs, (n, xs.shape[1])), np.resize(st, (n, xs.shape[1]))
+    (runs, _, _), y = pgd_sweep(device, "pgd_lcld", cons, sur, scaler, xs, st, IMMUTABLE_REPAIR_ROWS,
+                                IMMUTABLE_REPAIR_CONFIGS)
+    atk = ConstrainedPGD(sur, cons, scaler, eps=0.2, eps_step=0.1, device=device, **IMMUTABLE_REPAIR_CONFIGS[0])
+    rows = torch.as_tensor(xs[first:first + n_edge], device=device)
+    x_adv, _, _ = pgd_run_plain(atk.tables, cons, atk.schedule(0.2, 0.1, PGD_ITERS[-1]), rows,
+                                y[first:first + n_edge], torch.as_tensor(st[first:first + n_edge], device=device),
+                                0.2, atk.clip, atk.norm, True, False, None)
+    u = (x_adv - atk.tables.min_) / atk.tables.scale
+    rewritten = int((cons.repair(u)[:, k] != u[:, k]).sum())
+    if rewritten != n_edge or atk.tables.mutable[k]:
+        raise AssertionError(f"{tag} the immutable-repair rows: repair rewrites term on {rewritten} of {n_edge}")
+    log(f"{tag} pgd_lcld at D = {x.shape[1]} equals pgd_run_plain on all {runs} runs with term immutable (ROADMAP "
+        f"C6): the {len(IMMUTABLE_REPAIR_CONFIGS)} repairing configurations x N in {IMMUTABLE_REPAIR_ROWS}, with "
+        f"rows {first}..{first + n_edge - 1} at terms {LCLD_IMMUTABLE_TERMS}, whose repair rewrites term on every "
+        f"iteration ({rewritten} of {n_edge} after {PGD_ITERS[-1]})")
 
 
 def pgd_work(tables, n: int, t: int, hist_cols: int = 0):
@@ -1787,20 +1868,37 @@ def botnet_problem():
 
 def botnet_candidates(gen, moeva, run, n: int):
     """(S, N, L) genes uniform in the states' bounds, with the terms' edge
-    cases (``problems.botnet_hard_candidates``)."""
+    cases (``problems.botnet_hard_candidates``); on the augmented domain
+    also the pair terms' edge rows (``problems.botnet_augmented_edge_rows``
+    of the first states) on every ninth candidate from the first, which the
+    base terms' edges leave alone."""
     import torch
 
-    from moeva2_ijcai22_replication_tpu_torch.problems import botnet_hard_candidates
+    from moeva2_ijcai22_replication_tpu_torch.core import codec as codec_lib
+    from moeva2_ijcai22_replication_tpu_torch.domains.botnet import BotnetAugmentedConstraints
+    from moeva2_ijcai22_replication_tpu_torch.problems import (
+        BOTNET_AUGMENTED_EDGE_ROWS, botnet_augmented_edge_rows, botnet_hard_candidates,
+    )
 
     s, l = run.xl_gen.shape
     u = torch.rand((s, n, l), generator=gen, device=run.xl_gen.device)
     cand = run.xl_gen[:, None] + u * (run.xu_gen - run.xl_gen)[:, None]
-    return botnet_hard_candidates(moeva.codec, moeva.constraints.schema.names, cand)
+    cand = botnet_hard_candidates(moeva.codec, moeva.constraints.schema.names, cand)
+    cons = moeva.constraints
+    if isinstance(cons, BotnetAugmentedConstraints):
+        x0 = run.x_init_ml.cpu().numpy()
+        rows = botnet_augmented_edge_rows(np.resize(x0, (BOTNET_AUGMENTED_EDGE_ROWS, x0.shape[1])),
+                                          cons.important_features)
+        at = list(range(0, n, 9))[:BOTNET_AUGMENTED_EDGE_ROWS]
+        cand[:, at] = codec_lib.ml_to_genetic(moeva.codec, torch.as_tensor(rows[:len(at)], device=cand.device))
+    return cand
 
 
-def check_botnet_kernel(device, moeva, x_sweep, gen):
+def check_botnet_kernel(device, moeva, x_sweep, gen, tag: str = "[botnet]"):
     """K8 against ``evaluate_plain`` on the card, bit for bit: the sweep, the
-    tile edges under both norms, and other stacks and heads."""
+    tile edges under both norms, and other stacks and heads, over
+    ``moeva``'s constraint set (its edge rows among the candidates,
+    ``botnet_candidates``)."""
     from moeva2_ijcai22_replication_tpu_torch import kernels
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import evaluate_plain, make_objective_tables
     from moeva2_ijcai22_replication_tpu_torch.models.mlp import MLP
@@ -1830,7 +1928,8 @@ def check_botnet_kernel(device, moeva, x_sweep, gen):
         model = MLP(codec.n_features, hidden, head).reset_parameters_seeded(7).to(device).eval().requires_grad_(False)
         tables = make_objective_tables(codec, model, obj.scaler if scaled else None, norm, cons.tol, obj.cons)
         nonfinite += hold(run, cand, tables, f"{hidden} head {head} norm={norm} scaled={scaled}")
-    log(f"[botnet] objective_botnet equals evaluate_plain on every entry: S in {BOTNET_SWEEP_STATES} x N in "
+    log(f"{tag} objective_botnet at D = {codec.n_features} ({cons.n_constraints} terms) equals evaluate_plain on "
+        f"every entry: S in {BOTNET_SWEEP_STATES} x N in "
         f"{BOTNET_SWEEP_ROWS}; (S, N) in {BOTNET_EDGES} under L2 and L-inf; stacks (hidden, classes, norm, "
         f"scaled) {BOTNET_STACKS}; {nonfinite} rows with a non-finite objective (the terms' edge cases)")
 
@@ -1904,7 +2003,7 @@ def check_botnet_stages(device, moeva, x_sweep, gen, rng):
         f"L = {l}, (M, R) = ({m}, {r}), S in {BOTNET_STAGE_STATES}")
 
 
-def time_botnet_stages(device, moeva, x_sweep, gen, rng, smi: str) -> dict:
+def time_botnet_stages(device, moeva, x_sweep, gen, rng, smi: str, tag: str = "[botnet]") -> dict:
     """K5's and K4b's device ms at the botnet path's shapes (L = 756, (M,
     R) = (303, 203), the two chunks of 256 and 131 states) beside their
     bounds on these inputs, counted from their sources as phase 3 counts
@@ -1937,31 +2036,37 @@ def time_botnet_stages(device, moeva, x_sweep, gen, rng, smi: str) -> dict:
         ):
             ms = graph_ms(fn)
             out[name][f"{s}x{l}"] = {"ms": ms, "bound_ms": bound[0], "bound_by": bound[1]}
-            log(f"[botnet] {name} at S={s} L={l} M={m} R={r}: equals its plain version; device {ms:.4f} ms, "
+            log(f"{tag} {name} at S={s} L={l} M={m} R={r}: equals its plain version; device {ms:.4f} ms, "
                 f"bound {bound[0]:.5f} ms ({bound[1]}) on {smi}")
     return out
 
 
 def botnet_bound(moeva, s: int, n: int):
-    """K8's bytes and operations for S x N rows, counted from its source."""
+    """K8's bytes and operations for S x N rows, counted from its source; on
+    the augmented domain with the pair stage (``OBJECTIVE_OPS_PER_PAIR`` per
+    pair, as K1's, and 16 bytes of tables)."""
     obj, cons = moeva._objective, moeva._objective.cons
     d, l = moeva.codec.n_features, moeva.codec.gen_length
     widths = [obj.layers[0][0].shape[1], *(w.shape[0] for w, _ in obj.layers)]
     macs = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
     n_params = sum(w.numel() + b.numel() for w, b in obj.layers)
     c = cons.counts
-    term_ops = sum(c[:4]) + 3 * c[4] + sum(c[6::2]) + 2 * moeva.constraints.n_constraints
+    pairs = 0 if cons.pair_idx is None else cons.pair_idx.shape[0]
+    n_base = 2 + c[4] + sum(c[6::2])
+    term_ops = sum(c[:4]) + 3 * c[4] + sum(c[6::2]) + 2 * n_base + OBJECTIVE_OPS_PER_PAIR * pairs
     # the first layer is read from its transposed copy, the rest from params
-    n_bytes = 4 * s * n * l + 16 * s * d + 8 * s + 4 * n_params + 16 * d + 4 * sum(c) + 12 * s * n
+    n_bytes = 4 * s * n * l + 16 * s * d + 8 * s + 4 * n_params + 16 * d + 4 * sum(c) + 16 * pairs + 12 * s * n
     n_ops = s * n * (2 * macs + BOTNET_OPS_PER_FEATURE * d + term_ops + BOTNET_OPS_PER_ROW)
     return n_bytes, n_ops
 
 
-def time_botnet_kernel(device, moeva, x, gen) -> dict:
-    """K8's record at the main path's shape (387 states x 100 offspring):
-    device, wrapper and plain ms, the bound and the no-FMA ceiling, and, as a
-    note for the next redesign, ``torch.matmul`` of the first layer alone in
-    fp32 with TF32 off."""
+def time_botnet_kernel(device, moeva, x, gen, tag: str = "[botnet]", name: str = "objective_botnet",
+                       replaces: str = "moeva2_ijcai22_replication_tpu/domains/botnet.py:111") -> dict:
+    """K8's record (``name``) at the main path's shape (387 states x 100
+    offspring): device, wrapper and plain ms, the bound and the no-FMA
+    ceiling, and, as a note for the next redesign, ``torch.matmul`` of the
+    first layer alone in fp32 with TF32 off; and its device ms at the
+    generate path's chunks."""
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
@@ -1990,10 +2095,10 @@ def time_botnet_kernel(device, moeva, x, gen) -> dict:
                    f"objective_botnet S={s_path} N={n}")
         path_ms[f"{s_path}x{n}"] = graph_ms(kfn_p)
     rec = {
-        "name": "objective_botnet",
+        "name": name,
         "route": "cuda",
         "source": "moeva2_ijcai22_replication_tpu_torch/kernels/csrc/objective_botnet.cu",
-        "replaces": "moeva2_ijcai22_replication_tpu/domains/botnet.py:111",
+        "replaces": replaces,
         "launches": 0,
         "max_abs_err": 0.0,
         "ms": graph_ms(kfn),
@@ -2008,12 +2113,13 @@ def time_botnet_kernel(device, moeva, x, gen) -> dict:
         "first_layer_matmul_ms": matmul_ms,
         "ms_path_shapes": path_ms,
     }
-    log(f"[botnet] objective_botnet at S={s} N={n}: device {rec['ms']:.4f} ms, through the wrapper "
+    log(f"{tag} objective_botnet at D = {moeva.codec.n_features}, S={s} N={n}: device {rec['ms']:.4f} ms, through "
+        "the wrapper "
         f"{rec['wrapper_ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, bound {b_ms:.5f} ms ({b_by}), no-FMA "
         f"ceiling {rec['ceiling_ms']:.5f} ms; torch.matmul of the first layer alone ({s * n} x "
         f"{moeva.codec.n_features}) @ ({moeva.codec.n_features} x {obj.first_t.shape[1]}), fp32, TF32 off: "
         f"{matmul_ms:.4f} ms (a note for the next redesign; the port does not call it)")
-    log(f"[botnet] objective_botnet at the generate path's launch shapes, equal to evaluate_plain on the inputs "
+    log(f"{tag} objective_botnet at the generate path's launch shapes, equal to evaluate_plain on the inputs "
         f"timed: "
         + ", ".join(f"S x N = {k}: {v:.4f} ms" for k, v in path_ms.items()))
     return rec
@@ -2611,10 +2717,12 @@ AUG_LAST_CHUNK = RQ2_STATIC["n_initial_state"] % AUG_CHUNK or AUG_CHUNK
 
 def counter_name(cons, kind: str) -> str:
     """The launch count that ``cons``'s objective (``kind`` "objective") or
-    PGD (``kind`` "pgd") kernel adds to: K1's and K7's instantiations for
-    the augmented LCLD domain count apart."""
+    PGD (``kind`` "pgd") kernel adds to: K1's, K7's and K8's instantiations
+    for the augmented domains count apart (their tables carry the pairs:
+    LCLD's are the pair tables, botnet's hold them beside the gather lists)."""
     base = f"{kind}_{cons.objective_kernel if kind == 'objective' else cons.pgd_kernel}"
-    return f"{base}_aug" if base in ("objective_lcld", "pgd_lcld") and cons.kernel_tables("cpu") is not None else base
+    tables = cons.kernel_tables("cpu")
+    return f"{base}_aug" if tables is not None and getattr(tables, "pair_idx", tables) is not None else base
 
 
 def rq2_config(attack: str, budget: int, artifacts: str, reconstruction: bool = False) -> dict:
@@ -2752,21 +2860,24 @@ def check_aug_objectives(device, cons, sur, scaler, x, gen, rng):
         "non-finite objective (the sweep's random genes put denominators at 0)")
 
 
-def check_aug_stages(device, eng, x):
-    """K5, K1, K2, K4a, K3 and K4b at the augmented domain's gene length,
-    each against its plain version on the inputs the path gives it: ``eng``
-    is ``rq2_engine``, and each is held over the initial round (as
+def check_aug_stages(device, eng, x, tag="[augmented]", states=(AUG_CHUNK, AUG_LAST_CHUNK, AUG_STATES)):
+    """K5, the objective kernel (K1 or K8), K2, K4a, K3 and K4b at an
+    augmented domain's gene length, each against its plain version on the
+    inputs the path gives it: ``eng`` is the runner's engine (``rq2_engine``,
+    ``rq2_botnet_engine``), and each is held over the initial round (as
     ``init_carry`` runs it), then ``AUG_STAGE_GENS`` generation steps, at
-    the runner's chunk and last chunk (``AUG_CHUNK``, ``AUG_LAST_CHUNK``)
-    and at ``AUG_STATES`` states, the carry following the card."""
+    each state count of ``states`` (rq2.lcld's: the runner's chunk and last
+    chunk, ``AUG_CHUNK`` and ``AUG_LAST_CHUNK``, and ``AUG_STATES``), the
+    carry following the card."""
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import (
-        Carry, archive_select_plain, evaluate_plain, extract_archive_plain,
+        OBJECTIVE_KERNELS, Carry, archive_select_plain, evaluate_plain, extract_archive_plain,
     )
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.initialisation import tile_init
     from moeva2_ijcai22_replication_tpu_torch.core import codec as codec_lib
+    from moeva2_ijcai22_replication_tpu_torch.domains import augmentation
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks_plain
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import make_offspring_plain
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import (
@@ -2795,17 +2906,20 @@ def check_aug_stages(device, eng, x):
         shapes.add((f.shape[1], dirs.shape[1]))
         return out, NormState(ideal, worst, extreme)
 
+    objective = getattr(kernels, OBJECTIVE_KERNELS[eng.constraints.objective_kernel])
+    name = counter_name(eng.constraints, "objective")
+    n_base = eng.constraints.n_constraints - augmentation.n_pairs(eng.constraints.important_features)
     offspring = finite = pair_violated = 0
     shapes = set()
-    for s in (AUG_CHUNK, AUG_LAST_CHUNK, AUG_STATES):
+    for s in states:
         run = eng.prepare(x[:s], np.ones(s, dtype=np.int64))
         ins = (run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class, eng._objective)
         gen = torch.Generator(device=device).manual_seed(s)
         what = f"S={s} initial round"
         pop_x = tile_init(eng.codec, run.x_init_ml, eng.pop_size)
-        pop_f = kernels.objective_lcld(pop_x, *ins)
+        pop_f = objective(pop_x, *ins)
         hold_equal(pop_f, evaluate_plain(eng._objective, eng.codec, run, pop_x, eng.constraints),
-                   f"objective_lcld_aug {what}")
+                   f"{name} {what}")
         _, state = survival(pop_f, NormState.init(s, 3, device=device),
                             *draw_gumbels(gen, s, eng.n_dirs, eng.pop_size), what)
         arch = kernels.archive_select(pop_x, pop_f, pop_x[:, :0], pop_f[:, :0], eng.archive_size)
@@ -2819,23 +2933,23 @@ def check_aug_stages(device, eng, x):
             off = kernels.offspring(*args, crossover_prob=eng.crossover_prob, eta_mutation=eng.eta_mutation)
             hold_equal(off, make_offspring_plain(*args, crossover_prob=eng.crossover_prob,
                                                  eta_mutation=eng.eta_mutation), f"offspring {what}")
-            off_f = kernels.objective_lcld(off, *ins)
+            off_f = objective(off, *ins)
             hold_equal(off_f, evaluate_plain(eng._objective, eng.codec, run, off, eng.constraints),
-                       f"objective_lcld_aug {what}")
+                       f"{name} {what}")
             terms = eng.constraints.evaluate(codec_lib.genetic_to_ml(eng.codec, off, run.x_init_ml[:, None, :]))
             offspring += off.shape[0] * off.shape[1]
             finite += int(torch.isfinite(off_f).all(-1).sum())
-            pair_violated += int((terms[..., 10:] > 0).any(-1).sum())
+            pair_violated += int((terms[..., n_base:] > 0).any(-1).sum())
             out, state = survival(torch.cat([carry.pop_f, off_f], dim=1), carry.norm_state, d.gum_cut, d.gum_mem,
                                   what, extract=(carry.pop_x, off, carry.pop_f, off_f),
                                   archive=(carry.arch_x, carry.arch_f, off, off_f, eng.archive_size))
             carry = Carry(out.pop_x, out.pop_f, out.arch_x, out.arch_f, state)
-    log(f"[augmented] offspring, objective_lcld, nd_peel, survive_norm, associate and survive_fill at L = "
-        f"{eng.codec.gen_length} genes ({eng.codec.n_features} features) equal their plain versions on rq2.lcld's "
+    log(f"{tag} offspring, {objective.__name__}, nd_peel, survive_norm, associate and survive_fill at L = "
+        f"{eng.codec.gen_length} genes ({eng.codec.n_features} features) equal their plain versions on the runner's "
         f"engine (population {eng.pop_size}, {eng.n_offsprings} offspring, archive {eng.archive_size}; (M, R) in "
-        f"{sorted(shapes)}): the initial round and {AUG_STAGE_GENS} generation steps at S = {AUG_CHUNK} and "
-        f"{AUG_LAST_CHUNK} (the runner's chunk and last chunk) and {AUG_STATES}; of {offspring} offspring {finite} "
-        f"have finite objectives and {pair_violated} violate a pair term")
+        f"{sorted(shapes)}): the initial round and {AUG_STAGE_GENS} generation steps at S in {states} (the "
+        f"runner's chunks among them); of {offspring} offspring {finite} have finite objectives and "
+        f"{pair_violated} violate a pair term")
 
 
 def time_aug_objective(device, eng, x, smi: str) -> dict:
@@ -2886,11 +3000,12 @@ def time_aug_objective(device, eng, x, smi: str) -> dict:
     return rec
 
 
-def check_aug_pgd(device, cons, sur, scaler, x):
+def check_aug_pgd(device, cons, sur, scaler, x, art: str):
     """K7 on the augmented domain against ``pgd_run_plain`` on the card, bit
     for bit, over phase 7's sweep (``PGD_CONFIGS``, rq2's loss among them, x
     ``PGD_ROWS`` x ``PGD_ITERS``), with phase 7's edge starts and the pair
-    terms' edge rows among the starts."""
+    terms' edge rows among the starts; then phase 7's immutable-repair check
+    on a copy of the augmented schema in ``art`` (``check_immutable_repair``)."""
     from moeva2_ijcai22_replication_tpu_torch.problems import LCLD_AUGMENTED_EDGE_ROWS, lcld_augmented_edge_rows
 
     rng = np.random.default_rng(5)
@@ -2905,6 +3020,9 @@ def check_aug_pgd(device, cons, sur, scaler, x):
         f"history) on all {runs} runs: {len(PGD_CONFIGS)} configurations (rq2's loss among them) x N in {PGD_ROWS} x "
         f"T in {PGD_ITERS[:-1]}, and T = {PGD_ITERS[-1]} at one N each, with phase 7's 14 edge starts and the pair "
         f"terms' {LCLD_AUGMENTED_EDGE_ROWS}; {nan_rows} NaN rows of x_adv, {nan_hist} NaN history entries")
+    paths = {"features": f"{art}/features_augmented.csv", "constraints": f"{art}/constraints_augmented.csv"}
+    check_immutable_repair(device, "[augmented]", paths, sur, scaler, x, starts,
+                           first=14 + LCLD_AUGMENTED_EDGE_ROWS)
 
 
 def write_aug_artifacts(out: str):
@@ -2989,7 +3107,7 @@ def run_augmented(device, smi: str, resources: list):
         check_aug_objectives(device, cons, sur, scaler, x[:AUG_STATES], gen, rng)
         eng = rq2_engine(device, cons, sur, scaler, tmp)
         check_aug_stages(device, eng, x)
-        check_aug_pgd(device, cons, sur, scaler, x)
+        check_aug_pgd(device, cons, sur, scaler, x, tmp)
         k1 = time_aug_objective(device, eng, x, smi)
         xs = scaler.transform(x)
         k7, _ = pgd_kernel_record(device, "[augmented]", "pgd_lcld",
@@ -3000,6 +3118,195 @@ def run_augmented(device, smi: str, resources: list):
         launches = drive_aug_runners(smi, tmp, cons)
     log(f"[augmented] launches over rq2.lcld's four grid points: {({k: v for k, v in launches.items() if v})}")
     return [k1, k7], launches
+
+
+# -- phase 12: the augmented botnet domain -------------------------------------------
+
+#: ``config/rq2.botnet.static.yaml``, its artifact paths and results directory
+#: replaced by phase 12's; ``tests/test_torch_runner_configs.py`` holds it
+#: equal to the file
+RQ2_BOTNET_STATIC = {
+    "misclassification_threshold": 0.5, "norm": 2, "n_initial_state": -1, "initial_state_offset": 0,
+    "system": {"n_jobs": 10, "verbose": 1, "mesh_devices": 0}, "save_history": False,
+}
+#: ``config/rq2.botnet.yaml``'s grid: seed, ε, its one budget, and its one
+#: scenario (the schema, important-features and evaluation paths replaced
+#: by phase 12's)
+RQ2_BOTNET_GRID = {"seed": 42, "eps": 4, "budget": 1000}
+RQ2_BOTNET_SCENARIO = {"project_name": "botnet_augmented", "reconstruction": False,
+                       "evaluation": {"project_name": "botnet_augmented"}}
+#: rq2.botnet's states: the synthetic stand-in for
+#: ``x_candidates_common_augmented.npy`` has rq1.botnet's 387
+RQ2_BOTNET_STATES = 387
+
+
+def rq2_botnet_config(artifacts: str, attack: str = "moeva", loss: str | None = None) -> dict:
+    """Phase 12's config of rq2.botnet's grid point, composed as the grid
+    runner composes it (``moeva.yaml``, ``rq2.botnet.static``, seed and
+    budget, the scenario, then ε), over the artifacts in ``artifacts``; with
+    ``attack`` "pgd", the same point for PGD with ``loss`` (no config of the
+    repo selects it: it checks the card's refusal)."""
+    import copy
+
+    cfg = copy.deepcopy(MOEVA_YAML if attack == "moeva" else PGD_YAML)
+    cfg.update(copy.deepcopy(RQ2_BOTNET_STATIC))
+    cfg["paths"] = {
+        "model": f"{artifacts}/nn_augmented_19.msgpack",
+        "x_candidates": f"{artifacts}/x_candidates_common_augmented.npy",
+        "min_max_scaler": f"{artifacts}/scaler_augmented_19.npz",
+        "ml_scaler": f"{artifacts}/scaler_augmented_19.npz",
+        "features": f"{artifacts}/features_augmented.csv",
+        "constraints": f"{artifacts}/constraints_augmented.csv",
+        "important_features": f"{artifacts}/important_features_19.npy",
+    }
+    cfg["dirs"] = {"results": f"{artifacts}/out/botnet/rq2"}
+    cfg.update(seed=RQ2_BOTNET_GRID["seed"], budget=RQ2_BOTNET_GRID["budget"])
+    cfg.update(copy.deepcopy(RQ2_BOTNET_SCENARIO))
+    cfg["evaluation"]["constraints"] = cfg["paths"]["constraints"]
+    if attack == "moeva":
+        cfg["eps_list"] = [RQ2_BOTNET_GRID["eps"]]
+    else:
+        cfg.update(eps=RQ2_BOTNET_GRID["eps"], loss_evaluation=loss)
+    return cfg
+
+
+def write_botnet_aug_artifacts(out: str):
+    """Phase 12's artifacts in ``out``: the augmented schema files,
+    ``feat_idx.pickle`` and ``important_features_19.npy``
+    (``synthetic_botnet_augmented_problem(387)``), its states, its seeded
+    surrogate by ``save_params`` and its scaler by ``save_npz``, under
+    rq2.botnet.static's file names. Returns the problem."""
+    from moeva2_ijcai22_replication_tpu_torch.models.io import save_params
+    from moeva2_ijcai22_replication_tpu_torch.models.scalers import save_npz
+    from moeva2_ijcai22_replication_tpu_torch.problems import synthetic_botnet_augmented_problem
+
+    cons, sur, scaler, x = synthetic_botnet_augmented_problem(out, RQ2_BOTNET_STATES)
+    np.save(f"{out}/x_candidates_common_augmented.npy", x)
+    save_params(sur, f"{out}/nn_augmented_19.msgpack")
+    save_npz(scaler, f"{out}/scaler_augmented_19.npz")
+    return cons, sur, scaler, x
+
+
+def rq2_botnet_engine(device, cons, sur, scaler, artifacts: str):
+    """The MoEvA engine that the runner builds for rq2.botnet's grid point
+    (``rq2_botnet_config``'s population, offspring, archive, norm, seed,
+    budget and chunk)."""
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
+
+    cfg = rq2_botnet_config(artifacts)
+    return Moeva2(sur, cons, ml_scaler=scaler, device=device, norm=cfg["norm"], n_gen=cfg["budget"],
+                  n_pop=cfg["n_pop"], n_offsprings=cfg["n_offsprings"], seed=cfg["seed"],
+                  archive_size=cfg["archive_size"], max_states_per_call=cfg["max_states_per_call"])
+
+
+def check_pgd_refused(device, smi: str, cons, sur, scaler, art: str) -> None:
+    """Constrained PGD on the augmented botnet domain is refused on the
+    card by name (ROADMAP queue B's "K7b at 927") before anything launches:
+    the engine, and the PGD runner on rq2.botnet's point, which writes
+    nothing."""
+    import os
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD
+    from moeva2_ijcai22_replication_tpu_torch.experiments import pgd
+
+    kernels.reset_launch_counts()
+    cfg = rq2_botnet_config(art, "pgd", RQ1_LOSSES[-1])
+    out = cfg["dirs"]["results"]
+    before = dir_state(out) if os.path.isdir(out) else {}
+    for what, call in (("ConstrainedPGD", lambda: ConstrainedPGD(sur, cons, scaler, device=device)),
+                       ("experiments.pgd.run", lambda: pgd.run(cfg))):
+        try:
+            call()
+        except NotImplementedError as exc:
+            if "K7b at 927" not in str(exc):
+                raise AssertionError(f"{what} refused PGD on botnet_augmented without naming the item: {exc}") from exc
+            reason = str(exc)
+        else:
+            raise AssertionError(f"{what} ran PGD on botnet_augmented on the card")
+    if any(kernels.launch_counts().values()) or (dir_state(out) if os.path.isdir(out) else {}) != before:
+        raise AssertionError(f"the refused PGD launched {kernels.launch_counts()} or wrote files")
+    log(f"[botnet-augmented] PGD on botnet_augmented is refused on the card before any launch, by the engine and "
+        f"by the PGD runner (nothing written): {reason}")
+
+
+def run_botnet_augmented(device, smi: str, resources: list):
+    """Phase 12: the augmented botnet domain (``botnet_augmented``: 927
+    features, 360 + 171 terms). Returns K8's record at D = 927, the
+    launches of rq2.botnet's grid point and K5's and K4b's times at L =
+    927."""
+    import types
+
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch.core.schema import FeatureSchema
+    from moeva2_ijcai22_replication_tpu_torch.domains import augmentation
+    from moeva2_ijcai22_replication_tpu_torch.domains.synth import synth_botnet
+
+    ptxas = [k for k in resources if k["kernel"] in ("objective_botnet_kernel<0>", "objective_botnet_kernel<1>")]
+    if len(ptxas) != 2:
+        raise AssertionError(f"the build's ptxas report lacks K8's two instantiations: {ptxas}")
+    for k in ptxas:
+        log(f"[botnet-augmented] {k['kernel']}: {k['registers']} registers, {k['stack']} bytes stack frame, "
+            f"{k['spill_stores']} + {k['spill_loads']} bytes spill stores + loads")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    gen = torch.Generator(device=device).manual_seed(12)
+    with tempfile.TemporaryDirectory() as tmp:
+        cons, sur, scaler, x = write_botnet_aug_artifacts(tmp)
+        imp = cons.important_features
+        log(f"[botnet-augmented] problem: {len(x)} states of {x.shape[1]} features, {cons.n_constraints} terms, "
+            f"important features {imp[:, 0].astype(int).tolist()}")
+        base = synth_botnet(max(BOTNET_SWEEP_STATES), FeatureSchema.from_csv(f"{tmp}/features.csv"), seed=43)
+        x_sweep = augmentation.augment(torch.as_tensor(base), imp).numpy()
+        eng = rq2_botnet_engine(device, cons, sur, scaler, tmp)
+        check_botnet_kernel(device, eng, x_sweep, gen, tag="[botnet-augmented]")
+        check_aug_stages(device, eng, x, tag="[botnet-augmented]", states=BOTNET_PATH_STATES)
+        rec = time_botnet_kernel(device, eng, x, gen, tag="[botnet-augmented]", name="objective_botnet_aug",
+                                 replaces="moeva2_ijcai22_replication_tpu/domains/botnet.py:144")
+        stage_times = time_botnet_stages(device, eng, x_sweep, gen, rng, smi, tag="[botnet-augmented]")
+        smem = botnet_smem_bytes(eng)
+        log(f"[botnet-augmented] K8 at D = {x.shape[1]}: {smem} bytes of shared memory a block, "
+            f"{min(KMAX_SHARED_BYTES // smem, 2)} block(s) of 8 warps an SM (its launch bounds allow 2)")
+        cfg = rq2_botnet_config(tmp)
+        engine = types.SimpleNamespace(max_states_per_call=cfg["max_states_per_call"], n_gen=cfg["budget"],
+                                       archive_size=cfg["archive_size"], constraints=cons)
+        expected = expected_launches(engine, RQ2_BOTNET_STATES)
+        if expected["objective_botnet_aug"] == 0 or expected["objective_botnet"] != 0:
+            raise AssertionError(f"rq2.botnet's objectives are not K8's augmented instantiation's: {expected}")
+        drive_runner(cons, cfg, smi, expected, "moeva botnet_augmented budget 1000")
+        check_pgd_refused(device, smi, cons, sur, scaler, tmp)
+    log(f"[botnet-augmented] launches over rq2.botnet's grid point: {({k: v for k, v in expected.items() if v})}; "
+        f"phase 12 took {time.perf_counter() - t0:.1f} s")
+    return rec, expected, stage_times
+
+
+#: the shared memory one block can use on Hopper (``kMaxSharedBytes``)
+KMAX_SHARED_BYTES = 232448
+
+
+def botnet_smem_bytes(moeva) -> int:
+    """K8's shared bytes of one block for ``moeva``'s objective tables, as
+    its launcher sizes them
+    (``botnet_smem`` in ``objective_botnet.cu``): the tile's features (at
+    least the two activation buffers and a deeper layer's weights), the
+    double buffer, the rows' sums, the gather lists and the pair tables.
+    Held against the library's own limit, which loops on ``botnet_smem``:
+    the largest ``d`` it takes fits, one more does not."""
+    from moeva2_ijcai22_replication_tpu_torch.kernels.build import library
+
+    obj, cons = moeva._objective, moeva._objective.cons
+    h1, tile, chunk, width = obj.layers[0][0].shape[0], 32, 16, 64
+    pairs = 0 if cons.pair_idx is None else cons.pair_idx.shape[0]
+
+    def smem(d):
+        xf = max(d * tile, 2 * width * tile + width * (width + 1))
+        return 4 * (xf + 2 * chunk * (2 * tile + h1) + 2 * tile + 2 * pairs) + 2 * (sum(cons.counts) + 2 * pairs)
+
+    top = library().moeva_objective_botnet_max_features(h1, sum(cons.counts), pairs)
+    if not smem(top) <= KMAX_SHARED_BYTES < smem(top + 1):
+        raise AssertionError(f"K8's shared memory is not botnet_smem's: {smem(top)}, {smem(top + 1)} at d = {top}")
+    return smem(moeva.codec.n_features)
 
 
 def main() -> int:
@@ -3059,6 +3366,12 @@ def main() -> int:
     aug_records, aug_launches = run_augmented(device, smi, resources)
     records += aug_records
     launches.update({name: aug_launches[name] for name in ("objective_lcld_aug", "pgd_lcld_aug")})
+    botnet_aug_rec, botnet_aug_launches, botnet_aug_stage_times = run_botnet_augmented(device, smi, resources)
+    records.append(botnet_aug_rec)
+    for rec in records:
+        if rec["name"] in botnet_aug_stage_times:
+            rec["botnet_augmented_shapes"] = botnet_aug_stage_times[rec["name"]]
+    launches["objective_botnet_aug"] = botnet_aug_launches["objective_botnet_aug"]
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if not all(math.isfinite(rec[k]) for k in ("ms", "plain_ms", "bound_ms")):

@@ -220,6 +220,16 @@ def pgd_run_plain(
     return x, predict_plain(tables, x), out
 
 
+def card_refusal(constraints) -> str | None:
+    """Why constrained PGD on ``constraints`` cannot run on the card (the
+    set has no PGD kernel, ``pgd_kernel``; its ``no_pgd_kernel`` says which
+    item would bring one), or None."""
+    if constraints.pgd_kernel is not None:
+        return None
+    why = getattr(constraints, "no_pgd_kernel", "its runs cannot go on the card")
+    return f"{type(constraints).__name__} has no PGD kernel (pgd_kernel): {why}"
+
+
 @dataclass
 class ConstrainedPGD:
     """PGD in the classifier's scaled feature space with the domain's
@@ -258,8 +268,8 @@ class ConstrainedPGD:
         if type(self.constraints).smooth_vjp is ConstraintSet.smooth_vjp:
             raise NotImplementedError(
                 f"{name} has no hand-written constraint backward (smooth_vjp): PGD cannot differentiate its terms")
-        if self.device.type == "cuda" and self.constraints.pgd_kernel is None:
-            raise NotImplementedError(f"{name} has no PGD kernel (pgd_kernel): its runs cannot go on the card")
+        if self.device.type == "cuda" and (why := card_refusal(self.constraints)):
+            raise NotImplementedError(why)
         if self.device.type == "cuda" and self.dtype != torch.float32:
             raise NotImplementedError(f"the card's kernels take float32, not {self.dtype}")
         if "single_constraints" in self.constraints_optim and not 0 <= self.ctr_id < self.constraints.n_constraints:

@@ -1,8 +1,8 @@
 """Tabular domains of the port and their registry.
 
 Port of ``domains/__init__.py``'s :func:`get_constraints_class`: a project
-name resolves to its constraint class. ``lcld``, ``lcld_augmented`` and
-``botnet`` are ported; ``botnet_augmented`` and the domains compiled from
+name resolves to its constraint class. ``lcld``, ``lcld_augmented``,
+``botnet`` and ``botnet_augmented`` are ported; the domains compiled from
 the constraint IR (the ``lcld_spec`` and ``botnet_spec`` re-expressions,
 ``phishing`` and the seeded ``family<seed>`` domains) are refused with the
 roadmap item that ports them.
@@ -12,19 +12,19 @@ from __future__ import annotations
 
 import re
 
-from .botnet import BotnetConstraints
+from .botnet import BotnetAugmentedConstraints, BotnetConstraints
 from .lcld import LcldAugmentedConstraints, LcldConstraints
 
 CONSTRAINTS_REGISTRY = {
     "lcld": LcldConstraints,
     "lcld_augmented": LcldAugmentedConstraints,
     "botnet": BotnetConstraints,
+    "botnet_augmented": BotnetAugmentedConstraints,
 }
 
 #: the JAX package's other registry names, each with the roadmap item that
 #: ports it
 _NOT_PORTED = {
-    "botnet_augmented": "the botnet half of the augmented domains (ROADMAP A9b)",
     "lcld_spec": "the constraint IR (ROADMAP A11)",
     "botnet_spec": "the constraint IR (ROADMAP A11)",
     "phishing": "the constraint IR (ROADMAP A11)",
@@ -48,6 +48,7 @@ def get_constraints_class(project_name: str):
 
 
 __all__ = [
-    "BotnetConstraints", "CONSTRAINTS_REGISTRY", "LcldAugmentedConstraints", "LcldConstraints",
+    "BotnetAugmentedConstraints", "BotnetConstraints", "CONSTRAINTS_REGISTRY", "LcldAugmentedConstraints",
+    "LcldConstraints",
     "get_constraints_class",
 ]

@@ -1,11 +1,12 @@
-"""CTU-13 botnet netflow domain: 756 features, 360 relational constraints.
+"""CTU-13 botnet netflow domain: 756 features, 360 relational constraints;
+its augmented variant adds C(19, 2) = 171 XOR pair features and their
+consistency terms (927 features, 360 + 171 terms).
 
-Port of ``moeva2_ijcai22_replication_tpu/domains/botnet.py`` (the augmented
-variant is not ported yet). Every constraint is a gather over static
-port-group index tables read from ``feat_idx.pickle``, in the reference's
-order: [g1, g2] (per direction, the protocol flow sums equal the bytes
-sums), 34 bytes/pkts ratios <= 1500, then 108 max <= sum, 108 min <= sum and
-108 min <= max orderings.
+Port of ``moeva2_ijcai22_replication_tpu/domains/botnet.py``. Every
+constraint is a gather over static port-group index tables read from
+``feat_idx.pickle``, in the reference's order: [g1, g2] (per direction, the
+protocol flow sums equal the bytes sums), 34 bytes/pkts ratios <= 1500,
+then 108 max <= sum, 108 min <= sum and 108 min <= max orderings.
 
 The reference sizes the ratio loop by ``len("bytes_out_sum_s_idx") - 2 ==
 17``, so only the first 17 of the 18 ports per direction are checked; the
@@ -13,7 +14,9 @@ port keeps that count (2 + 34 + 324 = 360).
 
 Constrained PGD differentiates the terms by hand (``smooth_vjp``, with
 ``jax.grad``'s conventions) so that kernel K7b (``kernels/csrc/
-pgd_botnet.cu``) can repeat the backward in its order.
+pgd_botnet.cu``) can repeat the backward in its order. K7b takes the base
+domain's 756 features only: on the card, PGD on the augmented domain is
+refused before anything launches.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from ..core.constraints import ConstraintSet
 from ..core.norms import sum_last
 from ..core.schema import ConstraintBounds, FeatureSchema
 from ..core.vjp import abs_vjp, clip_vjp, div_vjp
+from . import augmentation
 
 _SUM_KEYS = ["bytes_out_sum_{0}_idx", "pkts_out_sum_{0}_idx", "duration_sum_{0}_idx"]
 _MAX_KEYS = ["bytes_out_max_{0}_idx", "pkts_out_max_{0}_idx", "duration_max_{0}_idx"]
@@ -36,6 +40,8 @@ _MIN_KEYS = ["bytes_out_min_{0}_idx", "pkts_out_min_{0}_idx", "duration_min_{0}_
 _RATIO_PORTS = 17  # the reference's string-length quirk; see the module docstring
 #: the largest bytes/pkts value a ratio term allows (an Ethernet MTU)
 MTU = 1500.0
+N_BASE_FEATURES = 756
+N_BASE_TERMS = 360
 
 
 class BotnetTables(NamedTuple):
@@ -50,6 +56,11 @@ class BotnetTables(NamedTuple):
     #: (D, degree) int32: for each feature, the positions in ``index`` of
     #: its entries in the order of their terms (g1 first), -1 after them
     inverse: torch.Tensor
+    #: the augmented domain's pairs, as K8 reads them: (P, 2) int32 base
+    #: features and (P, 2) float32 thresholds (rounded once from the float64
+    #: means); None on the base domain
+    pair_idx: torch.Tensor | None = None
+    pair_thr: torch.Tensor | None = None
 
 
 def entry_terms(counts) -> np.ndarray:
@@ -88,10 +99,16 @@ class BotnetConstraints(ConstraintSet):
     #: the card with these terms and their backward
     pgd_kernel = "botnet"
 
-    def __init__(self, features_path: str, constraints_path: str):
+    def __init__(self, features_path: str, constraints_path: str, important_features_path: str | None = None):
         super().__init__(FeatureSchema.from_csv(features_path), ConstraintBounds.from_csv(constraints_path))
-        with open(os.path.join(os.path.dirname(features_path), "feat_idx.pickle"), "rb") as f:
+        data_dir = os.path.dirname(features_path)
+        with open(os.path.join(data_dir, "feat_idx.pickle"), "rb") as f:
             fi = {k: np.asarray(v, dtype=np.int64) for k, v in pickle.load(f).items()}
+        if important_features_path is None:
+            important_features_path = os.path.join(data_dir, "important_features_19.npy")
+        self.important_features = (
+            np.load(important_features_path) if os.path.exists(important_features_path) else None
+        )
         # per direction: the protocol port sums, then bytes in and out
         flows = [
             (np.concatenate([fi[f"{p}_sum_{side}_idx"] for p in ("icmp", "udp", "tcp")]),
@@ -213,3 +230,62 @@ class BotnetConstraints(ConstraintSet):
         ect = torch.cat([zero, *entries], dim=-1)
         # each feature: 0, then its entries term by term
         return g, sum_last(ect[..., summed])
+
+
+class BotnetAugmentedConstraints(BotnetConstraints):
+    """Botnet and the XOR-consistency terms of its augmented features: 360 +
+    P terms (P = C(k, 2) pairs of k important features; 360 + 171 = 531 at
+    k = 19, the reference's defense)."""
+
+    n_constraints = 531
+    #: K7b takes 756 features, so constrained PGD on this set is refused on
+    #: the card before anything launches (``attacks.pgd.engine.card_refusal``)
+    pgd_kernel = None
+    no_pgd_kernel = (
+        f"kernel K7b takes botnet's {N_BASE_FEATURES} features only, and its instantiation for the augmented "
+        'domain, with its backward, is ROADMAP queue B\'s "K7b at 927" item; run it on the CPU'
+    )
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.important_features is None:
+            raise FileNotFoundError(
+                "BotnetAugmentedConstraints requires important_features_19.npy "
+                "(pass important_features_path or place it next to features.csv)"
+            )
+        feats = self.important_features[:, 0]
+        if not np.isin(feats, np.arange(N_BASE_FEATURES)).all():
+            # the XOR features are derived from base features only (K8
+            # reads them as 16-bit base feature indices)
+            raise ValueError(f"important features must index base features in [0, {N_BASE_FEATURES}), got {feats}")
+        self._pairs = augmentation.PairTables.build(self.important_features)
+
+    def _raw(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([super()._raw(x), self._pairs.consistency_terms(x)], dim=-1)
+
+    def repair(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError("Repair is undefined for the augmented botnet domain (reference parity).")
+
+    def kernel_tables(self, device) -> BotnetTables:
+        """K8's gather lists and the pairs' tables on ``device``, the
+        thresholds rounded once to float32."""
+        return super().kernel_tables(device)._replace(
+            pair_idx=self._pairs.idx.to(device=device, dtype=torch.int32),
+            pair_thr=torch.as_tensor(self._pairs.thr, dtype=torch.float32, device=device),
+        )
+
+    def smooth_vjp(self, u: torch.Tensor, ct_g: torch.Tensor):
+        """``(g, ct_u)`` over the 360 + P terms: :meth:`BotnetConstraints.
+        smooth_vjp` of the base terms over the first 756 columns, then each
+        pair's ``abs_vjp(v, clip_vjp(pre, ct))`` added to its augmented
+        column from 0 (the base terms touch none of them). No cotangent flows
+        through the comparisons, as under ``jax.grad``."""
+        # the base backward's inverse table gives the augmented columns no
+        # entry, so their cotangent is a sum of zeros, +0
+        g_base, ct = super().smooth_vjp(u, ct_g[..., :N_BASE_TERMS])
+        p = self._pairs.n_pairs
+        v = u[..., u.shape[-1] - p :] - self._pairs.xor_features(u)
+        pre = torch.abs(v) - self.tol
+        c_v = abs_vjp(v, clip_vjp(pre, ct_g[..., N_BASE_TERMS:]))
+        ct[..., u.shape[-1] - p :] = ct[..., u.shape[-1] - p :] + c_v
+        return torch.cat([g_base, torch.clamp(pre, min=0.0)], dim=-1), ct

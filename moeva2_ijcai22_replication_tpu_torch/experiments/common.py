@@ -188,7 +188,8 @@ def reconstruct(x_attacks: np.ndarray, constraints) -> np.ndarray:
 def evaluation_constraints(config: dict, attack_constraints):
     """RQ2's evaluation override: success judged under another constraint
     set than the attack used (``lcld_augmented`` reads the
-    ``important_features.npy`` beside the features file)."""
+    ``important_features.npy`` beside the features file,
+    ``botnet_augmented`` the ``important_features_19.npy``)."""
     ev = config.get("evaluation")
     if not ev:
         return attack_constraints

@@ -8,7 +8,8 @@ In the order a generation launches them:
   (K8, ``csrc/objective_botnet.cu``): the objectives on the LCLD or the
   botnet domain; plain version ``attacks.moeva.engine.evaluate_plain``. K1's
   instantiation for the augmented LCLD domain counts its launches as
-  ``objective_lcld_aug``.
+  ``objective_lcld_aug``, K8's for the augmented botnet domain as
+  ``objective_botnet_aug``.
 - ``nd_peel`` (K2, ``csrc/nd_peel.cu``): non-dominated front peeling; its
   plain version is ``attacks.moeva.nds.nd_ranks_plain``.
 - ``survive_norm`` (K4a, ``csrc/survive_norm.cu``): ideal, worst, extreme
@@ -49,6 +50,7 @@ _LAUNCHES = {
     for name in (
         "offspring", "objective_lcld", "nd_peel", "survive_norm", "associate", "survive_fill",
         "pgd_lcld", "objective_botnet", "pgd_botnet", "objective_lcld_aug", "pgd_lcld_aug",
+        "objective_botnet_aug",
     )
 }
 
@@ -238,6 +240,9 @@ def objective_lcld(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, ob
 
 #: the widest layer K8 takes (``kBotnetMaxWidth`` in ``csrc/kernels.h``)
 BOTNET_MAX_WIDTH = 64
+#: botnet's base features (``kBotnetFeatures`` in ``csrc/kernels.h``); the
+#: augmented domain's P pair features follow them
+BOTNET_FEATURES = 756
 
 
 def _botnet_counts(cons, kernel: str, where: str) -> list:
@@ -261,7 +266,10 @@ def objective_botnet(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, 
     (``domains.botnet.BotnetTables``). It takes a stack of 2 to K1's most
     layers of at most ``BOTNET_MAX_WIDTH`` units, a first hidden width that
     is a multiple of 4, and 1 or 2 classes. The kernel reads any class but 0
-    as class 1, as K1 does."""
+    as class 1, as K1 does. D is 756, or 756 + P on the augmented domain,
+    whose P pairs' tables ``obj.cons`` holds too (``pair_idx``, feature
+    indices in [0, 756), which the kernel does not check, and
+    ``pair_thr``); its launches count as ``objective_botnet_aug``."""
     from .build import library
 
     if x_gen.dim() != 3 or x_init_ml.dim() != 2:
@@ -277,6 +285,11 @@ def objective_botnet(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, 
         )
     cons = obj.cons
     counts = _botnet_counts(cons, "objective_botnet", "obj.cons")
+    n_pairs = 0 if cons.pair_idx is None else cons.pair_idx.shape[0]
+    if d != BOTNET_FEATURES + n_pairs:
+        raise ValueError(f"objective_botnet takes botnet's {BOTNET_FEATURES} features, or {BOTNET_FEATURES} + P on the "
+                         f"augmented domain with its P pair tables in obj.cons, got {d} features and {n_pairs} pairs")
+    pairs = (None, None) if cons.pair_idx is None else (cons.pair_idx, cons.pair_thr)
     n_params = sum(w.numel() + b.numel() for w, b in obj.layers)
     _check(x_gen, "x_gen", (s, n, l))
     for name, t in (("x_init_ml", x_init_ml), ("xl_ml", xl_ml), ("xu_ml", xu_ml), ("x_init_mm", x_init_mm)):
@@ -287,32 +300,37 @@ def objective_botnet(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, 
     _check(obj.params, "params", (n_params,))
     _check(obj.first_t, "first_t", (d, widths[1]))
     _check(cons.index, "gather lists", (sum(counts),), torch.int32)
+    if n_pairs:
+        _check(cons.pair_idx, "pair_idx", (n_pairs, 2), torch.int32)
+        _check(cons.pair_thr, "pair_thr", (n_pairs, 2))
     scale, offset = obj.scaler if obj.scaler is not None else (None, None)
     if scale is not None:
         _check(scale, "scale", (d,))
         _check(offset, "offset", (d,))
     lib = library()
+    if n_pairs > lib.moeva_botnet_max_pairs():
+        raise ValueError(f"objective_botnet takes at most {lib.moeva_botnet_max_pairs()} pairs, got {n_pairs}")
     if len(widths) - 1 > lib.moeva_objective_max_layers():
         raise ValueError(f"objective_botnet takes at most {lib.moeva_objective_max_layers()} layers, got {widths}")
-    max_d = lib.moeva_objective_botnet_max_features(widths[1], sum(counts))
+    max_d = lib.moeva_objective_botnet_max_features(widths[1], sum(counts), n_pairs)
     if d > max_d:
-        raise ValueError(f"objective_botnet takes at most {max_d} features with a first layer of {widths[1]} units "
-                         f"and {sum(counts)} gather entries, got {d}")
+        raise ValueError(f"objective_botnet takes at most {max_d} features with a first layer of {widths[1]} units, "
+                         f"{sum(counts)} gather entries and {n_pairs} pairs, got {d}")
     dev = _one_device(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj.feat_gene,
-                      obj.feat_onehot, obj.params, obj.first_t, cons.index, scale, offset)
+                      obj.feat_onehot, obj.params, obj.first_t, cons.index, scale, offset, *pairs)
     ins = [None if t is None else t.contiguous() for t in (
         x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj.feat_gene,
-        obj.feat_onehot, obj.params, obj.first_t, scale, offset, cons.index)]
+        obj.feat_onehot, obj.params, obj.first_t, scale, offset, cons.index, *pairs)]
     out = torch.empty((s, n, 3), dtype=torch.float32, device=dev)
     c_counts = (ctypes.c_int * len(counts))(*counts)
     c_widths = (ctypes.c_int * len(widths))(*widths)
     with torch.cuda.device(dev):
         err = lib.moeva_objective_botnet_f32(
-            *map(_ptr, ins), c_counts, c_widths, len(widths) - 1, obj.f2_scale, int(obj.norm_inf), obj.tol,
-            out.data_ptr(), s, n, l, d, _stream(dev),
+            *map(_ptr, ins[:13]), c_counts, c_widths, len(widths) - 1, obj.f2_scale, int(obj.norm_inf), obj.tol,
+            out.data_ptr(), s, n, l, d, _ptr(ins[13]), _ptr(ins[14]), n_pairs, _stream(dev),
         )
     _raise_on_error(lib, err, "objective_botnet")
-    _LAUNCHES["objective_botnet"] += 1
+    _LAUNCHES["objective_botnet_aug" if n_pairs else "objective_botnet"] += 1
     return out
 
 
@@ -603,8 +621,8 @@ def pgd_botnet(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_
     n, d = x_init.shape
     t = sched.step.numel()
     widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
-    if d != 756:
-        raise ValueError(f"pgd_botnet takes botnet's 756 features, got {d}")
+    if d != BOTNET_FEATURES:
+        raise ValueError(f"pgd_botnet takes botnet's {BOTNET_FEATURES} features, got {d}")
     if widths[0] != d or len(widths) < 3 or max(widths[1:-1]) > BOTNET_MAX_WIDTH or not 1 <= widths[-1] <= 2:
         raise ValueError(
             f"pgd_botnet takes a {d}-input stack of at least 2 layers of at most {BOTNET_MAX_WIDTH} units and 1 "

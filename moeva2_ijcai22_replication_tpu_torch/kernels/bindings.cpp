@@ -193,7 +193,8 @@ int moeva_objective_botnet_f32(const void* x_gen, const void* x_init,
                                const void* cons, const int* counts,
                                const int* widths, int n_layers, float f2_scale,
                                int norm_inf, float tol, void* out, int n_states,
-                               int n, int l, int d, void* stream) {
+                               int n, int l, int d, const void* pair_idx,
+                               const void* pair_thr, int n_pairs, void* stream) {
   if (n_layers < 1 || n_layers > kObjectiveMaxLayers ||
       static_cast<long long>(n_states) * n > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -222,12 +223,15 @@ int moeva_objective_botnet_f32(const void* x_gen, const void* x_init,
   args.d = d;
   args.n_layers = n_layers;
   for (int k = 0; k <= n_layers; ++k) args.widths[k] = widths[k];
+  args.pair_idx = static_cast<const int32_t*>(pair_idx);
+  args.pair_thr = static_cast<const float*>(pair_thr);
+  args.n_pairs = n_pairs;
   return static_cast<int>(
       launch_objective_botnet(args, static_cast<cudaStream_t>(stream)));
 }
 
-int moeva_objective_botnet_max_features(int h1, int n_entries) {
-  return objective_botnet_max_features(h1, n_entries);
+int moeva_objective_botnet_max_features(int h1, int n_entries, int n_pairs) {
+  return objective_botnet_max_features(h1, n_entries, n_pairs);
 }
 
 int moeva_pgd_botnet_f32(const void* x_init, const void* x_start, const void* y,
@@ -294,6 +298,8 @@ int moeva_lcld_max_pairs() { return kLcldMaxPairs; }
 int moeva_pgd_max_ohe_slots() { return kPgdMaxOheSlots; }
 
 int moeva_pgd_botnet_max_degree() { return kPgdBotnetMaxDegree; }
+
+int moeva_botnet_max_pairs() { return kBotnetMaxPairs; }
 
 const char* moeva_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -150,7 +150,8 @@ def library() -> ctypes.CDLL:
     )
     lib.moeva_pgd_lcld_f32.restype = i32
     lib.moeva_objective_botnet_f32.argtypes = (
-        [ptr] * 13 + [ctypes.POINTER(i32), ctypes.POINTER(i32), i32, f32, i32, f32, ptr] + [i32] * 4 + [ptr]
+        [ptr] * 13 + [ctypes.POINTER(i32), ctypes.POINTER(i32), i32, f32, i32, f32, ptr] + [i32] * 4
+        + [ptr, ptr, i32, ptr]
     )
     lib.moeva_objective_botnet_f32.restype = i32
     lib.moeva_pgd_botnet_f32.argtypes = (
@@ -162,11 +163,11 @@ def library() -> ctypes.CDLL:
         "moeva_nd_peel_max_candidates", "moeva_associate_max_directions", "moeva_survive_max_candidates",
         "moeva_objective_max_params", "moeva_objective_max_width",
         "moeva_objective_max_layers", "moeva_lcld_max_pairs", "moeva_pgd_max_ohe_slots",
-        "moeva_pgd_botnet_max_degree",
+        "moeva_pgd_botnet_max_degree", "moeva_botnet_max_pairs",
     ):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32
-    lib.moeva_objective_botnet_max_features.argtypes = [i32, i32]
+    lib.moeva_objective_botnet_max_features.argtypes = [i32, i32, i32]
     lib.moeva_objective_botnet_max_features.restype = i32
     lib.moeva_error_string.argtypes = [i32]
     lib.moeva_error_string.restype = ctypes.c_char_p

@@ -226,9 +226,13 @@ struct PgdArgs {
 cudaError_t launch_pgd_lcld(const PgdArgs& args, cudaStream_t stream);
 
 // objective_botnet: the widest layer it takes (a hidden layer's outputs fill
-// one activation buffer of the tile), and the segments of its gather lists.
+// one activation buffer of the tile), the segments of its gather lists, and
+// the most XOR pairs of the augmented botnet domain (C(20, 2): k = 20
+// important features; the reference's defense takes k = 19, 171 pairs; a
+// row then holds 756 + P features, the pairs' last).
 constexpr int kBotnetMaxWidth = 64;
 constexpr int kBotnetSegments = 12;
+constexpr int kBotnetMaxPairs = 190;
 
 // objective_botnet's arguments. The gather lists `cons` hold, in order, the
 // segments of `counts`: flows and bytes of direction s, of direction d (the
@@ -256,14 +260,20 @@ struct BotnetObjectiveArgs {
   int n_rows, n, l, d;
   int n_layers;
   int widths[kObjectiveMaxLayers + 1];
+  // the augmented domain (n_pairs > 0, d = 756 + n_pairs): the pairs' base
+  // features and their thresholds; null and 0 on the base domain
+  const int32_t* pair_idx;  // (n_pairs, 2)
+  const float* pair_thr;    // (n_pairs, 2)
+  int n_pairs;
 };
 
 cudaError_t launch_objective_botnet(BotnetObjectiveArgs args, cudaStream_t stream);
 
-// The most features objective_botnet takes with a first layer of h1 units
-// and n_entries entries in the gather lists: a tile's features, the first
-// layer's double buffers and the gather lists fit one block's shared memory.
-int objective_botnet_max_features(int h1, int n_entries);
+// The most features objective_botnet takes with a first layer of h1 units,
+// n_entries entries in the gather lists and n_pairs XOR pairs: a tile's
+// features, the first layer's double buffers, the gather lists and the pair
+// tables fit one block's shared memory.
+int objective_botnet_max_features(int h1, int n_entries, int n_pairs);
 
 // pgd_botnet: botnet's feature count, the threads of each CTA of its
 // cluster of two (one per feature of the CTA's half), the most rows a

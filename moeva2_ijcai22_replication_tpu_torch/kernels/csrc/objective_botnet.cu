@@ -1,6 +1,8 @@
 // K8: MoEvA2's objectives on the botnet domain (756 features, 360 gathered
 // constraint terms), one block of eight warps per tile of 32 (state,
-// candidate) rows.
+// candidate) rows; an instantiation of its own (kXorTerms) takes the
+// augmented botnet domain (756 + P features, the 360 terms and P XOR
+// consistency terms; 927 features and 531 terms at P = 171).
 //
 // Replaces the jnp device stage moeva2_ijcai22_replication_tpu/attacks/moeva/
 // engine.py::Moeva2._evaluate on the botnet domain, with what it calls:
@@ -28,8 +30,12 @@
 //   lists (launch arguments, so the real feat_idx.pickle runs through the
 //   same kernel): per direction |Σ flows - Σ bytes| (each sum left to
 //   right), the bytes/pkts ratios (p != 0 ? b / p : 0) - 1500, then the
-//   three orderings lower - upper; each kept where > tol and 0 elsewhere (a
-//   NaN term counts 0), summed left to right.
+//   three orderings lower - upper; on the augmented domain
+//   (domains/botnet.py::BotnetAugmentedConstraints) then the P pair terms
+//   |x[d - P + p] - xor(x[i] >= t_i, x[j] >= t_j)| in itertools.combinations
+//   order (a NaN compares false; the thresholds rounded once to float32);
+//   each kept where > tol and 0 elsewhere (a NaN term counts 0), summed left
+//   to right.
 //
 // Bound: the relu stack, 756-64-64-32-2, is 54,592 multiply-adds per row on
 // ~3 KB of genes: bound by fp32 operations. Tensor cores are not used:
@@ -71,6 +77,15 @@
 // A block takes 112.5 KB of shared memory at 756 features, so two run on an
 // SM; 16 warps an SM keep the fp32 pipes and the shared-memory pipe busy
 // where fatter register tiles with fewer warps did not (PERF.md).
+//
+// The augmented domain (kXorTerms): the same code over d = 756 + P
+// features, the pair tables ((P, 2) 16-bit features and float32
+// thresholds) staged in shared memory beside the gather lists, and the
+// pair terms computed after the 360 in the same rounds, a (term, row) per
+// lane. At 927 features the tile alone is 118.7 KB and a block about
+// 139 KB, so one block (8 warps) runs on an SM: half the base's
+// occupancy, kept as it is until a redesign (PERF.md). At kXorTerms =
+// false the pair count is the constant 0 and the base's code is unchanged.
 
 #include <cmath>
 
@@ -250,16 +265,32 @@ __device__ __forceinline__ float term_value(const BotnetObjectiveArgs& a, const 
   return 0.0f;
 }
 
+// Pair term p (unthresholded) of row r of the augmented domain, read from
+// the tile's features `xf` through the pair tables `pidx` and `pthr`
+// (staged in shared memory): |x[d - P + p] - xor(x[i] >= t_i, x[j] >= t_j)|,
+// a NaN comparing false.
+__device__ __forceinline__ float pair_term(const float* xf, const int16_t* pidx, const float* pthr, int d,
+                                           int n_pairs, int r, int p) {
+  const bool a = xf[at(pidx[2 * p], r)] >= pthr[2 * p];
+  const bool b = xf[at(pidx[2 * p + 1], r)] >= pthr[2 * p + 1];
+  return fabsf(__fsub_rn(xf[at(d - n_pairs + p, r)], a != b ? 1.0f : 0.0f));
+}
+
+template <bool kXorTerms>
 __global__ void __launch_bounds__(kThreads, 2)
 objective_botnet_kernel(const BotnetObjectiveArgs args) {
   extern __shared__ __align__(16) float smem[];
   const int d = args.d;
   const int h1 = args.widths[1];
+  const int n_pairs = kXorTerms ? args.n_pairs : 0;
   float* xf = smem;                                   // (d, kTile) unscaled features, swizzled
   float* ring = xf + botnet_xf_floats(d);             // 2 stages: inputs, squares, weights
   float* dist_run = ring + 2 * kChunk * (2 * kTile + h1);  // (kTile,) the distance chains
   float* g_run = dist_run + kTile;                          // (kTile,) the violation chains
-  int16_t* sidx = reinterpret_cast<int16_t*>(g_run + kTile);  // the gather lists' features
+  float* pthr = g_run + kTile;                              // (n_pairs, 2) the pairs' thresholds
+  int16_t* sidx = reinterpret_cast<int16_t*>(pthr + 2 * n_pairs);  // the gather lists' features
+  // (n_pairs, 2) the pairs' features, after the gather lists
+  int16_t* pidx = kXorTerms ? sidx + botnet_entries(args.counts) : nullptr;
   float* ha = xf;                                     // after the first layer, two
   float* hb = xf + kBotnetMaxWidth * kTile;           // (kBotnetMaxWidth, kTile) buffers
   const int tid = threadIdx.x;
@@ -320,6 +351,12 @@ objective_botnet_kernel(const BotnetObjectiveArgs args) {
     }
   };
   for (int e = tid; e < botnet_entries(args.counts); e += kThreads) sidx[e] = static_cast<int16_t>(__ldg(args.cons + e));
+  if constexpr (kXorTerms) {
+    for (int e = tid; e < 2 * n_pairs; e += kThreads) {
+      pidx[e] = static_cast<int16_t>(__ldg(args.pair_idx + e));
+      pthr[e] = __ldg(args.pair_thr + e);
+    }
+  }
 
   // 0. decode: warp w takes rows w, w + 8, ...; its lanes consecutive
   // features, kDecodeBatch of them per lane with their loads in flight
@@ -364,15 +401,21 @@ objective_botnet_kernel(const BotnetObjectiveArgs args) {
   // 1. the violations: in rounds of the ring's size (free until the first
   // layer starts), each warp computes its share of the terms of all rows
   // (a row per lane), kept where > tol, into the ring; then warp 0 adds
-  // them in order to its rows' sums
+  // them in order to its rows' sums. The pair terms follow the 360
   {
-    const int n_terms = 2 + args.counts[4] + args.counts[6] + args.counts[8] + args.counts[10];
+    const int n_base = 2 + args.counts[4] + args.counts[6] + args.counts[8] + args.counts[10];
+    const int n_terms = n_base + n_pairs;
     const int per_round = 2 * kChunk * (2 * kTile + h1) / kTile;
     float* kept = ring;
     for (int t0 = 0; t0 < n_terms; t0 += per_round) {
       const int t1 = n_terms - t0 < per_round ? n_terms : t0 + per_round;
       for (int t = t0 + warp; t < t1; t += kWarps) {
-        const float v = term_value(args, xf, sidx, lane, t);
+        float v;
+        if constexpr (kXorTerms)
+          v = t < n_base ? term_value(args, xf, sidx, lane, t)
+                         : pair_term(xf, pidx, pthr, d, n_pairs, lane, t - n_base);
+        else
+          v = term_value(args, xf, sidx, lane, t);
         kept[(t - t0) * kTile + lane] = v > args.tol ? v : 0.0f;
       }
       __syncthreads();
@@ -500,18 +543,31 @@ objective_botnet_kernel(const BotnetObjectiveArgs args) {
 
 // shared bytes of one block: the tile's features (later the two activation
 // buffers), the double buffer of inputs, squares and first-layer weights,
-// and the rows' running distance and violation sums
-size_t botnet_smem(int d, int h1, int n_entries) {
-  return sizeof(float) * (botnet_xf_floats(d) + 2 * static_cast<size_t>(kChunk) * (2 * kTile + h1) + 2 * kTile) +
-         sizeof(int16_t) * static_cast<size_t>(n_entries);
+// the rows' running distance and violation sums, and the gather lists and
+// pair tables
+size_t botnet_smem(int d, int h1, int n_entries, int n_pairs) {
+  return sizeof(float) * (botnet_xf_floats(d) + 2 * static_cast<size_t>(kChunk) * (2 * kTile + h1) + 2 * kTile +
+                          2 * static_cast<size_t>(n_pairs)) +
+         sizeof(int16_t) * (static_cast<size_t>(n_entries) + 2 * static_cast<size_t>(n_pairs));
+}
+
+template <bool kXorTerms>
+cudaError_t launch_tiles(const BotnetObjectiveArgs& args, size_t smem, cudaStream_t stream) {
+  static LaunchCache cache;
+  const cudaError_t err = cache.prepare(reinterpret_cast<const void*>(objective_botnet_kernel<kXorTerms>),
+                                        kThreads, smem, nullptr);
+  if (err != cudaSuccess) return err;
+  const int grid = (args.n_rows + kTile - 1) / kTile;
+  objective_botnet_kernel<kXorTerms><<<grid, kThreads, smem, stream>>>(args);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-int objective_botnet_max_features(int h1, int n_entries) {
+int objective_botnet_max_features(int h1, int n_entries, int n_pairs) {
   // the largest d whose buffers fit one block, as the launcher sizes them
   int d = 0;
-  while (botnet_smem(d + 1, h1, n_entries) <= kMaxSharedBytes) ++d;
+  while (botnet_smem(d + 1, h1, n_entries, n_pairs) <= kMaxSharedBytes) ++d;
   return d;
 }
 
@@ -527,15 +583,15 @@ cudaError_t launch_objective_botnet(BotnetObjectiveArgs args, cudaStream_t strea
     if (args.counts[k] < 1) return cudaErrorInvalidValue;
   for (int k = 4; k < kBotnetSegments; k += 2)
     if (args.counts[k] < 0 || args.counts[k + 1] != args.counts[k]) return cudaErrorInvalidValue;
-  const size_t smem = botnet_smem(args.d, args.widths[1], botnet_entries(args.counts));
+  // the augmented domain: its P pairs' features are a row's last P, after
+  // botnet's 756 (16-bit feature indices in shared memory)
+  if (args.n_pairs < 0 || args.n_pairs > kBotnetMaxPairs ||
+      (args.n_pairs > 0 && (args.d != kBotnetFeatures + args.n_pairs || args.pair_idx == nullptr ||
+                            args.pair_thr == nullptr)))
+    return cudaErrorInvalidValue;
+  const size_t smem = botnet_smem(args.d, args.widths[1], botnet_entries(args.counts), args.n_pairs);
   if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
-  static LaunchCache cache;
-  const cudaError_t err = cache.prepare(reinterpret_cast<const void*>(objective_botnet_kernel),
-                                        kThreads, smem, nullptr);
-  if (err != cudaSuccess) return err;
-  const int grid = (args.n_rows + kTile - 1) / kTile;
-  objective_botnet_kernel<<<grid, kThreads, smem, stream>>>(args);
-  return cudaGetLastError();
+  return args.n_pairs > 0 ? launch_tiles<true>(args, smem, stream) : launch_tiles<false>(args, smem, stream);
 }
 
 #ifdef K8_STAMPS

@@ -796,6 +796,9 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
           const Row s = row_at(rows, lay, r);
           const float d = linf ? clamp_nan(gr[r], -a.eps, a.eps) : __fmul_rn(gr[r], s.aux[1]);
           float x = clamp_nan(__fadd_rn(xi[r], d), a.lo, a.hi);
+          // botnet's repair is the identity: it rewrites no immutable
+          // feature, only the mutable ones take the round trip, and u is
+          // unscaled from x on every feature, so x and u cannot part
           if (repair && mut) x = __fadd_rn(__fmul_rn(unscale(x, mn, sc), sc), mn);
           s.x[tid] = x;
           const float u = unscale(x, mn, sc);

@@ -33,7 +33,8 @@
 //   installment recomputed, each one-hot group set to its first largest
 //   slot (a NaN counts as the largest), on the augmented domain each pair's
 //   feature re-derived from the repaired base, then back to scaled space
-//   for the mutable features;
+//   for the mutable features (an immutable one keeps its unrepaired x, and
+//   its unscaled value is taken from x again);
 // - the augmented domain (domains/lcld.py::LcldAugmentedConstraints, D =
 //   47 + P, the pairs' features last): after the ten terms the P pair terms
 //   |x[47 + p] - xor(x[i] >= t_i, x[j] >= t_j)| (a NaN compares false; the
@@ -814,7 +815,9 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
       }
       __syncthreads();
       if constexpr (kPairs) {
-        // each pair's augmented feature re-derived from the repaired base
+        // each pair's augmented feature re-derived from the repaired base,
+        // its immutable features included: pgd_run_plain's repair re-derives
+        // them from the whole repaired row before it keeps x where immutable
         for (int task = tid; task < rp * P; task += kThreads) {
           const int r = task / P;
           const int p = task - r * P;
@@ -824,6 +827,9 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
         __syncthreads();
       }
       stamp(9);
+      // back to scaled space where mutable; an immutable feature keeps its
+      // unrepaired x, and u is unscaled from x again on every feature, as
+      // pgd_run_plain's next iteration takes it
       for (int e = tid; e < rp * D; e += kThreads) {
         const int r = e / D;
         const int k = e - r * D;
@@ -832,6 +838,8 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
           const float x = __fadd_rn(__fmul_rn(U[at], sc[k]), mn[k]);
           X[at] = x;
           U[at] = unscale(x, mn[k], sc[k]);
+        } else {
+          U[at] = unscale(X[at], mn[k], sc[k]);
         }
       }
       __syncthreads();

@@ -7,11 +7,16 @@ feasible synthetic states, a seeded surrogate (64-32-16-2 for LCLD,
 bounds (so attacked candidates at their bounds stay in [0, 1] for the
 judgement). ``synthetic_lcld_augmented_problem`` is LCLD's augmented
 variant (57 features, 10 + 10 terms), and ``lcld_augmented_edge_rows`` puts
-its pair terms' edge cases into rows. ``synthetic_botnet_pgd_problem`` adds the scaled rows and the
+its pair terms' edge cases into rows. ``lcld_immutable_term_schema`` and
+``lcld_immutable_repair_rows`` give a schema and rows whose repair rewrites
+an immutable feature, for the check of kernel K7's round trip after repair.
+``synthetic_botnet_pgd_problem`` adds the scaled rows and the
 labels constrained PGD takes on botnet. ``botnet_hard_candidates`` puts the
 botnet terms' edge cases into candidates, for the checks of kernel K8
 against its plain version, and ``botnet_edge_starts`` into PGD starts, for
-kernel K7b's.
+kernel K7b's. ``synthetic_botnet_augmented_problem`` is botnet's augmented
+variant (927 features, 360 + 171 terms), and ``botnet_augmented_edge_rows``
+puts its pair terms' edge cases into rows.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ import numpy as np
 import torch
 
 from .domains import augmentation
-from .domains.botnet import BotnetConstraints
+from .domains.botnet import N_BASE_FEATURES as BOTNET_BASE_FEATURES
+from .domains.botnet import BotnetAugmentedConstraints, BotnetConstraints
 from .domains.lcld import N_BASE_FEATURES, LcldAugmentedConstraints, LcldConstraints
 from .domains.synth import synth_botnet, synth_botnet_schema, synth_lcld, synth_lcld_schema
 from .models.io import Surrogate
@@ -161,6 +167,52 @@ def lcld_augmented_edge_rows(x: np.ndarray, important_features, scaler=None, dty
     return out
 
 
+#: the feature that :func:`lcld_immutable_term_schema` marks immutable: term,
+#: which LCLD's repair snaps to {36, 60}
+LCLD_IMMUTABLE_FEATURE = 1
+#: term values of :func:`lcld_immutable_repair_rows`, each off {36, 60} so
+#: that the repair rewrites it: below the midpoint 48, at it, above it
+LCLD_IMMUTABLE_TERMS = (45.0, 48.0, 50.0, 59.0)
+
+
+def lcld_immutable_term_schema(paths: dict, out_dir: str) -> dict:
+    """Copies in ``out_dir`` of the LCLD schema files of ``paths`` (base or
+    augmented, with the important features beside them) whose term
+    (feature 1) is immutable: a schema whose repair rewrites an immutable
+    feature, so that a PGD run with repair keeps x there while the repaired
+    row moves. No schema of the reference marks term so; this one tests
+    that a kernel keeps ``pgd_run_plain``'s rule."""
+    os.makedirs(out_dir, exist_ok=True)
+    out = {}
+    with open(paths["features"], newline="") as f:
+        reader = csv.DictReader(f)
+        fields = list(reader.fieldnames)
+        rows = [dict(r) for r in reader]
+    rows[LCLD_IMMUTABLE_FEATURE]["mutable"] = "FALSE"
+    out["features"] = os.path.join(out_dir, os.path.basename(paths["features"]))
+    with open(out["features"], "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=fields, lineterminator="\n")
+        writer.writeheader()
+        writer.writerows(rows)
+    out["constraints"] = os.path.join(out_dir, os.path.basename(paths["constraints"]))
+    with open(paths["constraints"]) as src, open(out["constraints"], "w") as dst:
+        dst.write(src.read())
+    important = os.path.join(os.path.dirname(paths["features"]), "important_features.npy")
+    if os.path.exists(important):
+        np.save(os.path.join(out_dir, "important_features.npy"), np.load(important))
+    return out
+
+
+def lcld_immutable_repair_rows(x: np.ndarray, scaler=None, dtype=np.float32) -> np.ndarray:
+    """Copies in ``dtype`` of the LCLD rows ``x`` (unscaled, or scaled by
+    ``scaler`` when given) whose first ``len(LCLD_IMMUTABLE_TERMS)`` rows
+    hold a term off {36, 60} (scaled: within an ulp of it after
+    unscaling), so that the repair rewrites it."""
+    out = np.array(x, np.float64)
+    out[: len(LCLD_IMMUTABLE_TERMS), LCLD_IMMUTABLE_FEATURE] = LCLD_IMMUTABLE_TERMS
+    return np.asarray(out if scaler is None else scaler.transform(out), dtype)
+
+
 def synthetic_botnet_problem(
     out_dir: str, n_states: int, seed: int = 42, model_seed: int = 7
 ) -> tuple[BotnetConstraints, Surrogate, MinMaxParams, np.ndarray]:
@@ -170,6 +222,69 @@ def synthetic_botnet_problem(
     cons = BotnetConstraints(paths["features"], paths["constraints"])
     x = synth_botnet(n_states, cons.schema, seed=seed)
     return _problem(cons, x, botnet_mlp(cons.schema.n_features, seed=model_seed))
+
+
+#: :func:`synthetic_botnet_augmented_problem`'s important features: the
+#: reference's defense takes the 19 most important (``nb_important=19``), at
+#: least ``BOTNET_IMPORTANT_GATHERED`` of them from the ratio terms' bytes and
+#: packets sums, the rest from the other base features
+BOTNET_IMPORTANT_K = 19
+BOTNET_IMPORTANT_GATHERED = 4
+
+
+def synthetic_botnet_augmented_problem(
+    out_dir: str, n_states: int, seed: int = 42, model_seed: int = 7
+) -> tuple[BotnetAugmentedConstraints, Surrogate, MinMaxParams, np.ndarray]:
+    """(constraints, surrogate, scaler, x) of botnet's augmented variant:
+    k = 19 important features, distinct mutable base features drawn by
+    ``np.random.default_rng(seed)`` (4 from the bytes and packets sums the
+    ratio terms gather, 15 from the other base features), each with its
+    mean over the ``synth_botnet(n_states, seed)`` rows as threshold (the
+    JAX package's ``experiments/defense.py`` forms them so), written as
+    ``important_features_19.npy`` beside the augmented schema files (and
+    ``feat_idx.pickle``) in ``out_dir``; the rows augmented, so feasible by
+    construction (checked); a seeded ``botnet_mlp(927)``."""
+    base_paths = synth_botnet_schema(out_dir)
+    base = BotnetConstraints(base_paths["features"], base_paths["constraints"])
+    x = synth_botnet(n_states, base.schema, seed=seed)
+    rng = np.random.default_rng(seed)
+    segments = base.segments()
+    gathered = np.unique(np.concatenate(segments[4:6]))
+    mutable = np.flatnonzero(base.schema.mutable)
+    first = rng.choice(np.intersect1d(gathered, mutable), BOTNET_IMPORTANT_GATHERED, replace=False)
+    rest = rng.choice(np.setdiff1d(mutable, first), BOTNET_IMPORTANT_K - BOTNET_IMPORTANT_GATHERED, replace=False)
+    top = np.concatenate([first, rest])
+    important = np.column_stack([top, x[:, top].mean(0)])
+    paths = write_augmented_schema(base_paths, augmentation.n_pairs(important), out_dir)
+    np.save(os.path.join(out_dir, "important_features_19.npy"), important)
+    cons = BotnetAugmentedConstraints(paths["features"], paths["constraints"])
+    x = augmentation.augment(torch.as_tensor(x), important).numpy()
+    return _problem(cons, x, botnet_mlp(cons.schema.n_features, seed=model_seed))
+
+
+#: rows of :func:`botnet_augmented_edge_rows` at the pair terms' edges
+BOTNET_AUGMENTED_EDGE_ROWS = 6
+
+
+def botnet_augmented_edge_rows(x: np.ndarray, important_features, dtype=np.float32) -> np.ndarray:
+    """Copies in ``dtype`` of the augmented botnet rows ``x`` (unscaled)
+    whose first ``BOTNET_AUGMENTED_EDGE_ROWS`` rows hold the pair terms'
+    edge cases: every important feature exactly at its threshold rounded to
+    ``dtype``, every one one ulp of ``dtype`` below it, every one at NaN,
+    and every augmented column at 0, at 1 and at 0.5. The base terms' edge
+    cases are :func:`botnet_hard_candidates`', which leaves every ninth
+    candidate from the first alone for these rows."""
+    important = np.asarray(important_features)
+    feats = important[:, 0].astype(int)
+    thr = important[:, 1].astype(dtype)
+    out = np.array(x, dtype)
+    for k, t in zip(feats, thr):
+        out[0, k] = t
+        out[1, k] = np.nextafter(t, dtype(-np.inf), dtype=dtype)
+    out[2, feats] = np.nan
+    for row, value in ((3, 0.0), (4, 1.0), (5, 0.5)):
+        out[row, BOTNET_BASE_FEATURES:] = value
+    return out
 
 
 def botnet_hard_candidates(codec, names, x_gen: torch.Tensor) -> torch.Tensor:

@@ -36,9 +36,13 @@ from moeva2_ijcai22_replication_tpu_torch.core import codec as codec_lib
 from moeva2_ijcai22_replication_tpu_torch.kernels import build
 from moeva2_ijcai22_replication_tpu_torch.models.io import Surrogate
 from moeva2_ijcai22_replication_tpu_torch.models.mlp import MLP
+from moeva2_ijcai22_replication_tpu_torch.domains.lcld import LcldConstraints
+from moeva2_ijcai22_replication_tpu_torch.domains.synth import synth_lcld_schema
 from moeva2_ijcai22_replication_tpu_torch.problems import (
-    LCLD_AUGMENTED_EDGE_ROWS, botnet_edge_starts, botnet_hard_candidates, lcld_augmented_edge_rows,
-    synthetic_botnet_pgd_problem, synthetic_botnet_problem, synthetic_lcld_augmented_problem, synthetic_lcld_problem,
+    BOTNET_AUGMENTED_EDGE_ROWS, LCLD_AUGMENTED_EDGE_ROWS, LCLD_IMMUTABLE_TERMS, botnet_augmented_edge_rows,
+    botnet_edge_starts, botnet_hard_candidates, lcld_augmented_edge_rows, lcld_immutable_repair_rows,
+    lcld_immutable_term_schema, synthetic_botnet_augmented_problem, synthetic_botnet_pgd_problem,
+    synthetic_botnet_problem, synthetic_lcld_augmented_problem, synthetic_lcld_problem,
 )
 
 # tier-1 runs several test processes side by side: one intra-op thread
@@ -486,7 +490,7 @@ def test_launch_counts_reset():
     assert kernels.launch_counts() == {
         "offspring": 0, "objective_lcld": 0, "nd_peel": 0,
         "survive_norm": 0, "associate": 0, "survive_fill": 0, "pgd_lcld": 0, "objective_botnet": 0,
-        "pgd_botnet": 0, "objective_lcld_aug": 0, "pgd_lcld_aug": 0,
+        "pgd_botnet": 0, "objective_lcld_aug": 0, "pgd_lcld_aug": 0, "objective_botnet_aug": 0,
     }
 
 
@@ -624,6 +628,34 @@ def test_pgd_lcld_refuses_what_it_does_not_take(card, pgd_problem):
     with pytest.raises(ValueError, match="1 or 2 classes"):
         run(tables, xi, y, xi)
     assert isinstance(atk.tables, PgdTables)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t", [(1, 7), (33, 12), (64, 30), (4000, 7)])
+@pytest.mark.parametrize("case", [0, 4])
+def test_pgd_lcld_repairing_an_immutable_feature_equals_plain(card, pgd_problem, tmp_path, case, n, t):
+    """Term marked immutable, on rows where it is off {36, 60}: each repair
+    rewrites it, x keeps it, and the next iteration unscales u from x, as
+    ``pgd_run_plain`` does."""
+    _, sur, scaler, xs, starts = pgd_problem
+    paths = lcld_immutable_term_schema(synth_lcld_schema(str(tmp_path / "base")), str(tmp_path / "immutable"))
+    cons = LcldConstraints(paths["features"], paths["constraints"])
+    k = len(LCLD_IMMUTABLE_TERMS)
+    xs, starts = xs.copy(), starts.copy()
+    xs[:k] = lcld_immutable_repair_rows((xs[:k] - scaler.min_) / scaler.scale, scaler)
+    starts[:k, 1] = xs[:k, 1]
+    atk = ConstrainedPGD(sur, cons, scaler, eps=0.2, eps_step=0.1, device=card, **PGD_CASES[case])
+    assert not bool(atk.tables.mutable[1])
+    sched = atk.schedule(0.2, 0.1, t)
+    xs, starts = (np.resize(v, (n, v.shape[1])) for v in (xs, starts))
+    args = (torch.as_tensor(xs, device=card), torch.as_tensor(np.arange(n) % 2, device=card),
+            torch.as_tensor(starts, device=card))
+    linf = PGD_CASES[case]["norm"] == np.inf
+    got = kernels.pgd_lcld(atk.tables, sched, *args, 0.2, atk.clip, linf, True, atk.targeted, atk.history_layout())
+    want = pgd_run_plain(atk.tables, cons, sched, *args, 0.2, atk.clip, atk.norm, True, atk.targeted,
+                         atk.history_layout())
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or _same(g, w)
 
 
 @pytest.mark.cuda
@@ -897,9 +929,12 @@ def test_objective_botnet_max_features_counts_width_and_entries(card, botnet):
 
     eng, _, _ = _botnet_case(card, botnet, 1, 1, seed=0)
     lib, n_entries = library(), eng._objective.cons.index.numel()
-    top = lib.moeva_objective_botnet_max_features(64, n_entries)
-    assert eng.codec.n_features <= top < lib.moeva_objective_botnet_max_features(16, n_entries)
-    assert lib.moeva_objective_botnet_max_features(64, n_entries + 2048) < top
+    top = lib.moeva_objective_botnet_max_features(64, n_entries, 0)
+    assert eng.codec.n_features <= top < lib.moeva_objective_botnet_max_features(16, n_entries, 0)
+    assert lib.moeva_objective_botnet_max_features(64, n_entries + 2048, 0) < top
+    # the augmented domain's pair tables take room too, and 927 features fit
+    aug = lib.moeva_objective_botnet_max_features(64, n_entries, 171)
+    assert 927 <= aug < top
 
 
 def test_objective_botnet_refuses_cpu_tensors_and_wrong_widths(tmp_path):
@@ -917,6 +952,74 @@ def test_objective_botnet_refuses_cpu_tensors_and_wrong_widths(tmp_path):
             kernels.objective_botnet(cand, *args, obj)
     with pytest.raises(ValueError, match="botnet gather tables"):
         kernels.objective_botnet(cand, *args, eng._objective._replace(cons=None))
+    assert kernels.launch_counts() == before
+
+
+# -- K8 on the augmented botnet domain (927 features, 360 + 171 terms) -------------
+
+
+@pytest.fixture(scope="module")
+def botnet_aug(tmp_path_factory):
+    """The augmented problem: 64 synthetic states, their 19 important
+    features, a seeded 927-input surrogate and its scaler."""
+    return synthetic_botnet_augmented_problem(str(tmp_path_factory.mktemp("botnet_aug")), 64)
+
+
+def _botnet_aug_case(device, botnet_aug, s, n, seed, **knobs):
+    """``_botnet_case`` on the augmented domain, with the pair terms' edge
+    rows (``botnet_augmented_edge_rows``) on every ninth candidate from the
+    first."""
+    cons, _, _, x = botnet_aug
+    eng, run, cand = _botnet_case(device, botnet_aug, s, n, seed, **knobs)
+    rows = torch.as_tensor(botnet_augmented_edge_rows(x, cons.important_features), device=device)
+    at = list(range(0, n, 9))[:BOTNET_AUGMENTED_EDGE_ROWS]
+    cand[:, at] = codec_lib.ml_to_genetic(eng.codec, rows[:len(at)])
+    return eng, run, cand
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", [2, "inf"])
+@pytest.mark.parametrize("s,n", [(64, 100), (64, 203), (3, 100), (1, 7), (5, 27), (41, 99)])
+def test_objective_botnet_aug_equals_plain(card, botnet_aug, s, n, norm):
+    eng, run, cand = _botnet_aug_case(card, botnet_aug, s, n, seed=s + n, norm=norm)
+    before = kernels.launch_counts()
+    got = kernels.objective_botnet(cand, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class,
+                                   eng._objective)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["objective_botnet_aug"] == before["objective_botnet_aug"] + 1
+    assert after["objective_botnet"] == before["objective_botnet"]
+    assert _same(got, evaluate_plain(eng._objective, eng.codec, run, cand, eng.constraints))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,head,norm,scaled", [((64, 64, 32), 1, 2, True), ((16, 64, 48, 5), 2, 2, True)])
+def test_objective_botnet_aug_stacks_heads(card, botnet_aug, hidden, head, norm, scaled):
+    eng, run, cand = _botnet_aug_case(card, botnet_aug, 40, 100, seed=head)
+    model = MLP(927, hidden, head).reset_parameters_seeded(head).to(card).eval().requires_grad_(False)
+    obj = make_objective_tables(eng.codec, model, eng._objective.scaler if scaled else None, norm,
+                                eng.constraints.tol, eng._objective.cons)
+    got = kernels.objective_botnet(cand, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class, obj)
+    assert _same(got, evaluate_plain(obj, eng.codec, run, cand, eng.constraints))
+
+
+def test_objective_botnet_aug_refuses_cpu_tensors_and_other_widths(tmp_path):
+    cons, sur, scaler, x = synthetic_botnet_augmented_problem(str(tmp_path), 3)
+    eng = Moeva2(sur, cons, ml_scaler=scaler, device="cpu", n_pop=10, n_offsprings=6)
+    assert eng._objective.cons.pair_idx.shape == (171, 2)
+    run = eng.prepare(x, np.ones(3, dtype=np.int64))
+    cand = run.xl_gen[:, None].expand(3, 6, -1).contiguous()
+    args = (run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.objective_botnet(cand, *args, eng._objective)
+    # the base tables on augmented rows, and pair tables one pair short
+    with pytest.raises(ValueError, match="756 \\+ P on the augmented domain .* got 927 features and 0 pairs"):
+        kernels.objective_botnet(cand, *args, eng._objective._replace(
+            cons=eng._objective.cons._replace(pair_idx=None, pair_thr=None)))
+    short = eng._objective.cons._replace(pair_idx=eng._objective.cons.pair_idx[:170])
+    with pytest.raises(ValueError, match="got 927 features and 170 pairs"):
+        kernels.objective_botnet(cand, *args, eng._objective._replace(cons=short))
     assert kernels.launch_counts() == before
 
 

@@ -39,6 +39,9 @@ from moeva2_ijcai22_replication_tpu_torch.domains.lcld import LcldConstraints
 from moeva2_ijcai22_replication_tpu_torch.domains.synth import synth_lcld, synth_lcld_schema
 from moeva2_ijcai22_replication_tpu_torch.models.io import Surrogate, params_from_numpy
 from moeva2_ijcai22_replication_tpu_torch.models.scalers import MinMaxParams, fit_minmax
+from moeva2_ijcai22_replication_tpu_torch.problems import (
+    LCLD_IMMUTABLE_TERMS, lcld_immutable_repair_rows, lcld_immutable_term_schema,
+)
 
 # tier-1 runs several test processes side by side: one intra-op thread
 # each keeps these small-tensor tests from oversubscribing the cores
@@ -264,6 +267,41 @@ def test_run_matches_jax_one_run(setup, loss, optim, record, norm):
         assert np.array_equal(np.isnan(g), np.isnan(w))
         fin = np.isfinite(w)
         np.testing.assert_allclose(g[fin], w[fin], rtol=1e-9, atol=1e-9 * max(np.abs(w[fin]).max(), 1.0))
+
+
+@pytest.mark.parametrize("norm", [2, np.inf])
+def test_run_repairing_an_immutable_feature_matches_jax(setup, tmp_path, norm):
+    """A schema whose repair rewrites an immutable feature (term, marked
+    immutable, on rows where it is off {36, 60}): the run keeps x there and
+    takes the next iteration's unscaled row from x, as JAX's ``_one_run``
+    does. Kernel K7 is held to this run on the card."""
+    paths = lcld_immutable_term_schema(synth_lcld_schema(str(tmp_path / "base")), str(tmp_path / "immutable"))
+    cons = LcldConstraints(paths["features"], paths["constraints"])
+    jcons = JLcld(paths["features"], paths["constraints"])
+    assert not cons.get_mutable_mask()[1] and not jcons.get_mutable_mask()[1]
+    scaler, (jsur, tree) = setup["scaler"], setup["models"][2]
+    loss = "constraints+flip+adaptive_eps_step+repair"
+    kw = dict(loss_evaluation=loss, norm=norm, record_loss="full", eps=0.2, eps_step=0.1, max_iter=T)
+    ja = JPGD(classifier=jsur, constraints=jcons, scaler=JMinMax(scaler.scale, scaler.min_), dtype=jnp.float64, **kw)
+    ta = ConstrainedPGD(Surrogate(params_from_numpy(tree, torch.float64)), cons, scaler, dtype=torch.float64,
+                        device="cpu", **kw)
+    xs = lcld_immutable_repair_rows(setup["x"][:N_ROWS], scaler, np.float64)
+    y = setup["y"][:N_ROWS]
+    start = _jax_start(ja, xs, 0.2)
+    want_x, want_h = jax.jit(ja._one_run, static_argnums=6)(
+        jsur.params, jnp.asarray(xs), jnp.asarray(y, jnp.int32), start, jnp.asarray(0.2), jnp.asarray(0.1), T
+    )
+    got_x, _, got_h = pgd_run_plain(
+        ta.tables, cons, ta.schedule(0.2, 0.1, T), torch.as_tensor(xs), torch.as_tensor(y),
+        torch.as_tensor(np.array(start)), 0.2, ta.clip, norm, True, False, ta.history_layout(),
+    )
+    _close(got_x.numpy(), want_x, torch.float64, "x_adv")
+    _close(got_h.numpy(), np.asarray(want_h), torch.float64, "history")
+    # term stayed off {36, 60}, which the repair of the final rows rewrites
+    n = len(LCLD_IMMUTABLE_TERMS)
+    np.testing.assert_array_equal(got_x.numpy()[:n, 1], xs[:n, 1])
+    u = (got_x - ta.tables.min_) / ta.tables.scale
+    assert (cons.repair(u)[:n, 1] != u[:n, 1]).all()
 
 
 @pytest.mark.parametrize("norm,targeted,eps", [(2, False, 0.3), (np.inf, False, 0.02), (np.inf, True, 0.02)])

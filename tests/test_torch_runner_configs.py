@@ -97,3 +97,27 @@ def test_phase_11_configs_are_the_repo_configs(reconstruction):
 
 def test_the_one_cut_is_lcld_flip_sat():
     assert _smoke().RUNNER_CUTS == {("lcld", "flip+sat"): {"n_initial_state": 256}}
+
+
+def test_phase_12_config_is_the_repo_config():
+    """Phase 12's rq2.botnet point: the grid runner's composition of
+    ``config/rq2.botnet.yaml`` (MoEvA alone, one seed, budget, ε and
+    scenario) with ``rq2.botnet.static`` and ``moeva.yaml``, apart from the
+    artifact paths (the scenario's important features among them), the
+    results directory and the evaluation's constraints path."""
+    smoke = _smoke()
+    grid = load_config_file(os.path.join(REPO, "config", "rq2.botnet.yaml"))
+    (project,), (seed,), (budget,), (scenario,) = (grid[k] for k in ("projects", "seeds", "budgets", "scenari"))
+    assert grid["attacks"] == ["moeva"]
+    assert (seed, budget, grid["eps_list"]) == (smoke.RQ2_BOTNET_GRID["seed"], smoke.RQ2_BOTNET_GRID["budget"],
+                                                [smoke.RQ2_BOTNET_GRID["eps"]])
+    want = _compose("moeva", project, [{"seed": seed, "budget": budget}, scenario, {"eps_list": grid["eps_list"]}])
+    got = smoke.rq2_botnet_config("/artifacts")
+    assert set(got["paths"]) == set(want["paths"]) and "important_features" in got["paths"]
+    assert got["paths"]["model"].endswith(".msgpack") and got["paths"]["ml_scaler"].endswith(".npz")
+    assert got["paths"]["important_features"].endswith("/important_features_19.npy")
+    assert got["evaluation"].pop("constraints") == got["paths"]["constraints"]
+    want["evaluation"].pop("constraints")
+    for key in ("paths", "dirs"):
+        got.pop(key), want.pop(key)
+    assert got == want

@@ -65,7 +65,7 @@ STUBS = {
     "pgd_lcld.cu": "cudaError_t launch_pgd_lcld(const PgdArgs&, cudaStream_t) { return cudaErrorNotSupported; }",
     "objective_botnet.cu": "cudaError_t launch_objective_botnet(BotnetObjectiveArgs, cudaStream_t) "
                            "{ return cudaErrorNotSupported; }\n"
-                           "int objective_botnet_max_features(int, int) { return 0; }",
+                           "int objective_botnet_max_features(int, int, int) { return 0; }",
     "pgd_botnet.cu": "cudaError_t launch_pgd_botnet(PgdBotnetArgs, cudaStream_t) { return cudaErrorNotSupported; }",
 }
 
