@@ -158,9 +158,30 @@ Phases, in order; any failure exits non-zero:
    ``config/rq2.botnet.yaml`` (``rq2_botnet_config``; held equal to the
    files by ``tests/test_torch_runner_configs.py``), with phase 10's
    checks; and constrained PGD on the domain refused on the card by name
-   before any launch.
+   before any launch;
+13. the grid runner (the ``[grid]`` lines): the ten rq and sm1 grid files
+   of ``config/`` (``GRID_FILES``) through ``experiments.rq.run`` on the
+   card, from a ``config_dir`` written from ``config/``'s files
+   (``write_grid_config_dir``: the artifact paths, results directories and
+   ``config_dir`` replaced; held equal to the files by
+   ``tests/test_torch_runner_configs.py``) over phases 10-12's synthetic
+   artifacts and rq3's seeded surrogates; one cut, ``GRID_CUTS``:
+   ``flip+sat`` out of rq1.lcld, sm1.2.lcld and sm1.2.botnet. Each grid
+   with its launch counts set to 0 just before and read just after (as its
+   points imply), every point's files, its metrics equal to their
+   recomputation from its saved ``x_attacks``, the grid report's counts,
+   and the judgement's refusals only at the points of
+   ``GRID_NAN_REFUSALS`` (ROADMAP C5: exactly the pinned rows NaN, each
+   first non-finite in the pinned ratio terms, a denominator at 0, the
+   attack run again alone); any other failed point fails the smoke. Then rq2.lcld again (every point skipped), a
+   MoEvA point served by a cached engine and a PGD point at a grid's second
+   ε against the standalone runner on a fresh engine (bit for bit),
+   rq2.botnet with ``use_subprocess=True`` and rq2.lcld with ``pipeline:
+   false`` against the pipelined run (bit for bit), with the walls of the
+   pipelined, serial and pipelined-again rq2.lcld.
 
-The last three lines are the per-kernel JSON record, the card's name and
+The last three lines are the per-kernel JSON record (with each kernel's
+launches over phase 13's grids, ``grid_launches``), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Nothing is printed as a
 result when CUDA is missing or the port's package is not beside this script.
 """
@@ -169,6 +190,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2506,12 +2528,15 @@ def check_repairs(cons, x_init: np.ndarray, x_rep: np.ndarray) -> str:
             f"{int(caveat.sum())} feasible once int_rate is put back (C3) of {len(x_rep)}")
 
 
-def pole_rows_of_pgd(cfg: dict) -> tuple:
-    """``(rows, first, plain_rows)``: the rows of ``ConstrainedPGD.generate``'s
-    result that hold a NaN, for the inputs and knobs ``experiments.pgd.run``
-    gives it under ``cfg``; for each the first iteration at which g8 or g9
-    was infinite (None if never), from the run's recorded violations; and
-    the NaN rows of the plain version run on the card on the same inputs."""
+def pole_rows_of_pgd(cfg: dict, plain: bool = True, poles: tuple = MONTH_POLE_TERMS) -> tuple:
+    """``(rows, first, terms, plain_rows)``: the rows of
+    ``ConstrainedPGD.generate``'s result that hold a NaN, for the inputs and
+    knobs ``experiments.pgd.run`` gives it under ``cfg``; for each, the first
+    iteration at which one of the row's recorded violations was not finite,
+    if every term not finite there is one of ``poles`` (a ratio term whose
+    denominator reached 0: an infinite quotient, or 0/0), else None, and the
+    names of those terms; and, with ``plain``, the NaN rows of the plain
+    version run on the card on the same inputs (None without)."""
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD
@@ -2529,21 +2554,78 @@ def pole_rows_of_pgd(cfg: dict) -> tuple:
                          seed=cfg["seed"], record_loss="full")
     x_adv = atk.generate(xs, y, eps=eps - 0.000001, eps_step=0.1, max_iter=cfg["budget"])
     rows = tuple(np.flatnonzero(~np.isfinite(x_adv).all(-1)).tolist())
-    x_t = torch.as_tensor(xs, dtype=torch.float32, device="cuda")
-    sched = atk.schedule(eps - 0.000001, 0.1, cfg["budget"])
-    plain, _, _ = pgd_run_plain(atk.tables, cons, sched, x_t, torch.as_tensor(y, device="cuda"), x_t,
-                                eps - 0.000001, atk.clip, atk.norm, "repair" in cfg["loss_evaluation"],
-                                atk.targeted, None)
-    plain_rows = tuple(np.flatnonzero(~torch.isfinite(plain).all(-1).cpu().numpy()).tolist())
-    terms = atk.loss_history[:, :, [3 + k for k in MONTH_POLE_TERMS]]  # (N, T, 2) after [per, loss_class, cons]
-    first = []
+    plain_rows = None
+    if plain:
+        x_t = torch.as_tensor(xs, dtype=torch.float32, device="cuda")
+        sched = atk.schedule(eps - 0.000001, 0.1, cfg["budget"])
+        out, _, _ = pgd_run_plain(atk.tables, cons, sched, x_t, torch.as_tensor(y, device="cuda"), x_t,
+                                  eps - 0.000001, atk.clip, atk.norm, "repair" in cfg["loss_evaluation"],
+                                  atk.targeted, None)
+        plain_rows = tuple(np.flatnonzero(~torch.isfinite(out).all(-1).cpu().numpy()).tolist())
+    g = atk.loss_history[:, :, 3:]  # (N, T, K): the violations after [per, loss_class, cons]
+    first, terms = [], []
     for r in rows:
-        hit = np.isinf(terms[r]).any(-1)
-        first.append(int(np.argmax(hit)) if hit.any() else None)
-    return rows, first, plain_rows
+        bad = ~np.isfinite(g[r]).all(-1)
+        t = int(np.argmax(bad)) if bad.any() else None
+        hit = [] if t is None else np.flatnonzero(~np.isfinite(g[r, t])).tolist()
+        first.append(t if hit and set(hit) <= set(poles) else None)
+        terms.append(" ".join(f"g{k + 1}" for k in hit))
+    return rows, first, terms, plain_rows
 
 
-def drive_runner(cons, cfg: dict, smi: str, expected: dict, tag: str) -> dict | None:
+def point_mid_fix(runner: str, cfg: dict) -> str:
+    return cfg["attack_name"] if runner == "moeva" else f"{cfg['attack_name']}_{cfg['loss_evaluation']}"
+
+
+def point_files(runner: str, cfg: dict) -> set:
+    from moeva2_ijcai22_replication_tpu_torch.utils.config import get_dict_hash
+
+    mid, h = point_mid_fix(runner, cfg), get_dict_hash(cfg)
+    names = {f"metrics_{mid}_{h}.json", f"config_{mid}_{h}.yaml", f"x_attacks_{mid}_{h}.npy"}
+    return names | ({f"success_rate_{mid}_{h}.csv"} if runner == "pgd" else set())
+
+
+def point_expected_launches(runner: str, cfg: dict) -> dict:
+    """The launches one point's run implies: ``expected_launches`` for
+    MoEvA, one launch of the set's PGD kernel."""
+    import types
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.experiments import common
+
+    cons = common.load_constraints(cfg)
+    if runner == "pgd":
+        return {**{k: 0 for k in kernels.launch_counts()}, counter_name(cons, "pgd"): 1}
+    engine = types.SimpleNamespace(max_states_per_call=cfg["max_states_per_call"], n_gen=cfg["budget"],
+                                   archive_size=cfg["archive_size"], constraints=cons)
+    return expected_launches(engine, len(common.load_candidates(cfg)))
+
+
+def point_rates(runner: str, metrics: dict) -> list:
+    return metrics["objectives_list"] if runner == "moeva" else [metrics["objectives"]]
+
+
+def recomputed_rates(runner: str, cfg: dict, x_attacks: np.ndarray) -> list:
+    """o1..o7 of ``x_attacks`` judged afresh, per ε, as the runner judges."""
+    from moeva2_ijcai22_replication_tpu_torch.attacks.objective import ObjectiveCalculator
+    from moeva2_ijcai22_replication_tpu_torch.experiments import common
+
+    x_init = common.load_candidates(cfg)
+    scaler = common.load_scaler(cfg)
+    calc = ObjectiveCalculator(
+        classifier=common.load_surrogate(cfg),
+        constraints=common.evaluation_constraints(cfg, common.load_constraints(cfg)), thresholds={},
+        min_max_scaler=scaler, ml_scaler=scaler, minimize_class=1, norm=cfg["norm"],
+    )
+    vals = calc.objectives(x_init, x_attacks)
+    rates = []
+    for eps in cfg["eps_list"] if runner == "moeva" else [cfg["eps"]]:
+        calc.thresholds = {"f1": cfg["misclassification_threshold"], "f2": eps}
+        rates.append(calc.success_rate_3d_record(x_init, x_attacks, vals))
+    return rates
+
+
+def drive_runner(cfg: dict, smi: str, expected: dict, tag: str) -> dict | None:
     """One phase-10 run: ``run(cfg)`` with the launch counts set to 0 just
     before and read just after (they must equal ``expected``); the files
     under the JAX names; the metrics against a recomputation from the saved
@@ -2555,19 +2637,20 @@ def drive_runner(cons, cfg: dict, smi: str, expected: dict, tag: str) -> dict | 
     C5): the judgement's range check refuses the result with its
     ``AssertionError``, before any file is written. Then the run must have
     written nothing, the attack run again alone, and its plain version on
-    the card, must leave exactly the listed rows NaN, each after an infinite
-    g8 or g9 (x22 at 0), and None is returned. Any other refusal raises."""
+    the card, must leave exactly the listed rows NaN, each after g8 or g9
+    went non-finite (x22 at 0), and None is returned. Any other refusal
+    raises."""
     import os
 
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
-    from moeva2_ijcai22_replication_tpu_torch.attacks.objective import ObjectiveCalculator
     from moeva2_ijcai22_replication_tpu_torch.experiments import common, moeva, pgd
     from moeva2_ijcai22_replication_tpu_torch.utils.config import get_dict_hash
 
     runner = moeva if cfg["attack_name"] == "moeva" else pgd
-    mid_fix = cfg["attack_name"] if runner is moeva else f"{cfg['attack_name']}_{cfg['loss_evaluation']}"
+    kind = "moeva" if runner is moeva else "pgd"
+    mid_fix = point_mid_fix(kind, cfg)
     out = cfg["dirs"]["results"]
     refusal = (cfg["project_name"], cfg["loss_evaluation"]) if runner is pgd else None
     before = dir_state(out) if os.path.isdir(out) else {}
@@ -2587,23 +2670,22 @@ def drive_runner(cons, cfg: dict, smi: str, expected: dict, tag: str) -> dict | 
     if metrics is None:
         if (dir_state(out) if os.path.isdir(out) else {}) != before:
             raise AssertionError(f"{tag}: the refused run wrote files")
-        rows, first, plain_rows = pole_rows_of_pgd(cfg)
+        rows, first, _, plain_rows = pole_rows_of_pgd(cfg)
         if rows != NAN_REFUSALS[refusal] or plain_rows != rows:
             raise AssertionError(f"{tag}: the judgement refused the result; x_adv's NaN rows are {rows} "
                                  f"(the plain version's {plain_rows}), not the known {NAN_REFUSALS[refusal]}")
         if None in first:
-            raise AssertionError(f"{tag}: NaN rows {rows} met an infinite g8 or g9 at iterations {first}")
+            raise AssertionError(f"{tag}: NaN rows {rows}: g8 or g9 not finite first at iterations {first} "
+                                 "(None: another term first)")
         log(f"[runner] {tag}: {len(common.load_candidates(cfg))} states x {cfg['budget']}: refused by the "
             f"judgement's AssertionError, as the JAX runner's (ROADMAP C5): x_adv rows {list(rows)} are NaN, as "
-            f"listed and as the plain version's on the card, each after x22 reached 0 (g8 or g9 infinite first "
+            f"listed and as the plain version's on the card, each after x22 reached 0 (g8 or g9 not finite first "
             f"at iterations {first}); nothing written; "
             f"launches {({k: v for k, v in launches.items() if v})} as expected; wall {wall_s:.3f} s on {smi}")
         return None
 
     h = get_dict_hash(cfg)
-    names = {f"metrics_{mid_fix}_{h}.json", f"config_{mid_fix}_{h}.yaml", f"x_attacks_{mid_fix}_{h}.npy"}
-    if runner is pgd:
-        names.add(f"success_rate_{mid_fix}_{h}.csv")
+    names = point_files(kind, cfg)
     written = set(dir_state(out)) - set(before)
     if written != names:
         raise AssertionError(f"{tag}: the run wrote {sorted(written)}, not {sorted(names)}")
@@ -2618,19 +2700,8 @@ def drive_runner(cons, cfg: dict, smi: str, expected: dict, tag: str) -> dict | 
         raise AssertionError(f"{tag}: includes_compile is true, but the kernel library was loaded in phase 2")
 
     x_init = common.load_candidates(cfg)
-    x_attacks = np.load(f"{out}/x_attacks_{mid_fix}_{h}.npy")
-    scaler = common.load_scaler(cfg)
-    calc = ObjectiveCalculator(
-        classifier=common.load_surrogate(cfg), constraints=cons, thresholds={}, min_max_scaler=scaler,
-        ml_scaler=scaler, minimize_class=1, norm=cfg["norm"],
-    )
-    vals = calc.objectives(x_init, x_attacks)
-    eps_list = cfg["eps_list"] if runner is moeva else [cfg["eps"]]
-    rates = []
-    for eps in eps_list:
-        calc.thresholds = {"f1": cfg["misclassification_threshold"], "f2": eps}
-        rates.append(calc.success_rate_3d_record(x_init, x_attacks, vals))
-    if rates != (metrics["objectives_list"] if runner is moeva else [metrics["objectives"]]):
+    rates = recomputed_rates(kind, cfg, np.load(f"{out}/x_attacks_{mid_fix}_{h}.npy"))
+    if rates != point_rates(kind, metrics):
         raise AssertionError(f"{tag}: metrics {metrics} != objectives recomputed from x_attacks {rates}")
 
     state = dir_state(out)
@@ -2649,9 +2720,7 @@ def run_runners(smi: str) -> None:
     five PGD losses on LCLD and on botnet, from configs composed as the
     grid runner composes ``config/``'s files, over synthetic artifacts."""
     import os
-    import types
 
-    from moeva2_ijcai22_replication_tpu_torch import kernels
     from moeva2_ijcai22_replication_tpu_torch.experiments import common
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2659,17 +2728,11 @@ def run_runners(smi: str) -> None:
             art = f"{tmp}/{domain}"
             cons = write_runner_artifacts(domain, art)
             cfg = runner_config(domain, "moeva", art)
-            n = len(np.load(cfg["paths"]["x_candidates"]))
-            n = n if cfg["n_initial_state"] == -1 else cfg["n_initial_state"]
-            engine = types.SimpleNamespace(max_states_per_call=cfg["max_states_per_call"], n_gen=cfg["budget"],
-                                           archive_size=cfg["archive_size"], constraints=cons)
-            drive_runner(cons, cfg, smi, expected_launches(engine, n), f"moeva {domain}")
-            kernel = f"pgd_{cons.pgd_kernel}"
+            drive_runner(cfg, smi, point_expected_launches("moeva", cfg), f"moeva {domain}")
             pgd_s = None
             for loss in RQ1_LOSSES:
                 cfg = runner_config(domain, "pgd", art, loss)
-                expected = {**{k: 0 for k in kernels.launch_counts()}, kernel: 1}
-                metrics = drive_runner(cons, cfg, smi, expected, f"pgd {domain} {loss}")
+                metrics = drive_runner(cfg, smi, point_expected_launches("pgd", cfg), f"pgd {domain} {loss}")
                 if loss == "flip":
                     pgd_s = metrics["timings"]["attack"]
                 if "sat" in loss:
@@ -3047,8 +3110,6 @@ def drive_aug_runners(smi: str, art: str, cons) -> dict:
     checks (launch counts as implied, the JAX file names, metrics equal to
     their recomputation, a rerun that skips). Returns the launches summed
     over the four grid points."""
-    import types
-
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
@@ -3056,25 +3117,17 @@ def drive_aug_runners(smi: str, art: str, cons) -> dict:
     from moeva2_ijcai22_replication_tpu_torch.utils.config import get_dict_hash
 
     total = {k: 0 for k in kernels.launch_counts()}
-    n = RQ2_STATIC["n_initial_state"]
-
-    def moeva_expected(cfg):
-        engine = types.SimpleNamespace(max_states_per_call=cfg["max_states_per_call"], n_gen=cfg["budget"],
-                                       archive_size=cfg["archive_size"], constraints=cons)
-        return expected_launches(engine, n)
-
     for budget in RQ2_GRID["budgets"]:
         for attack in ("moeva", "pgd"):
             cfg = rq2_config(attack, budget, art)
-            expected = (moeva_expected(cfg) if attack == "moeva"
-                        else {**{k: 0 for k in kernels.launch_counts()}, counter_name(cons, "pgd"): 1})
+            expected = point_expected_launches(attack, cfg)
             tag = f"{attack} lcld_augmented budget {budget}" + (f" {cfg['loss_evaluation']}" if attack == "pgd" else "")
-            metrics = drive_runner(cons, cfg, smi, expected, tag)
+            metrics = drive_runner(cfg, smi, expected, tag)
             if metrics is not None:
                 for k, v in expected.items():
                     total[k] += v
     cfg = rq2_config("moeva", RQ2_GRID["budgets"][0], art, reconstruction=True)
-    drive_runner(cons, cfg, smi, moeva_expected(cfg), "moeva lcld_augmented reconstruction")
+    drive_runner(cfg, smi, point_expected_launches("moeva", cfg), "moeva lcld_augmented reconstruction")
     x_rec = np.load(f"{cfg['dirs']['results']}/x_attacks_moeva_{get_dict_hash(cfg)}.npy")
     base = torch.as_tensor(x_rec[..., : -augmentation.n_pairs(cons.important_features)])
     if not same_entries_np(x_rec, augmentation.augment(base, cons.important_features).numpy()).all():
@@ -3235,8 +3288,6 @@ def run_botnet_augmented(device, smi: str, resources: list):
     features, 360 + 171 terms). Returns K8's record at D = 927, the
     launches of rq2.botnet's grid point and K5's and K4b's times at L =
     927."""
-    import types
-
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch.core.schema import FeatureSchema
@@ -3269,12 +3320,10 @@ def run_botnet_augmented(device, smi: str, resources: list):
         log(f"[botnet-augmented] K8 at D = {x.shape[1]}: {smem} bytes of shared memory a block, "
             f"{min(KMAX_SHARED_BYTES // smem, 2)} block(s) of 8 warps an SM (its launch bounds allow 2)")
         cfg = rq2_botnet_config(tmp)
-        engine = types.SimpleNamespace(max_states_per_call=cfg["max_states_per_call"], n_gen=cfg["budget"],
-                                       archive_size=cfg["archive_size"], constraints=cons)
-        expected = expected_launches(engine, RQ2_BOTNET_STATES)
+        expected = point_expected_launches("moeva", cfg)
         if expected["objective_botnet_aug"] == 0 or expected["objective_botnet"] != 0:
             raise AssertionError(f"rq2.botnet's objectives are not K8's augmented instantiation's: {expected}")
-        drive_runner(cons, cfg, smi, expected, "moeva botnet_augmented budget 1000")
+        drive_runner(cfg, smi, expected, "moeva botnet_augmented budget 1000")
         check_pgd_refused(device, smi, cons, sur, scaler, tmp)
     log(f"[botnet-augmented] launches over rq2.botnet's grid point: {({k: v for k, v in expected.items() if v})}; "
         f"phase 12 took {time.perf_counter() - t0:.1f} s")
@@ -3307,6 +3356,441 @@ def botnet_smem_bytes(moeva) -> int:
     if not smem(top) <= KMAX_SHARED_BYTES < smem(top + 1):
         raise AssertionError(f"K8's shared memory is not botnet_smem's: {smem(top)}, {smem(top + 1)} at d = {top}")
     return smem(moeva.codec.n_features)
+
+
+# -- phase 13: the grid runner --------------------------------------------------------
+
+#: the ten grid files of ``config/`` that phase 13 runs, in ``run_all``'s order
+GRID_FILES = ("rq1.lcld.yaml", "rq1.botnet.yaml", "rq2.lcld.yaml", "rq2.botnet.yaml", "rq3.lcld.yaml",
+              "rq3.botnet.yaml", "sm1.1.lcld.yaml", "sm1.2.lcld.yaml", "sm1.1.botnet.yaml", "sm1.2.botnet.yaml")
+#: the static project files the grids name, and the artifact set each reads
+GRID_STATICS = {
+    "rq1.lcld.static": "lcld", "rq1.botnet.static": "botnet", "rq2.lcld.static": "lcld_augmented",
+    "rq2.botnet.static": "botnet_augmented", "rq3.lcld.static": "lcld", "rq3.botnet.static": "botnet",
+    "sm1.lcld.static": "lcld", "sm1.botnet.static": "botnet",
+}
+#: each artifact set's files (phases 10-12's), by the configs' ``paths`` keys
+GRID_ARTIFACTS = {
+    "lcld": {"model": "nn.msgpack", "features": "features.csv", "constraints": "constraints.csv",
+             "x_candidates": "x_candidates_common.npy", "min_max_scaler": "scaler.npz", "ml_scaler": "scaler.npz"},
+    "lcld_augmented": {"model": "nn_augmented.msgpack", "features": "features_augmented.csv",
+                       "constraints": "constraints_augmented.csv",
+                       "x_candidates": "x_candidates_common_augmented.npy",
+                       "min_max_scaler": "scaler_augmented.npz", "ml_scaler": "scaler_augmented.npz"},
+    "botnet_augmented": {"model": "nn_augmented_19.msgpack", "features": "features_augmented.csv",
+                         "constraints": "constraints_augmented.csv",
+                         "important_features": "important_features_19.npy",
+                         "x_candidates": "x_candidates_common_augmented.npy",
+                         "min_max_scaler": "scaler_augmented_19.npz", "ml_scaler": "scaler_augmented_19.npz"},
+}
+GRID_ARTIFACTS["botnet"] = GRID_ARTIFACTS["lcld"]
+#: rq3's models axis: more seeded surrogates of the set's topology, by file
+#: name (rq3.botnet's Keras model becomes a ``.msgpack``)
+GRID_MODEL_SEEDS = {("lcld", "nn_moeva.msgpack"): 17, ("lcld", "nn_gradient.msgpack"): 18,
+                    ("botnet", "nn_moeva.msgpack"): 19}
+#: the one cut of phase 13, by file (a tuple lists the entries taken out of
+#: the file's list, another value replaces the file's): ``flip+sat`` leaves rq1.lcld's and the sm1.2 grids'
+#: losses. Its MILP repair is host work, about 0.04 s a state on the card's
+#: machine (phase 10's SAT line): 4000 LCLD states add about 160 s a point, and sm1.2 runs
+#: each loss at 15 points. rq1.botnet keeps it, so the grid path through the
+#: MILP repair runs (387 states)
+GRID_CUTS = {
+    "rq1.lcld.yaml": {"loss_evaluations": ("flip+sat",)},
+    "sm1.2.lcld.yaml": {"loss_evaluations": ("flip+sat",)},
+    "sm1.2.botnet.yaml": {"loss_evaluations": ("flip+sat",)},
+}
+#: LCLD's ratio terms (g5 = |x20 - x0/x6|, g6 = |x21 - x10/x14|, g8, g9),
+#: each infinite (or 0/0) where its denominator reaches its lower bound 0
+RATIO_POLE_TERMS = (4, 5, 7, 8)
+#: the terms that go non-finite first where x22 reaches 0 (g8 and g9 share it)
+X22 = "g8 g9"
+#: the grid points whose result the judgement refuses (ROADMAP C5), by
+#: (project, loss, budget, ε): the rows of x_adv that must be NaN for each,
+#: and for each row the ratio terms that are the first of its violations to
+#: go non-finite (its denominator at 0; then the L2 step turns the row NaN).
+#: Phase 10's point (rq1.lcld's and sm1.2.lcld's at 1000 iterations and
+#: ε 0.2) and sm1.2.lcld's ``constraints+flip`` at ε 0.1, 0.2 and 0.4 at
+#: every budget, found on the card: x22 at 0 in every row but 2357
+#: at 2000 iterations, where x14 reaches 0 first (g6); none at ε 0.025 and
+#: 0.05, none for another loss, none on rq1.lcld at 100 iterations
+GRID_NAN_REFUSALS = {
+    ("lcld", "constraints+flip", 1000, 0.2): dict.fromkeys(NAN_REFUSALS[("lcld", "constraints+flip")], X22),
+    ("lcld", "constraints+flip", 500, 0.1): dict.fromkeys((137, 1853, 2989, 3173), X22),
+    ("lcld", "constraints+flip", 500, 0.2): dict.fromkeys((2989, 3621), X22),
+    ("lcld", "constraints+flip", 500, 0.4): dict.fromkeys((2989, 3621), X22),
+    ("lcld", "constraints+flip", 1000, 0.1): dict.fromkeys((137, 1853, 2989, 3173), X22),
+    ("lcld", "constraints+flip", 1000, 0.4): dict.fromkeys((1782, 2109, 2989, 3536, 3621), X22),
+    ("lcld", "constraints+flip", 2000, 0.1): dict.fromkeys((137, 1853, 2989, 3173), X22),
+    ("lcld", "constraints+flip", 2000, 0.2): {**dict.fromkeys((437, 795, 1056, 1782), X22), 2357: "g6",
+                                              **dict.fromkeys((2929, 2989, 3173, 3536, 3621), X22)},
+    ("lcld", "constraints+flip", 2000, 0.4): {**dict.fromkeys((137, 795, 1296, 1782, 1857, 1887, 2109), X22),
+                                              2357: "g6", **dict.fromkeys((2989, 3536, 3621), X22)},
+}
+
+
+def grid_artifact_path(kind: str, key: str, art: str) -> str:
+    return f"{art}/{kind}/{GRID_ARTIFACTS[kind][key]}"
+
+
+def apply_cuts(body: dict, name: str) -> None:
+    """``GRID_CUTS`` of the file ``name`` applied to its ``body``: a tuple
+    takes its entries out of the file's list, any other value replaces the
+    file's."""
+    for key, cut in GRID_CUTS.get(name, {}).items():
+        body[key] = [v for v in body[key] if v not in cut] if isinstance(cut, tuple) else cut
+
+
+def write_grid_config_dir(tmp: str, art: str) -> str:
+    """Phase 13's ``config_dir``, ``tmp``/config: ``moeva.yaml`` and
+    ``pgd.yaml`` copied as they are; each static file of ``GRID_STATICS``
+    with the artifact paths it names taken from its set in ``art`` and
+    ``dirs.results`` moved under ``tmp``; each grid of ``GRID_FILES`` with
+    ``config_dir`` pointing here, its scenari's and models' paths taken
+    from ``art``, and ``GRID_CUTS`` applied. Returns the directory."""
+    import os
+    import shutil
+
+    import yaml
+
+    from moeva2_ijcai22_replication_tpu_torch.utils.config import load_config_file
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config")
+    out = os.path.join(tmp, "config")
+    os.makedirs(out, exist_ok=True)
+    for name in ("moeva.yaml", "pgd.yaml"):
+        shutil.copy(os.path.join(src, name), os.path.join(out, name))
+
+    def dump(body: dict, name: str):
+        with open(os.path.join(out, name), "w") as f:
+            yaml.safe_dump(body, f)
+
+    for static, kind in GRID_STATICS.items():
+        body = load_config_file(os.path.join(src, f"{static}.yaml"))
+        body["paths"] = {key: grid_artifact_path(kind, key, art) for key in body["paths"]}
+        body["dirs"]["results"] = os.path.join(tmp, body["dirs"]["results"].removeprefix("./"))
+        apply_cuts(body, f"{static}.yaml")
+        dump(body, f"{static}.yaml")
+    for name in GRID_FILES:
+        grid = load_config_file(os.path.join(src, name))
+        grid["config_dir"] = out
+        for scenario in grid.get("scenari", []):
+            kind = scenario["project_name"]
+            scenario["paths"] = {key: grid_artifact_path(kind, key, art) for key in scenario["paths"]}
+            scenario["evaluation"]["constraints"] = grid_artifact_path(kind, "constraints", art)
+        if "models" in grid:
+            kind = GRID_STATICS[grid["projects"][0]]
+            grid["models"] = [f"{art}/{kind}/{os.path.splitext(os.path.basename(m))[0]}.msgpack"
+                              for m in grid["models"]]
+        apply_cuts(grid, name)
+        dump(grid, name)
+    return out
+
+
+def write_grid_artifacts(art: str) -> None:
+    """Phases 10-12's artifacts again, a set a directory of ``art``, and
+    rq3's seeded surrogates (``GRID_MODEL_SEEDS``)."""
+    import os
+
+    from moeva2_ijcai22_replication_tpu_torch.models.io import Surrogate, save_params
+    from moeva2_ijcai22_replication_tpu_torch.models.mlp import botnet_mlp, lcld_mlp
+
+    for kind in GRID_ARTIFACTS:
+        os.makedirs(f"{art}/{kind}", exist_ok=True)
+    write_runner_artifacts("lcld", f"{art}/lcld")
+    write_runner_artifacts("botnet", f"{art}/botnet")
+    write_aug_artifacts(f"{art}/lcld_augmented")
+    write_botnet_aug_artifacts(f"{art}/botnet_augmented")
+    for (kind, name), seed in GRID_MODEL_SEEDS.items():
+        mlp = lcld_mlp(47, seed=seed) if kind == "lcld" else botnet_mlp(756, seed=seed)
+        save_params(Surrogate(mlp), f"{art}/{kind}/{name}")
+
+
+class GridFailures:
+    """Keeps the error records of the port's experiment layer while open:
+    the grid runner's "grid point failed" and the writer's "grid point
+    finalize failed", each with its exception."""
+
+    def __init__(self):
+        import logging
+
+        self.records = []
+        self.handler = logging.Handler(logging.ERROR)
+        self.handler.emit = self.records.append
+        self.logger = logging.getLogger("moeva2_ijcai22_replication_tpu_torch.experiments")
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def quiet(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with the runners' prints of configs and rates
+    (from both threads) kept off the smoke's output."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kwargs)
+
+
+def grid_points(grid: dict) -> list:
+    """The (runner, config) of every point of ``grid`` in launch order, as
+    the port's ``GridRunner`` expands it."""
+    import copy
+
+    from moeva2_ijcai22_replication_tpu_torch.experiments import rq
+
+    points = []
+    runner = rq.GridRunner(dict(copy.deepcopy(grid), pipeline=False))
+    runner._launch = lambda module, cfg: points.append((module.rsplit(".", 1)[1], cfg))
+    runner.run()
+    return points
+
+
+def check_grid_refusals(name: str, refused: list, failures: list) -> list:
+    """The points of grid ``name`` that wrote nothing (``refused``, as
+    (runner, config)) must be C5's refusals: as many failure records as
+    refused points, each the judgement's ``AssertionError``; each point a
+    PGD point of ``GRID_NAN_REFUSALS`` whose attack, run again alone, leaves
+    exactly the pinned rows NaN, each first non-finite in the pinned ratio
+    terms (``pole_rows_of_pgd``). Returns the lines to log."""
+    exc = [(r.exc_info or (None, None))[1] for r in failures]
+    bad = [e for e in exc if not (isinstance(e, AssertionError) and "min-max scaled values outside" in str(e))]
+    if bad or len(failures) != len(refused):
+        raise AssertionError(f"[grid] {name}: {len(refused)} points wrote nothing; failures: "
+                             + "; ".join(f"{r.getMessage()}: {e!r}" for r, e in zip(failures, exc)))
+    lines = []
+    for runner, cfg in refused:
+        key = (cfg["project_name"], cfg.get("loss_evaluation"), cfg["budget"], cfg.get("eps"))
+        rows, first, terms, _ = (pole_rows_of_pgd(cfg, plain=False, poles=RATIO_POLE_TERMS) if runner == "pgd"
+                                 else ((), [None], [], None))
+        pinned = GRID_NAN_REFUSALS.get(key)
+        if pinned is None or rows != tuple(pinned) or None in first or terms != list(pinned.values()):
+            raise AssertionError(f"[grid] {name}: the judgement refused point {key}; x_adv's NaN rows are {rows}, "
+                                 f"first non-finite at iterations {first} in {terms}; pinned: {pinned}")
+        lines.append(f"[grid] {name}: {key} refused by the judgement's AssertionError (ROADMAP C5): x_adv rows "
+                     f"{list(rows)} NaN, as pinned, each after a ratio term's denominator reached 0 (first "
+                     f"non-finite at iterations {first}: {terms})")
+    return lines
+
+
+def run_grid(name: str, config_dir: str, over: dict | None = None, **kwargs) -> dict:
+    """One grid file of ``config_dir`` (with ``over`` merged into it)
+    through ``experiments.rq.run(grid, **kwargs)`` on the card, the launch
+    counts set to 0 just before and read just after. Then: every point's
+    files, its metrics equal to their recomputation from its saved
+    ``x_attacks``, the launches its points imply (not countable across
+    processes under ``use_subprocess``), the refusals
+    (``check_grid_refusals``) and the grid report's counts. Returns the
+    report (a pipelined grid's), with the grid's points, launches, wall
+    time and the points' summed ``evaluate`` spans."""
+    import os
+
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.experiments import rq
+    from moeva2_ijcai22_replication_tpu_torch.utils.config import get_dict_hash, load_config_file
+
+    grid = {**load_config_file(os.path.join(config_dir, name)), **(over or {})}
+    points = grid_points(grid)
+    out_dirs = sorted({cfg["dirs"]["results"] for _, cfg in points})
+    before = {d: set(os.listdir(d)) if os.path.isdir(d) else set() for d in out_dirs}
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with GridFailures() as failures:
+        n = quiet(rq.run, grid, **kwargs)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if n != len(points):
+        raise AssertionError(f"[grid] {name}: rq.run launched {n} points, the grid has {len(points)}")
+    written = {d: (set(os.listdir(d)) if os.path.isdir(d) else set()) - before[d] for d in out_dirs}
+    expected = {k: 0 for k in launches}
+    refused = []
+    for runner, cfg in points:
+        files = point_files(runner, cfg)
+        got = written[cfg["dirs"]["results"]] & files
+        if not got:
+            refused.append((runner, cfg))
+        elif got != files:
+            raise AssertionError(f"[grid] {name}: a point wrote {sorted(got)}, not {sorted(files)}")
+        for k, v in point_expected_launches(runner, cfg).items():
+            expected[k] += v
+    if not kwargs.get("use_subprocess"):
+        check_launches(launches, expected, f"the {name} grid")
+    evaluate_s = 0.0
+    for runner, cfg in points:
+        if (runner, cfg) in refused:
+            continue
+        out, mid, h = cfg["dirs"]["results"], point_mid_fix(runner, cfg), get_dict_hash(cfg)
+        with open(f"{out}/metrics_{mid}_{h}.json") as f:
+            metrics = json.load(f)
+        # a subprocess loads the kernel library during its attack; this
+        # process loaded it in phase 2
+        if metrics["config_hash"] != h or metrics["includes_compile"] != bool(kwargs.get("use_subprocess")):
+            raise AssertionError(f"[grid] {name}: {mid} {h}: hash {metrics['config_hash']}, includes_compile "
+                                 f"{metrics['includes_compile']} (use_subprocess {kwargs.get('use_subprocess')})")
+        rates = recomputed_rates(runner, cfg, np.load(f"{out}/x_attacks_{mid}_{h}.npy"))
+        if rates != point_rates(runner, metrics):
+            raise AssertionError(f"[grid] {name}: {mid} {h}: metrics {point_rates(runner, metrics)} != their "
+                                 f"recomputation {rates}")
+        evaluate_s += metrics["timings"].get("evaluate", 0.0)
+    report = {}
+    if not kwargs.get("use_subprocess") and grid.get("pipeline", True):
+        with open(f"{out_dirs[0]}/grid_report_{get_dict_hash(grid)}.json") as f:
+            report = json.load(f)
+        want = (len(points), len(points), 0, len(points), len(refused))
+        got = (report["points_total"], report["points_launched"], report["points_skipped"],
+               report["writer"]["submitted"], len(report["writer"]["failures"]))
+        if got != want:
+            raise AssertionError(f"[grid] {name}: the report's (total, launched, skipped, submitted, writer "
+                                 f"failures) {got} != the grid's {want}")
+    lines = check_grid_refusals(name, refused, failures.records)
+    report.update(points=points, launches=launches, refused=len(refused), wall_s=wall_s, lines=lines,
+                  evaluate_sum_s=evaluate_s, checks_s=time.perf_counter() - t0 - wall_s)
+    return report
+
+
+def point_outputs(runner: str, cfg: dict, out: str | None = None):
+    """``(x_attacks, rates)`` the point of ``cfg`` wrote to ``out`` (its
+    results directory by default), or None when it wrote no metrics."""
+    from moeva2_ijcai22_replication_tpu_torch.utils.config import get_dict_hash
+
+    out, mid, h = out or cfg["dirs"]["results"], point_mid_fix(runner, cfg), get_dict_hash(cfg)
+    if not os.path.exists(f"{out}/metrics_{mid}_{h}.json"):
+        return None
+    with open(f"{out}/metrics_{mid}_{h}.json") as f:
+        return np.load(f"{out}/x_attacks_{mid}_{h}.npy"), point_rates(runner, json.load(f))
+
+
+def same_outputs(a, b) -> bool:
+    """Whether two ``point_outputs`` are equal, the arrays bit for bit."""
+    if a is None or b is None:
+        return a is b
+    return a[0].shape == b[0].shape and bool(same_entries_np(a[0], b[0]).all()) and a[1] == b[1]
+
+
+def check_standalone(tag: str, runner: str, cfg: dict, tmp: str) -> None:
+    """A grid point against the standalone runner on a fresh engine
+    (``ENGINES`` cleared), in a results directory of its own: the same
+    ``x_attacks`` bit for bit and the same rates."""
+    import copy
+
+    from moeva2_ijcai22_replication_tpu_torch.experiments import common, moeva, pgd
+
+    alone = copy.deepcopy(cfg)
+    alone["dirs"]["results"] = f"{tmp}/alone/{len(os.listdir(tmp))}"
+    common.ENGINES.clear()
+    quiet((moeva if runner == "moeva" else pgd).run, alone)
+    got, want = point_outputs(runner, cfg), point_outputs(runner, alone)
+    if common.ENGINES.stats()["engines"] != 1 or want is None or not same_outputs(got, want):
+        raise AssertionError(f"[grid] {tag}: the grid point differs from the standalone runner on a fresh engine")
+    log(f"[grid] {tag}: x_attacks and rates equal the standalone runner's on a fresh engine, bit for bit")
+
+
+def point_state(d: str) -> dict:
+    """``dir_state`` of a results directory without its grid reports."""
+    return {k: v for k, v in dir_state(d).items() if not k.startswith("grid_report_")}
+
+
+def move_aside(d: str, suffix: str) -> str:
+    moved = d.rstrip("/") + suffix
+    os.rename(d, moved)
+    return moved
+
+
+def run_grids(smi: str) -> dict:
+    """Phase 13: the ten grid files of ``config/`` through
+    ``experiments.rq.run`` on the card, over phases 10-12's synthetic
+    artifacts (``write_grid_config_dir``, ``GRID_CUTS``), with ``run_grid``'s
+    checks; then rq2.lcld again, which skips every point; two points against
+    the standalone runner on a fresh engine (a MoEvA point served by a
+    cached engine, a PGD point at a grid's second ε on a cached engine);
+    rq2.botnet in subprocesses and rq2.lcld with ``pipeline: false`` (then
+    pipelined again), each against the pipelined run. Returns the launches
+    summed over the ten grids."""
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.experiments import rq
+    from moeva2_ijcai22_replication_tpu_torch.utils.config import load_config_file
+
+    t0 = time.perf_counter()
+    total = {k: 0 for k in kernels.launch_counts()}
+    with tempfile.TemporaryDirectory() as tmp:
+        art = f"{tmp}/artifacts"
+        write_grid_artifacts(art)
+        config_dir = write_grid_config_dir(tmp, art)
+        reports = {}
+        for name in GRID_FILES:
+            rep = reports[name] = run_grid(name, config_dir)
+            for k, v in rep["launches"].items():
+                total[k] += v
+            for line in rep["lines"]:
+                log(line)
+            log(f"[grid] {name}: {len(rep['points'])} points ({rep['refused']} refused), grid_wallclock_s "
+                f"{rep['grid_wallclock_s']}, attack_run_s {rep['attack_run_s']}, evaluate_s {rep['evaluate_s']}, "
+                f"setup_s {rep['setup_s']}, write_s {rep['write_s']}, engine cache {rep['engine_cache']}, "
+                f"artifact cache {rep['artifact_cache']}, cold {rep['cold']}; checks {rep['checks_s']:.1f} s; "
+                f"launches "
+                f"{({k: v for k, v in rep['launches'].items() if v})} as its points imply; every point's files "
+                f"written, its metrics equal to their recomputation; on {smi}")
+
+        rq2 = load_config_file(f"{config_dir}/rq2.lcld.yaml")
+        points = grid_points(rq2)
+        out = points[0][1]["dirs"]["results"]
+        state = point_state(out)
+        kernels.reset_launch_counts()
+        runner = rq.GridRunner(rq2)
+        quiet(runner.run)
+        rep = runner.report
+        if (rep["points_skipped"], rep["points_launched"], rep["writer"]["submitted"]) != (len(points), 0, 0) or \
+                any(kernels.launch_counts().values()) or point_state(out) != state:
+            raise AssertionError(f"[grid] rq2.lcld again: {rep['points_skipped']} of {len(points)} points skipped, "
+                                 f"{rep['writer']['submitted']} submitted, launches {kernels.launch_counts()}")
+        log(f"[grid] rq2.lcld.yaml again: all {len(points)} points skipped; nothing launched, no point written")
+
+        if reports["sm1.1.lcld.yaml"]["engine_cache"]["misses"] != 0:
+            raise AssertionError("[grid] sm1.1.lcld's MoEvA points were not all served by a cached engine")
+        sm11 = grid_points(load_config_file(f"{config_dir}/sm1.1.lcld.yaml"))
+        check_standalone(f"sm1.1.lcld MoEvA budget {sm11[0][1]['budget']}, served by a cached engine", *sm11[0], tmp)
+        sm12 = grid_points(load_config_file(f"{config_dir}/sm1.2.lcld.yaml"))
+        eps2 = sorted({cfg["eps"] for _, cfg in sm12}, key=[cfg["eps"] for _, cfg in sm12].index)[1]
+        point = next(p for p in sm12 if p[1]["eps"] == eps2 and p[1]["loss_evaluation"] == "flip")
+        check_standalone(f"sm1.2.lcld PGD flip budget {point[1]['budget']} at the grid's second eps {eps2}, on a "
+                         "cached engine", *point, tmp)
+
+        bot = grid_points(load_config_file(f"{config_dir}/rq2.botnet.yaml"))
+        bot_out = bot[0][1]["dirs"]["results"]
+        inproc = move_aside(bot_out, "_inprocess")
+        sub = run_grid("rq2.botnet.yaml", config_dir, use_subprocess=True)
+        names = sorted(os.listdir(bot_out))
+        want = sorted(f for f in os.listdir(inproc) if not f.startswith("grid_report_"))
+        if names != want or not all(same_outputs(point_outputs(r, c), point_outputs(r, c, inproc)) for r, c in bot):
+            raise AssertionError(f"[grid] rq2.botnet with use_subprocess=True wrote {names} (in process: {want}) or "
+                                 "other x_attacks or rates")
+        log(f"[grid] rq2.botnet.yaml with use_subprocess=True: {len(bot)} point(s) in {sub['wall_s']:.3f} s wall; "
+            "the same file names, x_attacks and rates as in process, bit for bit")
+
+        piped = move_aside(out, "_pipelined")
+        serial = run_grid("rq2.lcld.yaml", config_dir, {"pipeline": False})
+        names = sorted(os.listdir(out))
+        if names != sorted(f for f in os.listdir(piped) if not f.startswith("grid_report_")) or \
+                not all(same_outputs(point_outputs(r, c), point_outputs(r, c, piped)) for r, c in points):
+            raise AssertionError("[grid] rq2.lcld with pipeline: false differs from the pipelined run")
+        move_aside(out, "_serial")
+        again = run_grid("rq2.lcld.yaml", config_dir)
+        first = reports["rq2.lcld.yaml"]
+        log(f"[grid] rq2.lcld.yaml with pipeline: false gives the pipelined run's files, x_attacks and rates, bit for "
+            f"bit; wall s (evaluate spans summed): pipelined {first['wall_s']:.3f} ({first['evaluate_sum_s']:.3f}), "
+            f"serial {serial['wall_s']:.3f} ({serial['evaluate_sum_s']:.3f}), pipelined again {again['wall_s']:.3f} "
+            f"({again['evaluate_sum_s']:.3f}) on {smi}")
+    log(f"[grid] launches over the ten grids: {({k: v for k, v in total.items() if v})}; phase 13 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return total
 
 
 def main() -> int:
@@ -3372,8 +3856,13 @@ def main() -> int:
         if rec["name"] in botnet_aug_stage_times:
             rec["botnet_augmented_shapes"] = botnet_aug_stage_times[rec["name"]]
     launches["objective_botnet_aug"] = botnet_aug_launches["objective_botnet_aug"]
+    grid_launches = run_grids(smi)
+    idle = [name for name, n in grid_launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"phase 13's grids launched no {idle}")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
+        rec["grid_launches"] = grid_launches[rec["name"]]
         if not all(math.isfinite(rec[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"non-finite timing in {rec}")
     print(json.dumps({"kernels": records}))

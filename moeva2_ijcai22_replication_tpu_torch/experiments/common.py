@@ -1,18 +1,20 @@
 """Shared runner plumbing: artifact loading, skip-if-done, SAT builders.
 
-Port of the parts of ``experiments/common.py`` that the MoEvA and PGD
-runners call: the memoizing :class:`ArtifactCache`, :func:`metrics_path_for`
-and :func:`should_skip`, the loaders of constraints, candidates, scaler and
-surrogate, :func:`get_sat_builder`, :func:`evaluation_constraints` and the
-runners' ``reconstruction`` (:func:`reconstruct`).
+Port of the parts of ``experiments/common.py`` that the runners and the
+grid runner call: the memoizing :class:`ArtifactCache` and the engine cache
+:class:`EngineCache` (``ENGINES``: one engine per static config, shared by
+the points of a grid), :func:`metrics_path_for` and :func:`should_skip`, the
+loaders of constraints, candidates, scaler and surrogate,
+:func:`get_sat_builder`, :func:`evaluation_constraints` and the runners'
+``reconstruction`` (:func:`reconstruct`).
 
 The scaler's suffix picks its format: ``.joblib`` (an sklearn
 ``MinMaxScaler``, read through joblib on the CPU, as the JAX package reads
 it) or ``.npz`` (``models.scalers.save_npz``, numpy alone: the format a
 machine without sklearn reads).
 
-Not ported yet: the engine cache, the bucket menu and ``pad_states`` (ROADMAP
-A7, A12, A13) and the cold-start hook of the artifact cache (A14). A device
+Not ported yet: the bucket menu and ``pad_states`` (ROADMAP A7, A13) and
+the cold-start hook of the artifact cache (A14). A device
 mesh and the JAX compilation cache have no counterpart on one card:
 ``system.mesh_devices`` other than 0 is refused (:func:`refuse_knobs`).
 """
@@ -38,12 +40,19 @@ class ArtifactCache:
 
     An entry is valid while every file it was built from keeps its
     (mtime_ns, size) stamp; a touched or rewritten file invalidates exactly
-    that entry on the next lookup. Lookups are serialized, so that a racing
-    miss never builds twice."""
+    that entry on the next lookup. ``hits``, ``misses`` and ``evictions``
+    (a rebuild because a file changed under a live key) feed the grid
+    report. Lookups are serialized: a grid's background writer and its
+    launching thread look up at once, and a racing miss must never build
+    twice (a second constraints object would change a later ``id()``-keyed
+    engine key)."""
 
     def __init__(self):
         self._entries: dict = {}
         self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
 
     @staticmethod
     def _stamp(paths: tuple) -> tuple:
@@ -58,10 +67,18 @@ class ArtifactCache:
         with self._lock:
             entry = self._entries.get(key)
             if entry is not None and entry[0] == stamp:
+                self.hits += 1
                 return entry[1]
+            if entry is not None:
+                self.evictions += 1
+            self.misses += 1
             value = builder()
             self._entries[key] = (stamp, value)
             return value
+
+    def stats(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses, "evictions": self.evictions,
+                "entries": len(self._entries)}
 
     def clear(self):
         self._entries.clear()
@@ -69,6 +86,72 @@ class ArtifactCache:
 
 #: process-wide artifact cache: one disk read per artifact per process
 ARTIFACTS = ArtifactCache()
+
+
+class EngineCache:
+    """Attack engines keyed by their static config.
+
+    An engine holds its model copy and tables on the device, so the points
+    of a grid that share a static config share one engine; per-point knobs
+    (seed, MoEvA's ``n_gen``) are set again on the cached instance, and PGD
+    takes ε and its budget per call. A key holds every constructor argument
+    that shapes the engine. ``hits`` and ``misses`` feed the grid report; a
+    miss beside a cached key of the same family records which of the key's
+    ``fields`` differed (``recompile_causes``, the newest ``MAX_CAUSES``).
+
+    :meth:`stats` reports ``hits``, ``misses`` and ``engines``. The JAX
+    package's ``traces`` (programs its engines traced) has no counterpart:
+    the port's engines trace nothing, and the kernel library they load once
+    is counted by ``PhaseTimer`` as ``library_loads``."""
+
+    MAX_CAUSES = 32
+
+    def __init__(self):
+        self._engines: dict = {}
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.recompile_causes: list[dict] = []
+
+    def get(self, key: tuple, builder, fields: tuple | None = None):
+        """The engine under ``key``, built by ``builder()`` on a miss;
+        ``fields`` names the key's positions for ``recompile_causes``."""
+        with self._lock:
+            engine = self._engines.get(key)
+            if engine is not None:
+                self.hits += 1
+                return engine
+            self.misses += 1
+            cause = self._recompile_cause(key, fields)
+            if cause is not None:
+                self.recompile_causes.append(cause)
+                del self.recompile_causes[: -self.MAX_CAUSES]
+            engine = self._engines[key] = builder()
+            return engine
+
+    def _recompile_cause(self, key: tuple, fields: tuple | None) -> dict | None:
+        """The fields in which ``key`` differs from the cached key of its
+        family that differs in the fewest; None when none is cached."""
+        names = list(fields or ())
+        name = lambda i: names[i] if i < len(names) else f"field_{i}"  # noqa: E731
+        best = None
+        for k in self._engines:
+            if k[0] != key[0] or len(k) != len(key):
+                continue
+            changed = {name(i): {"from": repr(k[i]), "to": repr(key[i])} for i in range(len(key)) if k[i] != key[i]}
+            if best is None or len(changed) < len(best):
+                best = changed
+        return None if best is None else {"family": str(key[0]), "changed": best}
+
+    def stats(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses, "engines": len(self._engines)}
+
+    def clear(self):
+        self._engines.clear()
+
+
+#: process-wide engine cache, shared by every grid of the process
+ENGINES = EngineCache()
 
 
 def refuse_knobs(config: dict, refused: dict) -> None:
@@ -93,10 +176,12 @@ def metrics_path_for(config: dict, mid_fix: str) -> str:
     return f"{out_dir}/metrics_{mid_fix}_{get_dict_hash(config)}.json"
 
 
-def should_skip(config: dict, mid_fix: str) -> bool:
+def should_skip(config: dict, mid_fix: str, pipeline=None) -> bool:
     """Config-hash idempotency: a metrics file for this exact config means
-    the experiment already ran."""
-    if os.path.exists(metrics_path_for(config, mid_fix)):
+    the experiment already ran. Under a grid pipeline a metrics file still
+    queued on the background writer skips too."""
+    path = metrics_path_for(config, mid_fix)
+    if os.path.exists(path) or (pipeline is not None and pipeline.is_pending(path)):
         print(f"Configuration with hash {get_dict_hash(config)} already executed. Skipping")
         return True
     return False

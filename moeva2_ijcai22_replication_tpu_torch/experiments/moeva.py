@@ -26,10 +26,18 @@ The JAX package's compilation-cache and telemetry switches
 (``system.jax_cache_dir``, ``aot_cache``, ``cost_ledger``,
 ``mesh_telemetry``, ``gap_telemetry``) have nothing to switch in the port.
 
-Run one config from the command line (``-c`` file, ``-j`` inline JSON,
-``-p`` dotted overrides)::
+Grid scale (the JAX runner's): the engine comes from ``common.ENGINES``,
+keyed by its static config, so the points of a grid that differ only in
+seed or budget share it (:func:`_cached_engine`); with a grid's
+``pipeline`` the run splits into the attack, on the calling thread, and a
+``finalize`` closure (save, evaluate per ε, stream, metrics last) that the
+grid's background writer runs while the card attacks the next point.
 
-    python3 -m moeva2_ijcai22_replication_tpu_torch.experiments.moeva -j '<json>'
+Run one config from the command line (``-c`` file, ``-j`` inline JSON,
+``-p`` dotted overrides; ``--device`` and ``--dtype``, default ``cuda`` and
+``float32``)::
+
+    python3 -m moeva2_ijcai22_replication_tpu_torch.experiments.moeva -j '<json>' [--device cpu]
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ import torch
 from .. import resolve_device
 from ..attacks.moeva import Moeva2
 from ..attacks.objective import ObjectiveCalculator
-from ..utils.config import get_dict_hash, parse_config, save_config
+from ..utils.config import get_dict_hash, parse_run_args, save_config
 from ..utils.in_out import json_to_file, save_to_file
 from ..utils.observability import PhaseTimer
 from ..utils.streaming import stream_for
@@ -62,29 +70,40 @@ def refuse_knobs(config: dict) -> None:
     })
 
 
-def run(config: dict, device="cuda", dtype=torch.float32):
-    """Run one MoEvA2 experiment; the metrics dict, or None when the config
-    hash already has results."""
-    refuse_knobs(config)
-    device = resolve_device(device)
-    out_dir = config["dirs"]["results"]
-    config_hash = get_dict_hash(config)
-    mid_fix = f"{config['attack_name']}"
-    metrics_path = common.metrics_path_for(config, mid_fix)
-    if common.should_skip(config, mid_fix):
-        return None
+def _cached_engine(config, surrogate, constraints, scaler, device, dtype) -> Moeva2:
+    """The engine shared by the grid points with the same static config,
+    under the JAX runner's key fields (``_cached_engine``) and the engine's
+    device and dtype. ``n_gen`` and ``seed`` only steer the host loop of
+    ``generate``, which seeds its generator from ``seed`` on every call:
+    they are set per point, not keyed."""
+    fields = (
+        "engine", "surrogate", "constraints", "scaler", "norm", "n_pop",
+        "n_offsprings", "init", "init_eps", "init_ratio", "archive_size",
+        "assoc_block", "max_states_per_call", "save_history", "mesh_devices",
+        "device", "dtype",
+    )
+    key = (
+        "moeva",
+        id(surrogate),
+        id(constraints),
+        id(scaler),
+        str(config["norm"]),
+        config["n_pop"],
+        config["n_offsprings"],
+        config.get("init", "tile"),
+        config.get("init_eps", 0.1),
+        config.get("init_ratio", 0.5),
+        config.get("archive_size", 0),
+        config.get("assoc_block") or None,
+        config.get("max_states_per_call") or None,
+        config.get("save_history") or None,
+        int(config.get("system", {}).get("mesh_devices", 0) or 0),
+        str(device),
+        str(dtype),
+    )
 
-    os.makedirs(out_dir, exist_ok=True)
-    print(config)
-    timer = PhaseTimer()
-
-    with timer.phase("setup"):
-        constraints = common.load_constraints(config)
-        x_initial_states = common.load_candidates(config)
-        scaler = common.load_scaler(config)
-        surrogate = common.load_surrogate(config)
-        constraints.check_constraints_error(x_initial_states)
-        moeva = Moeva2(
+    def build():
+        return Moeva2(
             classifier=surrogate,
             constraints=constraints,
             ml_scaler=scaler,
@@ -100,65 +119,111 @@ def run(config: dict, device="cuda", dtype=torch.float32):
             device=device,
         )
 
+    return common.ENGINES.get(key, build, fields=fields)
+
+
+def run(config: dict, pipeline=None, device="cuda", dtype=torch.float32):
+    """Run one MoEvA2 experiment; the metrics dict, or None when the config
+    hash already has results, or when ``pipeline`` (a grid's
+    :class:`.pipeline.GridPipeline`) is given: the evaluation and the
+    writes then run on the grid's background writer, which the grid drains
+    before it returns."""
+    refuse_knobs(config)
+    device = resolve_device(device)
+    out_dir = config["dirs"]["results"]
+    config_hash = get_dict_hash(config)
+    mid_fix = f"{config['attack_name']}"
+    metrics_path = common.metrics_path_for(config, mid_fix)
+    if common.should_skip(config, mid_fix, pipeline):
+        if pipeline is not None:
+            pipeline.point(mid_fix, config_hash, None, skipped=True)
+        return None
+
+    os.makedirs(out_dir, exist_ok=True)
+    print(config)
+    timer = PhaseTimer()
+
+    with timer.phase("setup"):
+        constraints = common.load_constraints(config)
+        x_initial_states = common.load_candidates(config)
+        scaler = common.load_scaler(config)
+        surrogate = common.load_surrogate(config)
+        constraints.check_constraints_error(x_initial_states)
+        moeva = _cached_engine(config, surrogate, constraints, scaler, device, dtype)
+        # the point's own knobs on the cached engine
+        moeva.n_gen = config["budget"]
+        moeva.seed = config["seed"]
+
     start_time = time.time()
     with timer.attack():
         result = moeva.generate(x_initial_states, 1)
     consumed_time = time.time() - start_time
+    # host arrays only from here: generate returned numpy after the device
+    # finished, so the writer thread never touches the card
     x_attacks = result.x_ml
     if config.get("reconstruction"):
         x_attacks = common.reconstruct(x_attacks, constraints)
-
-    with timer.phase("write"):
-        save_to_file(x_attacks, f"{out_dir}/x_attacks_{mid_fix}_{config_hash}.npy")
-
-    with timer.phase("evaluate"):
-        calc = ObjectiveCalculator(
-            classifier=surrogate,
-            constraints=common.evaluation_constraints(config, constraints),
-            thresholds={"f1": config["misclassification_threshold"], "f2": 0.0},
-            min_max_scaler=scaler,
-            ml_scaler=scaler,
-            minimize_class=1,
-            norm=config["norm"],
-        )
-        # [cv, f1, f2] does not depend on ε: evaluate once, threshold per ε
-        vals = calc.objectives(x_initial_states, x_attacks)
-        objective_lists = []
-        for eps in config["eps_list"]:
-            calc.thresholds = {"f1": config["misclassification_threshold"], "f2": eps}
-            objective_lists.append(calc.success_rate_3d_record(x_initial_states, x_attacks, vals))
-
-    with timer.phase("write"):
-        with stream_for(config, mid_fix, config_hash) as stream:
-            stream.log_parameters(config)
-            stream.log_metric("time", consumed_time)
-            for eps, objectives in zip(config["eps_list"], objective_lists):
-                for k, v in objectives.items():
-                    stream.log_metric(f"eps{eps}_{k}", v)
-
-    # assembled after the write phase, so that 'timings' holds its spans;
-    # the metrics JSON still lands last
-    metrics = {
-        "objectives_list": objective_lists,
-        "time": consumed_time,
-        # the attack's span includes building or loading the kernel library
-        # when this call was the process's first
-        "includes_compile": "attack_compile" in timer.spans,
-        "execution": {
-            "max_states_per_call": moeva.max_states_per_call,
-            "mesh": None,
-            "early_stop_check_every": 0,
-            "gens_executed": int(result.gens_executed),
-        },
-        "timings": timer.spans,
-        "counters": timer.counters,
-        "config": config,
-        "config_hash": config_hash,
+    execution = {
+        "max_states_per_call": moeva.max_states_per_call,
+        "mesh": None,
+        "early_stop_check_every": 0,
+        "gens_executed": int(result.gens_executed),
     }
-    save_config(config, f"{out_dir}/config_{mid_fix}_")
-    json_to_file(metrics, metrics_path)
-    return metrics
+
+    def finalize():
+        with timer.phase("write"):
+            save_to_file(x_attacks, f"{out_dir}/x_attacks_{mid_fix}_{config_hash}.npy")
+
+        with timer.phase("evaluate"):
+            calc = ObjectiveCalculator(
+                classifier=surrogate,
+                constraints=common.evaluation_constraints(config, constraints),
+                thresholds={"f1": config["misclassification_threshold"], "f2": 0.0},
+                min_max_scaler=scaler,
+                ml_scaler=scaler,
+                minimize_class=1,
+                norm=config["norm"],
+            )
+            # [cv, f1, f2] does not depend on ε: evaluate once, threshold per ε
+            vals = calc.objectives(x_initial_states, x_attacks)
+            objective_lists = []
+            for eps in config["eps_list"]:
+                calc.thresholds = {"f1": config["misclassification_threshold"], "f2": eps}
+                objective_lists.append(calc.success_rate_3d_record(x_initial_states, x_attacks, vals))
+
+        with timer.phase("write"):
+            with stream_for(config, mid_fix, config_hash) as stream:
+                stream.log_parameters(config)
+                stream.log_metric("time", consumed_time)
+                for eps, objectives in zip(config["eps_list"], objective_lists):
+                    for k, v in objectives.items():
+                        stream.log_metric(f"eps{eps}_{k}", v)
+
+        # assembled after the write phase, so that 'timings' holds its spans;
+        # the metrics JSON still lands last
+        metrics = {
+            "objectives_list": objective_lists,
+            "time": consumed_time,
+            # the attack's span includes building or loading the kernel
+            # library when this call was the process's first
+            "includes_compile": "attack_compile" in timer.spans,
+            "execution": execution,
+            "timings": timer.spans,
+            "counters": timer.counters,
+            "config": config,
+            "config_hash": config_hash,
+        }
+        save_config(config, f"{out_dir}/config_{mid_fix}_")
+        json_to_file(metrics, metrics_path)
+        return metrics
+
+    if pipeline is not None:
+        pipeline.point(mid_fix, config_hash, timer)
+        pipeline.submit(mid_fix, metrics_path, finalize)
+        return None
+    return finalize()
 
 
 if __name__ == "__main__":
-    run(parse_config())
+    _config, _args = parse_run_args()
+    run(_config, **_args)

@@ -23,10 +23,18 @@ re-derives the augmented columns of the attacked rows after the rounding
 and the MILP repair, before the attack's time is taken
 (:func:`common.reconstruct`).
 
-Run one config from the command line (``-c`` file, ``-j`` inline JSON,
-``-p`` dotted overrides)::
+Grid scale (the JAX runner's): the engine comes from ``common.ENGINES``,
+keyed by its static config, so an ε or budget sweep at one loss shares it
+(:func:`_cached_attack`); with a grid's ``pipeline`` the run splits into
+the attack (with the MILP repair), on the calling thread, and a
+``finalize`` closure (evaluate, save, stream, CSV, metrics last) that the
+grid's background writer runs while the card attacks the next point.
 
-    python3 -m moeva2_ijcai22_replication_tpu_torch.experiments.pgd -j '<json>'
+Run one config from the command line (``-c`` file, ``-j`` inline JSON,
+``-p`` dotted overrides; ``--device`` and ``--dtype``, default ``cuda`` and
+``float32``)::
+
+    python3 -m moeva2_ijcai22_replication_tpu_torch.experiments.pgd -j '<json>' [--device cpu]
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ from ..attacks.objective import ObjectiveCalculator, write_success_rate_csv
 from ..attacks.pgd import ConstrainedPGD, round_ints_toward_initial
 from ..attacks.sat import SatAttack
 from ..models.io import Surrogate
-from ..utils.config import get_dict_hash, parse_config, save_config
+from ..utils.config import get_dict_hash, parse_run_args, save_config
 from ..utils.in_out import json_to_file
 from ..utils.observability import PhaseTimer
 from ..utils.streaming import stream_for
@@ -68,16 +76,71 @@ def surrogate_labels(surrogate: Surrogate, x_scaled: np.ndarray, device, dtype) 
         return Surrogate(model).predict_proba(x).argmax(-1).cpu().numpy()
 
 
-def run(config: dict, device="cuda", dtype=torch.float32):
+def _cached_attack(config, surrogate, constraints, scaler, device, dtype) -> ConstrainedPGD:
+    """The engine shared by the grid points with the same static config,
+    under the JAX runner's key fields (``_cached_attack``) and the engine's
+    device and dtype. ε, the step and the budget are arguments of
+    ``generate``, and ``seed`` seeds the random starts' generator on every
+    call, so none is keyed; the budget is, as in JAX, where a loss history
+    is recorded."""
+    record_loss = config.get("save_history") or None
+    fields = (
+        "engine", "surrogate", "constraints", "scaler", "budget", "norm",
+        "loss_evaluation", "constraints_optim", "num_random_init",
+        "record_loss", "record_grad_norm", "mesh_devices", "device", "dtype",
+    )
+    key = (
+        ConstrainedPGD.__name__,
+        id(surrogate),
+        id(constraints),
+        id(scaler),
+        int(config["budget"]) if record_loss else None,
+        str(config["norm"]),
+        config["loss_evaluation"],
+        config.get("constraints_optim", "sum"),
+        config.get("nb_random", 0),
+        record_loss,
+        bool(config.get("save_grad_norm")),
+        int(config.get("system", {}).get("mesh_devices", 0) or 0),
+        str(device),
+        str(dtype),
+    )
+
+    def build():
+        return ConstrainedPGD(
+            classifier=surrogate,
+            constraints=constraints,
+            scaler=scaler,
+            max_iter=int(config["budget"]),
+            norm=config["norm"],
+            loss_evaluation=config["loss_evaluation"],
+            constraints_optim=config.get("constraints_optim", "sum"),
+            num_random_init=config.get("nb_random", 0),
+            record_loss=record_loss,
+            record_grad_norm=bool(config.get("save_grad_norm")),
+            seed=config["seed"],
+            dtype=dtype,
+            device=device,
+        )
+
+    return common.ENGINES.get(key, build, fields=fields)
+
+
+def run(config: dict, pipeline=None, device="cuda", dtype=torch.float32):
     """Run one gradient-attack experiment; the metrics dict, or None when
-    the config hash already has results."""
+    the config hash already has results, or when ``pipeline`` (a grid's
+    :class:`.pipeline.GridPipeline`) is given: the evaluation and the
+    writes then run on the grid's background writer, which the grid drains
+    before it returns."""
     refuse_knobs(config)
     device = resolve_device(device)
     out_dir = config["dirs"]["results"]
     config_hash = get_dict_hash(config)
     mid_fix = f"{config['attack_name']}_{config['loss_evaluation']}"
     metrics_path = common.metrics_path_for(config, mid_fix)
-    if common.should_skip(config, mid_fix):
+    if common.should_skip(config, mid_fix, pipeline):
+        if pipeline is not None:
+            pipeline.point(mid_fix, config_hash, None, skipped=True)
         return None
 
     os.makedirs(out_dir, exist_ok=True)
@@ -91,21 +154,8 @@ def run(config: dict, device="cuda", dtype=torch.float32):
         scaler = common.load_scaler(config)
         surrogate = common.load_surrogate(config)
         constraints.check_constraints_error(x_initial)
-        attack = ConstrainedPGD(
-            classifier=surrogate,
-            constraints=constraints,
-            scaler=scaler,
-            max_iter=int(config["budget"]),
-            norm=config["norm"],
-            loss_evaluation=config["loss_evaluation"],
-            constraints_optim=config.get("constraints_optim", "sum"),
-            num_random_init=config.get("nb_random", 0),
-            record_loss=config.get("save_history") or None,
-            record_grad_norm=bool(config.get("save_grad_norm")),
-            seed=config["seed"],
-            dtype=dtype,
-            device=device,
-        )
+        attack = _cached_attack(config, surrogate, constraints, scaler, device, dtype)
+        attack.seed = config["seed"]
 
     start_time = time.time()
     # only half ε when SAT runs after (01_pgd_united.py:97)
@@ -116,6 +166,8 @@ def run(config: dict, device="cuda", dtype=torch.float32):
         x_scaled = scaler.transform(np.asarray(x_initial))
         y = surrogate_labels(surrogate, x_scaled, device, dtype)
         x_adv_scaled = attack.generate(x_scaled, y, eps=eps_run, eps_step=0.1, max_iter=int(config["budget"]))
+        # the run's own outputs, taken now: a cached engine attacks the next
+        # point while the writer still finalizes this one
         loss_history = attack.loss_history
         hist_names = attack.hist_column_names()
         x_attacks = np.asarray(scaler.inverse(x_adv_scaled))
@@ -140,55 +192,63 @@ def run(config: dict, device="cuda", dtype=torch.float32):
     if x_attacks.ndim == 2:
         x_attacks = x_attacks[:, np.newaxis, :]
 
-    with timer.phase("evaluate"):
-        calc = ObjectiveCalculator(
-            classifier=surrogate,
-            constraints=common.evaluation_constraints(config, constraints),
-            thresholds={"f1": config["misclassification_threshold"], "f2": config["eps"]},
-            min_max_scaler=scaler,
-            ml_scaler=scaler,
-            minimize_class=1,
-            norm=config["norm"],
-        )
-        objectives = calc.success_rate_3d_record(x_initial, x_attacks)
-    print(objectives)
+    def finalize():
+        with timer.phase("evaluate"):
+            calc = ObjectiveCalculator(
+                classifier=surrogate,
+                constraints=common.evaluation_constraints(config, constraints),
+                thresholds={"f1": config["misclassification_threshold"], "f2": config["eps"]},
+                min_max_scaler=scaler,
+                ml_scaler=scaler,
+                minimize_class=1,
+                norm=config["norm"],
+            )
+            objectives = calc.success_rate_3d_record(x_initial, x_attacks)
+        print(objectives)
 
-    with timer.phase("write"):
-        np.save(f"{out_dir}/x_attacks_{mid_fix}_{config_hash}.npy", x_attacks)
-        if config.get("save_history") and loss_history is not None:
-            # (N, max_iter, 1, C) loss-component curves (01_pgd_united.py:196-199)
-            np.save(f"{out_dir}/x_history_{config_hash}.npy", loss_history[:, :, np.newaxis, :])
-        with stream_for(config, mid_fix, config_hash) as stream:
-            stream.log_parameters(config)
-            stream.log_metric("time", consumed_time)
-            for k, v in objectives.items():
-                stream.log_metric(k, v)
-            if loss_history is not None:
-                mean_curves = loss_history.mean(axis=0)  # (max_iter, C)
-                scalar = {"loss", "loss_class", "cons_sum", "grad_norm"}
-                for j, name in enumerate(hist_names):
-                    if name in scalar:  # not the per-constraint g1..gK columns
-                        stream.log_series(f"mean_{name}", mean_curves[:, j])
-        write_success_rate_csv(objectives, f"{out_dir}/success_rate_{mid_fix}_{config_hash}.csv")
+        with timer.phase("write"):
+            np.save(f"{out_dir}/x_attacks_{mid_fix}_{config_hash}.npy", x_attacks)
+            if config.get("save_history") and loss_history is not None:
+                # (N, max_iter, 1, C) loss-component curves (01_pgd_united.py:196-199)
+                np.save(f"{out_dir}/x_history_{config_hash}.npy", loss_history[:, :, np.newaxis, :])
+            with stream_for(config, mid_fix, config_hash) as stream:
+                stream.log_parameters(config)
+                stream.log_metric("time", consumed_time)
+                for k, v in objectives.items():
+                    stream.log_metric(k, v)
+                if loss_history is not None:
+                    mean_curves = loss_history.mean(axis=0)  # (max_iter, C)
+                    scalar = {"loss", "loss_class", "cons_sum", "grad_norm"}
+                    for j, name in enumerate(hist_names):
+                        if name in scalar:  # not the per-constraint g1..gK columns
+                            stream.log_series(f"mean_{name}", mean_curves[:, j])
+            write_success_rate_csv(objectives, f"{out_dir}/success_rate_{mid_fix}_{config_hash}.csv")
 
-    # assembled after the write phase, so that 'timings' holds its span; the
-    # metrics JSON still lands last
-    metrics = {
-        "objectives": objectives,
-        "time": consumed_time,
-        # the attack's span includes building or loading the kernel library
-        # when this call was the process's first
-        "includes_compile": "attack_compile" in timer.spans,
-        "execution": {"max_states_per_call": None, "mesh": None},  # PGD runs one batch
-        "timings": timer.spans,
-        "counters": timer.counters,
-        "config": config,
-        "config_hash": config_hash,
-    }
-    save_config(config, f"{out_dir}/config_{mid_fix}_")
-    json_to_file(metrics, metrics_path)
-    return metrics
+        # assembled after the write phase, so that 'timings' holds its span;
+        # the metrics JSON still lands last
+        metrics = {
+            "objectives": objectives,
+            "time": consumed_time,
+            # the attack's span includes building or loading the kernel
+            # library when this call was the process's first
+            "includes_compile": "attack_compile" in timer.spans,
+            "execution": {"max_states_per_call": None, "mesh": None},  # PGD runs one batch
+            "timings": timer.spans,
+            "counters": timer.counters,
+            "config": config,
+            "config_hash": config_hash,
+        }
+        save_config(config, f"{out_dir}/config_{mid_fix}_")
+        json_to_file(metrics, metrics_path)
+        return metrics
+
+    if pipeline is not None:
+        pipeline.point(mid_fix, config_hash, timer)
+        pipeline.submit(mid_fix, metrics_path, finalize)
+        return None
+    return finalize()
 
 
 if __name__ == "__main__":
-    run(parse_config())
+    _config, _args = parse_run_args()
+    run(_config, **_args)

@@ -62,15 +62,15 @@ def load_config_file(path: str) -> dict:
     raise ValueError(f"Unknown config extension {ext!r} for {path}")
 
 
-def parse_config(argv=None) -> dict:
-    """A config dict from ``-c``/``-j``/``-p`` arguments: files, then inline
-    JSON, then dotted overrides, each group in the order given."""
+def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument("-c", action="append", help="config file (yaml or json)")
     parser.add_argument("-j", action="append", help="inline json")
     parser.add_argument("-p", action="append", help="dotted key.sub=value override")
-    args = parser.parse_args(argv)
+    return parser
 
+
+def _config_of(args) -> dict:
     config: dict = {}
     for path in args.c or []:
         merge_config(config, load_config_file(path))
@@ -80,6 +80,31 @@ def parse_config(argv=None) -> dict:
         key, _, raw = kv.partition("=")
         merge_config(config, dotted_to_dict(key, value_parser(raw)))
     return config
+
+
+def parse_config(argv=None) -> dict:
+    """A config dict from ``-c``/``-j``/``-p`` arguments: files, then inline
+    JSON, then dotted overrides, each group in the order given."""
+    return _config_of(_parser().parse_args(argv))
+
+
+#: the ``--dtype`` names of the entry points' command lines
+DTYPES = ("float32", "float64")
+
+
+def parse_run_args(argv=None) -> tuple[dict, dict]:
+    """``(config, run arguments)`` of an entry point's command line: the
+    config as :func:`parse_config` builds it, and ``device`` (``--device``,
+    default ``cuda``) and ``dtype`` (``--dtype``, default ``float32``, as a
+    ``torch.dtype``). The device and dtype are arguments, never config
+    keys, so the config hash stays the JAX package's."""
+    import torch
+
+    parser = _parser()
+    parser.add_argument("--device", default="cuda", help="torch device to run on (default: the card)")
+    parser.add_argument("--dtype", default="float32", choices=DTYPES, help="the attack's float type")
+    args = parser.parse_args(argv)
+    return _config_of(args), {"device": args.device, "dtype": getattr(torch, args.dtype)}
 
 
 def get_dict_hash(config: dict) -> str:

@@ -9,6 +9,11 @@ for is the kernel library: :meth:`PhaseTimer.attack` puts the span under
 (``kernels.build.library``'s cache went from empty to full) and under
 ``attack_run`` otherwise.
 
+A grid point's timer is shared by two threads: the launching thread adds
+``setup`` and the attack's spans, the grid's background writer then adds
+``evaluate`` and ``write``; :meth:`PhaseTimer.add` and :meth:`PhaseTimer.count`
+take a lock, so the spans sum as in a serial run.
+
 ``ServiceMetrics`` (serving) and ``maybe_profile`` (profiler traces) are not
 ported yet; a config that sets ``system.profile_dir`` is refused by the
 runners.
@@ -17,6 +22,7 @@ runners.
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 
 
@@ -33,6 +39,7 @@ class PhaseTimer:
     def __init__(self):
         self.spans: dict[str, float] = {}
         self.counters: dict[str, int] = {}
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -43,10 +50,12 @@ class PhaseTimer:
             self.add(name, time.perf_counter() - t0)
 
     def add(self, name: str, seconds: float):
-        self.spans[name] = self.spans.get(name, 0.0) + seconds
+        with self._lock:
+            self.spans[name] = self.spans.get(name, 0.0) + seconds
 
     def count(self, name: str, n: int = 1):
-        self.counters[name] = self.counters.get(name, 0) + n
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0) + n
 
     @contextlib.contextmanager
     def attack(self, name: str = "attack"):

@@ -41,6 +41,7 @@ def test_port_has_every_module_of_the_slice():
         "utils.config", "utils.in_out", "utils.observability", "utils.streaming", "domains",
         "experiments.common", "experiments.moeva", "experiments.pgd", "attacks.sat",
         "attacks.sat.engine", "domains.lcld_sat", "domains.botnet_sat",
+        "experiments.rq", "experiments.pipeline", "experiments.run_all",
     ):
         assert f"{port.__name__}.{name}" in mods
 

@@ -1,11 +1,14 @@
-"""``chip_smoke.py`` phase 10 drives the repo's rq1 configs, not look-alikes.
+"""``chip_smoke.py`` phases 10-13 drive the repo's configs, not look-alikes.
 
-Its configs are dict literals in the script.
+Phases 10-12's configs are dict literals in the script.
 Composed by ``chip_smoke.runner_config``, each must equal what the grid
 runner composes from ``config/`` (``experiments/rq.py::_compose``: the
 attack's yaml, the project's static yaml, then seed and budget, then ε and
 the loss) at the rq1 grid point it stands for, apart from the artifact
-paths, the results directory and the one listed cut.
+paths, the results directory and the one listed cut. Phase 13 writes a
+``config_dir`` from ``config/``'s files, which must equal them apart from
+the artifact paths, the results directories, ``config_dir`` and its one
+listed cut.
 """
 
 from __future__ import annotations
@@ -121,3 +124,70 @@ def test_phase_12_config_is_the_repo_config():
     for key in ("paths", "dirs"):
         got.pop(key), want.pop(key)
     assert got == want
+
+
+PHASE_13_FILES = ["moeva.yaml", "pgd.yaml"] + [f"{s}.yaml" for s in (
+    "rq1.lcld.static", "rq1.botnet.static", "rq2.lcld.static", "rq2.botnet.static", "rq3.lcld.static",
+    "rq3.botnet.static", "sm1.lcld.static", "sm1.botnet.static")] + [
+    f"{q}.{d}.yaml" for q in ("rq1", "rq2", "rq3", "sm1.1", "sm1.2") for d in ("lcld", "botnet")]
+
+
+def _is_artifact(path: str) -> bool:
+    return path.startswith("/artifacts/") and not path.endswith((".model", ".joblib"))
+
+
+@pytest.mark.parametrize("name", PHASE_13_FILES)
+def test_phase_13_config_dir_is_the_repo_configs(tmp_path, name):
+    """Phase 13's ``config_dir``: ``moeva.yaml`` and ``pgd.yaml`` as they
+    are; every static and grid file of ``config/`` it runs equal to the
+    repo's apart from the artifact paths (each a synthetic artifact: a
+    ``.msgpack`` model, an ``.npz`` scaler), ``dirs.results``,
+    ``config_dir`` and the listed cuts."""
+    smoke = _smoke()
+    assert set(smoke.GRID_FILES) | {f"{s}.yaml" for s in smoke.GRID_STATICS} | {"moeva.yaml", "pgd.yaml"} == set(
+        PHASE_13_FILES)
+    out = smoke.write_grid_config_dir(str(tmp_path), "/artifacts")
+    assert sorted(os.listdir(out)) == sorted(PHASE_13_FILES)
+    with open(os.path.join(out, name), "rb") as f:
+        written = f.read()
+    with open(os.path.join(REPO, "config", name), "rb") as f:
+        repo = f.read()
+    if name in ("moeva.yaml", "pgd.yaml"):
+        assert written == repo
+        return
+    got = load_config_file(os.path.join(out, name))
+    want = load_config_file(os.path.join(REPO, "config", name))
+    if "static" in name:
+        assert set(got["paths"]) == set(want["paths"]) and all(_is_artifact(p) for p in got["paths"].values())
+        assert got["dirs"]["results"] == os.path.join(str(tmp_path), want["dirs"]["results"].removeprefix("./"))
+        for key in ("paths", "dirs"):
+            got.pop(key), want.pop(key)
+    else:
+        assert got.pop("config_dir") == out and want.pop("config_dir") == "./config/"
+        for g, w in zip(got.get("scenari", []), want.get("scenari", [])):
+            assert set(g["paths"]) == set(w["paths"]) and all(_is_artifact(p) for p in g["paths"].values())
+            assert g["evaluation"].pop("constraints") == g["paths"]["constraints"]
+            w["evaluation"].pop("constraints")
+            g.pop("paths"), w.pop("paths")
+        if "models" in want:
+            assert len(got["models"]) == len(want["models"])
+            assert all(_is_artifact(m) and m.endswith(".msgpack") for m in got.pop("models"))
+            want.pop("models")
+    for key, cut in smoke.GRID_CUTS.get(name, {}).items():
+        if isinstance(cut, tuple):
+            assert set(cut) <= set(want[key]) and not set(cut) & set(got[key])
+            assert got[key] == [v for v in want[key] if v not in cut]
+        else:
+            assert got[key] == cut and want[key] != cut
+        got[key] = want[key]
+    assert got == want
+
+
+def test_the_one_cut_of_phase_13_is_flip_sat():
+    """rq1.botnet keeps ``flip+sat``, so the grid path through the MILP
+    repair runs; every other grid with that loss drops it."""
+    assert _smoke().GRID_CUTS == {
+        "rq1.lcld.yaml": {"loss_evaluations": ("flip+sat",)},
+        "sm1.2.lcld.yaml": {"loss_evaluations": ("flip+sat",)},
+        "sm1.2.botnet.yaml": {"loss_evaluations": ("flip+sat",)},
+    }
