@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero:
 
 1. versions: torch, CUDA, and the card's name and power limit (nvidia-smi);
 2. build the port's nine CUDA kernels (K1 and K7 with an instantiation each
-   for the augmented LCLD domain, K8 one for the augmented botnet domain)
+   for the augmented LCLD domain, K7 two more for AutoPGD, K8 one for the
+   augmented botnet domain)
    from the sources in the checkout and
    print each kernel's ptxas registers, shared memory, stack frame and
    spill (none of the redesigned ones, ``REDESIGNED``, may spill);
@@ -178,7 +179,26 @@ Phases, in order; any failure exits non-zero:
    ε against the standalone runner on a fresh engine (bit for bit),
    rq2.botnet with ``use_subprocess=True`` and rq2.lcld with ``pipeline:
    false`` against the pipelined run (bit for bit), with the walls of the
-   pipelined, serial and pipelined-again rq2.lcld.
+   pipelined, serial and pipelined-again rq2.lcld;
+14. AutoPGD on LCLD and augmented LCLD (the ``[autopgd]`` lines): the ptxas
+   lines of K7's four instantiations (kPairs, kAuto); K7's AutoPGD
+   instantiation against ``autopgd_run_plain`` on the card, bit for bit
+   (x_best, the class there, the history, each row's final step), over
+   ``PGD_ROWS`` x ``AUTOPGD_ITERS`` x ``AUTOPGD_CONFIGS`` (phase 7's under
+   the ``autopgd+`` prefix) with phase 7's edge starts (at D = 57 the pair
+   terms' too), the step halved on some rows and kept on others at T >= 12;
+   timed at 4000 x 1000 (rq1's ``constraints+flip`` and, at D = 57, rq2's
+   loss under the prefix) beside base K7 at the same loss, the plain
+   version at 100 iterations and the bound (``autopgd_bound``);
+   ``AutoPGD.generate`` as the runner drives it (one random start) cold and
+   steady at each D, its launch counts set to 0 just before and read just
+   after (one launch each); the card against the CPU at 256 x 100 and 2
+   restarts; rq1.lcld's PGD points under the prefix (4000 x 1000;
+   ``autopgd+flip+sat`` on 256 states, ``RUNNER_CUTS``' cut of ``flip+sat``) and rq2.lcld's at
+   budget 1000 through the runner, with phase 10's checks; and AutoPGD on
+   botnet refused on the card by name before any launch. No grid file of
+   ``config/`` selects AutoPGD: phase 13 launches neither of its counters
+   (``AUTOPGD_COUNTERS``), which phase 14 must launch.
 
 The last three lines are the per-kernel JSON record (with each kernel's
 launches over phase 13's grids, ``grid_launches``), the card's name and
@@ -1388,7 +1408,13 @@ def run_main_path(device, smi: str, moeva, x, knobs):
 #: past them (133 blocks, the last holding one). Counts above the problem's
 #: states repeat its rows.
 PGD_ROWS = (1, 31, 33, 131, 133, 1000, 4000, 4223, 4225)
-PGD_ITERS = (1, 7, 100)
+#: the sweeps' budgets, the deepest cut from 100 to 30 to keep the smoke
+#: within about half its time limit as phases join it (the timed runs keep
+#: ``PGD_TIMED_ITERS``)
+PGD_ITERS = (1, 7, 30)
+#: iterations of the kernels' and plain versions' timed runs beside the main
+#: shape's budget
+PGD_TIMED_ITERS = 100
 #: what the sweep covers: every loss strategy, the three constraints_optim,
 #: targeted, both norms and every history layout. Each runs at every row
 #: count for 1 and 7 iterations, and for 100 at PGD_ROWS[i % 9]
@@ -1698,17 +1724,17 @@ def pgd_kernel_record(device, tag: str, kernel: str, replaces: str, problem, eps
         "plain_ms": cuda_ms(lambda: pgd_run_plain(atk.tables, cons, sched_plain, xi, yt, xi, eps, atk.clip, 2, True,
                                                   False), launches=1, repeats=2),
         "plain_iters": plain_iters,
-        "ms_100_iters": {PGD_LOSS: graph_ms(kernel_fn(atk, PGD_ITERS[-1]), launches=5, repeats=3)},
+        "ms_100_iters": {PGD_LOSS: graph_ms(kernel_fn(atk, PGD_TIMED_ITERS), launches=5, repeats=3)},
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,
     }
     for loss in PGD_OTHER_LOSSES:
-        rec["ms_100_iters"][loss] = graph_ms(kernel_fn(engine(loss), PGD_ITERS[-1]), launches=5, repeats=3)
+        rec["ms_100_iters"][loss] = graph_ms(kernel_fn(engine(loss), PGD_TIMED_ITERS), launches=5, repeats=3)
     log(f"{tag} {kernel} at {len(xs)} states x {PGD_BUDGET} iterations ({PGD_LOSS}, L2): device {rec['ms']:.3f} ms, "
         f"through the wrapper {rec['wrapper_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}); plain version at "
         f"{plain_iters} iterations {rec['plain_ms']:.1f} ms")
-    log(f"{tag} {kernel} at {len(xs)} states x {PGD_ITERS[-1]} iterations, device ms by loss: "
+    log(f"{tag} {kernel} at {len(xs)} states x {PGD_TIMED_ITERS} iterations, device ms by loss: "
         + ", ".join(f"{k} {v:.3f}" for k, v in rec["ms_100_iters"].items()))
     return rec, atk
 
@@ -1723,7 +1749,7 @@ def time_pgd(device, problem):
     rec, atk = pgd_kernel_record(device, "[pgd]", "pgd_lcld",
                                  "moeva2_ijcai22_replication_tpu/attacks/pgd/engine.py:241",
                                  (cons, sur, scaler, x, xs, surrogate_labels(sur, xs)), PGD_EPS - 1e-6,
-                                 PGD_ITERS[-1], lambda tables: pgd_bound(tables, len(xs), PGD_BUDGET))
+                                 PGD_TIMED_ITERS, lambda tables: pgd_bound(tables, len(xs), PGD_BUDGET))
     mhz = max_sm_clock_mhz()
     rec["no_fma_ms"] = pgd_no_fma_ms(atk.tables, len(xs), PGD_BUDGET)
     rec["latency_floor_ms"] = pgd_lcld_floor_ms(atk.tables, PGD_BUDGET, mhz)
@@ -2587,7 +2613,8 @@ def point_files(runner: str, cfg: dict) -> set:
 
 def point_expected_launches(runner: str, cfg: dict) -> dict:
     """The launches one point's run implies: ``expected_launches`` for
-    MoEvA, one launch of the set's PGD kernel."""
+    MoEvA, for PGD one launch of the set's PGD kernel (of its AutoPGD
+    instantiation for an ``autopgd`` loss) per random start, at least one."""
     import types
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
@@ -2595,7 +2622,9 @@ def point_expected_launches(runner: str, cfg: dict) -> dict:
 
     cons = common.load_constraints(cfg)
     if runner == "pgd":
-        return {**{k: 0 for k in kernels.launch_counts()}, counter_name(cons, "pgd"): 1}
+        auto = "autopgd" in cfg["loss_evaluation"]
+        runs = max(int(cfg.get("nb_random", 1 if auto else 0)), 1)
+        return {**{k: 0 for k in kernels.launch_counts()}, counter_name(cons, "pgd") + ("_auto" if auto else ""): runs}
     engine = types.SimpleNamespace(max_states_per_call=cfg["max_states_per_call"], n_gen=cfg["budget"],
                                    archive_size=cfg["archive_size"], constraints=cons)
     return expected_launches(engine, len(common.load_candidates(cfg)))
@@ -3144,7 +3173,7 @@ def run_augmented(device, smi: str, resources: list):
     import torch
 
     aug_ptxas = [k for k in resources if k["kernel"] in ("objective_lcld_kernel<128,1,1>",
-                                                         "objective_lcld_kernel<64,0,1>", "pgd_lcld_kernel<1>")]
+                                                         "objective_lcld_kernel<64,0,1>", "pgd_lcld_kernel<1,0>")]
     if len(aug_ptxas) != 3:
         raise AssertionError(f"the build's ptxas report lacks the augmented instantiations: {aug_ptxas}")
     for k in aug_ptxas:
@@ -3166,7 +3195,7 @@ def run_augmented(device, smi: str, resources: list):
         k7, _ = pgd_kernel_record(device, "[augmented]", "pgd_lcld",
                                   "moeva2_ijcai22_replication_tpu/attacks/pgd/engine.py:241",
                                   (cons, sur, scaler, x, xs, surrogate_labels(sur, xs)), RQ2_GRID["eps"] - 1e-6,
-                                  PGD_ITERS[-1], lambda tables: aug_pgd_bound(tables, len(xs), PGD_BUDGET))
+                                  PGD_TIMED_ITERS, lambda tables: aug_pgd_bound(tables, len(xs), PGD_BUDGET))
         k7["name"] = "pgd_lcld_aug"
         launches = drive_aug_runners(smi, tmp, cons)
     log(f"[augmented] launches over rq2.lcld's four grid points: {({k: v for k, v in launches.items() if v})}")
@@ -3793,6 +3822,389 @@ def run_grids(smi: str) -> dict:
     return total
 
 
+# -- phase 14: AutoPGD on LCLD and augmented LCLD ----------------------------------------
+
+#: phase 7's configurations under AutoPGD's loss prefix: every loss strategy,
+#: the three constraints_optim, targeted, both norms, every history layout
+AUTOPGD_CONFIGS = tuple({**c, "loss_evaluation": "autopgd+" + c["loss_evaluation"]} for c in PGD_CONFIGS)
+#: the sweep's budgets: 1, 12 (seven checkpoints, where halving fires) and
+#: 40 (nine, at one row count per configuration, as phase 7's deepest)
+AUTOPGD_ITERS = (1, 12, 40)
+#: the timed loss: rq1.lcld's ``constraints+flip`` under the prefix
+AUTOPGD_LOSS = "autopgd+constraints+flip"
+#: rq1.lcld's PGD points under AutoPGD, through the runner at rq1's shape
+#: (``autopgd+flip+sat`` on 256 states: ``RUNNER_CUTS``' cut of ``flip+sat``)
+AUTOPGD_RUNNER_LOSSES = ("autopgd+flip", "autopgd+constraints+flip",
+                         "autopgd+constraints+flip+adaptive_eps_step+repair", "autopgd+flip+sat")
+#: the launch counts of K7's AutoPGD instantiations: no grid file of
+#: ``config/`` selects an ``autopgd`` loss, so phase 13 launches neither and
+#: phase 14 must launch both
+AUTOPGD_COUNTERS = ("pgd_lcld_auto", "pgd_lcld_aug_auto")
+#: operations AutoPGD adds to K7's per row and iteration, counted from its
+#: source, besides the tracking forward's 2 per weight of the stack: 18 per
+#: feature (the momentum's six, its clip, the second projection's
+#: perturbation, square, sum, scaling and two clips, x_prev's and the best
+#: point's copies) and 90 per row (the terms' forward and the
+#: cross-entropy's, the tracking loss, its comparisons and the checkpoint's,
+#: the second projection factor); 6 float64 pow, log and exp (the terms'
+#: two pows and log, the cross-entropy's two exps and log)
+AUTOPGD_OPS_PER_FEATURE = 18
+AUTOPGD_OPS_PER_ROW = 90
+AUTOPGD_F64_PER_ROW = 6
+
+
+def autopgd_bound(tables, n: int, t: int):
+    """K7's AutoPGD instantiation's least time for ``n`` rows and ``t``
+    iterations: ``pgd_work`` (and on the augmented domain the pair stage,
+    twice: the gradient's pass and the tracking forward) plus what AutoPGD
+    adds; the bytes add each row's step and the two (T + 1) tables."""
+    n_bytes, n_ops, n_f64 = pgd_work(tables, n, t)
+    widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
+    macs = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
+    pairs = 0 if tables.cons is None else tables.cons.idx.shape[0]
+    n_ops += n * t * (2 * macs + AUTOPGD_OPS_PER_FEATURE * widths[0] + AUTOPGD_OPS_PER_ROW
+                      + (PGD_OPS_PER_PAIR + OBJECTIVE_OPS_PER_PAIR) * pairs)
+    return bound_ms(n_bytes + 16 * pairs + 4 * n + 5 * (t + 1), n_ops, n_f64 + n * t * AUTOPGD_F64_PER_ROW)
+
+
+def autopgd_sweep(device, cons, sur, scaler, xs: np.ndarray, starts: np.ndarray, rows: tuple):
+    """K7's AutoPGD instantiation against ``autopgd_run_plain`` on the card,
+    bit for bit (x_best, the class there, the history, each row's final
+    step), over ``AUTOPGD_CONFIGS`` x ``rows`` x ``AUTOPGD_ITERS``, the last
+    budget at one row count per configuration, first step ε / 3; labels
+    alternate 0 and 1. Returns (runs, rows halved and rows not halved at T
+    >= 12, NaN rows of x_best)."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.autopgd import autopgd_run_plain
+    from moeva2_ijcai22_replication_tpu_torch.core.norms import is_inf
+
+    xi = torch.as_tensor(xs, dtype=torch.float32, device=device)
+    st = torch.as_tensor(starts, device=device)
+    y = torch.as_tensor(np.arange(len(xs)) % 2, device=device)
+    runs = halved = kept = nan_rows = 0
+    for ci, knobs in enumerate(AUTOPGD_CONFIGS):
+        eps = 0.2 if knobs["norm"] == 2 else 0.1
+        atk = AutoPGD(sur, cons, scaler, eps=eps, eps_step=eps / 3, device=device, **knobs)
+        repair, linf = "repair" in atk.loss_evaluation, is_inf(atk.norm)
+        for n in rows:
+            for t in AUTOPGD_ITERS:
+                if t == AUTOPGD_ITERS[-1] and n != rows[ci % len(rows)]:
+                    continue
+                sched = atk.schedule(eps, eps / 3, t)
+                args = (xi[:n], y[:n], st[:n])
+                got = kernels.pgd_lcld(atk.tables, sched.pgd, *args, eps, atk.clip, linf, repair, atk.targeted,
+                                       atk.history_layout(), auto=sched.auto)
+                want = autopgd_run_plain(atk.tables, cons, sched, *args, eps, atk.clip, atk.norm, repair,
+                                         atk.targeted, atk.history_layout())
+                what = f"AutoPGD {atk.loss_evaluation} {atk.constraints_optim} norm={atk.norm} N={n} T={t}"
+                for name, g, w in zip(("x_best", "pred", "hist", "eta"), got, want):
+                    if (g is None) != (w is None):
+                        raise AssertionError(f"{what}: {name} is {g} on the card, {w} in the plain version")
+                    if g is not None:
+                        hold_equal(g, w, f"{what} {name}")
+                runs += 1
+                if t >= 12:
+                    eta0 = torch.tensor(eps / 3, dtype=torch.float32, device=device)
+                    halved += int((got[3] < eta0).sum())
+                    kept += int((got[3] == eta0).sum())
+                nan_rows += int(torch.isnan(got[0]).any(1).sum())
+    if not halved or not kept:
+        raise AssertionError(f"AutoPGD's sweep halved {halved} and kept {kept} rows' steps at T >= 12: the "
+                             "checkpoints are not exercised both ways")
+    return runs, halved, kept, nan_rows
+
+
+def autopgd_kernel_record(device, tag: str, name: str, problem, loss: str, bound):
+    """K7's AutoPGD instantiation's record at ``problem``'s states x
+    ``PGD_BUDGET`` iterations (``loss``, L2, ε 0.2 - 1e-6, first step 0.2 /
+    3, from x_init), as ``pgd_kernel_record`` takes K7's: device ms (CUDA
+    graph of 2 launches), wrapper ms, the plain version at 100 iterations,
+    the bound, device ms at 100 iterations; beside it base K7 at the loss
+    without the prefix, in the same process."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD, ConstrainedPGD
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.autopgd import autopgd_run_plain
+
+    cons, sur, scaler, x, xs, y = problem
+    eps, eta0 = PGD_EPS - 1e-6, PGD_EPS / 3
+    xi = torch.as_tensor(xs, dtype=torch.float32, device=device)
+    yt = torch.as_tensor(y, device=device)
+    atk = AutoPGD(sur, cons, scaler, eps=eps, eps_step=eta0, max_iter=PGD_BUDGET, norm=2, loss_evaluation=loss,
+                  device=device)
+    repair = "repair" in loss
+
+    def auto_fn(t):
+        sched = atk.schedule(eps, eta0, t)
+        return lambda: kernels.pgd_lcld(atk.tables, sched.pgd, xi, yt, xi, eps, atk.clip, False, repair, False,
+                                        auto=sched.auto)
+
+    base = ConstrainedPGD(sur, cons, scaler, eps=eps, eps_step=0.1, norm=2,
+                          loss_evaluation=loss.removeprefix("autopgd+"), device=device)
+    base_sched = base.schedule(eps, 0.1, PGD_BUDGET)
+    main = auto_fn(PGD_BUDGET)
+    sched_plain = atk.schedule(eps, eta0, PGD_TIMED_ITERS)
+    b_ms, b_by = bound(atk.tables)
+    rec = {
+        "name": name,
+        "route": "cuda",
+        "source": "moeva2_ijcai22_replication_tpu_torch/kernels/csrc/pgd_lcld.cu",
+        "replaces": "moeva2_ijcai22_replication_tpu/attacks/pgd/autopgd.py:45",
+        "launches": 0,
+        "max_abs_err": 0.0,
+        "ms": graph_ms(main, launches=2, repeats=3),
+        "wrapper_ms": cuda_ms(main, launches=2, repeats=3),
+        "plain_ms": cuda_ms(lambda: autopgd_run_plain(atk.tables, cons, sched_plain, xi, yt, xi, eps, atk.clip, 2,
+                                                      repair, False), launches=1, repeats=2),
+        "plain_iters": PGD_TIMED_ITERS,
+        "ms_100_iters": graph_ms(auto_fn(PGD_TIMED_ITERS), launches=5, repeats=3),
+        "base_ms": graph_ms(lambda: kernels.pgd_lcld(base.tables, base_sched, xi, yt, xi, eps, base.clip, False,
+                                                     repair, False), launches=2, repeats=3),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
+    log(f"{tag} K7's AutoPGD instantiation at D = {xs.shape[1]}, {len(xs)} states x {PGD_BUDGET} iterations ({loss}, "
+        f"L2): device {rec['ms']:.3f} ms ({PGD_TIMED_ITERS} iterations {rec['ms_100_iters']:.3f}), through the wrapper "
+        f"{rec['wrapper_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}), {rec['ms'] / b_ms:.2f}x the bound; base K7 at "
+        f"{base.loss_evaluation} {rec['base_ms']:.3f} ms ({rec['ms'] / rec['base_ms']:.2f}x); plain version at "
+        f"{PGD_TIMED_ITERS} iterations {rec['plain_ms']:.1f} ms")
+    return rec
+
+
+def drive_autopgd(device, smi: str, tag: str, counter: str, problem, loss: str) -> dict:
+    """``AutoPGD.generate`` as ``experiments/pgd.py`` drives it (one random
+    start, ε 0.2 - 1e-6, first step 0.2 / 3, L2, ``PGD_BUDGET``) cold and
+    steady, with the launch counts set to 0 just before and read just after
+    (one launch of ``counter``); x_adv finite, immutables unchanged, within
+    the ball, two runs equal; o1..o7 at f1 0.25. Returns the launches."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.objective import ObjectiveCalculator
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD, round_ints_toward_initial
+
+    cons, sur, scaler, x, xs, y = problem
+    eps = PGD_EPS - 1e-6
+    atk = AutoPGD(sur, cons, scaler, max_iter=PGD_BUDGET, norm=2, loss_evaluation=loss, num_random_init=1,
+                  seed=42, device=device)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_adv = atk.generate(xs, y, eps=eps, eps_step=PGD_EPS / 3, max_iter=PGD_BUDGET)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    t0 = time.perf_counter()
+    again = atk.generate(xs, y, eps=eps, eps_step=PGD_EPS / 3, max_iter=PGD_BUDGET)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    if launches != {**{k: 0 for k in launches}, counter: 1}:
+        raise AssertionError(f"launches {launches}: one generate with one random start is one launch of {counter}")
+    if not same_entries_np(x_adv, again).all():
+        raise AssertionError("two runs of AutoPGD's generate differ")
+    x0 = xs.astype(np.float32)
+    if x_adv.shape != xs.shape or not np.isfinite(x_adv).all():
+        raise AssertionError(f"x_adv {x_adv.shape}, {int((~np.isfinite(x_adv)).sum())} non-finite")
+    mutable = np.asarray(cons.get_mutable_mask(), bool)
+    if not np.array_equal(x_adv[:, ~mutable], x0[:, ~mutable]):
+        raise AssertionError("AutoPGD moved immutable features")
+    # repair rewrites term, installment, the one-hot groups and the pairs'
+    # features after the projection; the ball holds on every other feature
+    kept = np.ones(x.shape[1], bool)
+    if "repair" in loss:
+        kept[[1, 3]] = False
+        kept[47:] = False
+        for group in cons.schema.ohe_groups():
+            kept[list(group)] = False
+    dist = np.sqrt(((x_adv.astype(np.float64) - x0)[:, kept] ** 2).sum(1))
+    if dist.max() > PGD_EPS + 1e-5:
+        raise AssertionError(f"AutoPGD's L2 distance {dist.max()} > ε on the features repair leaves alone")
+    x_attacks = round_ints_toward_initial(scaler.inverse(x_adv.astype(np.float64)), x, cons.get_feature_type())
+    calc = ObjectiveCalculator(classifier=sur, constraints=cons, thresholds={"f1": 0.25, "f2": PGD_EPS},
+                               min_max_scaler=scaler, ml_scaler=scaler, minimize_class=1, norm=2)
+    rates = calc.success_rate_3d(x, x_attacks[:, None, :])
+    eta = atk.last_eta.cpu().numpy()
+    log(f"{tag} AutoPGD generate ({loss}, one random start): launches {({k: v for k, v in launches.items() if v})}; "
+        f"cold {cold_s:.3f} s, steady {steady_s:.3f} s for {len(xs)} states x {PGD_BUDGET} iterations on {smi}; "
+        f"x_adv finite, immutables unchanged, two runs equal, L2 distance at most {dist.max():.6f} on the "
+        f"{int(kept.sum())} features repair leaves alone; "
+        f"{int((eta < np.float32(PGD_EPS / 3)).sum())} of {len(eta)} rows halved their step; o1..o7 "
+        + " ".join(f"{v:.4f}" for v in rates))
+    return launches
+
+
+def check_autopgd_card_vs_cpu(device, tag: str, counter: str, problem, n: int, t: int) -> None:
+    """AutoPGD's ``generate`` on the card against the CPU from x_init on
+    ``n`` states x ``t`` iterations (every x_adv entry equal), and 2 random
+    restarts on the card: 2 launches of ``counter``."""
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD
+
+    cons, sur, scaler, _, xs, y = problem
+    small = dict(eps=PGD_EPS, eps_step=PGD_EPS / 3, max_iter=t, norm=2, loss_evaluation=AUTOPGD_LOSS)
+    on_cpu = AutoPGD(sur, cons, scaler, device="cpu", **small).generate(xs[:n], y[:n], eps=PGD_EPS - 1e-6)
+    on_card = AutoPGD(sur, cons, scaler, device=device, **small).generate(xs[:n], y[:n], eps=PGD_EPS - 1e-6)
+    differ = int((~same_entries_np(on_card, on_cpu)).sum())
+    log(f"{tag} AutoPGD card vs CPU at {n} states x {t} iterations: {differ} of {on_cpu.size} x_adv entries differ")
+    if differ:
+        raise AssertionError(f"{differ} AutoPGD x_adv entries differ between the card and the CPU")
+    kernels.reset_launch_counts()
+    restarts = AutoPGD(sur, cons, scaler, device=device, num_random_init=2, **small)
+    restarts.generate(xs[:n], y[:n], eps=PGD_EPS - 1e-6)
+    got = kernels.launch_counts()[counter]
+    log(f"{tag} AutoPGD, 2 random restarts at {n} states: {got} launches of {counter}, success after each restart "
+        f"{restarts.quality_history['restart_flip_frac']}")
+    if got != 2:
+        raise AssertionError(f"{got} launches of {counter} for 2 restarts")
+
+
+def check_autopgd_c5(device, problem) -> None:
+    """ROADMAP C5 under best-point tracking: AutoPGD (``AUTOPGD_LOSS``, L2,
+    ε 0.2 - 1e-6, first step 0.2 / 3, 1000 iterations) from x_init, as PGD
+    ran when its judgement refused rq1.lcld's ``constraints+flip`` point,
+    with the violations recorded: the NaN rows of x_best, and for
+    ``NAN_REFUSALS``' rows (PGD's NaN rows) the first iteration whose g8 or
+    g9 was not finite (the iterate at x22's pole, or None), whether their
+    x_best is finite, and their final steps."""
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD
+
+    cons, sur, scaler, _, xs, y = problem
+    atk = AutoPGD(sur, cons, scaler, max_iter=PGD_BUDGET, norm=2, loss_evaluation=AUTOPGD_LOSS, record_loss="full",
+                  device=device)
+    x_best = atk.generate(xs, y, eps=PGD_EPS - 1e-6, eps_step=PGD_EPS / 3)
+    nan_rows = np.flatnonzero(~np.isfinite(x_best).all(-1)).tolist()
+    rows = list(NAN_REFUSALS[("lcld", "constraints+flip")])
+    g = atk.loss_history[rows][:, :, [3 + k for k in MONTH_POLE_TERMS]]  # (rows, T, 2)
+    bad = ~np.isfinite(g).all(-1)
+    first = [int(np.argmax(b)) if b.any() else None for b in bad]
+    log(f"[autopgd] C5: AutoPGD {AUTOPGD_LOSS} from x_init at {len(xs)} states x {PGD_BUDGET}: NaN rows of x_best "
+        f"{nan_rows}; PGD's C5 rows {rows}: g8 or g9 not finite first at iterations {first} (None: never), x_best "
+        f"finite {np.isfinite(x_best[rows]).all(-1).tolist()}, final steps {atk.last_eta.cpu().numpy()[rows].tolist()}")
+
+
+def check_autopgd_refused(device, smi: str, art: str) -> None:
+    """AutoPGD on botnet is refused on the card by name (ROADMAP queue B's
+    "K7b AutoPGD (botnet)") before anything launches: the engine, and the
+    PGD runner on rq1.botnet's point under the prefix, which writes
+    nothing."""
+    import os
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD
+    from moeva2_ijcai22_replication_tpu_torch.experiments import common, pgd
+
+    cons = write_runner_artifacts("botnet", art)
+    cfg = runner_config("botnet", "pgd", art, AUTOPGD_LOSS)
+    sur, scaler = common.load_surrogate(cfg), common.load_scaler(cfg)
+    out = cfg["dirs"]["results"]
+    kernels.reset_launch_counts()
+    before = dir_state(out) if os.path.isdir(out) else {}
+    for what, call in (("AutoPGD", lambda: AutoPGD(sur, cons, scaler, device=device)),
+                       ("experiments.pgd.run", lambda: pgd.run(cfg))):
+        try:
+            call()
+        except NotImplementedError as exc:
+            if "K7b AutoPGD" not in str(exc):
+                raise AssertionError(f"{what} refused AutoPGD on botnet without naming the item: {exc}") from exc
+            reason = str(exc)
+        else:
+            raise AssertionError(f"{what} ran AutoPGD on botnet on the card")
+    written = {f for f in (dir_state(out) if os.path.isdir(out) else {}) if f not in before}
+    if any(kernels.launch_counts().values()) or written:
+        raise AssertionError(f"the refused AutoPGD launched {kernels.launch_counts()} or wrote {sorted(written)}")
+    log(f"[autopgd] AutoPGD on botnet is refused on the card before any launch, by the engine and by the PGD runner "
+        f"(nothing written): {reason}")
+
+
+def run_autopgd(device, smi: str, resources: list, problem):
+    """Phase 14: AutoPGD on LCLD (``problem``, phase 7's) and augmented LCLD
+    through K7's AutoPGD instantiations. Returns their records and the
+    launches of the ``generate`` drives."""
+    import os
+
+    from moeva2_ijcai22_replication_tpu_torch.problems import LCLD_AUGMENTED_EDGE_ROWS, lcld_augmented_edge_rows
+
+    t0 = time.perf_counter()
+    ptxas = {k["kernel"]: k for k in resources if k["kernel"].startswith("pgd_lcld_kernel<")}
+    names = ("pgd_lcld_kernel<0,0>", "pgd_lcld_kernel<1,0>", "pgd_lcld_kernel<0,1>", "pgd_lcld_kernel<1,1>")
+    if sorted(ptxas) != sorted(names):
+        raise AssertionError(f"the build's ptxas report has K7's instantiations {sorted(ptxas)}, not {names}")
+    for name in names:
+        k = ptxas[name]
+        log(f"[autopgd] {name} (kPairs, kAuto): {k['registers']} registers, {k['stack']} bytes stack frame, "
+            f"{k['spill_stores']} + {k['spill_loads']} bytes spill stores + loads")
+    records, launches = [], {}
+    cons, sur, scaler, x = problem
+    rng = np.random.default_rng(5)
+    xs = scaler.transform(x).astype(np.float32)
+    starts = pgd_edge_starts(rng, xs, scaler)
+    n = max(PGD_ROWS)
+    runs, halved, kept, nan_rows = autopgd_sweep(device, cons, sur, scaler, np.resize(xs, (n, xs.shape[1])),
+                                                 np.resize(starts, (n, xs.shape[1])), PGD_ROWS)
+    log(f"[autopgd] K7's AutoPGD instantiation at D = 47 equals autopgd_run_plain (x_best, class, history, eta) on "
+        f"all {runs} runs: {len(AUTOPGD_CONFIGS)} configurations x N in {PGD_ROWS} x T in {AUTOPGD_ITERS[:-1]}, and "
+        f"T = {AUTOPGD_ITERS[-1]} at one N each, with phase 7's 14 edge starts; at T >= 12 {halved} rows halved "
+        f"their step and {kept} kept it; {nan_rows} NaN rows of x_best")
+    xs = scaler.transform(x)
+    lcld = (cons, sur, scaler, x, xs, surrogate_labels(sur, xs))
+    records.append(autopgd_kernel_record(device, "[autopgd]", "pgd_lcld_auto", lcld, AUTOPGD_LOSS,
+                                         lambda tables: autopgd_bound(tables, len(xs), PGD_BUDGET)))
+    launches["pgd_lcld_auto"] = drive_autopgd(device, smi, "[autopgd]", "pgd_lcld_auto", lcld,
+                                              AUTOPGD_LOSS)["pgd_lcld_auto"]
+    check_autopgd_c5(device, lcld)
+    check_autopgd_card_vs_cpu(device, "[autopgd]", "pgd_lcld_auto", lcld, PGD_CPU_ROWS, PGD_CPU_ITERS)
+    with tempfile.TemporaryDirectory() as tmp:
+        art = f"{tmp}/lcld"
+        lcld_cons = write_runner_artifacts("lcld", art)
+        pgd_s = None
+        for loss in AUTOPGD_RUNNER_LOSSES:
+            cfg = runner_config("lcld", "pgd", art, loss)
+            cfg.update(RUNNER_CUTS.get(("lcld", loss.removeprefix("autopgd+")), {}))
+            metrics = drive_runner(cfg, smi, point_expected_launches("pgd", cfg), f"pgd lcld {loss}")
+            if loss == "autopgd+flip":
+                pgd_s = metrics["timings"]["attack"]
+            if "sat" in loss:
+                h = metrics["config_hash"]
+                x_rep = np.load(f"{cfg['dirs']['results']}/x_attacks_pgd_{loss}_{h}.npy")[:, 0]
+                from moeva2_ijcai22_replication_tpu_torch.experiments import common
+
+                x_init = common.load_candidates(cfg)
+                log(f"[runner] pgd lcld {loss}: MILP repair {check_repairs(lcld_cons, x_init, x_rep)}; attack span "
+                    f"{metrics['timings']['attack']:.3f} s (autopgd+flip's on 4000 states {pgd_s:.3f} s)")
+        aug = f"{tmp}/aug"
+        os.makedirs(aug)
+        cons, sur, scaler, x = write_aug_artifacts(aug)
+        xs = scaler.transform(x).astype(np.float32)
+        starts = pgd_edge_starts(np.random.default_rng(5), xs, scaler)
+        starts[14:14 + LCLD_AUGMENTED_EDGE_ROWS] = lcld_augmented_edge_rows(
+            x[14:14 + LCLD_AUGMENTED_EDGE_ROWS], cons.important_features, scaler)
+        runs, halved, kept, nan_rows = autopgd_sweep(device, cons, sur, scaler, np.resize(xs, (n, xs.shape[1])),
+                                                     np.resize(starts, (n, xs.shape[1])), PGD_ROWS)
+        log(f"[autopgd] K7's AutoPGD instantiation at D = {xs.shape[1]} ({cons.n_constraints} terms) equals "
+            f"autopgd_run_plain on all {runs} runs: the same sweep, with phase 7's 14 edge starts and the pair terms' "
+            f"{LCLD_AUGMENTED_EDGE_ROWS}; at T >= 12 {halved} rows halved their step and {kept} kept it; {nan_rows} "
+            "NaN rows of x_best")
+        xs = scaler.transform(x)
+        rq2_loss = "autopgd+" + RQ2_GRID["loss"]
+        problem_aug = (cons, sur, scaler, x, xs, surrogate_labels(sur, xs))
+        records.append(autopgd_kernel_record(device, "[autopgd]", "pgd_lcld_aug_auto", problem_aug, rq2_loss,
+                                             lambda tables: autopgd_bound(tables, len(xs), PGD_BUDGET)))
+        launches["pgd_lcld_aug_auto"] = drive_autopgd(device, smi, "[autopgd]", "pgd_lcld_aug_auto", problem_aug,
+                                                      rq2_loss)["pgd_lcld_aug_auto"]
+        cfg = rq2_config("pgd", RQ2_GRID["budgets"][-1], aug)
+        cfg["loss_evaluation"] = rq2_loss
+        drive_runner(cfg, smi, point_expected_launches("pgd", cfg), f"pgd lcld_augmented budget {cfg['budget']} "
+                     f"{rq2_loss}")
+        check_autopgd_refused(device, smi, f"{tmp}/botnet")
+    log(f"[autopgd] phase 14 took {time.perf_counter() - t0:.1f} s")
+    return records, {name: launches[name] for name in AUTOPGD_COUNTERS}
+
+
 def main() -> int:
     import torch
 
@@ -3804,6 +4216,14 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: run from the root of a checkout ({exc})", file=sys.stderr)
         return 1
+
+    t_smoke = t_lap = time.perf_counter()
+
+    def lap(phases: str) -> None:
+        nonlocal t_lap
+        now = time.perf_counter()
+        log(f"[smoke] {phases} took {now - t_lap:.1f} s")
+        t_lap = now
 
     device = torch.device("cuda", 0)
     smi = nvidia_smi_line()
@@ -3829,27 +4249,35 @@ def main() -> int:
     missing = [name for name in REDESIGNED if not any(k["kernel"].startswith(name) for k in resources)]
     if missing:
         raise AssertionError(f"the build's ptxas report has no entry for {missing}: the spill check cannot run")
+    lap("phases 1-2")
 
     moeva, x, knobs = main_path_engine(device)
     records = check_kernels(device, moeva, x)
+    lap("phase 3")
     launches = run_main_path(device, smi, moeva, x, knobs)
+    lap("phases 4-6")
     problem = pgd_problem()
     check_pgd_kernel(device, problem)
     records.append(time_pgd(device, problem))
     launches["pgd_lcld"] = run_pgd_path(device, problem, smi)["pgd_lcld"]
+    lap("phase 7")
     botnet_rec, botnet_launches, botnet_stage_times = run_botnet(device, smi, resources)
     records.append(botnet_rec)
     for rec in records:
         if rec["name"] in botnet_stage_times:
             rec["botnet_shapes"] = botnet_stage_times[rec["name"]]
     launches["objective_botnet"] = botnet_launches["objective_botnet"]
+    lap("phase 8")
     pgd_botnet_rec, pgd_botnet_launches = run_pgd_botnet(device, smi, resources)
     records.append(pgd_botnet_rec)
     launches["pgd_botnet"] = pgd_botnet_launches["pgd_botnet"]
+    lap("phase 9")
     run_runners(smi)
+    lap("phase 10")
     aug_records, aug_launches = run_augmented(device, smi, resources)
     records += aug_records
     launches.update({name: aug_launches[name] for name in ("objective_lcld_aug", "pgd_lcld_aug")})
+    lap("phase 11")
     botnet_aug_rec, botnet_aug_launches, botnet_aug_stage_times = run_botnet_augmented(device, smi, resources)
     records.append(botnet_aug_rec)
     for rec in records:
@@ -3857,9 +4285,16 @@ def main() -> int:
             rec["botnet_augmented_shapes"] = botnet_aug_stage_times[rec["name"]]
     launches["objective_botnet_aug"] = botnet_aug_launches["objective_botnet_aug"]
     grid_launches = run_grids(smi)
-    idle = [name for name, n in grid_launches.items() if n == 0]
+    # no grid file selects AutoPGD: its counters are checked on phase 14's drives
+    idle = [name for name, n in grid_launches.items() if n == 0 and name not in AUTOPGD_COUNTERS]
     if idle:
         raise AssertionError(f"phase 13's grids launched no {idle}")
+    auto_records, auto_launches = run_autopgd(device, smi, resources, problem)
+    if not all(auto_launches.values()):
+        raise AssertionError(f"phase 14 launched no {[k for k, n in auto_launches.items() if not n]}")
+    records += auto_records
+    launches.update(auto_launches)
+    log(f"[smoke] phases 1-14 took {time.perf_counter() - t_smoke:.1f} s")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         rec["grid_launches"] = grid_launches[rec["name"]]

@@ -1,5 +1,6 @@
-"""Constrained PGD (port of ``attacks/pgd``; AutoPGD is not ported yet)."""
+"""Constrained PGD and AutoPGD (port of ``attacks/pgd``)."""
 
+from .autopgd import AutoPGD
 from .engine import ConstrainedPGD, round_ints_toward_initial
 
-__all__ = ["ConstrainedPGD", "round_ints_toward_initial"]
+__all__ = ["AutoPGD", "ConstrainedPGD", "round_ints_toward_initial"]

@@ -198,26 +198,49 @@ def pgd_run_plain(
             tables, constraints, x, y, sched.w_class[i], sched.w_cons[i], ctrs[i], targeted
         )
         if record is not None:
-            cols = [per, loss_class, cons]
-            if record[0]:
-                finite = torch.nan_to_num(grad, nan=0.0, posinf=0.0, neginf=0.0)
-                cols.append(sqrt_rn(sum_last(finite * finite)))
-            if record[1]:
-                cols += list(g.unbind(-1))
-            hist.append(torch.stack(cols, dim=-1))
-        grad = torch.where(torch.isnan(grad), 0.0, grad)
-        grad = torch.where(tables.mutable, grad, 0.0)
-        grad = condition_grad(grad, norm)
+            hist.append(hist_row(record, per, loss_class, cons, g, grad))
+        grad = conditioned_grad(tables, grad, norm)
         x = torch.clamp(x + sched.step[i] * grad, lo, hi)
         x = torch.clamp(x_init + project_ball(x - x_init, eps, norm), lo, hi)
         if repair:
-            fixed = constraints.repair((x - tables.min_) / tables.scale) * tables.scale + tables.min_
-            x = torch.where(tables.mutable, fixed, x)
-    out = None
-    if record is not None:
-        n_cols = 3 + bool(record[0]) + (constraints.n_constraints if record[1] else 0)
-        out = torch.stack(hist) if hist else x.new_zeros((0, x.shape[0], n_cols))
-    return x, predict_plain(tables, x), out
+            x = repair_plain(tables, constraints, x)
+    return x, predict_plain(tables, x), stack_hist(hist, record, constraints, x)
+
+
+def hist_row(record, per, loss_class, cons, g, grad):
+    """(N, C) recorded columns of one iteration: [per, loss_class, cons]
+    (+ the L2 norm of the raw gradient's finite entries when ``record[0]``,
+    + the violations ``g`` when ``record[1]``)."""
+    cols = [per, loss_class, cons]
+    if record[0]:
+        finite = torch.nan_to_num(grad, nan=0.0, posinf=0.0, neginf=0.0)
+        cols.append(sqrt_rn(sum_last(finite * finite)))
+    if record[1]:
+        cols += list(g.unbind(-1))
+    return torch.stack(cols, dim=-1)
+
+
+def stack_hist(hist: list, record, constraints, x):
+    """The run's history (T, N, C) from its rows, None when ``record`` is."""
+    if record is None:
+        return None
+    n_cols = 3 + bool(record[0]) + (constraints.n_constraints if record[1] else 0)
+    return torch.stack(hist) if hist else x.new_zeros((0, x.shape[0], n_cols))
+
+
+def conditioned_grad(tables: PgdTables, grad, norm):
+    """The ascent direction: NaN entries zeroed, immutable features masked,
+    then ``condition_grad``."""
+    grad = torch.where(torch.isnan(grad), 0.0, grad)
+    grad = torch.where(tables.mutable, grad, 0.0)
+    return condition_grad(grad, norm)
+
+
+def repair_plain(tables: PgdTables, constraints, x):
+    """The constraint repair of the scaled rows ``x``, kept on the mutable
+    features (an immutable one keeps its x)."""
+    fixed = constraints.repair((x - tables.min_) / tables.scale) * tables.scale + tables.min_
+    return torch.where(tables.mutable, fixed, x)
 
 
 def card_refusal(constraints) -> str | None:

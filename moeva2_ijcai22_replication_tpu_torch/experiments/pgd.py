@@ -1,30 +1,36 @@
-"""Constrained PGD and SAT experiment runner: a config in,
+"""Constrained PGD, AutoPGD and SAT experiment runner: a config in,
 ``metrics_{attack}_{loss}_{hash}.json`` out.
 
 Port of ``experiments/pgd.py::run``, in its order: the ``mid_fix``
 ``{attack_name}_{loss_evaluation}``, skip when the config's hash already has
 metrics, set up and ``check_constraints_error``, then, timed: half ε when a
-SAT pass follows (``flip+sat``), ε − 1e-6 and step 0.1, labels from the
-surrogate, ``ConstrainedPGD.generate`` in the scaler's space (one launch of
-K7 on LCLD or K7b on botnet per run on the card), the inverse scaling,
+SAT pass follows (``flip+sat``), ε − 1e-6, labels from the surrogate, the
+engine's ``generate`` in the scaler's space, the inverse scaling,
 :func:`round_ints_toward_initial` and, with SAT, the MILP repair
 (``attacks.sat.SatAttack``, hot-started from the PGD output, on the host);
 then the success rates, ``x_attacks_*.npy``, the loss history
 (``x_history_{hash}.npy``, with ``save_history``), the event stream, the
 success-rate CSV, the config snapshot and the metrics JSON last.
 
+A loss containing ``autopgd`` selects :class:`AutoPGD` (one random start
+unless ``nb_random`` says otherwise, first step ``per_attack_eps / 3`` from
+the un-shifted ε; K7's AutoPGD instantiation on LCLD, refused on the card
+for botnet, ROADMAP queue B's "K7b AutoPGD (botnet)"), any other loss
+:class:`ConstrainedPGD` (step 0.1; K7 on LCLD, K7b on botnet): one launch
+per run on the card.
+
 ``device`` and ``dtype`` are arguments, never config keys: the config hash
 stays the JAX package's. The metrics carry the JAX runner's top-level keys
 except ``telemetry`` (the tracing layer, ROADMAP A14). Refused before any
-device work, each with a ``NotImplementedError``: a loss containing
-``autopgd`` (AutoPGD, ROADMAP A8), ``system.trace_log`` and
+device work, each with a ``NotImplementedError``: ``system.trace_log`` and
 ``system.profile_dir`` (A14) and a device mesh. ``reconstruction: true``
 re-derives the augmented columns of the attacked rows after the rounding
 and the MILP repair, before the attack's time is taken
 (:func:`common.reconstruct`).
 
 Grid scale (the JAX runner's): the engine comes from ``common.ENGINES``,
-keyed by its static config, so an ε or budget sweep at one loss shares it
+keyed by its static config, so an ε sweep at one loss shares it, and a
+budget sweep too unless the engine is AutoPGD or records a history
 (:func:`_cached_attack`); with a grid's ``pipeline`` the run splits into
 the attack (with the MILP repair), on the calling thread, and a
 ``finalize`` closure (evaluate, save, stream, CSV, metrics last) that the
@@ -48,7 +54,7 @@ import torch
 
 from .. import resolve_device
 from ..attacks.objective import ObjectiveCalculator, write_success_rate_csv
-from ..attacks.pgd import ConstrainedPGD, round_ints_toward_initial
+from ..attacks.pgd import AutoPGD, ConstrainedPGD, round_ints_toward_initial
 from ..attacks.sat import SatAttack
 from ..models.io import Surrogate
 from ..utils.config import get_dict_hash, parse_run_args, save_config
@@ -56,14 +62,6 @@ from ..utils.in_out import json_to_file
 from ..utils.observability import PhaseTimer
 from ..utils.streaming import stream_for
 from . import common
-
-
-def refuse_knobs(config: dict) -> None:
-    """Raise for every knob of ``config`` that the port's PGD runner does
-    not run yet (see the module docstring)."""
-    common.refuse_knobs(config, {
-        "loss_evaluation": ("autopgd" in config["loss_evaluation"], "AutoPGD (ROADMAP A8)"),
-    })
 
 
 def surrogate_labels(surrogate: Surrogate, x_scaled: np.ndarray, device, dtype) -> np.ndarray:
@@ -78,11 +76,14 @@ def surrogate_labels(surrogate: Surrogate, x_scaled: np.ndarray, device, dtype) 
 
 def _cached_attack(config, surrogate, constraints, scaler, device, dtype) -> ConstrainedPGD:
     """The engine shared by the grid points with the same static config,
-    under the JAX runner's key fields (``_cached_attack``) and the engine's
-    device and dtype. ε, the step and the budget are arguments of
-    ``generate``, and ``seed`` seeds the random starts' generator on every
-    call, so none is keyed; the budget is, as in JAX, where a loss history
-    is recorded."""
+    under the JAX runner's key fields (``_cached_attack``, the engine's
+    class first) and the engine's device and dtype. ε and the step are
+    arguments of ``generate``, and ``seed`` seeds the random starts'
+    generator on every call, so neither is keyed; the budget is, as in JAX,
+    where the engine is AutoPGD (its checkpoint tables are the budget's) or
+    records a loss history."""
+    cls = AutoPGD if "autopgd" in config["loss_evaluation"] else ConstrainedPGD
+    num_random_init = config.get("nb_random", 1 if cls is AutoPGD else 0)
     record_loss = config.get("save_history") or None
     fields = (
         "engine", "surrogate", "constraints", "scaler", "budget", "norm",
@@ -90,15 +91,15 @@ def _cached_attack(config, surrogate, constraints, scaler, device, dtype) -> Con
         "record_loss", "record_grad_norm", "mesh_devices", "device", "dtype",
     )
     key = (
-        ConstrainedPGD.__name__,
+        cls.__name__,
         id(surrogate),
         id(constraints),
         id(scaler),
-        int(config["budget"]) if record_loss else None,
+        int(config["budget"]) if cls is AutoPGD or record_loss else None,
         str(config["norm"]),
         config["loss_evaluation"],
         config.get("constraints_optim", "sum"),
-        config.get("nb_random", 0),
+        num_random_init,
         record_loss,
         bool(config.get("save_grad_norm")),
         int(config.get("system", {}).get("mesh_devices", 0) or 0),
@@ -107,7 +108,7 @@ def _cached_attack(config, surrogate, constraints, scaler, device, dtype) -> Con
     )
 
     def build():
-        return ConstrainedPGD(
+        return cls(
             classifier=surrogate,
             constraints=constraints,
             scaler=scaler,
@@ -115,7 +116,7 @@ def _cached_attack(config, surrogate, constraints, scaler, device, dtype) -> Con
             norm=config["norm"],
             loss_evaluation=config["loss_evaluation"],
             constraints_optim=config.get("constraints_optim", "sum"),
-            num_random_init=config.get("nb_random", 0),
+            num_random_init=num_random_init,
             record_loss=record_loss,
             record_grad_norm=bool(config.get("save_grad_norm")),
             seed=config["seed"],
@@ -132,7 +133,7 @@ def run(config: dict, pipeline=None, device="cuda", dtype=torch.float32):
     :class:`.pipeline.GridPipeline`) is given: the evaluation and the
     writes then run on the grid's background writer, which the grid drains
     before it returns."""
-    refuse_knobs(config)
+    common.refuse_knobs(config, {})
     device = resolve_device(device)
     out_dir = config["dirs"]["results"]
     config_hash = get_dict_hash(config)
@@ -161,11 +162,13 @@ def run(config: dict, pipeline=None, device="cuda", dtype=torch.float32):
     # only half ε when SAT runs after (01_pgd_united.py:97)
     per_attack_eps = config["eps"] / 2 if apply_sat else config["eps"]
     eps_run = per_attack_eps - 0.000001
+    # AutoPGD's first step (01_pgd_united.py:99-111); PGD's is fixed
+    eps_step_run = per_attack_eps / 3 if isinstance(attack, AutoPGD) else 0.1
 
     with timer.attack():
         x_scaled = scaler.transform(np.asarray(x_initial))
         y = surrogate_labels(surrogate, x_scaled, device, dtype)
-        x_adv_scaled = attack.generate(x_scaled, y, eps=eps_run, eps_step=0.1, max_iter=int(config["budget"]))
+        x_adv_scaled = attack.generate(x_scaled, y, eps=eps_run, eps_step=eps_step_run, max_iter=int(config["budget"]))
         # the run's own outputs, taken now: a cached engine attacks the next
         # point while the writer still finalizes this one
         loss_history = attack.loss_history

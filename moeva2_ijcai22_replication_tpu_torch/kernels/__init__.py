@@ -26,7 +26,9 @@ And, for constrained PGD, ``pgd_lcld`` (K7, ``csrc/pgd_lcld.cu``) and
 ``pgd_botnet`` (K7b, ``csrc/pgd_botnet.cu``): every iteration of one run on
 the LCLD or the botnet domain; plain version
 ``attacks.pgd.engine.pgd_run_plain``. K7's instantiation for the augmented
-LCLD domain counts its launches as ``pgd_lcld_aug``.
+LCLD domain counts its launches as ``pgd_lcld_aug``; its AutoPGD
+instantiations (plain version ``attacks.pgd.autopgd.autopgd_run_plain``)
+as ``pgd_lcld_auto`` and ``pgd_lcld_aug_auto``.
 
 The wrappers take CUDA tensors only and raise on anything the kernel does
 not take, or when a build or launch fails; callers route CPU tensors to the
@@ -50,7 +52,7 @@ _LAUNCHES = {
     for name in (
         "offspring", "objective_lcld", "nd_peel", "survive_norm", "associate", "survive_fill",
         "pgd_lcld", "objective_botnet", "pgd_botnet", "objective_lcld_aug", "pgd_lcld_aug",
-        "objective_botnet_aug",
+        "objective_botnet_aug", "pgd_lcld_auto", "pgd_lcld_aug_auto",
     )
 }
 
@@ -545,7 +547,7 @@ def _pgd_outputs(n: int, d: int, t: int, n_terms: int, norm_inf: bool, repair: b
 
 
 def pgd_lcld(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_inf: bool, repair: bool,
-             targeted: bool, record=None):
+             targeted: bool, record=None, auto=None):
     """Kernel K7: one constrained PGD run on LCLD rows, ``(x_adv (N, D)
     float32, pred (N,) int64, hist)``, the semantics of
     ``attacks.pgd.engine.pgd_run_plain``: ``tables`` a ``PgdTables`` (a
@@ -559,7 +561,14 @@ def pgd_lcld(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_in
     kernel does not check); its launches count as ``pgd_lcld_aug``. The
     kernel reads any label but 0 and 1 as neither class:
     ``ConstrainedPGD.generate`` refuses them before anything reaches the
-    card."""
+    card.
+
+    With ``auto`` (``attacks.pgd.autopgd.AutoPgdTables`` for T iterations)
+    the run is AutoPGD's, the semantics of ``autopgd_run_plain`` (the
+    schedule's step is not read): ``(x_best, pred, hist, eta)``, ``pred``
+    the class at x_best and ``eta`` (N,) float32 each row's final step;
+    its launches count as ``pgd_lcld_auto`` (``pgd_lcld_aug_auto`` on the
+    augmented domain)."""
     from .build import library
 
     if x_init.dim() != 2:
@@ -583,12 +592,25 @@ def pgd_lcld(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_in
         )
     if tables.ohe.numel() > lib.moeva_pgd_max_ohe_slots():
         raise ValueError(f"pgd_lcld takes at most {lib.moeva_pgd_max_ohe_slots()} one-hot slots")
+    if auto is not None:
+        _check(auto.is_ckpt, "is_ckpt", (t + 1,), torch.bool)
+        _check(auto.thr, "thr", (t + 1,))
+        if not (-1 <= auto.ctr < 10 + n_pairs):
+            raise ValueError(f"the tracking constraint {auto.ctr} is not one of the {10 + n_pairs} terms or -1")
+    ckpt = (None, None) if auto is None else (auto.is_ckpt, auto.thr)
     dev = _one_device(x_init, x_start, y, tables.params, tables.scale, tables.min_, tables.mutable, tables.ohe,
-                      *sched, *pairs)
+                      *sched, *pairs, *ckpt)
     ins = [t_.contiguous() for t_ in (x_init, x_start, y, tables.mutable, tables.params, tables.scale, tables.min_,
                                       tables.ohe, *sched)]
     pairs = [None if t_ is None else t_.contiguous() for t_ in pairs]
+    ckpt = [None if t_ is None else t_.contiguous() for t_ in ckpt]
     x_adv, pred, hist, cols, flags = _pgd_outputs(n, d, t, 10 + n_pairs, norm_inf, repair, targeted, record, dev)
+    eta = None
+    scalars = (0.0, 0.0, -1, 0.0, 1.0)
+    if auto is not None:
+        eta = torch.empty((n,), dtype=torch.float32, device=dev)
+        scalars = (float(auto.w_class), float(auto.w_cons), int(auto.ctr), float(auto.eta0), float(auto.alpha))
+        flags |= 32
     c_widths = (ctypes.c_int * len(widths))(*widths)
     lo, hi = clip
     with torch.cuda.device(dev):
@@ -596,11 +618,12 @@ def pgd_lcld(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_in
             *(u.data_ptr() for u in ins[:5]), c_widths, len(widths) - 1,
             *(u.data_ptr() for u in ins[5:8]), tables.ohe.shape[0], tables.ohe.shape[1],
             *(u.data_ptr() for u in ins[8:]), x_adv.data_ptr(), pred.data_ptr(), _ptr(hist), cols, n, t,
-            float(eps), float(lo), float(hi), float(tables.tol), flags, d, *map(_ptr, pairs), n_pairs, _stream(dev),
+            float(eps), float(lo), float(hi), float(tables.tol), flags, d, *map(_ptr, pairs), n_pairs,
+            *map(_ptr, ckpt), *scalars, _ptr(eta), _stream(dev),
         )
     _raise_on_error(lib, err, "pgd_lcld")
-    _LAUNCHES["pgd_lcld_aug" if n_pairs else "pgd_lcld"] += 1
-    return x_adv, pred, hist
+    _LAUNCHES[("pgd_lcld_aug" if n_pairs else "pgd_lcld") + ("" if auto is None else "_auto")] += 1
+    return (x_adv, pred, hist) if auto is None else (x_adv, pred, hist, eta)
 
 
 def pgd_botnet(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_inf: bool, repair: bool,

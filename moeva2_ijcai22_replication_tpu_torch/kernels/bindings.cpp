@@ -145,7 +145,9 @@ int moeva_pgd_lcld_f32(const void* x_init, const void* x_start, const void* y,
                        void* pred, void* hist, int hist_cols, int n, int t,
                        float eps, float lo, float hi, float tol, int flags,
                        int d, const void* pair_idx, const void* pair_thr,
-                       int n_pairs, void* stream) {
+                       int n_pairs, const void* is_ckpt, const void* ckpt_thr,
+                       float tw_class, float tw_cons, int tctr, float eta0,
+                       float alpha, void* eta, void* stream) {
   if (n_layers < 1 || n_layers > kObjectiveMaxLayers)
     return static_cast<int>(cudaErrorInvalidValue);
   PgdArgs args{};
@@ -180,6 +182,14 @@ int moeva_pgd_lcld_f32(const void* x_init, const void* x_start, const void* y,
   args.pair_idx = static_cast<const int32_t*>(pair_idx);
   args.pair_thr = static_cast<const float*>(pair_thr);
   args.n_pairs = n_pairs;
+  args.is_ckpt = static_cast<const bool*>(is_ckpt);
+  args.ckpt_thr = static_cast<const float*>(ckpt_thr);
+  args.tw_class = tw_class;
+  args.tw_cons = tw_cons;
+  args.tctr = tctr;
+  args.eta0 = eta0;
+  args.alpha = alpha;
+  args.eta = static_cast<float*>(eta);
   return static_cast<int>(
       launch_pgd_lcld(args, static_cast<cudaStream_t>(stream)));
 }

@@ -196,7 +196,8 @@ constexpr int kPgdMaxOheSlots = 1024;
 // pgd_lcld's arguments, for D = 47 + n_pairs features (n_pairs = 0: the
 // base domain; else the augmented one, its pairs' features last). flags: 1 =
 // L-inf (else L2), 2 = repair, 4 = targeted, 8 = the grad-norm history
-// column, 16 = the violations' columns.
+// column, 16 = the violations' columns, 32 = AutoPGD (x_adv is then the
+// best point, and the fields after n_pairs are read).
 struct PgdArgs {
   const float* x_init;    // (N, D)
   const float* x_start;   // (N, D)
@@ -221,6 +222,17 @@ struct PgdArgs {
   const int32_t* pair_idx;   // (n_pairs, 2) base features of each pair
   const float* pair_thr;     // (n_pairs, 2) their thresholds
   int n_pairs;
+  // AutoPGD: iteration i ends at a checkpoint where is_ckpt[i + 1], and
+  // halves a row's step there where its tracking loss rose fewer than
+  // ckpt_thr[i + 1] times since the last one (or neither the step nor the
+  // best loss moved); the tracking loss tw_class * CE - tw_cons * cons, its
+  // constraint tctr (-1 = their sum); every row's first step eta0; the
+  // momentum alpha (1 at iteration 0)
+  const bool* is_ckpt;      // (T + 1,)
+  const float* ckpt_thr;    // (T + 1,)
+  float tw_class, tw_cons, eta0, alpha;
+  int tctr;
+  float* eta;               // (N,) out: each row's step after the last iteration
 };
 
 cudaError_t launch_pgd_lcld(const PgdArgs& args, cudaStream_t stream);

@@ -2,7 +2,8 @@
 // launch.
 //
 // Replaces the jnp device program of moeva2_ijcai22_replication_tpu/attacks/
-// pgd/engine.py::ConstrainedPGD._one_run (its lax.fori_loop) with what each
+// pgd/engine.py::ConstrainedPGD._one_run (its lax.fori_loop), and of
+// attacks/pgd/autopgd.py::AutoPGD._one_run (kAuto), with what each
 // iteration runs: _grad_and_terms (jax.grad of the weighted cross-entropy
 // minus the smooth LCLD violations, through models/mlp.py::MLP and
 // domains/lcld.py::lcld_constraint_terms), NaN zeroing, the mutable mask,
@@ -42,13 +43,31 @@
 //   pair's cotangent abs_vjp(v, clip_vjp(pre, ct)) goes to its augmented
 //   feature alone, added to 0 (none flows through the comparisons);
 // - the class at x_adv as engine.py::predict_plain (mlp_proba_plain's
-//   softmax, the first largest probability).
+//   softmax, the first largest probability);
+// - AutoPGD (kAuto) as attacks/pgd/autopgd.py::autopgd_run_plain: the
+//   tracking loss tw_class * CE + tw_cons * (-cons) with cons the
+//   constraint tctr (or the sum), at x_start before the first iteration and
+//   at x_new after each; the step with the row's eta instead of the
+//   schedule's; z clipped, projected and clipped, then the momentum x +
+//   alpha (z - x) + (1 - alpha)(x - x_prev) added left to right (alpha 1 at
+//   iteration 0: 0 * (x - x_prev) keeps a NaN), clipped, projected and
+//   clipped, then repair; the best point where the tracking loss rose above
+//   the best (a NaN never does), the rises counted in float32; at a
+//   checkpoint (is_ckpt[i + 1]) eta halved and x restarted from the best
+//   point (x_prev is still the x the iteration started from) where the
+//   rises since the last one are below ckpt_thr[i + 1], or eta and the best
+//   loss are both what they were at the last one, and eta and the best loss
+//   recorded; the result is the best point, the class there and each row's
+//   eta.
 //
 // Bound: per row and iteration the stack's forward and its input backward
 // are 2 x 5,600 multiply-adds for 47-64-32-16-2 (2 x 6,240 at 57 inputs),
 // plus ~300 operations (and ~10 per pair) for
 // the terms, their backward and the step: about 23k fp32 operations on 190
-// bytes of the row read once and written once. Bound by operations. Tensor
+// bytes of the row read once and written once. Bound by operations.
+// AutoPGD adds per iteration a forward of the stack and the terms (5,600
+// multiply-adds and ~150 operations) and ~20 per feature for the momentum
+// and the second projection. Tensor
 // cores are not used (their sums have an order no CPU code reproduces), and
 // without FMA a multiply-add is two instructions, so the ceiling is half
 // the fp32 peak. An iteration's longest dependent chain (the stack's sums,
@@ -91,7 +110,16 @@
 // table, its pair terms run by the terms warp after the ten and its
 // repair's re-derivation as one more pass of (row, pair) tasks; at kPairs =
 // false the pair stage is compiled out and the feature count is the
-// constant 47.
+// constant 47. AutoPGD is its own instantiation too (kAuto): a launch runs
+// 2T + 2 passes of the same code, an even one the tracking loss (the terms
+// warp's terms and the stack's forward and cross-entropy, nothing
+// backward) followed by the best point and the checkpoint, one thread per
+// row, and the copies to x_best and back to x; an odd one an iteration's
+// gradient and step; the last the class at x_best. x_prev and x_best are
+// two more row buffers in shared memory, the per-row state (the best and
+// the previous tracking loss, eta, the rises and the checkpoint's eta and
+// best loss) scalars beside them; at kAuto = false all of it is compiled
+// out.
 
 #include "pgd_common.cuh"
 
@@ -536,7 +564,22 @@ struct Stamps {
 // kPairs: the augmented domain, D = 47 + P features (a run-time value, with
 // the row stride) and 10 + P terms; else D = kD and the pair stage is
 // compiled out
+// the momentum step x + alpha (z - x) + (1 - alpha)(x - x_prev), added left
+// to right
+__device__ __forceinline__ float momentum(float x, float z, float xp, float alpha) {
+  return __fadd_rn(__fadd_rn(x, __fmul_rn(alpha, __fsub_rn(z, x))), __fmul_rn(__fsub_rn(1.0f, alpha), __fsub_rn(x, xp)));
+}
+
+// row r's L2 projection factor min(1, eps / (||CU's row|| + 1e-12)), CU
+// holding the squares of its perturbation
 template <bool kPairs>
+__device__ __forceinline__ float projection_factor(const float* cu, int d, float eps) {
+  return nan_min(1.0f, __fdiv_rn(eps, __fadd_rn(__fsqrt_rn(row_sum<kPairs>(cu, d)), 1e-12f)));
+}
+
+// kAuto: AutoPGD, whose launch runs 2T + 2 passes (see the design note);
+// else PGD
+template <bool kPairs, bool kAuto>
 __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, const PgdLayout lay) {
   extern __shared__ __align__(16) float smem[];
   const int D = kPairs ? a.d : kD;
@@ -558,7 +601,9 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
   float* CU = U + rp * RS;     // the terms' cotangent of U; then the squares of the L2 sums
   float* G = CU + rp * RS;     // the masked gradient
   float* SQR = G + rp * RS;    // squares of the raw gradient's finite entries
-  float* ACT = SQR + rp * RS;  // hidden activations (act_off)
+  float* XP = SQR + rp * RS;                // kAuto: x_prev
+  float* XB = XP + (kAuto ? rp * RS : 0);   // x_best
+  float* ACT = XB + (kAuto ? rp * RS : 0);  // hidden activations (act_off)
   float* CTA = ACT + lay.ct_off;      // cotangents, ping (rp, ct_st)
   float* CTB = CTA + rp * lay.ct_st;  // and pong
   float* LC = CTB + rp * lay.ct_st;  // (rp) each row's class loss
@@ -566,6 +611,17 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
   float* NRM = CONS + rp;            // (rp) its gradient's L2 norm + 1e-7
   float* FAC = NRM + rp;             // (rp) its projection factor
   float* GV = FAC + rp;              // (rp, NT + 1) its violations
+  // kAuto, (rp) each: the best tracking loss, the previous iteration's, the
+  // best at the last checkpoint, the step, the step at the last checkpoint,
+  // the rises since the last checkpoint, and what the pass's copies do
+  // (1: x_best takes x, 2: x restarts from x_best)
+  float* FBEST = GV + rp * (NT + 1);
+  float* FPREV = FBEST + rp;
+  float* FBCK = FPREV + rp;
+  float* ETA = FBCK + rp;
+  float* ETACK = ETA + rp;
+  float* IMPR = ETACK + rp;
+  int* MOVE = reinterpret_cast<int*>(IMPR + rp);
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * lay.rows;
   const int nr = min(lay.rows, a.n - row0);  // rows of this block; the others repeat its last
@@ -613,6 +669,10 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
     const size_t at = static_cast<size_t>(row0 + min(r, nr - 1)) * D + k;
     const float x = a.x_start[at];
     X[r * RS + k] = x;
+    if constexpr (kAuto) {
+      XP[r * RS + k] = x;
+      XB[r * RS + k] = x;
+    }
     XI[r * RS + k] = a.x_init[at];
     U[r * RS + k] = unscale(x, mn[k], sc[k]);
   }
@@ -629,13 +689,19 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
 
   Stamps stamp;
   stamp.begin();
-  // the iterations, then (it == t) the class at x_adv
+  // the iterations, then (last) the class at x_adv. kAuto: pass it = 0 is
+  // the tracking loss at x_start, 2i + 1 iteration i's gradient and step,
+  // 2i + 2 (track) its tracking loss at x_new, the best point and the
+  // checkpoint, and 2T + 1 the class at x_best
   for (int it = 0;; ++it) {
-    const bool last = it == a.t;
-    const float wc = last ? 0.0f : a.w_class[it];
-    const float wk = last ? 0.0f : a.w_cons[it];
-    const float stp = last ? 0.0f : a.step[it];
-    const int ctr = last ? 0 : a.ctr[it];
+    const int i = kAuto ? (it - 1) >> 1 : it;
+    const bool last = it == (kAuto ? 2 * a.t + 1 : a.t);
+    const bool track = kAuto && !last && !(it & 1);
+    const float wc = last || track ? 0.0f : a.w_class[i];
+    const float wk = last || track ? 0.0f : a.w_cons[i];
+    const float stp = last || kAuto ? 0.0f : a.step[i];
+    const int ctr = last ? 0 : (track ? a.tctr : a.ctr[i]);
+    const float alpha = kAuto && i > 0 ? a.alpha : 1.0f;
     float* cur = CTA;
     if (tid >= kTermsTid && last) {
       break;
@@ -648,10 +714,12 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
         float ct[kD + 1] = {};
         float g[kTerms];
         lcld_terms_vjp(U + r * RS, ct, a.tol, ctr, -wk, g);
+        if (!track) {
 #pragma unroll
-        for (int q = 0; q < (kD + 1) / 4; ++q)
-          *reinterpret_cast<float4*>(CU + r * RS + 4 * q) = make_float4(ct[4 * q], ct[4 * q + 1], ct[4 * q + 2],
-                                                                        ct[4 * q + 3]);
+          for (int q = 0; q < (kD + 1) / 4; ++q)
+            *reinterpret_cast<float4*>(CU + r * RS + 4 * q) = make_float4(ct[4 * q], ct[4 * q + 1], ct[4 * q + 2],
+                                                                          ct[4 * q + 3]);
+        }
         float cons = g[0];
 #pragma unroll
         for (int k = 1; k < kTerms; ++k) cons = __fadd_rn(cons, g[k]);
@@ -660,8 +728,10 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
 #pragma unroll
         for (int k = 0; k < kTerms; ++k)
           if (k == ctr) cons = g[k];
+        if (!track) {
 #pragma unroll
-        for (int k = 0; k < kTerms; ++k) GV[r * (NT + 1) + k] = g[k];
+          for (int k = 0; k < kTerms; ++k) GV[r * (NT + 1) + k] = g[k];
+        }
         if constexpr (kPairs) {
           // cons goes on as the running sum, or picks the optimised pair
           const float* u = U + r * RS;
@@ -670,9 +740,11 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
             const float v = __fsub_rn(u[col], pair_xor(u, pidx, pthr, p));
             const float pre = __fsub_rn(fabsf(v), a.tol);
             const float gp = clip_smooth(pre);
-            CU[r * RS + col] = __fadd_rn(0.0f, abs_vjp(v, clip_vjp(pre, ctr < 0 || ctr == kTerms + p ? -wk : 0.0f)));
+            if (!track) {
+              CU[r * RS + col] = __fadd_rn(0.0f, abs_vjp(v, clip_vjp(pre, ctr < 0 || ctr == kTerms + p ? -wk : 0.0f)));
+              GV[r * (NT + 1) + kTerms + p] = gp;
+            }
             cons = ctr < 0 ? __fadd_rn(cons, gp) : (ctr == kTerms + p ? gp : cons);
-            GV[r * (NT + 1) + kTerms + p] = gp;
           }
         }
         CONS[r] = cons;
@@ -692,30 +764,87 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
           if (tid < nr) a.pred[row0 + tid] = predicted_class(classes, lg);
         } else {
           LC[tid] = cross_entropy(classes, targeted, lg, yv, wc, ct);
-          CTA[tid * lay.ct_st] = ct[0];
-          if (classes == 2) CTA[tid * lay.ct_st + 1] = ct[1];
+          if (!track) {
+            CTA[tid * lay.ct_st] = ct[0];
+            if (classes == 2) CTA[tid * lay.ct_st + 1] = ct[1];
+          }
         }
       }
       if (last) break;
-      mlp_sync();
-      stamp(1);
-      // the hidden layers' backward, from the head's down to layer 1's
-      for (int l = a.n_layers - 1; l >= 1; --l) {
-        float* nxt = cur == CTA ? CTB : CTA;
-        const float* h = ACT + lay.act_off[l - 1];
-        const int h_st = lay.act_st[l - 1];
-        const int ct_st = lay.ct_st;
-        backward_tiles<kTile, kTile>(ws + lay.w_off[l], lay.w_st[l], a.widths[l], a.widths[l + 1], cur, ct_st, rp, tid,
-                                     kMlpThreads, [&](int r, int k, float v) {
-                                       nxt[r * ct_st + k] = h[r * h_st + k] > 0.0f ? v : 0.0f;
-                                     });
+      if (!track) {
         mlp_sync();
-        cur = nxt;
+        stamp(1);
+        // the hidden layers' backward, from the head's down to layer 1's
+        for (int l = a.n_layers - 1; l >= 1; --l) {
+          float* nxt = cur == CTA ? CTB : CTA;
+          const float* h = ACT + lay.act_off[l - 1];
+          const int h_st = lay.act_st[l - 1];
+          const int ct_st = lay.ct_st;
+          backward_tiles<kTile, kTile>(ws + lay.w_off[l], lay.w_st[l], a.widths[l], a.widths[l + 1], cur, ct_st, rp,
+                                       tid, kMlpThreads, [&](int r, int k, float v) {
+                                         nxt[r * ct_st + k] = h[r * h_st + k] > 0.0f ? v : 0.0f;
+                                       });
+          mlp_sync();
+          cur = nxt;
+        }
+        stamp(2);
       }
-      stamp(2);
     }
     __syncthreads();  // the terms' cotangents are in CU
     stamp(3);
+    if constexpr (kAuto) {
+      if (track) {
+        // the tracking loss at x (x_start, then x_new), one thread per row:
+        // the first pass sets the state; later ones the rises, the best
+        // point and, at a checkpoint, the halving
+        if (tid < rp) {
+          const float f = __fadd_rn(__fmul_rn(a.tw_class, LC[tid]), __fmul_rn(a.tw_cons, -CONS[tid]));
+          int move = it == 2 * a.t ? 2 : 0;  // after the last iteration x takes x_best for the class
+          if (it == 0) {
+            FBEST[tid] = f;
+            FPREV[tid] = f;
+            FBCK[tid] = f;
+            ETA[tid] = a.eta0;
+            ETACK[tid] = a.eta0;
+            IMPR[tid] = 0.0f;
+          } else {
+            const int c = it >> 1;  // i + 1 of the iteration just run
+            const float impr = __fadd_rn(IMPR[tid], f > FPREV[tid] ? 1.0f : 0.0f);
+            const bool better = f > FBEST[tid];
+            const float fb = better ? f : FBEST[tid];
+            const float eta = ETA[tid];
+            const bool ck = a.is_ckpt[c];
+            const bool halve = ck && (impr < a.ckpt_thr[c] || (ETACK[tid] == eta && FBCK[tid] == fb));
+            const float eta_next = halve ? __fmul_rn(eta, 0.5f) : eta;
+            FBEST[tid] = fb;
+            FPREV[tid] = f;
+            ETA[tid] = eta_next;
+            IMPR[tid] = ck ? 0.0f : impr;
+            if (ck) {
+              ETACK[tid] = eta_next;
+              FBCK[tid] = fb;
+            }
+            move |= (better ? 1 : 0) | (halve ? 2 : 0);
+          }
+          MOVE[tid] = move;
+        }
+        __syncthreads();
+        for (int e = tid; e < rp * D; e += kThreads) {
+          const int r = e / D;
+          const int k = e - r * D;
+          const int at = r * RS + k;
+          const int move = MOVE[r];
+          if (move & 1) XB[at] = X[at];
+          if (move & 2) {
+            const float xb = XB[at];
+            X[at] = xb;
+            U[at] = unscale(xb, mn[k], sc[k]);
+          }
+        }
+        __syncthreads();
+        continue;
+      }
+    }
     // the input backward, into G
     if (tid < kMlpThreads)
       backward_tiles<kTile, kTile>(ws + lay.w_off[0], lay.w_st[0], D, a.widths[1], cur, lay.ct_st, rp, tid,
@@ -735,11 +864,24 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
       const float gm = isnan(gv) || !mut[k] ? 0.0f : gv;
       if (linf) {
         const float d = gm > 0.0f ? 1.0f : (gm < 0.0f ? -1.0f : (gm == 0.0f ? 0.0f : gm));
-        const float x = clamp_nan(__fadd_rn(X[at], __fmul_rn(stp, d)), a.lo, a.hi);
-        const float du = __fsub_rn(x, XI[at]);
-        const float xn = clamp_nan(__fadd_rn(XI[at], clamp_nan(du, -a.eps, a.eps)), a.lo, a.hi);
-        X[at] = xn;
-        U[at] = unscale(xn, mn[k], sc[k]);
+        if constexpr (kAuto) {
+          // z, then the momentum, each clipped, projected and clipped; x_prev takes x
+          const float x = X[at];
+          const float xi = XI[at];
+          float z = clamp_nan(__fadd_rn(x, __fmul_rn(ETA[r], d)), a.lo, a.hi);
+          z = clamp_nan(__fadd_rn(xi, clamp_nan(__fsub_rn(z, xi), -a.eps, a.eps)), a.lo, a.hi);
+          float xn = clamp_nan(momentum(x, z, XP[at], alpha), a.lo, a.hi);
+          xn = clamp_nan(__fadd_rn(xi, clamp_nan(__fsub_rn(xn, xi), -a.eps, a.eps)), a.lo, a.hi);
+          XP[at] = x;
+          X[at] = xn;
+          U[at] = unscale(xn, mn[k], sc[k]);
+        } else {
+          const float x = clamp_nan(__fadd_rn(X[at], __fmul_rn(stp, d)), a.lo, a.hi);
+          const float du = __fsub_rn(x, XI[at]);
+          const float xn = clamp_nan(__fadd_rn(XI[at], clamp_nan(du, -a.eps, a.eps)), a.lo, a.hi);
+          X[at] = xn;
+          U[at] = unscale(xn, mn[k], sc[k]);
+        }
       } else {
         G[at] = gm;
         CU[at] = __fmul_rn(gm, gm);
@@ -752,7 +894,7 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
       if (tid < rp) {
         const int r = tid;
         if (a.hist != nullptr && r < nr) {
-          float* h = a.hist + (static_cast<size_t>(it) * a.n + row0 + r) * a.hist_cols;
+          float* h = a.hist + (static_cast<size_t>(i) * a.n + row0 + r) * a.hist_cols;
           const float lc = LC[r];
           const float cons = CONS[r];
           h[0] = __fadd_rn(__fmul_rn(wc, lc), __fmul_rn(wk, -cons));
@@ -764,7 +906,7 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
         if (!linf) NRM[r] = __fadd_rn(__fsqrt_rn(row_sum<kPairs>(CU + r * RS, D)), 1e-7f);
       } else if (hist_norm && tid >= 32 && tid < 32 + nr) {
         const int r = tid - 32;
-        a.hist[(static_cast<size_t>(it) * a.n + row0 + r) * a.hist_cols + 3] = __fsqrt_rn(row_sum<kPairs>(SQR + r * RS, D));
+        a.hist[(static_cast<size_t>(i) * a.n + row0 + r) * a.hist_cols + 3] = __fsqrt_rn(row_sum<kPairs>(SQR + r * RS, D));
       }
       __syncthreads();
     }
@@ -774,17 +916,34 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
       for (int e = tid; e < rp * D; e += kThreads) {
         const int r = e / D;
         const int at = e + r * (RS - D);
-        const float x = clamp_nan(__fadd_rn(X[at], __fmul_rn(stp, div_rn(G[at], NRM[r]))), a.lo, a.hi);
+        const float x = clamp_nan(__fadd_rn(X[at], __fmul_rn(kAuto ? ETA[r] : stp, div_rn(G[at], NRM[r]))), a.lo, a.hi);
         const float du = __fsub_rn(x, XI[at]);
         U[at] = du;
         CU[at] = __fmul_rn(du, du);
       }
       __syncthreads();
       stamp(6);
-      if (tid < rp)
-        FAC[tid] = nan_min(1.0f, __fdiv_rn(a.eps, __fadd_rn(__fsqrt_rn(row_sum<kPairs>(CU + tid * RS, D)), 1e-12f)));
+      if (tid < rp) FAC[tid] = projection_factor<kPairs>(CU + tid * RS, D, a.eps);
       __syncthreads();
       stamp(7);
+      if constexpr (kAuto) {
+        // z projected and clipped, then the momentum clipped: its
+        // perturbation into U, its squares into CU; x_prev takes x
+        for (int e = tid; e < rp * D; e += kThreads) {
+          const int r = e / D;
+          const int at = e + r * (RS - D);
+          const float x = X[at];
+          const float xi = XI[at];
+          const float z = clamp_nan(__fadd_rn(xi, __fmul_rn(U[at], FAC[r])), a.lo, a.hi);
+          const float du = __fsub_rn(clamp_nan(momentum(x, z, XP[at], alpha), a.lo, a.hi), xi);
+          XP[at] = x;
+          U[at] = du;
+          CU[at] = __fmul_rn(du, du);
+        }
+        __syncthreads();
+        if (tid < rp) FAC[tid] = projection_factor<kPairs>(CU + tid * RS, D, a.eps);
+        __syncthreads();
+      }
       // the projection and the clip
       for (int e = tid; e < rp * D; e += kThreads) {
         const int r = e / D;
@@ -852,6 +1011,9 @@ __global__ void __launch_bounds__(kThreads) pgd_lcld_kernel(const PgdArgs a, con
     const int r = e / D;
     a.x_adv[static_cast<size_t>(row0) * D + e] = X[r * RS + (e - r * D)];
   }
+  if constexpr (kAuto) {
+    if (tid < nr) a.eta[row0 + tid] = ETA[tid];
+  }
 }
 
 size_t pgd_smem_bytes(const PgdLayout& lay) {
@@ -868,6 +1030,9 @@ cudaError_t launch_pgd_lcld(const PgdArgs& args, cudaStream_t stream) {
       (args.n_pairs > 0 && (args.pair_idx == nullptr || args.pair_thr == nullptr)) ||
       args.widths[0] != args.d || args.widths[args.n_layers] < 1 || args.widths[args.n_layers] > 2 ||
       args.n_groups < 0 || args.group_slots < 1 || args.n_groups * args.group_slots > kPgdMaxOheSlots)
+    return cudaErrorInvalidValue;
+  const bool autopgd = args.flags & 32;
+  if (autopgd && (args.is_ckpt == nullptr || args.ckpt_thr == nullptr || args.eta == nullptr))
     return cudaErrorInvalidValue;
   PgdLayout lay{};
   lay.rs = odd_stride(args.d);
@@ -901,8 +1066,9 @@ cudaError_t launch_pgd_lcld(const PgdArgs& args, cudaStream_t stream) {
     lay.rows = rows;
     lay.rows_pad = (rows + kTile - 1) / kTile * kTile;
     // six feature buffers, the activations, two of cotangents, 4 + the
-    // terms + 1 scalars per row
-    lay.row_floats = lay.rows_pad * (6 * lay.rs + act_floats + 2 * lay.ct_st + 4 + kTerms + args.n_pairs + 1);
+    // terms + 1 scalars per row; AutoPGD's two buffers and 7 scalars
+    lay.row_floats = lay.rows_pad * (6 * lay.rs + act_floats + 2 * lay.ct_st + 4 + kTerms + args.n_pairs + 1 +
+                                     (autopgd ? 2 * lay.rs + 7 : 0));
     if (pgd_smem_bytes(lay) <= kMaxSharedBytes) break;
     if (rows == 1) return cudaErrorInvalidValue;
   }
@@ -914,15 +1080,25 @@ cudaError_t launch_pgd_lcld(const PgdArgs& args, cudaStream_t stream) {
   lay.ct_off = off;
   const size_t smem = pgd_smem_bytes(lay);
   const int grid = (args.n + rows - 1) / rows;
-  if (args.n_pairs > 0) {
+  if (autopgd && args.n_pairs > 0) {
+    static LaunchCache aug_auto_cache;
+    err = aug_auto_cache.prepare(reinterpret_cast<const void*>(pgd_lcld_kernel<true, true>), kThreads, smem, nullptr);
+    if (err != cudaSuccess) return err;
+    pgd_lcld_kernel<true, true><<<grid, kThreads, smem, stream>>>(args, lay);
+  } else if (autopgd) {
+    static LaunchCache auto_cache;
+    err = auto_cache.prepare(reinterpret_cast<const void*>(pgd_lcld_kernel<false, true>), kThreads, smem, nullptr);
+    if (err != cudaSuccess) return err;
+    pgd_lcld_kernel<false, true><<<grid, kThreads, smem, stream>>>(args, lay);
+  } else if (args.n_pairs > 0) {
     static LaunchCache aug_cache;
-    err = aug_cache.prepare(reinterpret_cast<const void*>(pgd_lcld_kernel<true>), kThreads, smem, nullptr);
+    err = aug_cache.prepare(reinterpret_cast<const void*>(pgd_lcld_kernel<true, false>), kThreads, smem, nullptr);
     if (err != cudaSuccess) return err;
-    pgd_lcld_kernel<true><<<grid, kThreads, smem, stream>>>(args, lay);
+    pgd_lcld_kernel<true, false><<<grid, kThreads, smem, stream>>>(args, lay);
   } else {
-    err = cache.prepare(reinterpret_cast<const void*>(pgd_lcld_kernel<false>), kThreads, smem, nullptr);
+    err = cache.prepare(reinterpret_cast<const void*>(pgd_lcld_kernel<false, false>), kThreads, smem, nullptr);
     if (err != cudaSuccess) return err;
-    pgd_lcld_kernel<false><<<grid, kThreads, smem, stream>>>(args, lay);
+    pgd_lcld_kernel<false, false><<<grid, kThreads, smem, stream>>>(args, lay);
   }
   return cudaGetLastError();
 }

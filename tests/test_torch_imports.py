@@ -37,7 +37,7 @@ def test_port_has_every_module_of_the_slice():
         "models.io", "attacks.objective", "attacks.moeva.refdirs",
         "attacks.moeva.initialisation", "attacks.moeva.operators",
         "attacks.moeva.nds", "attacks.moeva.survival", "attacks.moeva.engine",
-        "attacks.pgd", "attacks.pgd.engine", "kernels", "kernels.build", "problems",
+        "attacks.pgd", "attacks.pgd.engine", "attacks.pgd.autopgd", "kernels", "kernels.build", "problems",
         "utils.config", "utils.in_out", "utils.observability", "utils.streaming", "domains",
         "experiments.common", "experiments.moeva", "experiments.pgd", "attacks.sat",
         "attacks.sat.engine", "domains.lcld_sat", "domains.botnet_sat",

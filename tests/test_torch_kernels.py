@@ -30,7 +30,8 @@ from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import (
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import (
     NormState, associate_plain, draw_gumbels, survive_fill_plain, survive_norm_plain,
 )
-from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD
+from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD, ConstrainedPGD
+from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.autopgd import autopgd_run_plain
 from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import PgdTables, pgd_run_plain
 from moeva2_ijcai22_replication_tpu_torch.core import codec as codec_lib
 from moeva2_ijcai22_replication_tpu_torch.kernels import build
@@ -491,6 +492,7 @@ def test_launch_counts_reset():
         "offspring": 0, "objective_lcld": 0, "nd_peel": 0,
         "survive_norm": 0, "associate": 0, "survive_fill": 0, "pgd_lcld": 0, "objective_botnet": 0,
         "pgd_botnet": 0, "objective_lcld_aug": 0, "pgd_lcld_aug": 0, "objective_botnet_aug": 0,
+        "pgd_lcld_auto": 0, "pgd_lcld_aug_auto": 0,
     }
 
 
@@ -679,6 +681,57 @@ def test_pgd_generate_on_the_card(card, pgd_problem):
     assert ((got == want) | (np.isnan(got) & np.isnan(want))).all()
 
 
+def _autopgd_equals_plain(card, problem, knobs, n, t, counter):
+    """K7's AutoPGD instantiation against ``autopgd_run_plain`` from the
+    problem's starts, bit for bit (x_best, the class there, the history,
+    each row's final step), one launch counted as ``counter``."""
+    cons, sur, scaler, xs, starts = problem
+    atk = AutoPGD(sur, cons, scaler, eps=0.2, eps_step=0.2 / 3, max_iter=t, device=card, **knobs)
+    sched = atk.schedule(0.2, 0.2 / 3, t)
+    xs, starts = (np.resize(v, (n, v.shape[1])) for v in (xs, starts))
+    args = (torch.as_tensor(xs, device=card), torch.as_tensor(np.arange(n) % 2, device=card),
+            torch.as_tensor(starts, device=card))
+    repair, linf = "repair" in atk.loss_evaluation, knobs["norm"] == np.inf
+    before = kernels.launch_counts()
+    got = kernels.pgd_lcld(atk.tables, sched.pgd, *args, 0.2, atk.clip, linf, repair, atk.targeted,
+                           atk.history_layout(), auto=sched.auto)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {counter: 1}
+    want = autopgd_run_plain(atk.tables, cons, sched, *args, 0.2, atk.clip, atk.norm, repair, atk.targeted,
+                             atk.history_layout())
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or _same(g, w)
+    return got[3]
+
+
+AUTOPGD_CASES = tuple(
+    {**case, "loss_evaluation": "autopgd+" + case["loss_evaluation"]} for case in PGD_CASES
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t", [(1, 7), (33, 12), (64, 30), (133, 12), (4000, 12), (4225, 12)])
+@pytest.mark.parametrize("case", range(len(AUTOPGD_CASES)))
+def test_autopgd_lcld_equals_plain(card, pgd_problem, case, n, t):
+    eta = _autopgd_equals_plain(card, pgd_problem, AUTOPGD_CASES[case], n, t, "pgd_lcld_auto")
+    if t >= 12 and n >= 33:
+        assert (eta < np.float32(0.2 / 3)).any()  # a checkpoint halved some rows
+
+
+@pytest.mark.cuda
+def test_autopgd_generate_on_the_card_equals_the_cpu(card, pgd_problem):
+    cons, sur, scaler, xs, _ = pgd_problem
+    y = np.arange(len(xs)) % 2
+    knobs = dict(eps=0.2, eps_step=0.2 / 3, max_iter=20, norm=2, loss_evaluation="autopgd+constraints+flip")
+    on_card = AutoPGD(sur, cons, scaler, device=card, **knobs)
+    on_cpu = AutoPGD(sur, cons, scaler, device="cpu", **knobs)
+    got, want = on_card.generate(xs, y), on_cpu.generate(xs, y)
+    assert ((got == want) | (np.isnan(got) & np.isnan(want))).all()
+    with pytest.raises(ValueError, match="max_iter=21 differs"):
+        on_card.generate(xs, y, max_iter=21)
+
+
 def test_pgd_wrapper_refuses_cpu_tensors(tmp_path):
     cons, sur, scaler, x = synthetic_lcld_problem(str(tmp_path), 4)
     atk = ConstrainedPGD(sur, cons, scaler, device="cpu", max_iter=2)
@@ -781,6 +834,14 @@ def test_pgd_lcld_aug_equals_plain(card, pgd_aug, case, n, t):
         assert got[2].shape[-1] == len(atk.hist_column_names()) == 3 + atk.history_layout()[0] + 20
     for g, w in zip(got, want):
         assert (g is None and w is None) or _same(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t", [(1, 7), (33, 12), (133, 12), (4000, 12)])
+@pytest.mark.parametrize("case", range(len(PGD_AUG_CASES)))
+def test_autopgd_lcld_aug_equals_plain(card, pgd_aug, case, n, t):
+    knobs = {**PGD_AUG_CASES[case], "loss_evaluation": "autopgd+" + PGD_AUG_CASES[case]["loss_evaluation"]}
+    _autopgd_equals_plain(card, pgd_aug, knobs, n, t, "pgd_lcld_aug_auto")
 
 
 @pytest.mark.cuda

@@ -245,7 +245,6 @@ REFUSED = [
     ("moeva", {"system": {"trace_log": "trace.jsonl"}}, "system.trace_log"),
     ("moeva", {"system": {"profile_dir": "prof"}}, "system.profile_dir"),
     ("moeva", {"system": {"mesh_devices": 8}}, "system.mesh_devices"),
-    ("pgd", {"loss_evaluation": "autopgd+flip"}, "loss_evaluation"),
     ("pgd", {"system": {"trace_log": "trace.jsonl"}}, "system.trace_log"),
     ("pgd", {"system": {"profile_dir": "prof"}}, "system.profile_dir"),
     ("pgd", {"system": {"mesh_devices": -1}}, "system.mesh_devices"),
@@ -263,6 +262,30 @@ def test_refused_knob_raises_before_any_device_work(artifacts, tmp_path, base, o
     with pytest.raises(NotImplementedError, match=f"config sets {knob}"):
         runner.run(cfg, device="cuda")
     assert not (tmp_path / "out").exists()
+
+
+def test_autopgd_on_botnet_is_refused_on_the_card_before_any_device_work(tmp_path, monkeypatch):
+    """AutoPGD on botnet runs on the CPU only: on the card (``device="cuda"``,
+    a card pretended here) the runner's engine refuses it by name, ROADMAP
+    queue B's "K7b AutoPGD (botnet)", before any tensor reaches the device,
+    and no result is written."""
+    from moeva2_ijcai22_replication_tpu_torch.models.io import save_params
+    from moeva2_ijcai22_replication_tpu_torch.problems import synthetic_botnet_problem
+
+    _, sur, scaler, x = synthetic_botnet_problem(str(tmp_path), 8)
+    np.save(tmp_path / "x_candidates.npy", x)
+    save_params(sur, str(tmp_path / "nn.msgpack"))
+    save_npz(scaler, str(tmp_path / "scaler.npz"))
+    art = {"dir": tmp_path, "paths": {"features": str(tmp_path / "features.csv"),
+                                      "constraints": str(tmp_path / "constraints.csv")}}
+    cfg = _config(art, tmp_path / "out", "pgd", scaler="scaler.npz", budget=5, eps=4.0,
+                  loss_evaluation="autopgd+constraints+flip", project_name="botnet")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    common.ENGINES.clear()
+    with pytest.raises(NotImplementedError, match="K7b AutoPGD") as exc:
+        ppgd.run(cfg, device="cuda")
+    assert "BotnetConstraints" in str(exc.value)
+    assert not [f for f in os.listdir(tmp_path / "out") if f.startswith(("metrics_", "x_attacks_"))]
 
 
 @pytest.mark.parametrize("base", ["moeva", "pgd"])

@@ -49,8 +49,9 @@ def load_tree(name: str, root: Path, links: Path):
         importlib.import_module(f"port_{name}.{sub}")
     pkg.kernels.build.library()
     for k in cs.ptxas_resources(pkg.kernels.build.build().log):
-        if k["kernel"] in ("objective_lcld_kernel<128,1,0>", "objective_lcld_kernel<64,0,0>", "pgd_lcld_kernel<0>",
-                           "objective_lcld_kernel<128,1>", "objective_lcld_kernel<64,0>", "pgd_lcld_kernel"):
+        if k["kernel"] in ("objective_lcld_kernel<128,1,0>", "objective_lcld_kernel<64,0,0>", "pgd_lcld_kernel<0,0>",
+                           "pgd_lcld_kernel<0>", "objective_lcld_kernel<128,1>", "objective_lcld_kernel<64,0>",
+                           "pgd_lcld_kernel"):
             print(f"[ptxas] {name}: {k['kernel']}: {k['registers']} registers, {k['stack']} bytes stack frame, "
                   f"{k['spill_stores']} + {k['spill_loads']} bytes spill stores + loads")
     return pkg
