@@ -90,7 +90,7 @@ Phases, in order; any failure exits non-zero:
    against the CPU at 4 states; o1..o7 at f1 0.5 and f2 4; and the profile of
    phase 6 at 387 states;
 9. constrained PGD on the botnet domain (the ``[pgd-botnet]`` lines): K7b's
-   ptxas line; K7b ``pgd_botnet`` against ``pgd_run_plain`` on the card, bit
+   base instantiation's ptxas line; K7b ``pgd_botnet`` against ``pgd_run_plain`` on the card, bit
    for bit (x_adv, the class at x_adv, the history), over
    ``PGD_BOTNET_ROWS`` (partial last clusters among them) x ``PGD_ITERS`` and
    phase 7's ``PGD_CONFIGS``, with the terms' edge cases in the starts
@@ -196,8 +196,19 @@ Phases, in order; any failure exits non-zero:
    restarts; rq1.lcld's PGD points under the prefix (4000 x 1000;
    ``autopgd+flip+sat`` on 256 states, ``RUNNER_CUTS``' cut of ``flip+sat``) and rq2.lcld's at
    budget 1000 through the runner, with phase 10's checks; and AutoPGD on
-   botnet refused on the card by name before any launch. No grid file of
-   ``config/`` selects AutoPGD: phase 13 launches neither of its counters
+   the augmented botnet domain refused on the card by name ("K7b at 927")
+   before any launch. Then botnet (the ``[autopgd-botnet]`` lines): the
+   ptxas lines of K7b's two instantiations (kAuto); its AutoPGD
+   instantiation against ``autopgd_run_plain`` bit for bit over
+   ``AUTOPGD_BOTNET_ROWS`` x ``AUTOPGD_ITERS`` x ``AUTOPGD_CONFIGS`` with
+   phase 9's edge starts, halved and kept rows at T >= 12; timed at 387 x
+   1000 (rq1.botnet's ``constraints+flip`` under the prefix, ε 4) beside
+   base K7b at the same loss, the plain version at 10 iterations, the bound
+   (``autopgd_botnet_bound``), the latency floor and the launch's shape (one
+   wave); ``generate`` cold and steady (one launch); the card against the
+   CPU at 32 x 20 and 2 restarts; rq1.botnet's five PGD points under the
+   prefix through the runner (387 x 1000). No grid file of ``config/``
+   selects AutoPGD: phase 13 launches none of its counters
    (``AUTOPGD_COUNTERS``), which phase 14 must launch.
 
 The last three lines are the per-kernel JSON record (with each kernel's
@@ -1849,19 +1860,28 @@ def check_pgd_card_vs_cpu(device, tag: str, kernel: str, problem, eps: float, n:
         raise AssertionError(f"{got} launches of {kernel} for 2 restarts")
 
 
+def lcld_repair_rewrites(cons, loss: str, d: int) -> np.ndarray:
+    """(d,) the features LCLD's repair rewrites after the projection under
+    ``loss``, none without repair: term, installment, the one-hot groups
+    and, on the augmented domain, the pairs' features past the 47th; the
+    ball holds on every other feature."""
+    rewritten = np.zeros(d, bool)
+    if "repair" in loss:
+        rewritten[[1, 3]] = True
+        rewritten[47:] = True
+        for group in cons.schema.ohe_groups():
+            rewritten[list(group)] = True
+    return rewritten
+
+
 def run_pgd_path(device, problem, smi: str) -> dict:
     """Phase 7's drive: ``generate`` at the main shape, card against CPU,
     restarts; returns the launch counts of the drive."""
     cons, sur, scaler, x = problem
     xs = scaler.transform(x)
     atk_problem = (cons, sur, scaler, x, xs, surrogate_labels(sur, xs))
-    # repair rewrites term, installment and the one-hot groups after the
-    # projection; the ball holds on every other feature
-    rewritten = np.zeros(x.shape[1], bool)
-    rewritten[[1, 3]] = True
-    for group in cons.schema.ohe_groups():
-        rewritten[list(group)] = True
-    launches = drive_pgd(device, smi, "[pgd]", "pgd_lcld", atk_problem, PGD_EPS, 0.25, rewritten)
+    launches = drive_pgd(device, smi, "[pgd]", "pgd_lcld", atk_problem, PGD_EPS, 0.25,
+                         lcld_repair_rewrites(cons, PGD_LOSS, x.shape[1]))
     check_pgd_card_vs_cpu(device, "[pgd]", "pgd_lcld", atk_problem, PGD_EPS, PGD_CPU_ROWS, PGD_CPU_ITERS)
     return launches
 
@@ -2312,9 +2332,9 @@ def check_pgd_botnet_kernel(device, problem):
         f"{BOTNET_EDGE_ROWS} edge starts, {nan_rows} NaN rows of x_adv, {nan_hist} NaN history entries")
 
 
-def pgd_botnet_bound(tables, n: int, t: int, hist_cols: int = 0):
-    """K7b's least time for ``n`` rows and ``t`` iterations: the bytes it
-    must move and the operations counted from its source."""
+def pgd_botnet_work(tables, n: int, t: int, hist_cols: int = 0):
+    """K7b's work for ``n`` rows and ``t`` iterations: the bytes it must
+    move, its float32 and its float64 operations, counted from its source."""
     widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
     macs = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
     d = widths[0]
@@ -2324,7 +2344,13 @@ def pgd_botnet_bound(tables, n: int, t: int, hist_cols: int = 0):
                + 4 * (sum(c) + tables.cons.inverse.numel()) + 16 * t + 4 * t * n * hist_cols)
     per_row = (4 * macs + PGD_OPS_PER_FEATURE * d + sum(c) + sum(c[:4]) + PGD_BOTNET_OPS_PER_TERM * n_terms
                + PGD_BOTNET_OPS_PER_ROW)
-    return bound_ms(n_bytes, n * t * per_row, n * t * PGD_BOTNET_F64_PER_ROW)
+    return n_bytes, n * t * per_row, n * t * PGD_BOTNET_F64_PER_ROW
+
+
+def pgd_botnet_bound(tables, n: int, t: int, hist_cols: int = 0):
+    """K7b's least time for ``n`` rows and ``t`` iterations: the bytes it
+    must move and the operations counted from its source."""
+    return bound_ms(*pgd_botnet_work(tables, n, t, hist_cols))
 
 
 def pgd_botnet_floor_ms(tables, t: int, mhz: float, l2: bool = True) -> float:
@@ -2339,21 +2365,22 @@ def pgd_botnet_floor_ms(tables, t: int, mhz: float, l2: bool = True) -> float:
     return t * chain * CYCLES_PER_DEPENDENT_OP / (mhz * 1e6) * 1e3
 
 
-def pgd_botnet_shape(tables, n: int) -> dict:
+def pgd_botnet_shape(tables, n: int, autopgd: bool = False) -> dict:
     """K7b's launch at ``n`` rows of ``tables``' stack and gather lists, as
-    its launcher plans it on the current card (``moeva_pgd_botnet_shape``)."""
+    its launcher plans it on the current card (``moeva_pgd_botnet_shape``),
+    of its AutoPGD instantiation where ``autopgd``."""
     import ctypes
 
     from moeva2_ijcai22_replication_tpu_torch.kernels import build
 
     fn = build.library().moeva_pgd_botnet_shape
     c_int = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(c_int), c_int, ctypes.POINTER(c_int), c_int, ctypes.POINTER(c_int)]
+    fn.argtypes = [ctypes.POINTER(c_int), c_int, ctypes.POINTER(c_int), c_int, c_int, ctypes.POINTER(c_int)]
     fn.restype = c_int
     widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
     counts = list(tables.cons.counts)
     out = (c_int * 6)()
-    err = fn((c_int * len(widths))(*widths), len(widths) - 1, (c_int * len(counts))(*counts), n, out)
+    err = fn((c_int * len(widths))(*widths), len(widths) - 1, (c_int * len(counts))(*counts), n, int(autopgd), out)
     if err:
         raise RuntimeError(f"moeva_pgd_botnet_shape failed: {build.library().moeva_error_string(err).decode()}")
     return dict(zip(("rows_per_cluster", "ctas_per_cluster", "ctas", "threads", "smem_bytes", "resident_clusters"),
@@ -2401,9 +2428,9 @@ def time_pgd_botnet(device, problem):
 def run_pgd_botnet(device, smi: str, resources: list):
     """Phase 9: constrained PGD on the botnet domain. Returns K7b's record
     and the launch counts of the rq1.botnet drive."""
-    entries = [k for k in resources if k["kernel"].startswith("pgd_botnet_kernel")]
+    entries = [k for k in resources if k["kernel"] == "pgd_botnet_kernel<0>"]
     if not entries:
-        raise AssertionError("the build's ptxas report has no entry for pgd_botnet_kernel")
+        raise AssertionError("the build's ptxas report has no entry for pgd_botnet_kernel<0>, K7b's PGD")
     for k in entries:
         log(f"[pgd-botnet] K7b ptxas: {k['kernel']}: {k['registers']} registers, {k['stack']} bytes stack frame, "
             f"{k['spill_stores']} + {k['spill_loads']} bytes spill stores + loads")
@@ -3822,7 +3849,7 @@ def run_grids(smi: str) -> dict:
     return total
 
 
-# -- phase 14: AutoPGD on LCLD and augmented LCLD ----------------------------------------
+# -- phase 14: AutoPGD on LCLD, augmented LCLD and botnet -----------------------------
 
 #: phase 7's configurations under AutoPGD's loss prefix: every loss strategy,
 #: the three constraints_optim, targeted, both norms, every history layout
@@ -3836,10 +3863,10 @@ AUTOPGD_LOSS = "autopgd+constraints+flip"
 #: (``autopgd+flip+sat`` on 256 states: ``RUNNER_CUTS``' cut of ``flip+sat``)
 AUTOPGD_RUNNER_LOSSES = ("autopgd+flip", "autopgd+constraints+flip",
                          "autopgd+constraints+flip+adaptive_eps_step+repair", "autopgd+flip+sat")
-#: the launch counts of K7's AutoPGD instantiations: no grid file of
-#: ``config/`` selects an ``autopgd`` loss, so phase 13 launches neither and
-#: phase 14 must launch both
-AUTOPGD_COUNTERS = ("pgd_lcld_auto", "pgd_lcld_aug_auto")
+#: the launch counts of K7's and K7b's AutoPGD instantiations: no grid file
+#: of ``config/`` selects an ``autopgd`` loss, so phase 13 launches none and
+#: phase 14 must launch each
+AUTOPGD_COUNTERS = ("pgd_lcld_auto", "pgd_lcld_aug_auto", "pgd_botnet_auto")
 #: operations AutoPGD adds to K7's per row and iteration, counted from its
 #: source, besides the tracking forward's 2 per weight of the stack: 18 per
 #: feature (the momentum's six, its clip, the second projection's
@@ -3851,6 +3878,29 @@ AUTOPGD_COUNTERS = ("pgd_lcld_auto", "pgd_lcld_aug_auto")
 AUTOPGD_OPS_PER_FEATURE = 18
 AUTOPGD_OPS_PER_ROW = 90
 AUTOPGD_F64_PER_ROW = 6
+#: K7b's AutoPGD sweep: phase 9's row counts that keep its layouts' edges (a
+#: lone row; 67, two rows a cluster, one past the 66 resident clusters' one
+#: row each; rq1.botnet's 387; 397, a 67th cluster of one row past 6 rows on
+#: every resident one), at AUTOPGD_ITERS with phase 9's edge starts
+AUTOPGD_BOTNET_ROWS = (1, 67, 387, 397)
+#: rq1.botnet's PGD points under AutoPGD, through the runner on all its 387
+#: states (``autopgd+flip+sat`` too, as phase 10's botnet ``flip+sat``)
+AUTOPGD_BOTNET_RUNNER_LOSSES = tuple("autopgd+" + loss for loss in RQ1_LOSSES)
+#: operations AutoPGD adds to K7b's per row and iteration, counted from its
+#: source, besides the tracking forward's 2 per weight of the stack, its
+#: terms (the flow sums and PGD_BOTNET_OPS_PER_TERM a term) and cons' sum (1
+#: a term), and AUTOPGD_OPS_PER_FEATURE per feature: 40 per row (the
+#: cross-entropy's forward, the tracking loss, its comparisons, the rises
+#: and the checkpoint's, the second projection factor's root, add, division
+#: and min); the cross-entropy's 3 float64 exp and log once more
+AUTOPGD_BOTNET_OPS_PER_ROW = 40
+#: K7b's AutoPGD instantiation's dependent operations per iteration besides
+#: PGD's (pgd_botnet_floor_ms), the tracking forward's sums and the second
+#: projection factor's L2 sum over the features, counted from its source:
+#: the cross-entropy (20), the tracking loss and its decision (8), z's
+#: scaling, add and clip, the momentum and its clip, the perturbation and
+#: its square (12), the second factor's root, add, division and min (4)
+AUTOPGD_BOTNET_CHAIN_PER_ITER = 44
 
 
 def autopgd_bound(tables, n: int, t: int):
@@ -3867,13 +3917,47 @@ def autopgd_bound(tables, n: int, t: int):
     return bound_ms(n_bytes + 16 * pairs + 4 * n + 5 * (t + 1), n_ops, n_f64 + n * t * AUTOPGD_F64_PER_ROW)
 
 
-def autopgd_sweep(device, cons, sur, scaler, xs: np.ndarray, starts: np.ndarray, rows: tuple):
-    """K7's AutoPGD instantiation against ``autopgd_run_plain`` on the card,
-    bit for bit (x_best, the class there, the history, each row's final
-    step), over ``AUTOPGD_CONFIGS`` x ``rows`` x ``AUTOPGD_ITERS``, the last
-    budget at one row count per configuration, first step ε / 3; labels
-    alternate 0 and 1. Returns (runs, rows halved and rows not halved at T
-    >= 12, NaN rows of x_best)."""
+def autopgd_botnet_bound(tables, n: int, t: int):
+    """K7b's AutoPGD instantiation's least time for ``n`` rows and ``t``
+    iterations, counted from its source as ``pgd_botnet_bound`` is:
+    ``pgd_botnet_work`` plus the tracking pass (2 operations per weight, the
+    terms' forward and cons' sum, the cross-entropy's float64 exp and log),
+    the momentum, the second projection and the copies
+    (``AUTOPGD_OPS_PER_FEATURE`` a feature) and ``AUTOPGD_BOTNET_OPS_PER_ROW``;
+    the bytes add each row's step and the two (T + 1) tables."""
+    n_bytes, n_ops, n_f64 = pgd_botnet_work(tables, n, t)
+    widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
+    macs = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
+    c = tables.cons.counts
+    n_terms = 2 + sum(c[4::2])
+    n_ops += n * t * (2 * macs + sum(c[:4]) + (PGD_BOTNET_OPS_PER_TERM + 1) * n_terms
+                      + AUTOPGD_OPS_PER_FEATURE * widths[0] + AUTOPGD_BOTNET_OPS_PER_ROW)
+    return bound_ms(n_bytes + 4 * n + 5 * (t + 1), n_ops, n_f64 + n * t * PGD_BOTNET_F64_PER_ROW)
+
+
+def autopgd_botnet_floor_ms(tables, t: int, mhz: float) -> float:
+    """K7b's AutoPGD instantiation's latency floor for ``t`` iterations (L2),
+    counted from its source: ``pgd_botnet_floor_ms``'s chain and, per
+    iteration, the tracking forward's (each first-layer unit's 756 adds, the
+    deeper layers'), the second projection factor's L2 sum over the features
+    and ``AUTOPGD_BOTNET_CHAIN_PER_ITER`` more, each at
+    ``CYCLES_PER_DEPENDENT_OP`` cycles of the card's maximum SM clock."""
+    widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
+    d = widths[0]
+    chain = d + sum(widths[1:-1]) + d + AUTOPGD_BOTNET_CHAIN_PER_ITER
+    return pgd_botnet_floor_ms(tables, t, mhz) + t * chain * CYCLES_PER_DEPENDENT_OP / (mhz * 1e6) * 1e3
+
+
+def autopgd_sweep(device, kernel: str, cons, sur, scaler, xs: np.ndarray, starts: np.ndarray, rows: tuple):
+    """The AutoPGD instantiation of ``kernel`` (``pgd_lcld`` or
+    ``pgd_botnet``) against ``autopgd_run_plain`` on the card, bit for bit
+    (x_best, the class there, the history, each row's final step), over
+    ``AUTOPGD_CONFIGS`` x ``rows`` x ``AUTOPGD_ITERS``, the last budget at one
+    row count per configuration, first step ε / 3; labels alternate 0 and
+    1. A row's run depends on no other row, so the plain version runs once
+    per configuration and budget, on the most rows, and each launch is held
+    against its first N. Returns (runs, rows halved and rows not halved at
+    T >= 12, NaN rows of x_best)."""
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
@@ -3881,6 +3965,7 @@ def autopgd_sweep(device, cons, sur, scaler, xs: np.ndarray, starts: np.ndarray,
     from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.autopgd import autopgd_run_plain
     from moeva2_ijcai22_replication_tpu_torch.core.norms import is_inf
 
+    launch = getattr(kernels, kernel)
     xi = torch.as_tensor(xs, dtype=torch.float32, device=device)
     st = torch.as_tensor(starts, device=device)
     y = torch.as_tensor(np.arange(len(xs)) % 2, device=device)
@@ -3889,22 +3974,21 @@ def autopgd_sweep(device, cons, sur, scaler, xs: np.ndarray, starts: np.ndarray,
         eps = 0.2 if knobs["norm"] == 2 else 0.1
         atk = AutoPGD(sur, cons, scaler, eps=eps, eps_step=eps / 3, device=device, **knobs)
         repair, linf = "repair" in atk.loss_evaluation, is_inf(atk.norm)
-        for n in rows:
-            for t in AUTOPGD_ITERS:
-                if t == AUTOPGD_ITERS[-1] and n != rows[ci % len(rows)]:
-                    continue
-                sched = atk.schedule(eps, eps / 3, t)
-                args = (xi[:n], y[:n], st[:n])
-                got = kernels.pgd_lcld(atk.tables, sched.pgd, *args, eps, atk.clip, linf, repair, atk.targeted,
-                                       atk.history_layout(), auto=sched.auto)
-                want = autopgd_run_plain(atk.tables, cons, sched, *args, eps, atk.clip, atk.norm, repair,
-                                         atk.targeted, atk.history_layout())
-                what = f"AutoPGD {atk.loss_evaluation} {atk.constraints_optim} norm={atk.norm} N={n} T={t}"
+        for t in AUTOPGD_ITERS:
+            ns = [rows[ci % len(rows)]] if t == AUTOPGD_ITERS[-1] else list(rows)
+            sched = atk.schedule(eps, eps / 3, t)
+            m = max(ns)
+            want = autopgd_run_plain(atk.tables, cons, sched, xi[:m], y[:m], st[:m], eps, atk.clip, atk.norm, repair,
+                                     atk.targeted, atk.history_layout())
+            for n in ns:
+                got = launch(atk.tables, sched.pgd, xi[:n], y[:n], st[:n], eps, atk.clip, linf, repair, atk.targeted,
+                             atk.history_layout(), auto=sched.auto)
+                what = f"AutoPGD {kernel} {atk.loss_evaluation} {atk.constraints_optim} norm={atk.norm} N={n} T={t}"
                 for name, g, w in zip(("x_best", "pred", "hist", "eta"), got, want):
                     if (g is None) != (w is None):
                         raise AssertionError(f"{what}: {name} is {g} on the card, {w} in the plain version")
                     if g is not None:
-                        hold_equal(g, w, f"{what} {name}")
+                        hold_equal(g, w[:, :n] if name == "hist" else w[:n], f"{what} {name}")
                 runs += 1
                 if t >= 12:
                     eta0 = torch.tensor(eps / 3, dtype=torch.float32, device=device)
@@ -3917,13 +4001,15 @@ def autopgd_sweep(device, cons, sur, scaler, xs: np.ndarray, starts: np.ndarray,
     return runs, halved, kept, nan_rows
 
 
-def autopgd_kernel_record(device, tag: str, name: str, problem, loss: str, bound):
-    """K7's AutoPGD instantiation's record at ``problem``'s states x
-    ``PGD_BUDGET`` iterations (``loss``, L2, ε 0.2 - 1e-6, first step 0.2 /
-    3, from x_init), as ``pgd_kernel_record`` takes K7's: device ms (CUDA
-    graph of 2 launches), wrapper ms, the plain version at 100 iterations,
-    the bound, device ms at 100 iterations; beside it base K7 at the loss
-    without the prefix, in the same process."""
+def autopgd_kernel_record(device, tag: str, name: str, problem, loss: str, bound, kernel: str = "pgd_lcld",
+                          eps_run: float = PGD_EPS, plain_iters: int = PGD_TIMED_ITERS):
+    """The AutoPGD instantiation of ``kernel``'s record at ``problem``'s
+    states x ``PGD_BUDGET`` iterations (``loss``, L2, ε ``eps_run`` - 1e-6,
+    first step ``eps_run`` / 3, from x_init), as ``pgd_kernel_record`` takes
+    the PGD kernels': device ms (CUDA graph of 2 launches), wrapper ms, the
+    plain version at ``plain_iters`` iterations, the bound, device ms at 100
+    iterations; beside it the base kernel at the loss without the prefix, in
+    the same process. Returns it and the attack."""
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
@@ -3931,7 +4017,9 @@ def autopgd_kernel_record(device, tag: str, name: str, problem, loss: str, bound
     from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.autopgd import autopgd_run_plain
 
     cons, sur, scaler, x, xs, y = problem
-    eps, eta0 = PGD_EPS - 1e-6, PGD_EPS / 3
+    launch = getattr(kernels, kernel)
+    label = {"pgd_lcld": "K7", "pgd_botnet": "K7b"}[kernel]
+    eps, eta0 = eps_run - 1e-6, eps_run / 3
     xi = torch.as_tensor(xs, dtype=torch.float32, device=device)
     yt = torch.as_tensor(y, device=device)
     atk = AutoPGD(sur, cons, scaler, eps=eps, eps_step=eta0, max_iter=PGD_BUDGET, norm=2, loss_evaluation=loss,
@@ -3940,19 +4028,19 @@ def autopgd_kernel_record(device, tag: str, name: str, problem, loss: str, bound
 
     def auto_fn(t):
         sched = atk.schedule(eps, eta0, t)
-        return lambda: kernels.pgd_lcld(atk.tables, sched.pgd, xi, yt, xi, eps, atk.clip, False, repair, False,
-                                        auto=sched.auto)
+        return lambda: launch(atk.tables, sched.pgd, xi, yt, xi, eps, atk.clip, False, repair, False,
+                              auto=sched.auto)
 
     base = ConstrainedPGD(sur, cons, scaler, eps=eps, eps_step=0.1, norm=2,
                           loss_evaluation=loss.removeprefix("autopgd+"), device=device)
     base_sched = base.schedule(eps, 0.1, PGD_BUDGET)
     main = auto_fn(PGD_BUDGET)
-    sched_plain = atk.schedule(eps, eta0, PGD_TIMED_ITERS)
+    sched_plain = atk.schedule(eps, eta0, plain_iters)
     b_ms, b_by = bound(atk.tables)
     rec = {
         "name": name,
         "route": "cuda",
-        "source": "moeva2_ijcai22_replication_tpu_torch/kernels/csrc/pgd_lcld.cu",
+        "source": f"moeva2_ijcai22_replication_tpu_torch/kernels/csrc/{kernel}.cu",
         "replaces": "moeva2_ijcai22_replication_tpu/attacks/pgd/autopgd.py:45",
         "launches": 0,
         "max_abs_err": 0.0,
@@ -3960,28 +4048,31 @@ def autopgd_kernel_record(device, tag: str, name: str, problem, loss: str, bound
         "wrapper_ms": cuda_ms(main, launches=2, repeats=3),
         "plain_ms": cuda_ms(lambda: autopgd_run_plain(atk.tables, cons, sched_plain, xi, yt, xi, eps, atk.clip, 2,
                                                       repair, False), launches=1, repeats=2),
-        "plain_iters": PGD_TIMED_ITERS,
+        "plain_iters": plain_iters,
         "ms_100_iters": graph_ms(auto_fn(PGD_TIMED_ITERS), launches=5, repeats=3),
-        "base_ms": graph_ms(lambda: kernels.pgd_lcld(base.tables, base_sched, xi, yt, xi, eps, base.clip, False,
-                                                     repair, False), launches=2, repeats=3),
+        "base_ms": graph_ms(lambda: launch(base.tables, base_sched, xi, yt, xi, eps, base.clip, False, repair, False),
+                            launches=2, repeats=3),
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,
     }
-    log(f"{tag} K7's AutoPGD instantiation at D = {xs.shape[1]}, {len(xs)} states x {PGD_BUDGET} iterations ({loss}, "
-        f"L2): device {rec['ms']:.3f} ms ({PGD_TIMED_ITERS} iterations {rec['ms_100_iters']:.3f}), through the wrapper "
-        f"{rec['wrapper_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}), {rec['ms'] / b_ms:.2f}x the bound; base K7 at "
-        f"{base.loss_evaluation} {rec['base_ms']:.3f} ms ({rec['ms'] / rec['base_ms']:.2f}x); plain version at "
-        f"{PGD_TIMED_ITERS} iterations {rec['plain_ms']:.1f} ms")
-    return rec
+    log(f"{tag} {label}'s AutoPGD instantiation at D = {xs.shape[1]}, {len(xs)} states x {PGD_BUDGET} iterations "
+        f"({loss}, L2, ε {eps_run}): device {rec['ms']:.3f} ms ({PGD_TIMED_ITERS} iterations "
+        f"{rec['ms_100_iters']:.3f}), through the wrapper {rec['wrapper_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{rec['ms'] / b_ms:.2f}x the bound; base {label} at {base.loss_evaluation} {rec['base_ms']:.3f} ms "
+        f"({rec['ms'] / rec['base_ms']:.2f}x); plain version at {plain_iters} iterations {rec['plain_ms']:.1f} ms")
+    return rec, atk
 
 
-def drive_autopgd(device, smi: str, tag: str, counter: str, problem, loss: str) -> dict:
+def drive_autopgd(device, smi: str, tag: str, counter: str, problem, loss: str, eps_run: float, rewritten,
+                  f1: float) -> dict:
     """``AutoPGD.generate`` as ``experiments/pgd.py`` drives it (one random
-    start, ε 0.2 - 1e-6, first step 0.2 / 3, L2, ``PGD_BUDGET``) cold and
-    steady, with the launch counts set to 0 just before and read just after
-    (one launch of ``counter``); x_adv finite, immutables unchanged, within
-    the ball, two runs equal; o1..o7 at f1 0.25. Returns the launches."""
+    start, ε ``eps_run`` - 1e-6, first step ``eps_run`` / 3, L2,
+    ``PGD_BUDGET``) cold and steady, with the launch counts set to 0 just
+    before and read just after (one launch of ``counter``); x_adv finite,
+    immutables unchanged, within the ball on the features repair leaves
+    alone (those not in the mask ``rewritten``), two runs equal; o1..o7 at
+    ``f1`` and f2 ε. Returns the launches."""
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
@@ -3989,18 +4080,18 @@ def drive_autopgd(device, smi: str, tag: str, counter: str, problem, loss: str) 
     from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD, round_ints_toward_initial
 
     cons, sur, scaler, x, xs, y = problem
-    eps = PGD_EPS - 1e-6
+    eps = eps_run - 1e-6
     atk = AutoPGD(sur, cons, scaler, max_iter=PGD_BUDGET, norm=2, loss_evaluation=loss, num_random_init=1,
                   seed=42, device=device)
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    x_adv = atk.generate(xs, y, eps=eps, eps_step=PGD_EPS / 3, max_iter=PGD_BUDGET)
+    x_adv = atk.generate(xs, y, eps=eps, eps_step=eps_run / 3, max_iter=PGD_BUDGET)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
     t0 = time.perf_counter()
-    again = atk.generate(xs, y, eps=eps, eps_step=PGD_EPS / 3, max_iter=PGD_BUDGET)
+    again = atk.generate(xs, y, eps=eps, eps_step=eps_run / 3, max_iter=PGD_BUDGET)
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t0
     if launches != {**{k: 0 for k in launches}, counter: 1}:
@@ -4013,32 +4104,27 @@ def drive_autopgd(device, smi: str, tag: str, counter: str, problem, loss: str) 
     mutable = np.asarray(cons.get_mutable_mask(), bool)
     if not np.array_equal(x_adv[:, ~mutable], x0[:, ~mutable]):
         raise AssertionError("AutoPGD moved immutable features")
-    # repair rewrites term, installment, the one-hot groups and the pairs'
-    # features after the projection; the ball holds on every other feature
-    kept = np.ones(x.shape[1], bool)
-    if "repair" in loss:
-        kept[[1, 3]] = False
-        kept[47:] = False
-        for group in cons.schema.ohe_groups():
-            kept[list(group)] = False
+    kept = ~rewritten
     dist = np.sqrt(((x_adv.astype(np.float64) - x0)[:, kept] ** 2).sum(1))
-    if dist.max() > PGD_EPS + 1e-5:
+    if dist.max() > eps_run + 1e-5:
         raise AssertionError(f"AutoPGD's L2 distance {dist.max()} > ε on the features repair leaves alone")
     x_attacks = round_ints_toward_initial(scaler.inverse(x_adv.astype(np.float64)), x, cons.get_feature_type())
-    calc = ObjectiveCalculator(classifier=sur, constraints=cons, thresholds={"f1": 0.25, "f2": PGD_EPS},
+    calc = ObjectiveCalculator(classifier=sur, constraints=cons, thresholds={"f1": f1, "f2": eps_run},
                                min_max_scaler=scaler, ml_scaler=scaler, minimize_class=1, norm=2)
     rates = calc.success_rate_3d(x, x_attacks[:, None, :])
     eta = atk.last_eta.cpu().numpy()
+    moved = int((~same_entries_np(x_adv, x0)).any(1).sum())
     log(f"{tag} AutoPGD generate ({loss}, one random start): launches {({k: v for k, v in launches.items() if v})}; "
         f"cold {cold_s:.3f} s, steady {steady_s:.3f} s for {len(xs)} states x {PGD_BUDGET} iterations on {smi}; "
         f"x_adv finite, immutables unchanged, two runs equal, L2 distance at most {dist.max():.6f} on the "
-        f"{int(kept.sum())} features repair leaves alone; "
-        f"{int((eta < np.float32(PGD_EPS / 3)).sum())} of {len(eta)} rows halved their step; o1..o7 "
+        f"{int(kept.sum())} features repair leaves alone; {moved} of {len(xs)} rows moved (a row that the start "
+        "does not flip returns x_init); "
+        f"{int((eta < np.float32(eps_run / 3)).sum())} of {len(eta)} rows halved their step; o1..o7 "
         + " ".join(f"{v:.4f}" for v in rates))
     return launches
 
 
-def check_autopgd_card_vs_cpu(device, tag: str, counter: str, problem, n: int, t: int) -> None:
+def check_autopgd_card_vs_cpu(device, tag: str, counter: str, problem, n: int, t: int, eps_run: float) -> None:
     """AutoPGD's ``generate`` on the card against the CPU from x_init on
     ``n`` states x ``t`` iterations (every x_adv entry equal), and 2 random
     restarts on the card: 2 launches of ``counter``."""
@@ -4046,16 +4132,16 @@ def check_autopgd_card_vs_cpu(device, tag: str, counter: str, problem, n: int, t
     from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD
 
     cons, sur, scaler, _, xs, y = problem
-    small = dict(eps=PGD_EPS, eps_step=PGD_EPS / 3, max_iter=t, norm=2, loss_evaluation=AUTOPGD_LOSS)
-    on_cpu = AutoPGD(sur, cons, scaler, device="cpu", **small).generate(xs[:n], y[:n], eps=PGD_EPS - 1e-6)
-    on_card = AutoPGD(sur, cons, scaler, device=device, **small).generate(xs[:n], y[:n], eps=PGD_EPS - 1e-6)
+    small = dict(eps=eps_run, eps_step=eps_run / 3, max_iter=t, norm=2, loss_evaluation=AUTOPGD_LOSS)
+    on_cpu = AutoPGD(sur, cons, scaler, device="cpu", **small).generate(xs[:n], y[:n], eps=eps_run - 1e-6)
+    on_card = AutoPGD(sur, cons, scaler, device=device, **small).generate(xs[:n], y[:n], eps=eps_run - 1e-6)
     differ = int((~same_entries_np(on_card, on_cpu)).sum())
     log(f"{tag} AutoPGD card vs CPU at {n} states x {t} iterations: {differ} of {on_cpu.size} x_adv entries differ")
     if differ:
         raise AssertionError(f"{differ} AutoPGD x_adv entries differ between the card and the CPU")
     kernels.reset_launch_counts()
     restarts = AutoPGD(sur, cons, scaler, device=device, num_random_init=2, **small)
-    restarts.generate(xs[:n], y[:n], eps=PGD_EPS - 1e-6)
+    restarts.generate(xs[:n], y[:n], eps=eps_run - 1e-6)
     got = kernels.launch_counts()[counter]
     log(f"{tag} AutoPGD, 2 random restarts at {n} states: {got} launches of {counter}, success after each restart "
         f"{restarts.quality_history['restart_flip_frac']}")
@@ -4088,19 +4174,18 @@ def check_autopgd_c5(device, problem) -> None:
 
 
 def check_autopgd_refused(device, smi: str, art: str) -> None:
-    """AutoPGD on botnet is refused on the card by name (ROADMAP queue B's
-    "K7b AutoPGD (botnet)") before anything launches: the engine, and the
-    PGD runner on rq1.botnet's point under the prefix, which writes
-    nothing."""
+    """AutoPGD on the augmented botnet domain, whose PGD kernel is ROADMAP
+    queue B's "K7b at 927", is refused on the card by name before anything
+    launches: the engine, and the PGD runner on rq2.botnet's point under the
+    prefix, which writes nothing."""
     import os
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
     from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD
-    from moeva2_ijcai22_replication_tpu_torch.experiments import common, pgd
+    from moeva2_ijcai22_replication_tpu_torch.experiments import pgd
 
-    cons = write_runner_artifacts("botnet", art)
-    cfg = runner_config("botnet", "pgd", art, AUTOPGD_LOSS)
-    sur, scaler = common.load_surrogate(cfg), common.load_scaler(cfg)
+    cons, sur, scaler, _ = write_botnet_aug_artifacts(art)
+    cfg = rq2_botnet_config(art, "pgd", "autopgd+" + RQ1_LOSSES[-1])
     out = cfg["dirs"]["results"]
     kernels.reset_launch_counts()
     before = dir_state(out) if os.path.isdir(out) else {}
@@ -4109,22 +4194,89 @@ def check_autopgd_refused(device, smi: str, art: str) -> None:
         try:
             call()
         except NotImplementedError as exc:
-            if "K7b AutoPGD" not in str(exc):
-                raise AssertionError(f"{what} refused AutoPGD on botnet without naming the item: {exc}") from exc
+            if "K7b at 927" not in str(exc):
+                raise AssertionError(f"{what} refused AutoPGD on botnet_augmented without naming the item: "
+                                     f"{exc}") from exc
             reason = str(exc)
         else:
-            raise AssertionError(f"{what} ran AutoPGD on botnet on the card")
+            raise AssertionError(f"{what} ran AutoPGD on botnet_augmented on the card")
     written = {f for f in (dir_state(out) if os.path.isdir(out) else {}) if f not in before}
     if any(kernels.launch_counts().values()) or written:
         raise AssertionError(f"the refused AutoPGD launched {kernels.launch_counts()} or wrote {sorted(written)}")
-    log(f"[autopgd] AutoPGD on botnet is refused on the card before any launch, by the engine and by the PGD runner "
-        f"(nothing written): {reason}")
+    log(f"[autopgd] AutoPGD on botnet_augmented is refused on the card before any launch, by the engine and by the "
+        f"PGD runner (nothing written): {reason}")
+
+
+def run_autopgd_botnet(device, smi: str, resources: list):
+    """Phase 14's botnet part: K7b's AutoPGD instantiation. Its ptxas line
+    beside the base's, the sweep against
+    ``autopgd_run_plain``, its record at rq1.botnet's 387 x 1000 with the
+    latency floor and the launch's shape, ``generate``, the card against the
+    CPU, rq1.botnet's PGD points under the prefix through the runner.
+    Returns the record and the launches of ``generate``."""
+    from moeva2_ijcai22_replication_tpu_torch.problems import botnet_edge_starts
+
+    ptxas = {k["kernel"]: k for k in resources if k["kernel"].startswith("pgd_botnet_kernel")}
+    names = ("pgd_botnet_kernel<0>", "pgd_botnet_kernel<1>")
+    if sorted(ptxas) != sorted(names):
+        raise AssertionError(f"the build's ptxas report has K7b's instantiations {sorted(ptxas)}, not {names}")
+    for name in names:
+        k = ptxas[name]
+        log(f"[autopgd-botnet] {name} (kAuto): {k['registers']} registers, {k['stack']} bytes stack frame, "
+            f"{k['spill_stores']} + {k['spill_loads']} bytes spill stores + loads")
+    problem = pgd_botnet_problem()
+    cons, sur, scaler, x, xs, y = problem
+    starts = botnet_edge_starts(cons.schema.names, scaler, xs)
+    n = max(AUTOPGD_BOTNET_ROWS)
+    runs, halved, kept, nan_rows = autopgd_sweep(device, "pgd_botnet", cons, sur, scaler,
+                                                 np.resize(xs, (n, xs.shape[1])), np.resize(starts, (n, xs.shape[1])),
+                                                 AUTOPGD_BOTNET_ROWS)
+    log(f"[autopgd-botnet] K7b's AutoPGD instantiation equals autopgd_run_plain (x_best, class, history, eta) on "
+        f"all {runs} runs: {len(AUTOPGD_CONFIGS)} configurations x N in {AUTOPGD_BOTNET_ROWS} x T in "
+        f"{AUTOPGD_ITERS[:-1]}, and T = {AUTOPGD_ITERS[-1]} at one N each, with phase 9's edge starts; at T >= 12 "
+        f"{halved} rows halved their step and {kept} kept it; {nan_rows} NaN rows of x_best")
+    rec, atk = autopgd_kernel_record(device, "[autopgd-botnet]", "pgd_botnet_auto", problem, AUTOPGD_LOSS,
+                                     lambda tables: autopgd_botnet_bound(tables, len(xs), PGD_BUDGET),
+                                     kernel="pgd_botnet", eps_run=PGD_BOTNET_EPS, plain_iters=PGD_BOTNET_PLAIN_ITERS)
+    mhz = max_sm_clock_mhz()
+    rec["ceiling_ms"] = autopgd_botnet_floor_ms(atk.tables, PGD_BUDGET, mhz)
+    rec["base_ceiling_ms"] = pgd_botnet_floor_ms(atk.tables, PGD_BUDGET, mhz)
+    rec["launch"] = pgd_botnet_shape(atk.tables, len(xs), autopgd=True)
+    sh = rec["launch"]
+    log(f"[autopgd-botnet] K7b's AutoPGD launch at {len(xs)} rows: clusters of {sh['ctas_per_cluster']} CTAs of "
+        f"{sh['threads']} threads, {sh['rows_per_cluster']} rows per cluster, "
+        f"{sh['ctas'] // sh['ctas_per_cluster']} clusters ({sh['resident_clusters']} resident at once), "
+        f"{sh['smem_bytes']} bytes of shared memory per CTA; latency floor {rec['ceiling_ms']:.3f} ms (base K7b's "
+        f"{rec['base_ceiling_ms']:.3f}, at {mhz:.0f} MHz); device time {rec['ms'] / rec['ceiling_ms']:.2f}x the floor")
+    if sh["rows_per_cluster"] * sh["resident_clusters"] < len(xs):
+        raise AssertionError(f"K7b's AutoPGD launch runs {len(xs)} rows in more than one wave: {sh}")
+    launches = drive_autopgd(device, smi, "[autopgd-botnet]", "pgd_botnet_auto", problem, AUTOPGD_LOSS,
+                             PGD_BOTNET_EPS, np.zeros(x.shape[1], bool), 0.5)
+    check_autopgd_card_vs_cpu(device, "[autopgd-botnet]", "pgd_botnet_auto", problem, PGD_BOTNET_CPU_ROWS,
+                              PGD_BOTNET_CPU_ITERS, PGD_BOTNET_EPS)
+    from moeva2_ijcai22_replication_tpu_torch.experiments import common
+
+    with tempfile.TemporaryDirectory() as tmp:
+        art = f"{tmp}/botnet"
+        cons = write_runner_artifacts("botnet", art)
+        pgd_s = None
+        for loss in AUTOPGD_BOTNET_RUNNER_LOSSES:
+            cfg = runner_config("botnet", "pgd", art, loss)
+            metrics = drive_runner(cfg, smi, point_expected_launches("pgd", cfg), f"pgd botnet {loss}")
+            if loss == "autopgd+flip":
+                pgd_s = metrics["timings"]["attack"]
+            if "sat" in loss:
+                h = metrics["config_hash"]
+                x_rep = np.load(f"{cfg['dirs']['results']}/x_attacks_pgd_{loss}_{h}.npy")[:, 0]
+                log(f"[runner] pgd botnet {loss}: MILP repair {check_repairs(cons, common.load_candidates(cfg), x_rep)}; "
+                    f"attack span {metrics['timings']['attack']:.3f} s (autopgd+flip's {pgd_s:.3f} s)")
+    return rec, launches["pgd_botnet_auto"]
 
 
 def run_autopgd(device, smi: str, resources: list, problem):
     """Phase 14: AutoPGD on LCLD (``problem``, phase 7's) and augmented LCLD
-    through K7's AutoPGD instantiations. Returns their records and the
-    launches of the ``generate`` drives."""
+    through K7's AutoPGD instantiations, and on botnet through K7b's.
+    Returns their records and the launches of the ``generate`` drives."""
     import os
 
     from moeva2_ijcai22_replication_tpu_torch.problems import LCLD_AUGMENTED_EDGE_ROWS, lcld_augmented_edge_rows
@@ -4144,8 +4296,9 @@ def run_autopgd(device, smi: str, resources: list, problem):
     xs = scaler.transform(x).astype(np.float32)
     starts = pgd_edge_starts(rng, xs, scaler)
     n = max(PGD_ROWS)
-    runs, halved, kept, nan_rows = autopgd_sweep(device, cons, sur, scaler, np.resize(xs, (n, xs.shape[1])),
-                                                 np.resize(starts, (n, xs.shape[1])), PGD_ROWS)
+    runs, halved, kept, nan_rows = autopgd_sweep(device, "pgd_lcld", cons, sur, scaler,
+                                                 np.resize(xs, (n, xs.shape[1])), np.resize(starts, (n, xs.shape[1])),
+                                                 PGD_ROWS)
     log(f"[autopgd] K7's AutoPGD instantiation at D = 47 equals autopgd_run_plain (x_best, class, history, eta) on "
         f"all {runs} runs: {len(AUTOPGD_CONFIGS)} configurations x N in {PGD_ROWS} x T in {AUTOPGD_ITERS[:-1]}, and "
         f"T = {AUTOPGD_ITERS[-1]} at one N each, with phase 7's 14 edge starts; at T >= 12 {halved} rows halved "
@@ -4153,11 +4306,12 @@ def run_autopgd(device, smi: str, resources: list, problem):
     xs = scaler.transform(x)
     lcld = (cons, sur, scaler, x, xs, surrogate_labels(sur, xs))
     records.append(autopgd_kernel_record(device, "[autopgd]", "pgd_lcld_auto", lcld, AUTOPGD_LOSS,
-                                         lambda tables: autopgd_bound(tables, len(xs), PGD_BUDGET)))
-    launches["pgd_lcld_auto"] = drive_autopgd(device, smi, "[autopgd]", "pgd_lcld_auto", lcld,
-                                              AUTOPGD_LOSS)["pgd_lcld_auto"]
+                                         lambda tables: autopgd_bound(tables, len(xs), PGD_BUDGET))[0])
+    launches["pgd_lcld_auto"] = drive_autopgd(device, smi, "[autopgd]", "pgd_lcld_auto", lcld, AUTOPGD_LOSS, PGD_EPS,
+                                              lcld_repair_rewrites(cons, AUTOPGD_LOSS, x.shape[1]),
+                                              0.25)["pgd_lcld_auto"]
     check_autopgd_c5(device, lcld)
-    check_autopgd_card_vs_cpu(device, "[autopgd]", "pgd_lcld_auto", lcld, PGD_CPU_ROWS, PGD_CPU_ITERS)
+    check_autopgd_card_vs_cpu(device, "[autopgd]", "pgd_lcld_auto", lcld, PGD_CPU_ROWS, PGD_CPU_ITERS, PGD_EPS)
     with tempfile.TemporaryDirectory() as tmp:
         art = f"{tmp}/lcld"
         lcld_cons = write_runner_artifacts("lcld", art)
@@ -4183,7 +4337,8 @@ def run_autopgd(device, smi: str, resources: list, problem):
         starts = pgd_edge_starts(np.random.default_rng(5), xs, scaler)
         starts[14:14 + LCLD_AUGMENTED_EDGE_ROWS] = lcld_augmented_edge_rows(
             x[14:14 + LCLD_AUGMENTED_EDGE_ROWS], cons.important_features, scaler)
-        runs, halved, kept, nan_rows = autopgd_sweep(device, cons, sur, scaler, np.resize(xs, (n, xs.shape[1])),
+        runs, halved, kept, nan_rows = autopgd_sweep(device, "pgd_lcld", cons, sur, scaler,
+                                                     np.resize(xs, (n, xs.shape[1])),
                                                      np.resize(starts, (n, xs.shape[1])), PGD_ROWS)
         log(f"[autopgd] K7's AutoPGD instantiation at D = {xs.shape[1]} ({cons.n_constraints} terms) equals "
             f"autopgd_run_plain on all {runs} runs: the same sweep, with phase 7's 14 edge starts and the pair terms' "
@@ -4193,14 +4348,20 @@ def run_autopgd(device, smi: str, resources: list, problem):
         rq2_loss = "autopgd+" + RQ2_GRID["loss"]
         problem_aug = (cons, sur, scaler, x, xs, surrogate_labels(sur, xs))
         records.append(autopgd_kernel_record(device, "[autopgd]", "pgd_lcld_aug_auto", problem_aug, rq2_loss,
-                                             lambda tables: autopgd_bound(tables, len(xs), PGD_BUDGET)))
+                                             lambda tables: autopgd_bound(tables, len(xs), PGD_BUDGET))[0])
         launches["pgd_lcld_aug_auto"] = drive_autopgd(device, smi, "[autopgd]", "pgd_lcld_aug_auto", problem_aug,
-                                                      rq2_loss)["pgd_lcld_aug_auto"]
+                                                      rq2_loss, PGD_EPS, lcld_repair_rewrites(cons, rq2_loss, x.shape[1]),
+                                                      0.25)["pgd_lcld_aug_auto"]
         cfg = rq2_config("pgd", RQ2_GRID["budgets"][-1], aug)
         cfg["loss_evaluation"] = rq2_loss
         drive_runner(cfg, smi, point_expected_launches("pgd", cfg), f"pgd lcld_augmented budget {cfg['budget']} "
                      f"{rq2_loss}")
-        check_autopgd_refused(device, smi, f"{tmp}/botnet")
+        check_autopgd_refused(device, smi, f"{tmp}/botnet_augmented")
+    log(f"[autopgd] phase 14's LCLD part took {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    rec, launches["pgd_botnet_auto"] = run_autopgd_botnet(device, smi, resources)
+    records.append(rec)
+    log(f"[autopgd-botnet] phase 14's botnet part took {time.perf_counter() - t1:.1f} s")
     log(f"[autopgd] phase 14 took {time.perf_counter() - t0:.1f} s")
     return records, {name: launches[name] for name in AUTOPGD_COUNTERS}
 

@@ -20,13 +20,14 @@ one ``constraints_optim`` picks at iteration 0 (constraint 0 under
 sum), so that phase-switching losses stay comparable across iterations. The
 step η replaces the schedule's step: ``adaptive_eps_step`` changes nothing.
 
-One run (:func:`autopgd_run_plain`, JAX's ``AutoPGD._one_run``) is kernel
-K7's AutoPGD instantiation on the card (``kernels.pgd_lcld`` with the
-tables; ``kernels/csrc/pgd_lcld.cu``, ``kAuto``) and this plain version on
-the CPU, one rounded operation at a time in the kernel's order. Botnet's
-PGD kernel K7b has no AutoPGD instantiation yet (ROADMAP queue B, "K7b
-AutoPGD (botnet)"): on the card :class:`AutoPGD` refuses every set but
-LCLD's before anything launches; on the CPU every set runs.
+One run (:func:`autopgd_run_plain`, JAX's ``AutoPGD._one_run``) is the
+AutoPGD instantiation (``kAuto``) of the set's PGD kernel on the card, K7
+on LCLD (``kernels.pgd_lcld`` with the tables, ``kernels/csrc/pgd_lcld.cu``)
+and K7b on botnet (``kernels.pgd_botnet``, ``kernels/csrc/pgd_botnet.cu``),
+and this plain version on the CPU, one rounded operation at a time in the
+kernels' order. On the card a set with no PGD kernel (``pgd_kernel``) is
+refused before anything launches, as :class:`ConstrainedPGD` refuses it;
+on the CPU every set runs.
 """
 
 from __future__ import annotations
@@ -37,15 +38,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ... import resolve_device
 from ...core.norms import is_inf, project_ball
 from .engine import (
-    ConstrainedPGD, PgdSchedule, PgdTables, card_refusal, conditioned_grad, grad_and_terms_plain, hist_row,
+    ConstrainedPGD, PgdSchedule, PgdTables, conditioned_grad, grad_and_terms_plain, hist_row,
     predict_plain, repair_plain, stack_hist,
 )
-
-#: the queue-B item that brings AutoPGD to sets other than LCLD's on the card
-NO_AUTOPGD_KERNEL = 'ROADMAP queue B, "K7b AutoPGD (botnet)"'
 
 
 def checkpoint_schedule(max_iter: int) -> np.ndarray:
@@ -198,20 +195,14 @@ class AutoPGD(ConstrainedPGD):
     The budget rule is JAX's: the checkpoint tables are built from
     ``max_iter``, and :meth:`generate` raises ``ValueError`` for another
     budget (build an engine per budget). The port's plain PGD keeps its own
-    rule, any budget on one engine. On the card a set whose PGD kernel has
-    no AutoPGD instantiation (every set but LCLD's and augmented LCLD's) is
-    refused by name before anything launches."""
+    rule, any budget on one engine. On the card a set with no PGD kernel
+    (``card_refusal``: the augmented botnet domain) is refused by name
+    before anything launches, in :meth:`ConstrainedPGD.__post_init__`."""
 
     alpha_momentum: float = 0.75
     rho: float = 0.75
 
     def __post_init__(self):
-        if resolve_device(self.device).type == "cuda" and self.constraints.pgd_kernel != "lcld":
-            why = card_refusal(self.constraints)
-            raise NotImplementedError(
-                f"{type(self.constraints).__name__} has no AutoPGD kernel on the card: only LCLD's PGD kernel K7 "
-                f"has an AutoPGD instantiation ({NO_AUTOPGD_KERNEL})" + (f"; {why}" if why else "")
-            )
         super().__post_init__()
         #: (N,) each row's step after the last run, None before one
         self.last_eta: torch.Tensor | None = None
@@ -224,14 +215,15 @@ class AutoPGD(ConstrainedPGD):
         return AutoPgdSchedule(super().schedule(eps, eps_step, max_iter), auto)
 
     def one_run(self, x_init, y, x_start, sched: AutoPgdSchedule, eps: float):
-        """``(x_best, pred, hist)`` of one run: K7's AutoPGD instantiation on
-        the card, :func:`autopgd_run_plain` on the CPU; each row's final
-        step lands in ``last_eta``."""
+        """``(x_best, pred, hist)`` of one run: the AutoPGD instantiation of
+        the set's kernel (K7 or K7b) on the card, :func:`autopgd_run_plain`
+        on the CPU; each row's final step lands in ``last_eta``."""
         repair = "repair" in self.loss_evaluation
         if x_init.is_cuda:
             from ... import kernels
 
-            x_best, pred, hist, eta = kernels.pgd_lcld(
+            launch = {"lcld": kernels.pgd_lcld, "botnet": kernels.pgd_botnet}[self.constraints.pgd_kernel]
+            x_best, pred, hist, eta = launch(
                 self.tables, sched.pgd, x_init, y, x_start, eps, self.clip, is_inf(self.norm), repair,
                 self.targeted, self.history_layout(), auto=sched.auto,
             )

@@ -14,10 +14,10 @@ success-rate CSV, the config snapshot and the metrics JSON last.
 
 A loss containing ``autopgd`` selects :class:`AutoPGD` (one random start
 unless ``nb_random`` says otherwise, first step ``per_attack_eps / 3`` from
-the un-shifted ε; K7's AutoPGD instantiation on LCLD, refused on the card
-for botnet, ROADMAP queue B's "K7b AutoPGD (botnet)"), any other loss
-:class:`ConstrainedPGD` (step 0.1; K7 on LCLD, K7b on botnet): one launch
-per run on the card.
+the un-shifted ε; the AutoPGD instantiation of K7 on LCLD and of K7b on
+botnet), any other loss :class:`ConstrainedPGD` (step 0.1; K7 on LCLD, K7b
+on botnet): one launch per run on the card, where a set with no PGD kernel
+(the augmented botnet domain, ROADMAP queue B's "K7b at 927") is refused.
 
 ``device`` and ``dtype`` are arguments, never config keys: the config hash
 stays the JAX package's. The metrics carry the JAX runner's top-level keys

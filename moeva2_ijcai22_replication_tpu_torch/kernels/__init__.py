@@ -26,9 +26,9 @@ And, for constrained PGD, ``pgd_lcld`` (K7, ``csrc/pgd_lcld.cu``) and
 ``pgd_botnet`` (K7b, ``csrc/pgd_botnet.cu``): every iteration of one run on
 the LCLD or the botnet domain; plain version
 ``attacks.pgd.engine.pgd_run_plain``. K7's instantiation for the augmented
-LCLD domain counts its launches as ``pgd_lcld_aug``; its AutoPGD
+LCLD domain counts its launches as ``pgd_lcld_aug``; their AutoPGD
 instantiations (plain version ``attacks.pgd.autopgd.autopgd_run_plain``)
-as ``pgd_lcld_auto`` and ``pgd_lcld_aug_auto``.
+as ``pgd_lcld_auto``, ``pgd_lcld_aug_auto`` and ``pgd_botnet_auto``.
 
 The wrappers take CUDA tensors only and raise on anything the kernel does
 not take, or when a build or launch fails; callers route CPU tensors to the
@@ -52,7 +52,7 @@ _LAUNCHES = {
     for name in (
         "offspring", "objective_lcld", "nd_peel", "survive_norm", "associate", "survive_fill",
         "pgd_lcld", "objective_botnet", "pgd_botnet", "objective_lcld_aug", "pgd_lcld_aug",
-        "objective_botnet_aug", "pgd_lcld_auto", "pgd_lcld_aug_auto",
+        "objective_botnet_aug", "pgd_lcld_auto", "pgd_lcld_aug_auto", "pgd_botnet_auto",
     )
 }
 
@@ -627,7 +627,7 @@ def pgd_lcld(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_in
 
 
 def pgd_botnet(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_inf: bool, repair: bool,
-               targeted: bool, record=None):
+               targeted: bool, record=None, auto=None):
     """Kernel K7b: one constrained PGD run on botnet rows, ``(x_adv (N, 756)
     float32, pred (N,) int64, hist)``, the semantics of
     ``attacks.pgd.engine.pgd_run_plain`` with ``BotnetConstraints``: the
@@ -636,7 +636,11 @@ def pgd_botnet(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_
     ``tables.first_t`` the first layer transposed. It takes a relu stack of
     756 inputs, 2 to K1's most layers of at most ``BOTNET_MAX_WIDTH`` units
     and 1 or 2 classes; ``hist`` holds the set's terms with ``record[1]``.
-    The kernel reads any label but 0 and 1 as neither class, as K7 does."""
+    The kernel reads any label but 0 and 1 as neither class, as K7 does.
+
+    With ``auto`` the run is AutoPGD's, as :func:`pgd_lcld` takes it
+    (``autopgd_run_plain``'s semantics): ``(x_best, pred, hist, eta)``; its
+    launches count as ``pgd_botnet_auto``."""
     from .build import library
 
     if x_init.dim() != 2:
@@ -666,12 +670,25 @@ def pgd_botnet(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_
     if not 1 <= degree <= lib.moeva_pgd_botnet_max_degree():
         raise ValueError(f"pgd_botnet takes 1 to {lib.moeva_pgd_botnet_max_degree()} entries per feature, "
                          f"got {degree}")
+    n_terms = 2 + sum(counts[4::2])
+    if auto is not None:
+        _check(auto.is_ckpt, "is_ckpt", (t + 1,), torch.bool)
+        _check(auto.thr, "thr", (t + 1,))
+        if not (-1 <= auto.ctr < n_terms):
+            raise ValueError(f"the tracking constraint {auto.ctr} is not one of the {n_terms} terms or -1")
+    ckpt = (None, None) if auto is None else (auto.is_ckpt, auto.thr)
     dev = _one_device(x_init, x_start, y, tables.params, tables.first_t, tables.scale, tables.min_,
-                      tables.mutable, cons.index, cons.inverse, *sched)
+                      tables.mutable, cons.index, cons.inverse, *sched, *ckpt)
     ins = [t_.contiguous() for t_ in (x_init, x_start, y, tables.mutable, tables.params, tables.first_t,
                                       tables.scale, tables.min_, cons.index, cons.inverse, *sched)]
-    x_adv, pred, hist, cols, flags = _pgd_outputs(n, d, t, 2 + sum(counts[4::2]), norm_inf, repair, targeted,
-                                                  record, dev)
+    ckpt = [None if t_ is None else t_.contiguous() for t_ in ckpt]
+    x_adv, pred, hist, cols, flags = _pgd_outputs(n, d, t, n_terms, norm_inf, repair, targeted, record, dev)
+    eta = None
+    scalars = (0.0, 0.0, -1, 0.0, 1.0)
+    if auto is not None:
+        eta = torch.empty((n,), dtype=torch.float32, device=dev)
+        scalars = (float(auto.w_class), float(auto.w_cons), int(auto.ctr), float(auto.eta0), float(auto.alpha))
+        flags |= 32
     c_widths = (ctypes.c_int * len(widths))(*widths)
     c_counts = (ctypes.c_int * len(counts))(*counts)
     lo, hi = clip
@@ -680,8 +697,9 @@ def pgd_botnet(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_
             *(u.data_ptr() for u in ins[:6]), c_widths, len(widths) - 1,
             *(u.data_ptr() for u in ins[6:9]), c_counts, ins[9].data_ptr(), degree,
             *(u.data_ptr() for u in ins[10:]), x_adv.data_ptr(), pred.data_ptr(), _ptr(hist), cols, n, t,
-            float(eps), float(lo), float(hi), float(tables.tol), flags, _stream(dev),
+            float(eps), float(lo), float(hi), float(tables.tol), flags, *map(_ptr, ckpt), *scalars, _ptr(eta),
+            _stream(dev),
         )
     _raise_on_error(lib, err, "pgd_botnet")
-    _LAUNCHES["pgd_botnet"] += 1
-    return x_adv, pred, hist
+    _LAUNCHES["pgd_botnet" if auto is None else "pgd_botnet_auto"] += 1
+    return (x_adv, pred, hist) if auto is None else (x_adv, pred, hist, eta)

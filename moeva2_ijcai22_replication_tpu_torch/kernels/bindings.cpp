@@ -253,7 +253,9 @@ int moeva_pgd_botnet_f32(const void* x_init, const void* x_start, const void* y,
                          const void* step, const void* ctr, void* x_adv,
                          void* pred, void* hist, int hist_cols, int n, int t,
                          float eps, float lo, float hi, float tol, int flags,
-                         void* stream) {
+                         const void* is_ckpt, const void* ckpt_thr,
+                         float tw_class, float tw_cons, int tctr, float eta0,
+                         float alpha, void* eta, void* stream) {
   if (n_layers < 1 || n_layers > kObjectiveMaxLayers)
     return static_cast<int>(cudaErrorInvalidValue);
   PgdBotnetArgs args{};
@@ -286,6 +288,14 @@ int moeva_pgd_botnet_f32(const void* x_init, const void* x_start, const void* y,
   args.tol = tol;
   args.n_layers = n_layers;
   for (int k = 0; k <= n_layers; ++k) args.widths[k] = widths[k];
+  args.is_ckpt = static_cast<const bool*>(is_ckpt);
+  args.ckpt_thr = static_cast<const float*>(ckpt_thr);
+  args.tw_class = tw_class;
+  args.tw_cons = tw_cons;
+  args.tctr = tctr;
+  args.eta0 = eta0;
+  args.alpha = alpha;
+  args.eta = static_cast<float*>(eta);
   return static_cast<int>(
       launch_pgd_botnet(args, static_cast<cudaStream_t>(stream)));
 }

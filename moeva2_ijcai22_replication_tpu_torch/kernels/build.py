@@ -156,7 +156,7 @@ def library() -> ctypes.CDLL:
     lib.moeva_objective_botnet_f32.restype = i32
     lib.moeva_pgd_botnet_f32.argtypes = (
         [ptr] * 6 + [ctypes.POINTER(i32), i32] + [ptr] * 3 + [ctypes.POINTER(i32), ptr, i32] + [ptr] * 7
-        + [i32] * 3 + [f32] * 4 + [i32, ptr]
+        + [i32] * 3 + [f32] * 4 + [i32] + [ptr] * 2 + [f32] * 2 + [i32] + [f32] * 2 + [ptr] * 2
     )
     lib.moeva_pgd_botnet_f32.restype = i32
     for name in (

@@ -296,9 +296,10 @@ constexpr int kPgdBotnetThreads = 384;
 constexpr int kPgdBotnetMaxRows = 6;
 constexpr int kPgdBotnetMaxDegree = 16;
 
-// pgd_botnet's arguments: pgd_lcld's (the same flags) for (N, 756) rows,
-// with the first layer's transposed copy and the 360 terms' gather lists
-// (objective_botnet's layout) and their inverse.
+// pgd_botnet's arguments: pgd_lcld's (the same flags, 32 = AutoPGD with
+// the same tables and scalars) for (N, 756) rows, with the first layer's
+// transposed copy and the 360 terms' gather lists (objective_botnet's
+// layout) and their inverse.
 struct PgdBotnetArgs {
   const float* x_init;    // (N, D)
   const float* x_start;   // (N, D)
@@ -324,6 +325,12 @@ struct PgdBotnetArgs {
   int n_layers;
   int widths[kObjectiveMaxLayers + 1];
   int rows;               // rows per cluster, set by the launcher
+  // AutoPGD (flags & 32): pgd_lcld's fields of the same names
+  const bool* is_ckpt;    // (T + 1,)
+  const float* ckpt_thr;  // (T + 1,)
+  float tw_class, tw_cons, eta0, alpha;
+  int tctr;               // the tracking loss's term, -1 = their sum
+  float* eta;             // (N,) out: each row's step after the last iteration
 };
 
 cudaError_t launch_pgd_botnet(PgdBotnetArgs args, cudaStream_t stream);

@@ -10,7 +10,9 @@
 // mutable mask, core/norms.py::condition_grad, the step, the clip,
 // project_ball and, with repair, _repair's round trip through the scaler
 // (:197; botnet's repair is the identity, but the round trip does not give
-// x back in float32). The repo has no Pallas kernel for it.
+// x back in float32); and (kAuto) that of attacks/pgd/autopgd.py::
+// AutoPGD._one_run (:45) on the same domain. The repo has no Pallas kernel
+// for either.
 //
 // Semantics: those of attacks/pgd/engine.py::pgd_run_plain with
 // domains/botnet.py::BotnetConstraints.smooth_vjp, one rounded float32
@@ -30,7 +32,21 @@
 //   added last;
 // - L2 sums left to right and correctly rounded square roots; min and max
 //   NaN-propagating; the L-inf sign 0 at 0; the class at x_adv as
-//   engine.py::predict_plain.
+//   engine.py::predict_plain;
+// - AutoPGD (kAuto) as attacks/pgd/autopgd.py::autopgd_run_plain: the
+//   tracking loss tw_class * CE + tw_cons * (-cons), cons the term tctr (or
+//   the sum from the first), at x_start before the first iteration and at
+//   x_new after each; the step with the row's eta instead of the
+//   schedule's; z clipped, projected and clipped, then the momentum x +
+//   alpha (z - x) + (1 - alpha)(x - x_prev) added left to right (alpha 1 at
+//   iteration 0: 0 * (x - x_prev) keeps a NaN), clipped, projected and
+//   clipped, then repair's round trip; the best point where the tracking
+//   loss rose above the best (a NaN never does), the rises counted in
+//   float32; at a checkpoint (is_ckpt[i + 1]) eta halved and x restarted
+//   from the best point (x_prev stays the x the iteration started from)
+//   where the rises since the last one are below ckpt_thr[i + 1], or eta and
+//   the best loss are both what they were at the last one; the result is the
+//   best point, the class there and each row's eta.
 //
 // Bound: per row and iteration, 4 operations per weight of the stack (a
 // multiply and an add, forward and input backward: 4 x 54,592 for
@@ -43,8 +59,13 @@
 // whatever the parallelism: each first-layer unit (756 adds), the two L2
 // sums over 756 features, the deeper layers and the cross-entropy, some
 // 2,700 dependent operations (chip_smoke.py's pgd_botnet_floor_ms counts
-// them): a latency floor four times the bound. Tensor cores are not used:
-// their sums have an order no CPU code reproduces.
+// them): a latency floor four times the bound. AutoPGD adds the tracking
+// forward (2 operations per weight), the terms' forward and cons' sum and
+// about 18 operations per feature: a bound of 2.1 ms, and to the floor the
+// tracking forward's chains and the second projection's L2 sum
+// (chip_smoke.py's autopgd_botnet_bound and autopgd_botnet_floor_ms).
+// Tensor cores are not used: their sums have an order no CPU code
+// reproduces.
 //
 // Design: the first layer (756 x 64 floats, 189 KB) is read twice an
 // iteration, forward and backward, and does not fit one SM beside the rows
@@ -85,6 +106,25 @@
 // numerator skips the division's slow path (div_rn). Loops stay rolled
 // past their chunk of loads: code the instruction caches do not hold costs
 // more than its arithmetic (PERF.md).
+//
+// AutoPGD is its own instantiation (kAuto), as K7's: a launch runs 2T + 2
+// passes of the same code, each hand-off's phase counted per kind (Phases).
+// An even pass is the tracking loss at x, a forward: rank 0 the first
+// layer's half and the terms (their backward unused, nothing handed off),
+// then each row's cons; rank 1 the rest of the stack and the
+// cross-entropy. Each CTA hands its value of a row to the other (kTrack),
+// and both take the same decisions from the same per-row state, which each
+// keeps: the best and the previous loss, eta, the rises and the last
+// checkpoint's eta and best loss. Then each copies x to x_best, or x_best
+// back to x, on its own features; a restarted row's u is unscaled again
+// from x, rank 1's half handed to rank 0 (kU) and taken before the next
+// terms. An odd pass is an iteration: PGD's with the row's eta, and under
+// L2 z's projection factor, the momentum (x_prev takes x) and a second
+// factor for it, each factor's halves handed off as PGD's one; under L-inf
+// the momentum and its clips in the projection's phase. The last pass is
+// the class at x_best. x_prev and x_best are two more row buffers at the
+// CTA's features (2 x 380 floats a row) and the state 8 floats, so 6 rows
+// still fit one cluster. At kAuto = false all of it is compiled out.
 
 #include <algorithm>
 
@@ -136,7 +176,18 @@ struct Row {
   float* ctb;  // and pong
   float* aux;  // [gradient norm + 1e-7, projection factor, the partial L2 sums (gradient, history), class
                //  loss, the partial projection sum, -, the word an L-inf hand-off carries]
+  float* xp;   // kAuto: (kHP) x_prev at the CTA's features
+  float* xb;   // kAuto: (kHP) x_best
+  float* au;   // kAuto: the row's state (AutoState)
 };
+
+// AutoPGD's state of a row, kept alike by both CTAs: the best tracking
+// loss, the previous one, the best at the last checkpoint, the step, the
+// step at the last checkpoint, the rises since the last checkpoint, what
+// the pass's copies do (1: x_best takes x, 2: x restarts from x_best; as
+// int bits), and the peer's value of the tracking loss (rank 0: the class
+// loss, rank 1: cons)
+enum AutoState { kFBest, kFPrev, kFBck, kEta, kEtaCk, kImpr, kMove, kPeer, kAutoState };
 
 __device__ __forceinline__ Row row_at(float* rows, const Layout& lay, int r) {
   Row s;
@@ -150,10 +201,14 @@ __device__ __forceinline__ Row row_at(float* rows, const Layout& lay, int r) {
   s.cta = s.act + pad4(lay.act_floats);
   s.ctb = s.cta + kBotnetMaxWidth;
   s.aux = s.ctb + kBotnetMaxWidth;
+  s.xp = s.aux + 8;
+  s.xb = s.xp + kHP;
+  s.au = s.xb + kHP;
   return s;
 }
 
 constexpr int kRowTail = 3 * kHP + kD + 2 * kBotnetMaxWidth + 8;  // a row's floats besides its variable parts
+constexpr int kAutoRowFloats = 2 * kHP + kAutoState;              // and AutoPGD's besides those
 
 // acc + (x0 * w0 + ...) of 4 features, left to right
 __device__ __forceinline__ float add4(float acc, float4 x, float4 w) {
@@ -282,10 +337,16 @@ __device__ __forceinline__ void block_end(int i, long long& last) {
 // barrier costs ~1250 cycles on the H100, and a cluster-scope fence, which
 // waits for all of the SM's outstanding writes, about as much (PERF.md).
 // One barrier per kind, each used once per iteration, so that a phase
-// never holds the bytes of the next.
-enum Kind { kPartials, kCotangent, kEnt, kHalves, kNorm, kFactorHalf, kFactor, kU, kKinds };
-constexpr int kBarFloats = 16;  // the barriers' room at the start of shared memory, keeping what follows aligned
-static_assert(2 * kKinds <= kBarFloats && kBarFloats % 4 == 0, "8 bytes a barrier");
+// never holds the bytes of the next. AutoPGD uses some kinds twice an
+// iteration (the partial sums, u, the projection factor's halves) and
+// kTrack once: each use's bytes are sent only after the peer has seen the
+// previous use's phase complete (it then sends what the sender waits on),
+// so that holds there too.
+enum Kind { kPartials, kCotangent, kEnt, kHalves, kNorm, kFactorHalf, kFactor, kU, kTrack, kKinds };
+constexpr int kBarFloats = 16;      // the barriers' room at the start of shared memory, keeping what follows aligned
+constexpr int kAutoBarFloats = 20;  // and AutoPGD's, with kTrack's
+static_assert(2 * kTrack <= kBarFloats && kBarFloats % 4 == 0, "8 bytes a barrier");
+static_assert(2 * kKinds <= kAutoBarFloats && kAutoBarFloats % 4 == 0, "8 bytes a barrier");
 
 __device__ __forceinline__ unsigned shared_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -329,6 +390,18 @@ struct Pair {
     if (threadIdx.x == 0) bar_expect(base + 8 * k, bytes);
     for (long long spin = 0; !bar_done(base + 8 * k, phase & 1); ++spin)
       if (spin > (1ll << 26)) __trap();
+  }
+};
+
+// AutoPGD's phase of each kind of hand-off a CTA takes, a bit each: every
+// thread of the CTA takes the same hand-offs in the same order
+struct Phases {
+  unsigned bits = 0;
+  // the phase of kind k's next hand-off
+  __device__ __forceinline__ int next(int k) {
+    const int p = (bits >> k) & 1;
+    bits ^= 1u << k;
+    return p;
   }
 };
 
@@ -387,11 +460,11 @@ __device__ __forceinline__ float term_vjp(const Layout& lay, float* ent, int t, 
 // every entry's gathered value, then the terms, row by row, term t of row r
 // on thread t + 64 r (mod the threads), so that each row's flow sums, the
 // longest terms, fall on threads of their own and a warp's terms are alike
-// (with `hist` their history columns from col); last the cotangents of the
-// entries whose feature is rank 1's, handed to rank 1
+// (with `hist` their history columns from col); last, where `send`, the
+// cotangents of the entries whose feature is rank 1's, handed to rank 1
 __device__ __forceinline__ void all_terms(const PgdBotnetArgs& a, const Layout& lay, const int* idx, float* rows,
                                           const Pair& pair, int nr, int row0, int it, float ctr_w, int ctr,
-                                          float* hist, int col) {
+                                          float* hist, int col, bool send) {
   for (int r = 0; r < nr; ++r) {
     const Row s = row_at(rows, lay, r);
     for (int e = threadIdx.x; e < lay.n_entries; e += kThreads) s.ent[e] = s.u[idx[e]];
@@ -408,6 +481,7 @@ __device__ __forceinline__ void all_terms(const PgdBotnetArgs& a, const Layout& 
     }
   }
   __syncthreads();
+  if (!send) return;
   for (int r = 0; r < nr; ++r) {
     const Row s = row_at(rows, lay, r);
     for (int e = threadIdx.x; e < lay.n_entries; e += kThreads)
@@ -502,13 +576,82 @@ __device__ __forceinline__ void hidden_backward(const PgdBotnetArgs& a, const La
   }
 }
 
+// The L2 projection factor min(1, eps / (||p|| + 1e-12)) of every row from
+// the squares of its perturbation in sq, into aux[1] on both CTAs, lane r of
+// warp 0: rank 0's half (phase `ph_half` of rank 1's barrier), then rank 1's,
+// which hands the factor back (phase `ph_factor` of rank 0's)
+__device__ __forceinline__ void projection_factor(const PgdBotnetArgs& a, const Layout& lay, float* rows,
+                                                  const Pair& pair, int rank, int nr, int ph_half, int ph_factor,
+                                                  long long& last) {
+  const int tid = threadIdx.x;
+  const bool run = tid < nr;
+  if (rank == 0) {
+    if (run) {
+      const Row s = row_at(rows, lay, tid);
+      pair.put(&s.aux[5], half_sum(s.sq, -0.0f), kFactorHalf);
+    }
+    stamp(13, last);
+    pair.take(kFactor, 4u * nr, ph_factor);
+    stamp(16, last);
+  } else {
+    pair.take(kFactorHalf, 4u * nr, ph_half);
+    stamp(14, last);
+    if (run) {
+      const Row s = row_at(rows, lay, tid);
+      const float f = nan_min(1.0f, __fdiv_rn(a.eps, __fadd_rn(__fsqrt_rn(half_sum(s.sq, s.aux[5])), 1e-12f)));
+      s.aux[1] = f;
+      pair.put(&s.aux[1], f, kFactor);
+    }
+    block_end(15, last);
+  }
+}
+
+// AutoPGD's decisions for row r after the tracking loss f of pass `it`
+// (attacks/pgd/autopgd.py::autopgd_run_plain's, K7's order): at pass 0 the
+// state; else the rises, the best point and, at a checkpoint, the halving;
+// s.au[kMove] what the copies do
+__device__ __forceinline__ void track_row(const PgdBotnetArgs& a, const Row& s, float f, int it) {
+  int move = it == 2 * a.t ? 2 : 0;  // after the last iteration x takes x_best for the class
+  if (it == 0) {
+    s.au[kFBest] = f;
+    s.au[kFPrev] = f;
+    s.au[kFBck] = f;
+    s.au[kEta] = a.eta0;
+    s.au[kEtaCk] = a.eta0;
+    s.au[kImpr] = 0.0f;
+  } else {
+    const int c = it >> 1;  // i + 1 of the iteration just run
+    const float impr = __fadd_rn(s.au[kImpr], f > s.au[kFPrev] ? 1.0f : 0.0f);
+    const bool better = f > s.au[kFBest];
+    const float fb = better ? f : s.au[kFBest];
+    const float eta = s.au[kEta];
+    const bool ck = a.is_ckpt[c];
+    const bool halve = ck && (impr < a.ckpt_thr[c] || (s.au[kEtaCk] == eta && s.au[kFBck] == fb));
+    const float eta_next = halve ? __fmul_rn(eta, 0.5f) : eta;
+    s.au[kFBest] = fb;
+    s.au[kFPrev] = f;
+    s.au[kEta] = eta_next;
+    s.au[kImpr] = ck ? 0.0f : impr;
+    if (ck) {
+      s.au[kEtaCk] = eta_next;
+      s.au[kFBck] = fb;
+    }
+    move |= (better ? 1 : 0) | (halve ? 2 : 0);
+  }
+  s.au[kMove] = __int_as_float(move);
+}
+
+// kAuto: AutoPGD, whose launch runs 2T + 2 passes (see the design note);
+// else PGD
+template <bool kAuto>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
     pgd_botnet_kernel(const PgdBotnetArgs a, const Layout lay) {
   extern __shared__ __align__(16) float smem[];
+  constexpr int kBars = kAuto ? kAutoBarFloats : kBarFloats;
   cg::cluster_group cl = cg::this_cluster();
   const int rank = static_cast<int>(cl.block_rank());
   const int w1 = a.widths[1];
-  float* wf = smem + kBarFloats;                                // after the barriers: (w1, kHP) the first layer at
+  float* wf = smem + kBars;                                     // after the barriers: (w1, kHP) the first layer at
                                                                 // the CTA's features
   float* ws = wf + w1 * kHP;                                    // its bias, then layers 1..L-1
   int* idx = reinterpret_cast<int*>(ws + lay.ws_floats);        // the gather lists
@@ -545,7 +688,13 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
     const Row s = row_at(rows, lay, r);
     const float x = a.x_start[static_cast<size_t>(row0 + r) * kD + k];
     s.u[k] = unscale(x, a.min_[k], a.scale[k]);
-    if (k >= k0 && k < k0 + kH) s.x[k - k0] = x;
+    if (k >= k0 && k < k0 + kH) {
+      s.x[k - k0] = x;
+      if constexpr (kAuto) {
+        s.xp[k - k0] = x;
+        s.xb[k - k0] = x;
+      }
+    }
   }
   // the feature a thread owns in the per-feature phases, its constants in
   // registers
@@ -570,7 +719,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
   const bool ct1_in_b = (a.n_layers - 1) & 1;  // where hidden_backward leaves the first layer's cotangent
   const Pair pair{shared_addr(smem), peer_addr(shared_addr(smem), rank ^ 1)};
   if (tid == 0) {
-    for (int k = 0; k < kKinds; ++k) bar_init(pair.base + 8 * k);
+    for (int k = 0; k < (kAuto ? kKinds : kTrack); ++k) bar_init(pair.base + 8 * k);
     bar_init_fence();
   }
   long long last = 0;
@@ -589,25 +738,52 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
   const unsigned ent_bytes = 4u * nr * peer_entries;
   const unsigned halves_bytes = 4u * (1 + (linf ? 0 : nr) + (hist_norm ? nr : 0));
   const unsigned u_bytes = 4u * nr * kH;
+  // kAuto: each kind's phase, and the bytes of rank 1's u that rank 0 takes
+  // before its next terms (of x_new, or of the rows restarted from x_best)
+  Phases ph;
+  unsigned u_due = 0;
 #ifdef K7B_STAMPS
   last = clock64();
 #endif
-  for (int it = 0; it < a.t; ++it) {
-    const float wc = a.w_class[it];
-    const float wk = a.w_cons[it];
-    const float stp = a.step[it];
-    const int ctr = a.ctr[it];
+  // kAuto: pass it = 0 is the tracking loss at x_start, 2i + 1 iteration i's
+  // gradient and step, 2i + 2 (track) its tracking loss at x_new, the best
+  // point and the checkpoint; the class at x_best follows
+  const int passes = kAuto ? 2 * a.t + 1 : a.t;
+  for (int it = 0; it < passes; ++it) {
+    const int i = kAuto ? (it - 1) >> 1 : it;  // the iteration
+    const bool track = kAuto && !(it & 1);
+    const float wc = track ? 0.0f : a.w_class[i];
+    const float wk = track ? 0.0f : a.w_cons[i];
+    const float stp = kAuto ? 0.0f : a.step[i];
+    const int ctr = track ? a.tctr : a.ctr[i];
+    float own = 0.0f;  // track: row tid's cons on rank 0, its class loss on rank 1
     if (rank == 0) {
       first_half_to_peer(wf, ws, rows, pair, lay, nr, w1);
       stamp(0, last);
-      if (it > 0) pair.take(kU, u_bytes, it - 1);  // rank 1's u
+      if constexpr (kAuto) {
+        if (u_due > 0) pair.take(kU, u_due, ph.next(kU));  // rank 1's u
+      } else {
+        if (it > 0) pair.take(kU, u_bytes, it - 1);  // rank 1's u
+      }
       stamp(1, last);
-      all_terms(a, lay, idx, rows, pair, nr, row0, it, -wk, ctr, hist_full ? a.hist : nullptr, g_col);
+      all_terms(a, lay, idx, rows, pair, nr, row0, i, -wk, ctr, hist_full && !track ? a.hist : nullptr, g_col,
+                !track);
       block_end(2, last);
-      pair.take(kCotangent, cotangent_bytes, it);
+      if (track) {
+        // the tracking loss's constraint: the term tctr, or the sum from the first
+        if (tid < nr) {
+          const Row s = row_at(rows, lay, tid);
+          own = s.g[ctr < 0 ? 0 : ctr];
+          if (ctr < 0)
+            for (int t = 1; t < lay.n_terms; ++t) own = __fadd_rn(own, s.g[t]);
+          pair.put(&s.au[kPeer], own, kTrack);
+        }
+      } else {
+        pair.take(kCotangent, cotangent_bytes, kAuto ? ph.next(kCotangent) : it);
+      }
       stamp(6, last);
     } else {
-      pair.take(kPartials, partial_bytes, it);
+      pair.take(kPartials, partial_bytes, kAuto ? ph.next(kPartials) : it);
       stamp(1, last);
       forward_rest(a, lay, wf, ws, rows, nr, last);
       // a thread per row: the cross-entropy and the cotangent of the logits
@@ -615,15 +791,63 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
         const Row s = row_at(rows, lay, tid);
         const float lc = cross_entropy(classes, targeted, s.act + lay.act_off[a.n_layers - 1],
                                        static_cast<int>(a.y[row0 + tid]), wc, s.cta);
-        if (a.hist != nullptr) {
-          a.hist[(static_cast<size_t>(it) * a.n + row0 + tid) * a.hist_cols + 1] = lc;
+        if (track) {
+          own = lc;
+          pair.put(&s.au[kPeer], lc, kTrack);
+        } else if (a.hist != nullptr) {
+          a.hist[(static_cast<size_t>(i) * a.n + row0 + tid) * a.hist_cols + 1] = lc;
           pair.put(&s.aux[4], lc, kCotangent);
         }
       }
       block_end(4, last);
-      hidden_backward(a, lay, ws, rows, pair, nr, last);
-      pair.take(kEnt, ent_bytes, it);  // its features' entries, from rank 0's terms
+      if (!track) {
+        hidden_backward(a, lay, ws, rows, pair, nr, last);
+        pair.take(kEnt, ent_bytes, kAuto ? ph.next(kEnt) : it);  // its features' entries, from rank 0's terms
+      }
       stamp(18, last);
+    }
+    if constexpr (kAuto) {
+      if (track) {
+        // the tracking loss, the decisions alike on both CTAs, then the
+        // copies on the CTA's features; a restarted row's u from its x again
+        // (not after the last iteration: nothing reads it)
+        pair.take(kTrack, 4u * nr, ph.next(kTrack));
+        if (tid < nr) {
+          const Row s = row_at(rows, lay, tid);
+          const float lc = rank == 0 ? s.au[kPeer] : own;
+          const float cons = rank == 0 ? own : s.au[kPeer];
+          track_row(a, s, __fadd_rn(__fmul_rn(a.tw_class, lc), __fmul_rn(a.tw_cons, -cons)), it);
+        }
+        __syncthreads();
+        const bool send_u = it < 2 * a.t;
+        unsigned restarted = 0;
+        for (int r = 0; r < nr; ++r) restarted += (__float_as_int(row_at(rows, lay, r).au[kMove]) >> 1) & 1;
+        if (owner) {
+#pragma unroll
+          for (int r = 0; r < kMaxRows; ++r) {
+            if (r < nr) {
+              const Row s = row_at(rows, lay, r);
+              const int move = __float_as_int(s.au[kMove]);
+              if (move & 1) s.xb[tid] = s.x[tid];
+              if (move & 2) {
+                const float x = s.xb[tid];
+                s.x[tid] = x;
+                if (send_u) {
+                  const float u = unscale(x, mn, sc);
+                  if (rank == 0) {
+                    s.u[gk] = u;
+                  } else {
+                    pair.put(&s.u[gk], u, kU);
+                  }
+                }
+              }
+            }
+          }
+        }
+        u_due = send_u ? 4u * kH * restarted : 0u;
+        block_end(17, last);
+        continue;
+      }
     }
     // a thread per feature: the input backward of every row (each weight
     // read once for all of them), its sum of the constraints' cotangents,
@@ -705,7 +929,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
         } else {
           cons = s.g[ctr];
         }
-        float* h = a.hist + (static_cast<size_t>(it) * a.n + row0 + r) * a.hist_cols;
+        float* h = a.hist + (static_cast<size_t>(i) * a.n + row0 + r) * a.hist_cols;
         h[0] = __fadd_rn(__fmul_rn(wc, s.aux[4]), __fmul_rn(wk, -cons));
         h[2] = cons;
       }
@@ -727,16 +951,16 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
         }
         if (tid == 0) pair.put(&row_at(rows, lay, 0).aux[7], 0.0f, kHalves);
         stamp(8, last);
-        if (!linf) pair.take(kNorm, 4u * nr, it);
+        if (!linf) pair.take(kNorm, 4u * nr, kAuto ? ph.next(kNorm) : it);
         stamp(11, last);
       } else {
-        pair.take(kHalves, halves_bytes, it);
+        pair.take(kHalves, halves_bytes, kAuto ? ph.next(kHalves) : it);
         stamp(9, last);
         if (run) {
           const Row s = row_at(rows, lay, r);
           const float sum = half_sum(h ? s.sqh : s.sq, s.aux[h ? 3 : 2]);
           if (h) {
-            a.hist[(static_cast<size_t>(it) * a.n + row0 + r) * a.hist_cols + 3] = __fsqrt_rn(sum);
+            a.hist[(static_cast<size_t>(i) * a.n + row0 + r) * a.hist_cols + 3] = __fsqrt_rn(sum);
           } else {
             const float nrm = __fadd_rn(__fsqrt_rn(sum), 1e-7f);
             s.aux[0] = nrm;
@@ -746,7 +970,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
         block_end(10, last);
       }
     }
-    // the masked, conditioned step and the clip; the perturbation into gr
+    // the masked, conditioned step (kAuto: by the row's eta) and the clip;
+    // the perturbation into gr
     if (owner) {
 #pragma unroll
       for (int r = 0; r < kMaxRows; ++r) {
@@ -755,7 +980,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
           const float gv = gr[r];
           const float gm = isnan(gv) || !mut ? 0.0f : gv;
           const float d = linf ? (gm > 0.0f ? 1.0f : (gm < 0.0f ? -1.0f : 0.0f)) : div_rn(gm, s.aux[0]);
-          const float x = clamp_nan(__fadd_rn(s.x[tid], __fmul_rn(stp, d)), a.lo, a.hi);
+          const float x = clamp_nan(__fadd_rn(s.x[tid], __fmul_rn(kAuto ? s.au[kEta] : stp, d)), a.lo, a.hi);
           const float p = __fsub_rn(x, xi[r]);
           gr[r] = p;
           if (!linf) s.sq[tid] = __fmul_rn(p, p);
@@ -763,28 +988,30 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
       }
     }
     block_end(12, last);
-    // the projection factor, lane r of warp 0: rank 0's half, then rank 1's
+    const float alpha = i > 0 ? a.alpha : 1.0f;  // kAuto: the momentum
     if (!linf) {
-      const bool run = tid < nr;
-      if (rank == 0) {
-        if (run) {
-          const Row s = row_at(rows, lay, tid);
-          pair.put(&s.aux[5], half_sum(s.sq, -0.0f), kFactorHalf);
+      projection_factor(a, lay, rows, pair, rank, nr, kAuto ? ph.next(kFactorHalf) : it,
+                        kAuto ? ph.next(kFactor) : it, last);
+      if constexpr (kAuto) {
+        // z projected and clipped, then the momentum clipped: its
+        // perturbation into gr, its squares into sq, and its factor; x_prev
+        // takes x
+        if (owner) {
+#pragma unroll
+          for (int r = 0; r < kMaxRows; ++r) {
+            if (r < nr) {
+              const Row s = row_at(rows, lay, r);
+              const float x = s.x[tid];
+              const float z = clamp_nan(__fadd_rn(xi[r], __fmul_rn(gr[r], s.aux[1])), a.lo, a.hi);
+              const float p = __fsub_rn(clamp_nan(momentum(x, z, s.xp[tid], alpha), a.lo, a.hi), xi[r]);
+              s.xp[tid] = x;
+              gr[r] = p;
+              s.sq[tid] = __fmul_rn(p, p);
+            }
+          }
         }
-        stamp(13, last);
-        pair.take(kFactor, 4u * nr, it);
-        stamp(16, last);
-      } else {
-        pair.take(kFactorHalf, 4u * nr, it);
-        stamp(14, last);
-        if (run) {
-          const Row s = row_at(rows, lay, tid);
-          const float f =
-              nan_min(1.0f, __fdiv_rn(a.eps, __fadd_rn(__fsqrt_rn(half_sum(s.sq, s.aux[5])), 1e-12f)));
-          s.aux[1] = f;
-          pair.put(&s.aux[1], f, kFactor);
-        }
-        block_end(15, last);
+        block_end(12, last);
+        projection_factor(a, lay, rows, pair, rank, nr, ph.next(kFactorHalf), ph.next(kFactor), last);
       }
     }
     // the projection, the clip, repair's round trip through the scaler; the
@@ -796,6 +1023,15 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
           const Row s = row_at(rows, lay, r);
           const float d = linf ? clamp_nan(gr[r], -a.eps, a.eps) : __fmul_rn(gr[r], s.aux[1]);
           float x = clamp_nan(__fadd_rn(xi[r], d), a.lo, a.hi);
+          if constexpr (kAuto) {
+            if (linf) {
+              // x is z: the momentum, clipped, projected and clipped; x_prev takes x
+              const float xo = s.x[tid];
+              const float xn = clamp_nan(momentum(xo, x, s.xp[tid], alpha), a.lo, a.hi);
+              x = clamp_nan(__fadd_rn(xi[r], clamp_nan(__fsub_rn(xn, xi[r]), -a.eps, a.eps)), a.lo, a.hi);
+              s.xp[tid] = xo;
+            }
+          }
           // botnet's repair is the identity: it rewrites no immutable
           // feature, only the mutable ones take the round trip, and u is
           // unscaled from x on every feature, so x and u cannot part
@@ -811,29 +1047,37 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
       }
     }
     block_end(17, last);
+    if constexpr (kAuto) u_due = u_bytes;  // the tracking pass's terms read x_new's u
   }
 
-  // the class at x_adv
+  // the class at x_adv (kAuto: at x_best, which x took after the last
+  // tracking loss)
   if (rank == 0) {
     first_half_to_peer(wf, ws, rows, pair, lay, nr, w1);
   } else {
-    pair.take(kPartials, partial_bytes, a.t);
+    pair.take(kPartials, partial_bytes, kAuto ? ph.next(kPartials) : a.t);
     forward_rest(a, lay, wf, ws, rows, nr, last);
     if (tid < nr)
       a.pred[row0 + tid] = predicted_class(classes, row_at(rows, lay, tid).act + lay.act_off[a.n_layers - 1]);
   }
   if (owner)
     for (int r = 0; r < nr; ++r) a.x_adv[static_cast<size_t>(row0 + r) * kD + gk] = row_at(rows, lay, r).x[tid];
-  if (rank == 0 && a.t > 0) pair.take(kU, u_bytes, a.t - 1);  // rank 1's last writes have landed
+  if constexpr (kAuto) {
+    // every hand-off has been taken: no write to the peer is in flight
+    if (rank == 0 && tid < nr) a.eta[row0 + tid] = row_at(rows, lay, tid).au[kEta];
+  } else {
+    if (rank == 0 && a.t > 0) pair.take(kU, u_bytes, a.t - 1);  // rank 1's last writes have landed
+  }
   cl.sync();  // and neither CTA exits while the other may still write its shared memory
 #ifdef K7B_STAMPS
   if (blockIdx.x < 2 && tid < kPhases) k7b_cycles[blockIdx.x * kPhases + tid] += k7b_block_cycles[tid];
 #endif
 }
 
-// The clusters of the kernel resident at once on the current device with
-// one CTA per SM (more than half an SM's shared memory), asked once per
+// The clusters of an instantiation resident at once on the current device
+// with one CTA per SM (more than half an SM's shared memory), asked once per
 // device
+template <bool kAuto>
 cudaError_t resident_clusters(LaunchCache& cache, int* clusters) {
   constexpr size_t kOnePerSm = kMaxSharedBytes / 2 + 16;
   static std::mutex mu;
@@ -844,14 +1088,14 @@ cudaError_t resident_clusters(LaunchCache& cache, int* clusters) {
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> lock(mu);
   if (known[device] == 0) {
-    err = cache.prepare(reinterpret_cast<const void*>(pgd_botnet_kernel), kThreads, kOnePerSm, nullptr);
+    err = cache.prepare(reinterpret_cast<const void*>(pgd_botnet_kernel<kAuto>), kThreads, kOnePerSm, nullptr);
     if (err != cudaSuccess) return err;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(2);
     cfg.blockDim = dim3(kThreads);
     cfg.dynamicSmemBytes = kOnePerSm;
     int n = 0;
-    err = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(pgd_botnet_kernel), &cfg);
+    err = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(pgd_botnet_kernel<kAuto>), &cfg);
     if (err != cudaSuccess) return err;
     if (n < 1) return cudaErrorLaunchOutOfResources;
     known[device] = n;
@@ -868,7 +1112,9 @@ struct Plan {
   int grid, clusters;
 };
 
-// Checks `args` (n > 0), sets its rows per cluster and plans the launch
+// Checks `args` (n > 0), sets its rows per cluster and plans the launch of
+// the instantiation kAuto
+template <bool kAuto>
 cudaError_t plan_launch(PgdBotnetArgs& args, Plan& p) {
   static LaunchCache cache;
   const int n_layers = args.n_layers;
@@ -903,22 +1149,24 @@ cudaError_t plan_launch(PgdBotnetArgs& args, Plan& p) {
     ws_floats += out_w * ((in_w | 1) + 1);
   }
   lay.ws_floats = pad4(ws_floats);
-  lay.row_floats = kRowTail + pad4(lay.n_entries) + pad4(lay.n_terms) + pad4(lay.act_floats);
+  lay.row_floats = kRowTail + pad4(lay.n_entries) + pad4(lay.n_terms) + pad4(lay.act_floats) +
+                   (kAuto ? kAutoRowFloats : 0);
   int clusters = 0;
-  cudaError_t err = resident_clusters(cache, &clusters);
+  cudaError_t err = resident_clusters<kAuto>(cache, &clusters);
   if (err != cudaSuccess) return err;
   // rows per cluster: as few as spread N over the resident clusters, at
   // most kMaxRows and as many as fit (at least one for every stack K7b
   // takes beside botnet's gather lists)
-  const long fixed = kBarFloats + static_cast<long>(w1) * kHP + lay.ws_floats + pad4(lay.n_entries);
+  constexpr int kBars = kAuto ? kAutoBarFloats : kBarFloats;
+  const long fixed = kBars + static_cast<long>(w1) * kHP + lay.ws_floats + pad4(lay.n_entries);
   const long fit = (static_cast<long>(kMaxSharedBytes / sizeof(float)) - fixed) / lay.row_floats;
   args.rows = static_cast<int>(std::min<long>(std::min(kMaxRows, (args.n + clusters - 1) / clusters), fit));
   if (args.rows < 1) return cudaErrorInvalidValue;
-  p.smem = sizeof(float) * (kBarFloats + static_cast<size_t>(w1) * kHP + lay.ws_floats + pad4(lay.n_entries) +
+  p.smem = sizeof(float) * (kBars + static_cast<size_t>(w1) * kHP + lay.ws_floats + pad4(lay.n_entries) +
                             static_cast<size_t>(args.rows) * lay.row_floats);
   p.clusters = clusters;
   p.grid = 2 * ((args.n + args.rows - 1) / args.rows);
-  return cache.prepare(reinterpret_cast<const void*>(pgd_botnet_kernel), kThreads, p.smem, nullptr);
+  return cache.prepare(reinterpret_cast<const void*>(pgd_botnet_kernel<kAuto>), kThreads, p.smem, nullptr);
 }
 
 }  // namespace
@@ -926,17 +1174,27 @@ cudaError_t plan_launch(PgdBotnetArgs& args, Plan& p) {
 cudaError_t launch_pgd_botnet(PgdBotnetArgs args, cudaStream_t stream) {
   if (args.n == 0) return cudaSuccess;
   Plan p;
-  const cudaError_t err = plan_launch(args, p);
-  if (err != cudaSuccess) return err;
-  pgd_botnet_kernel<<<p.grid, kThreads, p.smem, stream>>>(args, p.lay);
+  if (args.flags & 32) {
+    if (args.is_ckpt == nullptr || args.ckpt_thr == nullptr || args.eta == nullptr) return cudaErrorInvalidValue;
+    const cudaError_t err = plan_launch<true>(args, p);
+    if (err != cudaSuccess) return err;
+    if (args.tctr < -1 || args.tctr >= p.lay.n_terms) return cudaErrorInvalidValue;
+    pgd_botnet_kernel<true><<<p.grid, kThreads, p.smem, stream>>>(args, p.lay);
+  } else {
+    const cudaError_t err = plan_launch<false>(args, p);
+    if (err != cudaSuccess) return err;
+    pgd_botnet_kernel<false><<<p.grid, kThreads, p.smem, stream>>>(args, p.lay);
+  }
   return cudaGetLastError();
 }
 
 // K7b's launch at n rows of the stack `widths` (n_layers + 1 widths) and the
-// gather lists `counts`, as the launcher plans it on the current device:
-// out = [rows per cluster, CTAs per cluster, CTAs, threads per CTA, dynamic
-// shared memory bytes per CTA, clusters resident at once]
-extern "C" int moeva_pgd_botnet_shape(const int* widths, int n_layers, const int* counts, int n, int* out) {
+// gather lists `counts`, as the launcher plans it on the current device for
+// PGD, or AutoPGD where `autopgd`: out = [rows per cluster, CTAs per
+// cluster, CTAs, threads per CTA, dynamic shared memory bytes per CTA,
+// clusters resident at once]
+extern "C" int moeva_pgd_botnet_shape(const int* widths, int n_layers, const int* counts, int n, int autopgd,
+                                      int* out) {
   PgdBotnetArgs args{};
   args.n = n;
   args.degree = 1;
@@ -944,7 +1202,8 @@ extern "C" int moeva_pgd_botnet_shape(const int* widths, int n_layers, const int
   for (int l = 0; l <= n_layers && l <= kObjectiveMaxLayers; ++l) args.widths[l] = widths[l];
   for (int s = 0; s < kBotnetSegments; ++s) args.counts[s] = counts[s];
   Plan p;
-  const cudaError_t err = n > 0 ? plan_launch(args, p) : cudaErrorInvalidValue;
+  const cudaError_t err =
+      n <= 0 ? cudaErrorInvalidValue : (autopgd ? plan_launch<true>(args, p) : plan_launch<false>(args, p));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int shape[6] = {args.rows, 2, p.grid, kThreads, static_cast<int>(p.smem), p.clusters};
   for (int i = 0; i < 6; ++i) out[i] = shape[i];

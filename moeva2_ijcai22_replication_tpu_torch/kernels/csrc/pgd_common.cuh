@@ -50,6 +50,12 @@ __device__ __forceinline__ void div_vjp(float ct, float num, float den, float& c
   c_den = -__fmul_rn(__fmul_rn(ct, __fdiv_rn(1.0f, __fmul_rn(den, den))), num);
 }
 
+// the momentum step x + alpha (z - x) + (1 - alpha)(x - x_prev), added left
+// to right
+__device__ __forceinline__ float momentum(float x, float z, float xp, float alpha) {
+  return __fadd_rn(__fadd_rn(x, __fmul_rn(alpha, __fsub_rn(z, x))), __fmul_rn(__fsub_rn(1.0f, alpha), __fsub_rn(x, xp)));
+}
+
 // clip(pre, 0, inf) as torch.clamp gives it: a NaN stays
 __device__ __forceinline__ float clip_smooth(float pre) { return isnan(pre) ? pre : fmaxf(pre, 0.0f); }
 

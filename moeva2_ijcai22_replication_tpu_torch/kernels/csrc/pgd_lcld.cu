@@ -564,12 +564,6 @@ struct Stamps {
 // kPairs: the augmented domain, D = 47 + P features (a run-time value, with
 // the row stride) and 10 + P terms; else D = kD and the pair stage is
 // compiled out
-// the momentum step x + alpha (z - x) + (1 - alpha)(x - x_prev), added left
-// to right
-__device__ __forceinline__ float momentum(float x, float z, float xp, float alpha) {
-  return __fadd_rn(__fadd_rn(x, __fmul_rn(alpha, __fsub_rn(z, x))), __fmul_rn(__fsub_rn(1.0f, alpha), __fsub_rn(x, xp)));
-}
-
 // row r's L2 projection factor min(1, eps / (||CU's row|| + 1e-12)), CU
 // holding the squares of its perturbation
 template <bool kPairs>

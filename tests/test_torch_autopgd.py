@@ -38,10 +38,11 @@ from moeva2_ijcai22_replication_tpu.experiments import pgd as jpgd
 from moeva2_ijcai22_replication_tpu.models import io as jio
 from moeva2_ijcai22_replication_tpu.models import mlp as jmlp
 from moeva2_ijcai22_replication_tpu.models.scalers import MinMaxParams as JMinMax
+from moeva2_ijcai22_replication_tpu_torch import kernels
 from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD
 from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import autopgd as autopgd_module
 from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.autopgd import (
-    NO_AUTOPGD_KERNEL, autopgd_run_plain, checkpoint_schedule, make_autopgd_tables, tracking_loss_plain,
+    autopgd_run_plain, checkpoint_schedule, make_autopgd_tables, tracking_loss_plain,
 )
 from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import grad_and_terms_plain
 from moeva2_ijcai22_replication_tpu_torch.domains.botnet import BotnetConstraints
@@ -53,6 +54,9 @@ from moeva2_ijcai22_replication_tpu_torch.experiments import common
 from moeva2_ijcai22_replication_tpu_torch.experiments import pgd as ppgd
 from moeva2_ijcai22_replication_tpu_torch.models.io import Surrogate, params_from_numpy
 from moeva2_ijcai22_replication_tpu_torch.models.scalers import fit_minmax
+from moeva2_ijcai22_replication_tpu_torch.problems import (
+    BOTNET_EDGE_ROWS, botnet_edge_starts, synthetic_botnet_augmented_problem,
+)
 from test_torch_runners import _config, _run_both, _same_identity, artifacts  # noqa: F401
 
 # tier-1 runs several test processes side by side: one intra-op thread
@@ -470,28 +474,155 @@ def botnet(tmp_path_factory):
     }
 
 
-@pytest.mark.parametrize("loss,norm", [("autopgd+constraints+flip", 2), ("autopgd+flip+repair", np.inf)])
-def test_botnet_runs_on_the_cpu_as_jax(botnet, loss, norm):
-    setup = {"scaler": botnet["scaler"]}
-    ja, ta, params = _pair(setup, model=botnet["model"], cons=botnet["cons"], loss_evaluation=loss, norm=norm,
-                           eps=4.0, record_loss="reduced", max_iter=T)
+#: botnet's runs against JAX's ``_one_run`` in float64 at T = 12: (loss,
+#: norm, constraints_optim, record_loss, first step, whether some rows keep
+#: their step). At the runner's first step ε/3 the checkpoints halve every
+#: row's step; at the small first steps of two runs they halve some rows'
+#: and keep the others'. Under ``alternate`` the iterations that optimise
+#: the constraints alone do not raise the tracking loss (its weights are
+#: static), so every row halves at any first step
+BOTNET_RUNS = (
+    pytest.param("autopgd+constraints+flip", 2, "sum", "reduced", 4.0 / 3, False, id="autopgd+constraints+flip-2"),
+    pytest.param("autopgd+flip+repair", np.inf, "sum", "reduced", 4.0 / 3, False, id="autopgd+flip+repair-inf"),
+    pytest.param("autopgd+constraints+flip", 2, "sum", "reduced", 0.01, True, id="autopgd+constraints+flip-2-small"),
+    pytest.param("autopgd+constraints", 2, "single_constraints", "reduced", 0.001, True,
+                 id="autopgd+constraints-2-single_constraints"),
+    pytest.param("autopgd+constraints+flip+alternate", 2, "sum", "full", 4.0 / 3, False,
+                 id="autopgd+constraints+flip+alternate-2-full"),
+)
+
+
+def _botnet_pair(botnet, dtype=torch.float64, **kw):
+    return _pair({"scaler": botnet["scaler"]}, dtype, model=botnet["model"], cons=botnet["cons"], eps=4.0,
+                 max_iter=T, **kw)
+
+
+@pytest.mark.parametrize("loss,norm,optim,record,eta0,kept", BOTNET_RUNS)
+def test_botnet_runs_on_the_cpu_as_jax(botnet, loss, norm, optim, record, eta0, kept):
+    ja, ta, params = _botnet_pair(botnet, loss_evaluation=loss, norm=norm, constraints_optim=optim, ctr_id=200,
+                                  record_loss=record)
     xs, y = botnet["xs"], botnet["y"]
     start = _jax_start(ja, xs, 4.0)
-    (want_x, want_h, want_eta), (got_x, _, got_h, eta) = _runs(ja, ta, params, xs, y, start, eps=4.0,
-                                                                eta0=4.0 / 3)
+    (want_x, want_h, want_eta), (got_x, _, got_h, eta) = _runs(ja, ta, params, xs, y, start, eps=4.0, eta0=eta0)
     _close(got_x.numpy(), want_x, torch.float64, "x_best")
     _close(got_h.numpy(), want_h, torch.float64, "history")
     np.testing.assert_array_equal(eta.numpy(), want_eta)
+    assert got_h.shape == (T, len(xs), len(ta.hist_column_names()))
+    # the checkpoints halved some rows' steps, and kept others' where `kept`
+    assert (eta < eta0).any() and bool((eta == eta0).any()) == kept, f"eta {np.unique(eta.numpy())}"
 
 
-def test_the_card_refuses_autopgd_off_lcld(setup, botnet, monkeypatch):
-    """On the card AutoPGD takes LCLD's sets alone: botnet is refused by
-    name before any tensor reaches the device (here there is none)."""
+def test_botnet_run_matches_jax_float32(botnet):
+    """In float32 the tracking loss of ``flip`` is the cross-entropy alone
+    (0 times a finite cons), so no row's best point or halving tips: every
+    row agrees at the file's float32 tolerance, and every final step, and so
+    do the history's loss and class-loss columns. Its cons column does not:
+    JAX's constraint branch runs in float64 (the module docstring), and a
+    ratio term near its pole magnifies that."""
+    ja, ta, params = _botnet_pair(botnet, torch.float32, loss_evaluation="autopgd+flip", norm=2,
+                                  record_loss="reduced")
+    xs, y = botnet["xs"].astype(np.float32), botnet["y"]
+    start = np.asarray(_jax_start(ja, xs, 4.0), np.float32)
+    (want_x, want_h, want_eta), (got_x, _, got_h, eta) = _runs(ja, ta, params, xs, y, start, eps=4.0,
+                                                                eta0=4.0 / 3)
+    assert got_x.dtype == torch.float32
+    np.testing.assert_array_equal(eta.numpy(), want_eta)
+    _close(got_x.numpy(), np.asarray(want_x), torch.float32, "x_best")
+    _close(got_h.numpy()[..., :2], np.asarray(want_h)[..., :2], torch.float32, "history's loss columns")
+
+
+#: a scaled packets value that the momentum leaves where it cancels to 0 in
+#: exact arithmetic: below this and not 0 (about 1e-17 in the port, where
+#: XLA's fused program leaves another residual or 0)
+POLE_RESIDUAL = 1e-15
+
+
+def test_botnet_small_linf_step_matches_jax_off_the_ratio_poles(botnet):
+    """``flip+repair`` under L-inf from a first step of 0.1, at which the
+    checkpoints halve some rows' steps and keep the others': x_best, η and
+    the history's loss columns equal JAX's, and so does the history's cons
+    but at the iterations whose iterate holds a ratio term's packets feature
+    at a momentum's rounding residual (``POLE_RESIDUAL``): the ratio's pole
+    turns the two programs' residuals into different cons (PR 18 met the
+    same contraction at g10's sentinel). Such iterations occur here."""
+    ja, ta, params = _botnet_pair(botnet, loss_evaluation="autopgd+flip+repair", norm=np.inf, record_loss="reduced")
+    xs, y = botnet["xs"], botnet["y"]
+    start = _jax_start(ja, xs, 4.0)
+    iterates = []
+    (want_x, want_h, want_eta), (got_x, _, got_h, eta) = _runs(ja, ta, params, xs, y, start, eps=4.0, eta0=0.1,
+                                                                iterates=iterates)
+    _close(got_x.numpy(), want_x, torch.float64, "x_best")
+    np.testing.assert_array_equal(eta.numpy(), want_eta)
+    assert (eta < 0.1).any() and (eta == 0.1).any(), f"eta {np.unique(eta.numpy())}"
+    got_h = got_h.numpy()
+    _close(got_h[..., :2], want_h[..., :2], torch.float64, "history's loss columns")
+    pkts = np.asarray(botnet["cons"][1].segments()[5])
+    x = np.stack(iterates)[..., pkts]  # (T, N, the ratios' packets)
+    residual = ((x != 0) & (np.abs(x) < POLE_RESIDUAL)).any(-1)
+    got_c, want_c = got_h[..., 2], want_h[..., 2]
+    _close(got_c[~residual], want_c[~residual], torch.float64, "cons off the poles")
+    assert not np.isclose(got_c[residual], want_c[residual], rtol=1e-12, atol=0).all()
+
+
+def test_botnet_edge_starts_match_jax(botnet):
+    """``botnet_edge_starts``' twelve rows (0 and NaN packets, infinite sums,
+    inf - inf, terms exactly at the tolerance, rows at the clip bounds): a
+    NaN tracking loss never rises, so x_best keeps the start where it is NaN
+    from the start."""
+    ja, ta, params = _botnet_pair(botnet, loss_evaluation="autopgd+constraints+flip+repair", norm=2,
+                                  record_loss="full")
+    xs, y = botnet["xs"], botnet["y"]
+    jcons, tcons = botnet["cons"]
+    start = botnet_edge_starts(tcons.schema.names, botnet["scaler"], xs, np.float64)
+    (want_x, want_h, want_eta), (got_x, _, got_h, eta) = _runs(ja, ta, params, xs, y, start, eps=4.0, eta0=0.1)
+    _close(got_x.numpy(), want_x, torch.float64, "x_best")
+    _close(got_h.numpy(), want_h, torch.float64, "history")
+    np.testing.assert_array_equal(eta.numpy(), want_eta)
+    f0 = tracking_loss_plain(ta.tables, tcons, ta.schedule(4.0, 0.1, T).auto, torch.as_tensor(start),
+                             torch.as_tensor(y), False)
+    nan_start = torch.isnan(f0).numpy()
+    assert nan_start[:BOTNET_EDGE_ROWS].any() and not nan_start[BOTNET_EDGE_ROWS:].any()
+    np.testing.assert_array_equal(got_x.numpy()[nan_start], start[nan_start])
+
+
+class _FakeCard:
+    """A stand-in for a CUDA tensor: ``one_run`` reads ``is_cuda`` only."""
+
+    is_cuda = True
+
+
+def test_one_run_sends_each_set_to_its_kernels_autopgd_instantiation(setup, botnet, monkeypatch):
+    """On the card a run is one launch of the set's PGD kernel with the
+    AutoPGD tables: K7 on LCLD, K7b on botnet; each row's final step lands
+    in ``last_eta``."""
+    calls = []
+    for name in ("pgd_lcld", "pgd_botnet"):
+        monkeypatch.setattr(kernels, name, lambda *a, name=name, **k: calls.append((name, a, k)) or (
+            "x_best", "pred", "hist", f"eta of {name}"))
+    for (_, ta, _), want in ((_pair(setup, torch.float32, loss_evaluation="autopgd+flip", max_iter=2), "pgd_lcld"),
+                             (_botnet_pair(botnet, torch.float32, loss_evaluation="autopgd+flip+repair",
+                                           norm=np.inf), "pgd_botnet")):
+        sched = ta.schedule(0.1, 0.1 / 3, ta.max_iter)
+        assert ta.one_run(_FakeCard(), "y", "start", sched, 0.1) == ("x_best", "pred", "hist")
+        name, args, kw = calls.pop()
+        assert name == want and args[0] is ta.tables and args[1] is sched.pgd and kw == {"auto": sched.auto}
+        assert args[5:] == (0.1, ta.clip, ta.norm == np.inf, "repair" in ta.loss_evaluation, False, None)
+        assert ta.last_eta == f"eta of {want}"
+
+
+def test_the_card_refuses_autopgd_off_lcld(tmp_path, monkeypatch):
+    """On the card AutoPGD runs wherever constrained PGD has a kernel: the
+    augmented botnet domain, whose PGD kernel is ROADMAP queue B's "K7b at
+    927", is refused by name before any tensor reaches the device (here
+    there is none)."""
+    cons, sur, scaler, _ = synthetic_botnet_augmented_problem(str(tmp_path), 8)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    sur = Surrogate(params_from_numpy(botnet["model"][1]))
-    with pytest.raises(NotImplementedError, match="K7b AutoPGD"):
-        AutoPGD(sur, botnet["cons"][1], botnet["scaler"])
-    assert "K7b AutoPGD (botnet)" in NO_AUTOPGD_KERNEL
+    moved = []
+    monkeypatch.setattr(torch.nn.Module, "to", lambda self, *a, **k: moved.append(a) or self)
+    with pytest.raises(NotImplementedError, match="BotnetAugmentedConstraints has no PGD kernel.*K7b at 927"):
+        AutoPGD(sur, cons, scaler)
+    assert not moved
+    assert not hasattr(autopgd_module, "NO_AUTOPGD_KERNEL")
 
 
 # -- the runner -----------------------------------------------------------------

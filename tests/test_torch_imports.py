@@ -74,7 +74,8 @@ def test_importing_the_port_loads_no_jax():
         for f in files
         if f.endswith(".py")
     )
-    + ["chip_smoke.py", "tools/compare_botnet_base.py", "tools/compare_lcld_base.py"],
+    + ["chip_smoke.py", "tools/compare_botnet_base.py", "tools/compare_lcld_base.py",
+       "tools/compare_pgd_botnet_base.py"],
 )
 def test_no_jax_import_in_source(path):
     with open(os.path.join(REPO, path)) as f:

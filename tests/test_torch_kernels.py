@@ -492,7 +492,7 @@ def test_launch_counts_reset():
         "offspring": 0, "objective_lcld": 0, "nd_peel": 0,
         "survive_norm": 0, "associate": 0, "survive_fill": 0, "pgd_lcld": 0, "objective_botnet": 0,
         "pgd_botnet": 0, "objective_lcld_aug": 0, "pgd_lcld_aug": 0, "objective_botnet_aug": 0,
-        "pgd_lcld_auto": 0, "pgd_lcld_aug_auto": 0,
+        "pgd_lcld_auto": 0, "pgd_lcld_aug_auto": 0, "pgd_botnet_auto": 0,
     }
 
 
@@ -681,24 +681,25 @@ def test_pgd_generate_on_the_card(card, pgd_problem):
     assert ((got == want) | (np.isnan(got) & np.isnan(want))).all()
 
 
-def _autopgd_equals_plain(card, problem, knobs, n, t, counter):
-    """K7's AutoPGD instantiation against ``autopgd_run_plain`` from the
-    problem's starts, bit for bit (x_best, the class there, the history,
-    each row's final step), one launch counted as ``counter``."""
+def _autopgd_equals_plain(card, problem, knobs, n, t, counter, kernel=kernels.pgd_lcld, eps=0.2):
+    """The AutoPGD instantiation of ``kernel`` (K7 or K7b) against
+    ``autopgd_run_plain`` from the problem's starts, bit for bit (x_best,
+    the class there, the history, each row's final step), one launch
+    counted as ``counter``."""
     cons, sur, scaler, xs, starts = problem
-    atk = AutoPGD(sur, cons, scaler, eps=0.2, eps_step=0.2 / 3, max_iter=t, device=card, **knobs)
-    sched = atk.schedule(0.2, 0.2 / 3, t)
+    atk = AutoPGD(sur, cons, scaler, eps=eps, eps_step=eps / 3, max_iter=t, device=card, **knobs)
+    sched = atk.schedule(eps, eps / 3, t)
     xs, starts = (np.resize(v, (n, v.shape[1])) for v in (xs, starts))
     args = (torch.as_tensor(xs, device=card), torch.as_tensor(np.arange(n) % 2, device=card),
             torch.as_tensor(starts, device=card))
     repair, linf = "repair" in atk.loss_evaluation, knobs["norm"] == np.inf
     before = kernels.launch_counts()
-    got = kernels.pgd_lcld(atk.tables, sched.pgd, *args, 0.2, atk.clip, linf, repair, atk.targeted,
-                           atk.history_layout(), auto=sched.auto)
+    got = kernel(atk.tables, sched.pgd, *args, eps, atk.clip, linf, repair, atk.targeted, atk.history_layout(),
+                 auto=sched.auto)
     torch.cuda.synchronize()
     after = kernels.launch_counts()
     assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {counter: 1}
-    want = autopgd_run_plain(atk.tables, cons, sched, *args, 0.2, atk.clip, atk.norm, repair, atk.targeted,
+    want = autopgd_run_plain(atk.tables, cons, sched, *args, eps, atk.clip, atk.norm, repair, atk.targeted,
                              atk.history_layout())
     for g, w in zip(got, want):
         assert (g is None and w is None) or _same(g, w)
@@ -1201,6 +1202,69 @@ def test_pgd_generate_on_botnet_is_one_k7b_launch_per_run(card, pgd_botnet_probl
     assert kernels.launch_counts()["pgd_botnet"] == 3
     cpu = ConstrainedPGD(sur, cons, scaler, device="cpu", **knobs).generate(xs, y)
     assert ((a == cpu) | (np.isnan(a) & np.isnan(cpu))).all()
+
+
+AUTOPGD_BOTNET_CASES = tuple(
+    {**case, "loss_evaluation": "autopgd+" + case["loss_evaluation"]} for case in PGD_BOTNET_CASES
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t", [(1, 7), (33, 12), (66, 12), (67, 30), (387, 12), (397, 12)])
+@pytest.mark.parametrize("case", range(len(AUTOPGD_BOTNET_CASES)))
+def test_autopgd_botnet_equals_plain(card, pgd_botnet_problem, case, n, t):
+    # K7b's AutoPGD instantiation keeps 6 rows a cluster: the row edges of
+    # test_pgd_botnet_equals_plain, the first rows holding the terms' edges
+    knobs = AUTOPGD_BOTNET_CASES[case]
+    eps = 0.3 if knobs["norm"] == 2 else 0.05
+    _autopgd_equals_plain(card, pgd_botnet_problem, knobs, n, t, "pgd_botnet_auto", kernels.pgd_botnet, eps)
+
+
+@pytest.mark.cuda
+def test_autopgd_generate_on_botnet_equals_the_cpu(card, pgd_botnet_problem):
+    cons, sur, scaler, xs, _ = pgd_botnet_problem
+    y = np.arange(len(xs)) % 2
+    knobs = dict(eps=4.0 - 1e-6, eps_step=4.0 / 3, max_iter=20, norm=2, loss_evaluation="autopgd+constraints+flip")
+    kernels.reset_launch_counts()
+    on_card = AutoPGD(sur, cons, scaler, device=card, **knobs)
+    got = on_card.generate(xs, y)
+    assert kernels.launch_counts() == {**{k: 0 for k in kernels.launch_counts()}, "pgd_botnet_auto": 1}
+    want = AutoPGD(sur, cons, scaler, device="cpu", **knobs).generate(xs, y)
+    assert ((got == want) | (np.isnan(got) & np.isnan(want))).all()
+    assert on_card.last_eta.shape == (len(xs),)
+    AutoPGD(sur, cons, scaler, device=card, num_random_init=2, **knobs).generate(xs, y)
+    assert kernels.launch_counts()["pgd_botnet_auto"] == 3
+    with pytest.raises(ValueError, match="max_iter=21 differs"):
+        on_card.generate(xs, y, max_iter=21)
+
+
+@pytest.mark.cuda
+def test_autopgd_botnet_refuses_bad_tables(card, pgd_botnet_problem):
+    cons, sur, scaler, xs, _ = pgd_botnet_problem
+    atk = AutoPGD(sur, cons, scaler, device=card, max_iter=3)
+    sched = atk.schedule(0.3, 0.1, 3)
+    xi = torch.as_tensor(xs[:8], device=card)
+    y = torch.zeros(8, dtype=torch.int64, device=card)
+    run = lambda auto: kernels.pgd_botnet(  # noqa: E731
+        atk.tables, sched.pgd, xi, y, xi, 0.3, (0.0, 1.0), False, False, False, auto=auto)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="is_ckpt must have shape"):
+        run(sched.auto._replace(is_ckpt=sched.auto.is_ckpt[:-1]))
+    with pytest.raises(ValueError, match="tracking constraint 360"):
+        run(sched.auto._replace(ctr=360))
+    assert kernels.launch_counts() == before
+
+
+def test_autopgd_botnet_wrapper_refuses_cpu_tensors(tmp_path):
+    cons, sur, scaler, x, xs, y = synthetic_botnet_pgd_problem(str(tmp_path), 4)
+    atk = AutoPGD(sur, cons, scaler, device="cpu", max_iter=2)
+    sched = atk.schedule(0.3, 0.1, 2)
+    xi = torch.as_tensor(xs, dtype=torch.float32)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.pgd_botnet(atk.tables, sched.pgd, xi, torch.as_tensor(y), xi, 0.3, (0.0, 1.0), False, False, False,
+                           auto=sched.auto)
+    assert kernels.launch_counts() == before
 
 
 def test_pgd_botnet_wrapper_refuses_cpu_tensors_and_other_stacks(tmp_path):

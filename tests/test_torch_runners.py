@@ -265,26 +265,28 @@ def test_refused_knob_raises_before_any_device_work(artifacts, tmp_path, base, o
 
 
 def test_autopgd_on_botnet_is_refused_on_the_card_before_any_device_work(tmp_path, monkeypatch):
-    """AutoPGD on botnet runs on the CPU only: on the card (``device="cuda"``,
+    """AutoPGD runs on the card wherever constrained PGD has a kernel, the
+    base botnet domain too; on the augmented botnet domain (``device="cuda"``,
     a card pretended here) the runner's engine refuses it by name, ROADMAP
-    queue B's "K7b AutoPGD (botnet)", before any tensor reaches the device,
-    and no result is written."""
+    queue B's "K7b at 927", before any tensor reaches the device, and no
+    result is written."""
     from moeva2_ijcai22_replication_tpu_torch.models.io import save_params
-    from moeva2_ijcai22_replication_tpu_torch.problems import synthetic_botnet_problem
+    from moeva2_ijcai22_replication_tpu_torch.problems import synthetic_botnet_augmented_problem
 
-    _, sur, scaler, x = synthetic_botnet_problem(str(tmp_path), 8)
+    _, sur, scaler, x = synthetic_botnet_augmented_problem(str(tmp_path), 8)
     np.save(tmp_path / "x_candidates.npy", x)
     save_params(sur, str(tmp_path / "nn.msgpack"))
     save_npz(scaler, str(tmp_path / "scaler.npz"))
-    art = {"dir": tmp_path, "paths": {"features": str(tmp_path / "features.csv"),
-                                      "constraints": str(tmp_path / "constraints.csv")}}
+    art = {"dir": tmp_path, "paths": {"features": str(tmp_path / "features_augmented.csv"),
+                                      "constraints": str(tmp_path / "constraints_augmented.csv")}}
     cfg = _config(art, tmp_path / "out", "pgd", scaler="scaler.npz", budget=5, eps=4.0,
-                  loss_evaluation="autopgd+constraints+flip", project_name="botnet")
+                  loss_evaluation="autopgd+constraints+flip", project_name="botnet_augmented")
+    cfg["paths"]["important_features"] = str(tmp_path / "important_features_19.npy")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     common.ENGINES.clear()
-    with pytest.raises(NotImplementedError, match="K7b AutoPGD") as exc:
+    with pytest.raises(NotImplementedError, match="K7b at 927") as exc:
         ppgd.run(cfg, device="cuda")
-    assert "BotnetConstraints" in str(exc.value)
+    assert "BotnetAugmentedConstraints" in str(exc.value)
     assert not [f for f in os.listdir(tmp_path / "out") if f.startswith(("metrics_", "x_attacks_"))]
 
 
