@@ -8,9 +8,10 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero:
 
 1. versions: torch, CUDA, and the card's name and power limit (nvidia-smi);
-2. build the port's nine CUDA kernels (K1 and K7 with an instantiation each
-   for the augmented LCLD domain, K7 two more for AutoPGD, K8 one for the
-   augmented botnet domain)
+2. build the port's ten CUDA kernel sources (K1 and K7 with an
+   instantiation each for the augmented LCLD domain, K7 two more for
+   AutoPGD, K8 one for the augmented botnet domain, K6's two kernels in one
+   source)
    from the sources in the checkout and
    print each kernel's ptxas registers, shared memory, stack frame and
    spill (none of the redesigned ones, ``REDESIGNED``, may spill);
@@ -210,6 +211,27 @@ Phases, in order; any failure exits non-zero:
    prefix through the runner (387 x 1000). No grid file of ``config/``
    selects AutoPGD: phase 13 launches none of its counters
    (``AUTOPGD_COUNTERS``), which phase 14 must launch.
+15. the early exit (the ``[early-exit]`` lines): K6's ptxas lines; K6a
+   ``gate_stats`` against ``engine_quality_stats`` bit for bit over
+   ``GATE_STATES`` x ``GATE_COLUMNS`` (NaN and ±inf objectives, an all-NaN
+   state, f1 at the threshold, f2 at eps, no archive); K6b ``take_carry``
+   and ``final_columns`` against ``index_select`` bit for bit at
+   ``TAKE_GENES`` x ``TAKE_ARCHIVES`` with duplicate, identity and
+   reversed index vectors; each timed at ``K6_TIMED`` beside its plain
+   version and its bound (bytes), K6b with ``index_select``'s summed time;
+   the main path's engine with ``EE_KNOBS`` (a gate every 10 generations,
+   archive 24), its launch counts set to 0 just before and read just after
+   and held to what its record implies (``expected_launches``), the
+   buckets shrinking down the menu, fewer steps than the budget; the same
+   run with ``double_buffer`` off, a gate that never fires and
+   ``quality_every`` 10 against strict mode, all bit for bit; the run
+   interrupted after its first checkpoint and resumed, bit for bit; the
+   card against the CPU at ``EE_CPU_RUN`` fed the CPU's draws; botnet's
+   early exit at 387 states in chunks of 256 (``EE_BOTNET_KNOBS``); and
+   rq1.lcld's MoEvA point through the runner with ``early_stop_check_every``
+   10 (and ``early_stop_threshold`` 0.5) beside the strict point, o1..o7 of
+   both. No grid file sets an early exit: phase 13 launches no
+   ``EARLY_EXIT_COUNTERS``, which phase 15 must launch.
 
 The last three lines are the per-kernel JSON record (with each kernel's
 launches over phase 13's grids, ``grid_launches``), the card's name and
@@ -265,7 +287,8 @@ def nvidia_smi_line() -> str:
 
 #: kernels whose ptxas report must show no spill
 REDESIGNED = ("objective_lcld_kernel", "survive_fill_kernel", "survive_norm_kernel", "offspring_kernel",
-              "nd_peel_kernel", "associate_kernel", "pgd_lcld_kernel", "pgd_botnet_kernel")
+              "nd_peel_kernel", "associate_kernel", "pgd_lcld_kernel", "pgd_botnet_kernel", "gate_stats_kernel",
+              "take_kernel")
 
 
 def ptxas_resources(build_log: str) -> list:
@@ -1313,23 +1336,47 @@ def main_path_engine(device):
     return Moeva2(sur, cons, ml_scaler=scaler, device=device, **knobs), x, knobs
 
 
-def expected_launches(moeva, n_states: int) -> dict:
+def expected_launches(moeva, n_states: int, result=None) -> dict:
     """Launches of one ``generate`` call that the engine's code implies: per
     chunk of states, the initial round (objectives, survival, the archive
-    seeding on K4b) and ``n_gen - 1`` generation steps."""
+    seeding on K4b) and its generation steps, ``n_gen - 1`` unless the
+    early exit's record in ``result`` (a ``MoevaResult``) shows every state
+    of the chunk solved at a gate, where the chunk stops. A gate (every
+    ``early_stop_check_every`` generations, or ``quality_every`` with
+    ``record_quality``, before the last step) launches K6a once; a gate
+    that parks states launches K6b once for their columns, and once more
+    where it repacks the rest."""
     from moeva2_ijcai22_replication_tpu_torch import kernels
 
     chunk = moeva.max_states_per_call or n_states
-    chunks = -(-n_states // chunk)
-    steps = moeva.n_gen - 1
+    sizes = [min(chunk, n_states - start) for start in range(0, n_states, chunk)]
+    n_steps = moeva.n_gen - 1
+    check = getattr(moeva, "early_stop_check_every", 0) or 0
+    every = check or (getattr(moeva, "quality_every", 0) if getattr(moeva, "record_quality", False) else 0)
+    trace = result.early_stop["compaction"] if result is not None and result.early_stop else []
+    steps = gates = takes = 0
+    for i, size in enumerate(sizes):
+        entries = [t for t in trace if t.get("chunk", 0) == i]
+        done = next((t["gen"] for t in entries if t["active"] == 0), n_steps)
+        steps += done
+        gates += min(done, n_steps - 1) // every if every else 0
+        rows = size
+        for t in entries:  # a gate that parked states; a smaller bucket is a repack
+            takes += 1 + (t["bucket"] < rows)
+            rows = t["bucket"]
+    if result is not None and result.gens_executed != steps:
+        raise AssertionError(f"gens_executed {result.gens_executed} != {steps} implied by the early exit's record")
+    chunks = len(sizes)
     return {
         **{name: 0 for name in kernels.launch_counts()},
-        "offspring": chunks * steps,
-        counter_name(moeva.constraints, "objective"): chunks * (1 + steps),
-        "nd_peel": chunks * (1 + steps),
-        "survive_norm": chunks * (1 + steps),
-        "associate": chunks * (1 + steps),
-        "survive_fill": chunks * (1 + steps + (1 if moeva.archive_size else 0)),
+        "offspring": steps,
+        counter_name(moeva.constraints, "objective"): chunks + steps,
+        "nd_peel": chunks + steps,
+        "survive_norm": chunks + steps,
+        "associate": chunks + steps,
+        "survive_fill": chunks * (1 + (1 if moeva.archive_size else 0)) + steps,
+        "gate_stats": gates,
+        "take_carry": takes,
     }
 
 
@@ -2638,10 +2685,11 @@ def point_files(runner: str, cfg: dict) -> set:
     return names | ({f"success_rate_{mid}_{h}.csv"} if runner == "pgd" else set())
 
 
-def point_expected_launches(runner: str, cfg: dict) -> dict:
+def point_expected_launches(runner: str, cfg: dict, result=None) -> dict:
     """The launches one point's run implies: ``expected_launches`` for
-    MoEvA, for PGD one launch of the set's PGD kernel (of its AutoPGD
-    instantiation for an ``autopgd`` loss) per random start, at least one."""
+    MoEvA (with the run's ``MoevaResult`` where it has an early exit), for
+    PGD one launch of the set's PGD kernel (of its AutoPGD instantiation for
+    an ``autopgd`` loss) per random start, at least one."""
     import types
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
@@ -2652,9 +2700,12 @@ def point_expected_launches(runner: str, cfg: dict) -> dict:
         auto = "autopgd" in cfg["loss_evaluation"]
         runs = max(int(cfg.get("nb_random", 1 if auto else 0)), 1)
         return {**{k: 0 for k in kernels.launch_counts()}, counter_name(cons, "pgd") + ("_auto" if auto else ""): runs}
-    engine = types.SimpleNamespace(max_states_per_call=cfg["max_states_per_call"], n_gen=cfg["budget"],
-                                   archive_size=cfg["archive_size"], constraints=cons)
-    return expected_launches(engine, len(common.load_candidates(cfg)))
+    engine = types.SimpleNamespace(
+        max_states_per_call=cfg["max_states_per_call"], n_gen=cfg["budget"], archive_size=cfg["archive_size"],
+        constraints=cons, early_stop_check_every=int(cfg.get("early_stop_check_every", 0) or 0),
+        record_quality=bool(cfg.get("record_quality", True)), quality_every=int(cfg.get("quality_every", 0) or 0),
+    )
+    return expected_launches(engine, len(common.load_candidates(cfg)), result)
 
 
 def point_rates(runner: str, metrics: dict) -> list:
@@ -2681,9 +2732,10 @@ def recomputed_rates(runner: str, cfg: dict, x_attacks: np.ndarray) -> list:
     return rates
 
 
-def drive_runner(cfg: dict, smi: str, expected: dict, tag: str) -> dict | None:
+def drive_runner(cfg: dict, smi: str, expected, tag: str) -> dict | None:
     """One phase-10 run: ``run(cfg)`` with the launch counts set to 0 just
-    before and read just after (they must equal ``expected``); the files
+    before and read just after (they must equal ``expected``, a dict or a
+    function called after the run that gives it); the files
     under the JAX names; the metrics against a recomputation from the saved
     ``x_attacks``; ``includes_compile`` false; skip-if-done. Returns the
     metrics.
@@ -2722,7 +2774,7 @@ def drive_runner(cfg: dict, smi: str, expected: dict, tag: str) -> dict | None:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    check_launches(launches, expected, f"the {tag} runner")
+    check_launches(launches, expected() if callable(expected) else expected, f"the {tag} runner")
     if metrics is None:
         if (dir_state(out) if os.path.isdir(out) else {}) != before:
             raise AssertionError(f"{tag}: the refused run wrote files")
@@ -4366,6 +4418,426 @@ def run_autopgd(device, smi: str, resources: list, problem):
     return records, {name: launches[name] for name in AUTOPGD_COUNTERS}
 
 
+# -- phase 15: the early exit ----------------------------------------------------------
+
+#: K6a's sweep: state counts x (population, archive) columns, P + A in
+#: {103, 113, 203, 303} (the main path's, with archive 10, and
+#: config/moeva.yaml's P = 203 and M = 303)
+GATE_STATES = (1, 7, 8, 33, 131, 256, 1000)
+GATE_COLUMNS = ((103, 0), (103, 10), (203, 0), (279, 24))
+#: K6b's sweep: the genes of LCLD, augmented LCLD, botnet and augmented
+#: botnet rows, with archives of 0 and 10 columns, over 131 source states
+TAKE_GENES = (47, 57, 756, 927)
+TAKE_ARCHIVES = (0, 10)
+TAKE_STATES = 131
+#: the shape K6 is timed at: 1000 states x (103 + 10) columns, L = 47
+K6_TIMED = (1000, 103, 10, 47)
+#: float32 operations of K6a per candidate: three compares, four flag
+#: conjunctions and ORs, two minima
+GATE_OPS_PER_CANDIDATE = 12
+#: the main path's early exit: a gate every 10 generations, judged at f1 <
+#: 0.53 (the seeded, untrained surrogate leaves the states' best feasible
+#: f1 in about [0.40, 0.54] after 10 generations), repacking down
+#: config's menu extended by 1, 2 and 4
+EE_KNOBS = dict(early_stop_check_every=10, early_stop_threshold=0.53,
+                compaction_buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256), record_quality=True)
+#: the card-vs-CPU run: states x generations, a gate every 5 at f1 < 0.5
+EE_CPU_RUN = (64, 31)
+EE_CPU_KNOBS = dict(EE_KNOBS, early_stop_check_every=5, early_stop_threshold=0.5)
+#: botnet's early exit: rq1.botnet's engine (chunks of 256 of 387 states) at
+#: a budget cut from 1000 to 200, judged at rq1.botnet's f1 0.5
+EE_BOTNET_KNOBS = dict(BOTNET_KNOBS, n_gen=200, early_stop_check_every=10, early_stop_threshold=0.5,
+                       record_quality=True)
+#: the counters that only an early exit or quality gates launch: no grid
+#: file of config/ sets either
+EARLY_EXIT_COUNTERS = ("gate_stats", "take_carry")
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def gate_sweep_objectives(rng, s: int, m: int, thr: float, eps: float) -> np.ndarray:
+    """float32 objectives with the gate's edges: NaN, +inf and -inf entries
+    in every column, an all-NaN first state, f1 exactly at ``thr``, f2
+    exactly at ``eps``, violations exactly 0 and -0."""
+    f = rng.uniform(-0.1, 1.0, size=(s, m, 3)).astype(np.float32)
+    f[..., 2] = np.where(rng.random((s, m)) < 0.3, 0.0, np.abs(f[..., 2]))
+    f[rng.random((s, m)) < 0.05, 2] = -0.0
+    f[rng.random((s, m)) < 0.05, 0] = thr
+    f[rng.random((s, m)) < 0.05, 1] = eps
+    for col in range(3):
+        f[rng.random((s, m)) < 0.03, col] = np.nan
+        f[rng.random((s, m)) < 0.02, col] = np.inf
+        f[rng.random((s, m)) < 0.01, col] = -np.inf
+    f[0] = np.nan
+    return f
+
+
+def take_leaves(rng, device, s: int, p: int, a: int, l: int) -> list:
+    """A carry's leaves (pop_x, pop_f, arch_x, arch_f, ideal, worst,
+    extreme) of ``s`` states, random, with a NaN and a -0 among them."""
+    import torch
+
+    shapes = ((s, p, l), (s, p, 3), (s, a, l), (s, a, 3), (s, 3), (s, 3), (s, 3, 3))
+    leaves = [torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=device) for sh in shapes]
+    leaves[1][0, 0, 0] = float("nan")
+    leaves[0][-1, -1, -1] = -0.0
+    return leaves
+
+
+def check_gate_repack(device) -> None:
+    """K6a against ``engine_quality_stats`` and K6b against
+    ``index_select`` on the card, bit for bit."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import final_columns_plain, take_carry_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.objective import engine_quality_stats
+
+    rng = np.random.default_rng(15)
+    thr, eps = float(np.float32(0.5)), float(np.float32(0.25 / math.sqrt(47)))
+    cases = 0
+    for s in GATE_STATES:
+        for p, a in GATE_COLUMNS:
+            f = torch.as_tensor(gate_sweep_objectives(rng, s, p + a, thr, eps), device=device)
+            for e in (eps, float("inf")):
+                got = kernels.gate_stats(f[:, :p].contiguous(), f[:, p:].contiguous(), thr, e)
+                hold_equal(got, engine_quality_stats(f, thr, e), f"gate_stats at S={s} P={p} A={a} eps={e}")
+                cases += 1
+    torch.cuda.synchronize()
+    log(f"[early-exit] gate_stats equals engine_quality_stats (its plain version) bit for bit on {cases} cases: S in "
+        f"{GATE_STATES} x (P, A) in {GATE_COLUMNS} x eps in ({eps:.6g}, inf), with NaN, +inf and -inf objectives, an "
+        "all-NaN state, f1 at the threshold, f2 at eps, violations 0 and -0")
+    cases = 0
+    for l in TAKE_GENES:
+        for a in TAKE_ARCHIVES:
+            leaves = take_leaves(rng, device, TAKE_STATES, 103, a, l)
+            s = TAKE_STATES
+            for sel in (np.array([s - 1, 4, 4, 4, 0]), np.arange(s), np.arange(s)[::-1].copy(), np.full(256, 7)):
+                idx = torch.as_tensor(sel, device=device)
+                for g, w in zip(kernels.take_carry(sel, leaves), take_carry_plain(idx, leaves)):
+                    if not same_bits(g, w):
+                        raise AssertionError(f"take_carry at L={l} A={a} differs from index_select")
+                for g, w in zip(kernels.final_columns(sel, *leaves[:4]), final_columns_plain(idx, *leaves[:4])):
+                    if not same_bits(g, w):
+                        raise AssertionError(f"final_columns at L={l} A={a} differs from its plain version")
+                cases += 2
+    torch.cuda.synchronize()
+    log(f"[early-exit] take_carry and final_columns equal index_select (and its concatenation) bit for bit on {cases} "
+        f"launches: L in {TAKE_GENES} x A in {TAKE_ARCHIVES} over {TAKE_STATES} states, index vectors with "
+        "duplicates, the identity, reversed, 256 copies of one row; NaN and -0 carried")
+
+
+def time_gate_repack(device, smi: str) -> list:
+    """K6a's and K6b's records at ``K6_TIMED``: device ms (CUDA graph of 20
+    launches), wrapper ms, plain ms, bound by bytes; K6b with the summed
+    time of one ``index_select`` per leaf as a note."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import take_carry_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.objective import engine_quality_stats
+
+    s, p, a, l = K6_TIMED
+    rng = np.random.default_rng(16)
+    thr, eps = 0.5, float("inf")
+    f = torch.as_tensor(gate_sweep_objectives(rng, s, p + a, thr, 0.1), device=device)
+    pop_f, arch_f = f[:, :p].contiguous(), f[:, p:].contiguous()
+    leaves = take_leaves(rng, device, s, p, a, l)
+    sel = np.arange(s)[::-1].copy()
+    idx = torch.as_tensor(sel, device=device)
+    floats = sum(t[0].numel() for t in leaves)
+    # the launch take_carry makes after its host-side checks and the copy of
+    # the indices to the card, which a CUDA graph cannot capture: the device
+    # time is the kernel's; the wrapper's time holds the check and the copy
+    outs = [torch.empty((s, *t.shape[1:]), dtype=t.dtype, device=device) for t in leaves]
+    segments = [(t, o, t[0].numel(), 0) for t, o in zip(leaves, outs)]
+    kernels._take(idx, s, segments, device)
+    for g, w in zip(outs, take_carry_plain(idx, leaves)):
+        if not same_bits(g, w):
+            raise AssertionError("the timed take_carry launch differs from index_select")
+    specs = (
+        ("gate_stats", "attacks/objective.py:55",
+         lambda: kernels.gate_stats(pop_f, arch_f, thr, eps),
+         lambda: engine_quality_stats(torch.cat([pop_f, arch_f], dim=1), thr, eps),
+         4 * s * (p + a) * 3 + 4 * s * 9, GATE_OPS_PER_CANDIDATE * s * (p + a), None),
+        ("take_carry", "attacks/moeva/engine.py:874",
+         lambda: kernels._take(idx, s, segments, device), lambda: take_carry_plain(idx, leaves),
+         2 * 4 * s * floats + 8 * s, 0, lambda: sum(cuda_ms(lambda t=t: t.index_select(0, idx)) for t in leaves)),
+    )
+    records = []
+    for name, replaces, kfn, pfn, n_bytes, n_ops, note in specs:
+        b_ms, b_by = bound_ms(n_bytes, n_ops, 0)
+        rec = {
+            "name": name,
+            "route": "cuda",
+            "source": "moeva2_ijcai22_replication_tpu_torch/kernels/csrc/gate_repack.cu",
+            "replaces": "moeva2_ijcai22_replication_tpu/" + replaces,
+            "launches": 0,
+            "max_abs_err": 0.0,
+            "ms": graph_ms(kfn),
+            "wrapper_ms": cuda_ms(kfn if name == "gate_stats" else lambda: kernels.take_carry(sel, leaves)),
+            "plain_ms": cuda_ms(pfn),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        }
+        extra = ""
+        if note is not None:
+            rec["index_select_ms"] = note()
+            extra = f", one index_select per leaf summed {rec['index_select_ms']:.4f} ms (not one call: library_ms null)"
+        log(f"[early-exit] {name} at S={s} P={p} A={a} L={l}: device {rec['ms']:.4f} ms, through the wrapper "
+            f"{rec['wrapper_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}, {n_bytes} "
+            f"bytes){extra} on {smi}")
+        records.append(rec)
+    return records
+
+
+class RecordedDraws:
+    """Draws recorded from the CPU's generator and replayed on the card:
+    ``recorder(engine)`` gives a draw source that records every draw of the
+    CPU engine's run, ``replay(device)`` one that hands them out again in
+    order, moved to ``device``."""
+
+    def __init__(self):
+        self.items = []
+
+    def recorder(self, engine):
+        from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import GeneratorDraws
+
+        items = self.items
+
+        class Recording(GeneratorDraws):
+            def init(self, n):
+                items.append(super().init(n))
+                return items[-1]
+
+            def generation(self, n):
+                items.append(super().generation(n))
+                return items[-1]
+
+        return Recording(engine, engine.seed)
+
+    def replay(self, device):
+        items = iter(self.items)
+
+        def move(d):
+            if d is None or not isinstance(d, tuple):
+                return None if d is None else d.to(device)
+            return type(d)(*(move(t) for t in d))
+
+        class Replay:
+            def init(self, n):
+                return move(next(items))
+
+            def generation(self, n):
+                return move(next(items))
+
+        return Replay()
+
+
+def same_result(a, b, record: bool = True) -> bool:
+    """Equal populations, objectives (NaN where NaN), decoded rows and
+    steps, and with ``record`` equal early-exit records."""
+    return (np.array_equal(a.x_gen, b.x_gen) and np.array_equal(a.f, b.f, equal_nan=True)
+            and np.array_equal(a.x_ml, b.x_ml) and a.gens_executed == b.gens_executed
+            and (not record or a.early_stop == b.early_stop))
+
+
+def drive_early_exit(moeva, x, smi: str, tag: str, n_states: int) -> tuple:
+    """``generate`` with the launch counts set to 0 just before and read
+    just after, checked against what the early exit's record implies;
+    returns ``(result, launches, wall s)``."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = moeva.generate(x, minimize_class=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check_launches(launches, expected_launches(moeva, n_states, res), f"the {tag} early exit")
+    if not np.isfinite(res.x_ml).all():
+        raise AssertionError(f"{tag}: non-finite values in x_ml")
+    frozen = ~moeva.constraints.schema.mutable
+    if not np.array_equal(res.x_ml[:, :, frozen], np.broadcast_to(x[:, None, frozen].astype(np.float32),
+                                                                  res.x_ml[:, :, frozen].shape)):
+        raise AssertionError(f"{tag}: immutable features moved")
+    log(f"[early-exit] {tag}: {n_states} states, gate every {moeva.early_stop_check_every} at f1 < "
+        f"{moeva.early_stop_threshold}: {res.gens_executed} of {res.early_stop['budget_gens']} generation steps run, "
+        f"compaction {res.early_stop['compaction']}; launches {({k: v for k, v in launches.items() if v})} as the "
+        f"record implies; wall {wall:.3f} s on {smi}")
+    return res, launches, wall
+
+
+def check_resume(moeva, x, want, tmp: str) -> None:
+    """The early exit's run interrupted right after its first checkpoint,
+    then run again: it resumes there and equals the uninterrupted ``want``."""
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.checkpoint import AttackCheckpointer
+
+    class Crash(RuntimeError):
+        pass
+
+    save = AttackCheckpointer.save
+
+    def crash(self, *args, **kwargs):
+        save(self, *args, **kwargs)
+        raise Crash(self.path)
+
+    moeva.checkpoint_every, moeva.checkpoint_path = 10, f"{tmp}/ee.npz"
+    steps = []
+    step = moeva.gen_step
+    try:
+        AttackCheckpointer.save = crash
+        try:
+            moeva.generate(x, minimize_class=1)
+            raise AssertionError("the run wrote no checkpoint to interrupt")
+        except Crash:
+            pass
+        AttackCheckpointer.save = save
+        moeva.gen_step = lambda *a: steps.append(1) or step(*a)
+        got = moeva.generate(x, minimize_class=1)
+    finally:
+        AttackCheckpointer.save = save
+        moeva.__dict__.pop("gen_step", None)
+        moeva.checkpoint_every, moeva.checkpoint_path = 0, None
+    if not same_result(got, want) or len(steps) >= want.gens_executed:
+        raise AssertionError(f"resumed run differs from the uninterrupted one ({len(steps)} steps after resuming)")
+    log(f"[early-exit] interrupted right after its checkpoint at generation 10 and run again: resumed ({len(steps)} "
+        f"of {want.gens_executed} steps run after it), equal to the uninterrupted run bit for bit")
+
+
+def check_early_exit_card_vs_cpu(device, sur, cons, scaler, x) -> None:
+    """``EE_CPU_RUN`` on the card and on the CPU, fed the draws of the
+    CPU's generator: equal results, records and quality samples."""
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
+
+    n, n_gen = EE_CPU_RUN
+    knobs = dict(norm=2, n_gen=n_gen, n_pop=100, n_offsprings=100, archive_size=24, seed=7, **EE_CPU_KNOBS)
+    draws = RecordedDraws()
+    cpu = Moeva2(sur, cons, ml_scaler=scaler, device="cpu", **knobs)
+    cpu.draw_hook = lambda i: draws.recorder(cpu)
+    want = cpu.generate(x[:n], minimize_class=1)
+    gpu = Moeva2(sur, cons, ml_scaler=scaler, device=device, **knobs)
+    gpu.draw_hook = lambda i: draws.replay(device)
+    got = gpu.generate(x[:n], minimize_class=1)
+    samples = [(a["gen"], np.array_equal(a["per_state"], b["per_state"], equal_nan=True))
+               for a, b in zip(got.quality["samples"], want.quality["samples"])]
+    if not same_result(got, want) or not all(ok for _, ok in samples) or len(samples) != len(want.quality["samples"]):
+        raise AssertionError(f"the early exit on the card differs from the CPU fed the same draws: {got.early_stop} vs "
+                             f"{want.early_stop}, samples {samples}")
+    if not any(t["bucket"] < n for t in want.early_stop["compaction"]):
+        raise AssertionError(f"the card-vs-CPU run repacked nothing: {want.early_stop}")
+    log(f"[early-exit] card vs CPU at {n} states x {n_gen - 1} steps, gate every "
+        f"{knobs['early_stop_check_every']} at f1 < {knobs['early_stop_threshold']}, fed the CPU's draws: populations, "
+        f"objectives, decoded rows, the record {want.early_stop['compaction']} and {len(samples)} quality samples "
+        "equal bit for bit")
+
+
+def run_early_exit(device, smi: str, resources: list, records: list) -> dict:
+    """Phase 15: the early exit (ROADMAP A7) with kernel K6. Returns the
+    launch counts of its main-path run."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
+    from moeva2_ijcai22_replication_tpu_torch.problems import synthetic_lcld_problem
+
+    t0 = time.perf_counter()
+    for k in resources:
+        if k["source"].endswith("gate_repack.cu"):
+            log(f"[early-exit] K6 ptxas: {k['kernel']}: {k['registers']} registers, {k['stack']} bytes stack frame, "
+                f"{k['spill_stores']} + {k['spill_loads']} bytes spill stores + loads")
+    check_gate_repack(device)
+    k6 = time_gate_repack(device, smi)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cons, sur, scaler, x = synthetic_lcld_problem(tmp, N_STATES)
+    knobs = dict(norm=2, n_gen=N_GEN, n_pop=100, n_offsprings=100, archive_size=24, seed=42)
+    torch.cuda.synchronize()
+    t_strict = time.perf_counter()
+    strict = Moeva2(sur, cons, ml_scaler=scaler, device=device, **knobs).generate(x, minimize_class=1)
+    torch.cuda.synchronize()
+    t_strict = time.perf_counter() - t_strict
+    moeva = Moeva2(sur, cons, ml_scaler=scaler, device=device, **knobs, **EE_KNOBS)
+    res, launches, wall = drive_early_exit(moeva, x, smi, "main path", N_STATES)
+    flushes = moeva.last_deferred_gate_flushes
+    trace = res.early_stop["compaction"]
+    rows = [N_STATES] + [t["bucket"] for t in trace]
+    if any(b > a for a, b in zip(rows, rows[1:])) or any(t["bucket"] not in EE_KNOBS["compaction_buckets"]
+                                                         for t, a in zip(trace, rows) if t["bucket"] < a):
+        raise AssertionError(f"the buckets did not shrink monotonically down the menu: {rows}")
+    if not res.gens_executed < N_GEN - 1 or not any(t["bucket"] < N_STATES for t in trace):
+        raise AssertionError(f"the main path's early exit neither repacked nor ended early: {res.early_stop}")
+    gates = launches["gate_stats"]
+    for rec in k6:
+        rec["launches_per_gate"] = launches[rec["name"]] / gates
+    log(f"[early-exit] rows per gate {rows}; {gates} gates, {launches['take_carry']} K6b launches "
+        f"({launches['take_carry'] / gates:.2f} a gate); {flushes} gate flushes deferred past the next segment's "
+        f"launches; wall {wall:.3f} s against {t_strict:.3f} s for strict mode's {strict.gens_executed} steps (each on "
+        f"a fresh engine) on {smi}")
+    records += k6
+
+    moeva.double_buffer = False
+    serial = moeva.generate(x, minimize_class=1)
+    moeva.double_buffer = True
+    if not same_result(serial, res) or moeva.last_deferred_gate_flushes != 0 or not flushes:
+        raise AssertionError("double_buffer off changed the result, or the deferred flushes were not counted")
+    never = Moeva2(sur, cons, ml_scaler=scaler, device=device, **knobs, **dict(EE_KNOBS, early_stop_threshold=0.0))
+    quality = Moeva2(sur, cons, ml_scaler=scaler, device=device, **knobs, record_quality=True, quality_every=10)
+    got_never, got_quality = (e.generate(x, minimize_class=1) for e in (never, quality))
+    if got_never.early_stop["compaction"] or not same_result(got_never, strict, record=False):
+        raise AssertionError("a gate that never fires changed the result")
+    if not same_result(got_quality, strict) or len(got_quality.quality["samples"]) != (N_GEN - 2) // 10 + 1:
+        raise AssertionError("quality_every changed the result or took the wrong samples")
+    log("[early-exit] double_buffer off, a gate that never fires (f1 < 0) and quality_every 10 (9 interior samples) "
+        "give the results of double_buffer on and of strict mode, bit for bit")
+    with tempfile.TemporaryDirectory() as tmp:
+        check_resume(moeva, x, res, tmp)
+    check_early_exit_card_vs_cpu(device, sur, cons, scaler, x)
+
+    bcons, bsur, bscaler, bx, _ = botnet_problem()
+    botnet = Moeva2(bsur, bcons, ml_scaler=bscaler, device=device, **EE_BOTNET_KNOBS)
+    bres, _, _ = drive_early_exit(botnet, bx, smi, "botnet (chunks of 256)", BOTNET_STATES)
+    if not bres.early_stop["compaction"]:
+        raise AssertionError("botnet's early exit parked no state")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        art = f"{tmp}/lcld"
+        write_runner_artifacts("lcld", art)
+        base = runner_config("lcld", "moeva", art)
+        strict_m = drive_runner(base, smi, point_expected_launches("moeva", base), "moeva lcld (strict)")
+        cfg = dict(base, early_stop_check_every=10, early_stop_threshold=0.5)
+        results = []
+        generate = Moeva2.generate
+
+        def capture(self, *a, **k):
+            results.append(generate(self, *a, **k))
+            return results[-1]
+
+        Moeva2.generate = capture
+        try:
+            ee_m = drive_runner(cfg, smi, lambda: point_expected_launches("moeva", cfg, results[-1]),
+                                "moeva lcld early_stop_check_every 10, early_stop_threshold 0.5")
+        finally:
+            Moeva2.generate = generate
+        if ee_m["execution"]["gens_executed"] != results[-1].gens_executed or not results[-1].early_stop["compaction"]:
+            raise AssertionError(f"runner execution {ee_m['execution']} vs the engine's {results[-1].early_stop}")
+        fmt = lambda m: " ".join(f"{v:.4f}" for v in m["objectives_list"][0].values())  # noqa: E731
+        log(f"[early-exit] rq1.lcld's MoEvA point through the runner: o1..o7 strict {fmt(strict_m)}; with the early "
+            f"exit {fmt(ee_m)} ({ee_m['execution']['gens_executed']} of {results[-1].early_stop['budget_gens']} steps; "
+            "judged at f1 < 0.25, parked at "
+            f"0.5); time {ee_m['time']:.3f} s against strict {strict_m['time']:.3f} s on {smi}")
+    log(f"[early-exit] phase 15 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4447,7 +4919,8 @@ def main() -> int:
     launches["objective_botnet_aug"] = botnet_aug_launches["objective_botnet_aug"]
     grid_launches = run_grids(smi)
     # no grid file selects AutoPGD: its counters are checked on phase 14's drives
-    idle = [name for name, n in grid_launches.items() if n == 0 and name not in AUTOPGD_COUNTERS]
+    idle = [name for name, n in grid_launches.items()
+            if n == 0 and name not in AUTOPGD_COUNTERS + EARLY_EXIT_COUNTERS]
     if idle:
         raise AssertionError(f"phase 13's grids launched no {idle}")
     auto_records, auto_launches = run_autopgd(device, smi, resources, problem)
@@ -4455,7 +4928,11 @@ def main() -> int:
         raise AssertionError(f"phase 14 launched no {[k for k, n in auto_launches.items() if not n]}")
     records += auto_records
     launches.update(auto_launches)
-    log(f"[smoke] phases 1-14 took {time.perf_counter() - t_smoke:.1f} s")
+    lap("phases 12-14")
+    ee_launches = run_early_exit(device, smi, resources, records)
+    launches.update({name: ee_launches[name] for name in EARLY_EXIT_COUNTERS})
+    lap("phase 15")
+    log(f"[smoke] phases 1-15 took {time.perf_counter() - t_smoke:.1f} s")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         rec["grid_launches"] = grid_launches[rec["name"]]

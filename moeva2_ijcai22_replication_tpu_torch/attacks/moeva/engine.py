@@ -1,30 +1,45 @@
 """MoEvA2, the multi-objective evolutionary attack, batched over states.
 
-Port of the strict mode of ``attacks/moeva/engine.py``: ``init`` (tiled
-initial population, objectives, the normalisation warm-up round and the
-archive seed) and the generation step ``gen_step`` (offspring, objectives,
-merge, R-NSGA-III survival, stable survivors-first extraction, elite
-archive update), chained for ``n_gen - 1`` generations over all states at
-once, with optional ``max_states_per_call`` chunking.
+Port of ``attacks/moeva/engine.py``: ``init`` (the initial population,
+tiled or ``lp_ratio``, its objectives, the normalisation warm-up round and
+the archive seed) and the generation step ``gen_step`` (offspring,
+objectives, merge, R-NSGA-III survival, stable survivors-first extraction,
+elite archive update), chained for ``n_gen - 1`` generations over all
+states at once, with optional ``max_states_per_call`` chunking, and the
+engine's extras: the success-gated early exit with active-set compaction
+(``early_stop_check_every``), double-buffered gate flushes, quality samples
+(``record_quality``, ``quality_every``), checkpoint and resume
+(``checkpoint_every``) and the streaming ``partial_sink``. ``save_history``
+is not ported (ROADMAP A7b).
 
-Every random number a generation consumes comes from one
-``torch.Generator`` on the engine's device through :meth:`draw_generation`;
-:meth:`gen_step` takes those draws as an argument, so a test can feed it
-the JAX package's draws instead.
+Every random number a run consumes comes from one draw source
+(:class:`GeneratorDraws` by default: one ``torch.Generator`` on the
+engine's device, seeded with ``seed``), asked for the draws of the initial
+round and of each generation at the current number of rows; the knob
+``draw_hook`` replaces it, so a test can feed the JAX package's draws, at
+the bucket's row count after a repack too. :meth:`gen_step` takes its draws
+as an argument.
 
 On the card a generation is the draws, then six hand-written kernels: K5
 offspring, the objectives (K1 on LCLD, K8 on botnet), K2 front peel, K4a
 normalisation, K3 niche association and K4b fill, extraction and archive.
 The one other device op of a step is the ``torch.cat`` of the population's
-and the offspring's objectives that K2, K4a and K3 read. On the CPU every
-stage runs its plain PyTorch version (:func:`evaluate_plain`,
-:func:`extract_archive_plain` and those of ``operators`` and ``survival``),
-which spells out its kernel's arithmetic one rounded operation at a time.
+and the offspring's objectives that K2, K4a and K3 read. A gate is one
+launch of K6a (the (S, 9) statistics, fetched once) and, where states are
+solved or the active set is repacked, one launch of K6b each. On the CPU
+every stage runs its plain PyTorch version (:func:`evaluate_plain`,
+:func:`extract_archive_plain`, :func:`take_carry_plain`,
+:func:`final_columns_plain`, ``attacks.objective.engine_quality_stats`` and
+those of ``operators`` and ``survival``), which spells out its kernel's
+arithmetic one rounded operation at a time.
 """
 
 from __future__ import annotations
 
 import copy
+import hashlib
+import json
+import logging
 import time
 from dataclasses import dataclass
 from typing import Any, NamedTuple
@@ -40,13 +55,18 @@ from ...core.norms import is_inf, is_l2, validate_norm
 from ...models.io import Surrogate
 from ...models.mlp import MLP, mlp_forward_plain
 from ...models.scalers import MinMaxParams
-from .initialisation import tile_init
+from ...observability.quality import merge_chunk_quality, sample_from_per_state
+from ..objective import engine_quality_stats
+from .checkpoint import AttackCheckpointer
+from .initialisation import ball_draw_shape, lp_ratio_init, n_perturbed, tile_init
 from .operators import OffspringDraws, draw_offspring, make_offspring, make_operator_tables
 from .refdirs import energy_ref_dirs, rnsga3_geometry
 from .survival import (
     NormState, _sqrt_rn, _sum_last, draw_gumbels, survive_batch, survive_fill_plain,
     survive_stages,
 )
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass
@@ -60,9 +80,20 @@ class MoevaResult:
     x_initial: np.ndarray  # (S, D)
     n_gen: int
     time: float
-    #: generation steps run, summed over the state chunks ((n_gen - 1) per
-    #: chunk: the port has no early exit), as the JAX engine counts them
+    #: generation steps run, summed over the state chunks: ``n_gen - 1`` a
+    #: chunk unless the early exit skipped the rest of its budget
     gens_executed: int = 0
+    #: the early exit's record (None in strict mode): ``{"check_every",
+    #: "gens_executed", "budget_gens", "compaction": [{"gen", "active",
+    #: "bucket"(, "chunk")}, ...]}``, one entry per gate that parked states
+    #: or repacked (``bucket`` the row count after it), ``active: 0`` when
+    #: every state was solved
+    early_stop: dict | None = None
+    #: the quality history (None unless ``record_quality``): ``{"gate_every",
+    #: "threshold", "eps", "archive_size", "judged", "samples": [...]}``, one
+    #: sample a gate (``observability.quality.sample_from_per_state``) and a
+    #: last one with ``final: True`` from the returned populations
+    quality: dict | None = None
 
 
 class GenerationDraws(NamedTuple):
@@ -71,6 +102,47 @@ class GenerationDraws(NamedTuple):
     offspring: OffspringDraws
     gum_cut: torch.Tensor  # (S, R) niching cutoff priorities
     gum_mem: torch.Tensor  # (S, M) niching member priorities
+
+
+class InitDraws(NamedTuple):
+    """Every random number the initial round consumes."""
+
+    ball: torch.Tensor | None  # lp_ratio's ball draws (``ball_draw_shape``); None for tile
+    gum_cut: torch.Tensor  # (S, R)
+    gum_mem: torch.Tensor  # (S, P)
+
+
+class GeneratorDraws:
+    """The engine's default draw source: every draw from one
+    ``torch.Generator`` on the engine's device, seeded with ``seed``. A
+    draw source answers :meth:`init` and :meth:`generation` for a number of
+    rows; with checkpoints it also gives and takes its state
+    (:meth:`get_state`, :meth:`set_state`), which a resumed run restores."""
+
+    def __init__(self, engine: "Moeva2", seed: int):
+        self.engine = engine
+        self.gen = torch.Generator(device=engine.device).manual_seed(int(seed))
+
+    def init(self, n_states: int) -> InitDraws:
+        eng, ball = self.engine, None
+        if eng.init == "lp_ratio" and n_perturbed(eng.pop_size, eng.init_ratio):
+            shape = ball_draw_shape(
+                eng.norm, (n_states, n_perturbed(eng.pop_size, eng.init_ratio), eng.codec.gen_length)
+            )
+            kw = dict(generator=self.gen, device=self.gen.device, dtype=eng.dtype)
+            ball = torch.randn(shape, **kw) if is_l2(eng.norm) else torch.empty(shape, **kw).uniform_(
+                -1.0, 1.0, generator=self.gen
+            )
+        return InitDraws(ball, *draw_gumbels(self.gen, n_states, eng.n_dirs, eng.pop_size, eng.dtype))
+
+    def generation(self, n_states: int) -> "GenerationDraws":
+        return self.engine.draw_generation(self.gen, n_states)
+
+    def get_state(self) -> torch.Tensor:
+        return self.gen.get_state()
+
+    def set_state(self, state: torch.Tensor) -> None:
+        self.gen.set_state(state)
 
 
 class Carry(NamedTuple):
@@ -191,6 +263,19 @@ def evaluate_plain(obj: ObjectiveTables, codec, run: "RunInputs", x_gen, constra
     return torch.stack([f1, f2, _sum_last(constraints.evaluate(x_f))], dim=-1)
 
 
+def take_carry_plain(idx: torch.Tensor, leaves) -> list:
+    """Each of ``leaves`` (S, ...) at the rows ``idx`` (B,), the semantics
+    of kernel K6b's ``take_carry``."""
+    return [t.index_select(0, idx) for t in leaves]
+
+
+def final_columns_plain(idx: torch.Tensor, pop_x, pop_f, arch_x, arch_f):
+    """The returned columns of the rows ``idx``: population then archive,
+    the semantics of kernel K6b's ``final_columns``."""
+    x, f, ax, af = take_carry_plain(idx, (pop_x, pop_f, arch_x, arch_f))
+    return torch.cat([x, ax], dim=1), torch.cat([f, af], dim=1)
+
+
 def archive_score(f: torch.Tensor) -> torch.Tensor:
     """Feasible-first elite ranking: feasible candidates score in [0, ~1]
     by misclassification prob + distance tiebreak, infeasible ones in
@@ -231,8 +316,10 @@ def extract_archive_plain(mask, pop_x, off, pop_f, off_f, arch_x, arch_f):
 
 @dataclass
 class Moeva2:
-    """MoEvA2 with R-NSGA-III survival; the knobs mirror the JAX engine's
-    strict mode. ``device`` defaults to the card."""
+    """MoEvA2 with R-NSGA-III survival; the knobs mirror the JAX engine's,
+    all but ``save_history`` (ROADMAP A7b). ``device`` defaults to the card.
+    The host-side knobs (``n_gen``, ``seed``, the early exit's, quality's,
+    checkpoint's, ``partial_sink`` and ``draw_hook``) may be set per call."""
 
     classifier: Surrogate
     constraints: ConstraintSet
@@ -244,13 +331,59 @@ class Moeva2:
     crossover_prob: float = 0.9
     eta_mutation: float = 20.0
     seed: int = 0
-    #: only "tile" is ported
+    #: initial population: "tile" (every individual at the initial state) or
+    #: "lp_ratio" (``init_ratio`` of it moved inside an ``init_eps`` Lp ball
+    #: of the normalised genetic box)
     init: str = "tile"
+    init_eps: float = 0.1
+    init_ratio: float = 0.5
     #: per-state elite archive of the best candidates seen in any generation,
     #: feasible first, appended to the returned populations; 0 = none
     archive_size: int = 0
+    #: "reduced" or "full" records the objectives of every evaluation: not
+    #: ported (ROADMAP A7b), refused
+    save_history: str | None = None
+    #: every ``checkpoint_every`` generations the evolution state (with the
+    #: draw source's state) is written atomically to ``checkpoint_path``
+    #: (``.chunk{i}`` appended per state chunk); a rerun of the same attack
+    #: resumes there, bit-identical to an uninterrupted run. 0 = off
+    checkpoint_every: int = 0
+    checkpoint_path: str | None = None
     #: attack the states in sequential chunks of at most this many
     max_states_per_call: int | None = None
+    #: success-gated early exit, 0 = strict mode: every
+    #: ``early_stop_check_every`` generations a gate judges population and
+    #: archive (misclassified at ``early_stop_threshold``, feasible, within
+    #: ``early_stop_eps`` of the engine's distance objective before its
+    #: sqrt(D) scaling); solved states are parked (their populations kept on
+    #: the host) and the active set is repacked down the bucket menu
+    #: (``compaction_buckets``, default ``experiments.common.
+    #: DEFAULT_BUCKET_SIZES``), pads repeating the last live row; when every
+    #: state is solved the rest of the budget is skipped. A repack draws at
+    #: the bucket's row count, so compaction changes the random stream
+    early_stop_check_every: int = 0
+    early_stop_threshold: float = 0.5
+    early_stop_eps: float = float("inf")
+    compaction_buckets: tuple | None = None
+    #: defer each gate's host work (quality scatter, parked populations'
+    #: copy to the host, ``partial_sink``) until the next segment is
+    #: launched, so it overlaps the card's work; False flushes at the gate.
+    #: The results are the same
+    double_buffer: bool = True
+    #: keep a quality history (``MoevaResult.quality``): one sample at each
+    #: gate, judged as the early exit judges, and a final one. Without early
+    #: exit, ``quality_every`` > 0 adds gates every that many generations;
+    #: gates change no result
+    record_quality: bool = False
+    quality_every: int = 0
+    #: ``partial_sink(rows, x_ml, gen)`` is called at each flush of a gate
+    #: that parked states, with their original row indices and their
+    #: populations decoded on the CPU; its exceptions are swallowed
+    partial_sink: Any = None
+    #: ``draw_hook(chunk)`` gives the draw source of state chunk ``chunk``
+    #: (see :class:`GeneratorDraws`); None = one :class:`GeneratorDraws`
+    #: for the whole call
+    draw_hook: Any = None
     dtype: torch.dtype = torch.float32
     device: Any = "cuda"
 
@@ -263,11 +396,19 @@ class Moeva2:
             )
         if self.device.type == "cuda" and self.dtype != torch.float32:
             raise NotImplementedError(f"the card's kernels take float32, not {self.dtype}")
-        if self.init != "tile":
-            raise NotImplementedError(f"init={self.init!r} is not ported (only 'tile')")
+        if self.init not in ("tile", "lp_ratio"):
+            raise ValueError(f"init must be 'tile' or 'lp_ratio', got {self.init!r}")
+        if self.save_history not in (None, False, "reduced", "full"):
+            raise ValueError(f"save_history must be None, 'reduced' or 'full', got {self.save_history!r}")
+        self._refuse_history()
         codec = codec_lib.make_codec(self.constraints.schema)
         self.tables = make_operator_tables(codec).to(self.device)
         self.codec = codec.to(self.device)
+        #: the codec on the CPU, which decodes parked rows
+        self._codec_cpu = codec
+        #: gate flushes of the last ``generate`` that ran after the next
+        #: segment was launched (0 with ``double_buffer`` False)
+        self.last_deferred_gate_flushes = 0
         # survival consumes the raw aspiration (energy) points; the full
         # RNSGA3 geometry only fixes the population size
         _, self.pop_size = rnsga3_geometry(3, self.n_pop, seed=1)
@@ -290,6 +431,20 @@ class Moeva2:
             self.codec, self._model, scaler, self.norm, self.constraints.tol,
             self.constraints.kernel_tables(self.device),
         )
+
+    def _refuse_history(self) -> None:
+        if self.save_history and self.early_stop_check_every:
+            raise ValueError(
+                "early_stop_check_every is incompatible with save_history: "
+                "active-set compaction changes the states axis mid-run and "
+                "per-generation history records are not reassembled across "
+                "repacks (run strict mode for history)"
+            )
+        if self.save_history:
+            raise NotImplementedError(
+                f"save_history={self.save_history!r} is not ported: the history of every evaluation "
+                "comes with ROADMAP A7b"
+            )
 
     @property
     def n_dirs(self) -> int:
@@ -360,12 +515,19 @@ class Moeva2:
             gum_mem=gum_mem,
         )
 
-    def init_carry(self, run: RunInputs, gum_cut, gum_mem) -> Carry:
-        """Initial population, its objectives, the survival warm-up round
+    def init_carry(self, run: RunInputs, gum_cut, gum_mem, ball=None) -> Carry:
+        """Initial population (``lp_ratio`` moves its last rows with the
+        ``ball`` draws), its objectives, the survival warm-up round
         (everyone survives; the normalisation state warms up) and the
         archive seeded from the whole initial population."""
         s = run.x_init_ml.shape[0]
-        pop_x = tile_init(self.codec, run.x_init_ml, self.pop_size)
+        if self.init == "lp_ratio":
+            pop_x = lp_ratio_init(
+                self.codec, run.x_init_ml, self.pop_size, run.xl_gen, run.xu_gen, ball,
+                eps=self.init_eps, ratio=self.init_ratio, norm=self.norm,
+            )
+        else:
+            pop_x = tile_init(self.codec, run.x_init_ml, self.pop_size)
         pop_f = self._evaluate(run, pop_x)
         norm0 = NormState.init(s, 3, self.dtype, self.device)
         _, norm_state, _ = survive_batch(
@@ -418,9 +580,93 @@ class Moeva2:
                 )
         return Carry(pop_x, pop_f, arch_x, arch_f, norm_state)
 
+    # -- the early exit's gate (K6a) and repack (K6b) --------------------------
+    def _gate_scalars(self) -> tuple:
+        """The gate's threshold and distance bound in the engine's dtype:
+        ``early_stop_eps`` divided by the f2 objective's sqrt(D) scaling."""
+        eps = float(self.early_stop_eps) / self._objective.f2_scale
+        as_dtype = lambda v: torch.tensor(v, dtype=self.dtype).item()  # noqa: E731
+        return as_dtype(float(self.early_stop_threshold)), as_dtype(eps)
+
+    def gate_stats(self, carry: Carry) -> torch.Tensor:
+        """The (S, 9) gate statistics of population and archive
+        (``attacks.objective.QUALITY_STAT_COLUMNS``); kernel K6a on the
+        card."""
+        thr, eps = self._gate_scalars()
+        if carry.pop_f.is_cuda:
+            from ...kernels import gate_stats
+
+            return gate_stats(carry.pop_f, carry.arch_f, thr, eps)
+        return engine_quality_stats(torch.cat([carry.pop_f, carry.arch_f], dim=1), thr, eps)
+
+    def take_carry(self, carry: Carry, sel: np.ndarray) -> Carry:
+        """The carry at the rows ``sel`` (host indices); kernel K6b on the
+        card, one launch for every leaf."""
+        leaves = (*carry[:4], *carry.norm_state)
+        if carry.pop_x.is_cuda:
+            from ...kernels import take_carry
+
+            out = take_carry(sel, leaves)
+        else:
+            out = take_carry_plain(torch.as_tensor(np.asarray(sel, np.int64)), leaves)
+        return Carry(*out[:4], NormState(*out[4:]))
+
+    def final_columns(self, carry: Carry, idx: np.ndarray):
+        """The returned columns (population, then archive) of the rows
+        ``idx``; kernel K6b on the card."""
+        args = (carry.pop_x, carry.pop_f, carry.arch_x, carry.arch_f)
+        if carry.pop_x.is_cuda:
+            from ...kernels import final_columns
+
+            return final_columns(idx, *args)
+        return final_columns_plain(torch.as_tensor(np.asarray(idx, np.int64)), *args)
+
+    def _compaction_menu(self):
+        from ...experiments.common import DEFAULT_BUCKET_SIZES, BucketMenu
+
+        return BucketMenu(tuple(self.compaction_buckets or DEFAULT_BUCKET_SIZES))
+
+    def _fingerprint(self, x, minimize_class, xl_ml, xu_ml) -> str:
+        """The attack's identity for a checkpoint: the inputs, the feature
+        bounds, every knob that changes the result, the classifier's
+        weights, the scaler, the schema and the device type. A checkpoint
+        with another fingerprint is ignored, never resumed into."""
+        h = hashlib.md5()
+        for a in (x, minimize_class, xl_ml, xu_ml):
+            h.update(np.ascontiguousarray(a).tobytes())
+        knobs = [
+            self.n_gen, self.pop_size, self.n_offsprings, self.seed,
+            self.init, self.init_eps, self.init_ratio, self.archive_size,
+            self.early_stop_check_every, self.early_stop_threshold,
+            self.early_stop_eps, tuple(self.compaction_buckets or ()),
+            str(self.save_history), str(self.norm), self.crossover_prob,
+            self.eta_mutation, str(self.dtype), self.device.type,
+            type(self.constraints).__name__, self.constraints.get_nb_constraints(),
+        ]
+        h.update(repr(knobs).encode())
+        for t in self.classifier.model.state_dict().values():
+            h.update(np.ascontiguousarray(t.detach().cpu().numpy()).tobytes())
+        if self.ml_scaler is not None:
+            h.update(np.ascontiguousarray(self.ml_scaler.scale).tobytes())
+            h.update(np.ascontiguousarray(self.ml_scaler.min_).tobytes())
+        schema = self.constraints.schema
+        h.update(repr([list(map(str, schema.types)), schema.mutable.tolist()]).encode())
+        return h.hexdigest()
+
+    def _decode_cpu(self, x_gen: np.ndarray, x_rows: np.ndarray) -> np.ndarray:
+        """Genetic populations (R, P, L) of the initial states ``x_rows``
+        (R, D) decoded to ML space on the CPU; the decode moves and rounds
+        values only, so it gives the card's bits."""
+        return codec_lib.genetic_to_ml(
+            self._codec_cpu, torch.as_tensor(x_gen),
+            torch.as_tensor(x_rows, dtype=self.dtype)[:, None, :],
+        ).numpy()
+
+    # -- the attack ----------------------------------------------------------
     @torch.inference_mode()
     def generate(self, x: np.ndarray, minimize_class=1) -> MoevaResult:
-        """Attack every row of ``x`` (S, D) for ``n_gen`` generations."""
+        """Attack every row of ``x`` (S, D) for ``n_gen`` generations, or
+        until the early exit finds every state solved."""
         x = np.asarray(x, dtype=np.float64)
         if x.ndim != 2:
             raise ValueError(f"x must be 2-D (n_states, n_features), got {x.shape}")
@@ -442,30 +688,252 @@ class Moeva2:
                 f"minimize_class must be a class of the {n_classes}-class head, "
                 f"in [0, {n_classes}), got {sorted(set(bad.tolist()))}"
             )
+        self._refuse_history()
 
         t0 = time.perf_counter()
-        gen = torch.Generator(device=self.device).manual_seed(int(self.seed))
+        self.last_deferred_gate_flushes = 0
         chunk = self.max_states_per_call or s
+        starts = range(0, s, chunk)
+        shared = None if self.draw_hook is not None else GeneratorDraws(self, self.seed)
         parts = []
-        for start in range(0, s, chunk):
-            run = self.prepare(x[start : start + chunk], minimize_class[start : start + chunk])
-            n = run.x_init_ml.shape[0]
-            carry = self.init_carry(
-                run, *draw_gumbels(gen, n, self.n_dirs, self.pop_size, self.dtype)
-            )
-            for _ in range(self.n_gen - 1):
-                carry = self.gen_step(run, carry, self.draw_generation(gen, n))
-            pop_x = torch.cat([carry.pop_x, carry.arch_x], dim=1)
-            pop_f = torch.cat([carry.pop_f, carry.arch_f], dim=1)
-            x_ml = codec_lib.genetic_to_ml(self.codec, pop_x, run.x_init_ml[:, None, :])
-            parts.append([t.cpu().numpy() for t in (pop_x, pop_f, x_ml)])
-        x_gen, f, x_ml = (np.concatenate(p, axis=0) for p in zip(*parts))
+        for i, start in enumerate(starts):
+            path = self.checkpoint_path
+            if path and len(starts) > 1:
+                path = f"{path}.chunk{i}"
+            draws = shared if shared is not None else self.draw_hook(i)
+            parts.append(self._run_one(
+                x[start : start + chunk], minimize_class[start : start + chunk], draws, path
+            ))
+        gens_executed = sum(p.gens_executed for p in parts)
+        early_stop = parts[0].early_stop
+        if early_stop is not None and len(parts) > 1:
+            early_stop = {
+                "check_every": early_stop["check_every"],
+                "gens_executed": gens_executed,
+                "budget_gens": (self.n_gen - 1) * len(parts),
+                "compaction": [dict(t, chunk=i) for i, p in enumerate(parts) for t in p.early_stop["compaction"]],
+            }
+        quality = parts[0].quality
+        if len(parts) > 1:
+            quality = merge_chunk_quality([p.quality for p in parts], [p.x_gen.shape[0] for p in parts])
         return MoevaResult(
-            x_gen=x_gen,
-            f=f,
-            x_ml=x_ml,
+            x_gen=np.concatenate([p.x_gen for p in parts], axis=0),
+            f=np.concatenate([p.f for p in parts], axis=0),
+            x_ml=np.concatenate([p.x_ml for p in parts], axis=0),
             x_initial=x,
             n_gen=self.n_gen,
             time=time.perf_counter() - t0,
-            gens_executed=(self.n_gen - 1) * len(parts),
+            gens_executed=gens_executed,
+            early_stop=early_stop,
+            quality=quality,
+        )
+
+    def _run_one(self, x: np.ndarray, minimize_class: np.ndarray, draws, checkpoint_path) -> MoevaResult:
+        """One chunk of states: the JAX engine's ``_launch_one`` and
+        ``_finalize_one``. Segments of generation steps end at the gates
+        (every ``early_stop_check_every`` generations, or ``quality_every``
+        with ``record_quality``) and at checkpoint boundaries."""
+        s = x.shape[0]
+        check = int(self.early_stop_check_every or 0)
+        qual_on = bool(self.record_quality)
+        gate_every = check or (int(self.quality_every or 0) if qual_on else 0)
+        n_steps = self.n_gen - 1
+        run = self.prepare(x, minimize_class)
+        init = draws.init(s)
+        carry = self.init_carry(run, init.gum_cut, init.gum_mem, init.ball)
+
+        cp = None
+        if self.checkpoint_every and checkpoint_path:
+            xl, xu = (
+                np.broadcast_to(np.asarray(a, np.float64), x.shape)
+                for a in self.constraints.get_feature_min_max(dynamic_input=x)
+            )
+            cp = AttackCheckpointer(checkpoint_path, self._fingerprint(x, minimize_class, xl, xu))
+        done = gens_executed = 0
+        # which original row each carry row tracks (pads repeat the last live
+        # row), whether its result is still wanted, and the solved rows'
+        # populations, kept on the host
+        row_src = np.arange(s)
+        row_live = np.ones(s, dtype=bool)
+        parked: dict | None = None
+        trace: list = []
+        qual_samples: list = []
+        qual_latest = np.full((s, 9), np.nan) if qual_on else None
+        if cp is not None:
+            resumed = cp.load([*carry[:4], *carry.norm_state, draws.get_state()])
+            if resumed is not None:
+                leaves, done, _ = resumed
+                carry = Carry(*leaves[:4], NormState(*leaves[4:7]))
+                draws.set_state(leaves[7])
+                gens_executed = done
+                if cp.extra is not None:
+                    row_src = np.asarray(cp.extra["row_src"])
+                    row_live = np.asarray(cp.extra["row_live"]).astype(bool)
+                    state = json.loads(str(cp.extra["state_json"]))
+                    gens_executed = int(state["gens_executed"])
+                    trace = list(state["trace"])
+                    if state["parked"]:
+                        parked = {k: np.asarray(cp.extra[f"parked_{k}"]) for k in ("mask", "x", "f")}
+                        parked["mask"] = parked["mask"].astype(bool)
+                    if len(row_src) != s:
+                        run = self.prepare(x[row_src], minimize_class[row_src])
+        menu = self._compaction_menu() if check else None
+        segments = 0  # segments launched, the deferred flushes' witness
+        pending: list = []  # at most one gate's deferred host work
+
+        def flush_gate():
+            """The last gate's host work: the quality scatter and sample,
+            the parked populations' copy into ``parked`` and the
+            ``partial_sink`` call. Decisions were made at the gate."""
+            if not pending:
+                return
+            g = pending.pop()
+            if g["segments"] < segments:
+                self.last_deferred_gate_flushes += 1
+            if qual_on:
+                # pads never overwrite a real row; parked rows keep the stats
+                # of the gate that parked them
+                live = g["row_live"]
+                qual_latest[g["row_src"][live]] = g["stats"][live]
+                qual_samples.append(sample_from_per_state(g["gen"], qual_latest))
+            if "park_rows" in g:
+                rows = g["park_rows"]
+                if g["event"] is not None:
+                    g["event"].synchronize()
+                px, pf = (t.numpy() for t in g["columns"])
+                parked["x"][rows] = px
+                parked["f"][rows] = pf
+                if self.partial_sink is not None:
+                    # a consumer's failure must not stop the attack: it is
+                    # logged with its traceback
+                    try:
+                        self.partial_sink([int(r) for r in rows], self._decode_cpu(px, x[rows]), int(g["gen"]))
+                    except Exception:
+                        logger.exception("partial_sink failed at generation %d", g["gen"])
+
+        while done < n_steps:
+            length = n_steps - done
+            if gate_every:
+                length = min(length, gate_every - done % gate_every)
+            if cp is not None:
+                length = min(length, self.checkpoint_every - done % self.checkpoint_every)
+            n_rows = len(row_src)
+            for _ in range(length):
+                carry = self.gen_step(run, carry, draws.generation(n_rows))
+            segments += 1
+            done += length
+            gens_executed += length
+            # the previous gate's host work runs while the card executes the
+            # segment just launched
+            flush_gate()
+            if gate_every and done % gate_every == 0 and done < n_steps:
+                # the one fetch a gate needs: the (S, 9) statistics
+                stats = self.gate_stats(carry).cpu().numpy()
+                succ = stats[:, 6] > 0
+                gate = {"gen": done, "stats": stats, "row_src": row_src.copy(), "row_live": row_live.copy()}
+                if check:
+                    solved = row_live & succ
+                    n_parked = int(solved.sum())
+                    if n_parked:
+                        idx = np.where(solved)[0]
+                        if parked is None:
+                            cols = self.pop_size + self.archive_size
+                            np_dtype = torch.empty((), dtype=self.dtype).numpy().dtype
+                            parked = {
+                                "mask": np.zeros(s, dtype=bool),
+                                "x": np.zeros((s, cols, self.codec.gen_length), dtype=np_dtype),
+                                "f": np.zeros((s, cols, 3), dtype=np_dtype),
+                            }
+                        rows = row_src[idx]
+                        parked["mask"][rows] = True
+                        gate["park_rows"] = rows
+                        # gathered before the repack; on the card copied to
+                        # pinned host memory behind an event, read at the flush
+                        px, pf = self.final_columns(carry, idx)
+                        gate["columns"], gate["event"] = (px, pf), None
+                        if px.is_cuda:
+                            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in (px, pf)]
+                            for h, t in zip(host, (px, pf)):
+                                h.copy_(t, non_blocking=True)
+                            gate["event"] = torch.cuda.Event()
+                            gate["event"].record()
+                            gate["columns"] = host
+                        row_live = row_live & ~succ
+                    n_active = int(row_live.sum())
+                    if n_active == 0:
+                        # every state holds a success: skip the rest of the
+                        # budget (the flush runs below)
+                        trace.append({"gen": done, "active": 0, "bucket": len(row_src)})
+                        gate["segments"] = segments
+                        pending.append(gate)
+                        break
+                    bucket = menu.shrink_bucket(n_active, len(row_src))
+                    if bucket is not None:
+                        keep = np.where(row_live)[0]
+                        sel = np.concatenate([keep, np.full(bucket - n_active, keep[-1], keep.dtype)])
+                        carry = self.take_carry(carry, sel)
+                        row_src = row_src[sel]
+                        row_live = np.arange(bucket) < n_active
+                        run = self.prepare(x[row_src], minimize_class[row_src])
+                        trace.append({"gen": done, "active": n_active, "bucket": int(bucket)})
+                    elif n_parked:
+                        trace.append({"gen": done, "active": n_active, "bucket": len(row_src)})
+                gate["segments"] = segments
+                pending.append(gate)
+                if not self.double_buffer:
+                    flush_gate()
+            if cp is not None and done < n_steps and done % self.checkpoint_every == 0:
+                # the parked populations join the snapshot
+                flush_gate()
+                extra = None
+                if check:
+                    extra = {
+                        "row_src": row_src,
+                        "row_live": row_live,
+                        "parked_mask": parked["mask"] if parked else np.zeros(s, dtype=bool),
+                        "parked_x": parked["x"] if parked else np.zeros((s, 0, 0)),
+                        "parked_f": parked["f"] if parked else np.zeros((s, 0, 0)),
+                        "state_json": np.asarray(json.dumps({
+                            "gens_executed": int(gens_executed), "trace": trace, "parked": parked is not None,
+                        })),
+                    }
+                cp.save([*carry[:4], *carry.norm_state, draws.get_state()], done, n_hist=0, extra=extra)
+        flush_gate()
+
+        pop_x = torch.cat([carry.pop_x, carry.arch_x], dim=1)
+        pop_f = torch.cat([carry.pop_f, carry.arch_f], dim=1)
+        x_ml = codec_lib.genetic_to_ml(self.codec, pop_x, run.x_init_ml[:, None, :])
+        pop_x, pop_f, x_ml = (t.cpu().numpy() for t in (pop_x, pop_f, x_ml))
+        if parked is not None or len(row_src) != s:
+            # parked rows take their kept populations, live rows go back to
+            # their original index, pads drop
+            out = [np.zeros((s, *a.shape[1:]), a.dtype) for a in (pop_x, pop_f, x_ml)]
+            if parked is not None:
+                m = parked["mask"]
+                out[0][m], out[1][m] = parked["x"][m], parked["f"][m]
+                out[2][m] = self._decode_cpu(parked["x"][m], x[m])
+            for o, a in zip(out, (pop_x, pop_f, x_ml)):
+                o[row_src[row_live]] = a[row_live]
+            pop_x, pop_f, x_ml = out
+        if cp is not None:
+            cp.clear()
+        early_stop = None
+        if check:
+            early_stop = {"check_every": check, "gens_executed": gens_executed, "budget_gens": n_steps,
+                          "compaction": trace}
+        quality = None
+        if qual_on:
+            eps = float(self.early_stop_eps) / self._objective.f2_scale
+            final = engine_quality_stats(np.asarray(pop_f, np.float64), float(self.early_stop_threshold), eps)
+            quality = {
+                "gate_every": gate_every,
+                "threshold": float(self.early_stop_threshold),
+                "eps": float(self.early_stop_eps),
+                "archive_size": int(self.archive_size),
+                "judged": "engine",
+                "samples": qual_samples + [sample_from_per_state(gens_executed, final, final=True)],
+            }
+        return MoevaResult(
+            x_gen=pop_x, f=pop_f, x_ml=x_ml, x_initial=x, n_gen=self.n_gen, time=0.0,
+            gens_executed=gens_executed, early_stop=early_stop, quality=quality,
         )

@@ -6,17 +6,20 @@ grid runner call: the memoizing :class:`ArtifactCache` and the engine cache
 the points of a grid), :func:`metrics_path_for` and :func:`should_skip`, the
 loaders of constraints, candidates, scaler and surrogate,
 :func:`get_sat_builder`, :func:`evaluation_constraints` and the runners'
-``reconstruction`` (:func:`reconstruct`).
+``reconstruction`` (:func:`reconstruct`), and the batch-shape menu
+(:class:`BucketMenu`, ``DEFAULT_BUCKET_SIZES``) that MoEvA's early exit
+repacks its active set down, with :func:`pad_states`.
 
 The scaler's suffix picks its format: ``.joblib`` (an sklearn
 ``MinMaxScaler``, read through joblib on the CPU, as the JAX package reads
 it) or ``.npz`` (``models.scalers.save_npz``, numpy alone: the format a
 machine without sklearn reads).
 
-Not ported yet: the bucket menu and ``pad_states`` (ROADMAP A7, A13) and
-the cold-start hook of the artifact cache (A14). A device
+Not ported yet: the cold-start hook of the artifact cache (A14). A device
 mesh and the JAX compilation cache have no counterpart on one card:
-``system.mesh_devices`` other than 0 is refused (:func:`refuse_knobs`).
+``system.mesh_devices`` other than 0 is refused (:func:`refuse_knobs`), and
+the menu and :func:`pad_states` take no mesh: their JAX counterparts' mesh
+arguments only hold sizes to multiples of the mesh size, which is 1 here.
 """
 
 from __future__ import annotations
@@ -33,6 +36,58 @@ from ..domains.lcld_sat import make_lcld_sat_builder
 from ..models.scalers import MinMaxParams, load_joblib_scaler, load_npz
 from ..utils.config import get_dict_hash
 from ..utils.in_out import load_model
+
+
+#: The batch-shape menu of the early exit's compaction (and of the serving
+#: microbatcher, ROADMAP A13): powers of two keep the number of distinct
+#: shapes logarithmic in the largest batch while padding wastes under 2x.
+DEFAULT_BUCKET_SIZES = (8, 16, 32, 64, 128, 256)
+
+
+class RequestTooLarge(ValueError):
+    """A row count exceeds the largest bucket; it can never dispatch."""
+
+
+class BucketMenu:
+    """The fixed menu of allowed batch shapes, sorted, positive and without
+    duplicates."""
+
+    def __init__(self, sizes=DEFAULT_BUCKET_SIZES):
+        sizes = sorted(int(s) for s in sizes)
+        if not sizes or sizes[0] < 1:
+            raise ValueError(f"bucket menu must be non-empty positive: {sizes}")
+        if len(set(sizes)) != len(sizes):
+            raise ValueError(f"bucket menu has duplicates: {sizes}")
+        self.sizes = tuple(sizes)
+        self.max_size = sizes[-1]
+
+    def bucket_for(self, n_rows: int) -> int:
+        """Smallest menu size that fits ``n_rows``."""
+        for s in self.sizes:
+            if n_rows <= s:
+                return s
+        raise RequestTooLarge(f"{n_rows} rows exceed the largest bucket {self.max_size}")
+
+    def shrink_bucket(self, n_rows: int, current: int) -> int | None:
+        """Smallest menu size that fits ``n_rows`` and lies strictly below
+        the ``current`` batch shape; None when no menu size improves on
+        ``current`` (also when ``n_rows`` is above the menu)."""
+        for s in self.sizes:
+            if n_rows <= s:
+                return s if s < current else None
+        return None
+
+
+def pad_states(x: np.ndarray, bucket: int | None = None) -> tuple[np.ndarray, int]:
+    """``(x, n)`` padded on its leading (states) axis to exactly ``bucket``
+    rows with copies of the last row, and its original row count ``n``; a
+    no-op without ``bucket`` (one card: no mesh multiple to pad to)."""
+    n = x.shape[0]
+    if bucket is None or bucket == n:
+        return x, n
+    if bucket < n:
+        raise ValueError(f"bucket={bucket} smaller than n_states={n}")
+    return np.concatenate([x, np.repeat(x[-1:], bucket - n, axis=0)]), n
 
 
 class ArtifactCache:

@@ -8,20 +8,26 @@ the evaluation, the success rates per ε (the objectives evaluated once and
 re-thresholded per ε), the event stream, the config snapshot and the
 metrics JSON last, so that "metrics exists" implies its siblings exist. On
 the card the attack runs the MoEvA kernels (K5, K1 or K8, K2, K4a, K3,
-K4b).
+K4b, and at the gates of an early exit K6).
 
 ``device`` and ``dtype`` are arguments, never config keys: the config hash
 stays the JAX package's. The metrics carry the JAX runner's top-level keys
 except ``telemetry`` (the tracing layer, ROADMAP A14). Knobs that the port
 does not run yet raise ``NotImplementedError`` before any device work:
-``save_history``, ``early_stop_check_every`` > 0, ``quality_every`` > 0,
-``checkpoint_every`` > 0 and ``init`` other than ``tile`` (A7),
-``system.trace_log`` and ``system.profile_dir`` (A14), and a device mesh.
-``reconstruction: true`` strips the augmented columns of the populations
-and re-derives them from the attacked base features
-(:func:`common.reconstruct`). ``record_quality`` is accepted (its telemetry
-comes with A14) and so is ``assoc_block``: the JAX package's blocked
-association is bit-identical to the one-shot form, which kernel K3 runs.
+``save_history`` (ROADMAP A7b), ``system.trace_log`` and
+``system.profile_dir`` (A14), and a device mesh. The engine's extras are
+set per point as the JAX runner sets them: the early exit
+(``early_stop_check_every``, ``early_stop_threshold`` defaulting to
+``misclassification_threshold``, ``early_stop_eps``,
+``compaction_buckets``), ``record_quality`` (default on) and
+``quality_every``, ``checkpoint_every`` with the checkpoint at
+``{results}/checkpoint_{attack}_{hash}.npz``; ``init``, ``init_eps`` and
+``init_ratio`` build the engine. ``execution`` records the early exit's
+knob and the generation steps run. ``reconstruction: true`` strips the
+augmented columns of the populations and re-derives them from the attacked
+base features (:func:`common.reconstruct`). ``assoc_block`` is accepted:
+the JAX package's blocked association is bit-identical to the one-shot
+form, which kernel K3 runs.
 The JAX package's compilation-cache and telemetry switches
 (``system.jax_cache_dir``, ``aot_cache``, ``cost_ledger``,
 ``mesh_telemetry``, ``gap_telemetry``) have nothing to switch in the port.
@@ -45,6 +51,7 @@ from __future__ import annotations
 import os
 import time
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -60,22 +67,18 @@ from . import common
 def refuse_knobs(config: dict) -> None:
     """Raise for every knob of ``config`` that the port's MoEvA runner does
     not run yet (see the module docstring)."""
-    n = lambda key: int(config.get(key, 0) or 0)  # noqa: E731
     common.refuse_knobs(config, {
-        "save_history": (bool(config.get("save_history")), "the engine extras (ROADMAP A7)"),
-        "early_stop_check_every": (n("early_stop_check_every") > 0, "early exit (ROADMAP A7)"),
-        "quality_every": (n("quality_every") > 0, "interior quality samples (ROADMAP A7)"),
-        "checkpoint_every": (n("checkpoint_every") > 0, "checkpointing (ROADMAP A7)"),
-        "init": (config.get("init", "tile") != "tile", "the lp_ratio init (ROADMAP A7)"),
+        "save_history": (bool(config.get("save_history")), "the history of every evaluation (ROADMAP A7b)"),
     })
 
 
 def _cached_engine(config, surrogate, constraints, scaler, device, dtype) -> Moeva2:
     """The engine shared by the grid points with the same static config,
     under the JAX runner's key fields (``_cached_engine``) and the engine's
-    device and dtype. ``n_gen`` and ``seed`` only steer the host loop of
-    ``generate``, which seeds its generator from ``seed`` on every call:
-    they are set per point, not keyed."""
+    device and dtype. ``n_gen``, ``seed`` and the early exit's, quality's
+    and checkpoint's knobs only steer the host loop of ``generate``, which
+    seeds its generator from ``seed`` on every call: they are set per
+    point, not keyed."""
     fields = (
         "engine", "surrogate", "constraints", "scaler", "norm", "n_pop",
         "n_offsprings", "init", "init_eps", "init_ratio", "archive_size",
@@ -113,6 +116,8 @@ def _cached_engine(config, surrogate, constraints, scaler, device, dtype) -> Moe
             n_offsprings=config["n_offsprings"],
             seed=config["seed"],
             init=config.get("init", "tile"),
+            init_eps=config.get("init_eps", 0.1),
+            init_ratio=config.get("init_ratio", 0.5),
             archive_size=config.get("archive_size", 0),
             max_states_per_call=config.get("max_states_per_call") or None,
             dtype=dtype,
@@ -150,9 +155,23 @@ def run(config: dict, pipeline=None, device="cuda", dtype=torch.float32):
         surrogate = common.load_surrogate(config)
         constraints.check_constraints_error(x_initial_states)
         moeva = _cached_engine(config, surrogate, constraints, scaler, device, dtype)
-        # the point's own knobs on the cached engine
+        # the point's own knobs on the cached engine, each set at every
+        # point: a grid's earlier point may have set them otherwise
         moeva.n_gen = config["budget"]
         moeva.seed = config["seed"]
+        moeva.early_stop_check_every = int(config.get("early_stop_check_every", 0) or 0)
+        moeva.early_stop_threshold = float(
+            config.get("early_stop_threshold", config.get("misclassification_threshold", 0.5))
+        )
+        moeva.early_stop_eps = float(config.get("early_stop_eps", np.inf))
+        buckets = config.get("compaction_buckets")
+        moeva.compaction_buckets = tuple(buckets) if buckets else None
+        moeva.record_quality = bool(config.get("record_quality", True))
+        moeva.quality_every = int(config.get("quality_every", 0) or 0)
+        # a rerun of this config hash resumes mid-attack from the last
+        # checkpoint (the hash skip covers completed runs only)
+        moeva.checkpoint_every = int(config.get("checkpoint_every", 0) or 0)
+        moeva.checkpoint_path = f"{out_dir}/checkpoint_{mid_fix}_{config_hash}.npz"
 
     start_time = time.time()
     with timer.attack():
@@ -166,7 +185,7 @@ def run(config: dict, pipeline=None, device="cuda", dtype=torch.float32):
     execution = {
         "max_states_per_call": moeva.max_states_per_call,
         "mesh": None,
-        "early_stop_check_every": 0,
+        "early_stop_check_every": moeva.early_stop_check_every,
         "gens_executed": int(result.gens_executed),
     }
 

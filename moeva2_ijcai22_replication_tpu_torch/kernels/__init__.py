@@ -22,6 +22,16 @@ In the order a generation launches them:
   plain versions ``survival.survive_fill_plain``,
   ``engine.extract_archive_plain`` and ``engine.archive_select_plain``.
 
+At a gate of the early exit (``Moeva2(early_stop_check_every=...)``, or
+``quality_every`` samples), ``gate_stats`` (K6a, ``csrc/gate_repack.cu``):
+the (S, 9) success and quality statistics over population and archive,
+plain version ``attacks.objective.engine_quality_stats``; and
+``take_carry`` (K6b, the same source): the gather of every carry leaf at
+the kept rows after a repack, and of the solved rows' returned columns
+(``final_columns``), plain versions ``attacks.moeva.engine.
+take_carry_plain`` and ``final_columns_plain``. Both uses of K6b count as
+``take_carry``.
+
 And, for constrained PGD, ``pgd_lcld`` (K7, ``csrc/pgd_lcld.cu``) and
 ``pgd_botnet`` (K7b, ``csrc/pgd_botnet.cu``): every iteration of one run on
 the LCLD or the botnet domain; plain version
@@ -53,6 +63,7 @@ _LAUNCHES = {
         "offspring", "objective_lcld", "nd_peel", "survive_norm", "associate", "survive_fill",
         "pgd_lcld", "objective_botnet", "pgd_botnet", "objective_lcld_aug", "pgd_lcld_aug",
         "objective_botnet_aug", "pgd_lcld_auto", "pgd_lcld_aug_auto", "pgd_botnet_auto",
+        "gate_stats", "take_carry",
     )
 }
 
@@ -703,3 +714,127 @@ def pgd_botnet(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_
     _raise_on_error(lib, err, "pgd_botnet")
     _LAUNCHES["pgd_botnet" if auto is None else "pgd_botnet_auto"] += 1
     return (x_adv, pred, hist) if auto is None else (x_adv, pred, hist, eta)
+
+
+def gate_stats(pop_f, arch_f, thr: float, eps: float) -> torch.Tensor:
+    """Kernel K6a: the (S, 9) float32 gate statistics of the population's
+    objectives ``pop_f`` (S, P, 3) and the archive's ``arch_f`` (S, A, 3,
+    A may be 0), judged at ``thr`` and ``eps`` rounded to float32: the
+    columns of ``attacks.objective.QUALITY_STAT_COLUMNS``."""
+    from .build import library
+
+    if pop_f.dim() != 3 or arch_f.dim() != 3:
+        raise ValueError(f"pop_f and arch_f must be (S, P, 3) and (S, A, 3), got {tuple(pop_f.shape)}, "
+                         f"{tuple(arch_f.shape)}")
+    s, p, _ = pop_f.shape
+    a = arch_f.shape[1]
+    if p < 1:
+        raise ValueError("gate_stats needs at least one population column")
+    _check(pop_f, "pop_f", (s, p, 3))
+    _check(arch_f, "arch_f", (s, a, 3))
+    dev = _one_device(pop_f, arch_f)
+    pop_f, arch_f = pop_f.contiguous(), arch_f.contiguous()
+    lib = library()
+    out = torch.empty((s, 9), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.moeva_gate_stats_f32(
+            pop_f.data_ptr(), arch_f.data_ptr() if a else None, out.data_ptr(), s, p, a,
+            float(thr), float(eps), _stream(dev),
+        )
+    _raise_on_error(lib, err, "gate_stats")
+    _LAUNCHES["gate_stats"] += 1
+    return out
+
+
+def _host_rows(idx, n_src: int) -> torch.Tensor:
+    """``idx`` (host indices: a CPU int64 tensor or an integer numpy array)
+    as a 1-D CPU int64 tensor, every entry checked to lie in [0, n_src)."""
+    if isinstance(idx, torch.Tensor):
+        if idx.is_cuda:
+            raise ValueError("take_carry takes host row indices (a CPU tensor or numpy array), not a CUDA tensor")
+        if idx.dtype != torch.int64:
+            raise TypeError(f"row indices must be int64, got {idx.dtype}")
+        rows = idx
+    else:
+        import numpy as np
+
+        arr = np.asarray(idx)
+        if arr.dtype.kind not in "iu":
+            raise TypeError(f"row indices must be integers, got {arr.dtype}")
+        rows = torch.as_tensor(arr.astype(np.int64))
+    if rows.dim() != 1:
+        raise ValueError(f"row indices must be 1-D, got shape {tuple(rows.shape)}")
+    if rows.numel() and (int(rows.min()) < 0 or int(rows.max()) >= n_src):
+        raise ValueError(f"row indices must lie in [0, {n_src}), got [{int(rows.min())}, {int(rows.max())}]")
+    return rows
+
+
+def _take(idx: torch.Tensor, n_src: int, segments, dev) -> None:
+    """One K6b launch: for each ``(src, dst, dst_stride, dst_offset)`` of
+    ``segments``, row b of ``dst`` takes ``src``'s row ``idx[b]`` at its
+    offset. ``idx`` is an int64 tensor on ``dev`` whose entries the caller
+    has checked to lie in [0, n_src)."""
+    from .build import library
+
+    lib = library()
+    segments = [seg for seg in segments if seg[0].numel()]
+    if len(segments) > lib.moeva_take_max_segments():
+        raise ValueError(f"take_carry gathers at most {lib.moeva_take_max_segments()} leaves, got {len(segments)}")
+    n = len(segments)
+    if not n or not idx.numel():
+        return  # nothing to gather: no launch
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    with torch.cuda.device(dev):
+        err = lib.moeva_take_f32(
+            (vp * n)(*(src.data_ptr() for src, _, _, _ in segments)),
+            (vp * n)(*(dst.data_ptr() for _, dst, _, _ in segments)),
+            (ll * n)(*(src.numel() // n_src for src, _, _, _ in segments)),
+            (ll * n)(*(stride for _, _, stride, _ in segments)),
+            (ll * n)(*(offset for _, _, _, offset in segments)),
+            n, idx.data_ptr(), idx.numel(), n_src, _stream(dev),
+        )
+    _raise_on_error(lib, err, "take_carry")
+    _LAUNCHES["take_carry"] += 1
+
+
+def _take_leaves(leaves, what: str):
+    leaves = list(leaves)
+    if not leaves or any(t.dim() < 1 for t in leaves):
+        raise ValueError(f"{what} needs tensors with a leading states axis")
+    n_src = leaves[0].shape[0]
+    for i, t in enumerate(leaves):
+        _check(t, f"{what} leaf {i}", (n_src, *t.shape[1:]))
+    return [t.contiguous() for t in leaves], n_src, _one_device(*leaves)
+
+
+def take_carry(idx, leaves):
+    """Kernel K6b: every tensor of ``leaves`` (float32 (S, ...) on one
+    card: a carry's pop_x, pop_f, arch_x, arch_f and normalisation state)
+    gathered at the host row indices ``idx`` (B,) over the states axis into
+    new (B, ...) buffers, in one launch. Duplicate indices repeat rows;
+    indices outside [0, S) raise before anything is launched."""
+    leaves, n_src, dev = _take_leaves(leaves, "take_carry")
+    rows = _host_rows(idx, n_src)
+    outs = [torch.empty((rows.numel(), *t.shape[1:]), dtype=torch.float32, device=dev) for t in leaves]
+    _take(rows.to(dev), n_src, [(t, o, t[0].numel(), 0) for t, o in zip(leaves, outs)], dev)
+    return outs
+
+
+def final_columns(idx, pop_x, pop_f, arch_x, arch_f):
+    """Kernel K6b for the returned columns of the host rows ``idx`` (B,):
+    ``(x (B, P + A, L), f (B, P + A, 3))``, population columns then the
+    archive's, in one launch; counts as ``take_carry``."""
+    (pop_x, pop_f, arch_x, arch_f), n_src, dev = _take_leaves((pop_x, pop_f, arch_x, arch_f), "final_columns")
+    s, p, l = pop_x.shape
+    a = arch_x.shape[1]
+    _check(pop_f, "pop_f", (s, p, 3))
+    _check(arch_x, "arch_x", (s, a, l))
+    _check(arch_f, "arch_f", (s, a, 3))
+    rows = _host_rows(idx, n_src)
+    out_x = torch.empty((rows.numel(), p + a, l), dtype=torch.float32, device=dev)
+    out_f = torch.empty((rows.numel(), p + a, 3), dtype=torch.float32, device=dev)
+    _take(rows.to(dev), n_src, [
+        (pop_x, out_x, (p + a) * l, 0), (arch_x, out_x, (p + a) * l, p * l),
+        (pop_f, out_f, (p + a) * 3, 0), (arch_f, out_f, (p + a) * 3, p * 3),
+    ], dev)
+    return out_x, out_f

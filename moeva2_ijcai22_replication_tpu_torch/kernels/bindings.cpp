@@ -301,6 +301,39 @@ int moeva_pgd_botnet_f32(const void* x_init, const void* x_start, const void* y,
 }
 
 
+int moeva_gate_stats_f32(const void* pop_f, const void* arch_f, void* out,
+                         int n_states, int p, int a, float thr, float eps,
+                         void* stream) {
+  return static_cast<int>(launch_gate_stats(
+      static_cast<const float*>(pop_f), static_cast<const float*>(arch_f),
+      static_cast<float*>(out), n_states, p, a, thr, eps,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// `src`, `dst`, `row_elems`, `dst_stride` and `dst_offset` are host arrays
+// of n_seg entries, one per gathered leaf.
+int moeva_take_f32(const void* const* src, void* const* dst,
+                   const long long* row_elems, const long long* dst_stride,
+                   const long long* dst_offset, int n_seg, const void* idx,
+                   int n_idx, long long n_src, void* stream) {
+  if (n_seg < 0 || n_seg > kTakeMaxSegments) return static_cast<int>(cudaErrorInvalidValue);
+  TakeArgs args = {};
+  for (int k = 0; k < n_seg; ++k) {
+    args.seg[k].src = static_cast<const float*>(src[k]);
+    args.seg[k].dst = static_cast<float*>(dst[k]);
+    args.seg[k].row_elems = row_elems[k];
+    args.seg[k].dst_stride = dst_stride[k];
+    args.seg[k].dst_offset = dst_offset[k];
+  }
+  args.n_seg = n_seg;
+  args.idx = static_cast<const int64_t*>(idx);
+  args.n_idx = n_idx;
+  args.n_src = n_src;
+  return static_cast<int>(launch_take(args, static_cast<cudaStream_t>(stream)));
+}
+
+int moeva_take_max_segments() { return kTakeMaxSegments; }
+
 int moeva_nd_peel_max_candidates() { return kNdPeelMaxCandidates; }
 
 int moeva_associate_max_directions() { return kAssociateMaxDirections; }

@@ -35,6 +35,7 @@ SOURCES = (
     "csrc/survive_fill.cu",
     "csrc/pgd_lcld.cu",
     "csrc/pgd_botnet.cu",
+    "csrc/gate_repack.cu",
     "bindings.cpp",
 )
 HEADERS = ("csrc/kernels.h", "csrc/pgd_common.cuh")
@@ -159,11 +160,15 @@ def library() -> ctypes.CDLL:
         + [i32] * 3 + [f32] * 4 + [i32] + [ptr] * 2 + [f32] * 2 + [i32] + [f32] * 2 + [ptr] * 2
     )
     lib.moeva_pgd_botnet_f32.restype = i32
+    lib.moeva_gate_stats_f32.argtypes = [ptr] * 3 + [i32] * 3 + [f32] * 2 + [ptr]
+    lib.moeva_gate_stats_f32.restype = i32
+    lib.moeva_take_f32.argtypes = [ptr] * 5 + [i32, ptr, i32, i64, ptr]
+    lib.moeva_take_f32.restype = i32
     for name in (
         "moeva_nd_peel_max_candidates", "moeva_associate_max_directions", "moeva_survive_max_candidates",
         "moeva_objective_max_params", "moeva_objective_max_width",
         "moeva_objective_max_layers", "moeva_lcld_max_pairs", "moeva_pgd_max_ohe_slots",
-        "moeva_pgd_botnet_max_degree", "moeva_botnet_max_pairs",
+        "moeva_pgd_botnet_max_degree", "moeva_botnet_max_pairs", "moeva_take_max_segments",
     ):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32

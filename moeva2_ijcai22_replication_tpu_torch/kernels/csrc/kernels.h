@@ -334,3 +334,31 @@ struct PgdBotnetArgs {
 };
 
 cudaError_t launch_pgd_botnet(PgdBotnetArgs args, cudaStream_t stream);
+
+// gate_repack (K6a): per-state gate statistics (S, 9) of the objectives of
+// population (S, p, 3) and archive (S, a, 3; null when a = 0).
+cudaError_t launch_gate_stats(const float* pop_f, const float* arch_f, float* out,
+                              int n_states, int p, int a, float thr, float eps,
+                              cudaStream_t stream);
+
+// gate_repack (K6b): a gather over the states axis of up to
+// kTakeMaxSegments row-major leaves at n_idx int64 indices in [0, n_src).
+constexpr int kTakeMaxSegments = 8;
+
+struct TakeSegment {
+  const float* src;    // (n_src, row_elems)
+  float* dst;          // row b's words at b * dst_stride + dst_offset
+  int64_t row_elems;
+  int64_t dst_stride;
+  int64_t dst_offset;
+};
+
+struct TakeArgs {
+  TakeSegment seg[kTakeMaxSegments];
+  int n_seg;
+  const int64_t* idx;  // (n_idx,)
+  int n_idx;
+  int64_t n_src;
+};
+
+cudaError_t launch_take(const TakeArgs& args, cudaStream_t stream);

@@ -172,8 +172,21 @@ def test_entry_points_refuse_missing_cuda(lcld):
 
 
 def test_lp_ratio_init_is_not_ported(lcld):
-    with pytest.raises(NotImplementedError):
-        Moeva2(Surrogate(params_from_numpy(lcld["tree"])), lcld["cons"], n_pop=10, init="lp_ratio", device="cpu")
+    """The name is the refusal's this test once held; the lp_ratio init is
+    ported now (``tests/test_torch_early_exit.py`` holds it against JAX):
+    the engine runs it, moving the last ``round(init_ratio * pop)`` rows of
+    the initial population off the initial state, and refuses other
+    names with the JAX engine's ``ValueError``."""
+    x = synth_lcld(3, lcld["cons"].schema, seed=2)
+    sur = Surrogate(params_from_numpy(lcld["tree"]))
+    eng = Moeva2(sur, lcld["cons"], ml_scaler=_scaler(lcld["cons"], x), n_pop=10, n_gen=1, init="lp_ratio",
+                 init_eps=0.3, init_ratio=0.5, device="cpu")
+    pop = eng.generate(x, 1).x_gen
+    moved = (pop != pop[:, :1]).any(-1)
+    n_pert = round(0.5 * eng.pop_size)
+    assert moved[:, -n_pert:].any() and not moved[:, : eng.pop_size - n_pert].any()
+    with pytest.raises(ValueError, match="init must be 'tile' or 'lp_ratio'"):
+        Moeva2(sur, lcld["cons"], n_pop=10, init="sobol", device="cpu")
 
 
 def _lcld_synth_problem(cons, tree, cfg):

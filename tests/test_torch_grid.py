@@ -471,3 +471,34 @@ def test_a_subprocess_point_runs_on_the_cpu(tiny, monkeypatch, tmp_path):
         assert prq.run(copy.deepcopy(grid), use_subprocess=use_subprocess, device="cpu", dtype=torch.float64) == 1
         names[use_subprocess] = sorted(f for f in os.listdir(out) if not f.startswith("grid_report_"))
     assert len(names[True]) == 4 and names[True] == names[False]
+
+
+def test_a_grid_runs_moeva_points_with_an_early_exit(tiny, tmp_path):
+    """A grid whose ``moeva.yaml`` sets the early exit, quality samples and
+    checkpoints runs its points through the runner unchanged: each point's
+    ``execution`` records the gate and the steps it ran, and no checkpoint
+    is left behind."""
+    config_dir = tmp_path / "config"
+    shutil.copytree(tiny["grid"]["config_dir"], config_dir)
+    moeva_yaml = load_config_file(str(config_dir / "moeva.yaml"))
+    moeva_yaml.update(early_stop_check_every=2, early_stop_threshold=0.55, compaction_buckets=[1, 2, 4],
+                      quality_every=2, checkpoint_every=3)
+    with open(config_dir / "moeva.yaml", "w") as f:
+        yaml.safe_dump(moeva_yaml, f)
+    static = load_config_file(str(config_dir / "tiny.static.yaml"))
+    static["dirs"] = {"results": str(tmp_path / "out")}
+    with open(config_dir / "tiny.static.yaml", "w") as f:
+        yaml.safe_dump(static, f)
+    grid = dict(tiny["grid"], config_dir=str(config_dir), attacks=["moeva"], budgets=[5, 9])
+    common.ENGINES.clear()
+    assert prq.run(grid, device="cpu") == 2
+    out = tmp_path / "out"
+    metrics = [_metrics(out, f) for f in sorted(os.listdir(out)) if f.startswith("metrics_")]
+    assert len(metrics) == 2 and not [f for f in os.listdir(out) if f.startswith("checkpoint_")]
+    chunks = -(-N_STATES // 4)
+    for m in metrics:
+        ex = m["execution"]
+        assert ex["early_stop_check_every"] == 2 and ex["max_states_per_call"] == 4
+        assert 0 < ex["gens_executed"] <= chunks * (m["config"]["budget"] - 1)
+    assert any(m["execution"]["gens_executed"] < chunks * (m["config"]["budget"] - 1) for m in metrics)
+    common.ENGINES.clear()

@@ -42,6 +42,7 @@ def test_port_has_every_module_of_the_slice():
         "experiments.common", "experiments.moeva", "experiments.pgd", "attacks.sat",
         "attacks.sat.engine", "domains.lcld_sat", "domains.botnet_sat",
         "experiments.rq", "experiments.pipeline", "experiments.run_all",
+        "attacks.moeva.checkpoint", "observability", "observability.quality",
     ):
         assert f"{port.__name__}.{name}" in mods
 

@@ -21,8 +21,10 @@ import torch
 from moeva2_ijcai22_replication_tpu_torch import kernels
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import (
-    archive_select_plain, evaluate_plain, extract_archive_plain, make_objective_tables,
+    GeneratorDraws, archive_select_plain, evaluate_plain, extract_archive_plain, final_columns_plain,
+    make_objective_tables, take_carry_plain,
 )
+from moeva2_ijcai22_replication_tpu_torch.attacks.objective import engine_quality_stats
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks_plain
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import (
     OperatorTables, draw_offspring, make_offspring_plain,
@@ -492,7 +494,7 @@ def test_launch_counts_reset():
         "offspring": 0, "objective_lcld": 0, "nd_peel": 0,
         "survive_norm": 0, "associate": 0, "survive_fill": 0, "pgd_lcld": 0, "objective_botnet": 0,
         "pgd_botnet": 0, "objective_lcld_aug": 0, "pgd_lcld_aug": 0, "objective_botnet_aug": 0,
-        "pgd_lcld_auto": 0, "pgd_lcld_aug_auto": 0, "pgd_botnet_auto": 0,
+        "pgd_lcld_auto": 0, "pgd_lcld_aug_auto": 0, "pgd_botnet_auto": 0, "gate_stats": 0, "take_carry": 0,
     }
 
 
@@ -1285,3 +1287,137 @@ def test_pgd_botnet_wrapper_refuses_cpu_tensors_and_other_stacks(tmp_path):
     with pytest.raises(ValueError, match="botnet gather tables"):
         run(atk.tables._replace(cons=None), xi)
     assert kernels.launch_counts() == before
+
+
+# -- K6: the early exit's gate and repack ----------------------------------------
+
+
+def _gate_objectives(rng, s, m, thr, eps):
+    """float32 objectives with the gate's edges: NaN and ±inf entries, an
+    all-NaN state, f1 exactly at ``thr``, f2 exactly at ``eps``, violations
+    exactly 0 and -0."""
+    f = rng.uniform(-0.1, 1.0, size=(s, m, 3)).astype(np.float32)
+    f[..., 2] = np.where(rng.random((s, m)) < 0.3, 0.0, np.abs(f[..., 2]))
+    f[rng.random((s, m)) < 0.05, 2] = -0.0
+    f[rng.random((s, m)) < 0.05, 0] = thr
+    f[rng.random((s, m)) < 0.05, 1] = eps
+    for col in range(3):
+        f[rng.random((s, m)) < 0.03, col] = np.nan
+        f[rng.random((s, m)) < 0.02, col] = np.inf
+        f[rng.random((s, m)) < 0.01, col] = -np.inf
+    f[0] = np.nan
+    return f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 7, 8, 33, 131, 1000])
+@pytest.mark.parametrize("p,a", [(103, 0), (103, 10), (193, 10), (303, 0)])
+def test_gate_stats_equals_plain(card, s, p, a):
+    rng = np.random.default_rng(s * 7 + p + a)
+    thr, eps = float(np.float32(0.3)), float(np.float32(0.25 / np.sqrt(47)))
+    f = torch.as_tensor(_gate_objectives(rng, s, p + a, thr, eps), device=card)
+    pop_f, arch_f = f[:, :p].contiguous(), f[:, p:].contiguous()
+    got = kernels.gate_stats(pop_f, arch_f, thr, eps)
+    assert _same(got, engine_quality_stats(f, thr, eps))
+    got = kernels.gate_stats(pop_f, arch_f, thr, float("inf"))
+    assert _same(got, engine_quality_stats(f, thr, float("inf")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [47, 57, 756, 927])
+@pytest.mark.parametrize("a", [0, 10])
+def test_take_carry_and_final_columns_equal_index_select(card, l, a):
+    s, p = 33, 103
+    rng = np.random.default_rng(l + a)
+    shapes = ((s, p, l), (s, p, 3), (s, a, l), (s, a, 3), (s, 3), (s, 3), (s, 3, 3))
+    leaves = [torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=card) for sh in shapes]
+    leaves[1][0, 0, 0] = float("nan")
+    leaves[0][1, 2, 3] = -0.0
+    for sel in (np.array([32, 4, 4, 4, 0]), np.arange(s), np.arange(s)[::-1].copy(), np.full(64, 7)):
+        before = kernels.launch_counts()["take_carry"]
+        got = kernels.take_carry(sel, leaves)
+        want = take_carry_plain(torch.as_tensor(sel, device=card), leaves)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and torch.equal(g.view(torch.int32), w.view(torch.int32))
+        gx, gf = kernels.final_columns(sel, *leaves[:4])
+        wx, wf = final_columns_plain(torch.as_tensor(sel, device=card), *leaves[:4])
+        assert torch.equal(gx.view(torch.int32), wx.view(torch.int32))
+        assert torch.equal(gf.view(torch.int32), wf.view(torch.int32))
+        assert kernels.launch_counts()["take_carry"] == before + 2
+
+
+@pytest.mark.cuda
+def test_take_carry_refuses_indices_out_of_range(card):
+    leaves = [torch.zeros((5, 4, 3), device=card), torch.zeros((5, 3), device=card)]
+    before = kernels.launch_counts()
+    for bad in (np.array([0, 5]), np.array([-1]), torch.tensor([1], device=card), np.array([0.0])):
+        with pytest.raises((ValueError, TypeError)):
+            kernels.take_carry(bad, leaves)
+    with pytest.raises(ValueError, match="lie in"):
+        kernels.final_columns(np.array([5]), leaves[0], leaves[0], leaves[0][:, :0], leaves[0][:, :0])
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_early_exit_generate_on_the_card_equals_the_cpu(card, lcld):
+    """An early-exit run with repacks on the card equals the same run on
+    the CPU fed the same draws (recorded from the CPU's generator)."""
+    cons, sur, scaler, x = lcld
+    x = x[:64]
+    knobs = dict(norm=2, n_gen=21, n_pop=100, n_offsprings=100, archive_size=10, seed=4, early_stop_check_every=4,
+                 early_stop_threshold=0.5, compaction_buckets=(8, 16, 32), record_quality=True)
+    cpu = Moeva2(sur, cons, ml_scaler=scaler, device="cpu", **knobs)
+    recorded = []
+
+    class Recording(GeneratorDraws):
+        def init(self, n):
+            recorded.append(super().init(n))
+            return recorded[-1]
+
+        def generation(self, n):
+            recorded.append(super().generation(n))
+            return recorded[-1]
+
+    class Replay:
+        def __init__(self):
+            self.items = iter(recorded)
+
+        def init(self, n):
+            d = next(self.items)
+            return type(d)(*(None if t is None else t.to(card) for t in d))
+
+        def generation(self, n):
+            d = next(self.items)
+            return type(d)(type(d.offspring)(*(t.to(card) for t in d.offspring)), d.gum_cut.to(card),
+                           d.gum_mem.to(card))
+
+    cpu.draw_hook = lambda i: Recording(cpu, cpu.seed)
+    want = cpu.generate(x, 1)
+    gpu = Moeva2(sur, cons, ml_scaler=scaler, device=card, **knobs)
+    gpu.draw_hook = lambda i: Replay()
+    kernels.reset_launch_counts()
+    got = gpu.generate(x, 1)
+    assert want.early_stop["compaction"] and got.early_stop == want.early_stop
+    for k in ("x_gen", "f", "x_ml"):
+        assert np.array_equal(getattr(got, k), getattr(want, k), equal_nan=True), k
+    counts = kernels.launch_counts()
+    gates = len([g for g in range(4, knobs["n_gen"] - 1, 4) if g <= got.gens_executed])
+    assert counts["gate_stats"] == gates and counts["take_carry"] >= 1
+
+
+def test_gate_repack_wrappers_refuse_cpu_tensors():
+    f = torch.zeros((2, 5, 3))
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.gate_stats(f, f[:, :0], 0.5, 0.1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.take_carry(np.array([1, 0]), [f, f[..., 0]])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.final_columns(np.array([1]), f, f, f[:, :0], f[:, :0])
+    assert kernels.launch_counts() == before
+    # the host-side range check every K6b launch goes through
+    assert kernels._host_rows(np.array([0, 4, 4]), 5).tolist() == [0, 4, 4]
+    for bad, err in ((np.array([0, 5]), ValueError), (np.array([-1]), ValueError), (np.array([0.5]), TypeError),
+                     (torch.tensor([[0]]), ValueError), (torch.tensor([0], dtype=torch.int32), TypeError)):
+        with pytest.raises(err):
+            kernels._host_rows(bad, 5)

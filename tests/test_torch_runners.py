@@ -238,10 +238,6 @@ def test_pgd_runner_refuses_nan_rows_as_jax(jax_runners, tmp_path):
 
 REFUSED = [
     ("moeva", {"save_history": "full"}, "save_history"),
-    ("moeva", {"early_stop_check_every": 5}, "early_stop_check_every"),
-    ("moeva", {"quality_every": 10}, "quality_every"),
-    ("moeva", {"checkpoint_every": 10}, "checkpoint_every"),
-    ("moeva", {"init": "lp_ratio"}, "init"),
     ("moeva", {"system": {"trace_log": "trace.jsonl"}}, "system.trace_log"),
     ("moeva", {"system": {"profile_dir": "prof"}}, "system.profile_dir"),
     ("moeva", {"system": {"mesh_devices": 8}}, "system.mesh_devices"),
@@ -262,6 +258,77 @@ def test_refused_knob_raises_before_any_device_work(artifacts, tmp_path, base, o
     with pytest.raises(NotImplementedError, match=f"config sets {knob}"):
         runner.run(cfg, device="cuda")
     assert not (tmp_path / "out").exists()
+
+
+def test_save_history_is_refused_naming_its_item(artifacts, tmp_path):
+    cfg = _config(artifacts, tmp_path / "out", "moeva", budget=5, eps_list=[0.2], save_history="reduced",
+                  early_stop_check_every=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
+        pmoeva.run(cfg, device="cpu")
+    assert not (tmp_path / "out").exists()
+
+
+#: the engine's extras, each run by the runner on the CPU: (id, config
+#: overrides, the engine knobs the runner must set from them)
+EXTRAS = [
+    ("early_stop_check_every", {"early_stop_check_every": 2, "early_stop_threshold": 0.5,
+                                "compaction_buckets": [2, 4]},
+     dict(early_stop_check_every=2, early_stop_threshold=0.5, compaction_buckets=(2, 4))),
+    ("early_stop_defaults", {"early_stop_check_every": 3},
+     dict(early_stop_check_every=3, early_stop_threshold=0.25)),
+    ("early_stop_eps", {"early_stop_check_every": 2, "early_stop_threshold": 0.55, "early_stop_eps": 0.01},
+     dict(early_stop_check_every=2, early_stop_threshold=0.55, early_stop_eps=0.01)),
+    ("quality_every", {"quality_every": 2}, dict(quality_every=2)),
+    ("checkpoint_every", {"checkpoint_every": 2}, dict(checkpoint_every=2)),
+    ("init", {"init": "lp_ratio", "init_eps": 0.2, "init_ratio": 0.25},
+     dict(init="lp_ratio", init_eps=0.2, init_ratio=0.25)),
+]
+
+
+@pytest.mark.parametrize("over, knobs", [e[1:] for e in EXTRAS], ids=[e[0] for e in EXTRAS])
+def test_moeva_runner_runs_the_engine_extras(artifacts, tmp_path, over, knobs):
+    """Each knob of the engine's extras runs through the runner on the CPU:
+    the populations equal the port's engine set as the JAX runner sets it
+    (``early_stop_threshold`` defaults to ``misclassification_threshold``,
+    quality on), ``execution`` records the knob and the generation steps
+    run, and a completed run leaves no checkpoint."""
+    out = tmp_path / "out"
+    cfg = _config(artifacts, out, "moeva", budget=9, n_pop=16, n_offsprings=8, archive_size=4,
+                  max_states_per_call=8, eps_list=[0.2], **over)
+    common.ENGINES.clear()
+    pm = pmoeva.run(copy.deepcopy(cfg), device="cpu")
+    tmp = artifacts["dir"]
+    cons = LcldConstraints(artifacts["paths"]["features"], artifacts["paths"]["constraints"])
+    eng = Moeva2(load_params(str(tmp / "nn.msgpack")), cons, ml_scaler=common.load_scaler_file(str(tmp / "scaler.joblib")),
+                 norm=2, n_gen=9, n_pop=16, n_offsprings=8, seed=42, archive_size=4, max_states_per_call=8,
+                 device="cpu", record_quality=True, **{"early_stop_threshold": 0.25, **knobs})
+    res = eng.generate(artifacts["x"], 1)
+    np.testing.assert_array_equal(np.load(out / f"x_attacks_moeva_{pm['config_hash']}.npy"), res.x_ml)
+    assert pm["execution"] == {"max_states_per_call": 8, "mesh": None,
+                               "early_stop_check_every": knobs.get("early_stop_check_every", 0),
+                               "gens_executed": res.gens_executed}
+    if "early_stop_check_every" in over and "compaction_buckets" in over:
+        assert res.early_stop["compaction"]  # states parked
+    assert not [f for f in os.listdir(out) if f.startswith("checkpoint_")]
+    assert pmoeva.run(copy.deepcopy(cfg), device="cpu") is None
+
+
+def test_cached_engine_takes_init_eps_and_ratio(artifacts, tmp_path):
+    """The engine cache keys MoEvA's engine on ``init_eps`` and
+    ``init_ratio``; the engine it builds carries them."""
+    tmp = artifacts["dir"]
+    cons = LcldConstraints(artifacts["paths"]["features"], artifacts["paths"]["constraints"])
+    sur, scaler = load_params(str(tmp / "nn.msgpack")), common.load_scaler_file(str(tmp / "scaler.joblib"))
+    common.ENGINES.clear()
+    engines = []
+    for eps, ratio in ((0.3, 0.75), (0.05, 0.75), (0.3, 0.1)):
+        cfg = _config(artifacts, tmp_path, "moeva", budget=3, n_pop=16, n_offsprings=8, archive_size=4, init="lp_ratio",
+                      init_eps=eps, init_ratio=ratio)
+        eng = pmoeva._cached_engine(cfg, sur, cons, scaler, torch.device("cpu"), torch.float32)
+        assert (eng.init, eng.init_eps, eng.init_ratio) == ("lp_ratio", eps, ratio)
+        engines.append(eng)
+    assert len({id(e) for e in engines}) == 3
+    common.ENGINES.clear()
 
 
 def test_autopgd_on_botnet_is_refused_on_the_card_before_any_device_work(tmp_path, monkeypatch):
