@@ -10,8 +10,8 @@ Phases, in order; any failure exits non-zero:
 1. versions: torch, CUDA, and the card's name and power limit (nvidia-smi);
 2. build the port's ten CUDA kernel sources (K1 and K7 with an
    instantiation each for the augmented LCLD domain, K7 two more for
-   AutoPGD, K8 one for the augmented botnet domain, K6's two kernels in one
-   source)
+   AutoPGD, K8 one for the augmented botnet domain, K1 and K8 their history
+   instantiations for each domain, K6's two kernels in one source)
    from the sources in the checkout and
    print each kernel's ptxas registers, shared memory, stack frame and
    spill (none of the redesigned ones, ``REDESIGNED``, may spill);
@@ -232,6 +232,25 @@ Phases, in order; any failure exits non-zero:
    10 (and ``early_stop_threshold`` 0.5) beside the strict point, o1..o7 of
    both. No grid file sets an early exit: phase 13 launches no
    ``EARLY_EXIT_COUNTERS``, which phase 15 must launch.
+16. the history of every evaluation (the ``[history]`` lines,
+   ``save_history``, ROADMAP A7b): the ptxas lines of K1's and K8's history
+   instantiations beside their bases'; each (``HISTORY_COUNTERS``) against
+   ``evaluate_hist_plain`` on the card, bit for bit, at ``HISTORY_SHAPES``
+   with the domain's edge rows (the ratio poles: infinite terms, NaN
+   objectives), its ``out`` against the base kernel's, column 2 against the
+   kept terms' left-to-right sum, and a 3-column record as the base
+   kernel's output; each timed beside its base in turns, with its bound
+   (the base's bytes and the record's); ``config/moeva.yaml`` with
+   ``config/lcld.yaml`` through the runner (``history_config``: 4000
+   states, budget 100, ``history_chunk`` 25) with "full", "reduced" and no
+   history, each with phase 10's checks, the ``x_history`` files' shapes and
+   the reduced one equal to the full one's objectives, and the wall of
+   each; the engine with "full" on augmented LCLD, on botnet (387 states,
+   26 generations in segments of 10) and on augmented botnet, each with its
+   launch counts set to 0 just before and read just after, the records'
+   layout, no NaN term and column 2 the terms' sum. No grid file sets
+   ``save_history``: phase 13 launches no ``HISTORY_COUNTERS``, which phase
+   16 must launch.
 
 The last three lines are the per-kernel JSON record (with each kernel's
 launches over phase 13's grids, ``grid_launches``), the card's name and
@@ -1345,7 +1364,8 @@ def expected_launches(moeva, n_states: int, result=None) -> dict:
     ``early_stop_check_every`` generations, or ``quality_every`` with
     ``record_quality``, before the last step) launches K6a once; a gate
     that parks states launches K6b once for their columns, and once more
-    where it repacks the rest."""
+    where it repacks the rest. With ``save_history="full"`` every
+    evaluation is the objective kernel's history instantiation."""
     from moeva2_ijcai22_replication_tpu_torch import kernels
 
     chunk = moeva.max_states_per_call or n_states
@@ -1367,10 +1387,11 @@ def expected_launches(moeva, n_states: int, result=None) -> dict:
     if result is not None and result.gens_executed != steps:
         raise AssertionError(f"gens_executed {result.gens_executed} != {steps} implied by the early exit's record")
     chunks = len(sizes)
+    full = getattr(moeva, "save_history", None) == "full"
     return {
         **{name: 0 for name in kernels.launch_counts()},
         "offspring": steps,
-        counter_name(moeva.constraints, "objective"): chunks + steps,
+        counter_name(moeva.constraints, "objective") + ("_hist" if full else ""): chunks + steps,
         "nd_peel": chunks + steps,
         "survive_norm": chunks + steps,
         "associate": chunks + steps,
@@ -2682,6 +2703,8 @@ def point_files(runner: str, cfg: dict) -> set:
 
     mid, h = point_mid_fix(runner, cfg), get_dict_hash(cfg)
     names = {f"metrics_{mid}_{h}.json", f"config_{mid}_{h}.yaml", f"x_attacks_{mid}_{h}.npy"}
+    if runner == "moeva" and cfg.get("save_history") and cfg["budget"] > 1:
+        names.add(f"x_history_{mid}_{h}.npy")
     return names | ({f"success_rate_{mid}_{h}.csv"} if runner == "pgd" else set())
 
 
@@ -2704,6 +2727,7 @@ def point_expected_launches(runner: str, cfg: dict, result=None) -> dict:
         max_states_per_call=cfg["max_states_per_call"], n_gen=cfg["budget"], archive_size=cfg["archive_size"],
         constraints=cons, early_stop_check_every=int(cfg.get("early_stop_check_every", 0) or 0),
         record_quality=bool(cfg.get("record_quality", True)), quality_every=int(cfg.get("quality_every", 0) or 0),
+        save_history=cfg.get("save_history") or None,
     )
     return expected_launches(engine, len(common.load_candidates(cfg)), result)
 
@@ -3251,8 +3275,8 @@ def run_augmented(device, smi: str, resources: list):
     launches of the runner drives."""
     import torch
 
-    aug_ptxas = [k for k in resources if k["kernel"] in ("objective_lcld_kernel<128,1,1>",
-                                                         "objective_lcld_kernel<64,0,1>", "pgd_lcld_kernel<1,0>")]
+    aug_ptxas = [k for k in resources if k["kernel"] in ("objective_lcld_kernel<128,1,1,0>",
+                                                         "objective_lcld_kernel<64,0,1,0>", "pgd_lcld_kernel<1,0>")]
     if len(aug_ptxas) != 3:
         raise AssertionError(f"the build's ptxas report lacks the augmented instantiations: {aug_ptxas}")
     for k in aug_ptxas:
@@ -3402,7 +3426,7 @@ def run_botnet_augmented(device, smi: str, resources: list):
     from moeva2_ijcai22_replication_tpu_torch.domains import augmentation
     from moeva2_ijcai22_replication_tpu_torch.domains.synth import synth_botnet
 
-    ptxas = [k for k in resources if k["kernel"] in ("objective_botnet_kernel<0>", "objective_botnet_kernel<1>")]
+    ptxas = [k for k in resources if k["kernel"] in ("objective_botnet_kernel<0,0>", "objective_botnet_kernel<1,0>")]
     if len(ptxas) != 2:
         raise AssertionError(f"the build's ptxas report lacks K8's two instantiations: {ptxas}")
     for k in ptxas:
@@ -4838,6 +4862,352 @@ def run_early_exit(device, smi: str, resources: list, records: list) -> dict:
     return launches
 
 
+# -- phase 16: the history of every evaluation (save_history) --------------------
+
+#: the history's launch counts: K1's and K8's kHistory instantiations. No
+#: grid file of ``config/`` sets ``save_history``: phase 13 launches none of
+#: them, which phase 16 must launch
+HISTORY_COUNTERS = ("objective_lcld_hist", "objective_lcld_aug_hist", "objective_botnet_hist",
+                    "objective_botnet_aug_hist")
+#: each history instantiation's ptxas entries (a 128-row tile with the stack
+#: staged, a 64-row one with it in global memory for K1) beside its base's
+HISTORY_ENTRIES = {
+    "objective_lcld_hist": (("objective_lcld_kernel<128,1,0,1>", "objective_lcld_kernel<128,1,0,0>"),
+                            ("objective_lcld_kernel<64,0,0,1>", "objective_lcld_kernel<64,0,0,0>")),
+    "objective_lcld_aug_hist": (("objective_lcld_kernel<128,1,1,1>", "objective_lcld_kernel<128,1,1,0>"),
+                                ("objective_lcld_kernel<64,0,1,1>", "objective_lcld_kernel<64,0,1,0>")),
+    "objective_botnet_hist": (("objective_botnet_kernel<0,1>", "objective_botnet_kernel<0,0>"),),
+    "objective_botnet_aug_hist": (("objective_botnet_kernel<1,1>", "objective_botnet_kernel<1,0>"),),
+}
+#: the shapes each history instantiation is held and timed at (states x
+#: candidates): LCLD the main path's, augmented LCLD the runner's chunk,
+#: botnet and augmented botnet rq1.botnet's states
+HISTORY_SHAPES = {"objective_lcld_hist": (1000, 100), "objective_lcld_aug_hist": (256, 100),
+                  "objective_botnet_hist": (387, 100), "objective_botnet_aug_hist": (387, 100)}
+#: ``config/lcld.yaml``, the static config behind the paper's convergence
+#: figures, its artifact paths and results directory replaced by phase 16's
+LCLD_HISTORY_STATIC = {
+    "project_name": "lcld", "misclassification_threshold": 0.25, "norm": 2, "n_initial_state": 4000,
+    "initial_state_offset": 0, "system": {"n_jobs": -1, "verbose": 1, "mesh_devices": 0},
+    "save_history": "full", "history_chunk": 25, "reconstruction": False,
+}
+#: the grid point phase 16 runs it at: rq1.lcld's seed, first budget and ε
+HISTORY_POINT = {"seed": 42, "budget": 100, "eps_list": [0.2]}
+#: the engine runs of phase 16 beside the runner's: botnet as rq1.botnet
+#: runs it, cut to 26 generations in segments of 10 (three segments, the
+#: last one short); augmented LCLD at the runner's chunk and augmented
+#: botnet at a small budget
+HISTORY_BOTNET_KNOBS = dict(BOTNET_KNOBS, n_gen=26, save_history="full", history_chunk=10)
+HISTORY_AUG_KNOBS = dict(norm=2, n_gen=12, n_pop=200, n_offsprings=100, archive_size=24, seed=42,
+                         save_history="full", history_chunk=5)
+HISTORY_AUG_STATES = 256
+HISTORY_BOTNET_AUG_KNOBS = dict(BOTNET_KNOBS, n_gen=6, save_history="full", history_chunk=2)
+HISTORY_BOTNET_AUG_STATES = 131
+
+
+def history_config(artifacts: str, save_history) -> dict:
+    """Phase 16's runner config: ``config/moeva.yaml`` with
+    ``config/lcld.yaml`` (``LCLD_HISTORY_STATIC``) at ``HISTORY_POINT``,
+    composed as the grid runner composes them, over phase 10's artifacts in
+    ``artifacts``, with ``save_history`` set as asked."""
+    import copy
+
+    cfg = copy.deepcopy(MOEVA_YAML)
+    cfg.update(copy.deepcopy(LCLD_HISTORY_STATIC))
+    cfg["paths"] = runner_config("lcld", "moeva", artifacts)["paths"]
+    cfg["dirs"] = {"results": f"{artifacts}/out/lcld/l2_last"}
+    cfg.update(copy.deepcopy(HISTORY_POINT))
+    cfg["save_history"] = save_history
+    return cfg
+
+
+def history_problem(device, name: str):
+    """The engine and problem that ``name``'s history instantiation is held
+    on: (engine, run inputs, candidates with the domain's edge rows, the
+    kernel's wrapper)."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import draw_gumbels
+    from moeva2_ijcai22_replication_tpu_torch.problems import (
+        synthetic_botnet_augmented_problem, synthetic_botnet_problem, synthetic_lcld_augmented_problem,
+        synthetic_lcld_problem,
+    )
+
+    s, n = HISTORY_SHAPES[name]
+    make = {"objective_lcld_hist": synthetic_lcld_problem, "objective_lcld_aug_hist": synthetic_lcld_augmented_problem,
+            "objective_botnet_hist": synthetic_botnet_problem,
+            "objective_botnet_aug_hist": synthetic_botnet_augmented_problem}[name]
+    with tempfile.TemporaryDirectory() as tmp:
+        cons, sur, scaler, x = make(tmp, s)
+    lcld = name.startswith("objective_lcld")
+    eng = Moeva2(sur, cons, ml_scaler=scaler, device=device, n_pop=100 if lcld else 200, n_offsprings=n,
+                 archive_size=24, seed=42, save_history="full")
+    run = eng.prepare(x, np.arange(s) % 2)
+    gen = torch.Generator(device=device).manual_seed(s)
+    if lcld:
+        carry = eng.init_carry(run, *draw_gumbels(gen, s, eng.n_dirs, eng.pop_size))
+        off = eng.offspring(run, carry.pop_x, eng.draw_generation(gen, s).offspring)
+        cand = hard_candidates(eng.codec, off) if name == "objective_lcld_hist" else aug_candidates(
+            eng.codec, cons, x, off)
+        return eng, run, cand, kernels.objective_lcld
+    return eng, run, botnet_candidates(gen, eng, run, n), kernels.objective_botnet
+
+
+def left_to_right_terms(record):
+    """The record's kept terms (columns 3 on) summed left to right, one
+    rounded add at a time, as the kernels and the plain version sum them."""
+    g = record[..., 3].clone()
+    for k in range(4, record.shape[-1]):
+        g = g + record[..., k]
+    return g
+
+
+def objective_work(eng, s: int, n: int):
+    """K1's or K8's bytes and operations for ``s`` x ``n`` rows (phase 3's
+    count for K1, with the pair stage on the augmented domain; ``botnet_bound``
+    for K8)."""
+    obj = eng._objective
+    if eng.constraints.objective_kernel == "botnet":
+        return botnet_bound(eng, s, n)
+    l, d = eng.codec.gen_length, eng.codec.n_features
+    widths = [obj.layers[0][0].shape[1], *(w.shape[0] for w, _ in obj.layers)]
+    macs = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
+    n_params = sum(w.numel() + b.numel() for w, b in obj.layers)
+    pairs = 0 if obj.cons is None else obj.cons.idx.shape[0]
+    n_bytes = 4 * s * n * l + 16 * s * d + 8 * s + 4 * n_params + 16 * d + 16 * pairs + 12 * s * n
+    n_ops = s * n * (2 * macs + OBJECTIVE_OPS_PER_FEATURE * d + OBJECTIVE_OPS_PER_ROW + OBJECTIVE_OPS_PER_PAIR * pairs)
+    return n_bytes, n_ops
+
+
+def check_history_kernel(device, name: str, smi: str) -> dict:
+    """``name``'s history instantiation on its problem (``HISTORY_SHAPES``):
+    its record equal to ``evaluate_hist_plain``'s and its ``out`` to the base
+    kernel's, bit for bit, edge rows included; column 2 the left-to-right
+    sum of the kept terms; a 3-column record is the base kernel's output;
+    then its device ms beside the base's, in turns, and its record for the
+    kernels line."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import evaluate_hist_plain
+
+    eng, run, cand, kernel = history_problem(device, name)
+    s, n = HISTORY_SHAPES[name]
+    cols = eng.history_columns()
+    args = (cand, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class, eng._objective)
+    base = name[: -len("_hist")]
+    record = torch.full((s, n, cols), float("nan"), device=device)
+    kernels.reset_launch_counts()
+    want_out = kernel(*args)
+    out = kernel(*args, record=record)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if counts[base] != 1 or counts[name] != 1:
+        raise AssertionError(f"{name}: launches {counts}, not one of {base} and one of {name}")
+    f, want = evaluate_hist_plain(eng._objective, eng.codec, run, cand, eng.constraints, "full")
+    hold_equal(record, want, f"{name}'s record")
+    hold_equal(out, want_out, f"{name}'s out against {base}'s")
+    hold_equal(out, f, f"{name}'s out against the plain version")
+    hold_equal(left_to_right_terms(record), record[..., 2], f"{name}'s column 2 against its terms' sum")
+    reduced = torch.full((s, n, 3), float("nan"), device=device)
+    if kernel(*args, record=reduced).data_ptr() != reduced.data_ptr():
+        raise AssertionError(f"{name}: a 3-column record is not the base kernel's output")
+    hold_equal(reduced, want_out, f"{base} writing a 3-column record")
+    rows_nonfinite = int((~torch.isfinite(want)).any(-1).sum())
+    n_inf_terms = int(torch.isinf(want[..., 3:]).sum())
+    times = {"hist": [], "base": []}
+    for turn in ("base", "hist", "hist", "base"):
+        fn = (lambda: kernel(*args, record=record)) if turn == "hist" else (lambda: kernel(*args))
+        times[turn].append(graph_ms(fn))
+    ms, base_ms = statistics.median(times["hist"]), statistics.median(times["base"])
+    n_bytes, n_ops = objective_work(eng, s, n)
+    rec_bytes = 4 * s * n * cols
+    b_ms, b_by = bound_ms(n_bytes + rec_bytes, n_ops + s * n * cols, 0)
+    base_b_ms, _ = bound_ms(n_bytes, n_ops, 0)
+    rec = {
+        "name": name,
+        "route": "cuda",
+        "source": "moeva2_ijcai22_replication_tpu_torch/kernels/csrc/"
+                  + ("objective_lcld.cu" if kernel is kernels.objective_lcld else "objective_botnet.cu"),
+        "replaces": "moeva2_ijcai22_replication_tpu/attacks/moeva/engine.py:473",
+        "launches": 0,
+        "max_abs_err": 0.0,
+        "ms": ms,
+        "wrapper_ms": cuda_ms(lambda: kernel(*args, record=record)),
+        "plain_ms": cuda_ms(lambda: evaluate_hist_plain(eng._objective, eng.codec, run, cand, eng.constraints,
+                                                        "full"), launches=2, repeats=3),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+        "base_ms": base_ms,
+        "base_bound_ms": base_b_ms,
+        "record_bytes_ms": rec_bytes / PEAK_BYTES_S * 1e3,
+        "ms_turns": times,
+        "shape": f"{s}x{n}x{cols}",
+    }
+    log(f"[history] {name} at S={s} N={n}, {cols} columns: record equal to evaluate_hist_plain's bit for bit "
+        f"({rows_nonfinite} rows with a non-finite entry, {n_inf_terms} infinite terms), out equal to {base}'s, "
+        f"column 2 the terms' left-to-right sum; a 3-column record is {base}'s output. Device {ms:.4f} ms "
+        f"against {base}'s {base_ms:.4f} ms in turns (x{ms / base_ms:.4f}), through the wrapper "
+        f"{rec['wrapper_ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, bound {b_ms:.5f} ms ({b_by}; the base's "
+        f"{base_b_ms:.5f} ms; the record's {rec_bytes / 1e6:.1f} MB alone {rec['record_bytes_ms']:.5f} ms at "
+        f"3.35 TB/s) on {smi}")
+    return rec
+
+
+def check_history_records(res, n_states: int, pop: int, n_off: int, cols: int, n_gen: int, tag: str) -> None:
+    """The history's layout (the initial record, then one a generation
+    step), no NaN among the kept terms (a NaN term counts 0), f1 and f2
+    finite wherever the terms are, and column 2 the terms' left-to-right
+    sum, bit for bit."""
+    import torch
+
+    hist = res.history
+    if len(hist) != n_gen or hist[0].shape != (n_states, pop, cols) or any(
+            h.shape != (n_states, n_off, cols) for h in hist[1:]):
+        raise AssertionError(f"{tag}: history of {len(hist)} records, shapes {hist[0].shape}, {hist[-1].shape}")
+    for i, h in enumerate(hist):
+        t = torch.as_tensor(h)
+        terms = t[..., 3:]
+        if bool(terms.isnan().any()):
+            raise AssertionError(f"{tag}: record {i} keeps a NaN term")
+        away = torch.isfinite(terms).all(-1)
+        if not bool(torch.isfinite(t[..., :2][away]).all()):
+            raise AssertionError(f"{tag}: record {i} has a non-finite f1 or f2 on a row with finite terms")
+        hold_equal(left_to_right_terms(t), t[..., 2], f"{tag}: record {i}'s column 2")
+
+
+def drive_history(moeva, x, smi: str, tag: str) -> tuple:
+    """``generate`` with its history, the launch counts set to 0 just before
+    and read just after and held to what the code implies; returns
+    ``(result, launches, wall s)``."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = moeva.generate(x, minimize_class=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check_launches(launches, expected_launches(moeva, len(x)), f"the {tag} history")
+    check_history_records(res, len(x), moeva.pop_size, moeva.n_offsprings, moeva.history_columns(), moeva.n_gen, tag)
+    host_gb = sum(h.nbytes for h in res.history) / 1e9
+    log(f"[history] {tag}: {len(x)} states x {moeva.n_gen} generations, save_history {moeva.save_history!r} in "
+        f"segments of {moeva.history_chunk}: {len(res.history)} records of {moeva.history_columns()} columns, "
+        f"{host_gb:.3f} GB on the host, no NaN term, f1 and f2 finite on rows with finite terms, column 2 the terms' "
+        f"sum; launches {({k: v for k, v in launches.items() if v})} as the code implies; wall {wall:.3f} s on {smi}")
+    return res, launches, wall
+
+
+def run_history_runner(smi: str) -> dict:
+    """``config/moeva.yaml`` with ``config/lcld.yaml`` through the runner at
+    ``HISTORY_POINT`` over phase 10's artifacts (4000 states, 16 chunks of
+    256): "full", then "reduced", then no history, each a run of phase 10's
+    checks with its ``x_history`` file's shape and values; returns the
+    "full" run's launches."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.utils.config import get_dict_hash
+
+    with tempfile.TemporaryDirectory() as art:
+        write_runner_artifacts("lcld", art)
+        walls, files, launches = {}, {}, None
+        for mode in ("full", "reduced", False):
+            cfg = history_config(art, mode)
+            t0 = time.perf_counter()
+            metrics = drive_runner(cfg, smi, point_expected_launches("moeva", cfg), f"moeva lcld save_history {mode!r}")
+            walls[mode] = time.perf_counter() - t0
+            if mode == "full":
+                launches = kernels.launch_counts()
+            out, h = cfg["dirs"]["results"], get_dict_hash(cfg)
+            files[mode] = (f"{out}/x_attacks_moeva_{h}.npy", f"{out}/x_history_moeva_{h}.npy" if mode else None,
+                           metrics)
+        n = cfg["n_initial_state"]
+        full = np.load(files["full"][1], mmap_mode="r")
+        reduced = np.load(files["reduced"][1], mmap_mode="r")
+        shapes = {"full": (cfg["budget"] - 1, n, cfg["n_offsprings"], 13), "reduced": (cfg["budget"] - 1, n,
+                                                                                       cfg["n_offsprings"], 3)}
+        if full.shape != shapes["full"] or reduced.shape != shapes["reduced"] or full.dtype != np.float32:
+            raise AssertionError(f"x_history shapes {full.shape} {reduced.shape}, not {shapes}")
+        for k in range(0, full.shape[0], 11):
+            if not np.array_equal(full[k, ..., :3], reduced[k], equal_nan=True):
+                raise AssertionError(f"the reduced history's record {k} is not the full one's objectives")
+            record = torch.as_tensor(np.array(full[k]))
+            hold_equal(left_to_right_terms(record), record[..., 2], f"x_history record {k}'s column 2")
+        x_att = [np.load(files[m][0]) for m in ("full", "reduced", False)]
+        if not all(np.array_equal(a, x_att[0]) for a in x_att[1:]):
+            raise AssertionError("the history changed the attack's result")
+        size_gb = os.path.getsize(files["full"][1]) / 1e9
+        del full, reduced
+    log(f"[history] config/moeva.yaml + config/lcld.yaml through the runner, {n} states x {cfg['budget']} "
+        f"generations ({-(-n // cfg['max_states_per_call'])} chunks of at most {cfg['max_states_per_call']}), "
+        f"history_chunk {cfg['history_chunk']}: x_history {shapes['full']} float32 ({size_gb:.3f} GB) "
+        f"and {shapes['reduced']}, the reduced one the full one's first 3 columns, x_attacks equal with and without "
+        f"the history; wall full {walls['full']:.3f} s, reduced {walls['reduced']:.3f} s, none {walls[False]:.3f} s "
+        f"(the runner's attack span {files['full'][2]['time']:.3f} s, {files['reduced'][2]['time']:.3f} s, "
+        f"{files[False][2]['time']:.3f} s) on {smi}")
+    return launches
+
+
+def run_history(device, smi: str, resources: list, records: list) -> dict:
+    """Phase 16: MoEvA's ``save_history`` (ROADMAP A7b) with K1's and K8's
+    history instantiations. Returns the launch counts of its main paths'
+    runs, each set to 0 just before and read just after."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
+    from moeva2_ijcai22_replication_tpu_torch.problems import (
+        synthetic_botnet_augmented_problem, synthetic_lcld_augmented_problem,
+    )
+
+    t0 = time.perf_counter()
+    by_name = {k["kernel"]: k for k in resources}
+    for name, entries in HISTORY_ENTRIES.items():
+        for hist, base in entries:
+            if hist not in by_name or base not in by_name:
+                raise AssertionError(f"the build's ptxas report has no entry for {hist} or {base}")
+            for k in (by_name[hist], by_name[base]):
+                log(f"[history] ptxas {name}: {k['kernel']}: {k['registers']} registers, {k['stack']} bytes stack "
+                    f"frame, {k['spill_stores']} + {k['spill_loads']} bytes spill stores + loads")
+    for name in HISTORY_COUNTERS:
+        records.append(check_history_kernel(device, name, smi))
+
+    launches = {}
+    launches.update({k: v for k, v in run_history_runner(smi).items() if k == "objective_lcld_hist"})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cons, sur, scaler, x = synthetic_lcld_augmented_problem(tmp, HISTORY_AUG_STATES)
+    aug = Moeva2(sur, cons, ml_scaler=scaler, device=device, **HISTORY_AUG_KNOBS)
+    _, got, _ = drive_history(aug, x, smi, "augmented LCLD (D = 57)")
+    launches["objective_lcld_aug_hist"] = got["objective_lcld_aug_hist"]
+
+    bcons, bsur, bscaler, bx, _ = botnet_problem()
+    botnet = Moeva2(bsur, bcons, ml_scaler=bscaler, device=device, **HISTORY_BOTNET_KNOBS)
+    steps, seg = botnet.n_gen - 1, botnet.history_chunk
+    _, got, _ = drive_history(botnet, bx, smi, f"botnet (chunks of {botnet.max_states_per_call}; segments "
+                              + ", ".join(str(min(seg, steps - k)) for k in range(0, steps, seg)) + ")")
+    launches["objective_botnet_hist"] = got["objective_botnet_hist"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cons, sur, scaler, x = synthetic_botnet_augmented_problem(tmp, HISTORY_BOTNET_AUG_STATES)
+    baug = Moeva2(sur, cons, ml_scaler=scaler, device=device, **HISTORY_BOTNET_AUG_KNOBS)
+    log(f"[history] K8's block at D = 927 takes {botnet_smem_bytes(baug)} bytes of shared memory with or without the "
+        "history (the record is written from the ring and registers)")
+    _, got, _ = drive_history(baug, x, smi, "augmented botnet (D = 927)")
+    launches["objective_botnet_aug_hist"] = got["objective_botnet_aug_hist"]
+    if not all(launches[k] for k in HISTORY_COUNTERS):
+        raise AssertionError(f"phase 16 launched no {[k for k in HISTORY_COUNTERS if not launches.get(k)]}")
+    log(f"[history] phase 16 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4920,7 +5290,7 @@ def main() -> int:
     grid_launches = run_grids(smi)
     # no grid file selects AutoPGD: its counters are checked on phase 14's drives
     idle = [name for name, n in grid_launches.items()
-            if n == 0 and name not in AUTOPGD_COUNTERS + EARLY_EXIT_COUNTERS]
+            if n == 0 and name not in AUTOPGD_COUNTERS + EARLY_EXIT_COUNTERS + HISTORY_COUNTERS]
     if idle:
         raise AssertionError(f"phase 13's grids launched no {idle}")
     auto_records, auto_launches = run_autopgd(device, smi, resources, problem)
@@ -4932,7 +5302,9 @@ def main() -> int:
     ee_launches = run_early_exit(device, smi, resources, records)
     launches.update({name: ee_launches[name] for name in EARLY_EXIT_COUNTERS})
     lap("phase 15")
-    log(f"[smoke] phases 1-15 took {time.perf_counter() - t_smoke:.1f} s")
+    launches.update(run_history(device, smi, resources, records))
+    lap("phase 16")
+    log(f"[smoke] phases 1-16 took {time.perf_counter() - t_smoke:.1f} s")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         rec["grid_launches"] = grid_launches[rec["name"]]

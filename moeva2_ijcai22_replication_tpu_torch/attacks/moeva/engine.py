@@ -9,8 +9,8 @@ states at once, with optional ``max_states_per_call`` chunking, and the
 engine's extras: the success-gated early exit with active-set compaction
 (``early_stop_check_every``), double-buffered gate flushes, quality samples
 (``record_quality``, ``quality_every``), checkpoint and resume
-(``checkpoint_every``) and the streaming ``partial_sink``. ``save_history``
-is not ported (ROADMAP A7b).
+(``checkpoint_every``), the streaming ``partial_sink`` and the history of
+every evaluation (``save_history``, ``history_chunk``).
 
 Every random number a run consumes comes from one draw source
 (:class:`GeneratorDraws` by default: one ``torch.Generator`` on the
@@ -24,10 +24,17 @@ On the card a generation is the draws, then six hand-written kernels: K5
 offspring, the objectives (K1 on LCLD, K8 on botnet), K2 front peel, K4a
 normalisation, K3 niche association and K4b fill, extraction and archive.
 The one other device op of a step is the ``torch.cat`` of the population's
-and the offspring's objectives that K2, K4a and K3 read. A gate is one
+and the offspring's objectives that K2, K4a and K3 read. With
+``save_history="full"`` the objectives are K1's or K8's history
+instantiation, which also writes each candidate's record (objectives, then
+kept constraint terms) into the segment's device buffer; with "reduced"
+the buffer's slice is the kernel's output itself. Each segment's buffer is
+copied to pinned host memory on a side stream behind an event and read one
+segment late, so the card holds at most two segments. A gate is one
 launch of K6a (the (S, 9) statistics, fetched once) and, where states are
 solved or the active set is repacked, one launch of K6b each. On the CPU
 every stage runs its plain PyTorch version (:func:`evaluate_plain`,
+:func:`evaluate_hist_plain`,
 :func:`extract_archive_plain`, :func:`take_carry_plain`,
 :func:`final_columns_plain`, ``attacks.objective.engine_quality_stats`` and
 those of ``operators`` and ``survival``), which spells out its kernel's
@@ -94,6 +101,11 @@ class MoevaResult:
     #: sample a gate (``observability.quality.sample_from_per_state``) and a
     #: last one with ``final: True`` from the returned populations
     quality: dict | None = None
+    #: the history (None unless ``save_history``): the initial population's
+    #: record (S, P, C), then one (S, n_offsprings, C) record a generation
+    #: step; C = 3 objectives ("reduced"), or 3 + the constraint terms
+    #: ("full")
+    history: list | None = None
 
 
 class GenerationDraws(NamedTuple):
@@ -246,12 +258,9 @@ def mlp_proba_plain(layers, x: torch.Tensor) -> torch.Tensor:
     return e / _sum_last(e, keepdim=True)
 
 
-def evaluate_plain(obj: ObjectiveTables, codec, run: "RunInputs", x_gen, constraints) -> torch.Tensor:
-    """(S, N, L) genetic candidates -> (S, N, 3) objectives
-    ``[P(minimize_class), Lp distance / f2_scale, Σ violations]``, the
-    semantics of kernels K1 and K8. The violations are
-    ``constraints.evaluate``, which runs K1's order of operations for LCLD
-    and K8's for botnet."""
+def _objectives_and_terms(obj: ObjectiveTables, codec, run: "RunInputs", x_gen, constraints):
+    """:func:`evaluate_plain`'s objectives and the (S, N, K) kept terms
+    they sum."""
     x_f = codec_lib.genetic_to_ml(codec, x_gen, run.x_init_ml[:, None, :])
     x_mm = codec_lib.minmax_normalize(x_f, run.xl_ml[:, None, :], run.xu_ml[:, None, :])
     x_in = x_f if obj.scaler is None else x_f * obj.scaler[0] + obj.scaler[1]
@@ -260,7 +269,27 @@ def evaluate_plain(obj: ObjectiveTables, codec, run: "RunInputs", x_gen, constra
     diff = x_mm - run.x_init_mm[:, None, :]
     dist = torch.abs(diff).amax(-1) if obj.norm_inf else _sqrt_rn(_sum_last(diff * diff))
     f2 = dist / _scalar(dist, obj.f2_scale)
-    return torch.stack([f1, f2, _sum_last(constraints.evaluate(x_f))], dim=-1)
+    g_all = constraints.evaluate(x_f)
+    return torch.stack([f1, f2, _sum_last(g_all)], dim=-1), g_all
+
+
+def evaluate_plain(obj: ObjectiveTables, codec, run: "RunInputs", x_gen, constraints) -> torch.Tensor:
+    """(S, N, L) genetic candidates -> (S, N, 3) objectives
+    ``[P(minimize_class), Lp distance / f2_scale, Σ violations]``, the
+    semantics of kernels K1 and K8. The violations are
+    ``constraints.evaluate``, which runs K1's order of operations for LCLD
+    and K8's for botnet."""
+    return _objectives_and_terms(obj, codec, run, x_gen, constraints)[0]
+
+
+def evaluate_hist_plain(obj: ObjectiveTables, codec, run: "RunInputs", x_gen, constraints, save_history: str):
+    """The history form of :func:`evaluate_plain`, as the JAX engine's
+    ``_evaluate_hist``: ``(f, record)`` with ``record`` ``f`` itself under
+    "reduced" and ``[f, kept terms]`` (S, N, 3 + K) under "full", the
+    semantics of the history instantiations of K1 and K8 (column 2 is the
+    left-to-right sum of the columns after it)."""
+    f, g_all = _objectives_and_terms(obj, codec, run, x_gen, constraints)
+    return f, (torch.cat([f, g_all], dim=-1) if save_history == "full" else f)
 
 
 def take_carry_plain(idx: torch.Tensor, leaves) -> list:
@@ -314,12 +343,61 @@ def extract_archive_plain(mask, pop_x, off, pop_f, off_f, arch_x, arch_f):
     return new_x, new_f, arch_x, arch_f
 
 
+class _HistorySegments:
+    """The history's generation records on their way to the host: each
+    segment's device buffer (length, S, N, C) is copied to pinned memory on
+    a side stream behind an event when it is :meth:`push`-ed and read at
+    the next push (the JAX engine's ``flush_pending``), so the card holds at
+    most two segments and the copy overlaps the next segment's work. With a
+    checkpointer each segment also lands in its sidecar when it is read. On
+    the CPU a segment's buffer is kept as it is."""
+
+    def __init__(self, cp, chunks: list):
+        self.cp = cp
+        self.chunks = chunks  # (length, S, N, C) host arrays, in order
+        self.pending = None  # (buffer, host copy or None, event or None)
+        self._stream = None
+        self._staging = None  # pinned memory; a push reads the last copy before the next starts
+
+    def push(self, buf: torch.Tensor) -> None:
+        self.flush()
+        if not buf.is_cuda:
+            self.pending = (buf, None, None)
+            return
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=buf.device)
+        if self._staging is None or self._staging.numel() < buf.numel():
+            self._staging = torch.empty(buf.numel(), dtype=buf.dtype, pin_memory=True)
+        host = self._staging[: buf.numel()].view(buf.shape)
+        self._stream.wait_stream(torch.cuda.current_stream(buf.device))
+        with torch.cuda.stream(self._stream):
+            host.copy_(buf, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        self.pending = (buf, host, event)
+
+    def flush(self) -> None:
+        """Read the pending segment into :attr:`chunks` (and its sidecar)."""
+        if self.pending is None:
+            return
+        buf, host, event = self.pending
+        self.pending = None
+        if event is None:
+            arr = buf.numpy()
+        else:
+            event.synchronize()
+            arr = host.numpy().copy()
+        if self.cp is not None:
+            self.cp.add_hist_chunk(len(self.chunks), arr)
+        self.chunks.append(arr)
+
+
 @dataclass
 class Moeva2:
-    """MoEvA2 with R-NSGA-III survival; the knobs mirror the JAX engine's,
-    all but ``save_history`` (ROADMAP A7b). ``device`` defaults to the card.
-    The host-side knobs (``n_gen``, ``seed``, the early exit's, quality's,
-    checkpoint's, ``partial_sink`` and ``draw_hook``) may be set per call."""
+    """MoEvA2 with R-NSGA-III survival; the knobs mirror the JAX engine's.
+    ``device`` defaults to the card. The host-side knobs (``n_gen``,
+    ``seed``, the early exit's, quality's, checkpoint's, ``history_chunk``,
+    ``partial_sink`` and ``draw_hook``) may be set per call."""
 
     classifier: Surrogate
     constraints: ConstraintSet
@@ -340,9 +418,13 @@ class Moeva2:
     #: per-state elite archive of the best candidates seen in any generation,
     #: feasible first, appended to the returned populations; 0 = none
     archive_size: int = 0
-    #: "reduced" or "full" records the objectives of every evaluation: not
-    #: ported (ROADMAP A7b), refused
+    #: "reduced" records the objectives (S, N, 3) of every evaluation, "full"
+    #: the objectives and each constraint term thresholded at ``tol`` (S, N,
+    #: 3 + K), in ``MoevaResult.history``; incompatible with the early exit
     save_history: str | None = None
+    #: generation steps per segment with a history: each segment's records
+    #: go to the host while the next one runs
+    history_chunk: int = 50
     #: every ``checkpoint_every`` generations the evolution state (with the
     #: draw source's state) is written atomically to ``checkpoint_path``
     #: (``.chunk{i}`` appended per state chunk); a rerun of the same attack
@@ -440,11 +522,11 @@ class Moeva2:
                 "per-generation history records are not reassembled across "
                 "repacks (run strict mode for history)"
             )
-        if self.save_history:
-            raise NotImplementedError(
-                f"save_history={self.save_history!r} is not ported: the history of every evaluation "
-                "comes with ROADMAP A7b"
-            )
+
+    def history_columns(self) -> int:
+        """Columns of a history record: the 3 objectives, and under "full"
+        the constraint set's terms after them."""
+        return 3 + (self.constraints.get_nb_constraints() if self.save_history == "full" else 0)
 
     @property
     def n_dirs(self) -> int:
@@ -452,19 +534,26 @@ class Moeva2:
         return self.asp_points.shape[0] + 3
 
     # -- objectives (K1, K8) and archive (K4b) -------------------------------
-    def _evaluate(self, run: RunInputs, x_gen: torch.Tensor) -> torch.Tensor:
+    def _evaluate(self, run: RunInputs, x_gen: torch.Tensor, record=None) -> torch.Tensor:
         """(S, N, L) genetic candidates -> (S, N, 3) objectives; the
         constraint set's objective kernel on the card (K1 for LCLD, K8 for
-        botnet), :func:`evaluate_plain` on the CPU."""
+        botnet), :func:`evaluate_plain` on the CPU. ``record``, a (S, N,
+        :meth:`history_columns`) slice of a history buffer, takes the
+        evaluation's history record (:func:`evaluate_hist_plain` on the
+        CPU)."""
         if x_gen.is_cuda:
             from ... import kernels
 
             kernel = getattr(kernels, OBJECTIVE_KERNELS[self.constraints.objective_kernel])
             return kernel(
                 x_gen, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm,
-                run.minimize_class, self._objective,
+                run.minimize_class, self._objective, record=record,
             )
-        return evaluate_plain(self._objective, self.codec, run, x_gen, self.constraints)
+        if record is None:
+            return evaluate_plain(self._objective, self.codec, run, x_gen, self.constraints)
+        f, rec = evaluate_hist_plain(self._objective, self.codec, run, x_gen, self.constraints, self.save_history)
+        record.copy_(rec)
+        return f
 
     def _archive_select(self, cand_x, cand_f):
         """The archive's top-``archive_size`` candidates of one row set;
@@ -515,11 +604,12 @@ class Moeva2:
             gum_mem=gum_mem,
         )
 
-    def init_carry(self, run: RunInputs, gum_cut, gum_mem, ball=None) -> Carry:
+    def init_carry(self, run: RunInputs, gum_cut, gum_mem, ball=None, record=None) -> Carry:
         """Initial population (``lp_ratio`` moves its last rows with the
-        ``ball`` draws), its objectives, the survival warm-up round
-        (everyone survives; the normalisation state warms up) and the
-        archive seeded from the whole initial population."""
+        ``ball`` draws), its objectives (and their history ``record``, (S,
+        P, C), where given), the survival warm-up round (everyone survives;
+        the normalisation state warms up) and the archive seeded from the
+        whole initial population."""
         s = run.x_init_ml.shape[0]
         if self.init == "lp_ratio":
             pop_x = lp_ratio_init(
@@ -528,7 +618,7 @@ class Moeva2:
             )
         else:
             pop_x = tile_init(self.codec, run.x_init_ml, self.pop_size)
-        pop_f = self._evaluate(run, pop_x)
+        pop_f = self._evaluate(run, pop_x, record)
         norm0 = NormState.init(s, 3, self.dtype, self.device)
         _, norm_state, _ = survive_batch(
             pop_f, self.asp_points, norm0, self.pop_size, gum_cut, gum_mem
@@ -543,8 +633,9 @@ class Moeva2:
             draws, crossover_prob=self.crossover_prob, eta_mutation=self.eta_mutation,
         )
 
-    def gen_step(self, run: RunInputs, carry: Carry, draws: GenerationDraws) -> Carry:
-        """One generation: offspring (K5), objectives (K1 or K8), merge, front
+    def gen_step(self, run: RunInputs, carry: Carry, draws: GenerationDraws, record=None) -> Carry:
+        """One generation: offspring (K5), objectives (K1 or K8; with their
+        history ``record``, (S, n_offsprings, C), where given), merge, front
         peel (K2), normalisation (K4a), association (K3), then the fill,
         survivors first in stable order and the archive update (K4b). Each
         stage is a ``record_function`` range, which a profile of the step
@@ -553,7 +644,7 @@ class Moeva2:
         with record_function("moeva.offspring"):
             off = self.offspring(run, pop_x, draws.offspring)
         with record_function("moeva.objectives"):
-            off_f = self._evaluate(run, off)
+            off_f = self._evaluate(run, off, record)
         with record_function("moeva.survival"):
             merged_f = torch.cat([pop_f, off_f], dim=1)
             ranks, norm_state, niche, dist = survive_stages(
@@ -713,9 +804,12 @@ class Moeva2:
                 "budget_gens": (self.n_gen - 1) * len(parts),
                 "compaction": [dict(t, chunk=i) for i, p in enumerate(parts) for t in p.early_stop["compaction"]],
             }
-        quality = parts[0].quality
+        quality, history = parts[0].quality, parts[0].history
         if len(parts) > 1:
             quality = merge_chunk_quality([p.quality for p in parts], [p.x_gen.shape[0] for p in parts])
+            if history is not None:
+                # each record joins the chunks' on the states axis
+                history = [np.concatenate(hs, axis=0) for hs in zip(*(p.history for p in parts))]
         return MoevaResult(
             x_gen=np.concatenate([p.x_gen for p in parts], axis=0),
             f=np.concatenate([p.f for p in parts], axis=0),
@@ -726,13 +820,15 @@ class Moeva2:
             gens_executed=gens_executed,
             early_stop=early_stop,
             quality=quality,
+            history=history,
         )
 
     def _run_one(self, x: np.ndarray, minimize_class: np.ndarray, draws, checkpoint_path) -> MoevaResult:
         """One chunk of states: the JAX engine's ``_launch_one`` and
         ``_finalize_one``. Segments of generation steps end at the gates
         (every ``early_stop_check_every`` generations, or ``quality_every``
-        with ``record_quality``) and at checkpoint boundaries."""
+        with ``record_quality``), at checkpoint boundaries and, with a
+        history, every ``history_chunk`` generations."""
         s = x.shape[0]
         check = int(self.early_stop_check_every or 0)
         qual_on = bool(self.record_quality)
@@ -740,7 +836,11 @@ class Moeva2:
         n_steps = self.n_gen - 1
         run = self.prepare(x, minimize_class)
         init = draws.init(s)
-        carry = self.init_carry(run, init.gum_cut, init.gum_mem, init.ball)
+        hist_cols = self.history_columns() if self.save_history else 0
+        init_hist = None
+        if hist_cols:
+            init_hist = torch.empty((s, self.pop_size, hist_cols), dtype=self.dtype, device=self.device)
+        carry = self.init_carry(run, init.gum_cut, init.gum_mem, init.ball, record=init_hist)
 
         cp = None
         if self.checkpoint_every and checkpoint_path:
@@ -757,12 +857,13 @@ class Moeva2:
         row_live = np.ones(s, dtype=bool)
         parked: dict | None = None
         trace: list = []
+        hist_chunks: list = []
         qual_samples: list = []
         qual_latest = np.full((s, 9), np.nan) if qual_on else None
         if cp is not None:
             resumed = cp.load([*carry[:4], *carry.norm_state, draws.get_state()])
             if resumed is not None:
-                leaves, done, _ = resumed
+                leaves, done, hist_chunks = resumed
                 carry = Carry(*leaves[:4], NormState(*leaves[4:7]))
                 draws.set_state(leaves[7])
                 gens_executed = done
@@ -778,6 +879,7 @@ class Moeva2:
                     if len(row_src) != s:
                         run = self.prepare(x[row_src], minimize_class[row_src])
         menu = self._compaction_menu() if check else None
+        history = _HistorySegments(cp, hist_chunks) if hist_cols else None
         segments = 0  # segments launched, the deferred flushes' witness
         pending: list = []  # at most one gate's deferred host work
 
@@ -817,15 +919,22 @@ class Moeva2:
                 length = min(length, gate_every - done % gate_every)
             if cp is not None:
                 length = min(length, self.checkpoint_every - done % self.checkpoint_every)
+            if history is not None:
+                length = min(length, max(1, int(self.history_chunk)))
             n_rows = len(row_src)
-            for _ in range(length):
-                carry = self.gen_step(run, carry, draws.generation(n_rows))
+            buf = None
+            if history is not None:
+                buf = torch.empty((length, n_rows, self.n_offsprings, hist_cols), dtype=self.dtype, device=self.device)
+            for g in range(length):
+                carry = self.gen_step(run, carry, draws.generation(n_rows), None if buf is None else buf[g])
             segments += 1
             done += length
             gens_executed += length
-            # the previous gate's host work runs while the card executes the
-            # segment just launched
+            # the previous gate's host work and the previous segment's
+            # history run while the card executes the segment just launched
             flush_gate()
+            if history is not None:
+                history.push(buf)
             if gate_every and done % gate_every == 0 and done < n_steps:
                 # the one fetch a gate needs: the (S, 9) statistics
                 stats = self.gate_stats(carry).cpu().numpy()
@@ -883,8 +992,11 @@ class Moeva2:
                 if not self.double_buffer:
                     flush_gate()
             if cp is not None and done < n_steps and done % self.checkpoint_every == 0:
-                # the parked populations join the snapshot
+                # the parked populations join the snapshot, which counts
+                # only history already in its sidecars
                 flush_gate()
+                if history is not None:
+                    history.flush()
                 extra = None
                 if check:
                     extra = {
@@ -897,8 +1009,14 @@ class Moeva2:
                             "gens_executed": int(gens_executed), "trace": trace, "parked": parked is not None,
                         })),
                     }
-                cp.save([*carry[:4], *carry.norm_state, draws.get_state()], done, n_hist=0, extra=extra)
+                cp.save([*carry[:4], *carry.norm_state, draws.get_state()], done, n_hist=len(hist_chunks),
+                        extra=extra)
         flush_gate()
+        records = None
+        if history is not None:
+            history.flush()
+            # the initial record, then one a generation step
+            records = [init_hist.cpu().numpy()] + [c[i] for c in hist_chunks for i in range(c.shape[0])]
 
         pop_x = torch.cat([carry.pop_x, carry.arch_x], dim=1)
         pop_f = torch.cat([carry.pop_f, carry.arch_f], dim=1)
@@ -935,5 +1053,5 @@ class Moeva2:
             }
         return MoevaResult(
             x_gen=pop_x, f=pop_f, x_ml=x_ml, x_initial=x, n_gen=self.n_gen, time=0.0,
-            gens_executed=gens_executed, early_stop=early_stop, quality=quality,
+            gens_executed=gens_executed, early_stop=early_stop, quality=quality, history=records,
         )

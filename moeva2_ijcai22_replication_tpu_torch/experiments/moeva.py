@@ -6,16 +6,20 @@ surrogate), ``check_constraints_error`` on the candidates, the timed
 ``Moeva2.generate``, the populations written to ``x_attacks_*.npy`` before
 the evaluation, the success rates per ε (the objectives evaluated once and
 re-thresholded per ε), the event stream, the config snapshot and the
-metrics JSON last, so that "metrics exists" implies its siblings exist. On
-the card the attack runs the MoEvA kernels (K5, K1 or K8, K2, K4a, K3,
-K4b, and at the gates of an early exit K6).
+metrics JSON last, so that "metrics exists" implies its siblings exist.
+With ``save_history`` ("reduced" or "full") the engine records every
+evaluation, in segments of ``history_chunk`` generations, and the runner
+writes the generation steps' records as ``x_history_{attack}_{hash}.npy``,
+(n_gen - 1, S, n_offsprings, C), beside the populations. On the card the
+attack runs the MoEvA kernels (K5, K1 or K8, K2, K4a, K3, K4b, at the gates
+of an early exit K6, and under "full" the history instantiations of K1 or
+K8).
 
 ``device`` and ``dtype`` are arguments, never config keys: the config hash
 stays the JAX package's. The metrics carry the JAX runner's top-level keys
 except ``telemetry`` (the tracing layer, ROADMAP A14). Knobs that the port
 does not run yet raise ``NotImplementedError`` before any device work:
-``save_history`` (ROADMAP A7b), ``system.trace_log`` and
-``system.profile_dir`` (A14), and a device mesh. The engine's extras are
+``system.trace_log`` and ``system.profile_dir`` (A14), and a device mesh. The engine's extras are
 set per point as the JAX runner sets them: the early exit
 (``early_stop_check_every``, ``early_stop_threshold`` defaulting to
 ``misclassification_threshold``, ``early_stop_eps``,
@@ -64,21 +68,13 @@ from ..utils.streaming import stream_for
 from . import common
 
 
-def refuse_knobs(config: dict) -> None:
-    """Raise for every knob of ``config`` that the port's MoEvA runner does
-    not run yet (see the module docstring)."""
-    common.refuse_knobs(config, {
-        "save_history": (bool(config.get("save_history")), "the history of every evaluation (ROADMAP A7b)"),
-    })
-
-
 def _cached_engine(config, surrogate, constraints, scaler, device, dtype) -> Moeva2:
     """The engine shared by the grid points with the same static config,
     under the JAX runner's key fields (``_cached_engine``) and the engine's
-    device and dtype. ``n_gen``, ``seed`` and the early exit's, quality's
-    and checkpoint's knobs only steer the host loop of ``generate``, which
-    seeds its generator from ``seed`` on every call: they are set per
-    point, not keyed."""
+    device and dtype. ``n_gen``, ``seed``, ``history_chunk`` and the early
+    exit's, quality's and checkpoint's knobs only steer the host loop of
+    ``generate``, which seeds its generator from ``seed`` on every call:
+    they are set per point, not keyed."""
     fields = (
         "engine", "surrogate", "constraints", "scaler", "norm", "n_pop",
         "n_offsprings", "init", "init_eps", "init_ratio", "archive_size",
@@ -120,6 +116,7 @@ def _cached_engine(config, surrogate, constraints, scaler, device, dtype) -> Moe
             init_ratio=config.get("init_ratio", 0.5),
             archive_size=config.get("archive_size", 0),
             max_states_per_call=config.get("max_states_per_call") or None,
+            save_history=config.get("save_history") or None,
             dtype=dtype,
             device=device,
         )
@@ -133,7 +130,7 @@ def run(config: dict, pipeline=None, device="cuda", dtype=torch.float32):
     :class:`.pipeline.GridPipeline`) is given: the evaluation and the
     writes then run on the grid's background writer, which the grid drains
     before it returns."""
-    refuse_knobs(config)
+    common.refuse_knobs(config, {})
     device = resolve_device(device)
     out_dir = config["dirs"]["results"]
     config_hash = get_dict_hash(config)
@@ -166,6 +163,7 @@ def run(config: dict, pipeline=None, device="cuda", dtype=torch.float32):
         moeva.early_stop_eps = float(config.get("early_stop_eps", np.inf))
         buckets = config.get("compaction_buckets")
         moeva.compaction_buckets = tuple(buckets) if buckets else None
+        moeva.history_chunk = int(config.get("history_chunk", 50))
         moeva.record_quality = bool(config.get("record_quality", True))
         moeva.quality_every = int(config.get("quality_every", 0) or 0)
         # a rerun of this config hash resumes mid-attack from the last
@@ -192,6 +190,10 @@ def run(config: dict, pipeline=None, device="cuda", dtype=torch.float32):
     def finalize():
         with timer.phase("write"):
             save_to_file(x_attacks, f"{out_dir}/x_attacks_{mid_fix}_{config_hash}.npy")
+            if config.get("save_history") and len(result.history) > 1:
+                # (n_gen - 1, S, n_offsprings, C): the generation steps'
+                # records, the JAX runner's file
+                np.save(f"{out_dir}/x_history_{mid_fix}_{config_hash}.npy", np.stack(result.history[1:]))
 
         with timer.phase("evaluate"):
             calc = ObjectiveCalculator(

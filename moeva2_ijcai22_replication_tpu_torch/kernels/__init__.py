@@ -9,7 +9,11 @@ In the order a generation launches them:
   botnet domain; plain version ``attacks.moeva.engine.evaluate_plain``. K1's
   instantiation for the augmented LCLD domain counts its launches as
   ``objective_lcld_aug``, K8's for the augmented botnet domain as
-  ``objective_botnet_aug``.
+  ``objective_botnet_aug``. With a history record (MoEvA's
+  ``save_history="full"``), their ``kHistory`` instantiations count as
+  ``objective_lcld_hist``, ``objective_lcld_aug_hist``,
+  ``objective_botnet_hist`` and ``objective_botnet_aug_hist``; plain
+  version ``attacks.moeva.engine.evaluate_hist_plain``.
 - ``nd_peel`` (K2, ``csrc/nd_peel.cu``): non-dominated front peeling; its
   plain version is ``attacks.moeva.nds.nd_ranks_plain``.
 - ``survive_norm`` (K4a, ``csrc/survive_norm.cu``): ideal, worst, extreme
@@ -63,7 +67,8 @@ _LAUNCHES = {
         "offspring", "objective_lcld", "nd_peel", "survive_norm", "associate", "survive_fill",
         "pgd_lcld", "objective_botnet", "pgd_botnet", "objective_lcld_aug", "pgd_lcld_aug",
         "objective_botnet_aug", "pgd_lcld_auto", "pgd_lcld_aug_auto", "pgd_botnet_auto",
-        "gate_stats", "take_carry",
+        "gate_stats", "take_carry", "objective_lcld_hist", "objective_lcld_aug_hist", "objective_botnet_hist",
+        "objective_botnet_aug_hist",
     )
 }
 
@@ -173,6 +178,26 @@ def offspring(tables, pop_x, xl, xu, n_offsprings: int, draws, crossover_prob=0.
     return out
 
 
+def _history_record(record, out, n_terms: int, kernel: str):
+    """The record pointer that ``kernel`` writes, and its output: ``record``
+    (S, N, 3 + C) float32, contiguous, beside ``out`` (S, N, 3) on its
+    device. C = ``n_terms`` (the kept terms, "full") launches the kernel's
+    history instantiation, which writes both; C = 0 ("reduced") makes
+    ``record`` itself the output of the base kernel. None: no record."""
+    if record is None:
+        return None, out
+    s, n, _ = out.shape
+    cols = record.shape[-1] if record.dim() == 3 else -1
+    if cols not in (3, 3 + n_terms):
+        raise ValueError(f"{kernel}'s record must be (S, N, 3) or (S, N, {3 + n_terms}), got {tuple(record.shape)}")
+    _check(record, "record", (s, n, cols))
+    if record.device != out.device:
+        raise ValueError(f"record must lie on {out.device}, got {record.device}")
+    if not record.is_contiguous():
+        raise ValueError(f"{kernel}'s record must be contiguous")
+    return (None, record) if cols == 3 else (record.data_ptr(), out)
+
+
 def _lcld_pairs(lib, cons, kernel: str, d: int, where: str) -> int:
     """The pair count P of the augmented LCLD tables ``cons`` (a
     ``domains.lcld.LcldPairTables``, None on the base domain) that
@@ -191,7 +216,7 @@ def _lcld_pairs(lib, cons, kernel: str, d: int, where: str) -> int:
     return n_pairs
 
 
-def objective_lcld(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj):
+def objective_lcld(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj, record=None):
     """Kernel K1: (S, N, 3) float32 objectives ``[f1, f2, Σ violations]``
     of the LCLD candidates ``x_gen`` (S, N, L), given the run's (S, D) rows
     and ``minimize_class`` (S,) int64, and ``obj`` (an
@@ -201,7 +226,13 @@ def objective_lcld(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, ob
     lie in [0, 47): the kernel does not check them. The kernel reads any
     class but 0 as class 1 and does not check it: ``Moeva2.generate``
     refuses a class outside the head's [0, 2) before anything reaches the
-    card. Launches on the augmented domain count as ``objective_lcld_aug``."""
+    card. Launches on the augmented domain count as ``objective_lcld_aug``.
+
+    ``record``, a contiguous (S, N, 3 + 10 + P) float32 tensor on the same
+    card, makes it launch its history instantiation (counted as
+    ``objective_lcld_hist`` or ``objective_lcld_aug_hist``), which also
+    writes each row's objectives and kept terms there; a (S, N, 3) one is
+    written as the output itself, by the base kernel."""
     from .build import library
 
     if x_gen.dim() != 3 or x_init_ml.dim() != 2:
@@ -238,16 +269,17 @@ def objective_lcld(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, ob
     ins = [None if t is None else t.contiguous() for t in (
         x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj.feat_gene,
         obj.feat_onehot, obj.params, scale, offset, *pairs)]
-    out = torch.empty((s, n, 3), dtype=torch.float32, device=dev)
+    rec, out = _history_record(record, torch.empty((s, n, 3), dtype=torch.float32, device=dev), 10 + n_pairs,
+                               "objective_lcld")
     c_widths = (ctypes.c_int * len(widths))(*widths)
     with torch.cuda.device(dev):
         err = lib.moeva_objective_lcld_f32(
             *map(_ptr, ins[:9]), c_widths, len(widths) - 1, _ptr(ins[9]), _ptr(ins[10]),
-            obj.f2_scale, int(obj.norm_inf), obj.tol, out.data_ptr(), s, n, l, d, _ptr(ins[11]), _ptr(ins[12]),
-            n_pairs, _stream(dev),
+            obj.f2_scale, int(obj.norm_inf), obj.tol, out.data_ptr(), rec, s, n, l, d, _ptr(ins[11]),
+            _ptr(ins[12]), n_pairs, _stream(dev),
         )
     _raise_on_error(lib, err, "objective_lcld")
-    _LAUNCHES["objective_lcld_aug" if n_pairs else "objective_lcld"] += 1
+    _LAUNCHES[("objective_lcld_aug" if n_pairs else "objective_lcld") + ("_hist" if rec else "")] += 1
     return out
 
 
@@ -272,7 +304,7 @@ def _botnet_counts(cons, kernel: str, where: str) -> list:
     return counts
 
 
-def objective_botnet(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj):
+def objective_botnet(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj, record=None):
     """Kernel K8: (S, N, 3) float32 objectives ``[f1, f2, Σ violations]``
     of the botnet candidates ``x_gen`` (S, N, L), the arguments of
     :func:`objective_lcld`; ``obj.cons`` holds the 360 terms' gather lists
@@ -282,7 +314,10 @@ def objective_botnet(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, 
     as class 1, as K1 does. D is 756, or 756 + P on the augmented domain,
     whose P pairs' tables ``obj.cons`` holds too (``pair_idx``, feature
     indices in [0, 756), which the kernel does not check, and
-    ``pair_thr``); its launches count as ``objective_botnet_aug``."""
+    ``pair_thr``); its launches count as ``objective_botnet_aug``.
+    ``record`` as :func:`objective_lcld` takes it, (S, N, 3 + T) over the
+    T = 360 (+ P) terms; the history instantiation counts as
+    ``objective_botnet_hist`` or ``objective_botnet_aug_hist``."""
     from .build import library
 
     if x_gen.dim() != 3 or x_init_ml.dim() != 2:
@@ -334,16 +369,18 @@ def objective_botnet(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, 
     ins = [None if t is None else t.contiguous() for t in (
         x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj.feat_gene,
         obj.feat_onehot, obj.params, obj.first_t, scale, offset, cons.index, *pairs)]
-    out = torch.empty((s, n, 3), dtype=torch.float32, device=dev)
+    n_terms = 2 + counts[4] + counts[6] + counts[8] + counts[10] + n_pairs
+    rec, out = _history_record(record, torch.empty((s, n, 3), dtype=torch.float32, device=dev), n_terms,
+                               "objective_botnet")
     c_counts = (ctypes.c_int * len(counts))(*counts)
     c_widths = (ctypes.c_int * len(widths))(*widths)
     with torch.cuda.device(dev):
         err = lib.moeva_objective_botnet_f32(
             *map(_ptr, ins[:13]), c_counts, c_widths, len(widths) - 1, obj.f2_scale, int(obj.norm_inf), obj.tol,
-            out.data_ptr(), s, n, l, d, _ptr(ins[13]), _ptr(ins[14]), n_pairs, _stream(dev),
+            out.data_ptr(), rec, s, n, l, d, _ptr(ins[13]), _ptr(ins[14]), n_pairs, _stream(dev),
         )
     _raise_on_error(lib, err, "objective_botnet")
-    _LAUNCHES["objective_botnet_aug" if n_pairs else "objective_botnet"] += 1
+    _LAUNCHES[("objective_botnet_aug" if n_pairs else "objective_botnet") + ("_hist" if rec else "")] += 1
     return out
 
 

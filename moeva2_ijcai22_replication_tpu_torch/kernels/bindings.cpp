@@ -60,9 +60,9 @@ int moeva_objective_lcld_f32(const void* x_gen, const void* x_init,
                              const void* params, const int* widths,
                              int n_layers, const void* scale,
                              const void* offset, float f2_scale, int norm_inf,
-                             float tol, void* out, int n_states, int n, int l,
-                             int d, const void* pair_idx, const void* pair_thr,
-                             int n_pairs, void* stream) {
+                             float tol, void* out, void* record, int n_states,
+                             int n, int l, int d, const void* pair_idx,
+                             const void* pair_thr, int n_pairs, void* stream) {
   return static_cast<int>(launch_objective_lcld(
       static_cast<const float*>(x_gen), static_cast<const float*>(x_init),
       static_cast<const float*>(xl), static_cast<const float*>(xu),
@@ -72,7 +72,8 @@ int moeva_objective_lcld_f32(const void* x_gen, const void* x_init,
       static_cast<const int32_t*>(feat_onehot),
       static_cast<const float*>(params), widths, n_layers,
       static_cast<const float*>(scale), static_cast<const float*>(offset),
-      f2_scale, norm_inf, tol, static_cast<float*>(out), n_states, n, l, d,
+      f2_scale, norm_inf, tol, static_cast<float*>(out),
+      static_cast<float*>(record), n_states, n, l, d,
       static_cast<const int32_t*>(pair_idx),
       static_cast<const float*>(pair_thr), n_pairs,
       static_cast<cudaStream_t>(stream)));
@@ -202,8 +203,8 @@ int moeva_objective_botnet_f32(const void* x_gen, const void* x_init,
                                const void* scale, const void* offset,
                                const void* cons, const int* counts,
                                const int* widths, int n_layers, float f2_scale,
-                               int norm_inf, float tol, void* out, int n_states,
-                               int n, int l, int d, const void* pair_idx,
+                               int norm_inf, float tol, void* out, void* record,
+                               int n_states, int n, int l, int d, const void* pair_idx,
                                const void* pair_thr, int n_pairs, void* stream) {
   if (n_layers < 1 || n_layers > kObjectiveMaxLayers ||
       static_cast<long long>(n_states) * n > INT_MAX)
@@ -227,6 +228,7 @@ int moeva_objective_botnet_f32(const void* x_gen, const void* x_init,
   args.norm_inf = norm_inf;
   args.tol = tol;
   args.out = static_cast<float*>(out);
+  args.record = static_cast<float*>(record);
   args.n_rows = n_states * n;
   args.n = n;
   args.l = l;

@@ -136,7 +136,7 @@ def library() -> ctypes.CDLL:
     )
     lib.moeva_offspring_f32.restype = i32
     lib.moeva_objective_lcld_f32.argtypes = (
-        [ptr] * 9 + [ctypes.POINTER(i32), i32, ptr, ptr, f32, i32, f32, ptr] + [i32] * 4 + [ptr, ptr, i32, ptr]
+        [ptr] * 9 + [ctypes.POINTER(i32), i32, ptr, ptr, f32, i32, f32, ptr, ptr] + [i32] * 4 + [ptr, ptr, i32, ptr]
     )
     lib.moeva_objective_lcld_f32.restype = i32
     lib.moeva_survive_norm_f32.argtypes = [ptr] * 11 + [i32] * 3 + [ptr]
@@ -151,7 +151,7 @@ def library() -> ctypes.CDLL:
     )
     lib.moeva_pgd_lcld_f32.restype = i32
     lib.moeva_objective_botnet_f32.argtypes = (
-        [ptr] * 13 + [ctypes.POINTER(i32), ctypes.POINTER(i32), i32, f32, i32, f32, ptr] + [i32] * 4
+        [ptr] * 13 + [ctypes.POINTER(i32), ctypes.POINTER(i32), i32, f32, i32, f32, ptr, ptr] + [i32] * 4
         + [ptr, ptr, i32, ptr]
     )
     lib.moeva_objective_botnet_f32.restype = i32

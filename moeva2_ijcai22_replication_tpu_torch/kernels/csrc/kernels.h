@@ -41,12 +41,14 @@ constexpr size_t kMaxSharedBytes = 232448;
 // M rows of ceil(M/32) words must fit one block's shared memory.
 constexpr int kNdPeelMaxCandidates = 1024;
 
-// objective_lcld: LCLD's feature count, the most XOR pairs of its
-// augmented domain (C(10, 2): k = 10 important features; a row then holds
-// 47 + P features, the pairs' last), and the relu stacks it takes (at most
-// as many weights as fit one block's shared memory beside 8 rows of D
-// floats; the kernel stages them where they fit beside its row tiles).
+// objective_lcld: LCLD's feature count, its constraint terms, the most XOR
+// pairs of its augmented domain (C(10, 2): k = 10 important features; a
+// row then holds 47 + P features, the pairs' last), and the relu stacks it
+// takes (at most as many weights as fit one block's shared memory beside 8
+// rows of D floats; the kernel stages them where they fit beside its row
+// tiles).
 constexpr int kLcldFeatures = 47;
+constexpr int kLcldTerms = 10;
 constexpr int kLcldMaxPairs = 45;
 constexpr int kObjectiveMaxWidth = 128;
 constexpr int kObjectiveMaxLayers = 8;
@@ -170,12 +172,15 @@ cudaError_t launch_offspring(const float* pop, const float* xl,
                              float prob, double eta_p1, double mut_pow,
                              cudaStream_t stream);
 
+// record: null, or the (S * N, 3 + 10 + n_pairs) history record that the
+// kHistory instantiations write beside out: each row's objectives, then its
+// kept constraint terms in the sum's order.
 cudaError_t launch_objective_lcld(
     const float* x_gen, const float* x_init, const float* xl, const float* xu,
     const float* x_init_mm, const int64_t* min_class, const int32_t* feat_gene,
     const int32_t* feat_onehot, const float* params, const int* widths,
     int n_layers, const float* scale, const float* offset, float f2_scale,
-    int norm_inf, float tol, float* out, int n_states, int n, int l, int d,
+    int norm_inf, float tol, float* out, float* record, int n_states, int n, int l, int d,
     const int32_t* pair_idx, const float* pair_thr, int n_pairs,
     cudaStream_t stream);
 
@@ -269,6 +274,10 @@ struct BotnetObjectiveArgs {
   int norm_inf;
   float tol;
   float* out;               // (S * N, 3)
+  // null, or the (S * N, 3 + n_terms) history record that the kHistory
+  // instantiations write beside out: each row's objectives, then its kept
+  // terms in the sum's order (n_terms = 360 + n_pairs on the real tables)
+  float* record;
   int n_rows, n, l, d;
   int n_layers;
   int widths[kObjectiveMaxLayers + 1];

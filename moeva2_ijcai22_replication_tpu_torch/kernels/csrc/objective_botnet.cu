@@ -86,6 +86,17 @@
 // 139 KB, so one block (8 warps) runs on an SM: half the base's
 // occupancy, kept as it is until a redesign (PERF.md). At kXorTerms =
 // false the pair count is the constant 0 and the base's code is unchanged.
+//
+// The history (kHistory, either domain): MoEvA's save_history="full"
+// records each evaluation's objectives and kept terms
+// (attacks/moeva/engine.py::Moeva2._evaluate_hist of the JAX package, the
+// plain version's evaluate_hist_plain). Each round of terms is in the ring
+// before warp 0 sums it; after the round's barrier the warps copy it to the
+// (S * N, 3 + n_terms) record, a row per warp and consecutive terms per
+// lane, so the stores are coalesced; warp 0 adds each row's objectives at
+// columns 0-2 where it writes out. No shared memory is added. The record's
+// bytes (363 floats a row on botnet) are the extra bound; at kHistory =
+// false the copy is compiled out.
 
 #include <cmath>
 
@@ -276,7 +287,7 @@ __device__ __forceinline__ float pair_term(const float* xf, const int16_t* pidx,
   return fabsf(__fsub_rn(xf[at(d - n_pairs + p, r)], a != b ? 1.0f : 0.0f));
 }
 
-template <bool kXorTerms>
+template <bool kXorTerms, bool kHistory>
 __global__ void __launch_bounds__(kThreads, 2)
 objective_botnet_kernel(const BotnetObjectiveArgs args) {
   extern __shared__ __align__(16) float smem[];
@@ -407,6 +418,7 @@ objective_botnet_kernel(const BotnetObjectiveArgs args) {
     const int n_terms = n_base + n_pairs;
     const int per_round = 2 * kChunk * (2 * kTile + h1) / kTile;
     float* kept = ring;
+    [[maybe_unused]] const int rec_cols = 3 + n_terms;
     for (int t0 = 0; t0 < n_terms; t0 += per_round) {
       const int t1 = n_terms - t0 < per_round ? n_terms : t0 + per_round;
       for (int t = t0 + warp; t < t1; t += kWarps) {
@@ -419,6 +431,15 @@ objective_botnet_kernel(const BotnetObjectiveArgs args) {
         kept[(t - t0) * kTile + lane] = v > args.tol ? v : 0.0f;
       }
       __syncthreads();
+      if constexpr (kHistory) {
+        // the round's kept terms to the rows' records, coalesced: a warp
+        // takes a row, its lanes consecutive terms (the ring's reads of one
+        // row all hit one bank)
+        for (int r = warp; r < rows; r += kWarps) {
+          float* rec = args.record + static_cast<size_t>(row0 + r) * rec_cols + 3;
+          for (int t = t0 + lane; t < t1; t += 32) rec[t] = kept[(t - t0) * kTile + r];
+        }
+      }
       if (warp == 0) {
         float g = t0 == 0 ? kept[lane] : g_run[lane];
         for (int t = t0 == 0 ? 1 : t0; t < t1; ++t) g = __fadd_rn(g, kept[(t - t0) * kTile + lane]);
@@ -532,10 +553,19 @@ objective_botnet_kernel(const BotnetObjectiveArgs args) {
       p1 = __fdiv_rn(e1, sum);
     }
     const float dist = dist_run[lane];
+    const float f[3] = {args.min_class[row / args.n] == 0 ? p0 : p1,
+                        __fdiv_rn(args.norm_inf ? dist : __fsqrt_rn(dist), args.f2_scale), g_run[lane]};
     float* out = args.out + 3 * static_cast<size_t>(row);
-    out[0] = args.min_class[row / args.n] == 0 ? p0 : p1;
-    out[1] = __fdiv_rn(args.norm_inf ? dist : __fsqrt_rn(dist), args.f2_scale);
-    out[2] = g_run[lane];
+    out[0] = f[0];
+    out[1] = f[1];
+    out[2] = f[2];
+    if constexpr (kHistory) {
+      const int n_terms = 2 + args.counts[4] + args.counts[6] + args.counts[8] + args.counts[10] + n_pairs;
+      float* rec = args.record + static_cast<size_t>(row) * (3 + n_terms);
+      rec[0] = f[0];
+      rec[1] = f[1];
+      rec[2] = f[2];
+    }
   }
   stamp(8);
   stamp.flush(blockIdx.x == 0 && lane == 0, warp);
@@ -551,14 +581,14 @@ size_t botnet_smem(int d, int h1, int n_entries, int n_pairs) {
          sizeof(int16_t) * (static_cast<size_t>(n_entries) + 2 * static_cast<size_t>(n_pairs));
 }
 
-template <bool kXorTerms>
+template <bool kXorTerms, bool kHistory>
 cudaError_t launch_tiles(const BotnetObjectiveArgs& args, size_t smem, cudaStream_t stream) {
   static LaunchCache cache;
-  const cudaError_t err = cache.prepare(reinterpret_cast<const void*>(objective_botnet_kernel<kXorTerms>),
-                                        kThreads, smem, nullptr);
+  const cudaError_t err = cache.prepare(
+      reinterpret_cast<const void*>(objective_botnet_kernel<kXorTerms, kHistory>), kThreads, smem, nullptr);
   if (err != cudaSuccess) return err;
   const int grid = (args.n_rows + kTile - 1) / kTile;
-  objective_botnet_kernel<kXorTerms><<<grid, kThreads, smem, stream>>>(args);
+  objective_botnet_kernel<kXorTerms, kHistory><<<grid, kThreads, smem, stream>>>(args);
   return cudaGetLastError();
 }
 
@@ -591,7 +621,10 @@ cudaError_t launch_objective_botnet(BotnetObjectiveArgs args, cudaStream_t strea
     return cudaErrorInvalidValue;
   const size_t smem = botnet_smem(args.d, args.widths[1], botnet_entries(args.counts), args.n_pairs);
   if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
-  return args.n_pairs > 0 ? launch_tiles<true>(args, smem, stream) : launch_tiles<false>(args, smem, stream);
+  if (args.record != nullptr)
+    return args.n_pairs > 0 ? launch_tiles<true, true>(args, smem, stream) : launch_tiles<false, true>(args, smem, stream);
+  return args.n_pairs > 0 ? launch_tiles<true, false>(args, smem, stream)
+                          : launch_tiles<false, false>(args, smem, stream);
 }
 
 #ifdef K8_STAMPS

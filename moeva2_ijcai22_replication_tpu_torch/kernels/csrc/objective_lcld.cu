@@ -68,6 +68,16 @@
 // indices and float32 thresholds) are staged beside the per-feature tables;
 // at kPairs = false the feature count is the constant 47 and the pair stage
 // is compiled out, so the base domain's code is what it was.
+//
+// The history (kHistory, either domain): MoEvA's save_history="full"
+// records each evaluation's objectives and kept terms
+// (attacks/moeva/engine.py::Moeva2._evaluate_hist of the JAX package, the
+// plain version's evaluate_hist_plain). The thread that sums a row's terms
+// stores each kept term to the row's (3 + 10 + P)-float record as it adds
+// it, and the threads that write out's f1, f2 and sum store them at columns
+// 0-2, so column 2 is out's sum bit for bit. The record's bytes (13 floats
+// a row on LCLD) are the only extra work; at kHistory = false the stores
+// are compiled out and the base's code is what it was.
 
 #include <climits>
 #include <cmath>
@@ -101,7 +111,8 @@ struct ObjectiveArgs {
   float f2_scale;
   int norm_inf;
   float tol;
-  float* out;  // (S * N, 3)
+  float* out;     // (S * N, 3)
+  float* record;  // (S * N, 3 + 10 + n_pairs) under kHistory, else null
   int n_rows;
   int n;
   int l;
@@ -211,11 +222,17 @@ __device__ __forceinline__ void dense_layer(const float* __restrict__ a,
 }
 
 // The summed LCLD violations of one row; x(k) is feature k of the row,
-// unscaled, read from column xf of a [k][TR] buffer.
-template <int TR>
-__device__ __forceinline__ float lcld_violation(const float* xf, float thr) {
+// unscaled, read from column xf of a [k][TR] buffer. kHistory: each kept
+// term i is also stored to rec[i] (the row's record past its objectives),
+// the value that joins the sum.
+template <int TR, bool kHistory>
+__device__ __forceinline__ float lcld_violation(const float* xf, float thr, float* rec) {
   auto x = [&](int k) { return xf[k * TR]; };
-  auto keep = [&](float t) { return t > thr ? t : 0.0f; };
+  auto keep = [&](int i, float t) {
+    const float v = t > thr ? t : 0.0f;
+    if constexpr (kHistory) rec[i] = v;
+    return v;
+  };
   const float r = __fdiv_rn(x(2), 1200.0f);
   const float growth = __double2float_rn(
       pow(static_cast<double>(__fadd_rn(1.0f, r)), static_cast<double>(x(1))));
@@ -226,39 +243,44 @@ __device__ __forceinline__ float lcld_violation(const float* xf, float thr) {
   const float x22 = x(22);
   float ratio = x11 != 0.0f ? __fdiv_rn(x16, x11) : -1.0f;
   if (!isfinite(ratio)) ratio = -1.0f;
-  float g = keep(__fsub_rn(fabsf(__fsub_rn(x(3), inst)), static_cast<float>(0.099999)));
-  g = __fadd_rn(g, keep(__fsub_rn(x(10), x(14))));
-  g = __fadd_rn(g, keep(__fsub_rn(x16, x11)));
-  g = __fadd_rn(g, keep(fabsf(__fmul_rn(__fsub_rn(36.0f, x(1)), __fsub_rn(60.0f, x(1))))));
-  g = __fadd_rn(g, keep(fabsf(__fsub_rn(x(20), __fdiv_rn(x(0), x(6))))));
-  g = __fadd_rn(g, keep(fabsf(__fsub_rn(x(21), __fdiv_rn(x(10), x(14))))));
-  g = __fadd_rn(g, keep(fabsf(__fsub_rn(x22, __fsub_rn(lcld_months(x(7)), lcld_months(x(9)))))));
-  g = __fadd_rn(g, keep(fabsf(__fsub_rn(x(23), __fdiv_rn(x11, x22)))));
-  g = __fadd_rn(g, keep(fabsf(__fsub_rn(x(24), __fdiv_rn(x16, x22)))));
-  return __fadd_rn(g, keep(fabsf(__fsub_rn(x(25), ratio))));
+  float g = keep(0, __fsub_rn(fabsf(__fsub_rn(x(3), inst)), static_cast<float>(0.099999)));
+  g = __fadd_rn(g, keep(1, __fsub_rn(x(10), x(14))));
+  g = __fadd_rn(g, keep(2, __fsub_rn(x16, x11)));
+  g = __fadd_rn(g, keep(3, fabsf(__fmul_rn(__fsub_rn(36.0f, x(1)), __fsub_rn(60.0f, x(1))))));
+  g = __fadd_rn(g, keep(4, fabsf(__fsub_rn(x(20), __fdiv_rn(x(0), x(6))))));
+  g = __fadd_rn(g, keep(5, fabsf(__fsub_rn(x(21), __fdiv_rn(x(10), x(14))))));
+  g = __fadd_rn(g, keep(6, fabsf(__fsub_rn(x22, __fsub_rn(lcld_months(x(7)), lcld_months(x(9)))))));
+  g = __fadd_rn(g, keep(7, fabsf(__fsub_rn(x(23), __fdiv_rn(x11, x22)))));
+  g = __fadd_rn(g, keep(8, fabsf(__fsub_rn(x(24), __fdiv_rn(x16, x22)))));
+  return __fadd_rn(g, keep(9, fabsf(__fsub_rn(x(25), ratio))));
 }
 
 // g with the consistency terms of the augmented domain's P pairs added in
 // order, |x[d - P + p] - xor(x[i] >= t_i, x[j] >= t_j)| each (the
-// augmented features are a row's last P columns)
-template <int TR>
+// augmented features are a row's last P columns); kHistory: each kept term
+// p also stored to rec[kLcldTerms + p]
+template <int TR, bool kHistory>
 __device__ __forceinline__ float add_pair_terms(float g, const float* xf, float thr, const int* idx,
-                                                const float* t, int n_pairs, int d) {
+                                                const float* t, int n_pairs, int d, float* rec) {
   for (int p = 0; p < n_pairs; ++p) {
     const bool a = xf[idx[2 * p] * TR] >= t[2 * p];
     const bool b = xf[idx[2 * p + 1] * TR] >= t[2 * p + 1];
     const float v = fabsf(__fsub_rn(xf[(d - n_pairs + p) * TR], a != b ? 1.0f : 0.0f));
-    g = __fadd_rn(g, v > thr ? v : 0.0f);
+    const float kept = v > thr ? v : 0.0f;
+    if constexpr (kHistory) rec[kLcldTerms + p] = kept;
+    g = __fadd_rn(g, kept);
   }
   return g;
 }
 
-template <int TR, bool kStaged, bool kPairs>
+template <int TR, bool kStaged, bool kPairs, bool kHistory>
 __global__ void __launch_bounds__(2 * TR)
 objective_lcld_kernel(ObjectiveArgs args, MlpShape shape) {
   constexpr int kThreads = 2 * TR;
   const int d = kPairs ? args.d : kLcldFeatures;
   const int n_pairs = kPairs ? args.n_pairs : 0;
+  // kHistory: a row's record, its objectives then its kept terms
+  [[maybe_unused]] const int rec_cols = 3 + kLcldTerms + n_pairs;
   extern __shared__ __align__(16) unsigned char smem[];
   float* act0 = reinterpret_cast<float*>(smem);       // (buf_rows, TR)
   float* act1 = act0 + args.buf_rows * TR;            // (buf_rows, TR)
@@ -389,11 +411,16 @@ objective_lcld_kernel(ObjectiveArgs args, MlpShape shape) {
           }
         }
         if (!args.norm_inf) dist = __fsqrt_rn(dist);
-        args.out[3 * static_cast<size_t>(row) + 1] = __fdiv_rn(dist, args.f2_scale);
+        const float f2 = __fdiv_rn(dist, args.f2_scale);
+        args.out[3 * static_cast<size_t>(row) + 1] = f2;
+        if constexpr (kHistory) args.record[static_cast<size_t>(rec_cols) * row + 1] = f2;
       } else {
-        float g = lcld_violation<TR>(act1 + rr, args.tol);
-        if constexpr (kPairs) g = add_pair_terms<TR>(g, act1 + rr, args.tol, pidx, pthr, n_pairs, d);
+        float* rec = kHistory ? args.record + static_cast<size_t>(rec_cols) * row : nullptr;
+        float g = lcld_violation<TR, kHistory>(act1 + rr, args.tol, kHistory ? rec + 3 : nullptr);
+        if constexpr (kPairs)
+          g = add_pair_terms<TR, kHistory>(g, act1 + rr, args.tol, pidx, pthr, n_pairs, d, kHistory ? rec + 3 : nullptr);
         args.out[3 * static_cast<size_t>(row) + 2] = g;
+        if constexpr (kHistory) rec[2] = g;
       }
     }
     __syncthreads();
@@ -437,16 +464,18 @@ objective_lcld_kernel(ObjectiveArgs args, MlpShape shape) {
         p0 = __fdiv_rn(e0, sum);
         p1 = __fdiv_rn(e1, sum);
       }
-      args.out[3 * static_cast<size_t>(row)] = args.min_class[s] == 0 ? p0 : p1;
+      const float f1 = args.min_class[s] == 0 ? p0 : p1;
+      args.out[3 * static_cast<size_t>(row)] = f1;
+      if constexpr (kHistory) args.record[static_cast<size_t>(rec_cols) * row] = f1;
     }
     __syncthreads();
   }
 }
 
-template <int TR, bool kStaged, bool kPairs>
+template <int TR, bool kStaged, bool kPairs, bool kHistory>
 cudaError_t launch_tiles(const ObjectiveArgs& args, const MlpShape& shape,
                          size_t smem, cudaStream_t stream) {
-  auto kernel = objective_lcld_kernel<TR, kStaged, kPairs>;
+  auto kernel = objective_lcld_kernel<TR, kStaged, kPairs, kHistory>;
   constexpr int kThreads = 2 * TR;
   static LaunchCache cache;
   int resident = 0;
@@ -468,7 +497,7 @@ size_t objective_smem(int tile_rows, int buf_rows, int l, int w_floats, int d, i
          sizeof(int) * (2 * d + 2 * n_pairs);
 }
 
-template <bool kPairs>
+template <bool kPairs, bool kHistory>
 cudaError_t launch_objective(ObjectiveArgs& args, const MlpShape& shape, int stack_floats,
                              cudaStream_t stream) {
   // stage the stack where it fits beside the buffers of 128-row tiles; a
@@ -477,11 +506,11 @@ cudaError_t launch_objective(ObjectiveArgs& args, const MlpShape& shape, int sta
   const size_t smem = objective_smem(128, args.buf_rows, args.l, stack_floats, args.d, args.n_pairs);
   if (smem <= kMaxSharedBytes) {
     args.w_floats = stack_floats;
-    return launch_tiles<128, true, kPairs>(args, shape, smem, stream);
+    return launch_tiles<128, true, kPairs, kHistory>(args, shape, smem, stream);
   }
   const size_t smem_global = objective_smem(64, args.buf_rows, args.l, 0, args.d, args.n_pairs);
   if (smem_global > kMaxSharedBytes) return cudaErrorInvalidValue;
-  return launch_tiles<64, false, kPairs>(args, shape, smem_global, stream);
+  return launch_tiles<64, false, kPairs, kHistory>(args, shape, smem_global, stream);
 }
 
 }  // namespace
@@ -491,7 +520,7 @@ cudaError_t launch_objective_lcld(
     const float* x_init_mm, const int64_t* min_class, const int32_t* feat_gene,
     const int32_t* feat_onehot, const float* params, const int* widths,
     int n_layers, const float* scale, const float* offset, float f2_scale,
-    int norm_inf, float tol, float* out, int n_states, int n, int l, int d,
+    int norm_inf, float tol, float* out, float* record, int n_states, int n, int l, int d,
     const int32_t* pair_idx, const float* pair_thr, int n_pairs,
     cudaStream_t stream) {
   if (n_states == 0 || n == 0) return cudaSuccess;
@@ -518,7 +547,10 @@ cudaError_t launch_objective_lcld(
   if (static_cast<long long>(n_states) * n > INT_MAX) return cudaErrorInvalidValue;
   ObjectiveArgs args{x_gen, x_init, xl, xu, x_init_mm, min_class, feat_gene,
                      feat_onehot, params, scale, offset, f2_scale, norm_inf, tol,
-                     out, n_states * n, n, l, buf_rows, 0, d, pair_idx, pair_thr, n_pairs};
-  return n_pairs > 0 ? launch_objective<true>(args, shape, stack_floats, stream)
-                     : launch_objective<false>(args, shape, stack_floats, stream);
+                     out, record, n_states * n, n, l, buf_rows, 0, d, pair_idx, pair_thr, n_pairs};
+  if (record != nullptr)
+    return n_pairs > 0 ? launch_objective<true, true>(args, shape, stack_floats, stream)
+                       : launch_objective<false, true>(args, shape, stack_floats, stream);
+  return n_pairs > 0 ? launch_objective<true, false>(args, shape, stack_floats, stream)
+                     : launch_objective<false, false>(args, shape, stack_floats, stream);
 }

@@ -1,12 +1,14 @@
 """Checkpoint and resume of the port's MoEvA2 engine: a run interrupted
 after a checkpoint and run again resumes there and ends bit-identical to an
 uninterrupted run (strict, early exit with a compacted active set, state
-chunks); a stale or corrupt checkpoint is ignored; the fingerprint follows
-the inputs, the bounds, the weights and the scaler."""
+chunks, and the history of every evaluation, whose segments the snapshots
+count in sidecars); a stale or corrupt checkpoint is ignored; the
+fingerprint follows the inputs, the bounds, the weights and the scaler."""
 
 from __future__ import annotations
 
 import copy
+import json
 import os
 
 import numpy as np
@@ -52,6 +54,10 @@ def _assert_same(a, b):
     for k in ("x_gen", "f", "x_ml"):
         np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
     assert a.gens_executed == b.gens_executed and a.early_stop == b.early_stop
+    assert (a.history is None) == (b.history is None)
+    for ha, hb in zip(a.history or (), b.history or ()):
+        np.testing.assert_array_equal(ha, hb)
+    assert len(a.history or ()) == len(b.history or ())
 
 
 class Crash(RuntimeError):
@@ -62,6 +68,9 @@ CASES = {
     "strict": (dict(), None),
     "early-exit": (EARLY, None),
     "chunked": (dict(EARLY, early_stop_threshold=0.48, max_states_per_call=12), ".chunk1"),
+    # segments of 3 generations, cut at the checkpoints every 4
+    "history-reduced": (dict(save_history="reduced", history_chunk=3), None),
+    "history-full": (dict(save_history="full", history_chunk=3, max_states_per_call=16), ".chunk1"),
 }
 
 
@@ -78,6 +87,12 @@ def test_resume_after_a_crash_is_bit_identical(problem, tmp_path, monkeypatch, c
 
     def crashing_save(self, *args, **kwargs):
         save(self, *args, **kwargs)
+        if knobs.get("save_history"):
+            # the snapshot counts the history segments already in sidecars
+            with np.load(self.path) as z:
+                n_hist = json.loads(str(z["__meta__"]))["n_hist"]
+            assert n_hist == kwargs["n_hist"] > 0
+            assert len(os.listdir(self.hist_dir)) >= n_hist
         if crash_in is None or self.path.endswith(crash_in):
             saves.append(self.path)
             if len(saves) == 2:

@@ -316,15 +316,22 @@ def test_strict_quality_is_the_final_sample(lcld):
 
 
 def test_save_history_is_refused(lcld):
+    """The history with the early exit raises the JAX engine's ValueError,
+    at construction and at ``generate``; the history alone runs."""
     x = synth_lcld(2, lcld["cons"].schema, seed=1)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        _port_engine(lcld, x, n_pop=10, save_history="full")
-    with pytest.raises(ValueError, match="incompatible with save_history"):
+    msg = "incompatible with save_history"
+    with pytest.raises(ValueError, match=msg):
         _port_engine(lcld, x, n_pop=10, save_history="reduced", early_stop_check_every=2)
-    eng = _port_engine(lcld, x, n_pop=10, n_gen=3)
-    eng.save_history = "full"
-    with pytest.raises(NotImplementedError, match="A7b"):
+    eng = _port_engine(lcld, x, n_pop=10, n_gen=3, save_history="full")
+    eng.early_stop_check_every = 2
+    with pytest.raises(ValueError, match=msg):
         eng.generate(x, 1)
+    jeng = _jax_engine(lcld, x, n_pop=10, n_gen=3, save_history="full", early_stop_check_every=2)
+    with pytest.raises(ValueError, match=msg):
+        jeng.generate(x, 1)
+    eng.early_stop_check_every = 0
+    res = eng.generate(x, 1)
+    assert [h.shape for h in res.history] == [(2, eng.pop_size, 13)] + [(2, eng.n_offsprings, 13)] * 2
 
 
 def test_quality_helpers_match_jax():

@@ -21,7 +21,8 @@ import torch
 from moeva2_ijcai22_replication_tpu_torch import kernels
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import (
-    GeneratorDraws, archive_select_plain, evaluate_plain, extract_archive_plain, final_columns_plain,
+    GeneratorDraws, archive_select_plain, evaluate_hist_plain, evaluate_plain, extract_archive_plain,
+    final_columns_plain,
     make_objective_tables, take_carry_plain,
 )
 from moeva2_ijcai22_replication_tpu_torch.attacks.objective import engine_quality_stats
@@ -495,6 +496,8 @@ def test_launch_counts_reset():
         "survive_norm": 0, "associate": 0, "survive_fill": 0, "pgd_lcld": 0, "objective_botnet": 0,
         "pgd_botnet": 0, "objective_lcld_aug": 0, "pgd_lcld_aug": 0, "objective_botnet_aug": 0,
         "pgd_lcld_auto": 0, "pgd_lcld_aug_auto": 0, "pgd_botnet_auto": 0, "gate_stats": 0, "take_carry": 0,
+        "objective_lcld_hist": 0, "objective_lcld_aug_hist": 0, "objective_botnet_hist": 0,
+        "objective_botnet_aug_hist": 0,
     }
 
 
@@ -1421,3 +1424,68 @@ def test_gate_repack_wrappers_refuse_cpu_tensors():
                      (torch.tensor([[0]]), ValueError), (torch.tensor([0], dtype=torch.int32), TypeError)):
         with pytest.raises(err):
             kernels._host_rows(bad, 5)
+
+
+# -- K1h and K8h: the history instantiations of K1 and K8 -----------------------
+
+
+def _history_case(card, request, domain, s, n):
+    """An engine, its run inputs for ``s`` states, (S, N, L) candidates with
+    the domain's edge rows (ratio poles, NaN and infinite terms), the
+    kernel and its base and history launch counters."""
+    if domain == "lcld":
+        eng, run, carry, _ = _engine_state(card, request.getfixturevalue("lcld"), s, seed=s + n)
+        return eng, run, _hard_offspring(eng, carry.pop_x[:, :n]), kernels.objective_lcld, "objective_lcld"
+    if domain == "lcld_aug":
+        lcld_aug = request.getfixturevalue("lcld_aug")
+        cons, sur, scaler, x = lcld_aug
+        eng = Moeva2(sur, cons, ml_scaler=scaler, device=card, n_pop=100, n_offsprings=100, seed=s)
+        run = eng.prepare(x[:s], np.arange(s) % 2)
+        gen = torch.Generator(device=card).manual_seed(s)
+        pop = eng.init_carry(run, *draw_gumbels(gen, s, eng.n_dirs, eng.pop_size)).pop_x
+        cand = _aug_candidates(eng, lcld_aug, _hard_offspring(eng, pop[:, :n]))
+        return eng, run, cand, kernels.objective_lcld, "objective_lcld_aug"
+    if domain == "botnet":
+        eng, run, cand = _botnet_case(card, request.getfixturevalue("botnet"), s, n, seed=s + n)
+        return eng, run, cand, kernels.objective_botnet, "objective_botnet"
+    eng, run, cand = _botnet_aug_case(card, request.getfixturevalue("botnet_aug"), s, n, seed=s + n)
+    return eng, run, cand, kernels.objective_botnet, "objective_botnet_aug"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain", ["lcld", "lcld_aug", "botnet", "botnet_aug"])
+@pytest.mark.parametrize("s,n", [(64, 100), (3, 100), (1, 7), (5, 27)])
+def test_history_instantiations_equal_plain(card, request, domain, s, n):
+    """The history instantiation (``record`` of 3 + K columns) writes the
+    plain history form's record bit for bit, NaN and inf included, and an
+    ``out`` equal to the base kernel's; a (S, N, 3) record is the base
+    kernel's output itself."""
+    eng, run, cand, kernel, base = _history_case(card, request, domain, s, n)
+    args = (cand, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class, eng._objective)
+    want_out = kernel(*args)
+    record = torch.full((s, n, 3 + eng.constraints.get_nb_constraints()), float("nan"), device=card)
+    before = kernels.launch_counts()
+    out = kernel(*args, record=record)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after[base + "_hist"] == before[base + "_hist"] + 1 and after[base] == before[base]
+    f, want = evaluate_hist_plain(eng._objective, eng.codec, run, cand, eng.constraints, "full")
+    assert not bool(torch.isfinite(want).all())  # the edge rows show
+    assert _same(out, want_out) and _same(out, f) and _same(record, want)
+    reduced = torch.full((s, n, 3), float("nan"), device=card)
+    got = kernel(*args, record=reduced)
+    assert got.data_ptr() == reduced.data_ptr() and _same(reduced, want_out)
+    assert kernels.launch_counts()[base] == after[base] + 1
+
+
+@pytest.mark.cuda
+def test_history_record_is_checked(card, lcld):
+    eng, run, carry, _ = _engine_state(card, lcld, 4, seed=1)
+    args = (carry.pop_x, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class, eng._objective)
+    p = carry.pop_x.shape[1]
+    for bad, match in ((torch.empty((4, p, 12), device=card), "record must be"),
+                       (torch.empty((4, p, 13), device=card, dtype=torch.float64), "float32"),
+                       (torch.empty((4, 13, p), device=card).transpose(1, 2), "contiguous"),
+                       (torch.empty((4, p, 13)), "CUDA tensor")):
+        with pytest.raises((ValueError, TypeError), match=match):
+            kernels.objective_lcld(*args, record=bad)

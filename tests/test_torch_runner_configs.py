@@ -191,3 +191,24 @@ def test_the_one_cut_of_phase_13_is_flip_sat():
         "sm1.2.lcld.yaml": {"loss_evaluations": ("flip+sat",)},
         "sm1.2.botnet.yaml": {"loss_evaluations": ("flip+sat",)},
     }
+
+
+def test_phase_16_config_is_the_repo_config():
+    """Phase 16's runner config: the grid runner's composition of
+    ``config/moeva.yaml`` with ``config/lcld.yaml`` (the full-history
+    config) at rq1.lcld's seed, first budget and ε, apart from the artifact
+    paths and the results directory; its "reduced" and history-free runs
+    differ in ``save_history`` alone."""
+    smoke = _smoke()
+    grid = load_config_file(os.path.join(REPO, "config", "rq1.lcld.yaml"))
+    (seed,) = grid["seeds"]
+    want = _compose("moeva", "lcld", [{"seed": seed, "budget": grid["budgets"][0]}, {"eps_list": grid["eps_list"]}])
+    got = smoke.history_config("/artifacts", "full")
+    assert set(got["paths"]) == set(want["paths"])
+    for key in ("paths", "dirs"):
+        got.pop(key), want.pop(key)
+    assert got == want
+    for mode in ("reduced", False):
+        other = smoke.history_config("/artifacts", mode)
+        assert other["save_history"] == mode and {**other, "save_history": "full"} == smoke.history_config(
+            "/artifacts", "full")

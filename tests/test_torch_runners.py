@@ -237,7 +237,6 @@ def test_pgd_runner_refuses_nan_rows_as_jax(jax_runners, tmp_path):
 
 
 REFUSED = [
-    ("moeva", {"save_history": "full"}, "save_history"),
     ("moeva", {"system": {"trace_log": "trace.jsonl"}}, "system.trace_log"),
     ("moeva", {"system": {"profile_dir": "prof"}}, "system.profile_dir"),
     ("moeva", {"system": {"mesh_devices": 8}}, "system.mesh_devices"),
@@ -261,11 +260,21 @@ def test_refused_knob_raises_before_any_device_work(artifacts, tmp_path, base, o
 
 
 def test_save_history_is_refused_naming_its_item(artifacts, tmp_path):
+    """``save_history`` runs through the runner, which writes its
+    ``x_history`` file; with ``early_stop_check_every`` it raises the JAX
+    engine's ``ValueError`` (the early exit's repacks would cut the records'
+    states axis) before the attack writes anything."""
     cfg = _config(artifacts, tmp_path / "out", "moeva", budget=5, eps_list=[0.2], save_history="reduced",
                   early_stop_check_every=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-        pmoeva.run(cfg, device="cpu")
-    assert not (tmp_path / "out").exists()
+    common.ENGINES.clear()
+    with pytest.raises(ValueError, match="early_stop_check_every is incompatible with save_history"):
+        pmoeva.run(copy.deepcopy(cfg), device="cpu")
+    assert not list((tmp_path / "out").iterdir())
+    cfg["early_stop_check_every"] = 0
+    metrics = pmoeva.run(cfg, device="cpu")
+    history = np.load(tmp_path / "out" / f"x_history_moeva_{metrics['config_hash']}.npy")
+    assert history.shape == (4, N_STATES, cfg["n_offsprings"], 3)
+    common.ENGINES.clear()
 
 
 #: the engine's extras, each run by the runner on the CPU: (id, config

@@ -38,8 +38,9 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 PACKAGE = "moeva2_ijcai22_replication_tpu_torch"
-#: K8's base entry: a template over its pair flag, or the parent's plain kernel
-BASE_ENTRIES = ("objective_botnet_kernel<0>", "objective_botnet_kernel")
+#: K8's base entry: a template over its pair and history flags, over its pair
+#: flag alone (a parent's), or a parent's plain kernel
+BASE_ENTRIES = ("objective_botnet_kernel<0,0>", "objective_botnet_kernel<0>", "objective_botnet_kernel")
 
 
 def load_tree(name: str, root: Path, links: Path):

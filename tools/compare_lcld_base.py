@@ -38,6 +38,13 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 PACKAGE = "moeva2_ijcai22_replication_tpu_torch"
+#: the base K1's and K7's entries: templates over the history, pair and
+#: AutoPGD flags, or a parent's with fewer of them
+BASE_ENTRIES = (
+    "objective_lcld_kernel<128,1,0,0>", "objective_lcld_kernel<64,0,0,0>", "objective_lcld_kernel<128,1,0>",
+    "objective_lcld_kernel<64,0,0>", "objective_lcld_kernel<128,1>", "objective_lcld_kernel<64,0>",
+    "pgd_lcld_kernel<0,0>", "pgd_lcld_kernel<0>", "pgd_lcld_kernel",
+)
 
 
 def load_tree(name: str, root: Path, links: Path):
@@ -49,9 +56,7 @@ def load_tree(name: str, root: Path, links: Path):
         importlib.import_module(f"port_{name}.{sub}")
     pkg.kernels.build.library()
     for k in cs.ptxas_resources(pkg.kernels.build.build().log):
-        if k["kernel"] in ("objective_lcld_kernel<128,1,0>", "objective_lcld_kernel<64,0,0>", "pgd_lcld_kernel<0,0>",
-                           "pgd_lcld_kernel<0>", "objective_lcld_kernel<128,1>", "objective_lcld_kernel<64,0>",
-                           "pgd_lcld_kernel"):
+        if k["kernel"] in BASE_ENTRIES:
             print(f"[ptxas] {name}: {k['kernel']}: {k['registers']} registers, {k['stack']} bytes stack frame, "
                   f"{k['spill_stores']} + {k['spill_loads']} bytes spill stores + loads")
     return pkg
