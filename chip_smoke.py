@@ -8,10 +8,11 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero:
 
 1. versions: torch, CUDA, and the card's name and power limit (nvidia-smi);
-2. build the port's ten CUDA kernel sources (K1 and K7 with an
+2. build the port's eleven CUDA kernel sources (K1 and K7 with an
    instantiation each for the augmented LCLD domain, K7 two more for
    AutoPGD, K8 one for the augmented botnet domain, K1 and K8 their history
-   instantiations for each domain, K6's two kernels in one source)
+   instantiations for each domain, K6's two kernels in one source, K9 for
+   domains compiled from a spec)
    from the sources in the checkout and
    print each kernel's ptxas registers, shared memory, stack frame and
    spill (none of the redesigned ones, ``REDESIGNED``, may spill);
@@ -251,6 +252,31 @@ Phases, in order; any failure exits non-zero:
    layout, no NaN term and column 2 the terms' sum. No grid file sets
    ``save_history``: phase 13 launches no ``HISTORY_COUNTERS``, which phase
    16 must launch.
+17. domains compiled from a constraint spec (the ``[spec]`` lines, ROADMAP
+   A11; kernel K9 ``objective_spec``): the ptxas lines of K9's six
+   instantiations (tiles of 128, 64 and 32 rows, with and without the
+   history; none may spill); K9 and its ``kHistory`` instantiation against
+   ``evaluate_plain`` and ``evaluate_hist_plain`` on the card, bit for bit,
+   on ``lcld_spec``, ``botnet_spec``, phishing and two seeded families
+   (``SPEC_FAMILIES``) over ``SPEC_SWEEP`` (partial tiles, tiles spanning
+   states) under L2 and L-inf, the candidates led by the spec operators'
+   edge rows (``problems.spec_candidates``: 0, -0.0, NaN and ±inf
+   denominators of ``/``, ``safe_div`` and ``finite_div``, membership
+   values met, ±0 everywhere, features at their bounds); K9 on
+   ``lcld_spec`` against K1 on LCLD and on ``botnet_spec`` against K8 on
+   botnet, bit for bit, out and history record, on the same inputs; K9 timed
+   at ``SPEC_TIMED`` (CUDA graph of 20) beside K1 and K8 in turns, through
+   its wrapper, its plain version and its bound, and K9h beside K9;
+   rq1.lcld's MoEvA point through ``experiments.moeva.run`` with a
+   ``spec:`` key (4000 states, budget 100) with phase 10's checks, its
+   ``x_attacks`` equal to the same point on ``lcld``; ``Moeva2.generate``
+   on ``botnet_spec`` (387 states, budget cut to 100) and on ``lcld_spec``
+   with ``save_history`` "full" and "reduced", each equal to its
+   hand-written twin's run bit for bit, launch counts set to 0 just before
+   and read just after; and phishing's o1..o7 on the card at the oracle
+   fixture's config within its tolerance of ``oracle_ga``. No grid file
+   names a spec domain: phase 13 launches no ``SPEC_COUNTERS``, which
+   phase 17 must launch.
 
 The last three lines are the per-kernel JSON record (with each kernel's
 launches over phase 13's grids, ``grid_launches``), the card's name and
@@ -2916,6 +2942,8 @@ def counter_name(cons, kind: str) -> str:
     for the augmented domains count apart (their tables carry the pairs:
     LCLD's are the pair tables, botnet's hold them beside the gather lists)."""
     base = f"{kind}_{cons.objective_kernel if kind == 'objective' else cons.pgd_kernel}"
+    if base == "objective_spec":  # K9 reads a program, with no pairs
+        return base
     tables = cons.kernel_tables("cpu")
     return f"{base}_aug" if tables is not None and getattr(tables, "pair_idx", tables) is not None else base
 
@@ -5208,6 +5236,406 @@ def run_history(device, smi: str, resources: list, records: list) -> dict:
     return launches
 
 
+# -- phase 17: domains compiled from a constraint spec (K9) --------------------------
+
+#: K9's launch counts. No grid file of ``config/`` names a spec domain:
+#: phase 13 launches none of them, which phase 17 must launch
+SPEC_COUNTERS = ("objective_spec", "objective_spec_hist")
+#: the seeded families phase 17 holds K9 on (D = 13), and their states
+SPEC_FAMILIES = (2, 5)
+SPEC_FAMILY_STATES = 256
+#: K9's sweep (states, candidates): fewer rows than a tile, partial tiles of
+#: 128, 64 and 32 rows, tiles spanning states, the population's 203 rows
+SPEC_SWEEP = ((1, 7), (3, 100), (5, 27), (64, 203), (131, 100))
+#: the shapes K9 is timed at, beside K1 and K8: the main path's and
+#: rq1.botnet's (states, offspring)
+SPEC_TIMED = {"lcld_spec": (1000, 100), "botnet_spec": (387, 100)}
+#: botnet_spec's generate beside botnet's: config/rq1.botnet.yaml's run cut
+#: to 100 generations (of its 1000) to keep phase 17 near 90 s
+SPEC_BOTNET_KNOBS = dict(BOTNET_KNOBS, n_gen=100)
+#: lcld_spec's engine with a history beside lcld's: 256 states (one chunk of
+#: config/moeva.yaml's) x 20 generations, "full" then "reduced"
+SPEC_HISTORY_STATES = 256
+SPEC_HISTORY_KNOBS = dict(norm=2, n_gen=20, n_pop=200, n_offsprings=100, archive_size=24, seed=42,
+                          history_chunk=7)
+#: the phishing fixture's domain in tests/fixtures/oracle_interior_rates.json
+SPEC_ORACLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                           "oracle_interior_rates.json")
+
+
+def spec_problems(tmp: str) -> dict:
+    """Phase 17's spec domains: name -> (constraints, surrogate, scaler,
+    states): ``lcld_spec`` on 1000 synthetic LCLD states and ``botnet_spec``
+    on rq1.botnet's 387 (the hand-written problems' files, rows, surrogates
+    and scalers), phishing at the oracle fixture's config and the seeded
+    families ``SPEC_FAMILIES``."""
+    from moeva2_ijcai22_replication_tpu_torch.problems import (
+        phishing_problem, synthetic_botnet_spec_problem, synthetic_family_problem, synthetic_lcld_spec_problem,
+    )
+
+    with open(SPEC_ORACLE) as f:
+        cfg = json.load(f)["domains"]["phishing"]["config"]
+    out = {
+        "lcld_spec": synthetic_lcld_spec_problem(f"{tmp}/lcld", N_STATES),
+        "botnet_spec": synthetic_botnet_spec_problem(f"{tmp}/botnet", BOTNET_STATES),
+        "phishing": phishing_problem(cfg),
+    }
+    for k in SPEC_FAMILIES:
+        out[f"family{k}"] = synthetic_family_problem(f"{tmp}/family{k}", k, SPEC_FAMILY_STATES)
+    return out
+
+
+def spec_inputs(eng, x: np.ndarray, s: int, n: int, seed: int = 0):
+    """(run inputs, candidates (S, N, L) float32 on the engine's card) for
+    the first ``s`` of the states ``x`` (repeated where fewer): the spec
+    operators' edge rows first, then perturbed states
+    (``problems.spec_candidates``)."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch.problems import spec_candidates
+
+    xs = np.resize(x, (s, x.shape[1]))
+    run = eng.prepare(xs, np.arange(s) % 2)
+    cand = spec_candidates(eng._codec_cpu, eng.constraints, xs, n, seed=seed)
+    return run, torch.as_tensor(cand, dtype=torch.float32, device=run.x_init_ml.device)
+
+
+def kernel_args(run, cand, eng) -> tuple:
+    return cand, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class, eng._objective
+
+
+def check_spec_kernel(device, name: str, problem) -> dict:
+    """K9 and its history instantiation against ``evaluate_plain`` and
+    ``evaluate_hist_plain`` on the card, bit for bit, on ``name``'s problem
+    over ``SPEC_SWEEP`` under L2 and L-inf, the candidates led by the spec's
+    edge rows; out of both instantiations equal, column 2 the kept terms'
+    left-to-right sum. Returns counts for the log."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import evaluate_hist_plain, evaluate_plain
+
+    cons, sur, scaler, x = problem
+    cases = rows = nonfinite = 0
+    for norm in (2, "inf"):
+        eng = Moeva2(sur, cons, ml_scaler=scaler, norm=norm, n_pop=100, n_offsprings=100, device=device,
+                     save_history="full")
+        for s, n in SPEC_SWEEP:
+            run, cand = spec_inputs(eng, x, s, n, seed=s + n)
+            args = kernel_args(run, cand, eng)
+            record = torch.full((s, n, eng.history_columns()), float("nan"), device=device)
+            kernels.reset_launch_counts()
+            out = kernels.objective_spec(*args)
+            out_h = kernels.objective_spec(*args, record=record)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            if counts["objective_spec"] != 1 or counts["objective_spec_hist"] != 1:
+                raise AssertionError(f"{name}: launches {counts}, not one of objective_spec and one of its history")
+            what = f"objective_spec on {name} (S={s} N={n}, norm {norm})"
+            hold_equal(out, evaluate_plain(eng._objective, eng.codec, run, cand, cons), what)
+            f, want = evaluate_hist_plain(eng._objective, eng.codec, run, cand, cons, "full")
+            hold_equal(out_h, f, f"{what}'s history instantiation's out")
+            hold_equal(record, want, f"{what}'s record")
+            hold_equal(left_to_right_terms(record), record[..., 2], f"{what}'s column 2")
+            cases += 1
+            rows += s * n
+            nonfinite += int((~torch.isfinite(out)).any(-1).sum())
+    return {"cases": cases, "rows": rows, "nonfinite": nonfinite, "terms": cons.n_constraints,
+            "features": cons.schema.n_features, "instructions": int(cons.program.code.shape[0]),
+            "slots": cons.program.n_slots}
+
+
+def spec_twins(device, problems: dict, tmp: str) -> dict:
+    """Per twin pair, (spec engine, hand-written engine, states): lcld_spec
+    and LCLD, botnet_spec and botnet, on the same files, surrogate and
+    scaler, each with a history."""
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
+    from moeva2_ijcai22_replication_tpu_torch.problems import synthetic_botnet_problem, synthetic_lcld_problem
+
+    out = {}
+    for name, make, n in (("lcld_spec", synthetic_lcld_problem, N_STATES),
+                          ("botnet_spec", synthetic_botnet_problem, BOTNET_STATES)):
+        cons, sur, scaler, x = problems[name]
+        hand = make(f"{tmp}/{name}_twin", n)[0]
+        knobs = dict(ml_scaler=scaler, norm=2, n_pop=100, n_offsprings=100, device=device, save_history="full")
+        out[name] = (Moeva2(sur, cons, **knobs), Moeva2(sur, hand, **knobs), x)
+    return out
+
+
+def check_spec_twins(device, twins: dict) -> None:
+    """K9 on lcld_spec against K1 on LCLD and on botnet_spec against K8 on
+    botnet, bit for bit, out and history record, on the same inputs: the
+    sweep's shapes and the timed ones, the candidates led by the spec's edge
+    rows with K1's and K8's own edge cases among them."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.problems import botnet_hard_candidates
+
+    for name, (spec, hand, x) in twins.items():
+        kernel = kernels.objective_lcld if name == "lcld_spec" else kernels.objective_botnet
+        for s, n in SPEC_SWEEP + (SPEC_TIMED[name],):
+            run, cand = spec_inputs(spec, x, s, n, seed=s * n)
+            cand = hard_candidates(spec.codec, cand) if name == "lcld_spec" else botnet_hard_candidates(
+                spec.codec, spec.constraints.schema.names, cand)
+            rec_spec = torch.full((s, n, spec.history_columns()), float("nan"), device=device)
+            rec_hand = torch.full_like(rec_spec, float("nan"))
+            args = kernel_args(run, cand, spec)
+            hold_equal(kernels.objective_spec(*args), kernel(*kernel_args(run, cand, hand)),
+                       f"objective_spec on {name} against {kernel.__name__} (S={s} N={n})")
+            kernels.objective_spec(*args, record=rec_spec)
+            kernel(*kernel_args(run, cand, hand), record=rec_hand)
+            hold_equal(rec_spec, rec_hand, f"objective_spec_hist on {name} against {kernel.__name__}'s (S={s} N={n})")
+
+
+def spec_work(eng, s: int, n: int):
+    """K9's bytes and operations for ``s`` x ``n`` rows of a spec domain: the
+    genes, the states' rows, the stack, the program (16 bytes an
+    instruction) and the objectives; per row the stack's 2 operations a
+    weight, ``OBJECTIVE_OPS_PER_FEATURE`` per feature, 1 per instruction
+    (2 per term: the threshold and the sum) and ``OBJECTIVE_OPS_PER_ROW``."""
+    obj = eng._objective
+    l, d = eng.codec.gen_length, eng.codec.n_features
+    widths = [obj.layers[0][0].shape[1], *(w.shape[0] for w, _ in obj.layers)]
+    macs = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
+    n_params = sum(w.numel() + b.numel() for w, b in obj.layers)
+    prog = obj.cons
+    n_instr = int(prog.code.shape[0])
+    n_bytes = 4 * s * n * l + 16 * s * d + 8 * s + 4 * n_params + 16 * d + 16 * n_instr + 12 * s * n
+    n_ops = s * n * (2 * macs + OBJECTIVE_OPS_PER_FEATURE * d + n_instr + prog.n_terms + OBJECTIVE_OPS_PER_ROW)
+    return n_bytes, n_ops
+
+
+def time_spec(device, twins: dict, smi: str) -> list:
+    """K9 at ``SPEC_TIMED`` beside its twin kernel (K1 on lcld_spec's
+    shape, K8 on botnet_spec's) in turns (CUDA graphs of 20), through its
+    wrapper, its plain version and its bound; its history instantiation at
+    lcld_spec's shape beside K9. Each on inputs it is held equal on. The
+    bounds are the twins' (the same work on the same inputs:
+    ``objective_work``), with K9's own count beside them (``spec_work``).
+    Returns K9's and K9h's records."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import evaluate_hist_plain, evaluate_plain
+
+    shapes = {}
+    for name, (spec, hand, x) in twins.items():
+        s, n = SPEC_TIMED[name]
+        kernel = kernels.objective_lcld if name == "lcld_spec" else kernels.objective_botnet
+        run, cand = spec_inputs(spec, x, s, n, seed=7)
+        sfn = lambda: kernels.objective_spec(*kernel_args(run, cand, spec))  # noqa: E731, B023
+        hfn = lambda: kernel(*kernel_args(run, cand, hand))  # noqa: E731, B023
+        hold_equal(sfn(), evaluate_plain(spec._objective, spec.codec, run, cand, spec.constraints),
+                   f"objective_spec on {name} at its timed shape")
+        times = {"spec": [], "twin": []}
+        for turn in ("spec", "twin", "twin", "spec"):
+            times[turn].append(graph_ms(sfn if turn == "spec" else hfn))
+        n_bytes, n_ops = objective_work(hand, s, n)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, 0)
+        own_ms, own_by = bound_ms(*spec_work(spec, s, n), 0)
+        entry = {
+            "shape": f"{s}x{n}", "ms": statistics.median(times["spec"]), "wrapper_ms": cuda_ms(sfn),
+            "plain_ms": cuda_ms(lambda: evaluate_plain(spec._objective, spec.codec, run, cand,  # noqa: B023
+                                                       spec.constraints), launches=2, repeats=3),
+            "bound_ms": b_ms, "bound_by": b_by, "spec_work_bound_ms": own_ms, "spec_work_bound_by": own_by,
+            "twin": kernel.__name__, "twin_ms": statistics.median(times["twin"]), "ms_turns": times,
+        }
+        if name == "lcld_spec":
+            cols = spec.history_columns()
+            record = torch.full((s, n, cols), float("nan"), device=device)
+            kfn = lambda: kernels.objective_spec(*kernel_args(run, cand, spec), record=record)  # noqa: E731, B023
+            kfn()
+            hold_equal(record, evaluate_hist_plain(spec._objective, spec.codec, run, cand, spec.constraints,
+                                                   "full")[1], "objective_spec_hist at its timed shape")
+            hist = {"hist": [], "base": []}
+            for turn in ("base", "hist", "hist", "base"):
+                hist[turn].append(graph_ms(kfn if turn == "hist" else sfn))
+            rec_bytes = 4 * s * n * cols
+            hb_ms, hb_by = bound_ms(n_bytes + rec_bytes, n_ops + s * n * cols, 0)
+            entry["hist"] = {
+                "ms": statistics.median(hist["hist"]), "base_ms": statistics.median(hist["base"]),
+                "wrapper_ms": cuda_ms(kfn), "bound_ms": hb_ms, "bound_by": hb_by, "ms_turns": hist,
+                "plain_ms": cuda_ms(lambda: evaluate_hist_plain(spec._objective, spec.codec, run, cand,  # noqa: B023
+                                                                spec.constraints, "full"), launches=2, repeats=3),
+            }
+        shapes[name] = entry
+        log(f"[spec] objective_spec on {name} at S={s} N={n}: device {entry['ms']:.4f} ms against "
+            f"{entry['twin']}'s {entry['twin_ms']:.4f} ms in turns (x{entry['ms'] / entry['twin_ms']:.2f}), through "
+            f"the wrapper {entry['wrapper_ms']:.4f} ms, plain {entry['plain_ms']:.3f} ms, bound {b_ms:.5f} ms "
+            f"({b_by}; {entry['twin']}'s count, the same work; K9's own count {own_ms:.5f} ms) on {smi}")
+        if "hist" in entry:
+            h = entry["hist"]
+            log(f"[spec] objective_spec_hist on {name} at S={s} N={n}: device {h['ms']:.4f} ms against K9's "
+                f"{h['base_ms']:.4f} ms in turns, through the wrapper {h['wrapper_ms']:.4f} ms, plain "
+                f"{h['plain_ms']:.3f} ms, bound {h['bound_ms']:.5f} ms ({h['bound_by']}) on {smi}")
+    lcld, botnet = shapes["lcld_spec"], shapes["botnet_spec"]
+    base = {"route": "cuda", "source": "moeva2_ijcai22_replication_tpu_torch/kernels/csrc/objective_spec.cu",
+            "replaces": "moeva2_ijcai22_replication_tpu/domains/ir/jnp_backend.py:32", "launches": 0,
+            "max_abs_err": 0.0, "library_ms": None}
+    rec = dict(base, name="objective_spec", **{k: lcld[k] for k in (
+        "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "twin_ms", "spec_work_bound_ms", "shape")},
+        botnet_spec_shape=botnet)
+    hist = dict(base, name="objective_spec_hist", shape=lcld["shape"], **lcld["hist"])
+    return [rec, hist]
+
+
+def run_spec_runner(smi: str) -> dict:
+    """rq1.lcld's MoEvA point through ``experiments.moeva.run`` with a
+    ``spec:`` key naming the port's ``domains/specs/lcld.yaml``, composed as
+    phase 10 composes the point (4000 states, budget 100, chunks of 256),
+    with phase 10's checks; then the same point on the hand-written domain.
+    Their ``x_attacks`` must be equal, bit for bit. Returns the spec run's
+    launches."""
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.domains import SPEC_DIR
+    from moeva2_ijcai22_replication_tpu_torch.utils.config import get_dict_hash
+
+    with tempfile.TemporaryDirectory() as art:
+        write_runner_artifacts("lcld", art)
+        hand = runner_config("lcld", "moeva", art)
+        spec = dict(hand, spec=os.path.join(SPEC_DIR, "lcld.yaml"), dirs={"results": f"{art}/out/lcld_spec/rq1"})
+        got = drive_runner(spec, smi, lambda: point_expected_launches("moeva", spec), "moeva lcld_spec (spec: key)")
+        launches = kernels.launch_counts()
+        want = drive_runner(hand, smi, lambda: point_expected_launches("moeva", hand), "moeva lcld (its twin)")
+        a = np.load(f"{spec['dirs']['results']}/x_attacks_moeva_{get_dict_hash(spec)}.npy")
+        b = np.load(f"{hand['dirs']['results']}/x_attacks_moeva_{get_dict_hash(hand)}.npy")
+        if not np.array_equal(a, b, equal_nan=True) or got["objectives_list"] != want["objectives_list"]:
+            raise AssertionError("the spec: point's x_attacks or rates differ from the same point on lcld")
+    log(f"[spec] the spec: point's x_attacks {a.shape} equal lcld's bit for bit, o1..o7 equal; launches of the spec "
+        f"run {({k: v for k, v in launches.items() if v})}")
+    return launches
+
+
+def drive_twin_runs(device, twins: dict, smi: str) -> dict:
+    """``Moeva2.generate`` on botnet_spec (rq1.botnet's 387 states, cut to
+    ``SPEC_BOTNET_KNOBS``' budget) against the same run on botnet, and on
+    lcld_spec with save_history "full" and "reduced" (``SPEC_HISTORY_*``)
+    against LCLD's; each with its launch counts set to 0 just before and
+    read just after, held to what the code implies, and equal to its twin
+    bit for bit (populations, objectives, histories). Returns the launches
+    of the spec runs."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
+
+    launches = {}
+    runs = [("botnet_spec", SPEC_BOTNET_KNOBS, BOTNET_STATES, None)]
+    runs += [("lcld_spec", SPEC_HISTORY_KNOBS, SPEC_HISTORY_STATES, mode) for mode in ("full", "reduced")]
+    for name, knobs, n_states, history in runs:
+        spec_eng, hand_eng, x = twins[name]
+        x = x[:n_states]
+        results, walls = [], []
+        for eng in (spec_eng, hand_eng):
+            moeva = Moeva2(eng.classifier, eng.constraints, ml_scaler=eng.ml_scaler, device=device,
+                           save_history=history, **knobs)
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = moeva.generate(x, minimize_class=1)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            got = kernels.launch_counts()
+            check_launches(got, expected_launches(moeva, len(x)), f"{name}'s generate" if eng is spec_eng else
+                           f"its twin's generate")
+            if eng is spec_eng:
+                for k, v in got.items():
+                    launches[k] = launches.get(k, 0) + v
+            results.append(res)
+        a, b = results
+        same = np.array_equal(a.x_ml, b.x_ml, equal_nan=True) and np.array_equal(a.f, b.f, equal_nan=True)
+        same = same and len(a.history or ()) == len(b.history or ()) and all(
+            np.array_equal(p, q, equal_nan=True) for p, q in zip(a.history or (), b.history or ()))
+        if not same:
+            raise AssertionError(f"{name}'s generate differs from its twin's")
+        kept = f", history {history!r}: {len(a.history)} records of {a.history[0].shape[-1]} columns" if history else ""
+        log(f"[spec] generate on {name}: {len(x)} states x {knobs['n_gen']} generations{kept}, equal to the "
+            f"hand-written twin's bit for bit (x_ml, f{', history' if history else ''}); launches as the code "
+            f"implies; wall {walls[0]:.3f} s against the twin's {walls[1]:.3f} s on {smi}")
+    return launches
+
+
+def check_spec_oracle(device, problem, smi: str) -> dict:
+    """MoEvA on phishing on the card at the oracle fixture's config (16
+    states, pop 40, 20 offspring, budget 100, seeds 42-44): the mean o1..o7
+    within the fixture's ``parity_tolerance`` of its ``oracle_ga`` mean.
+    Returns the launches of the three runs."""
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
+    from moeva2_ijcai22_replication_tpu_torch.attacks.objective import ObjectiveCalculator
+
+    with open(SPEC_ORACLE) as f:
+        fixture = json.load(f)
+    dom, tol = fixture["domains"]["phishing"], fixture["parity_tolerance"]
+    cfg = dom["config"]
+    cons, sur, scaler, x = problem
+    calc = ObjectiveCalculator(classifier=sur, constraints=cons, thresholds=dict(cfg["thresholds"]),
+                               min_max_scaler=scaler, ml_scaler=scaler, minimize_class=1, norm=cfg["norm"])
+    rates, launches = [], {}
+    for seed in cfg["seeds"]:
+        eng = Moeva2(sur, cons, ml_scaler=scaler, norm=cfg["norm"], n_gen=cfg["n_gen"], n_pop=cfg["n_pop"],
+                     n_offsprings=cfg["n_offsprings"], archive_size=cfg["archive_size"], seed=seed, device=device)
+        kernels.reset_launch_counts()
+        res = eng.generate(x, minimize_class=1)
+        got = kernels.launch_counts()
+        check_launches(got, expected_launches(eng, len(x)), f"phishing seed {seed}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        rates.append(calc.success_rate_3d(x, res.x_ml))
+    mean = np.mean(rates, axis=0)
+    want = np.asarray(dom["oracle_ga"]["mean"])
+    if not np.all(np.abs(mean - want) <= tol):
+        raise AssertionError(f"phishing's mean o1..o7 {mean} on the card is not within {tol} of oracle_ga's {want}")
+    log(f"[spec] phishing on the card at the fixture's config ({cfg['n_states']} states, pop {cfg['n_pop']}, "
+        f"{cfg['n_offsprings']} offspring, budget {cfg['n_gen']}, seeds {cfg['seeds']}): mean o1..o7 "
+        + " ".join(f"{v:.4f}" for v in mean) + " against oracle_ga's " + " ".join(f"{v:.4f}" for v in want)
+        + f": within {tol} (largest gap {np.max(np.abs(mean - want)):.4f}) on {smi}")
+    return launches
+
+
+def run_spec(device, smi: str, resources: list, records: list) -> dict:
+    """Phase 17: domains compiled from a constraint spec (ROADMAP A11) with
+    kernel K9. Returns the launch counts of its main paths' runs, each set to
+    0 just before and read just after."""
+    import torch
+
+    t0 = time.perf_counter()
+    entries = [k for k in resources if k["kernel"].startswith("objective_spec_kernel")]
+    if len(entries) != 6:
+        raise AssertionError(f"the build's ptxas report has {len(entries)} objective_spec_kernel entries, not 6")
+    for k in entries:
+        log(f"[spec] ptxas {k['kernel']}: {k['registers']} registers, {k['smem']} bytes static shared memory, "
+            f"{k['stack']} bytes stack frame, {k['spill_stores']} + {k['spill_loads']} bytes spill stores + loads")
+        if k["spill_stores"] + k["spill_loads"]:
+            raise AssertionError(f"{k['kernel']} spills registers: {k}")
+    with tempfile.TemporaryDirectory() as tmp:
+        problems = spec_problems(tmp)
+        twins = spec_twins(device, problems, tmp)
+    for name, problem in problems.items():
+        got = check_spec_kernel(device, name, problem)
+        log(f"[spec] objective_spec and objective_spec_hist on {name} (D = {got['features']}, {got['terms']} terms, "
+            f"{got['instructions']} instructions, {got['slots']} slots) equal evaluate_plain and evaluate_hist_plain "
+            f"bit for bit on {got['cases']} launches each ({got['rows']} rows, {got['nonfinite']} with a non-finite "
+            f"objective) over S x N in {SPEC_SWEEP} under L2 and L-inf, led by the edge rows (0, -0.0, NaN and ±inf "
+            "denominators, members met, ±0 everywhere, features at their bounds); column 2 the kept terms' sum")
+    check_spec_twins(device, twins)
+    log(f"[spec] objective_spec on lcld_spec equals objective_lcld on lcld, and on botnet_spec objective_botnet on "
+        f"botnet, bit for bit (out and history record) over {SPEC_SWEEP} and the timed shapes")
+    records += time_spec(device, twins, smi)
+    launches = run_spec_runner(smi)
+    for k, v in drive_twin_runs(device, twins, smi).items():
+        launches[k] += v
+    for k, v in check_spec_oracle(device, problems["phishing"], smi).items():
+        launches[k] += v
+    if not all(launches[k] for k in SPEC_COUNTERS):
+        raise AssertionError(f"phase 17 launched no {[k for k in SPEC_COUNTERS if not launches[k]]}")
+    log(f"[spec] phase 17 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    return {k: launches[k] for k in SPEC_COUNTERS}
+
+
 def main() -> int:
     import torch
 
@@ -5290,7 +5718,7 @@ def main() -> int:
     grid_launches = run_grids(smi)
     # no grid file selects AutoPGD: its counters are checked on phase 14's drives
     idle = [name for name, n in grid_launches.items()
-            if n == 0 and name not in AUTOPGD_COUNTERS + EARLY_EXIT_COUNTERS + HISTORY_COUNTERS]
+            if n == 0 and name not in AUTOPGD_COUNTERS + EARLY_EXIT_COUNTERS + HISTORY_COUNTERS + SPEC_COUNTERS]
     if idle:
         raise AssertionError(f"phase 13's grids launched no {idle}")
     auto_records, auto_launches = run_autopgd(device, smi, resources, problem)
@@ -5304,7 +5732,9 @@ def main() -> int:
     lap("phase 15")
     launches.update(run_history(device, smi, resources, records))
     lap("phase 16")
-    log(f"[smoke] phases 1-16 took {time.perf_counter() - t_smoke:.1f} s")
+    launches.update(run_spec(device, smi, resources, records))
+    lap("phase 17")
+    log(f"[smoke] phases 1-17 took {time.perf_counter() - t_smoke:.1f} s")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         rec["grid_launches"] = grid_launches[rec["name"]]

@@ -21,11 +21,12 @@ the bucket's row count after a repack too. :meth:`gen_step` takes its draws
 as an argument.
 
 On the card a generation is the draws, then six hand-written kernels: K5
-offspring, the objectives (K1 on LCLD, K8 on botnet), K2 front peel, K4a
+offspring, the objectives (K1 on LCLD, K8 on botnet, K9 on a domain compiled
+from a spec), K2 front peel, K4a
 normalisation, K3 niche association and K4b fill, extraction and archive.
 The one other device op of a step is the ``torch.cat`` of the population's
 and the offspring's objectives that K2, K4a and K3 read. With
-``save_history="full"`` the objectives are K1's or K8's history
+``save_history="full"`` the objectives are K1's, K8's or K9's history
 instantiation, which also writes each candidate's record (objectives, then
 kept constraint terms) into the segment's device buffer; with "reduced"
 the buffer's slice is the kernel's output itself. Each segment's buffer is
@@ -180,7 +181,7 @@ class RunInputs(NamedTuple):
 
 
 class ObjectiveTables(NamedTuple):
-    """What the objectives (K1, K8) need besides a run's inputs, on the
+    """What the objectives (K1, K8, K9) need besides a run's inputs, on the
     engine's device and in its dtype."""
 
     feat_gene: torch.Tensor  # (D,) int32 — gene that feeds feature d; -1 = immutable
@@ -228,7 +229,7 @@ def make_objective_tables(codec, model: MLP, scaler, norm, tol: float, cons=None
 
 #: a constraint set's ``objective_kernel`` -> the wrapper in ``kernels`` that
 #: computes the objectives with its terms on the card
-OBJECTIVE_KERNELS = {"lcld": "objective_lcld", "botnet": "objective_botnet"}
+OBJECTIVE_KERNELS = {"lcld": "objective_lcld", "botnet": "objective_botnet", "spec": "objective_spec"}
 
 
 def _scalar(like: torch.Tensor, v: float) -> torch.Tensor:
@@ -276,9 +277,9 @@ def _objectives_and_terms(obj: ObjectiveTables, codec, run: "RunInputs", x_gen, 
 def evaluate_plain(obj: ObjectiveTables, codec, run: "RunInputs", x_gen, constraints) -> torch.Tensor:
     """(S, N, L) genetic candidates -> (S, N, 3) objectives
     ``[P(minimize_class), Lp distance / f2_scale, Σ violations]``, the
-    semantics of kernels K1 and K8. The violations are
-    ``constraints.evaluate``, which runs K1's order of operations for LCLD
-    and K8's for botnet."""
+    semantics of kernels K1, K8 and K9. The violations are
+    ``constraints.evaluate``, which runs K1's order of operations for LCLD,
+    K8's for botnet and K9's (the spec's program) for a spec domain."""
     return _objectives_and_terms(obj, codec, run, x_gen, constraints)[0]
 
 
@@ -286,7 +287,7 @@ def evaluate_hist_plain(obj: ObjectiveTables, codec, run: "RunInputs", x_gen, co
     """The history form of :func:`evaluate_plain`, as the JAX engine's
     ``_evaluate_hist``: ``(f, record)`` with ``record`` ``f`` itself under
     "reduced" and ``[f, kept terms]`` (S, N, 3 + K) under "full", the
-    semantics of the history instantiations of K1 and K8 (column 2 is the
+    semantics of the history instantiations of K1, K8 and K9 (column 2 is the
     left-to-right sum of the columns after it)."""
     f, g_all = _objectives_and_terms(obj, codec, run, x_gen, constraints)
     return f, (torch.cat([f, g_all], dim=-1) if save_history == "full" else f)
@@ -537,7 +538,8 @@ class Moeva2:
     def _evaluate(self, run: RunInputs, x_gen: torch.Tensor, record=None) -> torch.Tensor:
         """(S, N, L) genetic candidates -> (S, N, 3) objectives; the
         constraint set's objective kernel on the card (K1 for LCLD, K8 for
-        botnet), :func:`evaluate_plain` on the CPU. ``record``, a (S, N,
+        botnet, K9 for a domain compiled from a spec), :func:`evaluate_plain`
+        on the CPU. ``record``, a (S, N,
         :meth:`history_columns`) slice of a history buffer, takes the
         evaluation's history record (:func:`evaluate_hist_plain` on the
         CPU)."""

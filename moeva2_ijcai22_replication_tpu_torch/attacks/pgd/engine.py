@@ -289,8 +289,8 @@ class ConstrainedPGD:
         validate_norm(self.norm)
         name = type(self.constraints).__name__
         if type(self.constraints).smooth_vjp is ConstraintSet.smooth_vjp:
-            raise NotImplementedError(
-                f"{name} has no hand-written constraint backward (smooth_vjp): PGD cannot differentiate its terms")
+            why = getattr(self.constraints, "no_smooth_vjp", "PGD cannot differentiate its terms")
+            raise NotImplementedError(f"{name} has no hand-written constraint backward (smooth_vjp): {why}")
         if self.device.type == "cuda" and (why := card_refusal(self.constraints)):
             raise NotImplementedError(why)
         if self.device.type == "cuda" and self.dtype != torch.float32:

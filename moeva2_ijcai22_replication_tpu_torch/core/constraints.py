@@ -29,9 +29,9 @@ class ConstraintSet:
 
     n_constraints: int = 0
     tol: float = DEFAULT_TOL
-    #: name of the hand-written objective kernel (K1, K8) that serves this
-    #: set on the card; None = no kernel, so the engine runs it on the CPU
-    #: only
+    #: name of the hand-written objective kernel (K1, K8, K9) that serves
+    #: this set on the card; None = no kernel, so the engine runs it on the
+    #: CPU only
     objective_kernel: str | None = None
     #: name of the hand-written PGD kernel (K7) that serves this set on the
     #: card; None = no kernel

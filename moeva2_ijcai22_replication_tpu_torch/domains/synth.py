@@ -1,9 +1,10 @@
-"""Synthetic constraint-satisfying LCLD and botnet samples (numpy only).
+"""Synthetic constraint-satisfying LCLD, botnet and phishing samples (numpy).
 
-A copy of the LCLD and botnet parts of
-``moeva2_ijcai22_replication_tpu/domains/synth.py`` and of
-``domains/ir/ops.py::months``: for the same seed it writes the same files
-and draws the same rows, so the port builds its own problems.
+A copy of the LCLD, botnet and phishing parts of
+``moeva2_ijcai22_replication_tpu/domains/synth.py``: for the same seed it
+writes the same files and draws the same rows, so the port builds its own
+problems. ``months`` is the constraint IR's (``domains/ir/ops.py``), the
+port's one definition.
 """
 
 from __future__ import annotations
@@ -14,20 +15,9 @@ import pickle
 import numpy as np
 
 from ..core.schema import FeatureSchema
+from .ir.ops import months
 
-
-def months(date_feature):
-    """YYYYMM integer-coded date -> month count: floor(f/100)*12 + f mod 100.
-
-    Works on numpy arrays and on torch tensors (both have the same
-    floor/mod semantics for the non-negative dates used here)."""
-    if isinstance(date_feature, (np.ndarray, np.generic, float, int)):
-        return np.floor(date_feature / 100.0) * 12.0 + np.mod(date_feature, 100.0)
-    import torch
-
-    # a 0-d divisor: a true division on the card too, as in kernel K1
-    hundred = torch.full((), 100.0, dtype=date_feature.dtype, device=date_feature.device)
-    return torch.floor(date_feature / hundred) * 12.0 + torch.remainder(date_feature, hundred)
+__all__ = ["months", "synth_botnet", "synth_botnet_schema", "synth_lcld", "synth_lcld_schema", "synth_phishing"]
 
 
 def _random_date(rng, lo_yyyymm: int, hi_yyyymm: int, size) -> np.ndarray:
@@ -280,4 +270,46 @@ def synth_botnet(n: int, schema: FeatureSchema, seed: int = 0) -> np.ndarray:
         x[:, block(f"icmp_sum_{side}")] = flows[:, :_BOTNET_PORTS]
         x[:, block(f"udp_sum_{side}")] = flows[:, _BOTNET_PORTS : 2 * _BOTNET_PORTS]
         x[:, block(f"tcp_sum_{side}")] = flows[:, 2 * _BOTNET_PORTS :]
+    return x
+
+
+# -- phishing -----------------------------------------------------------------
+
+
+def synth_phishing(n: int, schema: FeatureSchema, seed: int = 0) -> np.ndarray:
+    """Generate ``n`` samples of the spec-only phishing/URL domain
+    (``domains/specs/phishing/``) satisfying all 10 constraints exactly.
+
+    The domain has no hand-written constraint class (the committed CSV spec
+    is its one definition), so this sampler builds rows constraint-first:
+    lengths split hostname+path <= url, punctuation counts summed into
+    n_punct, ratios derived by the same guarded division the spec uses.
+    """
+    rng = np.random.default_rng(seed)
+    cols = {name: i for i, name in enumerate(schema.names)}
+    x = np.zeros((n, schema.n_features))
+
+    url = np.round(rng.uniform(30, 300, n))
+    host = np.round(rng.uniform(4, 25, n))
+    path = np.round(rng.uniform(0, url - host))
+    dots = np.round(rng.uniform(1, 10, n))
+    hyphens = np.round(rng.uniform(0, 5, n))
+    slash = np.round(rng.uniform(1, 8, n))
+    digits = np.round(rng.uniform(0, 0.3 * url))
+    special = np.round(rng.uniform(0, 0.2 * url))
+
+    x[:, cols["length_url"]] = url
+    x[:, cols["length_hostname"]] = host
+    x[:, cols["length_path"]] = path
+    x[:, cols["nb_dots"]] = dots
+    x[:, cols["nb_hyphens"]] = hyphens
+    x[:, cols["nb_slash"]] = slash
+    x[:, cols["nb_digits"]] = digits
+    x[:, cols["nb_special"]] = special
+    x[:, cols["n_subdomains"]] = np.minimum(np.round(rng.uniform(0, 4, n)), dots)
+    x[:, cols["https"]] = rng.integers(0, 2, n)
+    x[:, cols["n_punct"]] = dots + hyphens + slash
+    x[:, cols["ratio_digits_url"]] = digits / url
+    x[:, cols["ratio_special_url"]] = special / url
+    x[:, cols["ratio_hostname_url"]] = host / url
     return x

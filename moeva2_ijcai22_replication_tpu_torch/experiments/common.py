@@ -247,23 +247,30 @@ def load_constraints(config: dict):
     schema files and, where the config names one,
     ``paths.important_features`` (passed as ``important_features_path``;
     it is part of the memo key); memoized, so runs naming the same files
-    share one object. A ``spec:`` key (a domain compiled from the
-    constraint IR) is refused."""
+    share one object. A ``spec:`` key names a spec file (a domain compiled
+    from the constraint IR) that is compiled under the project's name in
+    place of the registry's class; the file is part of the memo key and of
+    its stamp, so an edited spec is compiled again, a new identity."""
     project = config["project_name"]
-    if config.get("spec"):
-        raise NotImplementedError(
-            f"config sets spec: {config['spec']!r}: domains compiled from a spec come with the "
-            "constraint IR (ROADMAP A11)"
-        )
+    spec_path = config.get("spec")
     paths = [config["paths"]["features"], config["paths"]["constraints"]]
     important = config["paths"].get("important_features")
     if important:
         paths.append(important)
+    if spec_path:
+        paths.append(spec_path)
     kwargs = {"important_features_path": important} if important else {}
-    return ARTIFACTS.get(
-        "constraints", paths, (project, bool(important)),
-        lambda: get_constraints_class(project)(paths[0], paths[1], **kwargs),
-    )
+
+    def build():
+        if spec_path:
+            from ..domains.ir import compile_spec_path
+
+            cls = compile_spec_path(spec_path, name=project)
+        else:
+            cls = get_constraints_class(project)
+        return cls(paths[0], paths[1], **kwargs)
+
+    return ARTIFACTS.get("constraints", paths, (project, bool(important)), build)
 
 
 def load_candidates(config: dict) -> np.ndarray:
@@ -308,7 +315,13 @@ def load_surrogate(config: dict):
 
 
 def get_sat_builder(project_name: str, constraints):
-    """Project name -> MILP row builder (lcld and botnet prefixes)."""
+    """Project name -> MILP row builder (lcld and botnet prefixes). A domain
+    compiled from a spec is refused: its MILP backend comes with ROADMAP
+    A11b."""
+    from ..domains.ir.torch_backend import A11B, SpecConstraintSet
+
+    if isinstance(constraints, SpecConstraintSet):
+        raise NotImplementedError(f"{type(constraints).__name__}: flip+sat on a spec domain needs {A11B}")
     if project_name.startswith("lcld"):
         return make_lcld_sat_builder(constraints.schema)
     if project_name.startswith("botnet"):

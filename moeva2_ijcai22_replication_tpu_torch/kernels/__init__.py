@@ -13,7 +13,11 @@ In the order a generation launches them:
   ``save_history="full"``), their ``kHistory`` instantiations count as
   ``objective_lcld_hist``, ``objective_lcld_aug_hist``,
   ``objective_botnet_hist`` and ``objective_botnet_aug_hist``; plain
-  version ``attacks.moeva.engine.evaluate_hist_plain``.
+  version ``attacks.moeva.engine.evaluate_hist_plain``. On a domain
+  compiled from a constraint spec, ``objective_spec`` (K9,
+  ``csrc/objective_spec.cu``) computes them by running the spec's program
+  (``domains.ir.program``); its history instantiation counts as
+  ``objective_spec_hist``.
 - ``nd_peel`` (K2, ``csrc/nd_peel.cu``): non-dominated front peeling; its
   plain version is ``attacks.moeva.nds.nd_ranks_plain``.
 - ``survive_norm`` (K4a, ``csrc/survive_norm.cu``): ideal, worst, extreme
@@ -68,7 +72,7 @@ _LAUNCHES = {
         "pgd_lcld", "objective_botnet", "pgd_botnet", "objective_lcld_aug", "pgd_lcld_aug",
         "objective_botnet_aug", "pgd_lcld_auto", "pgd_lcld_aug_auto", "pgd_botnet_auto",
         "gate_stats", "take_carry", "objective_lcld_hist", "objective_lcld_aug_hist", "objective_botnet_hist",
-        "objective_botnet_aug_hist",
+        "objective_botnet_aug_hist", "objective_spec", "objective_spec_hist",
     )
 }
 
@@ -381,6 +385,78 @@ def objective_botnet(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, 
         )
     _raise_on_error(lib, err, "objective_botnet")
     _LAUNCHES[("objective_botnet_aug" if n_pairs else "objective_botnet") + ("_hist" if rec else "")] += 1
+    return out
+
+
+def objective_spec(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj, record=None):
+    """Kernel K9: (S, N, 3) float32 objectives ``[f1, f2, Σ violations]``
+    of the candidates ``x_gen`` (S, N, L) of a domain compiled from a spec,
+    the arguments of :func:`objective_lcld`; ``obj.cons`` holds the spec's
+    constraint program (``domains.ir.program.SpecProgram``), whose feature
+    and slot indices the kernel does not check: ``lower_spec`` emits them in
+    range. It takes a stack of 1 to K1's most layers of at most
+    ``moeva_spec_max_width`` units, 1 or 2 classes, and the program limits
+    of ``csrc/kernels.h``; any class but 0 reads as class 1, as in K1.
+    ``record`` as :func:`objective_lcld` takes it, (S, N, 3 + T) over the
+    program's T terms; the history instantiation counts as
+    ``objective_spec_hist``."""
+    from .build import library
+
+    if x_gen.dim() != 3 or x_init_ml.dim() != 2:
+        raise ValueError("x_gen and x_init_ml must be (S, N, L) and (S, D)")
+    s, n, l = x_gen.shape
+    d = x_init_ml.shape[1]
+    prog = obj.cons
+    if not all(hasattr(prog, k) for k in ("code", "n_slots", "n_terms", "n_features")):
+        raise ValueError(f"objective_spec takes a spec's program (SpecProgram) in obj.cons, got {type(prog).__name__}")
+    widths = [obj.layers[0][0].shape[1], *(w.shape[0] for w, _ in obj.layers)]
+    n_params = sum(w.numel() + b.numel() for w, b in obj.layers)
+    n_instr = prog.code.shape[0]
+    _check(x_gen, "x_gen", (s, n, l))
+    for name, t in (("x_init_ml", x_init_ml), ("xl_ml", xl_ml), ("xu_ml", xu_ml), ("x_init_mm", x_init_mm)):
+        _check(t, name, (s, d))
+    _check(minimize_class, "minimize_class", (s,), torch.int64)
+    _check(obj.feat_gene, "feat_gene", (d,), torch.int32)
+    _check(obj.feat_onehot, "feat_onehot", (d,), torch.int32)
+    _check(obj.params, "params", (n_params,))
+    _check(obj.first_t, "first_t", (d, widths[1]))
+    _check(prog.code, "program", (n_instr, 4), torch.int32)
+    scale, offset = obj.scaler if obj.scaler is not None else (None, None)
+    if scale is not None:
+        _check(scale, "scale", (d,))
+        _check(offset, "offset", (d,))
+    lib = library()
+    limits = {"features": (d, lib.moeva_spec_max_features()),
+              "instructions": (n_instr, lib.moeva_spec_max_instructions()),
+              "slots": (prog.n_slots, lib.moeva_spec_max_slots()), "terms": (prog.n_terms, lib.moeva_spec_max_terms())}
+    if any(not 1 <= n <= limit for n, limit in limits.values()) or prog.n_features != d:
+        raise ValueError(f"objective_spec takes a program over the rows' {d} features within its limits "
+                         f"(count, limit): {limits}; the program has {prog.n_features} features")
+    max_w = lib.moeva_spec_max_width()
+    if (widths[0] != d or not 1 <= widths[-1] <= 2 or max(widths[1:]) > max_w
+            or len(widths) - 1 > lib.moeva_objective_max_layers()):
+        raise ValueError(f"objective_spec takes a {d}-input stack of at most {lib.moeva_objective_max_layers()} "
+                         f"layers of at most {max_w} units and 1 or 2 classes, got widths {widths}")
+    if lib.moeva_objective_spec_tile_rows(n_instr, d, prog.n_slots, max(widths[1:])) == 0:
+        raise ValueError(f"objective_spec's buffers of {n_instr} instructions, {d} features, {prog.n_slots} slots and "
+                         f"layers of {max(widths[1:])} units do not fit one block's shared memory")
+    dev = _one_device(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj.feat_gene,
+                      obj.feat_onehot, obj.params, obj.first_t, prog.code, scale, offset)
+    ins = [None if t is None else t.contiguous() for t in (
+        x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, obj.feat_gene,
+        obj.feat_onehot, obj.params, obj.first_t, scale, offset, prog.code)]
+    if ins[12].data_ptr() % 16:
+        raise ValueError("objective_spec reads its program as 16-byte instructions: the code must be 16-byte aligned")
+    rec, out = _history_record(record, torch.empty((s, n, 3), dtype=torch.float32, device=dev), prog.n_terms,
+                               "objective_spec")
+    c_widths = (ctypes.c_int * len(widths))(*widths)
+    with torch.cuda.device(dev):
+        err = lib.moeva_objective_spec_f32(
+            *map(_ptr, ins), n_instr, prog.n_slots, prog.n_terms, c_widths, len(widths) - 1, obj.f2_scale,
+            int(obj.norm_inf), obj.tol, out.data_ptr(), rec, s, n, l, d, _stream(dev),
+        )
+    _raise_on_error(lib, err, "objective_spec")
+    _LAUNCHES["objective_spec" + ("_hist" if rec else "")] += 1
     return out
 
 

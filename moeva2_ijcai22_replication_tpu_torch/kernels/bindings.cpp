@@ -246,6 +246,56 @@ int moeva_objective_botnet_max_features(int h1, int n_entries, int n_pairs) {
   return objective_botnet_max_features(h1, n_entries, n_pairs);
 }
 
+int moeva_objective_spec_f32(const void* x_gen, const void* x_init,
+                             const void* xl, const void* xu,
+                             const void* x_init_mm, const void* min_class,
+                             const void* feat_gene, const void* feat_onehot,
+                             const void* params, const void* first_t,
+                             const void* scale, const void* offset,
+                             const void* code, int n_instr,
+                             int n_slots, int n_terms, const int* widths,
+                             int n_layers, float f2_scale, int norm_inf,
+                             float tol, void* out, void* record, int n_states,
+                             int n, int l, int d, void* stream) {
+  if (n_layers < 1 || n_layers > kObjectiveMaxLayers ||
+      static_cast<long long>(n_states) * n > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SpecObjectiveArgs args{};
+  args.x_gen = static_cast<const float*>(x_gen);
+  args.x_init = static_cast<const float*>(x_init);
+  args.xl = static_cast<const float*>(xl);
+  args.xu = static_cast<const float*>(xu);
+  args.x_init_mm = static_cast<const float*>(x_init_mm);
+  args.min_class = static_cast<const int64_t*>(min_class);
+  args.feat_gene = static_cast<const int32_t*>(feat_gene);
+  args.feat_onehot = static_cast<const int32_t*>(feat_onehot);
+  args.params = static_cast<const float*>(params);
+  args.first_t = static_cast<const float*>(first_t);
+  args.scale = static_cast<const float*>(scale);
+  args.offset = static_cast<const float*>(offset);
+  args.code = static_cast<const int32_t*>(code);
+  args.n_instr = n_instr;
+  args.n_slots = n_slots;
+  args.n_terms = n_terms;
+  args.f2_scale = f2_scale;
+  args.norm_inf = norm_inf;
+  args.tol = tol;
+  args.out = static_cast<float*>(out);
+  args.record = static_cast<float*>(record);
+  args.n_rows = n_states * n;
+  args.n = n;
+  args.l = l;
+  args.d = d;
+  args.n_layers = n_layers;
+  for (int k = 0; k <= n_layers; ++k) args.widths[k] = widths[k];
+  return static_cast<int>(
+      launch_objective_spec(args, static_cast<cudaStream_t>(stream)));
+}
+
+int moeva_objective_spec_tile_rows(int n_instr, int d, int n_slots, int w_max) {
+  return objective_spec_tile_rows(n_instr, d, n_slots, w_max);
+}
+
 int moeva_pgd_botnet_f32(const void* x_init, const void* x_start, const void* y,
                          const void* mutable_, const void* params,
                          const void* first_t, const int* widths, int n_layers,
@@ -355,6 +405,16 @@ int moeva_pgd_max_ohe_slots() { return kPgdMaxOheSlots; }
 int moeva_pgd_botnet_max_degree() { return kPgdBotnetMaxDegree; }
 
 int moeva_botnet_max_pairs() { return kBotnetMaxPairs; }
+
+int moeva_spec_max_instructions() { return kSpecMaxInstructions; }
+
+int moeva_spec_max_slots() { return kSpecMaxSlots; }
+
+int moeva_spec_max_terms() { return kSpecMaxTerms; }
+
+int moeva_spec_max_features() { return kSpecMaxFeatures; }
+
+int moeva_spec_max_width() { return kSpecMaxWidth; }
 
 const char* moeva_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

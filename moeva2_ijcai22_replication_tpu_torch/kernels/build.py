@@ -36,6 +36,7 @@ SOURCES = (
     "csrc/pgd_lcld.cu",
     "csrc/pgd_botnet.cu",
     "csrc/gate_repack.cu",
+    "csrc/objective_spec.cu",
     "bindings.cpp",
 )
 HEADERS = ("csrc/kernels.h", "csrc/pgd_common.cuh")
@@ -164,11 +165,19 @@ def library() -> ctypes.CDLL:
     lib.moeva_gate_stats_f32.restype = i32
     lib.moeva_take_f32.argtypes = [ptr] * 5 + [i32, ptr, i32, i64, ptr]
     lib.moeva_take_f32.restype = i32
+    lib.moeva_objective_spec_f32.argtypes = (
+        [ptr] * 13 + [i32] * 3 + [ctypes.POINTER(i32), i32, f32, i32, f32, ptr, ptr] + [i32] * 4 + [ptr]
+    )
+    lib.moeva_objective_spec_f32.restype = i32
+    lib.moeva_objective_spec_tile_rows.argtypes = [i32] * 4
+    lib.moeva_objective_spec_tile_rows.restype = i32
     for name in (
         "moeva_nd_peel_max_candidates", "moeva_associate_max_directions", "moeva_survive_max_candidates",
         "moeva_objective_max_params", "moeva_objective_max_width",
         "moeva_objective_max_layers", "moeva_lcld_max_pairs", "moeva_pgd_max_ohe_slots",
         "moeva_pgd_botnet_max_degree", "moeva_botnet_max_pairs", "moeva_take_max_segments",
+        "moeva_spec_max_instructions", "moeva_spec_max_slots", "moeva_spec_max_terms", "moeva_spec_max_features",
+        "moeva_spec_max_width",
     ):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32

@@ -371,3 +371,55 @@ struct TakeArgs {
 };
 
 cudaError_t launch_take(const TakeArgs& args, cudaStream_t stream);
+
+// objective_spec (K9): the limits of the constraint programs it runs
+// (domains/ir/program.py lowers a spec to them and refuses one past a
+// limit) and the widest layer it takes. At the largest tile that fits (32
+// rows) a program of kSpecMaxInstructions instructions, kSpecMaxFeatures
+// features, kSpecMaxSlots slots, an activation buffer of kSpecMaxWidth
+// units and the weight stage take 188,416 bytes of one block's shared
+// memory.
+constexpr int kSpecMaxInstructions = 2048;
+constexpr int kSpecMaxSlots = 32;
+constexpr int kSpecMaxTerms = 1024;
+constexpr int kSpecMaxFeatures = 1024;
+constexpr int kSpecMaxWidth = 128;
+
+// objective_spec's arguments: K1's, with the spec's program `code`
+// (n_instr instructions of four int32 words: op and operand kinds, dst, a,
+// b; 16-byte aligned) in place of the hard-coded terms.
+struct SpecObjectiveArgs {
+  const float* x_gen;         // (S * N, L)
+  const float* x_init;        // (S, D)
+  const float* xl;            // (S, D)
+  const float* xu;            // (S, D)
+  const float* x_init_mm;     // (S, D)
+  const int64_t* min_class;   // (S,)
+  const int32_t* feat_gene;   // (D,)
+  const int32_t* feat_onehot; // (D,)
+  const float* params;        // each layer's weight (out, in), then its bias
+  const float* first_t;       // (D, widths[1]) the first layer's weight transposed
+  const float* scale;         // (D,) or null
+  const float* offset;        // (D,) or null
+  const int32_t* code;        // (n_instr, 4)
+  int n_instr, n_slots, n_terms;
+  float f2_scale;
+  int norm_inf;
+  float tol;
+  float* out;                 // (S * N, 3)
+  // null, or the (S * N, 3 + n_terms) history record that the kHistory
+  // instantiation writes beside out: each row's objectives, then its kept
+  // terms in the sum's order
+  float* record;
+  int n_rows, n, l, d;
+  int n_layers;
+  int widths[kObjectiveMaxLayers + 1];
+  int w_max;                  // the widest layer, set by the launcher
+};
+
+cudaError_t launch_objective_spec(SpecObjectiveArgs args, cudaStream_t stream);
+
+// The rows of objective_spec's tile for a program of n_instr instructions
+// and n_slots slots over d features with layers of at most w_max units (0:
+// none fits one block's shared memory).
+int objective_spec_tile_rows(int n_instr, int d, int n_slots, int w_max);

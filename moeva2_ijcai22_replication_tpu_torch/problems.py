@@ -17,6 +17,15 @@ against its plain version, and ``botnet_edge_starts`` into PGD starts, for
 kernel K7b's. ``synthetic_botnet_augmented_problem`` is botnet's augmented
 variant (927 features, 360 + 171 terms), and ``botnet_augmented_edge_rows``
 puts its pair terms' edge cases into rows.
+
+The domains compiled from a constraint spec (``domains/ir``):
+``synthetic_lcld_spec_problem`` and ``synthetic_botnet_spec_problem`` are
+the LCLD and botnet problems above with ``lcld_spec`` and ``botnet_spec``
+in place of the hand-written classes (the same files, rows, surrogates and
+scalers); ``synthetic_family_problem`` is a seeded ``family<seed>`` domain;
+``phishing_problem`` is ``tools/oracle_check.py::build_phishing`` with the
+port (the fixture's surrogate, ``PHISHING_SURROGATE``), and
+``spec_edge_rows`` puts the spec operators' edge cases into rows.
 """
 
 from __future__ import annotations
@@ -27,12 +36,13 @@ import os
 import numpy as np
 import torch
 
-from .domains import augmentation
+from .domains import augmentation, get_constraints_class, spec_domain_dir
 from .domains.botnet import N_BASE_FEATURES as BOTNET_BASE_FEATURES
 from .domains.botnet import BotnetAugmentedConstraints, BotnetConstraints
 from .domains.lcld import N_BASE_FEATURES, LcldAugmentedConstraints, LcldConstraints
-from .domains.synth import synth_botnet, synth_botnet_schema, synth_lcld, synth_lcld_schema
-from .models.io import Surrogate
+from .domains.ir import sample_family, write_family
+from .domains.synth import synth_botnet, synth_botnet_schema, synth_lcld, synth_lcld_schema, synth_phishing
+from .models.io import Surrogate, load_params
 from .models.mlp import botnet_mlp, lcld_mlp
 from .models.scalers import MinMaxParams, fit_minmax
 
@@ -384,3 +394,130 @@ def botnet_edge_starts(names, scaler, xs: np.ndarray, dtype=np.float32) -> np.nd
     st[9] = np.round(st[9])
     st[10], st[11] = 0.0, 1.0
     return st
+
+
+# -- domains compiled from a constraint spec --------------------------------------
+
+
+def synthetic_lcld_spec_problem(out_dir: str, n_states: int, seed: int = 42, model_seed: int = 7):
+    """:func:`synthetic_lcld_problem` with the ``lcld_spec`` domain (LCLD's
+    spec, ``domains/specs/lcld.yaml``) over the same schema files, rows,
+    surrogate and scaler."""
+    _, sur, scaler, x = synthetic_lcld_problem(out_dir, n_states, seed, model_seed)
+    paths = synth_lcld_schema(out_dir)
+    cons = get_constraints_class("lcld_spec")(paths["features"], paths["constraints"])
+    cons.check_constraints_error(x)
+    return cons, sur, scaler, x
+
+
+def synthetic_botnet_spec_problem(out_dir: str, n_states: int, seed: int = 42, model_seed: int = 7):
+    """:func:`synthetic_botnet_problem` with the ``botnet_spec`` domain
+    (``domains/specs/botnet.yaml``, its groups read from the schema's
+    ``feat_idx.pickle``) over the same files, rows, surrogate and scaler."""
+    _, sur, scaler, x = synthetic_botnet_problem(out_dir, n_states, seed, model_seed)
+    paths = synth_botnet_schema(out_dir)
+    cons = get_constraints_class("botnet_spec")(paths["features"], paths["constraints"])
+    cons.check_constraints_error(x)
+    return cons, sur, scaler, x
+
+
+def synthetic_family_problem(out_dir: str, family: int, n_states: int, model_seed: int = 7):
+    """(constraints, surrogate, scaler, x) of the seeded ``family<family>``
+    domain: its schema and spec written to ``out_dir``
+    (``domains.ir.write_family``), ``sample_family(n_states, family)``'s
+    feasible rows and a seeded LCLD-topology surrogate over its features."""
+    write_family(out_dir, family)
+    cons = get_constraints_class(f"family{family}")(os.path.join(out_dir, "features.csv"),
+                                                    os.path.join(out_dir, "constraints.csv"))
+    x, _, _ = sample_family(n_states, family)
+    return _problem(cons, x, lcld_mlp(cons.schema.n_features, seed=model_seed))
+
+
+#: the surrogate of the phishing domain's oracle rates
+#: (``tests/fixtures/oracle_interior_rates.json``): the JAX package's
+#: ``init_params(lcld_mlp(), 14, seed=1)`` in float64, written by its
+#: ``save_params`` (``tests/test_torch_spec_engine.py`` holds the file equal
+#: to what that call writes)
+PHISHING_SURROGATE = os.path.join(os.path.dirname(__file__), "fixtures", "phishing_oracle_mlp.msgpack")
+
+
+def phishing_problem(cfg: dict):
+    """(constraints, surrogate, scaler, x) of the phishing domain at the
+    fixture's config ``cfg`` (its ``domains.phishing.config``), as
+    ``tools/oracle_check.py::build_phishing`` builds them: the committed
+    spec domain, ``synth_phishing(pool, pool_seed)`` rows, a scaler over the
+    rows and the bounds, and ``n_states`` rows spread over those the float64
+    surrogate puts in class 1 at ``thresholds.f1``, most likely first."""
+    d = spec_domain_dir("phishing")
+    cons = get_constraints_class("phishing")(os.path.join(d, "features.csv"), os.path.join(d, "constraints.csv"))
+    sur = load_params(PHISHING_SURROGATE, dtype=torch.float64)
+    pool = synth_phishing(cfg["pool"], cons.schema, seed=cfg["pool_seed"])
+    xl, xu = (np.broadcast_to(np.asarray(a, float), pool.shape) for a in cons.get_feature_min_max(pool))
+    scaler = fit_minmax(np.minimum(pool.min(0), xl.min(0)), np.maximum(pool.max(0), xu.max(0)))
+    with torch.no_grad():
+        p1 = sur.predict_proba(torch.as_tensor(scaler.transform(pool)))[:, 1].numpy()
+    cand = np.where(p1 >= cfg["thresholds"]["f1"])[0]
+    cand = cand[np.argsort(-p1[cand])]
+    sel = cand[np.linspace(0, len(cand) - 1, cfg["n_states"]).astype(int)]
+    return cons, sur, scaler, pool[sel]
+
+
+def spec_edge_rows(cons, x: np.ndarray) -> np.ndarray:
+    """Copies of the rows ``x`` of a spec domain with its operators' edge
+    cases: each division's, ``safe_div``'s and ``finite_div``'s denominator
+    at 0, -0.0, NaN, +inf and -inf (where the denominator is a feature);
+    each membership's values met exactly; ±0 in every feature; every
+    feature at its lower and at its upper bound. One edge per row, cycling
+    through ``x``'s rows."""
+    from .domains.ir import expr as E
+
+    env = cons.resolved.env
+    edges = []
+    for c in cons.resolved.spec.constraints:
+        nodes = list(E.walk(c.lhs)) + ([] if c.kind == "member" else list(E.walk(c.rhs)))
+        for node in nodes:
+            den = None
+            if isinstance(node, E.Bin) and node.op == "/":
+                den = node.rhs
+            elif isinstance(node, E.Call) and node.fn in ("safe_div", "finite_div"):
+                den = node.args[1]
+            if isinstance(den, E.Feat):
+                cols = [env.col(den.name)]
+            elif isinstance(den, E.Group):
+                cols = [int(k) for k in env.group(den.name)[:3]]
+            else:
+                continue
+            edges += [(k, v) for k in cols for v in (0.0, -0.0, np.nan, np.inf, -np.inf)]
+        if c.kind == "member" and isinstance(c.lhs, E.Feat):
+            edges += [(env.col(c.lhs.name), v) for v in c.rhs]
+    xl, xu = (np.broadcast_to(np.asarray(a, float), x.shape) for a in cons.get_feature_min_max(x))
+    n = cons.schema.n_features
+    edges += [(k, v) for k in range(n) for v in (0.0, -0.0)]
+    rows = []
+    for i, (k, v) in enumerate(edges):
+        r = x[i % len(x)].copy()
+        r[k] = v
+        rows.append(r)
+    for i in range(n):
+        for bound in (xl, xu):
+            r = x[i % len(x)].copy()
+            r[i] = bound[i % len(x), i]
+            rows.append(r)
+    return np.asarray(rows)
+
+
+
+def spec_candidates(codec, cons, x: np.ndarray, n: int, seed: int = 0) -> np.ndarray:
+    """(S, n, L) float64 genetic candidates of the states ``x`` (S, D) of a
+    spec domain: the genes of its edge rows (:func:`spec_edge_rows`) and of
+    the states scaled by 1 + 0.05 N, dealt out to the states in turn.
+    ``codec`` is the engine's codec on the CPU; an immutable feature's edge
+    does not reach a candidate (it is decoded from its state)."""
+    from .core.codec import ml_to_genetic
+
+    rng = np.random.default_rng(seed)
+    pert = np.repeat(x, -(-n // 2), axis=0) * (1.0 + 0.05 * rng.standard_normal((len(x) * -(-n // 2), x.shape[1])))
+    rows = np.concatenate([spec_edge_rows(cons, x), pert])
+    genes = ml_to_genetic(codec, torch.as_tensor(rows, dtype=torch.float64)).numpy()
+    s = len(x)
+    return genes[np.arange(s * n) % len(genes)].reshape(s, n, -1)

@@ -150,11 +150,18 @@ def test_important_features_path_as_jax(baug, tmp_path):
 
 
 def test_registry(baug):
+    """The domains compiled from the constraint IR, which this test once
+    held refused, resolve since the IR is ported: to spec sets with JAX's
+    origin and spec hash."""
+    from moeva2_ijcai22_replication_tpu.domains import domain_origin as jorigin
+    from moeva2_ijcai22_replication_tpu_torch.domains import domain_origin
+    from moeva2_ijcai22_replication_tpu_torch.domains.ir import SpecConstraintSet
+
     assert get_constraints_class("botnet_augmented") is BotnetAugmentedConstraints
     assert jget("botnet_augmented") is JBotAug
     for name in ("lcld_spec", "botnet_spec", "phishing", "family7"):
-        with pytest.raises(NotImplementedError, match="constraint IR \\(ROADMAP A11\\)"):
-            get_constraints_class(name)
+        assert issubclass(get_constraints_class(name), SpecConstraintSet)
+        assert domain_origin(name) == jorigin(name)
 
 
 def test_repair_raises_in_both(baug):

@@ -43,6 +43,8 @@ def test_port_has_every_module_of_the_slice():
         "attacks.sat.engine", "domains.lcld_sat", "domains.botnet_sat",
         "experiments.rq", "experiments.pipeline", "experiments.run_all",
         "attacks.moeva.checkpoint", "observability", "observability.quality",
+        "domains.ir", "domains.ir.ops", "domains.ir.expr", "domains.ir.spec", "domains.ir.torch_backend",
+        "domains.ir.repair_backend", "domains.ir.generator", "domains.ir.program",
     ):
         assert f"{port.__name__}.{name}" in mods
 

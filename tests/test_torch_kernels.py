@@ -46,7 +46,8 @@ from moeva2_ijcai22_replication_tpu_torch.problems import (
     BOTNET_AUGMENTED_EDGE_ROWS, LCLD_AUGMENTED_EDGE_ROWS, LCLD_IMMUTABLE_TERMS, botnet_augmented_edge_rows,
     botnet_edge_starts, botnet_hard_candidates, lcld_augmented_edge_rows, lcld_immutable_repair_rows,
     lcld_immutable_term_schema, synthetic_botnet_augmented_problem, synthetic_botnet_pgd_problem,
-    synthetic_botnet_problem, synthetic_lcld_augmented_problem, synthetic_lcld_problem,
+    phishing_problem, spec_candidates, synthetic_botnet_problem, synthetic_botnet_spec_problem,
+    synthetic_family_problem, synthetic_lcld_augmented_problem, synthetic_lcld_problem, synthetic_lcld_spec_problem,
 )
 
 # tier-1 runs several test processes side by side: one intra-op thread
@@ -497,7 +498,7 @@ def test_launch_counts_reset():
         "pgd_botnet": 0, "objective_lcld_aug": 0, "pgd_lcld_aug": 0, "objective_botnet_aug": 0,
         "pgd_lcld_auto": 0, "pgd_lcld_aug_auto": 0, "pgd_botnet_auto": 0, "gate_stats": 0, "take_carry": 0,
         "objective_lcld_hist": 0, "objective_lcld_aug_hist": 0, "objective_botnet_hist": 0,
-        "objective_botnet_aug_hist": 0,
+        "objective_botnet_aug_hist": 0, "objective_spec": 0, "objective_spec_hist": 0,
     }
 
 
@@ -1489,3 +1490,37 @@ def test_history_record_is_checked(card, lcld):
                        (torch.empty((4, p, 13)), "CUDA tensor")):
         with pytest.raises((ValueError, TypeError), match=match):
             kernels.objective_lcld(*args, record=bad)
+
+
+# -- K9 objective_spec: a domain compiled from a constraint spec --------------------------
+
+#: the phishing oracle's config (tests/fixtures/oracle_interior_rates.json)
+PHISHING_CONFIG = {"n_states": 16, "pool": 512, "pool_seed": 11, "thresholds": {"f1": 0.5, "f2": 0.5}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lcld_spec", "botnet_spec", "phishing", "family2"])
+@pytest.mark.parametrize("norm", [2, "inf"])
+def test_objective_spec_equals_plain_on_the_card(card, tmp_path, name, norm):
+    if name == "lcld_spec":
+        cons, sur, scaler, x = synthetic_lcld_spec_problem(str(tmp_path), 5)
+    elif name == "botnet_spec":
+        cons, sur, scaler, x = synthetic_botnet_spec_problem(str(tmp_path), 3)
+    elif name == "phishing":
+        cons, sur, scaler, x = phishing_problem(PHISHING_CONFIG)
+    else:
+        cons, sur, scaler, x = synthetic_family_problem(str(tmp_path), 2, 5)
+    eng = Moeva2(sur, cons, ml_scaler=scaler, norm=norm, n_pop=12, n_offsprings=6, device=card,
+                 save_history="full")
+    run = eng.prepare(x, np.arange(len(x)) % 2)
+    cand = torch.as_tensor(spec_candidates(eng._codec_cpu, cons, x, 37), dtype=torch.float32, device=card)
+    args = (cand, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class, eng._objective)
+    record = torch.full((*cand.shape[:2], eng.history_columns()), float("nan"), device=card)
+    kernels.reset_launch_counts()
+    out = kernels.objective_spec(*args)
+    hist = kernels.objective_spec(*args, record=record)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["objective_spec"] == 1 and kernels.launch_counts()["objective_spec_hist"] == 1
+    f, want = evaluate_hist_plain(eng._objective, eng.codec, run, cand, cons, "full")
+    for got, exp in ((out, f), (hist, f), (record, want)):
+        np.testing.assert_array_equal(got.cpu().numpy(), exp.cpu().numpy())
