@@ -8,11 +8,12 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero:
 
 1. versions: torch, CUDA, and the card's name and power limit (nvidia-smi);
-2. build the port's eleven CUDA kernel sources (K1 and K7 with an
+2. build the port's twelve CUDA kernel sources (K1 and K7 with an
    instantiation each for the augmented LCLD domain, K7 two more for
    AutoPGD, K8 one for the augmented botnet domain, K1 and K8 their history
    instantiations for each domain, K6's two kernels in one source, K9 for
-   domains compiled from a spec)
+   domains compiled from a spec, K10 with its two instantiations, PGD and
+   AutoPGD, for spec domains)
    from the sources in the checkout and
    print each kernel's ptxas registers, shared memory, stack frame and
    spill (none of the redesigned ones, ``REDESIGNED``, may spill);
@@ -277,6 +278,28 @@ Phases, in order; any failure exits non-zero:
    fixture's config within its tolerance of ``oracle_ga``. No grid file
    names a spec domain: phase 13 launches no ``SPEC_COUNTERS``, which
    phase 17 must launch.
+18. PGD, AutoPGD and ``flip+sat`` on spec domains (the ``[spec-pgd]`` lines,
+   ROADMAP A11b; kernel K10 ``pgd_spec``): the ptxas lines of K10's two
+   instantiations; K10 and its AutoPGD instantiation against
+   ``pgd_run_plain`` and ``autopgd_run_plain`` on the card, bit for bit
+   (x_adv, the class there, the history, AutoPGD's steps), on
+   ``lcld_spec``, ``botnet_spec``, phishing and ``family2`` over
+   ``SPEC_PGD_ROWS`` (K10's block edges) with phase 7's ``PGD_CONFIGS`` and
+   phase 14's ``AUTOPGD_CONFIGS``, the starts led by the spec operators'
+   edge rows (``spec_edge_rows``); K10 and K10-auto timed at rq1's shapes
+   (``SPEC_PGD_TIMED``: 4000 x 1000 on ``lcld_spec``, 387 x 1000 on
+   ``botnet_spec``) beside K7 and K7b (and their AutoPGD instantiations) on
+   the same inputs in turns, through the wrapper, the plain version at 100
+   and 10 iterations (equal to K10 there) and the twins' bounds;
+   ``ConstrainedPGD.generate`` and ``AutoPGD.generate`` on both domains, launch
+   counts set to 0 just before and read just after, PGD on ``lcld_spec``
+   reaching LCLD's month pole (C5) on exactly K7's ``NAN_REFUSALS`` rows;
+   rq1.lcld's ``SPEC_RUNNER_LOSS`` point through ``experiments.pgd.run``
+   with a ``spec:`` key, and ``flip+sat`` through it on ``lcld_spec``, on
+   ``lcld`` (the same ``SPEC_SAT_STATES`` states: as many rows feasible only
+   under C3) and on phishing, with phase 10's checks. No grid file names a
+   spec domain: phase 13 launches no ``SPEC_PGD_COUNTERS``, which phase 18
+   must launch.
 
 The last three lines are the per-kernel JSON record (with each kernel's
 launches over phase 13's grids, ``grid_launches``), the card's name and
@@ -2647,15 +2670,17 @@ def dir_state(path: str) -> dict:
     return {f: os.stat(os.path.join(path, f)).st_mtime_ns for f in sorted(os.listdir(path))}
 
 
-def check_repairs(cons, x_init: np.ndarray, x_rep: np.ndarray) -> str:
-    """Each MILP-repaired row of ``x_rep`` satisfies the constraints as
+def repair_counts(cons, x_init: np.ndarray, x_rep: np.ndarray) -> dict:
+    """The MILP-repaired rows of ``x_rep``: each satisfies the constraints as
     ``check_constraints_error`` judges them (float64, every term within its
     tolerance) or is its initial state (the fallback). One exception is
-    counted apart, a caveat of the JAX package's LCLD builder (ROADMAP C3):
-    it takes the amortisation factor of g1 at the initial state's int_rate,
-    which the synthetic schema lets move, so a repaired row may break g1
-    alone by its moved int_rate; such a row must satisfy every term once
-    int_rate is put back to its initial value."""
+    counted apart, a caveat of the JAX package's LCLD builders, hand-written
+    and compiled from LCLD's spec alike (ROADMAP C3): they take the
+    amortisation factor of g1 at the initial state's int_rate, which the
+    synthetic schema lets move, so a repaired row may break g1 alone by its
+    moved int_rate; such a row must satisfy every term once int_rate is put
+    back to its initial value. Returns the counts: feasible, fell back,
+    caveat, of n."""
     import torch
 
     def feasible(rows):
@@ -2664,15 +2689,23 @@ def check_repairs(cons, x_init: np.ndarray, x_rep: np.ndarray) -> str:
     ok = feasible(x_rep)
     fell_back = (x_rep == x_init).all(-1)
     caveat = np.zeros_like(ok)
-    if cons.objective_kernel == "lcld":
+    if cons.objective_kernel == "lcld" or getattr(getattr(cons, "spec", None), "name", "").startswith("lcld"):
         back = x_rep.copy()
         back[:, 2] = x_init[:, 2]
         caveat = ~ok & ~fell_back & feasible(back)
     bad = ~(ok | fell_back | caveat)
     if bad.any():
         raise AssertionError(f"{int(bad.sum())} repaired rows violate the constraints: rows {np.flatnonzero(bad)[:10]}")
-    return (f"{int((ok & ~fell_back).sum())} feasible, {int(fell_back.sum())} fell back to the initial state, "
-            f"{int(caveat.sum())} feasible once int_rate is put back (C3) of {len(x_rep)}")
+    return {"feasible": int((ok & ~fell_back).sum()), "fell_back": int(fell_back.sum()), "caveat": int(caveat.sum()),
+            "n": len(x_rep)}
+
+
+def check_repairs(cons, x_init: np.ndarray, x_rep: np.ndarray) -> str:
+    """``repair_counts`` (which fails on a repaired row that is neither
+    feasible, nor its initial state, nor C3's caveat), for the log."""
+    c = repair_counts(cons, x_init, x_rep)
+    return (f"{c['feasible']} feasible, {c['fell_back']} fell back to the initial state, "
+            f"{c['caveat']} feasible once int_rate is put back (C3) of {c['n']}")
 
 
 def pole_rows_of_pgd(cfg: dict, plain: bool = True, poles: tuple = MONTH_POLE_TERMS) -> tuple:
@@ -2942,7 +2975,7 @@ def counter_name(cons, kind: str) -> str:
     for the augmented domains count apart (their tables carry the pairs:
     LCLD's are the pair tables, botnet's hold them beside the gather lists)."""
     base = f"{kind}_{cons.objective_kernel if kind == 'objective' else cons.pgd_kernel}"
-    if base == "objective_spec":  # K9 reads a program, with no pairs
+    if base in ("objective_spec", "pgd_spec"):  # K9 and K10 read programs, with no pairs
         return base
     tables = cons.kernel_tables("cpu")
     return f"{base}_aug" if tables is not None and getattr(tables, "pair_idx", tables) is not None else base
@@ -5635,6 +5668,420 @@ def run_spec(device, smi: str, resources: list, records: list) -> dict:
     torch.cuda.synchronize()
     return {k: launches[k] for k in SPEC_COUNTERS}
 
+# -- phase 18: PGD, AutoPGD and flip+sat on spec domains (kernel K10) -----------------
+
+#: K10's launch counts. No grid file of ``config/`` names a spec domain:
+#: phase 13 launches none of them, which phase 18 must launch
+SPEC_PGD_COUNTERS = ("pgd_spec", "pgd_spec_auto")
+#: K10's sweep, per domain: row counts on the edges of its blocks (ceil(N /
+#: 132) rows a block, at most 32, and as many as one block's shared memory
+#: holds: 10 rows of botnet_spec's 756 features, 8 for AutoPGD): a lone row;
+#: 131 and 133, one row a block and one past it; lcld_spec's 4000 (31 a
+#: block) and 4225 (32 a block, the last block holding one); botnet_spec's
+#: 387 (3 a block) and 1321 (10 a block, the most that fit, the last holding
+#: one); phishing's 16 states; a family's 256. Counts above the problem's
+#: states repeat its rows
+SPEC_PGD_ROWS = {"lcld_spec": (1, 131, 133, 4000, 4225), "botnet_spec": (1, 133, 387, 1321), "phishing": (1, 16),
+                 "family2": (1, 133, 256)}
+#: PGD's budgets in the sweep: every configuration at 7 iterations (at one
+#: row count each, in turn), the first at 1 iteration on every row count;
+#: AutoPGD's: 12 (seven checkpoints, where halving fires). On botnet_spec 4
+#: for both (three of AutoPGD's checkpoints): its plain version interprets
+#: 2104 instructions a step one torch op at a time, which kept phase 18 at
+#: 94 s of the smoke at 7 (PR 23, call 6)
+SPEC_PGD_ITERS = (1, 7)
+SPEC_SWEEP_ITERS = {"botnet_spec": (4, 4)}
+SPEC_AUTOPGD_DEFAULT_ITERS = 12
+#: the timed shapes: rq1.lcld's (4000 states x 1000, L2, ε 0.2,
+#: ``constraints+flip``) and rq1.botnet's (387 x 1000, ε 4), each beside
+#: the hand-written twin's kernel (K7, K7b) on the same inputs in turns, and
+#: the plain version at 100 and 10 iterations
+SPEC_PGD_TIMED = {"lcld_spec": ("lcld", PGD_STATES, PGD_EPS, 100), "botnet_spec": ("botnet", 387, 4.0, 10)}
+SPEC_PGD_LOSS = "constraints+flip"
+#: the rows of rq1.lcld's ``constraints+flip`` point on lcld_spec that reach
+#: LCLD's month pole at 1000 iterations on the card (ROADMAP C5), where the
+#: runner's judgement refuses the result: K7's rows on lcld
+#: (``NAN_REFUSALS``), each first non-finite in g8 and g9
+SPEC_NAN_REFUSALS = {"lcld_spec": NAN_REFUSALS[("lcld", "constraints+flip")]}
+#: the runner point with a ``spec:`` key: rq1.lcld's
+#: ``constraints+flip+adaptive_eps_step`` (the spec's repair assigns LCLD's
+#: ratio features too, as the JAX package's does, and on rq1's repairing
+#: point some leave the scaler's range: the judgement refuses that result in
+#: both packages)
+SPEC_RUNNER_LOSS = "constraints+flip+adaptive_eps_step"
+#: ``flip+sat`` through the runner on lcld_spec, on lcld (the same states)
+#: and on phishing: the first states of each, the MILP repair being host work
+SPEC_SAT_STATES = 48
+#: float32 operations of K10 per row and iteration counted from its source,
+#: besides 4 per weight of the stack and PGD_OPS_PER_FEATURE per feature:
+#: one per instruction of the reverse program (its float64 pow, log and the
+#: pow jacobians counted apart), one per contribution (its sum), 3 per term
+#: (its sum, the history) and PGD_BOTNET_OPS_PER_ROW; with repair one per
+#: instruction of the repair program
+SPEC_PGD_OPS_PER_TERM = 3
+
+
+def spec_pgd_problems(tmp: str) -> dict:
+    """Phase 18's problems, name -> (constraints, surrogate, scaler,
+    states): lcld_spec at rq1.lcld's 4000 states, botnet_spec at
+    rq1.botnet's 387, phishing at the oracle fixture's config and the seeded
+    family2 at 256; and the hand-written twins of the first two on the same
+    files, rows, surrogates and scalers, under ``lcld`` and ``botnet``."""
+    from moeva2_ijcai22_replication_tpu_torch.problems import (
+        phishing_problem, synthetic_botnet_problem, synthetic_botnet_spec_problem, synthetic_family_problem,
+        synthetic_lcld_problem, synthetic_lcld_spec_problem,
+    )
+
+    with open(SPEC_ORACLE) as f:
+        cfg = json.load(f)["domains"]["phishing"]["config"]
+    return {
+        "lcld_spec": synthetic_lcld_spec_problem(f"{tmp}/lcld", PGD_STATES),
+        "botnet_spec": synthetic_botnet_spec_problem(f"{tmp}/botnet", BOTNET_STATES),
+        "phishing": phishing_problem(cfg),
+        "family2": synthetic_family_problem(f"{tmp}/family2", 2, 256),
+        "lcld": synthetic_lcld_problem(f"{tmp}/lcld", PGD_STATES),
+        "botnet": synthetic_botnet_problem(f"{tmp}/botnet", BOTNET_STATES),
+    }
+
+
+def check_spec_pgd_kernel(device, name: str, problem) -> dict:
+    """K10 and its AutoPGD instantiation against ``pgd_run_plain`` and
+    ``autopgd_run_plain`` on the card, bit for bit (x_adv, the class there,
+    the history; AutoPGD's final steps), on ``name``'s problem: phase 7's
+    ``PGD_CONFIGS`` and phase 14's ``AUTOPGD_CONFIGS`` over the domain's
+    ``SPEC_PGD_ROWS``, the starts led by the spec's edge rows
+    (``spec_edge_rows``, scaled). Returns counts for the log."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD, ConstrainedPGD
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.autopgd import autopgd_run_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import pgd_run_plain
+    from moeva2_ijcai22_replication_tpu_torch.problems import spec_edge_rows
+
+    cons, sur, scaler, x = problem
+    rows = SPEC_PGD_ROWS[name]
+    d = x.shape[1]
+    xs = scaler.transform(x).astype(np.float32)
+    edges = scaler.transform(spec_edge_rows(cons, x)).astype(np.float32)
+    starts = np.concatenate([edges, xs])
+    n = max(rows)
+    xi = torch.as_tensor(np.resize(xs, (n, d)), device=device)
+    st = torch.as_tensor(np.resize(starts, (n, d)), device=device)
+    y = torch.as_tensor(np.arange(n) % 2, device=device)
+    runs, nan_rows = 0, 0
+    pgd_t, auto_t = SPEC_SWEEP_ITERS.get(name, (SPEC_PGD_ITERS[-1], SPEC_AUTOPGD_DEFAULT_ITERS))
+    cases = [(ConstrainedPGD, knobs, rows[ci % len(rows)], pgd_t) for ci, knobs in enumerate(PGD_CONFIGS)]
+    cases += [(ConstrainedPGD, PGD_CONFIGS[0], r, SPEC_PGD_ITERS[0]) for r in rows]
+    cases += [(AutoPGD, knobs, rows[ci % len(rows)], auto_t) for ci, knobs in enumerate(AUTOPGD_CONFIGS)]
+    for cls, knobs, r, t in cases:
+        eps = 0.2 if knobs["norm"] == 2 else 0.1
+        atk = cls(sur, cons, scaler, eps=eps, eps_step=0.05, max_iter=t, device=device, **knobs)
+        sched = atk.schedule(eps, 0.05, t)
+        args = (xi[:r], y[:r], st[:r])
+        repair = "repair" in atk.loss_evaluation
+        kernels.reset_launch_counts()
+        got = atk.one_run(*args, sched, eps)
+        counter = "pgd_spec" if cls is ConstrainedPGD else "pgd_spec_auto"
+        if kernels.launch_counts()[counter] != 1:
+            raise AssertionError(f"{name}: {cls.__name__}'s run launched {kernels.launch_counts()}, not one {counter}")
+        if cls is ConstrainedPGD:
+            want = pgd_run_plain(atk.tables, cons, sched, *args, eps, atk.clip, atk.norm, repair, atk.targeted,
+                                 atk.history_layout())
+        else:
+            got = (*got, atk.last_eta)
+            want = autopgd_run_plain(atk.tables, cons, sched, *args, eps, atk.clip, atk.norm, repair,
+                                     atk.targeted, atk.history_layout())
+        what = f"{counter} on {name} {atk.loss_evaluation} {atk.constraints_optim} norm={atk.norm} N={r} T={t}"
+        for part, g, w in zip(("x_adv", "pred", "hist", "eta"), got, want):
+            if (g is None) != (w is None):
+                raise AssertionError(f"{what}: {part} is {g} on the card, {w} in the plain version")
+            if g is not None:
+                hold_equal(g, w, f"{what} {part}")
+        runs += 1
+        nan_rows += int(torch.isnan(got[0]).any(1).sum())
+    return {"runs": runs, "nan_rows": nan_rows, "edge_rows": len(edges), "features": d, "iters": (pgd_t, auto_t),
+            "terms": cons.n_constraints, "instructions": int(cons.pgd_program.vjp.code.shape[0]),
+            "repair_instructions": int(cons.pgd_program.repair.code.shape[0]),
+            "contributions": int(cons.pgd_program.acc_idx.numel())}
+
+
+def spec_pgd_work(tables, n: int, t: int, repair: bool):
+    """K10's own count for ``n`` rows and ``t`` iterations: ``pgd_work``'s
+    bytes and stack, the program's instructions, contributions and terms,
+    its float64 operations (pow, log and the pow jacobians) apart."""
+    from moeva2_ijcai22_replication_tpu_torch.domains.ir import program as P
+
+    widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
+    macs = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
+    d = widths[0]
+    progs = tables.cons
+    ops_ = progs.vjp.code[:, 0].cpu().numpy() & 0xFF
+    f64 = int(np.isin(ops_, (P.POW, P.POW_DB, P.POW_DE)).sum()) * 2
+    n_instr = int(progs.vjp.code.shape[0]) + (int(progs.repair.code.shape[0]) if repair else 0)
+    n_bytes = (4 * 3 * n * d + 16 * n + 4 * (tables.params.numel() + tables.first_t.numel()) + 12 * d
+               + 16 * n_instr + 4 * (progs.acc_idx.numel() + progs.acc_ptr.numel() + progs.term_start.numel()))
+    per_row = (4 * macs + PGD_OPS_PER_FEATURE * d + n_instr + progs.acc_idx.numel()
+               + SPEC_PGD_OPS_PER_TERM * progs.vjp.n_terms + PGD_BOTNET_OPS_PER_ROW)
+    return n_bytes, n * t * per_row, n * t * (f64 + 3)
+
+
+def time_spec_pgd(device, problems: dict, smi: str) -> list:
+    """K10 and K10-auto at ``SPEC_PGD_TIMED``'s shapes beside the twin
+    domain's kernel (K7 on lcld_spec's shape, K7b on botnet_spec's, each with
+    its AutoPGD instantiation beside K10's) on the same rows, labels and ε,
+    in turns (CUDA graphs of one launch), through the wrapper, and the plain
+    version at the shape's plain budget, which K10 equals there bit for bit.
+    The bounds are the twins' (their work on the same shapes: ``pgd_bound``,
+    ``pgd_botnet_bound``, ``autopgd_bound``, ``autopgd_botnet_bound``), with
+    K10's own count beside them (``spec_pgd_work``). Returns K10's and
+    K10-auto's records."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD, ConstrainedPGD
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.autopgd import autopgd_run_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import pgd_run_plain
+
+    shapes = {"pgd_spec": {}, "pgd_spec_auto": {}}
+    for name, (twin, n, eps, plain_t) in SPEC_PGD_TIMED.items():
+        cons, sur, scaler, x = problems[name]
+        hand = problems[twin][0]
+        xs = scaler.transform(x)[:n]
+        xi = torch.as_tensor(xs, dtype=torch.float32, device=device)
+        y = torch.as_tensor(surrogate_labels(sur, xs), device=device)
+        eps = eps - 1e-6
+        for cls, rec_name in ((ConstrainedPGD, "pgd_spec"), (AutoPGD, "pgd_spec_auto")):
+            auto = cls is AutoPGD
+            loss = ("autopgd+" if auto else "") + SPEC_PGD_LOSS
+
+            def engine(c, t):
+                return cls(sur, c, scaler, eps=eps, eps_step=0.1, max_iter=t, norm=2, loss_evaluation=loss,  # noqa: B023
+                           device=device)
+
+            spec, twin_atk = engine(cons, PGD_BUDGET), engine(hand, PGD_BUDGET)
+            twin_kernel = kernels.pgd_lcld if twin == "lcld" else kernels.pgd_botnet
+
+            def fn(atk, kernel, t=PGD_BUDGET):
+                sched = atk.schedule(eps, 0.1, t)
+                extra = {"auto": sched.auto} if auto else {}  # noqa: B023
+                base = sched.pgd if auto else sched  # noqa: B023
+                return lambda: kernel(atk.tables, base, xi, y, xi, eps, atk.clip, False, False, False, **extra)  # noqa: B023
+
+            sfn, tfn = fn(spec, kernels.pgd_spec), fn(twin_atk, twin_kernel)
+            times = {"spec": [], "twin": []}
+            for turn in ("spec", "twin", "twin", "spec"):
+                times[turn].append(graph_ms(sfn if turn == "spec" else tfn, launches=1, repeats=2))
+            small = engine(cons, plain_t)
+            sched = small.schedule(eps, 0.1, plain_t)
+            plain = (autopgd_run_plain if auto else pgd_run_plain)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = plain(small.tables, cons, sched, xi, y, xi, eps, small.clip, 2, False, False)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            got = fn(small, kernels.pgd_spec, plain_t)()
+            for part, g, w in zip(("x_adv", "pred", "eta"), got[:2] + got[3:], want[:2] + want[3:]):
+                hold_equal(g, w, f"{rec_name} on {name} at its timed shape, {plain_t} iterations, {part}")
+            tables = twin_atk.tables
+            if auto:
+                b_ms, b_by = (autopgd_bound if twin == "lcld" else autopgd_botnet_bound)(tables, n, PGD_BUDGET)
+            else:
+                b_ms, b_by = (pgd_bound if twin == "lcld" else pgd_botnet_bound)(tables, n, PGD_BUDGET)
+            own_ms, own_by = bound_ms(*spec_pgd_work(spec.tables, n, PGD_BUDGET * (2 if auto else 1), False))
+            entry = {
+                "shape": f"{n}x{PGD_BUDGET}", "ms": statistics.median(times["spec"]),
+                "wrapper_ms": cuda_ms(sfn, launches=1, repeats=1), "plain_ms": plain_ms, "plain_iters": plain_t,
+                "bound_ms": b_ms, "bound_by": b_by, "spec_work_bound_ms": own_ms, "spec_work_bound_by": own_by,
+                "twin": f"{twin_kernel.__name__}{'_auto' if auto else ''}", "twin_ms": statistics.median(times["twin"]),
+                "ms_turns": times,
+            }
+            shapes[rec_name][name] = entry
+            log(f"[spec-pgd] {rec_name} on {name} at {n} states x {PGD_BUDGET} iterations ({loss}, L2, ε {eps:.6f}): "
+                f"device {entry['ms']:.3f} ms against {entry['twin']}'s {entry['twin_ms']:.3f} ms in turns "
+                f"(x{entry['ms'] / entry['twin_ms']:.2f}), through the wrapper {entry['wrapper_ms']:.3f} ms, plain "
+                f"{plain_ms:.1f} ms at {plain_t} iterations (K10 equal to it there), bound {b_ms:.4f} ms ({b_by}; "
+                f"{entry['twin']}'s count, the same work; K10's own count {own_ms:.4f} ms) on {smi}")
+    records = []
+    for rec_name, replaces in (("pgd_spec", "moeva2_ijcai22_replication_tpu/attacks/pgd/engine.py:241"),
+                               ("pgd_spec_auto", "moeva2_ijcai22_replication_tpu/attacks/pgd/autopgd.py:45")):
+        lcld = shapes[rec_name]["lcld_spec"]
+        records.append({
+            "name": rec_name, "route": "cuda",
+            "source": "moeva2_ijcai22_replication_tpu_torch/kernels/csrc/pgd_spec.cu", "replaces": replaces,
+            "launches": 0, "max_abs_err": 0.0, "library_ms": None,
+            **{k: lcld[k] for k in ("ms", "wrapper_ms", "plain_ms", "plain_iters", "bound_ms", "bound_by",
+                                    "twin", "twin_ms", "spec_work_bound_ms", "shape")},
+            "botnet_spec_shape": shapes[rec_name]["botnet_spec"],
+        })
+    return records
+
+
+def drive_spec_pgd(device, problems: dict, smi: str) -> dict:
+    """``ConstrainedPGD.generate`` and ``AutoPGD.generate`` on lcld_spec and
+    botnet_spec at rq1's shapes (``SPEC_PGD_TIMED``, 1000 iterations,
+    ``SPEC_PGD_LOSS``, labels from the surrogate), each with its launch counts
+    set to 0 just before and read just after (one launch of K10 or K10-auto);
+    the result's shape, immutables and ε-ball on its finite rows. PGD on
+    lcld_spec is rq1.lcld's ``constraints+flip`` point as the runner runs
+    it: the rows that reach LCLD's month pole (ROADMAP C5), where the
+    runner's judgement refuses the result, must be ``SPEC_NAN_REFUSALS``'
+    (K7's on lcld, ``NAN_REFUSALS``). Returns the launches."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD, ConstrainedPGD
+
+    launches = {k: 0 for k in SPEC_PGD_COUNTERS}
+    for name, (_, n, eps, _) in SPEC_PGD_TIMED.items():
+        cons, sur, scaler, x = problems[name]
+        xs = scaler.transform(x)[:n]
+        y = surrogate_labels(sur, xs)
+        mut = np.asarray(cons.get_mutable_mask())
+        for cls, counter in ((ConstrainedPGD, "pgd_spec"), (AutoPGD, "pgd_spec_auto")):
+            atk = cls(sur, cons, scaler, eps=eps - 1e-6, eps_step=0.1, max_iter=PGD_BUDGET, norm=2,
+                      loss_evaluation=("autopgd+" if cls is AutoPGD else "") + SPEC_PGD_LOSS, device=device)
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = atk.generate(xs, y)
+            wall = time.perf_counter() - t0
+            got = kernels.launch_counts()
+            check_launches(got, {**{k: 0 for k in got}, counter: 1}, f"{cls.__name__}.generate on {name}")
+            launches[counter] += 1
+            fin = np.isfinite(out).all(-1)
+            nan_rows = tuple(np.flatnonzero(~fin).tolist())
+            if cls is ConstrainedPGD and nan_rows != SPEC_NAN_REFUSALS.get(name, ()):
+                raise AssertionError(f"generate on {name}: NaN rows {nan_rows}, not {SPEC_NAN_REFUSALS.get(name, ())}")
+            d = np.abs(out[fin] - xs[fin].astype(np.float32))
+            if out.shape != xs.shape or not np.array_equal(out[fin][:, ~mut], xs[fin][:, ~mut].astype(np.float32)):
+                raise AssertionError(f"{cls.__name__}.generate on {name}: shape {out.shape} or immutables moved")
+            if (np.sqrt((d.astype(np.float64) ** 2).sum(-1)) > eps + 1e-4).any():
+                raise AssertionError(f"{cls.__name__}.generate on {name}: a finite row left the ε-ball")
+            log(f"[spec-pgd] {cls.__name__}.generate on {name}: {n} states x {PGD_BUDGET} iterations, one {counter} "
+                f"launch, {int(fin.sum())} finite rows within the ε-ball with their immutables kept, NaN rows "
+                f"{list(nan_rows)}" + (" (the month pole, C5: the runner's judgement refuses this result, as it does "
+                f"K7's on lcld with the same rows {list(NAN_REFUSALS[('lcld', SPEC_PGD_LOSS)])})" if nan_rows else "")
+                + f"; wall {wall:.3f} s on {smi}")
+    return launches
+
+
+def spec_runner_config(art: str, project: str, loss: str, n_states: int, **over) -> dict:
+    """A ``config/pgd.yaml`` point of rq1.lcld's shape composed as phase 10
+    composes it, for ``project`` (a registry name) over phase 10's LCLD
+    artifacts in ``art``, on its first ``n_states`` states (-1: all)."""
+    cfg = runner_config("lcld", "pgd", art, loss)
+    cfg.update(project_name=project, n_initial_state=n_states, dirs={"results": f"{art}/out/{project}/{loss}"})
+    cfg.update(over)
+    return cfg
+
+
+def write_phishing_artifacts(problem, out: str) -> dict:
+    """The phishing problem's states, surrogate and scaler as runner
+    artifacts in ``out``, and a ``config/pgd.yaml`` ``flip+sat`` point over
+    them (the package data's schema and constraints)."""
+    import shutil
+
+    from moeva2_ijcai22_replication_tpu_torch.domains import spec_domain_dir
+    from moeva2_ijcai22_replication_tpu_torch.models.scalers import save_npz
+    from moeva2_ijcai22_replication_tpu_torch.problems import PHISHING_SURROGATE
+
+    _, _, scaler, x = problem
+    os.makedirs(out, exist_ok=True)
+    np.save(f"{out}/x_candidates.npy", x)
+    shutil.copy(PHISHING_SURROGATE, f"{out}/nn.msgpack")
+    save_npz(scaler, f"{out}/scaler.npz")
+    d = spec_domain_dir("phishing")
+    cfg = dict(PGD_YAML, project_name="phishing", misclassification_threshold=0.5, norm=2, n_initial_state=-1,
+               initial_state_offset=0, system={"n_jobs": -1, "verbose": 1, "mesh_devices": 0}, save_history=False,
+               reconstruction=False, seed=42, budget=100, eps=0.2, loss_evaluation="flip+sat")
+    cfg["paths"] = {"model": f"{out}/nn.msgpack", "features": f"{d}/features.csv",
+                    "constraints": f"{d}/constraints.csv", "x_candidates": f"{out}/x_candidates.npy",
+                    "min_max_scaler": f"{out}/scaler.npz", "ml_scaler": f"{out}/scaler.npz"}
+    cfg["dirs"] = {"results": f"{out}/out/phishing"}
+    return cfg
+
+
+def run_spec_pgd_runner(problems: dict, smi: str) -> dict:
+    """The runners on spec domains: rq1.lcld's ``SPEC_RUNNER_LOSS`` point
+    with a ``spec:`` key (4000 states x 1000); ``flip+sat`` on ``lcld_spec``
+    and on ``lcld`` at their first
+    ``SPEC_SAT_STATES`` states, whose rows feasible only under C3 must be as
+    many, and on phishing; each with phase 10's checks. Returns the
+    launches."""
+    from moeva2_ijcai22_replication_tpu_torch.domains import SPEC_DIR
+    from moeva2_ijcai22_replication_tpu_torch.experiments import common
+
+    launches = {k: 0 for k in SPEC_PGD_COUNTERS}
+
+    def drive(cfg, tag):
+        metrics = drive_runner(cfg, smi, lambda: point_expected_launches("pgd", cfg), tag)
+        launches["pgd_spec"] += point_expected_launches("pgd", cfg).get("pgd_spec", 0)
+        return metrics
+
+    with tempfile.TemporaryDirectory() as tmp:
+        art = f"{tmp}/lcld"
+        write_runner_artifacts("lcld", art)
+        cfg = spec_runner_config(art, "lcld", SPEC_RUNNER_LOSS, -1, spec=os.path.join(SPEC_DIR, "lcld.yaml"))
+        drive(cfg, f"pgd lcld_spec {SPEC_RUNNER_LOSS} (spec: key)")
+        caveats = {}
+        for project in ("lcld_spec", "lcld"):
+            cfg = spec_runner_config(art, project, "flip+sat", SPEC_SAT_STATES)
+            metrics = drive(cfg, f"pgd {project} flip+sat")
+            x_rep = np.load(f"{cfg['dirs']['results']}/x_attacks_pgd_flip+sat_{metrics['config_hash']}.npy")[:, 0]
+            cons = common.load_constraints(cfg)
+            counts = repair_counts(cons, common.load_candidates(cfg), x_rep)
+            caveats[project] = counts["caveat"]
+            log(f"[spec-pgd] pgd {project} flip+sat: MILP repair {check_repairs(cons, common.load_candidates(cfg), x_rep)}")
+        if caveats["lcld_spec"] != caveats["lcld"]:
+            raise AssertionError(f"flip+sat: {caveats['lcld_spec']} rows of lcld_spec are feasible only under C3, "
+                                 f"{caveats['lcld']} of lcld on the same states")
+        cfg = write_phishing_artifacts(problems["phishing"], f"{tmp}/phishing")
+        metrics = drive(cfg, "pgd phishing flip+sat")
+        x_rep = np.load(f"{cfg['dirs']['results']}/x_attacks_pgd_flip+sat_{metrics['config_hash']}.npy")[:, 0]
+        cons = common.load_constraints(cfg)
+        log(f"[spec-pgd] pgd phishing flip+sat: MILP repair {check_repairs(cons, common.load_candidates(cfg), x_rep)}")
+    return launches
+
+
+def run_spec_pgd(device, smi: str, resources: list, records: list) -> dict:
+    """Phase 18: PGD, AutoPGD and ``flip+sat`` on domains compiled from a
+    constraint spec (ROADMAP A11b) with kernel K10. Returns the launch counts
+    of its main paths' runs, each set to 0 just before and read just after."""
+    import torch
+
+    t0 = time.perf_counter()
+    entries = [k for k in resources if k["kernel"].startswith("pgd_spec_kernel")]
+    if len(entries) != 2:
+        raise AssertionError(f"the build's ptxas report has {len(entries)} pgd_spec_kernel entries, not 2")
+    for k in entries:
+        log(f"[spec-pgd] K10 ptxas {k['kernel']}: {k['registers']} registers, {k['smem']} bytes static shared "
+            f"memory, {k['stack']} bytes stack frame, {k['spill_stores']} + {k['spill_loads']} bytes spill stores + "
+            "loads")
+    with tempfile.TemporaryDirectory() as tmp:
+        problems = spec_pgd_problems(tmp)
+    for name in SPEC_PGD_ROWS:
+        t1 = time.perf_counter()
+        got = check_spec_pgd_kernel(device, name, problems[name])
+        log(f"[spec-pgd] pgd_spec and pgd_spec_auto on {name} (D = {got['features']}, {got['terms']} terms, "
+            f"{got['instructions']} reverse and {got['repair_instructions']} repair instructions, "
+            f"{got['contributions']} contributions) equal pgd_run_plain and autopgd_run_plain bit for bit (x_adv, "
+            f"class, history, AutoPGD's steps) on {got['runs']} runs: {len(PGD_CONFIGS)} PGD configurations at T = "
+            f"{got['iters'][0]}, the first at T = {SPEC_PGD_ITERS[0]} on every N, {len(AUTOPGD_CONFIGS)} AutoPGD "
+            f"ones at T = {got['iters'][1]}, N in {SPEC_PGD_ROWS[name]}, the starts led by {got['edge_rows']} edge "
+            f"rows; {got['nan_rows']} NaN rows of x_adv ({time.perf_counter() - t1:.1f} s)")
+    records += time_spec_pgd(device, problems, smi)
+    launches = drive_spec_pgd(device, problems, smi)
+    for k, v in run_spec_pgd_runner(problems, smi).items():
+        launches[k] += v
+    if not all(launches[k] for k in SPEC_PGD_COUNTERS):
+        raise AssertionError(f"phase 18 launched no {[k for k in SPEC_PGD_COUNTERS if not launches[k]]}")
+    log(f"[spec-pgd] phase 18 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    return launches
+
+
 
 def main() -> int:
     import torch
@@ -5718,7 +6165,8 @@ def main() -> int:
     grid_launches = run_grids(smi)
     # no grid file selects AutoPGD: its counters are checked on phase 14's drives
     idle = [name for name, n in grid_launches.items()
-            if n == 0 and name not in AUTOPGD_COUNTERS + EARLY_EXIT_COUNTERS + HISTORY_COUNTERS + SPEC_COUNTERS]
+            if n == 0 and name not in AUTOPGD_COUNTERS + EARLY_EXIT_COUNTERS + HISTORY_COUNTERS + SPEC_COUNTERS
+            + SPEC_PGD_COUNTERS]
     if idle:
         raise AssertionError(f"phase 13's grids launched no {idle}")
     auto_records, auto_launches = run_autopgd(device, smi, resources, problem)
@@ -5734,7 +6182,9 @@ def main() -> int:
     lap("phase 16")
     launches.update(run_spec(device, smi, resources, records))
     lap("phase 17")
-    log(f"[smoke] phases 1-17 took {time.perf_counter() - t_smoke:.1f} s")
+    launches.update(run_spec_pgd(device, smi, resources, records))
+    lap("phase 18")
+    log(f"[smoke] phases 1-18 took {time.perf_counter() - t_smoke:.1f} s")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         rec["grid_launches"] = grid_launches[rec["name"]]

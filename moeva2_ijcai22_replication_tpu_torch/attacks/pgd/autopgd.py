@@ -22,9 +22,10 @@ step η replaces the schedule's step: ``adaptive_eps_step`` changes nothing.
 
 One run (:func:`autopgd_run_plain`, JAX's ``AutoPGD._one_run``) is the
 AutoPGD instantiation (``kAuto``) of the set's PGD kernel on the card, K7
-on LCLD (``kernels.pgd_lcld`` with the tables, ``kernels/csrc/pgd_lcld.cu``)
-and K7b on botnet (``kernels.pgd_botnet``, ``kernels/csrc/pgd_botnet.cu``),
-and this plain version on the CPU, one rounded operation at a time in the
+on LCLD (``kernels.pgd_lcld`` with the tables, ``kernels/csrc/pgd_lcld.cu``),
+K7b on botnet (``kernels.pgd_botnet``, ``kernels/csrc/pgd_botnet.cu``) and
+K10 on a domain compiled from a spec (``kernels.pgd_spec``,
+``kernels/csrc/pgd_spec.cu``), and this plain version on the CPU, one rounded operation at a time in the
 kernels' order. On the card a set with no PGD kernel (``pgd_kernel``) is
 refused before anything launches, as :class:`ConstrainedPGD` refuses it;
 on the CPU every set runs.
@@ -216,13 +217,14 @@ class AutoPGD(ConstrainedPGD):
 
     def one_run(self, x_init, y, x_start, sched: AutoPgdSchedule, eps: float):
         """``(x_best, pred, hist)`` of one run: the AutoPGD instantiation of
-        the set's kernel (K7 or K7b) on the card, :func:`autopgd_run_plain`
+        the set's kernel (K7, K7b or K10) on the card, :func:`autopgd_run_plain`
         on the CPU; each row's final step lands in ``last_eta``."""
         repair = "repair" in self.loss_evaluation
         if x_init.is_cuda:
             from ... import kernels
 
-            launch = {"lcld": kernels.pgd_lcld, "botnet": kernels.pgd_botnet}[self.constraints.pgd_kernel]
+            launch = {"lcld": kernels.pgd_lcld, "botnet": kernels.pgd_botnet, "spec": kernels.pgd_spec}[
+                self.constraints.pgd_kernel]
             x_best, pred, hist, eta = launch(
                 self.tables, sched.pgd, x_init, y, x_start, eps, self.clip, is_inf(self.norm), repair,
                 self.targeted, self.history_layout(), auto=sched.auto,

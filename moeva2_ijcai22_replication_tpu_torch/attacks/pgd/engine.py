@@ -37,8 +37,9 @@ relu at their edges; NaN kept through every product, then zeroed): the
 MLP's backward is :func:`..models.mlp.mlp_input_grad_plain`, the
 constraints' the set's ``smooth_vjp``. On CUDA tensors a run is one launch
 of the set's PGD kernel (``pgd_kernel``): K7 (``kernels/csrc/pgd_lcld.cu``)
-on LCLD, K7b (``kernels/csrc/pgd_botnet.cu``) on botnet, each repeating
-this plain version's operations in its order; on CPU tensors
+on LCLD, K7b (``kernels/csrc/pgd_botnet.cu``) on botnet, K10
+(``kernels/csrc/pgd_spec.cu``) on a domain compiled from a spec, each
+repeating this plain version's operations in its order; on CPU tensors
 :func:`pgd_run_plain` runs. Nothing on the card's path calls the plain
 version.
 """
@@ -289,8 +290,8 @@ class ConstrainedPGD:
         validate_norm(self.norm)
         name = type(self.constraints).__name__
         if type(self.constraints).smooth_vjp is ConstraintSet.smooth_vjp:
-            why = getattr(self.constraints, "no_smooth_vjp", "PGD cannot differentiate its terms")
-            raise NotImplementedError(f"{name} has no hand-written constraint backward (smooth_vjp): {why}")
+            raise NotImplementedError(f"{name} has no hand-written constraint backward (smooth_vjp): PGD cannot "
+                                      "differentiate its terms")
         if self.device.type == "cuda" and (why := card_refusal(self.constraints)):
             raise NotImplementedError(why)
         if self.device.type == "cuda" and self.dtype != torch.float32:
@@ -313,7 +314,7 @@ class ConstrainedPGD:
             mutable=torch.as_tensor(np.asarray(self.constraints.get_mutable_mask(), bool), device=self.device),
             ohe=ohe_idx.masked_fill(~ohe_mask, -1).to(device=self.device, dtype=torch.int32),
             tol=float(self.constraints.tol),
-            cons=self.constraints.kernel_tables(self.device),
+            cons=self.constraints.pgd_kernel_tables(self.device),
         )
         self.loss_history: np.ndarray | None = None
         #: without restarts None; else ``restart_success`` (R, N), the
@@ -363,13 +364,14 @@ class ConstrainedPGD:
         return torch.clamp(x_init + torch.where(self.tables.mutable, pert, 0.0), *self.clip)
 
     def one_run(self, x_init, y, x_start, sched: PgdSchedule, eps: float):
-        """``(x_adv, pred, hist)`` of one run: the set's kernel (K7 or K7b)
-        on the card, :func:`pgd_run_plain` on the CPU."""
+        """``(x_adv, pred, hist)`` of one run: the set's kernel (K7, K7b or
+        K10) on the card, :func:`pgd_run_plain` on the CPU."""
         repair = "repair" in self.loss_evaluation
         if x_init.is_cuda:
             from ... import kernels
 
-            launch = {"lcld": kernels.pgd_lcld, "botnet": kernels.pgd_botnet}[self.constraints.pgd_kernel]
+            launch = {"lcld": kernels.pgd_lcld, "botnet": kernels.pgd_botnet, "spec": kernels.pgd_spec}[
+                self.constraints.pgd_kernel]
             return launch(
                 self.tables, sched, x_init, y, x_start, eps, self.clip, is_inf(self.norm), repair,
                 self.targeted, self.history_layout(),

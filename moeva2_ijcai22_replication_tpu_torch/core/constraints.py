@@ -33,8 +33,8 @@ class ConstraintSet:
     #: this set on the card; None = no kernel, so the engine runs it on the
     #: CPU only
     objective_kernel: str | None = None
-    #: name of the hand-written PGD kernel (K7) that serves this set on the
-    #: card; None = no kernel
+    #: name of the hand-written PGD kernel (K7, K7b, K10) that serves this
+    #: set on the card; None = no kernel
     pgd_kernel: str | None = None
 
     def __init__(self, schema: FeatureSchema, bounds: ConstraintBounds | None = None):
@@ -54,6 +54,11 @@ class ConstraintSet:
         objectives' own tables, on ``device``; None where the kernel
         hard-codes the terms."""
         return None
+
+    def pgd_kernel_tables(self, device):
+        """What the PGD kernel reads of this set, on ``device``: the
+        objective kernel's tables unless the set says otherwise."""
+        return self.kernel_tables(device)
 
     def repair(self, x: torch.Tensor) -> torch.Tensor:
         """Project candidates toward constraint satisfaction; identity by

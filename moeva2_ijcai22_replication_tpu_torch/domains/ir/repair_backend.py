@@ -14,9 +14,10 @@ Derives the repair the hand-written domains implement by hand
 3. **one-hot hardening**: every one-hot group snaps to its argmax
    (``core.codec.harden_onehot``).
 
-Plain torch, evaluated as :mod:`.expr` evaluates. Only constrained PGD calls
-a repair inside its loop, and PGD on spec domains waits for ROADMAP A11b,
-which brings this projection's kernel counterpart.
+Plain torch, evaluated as :mod:`.expr` evaluates: the semantic twin of
+the repair program that :func:`.program.lower_spec_repair` emits for
+kernel K10 (which hardens the one-hot groups itself, from
+``PgdTables.ohe``).
 """
 
 from __future__ import annotations
@@ -91,11 +92,12 @@ def membership_snaps(resolved: ResolvedSpec, schema) -> list:
     return out
 
 
-def compile_repair(resolved: ResolvedSpec, schema, ohe_idx, ohe_mask):
+def repair_plan(resolved: ResolvedSpec, schema) -> tuple:
+    """``(snaps, order, assignments)``: the membership snaps, then the
+    features the equalities define, in the order they are assigned, and
+    each one's expression."""
     env = resolved.env
     mutable = schema.mutable
-    snaps = membership_snaps(resolved, schema)
-
     assignments: dict = {}
     for c in resolved.spec.constraints:
         found = _assignment_of(c, env)
@@ -103,7 +105,12 @@ def compile_repair(resolved: ResolvedSpec, schema, ohe_idx, ohe_mask):
             name, expr_node = found
             if mutable[env.col(name)] and name not in assignments:
                 assignments[name] = expr_node
-    order = _topo_assignments(assignments)
+    return membership_snaps(resolved, schema), _topo_assignments(assignments), assignments
+
+
+def compile_repair(resolved: ResolvedSpec, schema, ohe_idx, ohe_mask):
+    env = resolved.env
+    snaps, order, assignments = repair_plan(resolved, schema)
 
     def repair(x: torch.Tensor) -> torch.Tensor:
         x = x.clone()

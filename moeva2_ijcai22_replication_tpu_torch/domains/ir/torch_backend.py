@@ -11,9 +11,12 @@ float64.
 On the card the set's terms are computed inside MoEvA's objectives by
 kernel K9 (``kernels/csrc/objective_spec.cu``), from the program that
 :func:`.program.lower_spec` emits (``kernel_tables``). Constrained PGD and
-the MILP repair need a backward over the AST and a linearization of it,
-which the port does not have yet (ROADMAP A11b): they refuse a spec set by
-name.
+AutoPGD differentiate the terms by hand (``smooth_vjp``, ``jax.grad``'s
+conventions): on the card kernel K10 (``kernels/csrc/pgd_spec.cu``) runs
+the reverse and the repair programs that :func:`.program.lower_spec_vjp`
+and :func:`.program.lower_spec_repair` emit (``pgd_kernel_tables``), and
+on the CPU :func:`.program.run_program_vjp_plain` and
+:func:`.program.run_repair_plain` interpret them.
 
 Identity: every compiled class is a distinct Python type, and an instance's
 ``ledger_tag`` is ``spec:<name>:<hash12>``, so a spec edit is a new
@@ -23,24 +26,41 @@ identity, never a stale one.
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ...core.codec import full_ohe_tables
+from ...core.codec import full_ohe_tables, harden_onehot
 from ...core.constraints import ConstraintSet
 from ...core.schema import ConstraintBounds, FeatureSchema
 from . import ops
 from .expr import eval_term
-from .program import SpecProgram, lower_spec
-from .repair_backend import compile_repair
+from .program import (
+    SpecProgram, contribution_tables, lower_spec, lower_spec_repair, lower_spec_vjp, run_program_vjp_plain, run_repair_plain,
+)
 from .spec import ConstraintSpec, ResolvedSpec, load_spec, resolve_spec
 
-#: what PGD, AutoPGD and the MILP repair on a spec domain wait for
-A11B = (
-    "a backward over the spec's AST with jax.grad's conventions, its PGD kernel and the MILP backend of spec "
-    "domains (ROADMAP A11b)"
-)
+
+class SpecPgdTables(NamedTuple):
+    """What kernel K10 reads of a spec domain: the reverse program (each
+    term's forward, its head and its backward), where each term starts in it
+    and which contributions each feature sums (``contribution_tables``), and
+    the repair program."""
+
+    vjp: SpecProgram
+    repair: SpecProgram
+    term_start: torch.Tensor  # (n_terms + 1,) int32
+    acc_ptr: torch.Tensor  # (D + 1,) int32: each feature's contributions in acc_idx
+    acc_idx: torch.Tensor  # (n_acc,) int32: their indices, in program order
+
+    @classmethod
+    def build(cls, vjp: SpecProgram, repair: SpecProgram) -> "SpecPgdTables":
+        return cls(vjp, repair, *(torch.as_tensor(a) for a in contribution_tables(vjp)))
+
+    def to(self, device) -> "SpecPgdTables":
+        return SpecPgdTables(self.vjp.to(device), self.repair.to(device),
+                             *(t.to(device) for t in (self.term_start, self.acc_ptr, self.acc_idx)))
 
 
 def raw_terms(x: torch.Tensor, resolved: ResolvedSpec) -> torch.Tensor:
@@ -78,10 +98,9 @@ class SpecConstraintSet(ConstraintSet):
     #: kernel K9 (``kernels/csrc/objective_spec.cu``) computes the terms
     #: inside the objectives on the card, from ``kernel_tables``' program
     objective_kernel = "spec"
-    pgd_kernel = None
-    no_pgd_kernel = f"a spec domain has no PGD kernel: it needs {A11B}"
-    #: why constrained PGD refuses the set on every device
-    no_smooth_vjp = f"a spec domain has no constraint backward: PGD and AutoPGD on it need {A11B}"
+    #: kernel K10 (``kernels/csrc/pgd_spec.cu``) runs constrained PGD and
+    #: AutoPGD on the card, from ``pgd_kernel_tables``' programs
+    pgd_kernel = "spec"
 
     def __init__(
         self,
@@ -107,9 +126,11 @@ class SpecConstraintSet(ConstraintSet):
             else None
         )
         self._ohe_idx, self._ohe_mask = full_ohe_tables(schema)
-        self._repair_fn = compile_repair(resolved, schema, self._ohe_idx, self._ohe_mask)
         self.program = lower_spec(resolved, schema.n_features)
+        self.pgd_program = SpecPgdTables.build(lower_spec_vjp(resolved, schema.n_features),
+                                               lower_spec_repair(resolved, schema))
         self._on_device: dict = {}
+        self._pgd_on_device: dict = {}
 
     def _raw(self, x: torch.Tensor) -> torch.Tensor:
         return raw_terms(x, self.resolved)
@@ -119,7 +140,19 @@ class SpecConstraintSet(ConstraintSet):
         return raw_terms(torch.as_tensor(np.asarray(x)), self.resolved).numpy()
 
     def repair(self, x: torch.Tensor) -> torch.Tensor:
-        return self._repair_fn(x)
+        """The repair program's snaps and assignments
+        (:func:`.program.run_repair_plain`), then every one-hot group
+        hardened to its argmax: ``compile_repair``'s projection."""
+        x = run_repair_plain(self.pgd_program.repair, x)
+        return harden_onehot(x, self._ohe_idx.to(x.device), self._ohe_mask.to(x.device))
+
+    def smooth_vjp(self, u: torch.Tensor, ct_g: torch.Tensor):
+        """``(g, ct_u)``: the smooth violations ``clip(raw_terms(u) - tol, 0,
+        inf)`` (..., K) of the unscaled rows ``u`` and the cotangent of ``u``
+        from ``ct_g`` (..., K), with ``jax.grad``'s conventions: the reverse
+        program interpreted (:func:`.program.run_program_vjp_plain`), equal to
+        the AST walk :func:`.vjp.smooth_vjp_ast` bit for bit."""
+        return run_program_vjp_plain(self.pgd_program.vjp, u, ct_g, self.tol)
 
     def kernel_tables(self, device) -> SpecProgram:
         """Kernel K9's program on ``device``, made once per device."""
@@ -127,6 +160,14 @@ class SpecConstraintSet(ConstraintSet):
         if key not in self._on_device:
             self._on_device[key] = self.program.to(key)
         return self._on_device[key]
+
+    def pgd_kernel_tables(self, device) -> SpecPgdTables:
+        """Kernel K10's reverse and repair programs on ``device``, made once
+        per device."""
+        key = torch.device(device)
+        if key not in self._pgd_on_device:
+            self._pgd_on_device[key] = self.pgd_program.to(key)
+        return self._pgd_on_device[key]
 
 
 def compile_spec(spec: ConstraintSpec) -> type:

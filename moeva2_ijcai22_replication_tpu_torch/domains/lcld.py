@@ -20,7 +20,7 @@ import torch
 from ..core.codec import full_ohe_tables, harden_onehot
 from ..core.constraints import ConstraintSet
 from ..core.schema import ConstraintBounds, FeatureSchema
-from ..core.vjp import abs_vjp, clip_vjp, div_vjp
+from ..core.vjp import abs_vjp, clip_vjp, div_vjp, pow_base_jac, pow_exp_jac
 from . import augmentation
 from .synth import months
 
@@ -69,11 +69,7 @@ def _pow_jacobians(base, t):
     growth as :func:`_installment` takes it, its derivatives ``t * base **
     (t - 1)`` and ``log(base) * base ** t`` (``jax.lax.pow``'s, a 0 base's
     log taken at 1), each in float64 and rounded once."""
-    b64, t64 = base.double(), t.double()
-    g64 = torch.pow(b64, t64)
-    d_base = t64 * torch.pow(b64, t64 - 1.0)
-    d_t = torch.log(torch.where(b64 == 0, 1.0, b64)) * g64
-    return g64.to(base.dtype), d_base.to(base.dtype), d_t.to(base.dtype)
+    return torch.pow(base.double(), t.double()).to(base.dtype), pow_base_jac(base, t), pow_exp_jac(base, t)
 
 
 def lcld_smooth_vjp(u: torch.Tensor, ct_g: torch.Tensor, tol: float):

@@ -316,12 +316,13 @@ def load_surrogate(config: dict):
 
 def get_sat_builder(project_name: str, constraints):
     """Project name -> MILP row builder (lcld and botnet prefixes). A domain
-    compiled from a spec is refused: its MILP backend comes with ROADMAP
-    A11b."""
-    from ..domains.ir.torch_backend import A11B, SpecConstraintSet
+    compiled from a spec routes to the IR's MILP backend first, before the
+    prefixes match, so that ``lcld_spec`` gets its own linearization and not
+    its hand-written twin's (as the JAX package's runner does)."""
+    from ..domains.ir import SpecConstraintSet, make_spec_sat_builder
 
     if isinstance(constraints, SpecConstraintSet):
-        raise NotImplementedError(f"{type(constraints).__name__}: flip+sat on a spec domain needs {A11B}")
+        return make_spec_sat_builder(constraints)
     if project_name.startswith("lcld"):
         return make_lcld_sat_builder(constraints.schema)
     if project_name.startswith("botnet"):

@@ -46,7 +46,10 @@ the LCLD or the botnet domain; plain version
 ``attacks.pgd.engine.pgd_run_plain``. K7's instantiation for the augmented
 LCLD domain counts its launches as ``pgd_lcld_aug``; their AutoPGD
 instantiations (plain version ``attacks.pgd.autopgd.autopgd_run_plain``)
-as ``pgd_lcld_auto``, ``pgd_lcld_aug_auto`` and ``pgd_botnet_auto``.
+as ``pgd_lcld_auto``, ``pgd_lcld_aug_auto`` and ``pgd_botnet_auto``. On a
+domain compiled from a constraint spec, ``pgd_spec`` (K10,
+``csrc/pgd_spec.cu``) runs them from the spec's reverse and repair
+programs; its AutoPGD instantiation counts as ``pgd_spec_auto``.
 
 The wrappers take CUDA tensors only and raise on anything the kernel does
 not take, or when a build or launch fails; callers route CPU tensors to the
@@ -72,7 +75,7 @@ _LAUNCHES = {
         "pgd_lcld", "objective_botnet", "pgd_botnet", "objective_lcld_aug", "pgd_lcld_aug",
         "objective_botnet_aug", "pgd_lcld_auto", "pgd_lcld_aug_auto", "pgd_botnet_auto",
         "gate_stats", "take_carry", "objective_lcld_hist", "objective_lcld_aug_hist", "objective_botnet_hist",
-        "objective_botnet_aug_hist", "objective_spec", "objective_spec_hist",
+        "objective_botnet_aug_hist", "objective_spec", "objective_spec_hist", "pgd_spec", "pgd_spec_auto",
     )
 }
 
@@ -826,6 +829,105 @@ def pgd_botnet(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_
         )
     _raise_on_error(lib, err, "pgd_botnet")
     _LAUNCHES["pgd_botnet" if auto is None else "pgd_botnet_auto"] += 1
+    return (x_adv, pred, hist) if auto is None else (x_adv, pred, hist, eta)
+
+
+def pgd_spec(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_inf: bool, repair: bool,
+             targeted: bool, record=None, auto=None):
+    """Kernel K10: one constrained PGD run on the rows of a domain compiled
+    from a constraint spec, ``(x_adv (N, D) float32, pred (N,) int64,
+    hist)``, the semantics of ``attacks.pgd.engine.pgd_run_plain`` with a
+    ``SpecConstraintSet``: the arguments of :func:`pgd_lcld`, with
+    ``tables.cons`` the set's reverse and repair programs and the reverse
+    program's term and contribution tables
+    (``domains.ir.torch_backend.SpecPgdTables``, whose feature, slot and
+    contribution indices the kernel does not check: the lowering emits them
+    in range) and
+    ``tables.first_t`` the first layer transposed. It takes a relu stack of
+    D inputs, at most K1's layers, hidden layers of at most
+    ``moeva_spec_max_width`` units and 1 or 2 classes, the programs' limits of
+    ``csrc/kernels.h`` and as many features as one row's buffers fit in a
+    block's shared memory; ``hist`` holds the program's terms with
+    ``record[1]``. The kernel reads any label but 0 and 1 as neither class,
+    as K7 does.
+
+    With ``auto`` the run is AutoPGD's, as :func:`pgd_lcld` takes it
+    (``autopgd_run_plain``'s semantics): ``(x_best, pred, hist, eta)``; its
+    launches count as ``pgd_spec_auto``."""
+    from .build import library
+
+    if x_init.dim() != 2:
+        raise ValueError(f"x_init must be (N, D), got {tuple(x_init.shape)}")
+    n, d = x_init.shape
+    t = sched.step.numel()
+    widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
+    progs = tables.cons
+    if not all(hasattr(progs, k) for k in ("vjp", "repair")):
+        raise ValueError(f"pgd_spec takes a spec's programs (SpecPgdTables) in tables.cons, got {type(progs).__name__}")
+    vjp, rep = progs.vjp, progs.repair
+    n_acc = progs.acc_idx.numel()
+    _check_pgd_run(tables, sched, x_init, y, x_start)
+    _check(tables.first_t, "first_t", (d, widths[1]))
+    if tables.ohe.dim() != 2:
+        raise ValueError(f"ohe must be (G, K), got {tuple(tables.ohe.shape)}")
+    _check(tables.ohe, "ohe", tuple(tables.ohe.shape), torch.int32)
+    _check(vjp.code, "reverse program", (vjp.code.shape[0], 4), torch.int32)
+    _check(rep.code, "repair program", (rep.code.shape[0], 4), torch.int32)
+    _check(progs.term_start, "term starts", (vjp.n_terms + 1,), torch.int32)
+    _check(progs.acc_ptr, "contribution pointers", (d + 1,), torch.int32)
+    _check(progs.acc_idx, "contribution indices", (n_acc,), torch.int32)
+    lib = library()
+    limits = {"features": (d, lib.moeva_spec_max_features()), "terms": (vjp.n_terms, lib.moeva_spec_max_terms()),
+              "reverse instructions": (vjp.code.shape[0], lib.moeva_spec_vjp_max_instructions()),
+              "repair instructions": (max(rep.code.shape[0], 1), lib.moeva_spec_vjp_max_instructions()),
+              "slots": (max(vjp.n_slots, rep.n_slots), lib.moeva_spec_vjp_max_slots())}
+    if any(not 1 <= c <= limit for c, limit in limits.values()) or vjp.n_features != d or rep.n_features != d:
+        raise ValueError(f"pgd_spec takes programs over the rows' {d} features within its limits (count, limit): "
+                         f"{limits}; the programs have {vjp.n_features} and {rep.n_features} features")
+    max_w = lib.moeva_spec_max_width()
+    if (widths[0] != d or not 1 <= widths[-1] <= 2 or max(widths[1:-1], default=1) > max_w
+            or len(widths) - 1 > lib.moeva_objective_max_layers()):
+        raise ValueError(f"pgd_spec takes a {d}-input stack of at most {lib.moeva_objective_max_layers()} layers, "
+                         f"hidden ones of at most {max_w} units, and 1 or 2 classes, got widths {widths}")
+    c_widths = (ctypes.c_int * len(widths))(*widths)
+    if lib.moeva_pgd_spec_block_rows(d, c_widths, len(widths) - 1, vjp.n_terms, n_acc, int(auto is not None)) == 0:
+        raise ValueError(f"pgd_spec's buffers for one row of {d} features, {vjp.n_terms} terms, {n_acc} "
+                         f"contributions and the stack {widths} do not fit one block's shared memory")
+    if auto is not None:
+        _check(auto.is_ckpt, "is_ckpt", (t + 1,), torch.bool)
+        _check(auto.thr, "thr", (t + 1,))
+        if not (-1 <= auto.ctr < vjp.n_terms):
+            raise ValueError(f"the tracking constraint {auto.ctr} is not one of the {vjp.n_terms} terms or -1")
+    ckpt = (None, None) if auto is None else (auto.is_ckpt, auto.thr)
+    dev = _one_device(x_init, x_start, y, tables.params, tables.first_t, tables.scale, tables.min_,
+                      tables.mutable, tables.ohe, vjp.code, rep.code, progs.term_start, progs.acc_ptr,
+                      progs.acc_idx, *sched, *ckpt)
+    ins = [t_.contiguous() for t_ in (x_init, x_start, y, tables.mutable, tables.params, tables.first_t,
+                                      tables.scale, tables.min_, tables.ohe, *sched, vjp.code, rep.code,
+                                      progs.term_start, progs.acc_ptr, progs.acc_idx)]
+    if ins[13].data_ptr() % 16 or (rep.code.shape[0] and ins[14].data_ptr() % 16):
+        raise ValueError("pgd_spec reads its programs as 16-byte instructions: the code must be 16-byte aligned")
+    ckpt = [None if t_ is None else t_.contiguous() for t_ in ckpt]
+    x_adv, pred, hist, cols, flags = _pgd_outputs(n, d, t, vjp.n_terms, norm_inf, repair, targeted, record, dev)
+    eta = None
+    scalars = (0.0, 0.0, -1, 0.0, 1.0)
+    if auto is not None:
+        eta = torch.empty((n,), dtype=torch.float32, device=dev)
+        scalars = (float(auto.w_class), float(auto.w_cons), int(auto.ctr), float(auto.eta0), float(auto.alpha))
+        flags |= 32
+    lo, hi = clip
+    with torch.cuda.device(dev):
+        err = lib.moeva_pgd_spec_f32(
+            *(u.data_ptr() for u in ins[:6]), c_widths, len(widths) - 1,
+            *(u.data_ptr() for u in ins[6:9]), tables.ohe.shape[0], tables.ohe.shape[1],
+            *(u.data_ptr() for u in ins[9:14]), vjp.code.shape[0], vjp.n_terms,
+            *(u.data_ptr() for u in ins[15:]), n_acc, _ptr(ins[14]) if rep.code.shape[0] else None,
+            rep.code.shape[0], x_adv.data_ptr(), pred.data_ptr(), _ptr(hist), cols, n, t,
+            float(eps), float(lo), float(hi), float(tables.tol), flags, d, *map(_ptr, ckpt),
+            *scalars[:2], scalars[2], *scalars[3:], _ptr(eta), _stream(dev),
+        )
+    _raise_on_error(lib, err, "pgd_spec")
+    _LAUNCHES["pgd_spec" if auto is None else "pgd_spec_auto"] += 1
     return (x_adv, pred, hist) if auto is None else (x_adv, pred, hist, eta)
 
 

@@ -406,6 +406,83 @@ int moeva_pgd_botnet_max_degree() { return kPgdBotnetMaxDegree; }
 
 int moeva_botnet_max_pairs() { return kBotnetMaxPairs; }
 
+int moeva_pgd_spec_f32(const void* x_init, const void* x_start, const void* y,
+                       const void* mutable_, const void* params,
+                       const void* first_t, const int* widths, int n_layers,
+                       const void* scale, const void* min_, const void* ohe,
+                       int n_groups, int group_slots, const void* w_class,
+                       const void* w_cons, const void* step, const void* ctr,
+                       const void* vjp, int n_vjp, int n_terms,
+                       const void* term_start, const void* acc_ptr,
+                       const void* acc_idx, int n_acc,
+                       const void* repair, int n_repair, void* x_adv,
+                       void* pred, void* hist, int hist_cols, int n, int t,
+                       float eps, float lo, float hi, float tol, int flags,
+                       int d, const void* is_ckpt, const void* ckpt_thr,
+                       float tw_class, float tw_cons, int tctr, float eta0,
+                       float alpha, void* eta, void* stream) {
+  if (n_layers < 1 || n_layers > kObjectiveMaxLayers)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PgdSpecArgs args{};
+  args.x_init = static_cast<const float*>(x_init);
+  args.x_start = static_cast<const float*>(x_start);
+  args.y = static_cast<const int64_t*>(y);
+  args.mutable_ = static_cast<const bool*>(mutable_);
+  args.params = static_cast<const float*>(params);
+  args.first_t = static_cast<const float*>(first_t);
+  args.scale = static_cast<const float*>(scale);
+  args.min_ = static_cast<const float*>(min_);
+  args.ohe = static_cast<const int32_t*>(ohe);
+  args.w_class = static_cast<const float*>(w_class);
+  args.w_cons = static_cast<const float*>(w_cons);
+  args.step = static_cast<const float*>(step);
+  args.ctr = static_cast<const int32_t*>(ctr);
+  args.vjp = static_cast<const int32_t*>(vjp);
+  args.repair = static_cast<const int32_t*>(repair);
+  args.term_start = static_cast<const int32_t*>(term_start);
+  args.acc_ptr = static_cast<const int32_t*>(acc_ptr);
+  args.acc_idx = static_cast<const int32_t*>(acc_idx);
+  args.n_acc = n_acc;
+  args.x_adv = static_cast<float*>(x_adv);
+  args.pred = static_cast<int64_t*>(pred);
+  args.hist = static_cast<float*>(hist);
+  args.n = n;
+  args.t = t;
+  args.d = d;
+  args.n_groups = n_groups;
+  args.group_slots = group_slots;
+  args.hist_cols = hist_cols;
+  args.flags = flags;
+  args.n_vjp = n_vjp;
+  args.n_repair = n_repair;
+  args.n_terms = n_terms;
+  args.eps = eps;
+  args.lo = lo;
+  args.hi = hi;
+  args.tol = tol;
+  args.n_layers = n_layers;
+  for (int k = 0; k <= n_layers; ++k) args.widths[k] = widths[k];
+  args.is_ckpt = static_cast<const bool*>(is_ckpt);
+  args.ckpt_thr = static_cast<const float*>(ckpt_thr);
+  args.tw_class = tw_class;
+  args.tw_cons = tw_cons;
+  args.tctr = tctr;
+  args.eta0 = eta0;
+  args.alpha = alpha;
+  args.eta = static_cast<float*>(eta);
+  return static_cast<int>(
+      launch_pgd_spec(args, static_cast<cudaStream_t>(stream)));
+}
+
+int moeva_pgd_spec_block_rows(int d, const int* widths, int n_layers,
+                              int n_terms, int n_acc, int autopgd) {
+  return pgd_spec_block_rows(d, widths, n_layers, n_terms, n_acc, autopgd);
+}
+
+int moeva_spec_vjp_max_instructions() { return kSpecVjpMaxInstructions; }
+
+int moeva_spec_vjp_max_slots() { return kSpecVjpMaxSlots; }
+
 int moeva_spec_max_instructions() { return kSpecMaxInstructions; }
 
 int moeva_spec_max_slots() { return kSpecMaxSlots; }

@@ -37,6 +37,7 @@ SOURCES = (
     "csrc/pgd_botnet.cu",
     "csrc/gate_repack.cu",
     "csrc/objective_spec.cu",
+    "csrc/pgd_spec.cu",
     "bindings.cpp",
 )
 HEADERS = ("csrc/kernels.h", "csrc/pgd_common.cuh")
@@ -171,13 +172,20 @@ def library() -> ctypes.CDLL:
     lib.moeva_objective_spec_f32.restype = i32
     lib.moeva_objective_spec_tile_rows.argtypes = [i32] * 4
     lib.moeva_objective_spec_tile_rows.restype = i32
+    lib.moeva_pgd_spec_f32.argtypes = (
+        [ptr] * 6 + [ctypes.POINTER(i32), i32] + [ptr] * 3 + [i32] * 2 + [ptr] * 5 + [i32] * 2 + [ptr] * 3
+        + [i32, ptr, i32] + [ptr] * 3 + [i32] * 3 + [f32] * 4 + [i32] * 2 + [ptr] * 2 + [f32] * 2 + [i32] + [f32] * 2 + [ptr] * 2
+    )
+    lib.moeva_pgd_spec_f32.restype = i32
+    lib.moeva_pgd_spec_block_rows.argtypes = [i32, ctypes.POINTER(i32)] + [i32] * 4
+    lib.moeva_pgd_spec_block_rows.restype = i32
     for name in (
         "moeva_nd_peel_max_candidates", "moeva_associate_max_directions", "moeva_survive_max_candidates",
         "moeva_objective_max_params", "moeva_objective_max_width",
         "moeva_objective_max_layers", "moeva_lcld_max_pairs", "moeva_pgd_max_ohe_slots",
         "moeva_pgd_botnet_max_degree", "moeva_botnet_max_pairs", "moeva_take_max_segments",
         "moeva_spec_max_instructions", "moeva_spec_max_slots", "moeva_spec_max_terms", "moeva_spec_max_features",
-        "moeva_spec_max_width",
+        "moeva_spec_max_width", "moeva_spec_vjp_max_instructions", "moeva_spec_vjp_max_slots",
     ):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32

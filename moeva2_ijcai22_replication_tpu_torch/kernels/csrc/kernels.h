@@ -423,3 +423,63 @@ cudaError_t launch_objective_spec(SpecObjectiveArgs args, cudaStream_t stream);
 // and n_slots slots over d features with layers of at most w_max units (0:
 // none fits one block's shared memory).
 int objective_spec_tile_rows(int n_instr, int d, int n_slots, int w_max);
+
+// pgd_spec (K10): constrained PGD and AutoPGD on a domain compiled from a
+// spec, its terms, their backward and its repair run from the programs that
+// domains/ir/program.py lowers (lower_spec_vjp, lower_spec_repair), which
+// refuses a spec past a limit: at most kSpecVjpMaxInstructions instructions
+// a program (read from global memory) and kSpecVjpMaxSlots slots (a
+// thread's local array); the features and terms of K9's limits. The block
+// runs at most kPgdSpecMaxRows rows on kPgdSpecThreads threads; hidden
+// layers of at most kSpecMaxWidth units.
+constexpr int kSpecVjpMaxInstructions = 16384;
+constexpr int kSpecVjpMaxSlots = 64;
+constexpr int kPgdSpecMaxRows = 32;
+constexpr int kPgdSpecThreads = 256;
+
+// pgd_spec's arguments: pgd_lcld's flags and AutoPGD fields (flags & 32),
+// the stack's first layer transposed, and the two programs (n_vjp and
+// n_repair instructions of four int32 words, 16-byte aligned; the reverse
+// program's n_terms HEADs and n_acc contributions, where each term starts
+// and, per feature, which contributions it sums).
+struct PgdSpecArgs {
+  const float* x_init;    // (N, D)
+  const float* x_start;   // (N, D)
+  const int64_t* y;       // (N,) labels
+  const bool* mutable_;   // (D,)
+  const float* params;    // each layer's weight (out, in), then its bias
+  const float* first_t;   // (D, widths[1]) the first layer's weight transposed
+  const float* scale;     // (D,) x_scaled = x * scale + min_
+  const float* min_;      // (D,)
+  const int32_t* ohe;     // (n_groups, group_slots) feature per slot, -1 = padding
+  const float* w_class;   // (T,) schedule
+  const float* w_cons;    // (T,)
+  const float* step;      // (T,)
+  const int32_t* ctr;     // (T,) constraint optimised, -1 = their sum
+  const int32_t* vjp;     // (n_vjp, 4) the reverse program
+  const int32_t* repair;  // (n_repair, 4) the repair program
+  const int32_t* term_start;  // (n_terms + 1,) each term's first instruction, then n_vjp
+  const int32_t* acc_ptr;     // (D + 1,) each feature's contributions in acc_idx
+  const int32_t* acc_idx;     // (n_acc,) their indices, in program order
+  float* x_adv;           // (N, D) out
+  int64_t* pred;          // (N,) out: class at x_adv
+  float* hist;            // (T, N, hist_cols) out, or null
+  int n, t, d, n_groups, group_slots, hist_cols, flags;
+  int n_vjp, n_repair, n_terms, n_acc;
+  float eps, lo, hi, tol;
+  int n_layers;
+  int widths[kObjectiveMaxLayers + 1];
+  const bool* is_ckpt;      // (T + 1,)
+  const float* ckpt_thr;    // (T + 1,)
+  float tw_class, tw_cons, eta0, alpha;
+  int tctr;
+  float* eta;               // (N,) out
+};
+
+cudaError_t launch_pgd_spec(const PgdSpecArgs& args, cudaStream_t stream);
+
+// The most rows of d features one pgd_spec block's shared memory holds for
+// the stack of n_layers layers of the given widths and a reverse program of
+// n_terms terms and n_acc contributions (0: not one row, or a width out of
+// range).
+int pgd_spec_block_rows(int d, const int* widths, int n_layers, int n_terms, int n_acc, int autopgd);

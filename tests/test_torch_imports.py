@@ -44,7 +44,8 @@ def test_port_has_every_module_of_the_slice():
         "experiments.rq", "experiments.pipeline", "experiments.run_all",
         "attacks.moeva.checkpoint", "observability", "observability.quality",
         "domains.ir", "domains.ir.ops", "domains.ir.expr", "domains.ir.spec", "domains.ir.torch_backend",
-        "domains.ir.repair_backend", "domains.ir.generator", "domains.ir.program",
+        "domains.ir.repair_backend", "domains.ir.generator", "domains.ir.program", "domains.ir.vjp",
+        "domains.ir.milp_backend",
     ):
         assert f"{port.__name__}.{name}" in mods
 

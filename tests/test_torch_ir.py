@@ -265,7 +265,8 @@ def test_program_limits_match_the_kernel_header_and_refuse(tmp_path):
         header = dict(re.findall(r"constexpr int (kSpec\w+) = (\d+);", f.read()))
     assert {k: int(v) for k, v in header.items() if k != "kSpecMaxWidth"} == {
         "kSpecMaxInstructions": P.SPEC_MAX_INSTRUCTIONS, "kSpecMaxSlots": P.SPEC_MAX_SLOTS,
-        "kSpecMaxTerms": P.SPEC_MAX_TERMS, "kSpecMaxFeatures": P.SPEC_MAX_FEATURES}
+        "kSpecMaxTerms": P.SPEC_MAX_TERMS, "kSpecMaxFeatures": P.SPEC_MAX_FEATURES,
+        "kSpecVjpMaxInstructions": P.SPEC_VJP_MAX_INSTRUCTIONS, "kSpecVjpMaxSlots": P.SPEC_VJP_MAX_SLOTS}
     with open(tmp_path / "features.csv", "w") as f:
         f.write("feature,type,mutable,min,max,augmentation\n")
         for n in "abc":
@@ -341,7 +342,8 @@ def test_ledger_tag_and_validation(schemas):
         jcons, tcons = _pair(name, schemas)
         assert tcons.ledger_tag == jcons.ledger_tag == f"spec:{tcons.spec.name}:{tcons.resolved.hash[:12]}"
         assert ir.validate_spec(tcons.spec, tcons.schema) == jir.validate_spec(jcons.spec, jcons.schema)
-        assert tcons.objective_kernel == "spec" and tcons.pgd_kernel is None and "A11b" in tcons.no_pgd_kernel
+        assert tcons.objective_kernel == "spec" and tcons.pgd_kernel == "spec"
+        assert not hasattr(tcons, "no_pgd_kernel") and not hasattr(tcons, "no_smooth_vjp")
 
 
 def test_months_single_source():

@@ -46,7 +46,7 @@ from moeva2_ijcai22_replication_tpu_torch.problems import (
     BOTNET_AUGMENTED_EDGE_ROWS, LCLD_AUGMENTED_EDGE_ROWS, LCLD_IMMUTABLE_TERMS, botnet_augmented_edge_rows,
     botnet_edge_starts, botnet_hard_candidates, lcld_augmented_edge_rows, lcld_immutable_repair_rows,
     lcld_immutable_term_schema, synthetic_botnet_augmented_problem, synthetic_botnet_pgd_problem,
-    phishing_problem, spec_candidates, synthetic_botnet_problem, synthetic_botnet_spec_problem,
+    phishing_problem, spec_candidates, spec_edge_rows, synthetic_botnet_problem, synthetic_botnet_spec_problem,
     synthetic_family_problem, synthetic_lcld_augmented_problem, synthetic_lcld_problem, synthetic_lcld_spec_problem,
 )
 
@@ -498,7 +498,8 @@ def test_launch_counts_reset():
         "pgd_botnet": 0, "objective_lcld_aug": 0, "pgd_lcld_aug": 0, "objective_botnet_aug": 0,
         "pgd_lcld_auto": 0, "pgd_lcld_aug_auto": 0, "pgd_botnet_auto": 0, "gate_stats": 0, "take_carry": 0,
         "objective_lcld_hist": 0, "objective_lcld_aug_hist": 0, "objective_botnet_hist": 0,
-        "objective_botnet_aug_hist": 0, "objective_spec": 0, "objective_spec_hist": 0,
+        "objective_botnet_aug_hist": 0, "objective_spec": 0, "objective_spec_hist": 0, "pgd_spec": 0,
+        "pgd_spec_auto": 0,
     }
 
 
@@ -1524,3 +1525,42 @@ def test_objective_spec_equals_plain_on_the_card(card, tmp_path, name, norm):
     f, want = evaluate_hist_plain(eng._objective, eng.codec, run, cand, cons, "full")
     for got, exp in ((out, f), (hist, f), (record, want)):
         np.testing.assert_array_equal(got.cpu().numpy(), exp.cpu().numpy())
+
+
+# -- K10 pgd_spec: constrained PGD and AutoPGD on a domain compiled from a spec --------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lcld_spec", "botnet_spec", "phishing", "family2"])
+@pytest.mark.parametrize("attack", [ConstrainedPGD, AutoPGD])
+@pytest.mark.parametrize("loss, norm, record", [("constraints+flip+repair", 2, "full"), ("flip", "inf", None),
+                                                ("constraints+flip+alternate", "inf", "reduced")])
+def test_pgd_spec_equals_plain_on_the_card(card, tmp_path, name, attack, loss, norm, record):
+    if name == "lcld_spec":
+        cons, sur, scaler, x = synthetic_lcld_spec_problem(str(tmp_path), 40)
+    elif name == "botnet_spec":
+        cons, sur, scaler, x = synthetic_botnet_spec_problem(str(tmp_path), 9)
+    elif name == "phishing":
+        cons, sur, scaler, x = phishing_problem(PHISHING_CONFIG)
+    else:
+        cons, sur, scaler, x = synthetic_family_problem(str(tmp_path), 2, 40)
+    starts = np.concatenate([spec_edge_rows(cons, x), x])
+    n = len(starts)
+    xi = torch.as_tensor(scaler.transform(np.resize(x, starts.shape)), dtype=torch.float32, device=card)
+    st = torch.as_tensor(np.clip(scaler.transform(starts), -1.0, 2.0), dtype=torch.float32, device=card)
+    atk = attack(sur, cons, scaler, eps=0.2, eps_step=0.05, max_iter=13, norm=norm, loss_evaluation=loss,
+                 record_loss=record, record_grad_norm=record == "full", device=card)
+    y = torch.as_tensor(np.arange(n) % 2, device=card)
+    sched = atk.schedule(0.2, 0.05, 13)
+    kernels.reset_launch_counts()
+    got = atk.one_run(xi, y, st, sched, 0.2)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["pgd_spec" if attack is ConstrainedPGD else "pgd_spec_auto"] == 1
+    plain = pgd_run_plain if attack is ConstrainedPGD else autopgd_run_plain
+    want = plain(atk.tables, cons, sched, xi, y, st, 0.2, atk.clip, atk.norm, "repair" in loss, False,
+                 atk.history_layout())
+    if attack is AutoPGD:
+        got = (*got, atk.last_eta)
+    for a, b in zip(got, want):
+        if a is not None or b is not None:
+            np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())

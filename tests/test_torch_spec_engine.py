@@ -2,8 +2,9 @@
 (``evaluate_plain``, the semantics of kernel K9) against the JAX engine's
 ``_evaluate``, whole runs on the CPU (phishing against the fixture's
 ``oracle_ga`` rates; ``lcld_spec`` and ``botnet_spec`` against their
-hand-written twins, bit for bit), the runner with a ``spec:`` key, and the
-refusals of PGD, AutoPGD and ``flip+sat`` (ROADMAP A11b). Kernel K9 itself is
+hand-written twins, bit for bit), the runner with a ``spec:`` key, and PGD,
+AutoPGD and ``flip+sat`` running on a spec domain (their parity is
+``tests/test_torch_spec_pgd.py``'s and ``tests/test_torch_spec_sat.py``'s). Kernel K9 itself is
 held against its plain versions on the card by ``tests/test_torch_kernels.py
 -m cuda -k spec`` and ``chip_smoke.py`` phase 17."""
 
@@ -224,18 +225,29 @@ def test_runner_with_a_spec_key(tmp_path):
         common.load_constraints(cfg)
 
 
-# -- refusals (ROADMAP A11b) -----------------------------------------------------------
+# -- PGD, AutoPGD and flip+sat on a spec domain ----------------------------------------
 
 
 def test_pgd_autopgd_and_sat_refuse_spec_domains(problems):
+    """Once refused on a spec domain, now run: PGD and AutoPGD on the CPU
+    through the plain version (K10 on the card), ``flip+sat`` through the
+    spec MILP builder, which takes ``lcld_spec`` before the ``lcld`` prefix."""
     cons, _, x = problems["phishing"]
     sur = Surrogate(lcld_mlp(14, seed=3))
+    scaler = _scaler(cons, x)
+    xs = scaler.transform(x)
+    assert cons.pgd_kernel == "spec"
     for attack in (ConstrainedPGD, AutoPGD):
-        with pytest.raises(NotImplementedError, match="A11b"):
-            attack(sur, cons, _scaler(cons, x), eps=0.2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11b"):
-        common.get_sat_builder("phishing", cons)
-    assert "A11b" in cons.no_pgd_kernel
+        atk = attack(sur, cons, scaler, eps=0.2, max_iter=3, loss_evaluation="constraints+flip+repair", device="cpu")
+        out = atk.generate(xs, np.ones(len(x), int))
+        assert out.shape == x.shape and np.all(np.abs(out - xs) <= 0.2 + 1e-6)
+    from moeva2_ijcai22_replication_tpu_torch.domains.ir import make_spec_sat_builder
+
+    rows = common.get_sat_builder("phishing", cons)(x[0], x[0])
+    assert rows.feasible and rows.rows
+    lcld_spec = problems["lcld_spec"][0]
+    built = common.get_sat_builder("lcld_spec", lcld_spec)
+    assert built.__qualname__ == make_spec_sat_builder(lcld_spec).__qualname__
 
 
 def test_kernel_wrapper_refuses_cpu_tensors(problems):
