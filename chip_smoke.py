@@ -203,7 +203,7 @@ Phases, in order; any failure exits non-zero:
    before any launch. Then botnet (the ``[autopgd-botnet]`` lines): the
    ptxas lines of K7b's two instantiations (kAuto); its AutoPGD
    instantiation against ``autopgd_run_plain`` bit for bit over
-   ``AUTOPGD_BOTNET_ROWS`` x ``AUTOPGD_ITERS`` x ``AUTOPGD_CONFIGS`` with
+   ``AUTOPGD_BOTNET_ROWS`` x ``AUTOPGD_BOTNET_ITERS`` x ``AUTOPGD_CONFIGS`` with
    phase 9's edge starts, halved and kept rows at T >= 12; timed at 387 x
    1000 (rq1.botnet's ``constraints+flip`` under the prefix, ε 4) beside
    base K7b at the same loss, the plain version at 10 iterations, the bound
@@ -300,6 +300,25 @@ Phases, in order; any failure exits non-zero:
    under C3) and on phishing, with phase 10's checks. No grid file names a
    spec domain: phase 13 launches no ``SPEC_PGD_COUNTERS``, which phase 18
    must launch.
+19. training and the defense pipelines (the ``[defense]`` lines, ROADMAP
+   A12b; kernels K11 ``train_step``, its loss-only instantiation
+   ``train_loss``, and K12 ``input_grad``): their ptxas lines; K11 against
+   ``train_step_plain`` on the card, bit for bit (loss, parameters, both
+   moments), over ``TRAIN_CHECK_STEPS`` steps at each of ``TRAIN_SHAPES``
+   (512 x 47 and 57, 256 x 756 and 927; weight-0 padded tails, class
+   weights), the loss-only instantiation at ``VAL_ROWS`` and K12 at
+   ``INPUT_GRAD_SHAPES`` (10,000 x 47, 600 x 756); each timed (a CUDA graph
+   of 20 launches), through its wrapper, its plain version, K11 beside eager
+   autograd + ``torch.optim.Adam`` (a note), and its bound;
+   ``config/defense.lcld.yaml`` and ``config/defense.botnet.yaml`` through
+   ``experiments.defense.run`` and RQ4 on LCLD's artifacts through
+   ``experiments.rq4.run``, over synthetic splits (``DEFENSE_ROWS``; budget
+   cut to ``DEFENSE_BUDGET``), each with its launch counts set to 0 just
+   before and read just after (K11, K12 and the attacks' kernels), every
+   artifact of the family written, each model's epochs, wall and AUROC,
+   each stage's wall; and ``fit_mlp`` on the card against the CPU's
+   float32 path from the same initial parameters. No grid file trains:
+   phase 13 launches no ``DEFENSE_COUNTERS``, which phase 19 must launch.
 
 The last three lines are the per-kernel JSON record (with each kernel's
 launches over phase 13's grids, ``grid_launches``), the card's name and
@@ -339,6 +358,10 @@ PEAK_F64_OPS_S = 34e12
 STEP_ERR_RATIO = 4.0
 #: generations traced by the profile phase, after 3 untraced ones
 PROFILE_GENS = 10
+#: seconds the card idles after a trace's kept window opens and before it
+#: closes, and the traces taken at most before a lost event fails the phase
+PROFILE_SETTLE_S = 0.05
+PROFILE_ATTEMPTS = 3
 
 
 def log(*args):
@@ -1315,20 +1338,88 @@ def launches_per_generation(moeva, run, carry, gen, n_states: int):
     return carry, {k: after[k] - before[k] for k in after}, ops
 
 
+def trace_generations(moeva, run, carry, gen, n_states: int, settle_s: float = PROFILE_SETTLE_S):
+    """One ``torch.profiler`` trace of ``PROFILE_GENS`` generation steps,
+    after ``PROFILE_GENS`` traced and discarded (the profiler's warm-up) and
+    ``settle_s`` seconds of an idle card once the kept window has opened.
+    Returns ``(carry, the trace's key averages, the window's wall seconds)``.
+
+    The device trace can miss kernels launched just after the profiler
+    starts: at botnet's 2 ms per generation it once missed the first three
+    generations' worth after a warm-up of one, and once 1 of 240 events
+    after a warm-up of ``PROFILE_GENS``; the settle keeps the window's
+    first launch away from its start."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(PROFILE_GENS):
+                carry = moeva.gen_step(run, carry, moeva.draw_generation(gen, n_states))
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(settle_s)
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_GENS):
+                with record_function("moeva.draws"):
+                    draws = moeva.draw_generation(gen, n_states)
+                carry = moeva.gen_step(run, carry, draws)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            time.sleep(settle_s)
+            prof.step()
+    return carry, prof.key_averages(), wall
+
+
+def traced_kernels(events):
+    """The kernel events of a trace's key averages: device events with
+    device time, less the ``moeva.*`` stage ranges (which also appear on the
+    device timeline, as spans from their first to their last kernel)."""
+    import torch
+
+    on_card = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+    return [e for e in on_card if not e.key.startswith("moeva.")], [e for e in on_card if e.key.startswith("moeva.")]
+
+
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def lost_events(kernels, port: dict, expected: int) -> list:
+    """What a trace of ``PROFILE_GENS`` generations lacks: a line for each
+    port kernel with fewer events than ``n * PROFILE_GENS``, for each kernel
+    whose count is not a whole number of generations, and for the total
+    against ``expected`` per generation; the second kind only where one of
+    the others shows. Empty when the trace is whole."""
+    lost = []
+    for name, n in port.items():
+        got = sum(e.count for e in kernels if f"{name}_kernel" in e.key)
+        if got != n * PROFILE_GENS:
+            lost.append(f"{got} events of {name}, the code launched {n * PROFILE_GENS}")
+    traced = sum(e.count for e in kernels)
+    if traced != expected * PROFILE_GENS:
+        lost.append(f"{traced} kernel events, the code launched {expected * PROFILE_GENS}")
+    if lost:
+        lost += [f"{e.count} events of {e.key[:80]}" for e in kernels if e.count % PROFILE_GENS]
+    return lost
+
+
 def profile_generation(moeva, x, tag="[profile]"):
     """Phase 6: where a generation's time goes at the main path's shape.
-    Traces ``PROFILE_GENS`` generation steps with ``torch.profiler`` after 3
-    untraced ones and ``PROFILE_GENS`` traced and discarded (the profiler's
-    warm-up) and
+    Traces ``PROFILE_GENS`` generation steps (``trace_generations``) after 3
+    untraced ones and
     prints the traced ms per generation, the device-busy
     share (summed kernel time over the traced wall time), the kernels ranked
     by device time with their launches per generation, and the device span
     of each ``moeva.*`` stage range of ``gen_step``. Fails unless the trace
     holds, per generation, one event of each port kernel and as many kernel
     events in all as the first untraced generation launched (a trace that
-    lost events would read a low busy share)."""
+    lost events would read a low busy share). A trace that lost events is
+    logged with what it lost and taken again, ``PROFILE_ATTEMPTS`` times at
+    most; only a whole trace is reported."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import draw_gumbels
@@ -1340,49 +1431,28 @@ def profile_generation(moeva, x, tag="[profile]"):
         carry, port, ops = launches_per_generation(moeva, run, carry, gen, len(x))
         for _ in range(2):
             carry = moeva.gen_step(run, carry, moeva.draw_generation(gen, len(x)))
-        torch.cuda.synchronize()
-        # generations traced and discarded first: the device trace misses
-        # kernels launched just after the profiler starts (at botnet's 2 ms
-        # per generation, once the first three generations' worth after a
-        # warm-up of one)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for _ in range(PROFILE_GENS):
-                carry = moeva.gen_step(run, carry, moeva.draw_generation(gen, len(x)))
-            torch.cuda.synchronize()
-            prof.step()
-            t0 = time.perf_counter()
-            for _ in range(PROFILE_GENS):
-                with record_function("moeva.draws"):
-                    draws = moeva.draw_generation(gen, len(x))
-                carry = moeva.gen_step(run, carry, draws)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            prof.step()
+    expected = sum(port.values()) + sum(ops.values())
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        carry, events, wall = trace_generations(moeva, run, carry, gen, len(x))
+        kernels, stages = traced_kernels(events)
+        lost = lost_events(kernels, port, expected)
+        if not lost:
+            break
+        log(f"{tag} trace {attempt} of at most {PROFILE_ATTEMPTS} lost events, taken again: " + "; ".join(lost))
+    else:
+        raise AssertionError(f"{PROFILE_ATTEMPTS} traces in a row lost events, the last: " + "; ".join(lost))
 
-    events = prof.key_averages()
-    dev = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)  # noqa: E731
-    on_card = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and dev(e) > 0]
-    # the stage ranges also appear on the device timeline, as spans from
-    # their first to their last kernel: keep them out of the kernel list
-    kernels = [e for e in on_card if not e.key.startswith("moeva.")]
+    dev = _device_us
     busy_us = sum(dev(e) for e in kernels)
     per_gen = lambda us: us / 1e3 / PROFILE_GENS  # noqa: E731
-    expected = sum(port.values()) + sum(ops.values())
     traced = sum(e.count for e in kernels)
     log(f"{tag} {len(x)} states: {wall / PROFILE_GENS * 1e3:.3f} ms per generation traced, device busy "
         f"{busy_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms = share {busy_us / 1e6 / wall:.3f}, "
         f"{traced / PROFILE_GENS:.1f} launches per generation traced, {expected} launched by the code "
-        f"(port kernels {port}, torch ops {ops})")
+        f"(port kernels {port}, torch ops {ops}; trace {attempt})")
     for e in sorted(kernels, key=dev, reverse=True):
         log(f"{tag} {per_gen(dev(e)):9.4f} ms/gen {e.count / PROFILE_GENS:6.1f} launches/gen  {e.key[:100]}")
-    for name, n in port.items():
-        got = sum(e.count for e in kernels if f"{name}_kernel" in e.key)
-        if got != n * PROFILE_GENS:
-            raise AssertionError(f"the trace holds {got} events of {name}, the code launched {n * PROFILE_GENS}")
-    if traced != expected * PROFILE_GENS:
-        raise AssertionError(f"the trace holds {traced} kernel events, the code launched {expected * PROFILE_GENS}")
-    for e in sorted((e for e in on_card if e.key.startswith("moeva.")), key=dev, reverse=True):
+    for e in sorted(stages, key=dev, reverse=True):
         log(f"{tag} stage {e.key}: device span {per_gen(dev(e)):.4f} ms/gen (idle gaps included)")
     with torch.inference_mode():
         draws = moeva.draw_generation(gen, len(x))
@@ -1643,6 +1713,9 @@ def pgd_sweep(device, kernel: str, cons, sur, scaler, xs: np.ndarray, starts: np
     ``pgd_run_plain`` on the card, bit for bit (x_adv, the class at x_adv,
     the history), over ``configs`` x ``rows`` x ``PGD_ITERS``, the last
     budget at one row count per configuration; labels alternate 0 and 1.
+    A row's run depends on no other row, so the plain version runs once per
+    configuration and budget, on the most rows, and each launch is held
+    against its first N (as ``autopgd_sweep`` does).
     Returns (runs, NaN rows of x_adv, NaN history entries) and the labels."""
     import torch
 
@@ -1660,22 +1733,21 @@ def pgd_sweep(device, kernel: str, cons, sur, scaler, xs: np.ndarray, starts: np
         eps = 0.2 if knobs["norm"] == 2 else 0.1
         atk = ConstrainedPGD(sur, cons, scaler, eps=eps, eps_step=0.1, device=device, **knobs)
         repair, linf = "repair" in atk.loss_evaluation, is_inf(atk.norm)
-        for n in rows:
-            for t in PGD_ITERS:
-                if t == PGD_ITERS[-1] and n != rows[ci % len(rows)]:
-                    continue
-                sched = atk.schedule(eps, 0.1, t)
-                args = (xi[:n], y[:n], st[:n])
-                got = launch(atk.tables, sched, *args, eps, atk.clip, linf, repair, atk.targeted,
+        for t in PGD_ITERS:
+            ns = [rows[ci % len(rows)]] if t == PGD_ITERS[-1] else list(rows)
+            sched = atk.schedule(eps, 0.1, t)
+            m = max(ns)
+            want = pgd_run_plain(atk.tables, cons, sched, xi[:m], y[:m], st[:m], eps, atk.clip, atk.norm, repair,
+                                 atk.targeted, atk.history_layout())
+            for n in ns:
+                got = launch(atk.tables, sched, xi[:n], y[:n], st[:n], eps, atk.clip, linf, repair, atk.targeted,
                              atk.history_layout())
-                want = pgd_run_plain(atk.tables, cons, sched, *args, eps, atk.clip, atk.norm, repair,
-                                     atk.targeted, atk.history_layout())
                 what = f"{kernel} {atk.loss_evaluation} {atk.constraints_optim} norm={atk.norm} N={n} T={t}"
                 for name, g, w in zip(("x_adv", "pred", "hist"), got, want):
                     if (g is None) != (w is None):
                         raise AssertionError(f"{what}: {name} is {g} on the card, {w} in the plain version")
                     if g is not None:
-                        hold_equal(g, w, f"{what} {name}")
+                        hold_equal(g, w[:, :n] if name == "hist" else w[:n], f"{what} {name}")
                 runs += 1
                 nan_rows += int(torch.isnan(got[0]).any(1).sum())
                 nan_hist += 0 if got[2] is None else int(torch.isnan(got[2]).sum())
@@ -4018,8 +4090,12 @@ AUTOPGD_F64_PER_ROW = 6
 #: K7b's AutoPGD sweep: phase 9's row counts that keep its layouts' edges (a
 #: lone row; 67, two rows a cluster, one past the 66 resident clusters' one
 #: row each; rq1.botnet's 387; 397, a 67th cluster of one row past 6 rows on
-#: every resident one), at AUTOPGD_ITERS with phase 9's edge starts
+#: every resident one), at AUTOPGD_BOTNET_ITERS with phase 9's edge starts
 AUTOPGD_BOTNET_ROWS = (1, 67, 387, 397)
+#: K7b's AutoPGD sweep budgets: the deepest **cut** from 40 to 20 (eight
+#: checkpoints, halving firing), its plain version taking 0.13 s an
+#: iteration at 756 features, to keep the smoke within its time limit
+AUTOPGD_BOTNET_ITERS = (1, 12, 20)
 #: rq1.botnet's PGD points under AutoPGD, through the runner on all its 387
 #: states (``autopgd+flip+sat`` too, as phase 10's botnet ``flip+sat``)
 AUTOPGD_BOTNET_RUNNER_LOSSES = tuple("autopgd+" + loss for loss in RQ1_LOSSES)
@@ -4085,11 +4161,12 @@ def autopgd_botnet_floor_ms(tables, t: int, mhz: float) -> float:
     return pgd_botnet_floor_ms(tables, t, mhz) + t * chain * CYCLES_PER_DEPENDENT_OP / (mhz * 1e6) * 1e3
 
 
-def autopgd_sweep(device, kernel: str, cons, sur, scaler, xs: np.ndarray, starts: np.ndarray, rows: tuple):
+def autopgd_sweep(device, kernel: str, cons, sur, scaler, xs: np.ndarray, starts: np.ndarray, rows: tuple,
+                  iters: tuple = AUTOPGD_ITERS):
     """The AutoPGD instantiation of ``kernel`` (``pgd_lcld`` or
     ``pgd_botnet``) against ``autopgd_run_plain`` on the card, bit for bit
     (x_best, the class there, the history, each row's final step), over
-    ``AUTOPGD_CONFIGS`` x ``rows`` x ``AUTOPGD_ITERS``, the last budget at one
+    ``AUTOPGD_CONFIGS`` x ``rows`` x ``iters``, the last budget at one
     row count per configuration, first step ε / 3; labels alternate 0 and
     1. A row's run depends on no other row, so the plain version runs once
     per configuration and budget, on the most rows, and each launch is held
@@ -4111,8 +4188,8 @@ def autopgd_sweep(device, kernel: str, cons, sur, scaler, xs: np.ndarray, starts
         eps = 0.2 if knobs["norm"] == 2 else 0.1
         atk = AutoPGD(sur, cons, scaler, eps=eps, eps_step=eps / 3, device=device, **knobs)
         repair, linf = "repair" in atk.loss_evaluation, is_inf(atk.norm)
-        for t in AUTOPGD_ITERS:
-            ns = [rows[ci % len(rows)]] if t == AUTOPGD_ITERS[-1] else list(rows)
+        for t in iters:
+            ns = [rows[ci % len(rows)]] if t == iters[-1] else list(rows)
             sched = atk.schedule(eps, eps / 3, t)
             m = max(ns)
             want = autopgd_run_plain(atk.tables, cons, sched, xi[:m], y[:m], st[:m], eps, atk.clip, atk.norm, repair,
@@ -4367,10 +4444,11 @@ def run_autopgd_botnet(device, smi: str, resources: list):
     n = max(AUTOPGD_BOTNET_ROWS)
     runs, halved, kept, nan_rows = autopgd_sweep(device, "pgd_botnet", cons, sur, scaler,
                                                  np.resize(xs, (n, xs.shape[1])), np.resize(starts, (n, xs.shape[1])),
-                                                 AUTOPGD_BOTNET_ROWS)
+                                                 AUTOPGD_BOTNET_ROWS, AUTOPGD_BOTNET_ITERS)
     log(f"[autopgd-botnet] K7b's AutoPGD instantiation equals autopgd_run_plain (x_best, class, history, eta) on "
         f"all {runs} runs: {len(AUTOPGD_CONFIGS)} configurations x N in {AUTOPGD_BOTNET_ROWS} x T in "
-        f"{AUTOPGD_ITERS[:-1]}, and T = {AUTOPGD_ITERS[-1]} at one N each, with phase 9's edge starts; at T >= 12 "
+        f"{AUTOPGD_BOTNET_ITERS[:-1]}, and T = {AUTOPGD_BOTNET_ITERS[-1]} at one N each, with phase 9's edge starts; "
+        f"at T >= 12 "
         f"{halved} rows halved their step and {kept} kept it; {nan_rows} NaN rows of x_best")
     rec, atk = autopgd_kernel_record(device, "[autopgd-botnet]", "pgd_botnet_auto", problem, AUTOPGD_LOSS,
                                      lambda tables: autopgd_botnet_bound(tables, len(xs), PGD_BUDGET),
@@ -6083,6 +6161,501 @@ def run_spec_pgd(device, smi: str, resources: list, records: list) -> dict:
 
 
 
+# -- phase 19: training and the defense pipelines (kernels K11, K12) -----------------
+
+#: the launch counts of training: K11's step and loss-only instantiation, K12.
+#: No grid file trains: phase 13 launches none of them, which phase 19 must
+DEFENSE_COUNTERS = ("train_step", "train_loss", "input_grad")
+#: K11's shapes, (batch, widths), as the pipelines train: LCLD's models at
+#: D = 47 and 57 (augmented), botnet's at 756 and 927, each surrogate's
+#: published widths and ``experiments/defense.py``'s batch sizes
+TRAIN_SHAPES = {"lcld": (512, (47, 64, 32, 16, 2)), "lcld_augmented": (512, (57, 64, 32, 16, 2)),
+                "botnet": (256, (756, 64, 64, 32, 2)), "botnet_augmented": (256, (927, 64, 64, 32, 2))}
+#: steps held bit for bit at each shape: the first half with no class
+#: weight, the second with ``TRAIN_CLASS_WEIGHT``; every odd step's batch
+#: ends in a weight-0 padded tail of a fifth of its rows
+TRAIN_CHECK_STEPS = 20
+TRAIN_CLASS_WEIGHT = {0: 1.0, 1: 3.0}
+#: the validation sets' rows at which K11's loss-only instantiation is held
+#: and timed: 10% of phase 19's training rows
+VAL_ROWS = {"lcld": 1000, "lcld_augmented": 1000, "botnet": 400, "botnet_augmented": 400}
+#: K12's shapes: the importance's class-balanced subsample, 2 x balanced_n
+#: rows (LCLD 5000 a class, botnet 300)
+INPUT_GRAD_SHAPES = {"lcld": (10000, (47, 64, 32, 16, 2)), "botnet": (600, (756, 64, 64, 32, 2))}
+#: the pipelines' synthetic splits (train, test) at seed 42, standing in for
+#: the real ones (**cut**: the rows), and MoEvA's and PGD's budget (**cut**
+#: from the configs' 1000); widths, epochs, batches, patience, population
+#: and offspring are the configs' and ``PROJECT_DEFAULTS``'
+DEFENSE_ROWS = {"lcld": (10000, 2000), "botnet": (4000, 1000)}
+DEFENSE_BUDGET = 100
+#: epochs of ``fit_mlp`` on the card against the CPU's float32 path from the
+#: same initial parameters
+CPU_FIT_EPOCHS = 3
+LR = 1e-3
+
+
+def mlp_work(widths) -> tuple:
+    """(weights of the stack, weights of the layers after the first)."""
+    pairs = list(zip(widths[:-1], widths[1:]))
+    return sum(a * b for a, b in pairs), sum(a * b for a, b in pairs[1:])
+
+
+def train_step_bound(b: int, widths):
+    """K11's step: its batch (x, labels, weights) and the class weights read
+    once, parameters and both moments read and written once, the loss
+    written; 2 operations a weight and row forward, 2 for the weight's
+    gradient, 2 for the cotangent of each hidden unit's input, ~12 a
+    parameter for Adam; exp, exp and log in float64 per row."""
+    from moeva2_ijcai22_replication_tpu_torch.models.train import n_params
+
+    p = n_params(widths)
+    m_all, m_back = mlp_work(widths)
+    n_bytes = b * widths[0] * 4 + b * 12 + 8 + 6 * p * 4 + 4
+    return bound_ms(n_bytes, b * (4 * m_all + 2 * m_back) + 12 * p, 3 * b)
+
+
+def train_loss_bound(n: int, widths):
+    """K11's loss-only launch: its rows and labels, the parameters once, a
+    float a tile; 2 operations a weight and row; exp, exp, log per row."""
+    from moeva2_ijcai22_replication_tpu_torch.models.train import TILE_ROWS, n_params
+
+    n_bytes = n * widths[0] * 4 + n * 8 + n_params(widths) * 4 + 8 + -(-n // TILE_ROWS) * 4
+    return bound_ms(n_bytes, 2 * n * mlp_work(widths)[0], 3 * n)
+
+
+def input_grad_bound(n: int, widths):
+    """K12: its rows read and their gradients written once, the parameters
+    once; 2 operations a weight and row forward and 2 backward (down to the
+    input); exp twice per row."""
+    from moeva2_ijcai22_replication_tpu_torch.models.train import n_params
+
+    n_bytes = 2 * n * widths[0] * 4 + n_params(widths) * 4
+    return bound_ms(n_bytes, 4 * n * mlp_work(widths)[0], 2 * n)
+
+
+def train_inputs(device, widths, b: int, seed: int):
+    """Seeded parameters (``reset_parameters_seeded``), scaled-like rows in
+    [0, 1], 0/1 labels, for K11's and K12's checks."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch.models.mlp import MLP
+    from moeva2_ijcai22_replication_tpu_torch.models.train import flat_params
+
+    rng = np.random.default_rng(seed)
+    params = flat_params(MLP(widths[0], widths[1:-1]).reset_parameters_seeded(seed)).to(device)
+    x = torch.as_tensor(rng.uniform(0, 1, (b, widths[0])), dtype=torch.float32, device=device)
+    y = torch.as_tensor(rng.integers(0, 2, b), device=device)
+    return params, x, y
+
+
+def check_training_kernels(device) -> dict:
+    """K11 against ``train_step_plain`` on the card, bit for bit (loss,
+    parameters, both moments) over ``TRAIN_CHECK_STEPS`` steps at each of
+    ``TRAIN_SHAPES`` (padded tails, class weights); its loss-only
+    instantiation against ``train_loss_plain`` at ``VAL_ROWS``; K12 against
+    ``input_grad_plain`` at ``INPUT_GRAD_SHAPES``. Returns counts for the log."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.models.train import (
+        adam_scalars, class_weight_vector, input_grad_plain, train_loss_plain, train_step_plain,
+    )
+
+    steps = 0
+    for i, (name, (b, widths)) in enumerate(TRAIN_SHAPES.items()):
+        params, _, _ = train_inputs(device, widths, b, 11 + i)
+        got = [params.clone(), torch.zeros_like(params), torch.zeros_like(params)]
+        want = [params.clone(), torch.zeros_like(params), torch.zeros_like(params)]
+        for step in range(TRAIN_CHECK_STEPS):
+            _, x, y = train_inputs(device, widths, b, 100 * i + step)
+            w = torch.ones(b, device=device)
+            if step % 2:
+                w[b - b // 5:] = 0.0
+            weights = None if step < TRAIN_CHECK_STEPS // 2 else TRAIN_CLASS_WEIGHT
+            cw = torch.tensor(class_weight_vector(weights), dtype=torch.float32, device=device)
+            adam = adam_scalars(step, LR)
+            loss = kernels.train_step(widths, *got, x, y, w, cw, adam)
+            loss_p = train_step_plain(widths, *want, x, y, w, cw, adam)
+            torch.cuda.synchronize()
+            what = f"train_step at {name} ({b} x {widths[0]}), step {step}"
+            hold_equal(loss, loss_p, f"{what}, loss")
+            for part, a, c in zip(("params", "mu", "nu"), got, want):
+                hold_equal(a, c, f"{what}, {part}")
+            steps += 1
+        _, xv, yv = train_inputs(device, widths, VAL_ROWS[name], 7 + i)
+        cw = torch.tensor(class_weight_vector(TRAIN_CLASS_WEIGHT), dtype=torch.float32, device=device)
+        hold_equal(kernels.train_loss(widths, got[0], xv, yv, cw), train_loss_plain(widths, got[0], xv, yv, cw),
+                   f"train_loss at {name} ({VAL_ROWS[name]} x {widths[0]})")
+    for name, (n, widths) in INPUT_GRAD_SHAPES.items():
+        params, x, _ = train_inputs(device, widths, n, 5)
+        hold_equal(kernels.input_grad(widths, params, x), input_grad_plain(widths, params, x),
+                   f"input_grad at {name} ({n} x {widths[0]})")
+    torch.cuda.synchronize()
+    return {"steps": steps, "losses": len(TRAIN_SHAPES), "grads": len(INPUT_GRAD_SHAPES)}
+
+
+def autograd_adam_ms(device, widths, x, y, w, cw) -> float:
+    """One step of the same function by eager autograd and
+    ``torch.optim.Adam`` (a note beside K11: no single PyTorch call computes
+    a training step)."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch.models.mlp import MLP
+
+    model = MLP(widths[0], widths[1:-1]).reset_parameters_seeded(3).to(device)
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+
+    def step():
+        losses = torch.nn.functional.cross_entropy(model(x), y, reduction="none") * cw[y]
+        loss = (losses * w).sum() / torch.clamp(w.sum(), min=1e-12)
+        opt.zero_grad(set_to_none=False)
+        loss.backward()
+        opt.step()
+
+    return cuda_ms(step)
+
+
+def time_training(device, smi: str) -> list:
+    """K11's step at ``TRAIN_SHAPES`` (device ms: a CUDA graph of 20 steps;
+    through the wrapper; the plain step; eager autograd + Adam as a note; the
+    bound), its loss-only instantiation at ``VAL_ROWS`` and K12 at
+    ``INPUT_GRAD_SHAPES``. Returns their records (LCLD's shapes first, the
+    others under ``shapes``)."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.models.train import (
+        adam_scalars, class_weight_vector, input_grad_plain, train_loss_plain, train_step_plain,
+    )
+
+    def plain_ms(fn) -> float:
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    cw = torch.tensor(class_weight_vector(None), dtype=torch.float32, device=device)
+    adam = adam_scalars(0, LR)
+    shapes = {"train_step": {}, "train_loss": {}, "input_grad": {}}
+    for i, (name, (b, widths)) in enumerate(TRAIN_SHAPES.items()):
+        params, x, y = train_inputs(device, widths, b, 40 + i)
+        mu, nu = torch.zeros_like(params), torch.zeros_like(params)
+        w = torch.ones(b, device=device)
+        step = lambda: kernels.train_step(widths, params, mu, nu, x, y, w, cw, adam)  # noqa: E731
+        b_ms, b_by = train_step_bound(b, widths)
+        entry = {"shape": f"{b}x{widths[0]}", "ms": graph_ms(step), "wrapper_ms": cuda_ms(step),
+                 "plain_ms": plain_ms(lambda: train_step_plain(widths, params.clone(), mu.clone(), nu.clone(), x, y, w,  # noqa: B023
+                                                               cw, adam)),
+                 "bound_ms": b_ms, "bound_by": b_by, "autograd_adam_ms": autograd_adam_ms(device, widths, x, y, w, cw)}
+        shapes["train_step"][name] = entry
+        log(f"[defense] train_step (K11) at {name}'s shape ({b} x {widths[0]}, {widths[1:]}): device "
+            f"{entry['ms']:.4f} ms a step (CUDA graph of 20 steps), through the wrapper {entry['wrapper_ms']:.4f} ms, "
+            f"plain {entry['plain_ms']:.2f} ms, eager autograd + torch.optim.Adam {entry['autograd_adam_ms']:.4f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by}) on {smi}")
+        n = VAL_ROWS[name]
+        _, xv, yv = train_inputs(device, widths, n, 60 + i)
+        loss = lambda: kernels.train_loss(widths, params, xv, yv, cw)  # noqa: E731
+        b_ms, b_by = train_loss_bound(n, widths)
+        entry = {"shape": f"{n}x{widths[0]}", "ms": graph_ms(loss), "wrapper_ms": cuda_ms(loss),
+                 "plain_ms": plain_ms(lambda: train_loss_plain(widths, params, xv, yv, cw)),  # noqa: B023
+                 "bound_ms": b_ms, "bound_by": b_by}
+        shapes["train_loss"][name] = entry
+        log(f"[defense] train_loss (K11, loss only) at {name}'s validation set ({n} x {widths[0]}): device "
+            f"{entry['ms']:.4f} ms, through the wrapper {entry['wrapper_ms']:.4f} ms, plain {entry['plain_ms']:.2f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by}) on {smi}")
+    for name, (n, widths) in INPUT_GRAD_SHAPES.items():
+        params, x, _ = train_inputs(device, widths, n, 80)
+        grad = lambda: kernels.input_grad(widths, params, x)  # noqa: E731
+        b_ms, b_by = input_grad_bound(n, widths)
+        entry = {"shape": f"{n}x{widths[0]}", "ms": graph_ms(grad), "wrapper_ms": cuda_ms(grad),
+                 "plain_ms": plain_ms(lambda: input_grad_plain(widths, params, x)),  # noqa: B023
+                 "bound_ms": b_ms, "bound_by": b_by}
+        shapes["input_grad"][name] = entry
+        log(f"[defense] input_grad (K12) at {name}'s importance subsample ({n} x {widths[0]}): device "
+            f"{entry['ms']:.4f} ms, through the wrapper {entry['wrapper_ms']:.4f} ms, plain {entry['plain_ms']:.2f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by}) on {smi}")
+    records = []
+    for rec_name, source, replaces in (
+        ("train_step", "train_step.cu", "moeva2_ijcai22_replication_tpu/models/train.py:92"),
+        ("train_loss", "train_step.cu", "moeva2_ijcai22_replication_tpu/models/train.py:93"),
+        ("input_grad", "input_grad.cu", "moeva2_ijcai22_replication_tpu/experiments/defense.py:175"),
+    ):
+        main = shapes[rec_name]["lcld"]
+        records.append({
+            "name": rec_name, "route": "cuda", "source": f"moeva2_ijcai22_replication_tpu_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": 0, "max_abs_err": 0.0, "library_ms": None,
+            **{k: main[k] for k in ("shape", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
+            **({"autograd_adam_ms": main["autograd_adam_ms"]} if rec_name == "train_step" else {}),
+            "shapes": {k: v for k, v in shapes[rec_name].items() if k != "lcld"},
+        })
+    return records
+
+
+def write_defense_artifacts(tmp: str) -> dict:
+    """Per project, the synthetic schema (``synth_lcld_schema``,
+    ``synth_botnet_schema``) and the split of ``DEFENSE_ROWS`` rows at seed
+    42 with a learnable label: LCLD's ``tests/test_defense.py`` rule
+    (int_rate above its median), botnet's (the highest-variance mutable
+    feature above its median). Returns project -> (schema paths, directory)."""
+    from moeva2_ijcai22_replication_tpu_torch.domains.botnet import BotnetConstraints
+    from moeva2_ijcai22_replication_tpu_torch.domains.lcld import LcldConstraints
+    from moeva2_ijcai22_replication_tpu_torch.domains.synth import (
+        synth_botnet, synth_botnet_schema, synth_lcld, synth_lcld_schema,
+    )
+
+    out = {}
+    for project, (schema_fn, cls, synth) in {"lcld": (synth_lcld_schema, LcldConstraints, synth_lcld),
+                                             "botnet": (synth_botnet_schema, BotnetConstraints, synth_botnet)}.items():
+        d = f"{tmp}/{project}"
+        paths = schema_fn(d)
+        cons = cls(paths["features"], paths["constraints"])
+        n_train, n_test = DEFENSE_ROWS[project]
+        x = synth(n_train + n_test, cons.schema, seed=42)
+        if project == "lcld":
+            j = 2
+        else:
+            mut = np.flatnonzero(cons.get_mutable_mask())
+            j = mut[np.argmax(x[:, mut].std(0))]
+        y = (x[:, j] > np.median(x[:, j])).astype(np.int64)
+        for name, arr in (("x_train", x[:n_train]), ("x_test", x[n_train:]), ("y_train", y[:n_train]),
+                          ("y_test", y[n_train:])):
+            np.save(f"{d}/{name}.npy", arr)
+        out[project] = (paths, d)
+    return out
+
+
+def defense_config(project: str, paths: dict, d: str) -> dict:
+    """``config/defense.{project}.yaml`` with its paths on phase 19's
+    artifacts (the data directory the schema's, as the reference keeps
+    ``features.csv`` and ``feat_idx.pickle`` beside the augmented CSVs) and
+    the budget cut to ``DEFENSE_BUDGET``."""
+    import os
+
+    from moeva2_ijcai22_replication_tpu_torch.utils.config import load_config_file
+
+    cfg = load_config_file(os.path.join(os.path.dirname(os.path.abspath(__file__)), "config",
+                                        f"defense.{project}.yaml"))
+    suffix = "" if project == "lcld" else "_19"
+    cfg["paths"] = {
+        "features": paths["features"], "constraints": paths["constraints"],
+        "features_augmented": f"{d}/features_augmented{suffix}.csv",
+        "constraints_augmented": f"{d}/constraints_augmented{suffix}.csv",
+        **{k: f"{d}/{k}.npy" for k in ("x_train", "x_test", "y_train", "y_test")},
+    }
+    cfg["dirs"] = {"data": d, "models": f"{d}/models"}
+    cfg["budget"] = DEFENSE_BUDGET
+    return cfg
+
+
+class DefenseStages:
+    """Patches, while open, the stages ``experiments.defense`` and
+    ``experiments.rq4`` call (``fit_mlp``, ``importance_gradient_x_input``,
+    ``moeva_attack``, ``ConstrainedPGD.generate``) with wrappers that
+    synchronise the card and record each call's wall time, and each fit's
+    rows, epochs run and best epoch."""
+
+    def __init__(self):
+        self.walls = {"train": 0.0, "importance": 0.0, "moeva": 0.0, "pgd": 0.0}
+        self.fits = []
+
+    def _timed(self, stage: str, fn):
+        import torch
+
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            self.walls[stage] += wall
+            if stage == "train":
+                best = int(np.argmin([h[2] for h in out.history]))
+                self.fits.append({"rows": len(args[1]), "features": args[1].shape[1], "epochs": len(out.history),
+                                  "best_epoch": best, "wall_s": wall})
+            return out
+
+        return wrapped
+
+    def __enter__(self):
+        from moeva2_ijcai22_replication_tpu_torch.experiments import defense, rq4
+
+        self.saved = [(defense, k, getattr(defense, k)) for k in
+                      ("fit_mlp", "importance_gradient_x_input", "moeva_attack", "ConstrainedPGD")]
+        self.saved.append((rq4, "moeva_attack", rq4.moeva_attack))
+        defense.fit_mlp = self._timed("train", defense.fit_mlp)
+        defense.importance_gradient_x_input = self._timed("importance", defense.importance_gradient_x_input)
+        defense.moeva_attack = rq4.moeva_attack = self._timed("moeva", self.saved[2][2])
+        stages = self
+
+        class TimedPGD(self.saved[3][2]):
+            def generate(self, *args, **kwargs):
+                return stages._timed("pgd", super().generate)(*args, **kwargs)
+
+        defense.ConstrainedPGD = TimedPGD
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, value in self.saved:
+            setattr(module, name, value)
+
+
+def model_aurocs(device, artifacts: dict, cfg: dict, rq4_art: dict | None = None) -> dict:
+    """Each model's AUROC on the test split (synthetic labels: these check
+    the plumbing), the augmented ones on the augmented rows."""
+    from moeva2_ijcai22_replication_tpu_torch.experiments.defense import proba1
+    from moeva2_ijcai22_replication_tpu_torch.models.io import load_classifier
+    from moeva2_ijcai22_replication_tpu_torch.models.scalers import load_npz
+    from moeva2_ijcai22_replication_tpu_torch.models.train import auroc
+
+    x_test, y_test = np.load(cfg["paths"]["x_test"]), np.load(cfg["paths"]["y_test"])
+    x_aug = np.load(f"{cfg['dirs']['data']}/x_test_augmented.npy")
+    scaler, scaler_aug = load_npz(artifacts["scaler"]), load_npz(artifacts["scaler_augmented"])
+    models = {k: artifacts[k] for k in ("nn", "nn_augmented", "nn_moeva", "nn_gradient") if artifacts.get(k)}
+    models.update({k: v for k, v in (rq4_art or {}).items() if k.startswith("nn_")})
+    out = {}
+    for key, path in models.items():
+        aug = "augmented" in key
+        out[key] = auroc(proba1(load_classifier(path), scaler_aug if aug else scaler, x_aug if aug else x_test,
+                                device), y_test)
+    return out
+
+
+def check_fit_card_vs_cpu(device, cfg: dict, smi: str) -> None:
+    """``fit_mlp`` on the card and on the CPU (float32: the kernels'
+    arithmetic, by the plain versions) from the same initial parameters over
+    ``CPU_FIT_EPOCHS`` epochs of LCLD's training split, scaled by the
+    pipeline's scaler: the histories and the count of parameters that
+    differ."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch.models.io import params_to_numpy
+    from moeva2_ijcai22_replication_tpu_torch.models.mlp import lcld_mlp
+    from moeva2_ijcai22_replication_tpu_torch.models.scalers import load_npz
+    from moeva2_ijcai22_replication_tpu_torch.models.train import fit_mlp, flat_params, train_test_split
+
+    scaler = load_npz(f"{cfg['dirs']['models']}/scaler.npz")
+    x, y = scaler.transform(np.load(cfg["paths"]["x_train"])), np.load(cfg["paths"]["y_train"])
+    x_tr, x_val, y_tr, y_val = train_test_split(x, y, test_size=0.1, random_state=42)
+    init = params_to_numpy(lcld_mlp(47, seed=5))
+    fits = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        fits[str(dev)] = fit_mlp(lcld_mlp(47), x_tr, y_tr, x_val, y_val, epochs=CPU_FIT_EPOCHS, batch_size=512,
+                                 init_params=init, device=dev, dtype=torch.float32)
+        fits[f"{dev}_s"] = time.perf_counter() - t0
+    card, cpu = fits[str(device)], fits["cpu"]
+    a, b = flat_params(card.surrogate.model), flat_params(cpu.surrogate.model)
+    differ = int((a != b).sum())
+    log(f"[defense] fit_mlp on the card against the CPU (float32, the plain versions) from the same initial "
+        f"parameters, {CPU_FIT_EPOCHS} epochs of {len(y_tr)} LCLD rows in batches of 512: {differ} of {a.numel()} "
+        f"parameters differ (largest |difference| {float((a - b).abs().max()):.3g}); train losses card "
+        f"{[h[1] for h in card.history]} CPU {[h[1] for h in cpu.history]}; val losses card "
+        f"{[h[2] for h in card.history]} CPU {[h[2] for h in cpu.history]}; walls {fits[f'{device}_s']:.2f} s and "
+        f"{fits['cpu_s']:.2f} s on {smi}")
+    if len(card.history) != len(cpu.history):
+        raise AssertionError("fit_mlp ran other epochs on the card than on the CPU")
+    if not np.allclose(np.array(card.history), np.array(cpu.history), rtol=1e-5):
+        raise AssertionError(f"fit_mlp's history on the card differs from the CPU's beyond 1e-5: {card.history} "
+                             f"against {cpu.history}")
+
+
+def drive_defense(device, smi: str, tmp: str) -> dict:
+    """Both defense pipelines (``experiments.defense.run``) and RQ4 on
+    LCLD's artifacts (``experiments.rq4.run``) on the card, each with its
+    launch counts set to 0 just before and read just after: K11 (step and
+    loss only) and K12 launched by each defense run, K11 by RQ4, and the
+    attacks' kernels (MoEvA's, K7 on LCLD, K7b on botnet, K1's ``kPairs``
+    instantiation in RQ4). Every artifact of the family exists. Returns the
+    summed launch counts."""
+    import os
+
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.experiments import common, defense, rq4
+
+    art = write_defense_artifacts(tmp)
+    total = {}
+    t_all = time.perf_counter()
+    runs = [("lcld", defense), ("botnet", defense), ("lcld", rq4)]
+    expect = {("lcld", defense): ("train_step", "train_loss", "input_grad", "objective_lcld", "pgd_lcld"),
+              ("botnet", defense): ("train_step", "train_loss", "input_grad", "objective_botnet", "pgd_botnet"),
+              ("lcld", rq4): ("train_step", "train_loss", "objective_lcld_aug")}
+    artifacts = {}
+    for project, runner in runs:
+        paths, d = art[project]
+        cfg = defense_config(project, paths, d)
+        common.ARTIFACTS.clear()
+        kind = runner.__name__.rsplit(".", 1)[1]
+        with DefenseStages() as stages:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = quiet(runner.run, cfg, device=device)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+        artifacts[(project, kind)] = out
+        missing = [k for k, v in out.items() if v is not None and not os.path.exists(v)]
+        if missing:
+            raise AssertionError(f"{kind} on {project} did not write {missing}")
+        idle = [k for k in expect[(project, runner)] if not launches[k]]
+        if idle and device.type == "cuda":
+            raise AssertionError(f"{kind} on {project} launched no {idle}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        aurocs = model_aurocs(device, artifacts[(project, "defense")], cfg, out if kind == "rq4" else None)
+        cand = {k: np.load(v).shape for k, v in out.items() if k.startswith("x_candidates")}
+        log(f"[defense] {kind}.run on {project} ({DEFENSE_ROWS[project][0]} training and {DEFENSE_ROWS[project][1]} "
+            f"test rows, budget {cfg['budget']}, n_pop {cfg['n_pop']}, {cfg['n_offsprings']} offspring): wall "
+            f"{wall:.2f} s; stages: training {stages.walls['train']:.2f} s, importance "
+            f"{stages.walls['importance']:.3f} s, MoEvA {stages.walls['moeva']:.2f} s, PGD {stages.walls['pgd']:.3f} s, "
+            f"the rest (judgement, scaling, I/O) {wall - sum(stages.walls.values()):.2f} s; launches "
+            f"{ {k: v for k, v in launches.items() if v} } on {smi}")
+        for fit in stages.fits:
+            log(f"[defense]   fit_mlp: {fit['rows']} rows x {fit['features']}, {fit['epochs']} epochs run (best "
+                f"{fit['best_epoch']}), {fit['wall_s']:.2f} s")
+        log(f"[defense]   AUROC (synthetic labels): "
+            f"{ {k: round(v, 4) for k, v in aurocs.items() if kind == 'defense' or k in out} }; candidate sets {cand}")
+        log(f"[defense]   artifacts: {sorted(os.listdir(d))} and models/{sorted(os.listdir(f'{d}/models'))}")
+    log(f"[defense] the three pipeline runs took {time.perf_counter() - t_all:.1f} s")
+    check_fit_card_vs_cpu(device, defense_config("lcld", *art["lcld"]), smi)
+    return total
+
+
+def run_defense(device, smi: str, resources: list, records: list) -> dict:
+    """Phase 19: training and the defense pipelines (ROADMAP A12b) with
+    kernels K11 and K12. Returns the launch counts of K11 and K12
+    (``DEFENSE_COUNTERS``) over its main paths' runs, each set to 0 just
+    before and read just after."""
+    import torch
+
+    t0 = time.perf_counter()
+    for k in resources:
+        if k["kernel"].startswith(("train_grad_kernel", "adam_kernel", "input_grad_kernel")):
+            log(f"[defense] ptxas {k['kernel']}: {k['registers']} registers, {k['smem']} bytes static shared memory, "
+                f"{k['stack']} bytes stack frame, {k['spill_stores']} + {k['spill_loads']} bytes spill stores + loads")
+    t1 = time.perf_counter()
+    got = check_training_kernels(device)
+    log(f"[defense] train_step (K11) equals train_step_plain bit for bit (loss, parameters, mu, nu) over "
+        f"{got['steps']} steps at {len(TRAIN_SHAPES)} shapes {[f'{b} x {w[0]}' for b, w in TRAIN_SHAPES.values()]} "
+        f"(padded tails, class weights {TRAIN_CLASS_WEIGHT} on the later half); train_loss equals train_loss_plain at "
+        f"{list(VAL_ROWS.values())} rows; input_grad (K12) equals input_grad_plain at "
+        f"{[f'{n} x {w[0]}' for n, w in INPUT_GRAD_SHAPES.values()]} ({time.perf_counter() - t1:.1f} s)")
+    records += time_training(device, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = drive_defense(device, smi, tmp)
+    if not all(launches.get(k) for k in DEFENSE_COUNTERS):
+        raise AssertionError(f"phase 19 launched no {[k for k in DEFENSE_COUNTERS if not launches.get(k)]}")
+    log(f"[defense] phase 19 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    # the attacks' kernels keep their own main paths' counts
+    return {k: launches[k] for k in DEFENSE_COUNTERS}
+
+
 def main() -> int:
     import torch
 
@@ -6128,7 +6701,6 @@ def main() -> int:
     if missing:
         raise AssertionError(f"the build's ptxas report has no entry for {missing}: the spill check cannot run")
     lap("phases 1-2")
-
     moeva, x, knobs = main_path_engine(device)
     records = check_kernels(device, moeva, x)
     lap("phase 3")
@@ -6166,7 +6738,7 @@ def main() -> int:
     # no grid file selects AutoPGD: its counters are checked on phase 14's drives
     idle = [name for name, n in grid_launches.items()
             if n == 0 and name not in AUTOPGD_COUNTERS + EARLY_EXIT_COUNTERS + HISTORY_COUNTERS + SPEC_COUNTERS
-            + SPEC_PGD_COUNTERS]
+            + SPEC_PGD_COUNTERS + DEFENSE_COUNTERS]
     if idle:
         raise AssertionError(f"phase 13's grids launched no {idle}")
     auto_records, auto_launches = run_autopgd(device, smi, resources, problem)
@@ -6184,7 +6756,9 @@ def main() -> int:
     lap("phase 17")
     launches.update(run_spec_pgd(device, smi, resources, records))
     lap("phase 18")
-    log(f"[smoke] phases 1-18 took {time.perf_counter() - t_smoke:.1f} s")
+    launches.update(run_defense(device, smi, resources, records))
+    lap("phase 19")
+    log(f"[smoke] phases 1-19 took {time.perf_counter() - t_smoke:.1f} s")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         rec["grid_launches"] = grid_launches[rec["name"]]

@@ -6,6 +6,9 @@
 - :mod:`.rq`       — the research-question grid runner (``experiments/rq.py``)
 - :mod:`.pipeline` — the grid's background writer and report (``experiments/pipeline.py``)
 - :mod:`.run_all`  — the full suite of grid files (``experiments/run_all.py``)
+- :mod:`.defense`  — the defense pipeline's artifact family (``experiments/defense.py``)
+- :mod:`.rq4`      — RQ4's retraining on the best adversarials (``experiments/rq4.py``)
+- :mod:`.preprocess` — the raw LendingClub CSV to the LCLD dataset (``experiments/preprocess.py``)
 
 Each runner is a function ``run(config, ..., device="cuda", dtype=...)``
 and has a command line (``python3 -m

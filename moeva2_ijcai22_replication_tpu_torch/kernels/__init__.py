@@ -51,6 +51,13 @@ domain compiled from a constraint spec, ``pgd_spec`` (K10,
 ``csrc/pgd_spec.cu``) runs them from the spec's reverse and repair
 programs; its AutoPGD instantiation counts as ``pgd_spec_auto``.
 
+And, for training and the defense pipelines, ``train_step`` (K11,
+``csrc/train_step.cu``): one Adam step of a surrogate, plain version
+``models.train.train_step_plain``; its loss-only instantiation
+``train_loss``, the validation loss (``models.train.train_loss_plain``);
+and ``input_grad`` (K12, ``csrc/input_grad.cu``): the attribution gradient
+of the feature importance, plain version ``models.train.input_grad_plain``.
+
 The wrappers take CUDA tensors only and raise on anything the kernel does
 not take, or when a build or launch fails; callers route CPU tensors to the
 plain versions. Importing this module builds nothing: the library is built
@@ -75,7 +82,8 @@ _LAUNCHES = {
         "pgd_lcld", "objective_botnet", "pgd_botnet", "objective_lcld_aug", "pgd_lcld_aug",
         "objective_botnet_aug", "pgd_lcld_auto", "pgd_lcld_aug_auto", "pgd_botnet_auto",
         "gate_stats", "take_carry", "objective_lcld_hist", "objective_lcld_aug_hist", "objective_botnet_hist",
-        "objective_botnet_aug_hist", "objective_spec", "objective_spec_hist", "pgd_spec", "pgd_spec_auto",
+        "objective_botnet_aug_hist", "objective_spec", "objective_spec_hist", "pgd_spec", "pgd_spec_auto", "train_step", "train_loss",
+        "input_grad",
     )
 }
 
@@ -1053,3 +1061,123 @@ def final_columns(idx, pop_x, pop_f, arch_x, arch_f):
         (pop_f, out_f, (p + a) * 3, 0), (arch_f, out_f, (p + a) * 3, p * 3),
     ], dev)
     return out_x, out_f
+
+
+#: K11's and K12's most layers (``kTrainMaxLayers`` in ``csrc/kernels.h``)
+TRAIN_MAX_LAYERS = 8
+
+
+def _mlp_widths(widths, what: str):
+    """``widths`` as a ctypes int array, its layer count and the stack's
+    parameter count, after the checks of K11 and K12 that need no library:
+    1 to ``TRAIN_MAX_LAYERS`` layers and 2 classes."""
+    widths = [int(v) for v in widths]
+    n_layers = len(widths) - 1
+    if not 1 <= n_layers <= TRAIN_MAX_LAYERS or widths[-1] != 2 or min(widths) < 1:
+        raise ValueError(f"{what} takes a relu stack of 1 to {TRAIN_MAX_LAYERS} layers and 2 classes, "
+                         f"got widths {widths}")
+    n_params = sum(a * b + b for a, b in zip(widths[:-1], widths[1:]))
+    return (ctypes.c_int * len(widths))(*widths), n_layers, n_params
+
+
+def _train_library(c_widths, n_layers: int, what: str):
+    """The kernel library, after checking that a tile of the stack fits one
+    block's shared memory."""
+    from .build import library
+
+    lib = library()
+    if lib.moeva_train_smem_bytes(c_widths, n_layers) == 0:
+        raise ValueError(f"{what}: a tile of {lib.moeva_train_tile_rows()} rows of the stack {list(c_widths)} does "
+                         "not fit one block's shared memory")
+    return lib
+
+
+def _train_rows(x, y, d: int, what: str) -> int:
+    if x.dim() != 2:
+        raise ValueError(f"{what}: x must be (N, D), got {tuple(x.shape)}")
+    n = x.shape[0]
+    if n < 1:
+        raise ValueError(f"{what} takes at least one row")
+    _check(x, "x", (n, d))
+    if y is not None:
+        _check(y, "y", (n,), torch.int64)
+    return n
+
+
+def train_step(widths, params, mu, nu, x, y, w, cw, adam) -> torch.Tensor:
+    """Kernel K11: one training step of the relu stack ``widths`` (D, ...,
+    2) on the batch ``x`` (N, D) float32 with labels ``y`` (N,) int64,
+    sample weights ``w`` (N,) and class weights ``cw`` (2,): the flat
+    float32 parameters ``params`` and Adam's moments ``mu`` and ``nu`` (P,)
+    are updated in place; returns the step's loss (1,) on the card. ``adam``
+    holds the float32 constants (1 - b1, b1, 1 - b2, b2, the two bias
+    corrections, eps, -lr). The semantics of ``models.train.
+    train_step_plain``; labels are clamped into [0, 1] as JAX's gather
+    clamps them."""
+    c_widths, n_layers, n_params = _mlp_widths(widths, "train_step")
+    n = _train_rows(x, y, c_widths[0], "train_step")
+    for name, t in (("params", params), ("mu", mu), ("nu", nu)):
+        _check(t, name, (n_params,))
+        if not t.is_contiguous():
+            raise ValueError(f"train_step updates {name} in place: it must be contiguous")
+    _check(w, "w", (n,))
+    _check(cw, "cw", (2,))
+    if len(adam) != 8:
+        raise ValueError(f"adam holds 8 constants, got {len(adam)}")
+    dev = _one_device(params, mu, nu, x, y, w, cw)
+    x, y, w, cw = (t.contiguous() for t in (x, y, w, cw))
+    lib = _train_library(c_widths, n_layers, "train_step")
+    n_tiles = -(-n // lib.moeva_train_tile_rows())
+    part_grad = torch.empty((n_tiles, n_params), dtype=torch.float32, device=dev)
+    part_loss = torch.empty((n_tiles, 2), dtype=torch.float32, device=dev)
+    loss = torch.empty((1,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.moeva_train_step_f32(
+            x.data_ptr(), y.data_ptr(), w.data_ptr(), cw.data_ptr(), params.data_ptr(), mu.data_ptr(),
+            nu.data_ptr(), c_widths, n_layers, n, *(float(a) for a in adam), part_grad.data_ptr(),
+            part_loss.data_ptr(), loss.data_ptr(), _stream(dev),
+        )
+    _raise_on_error(lib, err, "train_step")
+    _LAUNCHES["train_step"] += 1
+    return loss
+
+
+def train_loss(widths, params, x, y, cw) -> torch.Tensor:
+    """Kernel K11's loss-only instantiation: each tile's sum of ``cw[y] *
+    loss`` over its rows, (ceil(N / tile rows),) float32 on the card, the
+    semantics of ``models.train.train_loss_plain`` (the caller sums the
+    tiles left to right and divides by N)."""
+    c_widths, n_layers, n_params = _mlp_widths(widths, "train_loss")
+    n = _train_rows(x, y, c_widths[0], "train_loss")
+    _check(params, "params", (n_params,))
+    _check(cw, "cw", (2,))
+    dev = _one_device(params, x, y, cw)
+    x, y, cw, params = (t.contiguous() for t in (x, y, cw, params))
+    lib = _train_library(c_widths, n_layers, "train_loss")
+    part_loss = torch.empty((-(-n // lib.moeva_train_tile_rows()),), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.moeva_train_loss_f32(x.data_ptr(), y.data_ptr(), cw.data_ptr(), params.data_ptr(), c_widths,
+                                       n_layers, n, part_loss.data_ptr(), _stream(dev))
+    _raise_on_error(lib, err, "train_loss")
+    _LAUNCHES["train_loss"] += 1
+    return part_loss
+
+
+def input_grad(widths, params, x) -> torch.Tensor:
+    """Kernel K12: per row of ``x`` (N, D) float32 the gradient (N, D) of the
+    stack's softmax class-0 probability with respect to the row, for the
+    flat float32 ``params`` of the relu stack ``widths`` (D, ..., 2); the
+    semantics of ``models.train.input_grad_plain``."""
+    c_widths, n_layers, n_params = _mlp_widths(widths, "input_grad")
+    n = _train_rows(x, None, c_widths[0], "input_grad")
+    _check(params, "params", (n_params,))
+    dev = _one_device(params, x)
+    x, params = x.contiguous(), params.contiguous()
+    lib = _train_library(c_widths, n_layers, "input_grad")
+    out = torch.empty((n, c_widths[0]), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.moeva_input_grad_f32(x.data_ptr(), params.data_ptr(), c_widths, n_layers, n, out.data_ptr(),
+                                       _stream(dev))
+    _raise_on_error(lib, err, "input_grad")
+    _LAUNCHES["input_grad"] += 1
+    return out

@@ -493,6 +493,55 @@ int moeva_spec_max_features() { return kSpecMaxFeatures; }
 
 int moeva_spec_max_width() { return kSpecMaxWidth; }
 
+// K11 and K12: `widths` is a host array of n_layers + 1 ints; the adam
+// scalars are float32 (c1 = 1 - b1, b1, c2 = 1 - b2, b2, bc1, bc2, eps,
+// -lr), each rounded once from float64 on the host.
+int moeva_train_step_f32(const void* x, const void* y, const void* w, const void* cw,
+                         void* params, void* mu, void* nu, const int* widths, int n_layers,
+                         int n, float c1, float b1, float c2, float b2, float bc1, float bc2,
+                         float eps, float neg_lr, void* part_grad, void* part_loss, void* loss,
+                         void* stream) {
+  TrainShape shape;
+  if (!train_shape(widths, n_layers, &shape)) return static_cast<int>(cudaErrorInvalidValue);
+  const AdamScalars adam{c1, b1, c2, b2, bc1, bc2, eps, neg_lr};
+  return static_cast<int>(launch_train_step(
+      static_cast<const float*>(x), static_cast<const int64_t*>(y), static_cast<const float*>(w),
+      static_cast<const float*>(cw), static_cast<float*>(params), static_cast<float*>(mu),
+      static_cast<float*>(nu), shape, n, adam, static_cast<float*>(part_grad),
+      static_cast<float*>(part_loss), static_cast<float*>(loss), static_cast<cudaStream_t>(stream)));
+}
+
+int moeva_train_loss_f32(const void* x, const void* y, const void* cw, const void* params,
+                         const int* widths, int n_layers, int n, void* part_loss, void* stream) {
+  TrainShape shape;
+  if (!train_shape(widths, n_layers, &shape)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_train_loss(
+      static_cast<const float*>(x), static_cast<const int64_t*>(y), static_cast<const float*>(cw),
+      static_cast<const float*>(params), shape, n, static_cast<float*>(part_loss),
+      static_cast<cudaStream_t>(stream)));
+}
+
+int moeva_input_grad_f32(const void* x, const void* params, const int* widths, int n_layers, int n,
+                         void* out, void* stream) {
+  TrainShape shape;
+  if (!train_shape(widths, n_layers, &shape)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_input_grad(static_cast<const float*>(x), static_cast<const float*>(params),
+                                            shape, n, static_cast<float*>(out),
+                                            static_cast<cudaStream_t>(stream)));
+}
+
+// Bytes of shared memory a K11 or K12 block takes for the stack (0: the
+// stack is refused, or more than one block holds).
+long long moeva_train_smem_bytes(const int* widths, int n_layers) {
+  TrainShape shape;
+  if (!train_shape(widths, n_layers, &shape)) return 0;
+  return static_cast<long long>(train_tile_smem_bytes(shape));
+}
+
+int moeva_train_tile_rows() { return kTrainTileRows; }
+
+int moeva_train_max_layers() { return kTrainMaxLayers; }
+
 const char* moeva_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

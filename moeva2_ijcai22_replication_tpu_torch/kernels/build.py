@@ -38,9 +38,11 @@ SOURCES = (
     "csrc/gate_repack.cu",
     "csrc/objective_spec.cu",
     "csrc/pgd_spec.cu",
+    "csrc/train_step.cu",
+    "csrc/input_grad.cu",
     "bindings.cpp",
 )
-HEADERS = ("csrc/kernels.h", "csrc/pgd_common.cuh")
+HEADERS = ("csrc/kernels.h", "csrc/pgd_common.cuh", "csrc/mlp_tile.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-O3",
@@ -179,7 +181,18 @@ def library() -> ctypes.CDLL:
     lib.moeva_pgd_spec_f32.restype = i32
     lib.moeva_pgd_spec_block_rows.argtypes = [i32, ctypes.POINTER(i32)] + [i32] * 4
     lib.moeva_pgd_spec_block_rows.restype = i32
+    lib.moeva_train_step_f32.argtypes = (
+        [ptr] * 7 + [ctypes.POINTER(i32), i32, i32] + [f32] * 8 + [ptr] * 4
+    )
+    lib.moeva_train_step_f32.restype = i32
+    lib.moeva_train_loss_f32.argtypes = [ptr] * 4 + [ctypes.POINTER(i32), i32, i32, ptr, ptr]
+    lib.moeva_train_loss_f32.restype = i32
+    lib.moeva_input_grad_f32.argtypes = [ptr, ptr, ctypes.POINTER(i32), i32, i32, ptr, ptr]
+    lib.moeva_input_grad_f32.restype = i32
+    lib.moeva_train_smem_bytes.argtypes = [ctypes.POINTER(i32), i32]
+    lib.moeva_train_smem_bytes.restype = i64
     for name in (
+        "moeva_train_tile_rows", "moeva_train_max_layers",
         "moeva_nd_peel_max_candidates", "moeva_associate_max_directions", "moeva_survive_max_candidates",
         "moeva_objective_max_params", "moeva_objective_max_width",
         "moeva_objective_max_layers", "moeva_lcld_max_pairs", "moeva_pgd_max_ohe_slots",

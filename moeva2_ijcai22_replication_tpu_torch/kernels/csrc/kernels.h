@@ -483,3 +483,55 @@ cudaError_t launch_pgd_spec(const PgdSpecArgs& args, cudaStream_t stream);
 // n_terms terms and n_acc contributions (0: not one row, or a width out of
 // range).
 int pgd_spec_block_rows(int d, const int* widths, int n_layers, int n_terms, int n_acc, int autopgd);
+
+// train_step (K11) and input_grad (K12): a relu stack of n_layers dense
+// layers (widths[0] inputs, widths[n_layers] = 2 classes), its parameters
+// one flat float32 buffer, layer by layer the weight (out, in) row-major
+// then the bias (out,). A block runs kTrainTileRows rows on kTrainThreads
+// threads, every activation and cotangent of its rows in shared memory.
+constexpr int kTrainTileRows = 16;
+constexpr int kTrainThreads = 256;
+constexpr int kTrainMaxLayers = 8;
+
+struct TrainShape {
+  int n_layers;
+  int widths[kTrainMaxLayers + 1];
+  int64_t w_off[kTrainMaxLayers];  // layer l's weight in the flat buffer
+  int64_t b_off[kTrainMaxLayers];  // and its bias
+  int64_t n_params;
+};
+
+// The shape of the stack of the given widths (false: a layer count or a
+// width out of range, or not 2 classes).
+bool train_shape(const int* widths, int n_layers, TrainShape* shape);
+
+// Bytes of dynamic shared memory a train_step or input_grad block takes for
+// the stack (0: more than one block's shared memory).
+size_t train_tile_smem_bytes(const TrainShape& shape);
+
+// Optax's Adam as K11 applies it: the float32 constants (1 - b1, b1,
+// 1 - b2, b2, eps, -lr) and the bias corrections 1 - b**count, computed in
+// float64 on the host and rounded once.
+struct AdamScalars {
+  float c1, b1, c2, b2, bc1, bc2, eps, neg_lr;
+};
+
+// K11 step: launch 1 writes each tile's partial gradients (n_tiles,
+// n_params) into part_grad and its partial sums of w * cw[y] * loss and w
+// into part_loss (n_tiles, 2); launch 2 sums them, divides by max(sum w,
+// 1e-12), updates params, mu and nu in place and writes the step's loss.
+cudaError_t launch_train_step(const float* x, const int64_t* y, const float* w, const float* cw,
+                              float* params, float* mu, float* nu, const TrainShape& shape, int n,
+                              const AdamScalars& adam, float* part_grad, float* part_loss,
+                              float* loss, cudaStream_t stream);
+
+// K11's loss-only instantiation: each tile's partial sum of cw[y] * loss
+// into part_loss (n_tiles,).
+cudaError_t launch_train_loss(const float* x, const int64_t* y, const float* cw,
+                              const float* params, const TrainShape& shape, int n,
+                              float* part_loss, cudaStream_t stream);
+
+// K12: per row the gradient of the softmax's class-0 probability with
+// respect to the row, into out (n, widths[0]).
+cudaError_t launch_input_grad(const float* x, const float* params, const TrainShape& shape, int n,
+                              float* out, cudaStream_t stream);

@@ -1,6 +1,9 @@
 """Surrogate wrapper and the JAX package's ``.msgpack`` params, both ways.
 
-Port of ``models/io.py``. The file format (``io.py::save_params``) is an
+Port of ``models/io.py``; with the carry of optax's Adam state
+(``ScaleByAdamState``: ``count``, ``mu``, ``nu`` as numpy param trees) into
+the port's flat :class:`..train.AdamState` and back
+(:func:`adam_state_from_numpy`, :func:`adam_state_to_numpy`). The file format (``io.py::save_params``) is an
 ``np.save`` int64 topology header (hidden sizes, then n_classes) followed by
 Flax's msgpack bytes of ``{"params": {"Dense_i": {"kernel", "bias"}}}``,
 where each array is a msgpack ext of type 1 holding ``(shape, dtype name,
@@ -123,6 +126,56 @@ def load_params(path: str, dtype=torch.float32) -> Surrogate:
             f"stored layers {model.hidden}+{model.n_classes}"
         )
     return Surrogate(model)
+
+
+def save_classifier(surrogate: Surrogate, path: str) -> None:
+    """Save-side counterpart of :func:`load_classifier`, as the JAX
+    package's: ``.msgpack`` (and any other suffix but ``.orbax``) by
+    :func:`save_params`; orbax checkpoints are not written by the port."""
+    if path.rstrip("/").endswith(".orbax"):
+        raise NotImplementedError(f"{path}: orbax checkpoints are not written by the port")
+    save_params(surrogate, path)
+
+
+def flat_from_tree(tree: dict) -> torch.Tensor:
+    """A params-shaped tree ``{"params": {"Dense_i": {"kernel" (in, out),
+    "bias"}}}`` (parameters, or Adam's ``mu`` or ``nu``) as the port's flat
+    float32 buffer: each layer's kernel transposed to (out, in) and
+    row-major, then its bias (``models.train.flat_params``' layout)."""
+    layers = tree["params"]
+    names = sorted(layers, key=lambda k: int(k.split("_")[1]))
+    return torch.as_tensor(np.concatenate([
+        np.concatenate([np.asarray(layers[k]["kernel"], np.float32).T.ravel(),
+                        np.asarray(layers[k]["bias"], np.float32).ravel()])
+        for k in names
+    ]))
+
+
+def tree_from_flat(widths, flat: torch.Tensor) -> dict:
+    """The params-shaped numpy tree of a flat buffer of the stack
+    ``widths`` (the inverse of :func:`flat_from_tree`)."""
+    flat = flat.detach().float().cpu().numpy()
+    out, off = {}, 0
+    for i, (a, b) in enumerate(zip(widths[:-1], widths[1:])):
+        kernel = flat[off:off + a * b].reshape(b, a).T.copy()
+        off += a * b
+        out[f"Dense_{i}"] = {"kernel": kernel, "bias": flat[off:off + b].copy()}
+        off += b
+    return {"params": out}
+
+
+def adam_state_from_numpy(count, mu: dict, nu: dict):
+    """optax's ``ScaleByAdamState`` (``count`` and the ``mu``/``nu`` param
+    trees, numpy) as the port's :class:`..train.AdamState`."""
+    from .train import AdamState
+
+    return AdamState(int(count), flat_from_tree(mu), flat_from_tree(nu))
+
+
+def adam_state_to_numpy(state, widths) -> tuple:
+    """``(count int32, mu, nu)`` numpy trees of the port's Adam ``state``
+    for the stack ``widths``: the fields of optax's ``ScaleByAdamState``."""
+    return np.int32(state.count), tree_from_flat(widths, state.mu), tree_from_flat(widths, state.nu)
 
 
 def load_classifier(path: str, dtype=torch.float32) -> Surrogate:

@@ -1,9 +1,11 @@
 """Result and artifact IO, and the model artifacts' suffix dispatch.
 
 Port of ``utils/in_out.py``: the json, npy and pickle helpers and
-``load_model``, whose artifacts go to ``models.io.load_classifier``. A
-``.joblib`` host classifier (sklearn) waits for the runner that takes one
-(ROADMAP A12).
+``load_model``, whose artifacts go to ``models.io.load_classifier``; a
+``.joblib`` artifact (an sklearn model) gets :class:`HostClassifier`, the
+host wrapper with the reference's 1-column probability expansion, joblib
+imported only there. No attack takes a host classifier: the runners refuse
+one (``experiments.common.load_surrogate``).
 """
 
 from __future__ import annotations
@@ -66,11 +68,30 @@ def json_from_dir(input_dir: str, handler=None) -> list:
 
 
 # -- model artifacts ---------------------------------------------------------
+class HostClassifier:
+    """Duck-typed host-side classifier (sklearn etc.) with the reference
+    wrapper's probability-column expansion (``moeva2/classifier.py:4-41``):
+    numpy in, numpy out, on the host; for post-hoc evaluation of models
+    that are not neural, never for an attack."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def predict_proba(self, x) -> np.ndarray:
+        probs = np.asarray(self.model.predict_proba(np.asarray(x)))
+        if probs.shape[-1] == 1:
+            probs = np.concatenate([1.0 - probs, probs], axis=-1)
+        return probs
+
+
 def load_model(path: str):
-    """The surrogate of a model artifact, by ``models.io.load_classifier``;
-    a ``.joblib`` host classifier is refused until ROADMAP A12."""
+    """Extension dispatch (parity ``in_out.load_model``): ``.joblib`` ->
+    :class:`HostClassifier` (needs joblib); anything else ->
+    ``models.io.load_classifier``'s surrogate."""
     if path.endswith(".joblib"):
-        raise NotImplementedError(f"{path}: host classifiers (.joblib) are not read by the port yet (ROADMAP A12)")
+        import joblib
+
+        return HostClassifier(joblib.load(path))
     from ..models.io import load_classifier
 
     return load_classifier(path)

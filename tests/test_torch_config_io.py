@@ -139,10 +139,17 @@ def test_port_written_weights_round_trip(tmp_path):
 
 
 def test_host_classifiers_wait_for_a12(tmp_path):
-    from moeva2_ijcai22_replication_tpu_torch.utils.in_out import load_model
+    """ROADMAP A12 ported the ``.joblib`` branch: a host classifier loads
+    as ``HostClassifier``; other artifacts stay surrogates."""
+    import joblib
+    from sklearn.linear_model import LogisticRegression
 
-    with pytest.raises(NotImplementedError, match="A12"):
-        load_model(str(tmp_path / "rf.joblib"))
+    from moeva2_ijcai22_replication_tpu_torch.utils.in_out import HostClassifier, load_model
+
+    x = np.random.default_rng(2).normal(size=(30, 3))
+    joblib.dump(LogisticRegression().fit(x, (x[:, 0] > 0).astype(int)), tmp_path / "rf.joblib")
+    host = load_model(str(tmp_path / "rf.joblib"))
+    assert isinstance(host, HostClassifier) and host.predict_proba(x).shape == (30, 2)
     pio.save_params(pio.Surrogate(botnet_mlp(seed=3)), str(tmp_path / "nn.msgpack"))
     assert isinstance(load_model(str(tmp_path / "nn.msgpack")), pio.Surrogate)
 

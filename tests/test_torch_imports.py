@@ -45,7 +45,8 @@ def test_port_has_every_module_of_the_slice():
         "attacks.moeva.checkpoint", "observability", "observability.quality",
         "domains.ir", "domains.ir.ops", "domains.ir.expr", "domains.ir.spec", "domains.ir.torch_backend",
         "domains.ir.repair_backend", "domains.ir.generator", "domains.ir.program", "domains.ir.vjp",
-        "domains.ir.milp_backend",
+        "domains.ir.milp_backend", "models.train", "experiments.defense", "experiments.rq4",
+        "experiments.preprocess",
     ):
         assert f"{port.__name__}.{name}" in mods
 

@@ -499,7 +499,7 @@ def test_launch_counts_reset():
         "pgd_lcld_auto": 0, "pgd_lcld_aug_auto": 0, "pgd_botnet_auto": 0, "gate_stats": 0, "take_carry": 0,
         "objective_lcld_hist": 0, "objective_lcld_aug_hist": 0, "objective_botnet_hist": 0,
         "objective_botnet_aug_hist": 0, "objective_spec": 0, "objective_spec_hist": 0, "pgd_spec": 0,
-        "pgd_spec_auto": 0,
+        "pgd_spec_auto": 0, "train_step": 0, "train_loss": 0, "input_grad": 0,
     }
 
 
@@ -1564,3 +1564,81 @@ def test_pgd_spec_equals_plain_on_the_card(card, tmp_path, name, attack, loss, n
     for a, b in zip(got, want):
         if a is not None or b is not None:
             np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+# -- K11 train_step (and its loss-only instantiation) and K12 input_grad -------------
+
+#: (batch, widths): the defense pipelines' four training shapes, a partial
+#: tile and a one-row batch
+TRAIN_SHAPES = [(512, (47, 64, 32, 16, 2)), (512, (57, 64, 32, 16, 2)), (256, (756, 64, 64, 32, 2)),
+                (256, (927, 64, 64, 32, 2)), (37, (9, 5, 2)), (1, (3, 2))]
+
+
+def _train_inputs(widths, n, seed, device):
+    from moeva2_ijcai22_replication_tpu_torch.models.mlp import MLP
+    from moeva2_ijcai22_replication_tpu_torch.models.train import flat_params
+
+    rng = np.random.default_rng(seed)
+    model = MLP(widths[0], widths[1:-1]).reset_parameters_seeded(seed)
+    params = flat_params(model).to(device)
+    x = torch.as_tensor(rng.normal(0, 1, (n, widths[0])), dtype=torch.float32, device=device)
+    y = torch.as_tensor(rng.integers(0, 2, n), device=device)
+    w = np.ones(n, dtype=np.float32)
+    w[n - n // 5:] = 0.0  # a weight-0 padded tail
+    return params, x, y, torch.as_tensor(w, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, widths", TRAIN_SHAPES)
+@pytest.mark.parametrize("class_weight", [None, {0: 1.0, 1: 4.0}])
+def test_train_step_equals_plain_on_the_card(card, n, widths, class_weight):
+    """K11 against ``train_step_plain`` on the card over 5 steps, bit for bit
+    (parameters, moments, losses), and its loss-only instantiation against
+    ``train_loss_plain``."""
+    from moeva2_ijcai22_replication_tpu_torch.models.train import (
+        adam_scalars, class_weight_vector, train_loss_plain, train_step_plain,
+    )
+
+    params, x, y, w = _train_inputs(widths, n, n, card)
+    cw = torch.tensor(class_weight_vector(class_weight), dtype=torch.float32, device=card)
+    got = [params.clone(), torch.zeros_like(params), torch.zeros_like(params)]
+    want = [params.clone(), torch.zeros_like(params), torch.zeros_like(params)]
+    kernels.reset_launch_counts()
+    for step in range(5):
+        adam = adam_scalars(step, 1e-3)
+        loss = kernels.train_step(widths, *got, x, y, w, cw, adam)
+        loss_p = train_step_plain(widths, *want, x, y, w, cw, adam)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(loss.cpu().numpy(), loss_p.cpu().numpy())
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    part = kernels.train_loss(widths, got[0], x, y, cw)
+    np.testing.assert_array_equal(part.cpu().numpy(), train_loss_plain(widths, got[0], x, y, cw).cpu().numpy())
+    assert kernels.launch_counts()["train_step"] == 5 and kernels.launch_counts()["train_loss"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, widths", [(10000, (47, 64, 32, 16, 2)), (600, (756, 64, 64, 32, 2)), (33, (9, 5, 2))])
+def test_input_grad_equals_plain_on_the_card(card, n, widths):
+    from moeva2_ijcai22_replication_tpu_torch.models.train import input_grad_plain
+
+    params, x, _, _ = _train_inputs(widths, n, 7, card)
+    kernels.reset_launch_counts()
+    got = kernels.input_grad(widths, params, x)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["input_grad"] == 1
+    np.testing.assert_array_equal(got.cpu().numpy(), input_grad_plain(widths, params, x).cpu().numpy())
+
+
+def test_training_wrappers_refuse_cpu_tensors():
+    widths = (9, 5, 2)
+    params, x, y, w = _train_inputs(widths, 4, 0, "cpu")
+    cw = torch.ones(2)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.train_step(widths, params, params.clone(), params.clone(), x, y, w, cw, (0.1,) * 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.train_loss(widths, params, x, y, cw)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.input_grad(widths, params, x)
+    assert kernels.launch_counts() == before
