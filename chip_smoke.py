@@ -8,7 +8,7 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero:
 
 1. versions: torch, CUDA, and the card's name and power limit (nvidia-smi);
-2. build the port's twelve CUDA kernel sources (K1 and K7 with an
+2. build the port's sixteen CUDA kernel sources (K1 and K7 with an
    instantiation each for the augmented LCLD domain, K7 two more for
    AutoPGD, K8 one for the augmented botnet domain, K1 and K8 their history
    instantiations for each domain, K6's two kernels in one source, K9 for
@@ -319,6 +319,27 @@ Phases, in order; any failure exits non-zero:
    each stage's wall; and ``fit_mlp`` on the card against the CPU's
    float32 path from the same initial parameters. No grid file trains:
    phase 13 launches no ``DEFENSE_COUNTERS``, which phase 19 must launch.
+20. the draws and a chunk's prepare and decode (the ``[draws]`` lines,
+   ROADMAP B3; kernel K0 ``draws`` with its PGD instantiation
+   ``pgd_start``, K13a ``chunk_prepare`` and K13b ``chunk_decode``): their
+   ptxas lines; K0 against ``core.philox.draw_plain`` on the card, bit for
+   bit, at the main path's generation (1000 states), botnet's chunks (256
+   and 131 x 756), 1, 31 and 33 states with 99 offspring, lp_ratio's
+   initial rounds under both norms and every field kind at
+   ``DRAW_EDGE_COUNTS`` elements from a block past 2**32; ``pgd_start``
+   against ``pgd_start_plain`` at ``PGD_START_SHAPES`` under both norms;
+   K0 on the card against the CPU twin (integer and uniform fields equal;
+   the differing gumbel and normal elements counted and printed); K13a and
+   K13b against their plain versions on LCLD and botnet chunks (tile and
+   lp_ratio, a repack's prepare, the decode with and without the archive);
+   each timed (a CUDA graph of 20 launches), through its wrapper, its plain
+   version on the card and its bound, K0 beside the parent's 17 eager
+   launches of a generation's draws (``parent_generation_draws``, the
+   library figure); ``ConstrainedPGD.generate`` with 2 random starts, its
+   launch counts set to 0 just before and read just after; phase 6's
+   launches and busy share per LCLD generation and phase 4's walls. K0 and
+   K13 count their launches on phase 4's main path, ``pgd_start`` on this
+   phase's PGD run.
 
 The last three lines are the per-kernel JSON record (with each kernel's
 launches over phase 13's grids, ``grid_launches``), the card's name and
@@ -581,6 +602,21 @@ def hard_candidates(codec, x):
     return x
 
 
+_STREAMS: dict = {}
+
+
+def stream_of(gen):
+    """The port's Philox stream (``core.philox``) that stands beside the
+    test-input ``torch.Generator`` ``gen``: keyed by its seed, on its
+    device, one stream per generator. The engine's draws come from it (K0
+    on the card) while ``gen`` makes the sweeps' inputs."""
+    from moeva2_ijcai22_replication_tpu_torch.core.philox import PhiloxStream
+
+    if id(gen) not in _STREAMS:
+        _STREAMS[id(gen)] = (gen, PhiloxStream(gen.initial_seed(), gen.device))
+    return _STREAMS[id(gen)][1]
+
+
 def sweep_population(gen, run, codec, s: int, p: int):
     """(S, P, L) genes uniform within the states' bounds (integer genes
     rounded), with every fifth gene's range collapsed to its lower bound
@@ -743,7 +779,7 @@ def check_kernels(device, moeva, x):
             # K5 offspring
             pop, xl, xu = sweep_population(gen, run, codec, s, p)
             counts["zero-range genes"] += int((xl == xu).sum())
-            draws = draw_offspring(gen, s, p, n_off, n_gene)
+            draws = draw_offspring(stream_of(gen), s, p, n_off, n_gene)
             off = kernels.offspring(tables, pop, xl, xu, n_off, draws)
             hold_equal(off, make_offspring_plain(tables, pop, xl, xu, n_off, draws), f"offspring S={s} P={p}")
             # K1 at the main path's two shapes: the offspring (N_off rows, each
@@ -1027,7 +1063,7 @@ def check_offspring_edges(device, moeva, x, rng, gen):
         l = xl.shape[1]
         pop = xl[:, None] + torch.rand((s, p, l), generator=gen, device=device) * (xu - xl)[:, None]
         pop = torch.where(tables.int_mask, torch.round(pop), pop).clamp(xl[:, None], xu[:, None])
-        draws = draw_offspring(gen, s, p, n, l)
+        draws = draw_offspring(stream_of(gen), s, p, n, l)
         if case in ("all mutate", "none mutate"):
             draws = draws._replace(mut_select=torch.full_like(draws.mut_select, 0.0 if case == "all mutate" else 1.0))
         if case == "wide":  # ~7% of the genes mutate, in every chunk of elements
@@ -1232,6 +1268,7 @@ def check_step_against_cpu(moeva_gpu, moeva_cpu, moeva_ref, x, device, tag="[mai
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import (
         associate_batch, draw_gumbels, survive_fill_plain, survive_norm,
     )
+    from moeva2_ijcai22_replication_tpu_torch.core.philox import PhiloxStream
 
     def to(t, dev, dtype=None):
         if isinstance(t, tuple):
@@ -1257,7 +1294,7 @@ def check_step_against_cpu(moeva_gpu, moeva_cpu, moeva_ref, x, device, tag="[mai
 
     xs = x[:n_states]
     mc = np.ones(len(xs), dtype=np.int64)
-    gen = torch.Generator().manual_seed(3)
+    gen = PhiloxStream(3)
     err = {k: [0.0, 0.0] for k in ("offspring", "f1", "f2", "f3")}  # [card, CPU]
     differ = {"offspring": 0, "objectives": 0, "niche": 0, "dist": 0}  # entries, card != CPU
     with torch.inference_mode():
@@ -1311,12 +1348,12 @@ def check_step_against_cpu(moeva_gpu, moeva_cpu, moeva_ref, x, device, tag="[mai
     log(f"{tag} the same 3 steps run free on each device: {rows_equal:.4f} of population rows equal")
 
 
-def launches_per_generation(moeva, run, carry, gen, n_states: int):
-    """One untraced generation (draws and ``gen_step``) with its launches
-    counted as the code makes them: each port kernel's wrapper count, and
-    each PyTorch op that launches a kernel (the draws' fields, the
-    ``merged_f`` cat): every ATen op but views, bare allocations and the
-    profiler's range markers. Returns ``(carry, port kernels {name: n},
+def launches_per_generation(moeva, run, carry, draws, n_states: int):
+    """One untraced generation (the draw source ``draws``' generation, one
+    K0 launch, and ``gen_step``) with its launches counted as the code makes
+    them: each port kernel's wrapper count, and each PyTorch op that
+    launches a kernel (the ``merged_f`` cat): every ATen op but views, bare
+    allocations and the profiler's range markers. Returns ``(carry, port kernels {name: n},
     torch ops {op: n})``."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -1333,12 +1370,12 @@ def launches_per_generation(moeva, run, carry, gen, n_states: int):
 
     before = kernels.launch_counts()
     with CountLaunches():
-        carry = moeva.gen_step(run, carry, moeva.draw_generation(gen, n_states))
+        carry = moeva.gen_step(run, carry, draws.generation(n_states))
     after = kernels.launch_counts()
     return carry, {k: after[k] - before[k] for k in after}, ops
 
 
-def trace_generations(moeva, run, carry, gen, n_states: int, settle_s: float = PROFILE_SETTLE_S):
+def trace_generations(moeva, run, carry, draws, n_states: int, settle_s: float = PROFILE_SETTLE_S):
     """One ``torch.profiler`` trace of ``PROFILE_GENS`` generation steps,
     after ``PROFILE_GENS`` traced and discarded (the profiler's warm-up) and
     ``settle_s`` seconds of an idle card once the kept window has opened.
@@ -1357,15 +1394,15 @@ def trace_generations(moeva, run, carry, gen, n_states: int, settle_s: float = P
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             for _ in range(PROFILE_GENS):
-                carry = moeva.gen_step(run, carry, moeva.draw_generation(gen, n_states))
+                carry = moeva.gen_step(run, carry, draws.generation(n_states))
             torch.cuda.synchronize()
             prof.step()
             time.sleep(settle_s)
             t0 = time.perf_counter()
             for _ in range(PROFILE_GENS):
                 with record_function("moeva.draws"):
-                    draws = moeva.draw_generation(gen, n_states)
-                carry = moeva.gen_step(run, carry, draws)
+                    step_draws = draws.generation(n_states)
+                carry = moeva.gen_step(run, carry, step_draws)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             time.sleep(settle_s)
@@ -1421,19 +1458,20 @@ def profile_generation(moeva, x, tag="[profile]"):
     most; only a whole trace is reported."""
     import torch
 
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import PhiloxDraws
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks
-    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import draw_gumbels
 
-    gen = torch.Generator(device=moeva.device).manual_seed(0)
+    draws = PhiloxDraws(moeva, 0)
     with torch.inference_mode():
-        run = moeva.prepare(x, np.ones(len(x), dtype=np.int64))
-        carry = moeva.init_carry(run, *draw_gumbels(gen, len(x), moeva.n_dirs, moeva.pop_size))
-        carry, port, ops = launches_per_generation(moeva, run, carry, gen, len(x))
+        init = draws.init(len(x))
+        run, start = moeva._prepare(x, np.ones(len(x), dtype=np.int64), moeva.init_spec(init.ball))
+        carry = moeva.init_carry(run, init.gum_cut, init.gum_mem, start=start)
+        carry, port, ops = launches_per_generation(moeva, run, carry, draws, len(x))
         for _ in range(2):
-            carry = moeva.gen_step(run, carry, moeva.draw_generation(gen, len(x)))
+            carry = moeva.gen_step(run, carry, draws.generation(len(x)))
     expected = sum(port.values()) + sum(ops.values())
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        carry, events, wall = trace_generations(moeva, run, carry, gen, len(x))
+        carry, events, wall = trace_generations(moeva, run, carry, draws, len(x))
         kernels, stages = traced_kernels(events)
         lost = lost_events(kernels, port, expected)
         if not lost:
@@ -1446,6 +1484,9 @@ def profile_generation(moeva, x, tag="[profile]"):
     busy_us = sum(dev(e) for e in kernels)
     per_gen = lambda us: us / 1e3 / PROFILE_GENS  # noqa: E731
     traced = sum(e.count for e in kernels)
+    if tag == "[profile]":
+        PROFILE_SUMMARY.update(traced=traced / PROFILE_GENS, busy=round(busy_us / 1e6 / wall, 3),
+                               ms=round(wall / PROFILE_GENS * 1e3, 3))
     log(f"{tag} {len(x)} states: {wall / PROFILE_GENS * 1e3:.3f} ms per generation traced, device busy "
         f"{busy_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms = share {busy_us / 1e6 / wall:.3f}, "
         f"{traced / PROFILE_GENS:.1f} launches per generation traced, {expected} launched by the code "
@@ -1455,8 +1496,7 @@ def profile_generation(moeva, x, tag="[profile]"):
     for e in sorted(stages, key=dev, reverse=True):
         log(f"{tag} stage {e.key}: device span {per_gen(dev(e)):.4f} ms/gen (idle gaps included)")
     with torch.inference_mode():
-        draws = moeva.draw_generation(gen, len(x))
-        off = moeva.offspring(run, carry.pop_x, draws.offspring)
+        off = moeva.offspring(run, carry.pop_x, draws.generation(len(x)).offspring)
         merged = torch.cat([carry.pop_f, moeva._evaluate(run, off)], dim=1)
         mean, most = peeled_fronts(nd_ranks(merged, moeva.pop_size))
     log(f"{tag} nd_peel on the next generation's objectives: fronts per state mean {mean:.3f}, max {most}")
@@ -1484,7 +1524,10 @@ def expected_launches(moeva, n_states: int, result=None) -> dict:
     ``record_quality``, before the last step) launches K6a once; a gate
     that parks states launches K6b once for their columns, and once more
     where it repacks the rest. With ``save_history="full"`` every
-    evaluation is the objective kernel's history instantiation."""
+    evaluation is the objective kernel's history instantiation. A chunk
+    starts with K13a (``chunk_prepare``, again at each repack) and K0's
+    initial draws, each step draws once (``draws``), and the chunk ends with
+    K13b (``chunk_decode``)."""
     from moeva2_ijcai22_replication_tpu_torch import kernels
 
     chunk = moeva.max_states_per_call or n_states
@@ -1493,7 +1536,7 @@ def expected_launches(moeva, n_states: int, result=None) -> dict:
     check = getattr(moeva, "early_stop_check_every", 0) or 0
     every = check or (getattr(moeva, "quality_every", 0) if getattr(moeva, "record_quality", False) else 0)
     trace = result.early_stop["compaction"] if result is not None and result.early_stop else []
-    steps = gates = takes = 0
+    steps = gates = takes = repacks = 0
     for i, size in enumerate(sizes):
         entries = [t for t in trace if t.get("chunk", 0) == i]
         done = next((t["gen"] for t in entries if t["active"] == 0), n_steps)
@@ -1502,6 +1545,7 @@ def expected_launches(moeva, n_states: int, result=None) -> dict:
         rows = size
         for t in entries:  # a gate that parked states; a smaller bucket is a repack
             takes += 1 + (t["bucket"] < rows)
+            repacks += t["bucket"] < rows
             rows = t["bucket"]
     if result is not None and result.gens_executed != steps:
         raise AssertionError(f"gens_executed {result.gens_executed} != {steps} implied by the early exit's record")
@@ -1517,6 +1561,9 @@ def expected_launches(moeva, n_states: int, result=None) -> dict:
         "survive_fill": chunks * (1 + (1 if moeva.archive_size else 0)) + steps,
         "gate_stats": gates,
         "take_carry": takes,
+        "draws": chunks + steps,
+        "chunk_prepare": chunks + repacks,
+        "chunk_decode": chunks,
     }
 
 
@@ -1554,6 +1601,7 @@ def run_main_path(device, smi: str, moeva, x, knobs):
     moeva.generate(x, minimize_class=1)
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t0
+    PROFILE_SUMMARY.update(cold_s=round(cold_s, 3), steady_s=round(steady_s, 3))
     log(f"[main] launches on the main path: {launches}")
     log(f"[main] generate: cold {cold_s:.3f} s, steady {steady_s:.3f} s for {N_STATES} states "
         f"x {N_GEN} generations on {smi}")
@@ -2208,7 +2256,7 @@ def botnet_stage_inputs(device, moeva, x_sweep, gen, rng, s: int) -> dict:
     m, r, l = p + n_off, moeva.n_dirs, moeva.codec.gen_length
     run = moeva.prepare(x_sweep[:s], np.arange(s) % 2)
     pop, xl, xu = sweep_population(gen, run, moeva.codec, s, p)
-    draws = draw_offspring(gen, s, p, n_off, l)
+    draws = draw_offspring(stream_of(gen), s, p, n_off, l)
     off = kernels.offspring(moeva.tables, pop, xl, xu, n_off, draws)
     f = torch.as_tensor(sweep_objectives(rng, s, m), device=device)
     ranks = nd_ranks_plain(f, p)
@@ -2843,7 +2891,8 @@ def point_expected_launches(runner: str, cfg: dict, result=None) -> dict:
     """The launches one point's run implies: ``expected_launches`` for
     MoEvA (with the run's ``MoevaResult`` where it has an early exit), for
     PGD one launch of the set's PGD kernel (of its AutoPGD instantiation for
-    an ``autopgd`` loss) per random start, at least one."""
+    an ``autopgd`` loss) per random start, at least one, and one launch of
+    K0's ``pgd_start`` per random start."""
     import types
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
@@ -2852,8 +2901,9 @@ def point_expected_launches(runner: str, cfg: dict, result=None) -> dict:
     cons = common.load_constraints(cfg)
     if runner == "pgd":
         auto = "autopgd" in cfg["loss_evaluation"]
-        runs = max(int(cfg.get("nb_random", 1 if auto else 0)), 1)
-        return {**{k: 0 for k in kernels.launch_counts()}, counter_name(cons, "pgd") + ("_auto" if auto else ""): runs}
+        starts = int(cfg.get("nb_random", 1 if auto else 0))
+        return {**{k: 0 for k in kernels.launch_counts()}, "pgd_start": starts,
+                counter_name(cons, "pgd") + ("_auto" if auto else ""): max(starts, 1)}
     engine = types.SimpleNamespace(
         max_states_per_call=cfg["max_states_per_call"], n_gen=cfg["budget"], archive_size=cfg["archive_size"],
         constraints=cons, early_stop_check_every=int(cfg.get("early_stop_check_every", 0) or 0),
@@ -3160,7 +3210,7 @@ def check_aug_objectives(device, cons, sur, scaler, x, gen, rng):
             for s in SWEEP_STATES:
                 run = eng.prepare(x[:s], np.arange(s) % 2)
                 pop, xl, xu = sweep_population(gen, run, codec, s, p)
-                draws = draw_offspring(gen, s, p, m - p, codec.gen_length)
+                draws = draw_offspring(stream_of(gen), s, p, m - p, codec.gen_length)
                 off = kernels.offspring(eng.tables, pop, xl, xu, m - p, draws)
                 for cand in (off, pop):
                     cand = aug_candidates(codec, cons, x, cand)
@@ -3211,6 +3261,7 @@ def check_aug_stages(device, eng, x, tag="[augmented]", states=(AUG_CHUNK, AUG_L
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import (
         NormState, associate_plain, draw_gumbels, survive_fill_plain, survive_norm_plain,
     )
+    from moeva2_ijcai22_replication_tpu_torch.core.philox import PhiloxStream
 
     def survival(f, state, gum_cut, gum_mem, what, extract=None, archive=None):
         """K2, K4a, K3 and K4b on ``f``, each held against its plain version;
@@ -3242,7 +3293,7 @@ def check_aug_stages(device, eng, x, tag="[augmented]", states=(AUG_CHUNK, AUG_L
     for s in states:
         run = eng.prepare(x[:s], np.ones(s, dtype=np.int64))
         ins = (run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class, eng._objective)
-        gen = torch.Generator(device=device).manual_seed(s)
+        gen = PhiloxStream(s, device)
         what = f"S={s} initial round"
         pop_x = tile_init(eng.codec, run.x_init_ml, eng.pop_size)
         pop_f = objective(pop_x, *ins)
@@ -3289,11 +3340,12 @@ def time_aug_objective(device, eng, x, smi: str) -> dict:
     from moeva2_ijcai22_replication_tpu_torch import kernels
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import evaluate_plain
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import draw_gumbels
+    from moeva2_ijcai22_replication_tpu_torch.core.philox import PhiloxStream
 
     shapes = {}
     for s in (AUG_STATES, AUG_CHUNK):
         run = eng.prepare(x[:s], np.ones(s, dtype=np.int64))
-        gen = torch.Generator(device=device).manual_seed(7)
+        gen = PhiloxStream(7, device)
         carry = eng.init_carry(run, *draw_gumbels(gen, s, eng.n_dirs, eng.pop_size))
         off = eng.offspring(run, carry.pop_x, eng.draw_generation(gen, s).offspring)
         args = (off, run.x_init_ml, run.xl_ml, run.xu_ml, run.x_init_mm, run.minimize_class, eng._objective)
@@ -4308,8 +4360,9 @@ def drive_autopgd(device, smi: str, tag: str, counter: str, problem, loss: str, 
     again = atk.generate(xs, y, eps=eps, eps_step=eps_run / 3, max_iter=PGD_BUDGET)
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t0
-    if launches != {**{k: 0 for k in launches}, counter: 1}:
-        raise AssertionError(f"launches {launches}: one generate with one random start is one launch of {counter}")
+    if launches != {**{k: 0 for k in launches}, counter: 1, "pgd_start": 1}:
+        raise AssertionError(f"launches {launches}: one generate with one random start is one launch of {counter} "
+                             "and one of K0's pgd_start")
     if not same_entries_np(x_adv, again).all():
         raise AssertionError("two runs of AutoPGD's generate differ")
     x0 = xs.astype(np.float32)
@@ -4769,11 +4822,11 @@ class RecordedDraws:
         self.items = []
 
     def recorder(self, engine):
-        from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import GeneratorDraws
+        from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import PhiloxDraws
 
         items = self.items
 
-        class Recording(GeneratorDraws):
+        class Recording(PhiloxDraws):
             def init(self, n):
                 items.append(super().init(n))
                 return items[-1]
@@ -5086,8 +5139,8 @@ def history_problem(device, name: str):
     run = eng.prepare(x, np.arange(s) % 2)
     gen = torch.Generator(device=device).manual_seed(s)
     if lcld:
-        carry = eng.init_carry(run, *draw_gumbels(gen, s, eng.n_dirs, eng.pop_size))
-        off = eng.offspring(run, carry.pop_x, eng.draw_generation(gen, s).offspring)
+        carry = eng.init_carry(run, *draw_gumbels(stream_of(gen), s, eng.n_dirs, eng.pop_size))
+        off = eng.offspring(run, carry.pop_x, eng.draw_generation(stream_of(gen), s).offspring)
         cand = hard_candidates(eng.codec, off) if name == "objective_lcld_hist" else aug_candidates(
             eng.codec, cons, x, off)
         return eng, run, cand, kernels.objective_lcld
@@ -6656,6 +6709,370 @@ def run_defense(device, smi: str, resources: list, records: list) -> dict:
     return {k: launches[k] for k in DEFENSE_COUNTERS}
 
 
+# -- phase 20: the draws (K0) and a chunk's prepare and decode (K13) -----------
+
+DRAW_COUNTERS = ("draws", "pgd_start", "chunk_prepare", "chunk_decode")
+#: the generations K0 is held at: the main path's engine (1000 states),
+#: botnet's chunks (256 and 131 x 756 genes) and edge counts (1, 31, 33
+#: states with 99 offspring: partial last blocks of every field)
+DRAW_STATES = {"lcld": (1000, 1, 31, 33), "botnet": (256, 131)}
+#: PGD's random starts: (rows, features) of rq1.lcld and rq1.botnet
+PGD_START_SHAPES = ((4000, 47), (387, 756))
+#: one field of each kind at element counts 1, 31, 33 and 4k + 1, 4k + 2,
+#: 4k + 3, from a base past 2**32 (the counter's high word)
+DRAW_EDGE_COUNTS = (1, 31, 33, 4001, 4002, 4003)
+DRAW_EDGE_BASE = 2**32 - 3
+#: operations a Philox block costs (ten rounds of two 32-bit multiplies and
+#: their high halves, two XORs, the key bumps) and a field element's map
+PHILOX_OPS_PER_BLOCK = 100
+MAP_OPS = {"uniform": 2, "symmetric": 4, "integer": 2, "cut": 1, "gumbel": 6, "normal": 10}
+#: float64 operations of an element's map: two logs a gumbel; a log, a
+#: sqrt, a cos or sin and the products a normal
+MAP_OPS_F64 = {"gumbel": 2, "normal": 4}
+#: set by ``profile_generation`` and ``run_main_path``: phase 6's traced
+#: launches and busy share per LCLD generation, phase 4's generate walls
+PROFILE_SUMMARY: dict = {}
+
+
+def parent_generation_draws(gen, s: int, p: int, n_off: int, l: int, r: int, m: int):
+    """The parent's eager draws of one generation: ``torch.randint``,
+    ``torch.rand`` and the gumbels' ``rand``, ``clamp``, ``log``, ``neg``,
+    ``log``, ``neg`` on a ``torch.Generator``, 17 launches. Timed as K0's
+    yardstick only: the port does not call it."""
+    import torch
+
+    dev, n_mat = gen.device, (n_off + 1) // 2
+    tiny = torch.finfo(torch.float32).tiny
+    out = [torch.randint(0, 1 << 30, (2, 3, s, n_mat), generator=gen, device=dev),
+           torch.randint(0, p, (s, n_mat, 2), generator=gen, device=dev),
+           torch.rand((3, s, n_mat), generator=gen, device=dev),
+           torch.rand((s, n_off, l), generator=gen, device=dev),
+           torch.rand((s, n_off, l), generator=gen, device=dev)]
+    for k in (r, m):
+        u = torch.rand((s, k), generator=gen, device=dev)
+        out.append(-torch.log(-torch.log(torch.clamp(u, min=tiny))))
+    return out
+
+
+def draw_fields_bound(fields) -> tuple:
+    """``(bytes, int ops, float64 ops)`` of one K0 call: each element
+    written once, each block's Philox and each element's map."""
+    from moeva2_ijcai22_replication_tpu_torch.core import philox
+
+    n_bytes = sum(f.numel * (8 if f.kind in (philox.INTEGER, philox.CUT) else 4) for f in fields)
+    _, blocks = philox.layout(fields, __import__("torch").float32)
+    ops = PHILOX_OPS_PER_BLOCK * blocks + sum(f.numel * MAP_OPS[philox.KIND_NAMES[f.kind]] for f in fields)
+    ops64 = sum(f.numel * MAP_OPS_F64.get(philox.KIND_NAMES[f.kind], 0) for f in fields)
+    return n_bytes, ops, ops64
+
+
+def generation_fields(eng, s: int) -> list:
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import offspring_fields
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import gumbel_fields
+
+    return (offspring_fields(s, eng.pop_size, eng.n_offsprings, eng.codec.gen_length)
+            + gumbel_fields(s, eng.n_dirs, eng.pop_size + eng.n_offsprings))
+
+
+def init_fields(eng, s: int, norm) -> list:
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.initialisation import ball_draw_shape, n_perturbed
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import gumbel_fields
+    from moeva2_ijcai22_replication_tpu_torch.core.philox import NORMAL, SYMMETRIC, Field
+
+    shape = ball_draw_shape(norm, (s, n_perturbed(eng.pop_size, eng.init_ratio), eng.codec.gen_length))
+    return [Field("ball", NORMAL if norm == 2 else SYMMETRIC, shape)] + gumbel_fields(s, eng.n_dirs, eng.pop_size)
+
+
+def edge_fields() -> list:
+    from moeva2_ijcai22_replication_tpu_torch.core.philox import KIND_NAMES, Field
+
+    return [Field(f"{KIND_NAMES[k]}_{n}", k, (n,), 103) for k in range(len(KIND_NAMES)) for n in DRAW_EDGE_COUNTS]
+
+
+def check_draws(device, engines: dict) -> dict:
+    """K0 against ``draw_plain`` on the card, bit for bit, and against the
+    CPU twin: every generation of ``DRAW_STATES``, lp_ratio's initial
+    rounds (both balls) at 1000 states, ``edge_fields`` in calls of at most
+    8 fields from ``DRAW_EDGE_BASE``, and PGD's starts at
+    ``PGD_START_SHAPES`` under both norms (``pgd_start`` against
+    ``pgd_start_plain``). Integer and uniform fields must equal the CPU's;
+    the gumbel and normal elements that differ (CUDA's float64 log, sin and
+    cos against the CPU's) are counted. Returns the counts."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import pgd_start_plain, start_fields
+    from moeva2_ijcai22_replication_tpu_torch.core.philox import GUMBEL, NORMAL, draw_plain
+
+    calls = []  # (what, fields)
+    for name, states in DRAW_STATES.items():
+        for s in states:
+            eng = engines[name] if s not in (1, 31, 33) else engines["odd"]
+            calls.append((f"{name} generation S={s}", generation_fields(eng, s)))
+    for norm in (2, "inf"):
+        calls.append((f"lcld lp_ratio init ({norm}) S=1000", init_fields(engines["lcld"], 1000, norm)))
+    edges = edge_fields()
+    for i in range(0, len(edges), 8):
+        calls.append((f"edge fields {i // 8}", edges[i:i + 8]))
+    transcendental = {"gumbel": [0, 0], "normal": [0, 0]}  # [differing, total]
+    n_fields = 0
+    for k, (what, fields) in enumerate(calls):
+        key, base = 1000 + k, DRAW_EDGE_BASE if what.startswith("edge") else 7 * k
+        got = kernels.draws(fields, torch.float32, key, base, device)
+        want = draw_plain(fields, torch.float32, key, base, device)
+        cpu = draw_plain(fields, torch.float32, key, base, "cpu")
+        for f in fields:
+            hold_equal(got[f.name], want[f.name], f"draws {what} field {f.name}")
+            g = got[f.name].cpu()
+            if f.kind in (GUMBEL, NORMAL):
+                tally = transcendental["gumbel" if f.kind == GUMBEL else "normal"]
+                tally[0] += int((~same_entries(g, cpu[f.name])).sum())
+                tally[1] += g.numel()
+            elif not bool(same_entries(g, cpu[f.name]).all()):
+                raise AssertionError(f"draws {what} field {f.name}: the card's values differ from the CPU twin's")
+            n_fields += 1
+    cons, sur, scaler, x = pgd_problem()
+    bcons, bsur, bscaler, _, bxs, _ = pgd_botnet_problem()
+    problems = {47: (cons, sur, scaler, scaler.transform(x)), 756: (bcons, bsur, bscaler, bxs)}
+    starts = 0
+    for n, d in PGD_START_SHAPES:
+        c, sr, sc, scaled = problems[d]
+        rows = scaled[np.arange(n) % len(scaled)]
+        for norm in (2, "inf"):
+            atk = ConstrainedPGD(sr, c, sc, eps=0.2, norm=norm, device=device)
+            xs = torch.as_tensor(rows, dtype=torch.float32, device=device)
+            fields = start_fields(norm, n, d)
+            base = 11 * n
+            args = (fields, 77, base, xs, atk.tables.mutable, 0.2, atk.clip, norm == "inf")
+            got = kernels.pgd_start(*args)
+            hold_equal(got, pgd_start_plain(*args), f"pgd_start {n} x {d} ({norm})")
+            cpu = pgd_start_plain(fields, 77, base, xs.cpu(), atk.tables.mutable.cpu(), 0.2, atk.clip, norm == "inf")
+            differ = int((~same_entries(got.cpu(), cpu)).sum())
+            transcendental.setdefault(f"pgd start {n} x {d} ({norm})", [differ, cpu.numel()])
+            if norm == "inf" and differ:
+                raise AssertionError(f"pgd_start {n} x {d} (inf) differs from the CPU twin in {differ} entries")
+            starts += 1
+    log(f"[draws] draws (K0) equals draw_plain bit for bit on the card: {len(calls)} calls, {n_fields} fields "
+        f"(generations at {DRAW_STATES}, lp_ratio's initial rounds under both norms, every kind at "
+        f"{DRAW_EDGE_COUNTS} elements from block {DRAW_EDGE_BASE}); pgd_start equals pgd_start_plain on {starts} "
+        f"starts at {PGD_START_SHAPES} under both norms")
+    log("[draws] K0 on the card against the CPU twin: integer, cut, uniform and symmetric fields equal; "
+        "transcendental elements that differ (CUDA's float64 log, sin, cos against the CPU's, after rounding "
+        "to float32): " + ", ".join(f"{k} {v[0]} of {v[1]}" for k, v in transcendental.items()))
+    return transcendental
+
+
+def check_chunk_io(device, engines: dict) -> None:
+    """K13a and K13b against their plain versions on the card, bit for bit:
+    the main path's chunk (1000 LCLD states; tile, and lp_ratio under both
+    norms with K0's balls), botnet's 256 and 131, a repack's prepare
+    without the population, and the decode with and without an archive."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.chunk_io import chunk_decode_plain, chunk_prepare_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import PhiloxDraws
+
+    cases = 0
+    for name, states in (("lcld", (1000, 1, 33)), ("botnet", (256, 131))):
+        base = engines[name]
+        for init, norm in (("tile", 2), ("lp_ratio", 2), ("lp_ratio", "inf")):
+            eng = Moeva2(base.classifier, base.constraints, ml_scaler=base.ml_scaler, device=device,
+                         n_pop=base.n_pop, n_offsprings=base.n_offsprings, archive_size=base.archive_size,
+                         init=init, norm=norm, init_eps=0.3)
+            for s in states:
+                xs = engines[f"{name}_x"][np.arange(s) % len(engines[f"{name}_x"])]
+                draws = PhiloxDraws(eng, s)
+                spec = eng.init_spec(draws.init(s).ball)
+                run, got = eng._prepare(xs, np.ones(s, dtype=np.int64), spec)
+                want = chunk_prepare_plain(eng._chunk, run.x_init_ml, run.xl_ml, run.xu_ml, spec)
+                for k, a, b in zip(("xl_gen", "xu_gen", "x_mm", "pop_x", "ideal", "worst", "extreme"),
+                                   (got.xl_gen, got.xu_gen, got.x_mm, got.pop_x, *got.norm_state),
+                                   (want.xl_gen, want.xu_gen, want.x_mm, want.pop_x, *want.norm_state)):
+                    hold_equal(a, b, f"chunk_prepare {name} {init} ({norm}) S={s} {k}")
+                bare = kernels.chunk_prepare(eng._chunk, run.x_init_ml, run.xl_ml, run.xu_ml)
+                if bare.pop_x is not None or not torch.equal(bare.x_mm, got.x_mm):
+                    raise AssertionError("a repack's chunk_prepare differs from the chunk's")
+                carry = eng.init_carry(run, *draws.init(s)[1:], start=got)
+                for arch in (True, False):
+                    ax, af = (carry.arch_x, carry.arch_f) if arch else (carry.arch_x[:, :0], carry.arch_f[:, :0])
+                    args = (eng._chunk, carry.pop_x, ax, carry.pop_f, af, run.x_init_ml)
+                    for k, a, b in zip(("x_gen", "f", "x_ml"), kernels.chunk_decode(*args), chunk_decode_plain(*args)):
+                        hold_equal(a, b, f"chunk_decode {name} S={s} archive {arch} {k}")
+                cases += 1
+    log(f"[draws] chunk_prepare (K13a) and chunk_decode (K13b) equal their plain versions bit for bit on {cases} "
+        "chunks (LCLD at 1000, 1 and 33 states, botnet at 256 and 131; tile and lp_ratio under both norms; the "
+        "repack's prepare; the decode with and without the archive)")
+
+
+def time_draws(device, engines: dict, smi: str) -> list:
+    """K0's, K0-PGD's, K13a's and K13b's records at the main path's shapes:
+    device ms (a CUDA graph of 20 launches), wrapper ms, plain ms on the
+    card, bound; K0's library figure the parent's 17 eager launches of one
+    generation (``parent_generation_draws``), summed."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.chunk_io import chunk_decode_plain, chunk_prepare_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import PhiloxDraws
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import pgd_start_plain, start_fields
+    from moeva2_ijcai22_replication_tpu_torch.core.philox import PhiloxStream, draw_plain
+
+    eng = engines["lcld"]
+    s = N_STATES
+    fields = generation_fields(eng, s)
+    gen = torch.Generator(device=device).manual_seed(0)
+    l, p, n_off = eng.codec.gen_length, eng.pop_size, eng.n_offsprings
+    parent = lambda: parent_generation_draws(gen, s, p, n_off, l, eng.n_dirs, p + n_off)  # noqa: E731
+    stream = PhiloxStream(0, device)
+    records = []
+    # K0 at one generation of the main path
+    n_bytes, ops, ops64 = draw_fields_bound(fields)
+    b_ms, b_by = bound_ms(n_bytes, ops, ops64)
+    rec = {"name": "draws", "route": "cuda", "source": "moeva2_ijcai22_replication_tpu_torch/kernels/csrc/draws.cu",
+           "replaces": "moeva2_ijcai22_replication_tpu/attacks/moeva/operators.py:105", "launches": 0,
+           "max_abs_err": 0.0, "ms": graph_ms(lambda: kernels.draws(fields, torch.float32, 5, 0, device)),
+           "wrapper_ms": cuda_ms(lambda: eng.draw_generation(stream, s)),
+           "plain_ms": cuda_ms(lambda: draw_plain(fields, torch.float32, 5, 0, device)),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(parent)}
+    log(f"[draws] draws (K0), one generation at {s} states (P={p}, N={n_off}, L={l}, R={eng.n_dirs}): device "
+        f"{rec['ms']:.4f} ms, through the wrapper {rec['wrapper_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by}: {n_bytes} bytes, {ops} integer and float32 operations, {ops64} float64), the "
+        f"parent's 17 eager launches (torch.Generator) {rec['library_ms']:.4f} ms on {smi}")
+    records.append(rec)
+    # K0's PGD instantiation at rq1.lcld's 4000 x 47, L2
+    cons, sur, scaler, x = pgd_problem()
+    atk = ConstrainedPGD(sur, cons, scaler, eps=0.2, norm=2, device=device)
+    xs = torch.as_tensor(scaler.transform(x), dtype=torch.float32, device=device)
+    n, d = xs.shape
+    sf = start_fields(2, n, d)
+    args = (sf, 3, 0, xs, atk.tables.mutable, 0.2, atk.clip, False)
+    sb, sops, sops64 = draw_fields_bound(sf)
+    b_ms, b_by = bound_ms(sb + 4 * n * d + d, sops + 6 * n * d, sops64 + 2 * n)
+    rec = {"name": "pgd_start", "route": "cuda", "source": "moeva2_ijcai22_replication_tpu_torch/kernels/csrc/draws.cu",
+           "replaces": "moeva2_ijcai22_replication_tpu/attacks/pgd/engine.py:275", "launches": 0,
+           "max_abs_err": 0.0, "ms": graph_ms(lambda: kernels.pgd_start(*args)),
+           "wrapper_ms": cuda_ms(lambda: atk.random_start(stream, xs, 0.2)),
+           "plain_ms": cuda_ms(lambda: pgd_start_plain(*args)), "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None}
+    log(f"[draws] pgd_start (K0) at {n} x {d} under L2: device {rec['ms']:.4f} ms, through the wrapper "
+        f"{rec['wrapper_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}) on {smi}")
+    records.append(rec)
+    # K13a and K13b at the main path's chunk
+    xs_np = engines["lcld_x"]
+    run, prep = eng._prepare(xs_np, np.ones(len(xs_np), dtype=np.int64), eng.init_spec())
+    dd = run.x_init_ml.shape[1]
+    spec = eng.init_spec()
+    pargs = (eng._chunk, run.x_init_ml, run.xl_ml, run.xu_ml, spec)
+    pb = 4 * (3 * s * dd + 2 * s * l + s * dd + s * p * l + 15 * s)
+    b_ms, b_by = bound_ms(pb, 4 * s * dd + 2 * s * l, 0)
+    rec = {"name": "chunk_prepare", "route": "cuda",
+           "source": "moeva2_ijcai22_replication_tpu_torch/kernels/csrc/chunk_io.cu",
+           "replaces": "moeva2_ijcai22_replication_tpu/attacks/moeva/engine.py:503", "launches": 0,
+           "max_abs_err": 0.0, "ms": graph_ms(lambda: kernels.chunk_prepare(*pargs)),
+           "wrapper_ms": cuda_ms(lambda: kernels.chunk_prepare(*pargs)),
+           "plain_ms": cuda_ms(lambda: chunk_prepare_plain(*pargs)), "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None}
+    log(f"[draws] chunk_prepare (K13a) at {s} states x {dd} features, population {p} x {l} (tile): device "
+        f"{rec['ms']:.4f} ms, through the wrapper {rec['wrapper_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}, {pb} bytes) on {smi}")
+    records.append(rec)
+    init = PhiloxDraws(eng, 1).init(s)
+    carry = eng.init_carry(run, init.gum_cut, init.gum_mem, start=prep)
+    for _ in range(2):
+        carry = eng.gen_step(run, carry, eng.draw_generation(stream, s))
+    dargs = (eng._chunk, carry.pop_x, carry.arch_x, carry.pop_f, carry.arch_f, run.x_init_ml)
+    cols = p + eng.archive_size
+    db = 4 * (2 * s * cols * (l + 3) + s * dd + s * cols * dd)
+    b_ms, b_by = bound_ms(db, s * cols * dd, 0)
+    rec = {"name": "chunk_decode", "route": "cuda",
+           "source": "moeva2_ijcai22_replication_tpu_torch/kernels/csrc/chunk_io.cu",
+           "replaces": "moeva2_ijcai22_replication_tpu/core/codec.py:160", "launches": 0,
+           "max_abs_err": 0.0, "ms": graph_ms(lambda: kernels.chunk_decode(*dargs)),
+           "wrapper_ms": cuda_ms(lambda: kernels.chunk_decode(*dargs)),
+           "plain_ms": cuda_ms(lambda: chunk_decode_plain(*dargs)), "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None}
+    log(f"[draws] chunk_decode (K13b) at {s} states x {cols} columns (population {p}, archive "
+        f"{eng.archive_size}) x {dd} features: device {rec['ms']:.4f} ms, through the wrapper "
+        f"{rec['wrapper_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}, {db} bytes) "
+        f"on {smi}")
+    records.append(rec)
+    return records
+
+
+def drive_pgd_starts(device, smi: str) -> int:
+    """``ConstrainedPGD.generate`` with 2 random starts at rq1.lcld's 4000
+    states (``PGD_LOSS``, 100 iterations) cold and steady, its launch counts
+    set to 0 just before and read just after: 2 of ``pgd_start`` and 2 of
+    ``pgd_lcld``, and nothing else; two runs equal. Returns the starts'
+    launches."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD
+
+    cons, sur, scaler, x = pgd_problem()
+    xs = scaler.transform(x)
+    y = surrogate_labels(sur, xs)
+    atk = ConstrainedPGD(sur, cons, scaler, eps=PGD_EPS, eps_step=0.1, max_iter=100, norm=2,
+                         loss_evaluation=PGD_LOSS, num_random_init=2, seed=42, device=device)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = atk.generate(xs, y)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    t0 = time.perf_counter()
+    again = atk.generate(xs, y)
+    torch.cuda.synchronize()
+    steady = time.perf_counter() - t0
+    check_launches(launches, {**{k: 0 for k in launches}, "pgd_start": 2, "pgd_lcld": 2}, "PGD with 2 random starts")
+    if not same_entries_np(first, again).all():
+        raise AssertionError("two runs of PGD with random starts differ")
+    log(f"[draws] ConstrainedPGD.generate with 2 random starts at {len(xs)} states x 100 iterations: launches "
+        f"{ {k: v for k, v in launches.items() if v} }, cold {cold:.3f} s, steady {steady:.3f} s, two runs equal, "
+        f"success after each start {atk.quality_history['restart_flip_frac']} on {smi}")
+    return launches["pgd_start"]
+
+
+def run_draws(device, smi: str, resources: list, records: list, moeva, x) -> dict:
+    """Phase 20: every random draw in kernel K0 and a chunk's prepare and
+    decode in kernel K13 (ROADMAP B3). Returns ``pgd_start``'s launches on
+    its path; K0's and K13's own come from phase 4's main path."""
+    import torch
+
+    t0 = time.perf_counter()
+    for k in resources:
+        if k["kernel"].startswith(("draws_kernel", "pgd_start_kernel", "prepare_kernel", "decode_kernel")):
+            log(f"[draws] ptxas {k['kernel']}: {k['registers']} registers, {k['smem']} bytes static shared memory, "
+                f"{k['stack']} bytes stack frame, {k['spill_stores']} + {k['spill_loads']} bytes spill stores + loads")
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
+
+    cons, sur, scaler, xb, _ = botnet_problem()
+    engines = {
+        "lcld": moeva, "lcld_x": x,
+        "odd": Moeva2(moeva.classifier, moeva.constraints, ml_scaler=moeva.ml_scaler, device=device, n_pop=100,
+                      n_offsprings=99, archive_size=24),
+        "botnet": Moeva2(sur, cons, ml_scaler=scaler, device=device, **BOTNET_KNOBS), "botnet_x": xb,
+    }
+    with torch.inference_mode():
+        check_draws(device, engines)
+        check_chunk_io(device, engines)
+        records += time_draws(device, engines, smi)
+    starts = drive_pgd_starts(device, smi)
+    summary = PROFILE_SUMMARY
+    log(f"[draws] per LCLD generation at {N_STATES} states (phase 6's trace): {summary.get('traced')} launches "
+        f"traced (the parent's 24: 17 of them its eager draws), device busy share {summary.get('busy')}, "
+        f"{summary.get('ms')} ms per generation traced; Moeva2.generate on the main path (phase 4): cold "
+        f"{summary.get('cold_s')} s, steady {summary.get('steady_s')} s on {smi}")
+    log(f"[draws] phase 20 took {time.perf_counter() - t0:.1f} s")
+    return {"pgd_start": starts}
+
+
 def main() -> int:
     import torch
 
@@ -6738,7 +7155,7 @@ def main() -> int:
     # no grid file selects AutoPGD: its counters are checked on phase 14's drives
     idle = [name for name, n in grid_launches.items()
             if n == 0 and name not in AUTOPGD_COUNTERS + EARLY_EXIT_COUNTERS + HISTORY_COUNTERS + SPEC_COUNTERS
-            + SPEC_PGD_COUNTERS + DEFENSE_COUNTERS]
+            + SPEC_PGD_COUNTERS + DEFENSE_COUNTERS + ("pgd_start",)]
     if idle:
         raise AssertionError(f"phase 13's grids launched no {idle}")
     auto_records, auto_launches = run_autopgd(device, smi, resources, problem)
@@ -6758,7 +7175,9 @@ def main() -> int:
     lap("phase 18")
     launches.update(run_defense(device, smi, resources, records))
     lap("phase 19")
-    log(f"[smoke] phases 1-19 took {time.perf_counter() - t_smoke:.1f} s")
+    launches.update(run_draws(device, smi, resources, records, moeva, x))
+    lap("phase 20")
+    log(f"[smoke] phases 1-20 took {time.perf_counter() - t_smoke:.1f} s")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         rec["grid_launches"] = grid_launches[rec["name"]]

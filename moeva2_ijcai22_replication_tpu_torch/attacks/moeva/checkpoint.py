@@ -3,8 +3,8 @@
 Every ``checkpoint_every`` generations the engine writes its evolution
 state to one ``.npz``: the carry's tensors (populations, objectives,
 archive, normalisation memory) as numpy arrays and the state of the run's
-random stream (a ``torch.Generator``'s ``get_state()``, on the card too),
-so that a rerun of the same attack resumes mid-run and continues the same
+random stream (``core.philox.PhiloxStream.get_state()``: its key and next
+counter), so that a rerun of the same attack resumes mid-run and continues the same
 stream, bit-identical to an uninterrupted run. Early-exit runs add host
 state that the carry cannot express, the active-set mapping and the
 solved states' parked results, as ``extra`` arrays in the same file; a
@@ -14,8 +14,11 @@ history sidecar directory keeps one ``.npy`` per recorded history segment
 The file is written atomically (a temporary file, then ``os.replace``) and
 carries a fingerprint of the attack (inputs and every knob that changes
 the result, ``Moeva2._fingerprint``): a file with another fingerprint, or
-one that cannot be read, is ignored and the run starts afresh. A run that
-completes removes its files (``clear``).
+one that cannot be read, is ignored and the run starts afresh. A file of
+this attack written before the engine drew from the Philox stream (its
+random state a ``torch.Generator``'s) is refused with
+:class:`StaleStreamCheckpoint`: resumed, it would continue on another
+stream. A run that completes removes its files (``clear``).
 """
 
 from __future__ import annotations
@@ -28,9 +31,16 @@ import zipfile
 import numpy as np
 import torch
 
+from ...core.philox import STREAM
+
 _META = "__meta__"
 #: what reading a truncated, corrupt or foreign file raises
 _UNREADABLE = (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile)
+
+
+class StaleStreamCheckpoint(RuntimeError):
+    """A checkpoint of this attack whose random state is not the Philox
+    stream's."""
 
 
 class AttackCheckpointer:
@@ -54,6 +64,7 @@ class AttackCheckpointer:
             "n_leaves": len(arrays),
             "n_hist": int(n_hist),
             "extra_keys": sorted(extra) if extra else [],
+            "stream": STREAM,
         })
         tmp = self.path + ".tmp"
         with open(tmp, "wb") as fh:
@@ -68,7 +79,8 @@ class AttackCheckpointer:
     def load(self, template):
         """``(leaves, done, hist_chunks)`` restored from the file, or None
         when there is none, its fingerprint differs, or it (or a sidecar)
-        cannot be read. Each leaf takes the dtype and device of its entry
+        cannot be read; raises :class:`StaleStreamCheckpoint` for a file of
+        this attack written before the Philox stream. Each leaf takes the dtype and device of its entry
         of ``template`` (a fresh carry's tensors); its shape is the file's,
         which a repacked run has shrunk."""
         self.extra = None
@@ -79,6 +91,12 @@ class AttackCheckpointer:
                 meta = json.loads(str(z[_META]))
                 if meta.get("fingerprint") != self.fingerprint:
                     return None
+                if meta.get("stream") != STREAM:
+                    raise StaleStreamCheckpoint(
+                        f"{self.path} holds this attack's state with a torch.Generator's random state, written "
+                        f"before the engine drew from the counter-based Philox stream ({STREAM}); it cannot resume on the "
+                        "new stream: remove it to run the attack afresh"
+                    )
                 arrays = [z[f"leaf_{i}"] for i in range(meta["n_leaves"])]
                 keys = meta.get("extra_keys") or []
                 extra = {k: z[f"extra_{k}"] for k in keys} if keys else None

@@ -13,15 +13,20 @@ engine's extras: the success-gated early exit with active-set compaction
 every evaluation (``save_history``, ``history_chunk``).
 
 Every random number a run consumes comes from one draw source
-(:class:`GeneratorDraws` by default: one ``torch.Generator`` on the
-engine's device, seeded with ``seed``), asked for the draws of the initial
-round and of each generation at the current number of rows; the knob
-``draw_hook`` replaces it, so a test can feed the JAX package's draws, at
-the bucket's row count after a repack too. :meth:`gen_step` takes its draws
-as an argument.
+(:class:`PhiloxDraws` by default: the counter-based Philox4x32-10 stream of
+``core.philox`` keyed by ``seed``, drawn on the engine's device by kernel K0),
+asked for the draws of the initial round and of each generation at the
+current number of rows; the knob ``draw_hook`` replaces it, so a test can
+feed the JAX package's draws, at the bucket's row count after a repack too.
+:meth:`gen_step` takes its draws as an argument.
 
-On the card a generation is the draws, then six hand-written kernels: K5
-offspring, the objectives (K1 on LCLD, K8 on botnet, K9 on a domain compiled
+A chunk of states starts with one launch of K13a (``chunk_io``: the gene
+bounds, the normalised states, the initial population and the normalisation
+memory; again without the population after each repack of the early exit)
+and ends with one of K13b (the returned columns and their decode).
+
+On the card a generation is one launch of K0 for its draws, then six
+hand-written kernels: K5 offspring, the objectives (K1 on LCLD, K8 on botnet, K9 on a domain compiled
 from a spec), K2 front peel, K4a
 normalisation, K3 niche association and K4b fill, extraction and archive.
 The one other device op of a step is the ``torch.cat`` of the population's
@@ -34,7 +39,9 @@ copied to pinned host memory on a side stream behind an event and read one
 segment late, so the card holds at most two segments. A gate is one
 launch of K6a (the (S, 9) statistics, fetched once) and, where states are
 solved or the active set is repacked, one launch of K6b each. On the CPU
-every stage runs its plain PyTorch version (:func:`evaluate_plain`,
+every stage runs its plain PyTorch version (``core.philox.draw_plain``,
+``chunk_io.chunk_prepare_plain`` and ``chunk_decode_plain``,
+:func:`evaluate_plain`,
 :func:`evaluate_hist_plain`,
 :func:`extract_archive_plain`, :func:`take_carry_plain`,
 :func:`final_columns_plain`, ``attacks.objective.engine_quality_stats`` and
@@ -60,18 +67,19 @@ from ... import resolve_device
 from ...core import codec as codec_lib
 from ...core.constraints import ConstraintSet
 from ...core.norms import is_inf, is_l2, validate_norm
+from ...core.philox import NORMAL, SYMMETRIC, Field, PhiloxStream
 from ...models.io import Surrogate
 from ...models.mlp import MLP, mlp_forward_plain
 from ...models.scalers import MinMaxParams
 from ...observability.quality import merge_chunk_quality, sample_from_per_state
 from ..objective import engine_quality_stats
 from .checkpoint import AttackCheckpointer
-from .initialisation import ball_draw_shape, lp_ratio_init, n_perturbed, tile_init
-from .operators import OffspringDraws, draw_offspring, make_offspring, make_operator_tables
+from .chunk_io import InitSpec, chunk_decode, chunk_prepare, feature_gene_tables, make_chunk_tables
+from .initialisation import ball_draw_shape, n_perturbed
+from .operators import OffspringDraws, make_offspring, make_operator_tables, offspring_draws, offspring_fields
 from .refdirs import energy_ref_dirs, rnsga3_geometry
 from .survival import (
-    NormState, _sqrt_rn, _sum_last, draw_gumbels, survive_batch, survive_fill_plain,
-    survive_stages,
+    NormState, _sqrt_rn, _sum_last, gumbel_fields, survive_batch, survive_fill_plain, survive_stages,
 )
 
 logger = logging.getLogger(__name__)
@@ -125,37 +133,40 @@ class InitDraws(NamedTuple):
     gum_mem: torch.Tensor  # (S, P)
 
 
-class GeneratorDraws:
-    """The engine's default draw source: every draw from one
-    ``torch.Generator`` on the engine's device, seeded with ``seed``. A
-    draw source answers :meth:`init` and :meth:`generation` for a number of
-    rows; with checkpoints it also gives and takes its state
-    (:meth:`get_state`, :meth:`set_state`), which a resumed run restores."""
+class PhiloxDraws:
+    """The engine's default draw source: every draw from one Philox stream
+    (``core.philox.PhiloxStream``) keyed by ``seed`` on the engine's device,
+    one call (one launch of K0 on the card) for the initial round's draws
+    and one for each generation's. A draw source answers :meth:`init` and
+    :meth:`generation` for a number of rows; with checkpoints it also gives
+    and takes its state (:meth:`get_state`, :meth:`set_state`), which a
+    resumed run restores."""
 
     def __init__(self, engine: "Moeva2", seed: int):
         self.engine = engine
-        self.gen = torch.Generator(device=engine.device).manual_seed(int(seed))
+        self.stream = PhiloxStream(seed, engine.device)
 
     def init(self, n_states: int) -> InitDraws:
-        eng, ball = self.engine, None
-        if eng.init == "lp_ratio" and n_perturbed(eng.pop_size, eng.init_ratio):
-            shape = ball_draw_shape(
-                eng.norm, (n_states, n_perturbed(eng.pop_size, eng.init_ratio), eng.codec.gen_length)
-            )
-            kw = dict(generator=self.gen, device=self.gen.device, dtype=eng.dtype)
-            ball = torch.randn(shape, **kw) if is_l2(eng.norm) else torch.empty(shape, **kw).uniform_(
-                -1.0, 1.0, generator=self.gen
-            )
-        return InitDraws(ball, *draw_gumbels(self.gen, n_states, eng.n_dirs, eng.pop_size, eng.dtype))
+        """The initial round's draws: lp_ratio's ball (normals under L2,
+        uniforms on [-1, 1) under L∞; ``ball_draw_shape``), then the
+        niching gumbels (S, R) and (S, P)."""
+        eng = self.engine
+        fields = []
+        n_pert = n_perturbed(eng.pop_size, eng.init_ratio) if eng.init == "lp_ratio" else 0
+        if n_pert:
+            shape = ball_draw_shape(eng.norm, (n_states, n_pert, eng.codec.gen_length))
+            fields.append(Field("ball", NORMAL if is_l2(eng.norm) else SYMMETRIC, shape))
+        out = self.stream.draw(fields + gumbel_fields(n_states, eng.n_dirs, eng.pop_size), eng.dtype)
+        return InitDraws(out.get("ball"), out["gum_cut"], out["gum_mem"])
 
     def generation(self, n_states: int) -> "GenerationDraws":
-        return self.engine.draw_generation(self.gen, n_states)
+        return self.engine.draw_generation(self.stream, n_states)
 
     def get_state(self) -> torch.Tensor:
-        return self.gen.get_state()
+        return self.stream.get_state()
 
     def set_state(self, state: torch.Tensor) -> None:
-        self.gen.set_state(state)
+        self.stream.set_state(state)
 
 
 class Carry(NamedTuple):
@@ -204,13 +215,7 @@ def make_objective_tables(codec, model: MLP, scaler, norm, tol: float, cons=None
     model's device and in its dtype; ``scaler`` is ``(scale, min_)``
     tensors or None, ``cons`` the constraint set's kernel tables."""
     w0 = model.layers[0].weight
-    feat_gene = np.full(codec.n_features, -1, dtype=np.int32)
-    feat_onehot = np.full(codec.n_features, -1, dtype=np.int32)
-    feat_gene[codec.non_ohe_ml_idx.cpu().numpy()] = np.arange(codec.n_non_ohe)
-    group_idx = codec.group_ml_idx.cpu().numpy()
-    for g, (idx, real) in enumerate(zip(group_idx, codec.group_pad_mask.cpu().numpy())):
-        feat_gene[idx[real]] = codec.n_non_ohe + g
-        feat_onehot[idx[real]] = np.arange(real.sum())
+    feat_gene, feat_onehot = feature_gene_tables(codec)
     layers = tuple((layer.weight, layer.bias) for layer in model.layers)
     as_t = lambda a: torch.as_tensor(a, device=w0.device)  # noqa: E731
     return ObjectiveTables(
@@ -464,8 +469,8 @@ class Moeva2:
     #: populations decoded on the CPU; its exceptions are swallowed
     partial_sink: Any = None
     #: ``draw_hook(chunk)`` gives the draw source of state chunk ``chunk``
-    #: (see :class:`GeneratorDraws`); None = one :class:`GeneratorDraws`
-    #: for the whole call
+    #: (see :class:`PhiloxDraws`); None = one :class:`PhiloxDraws` for the
+    #: whole call, whose stream the chunks share
     draw_hook: Any = None
     dtype: torch.dtype = torch.float32
     device: Any = "cuda"
@@ -486,7 +491,9 @@ class Moeva2:
         self._refuse_history()
         codec = codec_lib.make_codec(self.constraints.schema)
         self.tables = make_operator_tables(codec).to(self.device)
-        self.codec = codec.to(self.device)
+        #: K13's tables on the engine's device, with the codec there
+        self._chunk = make_chunk_tables(codec, self.device)
+        self.codec = self._chunk.codec
         #: the codec on the CPU, which decodes parked rows
         self._codec_cpu = codec
         #: gate flushes of the last ``generate`` that ran after the next
@@ -571,59 +578,59 @@ class Moeva2:
     # -- the attack ----------------------------------------------------------
     def prepare(self, x: np.ndarray, minimize_class: np.ndarray) -> RunInputs:
         """Place one batch of initial states (S, D) and its bounds on the
-        device."""
+        device: one copy of the host's states and bounds, then K13a."""
+        return self._prepare(x, minimize_class)[0]
+
+    def init_spec(self, ball=None) -> InitSpec:
+        """The engine's initial population for K13a, moved by ``ball``
+        under ``lp_ratio``."""
+        return InitSpec(self.pop_size, self.init == "lp_ratio", ball, self.init_eps, self.init_ratio, self.norm)
+
+    def _prepare(self, x: np.ndarray, minimize_class: np.ndarray, init: InitSpec | None = None):
+        """``(RunInputs, chunk_io.Prepared)`` of one batch of initial
+        states: the feature bounds on the host (``get_feature_min_max``),
+        states and bounds copied to the device in one array of the engine's
+        dtype, then one K13a launch, which with ``init`` also writes the
+        initial population and the normalisation memory."""
         xl, xu = self.constraints.get_feature_min_max(dynamic_input=x)
-        as_t = lambda a: torch.as_tensor(  # noqa: E731
-            np.array(np.broadcast_to(np.asarray(a, np.float64), x.shape)),
-            dtype=self.dtype,
-            device=self.device,
-        )
-        x_t, xl_t, xu_t = as_t(x), as_t(xl), as_t(xu)
-        xl_gen, xu_gen = codec_lib.genetic_bounds(self.codec, xl_t, xu_t)
-        return RunInputs(
+        np_dtype = torch.empty((), dtype=self.dtype).numpy().dtype
+        host = np.stack([np.broadcast_to(np.asarray(a, np.float64), x.shape) for a in (x, xl, xu)]).astype(np_dtype)
+        x_t, xl_t, xu_t = torch.from_numpy(host).to(self.device)
+        prep = chunk_prepare(self._chunk, x_t, xl_t, xu_t, init)
+        run = RunInputs(
             x_init_ml=x_t,
-            x_init_mm=codec_lib.minmax_normalize(x_t, xl_t, xu_t),
+            x_init_mm=prep.x_mm,
             xl_ml=xl_t,
             xu_ml=xu_t,
-            xl_gen=xl_gen,
-            xu_gen=xu_gen,
-            minimize_class=torch.as_tensor(
-                np.asarray(minimize_class), dtype=torch.int64, device=self.device
-            ),
+            xl_gen=prep.xl_gen,
+            xu_gen=prep.xu_gen,
+            minimize_class=torch.from_numpy(np.asarray(minimize_class).astype(np.int64)).to(self.device),
         )
+        return run, prep
 
-    def draw_generation(self, gen: torch.Generator, n_states: int) -> GenerationDraws:
-        """The draws of one generation step for ``n_states`` states."""
-        gum_cut, gum_mem = draw_gumbels(
-            gen, n_states, self.n_dirs, self.pop_size + self.n_offsprings, self.dtype
-        )
-        return GenerationDraws(
-            offspring=draw_offspring(
-                gen, n_states, self.pop_size, self.n_offsprings,
-                self.codec.gen_length, self.dtype,
-            ),
-            gum_cut=gum_cut,
-            gum_mem=gum_mem,
-        )
+    def draw_generation(self, stream: PhiloxStream, n_states: int) -> GenerationDraws:
+        """The draws of one generation step for ``n_states`` states: one
+        call of the Philox ``stream`` (one K0 launch on the card), the
+        mating round's fields then the niching gumbels (S, R) and (S, M)."""
+        fields = offspring_fields(n_states, self.pop_size, self.n_offsprings, self.codec.gen_length)
+        fields += gumbel_fields(n_states, self.n_dirs, self.pop_size + self.n_offsprings)
+        out = stream.draw(fields, self.dtype)
+        return GenerationDraws(offspring=offspring_draws(out), gum_cut=out["gum_cut"], gum_mem=out["gum_mem"])
 
-    def init_carry(self, run: RunInputs, gum_cut, gum_mem, ball=None, record=None) -> Carry:
+    def init_carry(self, run: RunInputs, gum_cut, gum_mem, ball=None, record=None, start=None) -> Carry:
         """Initial population (``lp_ratio`` moves its last rows with the
         ``ball`` draws), its objectives (and their history ``record``, (S,
         P, C), where given), the survival warm-up round (everyone survives;
         the normalisation state warms up) and the archive seeded from the
-        whole initial population."""
-        s = run.x_init_ml.shape[0]
-        if self.init == "lp_ratio":
-            pop_x = lp_ratio_init(
-                self.codec, run.x_init_ml, self.pop_size, run.xl_gen, run.xu_gen, ball,
-                eps=self.init_eps, ratio=self.init_ratio, norm=self.norm,
-            )
-        else:
-            pop_x = tile_init(self.codec, run.x_init_ml, self.pop_size)
+        whole initial population. ``start``, the ``chunk_io.Prepared`` of
+        the chunk's K13a launch, holds population and normalisation memory;
+        without it K13a runs again on ``run``'s states."""
+        if start is None:
+            start = chunk_prepare(self._chunk, run.x_init_ml, run.xl_ml, run.xu_ml, self.init_spec(ball))
+        pop_x = start.pop_x
         pop_f = self._evaluate(run, pop_x, record)
-        norm0 = NormState.init(s, 3, self.dtype, self.device)
         _, norm_state, _ = survive_batch(
-            pop_f, self.asp_points, norm0, self.pop_size, gum_cut, gum_mem
+            pop_f, self.asp_points, start.norm_state, self.pop_size, gum_cut, gum_mem
         )
         arch_x, arch_f = self._archive_select(pop_x, pop_f)
         return Carry(pop_x, pop_f, arch_x, arch_f, norm_state)
@@ -787,7 +794,7 @@ class Moeva2:
         self.last_deferred_gate_flushes = 0
         chunk = self.max_states_per_call or s
         starts = range(0, s, chunk)
-        shared = None if self.draw_hook is not None else GeneratorDraws(self, self.seed)
+        shared = None if self.draw_hook is not None else PhiloxDraws(self, self.seed)
         parts = []
         for i, start in enumerate(starts):
             path = self.checkpoint_path
@@ -836,13 +843,13 @@ class Moeva2:
         qual_on = bool(self.record_quality)
         gate_every = check or (int(self.quality_every or 0) if qual_on else 0)
         n_steps = self.n_gen - 1
-        run = self.prepare(x, minimize_class)
         init = draws.init(s)
+        run, start = self._prepare(x, minimize_class, self.init_spec(init.ball))
         hist_cols = self.history_columns() if self.save_history else 0
         init_hist = None
         if hist_cols:
             init_hist = torch.empty((s, self.pop_size, hist_cols), dtype=self.dtype, device=self.device)
-        carry = self.init_carry(run, init.gum_cut, init.gum_mem, init.ball, record=init_hist)
+        carry = self.init_carry(run, init.gum_cut, init.gum_mem, record=init_hist, start=start)
 
         cp = None
         if self.checkpoint_every and checkpoint_path:
@@ -1020,10 +1027,9 @@ class Moeva2:
             # the initial record, then one a generation step
             records = [init_hist.cpu().numpy()] + [c[i] for c in hist_chunks for i in range(c.shape[0])]
 
-        pop_x = torch.cat([carry.pop_x, carry.arch_x], dim=1)
-        pop_f = torch.cat([carry.pop_f, carry.arch_f], dim=1)
-        x_ml = codec_lib.genetic_to_ml(self.codec, pop_x, run.x_init_ml[:, None, :])
-        pop_x, pop_f, x_ml = (t.cpu().numpy() for t in (pop_x, pop_f, x_ml))
+        # the returned columns and their decode: K13b on the card
+        out = chunk_decode(self._chunk, carry.pop_x, carry.arch_x, carry.pop_f, carry.arch_f, run.x_init_ml)
+        pop_x, pop_f, x_ml = (t.cpu().numpy() for t in out)
         if parked is not None or len(row_src) != s:
             # parked rows take their kept populations, live rows go back to
             # their original index, pads drop

@@ -5,10 +5,11 @@ mixed-variable two-point crossover (prob 0.9 per mating, independent cut
 points and coin per type sub-vector) and polynomial mutation (eta=20,
 per-gene prob 1/n_type, integer genes on ±0.5-extended bounds then rounded).
 
-Random draws are inputs. JAX's threefry and torch's Philox cannot agree, so
-every operator takes the numbers it consumes as tensors
+Random draws are inputs. JAX's threefry and the port's Philox stream cannot
+agree, so every operator takes the numbers it consumes as tensors
 (:class:`OffspringDraws`) and :func:`draw_offspring` makes them from a
-``torch.Generator``; the tests feed the JAX package's own draws instead.
+``core.philox.PhiloxStream`` (kernel K0 on the card); the tests feed the JAX
+package's own draws instead.
 Everything carries a leading states axis ``S``.
 
 :func:`make_offspring` launches kernel K5 (``kernels/csrc/offspring.cu``) on
@@ -77,30 +78,41 @@ class OffspringDraws(NamedTuple):
     mut_u: torch.Tensor  # (S, n_offsprings, L) uniform — polynomial-mutation draws
 
 
+def offspring_fields(n_states: int, pop_size: int, n_offsprings: int, gen_length: int) -> list:
+    """The Philox fields of one mating round (``core.philox``), in the
+    order of :class:`OffspringDraws`; the two cuts of a type are one field
+    (2, 3, S, n_matings)."""
+    from ...core.philox import CUT, INTEGER, UNIFORM, Field
+
+    n_mat = (n_offsprings + 1) // 2
+    return [
+        Field("pairs", INTEGER, (n_states, n_mat, 2), pop_size),
+        Field("cuts", CUT, (2, 3, n_states, n_mat)),
+        Field("coins", UNIFORM, (3, n_states, n_mat)),
+        Field("mut_select", UNIFORM, (n_states, n_offsprings, gen_length)),
+        Field("mut_u", UNIFORM, (n_states, n_offsprings, gen_length)),
+    ]
+
+
+def offspring_draws(out: dict) -> OffspringDraws:
+    """:class:`OffspringDraws` from a draw call's fields."""
+    return OffspringDraws(
+        pairs=out["pairs"], cut_a=out["cuts"][0], cut_b=out["cuts"][1], coins=out["coins"],
+        mut_select=out["mut_select"], mut_u=out["mut_u"],
+    )
+
+
 def draw_offspring(
-    gen: torch.Generator,
+    stream,
     n_states: int,
     pop_size: int,
     n_offsprings: int,
     gen_length: int,
     dtype=torch.float32,
 ) -> OffspringDraws:
-    """The draws of one mating round, on ``gen``'s device."""
-    dev = gen.device
-    n_mat = (n_offsprings + 1) // 2
-    cuts = torch.randint(0, 1 << 30, (2, 3, n_states, n_mat), generator=gen, device=dev)
-    return OffspringDraws(
-        pairs=torch.randint(0, pop_size, (n_states, n_mat, 2), generator=gen, device=dev),
-        cut_a=cuts[0],
-        cut_b=cuts[1],
-        coins=torch.rand((3, n_states, n_mat), generator=gen, device=dev, dtype=dtype),
-        mut_select=torch.rand(
-            (n_states, n_offsprings, gen_length), generator=gen, device=dev, dtype=dtype
-        ),
-        mut_u=torch.rand(
-            (n_states, n_offsprings, gen_length), generator=gen, device=dev, dtype=dtype
-        ),
-    )
+    """The draws of one mating round from the Philox ``stream``, on its
+    device: one call of :func:`offspring_fields`."""
+    return offspring_draws(stream.draw(offspring_fields(n_states, pop_size, n_offsprings, gen_length), dtype))
 
 
 def two_cuts(a_raw: torch.Tensor, b_raw: torch.Tensor, n: int):

@@ -11,7 +11,8 @@ tensors and a plain PyTorch version here that defines its arithmetic: the
 front peel (K2, :func:`.nds.nd_ranks`), the normalisation (K4a,
 :func:`survive_norm_plain`), niche association (K3, :func:`associate_plain`)
 and the niching fill (K4b, :func:`survive_fill_plain`). The niching fill's
-two random fields are inputs (:func:`draw_gumbels` makes them).
+two random fields are inputs (:func:`draw_gumbels` makes them from the
+port's Philox stream).
 """
 
 from __future__ import annotations
@@ -276,16 +277,20 @@ def survive_fill_plain(gum_cut, gum_mem, ranks, niche, dist, n_survive: int):
     return full_survivor | taken
 
 
-def draw_gumbels(gen: torch.Generator, n_states: int, n_dirs: int, m: int, dtype=torch.float32):
-    """The niching fill's two random fields: cutoff priorities (S, R) and
-    member priorities (S, M), standard Gumbel."""
-    tiny = torch.finfo(dtype).tiny
+def gumbel_fields(n_states: int, n_dirs: int, m: int) -> list:
+    """The Philox fields of the niching fill (``core.philox``): cutoff
+    priorities (S, R), then member priorities (S, M), standard Gumbel."""
+    from ...core.philox import GUMBEL, Field
 
-    def gumbel(shape):
-        u = torch.rand(shape, generator=gen, device=gen.device, dtype=dtype)
-        return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+    return [Field("gum_cut", GUMBEL, (n_states, n_dirs)), Field("gum_mem", GUMBEL, (n_states, m))]
 
-    return gumbel((n_states, n_dirs)), gumbel((n_states, m))
+
+def draw_gumbels(stream, n_states: int, n_dirs: int, m: int, dtype=torch.float32):
+    """The niching fill's two random fields from the Philox ``stream``:
+    ``(gum_cut (S, R), gum_mem (S, M))``, one call of
+    :func:`gumbel_fields`."""
+    out = stream.draw(gumbel_fields(n_states, n_dirs, m), dtype)
+    return out["gum_cut"], out["gum_mem"]
 
 
 def survive_stages(f, asp_points, state: NormState, n_survive: int):

@@ -28,9 +28,11 @@ simple:
   ``max_iter`` rows built once on the host in the run's dtype
   (:func:`make_schedule`), read by the plain version and the kernel alike;
 - random starts are inputs: :meth:`ConstrainedPGD.attack` takes them, and
-  :meth:`ConstrainedPGD.generate` draws them eagerly from the attack's
-  ``torch.Generator`` (JAX's threefry draws cannot be reproduced, so tests
-  feed JAX's starts).
+  :meth:`ConstrainedPGD.generate` draws them from the attack's Philox
+  stream (``core.philox``, keyed by ``seed``): on the card one launch of
+  kernel K0's PGD instantiation (``pgd_start``) a start, which also writes
+  it, on the CPU :func:`pgd_start_plain` (JAX's threefry draws cannot be
+  reproduced, so tests feed JAX's starts).
 
 The gradient is hand-written with ``jax.grad``'s conventions (abs, clip and
 relu at their edges; NaN kept through every product, then zeroed): the
@@ -57,6 +59,7 @@ from ... import resolve_device
 from ...core.codec import full_ohe_tables
 from ...core.constraints import ConstraintSet
 from ...core.norms import condition_grad, is_inf, project_ball, sqrt_rn, sum_last, validate_norm
+from ...core.philox import NORMAL, SYMMETRIC, UNIFORM, Field, PhiloxStream, draw_plain, layout
 from ...models.io import Surrogate
 from ...models.mlp import mlp_forward_plain, mlp_input_grad_plain
 from ...models.scalers import MinMaxParams
@@ -244,6 +247,39 @@ def repair_plain(tables: PgdTables, constraints, x):
     return torch.where(tables.mutable, fixed, x)
 
 
+def start_fields(norm, n: int, d: int) -> list:
+    """The Philox fields of one random start of ``n`` rows of ``d``
+    features: uniforms on [-1, 1) under L∞; under L2 a normal direction and
+    a uniform for the radius."""
+    if is_inf(norm):
+        return [Field("dir", SYMMETRIC, (n, d))]
+    return [Field("dir", NORMAL, (n, d)), Field("radius", UNIFORM, (n, 1))]
+
+
+def _scalar(like: torch.Tensor, v: float) -> torch.Tensor:
+    # a 0-d tensor: dividing by it is a true division on the card too
+    return torch.full((), v, dtype=like.dtype, device=like.device)
+
+
+def pgd_start_plain(fields, key: int, base: int, x_init, mutable, eps: float, clip: tuple, norm_inf: bool):
+    """A random start in the ε-ball around ``x_init`` (JAX's
+    ``_random_start`` on the Philox call ``fields`` whose first block is
+    ``base``), the semantics of K0's ``pgd_start``: ``eps * u`` per feature
+    of the uniforms on [-1, 1) under L∞; under L2 the row's normals over
+    their norm (a left-to-right sum, a correctly rounded sqrt, + 1e-12),
+    times ``eps * U ** (1 / D)`` (the pow in float64, rounded once); on
+    mutable features only, clipped to ``clip``."""
+    out = draw_plain(fields, x_init.dtype, key, base, x_init.device)
+    if norm_inf:
+        pert = _scalar(x_init, eps) * out["dir"]
+    else:
+        d = out["dir"]
+        d = d / (sqrt_rn(sum_last(d * d, keepdim=True)) + _scalar(d, 1e-12))
+        radius = _scalar(d, eps) * (out["radius"].double() ** (1.0 / x_init.shape[-1])).to(d.dtype)
+        pert = d * radius
+    return torch.clamp(x_init + torch.where(mutable, pert, 0.0), *clip)
+
+
 def card_refusal(constraints) -> str | None:
     """Why constrained PGD on ``constraints`` cannot run on the card (the
     set has no PGD kernel, ``pgd_kernel``; its ``no_pgd_kernel`` says which
@@ -348,20 +384,19 @@ class ConstrainedPGD:
             self.constraints.n_constraints, eps, eps_step, max_iter, self.dtype, self.device,
         )
 
-    def random_start(self, gen: torch.Generator, x_init: torch.Tensor, eps: float) -> torch.Tensor:
+    def random_start(self, stream: PhiloxStream, x_init: torch.Tensor, eps: float) -> torch.Tensor:
         """A random start in the ε-ball around ``x_init``, on mutable
-        features only, clipped (JAX's ``_random_start`` with torch's
-        draws): uniform per feature under L∞; under L2 a uniform direction
-        at radius ``eps * U ** (1 / D)``."""
-        shape, dev = x_init.shape, x_init.device
-        if is_inf(self.norm):
-            pert = eps * (2.0 * torch.rand(shape, generator=gen, dtype=self.dtype, device=dev) - 1.0)
-        else:
-            d = torch.randn(shape, generator=gen, dtype=self.dtype, device=dev)
-            d = d / (torch.sqrt((d * d).sum(-1, keepdim=True)) + 1e-12)
-            u = torch.rand((shape[0], 1), generator=gen, dtype=self.dtype, device=dev)
-            pert = d * (eps * u ** (1.0 / shape[-1]))
-        return torch.clamp(x_init + torch.where(self.tables.mutable, pert, 0.0), *self.clip)
+        features only, clipped (JAX's ``_random_start`` on the Philox
+        ``stream``'s next call of :func:`start_fields`): K0's ``pgd_start``
+        on the card, :func:`pgd_start_plain` on the CPU."""
+        fields = start_fields(self.norm, *x_init.shape)
+        base = stream.take(layout(fields, x_init.dtype)[1])
+        args = (fields, stream.key, base, x_init, self.tables.mutable, eps, self.clip, is_inf(self.norm))
+        if x_init.is_cuda:
+            from ...kernels import pgd_start
+
+            return pgd_start(*args)
+        return pgd_start_plain(*args)
 
     def one_run(self, x_init, y, x_start, sched: PgdSchedule, eps: float):
         """``(x_adv, pred, hist)`` of one run: the set's kernel (K7, K7b or
@@ -437,8 +472,8 @@ class ConstrainedPGD:
         sched = self.schedule(eps, eps_step, max_iter)
         starts = None
         if self.num_random_init:
-            gen = torch.Generator(device=self.device).manual_seed(int(self.seed))
-            starts = (self.random_start(gen, x_init, eps) for _ in range(self.num_random_init))
+            stream = PhiloxStream(self.seed, self.device)
+            starts = (self.random_start(stream, x_init, eps) for _ in range(self.num_random_init))
         x_adv, hist, curve = self.attack(x_init, y_t, sched, eps, starts)
         self.loss_history = None if hist is None else hist.transpose(0, 1).cpu().numpy()
         if self.num_random_init:

@@ -58,6 +58,18 @@ And, for training and the defense pipelines, ``train_step`` (K11,
 and ``input_grad`` (K12, ``csrc/input_grad.cu``): the attribution gradient
 of the feature importance, plain version ``models.train.input_grad_plain``.
 
+And, for every random draw of the attacks, ``draws`` (K0,
+``csrc/draws.cu``): the fields of one call of the Philox4x32-10 stream, one
+launch for a MoEvA generation's draws and one for its initial round's;
+plain version ``core.philox.draw_plain``. Its instantiation for PGD's random
+start, which also writes the start, counts as ``pgd_start``; plain version
+``attacks.pgd.engine.pgd_start_plain``. For a MoEvA chunk,
+``chunk_prepare`` (K13a, ``csrc/chunk_io.cu``): the gene bounds, the
+normalised states, the initial population and the normalisation memory;
+and ``chunk_decode`` (K13b, the same source): the returned columns and
+their decode to ML space; plain versions ``attacks.moeva.chunk_io.
+chunk_prepare_plain`` and ``chunk_decode_plain``.
+
 The wrappers take CUDA tensors only and raise on anything the kernel does
 not take, or when a build or launch fails; callers route CPU tensors to the
 plain versions. Importing this module builds nothing: the library is built
@@ -83,7 +95,7 @@ _LAUNCHES = {
         "objective_botnet_aug", "pgd_lcld_auto", "pgd_lcld_aug_auto", "pgd_botnet_auto",
         "gate_stats", "take_carry", "objective_lcld_hist", "objective_lcld_aug_hist", "objective_botnet_hist",
         "objective_botnet_aug_hist", "objective_spec", "objective_spec_hist", "pgd_spec", "pgd_spec_auto", "train_step", "train_loss",
-        "input_grad",
+        "input_grad", "draws", "pgd_start", "chunk_prepare", "chunk_decode",
     )
 }
 
@@ -1181,3 +1193,202 @@ def input_grad(widths, params, x) -> torch.Tensor:
     _raise_on_error(lib, err, "input_grad")
     _LAUNCHES["input_grad"] += 1
     return out
+
+
+def _field_arrays(fields, first):
+    """The host arrays of a call's fields that K0's C interface takes."""
+    n = len(fields)
+    ll, ci, cu = ctypes.c_longlong, ctypes.c_int, ctypes.c_uint
+    return (
+        (ll * n)(*(f.numel for f in fields)), (ll * n)(*first), (ci * n)(*(f.kind for f in fields)),
+        (cu * n)(*(f.n for f in fields)),
+    )
+
+
+def _draw_call(fields, dtype, key: int, base: int, what: str):
+    """The checked layout of one K0 call: ``(fields, first, total)``."""
+    from ..core import philox
+
+    if dtype != torch.float32:
+        raise TypeError(f"{what}: the card draws float32, not {dtype}")
+    fields = list(fields)
+    if not 1 <= len(fields) <= 8:
+        raise ValueError(f"{what} takes 1 to 8 fields a call, got {len(fields)}")
+    if not 0 <= key < 2**64 or not 0 <= base < 2**63:
+        raise ValueError(f"{what}: key {key} or base {base} out of range")
+    first, total = philox.layout(fields, dtype)
+    return fields, first, total
+
+
+def draw_buffer(fields, device):
+    """One float32 buffer on ``device`` for a K0 call's ``fields`` (its
+    ``float32`` draws): ``({name: view}, [each field's byte offset], the
+    buffer)``, each field 16-byte aligned, an int64 field a view of two
+    words an element.
+    Two ATen ops and one or two views a field, so the host's cost a
+    generation stays small."""
+    from ..core import philox
+
+    sizes, offsets, words = [], [], 0
+    for f in fields:
+        n = f.numel * (2 if philox.out_dtype(f, torch.float32) == torch.int64 else 1)
+        offsets.append(4 * words)
+        sizes += [n, -(-n // 4) * 4 - n]
+        words += sizes[-2] + sizes[-1]
+    buf = torch.empty(words, dtype=torch.float32, device=device)
+    parts = buf.split(sizes)
+    out = {}
+    for f, part in zip(fields, parts[0::2]):
+        if philox.out_dtype(f, torch.float32) == torch.int64:
+            part = part.view(torch.int64)
+        out[f.name] = part.view(f.shape)
+    return out, offsets, buf
+
+
+def draws(fields, dtype, key: int, base: int, device) -> dict:
+    """Kernel K0: each of ``fields`` (``core.philox.Field``) of the Philox
+    call whose first block is ``base`` under ``key``, as views of one
+    buffer on ``device`` (:func:`draw_buffer`): ``{name: tensor}``,
+    float32 or int64."""
+    from .build import library
+
+    fields, first, total = _draw_call(fields, dtype, key, base, "draws")
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"draws runs on a CUDA device, got {dev}")
+    out, offsets, buf = draw_buffer(fields, dev)
+    lib = library()
+    vp = ctypes.c_void_p
+    ptrs = (vp * len(fields))(*(buf.data_ptr() + off for off in offsets))
+    with torch.cuda.device(dev):
+        err = lib.moeva_draws_f32(ptrs, *_field_arrays(fields, first), len(fields), key, base, total, _stream(dev))
+    _raise_on_error(lib, err, "draws")
+    _LAUNCHES["draws"] += 1
+    return out
+
+
+def pgd_start(fields, key: int, base: int, x_init, mutable, eps: float, clip: tuple, norm_inf: bool):
+    """Kernel K0's PGD instantiation: the random start (N, D) float32
+    around ``x_init`` from the Philox call's ``fields`` (a direction, then
+    under L2 a radius; ``attacks.pgd.engine.start_fields``), on mutable
+    features only, clipped to ``clip``."""
+    from .build import library
+
+    fields, first, total = _draw_call(fields, torch.float32, key, base, "pgd_start")
+    if x_init.dim() != 2:
+        raise ValueError(f"x_init must be (N, D), got {tuple(x_init.shape)}")
+    n, d = x_init.shape
+    _check(x_init, "x_init", (n, d))
+    _check(mutable, "mutable", (d,), torch.bool)
+    want = [(n, d)] if norm_inf else [(n, d), (n, 1)]
+    if [tuple(f.shape) for f in fields] != want:
+        raise ValueError(f"pgd_start's fields must have shapes {want}, got {[tuple(f.shape) for f in fields]}")
+    if not norm_inf and d * 4 > 48 * 1024:
+        raise ValueError(f"pgd_start under L2 takes at most {48 * 1024 // 4} features, got {d}")
+    dev = _one_device(x_init, mutable)
+    x_init = x_init.contiguous()
+    out = torch.empty_like(x_init)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.moeva_pgd_start_f32(
+            *_field_arrays(fields, first), len(fields), key, base, total, x_init.data_ptr(), mutable.data_ptr(),
+            out.data_ptr(), float(clip[0]), float(clip[1]), float(eps), 1.0 / d, int(norm_inf), n, d, _stream(dev),
+        )
+    _raise_on_error(lib, err, "pgd_start")
+    _LAUNCHES["pgd_start"] += 1
+    return out
+
+
+def chunk_prepare(tables, x, xl, xu, init=None):
+    """Kernel K13a: ``attacks.moeva.chunk_io.Prepared`` of the states ``x``
+    and bounds ``xl``, ``xu`` (S, D) float32 on one card: the gene bounds
+    (S, L), the normalised states (S, D) and, with ``init`` (a
+    ``chunk_io.InitSpec``), the initial population (S, P, L) and the
+    normalisation memory, in one launch."""
+    from ..attacks.moeva.chunk_io import Prepared, init_moves
+    from ..attacks.moeva.initialisation import ball_draw_shape
+    from ..attacks.moeva.survival import NormState
+    from ..core.norms import is_inf
+    from .build import library
+
+    if x.dim() != 2:
+        raise ValueError(f"x must be (S, D), got {tuple(x.shape)}")
+    s, d = x.shape
+    for t, name in ((x, "x"), (xl, "xl"), (xu, "xu")):
+        _check(t, name, (s, d))
+    codec = tables.codec
+    l, g = codec.gen_length, codec.n_groups
+    k = tables.group_idx.shape[1]
+    if d != codec.n_features:
+        raise ValueError(f"x has {d} features, the codec {codec.n_features}")
+    _check(tables.gene_feat, "gene_feat", (l,), torch.int32)
+    _check(tables.group_idx, "group_idx", (g, k), torch.int32)
+    _check(tables.int_gene, "int_gene", (l,), torch.bool)
+    n_pert = init_moves(init)
+    p = init.n_pop if init is not None else 0
+    ball, ball_cols, norm_inf, eps = None, 0, 0, 0.0
+    if n_pert:
+        norm_inf = int(is_inf(init.norm))
+        want = ball_draw_shape(init.norm, (s, n_pert, l))
+        if init.ball is None:
+            raise ValueError(f"lp_ratio needs ball draws of shape {want}, got None")
+        _check(init.ball, "ball", want)
+        ball, ball_cols, eps = init.ball.contiguous(), want[-1], float(init.eps)
+    if (3 * l + n_pert) * 4 > 48 * 1024:
+        raise ValueError(f"chunk_prepare takes at most 48 KB of genes and moved rows, got L = {l}, {n_pert} rows")
+    dev = _one_device(x, xl, xu, tables.gene_feat, ball)
+    x, xl, xu = x.contiguous(), xl.contiguous(), xu.contiguous()
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    xl_gen, xu_gen, x_mm = new(s, l), new(s, l), new(s, d)
+    pop = norm = None
+    if init is not None:
+        pop = new(s, p, l)
+        norm = NormState(new(s, 3), new(s, 3), new(s, 3, 3))
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.moeva_chunk_prepare_f32(
+            x.data_ptr(), xl.data_ptr(), xu.data_ptr(), tables.gene_feat.data_ptr(), tables.group_idx.data_ptr(),
+            tables.int_gene.data_ptr(), _ptr(ball), xl_gen.data_ptr(), xu_gen.data_ptr(), x_mm.data_ptr(),
+            _ptr(pop), *(_ptr(t) for t in (norm or (None,) * 3)), s, d, l, codec.n_non_ohe, g, k, p, n_pert,
+            ball_cols, norm_inf, eps, _stream(dev),
+        )
+    _raise_on_error(lib, err, "chunk_prepare")
+    _LAUNCHES["chunk_prepare"] += 1
+    return Prepared(xl_gen, xu_gen, x_mm, pop, norm)
+
+
+def chunk_decode(tables, pop_x, arch_x, pop_f, arch_f, x_init):
+    """Kernel K13b: ``(x_gen (S, P + A, L), f (S, P + A, 3), x_ml (S, P +
+    A, D))`` float32, the returned columns (population then archive) and
+    their decode to ML space around ``x_init`` (S, D), in one launch."""
+    from .build import library
+
+    if pop_x.dim() != 3:
+        raise ValueError(f"pop_x must be (S, P, L), got {tuple(pop_x.shape)}")
+    s, p, l = pop_x.shape
+    a = arch_x.shape[1] if arch_x.dim() == 3 else -1
+    d = tables.codec.n_features
+    _check(pop_x, "pop_x", (s, p, l))
+    _check(arch_x, "arch_x", (s, a, l))
+    _check(pop_f, "pop_f", (s, p, 3))
+    _check(arch_f, "arch_f", (s, a, 3))
+    _check(x_init, "x_init", (s, d))
+    _check(tables.feat_gene, "feat_gene", (d,), torch.int32)
+    _check(tables.feat_onehot, "feat_onehot", (d,), torch.int32)
+    if p < 1 or l != tables.codec.gen_length:
+        raise ValueError(f"chunk_decode needs P >= 1 and L = {tables.codec.gen_length}, got {p} and {l}")
+    dev = _one_device(pop_x, arch_x, pop_f, arch_f, x_init, tables.feat_gene)
+    pop_x, arch_x, pop_f, arch_f, x_init = (t.contiguous() for t in (pop_x, arch_x, pop_f, arch_f, x_init))
+    x_gen = torch.empty((s, p + a, l), dtype=torch.float32, device=dev)
+    f = torch.empty((s, p + a, 3), dtype=torch.float32, device=dev)
+    x_ml = torch.empty((s, p + a, d), dtype=torch.float32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.moeva_chunk_decode_f32(
+            pop_x.data_ptr(), arch_x.data_ptr() if a else None, pop_f.data_ptr(), arch_f.data_ptr() if a else None,
+            x_init.data_ptr(), tables.feat_gene.data_ptr(), tables.feat_onehot.data_ptr(), x_gen.data_ptr(),
+            f.data_ptr(), x_ml.data_ptr(), s, p, a, l, d, _stream(dev),
+        )
+    _raise_on_error(lib, err, "chunk_decode")
+    _LAUNCHES["chunk_decode"] += 1
+    return x_gen, f, x_ml

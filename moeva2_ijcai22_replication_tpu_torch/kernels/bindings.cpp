@@ -542,6 +542,117 @@ int moeva_train_tile_rows() { return kTrainTileRows; }
 
 int moeva_train_max_layers() { return kTrainMaxLayers; }
 
+// K0: `out`, `numel`, `first`, `kind` and `n` are host arrays of n_fields
+// entries, one per field of the call (core/philox.py's layout).
+static bool draw_args(void* const* out, const long long* numel, const long long* first, const int* kind,
+                      const unsigned* n, int n_fields, unsigned long long key, unsigned long long base,
+                      long long total, DrawArgs* args) {
+  if (n_fields < 1 || n_fields > kDrawMaxFields) return false;
+  *args = DrawArgs{};
+  for (int f = 0; f < n_fields; ++f) {
+    args->field[f].out = out != nullptr ? out[f] : nullptr;
+    args->field[f].numel = numel[f];
+    args->field[f].first = first[f];
+    args->field[f].kind = kind[f];
+    args->field[f].n = n[f];
+  }
+  args->n_fields = n_fields;
+  args->key0 = static_cast<uint32_t>(key);
+  args->key1 = static_cast<uint32_t>(key >> 32);
+  args->base = base;
+  args->total = total;
+  return true;
+}
+
+int moeva_draws_f32(void* const* out, const long long* numel, const long long* first, const int* kind,
+                    const unsigned* n, int n_fields, unsigned long long key, unsigned long long base,
+                    long long total, void* stream) {
+  DrawArgs args;
+  if (!draw_args(out, numel, first, kind, n, n_fields, key, base, total, &args))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_draws(args, static_cast<cudaStream_t>(stream)));
+}
+
+int moeva_pgd_start_f32(const long long* numel, const long long* first, const int* kind, const unsigned* n,
+                        int n_fields, unsigned long long key, unsigned long long base, long long total,
+                        const void* x_init, const void* mutable_mask, void* x_start, float lo, float hi,
+                        float eps, double exponent, int norm_inf, int rows, int d, void* stream) {
+  PgdStartArgs args = {};
+  if (!draw_args(nullptr, numel, first, kind, n, n_fields, key, base, total, &args.draws))
+    return static_cast<int>(cudaErrorInvalidValue);
+  args.x_init = static_cast<const float*>(x_init);
+  args.mutable_mask = static_cast<const bool*>(mutable_mask);
+  args.x_start = static_cast<float*>(x_start);
+  args.lo = lo;
+  args.hi = hi;
+  args.eps = eps;
+  args.exponent = exponent;
+  args.norm_inf = norm_inf;
+  args.n = rows;
+  args.d = d;
+  return static_cast<int>(launch_pgd_start(args, static_cast<cudaStream_t>(stream)));
+}
+
+int moeva_draws_max_fields() { return kDrawMaxFields; }
+
+// K13a: pop (with ball), ideal, worst and extreme may be null.
+int moeva_chunk_prepare_f32(const void* x, const void* xl, const void* xu, const void* gene_feat,
+                            const void* group_idx, const void* int_gene, const void* ball, void* xl_gen,
+                            void* xu_gen, void* x_mm, void* pop, void* ideal, void* worst, void* extreme,
+                            int n_states, int d, int l, int n1, int n_groups, int k, int p, int n_pert,
+                            int ball_cols, int norm_inf, float eps, void* stream) {
+  ChunkPrepareArgs a = {};
+  a.x = static_cast<const float*>(x);
+  a.xl = static_cast<const float*>(xl);
+  a.xu = static_cast<const float*>(xu);
+  a.gene_feat = static_cast<const int32_t*>(gene_feat);
+  a.group_idx = static_cast<const int32_t*>(group_idx);
+  a.int_gene = static_cast<const bool*>(int_gene);
+  a.ball = static_cast<const float*>(ball);
+  a.xl_gen = static_cast<float*>(xl_gen);
+  a.xu_gen = static_cast<float*>(xu_gen);
+  a.x_mm = static_cast<float*>(x_mm);
+  a.pop = static_cast<float*>(pop);
+  a.ideal = static_cast<float*>(ideal);
+  a.worst = static_cast<float*>(worst);
+  a.extreme = static_cast<float*>(extreme);
+  a.n_states = n_states;
+  a.d = d;
+  a.l = l;
+  a.n1 = n1;
+  a.n_groups = n_groups;
+  a.k = k;
+  a.p = p;
+  a.n_pert = n_pert;
+  a.ball_cols = ball_cols;
+  a.norm_inf = norm_inf;
+  a.eps = eps;
+  return static_cast<int>(launch_chunk_prepare(a, static_cast<cudaStream_t>(stream)));
+}
+
+// K13b.
+int moeva_chunk_decode_f32(const void* pop_x, const void* arch_x, const void* pop_f, const void* arch_f,
+                           const void* x_init, const void* feat_gene, const void* feat_onehot, void* x_gen,
+                           void* f, void* x_ml, int n_states, int p, int a, int l, int d, void* stream) {
+  ChunkDecodeArgs args = {};
+  args.pop_x = static_cast<const float*>(pop_x);
+  args.arch_x = static_cast<const float*>(arch_x);
+  args.pop_f = static_cast<const float*>(pop_f);
+  args.arch_f = static_cast<const float*>(arch_f);
+  args.x_init = static_cast<const float*>(x_init);
+  args.feat_gene = static_cast<const int32_t*>(feat_gene);
+  args.feat_onehot = static_cast<const int32_t*>(feat_onehot);
+  args.x_gen = static_cast<float*>(x_gen);
+  args.f = static_cast<float*>(f);
+  args.x_ml = static_cast<float*>(x_ml);
+  args.n_states = n_states;
+  args.p = p;
+  args.a = a;
+  args.l = l;
+  args.d = d;
+  return static_cast<int>(launch_chunk_decode(args, static_cast<cudaStream_t>(stream)));
+}
+
 const char* moeva_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -40,6 +40,8 @@ SOURCES = (
     "csrc/pgd_spec.cu",
     "csrc/train_step.cu",
     "csrc/input_grad.cu",
+    "csrc/draws.cu",
+    "csrc/chunk_io.cu",
     "bindings.cpp",
 )
 HEADERS = ("csrc/kernels.h", "csrc/pgd_common.cuh", "csrc/mlp_tile.cuh")
@@ -191,6 +193,18 @@ def library() -> ctypes.CDLL:
     lib.moeva_input_grad_f32.restype = i32
     lib.moeva_train_smem_bytes.argtypes = [ctypes.POINTER(i32), i32]
     lib.moeva_train_smem_bytes.restype = i64
+    u32p, i64p = ctypes.POINTER(ctypes.c_uint), ctypes.POINTER(i64)
+    u64 = ctypes.c_ulonglong
+    lib.moeva_draws_f32.argtypes = [ctypes.POINTER(ptr), i64p, i64p, ctypes.POINTER(i32), u32p, i32, u64, u64, i64, ptr]
+    lib.moeva_draws_f32.restype = i32
+    lib.moeva_pgd_start_f32.argtypes = (
+        [i64p, i64p, ctypes.POINTER(i32), u32p, i32, u64, u64, i64] + [ptr] * 3 + [f32] * 3 + [f64] + [i32] * 3 + [ptr]
+    )
+    lib.moeva_pgd_start_f32.restype = i32
+    lib.moeva_chunk_prepare_f32.argtypes = [ptr] * 14 + [i32] * 10 + [f32, ptr]
+    lib.moeva_chunk_prepare_f32.restype = i32
+    lib.moeva_chunk_decode_f32.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
+    lib.moeva_chunk_decode_f32.restype = i32
     for name in (
         "moeva_train_tile_rows", "moeva_train_max_layers",
         "moeva_nd_peel_max_candidates", "moeva_associate_max_directions", "moeva_survive_max_candidates",
@@ -199,6 +213,7 @@ def library() -> ctypes.CDLL:
         "moeva_pgd_botnet_max_degree", "moeva_botnet_max_pairs", "moeva_take_max_segments",
         "moeva_spec_max_instructions", "moeva_spec_max_slots", "moeva_spec_max_terms", "moeva_spec_max_features",
         "moeva_spec_max_width", "moeva_spec_vjp_max_instructions", "moeva_spec_vjp_max_slots",
+        "moeva_draws_max_fields",
     ):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32

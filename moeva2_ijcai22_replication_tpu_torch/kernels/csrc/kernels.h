@@ -535,3 +535,100 @@ cudaError_t launch_train_loss(const float* x, const int64_t* y, const float* cw,
 // respect to the row, into out (n, widths[0]).
 cudaError_t launch_input_grad(const float* x, const float* params, const TrainShape& shape, int n,
                               float* out, cudaStream_t stream);
+
+// draws (K0): the fields of one call of the Philox4x32-10 stream
+// (core/philox.py). A field's element i lies in block base + first + i / per
+// at slot i % per (per 2 for normals, else 4); `out` is float for the
+// uniform, symmetric, gumbel and normal kinds and int64 for integers and
+// cuts. Kinds as core/philox.py numbers them.
+constexpr int kDrawMaxFields = 8;
+enum DrawKind : int32_t {
+  kDrawUniform = 0,
+  kDrawSymmetric = 1,
+  kDrawInteger = 2,
+  kDrawCut = 3,
+  kDrawGumbel = 4,
+  kDrawNormal = 5,
+};
+
+struct DrawField {
+  void* out;
+  int64_t numel;
+  int64_t first;   // the field's first block, relative to the call's base
+  int32_t kind;
+  uint32_t n;      // an integer field's exclusive bound
+};
+
+struct DrawArgs {
+  DrawField field[kDrawMaxFields];
+  int32_t n_fields;
+  uint32_t key0, key1;
+  uint64_t base;   // the call's first block
+  int64_t total;   // the call's blocks
+};
+
+cudaError_t launch_draws(const DrawArgs& args, cudaStream_t stream);
+
+// draws (K0) for PGD's random start: the fields of `draws` (a direction
+// (n, d), symmetric under L-inf or normal under L2, then under L2 a
+// uniform radius (n, 1)) are consumed, not written; x_start (n, d) =
+// clamp(x_init + where(mutable, pert, 0), lo, hi).
+struct PgdStartArgs {
+  DrawArgs draws;
+  const float* x_init;          // (n, d)
+  const bool* mutable_mask;     // (d,)
+  float* x_start;               // (n, d)
+  float lo, hi, eps;
+  double exponent;              // 1 / d
+  int32_t norm_inf;
+  int32_t n, d;
+};
+
+cudaError_t launch_pgd_start(const PgdStartArgs& args, cudaStream_t stream);
+
+// chunk_io (K13a): a chunk's bounds, normalised initial states, initial
+// population and normalisation memory from its states x and feature
+// bounds xl, xu (S, d). Gene j < n1 is feature gene_feat[j]; gene j >= n1
+// is one-hot group gene_feat[j], whose members are group_idx[g * k ..] (-1
+// pads last). pop, ideal (and worst, extreme) and ball may be null.
+struct ChunkPrepareArgs {
+  const float* x;
+  const float* xl;
+  const float* xu;
+  const int32_t* gene_feat;    // (l,)
+  const int32_t* group_idx;    // (n_groups, k)
+  const bool* int_gene;        // (l,)
+  const float* ball;           // (S, n_pert, ball_cols): lp_ratio's draws
+  float* xl_gen;               // (S, l)
+  float* xu_gen;               // (S, l)
+  float* x_mm;                 // (S, d)
+  float* pop;                  // (S, p, l)
+  float* ideal;                // (S, 3): +inf
+  float* worst;                // (S, 3): -inf
+  float* extreme;              // (S, 3, 3): 1e16
+  int32_t n_states, d, l, n1, n_groups, k;
+  int32_t p, n_pert, ball_cols, norm_inf;
+  float eps;
+};
+
+cudaError_t launch_chunk_prepare(const ChunkPrepareArgs& args, cudaStream_t stream);
+
+// chunk_io (K13b): a chunk's returned columns, population then archive,
+// and their decode to ML space: feature j is x_init's where feat_gene[j] <
+// 0, gene feat_gene[j] where feat_onehot[j] < 0, else 1 where that
+// categorical gene rounds to feat_onehot[j] and 0 elsewhere.
+struct ChunkDecodeArgs {
+  const float* pop_x;          // (S, p, l)
+  const float* arch_x;         // (S, a, l)
+  const float* pop_f;          // (S, p, 3)
+  const float* arch_f;         // (S, a, 3)
+  const float* x_init;         // (S, d)
+  const int32_t* feat_gene;    // (d,)
+  const int32_t* feat_onehot;  // (d,)
+  float* x_gen;                // (S, p + a, l)
+  float* f;                    // (S, p + a, 3)
+  float* x_ml;                 // (S, p + a, d)
+  int32_t n_states, p, a, l, d;
+};
+
+cudaError_t launch_chunk_decode(const ChunkDecodeArgs& args, cudaStream_t stream);

@@ -46,7 +46,7 @@ def test_port_has_every_module_of_the_slice():
         "domains.ir", "domains.ir.ops", "domains.ir.expr", "domains.ir.spec", "domains.ir.torch_backend",
         "domains.ir.repair_backend", "domains.ir.generator", "domains.ir.program", "domains.ir.vjp",
         "domains.ir.milp_backend", "models.train", "experiments.defense", "experiments.rq4",
-        "experiments.preprocess",
+        "experiments.preprocess", "core.philox", "attacks.moeva.chunk_io",
     ):
         assert f"{port.__name__}.{name}" in mods
 

@@ -21,7 +21,7 @@ import torch
 from moeva2_ijcai22_replication_tpu_torch import kernels
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import (
-    GeneratorDraws, archive_select_plain, evaluate_hist_plain, evaluate_plain, extract_archive_plain,
+    PhiloxDraws, archive_select_plain, evaluate_hist_plain, evaluate_plain, extract_archive_plain,
     final_columns_plain,
     make_objective_tables, take_carry_plain,
 )
@@ -37,6 +37,7 @@ from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD, Constraine
 from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.autopgd import autopgd_run_plain
 from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import PgdTables, pgd_run_plain
 from moeva2_ijcai22_replication_tpu_torch.core import codec as codec_lib
+from moeva2_ijcai22_replication_tpu_torch.core.philox import PhiloxStream
 from moeva2_ijcai22_replication_tpu_torch.kernels import build
 from moeva2_ijcai22_replication_tpu_torch.models.io import Surrogate
 from moeva2_ijcai22_replication_tpu_torch.models.mlp import MLP
@@ -212,7 +213,7 @@ def _engine_state(card, lcld, s, seed, **knobs):
     eng = Moeva2(sur, cons, ml_scaler=scaler, device=card, n_pop=100, n_offsprings=100,
                  archive_size=24, seed=seed, **knobs)
     run = eng.prepare(x[:s], np.arange(s) % 2)
-    gen = torch.Generator(device=card).manual_seed(seed)
+    gen = PhiloxStream(seed, card)
     carry = eng.init_carry(run, *draw_gumbels(gen, s, eng.n_dirs, eng.pop_size))
     carry = eng.gen_step(run, carry, eng.draw_generation(gen, s))
     return eng, run, carry, eng.draw_generation(gen, s)
@@ -330,7 +331,7 @@ def test_offspring_edges_equal_plain(card, lcld, case):
         xu[:, ::5] = xl[:, ::5]
     pop = xl[:, None] + torch.rand((s, p, l), generator=gen, device=card) * (xu - xl)[:, None]
     pop = torch.where(tables.int_mask, torch.round(pop), pop).clamp(xl[:, None], xu[:, None])
-    draws = draw_offspring(gen, s, p, n, l)
+    draws = draw_offspring(PhiloxStream(len(case), card), s, p, n, l)
     if case in ("all mutate", "none mutate"):
         draws = draws._replace(mut_select=torch.full_like(draws.mut_select, 0.0 if case == "all mutate" else 1.0))
     if case == "wide":  # ~7% of the genes mutate, in every chunk of elements
@@ -473,8 +474,8 @@ def test_wrappers_refuse_cpu_tensors(tmp_path):
     cons, sur, scaler, x = synthetic_lcld_problem(str(tmp_path), 2)
     eng = Moeva2(sur, cons, ml_scaler=scaler, device="cpu", n_pop=10, n_offsprings=6, archive_size=3)
     run = eng.prepare(x, np.ones(2, dtype=np.int64))
-    pop = eng.init_carry(run, *draw_gumbels(torch.Generator(), 2, eng.n_dirs, eng.pop_size)).pop_x
-    draws = eng.draw_generation(torch.Generator(), 2)
+    pop = eng.init_carry(run, *draw_gumbels(PhiloxStream(0), 2, eng.n_dirs, eng.pop_size)).pop_x
+    draws = eng.draw_generation(PhiloxStream(0), 2)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.offspring(eng.tables, pop, run.xl_gen, run.xu_gen, 6, draws.offspring)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -499,7 +500,8 @@ def test_launch_counts_reset():
         "pgd_lcld_auto": 0, "pgd_lcld_aug_auto": 0, "pgd_botnet_auto": 0, "gate_stats": 0, "take_carry": 0,
         "objective_lcld_hist": 0, "objective_lcld_aug_hist": 0, "objective_botnet_hist": 0,
         "objective_botnet_aug_hist": 0, "objective_spec": 0, "objective_spec_hist": 0, "pgd_spec": 0,
-        "pgd_spec_auto": 0, "train_step": 0, "train_loss": 0, "input_grad": 0,
+        "pgd_spec_auto": 0, "train_step": 0, "train_loss": 0, "input_grad": 0, "draws": 0, "pgd_start": 0,
+        "chunk_prepare": 0, "chunk_decode": 0,
     }
 
 
@@ -781,7 +783,7 @@ def test_objective_lcld_aug_equals_plain(card, lcld_aug, stack, s, n, norm):
     eng = Moeva2(sur, cons, ml_scaler=scaler, device=card, n_pop=100, n_offsprings=100, archive_size=24, seed=s,
                  norm=norm)
     run = eng.prepare(x[:s], np.arange(s) % 2)
-    gen = torch.Generator(device=card).manual_seed(s)
+    gen = PhiloxStream(s, card)
     carry = eng.init_carry(run, *draw_gumbels(gen, s, eng.n_dirs, eng.pop_size))
     draws = eng.draw_generation(gen, s)
     off = kernels.offspring(eng.tables, carry.pop_x, run.xl_gen, run.xu_gen, 100, draws.offspring)
@@ -894,7 +896,7 @@ def test_lcld_aug_wrappers_refuse_cpu_tensors(tmp_path):
     xi = torch.as_tensor(scaler.transform(x), dtype=torch.float32)
     eng = Moeva2(sur, cons, ml_scaler=scaler, device="cpu", n_pop=10, n_offsprings=6)
     run = eng.prepare(x, np.ones(4, dtype=np.int64))
-    pop = eng.init_carry(run, *draw_gumbels(torch.Generator(), 4, eng.n_dirs, eng.pop_size)).pop_x
+    pop = eng.init_carry(run, *draw_gumbels(PhiloxStream(0), 4, eng.n_dirs, eng.pop_size)).pop_x
     before = kernels.launch_counts()
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.pgd_lcld(atk.tables, atk.schedule(0.3, 0.1, 2), xi, torch.zeros(4, dtype=torch.int64), xi, 0.3,
@@ -1374,7 +1376,7 @@ def test_early_exit_generate_on_the_card_equals_the_cpu(card, lcld):
     cpu = Moeva2(sur, cons, ml_scaler=scaler, device="cpu", **knobs)
     recorded = []
 
-    class Recording(GeneratorDraws):
+    class Recording(PhiloxDraws):
         def init(self, n):
             recorded.append(super().init(n))
             return recorded[-1]
@@ -1443,8 +1445,7 @@ def _history_case(card, request, domain, s, n):
         cons, sur, scaler, x = lcld_aug
         eng = Moeva2(sur, cons, ml_scaler=scaler, device=card, n_pop=100, n_offsprings=100, seed=s)
         run = eng.prepare(x[:s], np.arange(s) % 2)
-        gen = torch.Generator(device=card).manual_seed(s)
-        pop = eng.init_carry(run, *draw_gumbels(gen, s, eng.n_dirs, eng.pop_size)).pop_x
+        pop = eng.init_carry(run, *draw_gumbels(PhiloxStream(s, card), s, eng.n_dirs, eng.pop_size)).pop_x
         cand = _aug_candidates(eng, lcld_aug, _hard_offspring(eng, pop[:, :n]))
         return eng, run, cand, kernels.objective_lcld, "objective_lcld_aug"
     if domain == "botnet":
@@ -1642,3 +1643,87 @@ def test_training_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.input_grad(widths, params, x)
     assert kernels.launch_counts() == before
+
+
+# -- K0: the draws; K13: a chunk's prepare and decode ----------------------------------
+
+
+def _same(got, want):
+    return bool(((got == want) | (got.isnan() & want.isnan()) if got.is_floating_point() else got == want).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 31, 33, 1000])
+@pytest.mark.parametrize("init", [False, True])
+def test_draws_equals_plain(card, lcld, s, init):
+    # a generation's seven fields from a stream part-way through, or
+    # lp_ratio's initial round (the L2 ball and the gumbels); odd counts
+    # leave partial last blocks
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.initialisation import n_perturbed
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import offspring_fields
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import gumbel_fields
+    from moeva2_ijcai22_replication_tpu_torch.core.philox import NORMAL, Field, draw_plain
+
+    cons, sur, scaler, x = lcld
+    eng = Moeva2(sur, cons, ml_scaler=scaler, device=card, n_pop=100, n_offsprings=99, archive_size=24,
+                 init="lp_ratio")
+    before = kernels.launch_counts()["draws"]
+    if init:
+        got = PhiloxDraws(eng, s).init(s)._asdict()
+        fields = [Field("ball", NORMAL, (s, n_perturbed(eng.pop_size, 0.5), eng.codec.gen_length + 2))]
+        fields += gumbel_fields(s, eng.n_dirs, eng.pop_size)
+        want = draw_plain(fields, torch.float32, s, 0, card)
+    else:
+        stream = PhiloxStream(s, card)
+        stream.take(12345)
+        draws = eng.draw_generation(stream, s)
+        got = dict(draws.offspring._asdict(), gum_cut=draws.gum_cut, gum_mem=draws.gum_mem)
+        fields = offspring_fields(s, eng.pop_size, eng.n_offsprings, eng.codec.gen_length)
+        fields += gumbel_fields(s, eng.n_dirs, eng.pop_size + eng.n_offsprings)
+        want = draw_plain(fields, torch.float32, s, 12345, card)
+        want["cut_a"], want["cut_b"] = want["cuts"][0], want["cuts"][1]
+    assert kernels.launch_counts()["draws"] == before + 1
+    for name, t in got.items():
+        assert t.is_cuda and t.dtype == want[name].dtype and _same(t, want[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", [2, "inf"])
+@pytest.mark.parametrize("n", [1, 33, 4000])
+def test_pgd_start_equals_plain(card, lcld, norm, n):
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import pgd_start_plain, start_fields
+    from moeva2_ijcai22_replication_tpu_torch.core.philox import layout
+
+    cons, sur, scaler, x = lcld
+    atk = ConstrainedPGD(sur, cons, scaler, eps=0.2, norm=norm, device=card)
+    xs = torch.as_tensor(scaler.transform(x)[np.arange(n) % len(x)], dtype=torch.float32, device=card)
+    stream = PhiloxStream(n, card)
+    got = atk.random_start(stream, xs, 0.2)
+    fields = start_fields(norm, *xs.shape)
+    base = stream.counter - layout(fields, torch.float32)[1]
+    want = pgd_start_plain(fields, stream.key, base, xs, atk.tables.mutable, 0.2, atk.clip, norm == "inf")
+    assert _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 33, 1000])
+@pytest.mark.parametrize("init,norm", [("tile", 2), ("lp_ratio", 2), ("lp_ratio", "inf")])
+def test_chunk_prepare_and_decode_equal_plain(card, lcld, s, init, norm):
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.chunk_io import (
+        chunk_decode_plain, chunk_prepare_plain,
+    )
+
+    cons, sur, scaler, x = lcld
+    eng = Moeva2(sur, cons, ml_scaler=scaler, device=card, n_pop=100, n_offsprings=100, archive_size=24, init=init,
+                 norm=norm, init_eps=0.3)
+    xs = x[np.arange(s) % len(x)]
+    ball = PhiloxDraws(eng, 3).init(s).ball
+    run, got = eng._prepare(xs, np.ones(s, dtype=np.int64), eng.init_spec(ball))
+    want = chunk_prepare_plain(eng._chunk, run.x_init_ml, run.xl_ml, run.xu_ml, eng.init_spec(ball))
+    for a, b in zip((got.xl_gen, got.xu_gen, got.x_mm, got.pop_x, *got.norm_state),
+                    (want.xl_gen, want.xu_gen, want.x_mm, want.pop_x, *want.norm_state)):
+        assert _same(a, b)
+    carry = eng.init_carry(run, *PhiloxDraws(eng, 4).init(s)[1:], start=got)
+    args = (eng._chunk, carry.pop_x, carry.arch_x, carry.pop_f, carry.arch_f, run.x_init_ml)
+    for a, b in zip(kernels.chunk_decode(*args), chunk_decode_plain(*args)):
+        assert _same(a, b)

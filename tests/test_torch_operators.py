@@ -21,6 +21,7 @@ from moeva2_ijcai22_replication_tpu.domains.lcld import LcldConstraints
 from moeva2_ijcai22_replication_tpu.domains.synth import synth_lcld, synth_lcld_schema
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import operators as top
 from moeva2_ijcai22_replication_tpu_torch.core import codec as tcodec
+from moeva2_ijcai22_replication_tpu_torch.core.philox import PhiloxStream
 
 # tier-1 runs several test processes side by side: one intra-op thread
 # each keeps these small-tensor tests from oversubscribing the cores
@@ -138,8 +139,7 @@ def test_make_offspring_exact_with_jax_draws(problem, s, p, n_off, seed):
 
 
 def test_draw_offspring_shapes_and_ranges():
-    gen = torch.Generator().manual_seed(0)
-    d = top.draw_offspring(gen, 5, 43, 21, 17, dtype=torch.float64)
+    d = top.draw_offspring(PhiloxStream(0), 5, 43, 21, 17, dtype=torch.float64)
     assert d.pairs.shape == (5, 11, 2) and int(d.pairs.max()) < 43 and int(d.pairs.min()) >= 0
     assert d.cut_a.shape == (3, 5, 11) and int(d.cut_b.max()) < 1 << 30
     assert d.coins.shape == (3, 5, 11) and d.coins.dtype == torch.float64

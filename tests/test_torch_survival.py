@@ -14,6 +14,7 @@ import torch
 
 from moeva2_ijcai22_replication_tpu.attacks.moeva import survival as jsv
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import survival as tsv
+from moeva2_ijcai22_replication_tpu_torch.core.philox import PhiloxStream
 from oracles import pymoo_rnsga3 as oracle
 
 # tier-1 runs several test processes side by side: one intra-op thread
@@ -245,8 +246,7 @@ def test_survive_matches_pymoo_oracle_shared_trace(case):
 
 
 def test_draw_gumbels_shapes():
-    gen = torch.Generator().manual_seed(0)
-    gc, gm = tsv.draw_gumbels(gen, 3, 7, 11, torch.float64)
+    gc, gm = tsv.draw_gumbels(PhiloxStream(0), 3, 7, 11, torch.float64)
     assert gc.shape == (3, 7) and gm.shape == (3, 11) and torch.isfinite(gm).all()
 
 

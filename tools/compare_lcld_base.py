@@ -103,6 +103,7 @@ def main() -> int:
 
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import draw_gumbels
+    from moeva2_ijcai22_replication_tpu_torch.core.philox import PhiloxStream
     from moeva2_ijcai22_replication_tpu_torch.problems import synthetic_lcld_problem
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -110,7 +111,7 @@ def main() -> int:
     cons, sur, scaler, x = problem
     eng = Moeva2(sur, cons, ml_scaler=scaler, device=device, n_pop=100, n_offsprings=100, archive_size=24, seed=42)
     run = eng.prepare(x[:cs.N_STATES], np.ones(cs.N_STATES, dtype=np.int64))
-    gen = torch.Generator(device=device).manual_seed(0)
+    gen = PhiloxStream(0, device)
     carry = eng.init_carry(run, *draw_gumbels(gen, cs.N_STATES, eng.n_dirs, eng.pop_size))
     cand = eng.offspring(run, carry.pop_x, eng.draw_generation(gen, cs.N_STATES).offspring)
     xs = scaler.transform(x)

@@ -1,0 +1,84 @@
+#!/usr/bin/env python3
+"""Time the main path of two trees of the port in turns on one card.
+
+    python3 tools/compare_main_path.py parent=<root> change=. [--runs 6] [--botnet-runs 3]
+
+Each ``name=root`` is the root of a checkout (a ``git archive`` of the
+parent unpacked under ``.torch_ext_build/``, or ``.``). The trees run in the
+order parent, change, change, parent, each in a fresh process that builds
+its own kernels: ``Moeva2.generate`` on ``chip_smoke.main_path_engine``'s
+1000 LCLD states x 100 generations (the first call cold, then the steady
+median), that tree's ``chip_smoke.profile_generation`` (traced ms and
+launches a generation, busy share), and botnet's 387 states x 1000
+generations (``chip_smoke.BOTNET_KNOBS``). Every line names its tree; the
+last line is the card's name and power limit. Run it through the chip
+tool; it needs one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+
+CODE = r'''
+import sys, time, statistics
+name, root, runs, botnet_runs = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+sys.path.insert(0, root)
+import torch
+import chip_smoke as s
+from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
+from moeva2_ijcai22_replication_tpu_torch.kernels import build
+
+build.build()
+build.library()
+dev = torch.device("cuda", 0)
+
+
+def walls(eng, x, n):
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(x, 1)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+moeva, x, _ = s.main_path_engine(dev)
+w = walls(moeva, x, runs)
+print(f"[compare] {name} lcld {len(x)} x {moeva.n_gen}: cold {w[0]:.4f} s, steady median "
+      f"{statistics.median(w[1:]):.4f} s, all {[round(v, 4) for v in w]}", flush=True)
+s.profile_generation(moeva, x, tag=f"[compare] {name} profile")
+cons, sur, scaler, xb, _ = s.botnet_problem()
+bot = Moeva2(sur, cons, ml_scaler=scaler, device=dev, **s.BOTNET_KNOBS)
+w = walls(bot, xb, botnet_runs)
+print(f"[compare] {name} botnet {len(xb)} x {bot.n_gen}: cold {w[0]:.4f} s, steady {[round(v, 4) for v in w[1:]]}",
+      flush=True)
+'''
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs=2, help="parent=<root> change=<root>")
+    ap.add_argument("--runs", type=int, default=6, help="generate calls on the main path, the first cold")
+    ap.add_argument("--botnet-runs", type=int, default=3, help="generate calls on botnet, the first cold")
+    args = ap.parse_args()
+    (a, root_a), (b, root_b) = (t.split("=", 1) for t in args.trees)
+    rc = 0
+    for name, root in ((a, root_a), (b, root_b), (b, root_b), (a, root_a)):
+        r = subprocess.run([sys.executable, "-c", CODE, name, root, str(args.runs), str(args.botnet_runs)],
+                           capture_output=True, text=True)
+        keep = [line for line in r.stdout.splitlines() if line.startswith("[compare]")]
+        print("\n".join(keep[:2] + [line for line in keep if " botnet " in line]), flush=True)
+        if r.returncode:
+            print(r.stderr[-3000:], flush=True)
+            rc = 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -33,12 +33,13 @@ import chip_smoke as cs  # noqa: E402
 def probe(name: str, moeva, x, n_traces: int, settles: tuple) -> list:
     import torch
 
-    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import draw_gumbels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import PhiloxDraws
 
-    gen = torch.Generator(device=moeva.device).manual_seed(0)
+    gen = PhiloxDraws(moeva, 0)
     with torch.inference_mode():
-        run = moeva.prepare(x, np.ones(len(x), dtype=np.int64))
-        carry = moeva.init_carry(run, *draw_gumbels(gen, len(x), moeva.n_dirs, moeva.pop_size))
+        init = gen.init(len(x))
+        run, start = moeva._prepare(x, np.ones(len(x), dtype=np.int64), moeva.init_spec(init.ball))
+        carry = moeva.init_carry(run, init.gum_cut, init.gum_mem, start=start)
         carry, port, ops = cs.launches_per_generation(moeva, run, carry, gen, len(x))
     expected = sum(port.values()) + sum(ops.values())
     tally = {s: {"engine": name, "settle_s": s, "traces": 0, "lost": 0, "what": []} for s in settles}
