@@ -8,7 +8,7 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero:
 
 1. versions: torch, CUDA, and the card's name and power limit (nvidia-smi);
-2. build the port's sixteen CUDA kernel sources (K1 and K7 with an
+2. build the port's nineteen CUDA kernel sources (K1 and K7 with an
    instantiation each for the augmented LCLD domain, K7 two more for
    AutoPGD, K8 one for the augmented botnet domain, K1 and K8 their history
    instantiations for each domain, K6's two kernels in one source, K9 for
@@ -182,12 +182,12 @@ Phases, in order; any failure exits non-zero:
    ε against the standalone runner on a fresh engine (bit for bit),
    rq2.botnet with ``use_subprocess=True`` and rq2.lcld with ``pipeline:
    false`` against the pipelined run (bit for bit), with the walls of the
-   pipelined, serial and pipelined-again rq2.lcld;
+   pipelined and serial rq2.lcld;
 14. AutoPGD on LCLD and augmented LCLD (the ``[autopgd]`` lines): the ptxas
    lines of K7's four instantiations (kPairs, kAuto); K7's AutoPGD
    instantiation against ``autopgd_run_plain`` on the card, bit for bit
    (x_best, the class there, the history, each row's final step), over
-   ``PGD_ROWS`` x ``AUTOPGD_ITERS`` x ``AUTOPGD_CONFIGS`` (phase 7's under
+   ``AUTOPGD_ROWS`` x ``AUTOPGD_ITERS`` x ``AUTOPGD_CONFIGS`` (phase 7's under
    the ``autopgd+`` prefix) with phase 7's edge starts (at D = 57 the pair
    terms' too), the step halved on some rows and kept on others at T >= 12;
    timed at 4000 x 1000 (rq1's ``constraints+flip`` and, at D = 57, rq2's
@@ -210,7 +210,8 @@ Phases, in order; any failure exits non-zero:
    (``autopgd_botnet_bound``), the latency floor and the launch's shape (one
    wave); ``generate`` cold and steady (one launch); the card against the
    CPU at 32 x 20 and 2 restarts; rq1.botnet's five PGD points under the
-   prefix through the runner (387 x 1000). No grid file of ``config/``
+   prefix through the runner (387 x 1000; ``autopgd+flip+sat`` on
+   ``AUTOPGD_BOTNET_SAT_STATES``). No grid file of ``config/``
    selects AutoPGD: phase 13 launches none of its counters
    (``AUTOPGD_COUNTERS``), which phase 14 must launch.
 15. the early exit (the ``[early-exit]`` lines): K6's ptxas lines; K6a
@@ -340,6 +341,30 @@ Phases, in order; any failure exits non-zero:
    launches and busy share per LCLD generation and phase 4's walls. K0 and
    K13 count their launches on phase 4's main path, ``pgd_start`` on this
    phase's PGD run.
+21. the last device stages of the ported paths (the ``[refdirs]``,
+   ``[restart]``, ``[forward]`` and ``[two-pointers]`` lines, ROADMAP B11-B14;
+   kernels K14 ``refdirs``, K15 ``restart`` and K16 ``forward_labels`` and
+   ``forward_proba1``): their ptxas lines; K14 against
+   ``energy_descent_plain`` on the card bit for bit and timed (one CTA) at
+   each of ``REFDIRS_POINTS`` (100, 200, 300) x 3000 steps, against the
+   twin on the host at 200 points, with the entries in which the
+   card's float64 exp and pow differ from the host's on the same inputs;
+   the main path's aspiration points equal to K14's, an engine built on a
+   fresh cache with the host descent made to raise (one K14 launch, none
+   for a second engine of the shape) and its ``generate``; K15 against
+   ``restart_plain`` over 3 starts at 4000 x 47 (a history, targeted),
+   timed at the AutoPGD runner's shape, and rq1.lcld's ``autopgd+flip``
+   point through ``experiments.pgd.run`` (one K15 and one K16 label
+   launch); K16's two instantiations against their plain versions on
+   LCLD's and botnet's stacks, timed beside the model's own ``nn.Linear``
+   forward and softmax (the library figure, device time from a CUDA graph
+   as the kernel's, and launched eagerly), and ``experiments.defense.
+   proba1`` on the card; K2, K4a and K3 reading [population, offspring]
+   through two pointers against themselves on the concatenation and their
+   plain versions at the main path's generation, timed both ways in turns;
+   and one LCLD generation's launches: ``GENERATION_LAUNCHES`` (7), no
+   eager op. Every launch count above is set to 0 just before its path and
+   read just after.
 
 The last three lines are the per-kernel JSON record (with each kernel's
 launches over phase 13's grids, ``grid_launches``), the card's name and
@@ -1254,12 +1279,17 @@ def check_step_against_cpu(moeva_gpu, moeva_cpu, moeva_ref, x, device, tag="[mai
       run the same rounded operations); each device's error against the
       float64 CPU path (``moeva_ref``) is held as a floor, the card's at
       most ``STEP_ERR_RATIO`` times the CPU's;
-    - survival of the CPU's merged objectives: ranks (K2), normalisation
-      state, nadir and directions (K4a), niche and dist (K3), and the fill,
-      the next population and the archive (K4b) must be equal.
+    - survival of the CPU's objectives of [population, offspring] (on the
+      card read through two pointers, as the step reads them; on the CPU
+      merged): ranks (K2), normalisation state, nadir and directions (K4a),
+      niche and dist (K3), and the fill, the next population and the
+      archive (K4b) must be equal.
 
     The same three steps run free on each device are reported: with every
-    stage equal, their populations agree on every row."""
+    stage equal, their populations agree on every row. The CPU engine takes
+    the card engine's aspiration points (K14's, the same source): its own,
+    from ``energy_descent_plain`` on the host, may differ in the last ulps
+    (CUDA's float64 ``pow`` and ``exp`` against the CPU's)."""
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
@@ -1276,10 +1306,11 @@ def check_step_against_cpu(moeva_gpu, moeva_cpu, moeva_ref, x, device, tag="[mai
             return type(t)(*items) if hasattr(t, "_fields") else tuple(items)
         return t.to(dev, dtype if dtype is not None and t.is_floating_point() else t.dtype)
 
-    def survive_stages(moeva, f, state, gum_cut, gum_mem, pop_x, off, pop_f, off_f, arch_x, arch_f):
-        ranks = nd_ranks(f, n_stop=moeva.pop_size)
-        new_state, nadir, dirs = survive_norm(f, ranks, moeva.asp_points, state)
-        niche, dist = associate_batch(f, dirs, new_state.ideal, nadir)
+    def survive_stages(moeva, state, gum_cut, gum_mem, pop_x, off, pop_f, off_f, arch_x, arch_f):
+        f, two = (pop_f, off_f) if pop_f.is_cuda else (torch.cat([pop_f, off_f], dim=1), None)
+        ranks = nd_ranks(f, n_stop=moeva.pop_size, off_f=two)
+        new_state, nadir, dirs = survive_norm(f, ranks, moeva.asp_points, state, two)
+        niche, dist = associate_batch(f, dirs, new_state.ideal, nadir, two)
         if f.is_cuda:
             mask, *tail = kernels.survive_fill(
                 gum_cut, gum_mem, ranks, niche, dist, moeva.pop_size,
@@ -1292,6 +1323,7 @@ def check_step_against_cpu(moeva_gpu, moeva_cpu, moeva_ref, x, device, tag="[mai
                     **dict(zip(("pop_x", "pop_f", "arch_x", "arch_f"), tail)),
                     **{f"state.{k}": v for k, v in new_state._asdict().items()})
 
+    moeva_cpu.asp_points = moeva_gpu.asp_points.cpu()
     xs = x[:n_states]
     mc = np.ones(len(xs), dtype=np.int64)
     gen = PhiloxStream(3)
@@ -1321,11 +1353,10 @@ def check_step_against_cpu(moeva_gpu, moeva_cpu, moeva_ref, x, device, tag="[mai
             for k in range(3):
                 for i, f in enumerate((f_g, f_c)):
                     err[f"f{k + 1}"][i] = max(err[f"f{k + 1}"][i], max_err(f[..., k], f_r[..., k]))
-            merged = torch.cat([carry_c.pop_f, f_c], dim=1)
             args = (carry_c.norm_state, dr.gum_cut, dr.gum_mem, pop_x, off_c, carry_c.pop_f, f_c,
                     carry_c.arch_x, carry_c.arch_f)
-            want = survive_stages(moeva_cpu, merged, *args)
-            got = survive_stages(moeva_gpu, merged.to(device), *to(args, device))
+            want = survive_stages(moeva_cpu, *args)
+            got = survive_stages(moeva_gpu, *to(args, device))
             for name in ("niche", "dist"):
                 differ[name] += int((~same_entries(got[name].cpu(), want[name])).sum())
             for name in want:
@@ -1352,8 +1383,9 @@ def launches_per_generation(moeva, run, carry, draws, n_states: int):
     """One untraced generation (the draw source ``draws``' generation, one
     K0 launch, and ``gen_step``) with its launches counted as the code makes
     them: each port kernel's wrapper count, and each PyTorch op that
-    launches a kernel (the ``merged_f`` cat): every ATen op but views, bare
-    allocations and the profiler's range markers. Returns ``(carry, port kernels {name: n},
+    launches a kernel (none since K2, K4a and K3 read the merge through two
+    pointers): every ATen op but views, bare allocations and the profiler's
+    range markers. Returns ``(carry, port kernels {name: n},
     torch ops {op: n})``."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -1443,6 +1475,21 @@ def lost_events(kernels, port: dict, expected: int) -> list:
     return lost
 
 
+#: the launches of one generation step: K0's draws, then K5, the objective
+#: kernel, K2, K4a, K3 (the last three reading [population, offspring]
+#: through two pointers) and K4b; no eager PyTorch op
+GENERATION_LAUNCHES = 7
+
+
+def check_generation_launches(port: dict, ops: dict, tag: str) -> None:
+    """Fail unless one generation launched ``GENERATION_LAUNCHES`` kernels,
+    each port kernel at most once, and no eager PyTorch op."""
+    if ops:
+        raise AssertionError(f"{tag} a generation step launched eager torch ops {ops}")
+    if sum(port.values()) != GENERATION_LAUNCHES or max(port.values()) != 1:
+        raise AssertionError(f"{tag} a generation step launched {port}, not {GENERATION_LAUNCHES} kernels once each")
+
+
 def profile_generation(moeva, x, tag="[profile]"):
     """Phase 6: where a generation's time goes at the main path's shape.
     Traces ``PROFILE_GENS`` generation steps (``trace_generations``) after 3
@@ -1467,6 +1514,7 @@ def profile_generation(moeva, x, tag="[profile]"):
         run, start = moeva._prepare(x, np.ones(len(x), dtype=np.int64), moeva.init_spec(init.ball))
         carry = moeva.init_carry(run, init.gum_cut, init.gum_mem, start=start)
         carry, port, ops = launches_per_generation(moeva, run, carry, draws, len(x))
+        check_generation_launches(port, ops, tag)
         for _ in range(2):
             carry = moeva.gen_step(run, carry, draws.generation(len(x)))
     expected = sum(port.values()) + sum(ops.values())
@@ -1497,8 +1545,7 @@ def profile_generation(moeva, x, tag="[profile]"):
         log(f"{tag} stage {e.key}: device span {per_gen(dev(e)):.4f} ms/gen (idle gaps included)")
     with torch.inference_mode():
         off = moeva.offspring(run, carry.pop_x, draws.generation(len(x)).offspring)
-        merged = torch.cat([carry.pop_f, moeva._evaluate(run, off)], dim=1)
-        mean, most = peeled_fronts(nd_ranks(merged, moeva.pop_size))
+        mean, most = peeled_fronts(nd_ranks(carry.pop_f, moeva.pop_size, moeva._evaluate(run, off)))
     log(f"{tag} nd_peel on the next generation's objectives: fronts per state mean {mean:.3f}, max {most}")
 
 
@@ -1569,7 +1616,11 @@ def expected_launches(moeva, n_states: int, result=None) -> dict:
 
 def check_launches(launches: dict, expected: dict, path: str) -> None:
     """Fail unless every kernel that ``expected`` launches ran, and each as
-    often as the code implies."""
+    often as the code implies. K14 (``refdirs``) is left out: it launches
+    at an engine's construction once per process and shape, so a path's
+    count depends on what the process built before; phase 21 holds it on a
+    fresh cache."""
+    launches, expected = ({k: v for k, v in d.items() if k != "refdirs"} for d in (launches, expected))
     for name, n in expected.items():
         if n and launches.get(name, 0) < 1:
             raise AssertionError(f"kernel {name} was not launched on {path}")
@@ -2890,9 +2941,10 @@ def point_files(runner: str, cfg: dict) -> set:
 def point_expected_launches(runner: str, cfg: dict, result=None) -> dict:
     """The launches one point's run implies: ``expected_launches`` for
     MoEvA (with the run's ``MoevaResult`` where it has an early exit), for
-    PGD one launch of the set's PGD kernel (of its AutoPGD instantiation for
-    an ``autopgd`` loss) per random start, at least one, and one launch of
-    K0's ``pgd_start`` per random start."""
+    PGD one launch of K16's ``forward_labels`` (the surrogate's labels), one
+    launch of the set's PGD kernel (of its AutoPGD instantiation for an
+    ``autopgd`` loss) per random start, at least one, and one launch each
+    of K0's ``pgd_start`` and K15's ``restart`` per random start."""
     import types
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
@@ -2902,8 +2954,8 @@ def point_expected_launches(runner: str, cfg: dict, result=None) -> dict:
     if runner == "pgd":
         auto = "autopgd" in cfg["loss_evaluation"]
         starts = int(cfg.get("nb_random", 1 if auto else 0))
-        return {**{k: 0 for k in kernels.launch_counts()}, "pgd_start": starts,
-                counter_name(cons, "pgd") + ("_auto" if auto else ""): max(starts, 1)}
+        return {**{k: 0 for k in kernels.launch_counts()}, "pgd_start": starts, "restart": starts,
+                "forward_labels": 1, counter_name(cons, "pgd") + ("_auto" if auto else ""): max(starts, 1)}
     engine = types.SimpleNamespace(
         max_states_per_call=cfg["max_states_per_call"], n_gen=cfg["budget"], archive_size=cfg["archive_size"],
         constraints=cons, early_stop_check_every=int(cfg.get("early_stop_check_every", 0) or 0),
@@ -3263,17 +3315,20 @@ def check_aug_stages(device, eng, x, tag="[augmented]", states=(AUG_CHUNK, AUG_L
     )
     from moeva2_ijcai22_replication_tpu_torch.core.philox import PhiloxStream
 
-    def survival(f, state, gum_cut, gum_mem, what, extract=None, archive=None):
-        """K2, K4a, K3 and K4b on ``f``, each held against its plain version;
-        returns K4b's output and the new normalisation state."""
-        ranks = kernels.nd_peel(f, eng.pop_size)
+    def survival(pop_f, off_f, state, gum_cut, gum_mem, what, extract=None, archive=None):
+        """K2, K4a and K3 on [pop_f, off_f] (through two pointers; pop_f
+        alone with ``off_f`` None) and K4b, each held against its plain
+        version on the merged objectives; returns K4b's output and the new
+        normalisation state."""
+        f = pop_f if off_f is None else torch.cat([pop_f, off_f], dim=1)
+        ranks = kernels.nd_peel(pop_f, eng.pop_size, off_f)
         hold_equal(ranks, nd_ranks_plain(f, eng.pop_size), f"nd_peel {what}")
-        ideal, worst, extreme, nadir, dirs = kernels.survive_norm(f, ranks, eng.asp_points, state)
+        ideal, worst, extreme, nadir, dirs = kernels.survive_norm(pop_f, ranks, eng.asp_points, state, off_f)
         w_state, w_nadir, w_dirs = survive_norm_plain(f, ranks, eng.asp_points, state)
         for name, got, want in zip(("ideal", "worst", "extreme", "nadir", "dirs"),
                                    (ideal, worst, extreme, nadir, dirs), (*w_state, w_nadir, w_dirs)):
             hold_equal(got, want, f"survive_norm {name} {what}")
-        niche, dist = kernels.associate(f, dirs, ideal, nadir)
+        niche, dist = kernels.associate(pop_f, dirs, ideal, nadir, off_f)
         for name, got, want in zip(("niche", "dist"), (niche, dist), associate_plain(f, dirs, ideal, nadir)):
             hold_equal(got, want, f"associate {name} {what}")
         out = kernels.survive_fill(gum_cut, gum_mem, ranks, niche, dist, eng.pop_size, extract=extract,
@@ -3299,7 +3354,7 @@ def check_aug_stages(device, eng, x, tag="[augmented]", states=(AUG_CHUNK, AUG_L
         pop_f = objective(pop_x, *ins)
         hold_equal(pop_f, evaluate_plain(eng._objective, eng.codec, run, pop_x, eng.constraints),
                    f"{name} {what}")
-        _, state = survival(pop_f, NormState.init(s, 3, device=device),
+        _, state = survival(pop_f, None, NormState.init(s, 3, device=device),
                             *draw_gumbels(gen, s, eng.n_dirs, eng.pop_size), what)
         arch = kernels.archive_select(pop_x, pop_f, pop_x[:, :0], pop_f[:, :0], eng.archive_size)
         for name, got, want in zip(("arch_x", "arch_f"), arch, archive_select_plain(pop_x, pop_f, eng.archive_size)):
@@ -3319,7 +3374,7 @@ def check_aug_stages(device, eng, x, tag="[augmented]", states=(AUG_CHUNK, AUG_L
             offspring += off.shape[0] * off.shape[1]
             finite += int(torch.isfinite(off_f).all(-1).sum())
             pair_violated += int((terms[..., n_base:] > 0).any(-1).sum())
-            out, state = survival(torch.cat([carry.pop_f, off_f], dim=1), carry.norm_state, d.gum_cut, d.gum_mem,
+            out, state = survival(carry.pop_f, off_f, carry.norm_state, d.gum_cut, d.gum_mem,
                                   what, extract=(carry.pop_x, off, carry.pop_f, off_f),
                                   archive=(carry.arch_x, carry.arch_f, off, off_f, eng.archive_size))
             carry = Carry(out.pop_x, out.pop_f, out.arch_x, out.arch_f, state)
@@ -3947,9 +4002,11 @@ def run_grid(name: str, config_dir: str, over: dict | None = None, **kwargs) -> 
         out, mid, h = cfg["dirs"]["results"], point_mid_fix(runner, cfg), get_dict_hash(cfg)
         with open(f"{out}/metrics_{mid}_{h}.json") as f:
             metrics = json.load(f)
-        # a subprocess loads the kernel library during its attack; this
-        # process loaded it in phase 2
-        if metrics["config_hash"] != h or metrics["includes_compile"] != bool(kwargs.get("use_subprocess")):
+        # this process loaded the kernel library in phase 2; a subprocess
+        # loads it during a PGD point's attack (K16's labels) and in a
+        # MoEvA point's setup (the engine's K14), before its attack
+        fresh = bool(kwargs.get("use_subprocess")) and runner == "pgd"
+        if metrics["config_hash"] != h or metrics["includes_compile"] != fresh:
             raise AssertionError(f"[grid] {name}: {mid} {h}: hash {metrics['config_hash']}, includes_compile "
                                  f"{metrics['includes_compile']} (use_subprocess {kwargs.get('use_subprocess')})")
         rates = recomputed_rates(runner, cfg, np.load(f"{out}/x_attacks_{mid}_{h}.npy"))
@@ -4028,9 +4085,9 @@ def run_grids(smi: str) -> dict:
     checks; then rq2.lcld again, which skips every point; two points against
     the standalone runner on a fresh engine (a MoEvA point served by a
     cached engine, a PGD point at a grid's second ε on a cached engine);
-    rq2.botnet in subprocesses and rq2.lcld with ``pipeline: false`` (then
-    pipelined again), each against the pipelined run. Returns the launches
-    summed over the ten grids."""
+    rq2.botnet in subprocesses and rq2.lcld with ``pipeline: false``, each
+    against the pipelined run (a second pipelined rq2.lcld, a wall figure
+    only, is **cut**). Returns the launches summed over the ten grids."""
     from moeva2_ijcai22_replication_tpu_torch import kernels
     from moeva2_ijcai22_replication_tpu_torch.experiments import rq
     from moeva2_ijcai22_replication_tpu_torch.utils.config import load_config_file
@@ -4098,13 +4155,10 @@ def run_grids(smi: str) -> dict:
         if names != sorted(f for f in os.listdir(piped) if not f.startswith("grid_report_")) or \
                 not all(same_outputs(point_outputs(r, c), point_outputs(r, c, piped)) for r, c in points):
             raise AssertionError("[grid] rq2.lcld with pipeline: false differs from the pipelined run")
-        move_aside(out, "_serial")
-        again = run_grid("rq2.lcld.yaml", config_dir)
         first = reports["rq2.lcld.yaml"]
         log(f"[grid] rq2.lcld.yaml with pipeline: false gives the pipelined run's files, x_attacks and rates, bit for "
             f"bit; wall s (evaluate spans summed): pipelined {first['wall_s']:.3f} ({first['evaluate_sum_s']:.3f}), "
-            f"serial {serial['wall_s']:.3f} ({serial['evaluate_sum_s']:.3f}), pipelined again {again['wall_s']:.3f} "
-            f"({again['evaluate_sum_s']:.3f}) on {smi}")
+            f"serial {serial['wall_s']:.3f} ({serial['evaluate_sum_s']:.3f}) on {smi}")
     log(f"[grid] launches over the ten grids: {({k: v for k, v in total.items() if v})}; phase 13 took "
         f"{time.perf_counter() - t0:.1f} s")
     return total
@@ -4116,8 +4170,17 @@ def run_grids(smi: str) -> dict:
 #: the three constraints_optim, targeted, both norms, every history layout
 AUTOPGD_CONFIGS = tuple({**c, "loss_evaluation": "autopgd+" + c["loss_evaluation"]} for c in PGD_CONFIGS)
 #: the sweep's budgets: 1, 12 (seven checkpoints, where halving fires) and
-#: 40 (nine, at one row count per configuration, as phase 7's deepest)
-AUTOPGD_ITERS = (1, 12, 40)
+#: 20 (eight, at one row count per configuration, as K7b's sweep), **cut**
+#: from 40 (nine) to keep the smoke within its time limit as phase 21 holds
+#: K14 at every population size: the plain version takes about 0.03 s an
+#: iteration at 4000 rows
+AUTOPGD_ITERS = (1, 12, 20)
+#: the AutoPGD sweeps' row counts at D = 47 and 57: ``PGD_ROWS`` **cut** of
+#: 4223 and 4225 (132 full blocks of 32 rows and one row past them), to keep
+#: the smoke within its time limit as phase 21 joins it; K7's base and
+#: kPairs instantiations, whose launch layout the kAuto ones share, keep
+#: them in phases 7 and 11, and 4000 still spans every SM
+AUTOPGD_ROWS = tuple(n for n in PGD_ROWS if n <= 4000)
 #: the timed loss: rq1.lcld's ``constraints+flip`` under the prefix
 AUTOPGD_LOSS = "autopgd+constraints+flip"
 #: rq1.lcld's PGD points under AutoPGD, through the runner at rq1's shape
@@ -4144,6 +4207,11 @@ AUTOPGD_F64_PER_ROW = 6
 #: row each; rq1.botnet's 387; 397, a 67th cluster of one row past 6 rows on
 #: every resident one), at AUTOPGD_BOTNET_ITERS with phase 9's edge starts
 AUTOPGD_BOTNET_ROWS = (1, 67, 387, 397)
+#: the states of the botnet ``autopgd+flip+sat`` runner point, **cut** from
+#: rq1.botnet's 387 (its MILP repair is host work, about 0.05 s a state):
+#: phase 10 runs ``flip+sat`` and phase 13 rq1.botnet's grid through the
+#: repair at 387
+AUTOPGD_BOTNET_SAT_STATES = 128
 #: K7b's AutoPGD sweep budgets: the deepest **cut** from 40 to 20 (eight
 #: checkpoints, halving firing), its plain version taking 0.13 s an
 #: iteration at 756 features, to keep the smoke within its time limit
@@ -4360,7 +4428,7 @@ def drive_autopgd(device, smi: str, tag: str, counter: str, problem, loss: str, 
     again = atk.generate(xs, y, eps=eps, eps_step=eps_run / 3, max_iter=PGD_BUDGET)
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t0
-    if launches != {**{k: 0 for k in launches}, counter: 1, "pgd_start": 1}:
+    if launches != {**{k: 0 for k in launches}, counter: 1, "pgd_start": 1, "restart": 1}:
         raise AssertionError(f"launches {launches}: one generate with one random start is one launch of {counter} "
                              "and one of K0's pgd_start")
     if not same_entries_np(x_adv, again).all():
@@ -4530,6 +4598,8 @@ def run_autopgd_botnet(device, smi: str, resources: list):
         pgd_s = None
         for loss in AUTOPGD_BOTNET_RUNNER_LOSSES:
             cfg = runner_config("botnet", "pgd", art, loss)
+            if "sat" in loss:
+                cfg["n_initial_state"] = AUTOPGD_BOTNET_SAT_STATES
             metrics = drive_runner(cfg, smi, point_expected_launches("pgd", cfg), f"pgd botnet {loss}")
             if loss == "autopgd+flip":
                 pgd_s = metrics["timings"]["attack"]
@@ -4563,12 +4633,12 @@ def run_autopgd(device, smi: str, resources: list, problem):
     rng = np.random.default_rng(5)
     xs = scaler.transform(x).astype(np.float32)
     starts = pgd_edge_starts(rng, xs, scaler)
-    n = max(PGD_ROWS)
+    n = max(AUTOPGD_ROWS)
     runs, halved, kept, nan_rows = autopgd_sweep(device, "pgd_lcld", cons, sur, scaler,
                                                  np.resize(xs, (n, xs.shape[1])), np.resize(starts, (n, xs.shape[1])),
-                                                 PGD_ROWS)
+                                                 AUTOPGD_ROWS)
     log(f"[autopgd] K7's AutoPGD instantiation at D = 47 equals autopgd_run_plain (x_best, class, history, eta) on "
-        f"all {runs} runs: {len(AUTOPGD_CONFIGS)} configurations x N in {PGD_ROWS} x T in {AUTOPGD_ITERS[:-1]}, and "
+        f"all {runs} runs: {len(AUTOPGD_CONFIGS)} configurations x N in {AUTOPGD_ROWS} x T in {AUTOPGD_ITERS[:-1]}, and "
         f"T = {AUTOPGD_ITERS[-1]} at one N each, with phase 7's 14 edge starts; at T >= 12 {halved} rows halved "
         f"their step and {kept} kept it; {nan_rows} NaN rows of x_best")
     xs = scaler.transform(x)
@@ -4607,7 +4677,7 @@ def run_autopgd(device, smi: str, resources: list, problem):
             x[14:14 + LCLD_AUGMENTED_EDGE_ROWS], cons.important_features, scaler)
         runs, halved, kept, nan_rows = autopgd_sweep(device, "pgd_lcld", cons, sur, scaler,
                                                      np.resize(xs, (n, xs.shape[1])),
-                                                     np.resize(starts, (n, xs.shape[1])), PGD_ROWS)
+                                                     np.resize(starts, (n, xs.shape[1])), AUTOPGD_ROWS)
         log(f"[autopgd] K7's AutoPGD instantiation at D = {xs.shape[1]} ({cons.n_constraints} terms) equals "
             f"autopgd_run_plain on all {runs} runs: the same sweep, with phase 7's 14 edge starts and the pair terms' "
             f"{LCLD_AUGMENTED_EDGE_ROWS}; at T >= 12 {halved} rows halved their step and {kept} kept it; {nan_rows} "
@@ -4931,16 +5001,19 @@ def check_resume(moeva, x, want, tmp: str) -> None:
 
 def check_early_exit_card_vs_cpu(device, sur, cons, scaler, x) -> None:
     """``EE_CPU_RUN`` on the card and on the CPU, fed the draws of the
-    CPU's generator: equal results, records and quality samples."""
+    CPU's generator and the card's aspiration points (K14's; see
+    ``check_step_against_cpu``): equal results, records and quality
+    samples."""
     from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
 
     n, n_gen = EE_CPU_RUN
     knobs = dict(norm=2, n_gen=n_gen, n_pop=100, n_offsprings=100, archive_size=24, seed=7, **EE_CPU_KNOBS)
     draws = RecordedDraws()
+    gpu = Moeva2(sur, cons, ml_scaler=scaler, device=device, **knobs)
     cpu = Moeva2(sur, cons, ml_scaler=scaler, device="cpu", **knobs)
+    cpu.asp_points = gpu.asp_points.cpu()
     cpu.draw_hook = lambda i: draws.recorder(cpu)
     want = cpu.generate(x[:n], minimize_class=1)
-    gpu = Moeva2(sur, cons, ml_scaler=scaler, device=device, **knobs)
     gpu.draw_hook = lambda i: draws.replay(device)
     got = gpu.generate(x[:n], minimize_class=1)
     samples = [(a["gen"], np.array_equal(a["per_state"], b["per_state"], equal_nan=True))
@@ -6218,7 +6291,7 @@ def run_spec_pgd(device, smi: str, resources: list, records: list) -> dict:
 
 #: the launch counts of training: K11's step and loss-only instantiation, K12.
 #: No grid file trains: phase 13 launches none of them, which phase 19 must
-DEFENSE_COUNTERS = ("train_step", "train_loss", "input_grad")
+DEFENSE_COUNTERS = ("train_step", "train_loss", "input_grad", "forward_proba1")
 #: K11's shapes, (batch, widths), as the pipelines train: LCLD's models at
 #: D = 47 and 57 (augmented), botnet's at 756 and 927, each surrogate's
 #: published widths and ``experiments/defense.py``'s batch sizes
@@ -6634,9 +6707,11 @@ def drive_defense(device, smi: str, tmp: str) -> dict:
     total = {}
     t_all = time.perf_counter()
     runs = [("lcld", defense), ("botnet", defense), ("lcld", rq4)]
-    expect = {("lcld", defense): ("train_step", "train_loss", "input_grad", "objective_lcld", "pgd_lcld"),
-              ("botnet", defense): ("train_step", "train_loss", "input_grad", "objective_botnet", "pgd_botnet"),
-              ("lcld", rq4): ("train_step", "train_loss", "objective_lcld_aug")}
+    expect = {("lcld", defense): ("train_step", "train_loss", "input_grad", "objective_lcld", "pgd_lcld",
+                                  "forward_proba1"),
+              ("botnet", defense): ("train_step", "train_loss", "input_grad", "objective_botnet", "pgd_botnet",
+                                    "forward_proba1"),
+              ("lcld", rq4): ("train_step", "train_loss", "objective_lcld_aug", "forward_proba1")}
     artifacts = {}
     for project, runner in runs:
         paths, d = art[project]
@@ -7030,7 +7105,8 @@ def drive_pgd_starts(device, smi: str) -> int:
     again = atk.generate(xs, y)
     torch.cuda.synchronize()
     steady = time.perf_counter() - t0
-    check_launches(launches, {**{k: 0 for k in launches}, "pgd_start": 2, "pgd_lcld": 2}, "PGD with 2 random starts")
+    check_launches(launches, {**{k: 0 for k in launches}, "pgd_start": 2, "pgd_lcld": 2, "restart": 2},
+                   "PGD with 2 random starts")
     if not same_entries_np(first, again).all():
         raise AssertionError("two runs of PGD with random starts differ")
     log(f"[draws] ConstrainedPGD.generate with 2 random starts at {len(xs)} states x 100 iterations: launches "
@@ -7066,11 +7142,396 @@ def run_draws(device, smi: str, resources: list, records: list, moeva, x) -> dic
     starts = drive_pgd_starts(device, smi)
     summary = PROFILE_SUMMARY
     log(f"[draws] per LCLD generation at {N_STATES} states (phase 6's trace): {summary.get('traced')} launches "
-        f"traced (the parent's 24: 17 of them its eager draws), device busy share {summary.get('busy')}, "
+        f"traced, device busy share {summary.get('busy')}, "
         f"{summary.get('ms')} ms per generation traced; Moeva2.generate on the main path (phase 4): cold "
         f"{summary.get('cold_s')} s, steady {summary.get('steady_s')} s on {smi}")
     log(f"[draws] phase 20 took {time.perf_counter() - t0:.1f} s")
     return {"pgd_start": starts}
+
+
+# -- phase 21: K14 refdirs, K15 restart, K16 forward; K2, K4a and K3 through two pointers --
+
+#: K14 at the configs' population sizes: LCLD's 100 (the main path's
+#: engine), botnet's 200 and ``config/moeva.yaml``'s 300; held against its
+#: twin on the card and timed at each, against the twin on the host at
+#: botnet's (where the host's float32 points differ from the card's)
+REFDIRS_POINTS = (100, 200, 300)
+REFDIRS_HOST_POINTS = (200,)
+REFDIRS_ITERS = 3000
+#: float64 operations of K14 per ordered pair of points and step, for 3
+#: dimensions: per dimension a difference, its square, the weight's
+#: product and the gradient sum's addition, the squares' 2 additions, and
+#: the pow counted as one; and per point and step (the softmax's max, 3 exp,
+#: 2 additions and 3 divisions; the gradient's scaling, the dot product and
+#: the softmax backward; Adam's 13 a dimension)
+REFDIRS_OPS_PER_PAIR = 15
+REFDIRS_OPS_PER_POINT = 70
+#: K15 at the AutoPGD runner's shape (rq1.lcld's 4000 states x 47 features,
+#: one start, no history), held over 3 starts with a (T, N, C) history too
+RESTART_SHAPE = (4000, 47)
+RESTART_HIST = (100, 3)
+RESTART_STARTS = 3
+#: K16 at the PGD runner's labels (rq1's 4000 LCLD and 387 botnet states)
+#: and the pipelines' proba1 (phase 19's test rows, 2000 and 1000)
+FORWARD_SHAPES = {"lcld": (4000, 2000), "botnet": (387, 1000)}
+
+
+def stage_record(name: str, source: str, replaces: str, ms: float, wrapper_ms: float, plain_ms: float,
+                 bound, library_ms, **extra) -> dict:
+    return {"name": name, "route": "cuda", "source": f"moeva2_ijcai22_replication_tpu_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": 0, "max_abs_err": 0.0, "ms": ms, "wrapper_ms": wrapper_ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms, **extra}
+
+
+def host_ms(fn, repeats: int = 3) -> float:
+    """Median host-clock ms of ``fn`` ending in a synchronize (for a run
+    that takes longer than a graph of launches should hold)."""
+    import torch
+
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def refdirs_math_differs(theta_host, z_card) -> dict:
+    """Where the descent's two operations that are not correctly rounded,
+    float64 ``exp`` and ``pow``, give other bits on the card than on the
+    host for the same inputs: the softmax of the start ``theta_host`` and
+    the weights pow(d2_ij, -s/2 - 1), i != j, of the host's start points and
+    of ``z_card``, K14's points (the host's d2 in both)."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import refdirs
+
+    dev = z_card.device
+    z0 = refdirs._softmax_rows(theta_host)
+    out = {"softmax": int((refdirs._softmax_rows(theta_host.to(dev)).cpu() != z0).sum())}
+    n = theta_host.shape[0]
+    off = ~torch.eye(n, dtype=torch.bool)
+    expo = torch.full((n, n), -4.0 / 2.0 - 1.0, dtype=torch.float64)
+    for name, z in (("pow_start", z0), ("pow_end", z_card.cpu())):
+        diff = z[:, None, :] - z[None, :, :]
+        d2 = refdirs._left_to_right((diff * diff).transpose(1, 2))
+        on_card = torch.pow(d2.to(dev), expo.to(dev)).cpu()
+        out[name] = int((on_card != torch.pow(d2, expo))[off].sum())
+    out["weights"] = n * (n - 1)
+    return out
+
+
+def check_refdirs(device, smi: str, moeva, knobs, x) -> tuple:
+    """K14 against ``energy_descent_plain`` on the card bit for bit at every
+    size of ``REFDIRS_POINTS`` and 3000 steps, against the twin on the host
+    at ``REFDIRS_HOST_POINTS``, with the entries where the card's float64
+    ``exp`` and ``pow`` differ from the host's (:func:`refdirs_math_differs`);
+    the main path's engine's aspiration points equal to K14's; an engine
+    built on a fresh cache (with the host descent made to raise) and its
+    ``generate``, launch counts set to 0 just before and read just after:
+    one K14 launch, and none for a second engine of the same shape; K14
+    timed at each size. Returns (record, launches)."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2, refdirs
+
+    n = moeva.n_pop
+    sched = refdirs.descent_schedule(REFDIRS_ITERS).to(device)
+    shapes = {}
+    for pts in REFDIRS_POINTS:
+        theta = torch.as_tensor(refdirs.start_point(3, pts, 1), device=device)
+        got = kernels.refdirs(theta, sched, 4.0)
+        t0 = time.perf_counter()
+        want = refdirs.energy_descent_plain(theta, 4.0, sched)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not same_bits(got, want):
+            raise AssertionError(f"refdirs (K14) differs from energy_descent_plain at {pts} points on the card")
+        if pts == n and not same_bits(moeva.asp_points, got.float()):
+            raise AssertionError("the main path's engine's aspiration points are not K14's")
+        diffs = refdirs_math_differs(theta.cpu(), got)
+        host = ""
+        if pts in REFDIRS_HOST_POINTS:
+            on_host = refdirs.energy_descent_plain(theta.cpu(), 4.0, sched.cpu())
+            diffs["host_max_abs_diff"] = float((got.cpu() - on_host).abs().max())
+            diffs["host_f32_differ"] = int((got.float().cpu() != on_host.float()).sum())
+            host = (f"; against the twin on the host: max |difference| {diffs['host_max_abs_diff']:.3e}, "
+                    f"{diffs['host_f32_differ']} of {got.numel()} coordinates differ in float32")
+        ms = graph_ms(lambda: kernels.refdirs(theta, sched, 4.0), launches=1, repeats=3)
+        wrapper = cuda_ms(lambda: kernels.refdirs(theta, sched, 4.0), launches=1, repeats=3)
+        bound = bound_ms(8 * (2 * 3 * pts + 3 * REFDIRS_ITERS), 0,
+                         REFDIRS_ITERS * (REFDIRS_OPS_PER_PAIR * pts * pts + REFDIRS_OPS_PER_POINT * pts))
+        shapes[pts] = dict(ms=ms, wrapper_ms=wrapper, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                           **diffs)
+        log(f"[refdirs] refdirs (K14) equals energy_descent_plain bit for bit at {pts} points x {REFDIRS_ITERS} "
+            f"steps on the card (plain version {plain_ms:.1f} ms){host}; the card's float64 exp and pow against "
+            f"the host's on the same inputs: {diffs['softmax']} of {got.numel()} softmax entries of the start, "
+            f"{diffs['pow_start']} and {diffs['pow_end']} of {diffs['weights']} weights at the start and at K14's "
+            f"points differ")
+        log(f"[refdirs] refdirs (K14) at {pts} points x {REFDIRS_ITERS} steps, one CTA: device {ms:.3f} ms, through "
+            f"the wrapper {wrapper:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}) on {smi}")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("an engine on the card ran the energy descent's plain version")
+
+    twin, refdirs.energy_descent_plain = refdirs.energy_descent_plain, refuse
+    try:
+        refdirs._ref_points.cache_clear()
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = Moeva2(moeva.classifier, moeva.constraints, ml_scaler=moeva.ml_scaler, device=device,
+                     **{**knobs, "n_gen": 10})
+        torch.cuda.synchronize()
+        built_s = time.perf_counter() - t0
+        eng.generate(x, minimize_class=1)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        Moeva2(moeva.classifier, moeva.constraints, ml_scaler=moeva.ml_scaler, device=device, **knobs)
+        again = kernels.launch_counts()["refdirs"]
+    finally:
+        refdirs.energy_descent_plain = twin
+    if launches["refdirs"] != 1 or again != 1:
+        raise AssertionError(f"a fresh engine launched refdirs {launches['refdirs']} times and a second one "
+                             f"{again - launches['refdirs']}: K14 runs once per process and shape")
+    check_launches(launches, expected_launches(eng, len(x)), "a fresh engine's generate")
+    log(f"[refdirs] the main path's aspiration points are K14's at {n} points; an engine built on a fresh cache "
+        f"with the host descent refused: launches { {k: v for k, v in launches.items() if v} }, one refdirs and "
+        f"none for a second engine of its shape; construction {built_s:.3f} s, construction and a generate of "
+        f"{len(x)} states x 10 generations {first_s:.3f} s on {smi}")
+    first = shapes[n]
+    rec = stage_record("refdirs", "refdirs.cu", "moeva2_ijcai22_replication_tpu/attacks/moeva/refdirs.py:94",
+                       first["ms"], first["wrapper_ms"], first["plain_ms"], (first["bound_ms"], first["bound_by"]),
+                       None, shape=f"{n}x3x{REFDIRS_ITERS}", points={str(k): v for k, v in shapes.items()},
+                       fresh_engine_s=built_s, fresh_engine_generate_s=first_s)
+    return rec, launches["refdirs"]
+
+
+def check_restart(device, smi: str) -> tuple:
+    """K15 against ``restart_plain`` on the card bit for bit over
+    ``RESTART_STARTS`` starts at ``RESTART_SHAPE``, with and without a
+    history, targeted and not; timed at the AutoPGD runner's shape (one
+    start, no history); and an AutoPGD runner point (rq1.lcld's
+    ``autopgd+flip``, one random start) through ``experiments.pgd.run``,
+    launch counts set to 0 just before and read just after: one K15 and one
+    K16 label launch. Returns (record, the runner's launches)."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import restart_plain
+
+    n, d = RESTART_SHAPE
+    t, c = RESTART_HIST
+    rng = np.random.default_rng(21)
+    x_init = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32), device=device)
+    y = torch.as_tensor(np.arange(n) % 2, device=device)
+    for targeted, record in ((False, False), (False, True), (True, True)):
+        best, hist_k = x_init, None
+        curve = torch.empty((RESTART_STARTS, n), dtype=torch.bool, device=device)
+        want_x, want_h, succ = x_init, None, torch.zeros(n, dtype=torch.bool, device=device)
+        for r in range(RESTART_STARTS):
+            x_adv = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32), device=device)
+            pred = torch.as_tensor(rng.integers(0, 2, n), device=device)
+            hist = torch.as_tensor(rng.normal(size=(t, n, c)).astype(np.float32), device=device) if record else None
+            best, hist_k = kernels.restart(x_adv, pred, y, hist, best, hist_k, curve, r, targeted)
+            want_x, want_h, succ = restart_plain(x_adv, pred, y, hist, want_x, want_h, succ, targeted)
+            what = f"restart (K15) start {r} targeted={targeted} history={record}"
+            hold_equal(best, want_x, f"{what} best_x")
+            hold_equal(curve[r], succ, f"{what} success")
+            if record:
+                hold_equal(hist_k, want_h, f"{what} best_hist")
+    x_adv = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32), device=device)
+    pred = torch.as_tensor(rng.integers(0, 2, n), device=device)
+    curve = torch.empty((1, n), dtype=torch.bool, device=device)
+    none = torch.zeros(n, dtype=torch.bool, device=device)
+    ms = graph_ms(lambda: kernels.restart(x_adv, pred, y, None, x_init, None, curve, 0, False))
+    wrapper = cuda_ms(lambda: kernels.restart(x_adv, pred, y, None, x_init, None, curve, 0, False))
+    plain = cuda_ms(lambda: restart_plain(x_adv, pred, y, None, x_init, None, none, False))
+    bound = bound_ms(3 * 4 * n * d + 2 * 8 * n + n, 0, 0)
+    log(f"[restart] restart (K15) equals restart_plain bit for bit on the card over {RESTART_STARTS} starts at "
+        f"{n} x {d} (untargeted, untargeted with a {t} x {n} x {c} history, targeted with it)")
+    log(f"[restart] restart (K15) at {n} x {d}, one start, no history: device {ms:.4f} ms, through the wrapper "
+        f"{wrapper:.4f} ms, plain {plain:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}) on {smi}")
+    seen = {}
+
+    def expected(cfg):
+        def after():
+            seen.update(kernels.launch_counts())
+            return point_expected_launches("pgd", cfg)
+        return after
+
+    with tempfile.TemporaryDirectory() as tmp:
+        art = f"{tmp}/lcld"
+        write_runner_artifacts("lcld", art)
+        cfg = runner_config("lcld", "pgd", art, "autopgd+flip")
+        drive_runner(cfg, smi, expected(cfg), "pgd lcld autopgd+flip (phase 21)")
+    if seen.get("restart") != 1 or seen.get("forward_labels") != 1:
+        raise AssertionError(f"the AutoPGD runner point launched {seen}: not one restart and one forward_labels")
+    log(f"[restart] rq1.lcld's autopgd+flip point through experiments.pgd.run: launches "
+        f"{ {k: v for k, v in seen.items() if v} }")
+    rec = stage_record("restart", "restart.cu", "moeva2_ijcai22_replication_tpu/attacks/pgd/engine.py:311",
+                       ms, wrapper, plain, bound, None, shape=f"{n}x{d}")
+    return rec, seen
+
+
+def check_forward(device, smi: str) -> tuple:
+    """K16's two instantiations against their plain versions on the card
+    bit for bit (labels: ``predict_plain``'s semantics; proba1:
+    ``proba1_plain``) on LCLD's and botnet's seeded stacks at
+    ``FORWARD_SHAPES``, with a NaN row; each timed at LCLD's shape beside its
+    plain version, its bound and, as the library figure, the model's own
+    ``nn.Linear`` forward and softmax (device time from a CUDA graph, as the
+    kernel's, and launched eagerly); and ``experiments.defense.proba1``
+    on the card, launch counts set to 0 just before and read just after.
+    Returns (records, proba1's launches)."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.experiments import defense
+    from moeva2_ijcai22_replication_tpu_torch.models.mlp import botnet_mlp, lcld_mlp, mlp_proba_plain, proba1_plain
+    from moeva2_ijcai22_replication_tpu_torch.models.train import stack_tensors
+
+    timed = {}
+    for name, (n_lab, n_p1) in FORWARD_SHAPES.items():
+        model = (lcld_mlp(seed=11) if name == "lcld" else botnet_mlp(seed=12))
+        rng = np.random.default_rng(len(name))
+        w, p32, layers32 = stack_tensors(model, torch.float32, device)
+        _, p64, layers64 = stack_tensors(model, torch.float64, device)
+        x32 = torch.as_tensor(rng.uniform(0.0, 1.0, (n_lab, w[0])).astype(np.float32), device=device)
+        x32[3, 1] = float("nan")
+        x64 = torch.as_tensor(rng.uniform(0.0, 1.0, (n_p1, w[0])), device=device)
+        x64[5, 0] = float("nan")
+        labels = kernels.forward_labels(x32, p32, w)
+        hold_equal(labels, torch.argmax(mlp_proba_plain(layers32, x32), dim=-1), f"forward_labels (K16) on {name}")
+        p1 = kernels.forward_proba1(x64, p64, w)
+        want = proba1_plain(layers64, x64)
+        hold_equal(p1, want, f"forward_proba1 (K16) on {name}")
+        log(f"[forward] forward_labels and forward_proba1 (K16) equal their plain versions bit for bit on {name}'s "
+            f"stack {w} at {n_lab} and {n_p1} rows (a NaN row each); labels of class 1: {int(labels.sum())}")
+        if name == "lcld":
+            lib_model = model.to(device)
+            lib_model64 = lcld_mlp(seed=11).to(device=device, dtype=torch.float64)
+            n_params = sum(a * b + b for a, b in zip(w[:-1], w[1:]))
+            ops = 2 * sum(a * b for a, b in zip(w[:-1], w[1:]))
+            for kind, x_t, params, layers, call, plain_fn, lib, size in (
+                ("forward_labels", x32, p32, layers32, kernels.forward_labels,
+                 lambda: torch.argmax(mlp_proba_plain(layers32, x32), dim=-1),
+                 lambda: torch.softmax(lib_model(x32), dim=-1), 4),
+                ("forward_proba1", x64, p64, layers64, kernels.forward_proba1,
+                 lambda: proba1_plain(layers64, x64),
+                 lambda: torch.softmax(lib_model64(x64), dim=-1), 8),
+            ):
+                rows = x_t.shape[0]
+                ms = graph_ms(lambda: call(x_t, params, w))
+                wrapper = cuda_ms(lambda: call(x_t, params, w))
+                plain = cuda_ms(plain_fn, launches=2, repeats=3)
+                library = graph_ms(lib)
+                library_eager = cuda_ms(lib)
+                n_bytes = size * (rows * w[0] + n_params) + 8 * rows
+                bound = bound_ms(n_bytes, ops * rows if size == 4 else 0, ops * rows if size == 8 else 0)
+                timed[kind] = stage_record(
+                    kind, "mlp_forward.cu",
+                    "moeva2_ijcai22_replication_tpu/experiments/pgd.py:157" if kind == "forward_labels" else
+                    "moeva2_ijcai22_replication_tpu/experiments/defense.py:102",
+                    ms, wrapper, plain, bound, library, shape=f"{rows}x{w[0]}", library_eager_ms=library_eager)
+                log(f"[forward] {kind} (K16) at {rows} x {w[0]} ({'float32' if size == 4 else 'float64'}): device "
+                    f"{ms:.4f} ms, through the wrapper {wrapper:.4f} ms, plain {plain:.3f} ms, bound {bound[0]:.5f} "
+                    f"ms ({bound[1]}), the model's nn.Linear forward and softmax (library) {library:.4f} ms of "
+                    f"device time (a CUDA graph, as K16), {library_eager:.4f} ms launched eagerly on {smi}")
+    cons, sur, scaler, x = pgd_problem()
+    kernels.reset_launch_counts()
+    p1 = defense.proba1(sur, scaler, x[:2000], device)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if launches != {**{k: 0 for k in launches}, "forward_proba1": 1}:
+        raise AssertionError(f"experiments.defense.proba1 on the card launched {launches}")
+    if p1.shape != (2000,) or not np.isfinite(p1).all():
+        raise AssertionError(f"proba1 gave {p1.shape}, finite {np.isfinite(p1).all()}")
+    log(f"[forward] experiments.defense.proba1 at 2000 LCLD rows: launches {{'forward_proba1': 1}}, finite, mean "
+        f"{float(p1.mean()):.4f}")
+    return [timed["forward_labels"], timed["forward_proba1"]], launches["forward_proba1"]
+
+
+def check_two_pointers(device, smi: str, moeva, x) -> None:
+    """K2, K4a and K3 reading [population, offspring] through two pointers
+    against the same kernels on the concatenation and against their plain
+    versions, bit for bit, at the main path's generation (1000 states, M =
+    203, R = 103), each timed both ways in turns; and one LCLD generation's
+    launches: ``GENERATION_LAUNCHES``, no eager op."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import PhiloxDraws
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import associate_plain, survive_norm_plain
+
+    draws = PhiloxDraws(moeva, 7)
+    with torch.inference_mode():
+        init = draws.init(len(x))
+        run, start = moeva._prepare(x, np.ones(len(x), dtype=np.int64), moeva.init_spec(init.ball))
+        carry = moeva.init_carry(run, init.gum_cut, init.gum_mem, start=start)
+        carry = moeva.gen_step(run, carry, draws.generation(len(x)))
+        off = moeva.offspring(run, carry.pop_x, draws.generation(len(x)).offspring)
+        pop_f, off_f = carry.pop_f, moeva._evaluate(run, off)
+        f = torch.cat([pop_f, off_f], dim=1)
+        p = moeva.pop_size
+        ranks = kernels.nd_peel(pop_f, p, off_f)
+        hold_equal(ranks, kernels.nd_peel(f, p), "nd_peel two pointers against the concatenation")
+        hold_equal(ranks, nd_ranks_plain(f, p), "nd_peel two pointers against the plain version")
+        norm = kernels.survive_norm(pop_f, ranks, moeva.asp_points, carry.norm_state, off_f)
+        state, nadir, dirs = survive_norm_plain(f, ranks, moeva.asp_points, carry.norm_state)
+        for g, c, w in zip(norm, kernels.survive_norm(f, ranks, moeva.asp_points, carry.norm_state),
+                           (*state, nadir, dirs)):
+            hold_equal(g, c, "survive_norm two pointers against the concatenation")
+            hold_equal(g, w, "survive_norm two pointers against the plain version")
+        ideal, nadir, dirs = norm[0], norm[3], norm[4]
+        assoc = kernels.associate(pop_f, dirs, ideal, nadir, off_f)
+        for g, c, w in zip(assoc, kernels.associate(f, dirs, ideal, nadir), associate_plain(f, dirs, ideal, nadir)):
+            hold_equal(g, c, "associate two pointers against the concatenation")
+            hold_equal(g, w, "associate two pointers against the plain version")
+        turns = {}
+        for name, two, one in (
+            ("nd_peel", lambda: kernels.nd_peel(pop_f, p, off_f), lambda: kernels.nd_peel(f, p)),
+            ("survive_norm", lambda: kernels.survive_norm(pop_f, ranks, moeva.asp_points, carry.norm_state, off_f),
+             lambda: kernels.survive_norm(f, ranks, moeva.asp_points, carry.norm_state)),
+            ("associate", lambda: kernels.associate(pop_f, dirs, ideal, nadir, off_f),
+             lambda: kernels.associate(f, dirs, ideal, nadir)),
+        ):
+            turns[name] = [graph_ms(two), graph_ms(one), graph_ms(one), graph_ms(two)]
+        cat_ms = graph_ms(lambda: torch.cat([pop_f, off_f], dim=1))
+        carry, port, ops = launches_per_generation(moeva, run, carry, draws, len(x))
+    check_generation_launches(port, ops, "[two-pointers]")
+    log(f"[two-pointers] nd_peel, survive_norm and associate read [population, offspring] through two pointers: "
+        f"equal to themselves on the concatenation and to their plain versions, bit for bit, at {len(x)} states "
+        f"(M = {f.shape[1]}, R = {dirs.shape[1]})")
+    log("[two-pointers] device ms in turns (two pointers, concatenation, concatenation, two pointers): "
+        + "; ".join(f"{k} " + " ".join(f"{v:.4f}" for v in t) for k, t in turns.items())
+        + f"; the parent's torch.cat {cat_ms:.4f} ms on {smi}")
+    log(f"[two-pointers] one LCLD generation at {len(x)} states launches {sum(port.values())} kernels "
+        f"({ {k: v for k, v in port.items() if v} }) and no eager op")
+
+
+def run_stages(device, smi: str, resources: list, records: list, moeva, x, knobs) -> dict:
+    """Phase 21. Returns the launches of K14, K15 and K16 on their paths."""
+    t0 = time.perf_counter()
+    for k in resources:
+        if k["kernel"].startswith(("refdirs_kernel", "restart_kernel", "forward_kernel")):
+            log(f"[stages] ptxas {k['kernel']}: {k['registers']} registers, {k['smem']} bytes static shared memory, "
+                f"{k['stack']} bytes stack frame, {k['spill_stores']} + {k['spill_loads']} bytes spill stores + loads")
+    rec, n_refdirs = check_refdirs(device, smi, moeva, knobs, x)
+    records.append(rec)
+    rec, seen = check_restart(device, smi)
+    records.append(rec)
+    recs, n_proba1 = check_forward(device, smi)
+    records += recs
+    check_two_pointers(device, smi, moeva, x)
+    log(f"[stages] phase 21 took {time.perf_counter() - t0:.1f} s")
+    return {"refdirs": n_refdirs, "restart": seen["restart"], "forward_labels": seen["forward_labels"],
+            "forward_proba1": n_proba1}
 
 
 def main() -> int:
@@ -7155,7 +7616,7 @@ def main() -> int:
     # no grid file selects AutoPGD: its counters are checked on phase 14's drives
     idle = [name for name, n in grid_launches.items()
             if n == 0 and name not in AUTOPGD_COUNTERS + EARLY_EXIT_COUNTERS + HISTORY_COUNTERS + SPEC_COUNTERS
-            + SPEC_PGD_COUNTERS + DEFENSE_COUNTERS + ("pgd_start",)]
+            + SPEC_PGD_COUNTERS + DEFENSE_COUNTERS + ("pgd_start", "refdirs", "restart")]
     if idle:
         raise AssertionError(f"phase 13's grids launched no {idle}")
     auto_records, auto_launches = run_autopgd(device, smi, resources, problem)
@@ -7177,7 +7638,9 @@ def main() -> int:
     lap("phase 19")
     launches.update(run_draws(device, smi, resources, records, moeva, x))
     lap("phase 20")
-    log(f"[smoke] phases 1-20 took {time.perf_counter() - t_smoke:.1f} s")
+    launches.update(run_stages(device, smi, resources, records, moeva, x, knobs))
+    lap("phase 21")
+    log(f"[smoke] phases 1-21 took {time.perf_counter() - t_smoke:.1f} s")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         rec["grid_launches"] = grid_launches[rec["name"]]

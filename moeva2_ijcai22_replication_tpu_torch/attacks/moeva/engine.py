@@ -28,9 +28,11 @@ and ends with one of K13b (the returned columns and their decode).
 On the card a generation is one launch of K0 for its draws, then six
 hand-written kernels: K5 offspring, the objectives (K1 on LCLD, K8 on botnet, K9 on a domain compiled
 from a spec), K2 front peel, K4a
-normalisation, K3 niche association and K4b fill, extraction and archive.
-The one other device op of a step is the ``torch.cat`` of the population's
-and the offspring's objectives that K2, K4a and K3 read. With
+normalisation, K3 niche association and K4b fill, extraction and archive;
+K2, K4a and K3 read the population's and the offspring's objectives
+through two pointers, so a step runs no other device op. An engine's
+aspiration points are one launch of K14 at its construction, once per
+process and shape (``refdirs.ref_points``). With
 ``save_history="full"`` the objectives are K1's, K8's or K9's history
 instantiation, which also writes each candidate's record (objectives, then
 kept constraint terms) into the segment's device buffer; with "reduced"
@@ -69,7 +71,7 @@ from ...core.constraints import ConstraintSet
 from ...core.norms import is_inf, is_l2, validate_norm
 from ...core.philox import NORMAL, SYMMETRIC, Field, PhiloxStream
 from ...models.io import Surrogate
-from ...models.mlp import MLP, mlp_forward_plain
+from ...models.mlp import MLP, mlp_proba_plain
 from ...models.scalers import MinMaxParams
 from ...observability.quality import merge_chunk_quality, sample_from_per_state
 from ..objective import engine_quality_stats
@@ -77,7 +79,7 @@ from .checkpoint import AttackCheckpointer
 from .chunk_io import InitSpec, chunk_decode, chunk_prepare, feature_gene_tables, make_chunk_tables
 from .initialisation import ball_draw_shape, n_perturbed
 from .operators import OffspringDraws, make_offspring, make_operator_tables, offspring_draws, offspring_fields
-from .refdirs import energy_ref_dirs, rnsga3_geometry
+from .refdirs import ref_points, rnsga3_pop_size
 from .survival import (
     NormState, _sqrt_rn, _sum_last, gumbel_fields, survive_batch, survive_fill_plain, survive_stages,
 )
@@ -242,26 +244,6 @@ def _scalar(like: torch.Tensor, v: float) -> torch.Tensor:
     division on every device, while PyTorch on CUDA turns a division by a
     Python number into a product with its rounded reciprocal."""
     return torch.full((), v, dtype=like.dtype, device=like.device)
-
-
-def _exp_rn(t: torch.Tensor) -> torch.Tensor:
-    """``exp`` in float64, rounded once to ``t``'s dtype: the same bits on
-    the card, on the CPU and in kernel K1."""
-    return torch.exp(t.double()).to(t.dtype)
-
-
-def mlp_proba_plain(layers, x: torch.Tensor) -> torch.Tensor:
-    """Class probabilities of the relu stack ``layers`` in K1's order: in
-    float32 each unit starts from its bias and adds ``weight[k] * x[k]`` for
-    k = 0, 1, … one rounded operation at a time (float64, which no kernel
-    computes, takes one matmul per layer); softmax as ``exp(l - max)`` over
-    the left-to-right sum, a 1-column (sigmoid) head as ``[1 - p, p]``."""
-    a = mlp_forward_plain(layers, x)[-1]
-    if a.shape[-1] == 1:
-        p = 1.0 / (1.0 + _exp_rn(-a))
-        return torch.cat([1.0 - p, p], dim=-1)
-    e = _exp_rn(a - a.amax(-1, keepdim=True))
-    return e / _sum_last(e, keepdim=True)
 
 
 def _objectives_and_terms(obj: ObjectiveTables, codec, run: "RunInputs", x_gen, constraints):
@@ -499,12 +481,11 @@ class Moeva2:
         #: gate flushes of the last ``generate`` that ran after the next
         #: segment was launched (0 with ``double_buffer`` False)
         self.last_deferred_gate_flushes = 0
-        # survival consumes the raw aspiration (energy) points; the full
-        # RNSGA3 geometry only fixes the population size
-        _, self.pop_size = rnsga3_geometry(3, self.n_pop, seed=1)
-        self.asp_points = torch.as_tensor(
-            energy_ref_dirs(3, self.n_pop, seed=1), dtype=self.dtype, device=self.device
-        )
+        # survival consumes the raw aspiration (energy) points, from K14 on
+        # the card (once per process and shape); the RNSGA3 geometry only
+        # fixes the population size
+        self.pop_size = rnsga3_pop_size(3, self.n_pop)
+        self.asp_points = ref_points(3, self.n_pop, seed=1, device=self.device).to(self.dtype)
         validate_norm(self.norm)
         if not 0 <= self.archive_size <= self.pop_size:
             raise ValueError(
@@ -644,8 +625,10 @@ class Moeva2:
 
     def gen_step(self, run: RunInputs, carry: Carry, draws: GenerationDraws, record=None) -> Carry:
         """One generation: offspring (K5), objectives (K1 or K8; with their
-        history ``record``, (S, n_offsprings, C), where given), merge, front
-        peel (K2), normalisation (K4a), association (K3), then the fill,
+        history ``record``, (S, n_offsprings, C), where given), then on the
+        objectives of [population, offspring], read through two pointers
+        with no merged copy on the card, front peel (K2), normalisation
+        (K4a), association (K3), then the fill,
         survivors first in stable order and the archive update (K4b). Each
         stage is a ``record_function`` range, which a profile of the step
         labels its kernels by."""
@@ -655,12 +638,12 @@ class Moeva2:
         with record_function("moeva.objectives"):
             off_f = self._evaluate(run, off, record)
         with record_function("moeva.survival"):
-            merged_f = torch.cat([pop_f, off_f], dim=1)
+            # K2, K4a and K3 read [pop_f, off_f] through two pointers
             ranks, norm_state, niche, dist = survive_stages(
-                merged_f, self.asp_points, norm_state, self.pop_size
+                pop_f, self.asp_points, norm_state, self.pop_size, off_f
             )
         with record_function("moeva.fill_extract_archive"):
-            if merged_f.is_cuda:
+            if pop_f.is_cuda:
                 from ...kernels import survive_fill
 
                 out = survive_fill(

@@ -49,12 +49,15 @@ def nd_ranks_plain(f: torch.Tensor, n_stop: int | None = None) -> torch.Tensor:
         r += 1
 
 
-def nd_ranks(f: torch.Tensor, n_stop: int | None = None) -> torch.Tensor:
-    """:func:`nd_ranks_plain` semantics; kernel K2 on a CUDA tensor."""
-    if n_stop is None:
-        n_stop = f.shape[-2]
+def nd_ranks(f: torch.Tensor, n_stop: int | None = None, off_f: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`nd_ranks_plain` semantics on the merged objectives [f,
+    off_f] (``f`` alone without ``off_f``); kernel K2 on a CUDA tensor,
+    which reads the two apart."""
     if f.is_cuda:
         from ...kernels import nd_peel
 
-        return nd_peel(f, n_stop)
+        m = f.shape[-2] + (0 if off_f is None else off_f.shape[-2])
+        return nd_peel(f, m if n_stop is None else n_stop, off_f)
+    if off_f is not None:
+        f = torch.cat([f, off_f], dim=-2)
     return nd_ranks_plain(f, n_stop)

@@ -3,8 +3,11 @@
 Port of ``attacks/moeva/refdirs.py``. ``energy_ref_dirs`` minimises the
 Riesz s-energy of softmax-parameterised simplex points with Adam on a cosine
 schedule, written out by hand to follow optax's ``adam`` +
-``cosine_decay_schedule`` step for step. It runs in float64 on the CPU: it
-is set-up work of 3000 steps on an (n_points, n_dim) tensor.
+``cosine_decay_schedule`` step for step, in float64. On the card the whole
+descent is one launch of kernel K14 (``kernels/csrc/refdirs.cu``), once per
+(n_dim, n_points, seed, n_iter, device) and process; on the CPU it runs
+:func:`energy_descent_plain`, the kernel's twin: the analytic gradient in
+the kernel's order of operations.
 """
 
 from __future__ import annotations
@@ -44,33 +47,97 @@ def _dd_compositions(n_dim: int, n_part: int):
         yield comp
 
 
-def _riesz_energy(z: torch.Tensor, s: float) -> torch.Tensor:
-    diff = z[:, None, :] - z[None, :, :]
-    d2 = (diff * diff).sum(-1)
-    off = ~torch.eye(z.shape[0], dtype=torch.bool)
-    d2 = torch.where(off, d2, 1.0)
-    return torch.where(off, d2 ** (-s / 2.0), 0.0).sum()
+#: optax ``adam``'s constants and ``cosine_decay_schedule``'s initial rate
+LR0, ADAM_B1, ADAM_B2, ADAM_EPS = 5e-2, 0.9, 0.999, 1e-8
 
 
-def _energy_descent(theta: torch.Tensor, s: float, n_iter: int) -> torch.Tensor:
-    """optax.adam(cosine_decay_schedule(5e-2, n_iter)) on the energy of
-    softmax(theta): b1=0.9, b2=0.999, eps=1e-8, bias-corrected moments, the
-    learning rate read at the step count before its increment."""
-    lr0, b1, b2, eps = 5e-2, 0.9, 0.999, 1e-8
-    theta = theta.clone().requires_grad_(True)
+def descent_schedule(n_iter: int) -> torch.Tensor:
+    """(n_iter, 3) float64, per step: the cosine-decayed learning rate read
+    at the step count before its increment, then Adam's bias corrections
+    1 - b1**t and 1 - b2**t at the incremented count t. Computed on the
+    host, an input of both the kernel and its twin."""
+    rows = [
+        (
+            LR0 * (0.5 * (1.0 + math.cos(math.pi * min(step, n_iter) / n_iter))),
+            1.0 - ADAM_B1 ** (step + 1),
+            1.0 - ADAM_B2 ** (step + 1),
+        )
+        for step in range(n_iter)
+    ]
+    return torch.tensor(rows, dtype=torch.float64).reshape(n_iter, 3)
+
+
+def _softmax_rows(theta: torch.Tensor) -> torch.Tensor:
+    """softmax over the last axis: e = exp(theta - max), each divided by
+    the left-to-right sum of e."""
+    ex = torch.exp(theta - theta.amax(-1, keepdim=True))
+    tot = ex[:, 0]
+    for k in range(1, ex.shape[1]):
+        tot = tot + ex[:, k]
+    return ex / tot[:, None].expand_as(ex)
+
+
+def _left_to_right(terms: torch.Tensor) -> torch.Tensor:
+    """The sum over axis 1 of ``terms`` (n, m, ...), one rounded addition
+    at a time from column 0."""
+    acc = terms[:, 0]
+    for j in range(1, terms.shape[1]):
+        acc = acc + terms[:, j]
+    return acc
+
+
+def energy_descent_plain(theta: torch.Tensor, s: float, sched: torch.Tensor) -> torch.Tensor:
+    """Kernel K14's twin: ``softmax(theta)`` after one Adam step per row of
+    ``sched`` (:func:`descent_schedule`) on the Riesz s-energy E = sum over
+    i != j of d2_ij^(-s/2) of z = softmax(theta), float64 (n, n_dim).
+
+    Each step, in the kernel's order: z = softmax(theta); point i's energy
+    gradient -2s * sum_j w_ij (z_i - z_j), with w_ij = pow(d2_ij, -s/2 - 1)
+    (0 for j = i), d2_ij summed over the dimensions from 0, the sum over j
+    from 0 one rounded addition at a time; the softmax backward z * (g -
+    <z, g>), <z, g> from dimension 0; then optax's Adam: mu = (1 - b1) g +
+    b1 mu, nu = (1 - b2) g^2 + b2 nu, theta -= lr * (mu / c1) / (sqrt(nu /
+    c2) + eps). Vectorised over i, the sums over j and the dimensions one
+    column at a time."""
+    theta = theta.clone()
+    n = theta.shape[0]
     mu = torch.zeros_like(theta)
     nu = torch.zeros_like(theta)
-    for step in range(n_iter):
-        (g,) = torch.autograd.grad(_riesz_energy(torch.softmax(theta, -1), s), theta)
-        mu = b1 * mu + (1.0 - b1) * g
-        nu = b2 * nu + (1.0 - b2) * g * g
-        t = step + 1
-        mu_hat = mu / (1.0 - b1**t)
-        nu_hat = nu / (1.0 - b2**t)
-        lr = lr0 * (0.5 * (1.0 + math.cos(math.pi * min(step, n_iter) / n_iter)))
-        with torch.no_grad():
-            theta -= lr * (mu_hat / (torch.sqrt(nu_hat) + eps))
-    return torch.softmax(theta.detach(), -1)
+    off = ~torch.eye(n, dtype=torch.bool, device=theta.device)
+    expo = torch.full((n, n), -s / 2.0 - 1.0, dtype=theta.dtype, device=theta.device)
+    coef = -2.0 * s
+    eps = torch.full_like(theta, ADAM_EPS)
+    for lr, c1, c2 in sched.tolist():
+        z = _softmax_rows(theta)
+        diff = z[:, None, :] - z[None, :, :]
+        d2 = _left_to_right((diff * diff).transpose(1, 2))
+        w = torch.where(off, torch.pow(d2, expo), 0.0)
+        g = coef * _left_to_right(w[:, :, None] * diff)
+        dot = _left_to_right(z * g)
+        g = z * (g - dot[:, None].expand_as(g))
+        mu = (1.0 - ADAM_B1) * g + ADAM_B1 * mu
+        nu = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * nu
+        mu_hat = mu / torch.full_like(mu, c1)
+        nu_hat = nu / torch.full_like(nu, c2)
+        theta = theta - lr * (mu_hat / (torch.sqrt(nu_hat) + eps))
+    return _softmax_rows(theta)
+
+
+def energy_descent(theta: torch.Tensor, s: float, n_iter: int) -> torch.Tensor:
+    """:func:`energy_descent_plain` semantics; kernel K14 on a CUDA
+    tensor."""
+    if theta.is_cuda:
+        from ...kernels import refdirs
+
+        return refdirs(theta, descent_schedule(n_iter).to(theta.device), s)
+    return energy_descent_plain(theta, s, descent_schedule(n_iter))
+
+
+def start_point(n_dim: int, n_points: int, seed: int) -> np.ndarray:
+    """The descent's seeded start: the log of a numpy Dirichlet draw,
+    clipped at 1e-6, float64 (n_points, n_dim)."""
+    init = np.random.default_rng(seed).dirichlet(np.ones(n_dim), n_points)
+    return np.log(np.clip(init, 1e-6, 1.0))
 
 
 def energy_ref_dirs(
@@ -80,26 +147,33 @@ def energy_ref_dirs(
     n_iter: int = 3000,
     theta0: np.ndarray | None = None,
 ) -> np.ndarray:
-    """Riesz s-energy reference directions on the unit simplex, s = n_dim + 1.
+    """Riesz s-energy reference directions on the unit simplex, s = n_dim + 1,
+    from the CPU path (:func:`energy_descent_plain`).
 
-    The start point is the log of a seeded numpy Dirichlet draw (clipped at
-    1e-6), or ``theta0`` when given — the tests pass the JAX package's own
-    start point there."""
+    The start point is :func:`start_point`, or ``theta0`` when given — the
+    tests pass the JAX package's own start point there."""
     if theta0 is None:
-        return _energy_ref_dirs_seeded(n_dim, n_points, seed, n_iter).copy()
+        return ref_points(n_dim, n_points, seed, n_iter, "cpu").numpy().copy()
     if n_points == 1:
         return np.full((1, n_dim), 1.0 / n_dim)
     theta = torch.as_tensor(np.array(theta0, np.float64))
-    return _energy_descent(theta, float(n_dim + 1), n_iter).numpy()
+    return energy_descent(theta, float(n_dim + 1), n_iter).numpy()
+
+
+def ref_points(n_dim: int, n_points: int, seed: int = 1, n_iter: int = 3000, device="cpu") -> torch.Tensor:
+    """:func:`energy_ref_dirs` from the seeded start as a float64 tensor on
+    ``device``: one K14 launch on the card, once per (n_dim, n_points,
+    seed, n_iter, device) and process. The tensor is shared: callers do not
+    write into it."""
+    return _ref_points(n_dim, n_points, seed, n_iter, str(torch.device(device)))
 
 
 @lru_cache(maxsize=32)
-def _energy_ref_dirs_seeded(n_dim: int, n_points: int, seed: int, n_iter: int) -> np.ndarray:
+def _ref_points(n_dim: int, n_points: int, seed: int, n_iter: int, device: str) -> torch.Tensor:
     if n_points == 1:
-        return np.full((1, n_dim), 1.0 / n_dim)
-    init = np.random.default_rng(seed).dirichlet(np.ones(n_dim), n_points)
-    theta = torch.as_tensor(np.log(np.clip(init, 1e-6, 1.0)))
-    return _energy_descent(theta, float(n_dim + 1), n_iter).numpy()
+        return torch.full((1, n_dim), 1.0 / n_dim, dtype=torch.float64, device=device)
+    theta = torch.as_tensor(start_point(n_dim, n_points, seed), device=device)
+    return energy_descent(theta, float(n_dim + 1), n_iter)
 
 
 def aspiration_ref_dirs(
@@ -125,9 +199,14 @@ def aspiration_ref_dirs(
     return np.concatenate(out, axis=0)
 
 
+def rnsga3_pop_size(n_obj: int, n_pop: int, pop_per_ref_point: int = 1) -> int:
+    """The RNSGA3 population size, n_ref_points * pop_per_ref_point + n_obj,
+    without running the descent: the energy method gives n_pop points."""
+    return n_pop * das_dennis(n_obj, pop_per_ref_point).shape[0] + n_obj
+
+
 def rnsga3_geometry(n_obj: int, n_pop: int, pop_per_ref_point: int = 1, mu: float = 0.1, seed: int = 1):
     """(ref_dirs, pop_size): pop_size = n_ref_points * pop_per_ref_point + n_obj."""
-    ref_points = energy_ref_dirs(n_obj, n_pop, seed=seed)
-    dirs = aspiration_ref_dirs(ref_points, pop_per_ref_point, mu)
-    k = das_dennis(n_obj, pop_per_ref_point).shape[0]
-    return dirs, ref_points.shape[0] * k + n_obj
+    ref = energy_ref_dirs(n_obj, n_pop, seed=seed)
+    dirs = aspiration_ref_dirs(ref, pop_per_ref_point, mu)
+    return dirs, rnsga3_pop_size(n_obj, n_pop, pop_per_ref_point)

@@ -167,13 +167,20 @@ def associate_plain(f, dirs, ideal, nadir):
     return niche, _sqrt_rn(torch.clamp(dist2, min=0.0))
 
 
-def associate_batch(f, dirs, ideal, nadir):
-    """:func:`associate_plain` semantics; kernel K3 on CUDA tensors."""
+def associate_batch(f, dirs, ideal, nadir, off_f=None):
+    """:func:`associate_plain` semantics on the merged objectives [f,
+    off_f] (``f`` alone without ``off_f``); kernel K3 on CUDA tensors,
+    which reads the two apart."""
     if f.is_cuda:
         from ...kernels import associate
 
-        return associate(f, dirs, ideal, nadir)
-    return associate_plain(f, dirs, ideal, nadir)
+        return associate(f, dirs, ideal, nadir, off_f)
+    return associate_plain(_merge(f, off_f), dirs, ideal, nadir)
+
+
+def _merge(f, off_f):
+    """The merged objectives [f, off_f] the plain versions take: a copy."""
+    return f if off_f is None else torch.cat([f, off_f], dim=1)
 
 
 def _niching_fill(gum_cut, gum_mem, ranks, split_rank, niche, dist, niche_count, n_remaining, n_survive):
@@ -250,14 +257,16 @@ def survive_norm_plain(f, ranks, asp_points, state: NormState):
     return NormState(ideal=ideal, worst=worst, extreme=extreme), nadir, dirs
 
 
-def survive_norm(f, ranks, asp_points, state: NormState):
-    """:func:`survive_norm_plain` semantics; kernel K4a on CUDA tensors."""
+def survive_norm(f, ranks, asp_points, state: NormState, off_f=None):
+    """:func:`survive_norm_plain` semantics on the merged objectives [f,
+    off_f] (``f`` alone without ``off_f``); kernel K4a on CUDA tensors,
+    which reads the two apart."""
     if f.is_cuda:
         from ...kernels import survive_norm as kernel
 
-        ideal, worst, extreme, nadir, dirs = kernel(f, ranks, asp_points, state)
+        ideal, worst, extreme, nadir, dirs = kernel(f, ranks, asp_points, state, off_f)
         return NormState(ideal=ideal, worst=worst, extreme=extreme), nadir, dirs
-    return survive_norm_plain(f, ranks, asp_points, state)
+    return survive_norm_plain(_merge(f, off_f), ranks, asp_points, state)
 
 
 def survive_fill_plain(gum_cut, gum_mem, ranks, niche, dist, n_survive: int):
@@ -293,13 +302,16 @@ def draw_gumbels(stream, n_states: int, n_dirs: int, m: int, dtype=torch.float32
     return out["gum_cut"], out["gum_mem"]
 
 
-def survive_stages(f, asp_points, state: NormState, n_survive: int):
-    """The stages of a survival round before the fill: K2, K4a, K3. Returns
+def survive_stages(f, asp_points, state: NormState, n_survive: int, off_f=None):
+    """The stages of a survival round before the fill: K2, K4a, K3, on the
+    merged objectives [f (S, P, 3), off_f (S, O, 3)] (``f`` alone without
+    ``off_f``). On the card each kernel reads the two apart (no merged
+    copy); on the CPU the plain versions take the concatenation. Returns
     ``(ranks, new_state, niche, dist)``."""
     # fronts beyond the splitting front never survive: peel only that far
-    ranks = nd_ranks(f, n_stop=n_survive)
-    new_state, nadir, dirs = survive_norm(f, ranks, asp_points, state)
-    niche, dist = associate_batch(f, dirs, new_state.ideal, nadir)
+    ranks = nd_ranks(f, n_stop=n_survive, off_f=off_f)
+    new_state, nadir, dirs = survive_norm(f, ranks, asp_points, state, off_f)
+    niche, dist = associate_batch(f, dirs, new_state.ideal, nadir, off_f)
     return ranks, new_state, niche, dist
 
 

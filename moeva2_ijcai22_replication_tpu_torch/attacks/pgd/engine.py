@@ -61,9 +61,9 @@ from ...core.constraints import ConstraintSet
 from ...core.norms import condition_grad, is_inf, project_ball, sqrt_rn, sum_last, validate_norm
 from ...core.philox import NORMAL, SYMMETRIC, UNIFORM, Field, PhiloxStream, draw_plain, layout
 from ...models.io import Surrogate
-from ...models.mlp import mlp_forward_plain, mlp_input_grad_plain
+from ...models.mlp import exp_rn as _exp_rn
+from ...models.mlp import mlp_forward_plain, mlp_input_grad_plain, mlp_proba_plain
 from ...models.scalers import MinMaxParams
-from ..moeva.engine import _exp_rn, mlp_proba_plain
 
 
 class PgdSchedule(NamedTuple):
@@ -416,11 +416,12 @@ class ConstrainedPGD:
             self.targeted, self.history_layout(),
         )
 
-    def attack(self, x_init, y, sched: PgdSchedule, eps: float, starts=None):
+    def attack(self, x_init, y, sched: PgdSchedule, eps: float, starts=None, n_starts: int | None = None):
         """``(x_adv, hist, restart_success)`` for tensors on the attack's
         device. Without ``starts`` one run from ``x_init`` whose result is
-        returned as it is; else one run per start (an iterable of (N, D)
-        tensors), a row keeping the first run that flips it (that hits the
+        returned as it is; else one run per start (a sequence of (N, D)
+        tensors, or any iterable of ``n_starts`` of them, drawn one at a
+        time), a row keeping the first run that flips it (that hits the
         target when ``targeted``) and ``x_init`` when none does, its history
         following the kept run (an unsuccessful row's the latest run), and
         ``restart_success`` (R, N) the cumulative success after each run."""
@@ -428,20 +429,17 @@ class ConstrainedPGD:
         if starts is None:
             x_adv, _, hist = self.one_run(x_init, y, x_init, sched, eps)
             return x_adv, hist, torch.zeros((0, n), dtype=torch.bool, device=x_init.device)
+        n_starts = len(starts) if n_starts is None else n_starts
         best_x, best_hist = x_init, None
-        best_success = torch.zeros(n, dtype=torch.bool, device=x_init.device)
-        curve = []
-        for x_start in starts:
+        curve = torch.empty((n_starts, n), dtype=torch.bool, device=x_init.device)
+        ran = 0
+        for r, x_start in enumerate(starts):
             x_adv, pred, hist = self.one_run(x_init, y, x_start, sched, eps)
-            success = pred == y if self.targeted else pred != y
-            take = success & ~best_success
-            best_x = torch.where(take[:, None], x_adv, best_x)
-            if hist is not None:
-                upd = take | ~(best_success | success)
-                best_hist = hist if best_hist is None else torch.where(upd[None, :, None], hist, best_hist)
-            best_success = best_success | success
-            curve.append(best_success)
-        return best_x, best_hist, torch.stack(curve)
+            best_x, best_hist = restart(x_adv, pred, y, hist, best_x, best_hist, curve, r, self.targeted)
+            ran = r + 1
+        if ran != n_starts:
+            raise ValueError(f"{ran} starts given, {n_starts} announced")
+        return best_x, best_hist, curve
 
     @torch.inference_mode()
     def generate(self, x_scaled: np.ndarray, y: np.ndarray, *, eps: float | None = None,
@@ -474,7 +472,7 @@ class ConstrainedPGD:
         if self.num_random_init:
             stream = PhiloxStream(self.seed, self.device)
             starts = (self.random_start(stream, x_init, eps) for _ in range(self.num_random_init))
-        x_adv, hist, curve = self.attack(x_init, y_t, sched, eps, starts)
+        x_adv, hist, curve = self.attack(x_init, y_t, sched, eps, starts, self.num_random_init)
         self.loss_history = None if hist is None else hist.transpose(0, 1).cpu().numpy()
         if self.num_random_init:
             succ = curve.cpu().numpy()
@@ -485,6 +483,36 @@ class ConstrainedPGD:
         else:
             self.quality_history = None
         return x_adv.cpu().numpy()
+
+
+def restart_plain(x_adv, pred, y, hist, best_x, best_hist, best_success, targeted: bool):
+    """JAX's restart arbitration after one start's run (``restart``, JAX
+    ``attacks/pgd/engine.py``): a row keeps the first run that succeeds on
+    it (flips it, or hits the target when ``targeted``), its history
+    follows the kept run and an unsuccessful row's the latest run. Returns
+    ``(best_x, best_hist, best_success)``; ``best_hist`` None takes the
+    run's history. The semantics of kernel K15, selections only."""
+    success = pred == y if targeted else pred != y
+    take = success & ~best_success
+    best_x = torch.where(take[:, None], x_adv, best_x)
+    if hist is not None:
+        upd = take | ~(best_success | success)
+        best_hist = hist if best_hist is None else torch.where(upd[None, :, None], hist, best_hist)
+    return best_x, best_hist, best_success | success
+
+
+def restart(x_adv, pred, y, hist, best_x, best_hist, curve, r: int, targeted: bool):
+    """:func:`restart_plain` after start ``r``, its cumulative success
+    written into row ``r`` of ``curve`` (R, N) from row r - 1 (none before
+    the first start); returns ``(best_x, best_hist)``. Kernel K15 on CUDA
+    tensors, which updates them in place from the second start on."""
+    if x_adv.is_cuda:
+        from ...kernels import restart as kernel
+
+        return kernel(x_adv, pred, y, hist, best_x, best_hist, curve, r, targeted)
+    prev = curve[r - 1] if r else torch.zeros_like(curve[0])
+    best_x, best_hist, curve[r] = restart_plain(x_adv, pred, y, hist, best_x, best_hist, prev, targeted)
+    return best_x, best_hist
 
 
 def round_ints_toward_initial(

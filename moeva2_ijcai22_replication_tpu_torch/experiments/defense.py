@@ -43,7 +43,6 @@ Run from the command line (``-c`` config files, ``-j`` inline JSON,
 
 from __future__ import annotations
 
-import copy
 import csv
 import os
 
@@ -57,9 +56,11 @@ from ..attacks.pgd import ConstrainedPGD, round_ints_toward_initial
 from ..core.schema import FeatureSchema
 from ..domains import augmentation
 from ..models.io import Surrogate, load_classifier, save_classifier
-from ..models.mlp import botnet_mlp, lcld_mlp
+from ..models.mlp import botnet_mlp, lcld_mlp, proba1_plain
 from ..models.scalers import fit_minmax_sklearn, from_sklearn_minmax, load_npz, load_npz_bounds, save_npz
-from ..models.train import auroc, fit_mlp, flat_params, input_grad, mlp_widths, train_dtype, train_test_split
+from ..models.train import (
+    auroc, fit_mlp, flat_params, input_grad, mlp_widths, stack_tensors, train_dtype, train_test_split,
+)
 from ..utils.config import parse_run_args
 from . import common
 
@@ -136,12 +137,17 @@ def make_trainer(model_fn, knobs: dict, seed: int, device="cuda", dtype=None):
 
 
 def proba1(sur: Surrogate, scaler, x: np.ndarray, device="cpu") -> np.ndarray:
-    """P(class=1) of the scaled rows, the forward in float64 on ``device``."""
-    dev = torch.device(device)
-    model = Surrogate(copy.deepcopy(sur.model).to(device=dev, dtype=torch.float64))
+    """P(class=1) of the scaled rows, the forward in float64 on ``device``:
+    kernel K16's float64 instantiation on the card, its plain version
+    ``models.mlp.proba1_plain`` on the CPU."""
+    widths, params, layers = stack_tensors(sur.model, torch.float64, torch.device(device))
     with torch.no_grad():
-        xs = torch.as_tensor(np.asarray(scaler.transform(x), np.float64), device=dev)
-        return model.predict_proba(xs)[:, 1].cpu().numpy()
+        xs = torch.as_tensor(np.asarray(scaler.transform(x), np.float64), device=params.device)
+        if xs.is_cuda:
+            from ..kernels import forward_proba1
+
+            return forward_proba1(xs, params, widths).cpu().numpy()
+        return proba1_plain(layers, xs).numpy()
 
 
 def moeva_attack(model, constraints, ml_scaler, config, x_cand, device="cuda") -> np.ndarray:

@@ -45,7 +45,6 @@ Run one config from the command line (``-c`` file, ``-j`` inline JSON,
 
 from __future__ import annotations
 
-import copy
 import os
 import time
 
@@ -57,6 +56,8 @@ from ..attacks.objective import ObjectiveCalculator, write_success_rate_csv
 from ..attacks.pgd import AutoPGD, ConstrainedPGD, round_ints_toward_initial
 from ..attacks.sat import SatAttack
 from ..models.io import Surrogate
+from ..models.mlp import mlp_proba_plain
+from ..models.train import stack_tensors
 from ..utils.config import get_dict_hash, parse_run_args, save_config
 from ..utils.in_out import json_to_file
 from ..utils.observability import PhaseTimer
@@ -67,11 +68,17 @@ from . import common
 def surrogate_labels(surrogate: Surrogate, x_scaled: np.ndarray, device, dtype) -> np.ndarray:
     """The surrogate's own classes of the scaled rows (the first largest
     probability), on ``device`` in ``dtype``: ART's labels when none are
-    given, as the reference's label-free ``generate(x)`` takes them."""
-    model = copy.deepcopy(surrogate.model).to(device=device, dtype=dtype).eval()
+    given, as the reference's label-free ``generate(x)`` takes them.
+    Kernel K16 on the card (float32), ``predict_plain``'s semantics
+    (``attacks.pgd.engine``); on the CPU that plain version."""
+    widths, params, layers = stack_tensors(surrogate.model, dtype, device)
     with torch.inference_mode():
         x = torch.as_tensor(x_scaled, dtype=dtype, device=device)
-        return Surrogate(model).predict_proba(x).argmax(-1).cpu().numpy()
+        if x.is_cuda:
+            from ..kernels import forward_labels
+
+            return forward_labels(x, params, widths).cpu().numpy()
+        return torch.argmax(mlp_proba_plain(layers, x), dim=-1).numpy()
 
 
 def _cached_attack(config, surrogate, constraints, scaler, device, dtype) -> ConstrainedPGD:

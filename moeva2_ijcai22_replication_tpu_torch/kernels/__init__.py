@@ -19,7 +19,10 @@ In the order a generation launches them:
   (``domains.ir.program``); its history instantiation counts as
   ``objective_spec_hist``.
 - ``nd_peel`` (K2, ``csrc/nd_peel.cu``): non-dominated front peeling; its
-  plain version is ``attacks.moeva.nds.nd_ranks_plain``.
+  plain version is ``attacks.moeva.nds.nd_ranks_plain``. K2, K4a and K3 read
+  a generation's objectives of [population, offspring] through two
+  pointers, with no merged copy; their plain versions take the
+  concatenation.
 - ``survive_norm`` (K4a, ``csrc/survive_norm.cu``): ideal, worst, extreme
   points, nadir and directions; plain version
   ``attacks.moeva.survival.survive_norm_plain``.
@@ -70,6 +73,18 @@ and ``chunk_decode`` (K13b, the same source): the returned columns and
 their decode to ML space; plain versions ``attacks.moeva.chunk_io.
 chunk_prepare_plain`` and ``chunk_decode_plain``.
 
+And, once per process and shape at an engine's construction, ``refdirs``
+(K14, ``csrc/refdirs.cu``): the reference directions' energy descent, one
+CTA; plain version ``attacks.moeva.refdirs.energy_descent_plain``. After
+each random start of PGD or AutoPGD, ``restart`` (K15,
+``csrc/restart.cu``): the restart arbitration; plain version
+``attacks.pgd.engine.restart_plain``. Outside the attacks, the surrogate's
+forward (K16, ``csrc/mlp_forward.cu``): ``forward_labels``, the PGD
+runner's labels in float32 (plain version ``attacks.pgd.engine.
+predict_plain``'s semantics), and ``forward_proba1``, the pipelines'
+class-1 probabilities in float64 (plain version ``models.mlp.
+proba1_plain``).
+
 The wrappers take CUDA tensors only and raise on anything the kernel does
 not take, or when a build or launch fails; callers route CPU tensors to the
 plain versions. Importing this module builds nothing: the library is built
@@ -95,7 +110,8 @@ _LAUNCHES = {
         "objective_botnet_aug", "pgd_lcld_auto", "pgd_lcld_aug_auto", "pgd_botnet_auto",
         "gate_stats", "take_carry", "objective_lcld_hist", "objective_lcld_aug_hist", "objective_botnet_hist",
         "objective_botnet_aug_hist", "objective_spec", "objective_spec_hist", "pgd_spec", "pgd_spec_auto", "train_step", "train_loss",
-        "input_grad", "draws", "pgd_start", "chunk_prepare", "chunk_decode",
+        "input_grad", "draws", "pgd_start", "chunk_prepare", "chunk_decode", "refdirs", "restart",
+        "forward_labels", "forward_proba1",
     )
 }
 
@@ -139,24 +155,41 @@ def _raise_on_error(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {lib.moeva_error_string(err).decode()}")
 
 
-def nd_peel(f: torch.Tensor, n_stop: int) -> torch.Tensor:
-    """Kernel K2: front ranks (S, M) int32 of ``f`` (S, M, 3) float32."""
+def _merged(f, off_f, what: str):
+    """``(f, off_f, M, P)`` of the merged objectives [f (S, P, 3), off_f (S,
+    O, 3)] that K2, K4a and K3 read through two pointers (O = 0 without
+    ``off_f``), contiguous, float32 on one card."""
+    if f.dim() != 3:
+        raise ValueError(f"{what}'s f must be (S, P, 3), got {tuple(f.shape)}")
+    s, p, _ = f.shape
+    _check(f, "f", (s, p, 3))
+    if off_f is None:
+        return f.contiguous(), None, p, p
+    if off_f.dim() != 3:
+        raise ValueError(f"{what}'s off_f must be (S, O, 3), got {tuple(off_f.shape)}")
+    _check(off_f, "off_f", (s, off_f.shape[1], 3))
+    _one_device(f, off_f)
+    return f.contiguous(), off_f.contiguous(), p + off_f.shape[1], p
+
+
+def nd_peel(f: torch.Tensor, n_stop: int, off_f: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel K2: front ranks (S, M) int32 of the merged objectives [f (S,
+    P, 3), off_f (S, M - P, 3)] float32, read through two pointers (M = P
+    without ``off_f``)."""
     from .build import library
 
-    if f.dim() != 3:
-        raise ValueError(f"f must be (S, M, 3), got {tuple(f.shape)}")
-    s, m, _ = f.shape
-    _check(f, "f", (s, m, 3))
+    f, off_f, m, p = _merged(f, off_f, "nd_peel")
+    s = f.shape[0]
     lib = library()
     if m > lib.moeva_nd_peel_max_candidates():
         raise ValueError(
             f"nd_peel takes at most {lib.moeva_nd_peel_max_candidates()} "
             f"candidates per state, got {m}"
         )
-    f = f.contiguous()
     ranks = torch.empty((s, m), dtype=torch.int32, device=f.device)
     with torch.cuda.device(f.device):
-        err = lib.moeva_nd_peel_f32(f.data_ptr(), ranks.data_ptr(), s, m, int(n_stop), _stream(f.device))
+        err = lib.moeva_nd_peel_f32(f.data_ptr(), _ptr(off_f), ranks.data_ptr(), s, m, p, int(n_stop),
+                                    _stream(f.device))
     _raise_on_error(lib, err, "nd_peel")
     _LAUNCHES["nd_peel"] += 1
     return ranks
@@ -483,29 +516,30 @@ def objective_spec(x_gen, x_init_ml, xl_ml, xu_ml, x_init_mm, minimize_class, ob
     return out
 
 
-def survive_norm(f, ranks, asp_points, state):
-    """Kernel K4a: ``(ideal, worst, extreme, nadir, dirs)`` from ``f``
-    (S, M, 3), its front ranks (S, M) int32, ``asp_points`` (A, 3) and the
-    normalisation state ``(ideal, worst, extreme)``, all float32 on one card;
-    ``dirs`` is (S, A + 3, 3). M and A + 3 are at most the survival kernels'
-    limit, as ``survive_fill`` takes them."""
+def survive_norm(f, ranks, asp_points, state, off_f=None):
+    """Kernel K4a: ``(ideal, worst, extreme, nadir, dirs)`` from the merged
+    objectives [f (S, P, 3), off_f (S, M - P, 3)] (M = P without
+    ``off_f``), their front ranks (S, M) int32, ``asp_points`` (A, 3) and
+    the normalisation state ``(ideal, worst, extreme)``, all float32 on one
+    card; ``dirs`` is (S, A + 3, 3). M and A + 3 are at most the survival
+    kernels' limit, as ``survive_fill`` takes them."""
     from .build import library
 
-    if f.dim() != 3 or asp_points.dim() != 2:
-        raise ValueError("f and asp_points must be (S, M, 3) and (A, 3)")
-    s, m, _ = f.shape
+    if asp_points.dim() != 2:
+        raise ValueError("asp_points must be (A, 3)")
+    f, off_f, m, p = _merged(f, off_f, "survive_norm")
+    s = f.shape[0]
     a = asp_points.shape[0]
     if m < 1:
         raise ValueError("survive_norm needs at least one candidate per state")
     ideal, worst, extreme = state
-    _check(f, "f", (s, m, 3))
     _check(ranks, "ranks", (s, m), torch.int32)
     _check(asp_points, "asp_points", (a, 3))
     _check(ideal, "ideal", (s, 3))
     _check(worst, "worst", (s, 3))
     _check(extreme, "extreme", (s, 3, 3))
     dev = _one_device(f, ranks, asp_points, ideal, worst, extreme)
-    ins = [t.contiguous() for t in (f, ranks, asp_points, ideal, worst, extreme)]
+    ins = [t.contiguous() for t in (ranks, asp_points, ideal, worst, extreme)]
     lib = library()
     limit = lib.moeva_survive_max_candidates()
     if max(m, a + 3) > limit:
@@ -514,7 +548,7 @@ def survive_norm(f, ranks, asp_points, state):
             for shape in ((s, 3), (s, 3), (s, 3, 3), (s, 3), (s, a + 3, 3))]
     with torch.cuda.device(dev):
         err = lib.moeva_survive_norm_f32(
-            *(t.data_ptr() for t in ins + outs), s, m, a, _stream(dev)
+            f.data_ptr(), _ptr(off_f), *(t.data_ptr() for t in ins + outs), s, m, p, a, _stream(dev)
         )
     _raise_on_error(lib, err, "survive_norm")
     _LAUNCHES["survive_norm"] += 1
@@ -628,24 +662,25 @@ def archive_select(a_x, a_f, b_x, b_f, size: int):
     return out.arch_x, out.arch_f
 
 
-def associate(f, dirs, ideal, nadir):
-    """Kernel K3: ``(niche (S, M) int64, dist (S, M) float32)`` from
-    ``f`` (S, M, 3), ``dirs`` (S, R, 3), ``ideal``/``nadir`` (S, 3), all
-    float32 on one card; R is at most the directions one block's shared
-    memory holds (14528)."""
+def associate(f, dirs, ideal, nadir, off_f=None):
+    """Kernel K3: ``(niche (S, M) int64, dist (S, M) float32)`` from the
+    merged objectives [f (S, P, 3), off_f (S, M - P, 3)] (M = P without
+    ``off_f``), ``dirs`` (S, R, 3), ``ideal``/``nadir`` (S, 3), all float32
+    on one card; R is at most the directions one block's shared memory
+    holds (14528)."""
     from .build import library
 
-    if f.dim() != 3 or dirs.dim() != 3:
-        raise ValueError("f and dirs must be (S, M, 3) and (S, R, 3)")
-    s, m, _ = f.shape
+    if dirs.dim() != 3:
+        raise ValueError("dirs must be (S, R, 3)")
+    f, off_f, m, p = _merged(f, off_f, "associate")
+    s = f.shape[0]
     r = dirs.shape[1]
-    _check(f, "f", (s, m, 3))
     _check(dirs, "dirs", (s, r, 3))
     _check(ideal, "ideal", (s, 3))
     _check(nadir, "nadir", (s, 3))
     if len({t.device for t in (f, dirs, ideal, nadir)}) != 1:
         raise ValueError("associate's inputs must lie on one device")
-    f, dirs, ideal, nadir = (t.contiguous() for t in (f, dirs, ideal, nadir))
+    dirs, ideal, nadir = (t.contiguous() for t in (dirs, ideal, nadir))
     lib = library()
     if not 1 <= r <= lib.moeva_associate_max_directions():
         raise ValueError(f"associate takes 1 to {lib.moeva_associate_max_directions()} directions per state, got {r}")
@@ -653,8 +688,8 @@ def associate(f, dirs, ideal, nadir):
     dist = torch.empty((s, m), dtype=torch.float32, device=f.device)
     with torch.cuda.device(f.device):
         err = lib.moeva_associate_f32(
-            f.data_ptr(), dirs.data_ptr(), ideal.data_ptr(), nadir.data_ptr(),
-            niche.data_ptr(), dist.data_ptr(), s, m, r, _stream(f.device),
+            f.data_ptr(), _ptr(off_f), dirs.data_ptr(), ideal.data_ptr(), nadir.data_ptr(),
+            niche.data_ptr(), dist.data_ptr(), s, m, p, r, _stream(f.device),
         )
     _raise_on_error(lib, err, "associate")
     _LAUNCHES["associate"] += 1
@@ -1392,3 +1427,136 @@ def chunk_decode(tables, pop_x, arch_x, pop_f, arch_f, x_init):
     _raise_on_error(lib, err, "chunk_decode")
     _LAUNCHES["chunk_decode"] += 1
     return x_gen, f, x_ml
+
+
+def refdirs(theta0, sched, s: float):
+    """Kernel K14: the energy descent of ``attacks.moeva.refdirs.
+    energy_descent_plain`` from ``theta0`` (n, n_dim) float64 over the
+    schedule ``sched`` (n_iter, 3) float64 (``refdirs.descent_schedule``),
+    both on one card; returns softmax(theta) (n, n_dim) float64. One CTA,
+    2 to 1024 points of at most 4 dimensions."""
+    from ..attacks.moeva.refdirs import ADAM_B1, ADAM_B2, ADAM_EPS
+    from .build import library
+
+    if theta0.dim() != 2 or sched.dim() != 2:
+        raise ValueError("theta0 and sched must be (n, n_dim) and (n_iter, 3)")
+    n, k = theta0.shape
+    _check(theta0, "theta0", (n, k), torch.float64)
+    _check(sched, "sched", (sched.shape[0], 3), torch.float64)
+    dev = _one_device(theta0, sched)
+    lib = library()
+    if not 2 <= n <= lib.moeva_refdirs_max_points() or not 1 <= k <= lib.moeva_refdirs_max_dim():
+        raise ValueError(f"refdirs takes 2 to {lib.moeva_refdirs_max_points()} points of 1 to "
+                         f"{lib.moeva_refdirs_max_dim()} dimensions, got {(n, k)}")
+    theta0, sched = theta0.contiguous(), sched.contiguous()
+    out = torch.empty((n, k), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.moeva_refdirs_f64(
+            theta0.data_ptr(), sched.data_ptr(), out.data_ptr(), n, k, sched.shape[0], float(s),
+            1.0 - ADAM_B1, ADAM_B1, 1.0 - ADAM_B2, ADAM_B2, ADAM_EPS, _stream(dev),
+        )
+    _raise_on_error(lib, err, "refdirs")
+    _LAUNCHES["refdirs"] += 1
+    return out
+
+
+def restart(x_adv, pred, y, hist, best_x, best_hist, curve, r: int, targeted: bool):
+    """Kernel K15: PGD's arbitration after start ``r``'s run, the semantics
+    of ``attacks.pgd.engine.restart_plain``. ``x_adv`` (N, D) float32,
+    ``pred`` and ``y`` (N,) int64 and ``hist`` (T, N, C) float32 or None
+    are the run's; ``best_x`` and ``best_hist`` the rows and history kept
+    so far (``x_init`` and None before the first start); ``curve`` (R, N)
+    bool the cumulative success, whose row ``r`` the launch writes from row
+    r - 1. Returns ``(best_x, best_hist)``: from the second start on the
+    same tensors, updated in place; at the first, new ones."""
+    from .build import library
+
+    if x_adv.dim() != 2 or curve.dim() != 2:
+        raise ValueError("x_adv and curve must be (N, D) and (R, N)")
+    n, d = x_adv.shape
+    if not 0 <= r < curve.shape[0]:
+        raise ValueError(f"start {r} is not a row of the ({curve.shape[0]}, N) curve")
+    _check(x_adv, "x_adv", (n, d))
+    _check(pred, "pred", (n,), torch.int64)
+    _check(y, "y", (n,), torch.int64)
+    _check(best_x, "best_x", (n, d))
+    _check(curve, "curve", (curve.shape[0], n), torch.bool)
+    t = c = 0
+    if hist is not None:
+        if hist.dim() != 3:
+            raise ValueError(f"hist must be (T, N, C), got {tuple(hist.shape)}")
+        t, _, c = hist.shape
+        _check(hist, "hist", (t, n, c))
+        if best_hist is not None:
+            _check(best_hist, "best_hist", (t, n, c))
+    elif best_hist is not None:
+        raise ValueError("a kept history without the run's history")
+    if r > 0 and hist is not None and best_hist is None:
+        raise ValueError("the first start's history must be kept before the next start")
+    dev = _one_device(x_adv, pred, y, hist, best_x, best_hist, curve)
+    for name, tensor in (("x_adv", x_adv), ("pred", pred), ("y", y), ("hist", hist), ("best_x", best_x),
+                         ("best_hist", best_hist), ("curve", curve)):
+        if tensor is not None and not tensor.is_contiguous():
+            raise ValueError(f"restart updates in place: {name} must be contiguous")
+    first = r == 0
+    out_x = torch.empty_like(best_x) if first else best_x
+    out_hist = None if hist is None else torch.empty_like(hist) if first else best_hist
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.moeva_restart_f32(
+            x_adv.data_ptr(), pred.data_ptr(), y.data_ptr(), _ptr(hist), best_x.data_ptr(), out_x.data_ptr(),
+            None if first else _ptr(best_hist), _ptr(out_hist), None if first else curve[r - 1].data_ptr(),
+            curve[r].data_ptr(), n, d, t, c, int(targeted), _stream(dev),
+        )
+    _raise_on_error(lib, err, "restart")
+    _LAUNCHES["restart"] += 1
+    return out_x, out_hist
+
+
+def _forward_args(x, params, widths, dtype, what: str):
+    from .build import library
+
+    widths = [int(w) for w in widths]
+    if x.dim() != 2:
+        raise ValueError(f"{what}'s rows must be (N, D), got {tuple(x.shape)}")
+    n = x.shape[0]
+    _check(x, "x", (n, widths[0]), dtype)
+    n_params = sum(a * b + b for a, b in zip(widths[:-1], widths[1:]))
+    _check(params, "params", (n_params,), dtype)
+    lib = library()
+    if (not 1 <= len(widths) - 1 <= lib.moeva_forward_max_layers()
+            or max(widths[1:]) > lib.moeva_forward_max_width() or widths[-1] not in (1, 2)):
+        raise ValueError(f"{what} takes at most {lib.moeva_forward_max_layers()} layers of at most "
+                         f"{lib.moeva_forward_max_width()} units and 1 or 2 classes, got widths {widths}")
+    dev = _one_device(x, params)
+    return lib, dev, n, x.contiguous(), params.contiguous(), (ctypes.c_int * len(widths))(*widths), len(widths) - 1
+
+
+def forward_labels(x, params, widths):
+    """Kernel K16, float32: the (N,) int64 class of each row of ``x`` (N,
+    D) through the relu stack of ``widths`` (D, hidden..., 1 or 2 classes)
+    whose flat float32 ``params`` hold each layer's weight (out, in) then
+    its bias, both on one card: ``attacks.pgd.engine.predict_plain``'s
+    semantics."""
+    lib, dev, n, x, params, c_widths, n_layers = _forward_args(x, params, widths, torch.float32, "forward_labels")
+    labels = torch.empty((n,), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.moeva_forward_labels_f32(x.data_ptr(), params.data_ptr(), c_widths, n_layers, n,
+                                           labels.data_ptr(), _stream(dev))
+    _raise_on_error(lib, err, "forward_labels")
+    _LAUNCHES["forward_labels"] += 1
+    return labels
+
+
+def forward_proba1(x, params, widths):
+    """Kernel K16, float64: the (N,) class-1 probabilities of ``x`` (N, D)
+    through the stack, as :func:`forward_labels` takes it but in float64:
+    ``models.mlp.proba1_plain``'s semantics."""
+    lib, dev, n, x, params, c_widths, n_layers = _forward_args(x, params, widths, torch.float64, "forward_proba1")
+    out = torch.empty((n,), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.moeva_forward_proba1_f64(x.data_ptr(), params.data_ptr(), c_widths, n_layers, n,
+                                           out.data_ptr(), _stream(dev))
+    _raise_on_error(lib, err, "forward_proba1")
+    _LAUNCHES["forward_proba1"] += 1
+    return out

@@ -14,20 +14,22 @@
 
 extern "C" {
 
-int moeva_nd_peel_f32(const void* f, void* ranks, int n_states, int m,
+// K2, K4a and K3 take the merged objectives as pop (S, P, 3) and off (S, M
+// - P, 3); off may be null when P = M.
+int moeva_nd_peel_f32(const void* pop, const void* off, void* ranks, int n_states, int m, int p,
                       int n_stop, void* stream) {
   return static_cast<int>(launch_nd_peel(
-      static_cast<const float*>(f), static_cast<int32_t*>(ranks), n_states, m,
-      n_stop, static_cast<cudaStream_t>(stream)));
+      static_cast<const float*>(pop), static_cast<const float*>(off), static_cast<int32_t*>(ranks), n_states,
+      m, p, n_stop, static_cast<cudaStream_t>(stream)));
 }
 
-int moeva_associate_f32(const void* f, const void* dirs, const void* ideal,
+int moeva_associate_f32(const void* pop, const void* off, const void* dirs, const void* ideal,
                         const void* nadir, void* niche, void* dist,
-                        int n_states, int m, int r, void* stream) {
+                        int n_states, int m, int p, int r, void* stream) {
   return static_cast<int>(launch_associate(
-      static_cast<const float*>(f), static_cast<const float*>(dirs),
+      static_cast<const float*>(pop), static_cast<const float*>(off), static_cast<const float*>(dirs),
       static_cast<const float*>(ideal), static_cast<const float*>(nadir),
-      static_cast<int64_t*>(niche), static_cast<float*>(dist), n_states, m, r,
+      static_cast<int64_t*>(niche), static_cast<float*>(dist), n_states, m, p, r,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -79,18 +81,18 @@ int moeva_objective_lcld_f32(const void* x_gen, const void* x_init,
       static_cast<cudaStream_t>(stream)));
 }
 
-int moeva_survive_norm_f32(const void* f, const void* ranks, const void* asp,
+int moeva_survive_norm_f32(const void* pop, const void* off, const void* ranks, const void* asp,
                            const void* ideal_in, const void* worst_in,
                            const void* extreme_in, void* ideal, void* worst,
                            void* extreme, void* nadir, void* dirs,
-                           int n_states, int m, int a, void* stream) {
+                           int n_states, int m, int p, int a, void* stream) {
   return static_cast<int>(launch_survive_norm(
-      static_cast<const float*>(f), static_cast<const int32_t*>(ranks),
+      static_cast<const float*>(pop), static_cast<const float*>(off), static_cast<const int32_t*>(ranks),
       static_cast<const float*>(asp), static_cast<const float*>(ideal_in),
       static_cast<const float*>(worst_in),
       static_cast<const float*>(extreme_in), static_cast<float*>(ideal),
       static_cast<float*>(worst), static_cast<float*>(extreme),
-      static_cast<float*>(nadir), static_cast<float*>(dirs), n_states, m, a,
+      static_cast<float*>(nadir), static_cast<float*>(dirs), n_states, m, p, a,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -652,6 +654,74 @@ int moeva_chunk_decode_f32(const void* pop_x, const void* arch_x, const void* po
   args.d = d;
   return static_cast<int>(launch_chunk_decode(args, static_cast<cudaStream_t>(stream)));
 }
+
+// K14.
+int moeva_refdirs_f64(const void* theta0, const void* sched, void* out, int n, int n_dim, int n_iter, double s,
+                      double c1, double b1, double c2, double b2, double eps, void* stream) {
+  const RefdirsAdam adam{c1, b1, c2, b2, eps};
+  return static_cast<int>(launch_refdirs(static_cast<const double*>(theta0), static_cast<const double*>(sched),
+                                         static_cast<double*>(out), n, n_dim, n_iter, s, adam,
+                                         static_cast<cudaStream_t>(stream)));
+}
+
+int moeva_refdirs_max_points() { return kRefdirsMaxPoints; }
+
+int moeva_refdirs_max_dim() { return kRefdirsMaxDim; }
+
+// K15: hist, prev_hist and best_hist null without a history; prev_success
+// and prev_hist null before the first start.
+int moeva_restart_f32(const void* x_adv, const void* pred, const void* y, const void* hist, const void* prev_x,
+                      void* best_x, const void* prev_hist, void* best_hist, const void* prev_success,
+                      void* success, int n, int d, int t, int c, int targeted, void* stream) {
+  RestartArgs a = {};
+  a.x_adv = static_cast<const float*>(x_adv);
+  a.pred = static_cast<const int64_t*>(pred);
+  a.y = static_cast<const int64_t*>(y);
+  a.hist = static_cast<const float*>(hist);
+  a.prev_x = static_cast<const float*>(prev_x);
+  a.best_x = static_cast<float*>(best_x);
+  a.prev_hist = static_cast<const float*>(prev_hist);
+  a.best_hist = static_cast<float*>(best_hist);
+  a.prev_success = static_cast<const bool*>(prev_success);
+  a.success = static_cast<bool*>(success);
+  a.n = n;
+  a.d = d;
+  a.t = t;
+  a.c = c;
+  a.targeted = targeted;
+  return static_cast<int>(launch_restart(a, static_cast<cudaStream_t>(stream)));
+}
+
+// K16: `widths` holds n_layers + 1 entries.
+static bool forward_shape(const int* widths, int n_layers, ForwardShape* shape) {
+  if (n_layers < 1 || n_layers > kForwardMaxLayers) return false;
+  *shape = ForwardShape{};
+  shape->n_layers = n_layers;
+  for (int l = 0; l <= n_layers; ++l) shape->widths[l] = widths[l];
+  return true;
+}
+
+int moeva_forward_labels_f32(const void* x, const void* params, const int* widths, int n_layers, int n,
+                             void* labels, void* stream) {
+  ForwardShape shape;
+  if (!forward_shape(widths, n_layers, &shape)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_forward_labels(static_cast<const float*>(x), static_cast<const float*>(params),
+                                                shape, n, static_cast<int64_t*>(labels),
+                                                static_cast<cudaStream_t>(stream)));
+}
+
+int moeva_forward_proba1_f64(const void* x, const void* params, const int* widths, int n_layers, int n,
+                             void* proba1, void* stream) {
+  ForwardShape shape;
+  if (!forward_shape(widths, n_layers, &shape)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_forward_proba1(static_cast<const double*>(x),
+                                                static_cast<const double*>(params), shape, n,
+                                                static_cast<double*>(proba1), static_cast<cudaStream_t>(stream)));
+}
+
+int moeva_forward_max_width() { return kForwardMaxWidth; }
+
+int moeva_forward_max_layers() { return kForwardMaxLayers; }
 
 const char* moeva_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

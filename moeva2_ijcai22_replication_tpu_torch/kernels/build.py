@@ -42,6 +42,9 @@ SOURCES = (
     "csrc/input_grad.cu",
     "csrc/draws.cu",
     "csrc/chunk_io.cu",
+    "csrc/refdirs.cu",
+    "csrc/restart.cu",
+    "csrc/mlp_forward.cu",
     "bindings.cpp",
 )
 HEADERS = ("csrc/kernels.h", "csrc/pgd_common.cuh", "csrc/mlp_tile.cuh")
@@ -132,9 +135,9 @@ def library() -> ctypes.CDLL:
     function's argument and return types declared."""
     lib = ctypes.CDLL(str(build().path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.moeva_nd_peel_f32.argtypes = [ptr, ptr, i32, i32, i32, ptr]
+    lib.moeva_nd_peel_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.moeva_nd_peel_f32.restype = i32
-    lib.moeva_associate_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.moeva_associate_f32.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
     lib.moeva_associate_f32.restype = i32
     i64, f32, f64 = ctypes.c_longlong, ctypes.c_float, ctypes.c_double
     lib.moeva_offspring_f32.argtypes = (
@@ -145,7 +148,7 @@ def library() -> ctypes.CDLL:
         [ptr] * 9 + [ctypes.POINTER(i32), i32, ptr, ptr, f32, i32, f32, ptr, ptr] + [i32] * 4 + [ptr, ptr, i32, ptr]
     )
     lib.moeva_objective_lcld_f32.restype = i32
-    lib.moeva_survive_norm_f32.argtypes = [ptr] * 11 + [i32] * 3 + [ptr]
+    lib.moeva_survive_norm_f32.argtypes = [ptr] * 12 + [i32] * 4 + [ptr]
     lib.moeva_survive_norm_f32.restype = i32
     lib.moeva_survive_fill_f32.argtypes = (
         [ptr] * 6 + [i32] + [ptr] * 6 + [i32] + [ptr] * 6 + [i32] * 8 + [ptr]
@@ -205,6 +208,13 @@ def library() -> ctypes.CDLL:
     lib.moeva_chunk_prepare_f32.restype = i32
     lib.moeva_chunk_decode_f32.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
     lib.moeva_chunk_decode_f32.restype = i32
+    lib.moeva_refdirs_f64.argtypes = [ptr] * 3 + [i32] * 3 + [f64] * 6 + [ptr]
+    lib.moeva_refdirs_f64.restype = i32
+    lib.moeva_restart_f32.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
+    lib.moeva_restart_f32.restype = i32
+    for name in ("moeva_forward_labels_f32", "moeva_forward_proba1_f64"):
+        getattr(lib, name).argtypes = [ptr, ptr, ctypes.POINTER(i32), i32, i32, ptr, ptr]
+        getattr(lib, name).restype = i32
     for name in (
         "moeva_train_tile_rows", "moeva_train_max_layers",
         "moeva_nd_peel_max_candidates", "moeva_associate_max_directions", "moeva_survive_max_candidates",
@@ -213,7 +223,8 @@ def library() -> ctypes.CDLL:
         "moeva_pgd_botnet_max_degree", "moeva_botnet_max_pairs", "moeva_take_max_segments",
         "moeva_spec_max_instructions", "moeva_spec_max_slots", "moeva_spec_max_terms", "moeva_spec_max_features",
         "moeva_spec_max_width", "moeva_spec_vjp_max_instructions", "moeva_spec_vjp_max_slots",
-        "moeva_draws_max_fields",
+        "moeva_draws_max_fields", "moeva_refdirs_max_points", "moeva_refdirs_max_dim",
+        "moeva_forward_max_width", "moeva_forward_max_layers",
     ):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32

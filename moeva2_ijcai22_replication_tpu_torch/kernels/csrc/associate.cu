@@ -96,10 +96,10 @@ __device__ __forceinline__ void group(const float (&n)[kCand][3], const float4* 
 // Block b holds states [b * k, b * k + k) (fewer in the last block); each
 // takes ts threads.
 __global__ void __launch_bounds__(kMaxThreads)
-associate_kernel(const float* __restrict__ f, const float* __restrict__ dirs,
+associate_kernel(const float* __restrict__ pop, const float* __restrict__ off, const float* __restrict__ dirs,
                  const float* __restrict__ ideal,
                  const float* __restrict__ nadir, int64_t* __restrict__ niche,
-                 float* __restrict__ dist, int n_states, int m, int r, int k,
+                 float* __restrict__ dist, int n_states, int m, int p, int r, int k,
                  int ts) {
   extern __shared__ float4 ds[];  // (k, r) unit directions
   const int s0 = blockIdx.x * k;
@@ -131,7 +131,7 @@ associate_kernel(const float* __restrict__ f, const float* __restrict__ dirs,
 #pragma unroll
     for (int c = 0; c < kCand; ++c) {
       const int j = min(g + c * groups, m - 1);  // past M: a real row, not stored
-      const float* fj = f + (s * m + j) * 3;
+      const float* fj = merged_row(pop, off, s, j, m, p);
 #pragma unroll
       for (int e = 0; e < 3; ++e) n[c][e] = __fdiv_rn(__fsub_rn(fj[e], id[e]), den[e]);
       best[c] = -INFINITY;
@@ -167,11 +167,12 @@ associate_kernel(const float* __restrict__ f, const float* __restrict__ dirs,
 
 }  // namespace
 
-cudaError_t launch_associate(const float* f, const float* dirs,
+cudaError_t launch_associate(const float* pop, const float* off, const float* dirs,
                              const float* ideal, const float* nadir,
-                             int64_t* niche, float* dist, int n_states, int m,
+                             int64_t* niche, float* dist, int n_states, int m, int p,
                              int r, cudaStream_t stream) {
-  if (n_states < 0 || m < 0 || r <= 0 || r > kAssociateMaxDirections) return cudaErrorInvalidValue;
+  if (n_states < 0 || m < 0 || p < 0 || p > m || r <= 0 || r > kAssociateMaxDirections)
+    return cudaErrorInvalidValue;
   if (n_states == 0 || m == 0) return cudaSuccess;
   static LaunchCache cache;
   int sms = 0;
@@ -197,6 +198,6 @@ cudaError_t launch_associate(const float* f, const float* dirs,
   err = cache.prepare(reinterpret_cast<const void*>(associate_kernel), threads, smem, nullptr);
   if (err != cudaSuccess) return err;
   associate_kernel<<<(n_states + k - 1) / k, threads, smem, stream>>>(
-      f, dirs, ideal, nadir, niche, dist, n_states, m, r, k, ts);
+      pop, off, dirs, ideal, nadir, niche, dist, n_states, m, p, r, k, ts);
   return cudaGetLastError();
 }

@@ -32,6 +32,14 @@ __device__ __forceinline__ float lcld_months(float a) {
   if (rem != 0.0f && rem < 0.0f) rem = __fadd_rn(rem, 100.0f);
   return __fadd_rn(__fmul_rn(floorf(__fdiv_rn(a, 100.0f)), 12.0f), rem);
 }
+
+// Row j (3 floats) of state s of a generation's merged objectives
+// [population (S, P, 3), offspring (S, M - P, 3)], read through the two
+// pointers in place of a concatenated copy (off is not read when M = P).
+__device__ __forceinline__ const float* merged_row(const float* pop, const float* off, size_t s, int j, int m,
+                                                   int p) {
+  return j < p ? pop + (s * p + j) * 3 : off + (s * (m - p) + (j - p)) * 3;
+}
 #endif
 
 // Shared memory one block can use on Hopper (227 KB).
@@ -152,12 +160,14 @@ class LaunchCache {
   Entry entries_[kDevices];
 };
 
-cudaError_t launch_nd_peel(const float* f, int32_t* ranks, int n_states,
-                           int m, int n_stop, cudaStream_t stream);
+// K2, K4a and K3 read the merged objectives (S, M, 3) as [pop (S, P, 3),
+// off (S, M - P, 3)] (merged_row); P = M takes pop alone (off may be null).
+cudaError_t launch_nd_peel(const float* pop, const float* off, int32_t* ranks, int n_states,
+                           int m, int p, int n_stop, cudaStream_t stream);
 
-cudaError_t launch_associate(const float* f, const float* dirs,
+cudaError_t launch_associate(const float* pop, const float* off, const float* dirs,
                              const float* ideal, const float* nadir,
-                             int64_t* niche, float* dist, int n_states, int m,
+                             int64_t* niche, float* dist, int n_states, int m, int p,
                              int r, cudaStream_t stream);
 
 cudaError_t launch_offspring(const float* pop, const float* xl,
@@ -184,11 +194,11 @@ cudaError_t launch_objective_lcld(
     const int32_t* pair_idx, const float* pair_thr, int n_pairs,
     cudaStream_t stream);
 
-cudaError_t launch_survive_norm(const float* f, const int32_t* ranks,
+cudaError_t launch_survive_norm(const float* pop, const float* off, const int32_t* ranks,
                                 const float* asp, const float* ideal_in,
                                 const float* worst_in, const float* extreme_in,
                                 float* ideal, float* worst, float* extreme,
-                                float* nadir, float* dirs, int n_states, int m,
+                                float* nadir, float* dirs, int n_states, int m, int p,
                                 int a, cudaStream_t stream);
 
 cudaError_t launch_survive_fill(const SurviveFillArgs& args, cudaStream_t stream);
@@ -632,3 +642,60 @@ struct ChunkDecodeArgs {
 };
 
 cudaError_t launch_chunk_decode(const ChunkDecodeArgs& args, cudaStream_t stream);
+
+// refdirs (K14): the reference directions' energy descent, one CTA of one
+// thread a point (at most kRefdirsMaxPoints points of at most
+// kRefdirsMaxDim dimensions). theta0 and out are (n, n_dim) float64, sched
+// (n_iter, 3) float64: each step's learning rate and bias corrections
+// 1 - b1**t, 1 - b2**t; s is the energy's exponent.
+constexpr int kRefdirsMaxPoints = 1024;
+constexpr int kRefdirsMaxDim = 4;
+
+// optax Adam's constants as the twin writes them: 1 - b1, b1, 1 - b2, b2,
+// eps.
+struct RefdirsAdam {
+  double c1, b1, c2, b2, eps;
+};
+
+cudaError_t launch_refdirs(const double* theta0, const double* sched, double* out, int n, int n_dim, int n_iter,
+                           double s, const RefdirsAdam& adam, cudaStream_t stream);
+
+// restart (K15): PGD's arbitration after one start's run. best_x may alias
+// prev_x and best_hist prev_hist; prev_success and prev_hist are null
+// before the first start; hist, prev_hist and best_hist are null without a
+// history.
+struct RestartArgs {
+  const float* x_adv;          // (n, d)
+  const int64_t* pred;         // (n,)
+  const int64_t* y;            // (n,)
+  const float* hist;           // (t, n, c)
+  const float* prev_x;         // (n, d)
+  float* best_x;               // (n, d) out
+  const float* prev_hist;      // (t, n, c)
+  float* best_hist;            // (t, n, c) out
+  const bool* prev_success;    // (n,)
+  bool* success;               // (n,) out
+  int32_t n, d, t, c, targeted;
+};
+
+cudaError_t launch_restart(const RestartArgs& args, cudaStream_t stream);
+
+// mlp_forward (K16): a relu stack of n_layers dense layers (widths[0]
+// inputs, hidden widths and the 1 or 2 classes at most kForwardMaxWidth),
+// its parameters one flat buffer, layer by layer the weight (out, in)
+// row-major then the bias (out,).
+constexpr int kForwardMaxLayers = 8;
+constexpr int kForwardMaxWidth = 256;
+
+struct ForwardShape {
+  int32_t n_layers;
+  int32_t widths[kForwardMaxLayers + 1];
+};
+
+// float32 rows (n, widths[0]) -> int64 labels (n,).
+cudaError_t launch_forward_labels(const float* x, const float* params, const ForwardShape& shape, int n,
+                                  int64_t* labels, cudaStream_t stream);
+
+// float64 rows (n, widths[0]) -> the class-1 probabilities (n,).
+cudaError_t launch_forward_proba1(const double* x, const double* params, const ForwardShape& shape, int n,
+                                  double* proba1, cudaStream_t stream);

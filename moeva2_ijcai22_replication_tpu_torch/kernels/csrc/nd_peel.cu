@@ -102,8 +102,8 @@ __host__ __device__ constexpr int min_blocks(int words) {
 // W = ceil(M / 32) words: every shared-memory offset is known at compile time.
 template <int W>
 __global__ void __launch_bounds__(32 * W, min_blocks(W))
-nd_peel_kernel(const float* __restrict__ f, int32_t* __restrict__ ranks,
-               int m, int n_stop) {
+nd_peel_kernel(const float* __restrict__ pop, const float* __restrict__ off, int32_t* __restrict__ ranks,
+               int m, int p, int n_stop) {
   constexpr int kStride = row_stride(W);
   extern __shared__ float smem[];
   float* fx = smem;                                                 // (3, 32W)
@@ -117,7 +117,7 @@ nd_peel_kernel(const float* __restrict__ f, int32_t* __restrict__ ranks,
   const float nan = __int_as_float(0x7fffffff);
   float mx = nan, my = nan, mz = nan;
   if (i < m) {
-    const float* fi = f + (static_cast<size_t>(blockIdx.x) * m + i) * 3;
+    const float* fi = merged_row(pop, off, blockIdx.x, i, m, p);
     // x + 0 turns -0 into +0 and leaves every other value as it is
     mx = __fadd_rn(fi[0], 0.0f);
     my = __fadd_rn(fi[1], 0.0f);
@@ -199,24 +199,24 @@ nd_peel_kernel(const float* __restrict__ f, int32_t* __restrict__ ranks,
 
 // Launches nd_peel_kernel<words>; each instantiation keeps its own cache.
 template <int W>
-cudaError_t launch_words(int words, const float* f, int32_t* ranks, int n_states,
-                         int m, int n_stop, cudaStream_t stream) {
+cudaError_t launch_words(int words, const float* pop, const float* off, int32_t* ranks, int n_states,
+                         int m, int p, int n_stop, cudaStream_t stream) {
   if constexpr (W < kMaxWords) {
-    if (words > W) return launch_words<W + 1>(words, f, ranks, n_states, m, n_stop, stream);
+    if (words > W) return launch_words<W + 1>(words, pop, off, ranks, n_states, m, p, n_stop, stream);
   }
   static LaunchCache cache;
   const cudaError_t err = cache.prepare(reinterpret_cast<const void*>(nd_peel_kernel<W>),
                                         32 * W, smem_bytes(W), nullptr);
   if (err != cudaSuccess) return err;
-  nd_peel_kernel<W><<<n_states, 32 * W, smem_bytes(W), stream>>>(f, ranks, m, n_stop);
+  nd_peel_kernel<W><<<n_states, 32 * W, smem_bytes(W), stream>>>(pop, off, ranks, m, p, n_stop);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-cudaError_t launch_nd_peel(const float* f, int32_t* ranks, int n_states,
-                           int m, int n_stop, cudaStream_t stream) {
+cudaError_t launch_nd_peel(const float* pop, const float* off, int32_t* ranks, int n_states,
+                           int m, int p, int n_stop, cudaStream_t stream) {
   if (n_states == 0 || m == 0) return cudaSuccess;
-  if (m < 0 || m > kNdPeelMaxCandidates || n_states < 0) return cudaErrorInvalidValue;
-  return launch_words<1>((m + 31) / 32, f, ranks, n_states, m, n_stop, stream);
+  if (m < 0 || m > kNdPeelMaxCandidates || n_states < 0 || p < 0 || p > m) return cudaErrorInvalidValue;
+  return launch_words<1>((m + 31) / 32, pop, off, ranks, n_states, m, p, n_stop, stream);
 }

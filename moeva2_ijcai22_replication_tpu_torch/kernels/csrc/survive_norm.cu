@@ -121,7 +121,7 @@ __device__ __forceinline__ void copy_async_wait() {
 __host__ __device__ constexpr int norm_warp_floats(int m) { return 3 * (3 + m) + 6 + m; }
 
 __global__ void __launch_bounds__(kThreads)
-survive_norm_kernel(const float* __restrict__ f,
+survive_norm_kernel(const float* __restrict__ pop, const float* __restrict__ off,
                     const int32_t* __restrict__ ranks,
                     const float* __restrict__ asp,
                     const float* __restrict__ ideal_in,
@@ -131,7 +131,7 @@ survive_norm_kernel(const float* __restrict__ f,
                     float* __restrict__ worst_out,
                     float* __restrict__ extreme_out,
                     float* __restrict__ nadir_out, float* __restrict__ dirs,
-                    int n_states, int m, int a) {
+                    int n_states, int m, int p, int a) {
   extern __shared__ float staged[];
   __shared__ float asp_part[kStates][6];
   const int warp = threadIdx.x / kWarp;
@@ -145,8 +145,10 @@ survive_norm_kernel(const float* __restrict__ f,
 
   // the state's inputs, every copy in flight at once
   if (active) {
-    const float* fs = f + s * m * 3;
-    for (int i = lane; i < 3 * m; i += kWarp) copy_async(rows + 9 + i, fs + i);
+    // the merged rows [pop, off] of the state (merged_row)
+    const float* ps = pop + s * p * 3;
+    const float* os = off + s * (m - p) * 3;
+    for (int i = lane; i < 3 * m; i += kWarp) copy_async(rows + 9 + i, i < 3 * p ? ps + i : os + (i - 3 * p));
     for (int j = lane; j < m; j += kWarp) copy_async(rk + j, ranks + s * m + j);
     if (lane < 9) copy_async(rows + lane, extreme_in + s * 9 + lane);
     if (lane < 3) copy_async(points + lane, ideal_in + s * 3 + lane);
@@ -330,14 +332,14 @@ survive_norm_kernel(const float* __restrict__ f,
 
 }  // namespace
 
-cudaError_t launch_survive_norm(const float* f, const int32_t* ranks,
+cudaError_t launch_survive_norm(const float* pop, const float* off, const int32_t* ranks,
                                 const float* asp, const float* ideal_in,
                                 const float* worst_in, const float* extreme_in,
                                 float* ideal, float* worst, float* extreme,
-                                float* nadir, float* dirs, int n_states, int m,
+                                float* nadir, float* dirs, int n_states, int m, int p,
                                 int a, cudaStream_t stream) {
   if (n_states == 0) return cudaSuccess;
-  if (n_states < 0 || m <= 0 || m > kSurviveMaxCandidates || a < 0 ||
+  if (n_states < 0 || m <= 0 || m > kSurviveMaxCandidates || p < 0 || p > m || a < 0 ||
       a + 3 > kSurviveMaxCandidates)
     return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (3 * a + kStates * norm_warp_floats(m));
@@ -347,7 +349,7 @@ cudaError_t launch_survive_norm(const float* f, const int32_t* ranks,
   if (err != cudaSuccess) return err;
   const int grid = (n_states + kStates - 1) / kStates;
   survive_norm_kernel<<<grid, kThreads, smem, stream>>>(
-      f, ranks, asp, ideal_in, worst_in, extreme_in, ideal, worst, extreme,
-      nadir, dirs, n_states, m, a);
+      pop, off, ranks, asp, ideal_in, worst_in, extreme_in, ideal, worst, extreme,
+      nadir, dirs, n_states, m, p, a);
   return cudaGetLastError();
 }

@@ -13,6 +13,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..core.norms import sum_last
+
 
 class MLP(nn.Module):
     """Dense relu stack with a linear (logit) head."""
@@ -56,24 +58,60 @@ def botnet_mlp(n_features: int = 756, seed: int | None = None) -> MLP:
     return model if seed is None else model.reset_parameters_seeded(seed)
 
 
-def mlp_forward_plain(layers, x: torch.Tensor) -> list:
+def mlp_forward_plain(layers, x: torch.Tensor, sequential: bool | None = None) -> list:
     """Activations ``[x, h1, ..., logits]`` of the relu stack ``layers``
-    (``((weight (out, in), bias (out,)), ...)``) in kernel K1's order: in
-    float32 each unit starts from its bias and adds ``weight[k] * x[k]`` for
-    k = 0, 1, ... one rounded operation at a time (float64, which no kernel
-    computes, takes one matmul per layer); relu keeps a NaN."""
+    (``((weight (out, in), bias (out,)), ...)``) in kernel K1's order: each
+    unit starts from its bias and adds ``weight[k] * x[k]`` for k = 0, 1,
+    ... one rounded operation at a time; relu keeps a NaN. ``sequential``
+    None takes that order in float32 and one matmul a layer in float64,
+    which K1 does not compute; True takes it in any dtype (K16's float64
+    order)."""
+    if sequential is None:
+        sequential = x.dtype != torch.float64
     acts = [x]
     a = x
     for i, (w, b) in enumerate(layers):
-        if a.dtype == torch.float64:
-            acc = torch.nn.functional.linear(a, w, b)
-        else:
+        if sequential:
             acc = b.expand(*a.shape[:-1], b.shape[0])
             for k in range(w.shape[1]):
                 acc = acc + a[..., k, None] * w[:, k]
+        else:
+            acc = torch.nn.functional.linear(a, w, b)
         a = torch.relu(acc) if i < len(layers) - 1 else acc
         acts.append(a)
     return acts
+
+
+def exp_rn(t: torch.Tensor) -> torch.Tensor:
+    """``exp`` in float64, rounded once to ``t``'s dtype: the same bits on
+    the card, on the CPU and in kernel K1."""
+    return torch.exp(t.double()).to(t.dtype)
+
+
+def mlp_proba_plain(layers, x: torch.Tensor) -> torch.Tensor:
+    """Class probabilities of the relu stack ``layers``, its logits as
+    :func:`mlp_forward_plain` gives them (K1's order in float32); softmax as
+    ``exp(l - max)`` over the left-to-right sum, a 1-column (sigmoid) head
+    as ``[1 - p, p]``."""
+    a = mlp_forward_plain(layers, x)[-1]
+    if a.shape[-1] == 1:
+        p = 1.0 / (1.0 + exp_rn(-a))
+        return torch.cat([1.0 - p, p], dim=-1)
+    e = exp_rn(a - a.amax(-1, keepdim=True))
+    return e / sum_last(e, keepdim=True)
+
+
+def proba1_plain(layers, x: torch.Tensor) -> torch.Tensor:
+    """The class-1 probabilities (N,) of the relu stack ``layers`` at the
+    rows ``x`` (N, D), kernel K16's float64 order in any dtype: the logits
+    of :func:`mlp_forward_plain` with ``sequential``, then e1 / (e0 + e1)
+    with e = exp(l - max), or 1 / (1 + exp(-l)) for a 1-unit head."""
+    a = mlp_forward_plain(layers, x, sequential=True)[-1]
+    if a.shape[-1] == 1:
+        return 1.0 / (1.0 + torch.exp(-a[..., 0]))
+    mx = torch.maximum(a[..., 0], a[..., 1])
+    e0, e1 = torch.exp(a[..., 0] - mx), torch.exp(a[..., 1] - mx)
+    return e1 / (e0 + e1)
 
 
 def mlp_input_grad_plain(layers, acts: list, ct: torch.Tensor) -> torch.Tensor:

@@ -91,6 +91,15 @@ def layer_views(widths, flat: torch.Tensor, dtype=None) -> list:
     return out
 
 
+def stack_tensors(model: MLP, dtype: torch.dtype, device) -> tuple:
+    """``(widths, params, layers)`` of ``model``: its widths, its
+    :func:`flat_params` in ``dtype`` copied to ``device`` in one transfer,
+    and their :func:`layer_views`."""
+    widths = mlp_widths(model)
+    params = flat_params(model).to(device=device, dtype=dtype)
+    return widths, params, layer_views(widths, params)
+
+
 def model_from_flat(widths, flat: torch.Tensor) -> MLP:
     """A float32 CPU :class:`MLP` holding a copy of the flat parameters."""
     model = MLP(widths[0], hidden=widths[1:-1], n_classes=widths[-1])

@@ -23,7 +23,7 @@ from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.engine import (
     PhiloxDraws, archive_select_plain, evaluate_hist_plain, evaluate_plain, extract_archive_plain,
     final_columns_plain,
-    make_objective_tables, take_carry_plain,
+    make_objective_tables, mlp_proba_plain, take_carry_plain,
 )
 from moeva2_ijcai22_replication_tpu_torch.attacks.objective import engine_quality_stats
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.nds import nd_ranks_plain
@@ -31,16 +31,20 @@ from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.operators import (
     OperatorTables, draw_offspring, make_offspring_plain,
 )
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.survival import (
-    NormState, associate_plain, draw_gumbels, survive_fill_plain, survive_norm_plain,
+    NormState, associate_plain, draw_gumbels, survive_fill_plain, survive_norm_plain, survive_stages,
+)
+from moeva2_ijcai22_replication_tpu_torch.attacks.moeva.refdirs import (
+    descent_schedule, energy_descent_plain, start_point,
 )
 from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD, ConstrainedPGD
 from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.autopgd import autopgd_run_plain
-from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import PgdTables, pgd_run_plain
+from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import PgdTables, pgd_run_plain, restart
 from moeva2_ijcai22_replication_tpu_torch.core import codec as codec_lib
 from moeva2_ijcai22_replication_tpu_torch.core.philox import PhiloxStream
 from moeva2_ijcai22_replication_tpu_torch.kernels import build
 from moeva2_ijcai22_replication_tpu_torch.models.io import Surrogate
-from moeva2_ijcai22_replication_tpu_torch.models.mlp import MLP
+from moeva2_ijcai22_replication_tpu_torch.models.mlp import MLP, proba1_plain
+from moeva2_ijcai22_replication_tpu_torch.models.train import stack_tensors
 from moeva2_ijcai22_replication_tpu_torch.domains.lcld import LcldConstraints
 from moeva2_ijcai22_replication_tpu_torch.domains.synth import synth_lcld_schema
 from moeva2_ijcai22_replication_tpu_torch.problems import (
@@ -491,6 +495,29 @@ def test_wrappers_refuse_cpu_tensors(tmp_path):
     assert kernels.launch_counts() == before
 
 
+def test_gen_step_two_pointer_plain_path_equals_the_concatenation(tmp_path):
+    """The survival stages on [population, offspring] through two pointers
+    (the CPU path merges once for the plain versions) equal the stages on
+    the concatenation the step took before, and so does the whole step."""
+    cons, sur, scaler, x = synthetic_lcld_problem(str(tmp_path), 3)
+    eng = Moeva2(sur, cons, ml_scaler=scaler, device="cpu", n_pop=10, n_offsprings=6, archive_size=3, seed=4)
+    run = eng.prepare(x, np.arange(3) % 2)
+    gen = PhiloxStream(4)
+    carry = eng.init_carry(run, *draw_gumbels(gen, 3, eng.n_dirs, eng.pop_size))
+    draws = eng.draw_generation(gen, 3)
+    off = eng.offspring(run, carry.pop_x, draws.offspring)
+    off_f = eng._evaluate(run, off)
+    got = survive_stages(carry.pop_f, eng.asp_points, carry.norm_state, eng.pop_size, off_f)
+    want = survive_stages(torch.cat([carry.pop_f, off_f], dim=1), eng.asp_points, carry.norm_state, eng.pop_size)
+    for g, w in zip((got[0], *got[1], *got[2:]), (want[0], *want[1], *want[2:])):
+        assert _same(g, w)
+    step = eng.gen_step(run, carry, draws)
+    mask = survive_fill_plain(draws.gum_cut, draws.gum_mem, want[0], want[2], want[3], eng.pop_size)
+    ref = extract_archive_plain(mask, carry.pop_x, off, carry.pop_f, off_f, carry.arch_x, carry.arch_f)
+    for g, w in zip((*step[:4], *step.norm_state), (*ref, *want[1])):
+        assert _same(g, w)
+
+
 def test_launch_counts_reset():
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {
@@ -501,7 +528,8 @@ def test_launch_counts_reset():
         "objective_lcld_hist": 0, "objective_lcld_aug_hist": 0, "objective_botnet_hist": 0,
         "objective_botnet_aug_hist": 0, "objective_spec": 0, "objective_spec_hist": 0, "pgd_spec": 0,
         "pgd_spec_auto": 0, "train_step": 0, "train_loss": 0, "input_grad": 0, "draws": 0, "pgd_start": 0,
-        "chunk_prepare": 0, "chunk_decode": 0,
+        "chunk_prepare": 0, "chunk_decode": 0, "refdirs": 0, "restart": 0, "forward_labels": 0,
+        "forward_proba1": 0,
     }
 
 
@@ -1727,3 +1755,88 @@ def test_chunk_prepare_and_decode_equal_plain(card, lcld, s, init, norm):
     args = (eng._chunk, carry.pop_x, carry.arch_x, carry.pop_f, carry.arch_f, run.x_init_ml)
     for a, b in zip(kernels.chunk_decode(*args), chunk_decode_plain(*args)):
         assert _same(a, b)
+
+
+# -- K14 refdirs, K15 restart, K16 forward; K2, K4a and K3 through two pointers --
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_iter", [(2, 5), (33, 40), (100, 300), (200, 300)])
+def test_refdirs_equals_plain(card, n, n_iter):
+    theta = torch.as_tensor(start_point(3, n, n), device=card)
+    sched = descent_schedule(n_iter).to(card)
+    before = kernels.launch_counts()["refdirs"]
+    got = kernels.refdirs(theta, sched, 4.0)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["refdirs"] == before + 1
+    assert _same(got, energy_descent_plain(theta, 4.0, sched))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_starts,targeted,record", [(1, False, False), (3, False, True), (3, True, True)])
+def test_restart_equals_plain(card, n_starts, targeted, record):
+    rng = np.random.default_rng(n_starts + 2 * targeted)
+    n, d, t, c = 1000, 47, 7, 4
+    x_init = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32))
+    y = torch.as_tensor(rng.integers(0, 2, n))
+    got = (x_init.to(card), None, torch.empty((n_starts, n), dtype=torch.bool, device=card))
+    want = (x_init, None, torch.empty((n_starts, n), dtype=torch.bool))
+    before = kernels.launch_counts()["restart"]
+    for r in range(n_starts):
+        x_adv = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32))
+        pred = torch.as_tensor(rng.integers(0, 2, n))
+        hist = torch.as_tensor(rng.normal(size=(t, n, c)).astype(np.float32)) if record else None
+        got = (*restart(x_adv.to(card), pred.to(card), y.to(card), None if hist is None else hist.to(card),
+                        got[0], got[1], got[2], r, targeted), got[2])
+        want = (*restart(x_adv, pred, y, hist, want[0], want[1], want[2], r, targeted), want[2])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["restart"] == before + n_starts
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[2].cpu(), want[2])
+    assert (got[1] is None) == (not record)
+    if record:
+        assert torch.equal(got[1].cpu(), want[1])
+    assert got[0].data_ptr() != x_init.to(card).data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,n", [((47, 64, 32, 16, 2), 1000), ((756, 64, 64, 32, 2), 67), ((57, 16, 1), 9)])
+def test_forward_equals_plain(card, widths, n):
+    model = MLP(widths[0], widths[1:-1], widths[-1]).reset_parameters_seeded(n)
+    x = np.random.default_rng(n).uniform(-1.0, 2.0, (n, widths[0]))
+    x[1, 0] = np.nan
+    w32, p32, layers32 = stack_tensors(model, torch.float32, card)
+    x32 = torch.as_tensor(x, dtype=torch.float32, device=card)
+    before = kernels.launch_counts()
+    labels = kernels.forward_labels(x32, p32, w32)
+    _, p64, layers64 = stack_tensors(model, torch.float64, card)
+    x64 = torch.as_tensor(x, device=card)
+    proba1 = kernels.forward_proba1(x64, p64, w32)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert (after["forward_labels"], after["forward_proba1"]) == (before["forward_labels"] + 1,
+                                                                   before["forward_proba1"] + 1)
+    assert torch.equal(labels, torch.argmax(mlp_proba_plain(layers32, x32), dim=-1))
+    assert _same(proba1, proba1_plain(layers64, x64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [64, 537])
+def test_two_pointer_survival_kernels_equal_the_concatenation(card, lcld, s):
+    eng, run, carry, draws = _engine_state(card, lcld, s, seed=s)
+    off = kernels.offspring(eng.tables, carry.pop_x, run.xl_gen, run.xu_gen, 100, draws.offspring)
+    off_f = eng._evaluate(run, off)
+    off_f[::3, 7, 1] = torch.nan
+    f = torch.cat([carry.pop_f, off_f], dim=1)
+    ranks = kernels.nd_peel(carry.pop_f, eng.pop_size, off_f)
+    assert _same(ranks, kernels.nd_peel(f, eng.pop_size)) and _same(ranks, nd_ranks_plain(f, eng.pop_size))
+    got = kernels.survive_norm(carry.pop_f, ranks, eng.asp_points, carry.norm_state, off_f)
+    state, nadir, dirs = survive_norm_plain(f, ranks, eng.asp_points, carry.norm_state)
+    for g, w, p in zip(got, kernels.survive_norm(f, ranks, eng.asp_points, carry.norm_state),
+                       (*state, nadir, dirs)):
+        assert _same(g, w) and _same(g, p)
+    ideal, nadir, dirs = got[0], got[3], got[4]
+    niche, dist = kernels.associate(carry.pop_f, dirs, ideal, nadir, off_f)
+    for g, w, p in zip((niche, dist), kernels.associate(f, dirs, ideal, nadir), associate_plain(f, dirs, ideal, nadir)):
+        assert _same(g, w) and _same(g, p)
+    on_card = survive_stages(carry.pop_f, eng.asp_points, carry.norm_state, eng.pop_size, off_f)
+    assert _same(on_card[0], ranks) and _same(on_card[2], niche) and _same(on_card[3], dist)

@@ -45,10 +45,11 @@ import chip_smoke as cs  # noqa: E402
 #: each kernel source's launchers as stubs, for a variant's library that
 #: leaves that source out
 STUBS = {
-    "nd_peel.cu": "cudaError_t launch_nd_peel(const float*, int32_t*, int, int, int, cudaStream_t) "
-                  "{ return cudaErrorNotSupported; }",
+    "nd_peel.cu": "cudaError_t launch_nd_peel(const float*, const float*, int32_t*, int, int, int, int, "
+                  "cudaStream_t) { return cudaErrorNotSupported; }",
     "associate.cu": "cudaError_t launch_associate(const float*, const float*, const float*, const float*, "
-                    "int64_t*, float*, int, int, int, cudaStream_t) { return cudaErrorNotSupported; }",
+                    "const float*, int64_t*, float*, int, int, int, int, cudaStream_t) "
+                    "{ return cudaErrorNotSupported; }",
     "offspring.cu": "cudaError_t launch_offspring(const float*, const float*, const float*, const int64_t*, "
                     "const int64_t*, const int64_t*, const float*, const float*, const float*, const int64_t*, "
                     "const int64_t*, const double*, const bool*, const int64_t*, float*, int, int, int, int, int, "
@@ -57,9 +58,9 @@ STUBS = {
                          "const float*, const int64_t*, const int32_t*, const int32_t*, const float*, const int*, "
                          "int, const float*, const float*, float, int, float, float*, int, int, int, int, "
                          "const int32_t*, const float*, int, cudaStream_t) { return cudaErrorNotSupported; }",
-    "survive_norm.cu": "cudaError_t launch_survive_norm(const float*, const int32_t*, const float*, const float*, "
-                       "const float*, const float*, float*, float*, float*, float*, float*, int, int, int, "
-                       "cudaStream_t) { return cudaErrorNotSupported; }",
+    "survive_norm.cu": "cudaError_t launch_survive_norm(const float*, const float*, const int32_t*, const float*, "
+                       "const float*, const float*, const float*, float*, float*, float*, float*, float*, int, "
+                       "int, int, int, cudaStream_t) { return cudaErrorNotSupported; }",
     "survive_fill.cu": "cudaError_t launch_survive_fill(const SurviveFillArgs&, cudaStream_t) "
                        "{ return cudaErrorNotSupported; }",
     "pgd_lcld.cu": "cudaError_t launch_pgd_lcld(const PgdArgs&, cudaStream_t) { return cudaErrorNotSupported; }",
@@ -67,6 +68,13 @@ STUBS = {
                            "{ return cudaErrorNotSupported; }\n"
                            "int objective_botnet_max_features(int, int, int) { return 0; }",
     "pgd_botnet.cu": "cudaError_t launch_pgd_botnet(PgdBotnetArgs, cudaStream_t) { return cudaErrorNotSupported; }",
+    "refdirs.cu": "cudaError_t launch_refdirs(const double*, const double*, double*, int, int, int, double, "
+                  "const RefdirsAdam&, cudaStream_t) { return cudaErrorNotSupported; }",
+    "restart.cu": "cudaError_t launch_restart(const RestartArgs&, cudaStream_t) { return cudaErrorNotSupported; }",
+    "mlp_forward.cu": "cudaError_t launch_forward_labels(const float*, const float*, const ForwardShape&, int, "
+                      "int64_t*, cudaStream_t) { return cudaErrorNotSupported; }\n"
+                      "cudaError_t launch_forward_proba1(const double*, const double*, const ForwardShape&, int, "
+                      "double*, cudaStream_t) { return cudaErrorNotSupported; }",
 }
 
 

@@ -74,8 +74,8 @@ extern "C" int probe_floor(const void* f, void* niche, void* dist, int s, int m,
 extern "C" int probe_associate(const void* f, const void* dirs, const void* ideal, const void* nadir,
                                void* niche, void* dist, int s, int m, int r, void* stream) {
   return static_cast<int>(launch_associate(
-      static_cast<const float*>(f), static_cast<const float*>(dirs), static_cast<const float*>(ideal),
-      static_cast<const float*>(nadir), static_cast<int64_t*>(niche), static_cast<float*>(dist), s, m, r,
+      static_cast<const float*>(f), nullptr, static_cast<const float*>(dirs), static_cast<const float*>(ideal),
+      static_cast<const float*>(nadir), static_cast<int64_t*>(niche), static_cast<float*>(dist), s, m, m, r,
       static_cast<cudaStream_t>(stream)));
 }
 """
