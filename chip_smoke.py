@@ -161,8 +161,20 @@ Phases, in order; any failure exits non-zero:
    a config composed as ``experiments/rq.py`` composes
    ``config/rq2.botnet.yaml`` (``rq2_botnet_config``; held equal to the
    files by ``tests/test_torch_runner_configs.py``), with phase 10's
-   checks; and constrained PGD on the domain refused on the card by name
-   before any launch;
+   checks; then constrained PGD on the domain: the ptxas line of K7b's
+   927-feature instantiation; it against ``pgd_run_plain`` on the card,
+   bit for bit (x_adv, class, the history with its 531 term columns), over
+   ``BOTNET_AUG_PGD_CONFIGS`` x ``BOTNET_AUG_PGD_ROWS`` x
+   ``BOTNET_AUG_PGD_ITERS`` (both norms, targeted, the single constraint on
+   a pair term) from the base and pair terms' edge starts
+   (``botnet_augmented_edge_starts``); timed at 387 x 1000
+   (``BOTNET_AUG_PGD_LOSS``, L2, ε 4) in turns with base K7b at 756 on the
+   same loss, beside its plain version at 10 iterations, bound, latency
+   floor and launch shape; ``generate`` cold and steady (one
+   ``pgd_botnet_aug`` launch); the card against the CPU at 32 x 20 and 2
+   restarts; rq2.botnet's point under PGD through the runner at budget
+   1000, with phase 10's checks; and a ``+repair`` loss refused with JAX's
+   error before any launch;
 13. the grid runner (the ``[grid]`` lines): the ten rq and sm1 grid files
    of ``config/`` (``GRID_FILES``) through ``experiments.rq.run`` on the
    card, from a ``config_dir`` written from ``config/``'s files
@@ -198,9 +210,8 @@ Phases, in order; any failure exits non-zero:
    after (one launch each); the card against the CPU at 256 x 100 and 2
    restarts; rq1.lcld's PGD points under the prefix (4000 x 1000;
    ``autopgd+flip+sat`` on 256 states, ``RUNNER_CUTS``' cut of ``flip+sat``) and rq2.lcld's at
-   budget 1000 through the runner, with phase 10's checks; and AutoPGD on
-   the augmented botnet domain refused on the card by name ("K7b at 927")
-   before any launch. Then botnet (the ``[autopgd-botnet]`` lines): the
+   budget 1000 through the runner, with phase 10's checks. Then botnet (the
+   ``[autopgd-botnet]`` lines): the
    ptxas lines of K7b's two instantiations (kAuto); its AutoPGD
    instantiation against ``autopgd_run_plain`` bit for bit over
    ``AUTOPGD_BOTNET_ROWS`` x ``AUTOPGD_BOTNET_ITERS`` x ``AUTOPGD_CONFIGS`` with
@@ -211,9 +222,18 @@ Phases, in order; any failure exits non-zero:
    wave); ``generate`` cold and steady (one launch); the card against the
    CPU at 32 x 20 and 2 restarts; rq1.botnet's five PGD points under the
    prefix through the runner (387 x 1000; ``autopgd+flip+sat`` on
-   ``AUTOPGD_BOTNET_SAT_STATES``). No grid file of ``config/``
-   selects AutoPGD: phase 13 launches none of its counters
-   (``AUTOPGD_COUNTERS``), which phase 14 must launch.
+   ``AUTOPGD_BOTNET_SAT_STATES``). Then the augmented botnet domain (the
+   ``[autopgd-botnet-augmented]`` lines): the ptxas line of K7b's
+   927-feature AutoPGD instantiation; it against ``autopgd_run_plain`` bit
+   for bit over ``AUTOPGD_BOTNET_AUG_CONFIGS`` x ``AUTOPGD_BOTNET_AUG_ROWS``
+   x ``AUTOPGD_BOTNET_AUG_ITERS`` from phase 12's edge starts, halved and
+   kept rows at T = 12; timed at 387 x 1000 in turns with K7b's AutoPGD
+   instantiation at 756; ``generate`` (one launch), the card against the
+   CPU at 32 x 20 and 2 restarts, rq2.botnet's point under the ``autopgd+``
+   prefix through the runner, a ``+repair`` loss refused. No grid file of
+   ``config/`` selects AutoPGD, nor PGD on the augmented botnet domain:
+   phase 13 launches none of their counters (``AUTOPGD_COUNTERS``,
+   ``pgd_botnet_aug``), which phases 12 and 14 must launch.
 15. the early exit (the ``[early-exit]`` lines): K6's ptxas lines; K6a
    ``gate_stats`` against ``engine_quality_stats`` bit for bit over
    ``GATE_STATES`` x ``GATE_COLUMNS`` (NaN and ±inf objectives, an all-NaN
@@ -1807,10 +1827,10 @@ def surrogate_labels(sur, xs: np.ndarray) -> np.ndarray:
 
 
 def pgd_sweep(device, kernel: str, cons, sur, scaler, xs: np.ndarray, starts: np.ndarray, rows: tuple,
-              configs: tuple = PGD_CONFIGS):
+              configs: tuple = PGD_CONFIGS, iters: tuple = PGD_ITERS):
     """The PGD kernel ``kernel`` (``pgd_lcld`` or ``pgd_botnet``) against
     ``pgd_run_plain`` on the card, bit for bit (x_adv, the class at x_adv,
-    the history), over ``configs`` x ``rows`` x ``PGD_ITERS``, the last
+    the history), over ``configs`` x ``rows`` x ``iters``, the last
     budget at one row count per configuration; labels alternate 0 and 1.
     A row's run depends on no other row, so the plain version runs once per
     configuration and budget, on the most rows, and each launch is held
@@ -1832,8 +1852,8 @@ def pgd_sweep(device, kernel: str, cons, sur, scaler, xs: np.ndarray, starts: np
         eps = 0.2 if knobs["norm"] == 2 else 0.1
         atk = ConstrainedPGD(sur, cons, scaler, eps=eps, eps_step=0.1, device=device, **knobs)
         repair, linf = "repair" in atk.loss_evaluation, is_inf(atk.norm)
-        for t in PGD_ITERS:
-            ns = [rows[ci % len(rows)]] if t == PGD_ITERS[-1] else list(rows)
+        for t in iters:
+            ns = [rows[ci % len(rows)]] if t == iters[-1] else list(rows)
             sched = atk.schedule(eps, 0.1, t)
             m = max(ns)
             want = pgd_run_plain(atk.tables, cons, sched, xi[:m], y[:m], st[:m], eps, atk.clip, atk.norm, repair,
@@ -2063,9 +2083,10 @@ def same_entries_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return (a == b) | (np.isnan(a) & np.isnan(b))
 
 
-def drive_pgd(device, smi: str, tag: str, kernel: str, problem, eps: float, f1: float, rewritten) -> dict:
+def drive_pgd(device, smi: str, tag: str, kernel: str, problem, eps: float, f1: float, rewritten,
+              loss: str = PGD_LOSS) -> dict:
     """Drive ``ConstrainedPGD.generate`` as ``experiments/pgd.py:149-186``
-    does at ``eps`` (``PGD_LOSS``, L2, ``PGD_BUDGET`` iterations) cold and
+    does at ``eps`` (``loss``, L2, ``PGD_BUDGET`` iterations) cold and
     steady, with the launch counts set to 0 just before and read just
     after: one launch of ``kernel``. Check the result (finite, immutables
     unchanged, two runs equal, the L2 ball on the features that repair
@@ -2078,7 +2099,7 @@ def drive_pgd(device, smi: str, tag: str, kernel: str, problem, eps: float, f1: 
     from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD, round_ints_toward_initial
 
     cons, sur, scaler, x, xs, y = problem
-    knobs = dict(eps=eps, eps_step=0.1, max_iter=PGD_BUDGET, norm=2, loss_evaluation=PGD_LOSS)
+    knobs = dict(eps=eps, eps_step=0.1, max_iter=PGD_BUDGET, norm=2, loss_evaluation=loss)
     atk = ConstrainedPGD(sur, cons, scaler, device=device, **knobs)
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
@@ -2123,15 +2144,16 @@ def drive_pgd(device, smi: str, tag: str, kernel: str, problem, eps: float, f1: 
     return launches
 
 
-def check_pgd_card_vs_cpu(device, tag: str, kernel: str, problem, eps: float, n: int, t: int) -> None:
+def check_pgd_card_vs_cpu(device, tag: str, kernel: str, problem, eps: float, n: int, t: int,
+                          loss: str = PGD_LOSS) -> None:
     """``generate`` on the card against the CPU on ``n`` states x ``t``
-    iterations (every x_adv entry equal), and 2 random restarts on the card:
-    2 launches of ``kernel``."""
+    iterations at ``loss`` (every x_adv entry equal), and 2 random restarts
+    on the card: 2 launches of ``kernel``."""
     from moeva2_ijcai22_replication_tpu_torch import kernels
     from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD
 
     cons, sur, scaler, _, xs, y = problem
-    small = dict(eps=eps, eps_step=0.1, max_iter=t, norm=2, loss_evaluation=PGD_LOSS)
+    small = dict(eps=eps, eps_step=0.1, max_iter=t, norm=2, loss_evaluation=loss)
     on_cpu = ConstrainedPGD(sur, cons, scaler, device="cpu", **small).generate(xs[:n], y[:n], eps=eps - 1e-6)
     on_card = ConstrainedPGD(sur, cons, scaler, device=device, **small).generate(xs[:n], y[:n], eps=eps - 1e-6)
     differ = int((~same_entries_np(on_card, on_cpu)).sum())
@@ -2584,6 +2606,9 @@ PGD_BOTNET_CPU_ITERS = 20
 #: cross-entropy, the sums' roots); 3 float64 exp and log per row
 PGD_BOTNET_OPS_PER_TERM = 7
 PGD_BOTNET_OPS_PER_ROW = 50
+#: a pair's term (the augmented domain) besides a term's 7: its two
+#: comparisons, the xor's select and its cotangent's add at its column
+PGD_BOTNET_OPS_PER_PAIR = 4
 PGD_BOTNET_F64_PER_ROW = 3
 #: K7b's dependent operations per iteration besides the stack's sums and the
 #: two L2 sums, counted from its source: the cross-entropy (20), a feature's
@@ -2620,18 +2645,26 @@ def check_pgd_botnet_kernel(device, problem):
         f"{BOTNET_EDGE_ROWS} edge starts, {nan_rows} NaN rows of x_adv, {nan_hist} NaN history entries")
 
 
+def botnet_pairs(tables) -> int:
+    """The XOR pairs of K7b's tables: 0 on the base domain."""
+    return 0 if tables.cons.pair_idx is None else tables.cons.pair_idx.shape[0]
+
+
 def pgd_botnet_work(tables, n: int, t: int, hist_cols: int = 0):
     """K7b's work for ``n`` rows and ``t`` iterations: the bytes it must
-    move, its float32 and its float64 operations, counted from its source."""
+    move, its float32 and its float64 operations, counted from its source
+    (on the augmented domain the pairs' terms among the terms, their tables
+    and ``PGD_BOTNET_OPS_PER_PAIR`` more a pair)."""
     widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
     macs = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
     d = widths[0]
     c = tables.cons.counts
-    n_terms = 2 + sum(c[4::2])
+    pairs = botnet_pairs(tables)
+    n_terms = 2 + sum(c[4::2]) + pairs
     n_bytes = (4 * 3 * n * d + 16 * n + 4 * (tables.params.numel() + tables.first_t.numel()) + 9 * d
-               + 4 * (sum(c) + tables.cons.inverse.numel()) + 16 * t + 4 * t * n * hist_cols)
+               + 4 * (sum(c) + tables.cons.inverse.numel()) + 16 * pairs + 16 * t + 4 * t * n * hist_cols)
     per_row = (4 * macs + PGD_OPS_PER_FEATURE * d + sum(c) + sum(c[:4]) + PGD_BOTNET_OPS_PER_TERM * n_terms
-               + PGD_BOTNET_OPS_PER_ROW)
+               + PGD_BOTNET_OPS_PER_PAIR * pairs + PGD_BOTNET_OPS_PER_ROW)
     return n_bytes, n * t * per_row, n * t * PGD_BOTNET_F64_PER_ROW
 
 
@@ -2663,12 +2696,13 @@ def pgd_botnet_shape(tables, n: int, autopgd: bool = False) -> dict:
 
     fn = build.library().moeva_pgd_botnet_shape
     c_int = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(c_int), c_int, ctypes.POINTER(c_int), c_int, c_int, ctypes.POINTER(c_int)]
+    fn.argtypes = [ctypes.POINTER(c_int), c_int, ctypes.POINTER(c_int), c_int, c_int, c_int, ctypes.POINTER(c_int)]
     fn.restype = c_int
     widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
     counts = list(tables.cons.counts)
     out = (c_int * 6)()
-    err = fn((c_int * len(widths))(*widths), len(widths) - 1, (c_int * len(counts))(*counts), n, int(autopgd), out)
+    err = fn((c_int * len(widths))(*widths), len(widths) - 1, (c_int * len(counts))(*counts), botnet_pairs(tables),
+             n, int(autopgd), out)
     if err:
         raise RuntimeError(f"moeva_pgd_botnet_shape failed: {build.library().moeva_error_string(err).decode()}")
     return dict(zip(("rows_per_cluster", "ctas_per_cluster", "ctas", "threads", "smem_bytes", "resident_clusters"),
@@ -3570,7 +3604,7 @@ def rq2_botnet_config(artifacts: str, attack: str = "moeva", loss: str | None = 
     runner composes it (``moeva.yaml``, ``rq2.botnet.static``, seed and
     budget, the scenario, then ε), over the artifacts in ``artifacts``; with
     ``attack`` "pgd", the same point for PGD with ``loss`` (no config of the
-    repo selects it: it checks the card's refusal)."""
+    repo selects it: phases 12 and 14 drive it through K7b at 927)."""
     import copy
 
     cfg = copy.deepcopy(MOEVA_YAML if attack == "moeva" else PGD_YAML)
@@ -3624,42 +3658,297 @@ def rq2_botnet_engine(device, cons, sur, scaler, artifacts: str):
                   archive_size=cfg["archive_size"], max_states_per_call=cfg["max_states_per_call"])
 
 
-def check_pgd_refused(device, smi: str, cons, sur, scaler, art: str) -> None:
-    """Constrained PGD on the augmented botnet domain is refused on the
-    card by name (ROADMAP queue B's "K7b at 927") before anything launches:
-    the engine, and the PGD runner on rq2.botnet's point, which writes
+#: constrained PGD on the augmented botnet domain (K7b's 927-feature
+#: instantiation) at rq2.botnet's point: rq1.botnet's last PGD loss without
+#: repair, which the set does not have (a ``+repair`` loss is refused before
+#: any launch, with JAX's error)
+BOTNET_AUG_PGD_LOSS = "constraints+flip+adaptive_eps_step"
+#: JAX's error for repair on the set (``domains/botnet.py:148``)
+BOTNET_AUG_NO_REPAIR = "Repair is undefined for the augmented botnet domain (reference parity)."
+#: the sweep of K7b's 927-feature PGD instantiation: five rows fit a cluster
+#: beside the staged layer (66 clusters resident on the H100): a lone row;
+#: 66, one row on each resident cluster; 67, two a cluster; 330, five on
+#: each; 331, a 67th cluster past them (a second wave); rq2.botnet's 387.
+#: Budgets 1 and 7 at every row count, 20 at one
+BOTNET_AUG_PGD_ROWS = (1, 66, 67, 330, 331, 387)
+BOTNET_AUG_PGD_ITERS = (1, 7, 20)
+#: a pair's term, the one ``single_constraints`` optimises in the sweep
+BOTNET_AUG_PAIR_TERM = 400
+#: both norms, targeted, the sum, the alternate constraints and the single
+#: one on a pair term, every history layout ("full": 531 term columns)
+BOTNET_AUG_PGD_CONFIGS = (
+    dict(loss_evaluation="constraints+flip", norm=2, record_loss="full", record_grad_norm=True),
+    dict(loss_evaluation="constraints", norm=np.inf, record_loss="full"),
+    dict(loss_evaluation="constraints+flip+constraints", constraints_optim="single_constraints",
+         ctr_id=BOTNET_AUG_PAIR_TERM, norm=2, targeted=True, record_loss="full"),
+    dict(loss_evaluation="constraints+flip+alternate", constraints_optim="alt_constraints", norm=np.inf,
+         record_loss="reduced", record_grad_norm=True),
+    dict(loss_evaluation=BOTNET_AUG_PGD_LOSS, norm=2, targeted=True),
+)
+#: the same under the AutoPGD prefix (the single constraint on the pair
+#: term is the tracking loss's too); four rows fit a cluster under kAuto:
+#: 264 on the 66 resident clusters, 265 one past them; budgets 1 at every
+#: row count and 12 (seven checkpoints, where halving fires) at one
+AUTOPGD_BOTNET_AUG_CONFIGS = tuple({**c, "loss_evaluation": "autopgd+" + c["loss_evaluation"]}
+                                   for c in BOTNET_AUG_PGD_CONFIGS)
+AUTOPGD_BOTNET_AUG_ROWS = (1, 67, 264, 265, 387)
+AUTOPGD_BOTNET_AUG_ITERS = (1, 12)
+
+
+def botnet_augmented_edge_starts(cons, scaler, xs: np.ndarray) -> np.ndarray:
+    """Scaled float32 starts of the augmented botnet rows ``xs``: the first
+    ``BOTNET_EDGE_ROWS`` at the base terms' edges (``problems.
+    botnet_edge_starts``), then ``BOTNET_AUGMENTED_EDGE_ROWS`` at the pair
+    terms' edges as ``problems.botnet_augmented_edge_rows`` lays them out,
+    each unscaled value exact in float32: every important feature at its
+    float32 threshold, every one at the nearest value below it, every one
+    NaN, and every pair column at 0, at 1 and at 0.5."""
+    from moeva2_ijcai22_replication_tpu_torch.domains.botnet import N_BASE_FEATURES
+    from moeva2_ijcai22_replication_tpu_torch.problems import (
+        BOTNET_AUGMENTED_EDGE_ROWS, BOTNET_EDGE_ROWS, botnet_edge_starts, scaled_preimage,
+    )
+
+    st = botnet_edge_starts(cons.schema.names, scaler, xs)
+    r = BOTNET_EDGE_ROWS
+    imp = cons.important_features
+    for k, t in zip(imp[:, 0].astype(int), imp[:, 1].astype(np.float32)):
+        st[r, k] = v = scaled_preimage(t, k, scaler.scale, scaler.min_)
+        sc, mn = np.float32(scaler.scale[k]), np.float32(scaler.min_[k])
+        while np.float32(np.float32(v - mn) / sc) >= t:
+            v = np.nextafter(v, np.float32(-np.inf), dtype=np.float32)
+        st[r + 1, k] = v
+    st[r + 2, imp[:, 0].astype(int)] = np.nan
+    for row, value in ((r + 3, 0.0), (r + 4, 1.0), (r + 5, 0.5)):
+        for k in range(N_BASE_FEATURES, xs.shape[1]):
+            st[row, k] = scaled_preimage(value, k, scaler.scale, scaler.min_)
+    assert BOTNET_AUGMENTED_EDGE_ROWS == 6
+    return st
+
+
+def pgd_botnet_aug_record(device, problem, base_problem, auto: bool):
+    """The record of K7b's 927-feature instantiation (its AutoPGD one where
+    ``auto``) at ``problem``'s states x ``PGD_BUDGET`` iterations
+    (``BOTNET_AUG_PGD_LOSS``, under the prefix where ``auto``; L2, ε
+    ``PGD_BOTNET_EPS`` - 1e-6, from x_init): device ms (CUDA graph of 2
+    launches) in turns with base K7b's same instantiation at 756 features on
+    ``base_problem`` (phase 9's, 387 rows) at the same loss, wrapper ms, the
+    plain version at ``PGD_BOTNET_PLAIN_ITERS`` iterations (held equal to
+    the kernel there), the bound, the latency floor and the launch's shape.
+    Returns it and the attack."""
+    import torch
+
+    from moeva2_ijcai22_replication_tpu_torch import kernels
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD, ConstrainedPGD
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.autopgd import autopgd_run_plain
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd.engine import pgd_run_plain
+
+    loss = ("autopgd+" if auto else "") + BOTNET_AUG_PGD_LOSS
+    eps, step = PGD_BOTNET_EPS - 1e-6, (PGD_BOTNET_EPS / 3 if auto else 0.1)
+    cls = AutoPGD if auto else ConstrainedPGD
+
+    def run(prob, t):
+        cons, sur, scaler, _, xs, y = prob
+        atk = cls(sur, cons, scaler, eps=eps, eps_step=step, max_iter=t, norm=2, loss_evaluation=loss, device=device)
+        xi = torch.as_tensor(xs, dtype=torch.float32, device=device)
+        yt = torch.as_tensor(y, device=device)
+        sched = atk.schedule(eps, step, t)
+        extra = {"auto": sched.auto} if auto else {}
+        fn = lambda: kernels.pgd_botnet(atk.tables, sched.pgd if auto else sched, xi, yt, xi, eps,  # noqa: E731
+                                        atk.clip, False, False, False, **extra)
+        return atk, sched, xi, yt, fn
+
+    atk, _, xi, yt, main = run(problem, PGD_BUDGET)
+    base = run(base_problem, PGD_BUDGET)[-1]
+    times = {"aug": [], "base": []}
+    for turn in ("aug", "base", "base", "aug"):
+        times[turn].append(graph_ms(main if turn == "aug" else base, launches=2, repeats=2))
+    small, sched, _, _, fn = run(problem, PGD_BOTNET_PLAIN_ITERS)
+    plain = autopgd_run_plain if auto else pgd_run_plain
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain(small.tables, small.constraints, sched, xi, yt, xi, eps, small.clip, 2, False, False)
+    end.record()
+    torch.cuda.synchronize()
+    for part, g, w in zip(("x_adv", "pred", "hist", "eta"), fn(), want):
+        if g is not None:
+            hold_equal(g, w, f"pgd_botnet at 927 features{' (AutoPGD)' if auto else ''}, {len(xi)} x "
+                             f"{PGD_BOTNET_PLAIN_ITERS}, {part}")
+    n = len(xi)
+    b_ms, b_by = (autopgd_botnet_bound if auto else pgd_botnet_bound)(atk.tables, n, PGD_BUDGET)
+    mhz = max_sm_clock_mhz()
+    rec = {
+        "name": "pgd_botnet_aug" + ("_auto" if auto else ""),
+        "route": "cuda",
+        "source": "moeva2_ijcai22_replication_tpu_torch/kernels/csrc/pgd_botnet.cu",
+        "replaces": ("moeva2_ijcai22_replication_tpu/attacks/pgd/autopgd.py:45" if auto
+                     else "moeva2_ijcai22_replication_tpu/attacks/pgd/engine.py:241"),
+        "launches": 0,
+        "max_abs_err": 0.0,
+        "ms": statistics.median(times["aug"]),
+        "runs_ms": times["aug"],
+        "base_756_ms": statistics.median(times["base"]),
+        "base_756_runs_ms": times["base"],
+        "wrapper_ms": cuda_ms(main, launches=1, repeats=2),
+        "plain_ms": start.elapsed_time(end),
+        "plain_iters": PGD_BOTNET_PLAIN_ITERS,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "ceiling_ms": (autopgd_botnet_floor_ms(atk.tables, PGD_BUDGET, mhz) if auto
+                       else pgd_botnet_floor_ms(atk.tables, PGD_BUDGET, mhz)),
+        "launch": pgd_botnet_shape(atk.tables, n, autopgd=auto),
+        "library_ms": None,
+    }
+    sh = rec["launch"]
+    tag = "[autopgd-botnet-augmented]" if auto else "[botnet-augmented]"
+    label = "K7b's AutoPGD instantiation" if auto else "K7b"
+    log(f"{tag} {label} at D = 927 ({atk.constraints.n_constraints} terms), {n} states x {PGD_BUDGET} iterations "
+        f"({loss}, L2, ε {PGD_BOTNET_EPS}): device {rec['ms']:.3f} ms (runs {[round(v, 3) for v in times['aug']]}), "
+        f"in turns with {label} at D = 756 on phase 9's {n} states at the same loss "
+        f"{rec['base_756_ms']:.3f} ms (runs {[round(v, 3) for v in times['base']]}, "
+        f"{rec['ms'] / rec['base_756_ms']:.2f}x); through the wrapper {rec['wrapper_ms']:.3f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}), {rec['ms'] / b_ms:.2f}x; latency floor {rec['ceiling_ms']:.3f} ms (at {mhz:.0f} "
+        f"MHz), {rec['ms'] / rec['ceiling_ms']:.2f}x; plain version at {PGD_BOTNET_PLAIN_ITERS} iterations "
+        f"{rec['plain_ms']:.1f} ms, equal to the kernel there")
+    log(f"{tag} {label}'s launch at D = 927, {n} rows: clusters of {sh['ctas_per_cluster']} CTAs of "
+        f"{sh['threads']} threads, {sh['rows_per_cluster']} rows per cluster, {sh['ctas'] // sh['ctas_per_cluster']} "
+        f"clusters ({sh['resident_clusters']} resident at once: "
+        f"{-(-sh['ctas'] // sh['ctas_per_cluster'] // sh['resident_clusters'])} wave(s)), {sh['smem_bytes']} bytes "
+        "of shared memory per CTA")
+    return rec, atk
+
+
+def check_botnet_aug_repair_refused(device, tag: str, art: str, problem, auto: bool) -> None:
+    """A ``+repair`` loss on the augmented botnet domain (``BOTNET_AUG_PGD_LOSS
+    + "+repair"``, under the AutoPGD prefix where ``auto``) raises JAX's
+    ``NotImplementedError`` on the card before any launch: ``generate`` with
+    one random start, and the PGD runner on rq2.botnet's point, which writes
     nothing."""
     import os
 
     from moeva2_ijcai22_replication_tpu_torch import kernels
-    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import ConstrainedPGD
+    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD, ConstrainedPGD
     from moeva2_ijcai22_replication_tpu_torch.experiments import pgd
 
-    kernels.reset_launch_counts()
-    cfg = rq2_botnet_config(art, "pgd", RQ1_LOSSES[-1])
+    cons, sur, scaler, _, xs, y = problem
+    loss = ("autopgd+" if auto else "") + BOTNET_AUG_PGD_LOSS + "+repair"
+    cls = AutoPGD if auto else ConstrainedPGD
+    cfg = rq2_botnet_config(art, "pgd", loss)
     out = cfg["dirs"]["results"]
+    kernels.reset_launch_counts()
     before = dir_state(out) if os.path.isdir(out) else {}
-    for what, call in (("ConstrainedPGD", lambda: ConstrainedPGD(sur, cons, scaler, device=device)),
-                       ("experiments.pgd.run", lambda: pgd.run(cfg))):
+    for what, call in (
+        ("generate", lambda: cls(sur, cons, scaler, loss_evaluation=loss, max_iter=PGD_BUDGET, norm=2,
+                                 num_random_init=1, device=device).generate(xs, y, eps=PGD_BOTNET_EPS - 1e-6)),
+        ("experiments.pgd.run", lambda: pgd.run(cfg)),
+    ):
         try:
             call()
         except NotImplementedError as exc:
-            if "K7b at 927" not in str(exc):
-                raise AssertionError(f"{what} refused PGD on botnet_augmented without naming the item: {exc}") from exc
-            reason = str(exc)
+            if str(exc) != BOTNET_AUG_NO_REPAIR:
+                raise AssertionError(f"{what} refused {loss} on botnet_augmented with another error: {exc}") from exc
         else:
-            raise AssertionError(f"{what} ran PGD on botnet_augmented on the card")
-    if any(kernels.launch_counts().values()) or (dir_state(out) if os.path.isdir(out) else {}) != before:
-        raise AssertionError(f"the refused PGD launched {kernels.launch_counts()} or wrote files")
-    log(f"[botnet-augmented] PGD on botnet_augmented is refused on the card before any launch, by the engine and "
-        f"by the PGD runner (nothing written): {reason}")
+            raise AssertionError(f"{what} ran {loss} on botnet_augmented, whose repair is undefined")
+    written = {f for f in (dir_state(out) if os.path.isdir(out) else {}) if f not in before}
+    if any(kernels.launch_counts().values()) or written:
+        raise AssertionError(f"the refused {loss} launched {kernels.launch_counts()} or wrote {sorted(written)}")
+    log(f"{tag} {loss} on botnet_augmented raises JAX's NotImplementedError ({BOTNET_AUG_NO_REPAIR!r}) on the card "
+        "before any launch, in generate and in the PGD runner (nothing written)")
+
+
+def run_botnet_aug_pgd(device, smi: str, resources: list, art: str, cons, sur, scaler, x):
+    """Phase 12's PGD part: constrained PGD on the augmented botnet domain
+    through K7b's 927-feature instantiation, over phase 12's artifacts in
+    ``art``: its ptxas line; the sweep against ``pgd_run_plain`` bit for bit
+    with the edge starts; its record at 387 x 1000 beside base K7b at 756;
+    ``generate`` cold and steady (one launch); the card against the CPU at 32
+    x 20 and 2 restarts; rq2.botnet's point under PGD through the runner at
+    budget 1000; a ``+repair`` loss refused. Returns the record and the
+    launches of ``generate``."""
+    from moeva2_ijcai22_replication_tpu_torch.problems import BOTNET_AUGMENTED_EDGE_ROWS, BOTNET_EDGE_ROWS
+
+    ptxas = [k for k in resources if k["kernel"] == "pgd_botnet_aug_kernel<0>"]
+    if len(ptxas) != 1:
+        raise AssertionError(f"the build's ptxas report has no entry for pgd_botnet_aug_kernel<0>: {ptxas}")
+    k = ptxas[0]
+    log(f"[botnet-augmented] K7b at 927 features, PGD: {k['kernel']}: {k['registers']} registers, {k['stack']} "
+        f"bytes stack frame, {k['spill_stores']} + {k['spill_loads']} bytes spill stores + loads")
+    xs = scaler.transform(x)
+    problem = (cons, sur, scaler, x, xs, surrogate_labels(sur, xs))
+    starts = botnet_augmented_edge_starts(cons, scaler, xs)
+    n = max(BOTNET_AUG_PGD_ROWS)
+    (runs, nan_rows, nan_hist), y = pgd_sweep(device, "pgd_botnet", cons, sur, scaler,
+                                              np.resize(xs, (n, xs.shape[1])), np.resize(starts, (n, xs.shape[1])),
+                                              BOTNET_AUG_PGD_ROWS, BOTNET_AUG_PGD_CONFIGS, BOTNET_AUG_PGD_ITERS)
+    log(f"[botnet-augmented] pgd_botnet at D = 927 ({cons.n_constraints} terms) equals pgd_run_plain (x_adv, class, "
+        f"history with {cons.n_constraints} term columns) on all {runs} runs: {len(BOTNET_AUG_PGD_CONFIGS)} "
+        f"configurations (both norms, targeted, the single constraint on pair term {BOTNET_AUG_PAIR_TERM}) x N in "
+        f"{BOTNET_AUG_PGD_ROWS} x T in {BOTNET_AUG_PGD_ITERS[:-1]}, and T = {BOTNET_AUG_PGD_ITERS[-1]} at one N "
+        f"each, with {BOTNET_EDGE_ROWS} base-term and {BOTNET_AUGMENTED_EDGE_ROWS} pair-term edge starts; "
+        f"{nan_rows} NaN rows of x_adv, {nan_hist} NaN history entries")
+    rec, _ = pgd_botnet_aug_record(device, problem, pgd_botnet_problem(), auto=False)
+    launches = drive_pgd(device, smi, f"[botnet-augmented ε {PGD_BOTNET_EPS}]", "pgd_botnet_aug", problem,
+                         PGD_BOTNET_EPS, 0.5, np.zeros(x.shape[1], bool), loss=BOTNET_AUG_PGD_LOSS)
+    check_pgd_card_vs_cpu(device, "[botnet-augmented]", "pgd_botnet_aug", problem, PGD_BOTNET_EPS,
+                          PGD_BOTNET_CPU_ROWS, PGD_BOTNET_CPU_ITERS, loss=BOTNET_AUG_PGD_LOSS)
+    cfg = rq2_botnet_config(art, "pgd", BOTNET_AUG_PGD_LOSS)
+    drive_runner(cfg, smi, point_expected_launches("pgd", cfg),
+                 f"pgd botnet_augmented budget {cfg['budget']} {BOTNET_AUG_PGD_LOSS}")
+    check_botnet_aug_repair_refused(device, "[botnet-augmented]", art, problem, auto=False)
+    return rec, launches["pgd_botnet_aug"]
+
+
+def run_autopgd_botnet_aug(device, smi: str, resources: list):
+    """Phase 14's augmented botnet part: K7b's 927-feature AutoPGD
+    instantiation, its ptxas line; the sweep against ``autopgd_run_plain``
+    bit for bit (x_best, class, history, eta) with the edge starts, rows
+    halved and kept at T = 12; its record at 387 x 1000 beside K7b's AutoPGD
+    instantiation at 756; ``generate`` (one random start: one launch); the
+    card against the CPU at 32 x 20 and 2 restarts; rq2.botnet's point under
+    the ``autopgd+`` prefix through the runner; a ``+repair`` loss refused.
+    Returns the record and the launches of ``generate``."""
+    from moeva2_ijcai22_replication_tpu_torch.problems import BOTNET_AUGMENTED_EDGE_ROWS, BOTNET_EDGE_ROWS
+
+    ptxas = [k for k in resources if k["kernel"] == "pgd_botnet_aug_kernel<1>"]
+    if len(ptxas) != 1:
+        raise AssertionError(f"the build's ptxas report has no entry for pgd_botnet_aug_kernel<1>: {ptxas}")
+    k = ptxas[0]
+    log(f"[autopgd-botnet-augmented] K7b at 927 features, AutoPGD: {k['kernel']} (kAuto): {k['registers']} "
+        f"registers, {k['stack']} bytes stack frame, {k['spill_stores']} + {k['spill_loads']} bytes spill stores + "
+        "loads")
+    loss = "autopgd+" + BOTNET_AUG_PGD_LOSS
+    with tempfile.TemporaryDirectory() as tmp:
+        cons, sur, scaler, x = write_botnet_aug_artifacts(tmp)
+        xs = scaler.transform(x)
+        problem = (cons, sur, scaler, x, xs, surrogate_labels(sur, xs))
+        starts = botnet_augmented_edge_starts(cons, scaler, xs)
+        n = max(AUTOPGD_BOTNET_AUG_ROWS)
+        runs, halved, kept, nan_rows = autopgd_sweep(device, "pgd_botnet", cons, sur, scaler,
+                                                     np.resize(xs, (n, xs.shape[1])),
+                                                     np.resize(starts, (n, xs.shape[1])), AUTOPGD_BOTNET_AUG_ROWS,
+                                                     AUTOPGD_BOTNET_AUG_ITERS, AUTOPGD_BOTNET_AUG_CONFIGS)
+        log(f"[autopgd-botnet-augmented] K7b's AutoPGD instantiation at D = 927 equals autopgd_run_plain (x_best, "
+            f"class, history, eta) on all {runs} runs: {len(AUTOPGD_BOTNET_AUG_CONFIGS)} configurations x N in "
+            f"{AUTOPGD_BOTNET_AUG_ROWS} x T = {AUTOPGD_BOTNET_AUG_ITERS[0]}, and T = {AUTOPGD_BOTNET_AUG_ITERS[-1]} at "
+            f"one N each, with {BOTNET_EDGE_ROWS} base-term and {BOTNET_AUGMENTED_EDGE_ROWS} pair-term edge starts; "
+            f"at T >= 12 {halved} rows halved their step and {kept} kept it; {nan_rows} NaN rows of x_best")
+        rec, _ = pgd_botnet_aug_record(device, problem, pgd_botnet_problem(), auto=True)
+        launches = drive_autopgd(device, smi, "[autopgd-botnet-augmented]", "pgd_botnet_aug_auto", problem, loss,
+                                 PGD_BOTNET_EPS, np.zeros(x.shape[1], bool), 0.5)
+        check_autopgd_card_vs_cpu(device, "[autopgd-botnet-augmented]", "pgd_botnet_aug_auto", problem,
+                                  PGD_BOTNET_CPU_ROWS, PGD_BOTNET_CPU_ITERS, PGD_BOTNET_EPS, loss=loss)
+        cfg = rq2_botnet_config(tmp, "pgd", loss)
+        drive_runner(cfg, smi, point_expected_launches("pgd", cfg), f"pgd botnet_augmented budget {cfg['budget']} "
+                     f"{loss}")
+        check_botnet_aug_repair_refused(device, "[autopgd-botnet-augmented]", tmp, problem, auto=True)
+    return rec, launches["pgd_botnet_aug_auto"]
 
 
 def run_botnet_augmented(device, smi: str, resources: list):
     """Phase 12: the augmented botnet domain (``botnet_augmented``: 927
     features, 360 + 171 terms). Returns K8's record at D = 927, the
-    launches of rq2.botnet's grid point and K5's and K4b's times at L =
-    927."""
+    launches of rq2.botnet's grid point, K5's and K4b's times at L = 927,
+    and the record and ``generate`` launches of K7b's 927-feature PGD
+    instantiation."""
     import torch
 
     from moeva2_ijcai22_replication_tpu_torch.core.schema import FeatureSchema
@@ -3696,10 +3985,12 @@ def run_botnet_augmented(device, smi: str, resources: list):
         if expected["objective_botnet_aug"] == 0 or expected["objective_botnet"] != 0:
             raise AssertionError(f"rq2.botnet's objectives are not K8's augmented instantiation's: {expected}")
         drive_runner(cfg, smi, expected, "moeva botnet_augmented budget 1000")
-        check_pgd_refused(device, smi, cons, sur, scaler, tmp)
+        t1 = time.perf_counter()
+        pgd_rec, pgd_launches = run_botnet_aug_pgd(device, smi, resources, tmp, cons, sur, scaler, x)
+        log(f"[botnet-augmented] phase 12's PGD part took {time.perf_counter() - t1:.1f} s")
     log(f"[botnet-augmented] launches over rq2.botnet's grid point: {({k: v for k, v in expected.items() if v})}; "
         f"phase 12 took {time.perf_counter() - t0:.1f} s")
-    return rec, expected, stage_times
+    return rec, expected, stage_times, pgd_rec, pgd_launches
 
 
 #: the shared memory one block can use on Hopper (``kMaxSharedBytes``)
@@ -4190,7 +4481,7 @@ AUTOPGD_RUNNER_LOSSES = ("autopgd+flip", "autopgd+constraints+flip",
 #: the launch counts of K7's and K7b's AutoPGD instantiations: no grid file
 #: of ``config/`` selects an ``autopgd`` loss, so phase 13 launches none and
 #: phase 14 must launch each
-AUTOPGD_COUNTERS = ("pgd_lcld_auto", "pgd_lcld_aug_auto", "pgd_botnet_auto")
+AUTOPGD_COUNTERS = ("pgd_lcld_auto", "pgd_lcld_aug_auto", "pgd_botnet_auto", "pgd_botnet_aug_auto")
 #: operations AutoPGD adds to K7's per row and iteration, counted from its
 #: source, besides the tracking forward's 2 per weight of the stack: 18 per
 #: feature (the momentum's six, its clip, the second projection's
@@ -4262,7 +4553,7 @@ def autopgd_botnet_bound(tables, n: int, t: int):
     widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
     macs = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
     c = tables.cons.counts
-    n_terms = 2 + sum(c[4::2])
+    n_terms = 2 + sum(c[4::2]) + botnet_pairs(tables)
     n_ops += n * t * (2 * macs + sum(c[:4]) + (PGD_BOTNET_OPS_PER_TERM + 1) * n_terms
                       + AUTOPGD_OPS_PER_FEATURE * widths[0] + AUTOPGD_BOTNET_OPS_PER_ROW)
     return bound_ms(n_bytes + 4 * n + 5 * (t + 1), n_ops, n_f64 + n * t * PGD_BOTNET_F64_PER_ROW)
@@ -4282,11 +4573,11 @@ def autopgd_botnet_floor_ms(tables, t: int, mhz: float) -> float:
 
 
 def autopgd_sweep(device, kernel: str, cons, sur, scaler, xs: np.ndarray, starts: np.ndarray, rows: tuple,
-                  iters: tuple = AUTOPGD_ITERS):
+                  iters: tuple = AUTOPGD_ITERS, configs: tuple = AUTOPGD_CONFIGS):
     """The AutoPGD instantiation of ``kernel`` (``pgd_lcld`` or
     ``pgd_botnet``) against ``autopgd_run_plain`` on the card, bit for bit
     (x_best, the class there, the history, each row's final step), over
-    ``AUTOPGD_CONFIGS`` x ``rows`` x ``iters``, the last budget at one
+    ``configs`` x ``rows`` x ``iters``, the last budget at one
     row count per configuration, first step ε / 3; labels alternate 0 and
     1. A row's run depends on no other row, so the plain version runs once
     per configuration and budget, on the most rows, and each launch is held
@@ -4304,7 +4595,7 @@ def autopgd_sweep(device, kernel: str, cons, sur, scaler, xs: np.ndarray, starts
     st = torch.as_tensor(starts, device=device)
     y = torch.as_tensor(np.arange(len(xs)) % 2, device=device)
     runs = halved = kept = nan_rows = 0
-    for ci, knobs in enumerate(AUTOPGD_CONFIGS):
+    for ci, knobs in enumerate(configs):
         eps = 0.2 if knobs["norm"] == 2 else 0.1
         atk = AutoPGD(sur, cons, scaler, eps=eps, eps_step=eps / 3, device=device, **knobs)
         repair, linf = "repair" in atk.loss_evaluation, is_inf(atk.norm)
@@ -4459,15 +4750,16 @@ def drive_autopgd(device, smi: str, tag: str, counter: str, problem, loss: str, 
     return launches
 
 
-def check_autopgd_card_vs_cpu(device, tag: str, counter: str, problem, n: int, t: int, eps_run: float) -> None:
-    """AutoPGD's ``generate`` on the card against the CPU from x_init on
-    ``n`` states x ``t`` iterations (every x_adv entry equal), and 2 random
-    restarts on the card: 2 launches of ``counter``."""
+def check_autopgd_card_vs_cpu(device, tag: str, counter: str, problem, n: int, t: int, eps_run: float,
+                              loss: str = AUTOPGD_LOSS) -> None:
+    """AutoPGD's ``generate`` at ``loss`` on the card against the CPU from
+    x_init on ``n`` states x ``t`` iterations (every x_adv entry equal), and
+    2 random restarts on the card: 2 launches of ``counter``."""
     from moeva2_ijcai22_replication_tpu_torch import kernels
     from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD
 
     cons, sur, scaler, _, xs, y = problem
-    small = dict(eps=eps_run, eps_step=eps_run / 3, max_iter=t, norm=2, loss_evaluation=AUTOPGD_LOSS)
+    small = dict(eps=eps_run, eps_step=eps_run / 3, max_iter=t, norm=2, loss_evaluation=loss)
     on_cpu = AutoPGD(sur, cons, scaler, device="cpu", **small).generate(xs[:n], y[:n], eps=eps_run - 1e-6)
     on_card = AutoPGD(sur, cons, scaler, device=device, **small).generate(xs[:n], y[:n], eps=eps_run - 1e-6)
     differ = int((~same_entries_np(on_card, on_cpu)).sum())
@@ -4506,40 +4798,6 @@ def check_autopgd_c5(device, problem) -> None:
     log(f"[autopgd] C5: AutoPGD {AUTOPGD_LOSS} from x_init at {len(xs)} states x {PGD_BUDGET}: NaN rows of x_best "
         f"{nan_rows}; PGD's C5 rows {rows}: g8 or g9 not finite first at iterations {first} (None: never), x_best "
         f"finite {np.isfinite(x_best[rows]).all(-1).tolist()}, final steps {atk.last_eta.cpu().numpy()[rows].tolist()}")
-
-
-def check_autopgd_refused(device, smi: str, art: str) -> None:
-    """AutoPGD on the augmented botnet domain, whose PGD kernel is ROADMAP
-    queue B's "K7b at 927", is refused on the card by name before anything
-    launches: the engine, and the PGD runner on rq2.botnet's point under the
-    prefix, which writes nothing."""
-    import os
-
-    from moeva2_ijcai22_replication_tpu_torch import kernels
-    from moeva2_ijcai22_replication_tpu_torch.attacks.pgd import AutoPGD
-    from moeva2_ijcai22_replication_tpu_torch.experiments import pgd
-
-    cons, sur, scaler, _ = write_botnet_aug_artifacts(art)
-    cfg = rq2_botnet_config(art, "pgd", "autopgd+" + RQ1_LOSSES[-1])
-    out = cfg["dirs"]["results"]
-    kernels.reset_launch_counts()
-    before = dir_state(out) if os.path.isdir(out) else {}
-    for what, call in (("AutoPGD", lambda: AutoPGD(sur, cons, scaler, device=device)),
-                       ("experiments.pgd.run", lambda: pgd.run(cfg))):
-        try:
-            call()
-        except NotImplementedError as exc:
-            if "K7b at 927" not in str(exc):
-                raise AssertionError(f"{what} refused AutoPGD on botnet_augmented without naming the item: "
-                                     f"{exc}") from exc
-            reason = str(exc)
-        else:
-            raise AssertionError(f"{what} ran AutoPGD on botnet_augmented on the card")
-    written = {f for f in (dir_state(out) if os.path.isdir(out) else {}) if f not in before}
-    if any(kernels.launch_counts().values()) or written:
-        raise AssertionError(f"the refused AutoPGD launched {kernels.launch_counts()} or wrote {sorted(written)}")
-    log(f"[autopgd] AutoPGD on botnet_augmented is refused on the card before any launch, by the engine and by the "
-        f"PGD runner (nothing written): {reason}")
 
 
 def run_autopgd_botnet(device, smi: str, resources: list):
@@ -4613,8 +4871,9 @@ def run_autopgd_botnet(device, smi: str, resources: list):
 
 def run_autopgd(device, smi: str, resources: list, problem):
     """Phase 14: AutoPGD on LCLD (``problem``, phase 7's) and augmented LCLD
-    through K7's AutoPGD instantiations, and on botnet through K7b's.
-    Returns their records and the launches of the ``generate`` drives."""
+    through K7's AutoPGD instantiations, and on botnet and augmented botnet
+    through K7b's. Returns their records and the launches of the
+    ``generate`` drives."""
     import os
 
     from moeva2_ijcai22_replication_tpu_torch.problems import LCLD_AUGMENTED_EDGE_ROWS, lcld_augmented_edge_rows
@@ -4694,12 +4953,15 @@ def run_autopgd(device, smi: str, resources: list, problem):
         cfg["loss_evaluation"] = rq2_loss
         drive_runner(cfg, smi, point_expected_launches("pgd", cfg), f"pgd lcld_augmented budget {cfg['budget']} "
                      f"{rq2_loss}")
-        check_autopgd_refused(device, smi, f"{tmp}/botnet_augmented")
     log(f"[autopgd] phase 14's LCLD part took {time.perf_counter() - t0:.1f} s")
     t1 = time.perf_counter()
     rec, launches["pgd_botnet_auto"] = run_autopgd_botnet(device, smi, resources)
     records.append(rec)
     log(f"[autopgd-botnet] phase 14's botnet part took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    rec, launches["pgd_botnet_aug_auto"] = run_autopgd_botnet_aug(device, smi, resources)
+    records.append(rec)
+    log(f"[autopgd-botnet-augmented] phase 14's augmented botnet part took {time.perf_counter() - t1:.1f} s")
     log(f"[autopgd] phase 14 took {time.perf_counter() - t0:.1f} s")
     return records, {name: launches[name] for name in AUTOPGD_COUNTERS}
 
@@ -7171,9 +7433,10 @@ REFDIRS_OPS_PER_POINT = 70
 RESTART_SHAPE = (4000, 47)
 RESTART_HIST = (100, 3)
 RESTART_STARTS = 3
-#: K16 at the PGD runner's labels (rq1's 4000 LCLD and 387 botnet states)
-#: and the pipelines' proba1 (phase 19's test rows, 2000 and 1000)
-FORWARD_SHAPES = {"lcld": (4000, 2000), "botnet": (387, 1000)}
+#: K16 at the PGD runner's labels (rq1's 4000 LCLD and 387 botnet states,
+#: rq2.botnet's 387 augmented ones at 927 features) and the pipelines'
+#: proba1 (phase 19's test rows, 2000 and 1000)
+FORWARD_SHAPES = {"lcld": (4000, 2000), "botnet": (387, 1000), "botnet_augmented": (387, 1000)}
 
 
 def stage_record(name: str, source: str, replaces: str, ms: float, wrapper_ms: float, plain_ms: float,
@@ -7381,8 +7644,8 @@ def check_restart(device, smi: str) -> tuple:
 def check_forward(device, smi: str) -> tuple:
     """K16's two instantiations against their plain versions on the card
     bit for bit (labels: ``predict_plain``'s semantics; proba1:
-    ``proba1_plain``) on LCLD's and botnet's seeded stacks at
-    ``FORWARD_SHAPES``, with a NaN row; each timed at LCLD's shape beside its
+    ``proba1_plain``) on LCLD's, botnet's and augmented botnet's seeded
+    stacks at ``FORWARD_SHAPES``, with a NaN row; each timed at LCLD's shape beside its
     plain version, its bound and, as the library figure, the model's own
     ``nn.Linear`` forward and softmax (device time from a CUDA graph, as the
     kernel's, and launched eagerly); and ``experiments.defense.proba1``
@@ -7397,7 +7660,10 @@ def check_forward(device, smi: str) -> tuple:
 
     timed = {}
     for name, (n_lab, n_p1) in FORWARD_SHAPES.items():
-        model = (lcld_mlp(seed=11) if name == "lcld" else botnet_mlp(seed=12))
+        if name == "lcld":
+            model = lcld_mlp(seed=11)
+        else:
+            model = botnet_mlp(927, seed=13) if name == "botnet_augmented" else botnet_mlp(seed=12)
         rng = np.random.default_rng(len(name))
         w, p32, layers32 = stack_tensors(model, torch.float32, device)
         _, p64, layers64 = stack_tensors(model, torch.float64, device)
@@ -7606,17 +7872,21 @@ def main() -> int:
     records += aug_records
     launches.update({name: aug_launches[name] for name in ("objective_lcld_aug", "pgd_lcld_aug")})
     lap("phase 11")
-    botnet_aug_rec, botnet_aug_launches, botnet_aug_stage_times = run_botnet_augmented(device, smi, resources)
+    botnet_aug_rec, botnet_aug_launches, botnet_aug_stage_times, pgd_aug_rec, pgd_aug_launches = (
+        run_botnet_augmented(device, smi, resources))
     records.append(botnet_aug_rec)
     for rec in records:
         if rec["name"] in botnet_aug_stage_times:
             rec["botnet_augmented_shapes"] = botnet_aug_stage_times[rec["name"]]
     launches["objective_botnet_aug"] = botnet_aug_launches["objective_botnet_aug"]
+    records.append(pgd_aug_rec)
+    launches["pgd_botnet_aug"] = pgd_aug_launches
     grid_launches = run_grids(smi)
-    # no grid file selects AutoPGD: its counters are checked on phase 14's drives
+    # no grid file selects AutoPGD, nor PGD on the augmented botnet domain:
+    # their counters are checked on phases 12's and 14's drives
     idle = [name for name, n in grid_launches.items()
             if n == 0 and name not in AUTOPGD_COUNTERS + EARLY_EXIT_COUNTERS + HISTORY_COUNTERS + SPEC_COUNTERS
-            + SPEC_PGD_COUNTERS + DEFENSE_COUNTERS + ("pgd_start", "refdirs", "restart")]
+            + SPEC_PGD_COUNTERS + DEFENSE_COUNTERS + ("pgd_start", "refdirs", "restart", "pgd_botnet_aug")]
     if idle:
         raise AssertionError(f"phase 13's grids launched no {idle}")
     auto_records, auto_launches = run_autopgd(device, smi, resources, problem)

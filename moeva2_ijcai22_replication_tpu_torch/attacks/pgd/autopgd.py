@@ -25,10 +25,13 @@ AutoPGD instantiation (``kAuto``) of the set's PGD kernel on the card, K7
 on LCLD (``kernels.pgd_lcld`` with the tables, ``kernels/csrc/pgd_lcld.cu``),
 K7b on botnet (``kernels.pgd_botnet``, ``kernels/csrc/pgd_botnet.cu``) and
 K10 on a domain compiled from a spec (``kernels.pgd_spec``,
-``kernels/csrc/pgd_spec.cu``), and this plain version on the CPU, one rounded operation at a time in the
-kernels' order. On the card a set with no PGD kernel (``pgd_kernel``) is
-refused before anything launches, as :class:`ConstrainedPGD` refuses it;
-on the CPU every set runs.
+``kernels/csrc/pgd_spec.cu``), and this plain version on the CPU, one
+rounded operation at a time in the kernels' order. K7b's covers the
+augmented botnet domain too, in its 927-feature instantiation. On the card
+a set with no PGD kernel (``pgd_kernel``) is refused before anything
+launches, as :class:`ConstrainedPGD` refuses it; on the CPU every set runs.
+A ``+repair`` loss on a set without repair raises before anything runs,
+as in :class:`ConstrainedPGD`.
 """
 
 from __future__ import annotations
@@ -197,8 +200,9 @@ class AutoPGD(ConstrainedPGD):
     ``max_iter``, and :meth:`generate` raises ``ValueError`` for another
     budget (build an engine per budget). The port's plain PGD keeps its own
     rule, any budget on one engine. On the card a set with no PGD kernel
-    (``card_refusal``: the augmented botnet domain) is refused by name
-    before anything launches, in :meth:`ConstrainedPGD.__post_init__`."""
+    (``card_refusal``) is refused by name before anything launches, in
+    :meth:`ConstrainedPGD.__post_init__`; every set of the repo's domains
+    has one."""
 
     alpha_momentum: float = 0.75
     rho: float = 0.75

@@ -39,11 +39,12 @@ relu at their edges; NaN kept through every product, then zeroed): the
 MLP's backward is :func:`..models.mlp.mlp_input_grad_plain`, the
 constraints' the set's ``smooth_vjp``. On CUDA tensors a run is one launch
 of the set's PGD kernel (``pgd_kernel``): K7 (``kernels/csrc/pgd_lcld.cu``)
-on LCLD, K7b (``kernels/csrc/pgd_botnet.cu``) on botnet, K10
-(``kernels/csrc/pgd_spec.cu``) on a domain compiled from a spec, each
-repeating this plain version's operations in its order; on CPU tensors
-:func:`pgd_run_plain` runs. Nothing on the card's path calls the plain
-version.
+on LCLD, K7b (``kernels/csrc/pgd_botnet.cu``) on botnet and its
+augmented variant, K10 (``kernels/csrc/pgd_spec.cu``) on a domain compiled
+from a spec, each repeating this plain version's operations in its order;
+on CPU tensors :func:`pgd_run_plain` runs. Nothing on the card's path
+calls the plain version. A ``+repair`` loss on a set without repair (the
+augmented botnet domain, as in JAX) raises before anything runs.
 """
 
 from __future__ import annotations
@@ -282,12 +283,10 @@ def pgd_start_plain(fields, key: int, base: int, x_init, mutable, eps: float, cl
 
 def card_refusal(constraints) -> str | None:
     """Why constrained PGD on ``constraints`` cannot run on the card (the
-    set has no PGD kernel, ``pgd_kernel``; its ``no_pgd_kernel`` says which
-    item would bring one), or None."""
+    set has no PGD kernel, ``pgd_kernel``), or None."""
     if constraints.pgd_kernel is not None:
         return None
-    why = getattr(constraints, "no_pgd_kernel", "its runs cannot go on the card")
-    return f"{type(constraints).__name__} has no PGD kernel (pgd_kernel): {why}"
+    return f"{type(constraints).__name__} has no PGD kernel (pgd_kernel): its runs cannot go on the card"
 
 
 @dataclass
@@ -424,8 +423,14 @@ class ConstrainedPGD:
         time), a row keeping the first run that flips it (that hits the
         target when ``targeted``) and ``x_init`` when none does, its history
         following the kept run (an unsuccessful row's the latest run), and
-        ``restart_success`` (R, N) the cumulative success after each run."""
+        ``restart_success`` (R, N) the cumulative success after each run.
+        A ``+repair`` loss on a set without repair (``repair_undefined``)
+        raises its ``NotImplementedError`` before anything runs."""
         n = x_init.shape[0]
+        if "repair" in self.loss_evaluation and self.constraints.repair_undefined:
+            # JAX raises it while it traces the run, before anything runs on
+            # its device; here before any random start or run launches
+            raise NotImplementedError(self.constraints.repair_undefined)
         if starts is None:
             x_adv, _, hist = self.one_run(x_init, y, x_init, sched, eps)
             return x_adv, hist, torch.zeros((0, n), dtype=torch.bool, device=x_init.device)

@@ -36,6 +36,10 @@ class ConstraintSet:
     #: name of the hand-written PGD kernel (K7, K7b, K10) that serves this
     #: set on the card; None = no kernel
     pgd_kernel: str | None = None
+    #: why the set has no repair (its ``repair`` raises it), None where it
+    #: has one: constrained PGD refuses a ``+repair`` loss on it before
+    #: anything runs
+    repair_undefined: str | None = None
 
     def __init__(self, schema: FeatureSchema, bounds: ConstraintBounds | None = None):
         self.schema = schema

@@ -14,9 +14,11 @@ port keeps that count (2 + 34 + 324 = 360).
 
 Constrained PGD differentiates the terms by hand (``smooth_vjp``, with
 ``jax.grad``'s conventions) so that kernel K7b (``kernels/csrc/
-pgd_botnet.cu``) can repeat the backward in its order. K7b takes the base
-domain's 756 features only: on the card, PGD on the augmented domain is
-refused before anything launches.
+pgd_botnet.cu``) can repeat the backward in its order, on the base domain
+and, in its own instantiation, on the augmented one (k = 19: 927 features;
+another pair count is refused by the kernel's wrapper). The augmented
+domain has no repair, as in the JAX package: a ``+repair`` loss raises its
+``NotImplementedError`` before anything launches.
 """
 
 from __future__ import annotations
@@ -238,13 +240,12 @@ class BotnetAugmentedConstraints(BotnetConstraints):
     k = 19, the reference's defense)."""
 
     n_constraints = 531
-    #: K7b takes 756 features, so constrained PGD on this set is refused on
-    #: the card before anything launches (``attacks.pgd.engine.card_refusal``)
-    pgd_kernel = None
-    no_pgd_kernel = (
-        f"kernel K7b takes botnet's {N_BASE_FEATURES} features only, and its instantiation for the augmented "
-        'domain, with its backward, is ROADMAP queue B\'s "K7b at 927" item; run it on the CPU'
-    )
+    #: kernel K7b's augmented instantiation (``pgd_botnet_aug_kernel``, 927
+    #: features) runs constrained PGD on the card with these terms, the
+    #: pairs' after the base ones, and their backward
+    pgd_kernel = "botnet"
+    #: why a ``+repair`` loss is refused (JAX's ``repair`` raises it)
+    repair_undefined = "Repair is undefined for the augmented botnet domain (reference parity)."
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -264,11 +265,13 @@ class BotnetAugmentedConstraints(BotnetConstraints):
         return torch.cat([super()._raw(x), self._pairs.consistency_terms(x)], dim=-1)
 
     def repair(self, x: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError("Repair is undefined for the augmented botnet domain (reference parity).")
+        raise NotImplementedError(self.repair_undefined)
 
     def kernel_tables(self, device) -> BotnetTables:
-        """K8's gather lists and the pairs' tables on ``device``, the
-        thresholds rounded once to float32."""
+        """K8's and K7b's gather lists, K7b's inverse table (no entry at a
+        pair's column) and the pairs' tables on ``device``, the thresholds
+        rounded once to float32 (``augmentation.PairTables.xor_features``'
+        rounding in the plain path)."""
         return super().kernel_tables(device)._replace(
             pair_idx=self._pairs.idx.to(device=device, dtype=torch.int32),
             pair_thr=torch.as_tensor(self._pairs.thr, dtype=torch.float32, device=device),

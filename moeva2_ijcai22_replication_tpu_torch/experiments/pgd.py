@@ -15,9 +15,11 @@ success-rate CSV, the config snapshot and the metrics JSON last.
 A loss containing ``autopgd`` selects :class:`AutoPGD` (one random start
 unless ``nb_random`` says otherwise, first step ``per_attack_eps / 3`` from
 the un-shifted ε; the AutoPGD instantiation of K7 on LCLD and of K7b on
-botnet), any other loss :class:`ConstrainedPGD` (step 0.1; K7 on LCLD, K7b
-on botnet): one launch per run on the card, where a set with no PGD kernel
-(the augmented botnet domain, ROADMAP queue B's "K7b at 927") is refused.
+botnet and augmented botnet), any other loss :class:`ConstrainedPGD` (step
+0.1; K7 on LCLD, K7b on botnet and augmented botnet): one launch per run on
+the card, where a set with no PGD kernel is refused. On the augmented
+botnet domain a ``+repair`` loss raises JAX's ``NotImplementedError``
+before the attack runs (the set has no repair).
 
 ``device`` and ``dtype`` are arguments, never config keys: the config hash
 stays the JAX package's. The metrics carry the JAX runner's top-level keys
@@ -158,6 +160,9 @@ def run(config: dict, pipeline=None, device="cuda", dtype=torch.float32):
 
     with timer.phase("setup"):
         constraints = common.load_constraints(config)
+        if "repair" in config["loss_evaluation"] and constraints.repair_undefined:
+            # the engine raises it too; here before the labels' launch
+            raise NotImplementedError(constraints.repair_undefined)
         x_initial = common.load_candidates(config)
         scaler = common.load_scaler(config)
         surrogate = common.load_surrogate(config)

@@ -46,10 +46,11 @@ take_carry_plain`` and ``final_columns_plain``. Both uses of K6b count as
 And, for constrained PGD, ``pgd_lcld`` (K7, ``csrc/pgd_lcld.cu``) and
 ``pgd_botnet`` (K7b, ``csrc/pgd_botnet.cu``): every iteration of one run on
 the LCLD or the botnet domain; plain version
-``attacks.pgd.engine.pgd_run_plain``. K7's instantiation for the augmented
-LCLD domain counts its launches as ``pgd_lcld_aug``; their AutoPGD
-instantiations (plain version ``attacks.pgd.autopgd.autopgd_run_plain``)
-as ``pgd_lcld_auto``, ``pgd_lcld_aug_auto`` and ``pgd_botnet_auto``. On a
+``attacks.pgd.engine.pgd_run_plain``. K7's and K7b's instantiations for the
+augmented domains count their launches as ``pgd_lcld_aug`` and
+``pgd_botnet_aug``; their AutoPGD instantiations (plain version
+``attacks.pgd.autopgd.autopgd_run_plain``) as ``pgd_lcld_auto``,
+``pgd_lcld_aug_auto``, ``pgd_botnet_auto`` and ``pgd_botnet_aug_auto``. On a
 domain compiled from a constraint spec, ``pgd_spec`` (K10,
 ``csrc/pgd_spec.cu``) runs them from the spec's reverse and repair
 programs; its AutoPGD instantiation counts as ``pgd_spec_auto``.
@@ -111,7 +112,7 @@ _LAUNCHES = {
         "gate_stats", "take_carry", "objective_lcld_hist", "objective_lcld_aug_hist", "objective_botnet_hist",
         "objective_botnet_aug_hist", "objective_spec", "objective_spec_hist", "pgd_spec", "pgd_spec_auto", "train_step", "train_loss",
         "input_grad", "draws", "pgd_start", "chunk_prepare", "chunk_decode", "refdirs", "restart",
-        "forward_labels", "forward_proba1",
+        "forward_labels", "forward_proba1", "pgd_botnet_aug", "pgd_botnet_aug_auto",
     )
 }
 
@@ -810,35 +811,46 @@ def pgd_lcld(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_in
 
 def pgd_botnet(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_inf: bool, repair: bool,
                targeted: bool, record=None, auto=None):
-    """Kernel K7b: one constrained PGD run on botnet rows, ``(x_adv (N, 756)
+    """Kernel K7b: one constrained PGD run on botnet rows, ``(x_adv (N, D)
     float32, pred (N,) int64, hist)``, the semantics of
     ``attacks.pgd.engine.pgd_run_plain`` with ``BotnetConstraints``: the
     arguments of :func:`pgd_lcld`, with ``tables.cons`` the set's gather
     and inverse tables (``domains.botnet.BotnetTables``) and
     ``tables.first_t`` the first layer transposed. It takes a relu stack of
-    756 inputs, 2 to K1's most layers of at most ``BOTNET_MAX_WIDTH`` units
+    D inputs, 2 to K1's most layers of at most ``BOTNET_MAX_WIDTH`` units
     and 1 or 2 classes; ``hist`` holds the set's terms with ``record[1]``.
     The kernel reads any label but 0 and 1 as neither class, as K7 does.
+    D is 756, or 756 + 171 on the augmented domain
+    (``BotnetAugmentedConstraints`` at k = 19), whose pairs' tables
+    ``tables.cons`` holds too (``pair_idx``, feature indices in [0, 756),
+    which the kernel does not check, and ``pair_thr``): its own
+    instantiation, compiled for those 927 features, without repair (the set
+    has none); its launches count as ``pgd_botnet_aug``.
 
     With ``auto`` the run is AutoPGD's, as :func:`pgd_lcld` takes it
     (``autopgd_run_plain``'s semantics): ``(x_best, pred, hist, eta)``; its
-    launches count as ``pgd_botnet_auto``."""
+    launches count as ``pgd_botnet_auto`` (``pgd_botnet_aug_auto`` on the
+    augmented domain)."""
     from .build import library
 
     if x_init.dim() != 2:
         raise ValueError(f"x_init must be (N, D), got {tuple(x_init.shape)}")
     n, d = x_init.shape
     t = sched.step.numel()
+    cons = tables.cons
+    n_pairs = 0 if getattr(cons, "pair_idx", None) is None else cons.pair_idx.shape[0]
+    if d != BOTNET_FEATURES + n_pairs:
+        raise ValueError(f"pgd_botnet takes botnet's {BOTNET_FEATURES} features, or {BOTNET_FEATURES} + P on the "
+                         f"augmented domain with its P pair tables in tables.cons, got {d} features and {n_pairs} pairs")
     widths = [tables.layers[0][0].shape[1], *(w.shape[0] for w, _ in tables.layers)]
-    if d != BOTNET_FEATURES:
-        raise ValueError(f"pgd_botnet takes botnet's {BOTNET_FEATURES} features, got {d}")
     if widths[0] != d or len(widths) < 3 or max(widths[1:-1]) > BOTNET_MAX_WIDTH or not 1 <= widths[-1] <= 2:
         raise ValueError(
             f"pgd_botnet takes a {d}-input stack of at least 2 layers of at most {BOTNET_MAX_WIDTH} units and 1 "
             f"or 2 classes, got widths {widths}"
         )
-    cons = tables.cons
     counts = _botnet_counts(cons, "pgd_botnet", "tables.cons")
+    if n_pairs and repair:
+        raise ValueError("pgd_botnet takes no repair on the augmented domain: the set's repair is undefined")
     _check_pgd_run(tables, sched, x_init, y, x_start)
     _check(tables.first_t, "first_t", (d, widths[1]))
     _check(cons.index, "gather lists", (sum(counts),), torch.int32)
@@ -846,24 +858,32 @@ def pgd_botnet(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_
         raise ValueError(f"the inverse table must be (D, degree), got {tuple(cons.inverse.shape)}")
     degree = cons.inverse.shape[1]
     _check(cons.inverse, "inverse table", (d, degree), torch.int32)
+    if n_pairs:
+        _check(cons.pair_idx, "pair_idx", (n_pairs, 2), torch.int32)
+        _check(cons.pair_thr, "pair_thr", (n_pairs, 2))
     lib = library()
+    if n_pairs not in (0, lib.moeva_pgd_botnet_aug_pairs()):
+        raise ValueError(f"pgd_botnet's augmented instantiation is compiled for {lib.moeva_pgd_botnet_aug_pairs()} "
+                         f"pairs (k = 19 important features), got {n_pairs}")
     if len(widths) - 1 > lib.moeva_objective_max_layers():
         raise ValueError(f"pgd_botnet takes at most {lib.moeva_objective_max_layers()} layers, got widths {widths}")
     if not 1 <= degree <= lib.moeva_pgd_botnet_max_degree():
         raise ValueError(f"pgd_botnet takes 1 to {lib.moeva_pgd_botnet_max_degree()} entries per feature, "
                          f"got {degree}")
-    n_terms = 2 + sum(counts[4::2])
+    n_terms = 2 + sum(counts[4::2]) + n_pairs
     if auto is not None:
         _check(auto.is_ckpt, "is_ckpt", (t + 1,), torch.bool)
         _check(auto.thr, "thr", (t + 1,))
         if not (-1 <= auto.ctr < n_terms):
             raise ValueError(f"the tracking constraint {auto.ctr} is not one of the {n_terms} terms or -1")
     ckpt = (None, None) if auto is None else (auto.is_ckpt, auto.thr)
+    pairs = (None, None) if not n_pairs else (cons.pair_idx, cons.pair_thr)
     dev = _one_device(x_init, x_start, y, tables.params, tables.first_t, tables.scale, tables.min_,
-                      tables.mutable, cons.index, cons.inverse, *sched, *ckpt)
+                      tables.mutable, cons.index, cons.inverse, *sched, *ckpt, *pairs)
     ins = [t_.contiguous() for t_ in (x_init, x_start, y, tables.mutable, tables.params, tables.first_t,
                                       tables.scale, tables.min_, cons.index, cons.inverse, *sched)]
     ckpt = [None if t_ is None else t_.contiguous() for t_ in ckpt]
+    pairs = [None if t_ is None else t_.contiguous() for t_ in pairs]
     x_adv, pred, hist, cols, flags = _pgd_outputs(n, d, t, n_terms, norm_inf, repair, targeted, record, dev)
     eta = None
     scalars = (0.0, 0.0, -1, 0.0, 1.0)
@@ -880,10 +900,10 @@ def pgd_botnet(tables, sched, x_init, y, x_start, eps: float, clip: tuple, norm_
             *(u.data_ptr() for u in ins[6:9]), c_counts, ins[9].data_ptr(), degree,
             *(u.data_ptr() for u in ins[10:]), x_adv.data_ptr(), pred.data_ptr(), _ptr(hist), cols, n, t,
             float(eps), float(lo), float(hi), float(tables.tol), flags, *map(_ptr, ckpt), *scalars, _ptr(eta),
-            _stream(dev),
+            *map(_ptr, pairs), n_pairs, _stream(dev),
         )
     _raise_on_error(lib, err, "pgd_botnet")
-    _LAUNCHES["pgd_botnet" if auto is None else "pgd_botnet_auto"] += 1
+    _LAUNCHES[("pgd_botnet_aug" if n_pairs else "pgd_botnet") + ("" if auto is None else "_auto")] += 1
     return (x_adv, pred, hist) if auto is None else (x_adv, pred, hist, eta)
 
 

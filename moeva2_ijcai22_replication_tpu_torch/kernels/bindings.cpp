@@ -309,7 +309,8 @@ int moeva_pgd_botnet_f32(const void* x_init, const void* x_start, const void* y,
                          float eps, float lo, float hi, float tol, int flags,
                          const void* is_ckpt, const void* ckpt_thr,
                          float tw_class, float tw_cons, int tctr, float eta0,
-                         float alpha, void* eta, void* stream) {
+                         float alpha, void* eta, const void* pair_idx,
+                         const void* pair_thr, int n_pairs, void* stream) {
   if (n_layers < 1 || n_layers > kObjectiveMaxLayers)
     return static_cast<int>(cudaErrorInvalidValue);
   PgdBotnetArgs args{};
@@ -350,6 +351,9 @@ int moeva_pgd_botnet_f32(const void* x_init, const void* x_start, const void* y,
   args.eta0 = eta0;
   args.alpha = alpha;
   args.eta = static_cast<float*>(eta);
+  args.pair_idx = static_cast<const int32_t*>(pair_idx);
+  args.pair_thr = static_cast<const float*>(pair_thr);
+  args.n_pairs = n_pairs;
   return static_cast<int>(
       launch_pgd_botnet(args, static_cast<cudaStream_t>(stream)));
 }
@@ -405,6 +409,8 @@ int moeva_lcld_max_pairs() { return kLcldMaxPairs; }
 int moeva_pgd_max_ohe_slots() { return kPgdMaxOheSlots; }
 
 int moeva_pgd_botnet_max_degree() { return kPgdBotnetMaxDegree; }
+
+int moeva_pgd_botnet_aug_pairs() { return kPgdBotnetAugPairs; }
 
 int moeva_botnet_max_pairs() { return kBotnetMaxPairs; }
 

@@ -166,7 +166,7 @@ def library() -> ctypes.CDLL:
     lib.moeva_objective_botnet_f32.restype = i32
     lib.moeva_pgd_botnet_f32.argtypes = (
         [ptr] * 6 + [ctypes.POINTER(i32), i32] + [ptr] * 3 + [ctypes.POINTER(i32), ptr, i32] + [ptr] * 7
-        + [i32] * 3 + [f32] * 4 + [i32] + [ptr] * 2 + [f32] * 2 + [i32] + [f32] * 2 + [ptr] * 2
+        + [i32] * 3 + [f32] * 4 + [i32] + [ptr] * 2 + [f32] * 2 + [i32] + [f32] * 2 + [ptr] * 3 + [i32, ptr]
     )
     lib.moeva_pgd_botnet_f32.restype = i32
     lib.moeva_gate_stats_f32.argtypes = [ptr] * 3 + [i32] * 3 + [f32] * 2 + [ptr]
@@ -220,7 +220,7 @@ def library() -> ctypes.CDLL:
         "moeva_nd_peel_max_candidates", "moeva_associate_max_directions", "moeva_survive_max_candidates",
         "moeva_objective_max_params", "moeva_objective_max_width",
         "moeva_objective_max_layers", "moeva_lcld_max_pairs", "moeva_pgd_max_ohe_slots",
-        "moeva_pgd_botnet_max_degree", "moeva_botnet_max_pairs", "moeva_take_max_segments",
+        "moeva_pgd_botnet_max_degree", "moeva_pgd_botnet_aug_pairs", "moeva_botnet_max_pairs", "moeva_take_max_segments",
         "moeva_spec_max_instructions", "moeva_spec_max_slots", "moeva_spec_max_terms", "moeva_spec_max_features",
         "moeva_spec_max_width", "moeva_spec_vjp_max_instructions", "moeva_spec_vjp_max_slots",
         "moeva_draws_max_fields", "moeva_refdirs_max_points", "moeva_refdirs_max_dim",

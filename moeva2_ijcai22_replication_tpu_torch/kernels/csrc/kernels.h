@@ -306,19 +306,23 @@ cudaError_t launch_objective_botnet(BotnetObjectiveArgs args, cudaStream_t strea
 // tables fit one block's shared memory.
 int objective_botnet_max_features(int h1, int n_entries, int n_pairs);
 
-// pgd_botnet: botnet's feature count, the threads of each CTA of its
-// cluster of two (one per feature of the CTA's half), the most rows a
-// cluster takes (as many as fit beside the staged layer), and the most
-// entries per feature of the inverse table.
+// pgd_botnet: botnet's feature count, the XOR pairs of the augmented
+// domain's instantiation (C(19, 2): the reference's k = 19 important
+// features; rows of 756 + 171 = 927 features, another pair count is
+// refused), the most rows a cluster takes (as many as fit beside the
+// staged layer), and the most entries per feature of the inverse table.
+// Each CTA of its cluster of two runs a thread per feature of its share
+// (pgd_botnet.cu's Dims: 384 threads at 756 features, 480 at 927).
 constexpr int kBotnetFeatures = 756;
-constexpr int kPgdBotnetThreads = 384;
+constexpr int kPgdBotnetAugPairs = 171;
 constexpr int kPgdBotnetMaxRows = 6;
 constexpr int kPgdBotnetMaxDegree = 16;
 
 // pgd_botnet's arguments: pgd_lcld's (the same flags, 32 = AutoPGD with
-// the same tables and scalars) for (N, 756) rows, with the first layer's
-// transposed copy and the 360 terms' gather lists (objective_botnet's
-// layout) and their inverse.
+// the same tables and scalars) for (N, D) rows, D = 756 or 756 +
+// kPgdBotnetAugPairs, with the first layer's transposed copy, the 360 base
+// terms' gather lists (objective_botnet's layout) and their inverse, and on
+// the augmented domain the pairs' tables (objective_botnet's).
 struct PgdBotnetArgs {
   const float* x_init;    // (N, D)
   const float* x_start;   // (N, D)
@@ -350,6 +354,12 @@ struct PgdBotnetArgs {
   float tw_class, tw_cons, eta0, alpha;
   int tctr;               // the tracking loss's term, -1 = their sum
   float* eta;             // (N,) out: each row's step after the last iteration
+  // the augmented domain (n_pairs = kPgdBotnetAugPairs, D = 756 + n_pairs,
+  // no repair): the pairs' base features and float32 thresholds, their terms
+  // after the 360 base ones; null and 0 on the base domain
+  const int32_t* pair_idx;  // (n_pairs, 2)
+  const float* pair_thr;    // (n_pairs, 2)
+  int n_pairs;
 };
 
 cudaError_t launch_pgd_botnet(PgdBotnetArgs args, cudaStream_t stream);

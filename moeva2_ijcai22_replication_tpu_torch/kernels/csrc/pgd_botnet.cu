@@ -1,5 +1,6 @@
 // K7b: constrained PGD on the CTU-13 botnet domain (756 features, 360
-// terms), every iteration of one run in one launch.
+// terms) and on its augmented variant (756 + 171 XOR pair features, 360 +
+// 171 terms), every iteration of one run in one launch.
 //
 // Replaces the jnp device program of moeva2_ijcai22_replication_tpu/attacks/
 // pgd/engine.py::ConstrainedPGD._one_run (:241, its lax.fori_loop) on the
@@ -11,8 +12,11 @@
 // project_ball and, with repair, _repair's round trip through the scaler
 // (:197; botnet's repair is the identity, but the round trip does not give
 // x back in float32); and (kAuto) that of attacks/pgd/autopgd.py::
-// AutoPGD._one_run (:45) on the same domain. The repo has no Pallas kernel
-// for either.
+// AutoPGD._one_run (:45) on the same domain. On the augmented domain
+// (pgd_botnet_aug_kernel) the same programs run over domains/botnet.py::
+// BotnetAugmentedConstraints (:130-150: _raw :144 adds domains/
+// augmentation.py::consistency_terms :84), without repair, which that set
+// leaves undefined (:148). The repo has no Pallas kernel for any of them.
 //
 // Semantics: those of attacks/pgd/engine.py::pgd_run_plain with
 // domains/botnet.py::BotnetConstraints.smooth_vjp, one rounded float32
@@ -125,6 +129,23 @@
 // the class at x_best. x_prev and x_best are two more row buffers at the
 // CTA's features (2 x 380 floats a row) and the state 8 floats, so 6 rows
 // still fit one cluster. At kAuto = false all of it is compiled out.
+//
+// The augmented domain is its own pair of instantiations, for 927 features
+// (pgd_botnet_aug_kernel; Dims gives every size from the feature count):
+// rank 0 takes features [0, 464), rank 1 [464, 927), a thread each (480 a
+// CTA), at a stride of 468 floats. Rank 1's last slot holds x = -0 and
+// weights of +0, and its squares are -0: their products and squares add -0,
+// which changes no sum (+0 + -0 = +0, -0 + -0 = -0), so each chain keeps
+// the plain version's 927 operations. The pair terms follow the 360 in the
+// sum, the single and alternate constraints' choice and the history; a
+// pair's term reads u at its two base features and its column on rank 0,
+// and its cotangent (added, in the plain version, to the +0 that the base
+// entries leave at the column) goes straight to rank 1, which owns every
+// pair column, into rank 1's copy of u there (rank 1 reads nothing else of
+// it), counted on the entries' barrier (kEnt). The thresholds and pairs are
+// read from global memory: staged, they would cost a row of the 5 that fit
+// (4 under kAuto), so 387 rows take two waves. Repair is refused: the set
+// has none.
 
 #include <algorithm>
 
@@ -136,21 +157,30 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kD = kBotnetFeatures;
-constexpr int kH = kD / 2;  // the features of each CTA of the pair
-constexpr int kHP = 380;    // their stride in the staged layer and the rows
-constexpr int kThreads = kPgdBotnetThreads;
 constexpr int kMaxRows = kPgdBotnetMaxRows;
 constexpr int kTile = 3;  // rows per thread in the first layer's forward
 constexpr int kMaxDegree = kPgdBotnetMaxDegree;
 constexpr float kMtu = 1500.0f;
-static_assert(kD % 2 == 0 && kH % 4 == 2, "the halves' sums end with a float2");
-static_assert(kH <= kHP && kHP % 4 == 0 && (kHP / 4) % 2 == 1, "conflict-free 16-byte loads of a unit's features");
-static_assert(kThreads >= kH, "a thread per feature of the CTA's half");
-static_assert(kMaxRows * kBotnetMaxWidth <= kThreads, "a thread per unit of every row");
 static_assert(kMaxRows <= 8, "warp 0's lanes 0-7 and 8-15 run the rows' two L2 sums");
 
 __host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
+
+// The geometry of the instantiation for rows of D features (botnet's 756,
+// or 756 + P on the augmented domain)
+template <int D>
+struct Dims {
+  static constexpr int kD = D;
+  static constexpr int kH = (D + 1) / 2;                 // rank 0's features
+  static constexpr int kH1 = D - kH;                     // rank 1's, one fewer where D is odd
+  static constexpr int kHP = (((kH + 3) / 4) | 1) * 4;   // their stride in the staged layer and the rows
+  static constexpr int kThreads = (kH + 31) / 32 * 32;   // a thread per feature of the CTA's share
+  static constexpr int kP = D - kBotnetFeatures;         // the XOR pairs, their columns the last
+  static_assert(kH <= kHP && kHP % 4 == 0 && (kHP / 4) % 2 == 1, "conflict-free 16-byte loads of a unit's features");
+  static_assert(kH1 == kH || kH1 + 1 == kH, "rank 1's share is rank 0's or one fewer");
+  static_assert(kMaxRows * kBotnetMaxWidth <= kThreads, "a thread per unit of every row");
+  static_assert(kMaxRows * 64 <= kThreads, "each row's flow sums on threads of their own");
+  static_assert(kP >= 0 && (kP == 0 || kH <= kBotnetFeatures), "every pair column is rank 1's");
+};
 
 struct Layout {
   int w_off[kObjectiveMaxLayers];     // staged layers 1..L-1: weight (out, odd stride), then bias
@@ -158,6 +188,7 @@ struct Layout {
   int seg[kBotnetSegments + 1];       // each segment's first entry in the gather lists
   int ord_start[3];                   // each ordering's first term
   int n_entries, n_terms;
+  int n_base;                         // the base domain's terms (360), the pairs' after them
   int ws_floats;                      // the first layer's bias, then layers 1..L-1
   int act_floats;                     // a row's activations: the widths of layers 1..L
   int row_floats;                     // a row's slice
@@ -168,7 +199,8 @@ struct Row {
   float* x;    // (kHP) the iterate (scaled) at the CTA's features
   float* sq;   // (kHP) the squares an L2 sum adds: of the masked gradient, then of the perturbation
   float* sqh;  // (kHP) the squares of the raw gradient's finite entries (the history's grad norm)
-  float* u;    // (kD) rank 0: the unscaled iterate at every feature
+  float* u;    // (kD, padded to 4) rank 0: the unscaled iterate at every feature; rank 1: the pairs'
+               // cotangents at their columns, from rank 0's terms (nothing else reads it there)
   float* ent;  // the cotangent of each entry of the gather lists
   float* g;    // the smooth violations
   float* act;  // the activations of layers 1..L, logits last; rank 1: rank 0's partial sums first
@@ -189,13 +221,15 @@ struct Row {
 // loss, rank 1: cons)
 enum AutoState { kFBest, kFPrev, kFBck, kEta, kEtaCk, kImpr, kMove, kPeer, kAutoState };
 
+template <int kD>
 __device__ __forceinline__ Row row_at(float* rows, const Layout& lay, int r) {
+  constexpr int kHP = Dims<kD>::kHP;
   Row s;
   s.x = rows + r * lay.row_floats;
   s.sq = s.x + kHP;
   s.sqh = s.sq + kHP;
   s.u = s.sqh + kHP;
-  s.ent = s.u + kD;
+  s.ent = s.u + pad4(kD);  // the buffers after u stay 16-byte aligned
   s.g = s.ent + pad4(lay.n_entries);
   s.act = s.g + pad4(lay.n_terms);
   s.cta = s.act + pad4(lay.act_floats);
@@ -207,8 +241,15 @@ __device__ __forceinline__ Row row_at(float* rows, const Layout& lay, int r) {
   return s;
 }
 
-constexpr int kRowTail = 3 * kHP + kD + 2 * kBotnetMaxWidth + 8;  // a row's floats besides its variable parts
-constexpr int kAutoRowFloats = 2 * kHP + kAutoState;              // and AutoPGD's besides those
+// a row's floats besides its variable parts, and AutoPGD's besides those
+template <int kD>
+constexpr int row_tail() { return 3 * Dims<kD>::kHP + pad4(kD) + 2 * kBotnetMaxWidth + 8; }
+template <int kD>
+constexpr int auto_row_floats() { return 2 * Dims<kD>::kHP + kAutoState; }
+static_assert(row_tail<kBotnetFeatures>() % 4 == 0 && row_tail<kBotnetFeatures + kPgdBotnetAugPairs>() % 4 == 0 &&
+                  auto_row_floats<kBotnetFeatures>() % 4 == 0 &&
+                  auto_row_floats<kBotnetFeatures + kPgdBotnetAugPairs>() % 4 == 0,
+              "a row's slice keeps the next row 16-byte aligned");
 
 // acc + (x0 * w0 + ...) of 4 features, left to right
 __device__ __forceinline__ float add4(float acc, float4 x, float4 w) {
@@ -216,15 +257,21 @@ __device__ __forceinline__ float add4(float acc, float4 x, float4 w) {
                    __fmul_rn(x.w, w.w));
 }
 
-// The CTA's half of the first layer's sums of unit o for the kTile rows
-// of tile t: each from acc, adding x[k] * w[o][k] over the CTA's features
-// in order (rows past nr repeat the last row), 16 features at a time, each
-// chunk's loads issued together before its adds.
+// The CTA's share of the first layer's sums of unit o for the kTile rows
+// of tile t: each from acc, adding x[k] * w[o][k] over the CTA's kH
+// features in order (rows past nr repeat the last row), 16 features at a
+// time, each chunk's loads issued together before its adds. Where rank 1
+// holds one feature fewer, its last slot holds x = -0 and w = +0, whose
+// product -0 adds nothing to any sum (+0 and -0 included).
+template <int kD>
 __device__ __forceinline__ void first_half(const float* wf, float* rows, const Layout& lay, int nr, int t, int o,
                                            float (&acc)[kTile]) {
+  constexpr int kH = Dims<kD>::kH;
+  constexpr int kHP = Dims<kD>::kHP;
   const float4* x4[kTile];
 #pragma unroll
-  for (int j = 0; j < kTile; ++j) x4[j] = reinterpret_cast<const float4*>(row_at(rows, lay, min(t * kTile + j, nr - 1)).x);
+  for (int j = 0; j < kTile; ++j)
+    x4[j] = reinterpret_cast<const float4*>(row_at<kD>(rows, lay, min(t * kTile + j, nr - 1)).x);
   const float4* w4 = reinterpret_cast<const float4*>(wf + o * kHP);
   constexpr int kFull = kH / 16 * 4;  // the float4s of the full chunks
 #pragma unroll 1
@@ -241,28 +288,47 @@ __device__ __forceinline__ void first_half(const float* wf, float* rows, const L
 #pragma unroll
       for (int j = 0; j < kTile; ++j) acc[j] = add4(acc[j], v[j][i], w[i]);
   }
-  // the rest: kH % 16 = 10 features, 2 float4s and the first 2 of a third
-  static_assert(kH - kFull * 4 == 10 && kFull * 4 + 12 <= kHP, "the half ends with 2 float4s and 2 features");
-  float4 w[3], v[kTile][3];
+  // the rest, kH % 16 features: whole float4s, then the first of one more
+  constexpr int kRest = kH - kFull * 4;
+  constexpr int kR4 = kRest / 4;
+  constexpr int kR1 = kRest % 4;
+  constexpr int kLoads = kR4 + (kR1 > 0 ? 1 : 0);
+  static_assert(kFull * 4 + 4 * kLoads <= kHP, "the rest's loads stay in the unit's stride");
+  if constexpr (kLoads > 0) {
+    float4 w[kLoads], v[kTile][kLoads];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    w[i] = w4[kFull + i];
+    for (int i = 0; i < kLoads; ++i) {
+      w[i] = w4[kFull + i];
 #pragma unroll
-    for (int j = 0; j < kTile; ++j) v[j][i] = x4[j][kFull + i];
+      for (int j = 0; j < kTile; ++j) v[j][i] = x4[j][kFull + i];
+    }
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) {
+      float s = acc[j];
+#pragma unroll
+      for (int i = 0; i < kR4; ++i) s = add4(s, v[j][i], w[i]);
+      if constexpr (kR1 >= 1) s = __fadd_rn(s, __fmul_rn(v[j][kR4].x, w[kR4].x));
+      if constexpr (kR1 >= 2) s = __fadd_rn(s, __fmul_rn(v[j][kR4].y, w[kR4].y));
+      if constexpr (kR1 >= 3) s = __fadd_rn(s, __fmul_rn(v[j][kR4].z, w[kR4].z));
+      acc[j] = s;
+    }
   }
-#pragma unroll
-  for (int j = 0; j < kTile; ++j)
-    acc[j] = __fadd_rn(__fadd_rn(add4(add4(acc[j], v[j][0], w[0]), v[j][1], w[1]), __fmul_rn(v[j][2].x, w[2].x)),
-                       __fmul_rn(v[j][2].y, w[2].y));
 }
 
 // sum_last's chain over the CTA's kH squares in q, from `sum` (-0 on rank
 // 0: it adds the first square exactly), 32 squares at a time, each chunk's
-// loads issued before the previous chunk's adds
+// loads issued before the previous chunk's adds. Where rank 1 holds one
+// feature fewer, its last square is -0, which adds nothing.
+template <int kD>
 __device__ __forceinline__ float half_sum(const float* q, float sum) {
+  constexpr int kH = Dims<kD>::kH;
+  constexpr int kHP = Dims<kD>::kHP;
   const float4* q4 = reinterpret_cast<const float4*>(q);
   constexpr int kFull = kH / 32 * 8;  // the float4s of the full chunks
-  static_assert(kH - kFull * 4 == 26 && kFull * 4 + 32 <= kHP + 4, "the half ends with 6 float4s and 2 squares");
+  constexpr int kRest = kH - kFull * 4;
+  // the last chunk's loads read up to 32 floats past the full chunks: past
+  // the kHP squares into the row's next buffer (sq's sqh, sqh's u), unused
+  static_assert(kFull * 4 + 32 <= 2 * kHP, "the last loads stay in the row");
   float4 v[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) v[i] = q4[i];
@@ -276,9 +342,14 @@ __device__ __forceinline__ float half_sum(const float* q, float sum) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = n[i];
   }
+  // the rest, in v: whole float4s, then the first of one more
 #pragma unroll
-  for (int i = 0; i < 6; ++i) sum = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(sum, v[i].x), v[i].y), v[i].z), v[i].w);
-  return __fadd_rn(__fadd_rn(sum, v[6].x), v[6].y);
+  for (int i = 0; i < kRest / 4; ++i)
+    sum = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(sum, v[i].x), v[i].y), v[i].z), v[i].w);
+  if constexpr (kRest % 4 >= 1) sum = __fadd_rn(sum, v[kRest / 4].x);
+  if constexpr (kRest % 4 >= 2) sum = __fadd_rn(sum, v[kRest / 4].y);
+  if constexpr (kRest % 4 >= 3) sum = __fadd_rn(sum, v[kRest / 4].z);
+  return sum;
 }
 
 // acc + a[0] * b[0] + a[sa] * b[sb] + ... (n products, left to right): a
@@ -456,26 +527,53 @@ __device__ __forceinline__ float term_vjp(const Layout& lay, float* ent, int t, 
   return clip_smooth(pre);
 }
 
+// Pair p's term of a row (the augmented domain): v = u[756 + p] - xor(u[i]
+// >= thr_0, u[j] >= thr_1) (a NaN compares false), its smooth violation
+// clip(|v| - tol, 0) returned; where `send`, its cotangent abs_vjp(v,
+// clip_vjp(pre, ct)) is handed to rank 1, which owns every pair column,
+// into its copy of u at the column. No cotangent flows through the
+// comparisons.
+__device__ __forceinline__ float pair_term(const PgdBotnetArgs& a, const Row& s, const Pair& pair, int p, float ct,
+                                           bool send) {
+  const int i0 = __ldg(a.pair_idx + 2 * p);
+  const int i1 = __ldg(a.pair_idx + 2 * p + 1);
+  const bool b0 = s.u[i0] >= __ldg(a.pair_thr + 2 * p);
+  const bool b1 = s.u[i1] >= __ldg(a.pair_thr + 2 * p + 1);
+  float* col = s.u + kBotnetFeatures + p;
+  const float v = __fsub_rn(*col, b0 != b1 ? 1.0f : 0.0f);
+  const float pre = __fsub_rn(fabsf(v), a.tol);
+  if (send) pair.put(col, abs_vjp(v, clip_vjp(pre, ct)), kEnt);
+  return clip_smooth(pre);
+}
+
 // Rank 0: the terms of every row and the cotangents of their entries: first
 // every entry's gathered value, then the terms, row by row, term t of row r
 // on thread t + 64 r (mod the threads), so that each row's flow sums, the
 // longest terms, fall on threads of their own and a warp's terms are alike
-// (with `hist` their history columns from col); last, where `send`, the
-// cotangents of the entries whose feature is rank 1's, handed to rank 1
+// (with `hist` their history columns from col); a pair's term hands its
+// cotangent to rank 1 itself; last, where `send`, the cotangents of the
+// entries whose feature is rank 1's, handed to rank 1
+template <int kD>
 __device__ __forceinline__ void all_terms(const PgdBotnetArgs& a, const Layout& lay, const int* idx, float* rows,
                                           const Pair& pair, int nr, int row0, int it, float ctr_w, int ctr,
                                           float* hist, int col, bool send) {
+  constexpr int kThreads = Dims<kD>::kThreads;
   for (int r = 0; r < nr; ++r) {
-    const Row s = row_at(rows, lay, r);
+    const Row s = row_at<kD>(rows, lay, r);
     for (int e = threadIdx.x; e < lay.n_entries; e += kThreads) s.ent[e] = s.u[idx[e]];
   }
   __syncthreads();
-  static_assert(kMaxRows * 64 <= kThreads, "each row's flow sums on threads of their own");
   for (int r = 0; r < nr; ++r) {
-    const Row s = row_at(rows, lay, r);
+    const Row s = row_at<kD>(rows, lay, r);
     int t = static_cast<int>(threadIdx.x) - 64 * r;
     for (t += t < 0 ? kThreads : 0; t < lay.n_terms; t += kThreads) {
-      const float g = term_vjp(lay, s.ent, t, ctr < 0 || ctr == t ? ctr_w : 0.0f, a.tol);
+      const float ct = ctr < 0 || ctr == t ? ctr_w : 0.0f;
+      float g;
+      if (Dims<kD>::kP > 0 && t >= lay.n_base) {
+        g = pair_term(a, s, pair, t - lay.n_base, ct, send);
+      } else {
+        g = term_vjp(lay, s.ent, t, ct, a.tol);
+      }
       s.g[t] = g;
       if (hist != nullptr) hist[(static_cast<size_t>(it) * a.n + row0 + r) * a.hist_cols + col + t] = g;
     }
@@ -483,14 +581,15 @@ __device__ __forceinline__ void all_terms(const PgdBotnetArgs& a, const Layout& 
   __syncthreads();
   if (!send) return;
   for (int r = 0; r < nr; ++r) {
-    const Row s = row_at(rows, lay, r);
+    const Row s = row_at<kD>(rows, lay, r);
     for (int e = threadIdx.x; e < lay.n_entries; e += kThreads)
-      if (idx[e] >= kH) pair.put(&s.ent[e], s.ent[e], kEnt);
+      if (idx[e] >= Dims<kD>::kH) pair.put(&s.ent[e], s.ent[e], kEnt);
   }
 }
 
 // Rank 0: the first half of the first layer's sums of every row, from the
 // biases, into rank 1's activations; a thread per (tile of kTile rows, unit)
+template <int kD>
 __device__ __forceinline__ void first_half_to_peer(const float* wf, const float* ws, float* rows, const Pair& pair,
                                                    const Layout& lay, int nr, int w1) {
   const int tid = threadIdx.x;
@@ -500,18 +599,20 @@ __device__ __forceinline__ void first_half_to_peer(const float* wf, const float*
     float acc[kTile];
 #pragma unroll
     for (int j = 0; j < kTile; ++j) acc[j] = ws[o];
-    first_half(wf, rows, lay, nr, t, o, acc);
+    first_half<kD>(wf, rows, lay, nr, t, o, acc);
 #pragma unroll
     for (int j = 0; j < kTile; ++j)
-      if (t * kTile + j < nr) pair.put(&row_at(rows, lay, t * kTile + j).act[o], acc[j], kPartials);
+      if (t * kTile + j < nr) pair.put(&row_at<kD>(rows, lay, t * kTile + j).act[o], acc[j], kPartials);
   }
 }
 
 // Rank 1: the first layer's second half from rank 0's partial sums and its
 // relu, then layers 1..L-1 of every row, a thread per (row, unit), a block
 // barrier after each layer
+template <int kD>
 __device__ __forceinline__ void forward_rest(const PgdBotnetArgs& a, const Layout& lay, const float* wf,
                                              const float* ws, float* rows, int nr, long long& last) {
+  constexpr int kThreads = Dims<kD>::kThreads;
   const int tid = threadIdx.x;
   const int w1 = a.widths[1];
   if (tid < w1 * ((nr + kTile - 1) / kTile)) {
@@ -519,11 +620,11 @@ __device__ __forceinline__ void forward_rest(const PgdBotnetArgs& a, const Layou
     const int o = tid - t * w1;
     float acc[kTile];
 #pragma unroll
-    for (int j = 0; j < kTile; ++j) acc[j] = row_at(rows, lay, min(t * kTile + j, nr - 1)).act[o];
-    first_half(wf, rows, lay, nr, t, o, acc);
+    for (int j = 0; j < kTile; ++j) acc[j] = row_at<kD>(rows, lay, min(t * kTile + j, nr - 1)).act[o];
+    first_half<kD>(wf, rows, lay, nr, t, o, acc);
 #pragma unroll
     for (int j = 0; j < kTile; ++j)
-      if (t * kTile + j < nr) row_at(rows, lay, t * kTile + j).act[o] = relu_keep_nan(acc[j]);
+      if (t * kTile + j < nr) row_at<kD>(rows, lay, t * kTile + j).act[o] = relu_keep_nan(acc[j]);
   }
   block_end(2, last);
   for (int l = 1; l < a.n_layers; ++l) {
@@ -536,7 +637,7 @@ __device__ __forceinline__ void forward_rest(const PgdBotnetArgs& a, const Layou
     for (int task = tid; task < nr * out_w; task += kThreads) {
       const int r = task / out_w;
       const int o = task - r * out_w;
-      const Row s = row_at(rows, lay, r);
+      const Row s = row_at<kD>(rows, lay, r);
       const float acc = dot_chain(bias[o], s.act + lay.act_off[l - 1], 1, w + o * st, 1, in_w);
       s.act[lay.act_off[l] + o] = hidden ? relu_keep_nan(acc) : acc;
     }
@@ -548,8 +649,10 @@ __device__ __forceinline__ void forward_rest(const PgdBotnetArgs& a, const Layou
 // of the logits in cta, through layers L-1..1 (a thread per (row, unit), a
 // block barrier after each layer); the last layer's is handed to the peer
 // too
+template <int kD>
 __device__ __forceinline__ void hidden_backward(const PgdBotnetArgs& a, const Layout& lay, const float* ws,
                                                 float* rows, const Pair& pair, int nr, long long& last) {
+  constexpr int kThreads = Dims<kD>::kThreads;
   bool in_b = false;
   for (int l = a.n_layers - 1; l >= 1; --l) {
     const int in_w = a.widths[l];
@@ -559,7 +662,7 @@ __device__ __forceinline__ void hidden_backward(const PgdBotnetArgs& a, const La
     for (int task = threadIdx.x; task < nr * in_w; task += kThreads) {
       const int r = task / in_w;
       const int k = task - r * in_w;
-      const Row s = row_at(rows, lay, r);
+      const Row s = row_at<kD>(rows, lay, r);
       const float* cur = in_b ? s.ctb : s.cta;
       // the input of layer l is the output of layer l - 1 (hidden): its
       // cotangent passes where that output is > 0
@@ -580,6 +683,7 @@ __device__ __forceinline__ void hidden_backward(const PgdBotnetArgs& a, const La
 // the squares of its perturbation in sq, into aux[1] on both CTAs, lane r of
 // warp 0: rank 0's half (phase `ph_half` of rank 1's barrier), then rank 1's,
 // which hands the factor back (phase `ph_factor` of rank 0's)
+template <int kD>
 __device__ __forceinline__ void projection_factor(const PgdBotnetArgs& a, const Layout& lay, float* rows,
                                                   const Pair& pair, int rank, int nr, int ph_half, int ph_factor,
                                                   long long& last) {
@@ -587,8 +691,8 @@ __device__ __forceinline__ void projection_factor(const PgdBotnetArgs& a, const 
   const bool run = tid < nr;
   if (rank == 0) {
     if (run) {
-      const Row s = row_at(rows, lay, tid);
-      pair.put(&s.aux[5], half_sum(s.sq, -0.0f), kFactorHalf);
+      const Row s = row_at<kD>(rows, lay, tid);
+      pair.put(&s.aux[5], half_sum<kD>(s.sq, -0.0f), kFactorHalf);
     }
     stamp(13, last);
     pair.take(kFactor, 4u * nr, ph_factor);
@@ -597,8 +701,8 @@ __device__ __forceinline__ void projection_factor(const PgdBotnetArgs& a, const 
     pair.take(kFactorHalf, 4u * nr, ph_half);
     stamp(14, last);
     if (run) {
-      const Row s = row_at(rows, lay, tid);
-      const float f = nan_min(1.0f, __fdiv_rn(a.eps, __fadd_rn(__fsqrt_rn(half_sum(s.sq, s.aux[5])), 1e-12f)));
+      const Row s = row_at<kD>(rows, lay, tid);
+      const float f = nan_min(1.0f, __fdiv_rn(a.eps, __fadd_rn(__fsqrt_rn(half_sum<kD>(s.sq, s.aux[5])), 1e-12f)));
       s.aux[1] = f;
       pair.put(&s.aux[1], f, kFactor);
     }
@@ -642,10 +746,13 @@ __device__ __forceinline__ void track_row(const PgdBotnetArgs& a, const Row& s, 
 }
 
 // kAuto: AutoPGD, whose launch runs 2T + 2 passes (see the design note);
-// else PGD
-template <bool kAuto>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
-    pgd_botnet_kernel(const PgdBotnetArgs a, const Layout lay) {
+// else PGD; rows of kD features
+template <bool kAuto, int kD>
+__device__ __forceinline__ void pgd_botnet_run(const PgdBotnetArgs& a, const Layout& lay) {
+  using G = Dims<kD>;
+  constexpr int kH = G::kH;
+  constexpr int kHP = G::kHP;
+  constexpr int kThreads = G::kThreads;
   extern __shared__ __align__(16) float smem[];
   constexpr int kBars = kAuto ? kAutoBarFloats : kBarFloats;
   cg::cluster_group cl = cg::this_cluster();
@@ -657,15 +764,18 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
   int* idx = reinterpret_cast<int*>(ws + lay.ws_floats);        // the gather lists
   float* rows = reinterpret_cast<float*>(idx + pad4(lay.n_entries));
   const int tid = threadIdx.x;
-  const int k0 = rank * kH;  // the CTA's first feature
+  const int k0 = rank * kH;                    // the CTA's first feature
+  const int n_own = rank == 0 ? kH : G::kH1;   // and its features
   const int classes = a.widths[a.n_layers];
   const int row0 = (blockIdx.x >> 1) * a.rows;
   const int nr = min(a.rows, a.n - row0);
 
+  // the first layer at the CTA's features; a slot past them (rank 1 where
+  // kD is odd) holds +0
   for (int e = tid; e < w1 * kH; e += kThreads) {
     const int k = e / w1;
     const int o = e - k * w1;
-    wf[o * kHP + k] = a.first_t[(k0 + k) * w1 + o];
+    wf[o * kHP + k] = k < n_own ? a.first_t[(k0 + k) * w1 + o] : 0.0f;
   }
   for (int o = tid; o < w1; o += kThreads) ws[o] = a.params[w1 * kD + o];
   {
@@ -685,7 +795,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
   for (int e = tid; e < nr * kD; e += kThreads) {
     const int r = e / kD;
     const int k = e - r * kD;
-    const Row s = row_at(rows, lay, r);
+    const Row s = row_at<kD>(rows, lay, r);
     const float x = a.x_start[static_cast<size_t>(row0 + r) * kD + k];
     s.u[k] = unscale(x, a.min_[k], a.scale[k]);
     if (k >= k0 && k < k0 + kH) {
@@ -696,13 +806,24 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
       }
     }
   }
+  // the slot past rank 1's features: x = -0 (its product with the +0
+  // weight is -0) and squares of -0, which no thread writes again
+  if (n_own < kH && tid < nr) {
+    const Row s = row_at<kD>(rows, lay, tid);
+    s.x[kH - 1] = -0.0f;
+    s.sq[kH - 1] = -0.0f;
+    s.sqh[kH - 1] = -0.0f;
+  }
   // the feature a thread owns in the per-feature phases, its constants in
   // registers
-  const bool owner = tid < kH;
+  const bool owner = tid < n_own;
   const int gk = k0 + (owner ? tid : 0);
   const float sc = a.scale[gk];
   const float mn = a.min_[gk];
   const bool mut = a.mutable_[gk];
+  // a pair's column (the augmented domain): its cotangent comes from rank
+  // 0's pair term, into u at the column
+  const bool pair_col = G::kP > 0 && owner && gk >= kBotnetFeatures;
   int inv[kMaxDegree];
 #pragma unroll
   for (int j = 0; j < kMaxDegree; ++j) inv[j] = j < a.degree ? a.inverse[gk * a.degree + j] : -1;
@@ -729,15 +850,15 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
   cl.sync();  // staged, the barriers set, and the peer is running
   // what each hand-off brings: the first layer's partial sums; its
   // cotangent (with the class losses for the history); rank 1's entries of
-  // the gather lists; the halves of the L2 sums (and a word, under L-inf
-  // too); rank 1's half of u
+  // the gather lists and the pairs' cotangents; the halves of the L2 sums
+  // (and a word, under L-inf too); rank 1's share of u
   int peer_entries = 0;
   for (int e = 0; e < lay.n_entries; ++e) peer_entries += idx[e] >= kH;
   const unsigned partial_bytes = 4u * nr * w1;
   const unsigned cotangent_bytes = 4u * nr * (w1 + (a.hist != nullptr ? 1 : 0));
-  const unsigned ent_bytes = 4u * nr * peer_entries;
+  const unsigned ent_bytes = 4u * nr * (peer_entries + G::kP);
   const unsigned halves_bytes = 4u * (1 + (linf ? 0 : nr) + (hist_norm ? nr : 0));
-  const unsigned u_bytes = 4u * nr * kH;
+  const unsigned u_bytes = 4u * nr * G::kH1;
   // kAuto: each kind's phase, and the bytes of rank 1's u that rank 0 takes
   // before its next terms (of x_new, or of the rows restarted from x_best)
   Phases ph;
@@ -758,7 +879,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
     const int ctr = track ? a.tctr : a.ctr[i];
     float own = 0.0f;  // track: row tid's cons on rank 0, its class loss on rank 1
     if (rank == 0) {
-      first_half_to_peer(wf, ws, rows, pair, lay, nr, w1);
+      first_half_to_peer<kD>(wf, ws, rows, pair, lay, nr, w1);
       stamp(0, last);
       if constexpr (kAuto) {
         if (u_due > 0) pair.take(kU, u_due, ph.next(kU));  // rank 1's u
@@ -766,13 +887,13 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
         if (it > 0) pair.take(kU, u_bytes, it - 1);  // rank 1's u
       }
       stamp(1, last);
-      all_terms(a, lay, idx, rows, pair, nr, row0, i, -wk, ctr, hist_full && !track ? a.hist : nullptr, g_col,
+      all_terms<kD>(a, lay, idx, rows, pair, nr, row0, i, -wk, ctr, hist_full && !track ? a.hist : nullptr, g_col,
                 !track);
       block_end(2, last);
       if (track) {
         // the tracking loss's constraint: the term tctr, or the sum from the first
         if (tid < nr) {
-          const Row s = row_at(rows, lay, tid);
+          const Row s = row_at<kD>(rows, lay, tid);
           own = s.g[ctr < 0 ? 0 : ctr];
           if (ctr < 0)
             for (int t = 1; t < lay.n_terms; ++t) own = __fadd_rn(own, s.g[t]);
@@ -785,10 +906,10 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
     } else {
       pair.take(kPartials, partial_bytes, kAuto ? ph.next(kPartials) : it);
       stamp(1, last);
-      forward_rest(a, lay, wf, ws, rows, nr, last);
+      forward_rest<kD>(a, lay, wf, ws, rows, nr, last);
       // a thread per row: the cross-entropy and the cotangent of the logits
       if (tid < nr) {
-        const Row s = row_at(rows, lay, tid);
+        const Row s = row_at<kD>(rows, lay, tid);
         const float lc = cross_entropy(classes, targeted, s.act + lay.act_off[a.n_layers - 1],
                                        static_cast<int>(a.y[row0 + tid]), wc, s.cta);
         if (track) {
@@ -801,7 +922,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
       }
       block_end(4, last);
       if (!track) {
-        hidden_backward(a, lay, ws, rows, pair, nr, last);
+        hidden_backward<kD>(a, lay, ws, rows, pair, nr, last);
         pair.take(kEnt, ent_bytes, kAuto ? ph.next(kEnt) : it);  // its features' entries, from rank 0's terms
       }
       stamp(18, last);
@@ -813,7 +934,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
         // (not after the last iteration: nothing reads it)
         pair.take(kTrack, 4u * nr, ph.next(kTrack));
         if (tid < nr) {
-          const Row s = row_at(rows, lay, tid);
+          const Row s = row_at<kD>(rows, lay, tid);
           const float lc = rank == 0 ? s.au[kPeer] : own;
           const float cons = rank == 0 ? own : s.au[kPeer];
           track_row(a, s, __fadd_rn(__fmul_rn(a.tw_class, lc), __fmul_rn(a.tw_cons, -cons)), it);
@@ -821,12 +942,12 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
         __syncthreads();
         const bool send_u = it < 2 * a.t;
         unsigned restarted = 0;
-        for (int r = 0; r < nr; ++r) restarted += (__float_as_int(row_at(rows, lay, r).au[kMove]) >> 1) & 1;
+        for (int r = 0; r < nr; ++r) restarted += (__float_as_int(row_at<kD>(rows, lay, r).au[kMove]) >> 1) & 1;
         if (owner) {
 #pragma unroll
           for (int r = 0; r < kMaxRows; ++r) {
             if (r < nr) {
-              const Row s = row_at(rows, lay, r);
+              const Row s = row_at<kD>(rows, lay, r);
               const int move = __float_as_int(s.au[kMove]);
               if (move & 1) s.xb[tid] = s.x[tid];
               if (move & 2) {
@@ -844,7 +965,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
             }
           }
         }
-        u_due = send_u ? 4u * kH * restarted : 0u;
+        u_due = send_u ? 4u * G::kH1 * restarted : 0u;
         block_end(17, last);
         continue;
       }
@@ -856,7 +977,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
       const float* ct[kMaxRows];
 #pragma unroll
       for (int r = 0; r < kMaxRows; ++r) {
-        const Row s = row_at(rows, lay, min(r, nr - 1));
+        const Row s = row_at<kD>(rows, lay, min(r, nr - 1));
         ct[r] = ct1_in_b ? s.ctb : s.cta;
       }
       const float* w = wf + tid;  // w[o * kHP] = the weight of unit o at this feature
@@ -903,13 +1024,17 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
       for (int j = 0; j < kMaxDegree; ++j) {
         if (inv[j] < 0) break;
 #pragma unroll
-        for (int r = 0; r < kMaxRows; ++r) cu[r] = __fadd_rn(cu[r], row_at(rows, lay, min(r, nr - 1)).ent[inv[j]]);
+        for (int r = 0; r < kMaxRows; ++r) cu[r] = __fadd_rn(cu[r], row_at<kD>(rows, lay, min(r, nr - 1)).ent[inv[j]]);
+      }
+      if (pair_col) {  // the pair's cotangent, added to the +0 of no entries
+#pragma unroll
+        for (int r = 0; r < kMaxRows; ++r) cu[r] = __fadd_rn(cu[r], row_at<kD>(rows, lay, min(r, nr - 1)).u[gk]);
       }
 #pragma unroll
 #pragma unroll
       for (int r = 0; r < kMaxRows; ++r) {
         if (r < nr) {
-          const Row s = row_at(rows, lay, r);
+          const Row s = row_at<kD>(rows, lay, r);
           const float gv = __fadd_rn(acc[r], div_rn(cu[r], sc));
           const float gm = isnan(gv) || !mut ? 0.0f : gv;
           const float f = isfinite(gv) ? gv : 0.0f;
@@ -922,7 +1047,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
       // the spare threads: the history's loss columns, whose sum of the
       // terms is a chain of its own
       for (int r = tid - kH; r < nr; r += kThreads - kH) {
-        const Row s = row_at(rows, lay, r);
+        const Row s = row_at<kD>(rows, lay, r);
         float cons = s.g[0];
         if (ctr < 0) {
           for (int t = 1; t < lay.n_terms; ++t) cons = __fadd_rn(cons, s.g[t]);
@@ -946,10 +1071,10 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
       const bool run = tid < 16 && r < nr && (h ? hist_norm : !linf);
       if (rank == 0) {
         if (run) {
-          const Row s = row_at(rows, lay, r);
-          pair.put(&s.aux[h ? 3 : 2], half_sum(h ? s.sqh : s.sq, -0.0f), kHalves);
+          const Row s = row_at<kD>(rows, lay, r);
+          pair.put(&s.aux[h ? 3 : 2], half_sum<kD>(h ? s.sqh : s.sq, -0.0f), kHalves);
         }
-        if (tid == 0) pair.put(&row_at(rows, lay, 0).aux[7], 0.0f, kHalves);
+        if (tid == 0) pair.put(&row_at<kD>(rows, lay, 0).aux[7], 0.0f, kHalves);
         stamp(8, last);
         if (!linf) pair.take(kNorm, 4u * nr, kAuto ? ph.next(kNorm) : it);
         stamp(11, last);
@@ -957,8 +1082,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
         pair.take(kHalves, halves_bytes, kAuto ? ph.next(kHalves) : it);
         stamp(9, last);
         if (run) {
-          const Row s = row_at(rows, lay, r);
-          const float sum = half_sum(h ? s.sqh : s.sq, s.aux[h ? 3 : 2]);
+          const Row s = row_at<kD>(rows, lay, r);
+          const float sum = half_sum<kD>(h ? s.sqh : s.sq, s.aux[h ? 3 : 2]);
           if (h) {
             a.hist[(static_cast<size_t>(i) * a.n + row0 + r) * a.hist_cols + 3] = __fsqrt_rn(sum);
           } else {
@@ -976,7 +1101,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int r = 0; r < kMaxRows; ++r) {
         if (r < nr) {
-          const Row s = row_at(rows, lay, r);
+          const Row s = row_at<kD>(rows, lay, r);
           const float gv = gr[r];
           const float gm = isnan(gv) || !mut ? 0.0f : gv;
           const float d = linf ? (gm > 0.0f ? 1.0f : (gm < 0.0f ? -1.0f : 0.0f)) : div_rn(gm, s.aux[0]);
@@ -990,7 +1115,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
     block_end(12, last);
     const float alpha = i > 0 ? a.alpha : 1.0f;  // kAuto: the momentum
     if (!linf) {
-      projection_factor(a, lay, rows, pair, rank, nr, kAuto ? ph.next(kFactorHalf) : it,
+      projection_factor<kD>(a, lay, rows, pair, rank, nr, kAuto ? ph.next(kFactorHalf) : it,
                         kAuto ? ph.next(kFactor) : it, last);
       if constexpr (kAuto) {
         // z projected and clipped, then the momentum clipped: its
@@ -1000,7 +1125,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int r = 0; r < kMaxRows; ++r) {
             if (r < nr) {
-              const Row s = row_at(rows, lay, r);
+              const Row s = row_at<kD>(rows, lay, r);
               const float x = s.x[tid];
               const float z = clamp_nan(__fadd_rn(xi[r], __fmul_rn(gr[r], s.aux[1])), a.lo, a.hi);
               const float p = __fsub_rn(clamp_nan(momentum(x, z, s.xp[tid], alpha), a.lo, a.hi), xi[r]);
@@ -1011,7 +1136,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
           }
         }
         block_end(12, last);
-        projection_factor(a, lay, rows, pair, rank, nr, ph.next(kFactorHalf), ph.next(kFactor), last);
+        projection_factor<kD>(a, lay, rows, pair, rank, nr, ph.next(kFactorHalf), ph.next(kFactor), last);
       }
     }
     // the projection, the clip, repair's round trip through the scaler; the
@@ -1020,7 +1145,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int r = 0; r < kMaxRows; ++r) {
         if (r < nr) {
-          const Row s = row_at(rows, lay, r);
+          const Row s = row_at<kD>(rows, lay, r);
           const float d = linf ? clamp_nan(gr[r], -a.eps, a.eps) : __fmul_rn(gr[r], s.aux[1]);
           float x = clamp_nan(__fadd_rn(xi[r], d), a.lo, a.hi);
           if constexpr (kAuto) {
@@ -1053,18 +1178,18 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
   // the class at x_adv (kAuto: at x_best, which x took after the last
   // tracking loss)
   if (rank == 0) {
-    first_half_to_peer(wf, ws, rows, pair, lay, nr, w1);
+    first_half_to_peer<kD>(wf, ws, rows, pair, lay, nr, w1);
   } else {
     pair.take(kPartials, partial_bytes, kAuto ? ph.next(kPartials) : a.t);
-    forward_rest(a, lay, wf, ws, rows, nr, last);
+    forward_rest<kD>(a, lay, wf, ws, rows, nr, last);
     if (tid < nr)
-      a.pred[row0 + tid] = predicted_class(classes, row_at(rows, lay, tid).act + lay.act_off[a.n_layers - 1]);
+      a.pred[row0 + tid] = predicted_class(classes, row_at<kD>(rows, lay, tid).act + lay.act_off[a.n_layers - 1]);
   }
   if (owner)
-    for (int r = 0; r < nr; ++r) a.x_adv[static_cast<size_t>(row0 + r) * kD + gk] = row_at(rows, lay, r).x[tid];
+    for (int r = 0; r < nr; ++r) a.x_adv[static_cast<size_t>(row0 + r) * kD + gk] = row_at<kD>(rows, lay, r).x[tid];
   if constexpr (kAuto) {
     // every hand-off has been taken: no write to the peer is in flight
-    if (rank == 0 && tid < nr) a.eta[row0 + tid] = row_at(rows, lay, tid).au[kEta];
+    if (rank == 0 && tid < nr) a.eta[row0 + tid] = row_at<kD>(rows, lay, tid).au[kEta];
   } else {
     if (rank == 0 && a.t > 0) pair.take(kU, u_bytes, a.t - 1);  // rank 1's last writes have landed
   }
@@ -1074,10 +1199,35 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
 #endif
 }
 
+// K7b on botnet's 756 features; kAuto: AutoPGD
+template <bool kAuto>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(Dims<kBotnetFeatures>::kThreads, 1)
+    pgd_botnet_kernel(const PgdBotnetArgs a, const Layout lay) {
+  pgd_botnet_run<kAuto, kBotnetFeatures>(a, lay);
+}
+
+// K7b on the augmented domain's 756 + kPgdBotnetAugPairs features
+template <bool kAuto>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(Dims<kBotnetFeatures + kPgdBotnetAugPairs>::kThreads, 1)
+    pgd_botnet_aug_kernel(const PgdBotnetArgs a, const Layout lay) {
+  pgd_botnet_run<kAuto, kBotnetFeatures + kPgdBotnetAugPairs>(a, lay);
+}
+
+// the instantiation for rows of kD features
+template <bool kAuto, int kD>
+const void* kernel_of() {
+  if constexpr (kD == kBotnetFeatures) {
+    return reinterpret_cast<const void*>(pgd_botnet_kernel<kAuto>);
+  } else {
+    static_assert(kD == kBotnetFeatures + kPgdBotnetAugPairs, "K7b's two widths");
+    return reinterpret_cast<const void*>(pgd_botnet_aug_kernel<kAuto>);
+  }
+}
+
 // The clusters of an instantiation resident at once on the current device
 // with one CTA per SM (more than half an SM's shared memory), asked once per
 // device
-template <bool kAuto>
+template <bool kAuto, int kD>
 cudaError_t resident_clusters(LaunchCache& cache, int* clusters) {
   constexpr size_t kOnePerSm = kMaxSharedBytes / 2 + 16;
   static std::mutex mu;
@@ -1088,14 +1238,14 @@ cudaError_t resident_clusters(LaunchCache& cache, int* clusters) {
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> lock(mu);
   if (known[device] == 0) {
-    err = cache.prepare(reinterpret_cast<const void*>(pgd_botnet_kernel<kAuto>), kThreads, kOnePerSm, nullptr);
+    err = cache.prepare(kernel_of<kAuto, kD>(), Dims<kD>::kThreads, kOnePerSm, nullptr);
     if (err != cudaSuccess) return err;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(2);
-    cfg.blockDim = dim3(kThreads);
+    cfg.blockDim = dim3(Dims<kD>::kThreads);
     cfg.dynamicSmemBytes = kOnePerSm;
     int n = 0;
-    err = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(pgd_botnet_kernel<kAuto>), &cfg);
+    err = cudaOccupancyMaxActiveClusters(&n, kernel_of<kAuto, kD>(), &cfg);
     if (err != cudaSuccess) return err;
     if (n < 1) return cudaErrorLaunchOutOfResources;
     known[device] = n;
@@ -1113,14 +1263,18 @@ struct Plan {
 };
 
 // Checks `args` (n > 0), sets its rows per cluster and plans the launch of
-// the instantiation kAuto
-template <bool kAuto>
+// the instantiation kAuto for rows of kD features
+template <bool kAuto, int kD>
 cudaError_t plan_launch(PgdBotnetArgs& args, Plan& p) {
   static LaunchCache cache;
+  constexpr int kP = Dims<kD>::kP;
   const int n_layers = args.n_layers;
   if (args.n < 0 || args.t < 0 || n_layers < 2 || n_layers > kObjectiveMaxLayers || args.widths[0] != kD ||
       args.widths[n_layers] < 1 || args.widths[n_layers] > 2 || args.degree < 1 ||
-      args.degree > kPgdBotnetMaxDegree)
+      args.degree > kPgdBotnetMaxDegree || args.n_pairs != kP)
+    return cudaErrorInvalidValue;
+  // the augmented domain: its pairs' tables, and no repair (undefined there)
+  if (kP > 0 && (args.pair_idx == nullptr || args.pair_thr == nullptr || (args.flags & 2)))
     return cudaErrorInvalidValue;
   const int* c = args.counts;
   for (int s = 0; s < kBotnetSegments; ++s)
@@ -1132,7 +1286,8 @@ cudaError_t plan_launch(PgdBotnetArgs& args, Plan& p) {
   lay.ord_start[0] = 2 + c[4];
   lay.ord_start[1] = lay.ord_start[0] + c[6];
   lay.ord_start[2] = lay.ord_start[1] + c[8];
-  lay.n_terms = lay.ord_start[2] + c[10];
+  lay.n_base = lay.ord_start[2] + c[10];
+  lay.n_terms = lay.n_base + kP;
   const int cols = 3 + ((args.flags & 8) ? 1 : 0) + ((args.flags & 16) ? lay.n_terms : 0);
   if (args.hist != nullptr && args.hist_cols != cols) return cudaErrorInvalidValue;
   const int w1 = args.widths[1];
@@ -1149,15 +1304,16 @@ cudaError_t plan_launch(PgdBotnetArgs& args, Plan& p) {
     ws_floats += out_w * ((in_w | 1) + 1);
   }
   lay.ws_floats = pad4(ws_floats);
-  lay.row_floats = kRowTail + pad4(lay.n_entries) + pad4(lay.n_terms) + pad4(lay.act_floats) +
-                   (kAuto ? kAutoRowFloats : 0);
+  lay.row_floats = row_tail<kD>() + pad4(lay.n_entries) + pad4(lay.n_terms) + pad4(lay.act_floats) +
+                   (kAuto ? auto_row_floats<kD>() : 0);
   int clusters = 0;
-  cudaError_t err = resident_clusters<kAuto>(cache, &clusters);
+  cudaError_t err = resident_clusters<kAuto, kD>(cache, &clusters);
   if (err != cudaSuccess) return err;
   // rows per cluster: as few as spread N over the resident clusters, at
   // most kMaxRows and as many as fit (at least one for every stack K7b
   // takes beside botnet's gather lists)
   constexpr int kBars = kAuto ? kAutoBarFloats : kBarFloats;
+  constexpr int kHP = Dims<kD>::kHP;
   const long fixed = kBars + static_cast<long>(w1) * kHP + lay.ws_floats + pad4(lay.n_entries);
   const long fit = (static_cast<long>(kMaxSharedBytes / sizeof(float)) - fixed) / lay.row_floats;
   args.rows = static_cast<int>(std::min<long>(std::min(kMaxRows, (args.n + clusters - 1) / clusters), fit));
@@ -1166,46 +1322,70 @@ cudaError_t plan_launch(PgdBotnetArgs& args, Plan& p) {
                             static_cast<size_t>(args.rows) * lay.row_floats);
   p.clusters = clusters;
   p.grid = 2 * ((args.n + args.rows - 1) / args.rows);
-  return cache.prepare(reinterpret_cast<const void*>(pgd_botnet_kernel<kAuto>), kThreads, p.smem, nullptr);
+  return cache.prepare(kernel_of<kAuto, kD>(), Dims<kD>::kThreads, p.smem, nullptr);
+}
+
+template <bool kAuto, int kD>
+cudaError_t launch(PgdBotnetArgs args, cudaStream_t stream) {
+  Plan p;
+  const cudaError_t err = plan_launch<kAuto, kD>(args, p);
+  if (err != cudaSuccess) return err;
+  if (kAuto && (args.tctr < -1 || args.tctr >= p.lay.n_terms)) return cudaErrorInvalidValue;
+  if constexpr (kD == kBotnetFeatures) {
+    pgd_botnet_kernel<kAuto><<<p.grid, Dims<kD>::kThreads, p.smem, stream>>>(args, p.lay);
+  } else {
+    pgd_botnet_aug_kernel<kAuto><<<p.grid, Dims<kD>::kThreads, p.smem, stream>>>(args, p.lay);
+  }
+  return cudaGetLastError();
+}
+
+// the plan of the instantiation that takes `args` (PGD or AutoPGD, 756 or
+// 756 + kPgdBotnetAugPairs features), and its threads per CTA
+cudaError_t plan_any(PgdBotnetArgs& args, bool autopgd, Plan& p, int* threads) {
+  constexpr int kAug = kBotnetFeatures + kPgdBotnetAugPairs;
+  const bool aug = args.n_pairs > 0;
+  *threads = aug ? Dims<kAug>::kThreads : Dims<kBotnetFeatures>::kThreads;
+  if (aug) return autopgd ? plan_launch<true, kAug>(args, p) : plan_launch<false, kAug>(args, p);
+  return autopgd ? plan_launch<true, kBotnetFeatures>(args, p) : plan_launch<false, kBotnetFeatures>(args, p);
 }
 
 }  // namespace
 
 cudaError_t launch_pgd_botnet(PgdBotnetArgs args, cudaStream_t stream) {
   if (args.n == 0) return cudaSuccess;
-  Plan p;
+  constexpr int kAug = kBotnetFeatures + kPgdBotnetAugPairs;
+  const bool aug = args.n_pairs > 0;
   if (args.flags & 32) {
     if (args.is_ckpt == nullptr || args.ckpt_thr == nullptr || args.eta == nullptr) return cudaErrorInvalidValue;
-    const cudaError_t err = plan_launch<true>(args, p);
-    if (err != cudaSuccess) return err;
-    if (args.tctr < -1 || args.tctr >= p.lay.n_terms) return cudaErrorInvalidValue;
-    pgd_botnet_kernel<true><<<p.grid, kThreads, p.smem, stream>>>(args, p.lay);
-  } else {
-    const cudaError_t err = plan_launch<false>(args, p);
-    if (err != cudaSuccess) return err;
-    pgd_botnet_kernel<false><<<p.grid, kThreads, p.smem, stream>>>(args, p.lay);
+    return aug ? launch<true, kAug>(args, stream) : launch<true, kBotnetFeatures>(args, stream);
   }
-  return cudaGetLastError();
+  return aug ? launch<false, kAug>(args, stream) : launch<false, kBotnetFeatures>(args, stream);
 }
 
-// K7b's launch at n rows of the stack `widths` (n_layers + 1 widths) and the
-// gather lists `counts`, as the launcher plans it on the current device for
-// PGD, or AutoPGD where `autopgd`: out = [rows per cluster, CTAs per
-// cluster, CTAs, threads per CTA, dynamic shared memory bytes per CTA,
-// clusters resident at once]
-extern "C" int moeva_pgd_botnet_shape(const int* widths, int n_layers, const int* counts, int n, int autopgd,
-                                      int* out) {
+// K7b's launch at n rows of the stack `widths` (n_layers + 1 widths), the
+// gather lists `counts` and n_pairs XOR pairs (0 on the base domain), as the
+// launcher plans it on the current device for PGD, or AutoPGD where
+// `autopgd`: out = [rows per cluster, CTAs per cluster, CTAs, threads per
+// CTA, dynamic shared memory bytes per CTA, clusters resident at once]
+extern "C" int moeva_pgd_botnet_shape(const int* widths, int n_layers, const int* counts, int n_pairs, int n,
+                                      int autopgd, int* out) {
   PgdBotnetArgs args{};
   args.n = n;
   args.degree = 1;
   args.n_layers = n_layers;
+  args.n_pairs = n_pairs;
+  // the plan checks that the tables are given, not what they hold
+  static const int32_t kNoPairIdx[2] = {0, 0};
+  static const float kNoPairThr[2] = {0.0f, 0.0f};
+  args.pair_idx = kNoPairIdx;
+  args.pair_thr = kNoPairThr;
   for (int l = 0; l <= n_layers && l <= kObjectiveMaxLayers; ++l) args.widths[l] = widths[l];
   for (int s = 0; s < kBotnetSegments; ++s) args.counts[s] = counts[s];
   Plan p;
-  const cudaError_t err =
-      n <= 0 ? cudaErrorInvalidValue : (autopgd ? plan_launch<true>(args, p) : plan_launch<false>(args, p));
+  int threads = 0;
+  const cudaError_t err = n <= 0 ? cudaErrorInvalidValue : plan_any(args, autopgd != 0, p, &threads);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int shape[6] = {args.rows, 2, p.grid, kThreads, static_cast<int>(p.smem), p.clusters};
+  const int shape[6] = {args.rows, 2, p.grid, threads, static_cast<int>(p.smem), p.clusters};
   for (int i = 0; i < 6; ++i) out[i] = shape[i];
   return 0;
 }

@@ -612,16 +612,22 @@ def test_one_run_sends_each_set_to_its_kernels_autopgd_instantiation(setup, botn
 
 def test_the_card_refuses_autopgd_off_lcld(tmp_path, monkeypatch):
     """On the card AutoPGD runs wherever constrained PGD has a kernel: the
-    augmented botnet domain, whose PGD kernel is ROADMAP queue B's "K7b at
-    927", is refused by name before any tensor reaches the device (here
-    there is none)."""
+    augmented botnet domain reaches K7b's AutoPGD instantiation (a card
+    pretended here, ``kernels.pgd_botnet`` stood in for) with its pairs'
+    tables, and the refusal is gone."""
     cons, sur, scaler, _ = synthetic_botnet_augmented_problem(str(tmp_path), 8)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    moved = []
-    monkeypatch.setattr(torch.nn.Module, "to", lambda self, *a, **k: moved.append(a) or self)
-    with pytest.raises(NotImplementedError, match="BotnetAugmentedConstraints has no PGD kernel.*K7b at 927"):
-        AutoPGD(sur, cons, scaler)
-    assert not moved
+    calls = []
+    monkeypatch.setattr(kernels, "pgd_botnet", lambda *a, **k: calls.append((a, k)) or (
+        "x_best", "pred", "hist", "eta"))
+    atk = AutoPGD(sur, cons, scaler, loss_evaluation="autopgd+constraints+flip", max_iter=3, device="cpu")
+    sched = atk.schedule(4.0, 4.0 / 3, 3)
+    assert atk.one_run(_FakeCard(), "y", "start", sched, 4.0) == ("x_best", "pred", "hist")
+    (args, kw), = calls
+    assert args[0] is atk.tables and args[1] is sched.pgd and kw == {"auto": sched.auto}
+    assert args[5:] == (4.0, atk.clip, True, False, False, None)  # L-inf, the default norm
+    tables = args[0].cons
+    assert tables.pair_idx.shape == (171, 2) and tables.pair_thr.shape == (171, 2)
+    assert atk.tables.scale.shape == (927,) and atk.last_eta == "eta"
     assert not hasattr(autopgd_module, "NO_AUTOPGD_KERNEL")
 
 

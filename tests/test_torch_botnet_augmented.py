@@ -251,8 +251,9 @@ def test_smooth_vjp_matches_jax_grad(baug, ctr):
 
 def test_pgd_gradient_matches_jax_and_the_card_refuses(baug, monkeypatch):
     """``grad_and_terms_plain`` over the augmented set against JAX's
-    ``jax.grad`` path in float64; on the card, constrained PGD on the set is
-    refused by name before anything launches."""
+    ``jax.grad`` path in float64; the card no longer refuses constrained
+    PGD on the set: K7b's augmented instantiation takes it, as the base
+    domain's K7b takes botnet."""
     cons, scaler = baug["cons"], baug["scaler"]
     t = 10
     ja = JPGD(classifier=baug["jsur"], constraints=baug["jcons"], scaler=JMinMax(scaler.scale, scaler.min_),
@@ -268,13 +269,16 @@ def test_pgd_gradient_matches_jax_and_the_card_refuses(baug, monkeypatch):
                                sched.w_cons[0], -1, False)
     for name, w, g in zip(("grad", "per", "loss_class", "cons", "g"), want, got):
         close_as_pgd(g.numpy(), w, torch.float64, name)
-    # the refusal: its reason names the roadmap item, and the card's path
-    # raises it before any tensor reaches the device
-    assert 'K7b at 927' in card_refusal(cons) and card_refusal(BotnetConstraints(
+    # no refusal on either domain: both have K7b, the augmented set its
+    # 927-feature instantiation with the pairs' tables
+    assert card_refusal(cons) is None and card_refusal(BotnetConstraints(
         baug["paths"]["features"], str(baug["dir"] / "constraints.csv"))) is None
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="BotnetAugmentedConstraints has no PGD kernel.*K7b at 927"):
-        ConstrainedPGD(sur, cons, scaler)
+    assert cons.pgd_kernel == "botnet" and not hasattr(cons, "no_pgd_kernel")
+    tables = ta.tables.cons
+    assert tables.pair_idx.shape == (171, 2) and tables.pair_idx.dtype == torch.int32
+    assert tables.pair_thr.dtype == torch.float32 and tables.inverse.shape[0] == D
+    # the inverse table gives the pair columns no entry
+    assert (tables.inverse[756:] == -1).all()
 
 
 # -- MoEvA: the objectives and the runner -----------------------------------------

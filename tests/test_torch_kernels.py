@@ -48,7 +48,7 @@ from moeva2_ijcai22_replication_tpu_torch.models.train import stack_tensors
 from moeva2_ijcai22_replication_tpu_torch.domains.lcld import LcldConstraints
 from moeva2_ijcai22_replication_tpu_torch.domains.synth import synth_lcld_schema
 from moeva2_ijcai22_replication_tpu_torch.problems import (
-    BOTNET_AUGMENTED_EDGE_ROWS, LCLD_AUGMENTED_EDGE_ROWS, LCLD_IMMUTABLE_TERMS, botnet_augmented_edge_rows,
+    BOTNET_AUGMENTED_EDGE_ROWS, BOTNET_EDGE_ROWS, LCLD_AUGMENTED_EDGE_ROWS, LCLD_IMMUTABLE_TERMS, botnet_augmented_edge_rows,
     botnet_edge_starts, botnet_hard_candidates, lcld_augmented_edge_rows, lcld_immutable_repair_rows,
     lcld_immutable_term_schema, synthetic_botnet_augmented_problem, synthetic_botnet_pgd_problem,
     phishing_problem, spec_candidates, spec_edge_rows, synthetic_botnet_problem, synthetic_botnet_spec_problem,
@@ -529,7 +529,7 @@ def test_launch_counts_reset():
         "objective_botnet_aug_hist": 0, "objective_spec": 0, "objective_spec_hist": 0, "pgd_spec": 0,
         "pgd_spec_auto": 0, "train_step": 0, "train_loss": 0, "input_grad": 0, "draws": 0, "pgd_start": 0,
         "chunk_prepare": 0, "chunk_decode": 0, "refdirs": 0, "restart": 0, "forward_labels": 0,
-        "forward_proba1": 0,
+        "forward_proba1": 0, "pgd_botnet_aug": 0, "pgd_botnet_aug_auto": 0,
     }
 
 
@@ -1321,6 +1321,96 @@ def test_pgd_botnet_wrapper_refuses_cpu_tensors_and_other_stacks(tmp_path):
         run(atk.tables._replace(layers=layers), xi)
     with pytest.raises(ValueError, match="botnet gather tables"):
         run(atk.tables._replace(cons=None), xi)
+    assert kernels.launch_counts() == before
+
+
+# -- K7b at 927: the augmented botnet domain -----------------------------------------
+
+
+@pytest.fixture(scope="module")
+def pgd_botnet_aug_problem(tmp_path_factory):
+    """rq2.botnet's 387 synthetic states of the augmented domain (927
+    features, 531 terms), its seeded surrogate and scaler; the scaled rows,
+    and starts with the base terms' edges in the first rows
+    (``problems.botnet_edge_starts``) and the pair terms' after them
+    (``problems.botnet_augmented_edge_rows``)."""
+    cons, sur, scaler, x = synthetic_botnet_augmented_problem(str(tmp_path_factory.mktemp("pgd_botnet_aug")), 387)
+    xs = scaler.transform(x)
+    starts = botnet_edge_starts(cons.schema.names, scaler, xs)
+    r = BOTNET_EDGE_ROWS
+    rows = botnet_augmented_edge_rows(x[r:r + BOTNET_AUGMENTED_EDGE_ROWS], cons.important_features, np.float64)
+    starts[r:r + BOTNET_AUGMENTED_EDGE_ROWS] = scaler.transform(rows)
+    return cons, sur, scaler, xs.astype(np.float32), starts
+
+
+PGD_BOTNET_AUG_CASES = (
+    dict(loss_evaluation="constraints+flip+adaptive_eps_step", norm=2, record_loss="full", record_grad_norm=True),
+    dict(loss_evaluation="constraints", norm=np.inf, constraints_optim="alt_constraints", record_loss="full"),
+    dict(loss_evaluation="constraints+flip+constraints", constraints_optim="single_constraints", ctr_id=400, norm=2,
+         targeted=True, record_loss="reduced"),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("auto", [False, True], ids=["pgd", "autopgd"])
+@pytest.mark.parametrize("n,t", [(1, 7), (66, 4), (67, 4), (265, 3), (331, 3), (387, 12)])
+@pytest.mark.parametrize("case", range(len(PGD_BOTNET_AUG_CASES)))
+def test_pgd_botnet_aug_equals_plain(card, pgd_botnet_aug_problem, case, n, t, auto):
+    # 5 rows a cluster fit at 927 features under PGD, 4 under AutoPGD: 330
+    # and 264 rows on the 66 resident clusters, 331 and 265 a second wave
+    cons, sur, scaler, xs, starts = pgd_botnet_aug_problem
+    knobs = dict(PGD_BOTNET_AUG_CASES[case])
+    if auto:
+        knobs["loss_evaluation"] = "autopgd+" + knobs["loss_evaluation"]
+    eps = 0.3 if knobs["norm"] == 2 else 0.05
+    step = eps / 3 if auto else 0.1
+    atk = (AutoPGD if auto else ConstrainedPGD)(sur, cons, scaler, eps=eps, eps_step=step, device=card, **knobs)
+    sched = atk.schedule(eps, step, t)
+    args = _pgd_botnet_args(card, xs, starts, n)
+    linf = knobs["norm"] == np.inf
+    counter = "pgd_botnet_aug_auto" if auto else "pgd_botnet_aug"
+    before = kernels.launch_counts()
+    extra = {"auto": sched.auto} if auto else {}
+    got = kernels.pgd_botnet(atk.tables, sched.pgd if auto else sched, *args, eps, atk.clip, linf, False,
+                             atk.targeted, atk.history_layout(), **extra)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after[counter] == before[counter] + 1 and after["pgd_botnet"] == before["pgd_botnet"]
+    plain = autopgd_run_plain if auto else pgd_run_plain
+    want = plain(atk.tables, cons, sched, *args, eps, atk.clip, atk.norm, False, atk.targeted, atk.history_layout())
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or _same(g, w)
+
+
+@pytest.mark.cuda
+def test_pgd_generate_on_botnet_aug_is_one_launch_per_run(card, pgd_botnet_aug_problem):
+    cons, sur, scaler, xs, _ = pgd_botnet_aug_problem
+    y = np.arange(len(xs)) % 2
+    knobs = dict(eps=4.0 - 1e-6, eps_step=0.1, max_iter=20, norm=2, loss_evaluation="constraints+flip")
+    kernels.reset_launch_counts()
+    a = ConstrainedPGD(sur, cons, scaler, device=card, **knobs).generate(xs, y)
+    assert kernels.launch_counts() == {**{k: 0 for k in kernels.launch_counts()}, "pgd_botnet_aug": 1}
+    cpu = ConstrainedPGD(sur, cons, scaler, device="cpu", **knobs).generate(xs, y)
+    assert ((a == cpu) | (np.isnan(a) & np.isnan(cpu))).all()
+
+
+def test_pgd_botnet_aug_wrapper_refuses_repair_other_widths_and_cpu_tensors(tmp_path):
+    """On the augmented domain the wrapper refuses repair (the set has
+    none), rows of another width than 756 + P, and CPU tensors, before it
+    builds anything."""
+    cons, sur, scaler, x = synthetic_botnet_augmented_problem(str(tmp_path), 4)
+    atk = ConstrainedPGD(sur, cons, scaler, device="cpu", max_iter=2)
+    xi = torch.as_tensor(scaler.transform(x), dtype=torch.float32)
+    y = torch.zeros(4, dtype=torch.int64)
+    run = lambda x_, repair: kernels.pgd_botnet(  # noqa: E731
+        atk.tables, atk.schedule(0.3, 0.1, 2), x_, y, x_, 0.3, (0.0, 1.0), False, repair, False)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="no repair on the augmented domain"):
+        run(xi, True)
+    with pytest.raises(ValueError, match=r"756 \+ P on the augmented domain.*got 756 features and 171 pairs"):
+        run(xi[:, :756], False)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        run(xi, False)
     assert kernels.launch_counts() == before
 
 

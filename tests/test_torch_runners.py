@@ -340,12 +340,17 @@ def test_cached_engine_takes_init_eps_and_ratio(artifacts, tmp_path):
     common.ENGINES.clear()
 
 
+class _Reached(Exception):
+    """Raised by the stand-in kernel once the run has reached it."""
+
+
 def test_autopgd_on_botnet_is_refused_on_the_card_before_any_device_work(tmp_path, monkeypatch):
     """AutoPGD runs on the card wherever constrained PGD has a kernel, the
-    base botnet domain too; on the augmented botnet domain (``device="cuda"``,
-    a card pretended here) the runner's engine refuses it by name, ROADMAP
-    queue B's "K7b at 927", before any tensor reaches the device, and no
-    result is written."""
+    augmented botnet domain too: on a pretended card (every tensor reads
+    ``is_cuda``, the labels' and the run's kernels stood in for) the runner
+    reaches ``kernels.pgd_botnet``, K7b, with the set's 927-feature rows and
+    its pairs' tables."""
+    from moeva2_ijcai22_replication_tpu_torch import kernels
     from moeva2_ijcai22_replication_tpu_torch.models.io import save_params
     from moeva2_ijcai22_replication_tpu_torch.problems import synthetic_botnet_augmented_problem
 
@@ -355,14 +360,26 @@ def test_autopgd_on_botnet_is_refused_on_the_card_before_any_device_work(tmp_pat
     save_npz(scaler, str(tmp_path / "scaler.npz"))
     art = {"dir": tmp_path, "paths": {"features": str(tmp_path / "features_augmented.csv"),
                                       "constraints": str(tmp_path / "constraints_augmented.csv")}}
-    cfg = _config(art, tmp_path / "out", "pgd", scaler="scaler.npz", budget=5, eps=4.0,
+    cfg = _config(art, tmp_path / "out", "pgd", scaler="scaler.npz", budget=5, eps=4.0, nb_random=0,
                   loss_evaluation="autopgd+constraints+flip", project_name="botnet_augmented")
     cfg["paths"]["important_features"] = str(tmp_path / "important_features_19.npy")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    calls = []
+
+    def pgd_botnet(*args, **kw):
+        calls.append((args, kw))
+        raise _Reached
+
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True), raising=False)
+    monkeypatch.setattr(kernels, "forward_labels", lambda x, params, widths: torch.zeros(len(x), dtype=torch.int64))
+    monkeypatch.setattr(kernels, "pgd_botnet", pgd_botnet)
     common.ENGINES.clear()
-    with pytest.raises(NotImplementedError, match="K7b at 927") as exc:
-        ppgd.run(cfg, device="cuda")
-    assert "BotnetAugmentedConstraints" in str(exc.value)
+    with pytest.raises(_Reached):
+        ppgd.run(cfg, device="cpu")
+    common.ENGINES.clear()
+    (args, kw), = calls
+    tables, x_init = args[0], args[2]
+    assert tuple(x_init.shape) == (8, 927) and kw["auto"] is not None
+    assert tables.cons.pair_idx.shape == (171, 2) and tables.cons.pair_thr.dtype == torch.float32
     assert not [f for f in os.listdir(tmp_path / "out") if f.startswith(("metrics_", "x_attacks_"))]
 
 
