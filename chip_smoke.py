@@ -394,6 +394,7 @@ result when CUDA is missing or the port's package is not beside this script.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -445,7 +446,7 @@ def nvidia_smi_line() -> str:
 #: kernels whose ptxas report must show no spill
 REDESIGNED = ("objective_lcld_kernel", "survive_fill_kernel", "survive_norm_kernel", "offspring_kernel",
               "nd_peel_kernel", "associate_kernel", "pgd_lcld_kernel", "pgd_botnet_kernel", "gate_stats_kernel",
-              "take_kernel")
+              "take_kernel", "refdirs_kernel", "forward_kernel")
 
 
 def ptxas_resources(build_log: str) -> list:
@@ -7428,6 +7429,18 @@ REFDIRS_ITERS = 3000
 #: the softmax backward; Adam's 13 a dimension)
 REFDIRS_OPS_PER_PAIR = 15
 REFDIRS_OPS_PER_POINT = 70
+#: K14's dependent float64 operations a step besides the n - 1 additions
+#: of a point's ordered sum over j, for 3 dimensions, counted from its
+#: source with exp, pow, a division and a square root as one each: the
+#: softmax (a subtraction and exp, 2 maxima, 2 additions, a division: 7), a
+#: weight (a difference, its square, 2 additions, pow: 5), the sum's first
+#: term (a difference and a product: 2) and the gradient, softmax backward
+#: and Adam (15)
+REFDIRS_CHAIN_PER_STEP = 29
+#: K14's cluster barrier at 16 CTAs, in cycles of the card's maximum SM
+#: clock: 3000 steps of a copy of K14 that runs nothing but the barrier
+#: took 2.38 ms on the H100 (``tools/probe_stages.py``, PERF.md)
+CLUSTER_BARRIER_CYCLES = 1570
 #: K15 at the AutoPGD runner's shape (rq1.lcld's 4000 states x 47 features,
 #: one start, no history), held over 3 starts with a (T, N, C) history too
 RESTART_SHAPE = (4000, 47)
@@ -7486,6 +7499,32 @@ def refdirs_math_differs(theta_host, z_card) -> dict:
     return out
 
 
+def refdirs_floor_ms(n: int, steps: int, mhz: float) -> float:
+    """K14's latency floor for ``n`` points and ``steps`` steps: a step's
+    longest path, ``REFDIRS_CHAIN_PER_STEP`` dependent operations and the
+    n - 1 additions of a point's ordered sum each at
+    ``CYCLES_PER_DEPENDENT_OP`` cycles, and one cluster barrier, at the
+    card's maximum SM clock (exp, pow, divisions and roots counted as one
+    operation: a floor, not an estimate)."""
+    cycles = (REFDIRS_CHAIN_PER_STEP + n - 1) * CYCLES_PER_DEPENDENT_OP + CLUSTER_BARRIER_CYCLES
+    return steps * cycles / (mhz * 1e6) * 1e3
+
+
+def refdirs_shape(n: int, n_dim: int = 3) -> dict:
+    """K14's launch for ``n`` points as its launcher plans it on the current
+    card (``moeva_refdirs_shape``)."""
+    import ctypes
+
+    from moeva2_ijcai22_replication_tpu_torch.kernels import build
+
+    lib = build.library()
+    out = (ctypes.c_int * 5)()
+    err = lib.moeva_refdirs_shape(n, n_dim, out)
+    if err:
+        raise RuntimeError(f"moeva_refdirs_shape failed: {lib.moeva_error_string(err).decode()}")
+    return dict(zip(("ctas", "points_per_cta", "tile", "threads", "smem_bytes"), out))
+
+
 def check_refdirs(device, smi: str, moeva, knobs, x) -> tuple:
     """K14 against ``energy_descent_plain`` on the card bit for bit at every
     size of ``REFDIRS_POINTS`` and 3000 steps, against the twin on the host
@@ -7503,6 +7542,7 @@ def check_refdirs(device, smi: str, moeva, knobs, x) -> tuple:
 
     n = moeva.n_pop
     sched = refdirs.descent_schedule(REFDIRS_ITERS).to(device)
+    mhz = max_sm_clock_mhz()
     shapes = {}
     for pts in REFDIRS_POINTS:
         theta = torch.as_tensor(refdirs.start_point(3, pts, 1), device=device)
@@ -7527,15 +7567,20 @@ def check_refdirs(device, smi: str, moeva, knobs, x) -> tuple:
         wrapper = cuda_ms(lambda: kernels.refdirs(theta, sched, 4.0), launches=1, repeats=3)
         bound = bound_ms(8 * (2 * 3 * pts + 3 * REFDIRS_ITERS), 0,
                          REFDIRS_ITERS * (REFDIRS_OPS_PER_PAIR * pts * pts + REFDIRS_OPS_PER_POINT * pts))
+        floor = refdirs_floor_ms(pts, REFDIRS_ITERS, mhz)
+        launch = refdirs_shape(pts)
         shapes[pts] = dict(ms=ms, wrapper_ms=wrapper, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
-                           **diffs)
+                           ceiling_ms=floor, launch=launch, **diffs)
         log(f"[refdirs] refdirs (K14) equals energy_descent_plain bit for bit at {pts} points x {REFDIRS_ITERS} "
             f"steps on the card (plain version {plain_ms:.1f} ms){host}; the card's float64 exp and pow against "
             f"the host's on the same inputs: {diffs['softmax']} of {got.numel()} softmax entries of the start, "
             f"{diffs['pow_start']} and {diffs['pow_end']} of {diffs['weights']} weights at the start and at K14's "
             f"points differ")
-        log(f"[refdirs] refdirs (K14) at {pts} points x {REFDIRS_ITERS} steps, one CTA: device {ms:.3f} ms, through "
-            f"the wrapper {wrapper:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}) on {smi}")
+        log(f"[refdirs] refdirs (K14) at {pts} points x {REFDIRS_ITERS} steps: device {ms:.3f} ms, through "
+            f"the wrapper {wrapper:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}), latency floor {floor:.3f} ms (at "
+            f"{mhz:.0f} MHz; {ms / floor:.2f}x) on {smi}; launch: a cluster of {launch['ctas']} CTAs of "
+            f"{launch['threads']} threads, {launch['points_per_cta']} points a CTA, weight tiles of "
+            f"{launch['tile']} points j, {launch['smem_bytes']} bytes of shared memory a CTA")
 
     def refuse(*args, **kwargs):
         raise AssertionError("an engine on the card ran the energy descent's plain version")
@@ -7569,7 +7614,8 @@ def check_refdirs(device, smi: str, moeva, knobs, x) -> tuple:
     first = shapes[n]
     rec = stage_record("refdirs", "refdirs.cu", "moeva2_ijcai22_replication_tpu/attacks/moeva/refdirs.py:94",
                        first["ms"], first["wrapper_ms"], first["plain_ms"], (first["bound_ms"], first["bound_by"]),
-                       None, shape=f"{n}x3x{REFDIRS_ITERS}", points={str(k): v for k, v in shapes.items()},
+                       None, shape=f"{n}x3x{REFDIRS_ITERS}", ceiling_ms=first["ceiling_ms"], launch=first["launch"],
+                       points={str(k): v for k, v in shapes.items()},
                        fresh_engine_s=built_s, fresh_engine_generate_s=first_s)
     return rec, launches["refdirs"]
 
@@ -7645,10 +7691,11 @@ def check_forward(device, smi: str) -> tuple:
     """K16's two instantiations against their plain versions on the card
     bit for bit (labels: ``predict_plain``'s semantics; proba1:
     ``proba1_plain``) on LCLD's, botnet's and augmented botnet's seeded
-    stacks at ``FORWARD_SHAPES``, with a NaN row; each timed at LCLD's shape beside its
-    plain version, its bound and, as the library figure, the model's own
-    ``nn.Linear`` forward and softmax (device time from a CUDA graph, as the
-    kernel's, and launched eagerly); and ``experiments.defense.proba1``
+    stacks at ``FORWARD_SHAPES``, with a NaN row; each timed at every
+    stack's shape beside its bound and, as the library figure, the model's
+    own ``nn.Linear`` forward and softmax (device time from a CUDA graph, as
+    the kernel's), and at LCLD's also through the wrapper, beside its plain
+    version and the library launched eagerly; and ``experiments.defense.proba1``
     on the card, launch counts set to 0 just before and read just after.
     Returns (records, proba1's launches)."""
     import torch
@@ -7678,36 +7725,43 @@ def check_forward(device, smi: str) -> tuple:
         hold_equal(p1, want, f"forward_proba1 (K16) on {name}")
         log(f"[forward] forward_labels and forward_proba1 (K16) equal their plain versions bit for bit on {name}'s "
             f"stack {w} at {n_lab} and {n_p1} rows (a NaN row each); labels of class 1: {int(labels.sum())}")
-        if name == "lcld":
-            lib_model = model.to(device)
-            lib_model64 = lcld_mlp(seed=11).to(device=device, dtype=torch.float64)
-            n_params = sum(a * b + b for a, b in zip(w[:-1], w[1:]))
-            ops = 2 * sum(a * b for a, b in zip(w[:-1], w[1:]))
-            for kind, x_t, params, layers, call, plain_fn, lib, size in (
-                ("forward_labels", x32, p32, layers32, kernels.forward_labels,
-                 lambda: torch.argmax(mlp_proba_plain(layers32, x32), dim=-1),
-                 lambda: torch.softmax(lib_model(x32), dim=-1), 4),
-                ("forward_proba1", x64, p64, layers64, kernels.forward_proba1,
-                 lambda: proba1_plain(layers64, x64),
-                 lambda: torch.softmax(lib_model64(x64), dim=-1), 8),
-            ):
-                rows = x_t.shape[0]
-                ms = graph_ms(lambda: call(x_t, params, w))
-                wrapper = cuda_ms(lambda: call(x_t, params, w))
-                plain = cuda_ms(plain_fn, launches=2, repeats=3)
-                library = graph_ms(lib)
-                library_eager = cuda_ms(lib)
-                n_bytes = size * (rows * w[0] + n_params) + 8 * rows
-                bound = bound_ms(n_bytes, ops * rows if size == 4 else 0, ops * rows if size == 8 else 0)
-                timed[kind] = stage_record(
-                    kind, "mlp_forward.cu",
-                    "moeva2_ijcai22_replication_tpu/experiments/pgd.py:157" if kind == "forward_labels" else
-                    "moeva2_ijcai22_replication_tpu/experiments/defense.py:102",
-                    ms, wrapper, plain, bound, library, shape=f"{rows}x{w[0]}", library_eager_ms=library_eager)
-                log(f"[forward] {kind} (K16) at {rows} x {w[0]} ({'float32' if size == 4 else 'float64'}): device "
-                    f"{ms:.4f} ms, through the wrapper {wrapper:.4f} ms, plain {plain:.3f} ms, bound {bound[0]:.5f} "
-                    f"ms ({bound[1]}), the model's nn.Linear forward and softmax (library) {library:.4f} ms of "
-                    f"device time (a CUDA graph, as K16), {library_eager:.4f} ms launched eagerly on {smi}")
+        lib_model = model.to(device)
+        lib_model64 = copy.deepcopy(model).to(device=device, dtype=torch.float64)
+        n_params = sum(a * b + b for a, b in zip(w[:-1], w[1:]))
+        ops = 2 * sum(a * b for a, b in zip(w[:-1], w[1:]))
+        for kind, x_t, params, layers, call, plain_fn, lib, size in (
+            ("forward_labels", x32, p32, layers32, kernels.forward_labels,
+             lambda: torch.argmax(mlp_proba_plain(layers32, x32), dim=-1),
+             lambda: torch.softmax(lib_model(x32), dim=-1), 4),
+            ("forward_proba1", x64, p64, layers64, kernels.forward_proba1,
+             lambda: proba1_plain(layers64, x64),
+             lambda: torch.softmax(lib_model64(x64), dim=-1), 8),
+        ):
+            rows = x_t.shape[0]
+            ms = graph_ms(lambda: call(x_t, params, w))
+            library = graph_ms(lib)
+            n_bytes = size * (rows * w[0] + n_params) + 8 * rows
+            bound = bound_ms(n_bytes, ops * rows if size == 4 else 0, ops * rows if size == 8 else 0)
+            what = f"{kind} (K16) at {rows} x {w[0]} ({'float32' if size == 4 else 'float64'})"
+            if name != "lcld":
+                timed[kind].setdefault("other_shapes", {})[f"{rows}x{w[0]}"] = dict(
+                    ms=ms, library_ms=library, bound_ms=bound[0], bound_by=bound[1])
+                log(f"[forward] {what}, {name}'s stack: device {ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}), the "
+                    f"model's nn.Linear forward and softmax (library) {library:.4f} ms of device time (a CUDA graph, "
+                    f"as K16) on {smi}")
+                continue
+            wrapper = cuda_ms(lambda: call(x_t, params, w))
+            plain = cuda_ms(plain_fn, launches=2, repeats=3)
+            library_eager = cuda_ms(lib)
+            timed[kind] = stage_record(
+                kind, "mlp_forward.cu",
+                "moeva2_ijcai22_replication_tpu/experiments/pgd.py:157" if kind == "forward_labels" else
+                "moeva2_ijcai22_replication_tpu/experiments/defense.py:102",
+                ms, wrapper, plain, bound, library, shape=f"{rows}x{w[0]}", library_eager_ms=library_eager)
+            log(f"[forward] {what}: device {ms:.4f} ms, through the wrapper {wrapper:.4f} ms, plain {plain:.3f} ms, "
+                f"bound {bound[0]:.5f} ms ({bound[1]}), the model's nn.Linear forward and softmax (library) "
+                f"{library:.4f} ms of device time (a CUDA graph, as K16), {library_eager:.4f} ms launched eagerly on "
+                f"{smi}")
     cons, sur, scaler, x = pgd_problem()
     kernels.reset_launch_counts()
     p1 = defense.proba1(sur, scaler, x[:2000], device)

@@ -76,11 +76,13 @@ chunk_prepare_plain`` and ``chunk_decode_plain``.
 
 And, once per process and shape at an engine's construction, ``refdirs``
 (K14, ``csrc/refdirs.cu``): the reference directions' energy descent, one
-CTA; plain version ``attacks.moeva.refdirs.energy_descent_plain``. After
+cluster of up to 16 CTAs, each a block of the points; plain version
+``attacks.moeva.refdirs.energy_descent_plain``. After
 each random start of PGD or AutoPGD, ``restart`` (K15,
 ``csrc/restart.cu``): the restart arbitration; plain version
 ``attacks.pgd.engine.restart_plain``. Outside the attacks, the surrogate's
-forward (K16, ``csrc/mlp_forward.cu``): ``forward_labels``, the PGD
+forward (K16, ``csrc/mlp_forward.cu``, a CTA a tile of 16 rows over weights
+staged k-major in shared memory): ``forward_labels``, the PGD
 runner's labels in float32 (plain version ``attacks.pgd.engine.
 predict_plain``'s semantics), and ``forward_proba1``, the pipelines'
 class-1 probabilities in float64 (plain version ``models.mlp.
@@ -1453,8 +1455,8 @@ def refdirs(theta0, sched, s: float):
     """Kernel K14: the energy descent of ``attacks.moeva.refdirs.
     energy_descent_plain`` from ``theta0`` (n, n_dim) float64 over the
     schedule ``sched`` (n_iter, 3) float64 (``refdirs.descent_schedule``),
-    both on one card; returns softmax(theta) (n, n_dim) float64. One CTA,
-    2 to 1024 points of at most 4 dimensions."""
+    both on one card; returns softmax(theta) (n, n_dim) float64. One
+    cluster of CTAs, 2 to 1024 points of at most 4 dimensions."""
     from ..attacks.moeva.refdirs import ADAM_B1, ADAM_B2, ADAM_EPS
     from .build import library
 

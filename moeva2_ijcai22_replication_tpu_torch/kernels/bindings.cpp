@@ -670,6 +670,8 @@ int moeva_refdirs_f64(const void* theta0, const void* sched, void* out, int n, i
                                          static_cast<cudaStream_t>(stream)));
 }
 
+int moeva_refdirs_shape(int n, int n_dim, int* out) { return static_cast<int>(refdirs_shape(n, n_dim, out)); }
+
 int moeva_refdirs_max_points() { return kRefdirsMaxPoints; }
 
 int moeva_refdirs_max_dim() { return kRefdirsMaxDim; }

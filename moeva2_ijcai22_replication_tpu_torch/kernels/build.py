@@ -210,6 +210,8 @@ def library() -> ctypes.CDLL:
     lib.moeva_chunk_decode_f32.restype = i32
     lib.moeva_refdirs_f64.argtypes = [ptr] * 3 + [i32] * 3 + [f64] * 6 + [ptr]
     lib.moeva_refdirs_f64.restype = i32
+    lib.moeva_refdirs_shape.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.moeva_refdirs_shape.restype = i32
     lib.moeva_restart_f32.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
     lib.moeva_restart_f32.restype = i32
     for name in ("moeva_forward_labels_f32", "moeva_forward_proba1_f64"):

@@ -653,8 +653,8 @@ struct ChunkDecodeArgs {
 
 cudaError_t launch_chunk_decode(const ChunkDecodeArgs& args, cudaStream_t stream);
 
-// refdirs (K14): the reference directions' energy descent, one CTA of one
-// thread a point (at most kRefdirsMaxPoints points of at most
+// refdirs (K14): the reference directions' energy descent, one cluster of
+// CTAs, a thread a point (at most kRefdirsMaxPoints points of at most
 // kRefdirsMaxDim dimensions). theta0 and out are (n, n_dim) float64, sched
 // (n_iter, 3) float64: each step's learning rate and bias corrections
 // 1 - b1**t, 1 - b2**t; s is the energy's exponent.
@@ -669,6 +669,11 @@ struct RefdirsAdam {
 
 cudaError_t launch_refdirs(const double* theta0, const double* sched, double* out, int n, int n_dim, int n_iter,
                            double s, const RefdirsAdam& adam, cudaStream_t stream);
+
+// refdirs' launch for n points of n_dim dimensions on the current device:
+// out[0..4] = the cluster's CTAs (the grid), points a CTA, points j a
+// weight tile, threads a CTA, dynamic shared memory a CTA in bytes.
+cudaError_t refdirs_shape(int n, int n_dim, int* out);
 
 // restart (K15): PGD's arbitration after one start's run. best_x may alias
 // prev_x and best_hist prev_hist; prev_success and prev_hist are null

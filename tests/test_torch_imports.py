@@ -80,7 +80,7 @@ def test_importing_the_port_loads_no_jax():
         if f.endswith(".py")
     )
     + ["chip_smoke.py", "tools/compare_botnet_base.py", "tools/compare_lcld_base.py",
-       "tools/compare_pgd_botnet_base.py"],
+       "tools/compare_pgd_botnet_base.py", "tools/compare_main_path.py", "tools/probe_stages.py"],
 )
 def test_no_jax_import_in_source(path):
     with open(os.path.join(REPO, path)) as f:

@@ -1863,6 +1863,22 @@ def test_refdirs_equals_plain(card, n, n_iter):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_dim", [1, 2, 3, 4])
+@pytest.mark.parametrize("n", [2, 31, 100, 300, 1024])
+def test_refdirs_equals_plain_at_every_launch_shape(card, n, n_dim):
+    """K14's cluster at its edges: a CTA with no points (2 and 31 points on
+    a power-of-two cluster), one weight tile (100, 300) and several with a
+    partial last one (1024 points), 1 to 4 dimensions (1: every weight
+    pow(0, -2), NaN from the first step on, as in the plain version)."""
+    s = float(n_dim + 1)
+    theta = torch.as_tensor(start_point(n_dim, n, n + n_dim), device=card)
+    sched = descent_schedule(20).to(card)
+    got = kernels.refdirs(theta, sched, s)
+    torch.cuda.synchronize()
+    assert _same(got, energy_descent_plain(theta, s, sched))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_starts,targeted,record", [(1, False, False), (3, False, True), (3, True, True)])
 def test_restart_equals_plain(card, n_starts, targeted, record):
     rng = np.random.default_rng(n_starts + 2 * targeted)
@@ -1889,8 +1905,14 @@ def test_restart_equals_plain(card, n_starts, targeted, record):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("widths,n", [((47, 64, 32, 16, 2), 1000), ((756, 64, 64, 32, 2), 67), ((57, 16, 1), 9)])
+@pytest.mark.parametrize("widths,n", [((47, 64, 32, 16, 2), 1000), ((756, 64, 64, 32, 2), 67), ((57, 16, 1), 9),
+                                     ((131, 64, 2), 37), ((300, 256, 256, 1), 45)])
 def test_forward_equals_plain(card, widths, n):
+    """K16 bit for bit, a NaN row included: LCLD's stack (staged whole),
+    botnet's (the first layer in chunks), a 1-unit head, 131 inputs
+    (whole in float32; in float64 three chunks of the first layer, the
+    last a partial one) and 256-unit layers (chunked hidden layers, four
+    units a thread), at row counts that leave a partial tile."""
     model = MLP(widths[0], widths[1:-1], widths[-1]).reset_parameters_seeded(n)
     x = np.random.default_rng(n).uniform(-1.0, 2.0, (n, widths[0]))
     x[1, 0] = np.nan

@@ -92,3 +92,60 @@ def test_ref_points_on_the_cpu_are_the_twins_and_cached():
     assert torch.equal(got, want)
     assert tref.ref_points(3, 12, seed=3, n_iter=40) is got
     assert torch.equal(tref.ref_points(3, 1), torch.full((1, 3), 1.0 / 3, dtype=torch.float64))
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int64), b.view(torch.int64))
+
+
+def _mirrored_descent(theta: torch.Tensor, s: float, sched: torch.Tensor) -> torch.Tensor:
+    """``energy_descent_plain`` with each step's weights computed for the
+    pairs i < j only and mirrored: w_ji = w_ij, and the gradient's term
+    t_ji = w_ji (z_j - z_i) taken as -t_ij. Checks on the way that d2_ji,
+    summed from z_j - z_i, has the bits of d2_ij. The pairs' pows go
+    through one call on an (n, n) tensor, each at its (i, j) place and the
+    lower triangle a placeholder, as the plain version's call lays them out:
+    PyTorch's CPU pow rounds its vectorised body and its scalar tail
+    differently (1 ulp on one of 780 weights at 40 points, step 27, when the
+    780 pairs are one vector), where the card's pow is one function."""
+    theta = theta.clone()
+    n, d = theta.shape
+    iu, ju = torch.triu_indices(n, n, 1)
+    mu = torch.zeros_like(theta)
+    nu = torch.zeros_like(theta)
+    expo = torch.full((n, n), -s / 2.0 - 1.0, dtype=theta.dtype)
+    eps = torch.full_like(theta, tref.ADAM_EPS)
+    for lr, c1, c2 in sched.tolist():
+        z = tref._softmax_rows(theta)
+        diff = z[iu] - z[ju]
+        d2 = tref._left_to_right(diff * diff)
+        back = z[ju] - z[iu]
+        d2_ji = tref._left_to_right(back * back)
+        assert _same_bits(d2, d2_ji)
+        at = torch.ones((n, n), dtype=theta.dtype)
+        at[iu, ju] = d2
+        t = torch.pow(at, expo)[iu, ju][:, None] * diff
+        terms = torch.zeros((n, n, d), dtype=theta.dtype)
+        terms[iu, ju] = t
+        terms[ju, iu] = -t
+        g = -2.0 * s * tref._left_to_right(terms)
+        dot = tref._left_to_right(z * g)
+        g = z * (g - dot[:, None].expand_as(g))
+        mu = (1.0 - tref.ADAM_B1) * g + tref.ADAM_B1 * mu
+        nu = (1.0 - tref.ADAM_B2) * (g * g) + tref.ADAM_B2 * nu
+        mu_hat = mu / torch.full_like(mu, c1)
+        nu_hat = nu / torch.full_like(nu, c2)
+        theta = theta - lr * (mu_hat / (torch.sqrt(nu_hat) + eps))
+    return tref._softmax_rows(theta)
+
+
+@pytest.mark.parametrize("n_points,n_iter", [(8, 300), (40, 300), (100, 200)])
+def test_weights_once_a_pair_give_the_plain_descent(n_points, n_iter):
+    """Kernel K14's premise: fl(a - b) = -fl(b - a), so d2_ij and d2_ji are
+    the same bits, and so are their pows; w_ij (z_j - z_i) = -(w_ij (z_i -
+    z_j)) exactly. One weight a pair, mirrored, gives energy_descent_plain
+    bit for bit (float64)."""
+    theta = torch.as_tensor(tref.start_point(3, n_points, n_points))
+    sched = tref.descent_schedule(n_iter)
+    got = _mirrored_descent(theta, 4.0, sched)
+    assert _same_bits(got, tref.energy_descent_plain(theta, 4.0, sched))

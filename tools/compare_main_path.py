@@ -2,6 +2,7 @@
 """Time the main path of two trees of the port in turns on one card.
 
     python3 tools/compare_main_path.py parent=<root> change=. [--runs 6] [--botnet-runs 3] [--descent parent]
+        [--n-pop 200]
 
 Each ``name=root`` is the root of a checkout (a ``git archive`` of the
 parent unpacked under ``.torch_ext_build/``, or ``.``). The trees run in the
@@ -15,7 +16,10 @@ launches a generation, busy share), and botnet's 387 states x 1000
 generations (``chip_smoke.BOTNET_KNOBS``). With ``--descent NAME`` the
 trees of that name first time ``energy_ref_dirs(3, n)`` at 100, 200 and
 300 points from a seed no engine uses (the reference directions as that
-tree's host computes them, one fresh call each). Every line names its tree;
+tree's host computes them, one fresh call each). With ``--n-pop N`` every
+engine of the main path is built with N points (its reference directions,
+so K14's launch, at N; 100 without it, as ``main_path_engine`` builds it);
+``--botnet-runs 0`` leaves botnet out. Every line names its tree;
 the last line is the card's name and power limit. Run it through the chip
 tool; it needs one card.
 """
@@ -29,11 +33,20 @@ import sys
 CODE = r'''
 import sys, time, statistics
 name, root, runs, botnet_runs, descent = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]
+n_pop = int(sys.argv[6])
 sys.path.insert(0, root)
 import torch
 import chip_smoke as s
+import moeva2_ijcai22_replication_tpu_torch.attacks.moeva as attacks_moeva
 from moeva2_ijcai22_replication_tpu_torch.attacks.moeva import Moeva2
 from moeva2_ijcai22_replication_tpu_torch.kernels import build
+
+if n_pop:
+    class Sized(Moeva2):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **{**kwargs, "n_pop": n_pop})
+
+    attacks_moeva.Moeva2 = Sized  # main_path_engine imports it at its call
 
 build.build()
 build.library()
@@ -64,16 +77,17 @@ moeva, x, _ = s.main_path_engine(dev)
 torch.cuda.synchronize()
 built = time.perf_counter() - t0
 w = walls(moeva, x, runs)
-print(f"[compare] {name} fresh process: main_path_engine (problem and engine) {built:.4f} s, then the first "
-      f"generate {w[0]:.4f} s, together {built + w[0]:.4f} s", flush=True)
+print(f"[compare] {name} fresh process: main_path_engine (problem and engine, n_pop {moeva.n_pop}) {built:.4f} s, "
+      f"then the first generate {w[0]:.4f} s, together {built + w[0]:.4f} s", flush=True)
 print(f"[compare] {name} lcld {len(x)} x {moeva.n_gen}: cold {w[0]:.4f} s, steady median "
       f"{statistics.median(w[1:]):.4f} s, all {[round(v, 4) for v in w]}", flush=True)
 s.profile_generation(moeva, x, tag=f"[compare] {name} profile")
-cons, sur, scaler, xb, _ = s.botnet_problem()
-bot = Moeva2(sur, cons, ml_scaler=scaler, device=dev, **s.BOTNET_KNOBS)
-w = walls(bot, xb, botnet_runs)
-print(f"[compare] {name} botnet {len(xb)} x {bot.n_gen}: cold {w[0]:.4f} s, steady {[round(v, 4) for v in w[1:]]}",
-      flush=True)
+if botnet_runs:
+    cons, sur, scaler, xb, _ = s.botnet_problem()
+    bot = Moeva2(sur, cons, ml_scaler=scaler, device=dev, **s.BOTNET_KNOBS)
+    w = walls(bot, xb, botnet_runs)
+    print(f"[compare] {name} botnet {len(xb)} x {bot.n_gen}: cold {w[0]:.4f} s, steady {[round(v, 4) for v in w[1:]]}",
+          flush=True)
 '''
 
 
@@ -83,12 +97,13 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=6, help="generate calls on the main path, the first cold")
     ap.add_argument("--botnet-runs", type=int, default=3, help="generate calls on botnet, the first cold")
     ap.add_argument("--descent", default="", help="the tree name whose processes time the host descent first")
+    ap.add_argument("--n-pop", type=int, default=0, help="the main path engine's points (0: main_path_engine's 100)")
     args = ap.parse_args()
     (a, root_a), (b, root_b) = (t.split("=", 1) for t in args.trees)
     rc = 0
     for name, root in ((a, root_a), (b, root_b), (b, root_b), (a, root_a)):
         r = subprocess.run([sys.executable, "-c", CODE, name, root, str(args.runs), str(args.botnet_runs),
-                            str(int(name == args.descent))], capture_output=True, text=True)
+                            str(int(name == args.descent)), str(args.n_pop)], capture_output=True, text=True)
         keep = [line for line in r.stdout.splitlines() if line.startswith("[compare]")]
         head = [line for line in keep if " host " in line or " fresh process" in line or " lcld " in line]
         print("\n".join(head + [line for line in keep if " profile " in line][:1]
